@@ -1,0 +1,10 @@
+from .padding import pad_batch, pad_inputs, pad_ragged
+from .synthetic import synthetic_data, synthetic_ecommerce_data_schema
+
+__all__ = [
+    "pad_batch",
+    "pad_inputs",
+    "pad_ragged",
+    "synthetic_data",
+    "synthetic_ecommerce_data_schema",
+]

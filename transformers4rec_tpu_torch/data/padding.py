@@ -1,0 +1,73 @@
+"""Ragged → dense padding on the host (numpy).
+
+Counterpart of ``transformers4rec_tpu/data/padding.py`` on its numpy path.
+Every ragged column pads to one static ``(batch, max_len)`` shape;
+truncation keeps the FIRST ``max_len`` items of each session.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+NDArrayDict = Dict[str, np.ndarray]
+
+
+def pad_ragged(values: np.ndarray, offsets: np.ndarray, max_len: int) -> np.ndarray:
+    """Densify one ragged column to ``(num_rows, max_len)``, zero padded."""
+    values = np.asarray(values)
+    offsets = np.asarray(offsets).astype(np.int64)
+    num_rows = len(offsets) - 1
+    lengths = np.minimum(offsets[1:] - offsets[:-1], max_len)
+    out = np.zeros((num_rows, max_len), dtype=values.dtype)
+    # row/col target index and source index of every kept value
+    row_idx = np.repeat(np.arange(num_rows), lengths)
+    starts = np.repeat(offsets[:-1], lengths)
+    col_idx = np.arange(int(lengths.sum())) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+    out[row_idx, col_idx] = values[starts + col_idx]
+    return out
+
+
+def pad_batch(batch: NDArrayDict, padding_lengths: Dict[str, int]) -> NDArrayDict:
+    """Pad every ragged (``__values``/``__offsets``) column to its configured
+    length; 2-D dense columns listed in ``padding_lengths`` are right-padded
+    or truncated to it."""
+    out: NDArrayDict = {}
+    for key, val in batch.items():
+        if key.endswith("__offsets"):
+            continue
+        if key.endswith("__values"):
+            name = key[: -len("__values")]
+            max_len = padding_lengths.get(name)
+            if max_len is None:
+                raise ValueError(f"No padding length configured for ragged column {name!r}")
+            out[name] = pad_ragged(val, batch[f"{name}__offsets"], max_len)
+        else:
+            max_len = padding_lengths.get(key)
+            if max_len is not None and val.ndim == 2 and val.shape[1] != max_len:
+                fixed = np.zeros((val.shape[0], max_len), dtype=val.dtype)
+                keep = min(val.shape[1], max_len)
+                fixed[:, :keep] = val[:, :keep]
+                out[key] = fixed
+            else:
+                out[key] = val
+    return out
+
+
+def pad_inputs(inputs: NDArrayDict, max_sequence_length: Optional[int] = None) -> NDArrayDict:
+    """Model-entry padding: every column to ``max_sequence_length`` (the
+    longest session in the batch when ``None``)."""
+    if max_sequence_length is None:
+        seq_max = 0
+        for key, val in inputs.items():
+            if key.endswith("__offsets"):
+                seq_max = max(seq_max, int(np.max(val[1:] - val[:-1])) if len(val) > 1 else 0)
+        max_sequence_length = max(seq_max, 1)
+    lengths = {}
+    for key in inputs:
+        if key.endswith("__values"):
+            lengths[key[: -len("__values")]] = max_sequence_length
+        elif not key.endswith("__offsets"):
+            lengths[key] = max_sequence_length
+    return pad_batch(inputs, lengths)

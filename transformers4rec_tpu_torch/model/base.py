@@ -1,0 +1,271 @@
+"""Head / Model: body + prediction tasks.
+
+Counterpart of ``transformers4rec_tpu/model/base.py``. ``Model`` is an
+``nn.Module`` that holds its weights: it is initialised from a seed when it
+is built and placed on its device (CUDA unless ``device="cpu"``).
+``Model.evaluate`` streams batches through the fused evaluation path and
+returns ``{"eval_loss": ..., "eval_/next-item/ndcg_at_10": ..., ...}``.
+
+Not ported yet: training (``fit``), multi-task heads with binary or
+regression tasks, ``Head.from_schema``, extra blocks between the input
+module and the transformer, and ``save``/``load`` (serving/export.py
+writes the state dict).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..blocks.base import SequentialBlock, TransformerBlock
+from ..config.transformer import T4RecConfig
+from ..schema import ColumnSchema, Schema, ValueCount
+from ..utils.device import disable_tf32, module_device, resolve_device
+from .prediction_task import NextItemPredictionTask, TaskOutput
+
+
+def task_loss_state(outs: Dict[str, TaskOutput]) -> Dict[str, tuple]:
+    """Per-task (weighted-loss-sum, weight-sum): the sufficient statistics of
+    a dataset-level weighted-mean loss."""
+    state = {}
+    for task_name, out in outs.items():
+        w = out.loss_weight
+        w = torch.ones((), device=out.loss.device) if w is None else w.clamp_min(0.0)
+        state[task_name] = (out.loss * w, w)
+    return state
+
+
+def merge_loss_state(state: Dict[str, tuple], new: Dict[str, tuple]):
+    if not state:
+        return new
+    return {name: (state[name][0] + s, state[name][1] + w) for name, (s, w) in new.items()}
+
+
+def combine_task_losses(model, task_means: Dict[str, float]) -> float:
+    """Recombine per-task dataset-level mean losses with the head and task
+    weights ``Model.forward`` applies per batch."""
+    heads = list(model.heads)
+    hw = list(model.head_weights or [1.0] * len(heads))
+    total = 0.0
+    for w_h, head in zip(hw, heads):
+        tasks = list(head.tasks)
+        tw = list(head.task_weights or [1.0] * len(tasks))
+        h = sum(w_t * task_means.get(t.task_name, 0.0) for w_t, t in zip(tw, tasks))
+        total += w_h * h / max(sum(tw), 1e-9)
+    return float(total) / max(sum(hw), 1e-9)
+
+
+class Head(nn.Module):
+    """One body + one or more prediction tasks."""
+
+    def __init__(self, body: SequentialBlock, tasks: Sequence[nn.Module],
+                 task_weights: Optional[Sequence[float]] = None):
+        super().__init__()
+        self.body = body
+        self.tasks = nn.ModuleList(tasks)
+        self.task_weights = list(task_weights) if task_weights is not None else None
+
+    @classmethod
+    def from_body(
+        cls,
+        input_module,
+        transformer: Optional[T4RecConfig] = None,
+        tasks: Optional[Sequence[Any]] = None,
+        task_weights: Optional[Sequence[float]] = None,
+        extra_blocks: Sequence[Any] = (),
+    ) -> "Head":
+        """Wire the input module + transformer into a body and configure each
+        NextItemPredictionTask from the masking scheme and the schema."""
+        if extra_blocks:
+            raise NotImplementedError("extra blocks (MLPBlock) are not ported yet")
+        blocks: List[Any] = [input_module]
+        masking = getattr(input_module, "masking", None)
+        if transformer is not None:
+            blocks.append(TransformerBlock(transformer))
+        body = SequentialBlock(blocks)
+
+        tasks = list(tasks or [NextItemPredictionTask(weight_tying=True)])
+        for t in tasks:
+            if not isinstance(t, NextItemPredictionTask):
+                raise NotImplementedError(f"{type(t).__name__} is not ported yet")
+            if t.target_dim is None:
+                # true item vocab (tables may carry padding rows)
+                schema_ = getattr(input_module, "schema", None)
+                item_col = getattr(input_module, "item_id", None)
+                if schema_ is not None and item_col is not None:
+                    t.target_dim = schema_.categorical_cardinalities().get(item_col)
+            if masking is not None:
+                t.eval_single_target = bool(getattr(masking, "eval_on_last_item_seq_only", True))
+                t.padding_idx = getattr(masking, "padding_idx", 0)
+            t.build(body.output_size(), input_module.item_embedding_table().shape[-1])
+        return cls(body=body, tasks=tasks, task_weights=task_weights)
+
+    @property
+    def input_module(self):
+        return self.body.blocks[0]
+
+    def forward(self, inputs: Dict[str, torch.Tensor], targets=None, training: bool = False,
+                testing: bool = False, top_k: Optional[int] = None,
+                compute_metrics: bool = True):
+        pad_mask = None
+        item_id = getattr(self.input_module, "item_id", None)
+        if item_id is not None and item_id in inputs:
+            pad_mask = inputs[item_id] != getattr(self.input_module, "padding_idx", 0)
+        hidden, info = self.body(inputs, training=training, testing=testing, pad_mask=pad_mask)
+
+        weights = list(self.task_weights or [1.0] * len(self.tasks))
+        outputs: Dict[str, TaskOutput] = {}
+        total_loss = torch.zeros((), device=hidden.device)
+        inference_out = None
+        for w, task in zip(weights, self.tasks):
+            out = task(hidden, info, training=training, testing=testing, top_k=top_k,
+                       compute_metrics=compute_metrics)
+            if isinstance(out, TaskOutput):
+                outputs[task.task_name] = out
+                total_loss = total_loss + w * out.loss
+            else:
+                inference_out = out  # scores, or (scores, ids) with top_k
+        if not (training or testing):
+            return inference_out
+        return total_loss / sum(weights), outputs
+
+
+class Model(nn.Module):
+    """Multi-head model. Inference: ``model(batch, top_k=k)`` → next-item
+    scores, or ``(scores, ids)``. Evaluation: ``model(batch, testing=True)``
+    → ``(loss, {task: TaskOutput})``, or ``model.evaluate(loader)``."""
+
+    def __init__(self, heads: Sequence[Head], head_weights: Optional[Sequence[float]] = None,
+                 top_k: Optional[int] = None, device=None, seed: int = 0):
+        super().__init__()
+        self.heads = nn.ModuleList(heads)
+        self.head_weights = list(head_weights) if head_weights is not None else None
+        if self.head_weights is not None and len(self.head_weights) != len(self.heads):
+            raise ValueError(
+                f"head_weights must match the number of heads ({len(self.head_weights)} "
+                f"weights for {len(self.heads)} heads)"
+            )
+        self.top_k = top_k
+        dev = resolve_device(device)
+        # f32 products stay f32 on the GPU: the reference scores in f32 x f32
+        disable_tf32()
+        self.reset_parameters(seed)
+        self.to(dev)
+        self.eval()
+
+    def reset_parameters(self, seed: int = 0) -> None:
+        """Initialise every weight from ``seed`` with the JAX package's
+        initialisers (same distributions; the draws differ)."""
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for module in self.modules():
+                init = getattr(module, "_init_weights", None)
+                if init is not None:
+                    init(gen)
+
+    @property
+    def device(self) -> torch.device:
+        return module_device(self)
+
+    def forward(self, inputs: Dict[str, torch.Tensor], targets=None, training: bool = False,
+                testing: bool = False, top_k: Optional[int] = None,
+                compute_metrics: bool = True):
+        if training:
+            raise NotImplementedError("training belongs to the training slice of the port")
+        top_k = top_k if top_k is not None else self.top_k
+        if not testing:
+            if len(self.heads) == 1:
+                return self.heads[0](inputs, top_k=top_k)
+            return [h(inputs, top_k=top_k) for h in self.heads]
+        weights = list(self.head_weights or [1.0] * len(self.heads))
+        total = torch.zeros((), device=self.device)
+        all_outputs: Dict[str, TaskOutput] = {}
+        for w, head in zip(weights, self.heads):
+            loss, outs = head(inputs, targets=targets, testing=True,
+                              compute_metrics=compute_metrics)
+            total = total + w * loss
+            all_outputs.update(outs)
+        return total / sum(weights), all_outputs
+
+    # ------------------------------------------------------------ evaluation
+    def _as_dense(self, batch, max_sequence_length=None) -> Dict[str, torch.Tensor]:
+        """Host-side model-entry densify (ragged ``__values``/``__offsets``
+        columns pad to ``max_sequence_length``), then move to the device."""
+        if any(k.endswith("__offsets") for k in batch):
+            from ..data.padding import pad_inputs
+
+            batch = pad_inputs({k: np.asarray(v) for k, v in batch.items()},
+                               max_sequence_length)
+        dev = self.device
+        return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v).to(dev)
+                for k, v in batch.items()}
+
+    @staticmethod
+    def _ragged_max_len(batch) -> Optional[int]:
+        out = None
+        for k, v in batch.items():
+            if k.endswith("__offsets"):
+                off = np.asarray(v)
+                if len(off) > 1:
+                    out = max(out or 0, int((off[1:] - off[:-1]).max()))
+        return out
+
+    def evaluate(self, dataloader, mode: str = "eval", max_steps: Optional[int] = None,
+                 max_sequence_length: Optional[int] = None) -> Dict[str, float]:
+        """Stream batches, accumulate (sum, count) metric states on the
+        device, return flattened ``{mode_/task/metric_at_k: value}`` plus
+        ``{mode}_loss``."""
+        from .ranking_metric import finalize_metrics, update_metric_state
+
+        metric_state: Dict[str, Any] = {}
+        loss_state: Dict[str, Any] = {}
+        with torch.inference_mode():
+            for i, batch in enumerate(dataloader):
+                if max_steps is not None and i >= max_steps:
+                    break
+                if max_sequence_length is None:
+                    max_sequence_length = self._ragged_max_len(batch)
+                batch = self._as_dense(batch, max_sequence_length)
+                _, outs = self(batch, targets=batch, testing=True, compute_metrics=True)
+                metrics = {
+                    f"{task_name}/{k}": v
+                    for task_name, out in outs.items() if out.metrics
+                    for k, v in out.metrics.items()
+                }
+                loss_state = merge_loss_state(loss_state, task_loss_state(outs))
+                metric_state = (update_metric_state(metric_state, metrics)
+                                if metric_state else metrics)
+        task_means = {name: float(s) / max(float(w), 1.0) for name, (s, w) in loss_state.items()}
+        results = {f"{mode}_loss": combine_task_losses(self, task_means)}
+        for name, val in finalize_metrics(metric_state).items():
+            results[f"{mode}_/{name}"] = float(val)
+        return results
+
+    # ------------------------------------------------------------ serving I/O
+    @property
+    def input_schema(self) -> Schema:
+        """Feature columns consumed at inference."""
+        cols: List[ColumnSchema] = []
+        seen = set()
+        for head in self.heads:
+            schema = getattr(head.input_module, "schema", None)
+            if schema is None:
+                continue
+            for col in schema:
+                if col.name not in seen:
+                    seen.add(col.name)
+                    cols.append(col)
+        return Schema(cols)
+
+    def output_schema_for(self, top_k: Optional[int]) -> Schema:
+        """Scores (+ ids when ``top_k`` is set)."""
+        if top_k is not None:
+            return Schema([
+                ColumnSchema("item_id_scores", type=3,
+                             value_count=ValueCount(top_k, top_k)),
+                ColumnSchema("item_ids", type=2, value_count=ValueCount(top_k, top_k)),
+            ])
+        return Schema([ColumnSchema("next-item", type=3)])
