@@ -144,13 +144,6 @@ def test_mlm_inference_extension_puts_mask_at_len():
                                       np.asarray(getattr(want_info, f)), err_msg=f)
 
 
-def test_training_raises_not_implemented(pair):
-    _, _, tmodel = pair
-    tb = tmodel._as_dense(_batch(9, rows=2))
-    with pytest.raises(NotImplementedError):
-        tmodel(tb, targets=tb, training=True)
-
-
 def test_port_exports_its_public_names():
     assert ttr.XLNetConfig.build(32, 2, 2, 8).total_seq_length == 10
     assert set(ttr.ranking_metric.finalize_metrics(

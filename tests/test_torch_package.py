@@ -23,6 +23,7 @@ from transformers4rec_tpu_torch import flagship
 from transformers4rec_tpu_torch.ops import build
 from transformers4rec_tpu_torch.serving import InferenceRunner, ServingServer
 from transformers4rec_tpu_torch.serving.server import main as server_main
+from transformers4rec_tpu_torch.trainer import T4RecTrainingArguments, Trainer
 from transformers4rec_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parent.parent
@@ -79,7 +80,7 @@ def _without_cuda():
         pytest.skip("this machine has CUDA: the entry points would run there")
 
 
-@pytest.mark.parametrize("entry", ["model", "runner", "server", "cli"])
+@pytest.mark.parametrize("entry", ["model", "runner", "server", "cli", "trainer", "build_trainer"])
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path, entry):
     _without_cuda()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -89,20 +90,43 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path, entry):
             InferenceRunner(str(tmp_path), flagship.build_model)
         elif entry == "server":
             ServingServer(str(tmp_path), flagship.build_model, port=0)
+        elif entry == "trainer":
+            Trainer(flagship.build_model("cpu", **SMALL), T4RecTrainingArguments())
+        elif entry == "build_trainer":
+            flagship.build_trainer(**SMALL)
         else:
             server_main(["--artifact", str(tmp_path), "--model-builder",
                          "transformers4rec_tpu_torch.flagship:build_model", "--port", "0"])
     # the CPU is always there when asked for by name
     assert resolve_device("cpu") == torch.device("cpu")
     assert flagship.build_model("cpu", **SMALL).device == torch.device("cpu")
+    assert flagship.build_trainer("cpu", **SMALL).device == torch.device("cpu")
 
 
 def test_build_finds_every_cuda_source_and_each_names_its_tpu_kernel():
     srcs = build.sources()
-    assert set(srcs) == {p.stem for p in (PACKAGE / "csrc").glob("*.cu")} == {"ce_rank"}
+    replaces = {"ce_rank": "_ce_rank_kernel", "ce_fwd": "_ce_fwd_kernel_vmajor",
+                "ce_bwd": "_ce_bwd_fused_kernel_dxsc"}
+    assert set(srcs) == {p.stem for p in (PACKAGE / "csrc").glob("*.cu")} == set(replaces)
     for name, path in srcs.items():
         text = path.read_text()
-        assert "Replaces: transformers4rec_tpu/ops/vocab.py:_ce_rank_kernel" in text
+        assert f"Replaces: transformers4rec_tpu/ops/vocab.py:{replaces[name]}" in text
         assert "Bound on an H100" in text
         assert build.library_path(name).parent == build.BUILD_DIR
         assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_an_edited_shared_header_renames_every_library(tmp_path, monkeypatch):
+    """The libraries are named by a hash of source, shared headers and flags:
+    a change to ``csrc/common.cuh`` must rebuild all of them."""
+    before = {name: build.library_path(name) for name in build.sources()}
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in build.CSRC_DIR.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    assert {name: build.library_path(name) for name in build.sources()} == before
+    with open(csrc / "common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {name: build.library_path(name) for name in build.sources()}
+    assert all(after[name] != before[name] for name in before)

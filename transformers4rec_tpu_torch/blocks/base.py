@@ -37,6 +37,7 @@ class TransformerBlock(nn.Module):
         pad_mask: Optional[torch.Tensor] = None,
         training: bool = False,
         testing: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         info: Optional[MaskingInfo] = None
         if isinstance(inputs, tuple):
@@ -48,7 +49,7 @@ class TransformerBlock(nn.Module):
             pad_mask = info.pad_mask
         return self.encoder(
             inputs, pad_mask=pad_mask, perm_mask=perm_mask,
-            segment_ids=segment_ids, training=training,
+            segment_ids=segment_ids, training=training, generator=generator,
         )
 
 
@@ -71,12 +72,21 @@ class SequentialBlock(nn.Module):
         raise ValueError("No block in this SequentialBlock declares an output size")
 
     def forward(self, inputs, training: bool = False, testing: bool = False,
-                pad_mask: Optional[torch.Tensor] = None):
+                pad_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                masking_info: Optional[MaskingInfo] = None):
+        """``generator`` feeds every random draw of a training forward (the
+        mask, then dropout); ``masking_info`` hands the input module a ready
+        mask instead of a drawn one."""
         x = inputs
         info: Optional[MaskingInfo] = None
-        for block in self.blocks:
+        for i, block in enumerate(self.blocks):
             if isinstance(block, TransformerBlock):
-                x = block((x, info), pad_mask=pad_mask, training=training, testing=testing)
+                x = block((x, info), pad_mask=pad_mask, training=training, testing=testing,
+                          generator=generator)
+            elif i == 0:
+                x = block(x, training=training, testing=testing, generator=generator,
+                          masking_info=masking_info)
             else:
                 x = block(x, training=training, testing=testing)
             if isinstance(x, tuple):

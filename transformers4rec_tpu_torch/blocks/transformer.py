@@ -6,10 +6,13 @@ additive attention bias computed once per forward and shared by the layers.
 
 Ported: bidirectional or causal attention, the T5-style relative position
 bias, an optional local window, pre-LN layers with the tanh GELU and a
-final LayerNorm, in float32. Attention runs on the dense path
+final LayerNorm, in float32, and dropout in training (on the embeddings, the
+attention probabilities, the feed-forward's hidden layer and both residual
+branches, where the JAX package applies it), drawn from an explicit
+``torch.Generator``. Attention runs on the dense path
 (``MultiHeadAttention``): the JAX package switches to its flash kernel only
-at S >= 128, and the slice ported here runs at S = 21. Not ported yet:
-dropout (training), two-stream attention (``perm_mask``), session packing
+at S >= 128, and the paths ported here run at S <= 21. Not ported yet:
+two-stream attention (``perm_mask``), session packing
 (``segment_ids``), the post-LN BERT family (embedding LayerNorm, erf
 GELU), learned absolute and axial positions, segment memory, shared
 layers, per-layer attention patterns, LSH attention and the flash kernels;
@@ -31,6 +34,16 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
     """flax's default Dense kernel init: truncated normal, variance 1/fan_in."""
     std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
     nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout with the draw taken from ``generator`` (on x's
+    device). The identity when not training or p == 0: no draw is made."""
+    if not training or p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)
 
 
 def make_attention_bias(
@@ -110,9 +123,9 @@ class RelativePositionBias(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Standard multi-head attention with an additive bias (dense path)."""
 
-    def __init__(self, d_model: int, n_head: int):
+    def __init__(self, d_model: int, n_head: int, dropout: float = 0.0):
         super().__init__()
-        self.d_model, self.n_head = d_model, n_head
+        self.d_model, self.n_head, self.dropout = d_model, n_head, dropout
         self.q = nn.Linear(d_model, d_model)
         self.k = nn.Linear(d_model, d_model)
         self.v = nn.Linear(d_model, d_model)
@@ -123,8 +136,8 @@ class MultiHeadAttention(nn.Module):
             nn.init.xavier_uniform_(lin.weight, generator=generator)
             nn.init.zeros_(lin.bias)
 
-    def forward(self, query_in: torch.Tensor, kv_in: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, query_in: torch.Tensor, kv_in: torch.Tensor, bias: torch.Tensor,
+                training: bool = False, generator=None) -> torch.Tensor:
         B, Sq, _ = query_in.shape
         Sk = kv_in.shape[1]
         H, Dh = self.n_head, self.d_model // self.n_head
@@ -137,6 +150,7 @@ class MultiHeadAttention(nn.Module):
         # uniform-softmax average
         row_ok = (bias > NEG_INF / 2).any(dim=-1, keepdim=True)
         probs = probs * row_ok.to(probs.dtype)
+        probs = dropout(probs, self.dropout, training, generator)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         return self.out(ctx.reshape(B, Sq, H * Dh))
 
@@ -146,9 +160,11 @@ class TransformerLayer(nn.Module):
     feed-forward block with the tanh GELU (flax's default ``nn.gelu``), each
     on a LayerNorm of its input and added back to it."""
 
-    def __init__(self, d_model: int, n_head: int, d_ff: int, layer_norm_eps: float = 1e-12):
+    def __init__(self, d_model: int, n_head: int, d_ff: int, layer_norm_eps: float = 1e-12,
+                 dropout: float = 0.0, attn_dropout: float = 0.0):
         super().__init__()
-        self.attn = MultiHeadAttention(d_model, n_head)
+        self.dropout = dropout
+        self.attn = MultiHeadAttention(d_model, n_head, attn_dropout)
         self.ln1 = nn.LayerNorm(d_model, eps=layer_norm_eps)
         self.ln2 = nn.LayerNorm(d_model, eps=layer_norm_eps)
         self.ffn_in = nn.Linear(d_model, d_ff)
@@ -159,11 +175,15 @@ class TransformerLayer(nn.Module):
             _lecun_normal_(lin.weight, lin.in_features, generator)
             nn.init.zeros_(lin.bias)
 
-    def forward(self, hidden: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, bias: torch.Tensor, training: bool = False,
+                generator=None) -> torch.Tensor:
+        def drop(t):
+            return dropout(t, self.dropout, training, generator)
+
         x = self.ln1(hidden)
-        hidden = hidden + self.attn(x, x, bias)
-        h = F.gelu(self.ffn_in(self.ln2(hidden)), approximate="tanh")
-        return hidden + self.ffn_out(h)
+        hidden = hidden + drop(self.attn(x, x, bias, training, generator))
+        h = drop(F.gelu(self.ffn_in(self.ln2(hidden)), approximate="tanh"))
+        return hidden + drop(self.ffn_out(h))
 
 
 class TransformerEncoder(nn.Module):
@@ -179,6 +199,8 @@ class TransformerEncoder(nn.Module):
         causal: bool = False,
         pos_encoding: str = "relative_bias",
         local_window: Optional[int] = None,
+        dropout: float = 0.1,
+        attn_dropout: float = 0.0,
     ):
         super().__init__()
         if pos_encoding not in ("relative_bias", "none"):
@@ -186,9 +208,11 @@ class TransformerEncoder(nn.Module):
         self.d_model, self.n_head, self.n_layer = d_model, n_head, n_layer
         self.causal = causal
         self.local_window = local_window
+        self.dropout = dropout
         d_ff = d_ff or 4 * d_model
         self.layers = nn.ModuleList(
-            TransformerLayer(d_model, n_head, d_ff, layer_norm_eps) for _ in range(n_layer)
+            TransformerLayer(d_model, n_head, d_ff, layer_norm_eps, dropout, attn_dropout)
+            for _ in range(n_layer)
         )
         self.rel_pos = (
             RelativePositionBias(n_head, bidirectional=not causal)
@@ -203,9 +227,8 @@ class TransformerEncoder(nn.Module):
         perm_mask: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None,
         training: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        if training:
-            raise NotImplementedError("training (dropout) belongs to the training slice")
         if perm_mask is not None:
             raise NotImplementedError("two-stream attention (perm_mask) is not ported yet")
         if segment_ids is not None:
@@ -218,6 +241,7 @@ class TransformerEncoder(nn.Module):
         )
         if self.rel_pos is not None:
             bias = bias + self.rel_pos(S)
+        hidden = dropout(hidden, self.dropout, training, generator)
         for layer in self.layers:
-            hidden = layer(hidden, bias)
+            hidden = layer(hidden, bias, training, generator)
         return self.ln_f(hidden)

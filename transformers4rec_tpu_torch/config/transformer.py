@@ -88,6 +88,7 @@ class T4RecConfig:
             d_model=self.d_model, n_head=self.n_head, n_layer=self.n_layer,
             d_ff=self.d_ff, layer_norm_eps=self.layer_norm_eps, causal=self.causal,
             pos_encoding=self.pos_encoding, local_window=self.local_window,
+            dropout=self.dropout, attn_dropout=self.attn_dropout,
         )
 
     def to_model(self, input_module, *tasks, device=None, seed: int = 0, **kwargs):

@@ -13,7 +13,12 @@ for the port's counterpart module (a whole ``Model``, or a lone
   padded row count.
 
 Load the result with ``module.load_state_dict(sd)`` (strict, so a missing
-or extra weight is an error).
+or extra weight is an error). Training adds no weights, so the same rules
+serve it.
+
+``masking_info_from_jax(targets, mask, pad_mask)`` turns the arrays of the
+JAX package's ``MaskingInfo`` (numpy) into the port's, to give both packages
+the same mask (``Model(..., masking_info=...)``).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from .masking import MaskingInfo
 
 _INDEXED = {"heads": "heads", "blocks": "blocks", "tasks": "tasks",
             "projection": "projections", "layer": "layers"}
@@ -72,3 +79,16 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(tree, "", "")
     return out
+
+
+def masking_info_from_jax(targets, mask, pad_mask=None, device=None) -> MaskingInfo:
+    """numpy ``(targets, mask, pad_mask)`` of a JAX ``MaskingInfo`` → the
+    port's ``MaskingInfo`` on ``device``. Under MLM the positions replaced by
+    the [MASK] embedding are the target positions."""
+    m = torch.from_numpy(np.asarray(mask).astype(bool)).to(device)
+    return MaskingInfo(
+        targets=torch.from_numpy(np.asarray(targets).astype(np.int64)).to(device),
+        mask=m, input_schema=m,
+        pad_mask=(None if pad_mask is None
+                  else torch.from_numpy(np.asarray(pad_mask).astype(bool)).to(device)),
+    )

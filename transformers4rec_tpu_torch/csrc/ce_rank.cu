@@ -40,45 +40,11 @@
 // call. zsum is accumulated in double: it is a sum of ~V terms of both signs.
 // TMA and wgmma are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int BN = 128;       // rows per block: 8 warps x 16 rows
-constexpr int BV = 64;        // vocab columns per chunk: 8 mma n-tiles of 8
-constexpr int NT = BV / 8;    // n-tiles per chunk
-constexpr int THREADS = 256;
-constexpr float NEG = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^v on the special-function unit (relative error about 2^-22)
-__device__ __forceinline__ float ex2(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D += A (16x16, row) . B (16x8, col): bf16 inputs, f32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float x_at(const float* __restrict__ x, int N, int E, int row,
-                                      int k) {
-  return (row < N && k < E) ? x[(size_t)row * E + k] : 0.f;
-}
+using namespace t4r;
 
 // One chunk's logits of the thread's two rows (acc[j][2h + q]: row h,
 // column col0 + 8j + q) into their running (max, sum, count, zsum). CHECKED
@@ -165,14 +131,7 @@ ce_rank_partial_kernel(const float* __restrict__ x, const float* __restrict__ W,
   const int row_lo = (int)blockIdx.y * BN + warp * 16 + g;
   const int rows[2] = {row_lo, row_lo + 8};
   uint32_t a[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int k = ks * 16 + 2 * t;
-    a[ks][0] = pack_bf16(x_at(x, N, E, rows[0], k), x_at(x, N, E, rows[0], k + 1));
-    a[ks][1] = pack_bf16(x_at(x, N, E, rows[1], k), x_at(x, N, E, rows[1], k + 1));
-    a[ks][2] = pack_bf16(x_at(x, N, E, rows[0], k + 8), x_at(x, N, E, rows[0], k + 9));
-    a[ks][3] = pack_bf16(x_at(x, N, E, rows[1], k + 8), x_at(x, N, E, rows[1], k + 9));
-  }
+  load_x_fragments<KS>(x, N, E, row_lo, t, a);
 
   float m[2], s[2], llr[2];
   double zs[2];
@@ -225,15 +184,7 @@ ce_rank_partial_kernel(const float* __restrict__ x, const float* __restrict__ W,
     }
 
     float acc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      const int base = (8 * j + g) * (WS / 2) + t;  // B fragment: column 8j + g, k pair 2t
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        mma_bf16(acc[j], a[ks], ws32[base + ks * 8], ws32[base + ks * 8 + 4]);
-      }
-    }
+    score_chunk<KS, WS>(a, ws32, g, t, acc);
 
     // the label's own column is excluded from the count: ll comes from
     // another sum order and may differ from its logit in the last ulp. Only
@@ -329,8 +280,8 @@ cudaError_t launch_partial_e(dim3 grid, cudaStream_t st, const float* x, const f
 
 extern "C" {
 
-int t4r_ce_rank_block_rows() { return BN; }
-int t4r_ce_rank_chunk_cols() { return BV; }
+int t4r_ce_rank_block_rows() { return t4r::BN; }
+int t4r_ce_rank_chunk_cols() { return t4r::BV; }
 
 // Launches the partial and the merge kernel on `stream`. The caller checks
 // shapes (E a multiple of 4, at most 256), dtypes, contiguity and
@@ -343,7 +294,7 @@ int t4r_ce_rank(const float* x, const float* W, const int* labels, const float* 
                 float* lse, int* rank, float* zsum, int smooth, void* stream) {
   if (E < 4 || E > 256 || E % 4 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(splits, (N + BN - 1) / BN);
+  dim3 grid(splits, (N + t4r::BN - 1) / t4r::BN);
   cudaError_t err =
       smooth ? launch_partial_e<true>(grid, st, x, W, labels, ll, N, E, V, chunks_per_split,
                                       part_m, part_s, part_cnt, part_zs)

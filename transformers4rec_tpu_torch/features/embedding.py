@@ -16,6 +16,7 @@ import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..schema import Schema, Tags, get_embedding_size_from_cardinality
@@ -179,7 +180,9 @@ class EmbeddingFeatures(TabularBlock):
         return self.tables[self.item_id]
 
     def lookup(self, name: str, ids: torch.Tensor) -> torch.Tensor:
-        emb = self.tables[name][ids]
+        # F.embedding gathers the same rows as tables[name][ids]; its backward
+        # is the embedding's own dense scatter-add, not a generic index_put
+        emb = F.embedding(ids, self.tables[name])
         if self.mask_padding:
             emb = emb * (ids != self.padding_idx)[..., None].to(emb.dtype)
         return emb

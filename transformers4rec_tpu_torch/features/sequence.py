@@ -118,7 +118,9 @@ class TabularSequenceFeatures(TabularFeatures):
     def masking_enabled(self) -> bool:
         return self.masking is not None
 
-    def forward(self, inputs: TabularData, training: bool = False, testing: bool = False):
+    def forward(self, inputs: TabularData, training: bool = False, testing: bool = False,
+                generator: Optional[torch.Generator] = None,
+                masking_info: Optional[MaskingInfo] = None):
         if "segment_ids" in inputs:
             raise NotImplementedError("session packing (segment_ids) is not ported yet")
         item_ids = None
@@ -140,7 +142,8 @@ class TabularSequenceFeatures(TabularFeatures):
         if self.masking is not None:
             if item_ids is None:
                 raise ValueError("Masking requires an item_id column in the schema/inputs")
-            hidden, info = self.masking(hidden, item_ids, training=training, testing=testing)
+            hidden, info = self.masking(hidden, item_ids, training=training, testing=testing,
+                                        generator=generator, masking_info=masking_info)
             # thread item ids + the (tied) item table to the prediction head
             table = self.item_embedding_table() if self.item_id is not None else None
             info = info.replace(item_ids=item_ids, item_table=table)

@@ -5,8 +5,11 @@ Counterpart of ``transformers4rec_tpu/model/base.py``. ``Model`` is an
 is built and placed on its device (CUDA unless ``device="cpu"``).
 ``Model.evaluate`` streams batches through the fused evaluation path and
 returns ``{"eval_loss": ..., "eval_/next-item/ndcg_at_10": ..., ...}``.
+Training is ``loss, outputs = model(batch, training=True, generator=g)``:
+the explicit flag selects the masking's training branch and dropout, whose
+draws come from ``g`` (``trainer.Trainer`` runs the loop).
 
-Not ported yet: training (``fit``), multi-task heads with binary or
+Not ported yet: ``fit`` (the loop without a Trainer), multi-task heads with binary or
 regression tasks, ``Head.from_schema``, extra blocks between the input
 module and the transformer, and ``save``/``load`` (serving/export.py
 writes the state dict).
@@ -14,6 +17,7 @@ writes the state dict).
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -22,6 +26,7 @@ from torch import nn
 
 from ..blocks.base import SequentialBlock, TransformerBlock
 from ..config.transformer import T4RecConfig
+from ..masking import MaskedLanguageModeling, MaskingInfo
 from ..schema import ColumnSchema, Schema, ValueCount
 from ..utils.device import disable_tf32, module_device, resolve_device
 from .prediction_task import NextItemPredictionTask, TaskOutput
@@ -77,8 +82,9 @@ class Head(nn.Module):
         task_weights: Optional[Sequence[float]] = None,
         extra_blocks: Sequence[Any] = (),
     ) -> "Head":
-        """Wire the input module + transformer into a body and configure each
-        NextItemPredictionTask from the masking scheme and the schema."""
+        """Wire the input module + transformer into a body and configure a
+        copy of each NextItemPredictionTask from the masking scheme and the
+        schema (the task objects given stay as they were)."""
         if extra_blocks:
             raise NotImplementedError("extra blocks (MLPBlock) are not ported yet")
         blocks: List[Any] = [input_module]
@@ -87,10 +93,11 @@ class Head(nn.Module):
             blocks.append(TransformerBlock(transformer))
         body = SequentialBlock(blocks)
 
-        tasks = list(tasks or [NextItemPredictionTask(weight_tying=True)])
-        for t in tasks:
+        configured = []
+        for t in tasks or [NextItemPredictionTask(weight_tying=True)]:
             if not isinstance(t, NextItemPredictionTask):
                 raise NotImplementedError(f"{type(t).__name__} is not ported yet")
+            t = copy.deepcopy(t)
             if t.target_dim is None:
                 # true item vocab (tables may carry padding rows)
                 schema_ = getattr(input_module, "schema", None)
@@ -98,10 +105,16 @@ class Head(nn.Module):
                 if schema_ is not None and item_col is not None:
                     t.target_dim = schema_.categorical_cardinalities().get(item_col)
             if masking is not None:
+                if (t.loss_budget is None and t.budget_target_prob is None
+                        and isinstance(masking, MaskedLanguageModeling)):
+                    # adaptive loss budget: a ≥6σ binomial bound on the target
+                    # count (NextItemPredictionTask._budget_rows)
+                    t.budget_target_prob = float(masking.mlm_probability)
                 t.eval_single_target = bool(getattr(masking, "eval_on_last_item_seq_only", True))
                 t.padding_idx = getattr(masking, "padding_idx", 0)
             t.build(body.output_size(), input_module.item_embedding_table().shape[-1])
-        return cls(body=body, tasks=tasks, task_weights=task_weights)
+            configured.append(t)
+        return cls(body=body, tasks=configured, task_weights=task_weights)
 
     @property
     def input_module(self):
@@ -109,12 +122,15 @@ class Head(nn.Module):
 
     def forward(self, inputs: Dict[str, torch.Tensor], targets=None, training: bool = False,
                 testing: bool = False, top_k: Optional[int] = None,
-                compute_metrics: bool = True):
+                compute_metrics: bool = True,
+                generator: Optional[torch.Generator] = None,
+                masking_info: Optional[MaskingInfo] = None):
         pad_mask = None
         item_id = getattr(self.input_module, "item_id", None)
         if item_id is not None and item_id in inputs:
             pad_mask = inputs[item_id] != getattr(self.input_module, "padding_idx", 0)
-        hidden, info = self.body(inputs, training=training, testing=testing, pad_mask=pad_mask)
+        hidden, info = self.body(inputs, training=training, testing=testing, pad_mask=pad_mask,
+                                 generator=generator, masking_info=masking_info)
 
         weights = list(self.task_weights or [1.0] * len(self.tasks))
         outputs: Dict[str, TaskOutput] = {}
@@ -136,7 +152,10 @@ class Head(nn.Module):
 class Model(nn.Module):
     """Multi-head model. Inference: ``model(batch, top_k=k)`` → next-item
     scores, or ``(scores, ids)``. Evaluation: ``model(batch, testing=True)``
-    → ``(loss, {task: TaskOutput})``, or ``model.evaluate(loader)``."""
+    → ``(loss, {task: TaskOutput})``, or ``model.evaluate(loader)``.
+    Training: ``model(batch, training=True, generator=g)`` → the same pair,
+    with the mask and dropout drawn from ``g`` (a ``torch.Generator`` on the
+    model's device), or the mask given as ``masking_info``."""
 
     def __init__(self, heads: Sequence[Head], head_weights: Optional[Sequence[float]] = None,
                  top_k: Optional[int] = None, device=None, seed: int = 0):
@@ -172,11 +191,11 @@ class Model(nn.Module):
 
     def forward(self, inputs: Dict[str, torch.Tensor], targets=None, training: bool = False,
                 testing: bool = False, top_k: Optional[int] = None,
-                compute_metrics: bool = True):
-        if training:
-            raise NotImplementedError("training belongs to the training slice of the port")
+                compute_metrics: bool = True,
+                generator: Optional[torch.Generator] = None,
+                masking_info: Optional[MaskingInfo] = None):
         top_k = top_k if top_k is not None else self.top_k
-        if not testing:
+        if not (training or testing):
             if len(self.heads) == 1:
                 return self.heads[0](inputs, top_k=top_k)
             return [h(inputs, top_k=top_k) for h in self.heads]
@@ -184,24 +203,33 @@ class Model(nn.Module):
         total = torch.zeros((), device=self.device)
         all_outputs: Dict[str, TaskOutput] = {}
         for w, head in zip(weights, self.heads):
-            loss, outs = head(inputs, targets=targets, testing=True,
-                              compute_metrics=compute_metrics)
+            loss, outs = head(inputs, targets=targets, training=training, testing=testing,
+                              compute_metrics=compute_metrics, generator=generator,
+                              masking_info=masking_info)
             total = total + w * loss
             all_outputs.update(outs)
         return total / sum(weights), all_outputs
 
     # ------------------------------------------------------------ evaluation
-    def _as_dense(self, batch, max_sequence_length=None) -> Dict[str, torch.Tensor]:
+    def _as_dense(self, batch, max_sequence_length=None,
+                  non_blocking: bool = False) -> Dict[str, torch.Tensor]:
         """Host-side model-entry densify (ragged ``__values``/``__offsets``
-        columns pad to ``max_sequence_length``), then move to the device."""
+        columns pad to ``max_sequence_length``), then move to the device.
+        ``non_blocking`` copies from pinned memory without waiting for the
+        device's queue (the training loop's group of steps)."""
         if any(k.endswith("__offsets") for k in batch):
             from ..data.padding import pad_inputs
 
             batch = pad_inputs({k: np.asarray(v) for k, v in batch.items()},
                                max_sequence_length)
         dev = self.device
-        return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v).to(dev)
-                for k, v in batch.items()}
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+            if non_blocking and dev.type == "cuda" and t.device.type == "cpu":
+                t = t.pin_memory()
+            out[k] = t.to(dev, non_blocking=non_blocking)
+        return out
 
     @staticmethod
     def _ragged_max_len(batch) -> Optional[int]:

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 its own shared library with a plain C interface, at first use, and loaded
 with ``ctypes``. Libraries land in ``transformers4rec_tpu_torch/_build/``
-(listed in ``.gitignore``), named by a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is reused. Nothing is
-downloaded; the sources include only the CUDA toolkit's headers.
+(listed in ``.gitignore``), named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused. Nothing is downloaded; the sources include only
+those headers and the CUDA toolkit's.
 """
 
 from __future__ import annotations
@@ -52,7 +53,10 @@ def sources() -> Dict[str, Path]:
 
 def library_path(name: str) -> Path:
     src = sources()[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
