@@ -15,7 +15,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (``ce_fwd``) and K2 (``ce_bwd``), the training cross-entropy's forward and
    backward, against theirs at the training shape (915 loss rows, about 30%
    of them with weight 0) and at an edge shape (label smoothing, labels of
-   -1, an explicit eps/V);
+   -1, an explicit eps/V), and K1, K2 and K3 with labels on the table's
+   padding rows; hold K4 (``rank``, the count of logits above a given label
+   logit) against its plain version at the evaluation shape and at an edge
+   shape (labels of -1, a vocab bound far below the rows), and K1 + K4
+   (``fused_label_rank``) against K3's ranks; hold K7a and K7b
+   (``adafactor_a``, ``adafactor_b``, the streamed Adafactor table update)
+   against theirs over three steps at the item table's shape and at an edge
+   shape (a size off every vector width, the clip on and off), with the
+   same bits on a second call; cut the table into two shards in one
+   process, run K1, K2 and K4 per shard with per-shard bounds, merge, and
+   hold loss, ranks, dx and dW against the unsharded K1, K2 and K3;
 4. evaluate: the REES46 XLNet-MLM model at full width (390,000 items,
    d_model 192, 3 layers, 16 heads, sessions of 20, weights from a seed)
    runs ``Model.evaluate`` over 4 synthetic batches of 128 sessions; K3 must
@@ -27,14 +37,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 6. one training step of the same model and weights on the card and on the
    CPU, with the same injected mask and dropout off: the loss and the
    gradients of the item table and of the output projection must agree;
-7. train: ``flagship.build_trainer`` takes 16 optimizer steps (two groups of
+7. the vocab-parallel head: a process group of one rank on the card,
+   ``flagship.build_model(vocab_parallel_group=...)`` with the same weights;
+   ``Model.evaluate`` on the 4 batches (K1 and K4 once per batch, metrics
+   equal to the unsharded evaluation), one training step (K1 and K2, the
+   loss equal to the unsharded step's) and the top-k of 8 sessions (ids
+   equal to the unsharded f32 top-k);
+8. train: ``flagship.build_trainer`` takes 16 optimizer steps (two groups of
    ``steps_per_execution = 8``) on 16 synthetic batches of 128 sessions with
    dropout 0.1, then 32 more on one repeated batch; K1 and K2 must launch
    once per step, every loss read must be finite, the repeated batch's loss
    must fall, and the item table and its bf16 moment must have moved;
-8. time K3 at the evaluation shape and K1 and K2 at the training shape, each
-   beside its plain version and a library yardstick (CUDA events, median
-   after warm-up).
+9. the streamed table update: the same run with
+   ``build_trainer(streamed_table_update=True)``; K7a and K7b must also
+   launch once per step and the moment is f32; and one step of it is held
+   against one step of the plain f32-moment arm from the same weights, mask
+   and dropout;
+10. time K3 and K4 at the evaluation shape, K1 and K2 at the training shape
+    and K7a and K7b at the item table's shape, each beside its plain version
+    and, where there is one, a library yardstick (CUDA events, median after
+    warm-up), and a whole table-optimizer step on each of its arms.
 
 The second-to-last line of standard output is one JSON object with a
 ``kernels`` list; the last is ``{"ok": true, "device": {...}}``.
@@ -43,7 +65,8 @@ The second-to-last line of standard output is one JSON object with a
 trains the flagship model for a few groups of steps under ``torch.profiler``
 and prints where a steady step's time goes (device time by kernel, the
 device's busy share of the wall time, the first step's cost); the table
-also goes to FILE when one is named.
+also goes to FILE when one is named. ``--profile-train-streamed [FILE]``
+does the same with the streamed table update.
 """
 
 from __future__ import annotations
@@ -70,6 +93,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # capability 9.0), on 132 SMs at the 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12  # float32 outside the tensor cores
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 EVAL_BATCHES, EVAL_ROWS = 4, 128
@@ -272,6 +296,196 @@ def check_ce_train(name: str, n: int, rows: int, vocab_size: int, eps: float,
     return out
 
 
+def check_padding_row_labels(n: int, rows: int, vocab_size: int, eps: float,
+                             device="cuda") -> dict:
+    """K1, K2 and K3 against their plain versions with four labels on the
+    table's padding rows (``vocab_size <= label < rows``), inside and beyond
+    the vocab's last chunk. K1's label logit there is exactly -1e30 in both;
+    K2's dx and dW as ``check_grad`` says, its dW rows of those labels equal
+    (one exact product each) and every other padding row exactly 0; K3 takes
+    the gathered logit: ranks within 1."""
+    from transformers4rec_tpu_torch.ops import vocab
+
+    x, W, labels, w = ce_train_inputs(n, rows, vocab_size, 31, False, device)
+    on_pad = torch.tensor([vocab_size, vocab_size + 1, rows - 2, rows - 1], device=device)
+    labels[:4] = on_pad.to(torch.int32)
+    w[:4] = 1.0
+    lse, ll, _ = vocab.ce_fwd(x, W, labels, vocab_size, smooth=eps > 0)
+    lse_p, ll_p, _ = vocab.ce_fwd_plain(x, W, labels, vocab_size, eps > 0)
+    coef = (w / w.sum()).contiguous()
+    dx, dW = vocab.ce_bwd(x, W, labels, lse, coef, vocab_size, eps)
+    dx_p, dW_p = vocab.ce_bwd_plain(x, W, labels, lse, coef, vocab_size, eps)
+    gathered = vocab.label_logits(x, W, labels)
+    _, rank, _ = vocab.ce_rank(x, W, labels, gathered, vocab_size, smooth=eps > 0)
+    _, rank_p, _ = vocab.ce_rank_plain(x, W, labels, gathered, vocab_size, eps > 0)
+    sync(device)
+    if not (bool((ll[:4] == -1e30).all()) and bool((ll_p[:4] == -1e30).all())):
+        fail(f"padding-row labels: label logits {ll[:4].tolist()} vs plain {ll_p[:4].tolist()}")
+    if float(((lse - lse_p).abs() / lse_p.abs()).max()) > 1e-4:
+        fail("padding-row labels: lse differs")
+    out = {"N": n, "table_rows": rows, "vocab_size": vocab_size, "eps": eps,
+           "dx": check_grad("padding-row labels dx", dx, dx_p),
+           "dx_of_those_rows": check_grad("padding-row labels dx[:4]", dx[:4], dx_p[:4]),
+           "dW": check_grad("padding-row labels dW", dW, dW_p),
+           "rank_max_diff": int((rank.long() - rank_p.long()).abs().max())}
+    if not torch.allclose(dW[on_pad], dW_p[on_pad], rtol=1e-6, atol=0) \
+            or not bool(dW[on_pad].abs().sum(-1).gt(0).all()):
+        fail("padding-row labels: the one-hot rows of dW differ")
+    others = torch.ones(rows, dtype=torch.bool, device=device)
+    others[:vocab_size] = False
+    others[on_pad] = False
+    if not bool((dW[others] == 0).all()):
+        fail("padding-row labels: another padding row of dW is not zero")
+    if out["rank_max_diff"] > 1:
+        fail(f"padding-row labels: ranks differ by {out['rank_max_diff']}")
+    print(f"[pad-labels] {json.dumps(out)}")
+    return out
+
+
+# ------------------------------------------------------------------ K4 check
+def check_rank(name: str, n: int, rows: int, vocab_size: int, shard_bound, beta_lo: float,
+               beta_hi: float, seeds, device="cuda") -> dict:
+    """K4 against ``rank_counts_plain`` on the same inputs, one call per seed,
+    and ``fused_label_rank`` (K1 + K4) against K3's ranks. With a
+    ``shard_bound`` below ``vocab_size`` the counts go over the columns below
+    that bound only, as on the first shard of a vocab-parallel table: a label
+    at or beyond it becomes -1 (another shard owns it, so no column is left
+    out and its logit is no column's of this shard). Criteria: counts exact on >= 99% of
+    the rows and within 2 on every row (tensor cores sum each logit in
+    another order, so a logit within an ulp of the threshold may land on the
+    other side of it); K1 + K4 equal to K3 on >= 99% of the rows and within 1
+    elsewhere; the same counts on a second call."""
+    from transformers4rec_tpu_torch.ops import vocab
+
+    diffs, k3_diffs, minus_one = [], [], 0
+    for seed in seeds:
+        x, W, labels = ce_rank_inputs(n, rows, vocab_size, 64, beta_lo, beta_hi, seed, device)
+        ll = vocab.label_logits(x, W, labels)
+        _, want_k3, _ = vocab.ce_rank(x, W, labels, ll, vocab_size)
+        k3_diffs.append((vocab.fused_label_rank(x, W, labels, vocab_size).long()
+                         - want_k3.long()).abs().cpu())
+        bound_ = vocab_size if shard_bound is None else shard_bound
+        labels = torch.where(labels < bound_, labels, torch.full_like(labels, -1))
+        minus_one += int((labels < 0).sum())
+        cnt = vocab.rank_counts(x, W, ll, labels, bound_)
+        cnt_p = vocab.rank_counts_plain(x, W, ll, labels, bound_)
+        again = vocab.rank_counts(x, W, ll, labels, bound_)
+        sync(device)
+        if cnt.dtype != torch.int32 or not torch.equal(cnt, again):
+            fail(f"rank {name}: {cnt.dtype}, or a second call gave other counts")
+        diffs.append((cnt.long() - cnt_p.long()).abs().cpu())
+    diff, k3_diff = torch.cat(diffs), torch.cat(k3_diffs)
+    out = {"shape": name, "N": n, "calls": len(diffs), "table_rows": rows,
+           "vocab_size": vocab_size, "shard_bound": shard_bound,
+           "labels_minus_one": minus_one,
+           "count_exact_share": float((diff == 0).float().mean()),
+           "count_max_diff": int(diff.max()),
+           "label_rank_vs_k3_exact_share": float((k3_diff == 0).float().mean()),
+           "label_rank_vs_k3_max_diff": int(k3_diff.max())}
+    print(f"[k4] {json.dumps(out)}")
+    if out["count_exact_share"] < 0.99 or out["count_max_diff"] > 2:
+        fail(f"rank {name}: {out}")
+    if out["label_rank_vs_k3_exact_share"] < 0.99 or out["label_rank_vs_k3_max_diff"] > 1:
+        fail(f"fused_label_rank {name}: {out}")
+    return out
+
+
+# ------------------------------------------------------------------ K7 check
+def table_and_grad(rows: int, e: int, scale: float, seed: int, device):
+    """A table like the model's (normal, std 0.05) and a dense gradient, as
+    the softmax's dW is, whose last 7 rows are zero, as padding rows' are."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    p = torch.randn(rows, e, generator=g, device=device) * 0.05
+    grad = torch.randn(rows, e, generator=g, device=device) * scale
+    grad[-7:] = 0.0
+    return p, grad
+
+
+def check_adafactor(name: str, rows: int, e: int, clip, device="cuda") -> dict:
+    """K7a and K7b against ``adafactor_update_plain`` over three steps
+    running, from the same table and gradients (scales 1e-2, 1 and 30: the
+    clip engages on the last). Criteria, at every step: the moment within
+    1e-6 relative (the kernel contracts to fused multiply-adds); the table
+    within 1e-5 of the step's largest update plus the table's own float32
+    spacing (an approximate rsqrt of 2 ulp, another order of the clip's
+    sum); and the same bits from a second call on the same inputs."""
+    from transformers4rec_tpu_torch.ops import fused_adafactor as fa
+
+    p, _ = table_and_grad(rows, e, 1.0, 40, device)
+    p_p, v, v_p = p.clone(), torch.zeros_like(p), torch.zeros_like(p)
+    v_err = p_err = v_abs = p_abs = 0.0
+    for step, scale in enumerate((1e-2, 1.0, 30.0)):
+        _, g = table_and_grad(rows, e, scale, 41 + step, device)
+        decay = 1.0 - torch.full((), float(step + 1), device=device) ** -0.8
+        p2, v2, before = p.clone(), v.clone(), p_p.clone()
+        fa.adafactor_update(p, g, v, decay, 6.7e-4, clip, 1e-30)
+        fa.adafactor_update(p2, g, v2, decay, 6.7e-4, clip, 1e-30)
+        fa.adafactor_update_plain(p_p, g, v_p, decay, 6.7e-4, clip, 1e-30)
+        sync(device)
+        if not (torch.equal(p, p2) and torch.equal(v, v2)):
+            fail(f"adafactor {name}: a second call gave other bits at step {step}")
+        if not (torch.isfinite(p).all() and torch.isfinite(v).all()):
+            fail(f"adafactor {name}: non-finite values at step {step}")
+        update = float((p_p - before).abs().max())
+        allowed = 1e-5 * update + 2.0 ** -23 * float(p_p.abs().max())
+        v_abs = max(v_abs, float((v - v_p).abs().max()))
+        p_abs = max(p_abs, float((p - p_p).abs().max()))
+        v_err = max(v_err, float(((v - v_p).abs() / v_p).max()))
+        p_err = max(p_err, float((p - p_p).abs().max()) / allowed)
+        del p2, v2, before, g
+    out = {"shape": name, "rows": rows, "E": e, "clip": clip, "steps": 3,
+           "moment_max_rel_err": v_err, "moment_max_abs_err": v_abs,
+           "table_max_abs_err": p_abs, "table_err_over_allowed": p_err}
+    print(f"[k7] {json.dumps(out)}")
+    if v_err > 1e-6 or p_err > 1.0:
+        fail(f"adafactor {name}: {out}")
+    return out
+
+
+# --------------------------------------------------------- two shards, merged
+def check_two_shards(n: int, rows: int, vocab_size: int, eps: float, device="cuda") -> dict:
+    """The table cut into two shards held by this one process: K1, K2 and K4
+    run per shard with the shard's own bounds and labels, the partials are
+    merged as a process group would merge them, and the results are held
+    against the unsharded K1/K2 (``fused_softmax_ce``) and K3
+    (``fused_ce_and_rank``) on the whole table: the losses within 1e-5
+    relative, dx and dW as ``check_grad`` says, ranks equal on >= 99% of the
+    rows and within 1 elsewhere."""
+    from transformers4rec_tpu_torch.ops import vocab
+    from transformers4rec_tpu_torch.parallel import (
+        shard_table, sharded_ce_and_rank, sharded_softmax_ce)
+
+    x, W, labels, w = ce_train_inputs(n, rows, vocab_size, 51, False, device)
+    xs = x.clone().requires_grad_()
+    shards = [shard_table(W, i, 2).clone().requires_grad_() for i in range(2)]
+    loss = sharded_softmax_ce(xs, shards, labels, w, None, vocab_size=vocab_size,
+                              label_smoothing=eps)
+    loss.backward()
+    eval_loss, ranks = sharded_ce_and_rank(x, [t.detach() for t in shards], labels, w, None,
+                                           vocab_size=vocab_size, label_smoothing=eps)
+    xu, Wu = x.clone().requires_grad_(), W.clone().requires_grad_()
+    want = vocab.fused_softmax_ce(xu, Wu, labels, w, vocab_size=vocab_size, label_smoothing=eps)
+    want.backward()
+    want_eval, want_ranks = vocab.fused_ce_and_rank(x, W, labels, w, vocab_size=vocab_size,
+                                                    label_smoothing=eps)
+    sync(device)
+    diff = (ranks.long() - want_ranks.long()).abs()
+    out = {"N": n, "table_rows": rows, "vocab_size": vocab_size, "eps": eps,
+           "loss": float(loss.detach()), "unsharded_loss": float(want.detach()),
+           "eval_loss": float(eval_loss), "unsharded_eval_loss": float(want_eval),
+           "dx": check_grad("two shards dx", xs.grad, xu.grad),
+           "dW": check_grad("two shards dW", torch.cat([t.grad for t in shards]), Wu.grad),
+           "rank_exact_share": float((diff == 0).float().mean()),
+           "rank_max_diff": int(diff.max())}
+    print(f"[two-shards] {json.dumps(out)}")
+    for a, b in (("loss", "unsharded_loss"), ("eval_loss", "unsharded_eval_loss")):
+        if not abs(out[a] - out[b]) <= 1e-5 * abs(out[b]):
+            fail(f"two shards: {a} {out[a]} vs {out[b]}")
+    if out["rank_exact_share"] < 0.99 or out["rank_max_diff"] > 1:
+        fail(f"two shards: ranks {out}")
+    return out
+
+
 # ------------------------------------------------------------------ evaluate
 def eval_batches(flagship, num_items: int, seq: int, batches: int, rows: int):
     from transformers4rec_tpu_torch.data import synthetic_data
@@ -387,6 +601,90 @@ def run_serve(builder, model, example, vocab_size: int, requests: list, device) 
 
 
 
+# ------------------------------------------------------- vocab-parallel head
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_vocab_parallel(flagship, vocab, model, loader, gpu_res: dict, vocab_size: int) -> dict:
+    """The vocab-parallel head through the entry points, at full width, over
+    a process group of one rank on the model's device (NCCL on the card):
+    the group's collectives run, the table is one shard. ``model`` is the
+    unsharded model with the same weights and ``gpu_res`` its evaluation of
+    ``loader``. The kernel counts are set to 0 just before each call and read
+    just after."""
+    import torch.distributed as dist
+
+    device = model.device
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        sharded = flagship.build_model(device, seed=0, dropout=0.0, vocab_parallel_group=group)
+        sharded.load_state_dict(model.state_dict())
+        counters = {"ce_fwd": vocab.ce_fwd, "ce_bwd": vocab.ce_bwd, "rank": vocab.rank_counts,
+                    "ce_rank": vocab.ce_rank}
+
+        def counted(fn):
+            for c in counters.values():
+                c.launches = 0
+            sync(device)
+            t0 = time.perf_counter()
+            result = fn()
+            sync(device)
+            return result, {k: c.launches for k, c in counters.items()}, time.perf_counter() - t0
+
+        # ---- evaluate: K1 and K4 once per batch, K3 never
+        res, eval_launches, eval_s = counted(lambda: sharded.evaluate(loader))
+        print(f"[vocab-parallel] evaluate {eval_s:.3f}s launches {eval_launches} "
+              f"{json.dumps(res)}")
+        if eval_launches != {"ce_fwd": len(loader), "rank": len(loader), "ce_bwd": 0,
+                             "ce_rank": 0}:
+            fail(f"vocab-parallel evaluate launched {eval_launches}")
+        check_evaluate(res, gpu_res, EVAL_BATCHES * EVAL_ROWS)
+
+        # ---- one training step, the same mask for both models
+        batch = model._as_dense(loader[0])
+        info = model.heads[0].input_module.masking.compute_masked_targets(
+            batch["item_id"].long(), training=True,
+            generator=torch.Generator(device=device).manual_seed(5))
+        losses = {}
+
+        def step(m):
+            m.zero_grad(set_to_none=True)
+            loss, _ = m(batch, targets=batch, training=True, masking_info=info)
+            loss.backward()
+            return float(loss.detach()), m.heads[0].input_module.item_embedding_table().grad
+
+        (losses["sharded"], grad), train_launches, _ = counted(lambda: step(sharded))
+        losses["unsharded"], want_grad = step(model)
+        if train_launches != {"ce_fwd": 1, "ce_bwd": 1, "rank": 0, "ce_rank": 0}:
+            fail(f"vocab-parallel training step launched {train_launches}")
+        if not abs(losses["sharded"] - losses["unsharded"]) <= 1e-6 * abs(losses["unsharded"]):
+            fail(f"vocab-parallel training step: losses {losses}")
+        table_grad = check_grad("vocab-parallel training step, item table gradient",
+                                grad, want_grad)
+        sharded.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
+
+        # ---- top-k of 8 sessions against the unsharded f32 top-k
+        eight = {k: v[:8] for k, v in batch.items()}
+        with torch.inference_mode():
+            (got_s, got_i), _, _ = counted(lambda: sharded(eight, top_k=TOP_K))
+            want_s, want_i = model(eight, top_k=TOP_K)
+        check_topk(got_s.cpu().numpy(), got_i.cpu().numpy(), want_s.cpu().numpy(),
+                   want_i.cpu().numpy(), vocab_size, "vocab-parallel top-k")
+        launches = {k: eval_launches[k] + train_launches[k] for k in eval_launches}
+        return {"evaluate": res, "evaluate_s": eval_s, "losses": losses,
+                "item_table_grad": table_grad, "launches": launches}
+    finally:
+        dist.destroy_process_group()
+
+
 # --------------------------------------------------------------------- train
 def check_training_step(model, cpu_model, batch) -> dict:
     """One training forward and backward of the same weights on the card and
@@ -422,50 +720,60 @@ def check_training_step(model, cpu_model, batch) -> dict:
                                           grads["cuda"][1], grads["cpu"][1])}
 
 
-def run_train(flagship, vocab, card: str) -> dict:
+def run_train(flagship, vocab, card: str, streamed: bool = False) -> dict:
     """The trainer at full width: 16 steps over 16 batches, then 32 steps on
-    one repeated batch. The kernel counts are set to 0 just before each
-    ``train()`` and read just after."""
+    one repeated batch. With ``streamed`` the tables take the streamed update
+    with an f32 moment (K7a and K7b on the item table). The kernel counts are
+    set to 0 just before each ``train()`` and read just after."""
     from transformers4rec_tpu_torch.data import synthetic_data
+    from transformers4rec_tpu_torch.ops import fused_adafactor as fa
 
+    tag = "train-streamed" if streamed else "train"
     rows = flagship.BATCH
     data = synthetic_data(flagship.schema(), num_rows=TRAIN_STEPS * rows,
                           max_session_length=flagship.SEQ, seed=200)
-    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data)
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data,
+                                     streamed_table_update=streamed)
     a = trainer.args
     if a.steps_per_execution != 8 or a.per_device_train_batch_size != rows:
         fail(f"build_trainer: K={a.steps_per_execution}, batch={a.per_device_train_batch_size}")
     table = trainer.model.heads[0].input_module.item_embedding_table()
     table_before = table.detach().clone()
-    launches = {"ce_fwd": 0, "ce_bwd": 0}
+    counters = {"ce_fwd": vocab.ce_fwd, "ce_bwd": vocab.ce_bwd,
+                "adafactor_a": fa.adafactor_pass_a, "adafactor_b": fa.adafactor_pass_b}
+    launches = dict.fromkeys(counters, 0)
     out = {}
 
     def phase(name: str, steps: int) -> list:
         a.max_steps = steps
-        vocab.ce_fwd.launches = vocab.ce_bwd.launches = 0
+        for c in counters.values():
+            c.launches = 0
         sync("cuda")
         t0 = time.perf_counter()
         metrics = trainer.train()
         sync("cuda")
         wall = time.perf_counter() - t0
-        got = {"ce_fwd": vocab.ce_fwd.launches, "ce_bwd": vocab.ce_bwd.launches}
-        if got != {"ce_fwd": steps, "ce_bwd": steps} or metrics["train_steps"] != steps:
-            fail(f"train ({name}): {steps} steps launched {got}")
+        got = {k: c.launches for k, c in counters.items()}
+        # the streamed update runs on the item table only, once per step
+        table_steps = steps if streamed else 0
+        if got != {"ce_fwd": steps, "ce_bwd": steps, "adafactor_a": table_steps,
+                   "adafactor_b": table_steps} or metrics["train_steps"] != steps:
+            fail(f"{tag} ({name}): {steps} steps launched {got}")
         for k in launches:
             launches[k] += got[k]
         reads = [h["loss"] for h in trainer.state.log_history
                  if "loss" in h and h["step"] > trainer.state.global_step - steps]
         if not reads or not all(math.isfinite(v) for v in reads + [metrics["train_loss"]]):
-            fail(f"train ({name}): loss reads {reads}, mean {metrics['train_loss']}")
+            fail(f"{tag} ({name}): loss reads {reads}, mean {metrics['train_loss']}")
         out[name] = {"steps": steps, "wall_s": wall, "steps_per_s": steps / wall,
                      "sessions_per_s": steps * rows / wall, "ms_per_step": 1e3 * wall / steps,
                      "mean_loss": metrics["train_loss"], "loss_reads": reads}
-        print(f"[train] {name} on {card}: {json.dumps(out[name])}")
+        print(f"[{tag}] {name} on {card}: {json.dumps(out[name])}")
         return reads
 
     a.logging_steps = 8  # one host read of the loss after each group of 8 steps
     if len(phase("sixteen_batches", TRAIN_STEPS)) != TRAIN_STEPS // 8:
-        fail("train: expected one loss read per group of 8 steps")
+        fail(f"{tag}: expected one loss read per group of 8 steps")
     batch = {k: v[:rows] for k, v in data.items()}
     trainer._train_dataloader = [batch] * REPEAT_STEPS
     a.logging_steps = 1
@@ -473,33 +781,87 @@ def run_train(flagship, vocab, card: str) -> dict:
     # masks and dropout differ from step to step, so single losses are noisy:
     # the mean of the last 8 steps must lie below the first loss
     if not float(np.mean(reads[-8:])) < reads[0]:
-        fail(f"train: the repeated batch's loss did not fall: {reads}")
+        fail(f"{tag}: the repeated batch's loss did not fall: {reads}")
     moment = trainer.optimizers["table"].state[table]["v"]
-    if moment.dtype != torch.bfloat16 or moment.shape != table.shape:
-        fail(f"train: the table's moment is {moment.dtype} {tuple(moment.shape)}")
+    if moment.dtype != (torch.float32 if streamed else torch.bfloat16) \
+            or moment.shape != table.shape:
+        fail(f"{tag}: the table's moment is {moment.dtype} {tuple(moment.shape)}")
     if not (torch.isfinite(table).all() and torch.isfinite(moment.float()).all()):
-        fail("train: the item table or its moment holds a non-finite value")
+        fail(f"{tag}: the item table or its moment holds a non-finite value")
     moved = float((table.detach() - table_before).abs().max())
     if not moved > 0 or not bool((moment != 0).any()):
-        fail("train: the item table or its moment did not change")
+        fail(f"{tag}: the item table or its moment did not change")
     out.update(launches=launches, global_step=trainer.state.global_step,
                table_max_move=moved, moment_nonzero_share=float((moment != 0).float().mean()))
     return out
 
 
+def check_streamed_step(flagship) -> dict:
+    """One optimizer step of the streamed arm against one of the plain
+    f32-moment arm: two trainers from the same seed hold the same weights and
+    the same generator, so they draw the same mask and dropout on the same
+    batch. The item table's moment must agree within 1e-6 relative and the
+    table within 1e-5 of the largest update plus its float32 spacing, as in
+    ``check_adafactor``; the 150-row category table takes the plain chain on
+    both arms and must be equal."""
+    from transformers4rec_tpu_torch.data import synthetic_data
+
+    data = synthetic_data(flagship.schema(), num_rows=flagship.BATCH,
+                          max_session_length=flagship.SEQ, seed=300)
+    results = {}
+    for arm in ("streamed", "plain_f32"):
+        trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data,
+                                         streamed_table_update=arm == "streamed")
+        if arm == "plain_f32":
+            trainer.args.embedding_moment_dtype = "f32"  # read when the optimizers are made
+        trainer.args.max_steps = 1
+        tables = trainer.model.heads[0].input_module.categorical_module.tables
+        before = tables["item_id"].detach().clone()
+        loss = trainer.train()["train_loss"]
+        sync("cuda")
+        state = trainer.optimizers["table"].state
+        results[arm] = {"loss": loss, "before": before,
+                        "item": tables["item_id"].detach().clone(),
+                        "item_v": state[tables["item_id"]]["v"].clone(),
+                        "category": tables["category"].detach().clone()}
+        del trainer
+    s, q = results["streamed"], results["plain_f32"]
+    if s["item_v"].dtype != torch.float32 or q["item_v"].dtype != torch.float32:
+        fail("streamed step: a moment is not f32")
+    touched = q["item_v"] > 1e-20  # untouched rows hold (1 - decay) * eps in both
+    update = float((q["item"] - q["before"]).abs().max())
+    out = {"loss": {k: results[k]["loss"] for k in results},
+           "largest_update": update,
+           "touched_share": float(touched.float().mean()),
+           "moment_max_rel_err": float(((s["item_v"] - q["item_v"]).abs()
+                                        / q["item_v"]).max()),
+           "table_max_abs_err": float((s["item"] - q["item"]).abs().max()),
+           "category_equal": bool(torch.equal(s["category"], q["category"]))}
+    print(f"[streamed-step] {json.dumps(out)}")
+    allowed = 1e-5 * update + 2.0 ** -23 * float(q["item"].abs().max())
+    if out["loss"]["streamed"] != out["loss"]["plain_f32"]:
+        fail(f"streamed step: the two arms' losses differ: {out['loss']}")
+    if not update > 0 or out["moment_max_rel_err"] > 1e-6 \
+            or out["table_max_abs_err"] > allowed or not out["category_equal"]:
+        fail(f"streamed step: {out}")
+    return out
+
+
 # -------------------------------------------------------------------- timing
-def bound(nbytes: int, flops: int, exps: int = 0) -> dict:
+def bound(nbytes: int, flops: int, exps: int = 0, f32_flops: int = 0) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over their units' peak rates (the
-    products on the tensor cores, the exponentials on the special-function
-    units; the two run side by side)."""
+    memory rate and the operations over their units' peak rates (the bf16
+    products on the tensor cores, the exponentials and reciprocal roots on
+    the special-function units, float32 arithmetic on the CUDA cores; the
+    three run side by side)."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     tensor_ms, exp_ms = flops / BF16_FLOPS * 1e3, exps / SFU_OPS_PER_S * 1e3
-    ops_ms = max(tensor_ms, exp_ms)
+    f32_ms = f32_flops / F32_FLOPS * 1e3
+    ops_ms = max(tensor_ms, exp_ms, f32_ms)
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "flops": flops, "exps": exps,
-            "bytes_ms": bytes_ms, "tensor_ms": tensor_ms, "exp_ms": exp_ms}
+            "bytes": nbytes, "flops": flops, "exps": exps, "f32_flops": f32_flops,
+            "bytes_ms": bytes_ms, "tensor_ms": tensor_ms, "exp_ms": exp_ms, "f32_ms": f32_ms}
 
 
 def time_ce_train(vocab, n: int, rows: int, vocab_size: int) -> dict:
@@ -569,10 +931,80 @@ def time_ce_rank(vocab, n: int, rows: int, vocab_size: int) -> dict:
     }
 
 
-def profile_train(card: str, out_file: str = "") -> None:
+def time_rank(vocab, n: int, rows: int, vocab_size: int) -> dict:
+    """K4 at the evaluation shape beside its plain version and the library
+    yardstick: a bf16 ``torch.matmul`` that materialises the (N, V) logits,
+    then a ``>`` count."""
+    x, W, labels = ce_rank_inputs(n, rows, vocab_size, 64, 4.0, 12.0, 1, "cuda")
+    ll = vocab.label_logits(x, W, labels)
+    xb16 = x.to(torch.bfloat16)
+    Wb16 = W[:vocab_size].to(torch.bfloat16)  # cast once, outside the timed call
+    E = x.shape[1]
+
+    def library():
+        return (torch.matmul(xb16, Wb16.T).float() > ll[:, None]).sum(-1)
+
+    return {
+        "ms": cuda_ms(lambda: vocab.rank_counts(x, W, ll, labels, vocab_size)),
+        "plain_ms": cuda_ms(lambda: vocab.rank_counts_plain(x, W, ll, labels, vocab_size)),
+        "library_ms": cuda_ms(library),
+        # read x, the vocab_size used rows of W, labels and ll once, write the
+        # counts once; 2·N·E·V operations of the product
+        **bound(4 * (n * E + vocab_size * E + 2 * n) + 4 * n, 2 * n * E * vocab_size),
+    }
+
+
+def time_adafactor(rows: int, e: int) -> dict:
+    """K7a and K7b at the item table's shape beside their plain versions, and
+    a whole ``FusedAdafactor.step`` of that table on each arm (the streamed
+    kernels; the plain chain with an f32 and with a bf16 moment). No single
+    PyTorch call computes a pass, so there is no library yardstick. The
+    table (100 MB) is twice the L2 cache, so every call reads device memory."""
+    from transformers4rec_tpu_torch.ops import fused_adafactor as fa
+
+    p, g = table_and_grad(rows, e, 1.0, 60, "cuda")
+    v = torch.rand_like(p) + 0.1
+    decay = torch.full((), 0.4, device="cuda")
+    coef = torch.full((1,), -1e-9, device="cuda")  # p barely moves over the timed calls
+    n = p.numel()
+    out = {
+        "adafactor_a": {
+            "ms": cuda_ms(lambda: fa.adafactor_pass_a(g, v, decay, 6.7e-4, 1.0, 1e-30)),
+            "plain_ms": cuda_ms(lambda: fa.adafactor_pass_a_plain(g, v, decay, 6.7e-4, 1.0,
+                                                                  1e-30), reps=10),
+            "library_ms": None,
+            # read g and v, write v in place; about 10 float32 operations and
+            # one reciprocal root an element
+            **bound(3 * 4 * n, 0, n, 10 * n),
+        },
+        "adafactor_b": {
+            "ms": cuda_ms(lambda: fa.adafactor_pass_b(p, g, v, coef)),
+            "plain_ms": cuda_ms(lambda: fa.adafactor_pass_b_plain(p, g, v, coef), reps=10),
+            "library_ms": None,
+            # read g, v and p, write p in place
+            **bound(4 * 4 * n, 0, n, 4 * n),
+        },
+    }
+    if not (torch.isfinite(v).all() and torch.isfinite(p).all()):
+        fail("time_adafactor: non-finite values after the timed calls")
+    steps = {}
+    for arm, kwargs in (("streamed_f32", {"use_pallas": True}),
+                        ("plain_f32", {}),
+                        ("plain_bf16", {"moment_dtype": torch.bfloat16})):
+        param = torch.nn.Parameter(p.clone())
+        param.grad = g
+        opt = fa.FusedAdafactor([param], lr=6.7e-4, **kwargs)
+        steps[arm] = cuda_ms(opt.step, reps=10)
+        del opt, param
+    out["table_optimizer_step_ms"] = steps
+    return out
+
+
+def profile_train(card: str, out_file: str = "", streamed: bool = False) -> None:
     """Where a training step's time goes: the first step alone, a steady
     window by the host's clock, and the same window under ``torch.profiler``
-    (device time by kernel; busy share = device time over wall time)."""
+    (device time by kernel; busy share = device time over wall time). With
+    ``streamed`` the tables take the streamed update with an f32 moment."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -587,9 +1019,11 @@ def profile_train(card: str, out_file: str = "") -> None:
     data = synthetic_data(flagship.schema(), num_rows=8 * rows,
                           max_session_length=flagship.SEQ, seed=200)
     t0 = time.perf_counter()
-    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data)
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data,
+                                     streamed_table_update=streamed)
     sync("cuda")
-    print(f"[profile] build_trainer {time.perf_counter() - t0:.3f}s")
+    print(f"[profile] build_trainer(streamed_table_update={streamed}) "
+          f"{time.perf_counter() - t0:.3f}s")
 
     def run(steps: int) -> float:
         trainer.args.max_steps = steps
@@ -611,7 +1045,7 @@ def profile_train(card: str, out_file: str = "") -> None:
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40,
                            max_name_column_width=70)
     summary = {
-        "card": card, "steps": window,
+        "card": card, "steps": window, "streamed_table_update": streamed,
         "ms_per_step": plain_s / window * 1e3,
         "ms_per_step_traced": traced_s / window * 1e3,
         "device_ms_per_step": device_us / window / 1e3,
@@ -630,13 +1064,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs an NVIDIA GPU")
     import_port()
-    if sys.argv[1:2] == ["--profile-train"] and len(sys.argv) <= 3:
-        profile_train(card_line(), *sys.argv[2:])
+    if sys.argv[1:2] in (["--profile-train"], ["--profile-train-streamed"]) \
+            and len(sys.argv) <= 3:
+        profile_train(card_line(), *sys.argv[2:3],
+                      streamed=sys.argv[1] == "--profile-train-streamed")
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")
     from transformers4rec_tpu_torch import flagship
     from transformers4rec_tpu_torch.ops import build, vocab
+    from transformers4rec_tpu_torch.ops import fused_adafactor as fa
 
     card = card_line()
     print(f"[card] {card}")
@@ -670,6 +1107,23 @@ def main() -> None:
         # some labels of -1
         check_ce_train("edge", 1000, 100_008, 100_003, 0.1, 0.05 / 100_003, True, 12),
     ]
+    # labels on padding rows, inside and beyond the vocab's last chunk of 64
+    check_padding_row_labels(300, 100_072, 100_003, 0.1)
+    check_padding_row_labels(train_rows, table_rows, vocab_size, 0.0)
+    rank_checks = [
+        check_rank("eval", EVAL_ROWS, table_rows, vocab_size, None, 4.0, 12.0,
+                   range(1, EVAL_BATCHES + 1)),
+        # N off every tile size, a shard's bound far below its rows, labels of -1
+        check_rank("edge", 1000, 100_008, 100_003, 60_003, 0.0, 12.0, [EVAL_BATCHES + 1]),
+    ]
+    adafactor_checks = [
+        check_adafactor("item table", table_rows, 64, 1.0),
+        # a size off every vector width (numel mod 4 = 3), the clip on and off
+        check_adafactor("edge", 2051, 13, 1.0),
+        check_adafactor("edge, no clip", 2051, 13, None),
+    ]
+    torch.cuda.empty_cache()
+    check_two_shards(train_rows, table_rows, vocab_size, 0.1)
 
     # ---- main path 1: evaluate at full width, on the card and on the CPU
     # dropout 0: it plays no part in evaluation or serving, and the training
@@ -695,40 +1149,75 @@ def main() -> None:
     # ---- one training step, the card against the CPU
     step = check_training_step(model, cpu_model, loader[0])
     print(f"[train-step] {json.dumps(step)}")
-    del model, cpu_model
+    del cpu_model
+
+    # ---- main path 3: the vocab-parallel head over a process group on the card
+    parallel = run_vocab_parallel(flagship, vocab, model, loader, gpu_res, vocab_size)
+    print(f"[vocab-parallel] {json.dumps({k: parallel[k] for k in ('losses', 'item_table_grad', 'launches')})}")
+    del model
     torch.cuda.empty_cache()
 
-    # ---- main path 3: train at full width
+    # ---- main path 4: train at full width
+    summary = ("launches", "global_step", "table_max_move", "moment_nonzero_share")
     train = run_train(flagship, vocab, card)
-    print(f"[train] {json.dumps({k: train[k] for k in ('launches', 'global_step', 'table_max_move', 'moment_nonzero_share')})}")
+    print(f"[train] {json.dumps({k: train[k] for k in summary})}")
 
-    # ---- timing at the evaluation and the training shape
+    # ---- main path 5: train with the streamed table update
+    streamed = run_train(flagship, vocab, card, streamed=True)
+    print(f"[train-streamed] {json.dumps({k: streamed[k] for k in summary})}")
+    check_streamed_step(flagship)
+    torch.cuda.empty_cache()
+
+    # ---- timing at the evaluation, the training and the table's shape
     timing = {"ce_rank": time_ce_rank(vocab, EVAL_ROWS, table_rows, vocab_size),
-              **time_ce_train(vocab, train_rows, table_rows, vocab_size)}
-    print(f"[timing] ce_rank at N={EVAL_ROWS}, ce_fwd and ce_bwd at N={train_rows}, E=64, "
-          f"V={vocab_size} on {card}: {json.dumps(timing)}; library_ms is torch.matmul(bf16) "
-          "with logsumexp + count (ce_rank), logsumexp + gather (ce_fwd), softmax + two "
-          "more products (ce_bwd), each materialising (N, V)")
+              **time_ce_train(vocab, train_rows, table_rows, vocab_size),
+              "rank": time_rank(vocab, EVAL_ROWS, table_rows, vocab_size),
+              **time_adafactor(table_rows, 64)}
+    optimizer_ms = timing.pop("table_optimizer_step_ms")
+    print(f"[timing] ce_rank and rank at N={EVAL_ROWS}, ce_fwd and ce_bwd at N={train_rows}, "
+          f"E=64, V={vocab_size}, adafactor_a and adafactor_b at ({table_rows}, 64) on {card}: "
+          f"{json.dumps(timing)}; library_ms is torch.matmul(bf16) with logsumexp + count "
+          "(ce_rank), a count (rank), logsumexp + gather (ce_fwd), softmax + two more "
+          "products (ce_bwd), each materialising (N, V)")
     step_ms = train["one_batch_repeated"]["ms_per_step"]
     print(f"[share] on {card}: a training step takes {step_ms:.3f} ms of wall time, of which "
           f"ce_fwd + ce_bwd take {timing['ce_fwd']['ms'] + timing['ce_bwd']['ms']:.3f} ms "
           "on the device")
+    print(f"[share] on {card}: one FusedAdafactor.step of the item table alone takes "
+          f"{json.dumps(optimizer_ms)} ms on the device; a training step takes "
+          f"{step_ms:.3f} ms of wall time on the bf16 arm and "
+          f"{streamed['one_batch_repeated']['ms_per_step']:.3f} ms on the streamed arm")
 
-    sources = {"ce_rank": 758, "ce_fwd": 105, "ce_bwd": 349}  # line of the TPU kernel body
-    launches = {"ce_rank": eval_launches["ce_rank"] + serve["launches"]["ce_rank"],
-                **train["launches"]}
+    vocab_py, adafactor_py = ("transformers4rec_tpu/ops/vocab.py",
+                              "transformers4rec_tpu/ops/fused_adafactor.py")
+    # name -> (source, file and line of the TPU kernel body)
+    sources = {"ce_rank": ("ce_rank.cu", f"{vocab_py}:758"),
+               "ce_fwd": ("ce_fwd.cu", f"{vocab_py}:105"),
+               "ce_bwd": ("ce_bwd.cu", f"{vocab_py}:349"),
+               "rank": ("rank.cu", f"{vocab_py}:639"),
+               "adafactor_a": ("adafactor.cu", f"{adafactor_py}:83"),
+               "adafactor_b": ("adafactor.cu", f"{adafactor_py}:103")}
+    launches = {"ce_rank": eval_launches["ce_rank"] + serve["launches"]["ce_rank"]
+                + parallel["launches"]["ce_rank"]}
+    for name in ("ce_fwd", "ce_bwd", "adafactor_a", "adafactor_b"):
+        launches[name] = (train["launches"][name] + streamed["launches"][name]
+                          + parallel["launches"].get(name, 0))
+    launches["rank"] = parallel["launches"]["rank"]
     errors = {"ce_rank": max(c["lse_max_abs_err"] for c in checks),
               "ce_fwd": max(c["lse_max_abs_err"] for c in train_checks),
-              "ce_bwd": max(c[g]["max_abs_err"] for c in train_checks for g in ("dx", "dW"))}
+              "ce_bwd": max(c[g]["max_abs_err"] for c in train_checks for g in ("dx", "dW")),
+              "rank": max(c["count_max_diff"] for c in rank_checks),
+              "adafactor_a": max(c["moment_max_abs_err"] for c in adafactor_checks),
+              "adafactor_b": max(c["table_max_abs_err"] for c in adafactor_checks)}
     kernels = [{
         "name": name,
         "route": "cuda",
-        "source": f"transformers4rec_tpu_torch/csrc/{name}.cu",
-        "replaces": f"transformers4rec_tpu/ops/vocab.py:{line}",
+        "source": f"transformers4rec_tpu_torch/csrc/{source}",
+        "replaces": replaces,
         "launches": launches[name],
         "max_abs_err": errors[name],
         **{k: timing[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-    } for name, line in sources.items()]
+    } for name, (source, replaces) in sources.items()]
     if any(k["launches"] < 1 for k in kernels):
         fail(f"a kernel of the main path was never launched: {launches}")
     print(card)

@@ -13,7 +13,11 @@ within an ulp of the label logit may fall on either side of it. The backward
 kernel rounds its residual to bf16 before both products, as the plain
 version does, but from an exponential of its own: dx and dW agree within
 2e-2 of the plain result's largest magnitude and 1e-3 in relative Frobenius
-norm.
+norm. The rank kernel's counts are within 1 of the plain version's for the
+same reason as K3's ranks. The Adafactor kernels repeat the plain version's
+float32 arithmetic with fused multiply-adds, an approximate rsqrt (2 ulp) and
+another order of the clip's sum: the moment within 1e-6 relative, the
+parameter within 1e-5 of the largest update plus its own float32 spacing.
 """
 
 import math
@@ -22,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from transformers4rec_tpu_torch.ops import fused_adafactor as fa
 from transformers4rec_tpu_torch.ops import vocab
 
 pytestmark = pytest.mark.cuda
@@ -203,3 +208,159 @@ def test_ce_bwd_kernel_rejects_what_it_does_not_take(dev):
         vocab.ce_bwd(x, W, labels, lse, w, 500)
     with pytest.raises(TypeError):
         vocab.ce_fwd(x, W, labels.long(), 500)
+
+
+# ------------------------------------------------- labels on padding rows
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_a_label_on_a_padding_row_matches_plain_in_k1_k2_k3(dev, eps):
+    """``vocab_size <= label < rows``: the masked label logit -1e30 in K1, the
+    one-hot in K2's dx and on that row of dW; K3 takes the gathered logit."""
+    n, rows, vocab_size = 300, 5000, 4930  # padding rows inside and beyond the last chunk
+    x, W, labels, w = _ce_inputs(n, 64, rows, vocab_size, 21, dev)
+    labels[:4] = torch.tensor([4930, 4931, 4990, 4999], dtype=torch.int32, device=dev)
+    w[:4] = 1.0
+    lse, ll, zs = vocab.ce_fwd(x, W, labels, vocab_size, smooth=eps > 0)
+    lse_p, ll_p, _ = vocab.ce_fwd_plain(x, W, labels, vocab_size, eps > 0)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=0)
+    assert bool((ll[:4] == -1e30).all()) and bool((ll_p[:4] == -1e30).all())
+    torch.testing.assert_close(ll[4:], ll_p[4:], rtol=1e-5, atol=1e-6)
+    coef = (w / w.sum()).contiguous()
+    dx, dW = vocab.ce_bwd(x, W, labels, lse_p, coef, vocab_size, eps)
+    dx_p, dW_p = vocab.ce_bwd_plain(x, W, labels, lse_p, coef, vocab_size, eps)
+    _assert_grad_close(dx, dx_p, "dx")
+    _assert_grad_close(dW, dW_p, "dW")
+    _assert_grad_close(dx[:4], dx_p[:4], "dx of the rows with a padding-row label")
+    on_pad = labels[:4].long()
+    torch.testing.assert_close(dW[on_pad], dW_p[on_pad], rtol=1e-6, atol=0)
+    others = torch.ones(rows, dtype=torch.bool, device=dev)
+    others[:vocab_size] = False
+    others[on_pad] = False
+    assert bool((dW[others] == 0).all())
+    gathered = vocab.label_logits(x, W, labels)
+    _, rank, _ = vocab.ce_rank(x, W, labels, gathered, vocab_size, smooth=eps > 0)
+    _, rank_p, _ = vocab.ce_rank_plain(x, W, labels, gathered, vocab_size, eps > 0)
+    assert int((rank.long() - rank_p.long()).abs().max()) <= 1
+
+
+def test_an_empty_vocab_on_the_card(dev):
+    x, W, _, _ = _inputs(70, 64, 512, 500, 22, dev)
+    minus_one = torch.full((70,), -1, dtype=torch.int32, device=dev)
+    zeros = torch.zeros(70, device=dev)
+    lse, ll, _ = vocab.ce_fwd(x, W, minus_one, 0)
+    assert bool((lse == -1e30).all()) and not bool(ll.any())
+    lse3, rank, _ = vocab.ce_rank(x, W, minus_one, zeros, 0)
+    assert bool((lse3 == -1e30).all()) and not bool(rank.any())
+    assert not bool(vocab.rank_counts(x, W, zeros, minus_one, 0).any())
+    dx, dW = vocab.ce_bwd(x, W, minus_one, zeros, torch.full((70,), 1 / 70, device=dev), 0)
+    assert not bool(dx.any()) and not bool(dW.any())
+
+
+# ---------------------------------------------------------------------- K4
+@pytest.mark.parametrize("n,e,rows,vocab_size", [
+    (1, 64, 1008, 1001),        # one row, a vocab bound inside a chunk
+    (37, 16, 5000, 4999),       # N and V off every tile size
+    (128, 64, 40_008, 40_001),  # the evaluation shape, narrower vocab
+    (300, 256, 2056, 2050),     # widest E, three row tiles
+    (130, 100, 704, 320),       # a shard's bound far below its rows
+])
+def test_rank_kernel_matches_plain(dev, n, e, rows, vocab_size):
+    x, W, labels, ll = _inputs(n, e, rows, vocab_size, n + e, dev)
+    labels[::3] = -1  # rows whose label another shard owns: nothing is left out
+    before = vocab.rank_counts.launches
+    cnt = vocab.rank_counts(x, W, ll, labels, vocab_size)
+    torch.cuda.synchronize()
+    assert vocab.rank_counts.launches == before + 1
+    cnt_p = vocab.rank_counts_plain(x, W, ll, labels, vocab_size)
+    assert cnt.dtype == torch.int32 and cnt.shape == (n,)
+    assert int((cnt.long() - cnt_p.long()).abs().max()) <= 1
+    assert torch.equal(cnt, vocab.rank_counts(x, W, ll, labels, vocab_size))
+
+
+def test_fused_label_rank_on_the_card_gives_k3_ranks(dev):
+    x, W, labels, ll = _inputs(128, 64, 40_008, 40_001, 9, dev)
+    got = vocab.fused_label_rank(x, W, labels, vocab_size=40_001)
+    _, want, _ = vocab.ce_rank(x, W, labels, ll, 40_001)
+    assert int((got.long() - want.long()).abs().max()) <= 1
+    assert float((got == want).float().mean()) >= 0.99
+
+
+def test_rank_kernel_rejects_what_it_does_not_take(dev):
+    x, W, labels, ll = _inputs(8, 64, 512, 500, 7, dev)
+    with pytest.raises(TypeError):
+        vocab.rank_counts(x, W, ll, labels.long(), 500)
+    with pytest.raises(ValueError):
+        vocab.rank_counts(x, W, ll, labels, 513)
+    with pytest.raises(ValueError):
+        vocab.rank_counts(x, W, ll.cpu(), labels, 500)
+
+
+# ----------------------------------------------------------------- K7a / K7b
+@pytest.mark.parametrize("rows,e,clip", [
+    (4096, 64, 1.0),     # whole vectors
+    (2051, 13, 1.0),     # a size off every vector width (numel mod 4 = 3)
+    (2051, 13, None),    # no clip
+    (40_008, 64, 1.0),   # more blocks than the grid holds at once
+])
+def test_adafactor_kernels_match_plain_over_three_steps(dev, rows, e, clip):
+    rng = np.random.default_rng(rows + e)
+    p0 = torch.from_numpy(rng.normal(0, 0.05, (rows, e)).astype(np.float32)).to(dev)
+    p, v = p0.clone(), torch.zeros_like(p0)
+    p_p, v_p = p0.clone(), torch.zeros_like(p0)
+    for step, scale in enumerate((1e-2, 1.0, 30.0)):
+        g = torch.from_numpy((rng.normal(0, 1, (rows, e)) * scale).astype(np.float32)).to(dev)
+        decay = 1.0 - torch.full((), float(step + 1), device=dev) ** -0.8
+        before_p = p_p.clone()
+        a, b = fa.adafactor_pass_a.launches, fa.adafactor_pass_b.launches
+        fa.adafactor_update(p, g, v, decay, 6.7e-4, clip, 1e-30)
+        torch.cuda.synchronize()
+        assert (fa.adafactor_pass_a.launches, fa.adafactor_pass_b.launches) == (a + 1, b + 1)
+        fa.adafactor_update_plain(p_p, g, v_p, decay, 6.7e-4, clip, 1e-30)
+        torch.testing.assert_close(v, v_p, rtol=1e-6, atol=0)
+        update = float((p_p - before_p).abs().max())
+        assert float((p - p_p).abs().max()) <= 1e-5 * update + 2.0 ** -23 * float(p_p.abs().max())
+    assert float((p - p0).abs().max()) > 0
+
+
+def test_adafactor_kernels_give_the_same_bits_twice(dev):
+    rng = np.random.default_rng(5)
+    p0 = torch.from_numpy(rng.normal(0, 0.05, (5003, 64)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(0, 3, (5003, 64)).astype(np.float32)).to(dev)
+    v0 = torch.from_numpy(rng.random((5003, 64)).astype(np.float32)).to(dev)
+    decay = torch.full((), 0.4, device=dev)
+    runs = []
+    for _ in range(2):
+        p, v = p0.clone(), v0.clone()
+        fa.adafactor_update(p, g, v, decay, 1e-3, 1.0, 1e-30)
+        runs.append((p, v))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+def test_adafactor_kernels_reject_what_they_do_not_take(dev):
+    p = torch.zeros(2048, 8, device=dev)
+    decay = torch.full((), 0.5, device=dev)
+    with pytest.raises(TypeError):
+        fa.adafactor_update(p, p.clone(), p.clone().bfloat16(), decay, 1e-3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.adafactor_update(p, torch.zeros(8, 2048, device=dev).T, p.clone(), decay, 1e-3)
+    with pytest.raises(ValueError):
+        fa.adafactor_update(p, p.clone().cpu(), p.clone(), decay, 1e-3)
+
+
+def test_streamed_optimizer_step_on_the_card_matches_the_cpu(dev):
+    """``FusedAdafactor(use_pallas=True)``: the kernels on the card against
+    the plain version on the CPU, a non-contiguous gradient included."""
+    rng = np.random.default_rng(6)
+    p0 = rng.normal(0, 0.05, (2304, 64)).astype(np.float32)
+    grads = [(rng.normal(0, 1, (64, 2304)) * s).astype(np.float32) for s in (1.0, 20.0)]
+    results = []
+    for device in (dev, torch.device("cpu")):
+        p = torch.nn.Parameter(torch.from_numpy(p0.copy()).to(device))
+        opt = fa.FusedAdafactor([p], lr=6.7e-4, use_pallas=True)
+        for g in grads:
+            p.grad = torch.from_numpy(g).to(device).T  # (2304, 64), not contiguous
+            opt.step()
+        results.append((p.detach().cpu(), opt.state[p]["v"].cpu()))
+    (p_k, v_k), (p_c, v_c) = results
+    torch.testing.assert_close(v_k, v_c, rtol=1e-6, atol=0)
+    move = float((p_c - torch.from_numpy(p0)).abs().max())
+    assert float((p_k - p_c).abs().max()) <= 1e-5 * move + 2.0 ** -23

@@ -90,14 +90,6 @@ def test_fused_adafactor_follows_the_reference(moment, lr):
                                    rtol=1e-6 if moment == "f32" else 2.0 ** -7, err_msg=k)
 
 
-def test_fused_adafactor_refuses_what_is_not_ported():
-    p = [torch.nn.Parameter(torch.zeros(4, 4))]
-    with pytest.raises(NotImplementedError):
-        FusedAdafactor(p, lr=1e-3, use_pallas=True)
-    with pytest.raises(NotImplementedError):
-        FusedAdafactor(p, lr=1e-3, min_dim_size_to_factor=128)
-
-
 @pytest.mark.parametrize("weight_decay", [0.0, 1e-4])
 def test_adamw_and_the_clip_follow_the_optax_chain(weight_decay):
     """clip_by_global_norm(1.0) then adamw with a schedule: the dense arm of

@@ -44,6 +44,7 @@ def test_fresh_import_pulls_in_no_jax():
         "import sys\n"
         "import transformers4rec_tpu_torch, transformers4rec_tpu_torch.flagship\n"
         "import transformers4rec_tpu_torch.serving.server, transformers4rec_tpu_torch.ops.build\n"
+        "import transformers4rec_tpu_torch.parallel.sharded_embedding\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
     )
@@ -105,12 +106,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path, entry):
 
 def test_build_finds_every_cuda_source_and_each_names_its_tpu_kernel():
     srcs = build.sources()
-    replaces = {"ce_rank": "_ce_rank_kernel", "ce_fwd": "_ce_fwd_kernel_vmajor",
-                "ce_bwd": "_ce_bwd_fused_kernel_dxsc"}
+    replaces = {"ce_rank": "ops/vocab.py:_ce_rank_kernel",
+                "ce_fwd": "ops/vocab.py:_ce_fwd_kernel_vmajor",
+                "ce_bwd": "ops/vocab.py:_ce_bwd_fused_kernel_dxsc",
+                "rank": "ops/vocab.py:_rank_kernel",
+                "adafactor": "ops/fused_adafactor.py:_upd_a_kernel"}
     assert set(srcs) == {p.stem for p in (PACKAGE / "csrc").glob("*.cu")} == set(replaces)
+    assert "_upd_b_kernel" in srcs["adafactor"].read_text()
     for name, path in srcs.items():
         text = path.read_text()
-        assert f"Replaces: transformers4rec_tpu/ops/vocab.py:{replaces[name]}" in text
+        assert f"Replaces: transformers4rec_tpu/{replaces[name]}" in text
         assert "Bound on an H100" in text
         assert build.library_path(name).parent == build.BUILD_DIR
         assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

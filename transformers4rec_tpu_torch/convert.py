@@ -12,6 +12,10 @@ for the port's counterpart module (a whole ``Model``, or a lone
 - the relative-bias table stays (buckets, H), and embedding tables keep their
   padded row count.
 
+``params_from_jax(tree, shard=(rank, world), sharded_tables=("item_id",))``
+keeps rows ``[rank·V_l, (rank+1)·V_l)`` of the named tables, for a module
+that holds them as shards (a vocab-parallel model shards its item table).
+
 Load the result with ``module.load_state_dict(sd)`` (strict, so a missing
 or extra weight is an error). Training adds no weights, so the same rules
 serve it.
@@ -24,7 +28,7 @@ the same mask (``Model(..., masking_info=...)``).
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,8 +67,11 @@ def _leaf(name: str, parent: str, value: np.ndarray):
     return name, v
 
 
-def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """flax params (numpy leaves) → the port's ``state_dict``."""
+def params_from_jax(tree: Mapping, shard: Optional[Tuple[int, int]] = None,
+                    sharded_tables: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
+    """flax params (numpy leaves) → the port's ``state_dict``. With
+    ``shard=(rank, world)``, the tables named in ``sharded_tables`` keep this
+    rank's rows only (their rows must divide by ``world``)."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
@@ -75,6 +82,14 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 walk(val, prefix + _segment(key, parent) + ".", key)
             else:
                 name, arr = _leaf(key, parent, val)
+                if shard is not None and name.startswith("tables.") \
+                        and name[len("tables."):] in sharded_tables:
+                    rank, world = shard
+                    if arr.shape[0] % world:
+                        raise ValueError(f"table {name}: {arr.shape[0]} rows do not divide "
+                                         f"by {world}")
+                    rows = arr.shape[0] // world
+                    arr = arr[rank * rows:(rank + 1) * rows]
                 out[prefix + name] = torch.from_numpy(np.ascontiguousarray(arr).copy())
 
     walk(tree, "", "")

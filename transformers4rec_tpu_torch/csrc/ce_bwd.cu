@@ -7,9 +7,12 @@
 //   P[n, c] = exp(bf16(x[n]) . bf16(W[c]) - lse[n])         (0 for c >= V)
 //   R[n, c] = bf16((P[n, c] - eps_over_v - (1 - eps) [c == label[n]]) * coef[n])
 //   dx = R . bf16(W)   (N, E) f32          dW = R^T . bf16(x)   (Vp, E) f32
-// with dW rows >= V exactly zero. Neither the logits nor R reach device
-// memory. A label outside [0, V) has no one-hot term; a row with coef = 0
-// contributes nothing.
+// Neither the logits nor R reach device memory. The one-hot term stands at
+// every column of the table, as in the reference: a label on a padding row
+// (V <= label < Vp) puts -(1 - eps) coef[n] bf16(x[n]) into that row of dW and
+// -(1 - eps) coef[n] bf16(W[label]) into dx[n]; every other row of dW at and
+// beyond V is exactly zero. A label outside [0, Vp) has no one-hot term; a
+// row with coef = 0 contributes nothing.
 //
 // Replaces: transformers4rec_tpu/ops/vocab.py:_ce_bwd_fused_kernel_dxsc and
 // _ce_bwd_fused_kernel (launched through pl.pallas_call at vocab.py:419 and
@@ -57,7 +60,8 @@ constexpr int WT = BV + 8;  // bf16 per shared row of a transposed (., BV) chunk
 
 // Logits of the thread's two rows (acc[j][2h + q]: row h, column col0 + 8j +
 // q) into the residual R, in place and still f32. lse2 is lse x log2(e).
-// CHECKED bounds the columns by V and looks for each row's label.
+// CHECKED bounds the columns by V and looks for each row's label, also among
+// the padding columns at and beyond V.
 template <bool CHECKED>
 __device__ __forceinline__ void residual(float (&acc)[NT][4], int col0, int V,
                                          const int (&lab)[2], const float (&lse2)[2],
@@ -72,11 +76,8 @@ __device__ __forceinline__ void residual(float (&acc)[NT][4], int col0, int V,
         float p = ex2(fmaf(acc[j][2 * h + q], LOG2E, -lse2[h])) - eov;
         if (CHECKED) {
           const int col = col0 + 8 * j + q;
-          if (col >= V) {
-            p = 0.f;
-          } else if (col == lab[h]) {
-            p -= one_minus_eps;
-          }
+          if (col >= V) p = 0.f;
+          if (col == lab[h]) p -= one_minus_eps;
         }
         acc[j][2 * h + q] = p * coef[h];
       }
@@ -360,12 +361,24 @@ ce_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ W,
   }
 }
 
+// Sums the per-split partials of dx in order. The dx kernel never reads the
+// padding rows of W (their columns carry no probability), so the one-hot term
+// of a label on a padding row is added here: R = bf16(-(1 - eps) coef[n])
+// times bf16(W[label]), both exact in f32.
 __global__ void ce_bwd_dx_reduce_kernel(const float* __restrict__ part_dx, int splits,
-                                        int count, float* __restrict__ dx) {
+                                        int count, const float* __restrict__ W,
+                                        const int* __restrict__ labels,
+                                        const float* __restrict__ coef, int E, int V, int Vp,
+                                        float one_minus_eps, float* __restrict__ dx) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
   float s = 0.f;
   for (int k = 0; k < splits; ++k) s += part_dx[(size_t)k * count + i];
+  const int n = i / E, lab = labels[n];
+  if (lab >= V && lab < Vp) {
+    const float r = __bfloat162float(__float2bfloat16(-one_minus_eps * coef[n]));
+    s += r * __bfloat162float(__float2bfloat16(W[(size_t)lab * E + (i - n * E)]));
+  }
   dx[i] = s;
 }
 
@@ -389,7 +402,8 @@ cudaError_t launch_bwd(cudaStream_t st, const float* x, const float* W, const in
   if (err != cudaSuccess) return err;
   const int count = N * E, reduce_threads = 256;
   ce_bwd_dx_reduce_kernel<<<(count + reduce_threads - 1) / reduce_threads, reduce_threads, 0,
-                            st>>>(part_dx, splits, count, dx);
+                            st>>>(part_dx, splits, count, W, labels, coef, E, V, Vp,
+                                  one_minus_eps, dx);
   return cudaGetLastError();
 }
 
@@ -405,8 +419,8 @@ int t4r_ce_bwd_max_e() { return 128; }
 // checks shapes (E a multiple of 4, at most 128), dtypes, contiguity and
 // alignment, and allocates every buffer: part_dx is (splits, N, E), dx
 // (N, E), dW (Vp, E); all are written in full. eps is the label smoothing
-// and eps_over_v its share of every valid column. Returns the first CUDA
-// error (0 when every launch was accepted).
+// and eps_over_v its share of every valid column. V may be 0 (splits = 1).
+// Returns the first CUDA error (0 when every launch was accepted).
 int t4r_ce_bwd(const float* x, const float* W, const int* labels, const float* lse,
                const float* coef, int N, int E, int V, int Vp, float eps, float eps_over_v,
                int splits, int chunks_per_split, float* part_dx, float* dx, float* dW,

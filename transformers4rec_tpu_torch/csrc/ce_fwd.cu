@@ -4,7 +4,8 @@
 // For every row n of x (N, E) against the item table W (Vp, E), over the
 // columns c < V (the true vocab; rows V..Vp-1 are padding):
 //   lse[n]  = logsumexp_c  bf16(x[n]) . bf16(W[c])          (f32 accumulation)
-//   ll[n]   = the logit at c == label[n]; 0 when the label is outside [0, V)
+//   ll[n]   = the logit at c == label[n]: the masked logit -1e30 for a label on
+//             a padding row (V <= label < Vp), 0 for a label outside [0, Vp)
 //   zsum[n] = sum_c logit[n, c]                              (label smoothing only)
 // The (N, V) logits never reach device memory.
 //
@@ -213,9 +214,10 @@ ce_fwd_partial_kernel(const float* __restrict__ x, const float* __restrict__ W,
 __global__ void ce_fwd_merge_kernel(const float* __restrict__ part_m,
                                     const float* __restrict__ part_s,
                                     const float* __restrict__ part_ll,
-                                    const double* __restrict__ part_zs, int splits, int N,
-                                    float* __restrict__ lse, float* __restrict__ ll,
-                                    float* __restrict__ zsum) {
+                                    const double* __restrict__ part_zs,
+                                    const int* __restrict__ labels, int splits, int N,
+                                    int V, int Vp, float* __restrict__ lse,
+                                    float* __restrict__ ll, float* __restrict__ zsum) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   float m = NEG;
@@ -228,8 +230,11 @@ __global__ void ce_fwd_merge_kernel(const float* __restrict__ part_m,
     l += part_ll[idx];  // one split holds the label's column, the others 0
     if (zsum != nullptr) zs += part_zs[idx];
   }
-  lse[n] = m + logf(s);
-  ll[n] = l;
+  // no valid column at all (V == 0): the reference's masked logits give -1e30
+  lse[n] = s > 0.f ? m + logf(s) : NEG;
+  // a label on a padding row picks up that column's masked logit
+  const int lab = labels[n];
+  ll[n] = (lab >= V && lab < Vp) ? NEG : l;
   if (zsum != nullptr) zsum[n] = (float)zs;
 }
 
@@ -268,10 +273,10 @@ int t4r_ce_fwd_chunk_cols() { return t4r::BV; }
 // Launches the partial and the merge kernel on `stream`. The caller checks
 // shapes (E a multiple of 4, at most 256), dtypes, contiguity and alignment,
 // and allocates every buffer: part_* are (splits, N); part_zs and zsum may
-// be unused when smooth == 0. Returns the first CUDA error (0 when both
-// launches were accepted).
+// be unused when smooth == 0. V may be 0 (splits = 1): every lse is then
+// -1e30. Returns the first CUDA error (0 when both launches were accepted).
 int t4r_ce_fwd(const float* x, const float* W, const int* labels, int N, int E, int V,
-               int splits, int chunks_per_split, float* part_m, float* part_s,
+               int Vp, int splits, int chunks_per_split, float* part_m, float* part_s,
                float* part_ll, double* part_zs, float* lse, float* ll, float* zsum,
                int smooth, void* stream) {
   if (E < 4 || E > 256 || E % 4 != 0) return (int)cudaErrorInvalidValue;
@@ -285,7 +290,8 @@ int t4r_ce_fwd(const float* x, const float* W, const int* labels, int N, int E, 
   if (err != cudaSuccess) return (int)err;
   const int merge_threads = 128;
   ce_fwd_merge_kernel<<<(N + merge_threads - 1) / merge_threads, merge_threads, 0, st>>>(
-      part_m, part_s, part_ll, part_zs, splits, N, lse, ll, smooth ? zsum : nullptr);
+      part_m, part_s, part_ll, part_zs, labels, splits, N, V, Vp, lse, ll,
+      smooth ? zsum : nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -244,7 +244,8 @@ __global__ void ce_rank_merge_kernel(const float* __restrict__ part_m,
     cnt += part_cnt[idx];
     if (zsum != nullptr) zs += part_zs[idx];
   }
-  lse[n] = m + logf(s);
+  // no valid column at all (V == 0): the reference's masked logits give -1e30
+  lse[n] = s > 0.f ? m + logf(s) : NEG;
   rank[n] = cnt;
   if (zsum != nullptr) zsum[n] = (float)zs;
 }

@@ -7,6 +7,12 @@ looked-up row is multiplied by ``ids != padding_idx``), and table rows are
 rounded up to ``vocab_padding_multiple`` with the true vocab kept by the
 prediction head, exactly as in the JAX package.
 
+A table may be held as a shard: after ``shard_table(name, group)`` the
+module keeps rows ``[rank·V_l, (rank+1)·V_l)`` of that table and looks ids up
+through ``parallel.sharded_embedding_lookup`` (a masked local gather and one
+sum over the process group). The JAX package leaves that to its compiler's
+partitioner; here it is explicit.
+
 Not ported yet: soft and pretrained embeddings.
 """
 
@@ -16,9 +22,11 @@ import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.sharded_embedding import shard_table, sharded_embedding_lookup
 from ..schema import Schema, Tags, get_embedding_size_from_cardinality
 from ..tabular.base import TabularBlock, TabularData
 
@@ -135,6 +143,8 @@ class EmbeddingFeatures(TabularBlock):
             self.tables[name] = nn.Parameter(
                 torch.empty(rows, fc.table.dim, dtype=table_dtype)
             )
+        # name -> process group, for the tables of which this module holds a shard
+        self.table_groups: Dict[str, object] = {}
 
     @classmethod
     def from_schema(
@@ -167,11 +177,32 @@ class EmbeddingFeatures(TabularBlock):
             item_id = None
         return cls(feature_configs=configs, item_id=item_id, schema=selected, **kwargs)
 
+    def shard_table(self, name: str, group) -> None:
+        """Keep this rank's rows of table ``name``; its lookups then go
+        through the process ``group``. The rows must divide by its size."""
+        if name in self.table_groups:
+            raise ValueError(f"table {name!r} is sharded already")
+        local = shard_table(self.tables[name].detach(), dist.get_rank(group),
+                            dist.get_world_size(group))
+        self.tables[name] = nn.Parameter(local.clone())
+        self.table_groups[name] = group
+
     def _init_weights(self, generator: torch.Generator) -> None:
         for name, fc in self.feature_configs.items():
             init = fc.table.initializer or _default_initializer()
+            table = self.tables[name]
             with torch.no_grad():
-                init(self.tables[name], generator)
+                if name in self.table_groups:
+                    # draw the whole table, as an unsharded module would from
+                    # the same generator, and keep the local rows
+                    group = self.table_groups[name]
+                    world = dist.get_world_size(group)
+                    full = torch.empty(table.shape[0] * world, table.shape[1],
+                                       dtype=table.dtype)
+                    init(full, generator)
+                    table.copy_(shard_table(full, dist.get_rank(group), world))
+                else:
+                    init(table, generator)
 
     def item_embedding_table(self) -> torch.Tensor:
         """The item-id table — read by NextItemPredictionTask for weight tying."""
@@ -182,7 +213,10 @@ class EmbeddingFeatures(TabularBlock):
     def lookup(self, name: str, ids: torch.Tensor) -> torch.Tensor:
         # F.embedding gathers the same rows as tables[name][ids]; its backward
         # is the embedding's own dense scatter-add, not a generic index_put
-        emb = F.embedding(ids, self.tables[name])
+        if name in self.table_groups:
+            emb = sharded_embedding_lookup(self.tables[name], ids, self.table_groups[name])
+        else:
+            emb = F.embedding(ids, self.tables[name])
         if self.mask_padding:
             emb = emb * (ids != self.padding_idx)[..., None].to(emb.dtype)
         return emb

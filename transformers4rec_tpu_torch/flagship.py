@@ -8,7 +8,9 @@ softmax and top-k), d_model 192, 3 layers, 16 heads, sessions of 20, a
 ``build_trainer`` adds that benchmark's optimizer settings: batches of 128,
 a constant rate of 6.7e-4, AdamW with weight decay 1e-4 on the dense
 weights, unfactored Adafactor with a bf16 second moment on the embedding
-tables, no gradient clipping, dropout 0.1.
+tables, no gradient clipping, dropout 0.1. With ``streamed_table_update``
+the tables take that benchmark's other arm instead: an f32 moment and the
+two-pass streamed update of the item table (``ops.fused_adafactor``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from .config import XLNetConfig
 from .data.synthetic import synthetic_ecommerce_data_schema
 from .features import TabularSequenceFeatures
 from .model import Model, NextItemPredictionTask
+from .ops.fused_adafactor import FusedAdafactor
 from .trainer import T4RecTrainingArguments, Trainer
 
 NUM_ITEMS = 390_000
@@ -37,9 +40,13 @@ def schema(num_items: int = NUM_ITEMS, seq: int = SEQ):
 
 def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
                 n_layer: int = N_LAYER, n_head: int = N_HEAD, seq: int = SEQ,
-                seed: int = 0, top_k=None, dropout: float = 0.1) -> Model:
+                seed: int = 0, top_k=None, dropout: float = 0.1,
+                vocab_parallel_group=None) -> Model:
     """The flagship model with weights drawn from ``seed``, on ``device``
-    (CUDA unless ``"cpu"``)."""
+    (CUDA unless ``"cpu"``). With ``vocab_parallel_group`` (a
+    ``torch.distributed`` process group) the item table is drawn whole from
+    the seed and this rank keeps its rows; loss, evaluation and top-k go
+    over the group."""
     input_module = TabularSequenceFeatures.from_schema(
         schema(num_items, seq), d_output=d_model, masking="mlm", aggregation="concat",
         masking_kwargs={"mlm_probability": MLM_PROBABILITY},
@@ -48,7 +55,7 @@ def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
                             total_seq_length=seq, dropout=dropout)
     model = cfg.to_model(
         input_module,
-        NextItemPredictionTask(weight_tying=True),
+        NextItemPredictionTask(weight_tying=True, vocab_parallel_group=vocab_parallel_group),
         device=device, seed=seed,
     )
     model.top_k = top_k
@@ -56,20 +63,28 @@ def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
 
 
 def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=None,
-                  output_dir: str = "./t4rec_output", **model_kwargs) -> Trainer:
+                  output_dir: str = "./t4rec_output", streamed_table_update: bool = False,
+                  **model_kwargs) -> Trainer:
     """A ``Trainer`` over the flagship model with the benchmark's optimizer
     settings, on ``device`` (CUDA unless ``"cpu"``). Without a dataset it
-    trains on synthetic sessions drawn from the schema. ``model_kwargs``
-    (``num_items``, ``d_model``, ...) go to ``build_model``."""
+    trains on synthetic sessions drawn from the schema.
+    ``streamed_table_update`` gives the tables an f32 moment and the item
+    table the two-pass streamed update. ``model_kwargs`` (``num_items``,
+    ``d_model``, ...) go to ``build_model``."""
     model = build_model(device, seed=seed, **model_kwargs)
     args = T4RecTrainingArguments(
         output_dir=output_dir,
         learning_rate=LEARNING_RATE, lr_scheduler_type="constant",
         weight_decay=WEIGHT_DECAY, max_grad_norm=0.0,
-        embedding_optimizer="adafactor", embedding_moment_dtype="bf16",
+        embedding_optimizer="adafactor",
+        embedding_moment_dtype="f32" if streamed_table_update else "bf16",
         per_device_train_batch_size=BATCH, per_device_eval_batch_size=BATCH,
         steps_per_execution=8, max_sequence_length=model_kwargs.get("seq", SEQ), seed=seed,
     )
     data_schema = schema(model_kwargs.get("num_items", NUM_ITEMS), model_kwargs.get("seq", SEQ))
+    table_optimizer = None
+    if streamed_table_update:
+        def table_optimizer(tables, schedule):
+            return FusedAdafactor(tables, lr=schedule, use_pallas=True, moment_dtype=None)
     return Trainer(model, args, schema=data_schema, train_dataset=train_dataset,
-                   eval_dataset=eval_dataset, device=device)
+                   eval_dataset=eval_dataset, device=device, table_optimizer=table_optimizer)

@@ -171,6 +171,13 @@ class Model(nn.Module):
         dev = resolve_device(device)
         # f32 products stay f32 on the GPU: the reference scores in f32 x f32
         disable_tf32()
+        for head in self.heads:
+            # a vocab-parallel task scores against this rank's rows of the tied table
+            for task in head.tasks:
+                group = getattr(task, "vocab_parallel_group", None)
+                tables = head.input_module.categorical_module
+                if group is not None and head.input_module.item_id not in tables.table_groups:
+                    tables.shard_table(head.input_module.item_id, group)
         self.reset_parameters(seed)
         self.to(dev)
         self.eval()

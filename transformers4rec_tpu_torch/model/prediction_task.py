@@ -16,25 +16,41 @@ Call modes:
   K3) gives the loss and the ranking metrics without (N, V) logits;
 - inference: the hidden state at the [MASK] position appended by MLM (the
   last item for other schemes) is scored against every item with one dense
-  f32 product, then ``torch.topk``.
+  f32 product, then ``torch.topk``; above N·V = 1e9 the streamed
+  ``ops.vocab.fused_topk`` takes over.
 
-Not ported yet (raise ``NotImplementedError``): sampled softmax, the
-vocab-parallel mesh, evaluation on every position, the non-fused evaluation
-path, an untied output layer, task blocks, and the
-streamed top-k the reference takes above N·V = 1e9.
+``vocab_parallel_group`` (the counterpart of the reference's
+``vocab_parallel_mesh``) is a ``torch.distributed`` process group over which
+the tied table's rows are split (``Model`` shards the table when it is
+built). The training loss, the evaluation and the top-k then run the
+functions of ``parallel/sharded_embedding.py``: the kernels per shard and
+O(N) numbers merged over the group. Top-k always takes ``sharded_topk``
+there, in f32 at or below N·V = 1e9 and in bf16 above.
+
+Not ported yet (raise ``NotImplementedError``): sampled softmax, evaluation
+on every position, the non-fused evaluation path, an untied output layer,
+task blocks, and with a group the dense (non-fused) loss and inference
+without ``top_k``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..masking import MaskingInfo
-from ..ops.vocab import fused_ce_and_rank, fused_softmax_ce
+from ..ops.vocab import fused_ce_and_rank, fused_softmax_ce, fused_topk
+from ..parallel.sharded_embedding import (
+    sharded_ce_and_rank,
+    sharded_softmax_ce,
+    sharded_topk,
+)
 from .losses import cross_entropy_with_logits
 from .ranking_metric import DEFAULT_METRICS, RankingMetric, metrics_from_ranks
 
@@ -73,6 +89,7 @@ class NextItemPredictionTask(nn.Module):
         sampled_softmax: bool = False,
         loss_budget: Optional[float] = None,
         budget_target_prob: Optional[float] = None,
+        vocab_parallel_group: Optional[Any] = None,
     ):
         super().__init__()
         if sampled_softmax:
@@ -98,7 +115,19 @@ class NextItemPredictionTask(nn.Module):
         # mlm_probability): M = N·p + 6·sqrt(N·p·(1−p)) + 8; targets beyond M
         # (probability < 1e-9) drop
         self.budget_target_prob = budget_target_prob
+        # vocab-parallel softmax: the process group over which the tied
+        # table's rows are split
+        self.vocab_parallel_group = vocab_parallel_group
         self.tying_projection: Optional[nn.Linear] = None
+
+    def __deepcopy__(self, memo):
+        # a process group is shared between copies of a task, never copied
+        if self.vocab_parallel_group is not None:
+            memo[id(self.vocab_parallel_group)] = self.vocab_parallel_group
+        new = self.__class__.__new__(self.__class__)
+        memo[id(self)] = new
+        new.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        return new
 
     def build(self, d_in: int, item_dim: int) -> None:
         """Create the projection from the body width to the item-table width
@@ -129,6 +158,23 @@ class NextItemPredictionTask(nn.Module):
     def _project(self, x: torch.Tensor) -> torch.Tensor:
         return self.tying_projection(x) if self.tying_projection is not None else x
 
+    def _vocab_ce(self, x2d, W, labels, weights, vsz) -> torch.Tensor:
+        """Streamed full-softmax CE, vocab-parallel when a group is set."""
+        if self.vocab_parallel_group is not None:
+            return sharded_softmax_ce(x2d, W, labels, weights, self.vocab_parallel_group,
+                                      vocab_size=vsz, label_smoothing=self.label_smoothing)
+        return fused_softmax_ce(x2d, W, labels, weights, vocab_size=vsz,
+                                label_smoothing=self.label_smoothing)
+
+    def _vocab_ce_rank(self, x2d, W, labels, weights, vsz):
+        """Streamed evaluation CE and label ranks, vocab-parallel when a
+        group is set."""
+        if self.vocab_parallel_group is not None:
+            return sharded_ce_and_rank(x2d, W, labels, weights, self.vocab_parallel_group,
+                                       vocab_size=vsz, label_smoothing=self.label_smoothing)
+        return fused_ce_and_rank(x2d, W, labels, weights, vocab_size=vsz,
+                                 label_smoothing=self.label_smoothing)
+
     def forward(
         self,
         hidden: torch.Tensor,
@@ -145,8 +191,12 @@ class NextItemPredictionTask(nn.Module):
         W = info.item_table
         x = self._project(hidden.float())
         temp = self.softmax_temperature or 1.0
+        group = self.vocab_parallel_group
+        table_rows = W.shape[0]  # of the whole table: W is one shard of a group's
+        if group is not None:
+            table_rows *= dist.get_world_size(group)
         # true vocab when the table carries padding rows
-        vsz = self.target_dim if (self.target_dim and self.target_dim != W.shape[0]) else None
+        vsz = self.target_dim if (self.target_dim and self.target_dim != table_rows) else None
         rows = torch.arange(x.shape[0], device=x.device)
 
         if training:
@@ -155,6 +205,8 @@ class NextItemPredictionTask(nn.Module):
             N = targets.shape[0] * targets.shape[1]
             flat_mask = info.mask.reshape(N).float()
             if not self.use_fused_ops:
+                if group is not None:
+                    raise NotImplementedError("a vocab-parallel group needs use_fused_ops")
                 logits = (x @ W.float().T) / temp
                 if vsz is not None:
                     logits = logits[..., :vsz]
@@ -171,8 +223,7 @@ class NextItemPredictionTask(nn.Module):
                 order = torch.argsort(flat_mask <= 0, stable=True)[:M]
                 x2d, flat_labels, flat_mask = x2d[order], flat_labels[order], flat_mask[order]
             labels = flat_labels.to(torch.int32)
-            loss = fused_softmax_ce(x2d, W, labels, flat_mask, vocab_size=vsz,
-                                    label_smoothing=self.label_smoothing)
+            loss = self._vocab_ce(x2d, W, labels, flat_mask, vsz)
             return TaskOutput(loss=loss, labels=labels, weights=flat_mask,
                               loss_weight=flat_mask.sum())
         if testing:
@@ -186,10 +237,7 @@ class NextItemPredictionTask(nn.Module):
             row_valid = info.mask.any(dim=1).float()
             xg = x[rows, idx]
             labels = info.targets[rows, idx]
-            loss, rank = fused_ce_and_rank(
-                xg / temp, W, labels, row_valid, vocab_size=vsz,
-                label_smoothing=self.label_smoothing,
-            )
+            loss, rank = self._vocab_ce_rank(xg / temp, W, labels, row_valid, vsz)
             metrics = metrics_from_ranks(rank, self.metrics, weights=row_valid)
             return TaskOutput(loss=loss, labels=labels, weights=row_valid,
                               metrics=metrics, loss_weight=row_valid.sum())
@@ -201,8 +249,20 @@ class NextItemPredictionTask(nn.Module):
         extended = info.pad_mask is not None and info.pad_mask.shape[1] > item_ids.shape[1]
         last_idx = (non_pad if extended else non_pad - 1).clamp(0, x.shape[1] - 1)
         xg = x[rows, last_idx]
-        if top_k is not None and self.use_fused_ops and xg.shape[0] * W.shape[0] > _STREAMED_TOPK_MIN:
-            raise NotImplementedError("the streamed top-k (fused_topk) is not ported yet")
+        small = xg.shape[0] * table_rows <= _STREAMED_TOPK_MIN
+        if group is not None:
+            if top_k is None:
+                raise NotImplementedError(
+                    "a vocab-parallel group serves top-k only: the scores of a sharded "
+                    "table are not gathered"
+                )
+            # the local top-k per shard and a merge of the candidates; the
+            # compute type is the unsharded route's choice at the same size
+            return sharded_topk(xg / temp, W, top_k, group, vocab_size=vsz,
+                                compute_dtype=torch.float32 if small else None)
+        if top_k is not None and self.use_fused_ops and not small:
+            # huge N·V: the streamed top-k merge (peak memory O(N·chunk))
+            return fused_topk(xg / temp, W, top_k, vocab_size=vsz)
         scores = (xg @ W.float().T) / temp
         if vsz is not None:
             scores = scores[:, :vsz]

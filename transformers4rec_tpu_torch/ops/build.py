@@ -107,3 +107,13 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
+
+
+def raise_on_error(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise when a library's launch function returned a CUDA error: a launch
+    that is refused never runs, and a later synchronise does not report it."""
+    if err != 0:
+        lib.t4r_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.t4r_cuda_error_string.restype = ctypes.c_char_p
+        msg = lib.t4r_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {err})")

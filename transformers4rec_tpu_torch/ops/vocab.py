@@ -1,4 +1,5 @@
-"""Fused large-vocab ops: training cross-entropy, and evaluation CE with rank.
+"""Fused large-vocab ops: training cross-entropy, evaluation CE with rank,
+label ranks and streamed top-k.
 
 Counterpart of ``transformers4rec_tpu/ops/vocab.py``. Scoring (N, E) hidden
 states against a (V, E) item table in one pass over the vocabulary, without
@@ -10,18 +11,29 @@ materialising the (N, V) logits:
   and its backward ``ce_bwd`` (``dx`` and ``dW`` from the recomputed
   softmax);
 - ``fused_ce_and_rank`` (evaluation): the loss and the 0-based rank of the
-  label (count of strictly greater logits), through ``ce_rank``.
+  label (count of strictly greater logits), through ``ce_rank``;
+- ``rank_counts``: per row the count of logits above a given label logit,
+  and ``fused_label_rank`` (``ce_fwd`` for the label logit, then
+  ``rank_counts``). The vocab-parallel evaluation
+  (``parallel/sharded_embedding.py``) runs ``rank_counts`` per shard;
+- ``fused_topk``: top-k by a chunked ``torch.matmul`` and a running
+  ``torch.topk`` merge (no kernel of its own, as in the reference).
 
-For CUDA tensors ``ce_fwd``, ``ce_bwd`` and ``ce_rank`` launch the
-hand-written kernels ``csrc/ce_fwd.cu``, ``csrc/ce_bwd.cu`` and
-``csrc/ce_rank.cu`` (and raise when they cannot); for CPU tensors they run
-``ce_fwd_plain``, ``ce_bwd_plain`` and ``ce_rank_plain``, the plain PyTorch
-versions of the same arithmetic. All round x and W to bf16 and accumulate in
-f32, as the reference does. Each wrapper counts its launches in
-``<wrapper>.launches``.
+For CUDA tensors ``ce_fwd``, ``ce_bwd``, ``ce_rank`` and ``rank_counts``
+launch the hand-written kernels ``csrc/ce_fwd.cu``, ``csrc/ce_bwd.cu``,
+``csrc/ce_rank.cu`` and ``csrc/rank.cu`` (and raise when they cannot); for
+CPU tensors they run ``ce_fwd_plain``, ``ce_bwd_plain``, ``ce_rank_plain``
+and ``rank_counts_plain``, the plain PyTorch versions of the same
+arithmetic. All round x and W to bf16 and accumulate in f32, as the
+reference does. Each wrapper counts its launches in ``<wrapper>.launches``.
 
-Not ported yet: ``rank_counts``/``fused_label_rank`` (K4) and the streamed
-``fused_topk``.
+``vocab_size`` bounds the softmax when the table carries padding rows, and
+may be 0 (a vocab-parallel shard wholly beyond the true vocab): every lse is
+then -1e30 and every count 0. A label on a padding row (``vocab_size <=
+label < rows``) is a fault of the caller that stays loud, as in the
+reference: its label logit is the masked -1e30, so the loss is about 1e30,
+and the backward still subtracts its one-hot. Labels outside the table
+match no column.
 """
 
 from __future__ import annotations
@@ -31,9 +43,17 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .build import raise_on_error
+
 NEG = -1e30
 _MAX_E = 256
 _MAX_E_BWD = 128
+
+
+def _lse(m: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``m + log(s)``; -1e30 where no column was valid (``vocab_size`` 0), as
+    the reference's masked logits give."""
+    return torch.where(s > 0, m + torch.log(s), NEG)
 
 
 def ce_fwd_plain(
@@ -47,8 +67,9 @@ def ce_fwd_plain(
     """Plain PyTorch K1: chunked f32 products of bf16-rounded inputs.
 
     Returns ``(lse (N,), ll (N,), zsum (N,) or None)``, all f32, over the
-    columns ``c < vocab_size``. ``ll`` is the logit at ``c == label``: 0 for
-    a label outside ``[0, vocab_size)``.
+    columns ``c < vocab_size``. ``ll`` is the logit at ``c == label``: the
+    masked logit -1e30 for a label on a padding row, 0 for a label outside
+    the table.
     """
     N = x.shape[0]
     dev = x.device
@@ -68,7 +89,8 @@ def ce_fwd_plain(
         m = m_new
         col = torch.arange(c0, c1, device=dev)
         ll += torch.where(col[None, :] == labels[:, None], logits, 0.0).sum(-1)
-    return m + torch.log(s), ll, (zs.float() if smooth else None)
+    ll = torch.where((labels >= vocab_size) & (labels < W.shape[0]), NEG, ll)
+    return _lse(m, s), ll, (zs.float() if smooth else None)
 
 
 def ce_bwd_plain(
@@ -84,8 +106,9 @@ def ce_bwd_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K2: per vocab chunk, recompute ``P = exp(logits − lse)``,
     form the residual ``(P − ε/V − (1−ε)·onehot)·coef``, round it to bf16 and
-    take both products in f32. Returns ``(dx (N, E), dW (Vp, E))`` f32; rows
-    of ``dW`` at and beyond ``vocab_size`` are zero."""
+    take both products in f32. Returns ``(dx (N, E), dW (Vp, E))`` f32. Rows
+    of ``dW`` at and beyond ``vocab_size`` are zero, but for the one-hot of
+    a label that stands on such a padding row."""
     dev = x.device
     eov = (eps / vocab_size if eps_over_v is None else eps_over_v) if eps else 0.0
     xb = x.to(torch.bfloat16).float()
@@ -101,6 +124,12 @@ def ce_bwd_plain(
         r = (p * coef[:, None]).to(torch.bfloat16).float()
         dW[c0:c1] = r.T @ xb
         dx += r @ Wc
+    # a label on a padding row: that column holds the one-hot and nothing else
+    on_pad = (labels >= vocab_size) & (labels < W.shape[0])
+    r = torch.where(on_pad, -(1.0 - eps) * coef, 0.0).to(torch.bfloat16).float()[:, None]
+    rows = torch.where(on_pad, labels, 0)
+    dW.index_add_(0, rows, r * xb)
+    dx += r * W[rows].to(torch.bfloat16).float()
     return dx, dW
 
 
@@ -137,8 +166,7 @@ def ce_rank_plain(
         col = torch.arange(c0, c1, device=dev)
         greater = (col[None, :] != labels[:, None]) & (logits > ll[:, None])
         cnt += greater.sum(-1).to(torch.int32)
-    lse = m + torch.log(s)
-    return lse, cnt, (zs.float() if smooth else None)
+    return _lse(m, s), cnt, (zs.float() if smooth else None)
 
 
 def _check_cuda_inputs(op: str, x, W, vocab_size: int, max_e: int,
@@ -164,8 +192,8 @@ def _check_cuda_inputs(op: str, x, W, vocab_size: int, max_e: int,
     if N < 1 or E % 4 or not 4 <= E <= max_e:
         raise ValueError(f"{op}: needs N >= 1 and E a multiple of 4 in [4, {max_e}], "
                          f"got N={N}, E={E}")
-    if not 1 <= vocab_size <= W.shape[0]:
-        raise ValueError(f"{op}: vocab_size {vocab_size} outside [1, {W.shape[0]}]")
+    if not 0 <= vocab_size <= W.shape[0]:
+        raise ValueError(f"{op}: vocab_size {vocab_size} outside [0, {W.shape[0]}]")
     if W.data_ptr() % 16 or x.data_ptr() % 16:
         raise ValueError(f"{op}: x and W must be 16-byte aligned (float4 loads)")
 
@@ -173,8 +201,9 @@ def _check_cuda_inputs(op: str, x, W, vocab_size: int, max_e: int,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "ce_rank": [_P] * 4 + [_I] * 5 + [_P] * 7 + [_I, _P],
-    "ce_fwd": [_P] * 3 + [_I] * 5 + [_P] * 7 + [_I, _P],
+    "ce_fwd": [_P] * 3 + [_I] * 6 + [_P] * 7 + [_I, _P],
     "ce_bwd": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_I] * 2 + [_P] * 4,
+    "rank": [_P] * 4 + [_I] * 5 + [_P] * 3,
 }
 
 
@@ -188,26 +217,19 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
         entry.argtypes, entry.restype = _ARGTYPES[name], _I
         for fn in (getattr(lib, f"t4r_{name}_block_rows"), getattr(lib, f"t4r_{name}_chunk_cols")):
             fn.argtypes, fn.restype = [], _I
-        lib.t4r_cuda_error_string.argtypes = [_I]
-        lib.t4r_cuda_error_string.restype = ctypes.c_char_p
         lib._t4r_typed = True
     return lib
 
 
 def _vocab_splits(lib: ctypes.CDLL, name: str, N: int, vocab_size: int, dev) -> Tuple[int, int]:
     """Split the vocab's chunks across blocks so that about two blocks land
-    on every SM: ``(splits, chunks per split)``."""
+    on every SM: ``(splits, chunks per split)``; one empty split for an
+    empty vocab."""
     row_tiles = -(-N // getattr(lib, f"t4r_{name}_block_rows")())
-    nchunks = -(-vocab_size // getattr(lib, f"t4r_{name}_chunk_cols")())
+    nchunks = max(1, -(-vocab_size // getattr(lib, f"t4r_{name}_chunk_cols")()))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_split = -(-nchunks // max(1, (2 * sms) // row_tiles))
     return -(-nchunks // per_split), per_split
-
-
-def _raise_on(err: int, lib: ctypes.CDLL, name: str) -> None:
-    if err != 0:
-        msg = lib.t4r_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {err})")
 
 
 def _ce_rank_cuda(x, W, labels, ll, vocab_size, smooth):
@@ -232,7 +254,7 @@ def _ce_rank_cuda(x, W, labels, ll, vocab_size, smooth):
             part_m.data_ptr(), part_s.data_ptr(), part_cnt.data_ptr(), part_zs.data_ptr(),
             lse.data_ptr(), rank.data_ptr(), zsum.data_ptr(), int(smooth), stream,
         )
-    _raise_on(err, lib, "ce_rank")
+    raise_on_error(lib, err, "ce_rank")
     ce_rank.launches += 1
     return lse, rank, (zsum if smooth else None)
 
@@ -252,11 +274,11 @@ def _ce_fwd_cuda(x, W, labels, vocab_size, smooth):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.t4r_ce_fwd(
             x.data_ptr(), W.data_ptr(), labels.data_ptr(),
-            N, E, vocab_size, splits, per_split,
+            N, E, vocab_size, W.shape[0], splits, per_split,
             part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(), part_zs.data_ptr(),
             lse.data_ptr(), ll.data_ptr(), zsum.data_ptr(), int(smooth), stream,
         )
-    _raise_on(err, lib, "ce_fwd")
+    raise_on_error(lib, err, "ce_fwd")
     ce_fwd.launches += 1
     return lse, ll, (zsum if smooth else None)
 
@@ -281,7 +303,7 @@ def _ce_bwd_cuda(x, W, labels, lse, coef, vocab_size, eps, eps_over_v):
             N, E, vocab_size, W.shape[0], float(eps), float(eov), splits, per_split,
             part_dx.data_ptr(), dx.data_ptr(), dW.data_ptr(), stream,
         )
-    _raise_on(err, lib, "ce_bwd")
+    raise_on_error(lib, err, "ce_bwd")
     ce_bwd.launches += 1
     return dx, dW
 
@@ -443,3 +465,126 @@ def fused_ce_and_rank(
     w = weights.float()
     loss = (nll * w).sum() / w.sum().clamp_min(1.0)
     return loss, rank
+
+
+def rank_counts_plain(
+    x: torch.Tensor,
+    W: torch.Tensor,
+    ll: torch.Tensor,
+    labels: torch.Tensor,
+    vocab_size: int,
+    chunk: int = 16384,
+) -> torch.Tensor:
+    """Plain PyTorch K4: chunked f32 products of bf16-rounded inputs. Returns
+    the (N,) int32 count of columns ``c < vocab_size``, other than the row's
+    own label, whose logit is strictly greater than ``ll``."""
+    dev = x.device
+    xb = x.to(torch.bfloat16).float()
+    labels = labels.long()
+    cnt = torch.zeros(x.shape[0], dtype=torch.int32, device=dev)
+    for c0 in range(0, vocab_size, chunk):
+        c1 = min(c0 + chunk, vocab_size)
+        logits = xb @ W[c0:c1].to(torch.bfloat16).float().T  # (N, C) f32
+        col = torch.arange(c0, c1, device=dev)
+        greater = (col[None, :] != labels[:, None]) & (logits > ll[:, None])
+        cnt += greater.sum(-1).to(torch.int32)
+    return cnt
+
+
+def _rank_cuda(x, W, ll, labels, vocab_size):
+    _check_cuda_inputs("rank_counts", x, W, vocab_size, _MAX_E,
+                       {"labels": (labels, torch.int32), "ll": (ll, torch.float32)})
+    lib = _kernel_lib("rank")
+    N, E = x.shape
+    dev = x.device
+    splits, per_split = _vocab_splits(lib, "rank", N, vocab_size, dev)
+    part_cnt = torch.empty((splits, N), dtype=torch.int32, device=dev)
+    cnt = torch.empty(N, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.t4r_rank(
+            x.data_ptr(), W.data_ptr(), labels.data_ptr(), ll.data_ptr(),
+            N, E, vocab_size, splits, per_split,
+            part_cnt.data_ptr(), cnt.data_ptr(), stream,
+        )
+    raise_on_error(lib, err, "rank")
+    rank_counts.launches += 1
+    return cnt
+
+
+def rank_counts(
+    x: torch.Tensor,
+    W: torch.Tensor,
+    ll: torch.Tensor,
+    labels: torch.Tensor,
+    vocab_size: Optional[int] = None,
+) -> torch.Tensor:
+    """K4: per row the int32 count of logits of ``bf16(x) @ bf16(W[:vocab_size]).T``
+    strictly greater than the given label logit ``ll`` (N,) f32.
+
+    The reference leaves no column out and relies on ``ll`` comparing
+    bit-equal to its own product at the label's column. Here that column
+    (``labels`` (N,) int32) is left out explicitly, which gives the
+    reference's count whenever ``ll`` is the label's own logit, the only use
+    there is. A label of -1 leaves nothing out: on a vocab-parallel shard
+    ``ll`` then belongs to another shard's column. ``vocab_size`` is a host
+    integer from 0 (the count is 0) to the table's rows. CUDA tensors launch
+    the CUDA kernel (``rank_counts.launches`` counts the launches); CPU
+    tensors run ``rank_counts_plain``.
+    """
+    V = W.shape[0] if vocab_size is None else int(vocab_size)
+    if x.device.type == "cpu":
+        return rank_counts_plain(x, W, ll, labels, V)
+    return _rank_cuda(x, W, ll, labels, V)
+
+
+rank_counts.launches = 0
+
+
+def fused_label_rank(
+    x: torch.Tensor,
+    W: torch.Tensor,
+    labels: torch.Tensor,
+    vocab_size: Optional[int] = None,
+) -> torch.Tensor:
+    """Exact 0-based rank of each label's logit among the ``vocab_size``
+    logits of its row (count of strictly greater logits), without (N, V)
+    logits and without a sort: the label logit from ``ce_fwd``, the count
+    from ``rank_counts``."""
+    V = W.shape[0] if vocab_size is None else int(vocab_size)
+    x = x.float().contiguous()
+    labels = labels.to(torch.int32).contiguous()
+    _, ll, _ = ce_fwd(x, W, labels, V)
+    return rank_counts(x, W, ll, labels, V)
+
+
+def fused_topk(
+    x: torch.Tensor,
+    W: torch.Tensor,
+    k: int,
+    chunk: int = 32768,
+    vocab_size: Optional[int] = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of ``x @ W[:vocab_size].T`` by a top-k per chunk of the vocab and
+    a running merge: peak memory O(N·chunk), not O(N·V). Plain tensor code, as
+    in the reference. ``compute_dtype`` is the type x and W are rounded to
+    before the product (bf16: the training numerics; f32 matches the dense
+    scoring path exactly); the products accumulate in f32. Returns
+    ``(scores (N, k) f32, ids (N, k) int64)``; slots beyond the valid columns
+    hold -1e30."""
+    V = W.shape[0] if vocab_size is None else int(vocab_size)
+    N = x.shape[0]
+    dev = x.device
+    xb = x.to(compute_dtype).float()
+    best_s = torch.full((N, k), NEG, dtype=torch.float32, device=dev)
+    best_i = torch.zeros((N, k), dtype=torch.int64, device=dev)
+    for c0 in range(0, V, chunk):
+        c1 = min(c0 + chunk, V)
+        logits = xb @ W[c0:c1].to(compute_dtype).float().T
+        s, i = torch.topk(logits, min(k, c1 - c0), dim=-1)
+        cat_s = torch.cat([best_s, s], dim=1)
+        cat_i = torch.cat([best_i, i + c0], dim=1)
+        best_s, pos = torch.topk(cat_s, k, dim=-1)
+        best_i = torch.gather(cat_i, 1, pos)
+    return best_s, best_i

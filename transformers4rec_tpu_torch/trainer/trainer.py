@@ -9,8 +9,10 @@ single-device path. The optimizers reproduce the reference's optax chain:
 - dense parameters: ``torch.optim.AdamW`` (eps outside the root, decoupled
   decay: ``optax.adamw``), with ``weight_decay`` passed explicitly;
 - embedding tables (``ops.sparse_update.label_embedding_params``):
-  ``FusedAdafactor`` with the same schedule, or AdamW too with
-  ``embedding_optimizer="dense"``.
+  ``FusedAdafactor`` with the same schedule, AdamW too with
+  ``embedding_optimizer="dense"``, or what ``table_optimizer(tables,
+  schedule)`` returns when the caller gives one (``flagship.build_trainer``
+  hands in the streamed table update that way).
 
 ``steps_per_execution = K``: K optimizer steps are enqueued on the device
 between host reads of the loss, and the K batches are copied to the device
@@ -24,8 +26,8 @@ seeded from ``args.seed`` and saved with a checkpoint.
 ``save`` / ``load`` write one ``torch.save`` file with the model, both
 optimizers, the generator and the loader position; ``train(resume_from_
 checkpoint=path)`` finishes an interrupted ``max_steps`` run exactly. Not
-ported yet (raise where reached): a device mesh and the vocab-parallel
-softmax, the sparse embedding step, asynchronous and sharded checkpoints,
+ported yet (raise where reached): a device mesh, training over a process
+group of more than one rank, the sparse embedding step, asynchronous and sharded checkpoints,
 ``predict``, ``log_predictions`` and the incremental time-window loops.
 """
 
@@ -38,6 +40,7 @@ import time
 from typing import Any, Dict, Iterable, List, Optional
 
 import torch
+import torch.distributed
 
 from ..data.loader import InMemoryDataLoader, SyntheticDataLoader
 from ..model.base import Model
@@ -92,9 +95,17 @@ class Trainer:
         eval_dataloader: Optional[Iterable] = None,
         device=None,
         mesh=None,
+        table_optimizer=None,
     ):
         if mesh is not None:
             raise NotImplementedError("a device mesh (sharded training) is not ported yet")
+        for head in model.heads:
+            for task in head.tasks:
+                group = getattr(task, "vocab_parallel_group", None)
+                if group is not None and torch.distributed.get_world_size(group) > 1:
+                    raise NotImplementedError(
+                        "training over a process group of more than one rank is not ported yet"
+                    )
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.args = args
@@ -105,6 +116,7 @@ class Trainer:
         self._eval_dataloader = eval_dataloader
         self.state = TrainerState()
         self.optimizers: Dict[str, torch.optim.Optimizer] = {}
+        self._table_optimizer = table_optimizer
         self._schedule = None
         self._opt_step = 0  # optimizer steps since the schedule last started
         self._last_num_steps: Optional[int] = None
@@ -171,7 +183,9 @@ class Trainer:
                 eps=a.adam_epsilon, weight_decay=a.weight_decay,
             )
         }
-        if tables:
+        if tables and self._table_optimizer is not None:
+            self.optimizers["table"] = self._table_optimizer(tables, self._schedule)
+        elif tables:
             self.optimizers["table"] = FusedAdafactor(
                 tables, lr=self._schedule,
                 moment_dtype=torch.bfloat16 if a.embedding_moment_dtype == "bf16" else None,
