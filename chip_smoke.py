@@ -25,7 +25,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    shape (a size off every vector width, the clip on and off), with the
    same bits on a second call; cut the table into two shards in one
    process, run K1, K2 and K4 per shard with per-shard bounds, merge, and
-   hold loss, ranks, dx and dW against the unsharded K1, K2 and K3;
+   hold loss, ranks, dx and dW against the unsharded K1, K2 and K3; hold K5
+   (``flash_fwd``) and K6a, K6b, K6c (``flash_bwd_fused``, ``flash_bwd_dq``,
+   ``flash_bwd_dkv``) against their plain versions at the long-session
+   shape (32, 256, 16, 12) causal with ragged padding, at an edge shape
+   (S = 333, Dh = 32, a (1, H, S, S) bias, a session wholly padded,
+   non-causal), at (4, 2048, 8, 64) causal and at (4, 4096, 16, 12) causal
+   with ragged padding, the shape of phase 11 and the only one at which a
+   main path launches K6b and K6c, with the same bits on a second call and
+   K6a against K6b + K6c; and K1 and K2 at the long-session training shapes
+   of 8,192 and 16,384 loss rows;
 4. evaluate: the REES46 XLNet-MLM model at full width (390,000 items,
    d_model 192, 3 layers, 16 heads, sessions of 20, weights from a seed)
    runs ``Model.evaluate`` over 4 synthetic batches of 128 sessions; K3 must
@@ -53,13 +62,32 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    launch once per step and the moment is f32; and one step of it is held
    against one step of the plain f32-moment arm from the same weights, mask
    and dropout;
-10. time K3 and K4 at the evaluation shape, K1 and K2 at the training shape
-    and K7a and K7b at the item table's shape, each beside its plain version
-    and, where there is one, a library yardstick (CUDA events, median after
-    warm-up), and a whole table-optimizer step on each of its arms.
+10. GPT-2-CLM at full width on sessions of up to 256
+    (``flagship.build_model(scheme="clm")``): ``Model.evaluate`` over 4
+    batches of 32 sessions against the same weights on the CPU (K5 three
+    times and K3 once per batch), the top-k of 8 ragged sessions through the
+    exported artifact against the CPU's, one training step card against CPU
+    at batch 4, and ``flagship.build_trainer(scheme="clm")`` for 8 + 16
+    steps at batch 32 with dropout 0.1 (K5 and K6a three times a step, K1
+    and K2 once; finite losses, the repeated batch's loss falling);
+11. one training step of the one-layer model on 4 sessions of up to 4,096
+    items through the same entry points: K6b and K6c launch once each and K6a
+    not at all (its dq partials would pass the cap);
+12. time K3 and K4 at the evaluation shape, K1 and K2 at the three training
+    shapes (915, 8,192 and 16,384 loss rows), K7a and K7b at the item table's
+    shape and K5, K6a, K6b, K6c at the shapes of phases 10 and 11 and at
+    (4, 2048, 8, 64), each beside its plain version and, where there is one,
+    a library yardstick (CUDA events, median after warm-up; at 8,192 rows and
+    more the cross-entropy's yardstick runs 1,024 rows at a time), and a
+    whole table-optimizer step on each of its arms.
+
+The XLNet-MLM paths (sessions of 20 and 21) must launch no flash kernel.
 
 The second-to-last line of standard output is one JSON object with a
-``kernels`` list; the last is ``{"ok": true, "device": {...}}``.
+``kernels`` list: each kernel's error, time and bound at the shape at which a
+main path launches it (K5 and K6a at phase 10's, K6b and K6c at phase 11's),
+and under ``also_at`` its times at the other shapes of the main paths; the
+last is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile-train [FILE]`` runs none of the above: it
 trains the flagship model for a few groups of steps under ``torch.profiler``
@@ -98,6 +126,8 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 EVAL_BATCHES, EVAL_ROWS = 4, 128
 TOP_K = 20
+LONG_STEP_BATCH, LONG_STEP_SEQ = 4, 4096  # main path 7
+TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 TRAIN_STEPS, REPEAT_STEPS = 16, 32
 
 
@@ -239,15 +269,16 @@ def grad_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
             "rel_frobenius": float((got - want).norm() / want.norm())}
 
 
-def check_grad(what: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+def check_grad(what: str, got: torch.Tensor, want: torch.Tensor, rel: float = 1e-3) -> dict:
     """A gradient against its reference: within 2e-2 of the reference's
-    largest magnitude and 1e-3 in relative Frobenius norm. Both sides round
-    the CE's residual to bf16, from exponentials that differ in the last
-    bits, so single entries may land on neighbouring bf16 values."""
+    largest magnitude and ``rel`` (1e-3) in relative Frobenius norm. Both
+    sides round the CE's residual (the attention's P and dS) to bf16, from
+    exponentials that differ in the last bits, so single entries may land on
+    neighbouring bf16 values."""
     if not torch.isfinite(got).all():
         fail(f"{what}: non-finite values")
     err = grad_errors(got, want)
-    if err["max_err_over_peak"] > 2e-2 or err["rel_frobenius"] > 1e-3:
+    if err["max_err_over_peak"] > 2e-2 or err["rel_frobenius"] > rel:
         fail(f"{what}: {err}")
     return err
 
@@ -388,6 +419,184 @@ def check_rank(name: str, n: int, rows: int, vocab_size: int, shard_bound, beta_
     if out["label_rank_vs_k3_exact_share"] < 0.99 or out["label_rank_vs_k3_max_diff"] > 1:
         fail(f"fused_label_rank {name}: {out}")
     return out
+
+
+# ---------------------------------------------------------- K5 / K6 checks
+def flash_inputs(B: int, S: int, H: int, Dh: int, seed: int, device, ragged: bool = False,
+                 wholly_padded: int = 0, bias_shape=None):
+    """q, k, v and dO (B, S, H, Dh) from a seed (standard normal), a (B, S)
+    pad mask whose sessions have 2..S real items (the first ``wholly_padded``
+    sessions none) or None, and a bias (normal, std 0.5) of ``bias_shape`` or
+    None."""
+    rng = np.random.default_rng(seed)
+    q, k, v, d_out = (torch.from_numpy(rng.normal(0.0, 1.0, (B, S, H, Dh)).astype(np.float32))
+                      .to(device) for _ in range(4))
+    pad = None
+    if ragged:
+        lengths = rng.integers(2, S + 1, B)
+        lengths[:wholly_padded] = 0
+        pad = torch.from_numpy(np.arange(S)[None, :] < lengths[:, None]).to(device)
+    bias = None
+    if bias_shape is not None:
+        bias = torch.from_numpy(rng.normal(0.0, 0.5, bias_shape).astype(np.float32)).to(device)
+    return q, k, v, d_out, pad, bias
+
+
+def check_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: int,
+                ragged: bool = False, wholly_padded: int = 0, bias_shape=None,
+                device="cuda") -> dict:
+    """K5 against ``flash_forward_plain``, and K6a and K6b + K6c against the
+    two arithmetics of ``flash_backward_plain``, on the same inputs (the
+    backward kernels and the plain versions all take the plain forward's out
+    and lse). Criteria: out within 5e-3 of the plain version and 1e-3 in
+    relative Frobenius norm, lse within 1e-4 on rows with a valid key and
+    equal to the sentinel elsewhere, rows with no valid key exactly 0 (both
+    sides round P to bf16 from exponentials that differ in the last bits, so
+    single entries land on neighbouring bf16 values); dq, dk, dv as
+    ``check_grad`` says; the same bits from a second call of each kernel; and
+    K6a against K6b + K6c: dk and dv within 1e-6 of their peak (the same
+    sums), dq within 1e-5 of its peak (partials added per key tile against
+    one running sum)."""
+    from transformers4rec_tpu_torch.ops import attention as fa
+
+    q, k, v, d_out, pad, bias = flash_inputs(B, S, H, Dh, seed, device, ragged, wholly_padded,
+                                             bias_shape)
+    out, lse = fa.flash_fwd(q, k, v, bias, pad, causal)
+    out2, lse2 = fa.flash_fwd(q, k, v, bias, pad, causal)
+    out_p, lse_p = fa.flash_forward_plain(q, k, v, bias, pad, causal)
+    sync(device)
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+        fail(f"flash_fwd {name}: a second call gave other bits")
+    if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+        fail(f"flash_fwd {name}: non-finite values")
+    masked = lse_p == fa.LSE_MASKED
+    res = {"shape": name, "B": B, "S": S, "H": H, "Dh": Dh, "causal": causal,
+           "ragged": ragged, "bias": list(bias_shape) if bias_shape else None,
+           "rows_without_a_key": int(masked.sum()),
+           "out": grad_errors(out, out_p),
+           "lse_max_abs_err": float((lse - lse_p)[~masked].abs().max())}
+    if res["out"]["max_abs_err"] > 5e-3 or res["out"]["rel_frobenius"] > 1e-3 \
+            or res["lse_max_abs_err"] > 1e-4:
+        fail(f"flash_fwd {name}: {res}")
+    rows_masked = masked.reshape(B, H, S).permute(0, 2, 1)  # (B, S, H)
+    if not torch.equal(lse[masked], lse_p[masked]) or not bool((out[rows_masked] == 0).all()):
+        fail(f"flash_fwd {name}: rows without a valid key are not 0 with the sentinel lse")
+    if wholly_padded and not res["rows_without_a_key"] >= wholly_padded * S * H:
+        fail(f"flash_fwd {name}: expected {wholly_padded} sessions without a valid key")
+
+    delta = fa.row_delta(d_out, out_p)
+    args = (q, k, v, d_out, lse_p, delta, bias, pad, causal)
+    fused = fa.flash_bwd_fused(*args)
+    split = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    again = fa.flash_bwd_fused(*args) + (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    want_fused = fa.flash_backward_plain(q, k, v, bias, pad, causal, out_p, lse_p, d_out, True)
+    want_split = fa.flash_backward_plain(q, k, v, bias, pad, causal, out_p, lse_p, d_out, False)
+    sync(device)
+    if not all(torch.equal(a, b) for a, b in zip(fused + split, again)):
+        fail(f"flash_bwd {name}: a second call gave other bits")
+    for tag, got, want in (("fused", fused, want_fused), ("split", split, want_split)):
+        res[tag] = {g: check_grad(f"flash_bwd {tag} {name} {g}", a, b)
+                    for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+    res["fused_vs_split"] = {g: float((a - b).abs().max() / b.abs().max())
+                             for g, a, b in zip(("dq", "dk", "dv"), fused, split)}
+    fs = res["fused_vs_split"]
+    if fs["dq"] > 1e-5 or fs["dk"] > 1e-6 or fs["dv"] > 1e-6:
+        fail(f"flash_bwd {name}: fused against split {fs}")
+    print(f"[k5k6] {json.dumps(res)}")
+    return res
+
+
+def attention_pairs(S: int, causal: bool, pad, B: int) -> int:
+    """(query, key) pairs per head that the attention must score: keys that
+    are real and, under the causal mask, not after the query."""
+    if pad is None:
+        per_session = S * (S + 1) // 2 if causal else S * S
+        return B * per_session
+    valid = pad.long()
+    if causal:
+        return int(valid.cumsum(1).sum())
+    return int(valid.sum(1).sum() * S)
+
+
+def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged: bool,
+               reps: int) -> dict:
+    """K5, K6a, K6b and K6c at one shape beside their plain versions and
+    ``F.scaled_dot_product_attention`` (bf16 inputs cast outside the timed
+    call, the same causal and padding mask; its backward alone for K6a, for
+    dq alone and for dk and dv alone; never used by the port). The bounds
+    count the pairs that the masks leave."""
+    import torch.nn.functional as F
+
+    from transformers4rec_tpu_torch.ops import attention as fa
+
+    q, k, v, d_out, pad, _ = flash_inputs(B, S, H, Dh, 70, "cuda", ragged)
+    out, lse = fa.flash_fwd(q, k, v, None, pad, causal)
+    delta = fa.row_delta(d_out, out)
+    args = (q, k, v, d_out, lse, delta, None, pad, causal)
+    n = q.numel()
+    pairs = attention_pairs(S, causal, pad, B) * H
+    rows = B * H * S
+
+    lq, lk, lv = (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    lg = d_out.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous()
+    mask = None
+    if pad is not None:
+        mask = pad[:, None, None, :]
+        if causal:
+            mask = mask & torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+
+    def library_fwd():
+        return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                              is_causal=causal and mask is None)
+
+    lout = library_fwd()
+
+    def library_bwd(wrt):
+        return lambda: torch.autograd.grad(lout, wrt, lg, retain_graph=True)
+
+    pad_bytes = 0 if pad is None else pad.numel()
+    with torch.no_grad():
+        fwd_lib = cuda_ms(library_fwd, reps=reps)
+    res = {
+        "flash_fwd": {
+            "ms": cuda_ms(lambda: fa.flash_fwd(q, k, v, None, pad, causal), reps=reps),
+            "plain_ms": cuda_ms(lambda: fa.flash_forward_plain(q, k, v, None, pad, causal),
+                                reps=max(3, reps // 3)),
+            "library_ms": fwd_lib,
+            # read q, k, v and the pad mask once, write out and lse once; two
+            # products and one exponential a pair
+            **bound(4 * 4 * n + 4 * rows + pad_bytes, 2 * 2 * Dh * pairs, pairs),
+        },
+        "flash_bwd_fused": {
+            "ms": cuda_ms(lambda: fa.flash_bwd_fused(*args), reps=reps),
+            "plain_ms": cuda_ms(lambda: fa.flash_backward_plain(
+                q, k, v, None, pad, causal, out, lse, d_out, True), reps=max(3, reps // 3)),
+            "library_ms": cuda_ms(library_bwd((lq, lk, lv)), reps=reps),
+            # read q, k, v, dO, lse and delta once, write dq, dk, dv once; five
+            # products a pair
+            **bound(7 * 4 * n + 2 * 4 * rows + pad_bytes, 5 * 2 * Dh * pairs, pairs),
+        },
+        "flash_bwd_dq": {
+            "ms": cuda_ms(lambda: fa.flash_bwd_dq(*args), reps=reps),
+            "plain_ms": cuda_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, d_out, lse, delta, None,
+                                                              pad, causal), reps=max(3, reps // 3)),
+            "library_ms": cuda_ms(library_bwd((lq,)), reps=reps),
+            **bound(5 * 4 * n + 2 * 4 * rows + pad_bytes, 3 * 2 * Dh * pairs, pairs),
+        },
+        "flash_bwd_dkv": {
+            "ms": cuda_ms(lambda: fa.flash_bwd_dkv(*args), reps=reps),
+            "plain_ms": cuda_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, d_out, lse, delta, None,
+                                                               pad, causal),
+                                reps=max(3, reps // 3)),
+            "library_ms": cuda_ms(library_bwd((lk, lv)), reps=reps),
+            **bound(6 * 4 * n + 2 * 4 * rows + pad_bytes, 4 * 2 * Dh * pairs, pairs),
+        },
+    }
+    for r in res.values():
+        r["shape"] = name
+        r["pairs"] = pairs
+    return res
 
 
 # ------------------------------------------------------------------ K7 check
@@ -550,14 +759,17 @@ def post(url: str, payload: dict) -> dict:
         return json.loads(r.read())
 
 
-def check_topk(got_s, got_i, want_s, want_i, vocab_size: int, what: str) -> None:
+def check_topk(got_s, got_i, want_s, want_i, vocab_size: int, what: str,
+               atol: float = 1e-5) -> None:
+    """Top-k scores within ``atol`` and ids equal wherever neighbouring
+    scores are more than ``atol`` apart."""
     got_s, got_i = np.asarray(got_s), np.asarray(got_i)
     if got_i.shape != want_i.shape or got_i.min() < 1 or got_i.max() >= vocab_size:
         fail(f"{what}: ids shape {got_i.shape} range [{got_i.min()}, {got_i.max()}]")
-    if not np.allclose(got_s, want_s, atol=1e-5, rtol=0):
+    if not np.allclose(got_s, want_s, atol=atol, rtol=0):
         fail(f"{what}: scores differ by {np.abs(got_s - want_s).max()}")
-    # the two calls batch differently, so near-tied scores may swap places
-    gaps = np.abs(np.diff(want_s, axis=1)) > 1e-5
+    # the two calls sum in different orders, so near-tied scores may swap places
+    gaps = np.abs(np.diff(want_s, axis=1)) > atol
     clear = np.ones_like(want_i, dtype=bool)
     clear[:, :-1] &= gaps
     clear[:, 1:] &= gaps
@@ -601,6 +813,165 @@ def run_serve(builder, model, example, vocab_size: int, requests: list, device) 
 
 
 
+# ------------------------------------------- GPT-2-CLM on long sessions
+def flash_counters(vocab, fa) -> dict:
+    return {"flash_fwd": fa.flash_fwd, "flash_bwd_fused": fa.flash_bwd_fused,
+            "flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "ce_fwd": vocab.ce_fwd, "ce_bwd": vocab.ce_bwd, "ce_rank": vocab.ce_rank}
+
+
+def counted(counters: dict, fn, device="cuda") -> tuple:
+    """``fn()`` with every count set to 0 just before and read just after:
+    ``(result, launches, seconds)``."""
+    for c in counters.values():
+        c.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    result = fn()
+    sync(device)
+    return result, {k: c.launches for k, c in counters.items()}, time.perf_counter() - t0
+
+
+def expect_launches(what: str, got: dict, **want) -> None:
+    """Fail unless the named kernels launched as often as given and every
+    other kernel of ``got`` not at all."""
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        fail(f"{what} launched {got}, expected {full}")
+
+
+def run_clm(flagship, vocab, fa, card: str, vocab_size: int) -> dict:
+    """GPT-2-CLM at full width on sessions of up to 256: evaluation and top-k
+    on the card against the same weights on the CPU (which takes the plain
+    versions), one training step card against CPU at batch 4, then the
+    trainer for 8 steps over 8 batches of 32 sessions and 16 more on one
+    repeated batch. Per step K5 and K6a launch once per layer, K1 and K2
+    once."""
+    from transformers4rec_tpu_torch.data import synthetic_data
+    from transformers4rec_tpu_torch.serving import InferenceRunner, export_model
+
+    seq, rows, layers = flagship.LONG_SEQ, flagship.LONG_BATCH, flagship.N_LAYER
+    counters = flash_counters(vocab, fa)
+    launches = dict.fromkeys(counters, 0)
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] += n
+
+    # ---- evaluate: K5 once per layer and K3 once, per batch
+    model = flagship.build_model("cuda", scheme="clm", seed=0, dropout=0.0)
+    cpu_model = flagship.build_model("cpu", scheme="clm", seed=0, dropout=0.0)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loader = eval_batches(flagship, flagship.NUM_ITEMS, seq, EVAL_BATCHES, rows)
+    gpu_res, got, eval_s = counted(counters, lambda: model.evaluate(loader))
+    print(f"[clm-evaluate] cuda {eval_s:.3f}s launches {got} {json.dumps(gpu_res)}")
+    expect_launches("clm evaluate", got, flash_fwd=layers * EVAL_BATCHES, ce_rank=EVAL_BATCHES)
+    add(got)
+    cpu_res = cpu_model.evaluate(loader)
+    print(f"[clm-evaluate] cpu reference {json.dumps(cpu_res)}")
+    check_evaluate(gpu_res, cpu_res, EVAL_BATCHES * rows)
+
+    # ---- top-k of 8 ragged sessions through the exported artifact
+    requests = serve_requests(flagship, flagship.NUM_ITEMS, seq, 8)
+    sessions = {c: sum((r[c] for r in requests), [])[:8] for c in requests[0]}
+    with tempfile.TemporaryDirectory() as path:
+        export_model(model, loader[0], path, top_k=TOP_K)
+        runner = InferenceRunner(path, flagship.build_clm_model, device="cuda")
+        cpu_runner = InferenceRunner(path, flagship.build_clm_model, device="cpu")
+        (got_s, got_i), got, _ = counted(counters, lambda: runner.predict(sessions))
+        want_s, want_i = cpu_runner.predict(sessions)
+    expect_launches("clm predict", got, flash_fwd=layers)
+    add(got)
+    # the card's and the CPU's hidden states differ by bf16 roundings in three
+    # layers of attention: scores within 1e-3, ids equal where no two
+    # neighbouring scores are closer than that
+    check_topk(got_s, got_i, want_s, want_i, vocab_size, "clm top-k against the CPU",
+               atol=1e-3)
+    print(f"[clm-predict] {len(got_i)} sessions, top-{TOP_K} ids agree with the CPU")
+
+    # ---- one training step, the card against the CPU, at batch 4
+    four = {k: v[:4] for k, v in loader[0].items()}
+    step, got, _ = counted(counters, lambda: check_training_step(
+        model, cpu_model, four, extra=("heads.0.body.blocks.1.encoder.position_embedding",)))
+    expect_launches("clm training step", got, flash_fwd=layers, flash_bwd_fused=layers,
+                    ce_fwd=1, ce_bwd=1)
+    add(got)
+    print(f"[clm-train-step] {json.dumps(step)}")
+    del model, cpu_model, runner, cpu_runner
+    torch.cuda.empty_cache()
+
+    # ---- the trainer
+    steps, repeat = 8, 16
+    data = synthetic_data(flagship.schema(flagship.NUM_ITEMS, seq), num_rows=steps * rows,
+                          max_session_length=seq, seed=400)
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data, scheme="clm")
+    a = trainer.args
+    if a.per_device_train_batch_size != rows or a.max_sequence_length != seq:
+        fail(f"build_trainer(scheme='clm'): batch {a.per_device_train_batch_size}, "
+             f"sessions of {a.max_sequence_length}")
+    out = {"evaluate": gpu_res, "train_step": step}
+
+    def phase(name: str, n: int) -> list:
+        a.max_steps = n
+        metrics, got, wall = counted(counters, trainer.train)
+        expect_launches(f"clm train ({name})", got, flash_fwd=layers * n,
+                        flash_bwd_fused=layers * n, ce_fwd=n, ce_bwd=n)
+        add(got)
+        reads = [h["loss"] for h in trainer.state.log_history
+                 if "loss" in h and h["step"] > trainer.state.global_step - n]
+        if metrics["train_steps"] != n or not reads \
+                or not all(math.isfinite(v) for v in reads + [metrics["train_loss"]]):
+            fail(f"clm train ({name}): {metrics}, loss reads {reads}")
+        out[name] = {"steps": n, "wall_s": wall, "ms_per_step": 1e3 * wall / n,
+                     "sessions_per_s": n * rows / wall, "positions_per_step": rows * seq,
+                     "mean_loss": metrics["train_loss"], "loss_reads": reads}
+        print(f"[clm-train] {name} on {card}: {json.dumps(out[name])}")
+        return reads
+
+    a.logging_steps = 8
+    phase("eight_batches", steps)
+    trainer._train_dataloader = [{k: v[:rows] for k, v in data.items()}] * repeat
+    a.logging_steps = 1
+    reads = phase("one_batch_repeated", repeat)
+    # dropout differs from step to step: the mean of the last 4 steps must
+    # lie below the first loss
+    if not float(np.mean(reads[-4:])) < reads[0]:
+        fail(f"clm train: the repeated batch's loss did not fall: {reads}")
+    out["launches"] = launches
+    return out
+
+
+def run_long_step(flagship, vocab, fa, card: str) -> dict:
+    """One training step of the one-layer GPT-2-CLM model on 4 sessions of up
+    to 4,096 items, through ``flagship.build_trainer``: K6a's dq partials
+    would pass the cap there, so the backward takes K6b and K6c."""
+    from transformers4rec_tpu_torch.data import synthetic_data
+
+    seq, rows = LONG_STEP_SEQ, LONG_STEP_BATCH
+    data = synthetic_data(flagship.schema(flagship.NUM_ITEMS, seq), num_rows=rows,
+                          max_session_length=seq, seed=500)
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data, scheme="clm",
+                                     seq=seq, batch=rows, n_layer=1)
+    trainer.args.max_steps = 1
+    counters = flash_counters(vocab, fa)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, got, wall = counted(counters, trainer.train)
+    expect_launches("the S = 4,096 step", got, flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1,
+                    ce_fwd=1, ce_bwd=1)
+    attn = trainer.model.heads[0].body.blocks[1].encoder.layers[0].attn
+    grads = {n: float(getattr(attn, n).weight.grad.abs().max()) for n in ("q", "k", "v")}
+    res = {"loss": metrics["train_loss"], "wall_s": wall, "launches": got,
+           "positions": rows * seq, "real_items": int((data["item_id"] != 0).sum()),
+           "grad_max_abs": grads,
+           "dq_partials_would_take_bytes": rows * seq * flagship.D_MODEL * 4 * (seq // 64),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    print(f"[long-step] on {card}: {json.dumps(res)}")
+    if not math.isfinite(res["loss"]) or not all(math.isfinite(g) and g > 0
+                                                 for g in grads.values()):
+        fail(f"the S = 4,096 step: {res}")
+    return res
+
+
 # ------------------------------------------------------- vocab-parallel head
 def free_port() -> int:
     import socket
@@ -629,17 +1000,11 @@ def run_vocab_parallel(flagship, vocab, model, loader, gpu_res: dict, vocab_size
         counters = {"ce_fwd": vocab.ce_fwd, "ce_bwd": vocab.ce_bwd, "rank": vocab.rank_counts,
                     "ce_rank": vocab.ce_rank}
 
-        def counted(fn):
-            for c in counters.values():
-                c.launches = 0
-            sync(device)
-            t0 = time.perf_counter()
-            result = fn()
-            sync(device)
-            return result, {k: c.launches for k, c in counters.items()}, time.perf_counter() - t0
+        def on_group(fn):
+            return counted(counters, fn, device)
 
         # ---- evaluate: K1 and K4 once per batch, K3 never
-        res, eval_launches, eval_s = counted(lambda: sharded.evaluate(loader))
+        res, eval_launches, eval_s = on_group(lambda: sharded.evaluate(loader))
         print(f"[vocab-parallel] evaluate {eval_s:.3f}s launches {eval_launches} "
               f"{json.dumps(res)}")
         if eval_launches != {"ce_fwd": len(loader), "rank": len(loader), "ce_bwd": 0,
@@ -660,7 +1025,7 @@ def run_vocab_parallel(flagship, vocab, model, loader, gpu_res: dict, vocab_size
             loss.backward()
             return float(loss.detach()), m.heads[0].input_module.item_embedding_table().grad
 
-        (losses["sharded"], grad), train_launches, _ = counted(lambda: step(sharded))
+        (losses["sharded"], grad), train_launches, _ = on_group(lambda: step(sharded))
         losses["unsharded"], want_grad = step(model)
         if train_launches != {"ce_fwd": 1, "ce_bwd": 1, "rank": 0, "ce_rank": 0}:
             fail(f"vocab-parallel training step launched {train_launches}")
@@ -674,7 +1039,7 @@ def run_vocab_parallel(flagship, vocab, model, loader, gpu_res: dict, vocab_size
         # ---- top-k of 8 sessions against the unsharded f32 top-k
         eight = {k: v[:8] for k, v in batch.items()}
         with torch.inference_mode():
-            (got_s, got_i), _, _ = counted(lambda: sharded(eight, top_k=TOP_K))
+            (got_s, got_i), _, _ = on_group(lambda: sharded(eight, top_k=TOP_K))
             want_s, want_i = model(eight, top_k=TOP_K)
         check_topk(got_s.cpu().numpy(), got_i.cpu().numpy(), want_s.cpu().numpy(),
                    want_i.cpu().numpy(), vocab_size, "vocab-parallel top-k")
@@ -686,13 +1051,15 @@ def run_vocab_parallel(flagship, vocab, model, loader, gpu_res: dict, vocab_size
 
 
 # --------------------------------------------------------------------- train
-def check_training_step(model, cpu_model, batch) -> dict:
+def check_training_step(model, cpu_model, batch, extra=()) -> dict:
     """One training forward and backward of the same weights on the card and
     on the CPU (which takes the plain versions), with one mask, drawn once
     and given to both, and dropout off (both models are built with dropout
     0). The loss must agree within 1e-4 relative; the gradients of the item
     table (the lookup's plus the CE's dW) and of the output projection as
-    ``check_grad`` says."""
+    ``check_grad`` says; those of the parameters named in ``extra``, which
+    lie below every layer's bf16 roundings of q, k, v, P and dS on two
+    devices, within 5e-3 in relative Frobenius norm."""
     masking = cpu_model.heads[0].input_module.masking
     cb = cpu_model._as_dense(batch)
     info = masking.compute_masked_targets(cb["item_id"].long(), training=True,
@@ -707,8 +1074,10 @@ def check_training_step(model, cpu_model, batch) -> dict:
         sync(m.device)
         losses[name] = float(loss.detach())
         task = m.heads[0].tasks[0]
+        named = dict(m.named_parameters())
         grads[name] = (m.heads[0].input_module.item_embedding_table().grad.cpu(),
-                       task.tying_projection.weight.grad.cpu())
+                       task.tying_projection.weight.grad.cpu(),
+                       *(named[n].grad.cpu() for n in extra))
         m.zero_grad(set_to_none=True)
     rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
     if not math.isfinite(losses["cuda"]) or rel > 1e-4:
@@ -717,7 +1086,11 @@ def check_training_step(model, cpu_model, batch) -> dict:
             "item_table_grad": check_grad("training step, item table gradient",
                                           grads["cuda"][0], grads["cpu"][0]),
             "projection_grad": check_grad("training step, projection gradient",
-                                          grads["cuda"][1], grads["cpu"][1])}
+                                          grads["cuda"][1], grads["cpu"][1]),
+            **{n.rsplit(".", 1)[-1] + "_grad": check_grad(
+                f"training step, {n} gradient", grads["cuda"][2 + i], grads["cpu"][2 + i],
+                rel=5e-3)
+               for i, n in enumerate(extra)}}
 
 
 def run_train(flagship, vocab, card: str, streamed: bool = False) -> dict:
@@ -864,10 +1237,15 @@ def bound(nbytes: int, flops: int, exps: int = 0, f32_flops: int = 0) -> dict:
             "bytes_ms": bytes_ms, "tensor_ms": tensor_ms, "exp_ms": exp_ms, "f32_ms": f32_ms}
 
 
-def time_ce_train(vocab, n: int, rows: int, vocab_size: int) -> dict:
-    """K1 and K2 at the training shape beside their plain versions and a
-    library yardstick that materialises the (N, V) logits (bf16 products
-    through torch.matmul; never used by the port)."""
+def time_ce_train(vocab, n: int, rows: int, vocab_size: int, chunk_rows: int = 0) -> dict:
+    """K1 and K2 at a training shape beside their plain versions and a
+    library yardstick that materialises the logits (bf16 products through
+    torch.matmul; never used by the port). Without ``chunk_rows`` the
+    yardstick is one set of calls on the whole (N, V) logits, ``library_ms``.
+    With it (at 8,192 rows the logits would take 12.8 GB) the same calls run
+    on ``chunk_rows`` rows at a time, dW summed over the chunks in f32, and
+    the time goes under ``library_chunked_ms``: no single call fits at that
+    size, so ``library_ms`` is None."""
     x, W, labels, w = ce_train_inputs(n, rows, vocab_size, 1, False, "cuda")
     E = x.shape[1]
     coef = (w / w.sum()).contiguous()
@@ -876,20 +1254,41 @@ def time_ce_train(vocab, n: int, rows: int, vocab_size: int) -> dict:
     Wb16 = W[:vocab_size].to(torch.bfloat16)  # cast once, outside the timed calls
     idx = labels.long()[:, None]
 
-    def library_fwd():
-        logits = torch.matmul(xb16, Wb16.T).float()
-        return torch.logsumexp(logits, -1), logits.gather(1, idx)
+    def library_fwd(rows_=slice(None)):
+        logits = torch.matmul(xb16[rows_], Wb16.T).float()
+        return torch.logsumexp(logits, -1), logits.gather(1, idx[rows_])
 
-    def library_bwd():
-        r = torch.softmax(torch.matmul(xb16, Wb16.T).float(), -1)
-        r.scatter_add_(1, idx, torch.full_like(coef, -1.0)[:, None])
-        r = (r * coef[:, None]).to(torch.bfloat16)
-        return torch.matmul(r, Wb16), torch.matmul(r.T, xb16)
+    def library_bwd(rows_=slice(None)):
+        r = torch.softmax(torch.matmul(xb16[rows_], Wb16.T).float(), -1)
+        r.scatter_add_(1, idx[rows_], torch.full_like(coef[rows_], -1.0)[:, None])
+        r = (r * coef[rows_, None]).to(torch.bfloat16)
+        return torch.matmul(r, Wb16), torch.matmul(r.T, xb16[rows_])
+
+    step = chunk_rows or n
+    chunks = [slice(r0, min(r0 + step, n)) for r0 in range(0, n, step)]
+
+    def chunked_fwd():
+        return [library_fwd(c) for c in chunks]
+
+    def chunked_bwd():
+        dW = torch.zeros((vocab_size, E), dtype=torch.float32, device="cuda")
+        dx = []
+        for c in chunks:
+            dx_c, dW_c = library_bwd(c)
+            dx.append(dx_c)
+            dW += dW_c
+        return torch.cat(dx), dW
+
+    def yardstick(whole, chunked) -> dict:
+        if chunk_rows:
+            return {"library_ms": None, "library_chunked_ms": cuda_ms(chunked, reps=5),
+                    "library_chunk_rows": chunk_rows}
+        return {"library_ms": cuda_ms(whole, reps=10)}
 
     fwd = {
         "ms": cuda_ms(lambda: vocab.ce_fwd(x, W, labels, vocab_size)),
         "plain_ms": cuda_ms(lambda: vocab.ce_fwd_plain(x, W, labels, vocab_size, False), reps=10),
-        "library_ms": cuda_ms(library_fwd, reps=10),
+        **yardstick(library_fwd, chunked_fwd),
         # read x, the used rows of W and the labels once, write lse and ll once
         **bound(4 * (n * E + vocab_size * E + n) + 4 * 2 * n, 2 * n * E * vocab_size,
                 n * vocab_size),
@@ -898,12 +1297,14 @@ def time_ce_train(vocab, n: int, rows: int, vocab_size: int) -> dict:
         "ms": cuda_ms(lambda: vocab.ce_bwd(x, W, labels, lse, coef, vocab_size)),
         "plain_ms": cuda_ms(lambda: vocab.ce_bwd_plain(x, W, labels, lse, coef, vocab_size),
                             reps=10),
-        "library_ms": cuda_ms(library_bwd, reps=10),
+        **yardstick(library_bwd, chunked_bwd),
         # read x, the used rows of W, labels, lse and coef once; write dx and
         # the whole of dW once; three products and one set of exponentials
         **bound(4 * (n * E + vocab_size * E + 3 * n) + 4 * (n * E + rows * E),
                 3 * 2 * n * E * vocab_size, n * vocab_size),
     }
+    for r in (fwd, bwd):
+        r["N"] = n
     return {"ce_fwd": fwd, "ce_bwd": bwd}
 
 
@@ -1072,7 +1473,7 @@ def main() -> None:
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")
     from transformers4rec_tpu_torch import flagship
-    from transformers4rec_tpu_torch.ops import build, vocab
+    from transformers4rec_tpu_torch.ops import attention, build, vocab
     from transformers4rec_tpu_torch.ops import fused_adafactor as fa
 
     card = card_line()
@@ -1124,6 +1525,37 @@ def main() -> None:
     ]
     torch.cuda.empty_cache()
     check_two_shards(train_rows, table_rows, vocab_size, 0.1)
+    # CLM has no loss-row budget: every position of 32 sessions of 256 is a row
+    clm_rows = flagship.LONG_BATCH * flagship.LONG_SEQ
+    train_checks.append(check_ce_train("clm", clm_rows, table_rows, vocab_size, 0.0, None,
+                                       False, 13))
+    torch.cuda.empty_cache()
+    # the step at S = 4,096: 4 sessions, every position a row
+    long_rows = LONG_STEP_BATCH * LONG_STEP_SEQ
+    train_checks.append(check_ce_train("long_step", long_rows, table_rows, vocab_size, 0.0, None,
+                                       False, 14))
+    torch.cuda.empty_cache()
+    head_dim = flagship.D_MODEL // flagship.N_HEAD
+    # main and long_step are the shapes of main paths 6 and 7; long is a shape
+    # that the tensor cores bound, on no main path
+    flash_shapes = {"main": (flagship.LONG_BATCH, flagship.LONG_SEQ, flagship.N_HEAD, head_dim),
+                    "long_step": (LONG_STEP_BATCH, LONG_STEP_SEQ, flagship.N_HEAD, head_dim),
+                    "long": (4, 2048, 8, 64)}
+    flash_checks = [
+        check_flash("main", *flash_shapes["main"], True, 21, ragged=True),
+        # S off every tile, a bias broadcast over the batch, one session
+        # wholly padded, non-causal
+        check_flash("edge", 3, 333, 4, 32, False, 22, ragged=True, wholly_padded=1,
+                    bias_shape=(1, 4, 333, 333)),
+        check_flash("long", *flash_shapes["long"], True, 23),
+        # the one shape at which a main path launches K6b and K6c: 64 tiles a
+        # side, the head dim padded from 12 to 16
+        check_flash("long_step", *flash_shapes["long_step"], True, 24, ragged=True),
+    ]
+    torch.cuda.empty_cache()
+    flash = flash_counters(vocab, attention)
+    for name in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
+        flash[name].launches = 0
 
     # ---- main path 1: evaluate at full width, on the card and on the CPU
     # dropout 0: it plays no part in evaluation or serving, and the training
@@ -1167,6 +1599,20 @@ def main() -> None:
     print(f"[train-streamed] {json.dumps({k: streamed[k] for k in summary})}")
     check_streamed_step(flagship)
     torch.cuda.empty_cache()
+    # sessions of 20 (21 at inference) stay on the dense attention path
+    stray = {name: flash[name].launches
+             for name in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")}
+    if any(stray.values()):
+        fail(f"the XLNet-MLM paths at S = {flagship.SEQ} launched flash kernels: {stray}")
+
+    # ---- main path 6: GPT-2-CLM on sessions of up to 256
+    clm = run_clm(flagship, vocab, attention, card, vocab_size)
+    print(f"[clm] {json.dumps(clm['launches'])}")
+    torch.cuda.empty_cache()
+
+    # ---- main path 7: one training step at S = 4,096
+    long_step = run_long_step(flagship, vocab, attention, card)
+    torch.cuda.empty_cache()
 
     # ---- timing at the evaluation, the training and the table's shape
     timing = {"ce_rank": time_ce_rank(vocab, EVAL_ROWS, table_rows, vocab_size),
@@ -1174,6 +1620,38 @@ def main() -> None:
               "rank": time_rank(vocab, EVAL_ROWS, table_rows, vocab_size),
               **time_adafactor(table_rows, 64)}
     optimizer_ms = timing.pop("table_optimizer_step_ms")
+    torch.cuda.empty_cache()
+    clm_timing = time_ce_train(vocab, clm_rows, table_rows, vocab_size, chunk_rows=1024)
+    long_timing = time_ce_train(vocab, long_rows, table_rows, vocab_size, chunk_rows=1024)
+    print(f"[timing] ce_fwd and ce_bwd at N={clm_rows} and N={long_rows}, E=64, V={vocab_size} "
+          f"on {card}: {json.dumps([clm_timing, long_timing])}; library_chunked_ms is the "
+          "N=915 yardstick run on 1,024 rows at a time (the whole logits would not fit)")
+    torch.cuda.empty_cache()
+    flash_timing = {shape: time_flash(shape, *dims, True, shape != "long",
+                                      30 if shape == "main" else 10)
+                    for shape, dims in flash_shapes.items()}
+    print(f"[timing] flash attention, causal, at main = {flash_shapes['main']} and long_step = "
+          f"{flash_shapes['long_step']} with ragged padding and long = {flash_shapes['long']} "
+          f"(B, S, H, Dh) on {card}: "
+          f"{json.dumps(flash_timing)}; library_ms is F.scaled_dot_product_attention on "
+          "bf16 inputs with the same mask (forward; its backward for dq, dk, dv; for dq "
+          "alone; for dk and dv alone)")
+    # each kernel's entry at the shape its main path gives it: K5 and K6a run
+    # three times a CLM step at the main shape, K6b and K6c only in the step
+    # at S = 4,096
+    timing.update({name: flash_timing["main" if name in ("flash_fwd", "flash_bwd_fused")
+                                      else "long_step"][name] for name in flash_timing["main"]})
+    # the other shapes at which a main path launches a kernel
+    also = {"ce_fwd": [clm_timing["ce_fwd"], long_timing["ce_fwd"]],
+            "ce_bwd": [clm_timing["ce_bwd"], long_timing["ce_bwd"]],
+            "flash_fwd": [flash_timing["long_step"]["flash_fwd"]]}
+    clm_step_ms = clm["one_batch_repeated"]["ms_per_step"]
+    attn_ms = flagship.N_LAYER * (flash_timing["main"]["flash_fwd"]["ms"]
+                                  + flash_timing["main"]["flash_bwd_fused"]["ms"])
+    print(f"[share] on {card}: a GPT-2-CLM training step (32 sessions of up to 256) takes "
+          f"{clm_step_ms:.3f} ms of wall time, of which ce_fwd + ce_bwd take "
+          f"{clm_timing['ce_fwd']['ms'] + clm_timing['ce_bwd']['ms']:.3f} ms and "
+          f"{flagship.N_LAYER} x (flash_fwd + flash_bwd_fused) {attn_ms:.3f} ms on the device")
     print(f"[timing] ce_rank and rank at N={EVAL_ROWS}, ce_fwd and ce_bwd at N={train_rows}, "
           f"E=64, V={vocab_size}, adafactor_a and adafactor_b at ({table_rows}, 64) on {card}: "
           f"{json.dumps(timing)}; library_ms is torch.matmul(bf16) with logsumexp + count "
@@ -1188,27 +1666,42 @@ def main() -> None:
           f"{step_ms:.3f} ms of wall time on the bf16 arm and "
           f"{streamed['one_batch_repeated']['ms_per_step']:.3f} ms on the streamed arm")
 
-    vocab_py, adafactor_py = ("transformers4rec_tpu/ops/vocab.py",
-                              "transformers4rec_tpu/ops/fused_adafactor.py")
+    vocab_py, adafactor_py, attention_py = ("transformers4rec_tpu/ops/vocab.py",
+                                            "transformers4rec_tpu/ops/fused_adafactor.py",
+                                            "transformers4rec_tpu/ops/attention.py")
     # name -> (source, file and line of the TPU kernel body)
     sources = {"ce_rank": ("ce_rank.cu", f"{vocab_py}:758"),
                "ce_fwd": ("ce_fwd.cu", f"{vocab_py}:105"),
                "ce_bwd": ("ce_bwd.cu", f"{vocab_py}:349"),
                "rank": ("rank.cu", f"{vocab_py}:639"),
                "adafactor_a": ("adafactor.cu", f"{adafactor_py}:83"),
-               "adafactor_b": ("adafactor.cu", f"{adafactor_py}:103")}
+               "adafactor_b": ("adafactor.cu", f"{adafactor_py}:103"),
+               "flash_fwd": ("flash_fwd.cu", f"{attention_py}:92"),
+               "flash_bwd_fused": ("flash_bwd.cu", f"{attention_py}:284"),
+               "flash_bwd_dq": ("flash_bwd.cu", f"{attention_py}:158"),
+               "flash_bwd_dkv": ("flash_bwd.cu", f"{attention_py}:217")}
     launches = {"ce_rank": eval_launches["ce_rank"] + serve["launches"]["ce_rank"]
                 + parallel["launches"]["ce_rank"]}
     for name in ("ce_fwd", "ce_bwd", "adafactor_a", "adafactor_b"):
         launches[name] = (train["launches"][name] + streamed["launches"][name]
                           + parallel["launches"].get(name, 0))
     launches["rank"] = parallel["launches"]["rank"]
+    # paths 6 and 7: every kernel of the CLM paths
+    for name in flash:
+        launches[name] = (launches.get(name, 0) + clm["launches"][name]
+                          + long_step["launches"][name])
     errors = {"ce_rank": max(c["lse_max_abs_err"] for c in checks),
               "ce_fwd": max(c["lse_max_abs_err"] for c in train_checks),
               "ce_bwd": max(c[g]["max_abs_err"] for c in train_checks for g in ("dx", "dW")),
               "rank": max(c["count_max_diff"] for c in rank_checks),
               "adafactor_a": max(c["moment_max_abs_err"] for c in adafactor_checks),
-              "adafactor_b": max(c["table_max_abs_err"] for c in adafactor_checks)}
+              "adafactor_b": max(c["table_max_abs_err"] for c in adafactor_checks),
+              "flash_fwd": max(c["out"]["max_abs_err"] for c in flash_checks),
+              "flash_bwd_fused": max(c["fused"][g]["max_abs_err"] for c in flash_checks
+                                     for g in ("dq", "dk", "dv")),
+              "flash_bwd_dq": max(c["split"]["dq"]["max_abs_err"] for c in flash_checks),
+              "flash_bwd_dkv": max(c["split"][g]["max_abs_err"] for c in flash_checks
+                                   for g in ("dk", "dv"))}
     kernels = [{
         "name": name,
         "route": "cuda",
@@ -1216,7 +1709,9 @@ def main() -> None:
         "replaces": replaces,
         "launches": launches[name],
         "max_abs_err": errors[name],
-        **{k: timing[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: timing[name][k] for k in TIMING_KEYS + ("N", "shape") if k in timing[name]},
+        "also_at": [{k: t[k] for k in t if k in TIMING_KEYS + ("N", "shape", "library_chunked_ms")}
+                    for t in also.get(name, [])],
     } for name, (source, replaces) in sources.items()]
     if any(k["launches"] < 1 for k in kernels):
         fail(f"a kernel of the main path was never launched: {launches}")

@@ -18,6 +18,10 @@ same reason as K3's ranks. The Adafactor kernels repeat the plain version's
 float32 arithmetic with fused multiply-adds, an approximate rsqrt (2 ulp) and
 another order of the clip's sum: the moment within 1e-6 relative, the
 parameter within 1e-5 of the largest update plus its own float32 spacing.
+The attention kernels round P and dS to bf16 as their plain versions do, from
+exponentials of their own: the output within 5e-3 and 1e-3 in relative
+Frobenius norm, lse within 1e-4, gradients within 2e-2 of the peak and 1e-3
+in relative Frobenius norm, and the same bits on a second call.
 """
 
 import math
@@ -26,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from transformers4rec_tpu_torch.ops import attention as attn
 from transformers4rec_tpu_torch.ops import fused_adafactor as fa
 from transformers4rec_tpu_torch.ops import vocab
 
@@ -364,3 +369,142 @@ def test_streamed_optimizer_step_on_the_card_matches_the_cpu(dev):
     torch.testing.assert_close(v_k, v_c, rtol=1e-6, atol=0)
     move = float((p_c - torch.from_numpy(p0)).abs().max())
     assert float((p_k - p_c).abs().max()) <= 1e-5 * move + 2.0 ** -23
+
+
+# --------------------------------------------------------- K5 / K6a / K6b / K6c
+FLASH_SHAPES = {
+    # (B, S, H, Dh, causal, ragged, sessions wholly padded, bias planes)
+    "one_tile": (2, 64, 2, 16, False, False, 0, None),
+    "dh12_causal_ragged": (4, 256, 4, 12, True, True, 0, None),
+    "off_the_tile_bias_1_H": (3, 333, 4, 32, False, True, 1, (1, 4)),
+    "bias_B_1_causal": (2, 200, 2, 64, True, True, 0, (2, 1)),
+    "bias_B_H": (2, 130, 3, 20, True, False, 0, (2, 3)),
+    "bias_1_1_dh128": (2, 150, 2, 128, False, True, 0, (1, 1)),
+    "long": (1, 1100, 2, 64, True, False, 0, None),
+    # 64 tiles a side with the head dim padded from 12 to 16: the step at
+    # S = 4,096, where the backward takes K6b and K6c
+    "dh12_64_tiles": (1, 4096, 4, 12, True, True, 0, None),
+}
+
+
+def _flash_inputs(shape, dev):
+    B, S, H, Dh, causal, ragged, padded, planes = FLASH_SHAPES[shape]
+    rng = np.random.default_rng(B * S + Dh)
+    q, k, v, g = (torch.from_numpy(rng.normal(0, 1, (B, S, H, Dh)).astype(np.float32)).to(dev)
+                  for _ in range(4))
+    pad = None
+    if ragged:
+        lengths = rng.integers(2, S + 1, B)
+        lengths[:padded] = 0
+        pad = torch.from_numpy(np.arange(S)[None, :] < lengths[:, None]).to(dev)
+    bias = None
+    if planes is not None:
+        bias = torch.from_numpy(rng.normal(0, 0.5, (*planes, S, S)).astype(np.float32)).to(dev)
+    return q, k, v, g, bias, pad, causal
+
+
+def _close_grad(got, want):
+    err = (got - want).abs().max() / want.abs().max()
+    return float(err) <= 2e-2 and float((got - want).norm() / want.norm()) <= 1e-3
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_forward_kernel_matches_plain(dev, shape):
+    q, k, v, _, bias, pad, causal = _flash_inputs(shape, dev)
+    before = attn.flash_fwd.launches
+    out, lse = attn.flash_fwd(q, k, v, bias, pad, causal)
+    again = attn.flash_fwd(q, k, v, bias, pad, causal)
+    torch.cuda.synchronize()
+    assert attn.flash_fwd.launches == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    out_p, lse_p = attn.flash_forward_plain(q, k, v, bias, pad, causal)
+    masked = lse_p == attn.LSE_MASKED
+    assert float((out - out_p).abs().max()) <= 5e-3
+    assert float((out - out_p).norm() / out_p.norm()) <= 1e-3
+    assert torch.equal(lse[masked], lse_p[masked])
+    assert float((lse - lse_p)[~masked].abs().max()) <= 1e-4
+    B, S, H, _ = q.shape
+    assert bool((out[masked.reshape(B, H, S).permute(0, 2, 1)] == 0).all())
+    if FLASH_SHAPES[shape][6]:
+        assert int(masked.sum()) >= S * H
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_backward_kernels_match_plain(dev, shape):
+    q, k, v, g, bias, pad, causal = _flash_inputs(shape, dev)
+    out, lse = attn.flash_forward_plain(q, k, v, bias, pad, causal)
+    delta = attn.row_delta(g, out)
+    args = (q, k, v, g, lse, delta, bias, pad, causal)
+    counts = (attn.flash_bwd_fused.launches, attn.flash_bwd_dq.launches,
+              attn.flash_bwd_dkv.launches)
+    fused = attn.flash_bwd_fused(*args)
+    split = (attn.flash_bwd_dq(*args), *attn.flash_bwd_dkv(*args))
+    again = attn.flash_bwd_fused(*args) + (attn.flash_bwd_dq(*args), *attn.flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    assert (attn.flash_bwd_fused.launches, attn.flash_bwd_dq.launches,
+            attn.flash_bwd_dkv.launches) == tuple(c + 2 for c in counts)
+    assert all(torch.equal(a, b) for a, b in zip(fused + split, again))
+    want_fused = attn.flash_backward_plain(q, k, v, bias, pad, causal, out, lse, g, True)
+    want_split = attn.flash_backward_plain(q, k, v, bias, pad, causal, out, lse, g, False)
+    for got, want in zip(fused + split, want_fused + want_split):
+        assert torch.isfinite(got).all() and _close_grad(got, want)
+    # K6a against K6b + K6c: the same dk and dv, dq in another order of sums
+    assert float((fused[0] - split[0]).abs().max() / split[0].abs().max()) <= 1e-5
+    for a, b in zip(fused[1:], split[1:]):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-6
+
+
+def test_flash_attention_on_the_card_matches_the_cpu(dev):
+    """Forward and gradients through the autograd function: the kernels on
+    the card against the plain versions on the CPU, on both backward routes
+    (the cap lowered for the second) and on the learned-bias route."""
+    q, k, v, g, bias, pad, causal = _flash_inputs("bias_B_1_causal", dev)
+
+    def run(device, bias_grad):
+        leaves = [t.to(device).clone().requires_grad_() for t in (q, k, v, bias)]
+        out = attn.flash_attention(*leaves, pad.to(device), causal, bias_grad=bias_grad)
+        out.backward(g.to(device))
+        return [out.detach().cpu()] + [None if t.grad is None else t.grad.cpu() for t in leaves]
+
+    want = run("cpu", False)
+    for cap in (attn.BWD_DQ_PARTIAL_MAX_BYTES, 1):
+        old, attn.BWD_DQ_PARTIAL_MAX_BYTES = attn.BWD_DQ_PARTIAL_MAX_BYTES, cap
+        try:
+            got = run(dev, False)
+        finally:
+            attn.BWD_DQ_PARTIAL_MAX_BYTES = old
+        assert float((got[0] - want[0]).abs().max()) <= 5e-3
+        assert all(_close_grad(a, b) for a, b in zip(got[1:4], want[1:4]))
+        assert got[4] is None and want[4] is None
+    got, want = run(dev, True), run("cpu", True)
+    assert all(_close_grad(a, b) for a, b in zip(got[1:], want[1:]))
+    assert float(got[4].abs().max()) > 0
+
+
+@pytest.mark.parametrize("bad", ["dh_not_mult4", "dh_too_wide", "q_dtype", "strided_k",
+                                 "bias_shape", "pad_dtype", "cpu_v", "lse_shape"])
+def test_flash_kernels_reject_what_they_do_not_take(dev, bad):
+    q = torch.zeros(2, 128, 2, 16, device=dev)
+    k, v, g = q.clone(), q.clone(), q.clone()
+    rows = torch.zeros(4, 128, device=dev)
+    bias = pad = None
+    if bad == "dh_not_mult4":
+        q = k = v = g = torch.zeros(2, 128, 2, 14, device=dev)
+    elif bad == "dh_too_wide":
+        q = k = v = g = torch.zeros(2, 128, 2, 132, device=dev)
+    elif bad == "q_dtype":
+        q = q.half()
+    elif bad == "strided_k":
+        k = torch.zeros(2, 128, 2, 32, device=dev)[..., ::2]
+    elif bad == "bias_shape":
+        bias = torch.zeros(3, 2, 128, 128, device=dev)
+    elif bad == "pad_dtype":
+        pad = torch.ones(2, 128, device=dev)
+    elif bad == "cpu_v":
+        v = v.cpu()
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "lse_shape":
+            attn.flash_bwd_fused(q, k, v, g, rows[:, :64].contiguous(), rows, bias, pad)
+        else:
+            attn.flash_fwd(q, k, v, bias, pad)
+            attn.flash_bwd_dq(q, k, v, g, rows, rows, bias, pad)

@@ -45,6 +45,7 @@ def test_fresh_import_pulls_in_no_jax():
         "import transformers4rec_tpu_torch, transformers4rec_tpu_torch.flagship\n"
         "import transformers4rec_tpu_torch.serving.server, transformers4rec_tpu_torch.ops.build\n"
         "import transformers4rec_tpu_torch.parallel.sharded_embedding\n"
+        "import transformers4rec_tpu_torch.ops.attention\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
     )
@@ -110,9 +111,13 @@ def test_build_finds_every_cuda_source_and_each_names_its_tpu_kernel():
                 "ce_fwd": "ops/vocab.py:_ce_fwd_kernel_vmajor",
                 "ce_bwd": "ops/vocab.py:_ce_bwd_fused_kernel_dxsc",
                 "rank": "ops/vocab.py:_rank_kernel",
-                "adafactor": "ops/fused_adafactor.py:_upd_a_kernel"}
+                "adafactor": "ops/fused_adafactor.py:_upd_a_kernel",
+                "flash_fwd": "ops/attention.py:_make_kernel",
+                "flash_bwd": "ops/attention.py:_make_bwd_fused_kernel"}
     assert set(srcs) == {p.stem for p in (PACKAGE / "csrc").glob("*.cu")} == set(replaces)
     assert "_upd_b_kernel" in srcs["adafactor"].read_text()
+    for body in ("_make_bwd_dq_kernel", "_make_bwd_dkv_kernel"):
+        assert body in srcs["flash_bwd"].read_text()
     for name, path in srcs.items():
         text = path.read_text()
         assert f"Replaces: transformers4rec_tpu/{replaces[name]}" in text
@@ -135,3 +140,25 @@ def test_an_edited_shared_header_renames_every_library(tmp_path, monkeypatch):
         f.write("// edited\n")
     after = {name: build.library_path(name) for name in build.sources()}
     assert all(after[name] != before[name] for name in before)
+
+
+def test_ops_exports_the_attention_functions_and_every_kernel_has_a_counter():
+    from transformers4rec_tpu_torch import ops
+
+    for name in ("flash_attention", "flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+                 "flash_bwd_dkv", "flash_forward_plain", "flash_backward_plain",
+                 "reference_attention", "use_flash", "FlashAttention"):
+        assert name in ops.__all__ and hasattr(ops, name), name
+    assert sorted(ops.__all__) == sorted(set(ops.__all__))
+    for wrapper in (ops.flash_fwd, ops.flash_bwd_fused, ops.flash_bwd_dq, ops.flash_bwd_dkv,
+                    ops.ce_fwd, ops.ce_bwd, ops.ce_rank, ops.rank_counts,
+                    ops.adafactor_pass_a, ops.adafactor_pass_b):
+        assert isinstance(wrapper.launches, int)
+
+
+def test_the_attention_module_calls_no_library_attention():
+    """The products and the softmax of the CUDA path are the kernels' own."""
+    text = (PACKAGE / "ops" / "attention.py").read_text()
+    assert "scaled_dot_product_attention" not in text and "torch.compile" not in text
+    for path in (PACKAGE / "blocks" / "transformer.py", PACKAGE / "ops" / "attention.py"):
+        assert "scaled_dot_product_attention" not in path.read_text()

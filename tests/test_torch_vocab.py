@@ -94,3 +94,31 @@ def test_ce_rank_takes_plain_version_only_for_cpu_tensors():
     # the kernel path refuses CPU tensors instead of falling back
     with pytest.raises(ValueError, match="CUDA"):
         vocab._ce_rank_cuda(*args, ll, VOCAB, False)
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_a_label_outside_the_table_gives_the_reference_loss_and_rank(eps):
+    """A label at or beyond the table's rows (never produced by the loaders):
+    the reference's ``jnp.take`` fills the gathered row with NaN, so that
+    row's loss is NaN and its rank 0, and nothing raises. The port's gather
+    clamps its index into the table and gives the same; a negative label in
+    range counts from the table's end in both."""
+    x, W, labels, weights = _inputs(4)
+    labels[:4] = [ROWS, ROWS + 5, 10 * ROWS, -(ROWS + 1)]
+    labels[4] = -1  # the table's last row in both packages
+    weights[:5] = [1.0, 0.0, 1.0, 1.0, 1.0]
+    per_row = []
+    for keep in (slice(None), slice(4, None)):  # with the rows at fault, and without
+        args = (x[keep], W, labels[keep], weights[keep])
+        want_loss, want_rank = jax_fused_ce_and_rank(
+            *(jnp.asarray(a) for a in args), use_pallas=False, vocab_size=VOCAB,
+            label_smoothing=eps)
+        got_loss, got_rank = vocab.fused_ce_and_rank(
+            *(torch.from_numpy(a) for a in args), vocab_size=VOCAB, label_smoothing=eps)
+        np.testing.assert_allclose(float(got_loss), float(want_loss), rtol=1e-5, equal_nan=True)
+        np.testing.assert_array_equal(got_rank.numpy(), np.asarray(want_rank))
+        per_row.append((float(got_loss), got_rank.numpy()))
+    assert np.isnan(per_row[0][0]) and np.isfinite(per_row[1][0])
+    assert (per_row[0][1][:4] == 0).all()
+    ll = vocab.label_logits(torch.from_numpy(x), torch.from_numpy(W), torch.from_numpy(labels))
+    assert torch.isnan(ll[:4]).all() and torch.isfinite(ll[4:]).all()

@@ -1,14 +1,17 @@
 """transformers4rec_tpu_torch — the PyTorch / CUDA port of transformers4rec_tpu.
 
 A second package beside the JAX one, which stays the reference. It carries
-the training, evaluation and inference paths of the REES46 XLNet-MLM model:
-schema-driven input modules, MLM masking, the unified transformer encoder,
+the training, evaluation and inference paths of the REES46 XLNet-MLM model
+and of GPT-2 with causal language modelling on long sessions:
+schema-driven input modules, MLM and CLM masking, the unified transformer encoder,
 next-item prediction over a tied item table, the ``Trainer`` with AdamW on
 the dense weights and Adafactor on the embedding tables, streaming ranking
 metrics and the dynamic-batching HTTP server. Every pass over the whole
 vocabulary is a hand-written CUDA kernel (``ops/vocab.py``): the training
 cross-entropy forward and backward (``csrc/ce_fwd.cu``, ``csrc/ce_bwd.cu``)
-and the evaluation's loss-and-rank pass (``csrc/ce_rank.cu``).
+and the evaluation's loss-and-rank pass (``csrc/ce_rank.cu``). From sessions
+of 128 on, attention runs through the flash kernels of ``ops/attention.py``
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -20,7 +23,7 @@ from . import (
     trainer, utils,
 )
 from .blocks import SequentialBlock, TransformerBlock, TransformerEncoder
-from .config import T4RecConfig, XLNetConfig, transformer_registry
+from .config import GPT2Config, T4RecConfig, XLNetConfig, transformer_registry
 from .features import (
     ContinuousFeatures,
     EmbeddingFeatures,
@@ -37,6 +40,7 @@ __all__ = [
     "ColumnSchema",
     "ContinuousFeatures",
     "EmbeddingFeatures",
+    "GPT2Config",
     "Head",
     "MaskingInfo",
     "Model",

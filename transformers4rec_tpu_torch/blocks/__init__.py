@@ -1,10 +1,11 @@
-from .base import SequentialBlock, TransformerBlock
+from .base import SequentialBlock, TransformerBlock, check_masking_compat
 from .transformer import (
     MultiHeadAttention,
     RelativePositionBias,
     TransformerEncoder,
     TransformerLayer,
     make_attention_bias,
+    make_extra_bias,
 )
 
 __all__ = [
@@ -14,5 +15,7 @@ __all__ = [
     "TransformerBlock",
     "TransformerEncoder",
     "TransformerLayer",
+    "check_masking_compat",
     "make_attention_bias",
+    "make_extra_bias",
 ]

@@ -4,6 +4,9 @@ Counterpart of ``transformers4rec_tpu/blocks/base.py``. Shape propagation is
 analytic through ``output_size()``; the sequential pipeline threads
 ``(hidden, MaskingInfo)`` explicitly.
 
+``check_masking_compat`` holds the arch against the masking scheme where
+``TransformerBlock`` resolves a config, as in the JAX package.
+
 Not ported yet: ``Block``, ``MLPBlock`` and ``RNNBlock``.
 """
 
@@ -17,13 +20,45 @@ from torch import nn
 from ..config.transformer import T4RecConfig
 from ..masking import MaskingInfo
 
+# which masking schemes each architecture supports
+_DEFAULT_MASKING = ("clm", "mlm", "rtd", "plm")
+MASKING_COMPAT = {
+    "bert": ("mlm", "rtd"),
+    "roberta": ("mlm", "rtd"),
+    "electra": ("mlm", "rtd"),
+    "albert": ("mlm", "rtd"),
+    "gpt2": ("clm",),
+    "transfoxl": ("clm",),
+    "longformer": ("clm", "mlm", "rtd"),
+    "reformer": ("clm", "mlm", "rtd"),
+    "xlnet": _DEFAULT_MASKING,
+}
+
+_MASKING_ALIASES = {"causal": "clm", "masked": "mlm", "permutation": "plm", "replacement": "rtd"}
+
+
+def check_masking_compat(arch: str, masking_name: Optional[str]) -> None:
+    if masking_name is None:
+        return
+    key = _MASKING_ALIASES.get(masking_name.lower(), masking_name.lower())
+    allowed = MASKING_COMPAT.get(arch.lower(), _DEFAULT_MASKING)
+    if key not in allowed:
+        raise ValueError(
+            f"{arch} is not supported with masking scheme {masking_name!r}; "
+            f"allowed: {allowed}"
+        )
+
+
 class TransformerBlock(nn.Module):
     """Adapter from the tabular-sequence pipeline into the unified encoder.
-    Accepts a ``T4RecConfig`` or a prebuilt ``TransformerEncoder``."""
+    Accepts a ``T4RecConfig`` or a prebuilt ``TransformerEncoder``;
+    ``masking`` names the input module's scheme for the compat check."""
 
-    def __init__(self, transformer: Union[T4RecConfig, nn.Module]):
+    def __init__(self, transformer: Union[T4RecConfig, nn.Module],
+                 masking: Optional[str] = None):
         super().__init__()
         if isinstance(transformer, T4RecConfig):
+            check_masking_compat(transformer.arch, masking or transformer.masking)
             transformer = transformer.to_encoder()
         self._d_model = transformer.d_model
         self.encoder = transformer

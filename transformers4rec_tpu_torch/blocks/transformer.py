@@ -5,17 +5,21 @@ whose per-arch differences are config flags. All masking folds into ONE
 additive attention bias computed once per forward and shared by the layers.
 
 Ported: bidirectional or causal attention, the T5-style relative position
-bias, an optional local window, pre-LN layers with the tanh GELU and a
-final LayerNorm, in float32, and dropout in training (on the embeddings, the
-attention probabilities, the feed-forward's hidden layer and both residual
-branches, where the JAX package applies it), drawn from an explicit
-``torch.Generator``. Attention runs on the dense path
-(``MultiHeadAttention``): the JAX package switches to its flash kernel only
-at S >= 128, and the paths ported here run at S <= 21. Not ported yet:
-two-stream attention (``perm_mask``), session packing
-(``segment_ids``), the post-LN BERT family (embedding LayerNorm, erf
-GELU), learned absolute and axial positions, segment memory, shared
-layers, per-layer attention patterns, LSH attention and the flash kernels;
+bias, learned absolute positions, an optional local window, pre-LN layers
+with the tanh GELU and a final LayerNorm, in float32, and dropout in
+training (on the embeddings, the attention probabilities, the
+feed-forward's hidden layer and both residual branches, where the JAX
+package applies it), drawn from an explicit ``torch.Generator``. Below
+S = 128, and whenever attention dropout is drawn, ``MultiHeadAttention``
+takes the dense path over the composed (B|1, 1|H, S, S) bias; from S = 128
+on it takes ``ops.attention.flash_attention`` (kernels K5 and K6), which
+applies the causal mask and the padding inside the kernel and reads only
+the local window and the relative bias as a tensor. With a learned relative
+bias the fused forward runs and the backward goes through the dense f32
+function, which yields the bias gradient. Not ported yet: two-stream
+attention (``perm_mask``), session packing (``segment_ids``), the post-LN
+BERT family (embedding LayerNorm, erf GELU), axial positions, segment
+memory, shared layers, per-layer attention patterns and LSH attention;
 ``T4RecConfig.to_encoder`` raises ``NotImplementedError`` for them.
 """
 
@@ -26,6 +30,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.attention import flash_attention, use_flash
 
 NEG_INF = -1e9
 
@@ -72,6 +78,26 @@ def make_attention_bias(
         far = (pos[None, :] - pos[:, None]).abs() > local_window
         bias = bias + torch.where(far, NEG_INF, 0.0).to(dtype)
     return bias
+
+
+def make_extra_bias(
+    seq_len: int,
+    perm_mask: Optional[torch.Tensor] = None,
+    local_window: Optional[int] = None,
+    dtype: torch.dtype = torch.float32,
+    device=None,
+) -> Optional[torch.Tensor]:
+    """The additive components that are neither causal nor padding (here the
+    local window), or None: (1, 1, S, S). Kept apart so that the flash kernel
+    can apply causal and padding itself and read a bias only when one
+    exists."""
+    if perm_mask is not None:
+        raise NotImplementedError("two-stream attention (perm_mask) is not ported yet")
+    if local_window is None:
+        return None
+    pos = torch.arange(seq_len, device=device)
+    far = (pos[None, :] - pos[:, None]).abs() > local_window
+    return torch.where(far, NEG_INF, 0.0).to(dtype)[None, None]
 
 
 class RelativePositionBias(nn.Module):
@@ -121,11 +147,13 @@ class RelativePositionBias(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Standard multi-head attention with an additive bias (dense path)."""
+    """Standard multi-head attention with an additive bias. ``causal`` lets
+    the flash kernel apply the causal mask itself."""
 
-    def __init__(self, d_model: int, n_head: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, n_head: int, dropout: float = 0.0, causal: bool = False):
         super().__init__()
         self.d_model, self.n_head, self.dropout = d_model, n_head, dropout
+        self.causal = causal
         self.q = nn.Linear(d_model, d_model)
         self.k = nn.Linear(d_model, d_model)
         self.v = nn.Linear(d_model, d_model)
@@ -136,14 +164,29 @@ class MultiHeadAttention(nn.Module):
             nn.init.xavier_uniform_(lin.weight, generator=generator)
             nn.init.zeros_(lin.bias)
 
-    def forward(self, query_in: torch.Tensor, kv_in: torch.Tensor, bias: torch.Tensor,
-                training: bool = False, generator=None) -> torch.Tensor:
+    def forward(self, query_in: torch.Tensor, kv_in: torch.Tensor,
+                bias: Optional[torch.Tensor], training: bool = False, generator=None,
+                flash_ctx: Optional[tuple] = None) -> torch.Tensor:
+        """``bias`` is the composed additive bias of the dense path (not
+        needed when the flash path is taken); ``flash_ctx`` is ``(extra_bias,
+        pad_mask, bias_grad)`` and selects the flash path, None the dense
+        one: the encoder decides (``use_flash``), once for all its layers."""
         B, Sq, _ = query_in.shape
         Sk = kv_in.shape[1]
         H, Dh = self.n_head, self.d_model // self.n_head
         q = self.q(query_in).view(B, Sq, H, Dh)
         k = self.k(kv_in).view(B, Sk, H, Dh)
         v = self.v(kv_in).view(B, Sk, H, Dh)
+        if flash_ctx is not None:
+            # the fused kernels for long sequences: causal and padding are
+            # applied inside, only the local window and the relative bias are
+            # read as a tensor. bias_grad is set when the bias carries the
+            # learned relative positions: the backward then takes the dense
+            # route that yields the bias gradient
+            extra_bias, pad_mask, bias_grad = flash_ctx
+            ctx = flash_attention(q, k, v, bias=extra_bias, pad_mask=pad_mask,
+                                  causal=self.causal, bias_grad=bias_grad)
+            return self.out(ctx.reshape(B, Sq, H * Dh))
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * Dh ** -0.5 + bias
         probs = torch.softmax(logits, dim=-1)
         # fully blocked query rows (every key masked) output 0, not the
@@ -161,10 +204,10 @@ class TransformerLayer(nn.Module):
     on a LayerNorm of its input and added back to it."""
 
     def __init__(self, d_model: int, n_head: int, d_ff: int, layer_norm_eps: float = 1e-12,
-                 dropout: float = 0.0, attn_dropout: float = 0.0):
+                 dropout: float = 0.0, attn_dropout: float = 0.0, causal: bool = False):
         super().__init__()
         self.dropout = dropout
-        self.attn = MultiHeadAttention(d_model, n_head, attn_dropout)
+        self.attn = MultiHeadAttention(d_model, n_head, attn_dropout, causal)
         self.ln1 = nn.LayerNorm(d_model, eps=layer_norm_eps)
         self.ln2 = nn.LayerNorm(d_model, eps=layer_norm_eps)
         self.ffn_in = nn.Linear(d_model, d_ff)
@@ -175,13 +218,14 @@ class TransformerLayer(nn.Module):
             _lecun_normal_(lin.weight, lin.in_features, generator)
             nn.init.zeros_(lin.bias)
 
-    def forward(self, hidden: torch.Tensor, bias: torch.Tensor, training: bool = False,
-                generator=None) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, bias: Optional[torch.Tensor],
+                training: bool = False, generator=None,
+                flash_ctx: Optional[tuple] = None) -> torch.Tensor:
         def drop(t):
             return dropout(t, self.dropout, training, generator)
 
         x = self.ln1(hidden)
-        hidden = hidden + drop(self.attn(x, x, bias, training, generator))
+        hidden = hidden + drop(self.attn(x, x, bias, training, generator, flash_ctx))
         h = drop(F.gelu(self.ffn_in(self.ln2(hidden)), approximate="tanh"))
         return hidden + drop(self.ffn_out(h))
 
@@ -201,24 +245,35 @@ class TransformerEncoder(nn.Module):
         local_window: Optional[int] = None,
         dropout: float = 0.1,
         attn_dropout: float = 0.0,
+        max_position: int = 512,
     ):
         super().__init__()
-        if pos_encoding not in ("relative_bias", "none"):
+        if pos_encoding not in ("relative_bias", "learned_absolute", "none"):
             raise NotImplementedError(f"pos_encoding={pos_encoding!r} is not ported yet")
         self.d_model, self.n_head, self.n_layer = d_model, n_head, n_layer
         self.causal = causal
+        self.pos_encoding = pos_encoding
+        self.max_position = max_position
         self.local_window = local_window
         self.dropout = dropout
+        self.attn_dropout = attn_dropout
         d_ff = d_ff or 4 * d_model
         self.layers = nn.ModuleList(
-            TransformerLayer(d_model, n_head, d_ff, layer_norm_eps, dropout, attn_dropout)
+            TransformerLayer(d_model, n_head, d_ff, layer_norm_eps, dropout, attn_dropout,
+                             causal)
             for _ in range(n_layer)
         )
+        if pos_encoding == "learned_absolute":
+            self.position_embedding = nn.Parameter(torch.empty(max_position, d_model))
         self.rel_pos = (
             RelativePositionBias(n_head, bidirectional=not causal)
             if pos_encoding == "relative_bias" else None
         )
         self.ln_f = nn.LayerNorm(d_model, eps=layer_norm_eps)
+
+    def _init_weights(self, generator: torch.Generator) -> None:
+        if self.pos_encoding == "learned_absolute":
+            nn.init.normal_(self.position_embedding, 0.0, 0.02, generator=generator)
 
     def forward(
         self,
@@ -235,13 +290,32 @@ class TransformerEncoder(nn.Module):
             raise NotImplementedError("session packing (segment_ids) is not ported yet")
         S = inputs_embeds.shape[1]
         hidden = inputs_embeds.float()
-        bias = make_attention_bias(
-            pad_mask, S, causal=self.causal, local_window=self.local_window,
-            device=hidden.device,
-        )
-        if self.rel_pos is not None:
-            bias = bias + self.rel_pos(S)
+        if self.pos_encoding == "learned_absolute":
+            # loud guard: a longer batch would otherwise run off the table
+            if S > self.max_position:
+                raise ValueError(
+                    f"sequence length {S} exceeds max_position={self.max_position}"
+                )
+            hidden = hidden + self.position_embedding[:S][None]
+        rel_bias = self.rel_pos(S) if self.rel_pos is not None else None
+        if use_flash(S, self.attn_dropout, training):
+            # the flash context, built once and handed to every layer: only
+            # the local window and the relative bias are a tensor; the kernel
+            # applies causal and padding itself
+            bias = None
+            extra = make_extra_bias(S, None, self.local_window, device=hidden.device)
+            if rel_bias is not None:
+                extra = rel_bias if extra is None else extra + rel_bias
+            flash_ctx = (extra, pad_mask, rel_bias is not None)
+        else:
+            flash_ctx = None
+            bias = make_attention_bias(
+                pad_mask, S, causal=self.causal, local_window=self.local_window,
+                device=hidden.device,
+            )
+            if rel_bias is not None:
+                bias = bias + rel_bias
         hidden = dropout(hidden, self.dropout, training, generator)
         for layer in self.layers:
-            hidden = layer(hidden, bias, training, generator)
+            hidden = layer(hidden, bias, training, generator, flash_ctx)
         return self.ln_f(hidden)

@@ -1,3 +1,3 @@
-from .transformer import T4RecConfig, XLNetConfig, transformer_registry
+from .transformer import GPT2Config, T4RecConfig, XLNetConfig, transformer_registry
 
-__all__ = ["T4RecConfig", "XLNetConfig", "transformer_registry"]
+__all__ = ["GPT2Config", "T4RecConfig", "XLNetConfig", "transformer_registry"]

@@ -6,10 +6,12 @@ resolves to the keyword arguments of the ONE unified ``TransformerEncoder``
 Encoder archs keep ``total_seq_length += 2`` headroom for the MLM inference
 [MASK] extension.
 
-Ported: ``T4RecConfig``, ``_register`` and ``XLNetConfig``. The other eight
-archs are not ported yet, and ``to_encoder`` raises ``NotImplementedError``
-for a capability flag the encoder does not carry yet. ``two_stream`` stays
-inert without a ``perm_mask`` (MLM gives none), as in the JAX package.
+Ported: ``T4RecConfig``, ``_register``, ``XLNetConfig`` and ``GPT2Config``
+(causal, learned absolute positions over ``max(total_seq_length, 8)`` rows,
+paired with CLM). The other seven archs are not ported yet, and
+``to_encoder`` raises ``NotImplementedError`` for a capability flag the
+encoder does not carry yet. ``two_stream`` stays inert without a
+``perm_mask`` (MLM and CLM give none), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -70,7 +72,8 @@ class T4RecConfig:
 
         unported = {
             "hidden_act": self.hidden_act != "gelu",
-            "pos_encoding": self.pos_encoding not in ("relative_bias", "none"),
+            "pos_encoding": self.pos_encoding not in ("relative_bias", "learned_absolute",
+                                                      "none"),
             "share_layers": self.share_layers,
             "attn_layers": self.attn_layers is not None,
             "axial_pos_shape": self.axial_pos_shape is not None,
@@ -89,6 +92,7 @@ class T4RecConfig:
             d_ff=self.d_ff, layer_norm_eps=self.layer_norm_eps, causal=self.causal,
             pos_encoding=self.pos_encoding, local_window=self.local_window,
             dropout=self.dropout, attn_dropout=self.attn_dropout,
+            max_position=max(self.total_seq_length, 8),
         )
 
     def to_model(self, input_module, *tasks, device=None, seed: int = 0, **kwargs):
@@ -140,3 +144,4 @@ XLNetConfig = _register(
     "xlnet", causal=False, pos_encoding="relative_bias", two_stream=True,
     masking="plm", _seq_headroom=2,
 )
+GPT2Config = _register("gpt2", causal=True, masking="clm")

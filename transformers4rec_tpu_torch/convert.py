@@ -9,8 +9,12 @@ for the port's counterpart module (a whole ``Model``, or a lone
 - the q/k/v ``DenseGeneral`` kernels are (D, H, Dh) with (H, Dh) biases, and
   ``out`` is (H, Dh, D): they flatten the heads into one (D, D) Linear;
 - LayerNorm ``scale`` is ``weight``;
-- the relative-bias table stays (buckets, H), and embedding tables keep their
+- the relative-bias table stays (buckets, H), the learned absolute positions
+  keep their name and shape (``position_embedding`` (max_position, D), the
+  port's ``encoder.position_embedding``), and embedding tables keep their
   padded row count.
+
+The XLNet and the GPT-2 trees are carried.
 
 ``params_from_jax(tree, shard=(rank, world), sharded_tables=("item_id",))``
 keeps rows ``[rank·V_l, (rank+1)·V_l)`` of the named tables, for a module
@@ -20,9 +24,9 @@ Load the result with ``module.load_state_dict(sd)`` (strict, so a missing
 or extra weight is an error). Training adds no weights, so the same rules
 serve it.
 
-``masking_info_from_jax(targets, mask, pad_mask)`` turns the arrays of the
-JAX package's ``MaskingInfo`` (numpy) into the port's, to give both packages
-the same mask (``Model(..., masking_info=...)``).
+``masking_info_from_jax(targets, mask, pad_mask, input_schema=None)`` turns
+the arrays of the JAX package's ``MaskingInfo`` (numpy) into the port's, to
+give both packages the same mask (``Model(..., masking_info=...)``).
 """
 
 from __future__ import annotations
@@ -96,14 +100,19 @@ def params_from_jax(tree: Mapping, shard: Optional[Tuple[int, int]] = None,
     return out
 
 
-def masking_info_from_jax(targets, mask, pad_mask=None, device=None) -> MaskingInfo:
+def masking_info_from_jax(targets, mask, pad_mask=None, device=None,
+                          input_schema=None) -> MaskingInfo:
     """numpy ``(targets, mask, pad_mask)`` of a JAX ``MaskingInfo`` → the
-    port's ``MaskingInfo`` on ``device``. Under MLM the positions replaced by
-    the [MASK] embedding are the target positions."""
-    m = torch.from_numpy(np.asarray(mask).astype(bool)).to(device)
+    port's ``MaskingInfo`` on ``device``. ``input_schema`` defaults to the
+    mask: under MLM the positions replaced by the [MASK] embedding are the
+    target positions. CLM's last-item branches keep the whole non-pad mask
+    there, so their caller passes it."""
+    def as_bool(a):
+        return torch.from_numpy(np.asarray(a).astype(bool)).to(device)
+
+    m = as_bool(mask)
     return MaskingInfo(
         targets=torch.from_numpy(np.asarray(targets).astype(np.int64)).to(device),
-        mask=m, input_schema=m,
-        pad_mask=(None if pad_mask is None
-                  else torch.from_numpy(np.asarray(pad_mask).astype(bool)).to(device)),
+        mask=m, input_schema=m if input_schema is None else as_bool(input_schema),
+        pad_mask=None if pad_mask is None else as_bool(pad_mask),
     )

@@ -1,4 +1,5 @@
-"""The flagship configuration: REES46 XLNet-MLM, as the JAX ``bench.py`` builds it.
+"""The flagship configurations: REES46 XLNet-MLM, as the JAX ``bench.py``
+builds it, and GPT-2 with causal language modelling on long sessions.
 
 390,000 items (table rows padded to a multiple of 8, the true vocab bounds
 softmax and top-k), d_model 192, 3 layers, 16 heads, sessions of 20, a
@@ -11,11 +12,19 @@ weights, unfactored Adafactor with a bf16 second moment on the embedding
 tables, no gradient clipping, dropout 0.1. With ``streamed_table_update``
 the tables take that benchmark's other arm instead: an f32 moment and the
 two-pass streamed update of the item table (``ops.fused_adafactor``).
+
+``scheme="clm"`` gives the second configuration, as the JAX
+``benchmarks/convergence_check.py --masking clm --seq-len 256 --batch 32``
+builds it: the same widths and tables under GPT-2 (causal attention, learned
+absolute positions) with next-item labels at every position, sessions of up
+to ``LONG_SEQ`` = 256 in batches of ``LONG_BATCH`` = 32. CLM has no loss-row
+budget, so the cross-entropy runs on all 8,192 positions of a batch, and
+attention runs through the flash kernels (``ops.attention``).
 """
 
 from __future__ import annotations
 
-from .config import XLNetConfig
+from .config import GPT2Config, XLNetConfig
 from .data.synthetic import synthetic_ecommerce_data_schema
 from .features import TabularSequenceFeatures
 from .model import Model, NextItemPredictionTask
@@ -30,6 +39,19 @@ BATCH = 128
 MLM_PROBABILITY = 0.3
 LEARNING_RATE = 6.7e-4
 WEIGHT_DECAY = 1e-4  # optax.adamw's default, which the benchmark leaves in place
+LONG_SEQ = 256
+LONG_BATCH = 32
+# masking scheme -> (architecture, masking arguments, sessions, batch)
+SCHEMES = {
+    "mlm": (XLNetConfig, {"mlm_probability": MLM_PROBABILITY}, SEQ, BATCH),
+    "clm": (GPT2Config, {}, LONG_SEQ, LONG_BATCH),
+}
+
+
+def _scheme(scheme: str):
+    if scheme not in SCHEMES:
+        raise ValueError(f"scheme must be one of {sorted(SCHEMES)}, got {scheme!r}")
+    return SCHEMES[scheme]
 
 
 def schema(num_items: int = NUM_ITEMS, seq: int = SEQ):
@@ -39,20 +61,23 @@ def schema(num_items: int = NUM_ITEMS, seq: int = SEQ):
 
 
 def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
-                n_layer: int = N_LAYER, n_head: int = N_HEAD, seq: int = SEQ,
+                n_layer: int = N_LAYER, n_head: int = N_HEAD, seq=None,
                 seed: int = 0, top_k=None, dropout: float = 0.1,
-                vocab_parallel_group=None) -> Model:
+                vocab_parallel_group=None, scheme: str = "mlm") -> Model:
     """The flagship model with weights drawn from ``seed``, on ``device``
-    (CUDA unless ``"cpu"``). With ``vocab_parallel_group`` (a
-    ``torch.distributed`` process group) the item table is drawn whole from
-    the seed and this rank keeps its rows; loss, evaluation and top-k go
-    over the group."""
+    (CUDA unless ``"cpu"``): XLNet-MLM on sessions of 20, or with
+    ``scheme="clm"`` GPT-2-CLM on sessions of 256 (``seq`` overrides either
+    length). With ``vocab_parallel_group`` (a ``torch.distributed`` process
+    group) the item table is drawn whole from the seed and this rank keeps
+    its rows; loss, evaluation and top-k go over the group."""
+    config, masking_kwargs, default_seq, _ = _scheme(scheme)
+    seq = default_seq if seq is None else seq
     input_module = TabularSequenceFeatures.from_schema(
-        schema(num_items, seq), d_output=d_model, masking="mlm", aggregation="concat",
-        masking_kwargs={"mlm_probability": MLM_PROBABILITY},
+        schema(num_items, seq), d_output=d_model, masking=scheme, aggregation="concat",
+        masking_kwargs=dict(masking_kwargs),
     )
-    cfg = XLNetConfig.build(d_model=d_model, n_head=n_head, n_layer=n_layer,
-                            total_seq_length=seq, dropout=dropout)
+    cfg = config.build(d_model=d_model, n_head=n_head, n_layer=n_layer,
+                       total_seq_length=seq, dropout=dropout)
     model = cfg.to_model(
         input_module,
         NextItemPredictionTask(weight_tying=True, vocab_parallel_group=vocab_parallel_group),
@@ -62,26 +87,37 @@ def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
     return model
 
 
+def build_clm_model(device=None, **kwargs) -> Model:
+    """``build_model(scheme="clm")``: what a server is given to rebuild the
+    GPT-2-CLM configuration (``--model-builder
+    transformers4rec_tpu_torch.flagship:build_clm_model``)."""
+    return build_model(device, scheme="clm", **kwargs)
+
+
 def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=None,
                   output_dir: str = "./t4rec_output", streamed_table_update: bool = False,
-                  **model_kwargs) -> Trainer:
+                  scheme: str = "mlm", batch=None, **model_kwargs) -> Trainer:
     """A ``Trainer`` over the flagship model with the benchmark's optimizer
     settings, on ``device`` (CUDA unless ``"cpu"``). Without a dataset it
     trains on synthetic sessions drawn from the schema.
     ``streamed_table_update`` gives the tables an f32 moment and the item
-    table the two-pass streamed update. ``model_kwargs`` (``num_items``,
-    ``d_model``, ...) go to ``build_model``."""
-    model = build_model(device, seed=seed, **model_kwargs)
+    table the two-pass streamed update. ``scheme`` picks the configuration
+    (and its batch size, which ``batch`` overrides). ``model_kwargs``
+    (``num_items``, ``d_model``, ``seq``, ...) go to ``build_model``."""
+    _, _, default_seq, default_batch = _scheme(scheme)
+    seq = model_kwargs.get("seq") or default_seq
+    batch = default_batch if batch is None else batch
+    model = build_model(device, seed=seed, scheme=scheme, **model_kwargs)
     args = T4RecTrainingArguments(
         output_dir=output_dir,
         learning_rate=LEARNING_RATE, lr_scheduler_type="constant",
         weight_decay=WEIGHT_DECAY, max_grad_norm=0.0,
         embedding_optimizer="adafactor",
         embedding_moment_dtype="f32" if streamed_table_update else "bf16",
-        per_device_train_batch_size=BATCH, per_device_eval_batch_size=BATCH,
-        steps_per_execution=8, max_sequence_length=model_kwargs.get("seq", SEQ), seed=seed,
+        per_device_train_batch_size=batch, per_device_eval_batch_size=batch,
+        steps_per_execution=8, max_sequence_length=seq, seed=seed,
     )
-    data_schema = schema(model_kwargs.get("num_items", NUM_ITEMS), model_kwargs.get("seq", SEQ))
+    data_schema = schema(model_kwargs.get("num_items", NUM_ITEMS), seq)
     table_optimizer = None
     if streamed_table_update:
         def table_optimizer(tables, schedule):

@@ -1,19 +1,22 @@
-"""Masking / label generation: masked language modeling (MLM).
+"""Masking / label generation: causal (CLM) and masked (MLM) language modeling.
 
 Counterpart of ``transformers4rec_tpu/masking.py``. Masking is pure label
 generation: ``(embeds, item_ids, flags) → (masked_embeds, MaskingInfo)``;
 nothing is stored on the module but the trainable [MASK] embedding.
 
-Ported: ``MaskingInfo``, ``MaskSequence`` and ``MaskedLanguageModeling`` in
-its inference branch (one [MASK] position appended at index ``len``), its
-testing branch (the label at the last item) and its training branch
-(Bernoulli masking with the ≥1-masked / ≥1-unmasked guarantee). Random draws
+Ported: ``MaskingInfo``, ``MaskSequence``, ``CausalLanguageModeling`` in
+its three branches (training: shift-by-one labels, optionally only the last
+one; testing: the label at the last target position; inference: identity
+targets) and ``MaskedLanguageModeling`` in its inference branch (one [MASK]
+position appended at index ``len``), its testing branch (the label at the
+last item) and its training branch (Bernoulli masking with the ≥1-masked /
+≥1-unmasked guarantee). Random draws
 come from an explicit ``torch.Generator`` on the tensors' device; a caller
 may instead hand ``MaskSequence.forward`` a ready ``MaskingInfo``
 (``masking_info=``), which skips the draw: that is how two devices, or two
 packages, are given the same mask. Not ported yet (raise
-``NotImplementedError``): session packing (``segment_ids``) and the CLM, PLM
-and RTD schemes.
+``NotImplementedError``): session packing (``segment_ids``) and the PLM and
+RTD schemes.
 """
 
 from __future__ import annotations
@@ -53,6 +56,14 @@ class MaskingInfo:
 
     def replace(self, **kwargs) -> "MaskingInfo":
         return dataclasses.replace(self, **kwargs)
+
+
+def _predict_all(item_ids: torch.Tensor, padding_idx: int):
+    """Shift-by-one next-item labels: position i is labelled with item i + 1."""
+    labels = torch.cat([item_ids[:, 1:], torch.zeros_like(item_ids[:, :1])], dim=1)
+    if padding_idx != 0:
+        labels[:, -1] = padding_idx
+    return labels, labels != padding_idx
 
 
 def _label_at_last(item_ids: torch.Tensor, non_pad: torch.Tensor, padding_idx: int):
@@ -128,6 +139,47 @@ class MaskSequence(nn.Module):
                                                generator=generator)
         masked = self.apply_mask_to_inputs(inputs, info, training=training, testing=testing)
         return masked, info
+
+
+@masking_registry.register("clm", "causal")
+class CausalLanguageModeling(MaskSequence):
+    """Next-item (causal) labels."""
+
+    def __init__(self, hidden_size: int = 0, padding_idx: int = 0,
+                 eval_on_last_item_seq_only: bool = True,
+                 train_on_last_item_seq_only: bool = False):
+        super().__init__(hidden_size, padding_idx, eval_on_last_item_seq_only)
+        self.train_on_last_item_seq_only = train_on_last_item_seq_only
+
+    def compute_masked_targets(self, item_ids, training=False, testing=False,
+                               generator=None) -> MaskingInfo:
+        non_pad = item_ids != self.padding_idx
+        if not training and not testing:
+            # inference: identity targets, mask = non-pad
+            return MaskingInfo(targets=item_ids, mask=non_pad, input_schema=non_pad,
+                               pad_mask=non_pad)
+        labels, mask = _predict_all(item_ids, self.padding_idx)
+        if (self.eval_on_last_item_seq_only and not training) or (
+            self.train_on_last_item_seq_only and training
+        ):
+            # keep only the label at the last target position; the input
+            # schema reverts to the full non-pad mask
+            last = (mask.sum(dim=1) - 1).clamp_min(0)
+            keep = torch.arange(labels.shape[1], device=labels.device)[None, :] == last[:, None]
+            labels = torch.where(keep, labels, torch.full_like(labels, self.padding_idx))
+            return MaskingInfo(targets=labels, mask=labels != self.padding_idx,
+                               input_schema=non_pad, pad_mask=non_pad)
+        return MaskingInfo(targets=labels, mask=mask, input_schema=mask, pad_mask=non_pad)
+
+    def apply_mask_to_inputs(self, inputs, info: MaskingInfo, training=False, testing=False):
+        mask_emb = self.masked_item_embedding.to(inputs.dtype)
+        if not training and not testing:
+            # padded positions take the trainable embedding
+            return torch.where(info.input_schema[..., None], inputs, mask_emb)
+        # drop the last position's embedding (it has no next-item target),
+        # then put the trainable embedding at the non-target positions
+        trimmed = torch.cat([inputs[:, :-1], torch.zeros_like(inputs[:, -1:])], dim=1)
+        return torch.where(info.input_schema[..., None], trimmed, mask_emb)
 
 
 @masking_registry.register("mlm", "masked")

@@ -26,7 +26,7 @@ from torch import nn
 
 from ..blocks.base import SequentialBlock, TransformerBlock
 from ..config.transformer import T4RecConfig
-from ..masking import MaskedLanguageModeling, MaskingInfo
+from ..masking import MaskedLanguageModeling, MaskingInfo, masking_registry
 from ..schema import ColumnSchema, Schema, ValueCount
 from ..utils.device import disable_tf32, module_device, resolve_device
 from .prediction_task import NextItemPredictionTask, TaskOutput
@@ -89,8 +89,12 @@ class Head(nn.Module):
             raise NotImplementedError("extra blocks (MLPBlock) are not ported yet")
         blocks: List[Any] = [input_module]
         masking = getattr(input_module, "masking", None)
+        # the scheme's registry name, for the arch compat check
+        masking_name = next((key for key in ("clm", "mlm", "plm", "rtd")
+                             if masking is not None
+                             and masking_registry.get(key) is type(masking)), None)
         if transformer is not None:
-            blocks.append(TransformerBlock(transformer))
+            blocks.append(TransformerBlock(transformer, masking=masking_name))
         body = SequentialBlock(blocks)
 
         configured = []

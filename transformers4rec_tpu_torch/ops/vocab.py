@@ -33,7 +33,8 @@ then -1e30 and every count 0. A label on a padding row (``vocab_size <=
 label < rows``) is a fault of the caller that stays loud, as in the
 reference: its label logit is the masked -1e30, so the loss is about 1e30,
 and the backward still subtracts its one-hot. Labels outside the table
-match no column.
+match no column; the evaluation's gathered label logit (``label_logits``) is
+NaN for them, as the reference's, so their loss is NaN and their rank 0.
 """
 
 from __future__ import annotations
@@ -435,10 +436,17 @@ ce_rank.launches = 0
 
 def label_logits(x: torch.Tensor, W: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """O(N·E) label logit: gather the label rows, dot in f32 over bf16 values
-    (the reference's gather-dot, kept outside the kernel)."""
+    (the reference's gather-dot, kept outside the kernel). A label outside
+    the table (``label >= rows`` or ``label < -rows``) gives NaN, as the
+    reference's ``jnp.take`` fills it: the gather's index is clamped into the
+    table, so neither device raises, and the result is replaced. A negative
+    label in range counts from the table's end, as in the reference."""
+    n_rows = W.shape[0]
+    idx = labels.long()
+    outside = (idx >= n_rows) | (idx < -n_rows)
     xb = x.to(torch.bfloat16).float()
-    rows = W[labels.long()].to(torch.bfloat16).float()
-    return (xb * rows).sum(-1)
+    rows = W[idx.clamp(-n_rows, n_rows - 1)].to(torch.bfloat16).float()
+    return torch.where(outside, float("nan"), (xb * rows).sum(-1))
 
 
 def fused_ce_and_rank(
