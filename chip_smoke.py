@@ -34,7 +34,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    with ragged padding, the shape of phase 11 and the only one at which a
    main path launches K6b and K6c, with the same bits on a second call and
    K6a against K6b + K6c; and K1 and K2 at the long-session training shapes
-   of 8,192 and 16,384 loss rows;
+   of 8,192 and 16,384 loss rows (every K1 and K2 check also asks each
+   kernel a second time for the same bits);
 4. evaluate: the REES46 XLNet-MLM model at full width (390,000 items,
    d_model 192, 3 layers, 16 heads, sessions of 20, weights from a seed)
    runs ``Model.evaluate`` over 4 synthetic batches of 128 sessions; K3 must
@@ -94,7 +95,10 @@ trains the flagship model for a few groups of steps under ``torch.profiler``
 and prints where a steady step's time goes (device time by kernel, the
 device's busy share of the wall time, the first step's cost); the table
 also goes to FILE when one is named. ``--profile-train-streamed [FILE]``
-does the same with the streamed table update.
+does the same with the streamed table update, ``--profile-train-clm [FILE]``
+with GPT-2-CLM on batches of 32 sessions of up to 256 (the path on which
+K1 and K2 take most of the device's time). ``--time-ce`` checks and times
+K1 and K2 alone at the three training shapes.
 """
 
 from __future__ import annotations
@@ -289,7 +293,7 @@ def check_ce_train(name: str, n: int, rows: int, vocab_size: int, eps: float,
     inputs. Criteria: lse within 1e-4 relative; the label logit within 1e-4
     of max(|ll|, 1) (it may sit near 0) and exactly 0 for a label of -1; zsum
     as K3's; dx and dW as ``check_grad`` says; dW rows at and beyond the
-    vocab exactly 0."""
+    vocab exactly 0; the same bits from a second call of each kernel."""
     from transformers4rec_tpu_torch.ops import vocab
 
     x, W, labels, w = ce_train_inputs(n, rows, vocab_size, seed, minus_one, device)
@@ -323,6 +327,14 @@ def check_ce_train(name: str, n: int, rows: int, vocab_size: int, eps: float,
         fail(f"ce_bwd {name}: dW rows beyond the vocab are not zero")
     if not bool((dx[w == 0] == 0).all()):
         fail(f"ce_bwd {name}: rows of weight 0 have a gradient")
+    again = vocab.ce_fwd(x, W, labels, vocab_size, smooth=eps > 0)
+    again_dx, again_dW = vocab.ce_bwd(x, W, labels, lse, coef, vocab_size, eps, eps_over_v)
+    if not (torch.equal(again[0], lse) and torch.equal(again[1], ll)
+            and (zs is None or torch.equal(again[2], zs))):
+        fail(f"ce_fwd {name}: a second call gave other bits")
+    if not (torch.equal(again_dx, dx) and torch.equal(again_dW, dW)):
+        fail(f"ce_bwd {name}: a second call gave other bits")
+    out["same_bits_twice"] = True
     print(f"[k1k2] {json.dumps(out)}")
     return out
 
@@ -1401,11 +1413,14 @@ def time_adafactor(rows: int, e: int) -> dict:
     return out
 
 
-def profile_train(card: str, out_file: str = "", streamed: bool = False) -> None:
+def profile_train(card: str, out_file: str = "", streamed: bool = False,
+                  scheme: str = "mlm") -> None:
     """Where a training step's time goes: the first step alone, a steady
     window by the host's clock, and the same window under ``torch.profiler``
     (device time by kernel; busy share = device time over wall time). With
-    ``streamed`` the tables take the streamed update with an f32 moment."""
+    ``streamed`` the tables take the streamed update with an f32 moment;
+    ``scheme="clm"`` trains GPT-2-CLM on batches of 32 sessions of up to 256
+    instead of the flagship."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1416,14 +1431,17 @@ def profile_train(card: str, out_file: str = "", streamed: bool = False) -> None
     t0 = time.perf_counter()
     build.build()  # so that the first step below does not wait for nvcc
     print(f"[profile] kernels built in {time.perf_counter() - t0:.1f}s")
-    rows, window = flagship.BATCH, 16
-    data = synthetic_data(flagship.schema(), num_rows=8 * rows,
-                          max_session_length=flagship.SEQ, seed=200)
+    clm = scheme == "clm"
+    rows = flagship.LONG_BATCH if clm else flagship.BATCH
+    seq = flagship.LONG_SEQ if clm else flagship.SEQ
+    window = 16
+    data = synthetic_data(flagship.schema(flagship.NUM_ITEMS, seq), num_rows=8 * rows,
+                          max_session_length=seq, seed=200)
     t0 = time.perf_counter()
     trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data,
-                                     streamed_table_update=streamed)
+                                     streamed_table_update=streamed, scheme=scheme)
     sync("cuda")
-    print(f"[profile] build_trainer(streamed_table_update={streamed}) "
+    print(f"[profile] build_trainer(streamed_table_update={streamed}, scheme={scheme!r}) "
           f"{time.perf_counter() - t0:.3f}s")
 
     def run(steps: int) -> float:
@@ -1446,7 +1464,8 @@ def profile_train(card: str, out_file: str = "", streamed: bool = False) -> None
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40,
                            max_name_column_width=70)
     summary = {
-        "card": card, "steps": window, "streamed_table_update": streamed,
+        "card": card, "scheme": scheme, "batch": rows, "seq": seq, "steps": window,
+        "streamed_table_update": streamed,
         "ms_per_step": plain_s / window * 1e3,
         "ms_per_step_traced": traced_s / window * 1e3,
         "device_ms_per_step": device_us / window / 1e3,
@@ -1461,14 +1480,38 @@ def profile_train(card: str, out_file: str = "", streamed: bool = False) -> None
             f.write(json.dumps(summary) + "\n" + table + "\n")
 
 
+def time_ce_kernels(card: str) -> None:
+    """K1 and K2 alone at the three training shapes (915, 8,192 and 16,384
+    loss rows against the REES46 table), each held against its plain
+    version (``check_ce_train``) and timed (``time_ce_train``) as the smoke
+    run does: the quick loop for work on these two kernels."""
+    from transformers4rec_tpu_torch import flagship
+    from transformers4rec_tpu_torch.ops import build, vocab
+
+    build.build(["ce_fwd", "ce_bwd"])
+    vocab_size = flagship.NUM_ITEMS + 1
+    rows = -(-vocab_size // 8) * 8
+    for name, n, seed in (("train", 915, 11),
+                          ("clm", flagship.LONG_BATCH * flagship.LONG_SEQ, 13),
+                          ("long_step", LONG_STEP_BATCH * LONG_STEP_SEQ, 14)):
+        check_ce_train(name, n, rows, vocab_size, 0.0, None, False, seed)
+        timing = time_ce_train(vocab, n, rows, vocab_size, chunk_rows=1024 if n > 915 else 0)
+        print(f"[time-ce] on {card}: {json.dumps(timing)}", flush=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs an NVIDIA GPU")
     import_port()
-    if sys.argv[1:2] in (["--profile-train"], ["--profile-train-streamed"]) \
-            and len(sys.argv) <= 3:
+    if sys.argv[1:] == ["--time-ce"]:
+        time_ce_kernels(card_line())
+        return
+    if sys.argv[1:2] in (["--profile-train"], ["--profile-train-streamed"],
+                         ["--profile-train-clm"]) and len(sys.argv) <= 3:
         profile_train(card_line(), *sys.argv[2:3],
-                      streamed=sys.argv[1] == "--profile-train-streamed")
+                      streamed=sys.argv[1] == "--profile-train-streamed",
+                      scheme="clm" if sys.argv[1] == "--profile-train-clm" else "mlm")
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")

@@ -125,6 +125,11 @@ CE_SHAPES = [
     (5, 20, 40, 33, 0.1),            # a vocab inside one chunk, E off the k-step of 16
     (130, 100, 704, 640, 0.0),       # V a multiple of the chunk, a whole chunk of padded rows
     (64, 64, 512, 512, 0.1),         # no padded row at all
+    # N off the 64- and the 128-row tiles at every width the backward pads to 64
+    (193, 4, 1000, 997, 0.1),
+    (193, 20, 3000, 2990, 0.0),
+    (193, 64, 2600, 2560, 0.1),      # V a multiple of the 128-column chunk
+    (193, 128, 700, 650, 0.0),
 ]
 
 
@@ -180,6 +185,52 @@ def test_ce_bwd_kernel_matches_plain(dev, n, e, rows, vocab_size, eps):
     _assert_grad_close(dW, dW_p, "dW")
     assert dW.shape == W.shape and bool((dW[vocab_size:] == 0).all())
     assert bool((dx[w == 0] == 0).all())
+
+
+@pytest.mark.parametrize("e", [132, 192, 256])
+def test_ce_fwd_kernel_at_the_widest_e(dev, e):
+    """E above 128 takes four slabs of 64 (132 and 192 padded with zeros)."""
+    x, W, labels, _ = _ce_inputs(193, e, 3000, 2999, 8, dev)
+    for smooth in (False, True):
+        lse, ll, zs = vocab.ce_fwd(x, W, labels, 2999, smooth=smooth)
+        lse_p, ll_p, zs_p = vocab.ce_fwd_plain(x, W, labels, 2999, smooth)
+        torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=0)
+        torch.testing.assert_close(ll, ll_p, rtol=1e-5, atol=1e-6)
+        if smooth:
+            scale = zs_p.abs().clamp_min(math.sqrt(2999))
+            assert float(((zs - zs_p).abs() / scale).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [915, 8192])
+def test_ce_kernels_give_the_same_bits_twice_at_the_training_shapes(dev, n):
+    """The flagship's loss rows (915) and the long-session path's (8,192)
+    against the whole REES46 table."""
+    x, W, labels, w = _ce_inputs(n, 64, 390_008, 390_001, n, dev)
+    first = vocab.ce_fwd(x, W, labels, 390_001)
+    second = vocab.ce_fwd(x, W, labels, 390_001)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    coef = (w / w.sum()).contiguous()
+    dx, dW = vocab.ce_bwd(x, W, labels, first[0], coef, 390_001)
+    dx2, dW2 = vocab.ce_bwd(x, W, labels, first[0], coef, 390_001)
+    assert torch.equal(dx, dx2) and torch.equal(dW, dW2)
+    assert torch.isfinite(dx).all() and torch.isfinite(dW).all()
+
+
+@pytest.mark.parametrize("rows,e", [(1, 4), (130, 20), (300, 128), (129, 192)])
+def test_images_are_laid_out_as_swizzled_image_index_says(dev, rows, e):
+    """What ``to_image_kernel`` writes is bf16(src) at the places of the
+    Python twin of its layout, and zeros in the padding."""
+    src = torch.from_numpy(np.random.default_rng(rows).standard_normal((rows, e))
+                           .astype(np.float32)).to(dev)
+    plan = vocab.ce_plan(rows, e, rows, rows, 132, True)
+    img = plan.scratch(dev)["ximg"]
+    with torch.cuda.device(dev):
+        vocab._write_image(vocab._kernel_lib("ce_fwd"), src, rows, img,
+                           torch.cuda.current_stream(dev).cuda_stream)
+    want = torch.zeros(img.shape, dtype=torch.bfloat16, device=dev)
+    want[:rows, :e] = src.to(torch.bfloat16)
+    idx = vocab.swizzled_image_index(rows, plan.ek).to(dev)
+    assert torch.equal(img.flatten()[idx], want)
 
 
 def test_ce_bwd_kernel_gives_the_same_bits_twice(dev):

@@ -162,3 +162,73 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="E up to 128"):
         vocab.fused_softmax_ce(wide, wide, meta[:, 0], meta[:, 0])
     assert called == ["fwd", "bwd"]
+
+
+# ------------------------------------- the kernels' launch plan and image layout
+SMS = 132  # an H100 SXM
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("vocab_size", [0, 33, 100_003, 390_001])
+@pytest.mark.parametrize("n", [1, 915, 8192, 16384])
+def test_ce_plan_covers_every_tile_and_chunk_once(n, vocab_size, backward):
+    """Every row tile meets every vocab chunk in exactly one block, K2's dW
+    pass has a block for every tile of the table, and the scratch stays
+    within its cap: the images hold at most a tile of padding beyond x and
+    the table, and the partials at most 2 * SMs * 128 rows (or N)."""
+    e, table_rows = 64, vocab_size + 7
+    plan = vocab.ce_plan(n, e, vocab_size, table_rows, SMS, backward)
+    tile = vocab.CE_TILE
+    assert (plan.row_tiles - 1) * tile < n <= plan.row_tiles * tile
+    assert plan.chunks * tile >= vocab_size > (plan.chunks - 1) * tile
+    # split s of a row pass takes chunks [s * cps, min((s + 1) * cps, chunks)),
+    # as row_split in csrc/hopper.cuh cuts them
+    cps = plan.chunks_per_split
+    ranges = [(s * cps, min((s + 1) * cps, plan.chunks)) for s in range(plan.splits)]
+    assert [c for begin, end in ranges for c in range(begin, end)] == list(range(plan.chunks))
+    if plan.chunks:
+        assert all(end > begin for begin, end in ranges)
+    else:
+        assert ranges == [(0, 0)]
+    if backward:
+        assert (plan.table_tiles - 1) * tile < table_rows <= plan.table_tiles * tile
+    else:
+        assert plan.table_tiles == plan.chunks
+    assert plan.row_tiles * plan.splits <= max(2 * SMS, plan.row_tiles)
+    assert plan.ek == 64
+    # the buffers the wrappers allocate, on the meta device: the images hold
+    # at most a tile of padding beyond x and the table, the partials at most
+    # 2 * SMs * 128 rows (or N)
+    scratch = plan.scratch("meta", smooth=True)
+    cap_rows = n + tile - 1 + (table_rows if backward else vocab_size) + tile - 1
+    image_bytes = scratch["ximg"].nbytes + scratch["wimg"].nbytes
+    assert image_bytes <= cap_rows * plan.ek * 2
+    per_row = (e * 4 + 16) if backward else 20
+    partial_bytes = sum(t.nbytes for k, t in scratch.items() if k not in ("ximg", "wimg"))
+    assert partial_bytes <= max(2 * SMS * tile, n) * per_row + tile * 16
+
+
+@pytest.mark.parametrize("e,ek", [(4, 64), (20, 64), (64, 64), (100, 128), (132, 256),
+                                  (192, 256), (256, 256)])
+def test_ce_plan_pads_e_to_the_swizzle_width(e, ek):
+    """E is padded to one, two or four slabs of 64: the forward kernel is
+    built for no other width."""
+    assert vocab.ce_plan(37, e, 1000, 1008, SMS, False).ek == ek
+
+
+@pytest.mark.parametrize("rows,ek", [(1, 64), (130, 64), (300, 128), (128, 256)])
+def test_swizzled_image_index_is_a_permutation(rows, ek):
+    """The image layout of the kernels (``image_offset`` in csrc/hopper.cuh)
+    puts every element of the padded matrix at its own place, keeps each
+    16-byte piece whole and inside its tile, slab and 128-byte row, and
+    swizzles the pieces of a row by the row's place in its group of 8."""
+    idx = vocab.swizzled_image_index(rows, ek)
+    padded = -(-rows // 128) * 128
+    assert idx.shape == (padded, ek)
+    assert torch.equal(idx.flatten().sort().values, torch.arange(padded * ek))
+    pieces = idx.reshape(padded, ek // 8, 8)
+    assert torch.equal(pieces - pieces[..., :1], torch.arange(8).expand_as(pieces))
+    r = torch.arange(padded)[:, None]
+    j = torch.arange(ek // 8)[None, :]
+    row_start = (r // 128) * 128 * ek + (j // 8) * 128 * 64 + (r % 128) * 64
+    assert torch.equal(pieces[..., 0], row_start + ((j % 8) ^ (r % 8)) * 8)

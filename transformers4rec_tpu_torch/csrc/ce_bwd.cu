@@ -23,348 +23,329 @@
 // is read (99.8 MB) and dW written (99.8 MB) once, 59.7 us at 3.35 TB/s; the
 // three products are 3 x 45.7 = 137 GFLOP, 139 us at the 989 TFLOP/s bf16
 // tensor-core rate; recomputing P takes 357 M exponentials, 85 us at the
-// special-function rate. So the least time is set by the operations.
+// special-function rate. So the least time is set by the operations. At the
+// long-session shape (N = 8,192) the three products take 1.24 ms and the
+// exponentials 0.76 ms.
 //
-// Design. dW sums over the rows and dx over the vocab: opposite axes. The TPU
-// kernel walks a sequential grid and keeps one of the two sums in VMEM across
-// grid steps; a Hopper block has 227 KB and shares nothing with the others.
-// A single pass would hold a block's dW slice in shared memory across the row
-// tiles (at most ~500 vocab columns, so ~800 blocks) and then needs ~800
-// partial copies of dx (180 MB) or float atomics in an order that changes
-// from run to run. This first version instead takes two passes that each
-// recompute P (one more product and one more set of exponentials than the
-// fused pass: 183 GFLOP instead of 137), need no atomics and give the same
-// bits on every run:
-//   - ce_bwd_dw_kernel: a block owns one 64-row chunk of W (bf16 in shared
-//     memory) and loops over the row tiles of x: stage the tile as bf16 in
-//     shared memory (plain and transposed), score it, form R in registers,
-//     write R transposed to shared memory, and accumulate R^T . x in
-//     registers (each warp a 16-column by E/2 piece). dW is written once.
-//   - ce_bwd_dx_kernel: block (row tile, split), like the forward kernel:
-//     128 rows of x in registers, a loop over the split's chunks of W. The
-//     accumulator fragments of the logits are, after the residual, exactly
-//     the A fragments of the next product, so R . W needs no re-layout; the
-//     chunk of W is also kept transposed in shared memory as that product's
-//     B operand. Each block writes one (128, E) partial of dx;
-//   - ce_bwd_dx_reduce_kernel sums the partials over the splits, in order.
-// Fusing the two passes, wgmma and TMA are later work.
+// Why two passes and not one. dW sums over the rows and dx over the vocab:
+// opposite axes. The TPU kernel walks a sequential grid and keeps one of the
+// two sums in VMEM across grid steps; a Hopper block has 227 KB and shares
+// nothing with the others. A block that owns vocab columns keeps its dW in
+// registers but then owes a dx partial to every column owner: 3,047 owners
+// of 128 columns at N = 8,192 are 6.4 GB of partials. A block that owns rows
+// has the same problem with dW; float atomics would break "the same bits on
+// every call". So each pass recomputes P (4 products instead of 3, 2 sets of
+// exponentials instead of 1: at N = 8,192 about max(1.65 ms of products,
+// 1.53 ms of exponentials) for the two), and each is built to run at the
+// tensor cores' rate:
+//   - to_image_kernel (hopper.cuh) writes bf16 images of x, of the whole
+//     table (Vp rows) and a row table (lse log2(e), coef, label) once per
+//     call: every f32 -> bf16 rounding happens there, and a 128-row tile is
+//     one contiguous block in the layout of TMA's 128-byte swizzle, which one
+//     bulk copy moves as it stands and wgmma reads both as a K-major and as
+//     an MN-major operand. No shared-memory transpose is written by hand.
+//   - ce_bwd_dw_kernel: a block owns 128 columns of the vocab (one W tile,
+//     copied once), 64 per consumer warpgroup; a producer warp streams the x
+//     tiles and their row-table entries through a ring of STAGES slots. Per
+//     tile, S^T = W_c . x_t^T by wgmma (A = the W tile, B = the x tile, both
+//     K-major), the residual in registers from the row table, and its bf16
+//     pairs are the A fragments (from registers) of dW_c += R^T . x_t, with
+//     B the same x tile read MN-major. dW is written once, every row of the
+//     table included (rows at and beyond V carry only a one-hot).
+//   - ce_bwd_dx_kernel: block (128-row tile of x, vocab split), like K1: the
+//     x tile copied once, the split's W tiles streamed; S = x_t . W_c^T, the
+//     residual, then dx_t += R . W_c with B the same W tile MN-major. Each
+//     block writes one (128, E) partial of dx;
+//   - ce_bwd_dx_reduce_kernel sums the partials over the splits, in order,
+//     and adds a padding-row label's one-hot (the dx pass leaves columns at
+//     and beyond V out).
+// In both passes the two consumer warpgroups work on the same slot, each
+// waiting for its own products, and the copies of the next slots fly
+// meanwhile. An explicit ping-pong order between the warpgroups (named
+// barriers; a turn held the second product of one slot and the logits of
+// the next) was measured slower on an NVIDIA H100 80GB HBM3 at 700 W (4.21
+// against 4.08 ms at N = 8,192). Overlapping a warpgroup's own products
+// with its residual needs a second accumulator, which the 168 registers a
+// thread of a 384-thread block gets do not hold. No atomics: the same bits
+// on every call.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace t4r;
+using namespace t4r::hopper;
 
-constexpr int XT = BN + 8;  // bf16 per shared row of a transposed (., BN) tile
-constexpr int WT = BV + 8;  // bf16 per shared row of a transposed (., BV) chunk
+constexpr int INFO_BYTES = TILE * 16;  // (lse log2(e), coef, label, 0) per row
 
-// Logits of the thread's two rows (acc[j][2h + q]: row h, column col0 + 8j +
-// q) into the residual R, in place and still f32. lse2 is lse x log2(e).
-// CHECKED bounds the columns by V and looks for each row's label, also among
-// the padding columns at and beyond V.
-template <bool CHECKED>
-__device__ __forceinline__ void residual(float (&acc)[NT][4], int col0, int V,
-                                         const int (&lab)[2], const float (&lse2)[2],
-                                         const float (&coef)[2], float eov,
-                                         float one_minus_eps) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float p = ex2(fmaf(acc[j][2 * h + q], LOG2E, -lse2[h])) - eov;
-        if (CHECKED) {
-          const int col = col0 + 8 * j + q;
-          if (col >= V) p = 0.f;
-          if (col == lab[h]) p -= one_minus_eps;
-        }
-        acc[j][2 * h + q] = p * coef[h];
-      }
-    }
-  }
-}
+// the dW pass's ring: a slot holds an x tile and its rows' entries of the row table
+template <int KA>
+using DwRing = Ring<KA, KA * SLAB_BYTES + INFO_BYTES>;
 
-__device__ __forceinline__ void chunk_residual(float (&acc)[NT][4], int c, int t, int V,
-                                               const int (&lab)[2], const float (&lse2)[2],
-                                               const float (&coef)[2], float eov,
-                                               float one_minus_eps) {
-  const int col0 = c * BV + 2 * t;
-  const bool full = (c + 1) * BV <= V;
-  const bool has_label = (unsigned)(lab[0] - c * BV) < (unsigned)BV ||
-                         (unsigned)(lab[1] - c * BV) < (unsigned)BV;
-  if (full && !has_label) {
-    residual<false>(acc, col0, V, lab, lse2, coef, eov, one_minus_eps);
-  } else {
-    residual<true>(acc, col0, V, lab, lse2, coef, eov, one_minus_eps);
+// The consumers' loop of both passes over `count` slots of the ring. Per
+// slot i: logits(slot) issues the wgmmas of the logits, residual(slot index,
+// i) turns them into the A fragments of the second product, and
+// second(slot) issues that product; slot is the slot's shared-memory
+// address. Both products wait for their results: the two consumer
+// warpgroups of the block, and the copies in flight, fill the gaps.
+template <int STAGES, class Logits, class Residual, class Second>
+__device__ __forceinline__ void consume(int count, uint64_t* full, uint64_t* empty,
+                                        uint32_t ring, int slot_bytes, Logits logits,
+                                        Residual residual, Second second) {
+  for (int i = 0; i < count; ++i) {
+    const int st = i % STAGES;
+    mbar_wait(&full[st], (i / STAGES) & 1);
+    const uint32_t slot = ring + st * slot_bytes;
+    wgmma_fence();
+    logits(slot);
+    wgmma_commit();
+    wgmma_wait<0>();
+    residual(st, i);
+    wgmma_fence();
+    second(slot);
+    wgmma_commit();
+    wgmma_wait<0>();
+    release(empty, st);
   }
 }
 
 // ------------------------------------------------------------------- dW
-template <int KS>
-constexpr int dw_smem_bytes() {
-  return 2 * (BV * (16 * KS + 8) + BN * (16 * KS + 8) + 16 * KS * XT + BV * XT);
-}
-
-// KS: k-steps of 16, E rounded up to 16 * KS with zeros. One block per
-// 64-row chunk of the (Vp, E) table.
-template <int KS>
-__global__ void __launch_bounds__(THREADS)
-ce_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ W,
-                 const int* __restrict__ labels, const float* __restrict__ lse,
-                 const float* __restrict__ coef, int N, int E, int V, int Vp, float eov,
-                 float one_minus_eps, float* __restrict__ dW) {
-  constexpr int EK = 16 * KS;
-  constexpr int WS = EK + 8;   // bf16 per shared row of a (., EK) tile
-  constexpr int ETW = EK / 16;  // e n-tiles of 8 per warp: half of EK / 8
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);  // [BV][WS] chunk of W
-  __nv_bfloat16* xs = ws + BV * WS;                            // [BN][WS] tile of x
-  __nv_bfloat16* xts = xs + BN * WS;                           // [EK][XT] the tile transposed
-  __nv_bfloat16* pt = xts + EK * XT;                           // [BV][XT] R transposed
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int e4n = E / 4;
-  const int c = blockIdx.x;
-
-  // columns E..EK-1 of ws and xs and rows E..EK-1 of xts stay zero
-  for (int i = tid; i < BV * WS + BN * WS + EK * XT; i += THREADS) ws[i] = __float2bfloat16(0.f);
-  __syncthreads();
-  for (int idx = tid; idx < BV * e4n; idx += THREADS) {
-    const int r = idx / e4n, q = idx - r * e4n;
-    const int col = c * BV + r;
-    const float4 v = col < Vp ? __ldg(reinterpret_cast<const float4*>(W + (size_t)col * E) + q)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-    uint2 u;
-    u.x = pack_bf16(v.x, v.y);
-    u.y = pack_bf16(v.z, v.w);
-    *reinterpret_cast<uint2*>(ws + r * WS + 4 * q) = u;
-  }
-
-  const uint32_t* ws32 = reinterpret_cast<const uint32_t*>(ws);
-  const uint32_t* xs32 = reinterpret_cast<const uint32_t*>(xs);
-  const uint32_t* xts32 = reinterpret_cast<const uint32_t*>(xts);
-  const uint32_t* pt32 = reinterpret_cast<const uint32_t*>(pt);
-  const int mt = warp >> 1;  // this warp's 16 vocab columns of the chunk
-  const int nh = warp & 1;   // and its half of the e n-tiles
-
-  float dwacc[ETW][4];
+// Residual of S^T in place: acc[4j + 2h + q] is vocab column cols[h], row
+// 8j + 2t + q of the x tile, whose row-table entry is info[8j + 2t + q].
+// CHECKED bounds the columns by V and looks for the label at every column.
+template <bool CHECKED>
+__device__ __forceinline__ void dw_residual(float (&acc)[64], const float4* info, int t,
+                                            const int (&cols)[2], int V, float eov,
+                                            float one_minus_eps) {
 #pragma unroll
-  for (int jl = 0; jl < ETW; ++jl) dwacc[jl][0] = dwacc[jl][1] = dwacc[jl][2] = dwacc[jl][3] = 0.f;
-
-  const int row_tiles = (N + BN - 1) / BN;
-  for (int rt = 0; rt < row_tiles; ++rt) {
-    __syncthreads();  // the previous tile is consumed (and the chunk of W is in place)
-    for (int idx = tid; idx < BN * e4n; idx += THREADS) {
-      const int r = idx / e4n, q = idx - r * e4n;
-      const int row = rt * BN + r;
-      const float4 v = row < N ? __ldg(reinterpret_cast<const float4*>(x + (size_t)row * E) + q)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-      uint2 u;
-      u.x = pack_bf16(v.x, v.y);
-      u.y = pack_bf16(v.z, v.w);
-      *reinterpret_cast<uint2*>(xs + r * WS + 4 * q) = u;
-      xts[(4 * q + 0) * XT + r] = __float2bfloat16(v.x);
-      xts[(4 * q + 1) * XT + r] = __float2bfloat16(v.y);
-      xts[(4 * q + 2) * XT + r] = __float2bfloat16(v.z);
-      xts[(4 * q + 3) * XT + r] = __float2bfloat16(v.w);
-    }
-    __syncthreads();
-
-    // this warp's 16 rows as A fragments: rows g and g + 8, k pairs 2t
-    uint32_t a[KS][4];
-    const int rbase = (warp * 16 + g) * (WS / 2) + t;
+  for (int j = 0; j < 16; ++j) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      a[ks][0] = xs32[rbase + ks * 8];
-      a[ks][1] = xs32[rbase + 8 * (WS / 2) + ks * 8];
-      a[ks][2] = xs32[rbase + ks * 8 + 4];
-      a[ks][3] = xs32[rbase + 8 * (WS / 2) + ks * 8 + 4];
-    }
-    float acc[NT][4];
-    score_chunk<KS, WS>(a, ws32, g, t, acc);
-
-    int lab[2];
-    float lse2[2], cf[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = rt * BN + warp * 16 + g + 8 * h;
-      lab[h] = row < N ? labels[row] : -1;
-      lse2[h] = row < N ? lse[row] * LOG2E : 0.f;
-      cf[h] = row < N ? coef[row] : 0.f;
-    }
-    chunk_residual(acc, c, t, V, lab, lse2, cf, eov, one_minus_eps);
-
-    // R, rounded to bf16, transposed: pt[column of the chunk][row of the tile]
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
+    for (int q = 0; q < 2; ++q) {
+      const float4 f = info[8 * j + 2 * t + q];  // lse2, coef, label
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          pt[(8 * j + 2 * t + q) * XT + warp * 16 + g + 8 * h] =
-              __float2bfloat16(acc[j][2 * h + q]);
+        float p = ex2(fmaf(acc[4 * j + 2 * h + q], LOG2E, -f.x)) - eov;
+        if (CHECKED) {
+          if (cols[h] >= V) p = 0.f;
+          if (cols[h] == __float_as_int(f.z)) p -= one_minus_eps;
         }
-      }
-    }
-    __syncthreads();
-
-    // dW piece += R^T (16 columns x BN rows) . x (BN rows x ETW n-tiles of e)
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pa[4];
-      const int abase = (16 * mt + g) * (XT / 2) + kk * 8 + t;
-      pa[0] = pt32[abase];
-      pa[1] = pt32[abase + 8 * (XT / 2)];
-      pa[2] = pt32[abase + 4];
-      pa[3] = pt32[abase + 8 * (XT / 2) + 4];
-#pragma unroll
-      for (int jl = 0; jl < ETW; ++jl) {
-        const int bbase = (8 * (nh * ETW + jl) + g) * (XT / 2) + kk * 8 + t;
-        mma_bf16(dwacc[jl], pa, xts32[bbase], xts32[bbase + 4]);
+        acc[4 * j + 2 * h + q] = p * f.y;
       }
     }
   }
+}
 
-  // dwacc[jl][2h + q]: column 16 mt + g + 8h of the chunk, e = 8 (nh ETW + jl) + 2t + q.
-  // Columns V..Vp-1 had R = 0 throughout, so they are written as zeros.
+// KA: 64-wide slabs of E (E padded with zeros to EK = 64 KA). One block per
+// 128 rows of the table.
+template <int KA>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+ce_bwd_dw_kernel(const uint8_t* __restrict__ ximg, const uint8_t* __restrict__ wimg,
+                 const float4* __restrict__ info, int row_tiles, int E, int V, int Vp,
+                 float eov, float one_minus_eps, float* __restrict__ dW) {
+  constexpr int EK = 64 * KA;
+  using R = DwRing<KA>;
+  constexpr int TILE_BYTES = R::TILE_BYTES, SLOT_BYTES = TILE_BYTES + INFO_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const R sm(smem_raw);
+
+  const int c = blockIdx.x;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    sm.produce(wimg + (size_t)c * TILE_BYTES, row_tiles,
+               [&](int i, uint8_t* slot, uint64_t* bar) {
+                 bulk_load(slot, ximg + (size_t)i * TILE_BYTES, TILE_BYTES, bar);
+                 bulk_load(slot + TILE_BYTES, info + (size_t)i * TILE, INFO_BYTES, bar);
+               });
+  } else {
+    // ---- consumers: warpgroup wg owns columns 64 wg .. 64 wg + 63 of the tile
+    consumer_registers();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int c0 = c * TILE + wg * 64;  // this warpgroup's first column
+    const int cols[2] = {c0 + warp * 16 + g, c0 + warp * 16 + g + 8};
+    const bool whole = c0 + 64 <= V;
+
+    float acc[64], dw[EK / 2];
 #pragma unroll
-  for (int jl = 0; jl < ETW; ++jl) {
-    const int e = 8 * (nh * ETW + jl) + 2 * t;
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = c * BV + 16 * mt + g + 8 * h;
-      if (col < Vp && e < E) {
-        *reinterpret_cast<float2*>(dW + (size_t)col * E + e) =
-            make_float2(dwacc[jl][2 * h], dwacc[jl][2 * h + 1]);
+    for (int i = 0; i < EK / 2; ++i) dw[i] = 0.f;
+    const uint32_t wa = smem_addr(sm.tile) + wg * 64 * 128;
+    uint32_t a[8][4];  // R^T of a tile, as A fragments
+    mbar_wait(sm.once, 0);
+    consume<R::STAGES>(
+        row_tiles, sm.full, sm.empty, smem_addr(sm.ring), SLOT_BYTES,
+        [&](uint32_t xa) {  // S^T = W_c . x_t^T
+          fence_regs(acc);
+#pragma unroll
+          for (int k = 0; k < 4 * KA; ++k) {
+            wgmma_ss_n128(acc, kmajor_desc(wa, k), kmajor_desc(xa, k), k > 0);
+          }
+        },
+        [&](int st, int) {
+          fence_regs(acc);
+          const float4* tinfo =
+              reinterpret_cast<const float4*>(sm.ring + st * SLOT_BYTES + TILE_BYTES);
+          // does any row of the tile have its label among this warpgroup's columns?
+          bool hit = false;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            hit |= (unsigned)(__float_as_int(tinfo[lane + 32 * u].z) - c0) < 64u;
+          }
+          if (whole && !__any_sync(0xffffffffu, hit)) {
+            dw_residual<false>(acc, tinfo, t, cols, V, eov, one_minus_eps);
+          } else {
+            dw_residual<true>(acc, tinfo, t, cols, V, eov, one_minus_eps);
+          }
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc_to_a(acc, k, a[k]);
+        },
+        [&](uint32_t xa) {  // dW_c += R^T . x_t
+          fence_regs(dw);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) wgmma_rs<EK>(dw, a[k], mnmajor_desc(xa, k));
+        });
+    fence_regs(dw);
+
+    // dw[4j + 2h + q]: column cols[h], e = 8j + 2t + q
+#pragma unroll
+    for (int j = 0; j < EK / 8; ++j) {
+      const int e = 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (cols[h] < Vp && e < E) {
+          *reinterpret_cast<float2*>(dW + (size_t)cols[h] * E + e) =
+              make_float2(dw[4 * j + 2 * h], dw[4 * j + 2 * h + 1]);
+        }
       }
     }
   }
 }
 
 // ------------------------------------------------------------------- dx
-template <int KS>
-__global__ void __launch_bounds__(THREADS)
-ce_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ W,
-                 const int* __restrict__ labels, const float* __restrict__ lse,
-                 const float* __restrict__ coef, int N, int E, int V, int chunks_per_split,
-                 float eov, float one_minus_eps, float* __restrict__ part_dx) {
-  constexpr int EK = 16 * KS;
-  constexpr int WS = EK + 8;
-  constexpr int ET = EK / 8;  // e n-tiles of 8
-  constexpr int LOADS = BV * EK / 4 / THREADS;
-  __shared__ __align__(16) __nv_bfloat16 ws[BV * WS];  // [BV][WS] chunk of W
-  __shared__ __align__(16) __nv_bfloat16 wt[EK * WT];  // [EK][WT] the chunk transposed
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int e4n = E / 4;
-  const int nchunks = (V + BV - 1) / BV;
-  const int split = blockIdx.y;
-  const int c_begin = split * chunks_per_split;
-  const int c_end = min(c_begin + chunks_per_split, nchunks);
-
-  for (int i = tid; i < BV * WS; i += THREADS) ws[i] = __float2bfloat16(0.f);
-  for (int i = tid; i < EK * WT; i += THREADS) wt[i] = __float2bfloat16(0.f);
-
-  const int row_lo = (int)blockIdx.x * BN + warp * 16 + g;
-  const int rows[2] = {row_lo, row_lo + 8};
-  uint32_t a[KS][4];
-  load_x_fragments<KS>(x, N, E, row_lo, t, a);
-
-  int lab[2];
-  float lse2[2], cf[2];
+// Residual of S in place: acc[4j + 2h + q] is row h of the thread, column
+// col0 + 8j + q. CHECKED bounds the columns by V and looks for each row's
+// label below V (a label on a padding row is the reduce kernel's).
+template <bool CHECKED>
+__device__ __forceinline__ void dx_residual(float (&acc)[64], int col0, int V,
+                                            const int (&lab)[2], const float (&lse2)[2],
+                                            const float (&coef)[2], float eov,
+                                            float one_minus_eps) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    lab[h] = rows[h] < N ? labels[rows[h]] : -1;
-    lse2[h] = rows[h] < N ? lse[rows[h]] * LOG2E : 0.f;
-    cf[h] = rows[h] < N ? coef[rows[h]] : 0.f;
-  }
-
-  float dacc[ET][4];
-#pragma unroll
-  for (int je = 0; je < ET; ++je) dacc[je][0] = dacc[je][1] = dacc[je][2] = dacc[je][3] = 0.f;
-
-  float4 pre[LOADS];
-#pragma unroll
-  for (int i = 0; i < LOADS; ++i) {
-    const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
-    const int col = c_begin * BV + r;
-    pre[i] = (r < BV && col < V && c_begin < c_end)
-                 ? __ldg(reinterpret_cast<const float4*>(W + (size_t)col * E) + q)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  const uint32_t* ws32 = reinterpret_cast<const uint32_t*>(ws);
-  const uint32_t* wt32 = reinterpret_cast<const uint32_t*>(wt);
-  for (int c = c_begin; c < c_end; ++c) {
-    __syncthreads();  // the previous chunk is consumed (and the zero fill is done)
-#pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
-      if (r < BV) {
-        uint2 v;
-        v.x = pack_bf16(pre[i].x, pre[i].y);
-        v.y = pack_bf16(pre[i].z, pre[i].w);
-        *reinterpret_cast<uint2*>(ws + r * WS + 4 * q) = v;
-        wt[(4 * q + 0) * WT + r] = __float2bfloat16(pre[i].x);
-        wt[(4 * q + 1) * WT + r] = __float2bfloat16(pre[i].y);
-        wt[(4 * q + 2) * WT + r] = __float2bfloat16(pre[i].z);
-        wt[(4 * q + 3) * WT + r] = __float2bfloat16(pre[i].w);
-      }
-    }
-    __syncthreads();
-    if (c + 1 < c_end) {  // the next chunk's loads fly while this one is worked on
-#pragma unroll
-      for (int i = 0; i < LOADS; ++i) {
-        const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
-        const int col = (c + 1) * BV + r;
-        pre[i] = (r < BV && col < V)
-                     ? __ldg(reinterpret_cast<const float4*>(W + (size_t)col * E) + q)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-
-    float acc[NT][4];
-    score_chunk<KS, WS>(a, ws32, g, t, acc);
-    chunk_residual(acc, c, t, V, lab, lse2, cf, eov, one_minus_eps);
-
-    // two neighbouring n-tiles of the accumulator are one A fragment of the
-    // next product: rows g and g + 8, k (the chunk's column) pairs 2t and 2t + 8
-#pragma unroll
-    for (int kk = 0; kk < BV / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
-      pa[1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
-      pa[2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-      pa[3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
-#pragma unroll
-      for (int je = 0; je < ET; ++je) {
-        const int bbase = (8 * je + g) * (WT / 2) + kk * 8 + t;  // e = 8 je + g, k pair 2t
-        mma_bf16(dacc[je], pa, wt32[bbase], wt32[bbase + 4]);
-      }
-    }
-  }
-
-  // dacc[je][2h + q]: row rows[h], e = 8 je + 2t + q
-#pragma unroll
-  for (int je = 0; je < ET; ++je) {
-    const int e = 8 * je + 2 * t;
+  for (int j = 0; j < 16; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      if (rows[h] < N && e < E) {
-        *reinterpret_cast<float2*>(part_dx + ((size_t)split * N + rows[h]) * E + e) =
-            make_float2(dacc[je][2 * h], dacc[je][2 * h + 1]);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float p = ex2(fmaf(acc[4 * j + 2 * h + q], LOG2E, -lse2[h])) - eov;
+        if (CHECKED) {
+          const int col = col0 + 8 * j + q;
+          if (col >= V) {
+            p = 0.f;
+          } else if (col == lab[h]) {
+            p -= one_minus_eps;
+          }
+        }
+        acc[4 * j + 2 * h + q] = p * coef[h];
       }
     }
   }
 }
 
-// Sums the per-split partials of dx in order. The dx kernel never reads the
-// padding rows of W (their columns carry no probability), so the one-hot term
-// of a label on a padding row is added here: R = bf16(-(1 - eps) coef[n])
-// times bf16(W[label]), both exact in f32.
+template <int KA>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+ce_bwd_dx_kernel(const uint8_t* __restrict__ ximg, const uint8_t* __restrict__ wimg,
+                 const int* __restrict__ labels, const float* __restrict__ lse,
+                 const float* __restrict__ coef, int N, int E, int V, int chunks_per_split,
+                 float eov, float one_minus_eps, float* __restrict__ part_dx) {
+  constexpr int EK = 64 * KA;
+  using R = Ring<KA>;
+  extern __shared__ uint8_t smem_raw[];
+  const R sm(smem_raw);
+  const RowSplit b = row_split(V, chunks_per_split);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    produce_row_pass<KA>(sm, ximg, wimg, b);
+  } else {
+    consumer_registers();
+    const int t = threadIdx.x & 3;
+    int rows[2];
+    consumer_rows(b.row_tile, rows);
+    int lab[2];
+    float lse2[2], cf[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lab[h] = rows[h] < N ? labels[rows[h]] : -1;
+      lse2[h] = rows[h] < N ? lse[rows[h]] * LOG2E : 0.f;
+      cf[h] = rows[h] < N ? coef[rows[h]] : 0.f;
+    }
+
+    float acc[64], dx[EK / 2];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < EK / 2; ++i) dx[i] = 0.f;
+    const uint32_t xa = smem_addr(sm.tile) + wg * 64 * 128;
+    uint32_t a[8][4];  // R of a chunk, as A fragments
+    mbar_wait(sm.once, 0);
+    consume<R::STAGES>(
+        b.count, sm.full, sm.empty, smem_addr(sm.ring), R::TILE_BYTES,
+        [&](uint32_t wa) {  // S = x_t . W_c^T
+          fence_regs(acc);
+#pragma unroll
+          for (int k = 0; k < 4 * KA; ++k) {
+            wgmma_ss_n128(acc, kmajor_desc(xa, k), kmajor_desc(wa, k), k > 0);
+          }
+        },
+        [&](int, int i) {
+          fence_regs(acc);
+          const int c = b.begin + i;
+          const int col0 = c * TILE + 2 * t;
+          if (unchecked_chunk(c, V, lab)) {
+            dx_residual<false>(acc, col0, V, lab, lse2, cf, eov, one_minus_eps);
+          } else {
+            dx_residual<true>(acc, col0, V, lab, lse2, cf, eov, one_minus_eps);
+          }
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc_to_a(acc, k, a[k]);
+        },
+        [&](uint32_t wa) {  // dx_t += R . W_c
+          fence_regs(dx);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) wgmma_rs<EK>(dx, a[k], mnmajor_desc(wa, k));
+        });
+    fence_regs(dx);
+
+    // dx[4j + 2h + q]: row rows[h], e = 8j + 2t + q
+#pragma unroll
+    for (int j = 0; j < EK / 8; ++j) {
+      const int e = 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (rows[h] < N && e < E) {
+          *reinterpret_cast<float2*>(part_dx + ((size_t)b.split * N + rows[h]) * E + e) =
+              make_float2(dx[4 * j + 2 * h], dx[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// The row table of the dW pass, padded to whole tiles: padded rows have
+// coef 0 and label -1.
+__global__ void row_info_kernel(const float* __restrict__ lse, const float* __restrict__ coef,
+                                const int* __restrict__ labels, int N, int padded,
+                                float4* __restrict__ info) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= padded) return;
+  info[n] = n < N ? make_float4(lse[n] * LOG2E, coef[n], __int_as_float(labels[n]), 0.f)
+                  : make_float4(0.f, 0.f, __int_as_float(-1), 0.f);
+}
+
+// Sums the per-split partials of dx in order. The dx kernel leaves the
+// columns at and beyond V out, so the one-hot term of a label on a padding
+// row is added here: R = bf16(-(1 - eps) coef[n]) times bf16(W[label]), both
+// exact in f32.
 __global__ void ce_bwd_dx_reduce_kernel(const float* __restrict__ part_dx, int splits,
                                         int count, const float* __restrict__ W,
                                         const int* __restrict__ labels,
@@ -382,23 +363,18 @@ __global__ void ce_bwd_dx_reduce_kernel(const float* __restrict__ part_dx, int s
   dx[i] = s;
 }
 
-template <int KS>
-cudaError_t launch_bwd(cudaStream_t st, const float* x, const float* W, const int* labels,
-                       const float* lse, const float* coef, int N, int E, int V, int Vp,
-                       float eov, float one_minus_eps, int splits, int chunks_per_split,
-                       float* part_dx, float* dx, float* dW) {
-  cudaError_t err = cudaFuncSetAttribute(ce_bwd_dw_kernel<KS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         dw_smem_bytes<KS>());
+template <int KA>
+cudaError_t launch_bwd(cudaStream_t st, const uint8_t* ximg, const uint8_t* wimg,
+                       const float4* info, const float* W, const int* labels, const float* lse,
+                       const float* coef, int N, int E, int V, int Vp, int row_tiles,
+                       int table_tiles, float eov, float one_minus_eps, int splits,
+                       int chunks_per_split, float* part_dx, float* dx, float* dW) {
+  cudaError_t err = launch(ce_bwd_dw_kernel<KA>, dim3(table_tiles), DwRing<KA>::BYTES, st, ximg,
+                           wimg, info, row_tiles, E, V, Vp, eov, one_minus_eps, dW);
   if (err != cudaSuccess) return err;
-  ce_bwd_dw_kernel<KS><<<(Vp + BV - 1) / BV, THREADS, dw_smem_bytes<KS>(), st>>>(
-      x, W, labels, lse, coef, N, E, V, Vp, eov, one_minus_eps, dW);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + BN - 1) / BN, splits);  // row tiles fastest: they share a slice of W
-  ce_bwd_dx_kernel<KS><<<grid, THREADS, 0, st>>>(x, W, labels, lse, coef, N, E, V,
-                                                  chunks_per_split, eov, one_minus_eps, part_dx);
-  err = cudaGetLastError();
+  // row tiles fastest: they share a slice of W
+  err = launch(ce_bwd_dx_kernel<KA>, dim3(row_tiles, splits), Ring<KA>::BYTES, st, ximg, wimg,
+               labels, lse, coef, N, E, V, chunks_per_split, eov, one_minus_eps, part_dx);
   if (err != cudaSuccess) return err;
   const int count = N * E, reduce_threads = 256;
   ce_bwd_dx_reduce_kernel<<<(count + reduce_threads - 1) / reduce_threads, reduce_threads, 0,
@@ -411,31 +387,40 @@ cudaError_t launch_bwd(cudaStream_t st, const float* x, const float* W, const in
 
 extern "C" {
 
-int t4r_ce_bwd_block_rows() { return t4r::BN; }
-int t4r_ce_bwd_chunk_cols() { return t4r::BV; }
-int t4r_ce_bwd_max_e() { return 128; }
-
-// Launches the dW, the dx and the dx-reduce kernel on `stream`. The caller
-// checks shapes (E a multiple of 4, at most 128), dtypes, contiguity and
-// alignment, and allocates every buffer: part_dx is (splits, N, E), dx
-// (N, E), dW (Vp, E); all are written in full. eps is the label smoothing
+// Writes the row table, then launches the dW, the dx and the dx-reduce
+// kernel on `stream`, on the images of x and of the whole table (t4r_image:
+// ximg row_tiles x 128 rows, wimg table_tiles x 128 rows, ek = 64 or 128
+// columns). The caller takes ek, row_tiles, table_tiles, splits and
+// chunks_per_split from one launch plan, checks shapes (E a multiple of 4,
+// at most 128), dtypes, contiguity and alignment, and allocates every
+// buffer: info (row_tiles x 128, 4) f32, part_dx (splits, N, E), dx (N, E),
+// dW (Vp, E); the last three are written in full. eps is the label smoothing
 // and eps_over_v its share of every valid column. V may be 0 (splits = 1).
 // Returns the first CUDA error (0 when every launch was accepted).
-int t4r_ce_bwd(const float* x, const float* W, const int* labels, const float* lse,
-               const float* coef, int N, int E, int V, int Vp, float eps, float eps_over_v,
-               int splits, int chunks_per_split, float* part_dx, float* dx, float* dW,
+int t4r_ce_bwd(const void* ximg, const void* wimg, const float* W, const int* labels,
+               const float* lse, const float* coef, int N, int E, int V, int Vp, int ek,
+               int row_tiles, int table_tiles, float eps, float eps_over_v, int splits,
+               int chunks_per_split, void* info, float* part_dx, float* dx, float* dW,
                void* stream) {
-  if (E < 4 || E > 128 || E % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (ek != 64 && ek != 128) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float ome = 1.f - eps;
-#define T4R_CE_BWD_KS(KS_)                                                                  \
-  return (int)launch_bwd<KS_>(st, x, W, labels, lse, coef, N, E, V, Vp, eps_over_v, ome,    \
-                              splits, chunks_per_split, part_dx, dx, dW)
-  if (E <= 16) T4R_CE_BWD_KS(1);
-  if (E <= 32) T4R_CE_BWD_KS(2);
-  if (E <= 64) T4R_CE_BWD_KS(4);
-  T4R_CE_BWD_KS(8);
-#undef T4R_CE_BWD_KS
+  const uint8_t* xi = static_cast<const uint8_t*>(ximg);
+  const uint8_t* wi = static_cast<const uint8_t*>(wimg);
+  float4* in = static_cast<float4*>(info);
+  const int info_threads = 128;
+  row_info_kernel<<<row_tiles * TILE / info_threads, info_threads, 0, st>>>(
+      lse, coef, labels, N, row_tiles * TILE, in);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (ek == 64) {
+    return (int)launch_bwd<1>(st, xi, wi, in, W, labels, lse, coef, N, E, V, Vp, row_tiles,
+                              table_tiles, eps_over_v, ome, splits, chunks_per_split, part_dx,
+                              dx, dW);
+  }
+  return (int)launch_bwd<2>(st, xi, wi, in, W, labels, lse, coef, N, E, V, Vp, row_tiles,
+                            table_tiles, eps_over_v, ome, splits, chunks_per_split, part_dx, dx,
+                            dW);
 }
 
 const char* t4r_cuda_error_string(int err) {

@@ -19,47 +19,55 @@
 // 390,001 = 45.7 GFLOP, 46 us at the 989 TFLOP/s bf16 tensor-core rate; the
 // softmax takes 915 x 390,001 = 357 M exponentials, 85 us at the
 // special-function rate (16 a clock on each of 132 SMs at 1.98 GHz). So the
-// least time is set by the operations, the exponentials first.
+// least time is set by the operations, the exponentials first (at N = 8,192:
+// 3.19 G exponentials, 0.764 ms, against 0.41 ms of products).
 //
-// Design. Like ce_rank.cu (K3): the TPU kernels stream V as a sequential grid
-// axis and keep every row's running (max, sum, label logit) in VMEM; here the
-// vocab is split across blocks.
-//   - ce_fwd_partial_kernel: block (row tile, split) holds 128 rows of x as
-//     bf16 mma.sync A fragments in registers and loops over its slice of
-//     64-column chunks of W: f32 from device memory, rounded to bf16 into
-//     shared memory, scored with mma.sync.m16n8k16, the next chunk's loads in
-//     flight meanwhile. Each thread keeps (max, sum, label logit, zsum) for
-//     its two rows; only a chunk that holds one of the thread's labels, and
-//     the vocab's last, partial chunk, pay for the column checks. The row
-//     tile is the fast grid axis, so the blocks that read the same slice of
-//     W run together and all but the first find it in the L2 cache.
-//   - ce_fwd_merge_kernel: merges the per-split partials of every row.
-// With N = 915 there are 8 row tiles, so W is requested 8 times (mostly from
-// L2); a loop over the row tiles inside a block, with the chunk kept in
-// shared memory, is later work, as are TMA and wgmma.
+// Design (Hopper). The TPU kernels stream V as a sequential grid axis and
+// keep every row's running (max, sum, label logit) in VMEM; here the vocab is
+// split across blocks and a merge kernel combines the splits.
+//   - to_image_kernel (hopper.cuh) writes bf16 images of x and of the used
+//     rows of W once per call: every f32 -> bf16 rounding happens there, and
+//     a 128-row tile is one contiguous block in the layout of TMA's 128-byte
+//     swizzle, which one bulk copy moves as it stands.
+//   - ce_fwd_kernel: block (128-row tile of x, vocab split), 384 threads. A
+//     producer warp keeps bulk copies of the split's 128-column chunks of W
+//     in flight through a ring of STAGES shared-memory slots (mbarriers mark
+//     a slot full or free); the x tile is copied once. Two consumer
+//     warpgroups own 64 rows each: per chunk, S = x . W_c^T by wgmma (both
+//     operands K-major in shared memory, f32 in registers), then the running
+//     (max, sum, label logit, zsum) of the thread's two rows in base 2. A
+//     warpgroup issues the products of chunk i + 1 before it takes the
+//     softmax of chunk i (two accumulators), so its exponentials run beside
+//     its own products and the other warpgroup's, and the next chunks'
+//     copies fly meanwhile. Only a chunk that holds one of the thread's
+//     labels, or the vocab's last, partial chunk, pays for the column
+//     checks. Row tiles are the fast grid axis, so the blocks reading a
+//     split's chunks run together and find them in the L2 cache.
+//   - ce_fwd_merge_kernel merges the per-split partials of every row.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace t4r;
+using namespace t4r::hopper;
 
-// One chunk's logits of the thread's two rows (acc[j][2h + q]: row h,
+// One chunk's logits of the thread's two rows (acc[4j + 2h + q]: row h,
 // column col0 + 8j + q) into their running (max, sum, label logit, zsum).
 // CHECKED bounds the columns by V and looks for each row's label.
 template <bool CHECKED, bool SMOOTH>
-__device__ __forceinline__ void update_rows(const float (&acc)[NT][4], int col0, int V,
+__device__ __forceinline__ void update_rows(const float (&acc)[64], int col0, int V,
                                             const int (&lab)[2], float (&m)[2], float (&s)[2],
                                             float (&ll)[2], double (&zs)[2]) {
   float mx[2][2] = {{NEG, NEG}, {NEG, NEG}};
   double z[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+  for (int j = 0; j < 16; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
-        const float l = acc[j][2 * h + q];
+        const float l = acc[4 * j + 2 * h + q];
         const int col = col0 + 8 * j + q;
         if (!CHECKED || col < V) {
           mx[h][q] = fmaxf(mx[h][q], l);
@@ -78,12 +86,12 @@ __device__ __forceinline__ void update_rows(const float (&acc)[NT][4], int col0,
   }
   float add[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+  for (int j = 0; j < 16; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
-        const float p = ex2(fmaf(acc[j][2 * h + q], LOG2E, -mn2[h]));
+        const float p = ex2(fmaf(acc[4 * j + 2 * h + q], LOG2E, -mn2[h]));
         add[h][q] += (!CHECKED || col0 + 8 * j + q < V) ? p : 0.f;
       }
     }
@@ -96,117 +104,109 @@ __device__ __forceinline__ void update_rows(const float (&acc)[NT][4], int col0,
   }
 }
 
-// KS: k-steps of 16, E rounded up to 16 * KS with zeros.
-template <int KS, bool SMOOTH>
-__global__ void __launch_bounds__(THREADS)
-ce_fwd_partial_kernel(const float* __restrict__ x, const float* __restrict__ W,
-                      const int* __restrict__ labels, int N, int E, int V,
-                      int chunks_per_split, float* __restrict__ part_m,
-                      float* __restrict__ part_s, float* __restrict__ part_ll,
-                      double* __restrict__ part_zs) {
-  constexpr int EK = 16 * KS;
-  constexpr int WS = EK + 8;  // bf16 per shared row: the B-fragment loads are conflict-free
-  constexpr int LOADS = BV * EK / 4 / THREADS;  // most float4 loads of W a thread makes
-  __shared__ __align__(16) __nv_bfloat16 ws[BV * WS];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int e4n = E / 4;
-  const int nchunks = (V + BV - 1) / BV;
-  const int split = blockIdx.y;
-  const int c_begin = split * chunks_per_split;
-  const int c_end = min(c_begin + chunks_per_split, nchunks);
-
-  // columns E..EK-1 stay zero: the loads below never write them
-  for (int i = tid; i < BV * WS; i += THREADS) ws[i] = __float2bfloat16(0.f);
-
-  const int row_lo = (int)blockIdx.x * BN + warp * 16 + g;
-  const int rows[2] = {row_lo, row_lo + 8};
-  uint32_t a[KS][4];
-  load_x_fragments<KS>(x, N, E, row_lo, t, a);
-
-  float m[2], s[2], ll[2];
-  double zs[2];
-  int lab[2];
+// Issues S = x . W_c^T (64 rows x 128 columns) as one wgmma group: xa is
+// the warpgroup's 64 rows of the x tile, wa a chunk of W, both K-major.
+template <int KA>
+__device__ __forceinline__ void issue_scores(float (&d)[64], uint32_t xa, uint32_t wa) {
+  fence_regs(d);
+  wgmma_fence();
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    m[h] = NEG;
-    s[h] = 0.f;
-    ll[h] = 0.f;
-    zs[h] = 0.0;
-    lab[h] = rows[h] < N ? labels[rows[h]] : -1;
-  }
+  for (int k = 0; k < 4 * KA; ++k) wgmma_ss_n128(d, kmajor_desc(xa, k), kmajor_desc(wa, k), k > 0);
+  wgmma_commit();
+}
 
-  // W chunk c, row-major f32, into registers: consecutive threads read
-  // consecutive 16-byte pieces of a row
-  float4 pre[LOADS];
-#pragma unroll
-  for (int i = 0; i < LOADS; ++i) {
-    const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
-    const int col = c_begin * BV + r;
-    pre[i] = (r < BV && col < V && c_begin < c_end)
-                 ? __ldg(reinterpret_cast<const float4*>(W + (size_t)col * E) + q)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+// KA: 64-wide slabs of E (E padded with zeros to 64 KA).
+template <int KA, bool SMOOTH>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+ce_fwd_kernel(const uint8_t* __restrict__ ximg, const uint8_t* __restrict__ wimg,
+              const int* __restrict__ labels, int N, int V, int chunks_per_split,
+              float* __restrict__ part_m, float* __restrict__ part_s,
+              float* __restrict__ part_ll, double* __restrict__ part_zs) {
+  using R = Ring<KA>;
+  extern __shared__ uint8_t smem_raw[];
+  const R sm(smem_raw);
+  const RowSplit b = row_split(V, chunks_per_split);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    produce_row_pass<KA>(sm, ximg, wimg, b);
+  } else {
+    // ---- consumers: warpgroup wg scores rows 64 wg .. 64 wg + 63 of the tile
+    consumer_registers();
+    const int t = threadIdx.x & 3;
+    int rows[2];
+    consumer_rows(b.row_tile, rows);
 
-  const uint32_t* ws32 = reinterpret_cast<const uint32_t*>(ws);
-  for (int c = c_begin; c < c_end; ++c) {
-    __syncthreads();  // the previous chunk is consumed (and the zero fill is done)
+    float m[2], s[2], ll[2];
+    double zs[2];
+    int lab[2];
 #pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
-      if (r < BV) {
-        uint2 v;
-        v.x = pack_bf16(pre[i].x, pre[i].y);
-        v.y = pack_bf16(pre[i].z, pre[i].w);
-        *reinterpret_cast<uint2*>(ws + r * WS + 4 * q) = v;
+    for (int h = 0; h < 2; ++h) {
+      m[h] = NEG;
+      s[h] = 0.f;
+      ll[h] = 0.f;
+      zs[h] = 0.0;
+      lab[h] = rows[h] < N ? labels[rows[h]] : -1;
+    }
+
+    // Two accumulators: the products of chunk i + 1 run while the softmax of
+    // chunk i does; chunk i's logits land in acc[i % 2]. After the split's
+    // last chunk the products of that chunk are issued once more (read, never
+    // used), so that no wgmma sits on a branch.
+    float acc[2][64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+    const uint32_t xa = smem_addr(sm.tile) + wg * 64 * 128;
+    const uint32_t ra = smem_addr(sm.ring);
+    const int count = b.count;
+    mbar_wait(sm.once, 0);
+    if (count > 0) {
+      mbar_wait(&sm.full[0], 0);
+      issue_scores<KA>(acc[0], xa, ra);
+      for (int i0 = 0; i0 < count; i0 += 2) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int i = i0 + u;
+          const int next = min(i + 1, count - 1);
+          mbar_wait(&sm.full[next % R::STAGES], (next / R::STAGES) & 1);
+          issue_scores<KA>(acc[u ^ 1], xa, ra + (next % R::STAGES) * R::TILE_BYTES);
+          wgmma_wait<1>();  // chunk i's logits are in acc[u]
+          fence_regs(acc[u]);
+          if (i + 1 < count) release(sm.empty, i % R::STAGES);
+          if (i < count) {
+            const int c = b.begin + i;
+            const int col0 = c * TILE + 2 * t;
+            if (unchecked_chunk(c, V, lab)) {
+              update_rows<false, SMOOTH>(acc[u], col0, V, lab, m, s, ll, zs);
+            } else {
+              update_rows<true, SMOOTH>(acc[u], col0, V, lab, m, s, ll, zs);
+            }
+          }
+        }
       }
+      wgmma_wait<0>();
+      release(sm.empty, (count - 1) % R::STAGES);
     }
-    __syncthreads();
-    if (c + 1 < c_end) {  // the next chunk's loads fly while this one is scored
+
+    // merge the 4 lanes (t) that share each row
 #pragma unroll
-      for (int i = 0; i < LOADS; ++i) {
-        const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
-        const int col = (c + 1) * BV + r;
-        pre[i] = (r < BV && col < V)
-                     ? __ldg(reinterpret_cast<const float4*>(W + (size_t)col * E) + q)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float m2 = __shfl_xor_sync(0xffffffffu, m[h], off);
+        const float s2 = __shfl_xor_sync(0xffffffffu, s[h], off);
+        const float mn = fmaxf(m[h], m2);
+        s[h] = s[h] * ex2((m[h] - mn) * LOG2E) + s2 * ex2((m2 - mn) * LOG2E);
+        m[h] = mn;
+        ll[h] += __shfl_xor_sync(0xffffffffu, ll[h], off);
+        if (SMOOTH) zs[h] += __shfl_xor_sync(0xffffffffu, zs[h], off);
       }
-    }
-
-    float acc[NT][4];
-    score_chunk<KS, WS>(a, ws32, g, t, acc);
-
-    const int col0 = c * BV + 2 * t;
-    const bool full = (c + 1) * BV <= V;
-    const bool has_label = (unsigned)(lab[0] - c * BV) < (unsigned)BV ||
-                           (unsigned)(lab[1] - c * BV) < (unsigned)BV;
-    if (full && !has_label) {
-      update_rows<false, SMOOTH>(acc, col0, V, lab, m, s, ll, zs);
-    } else {
-      update_rows<true, SMOOTH>(acc, col0, V, lab, m, s, ll, zs);
-    }
-  }
-
-  // merge the 4 lanes (t) that share each row
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[h], off);
-      const float s2 = __shfl_xor_sync(0xffffffffu, s[h], off);
-      const float mn = fmaxf(m[h], m2);
-      s[h] = s[h] * ex2((m[h] - mn) * LOG2E) + s2 * ex2((m2 - mn) * LOG2E);
-      m[h] = mn;
-      ll[h] += __shfl_xor_sync(0xffffffffu, ll[h], off);
-      if (SMOOTH) zs[h] += __shfl_xor_sync(0xffffffffu, zs[h], off);
-    }
-    if (t == 0 && rows[h] < N) {
-      const size_t idx = (size_t)split * N + rows[h];
-      part_m[idx] = m[h];
-      part_s[idx] = s[h];
-      part_ll[idx] = ll[h];
-      if (SMOOTH) part_zs[idx] = zs[h];
+      if (t == 0 && rows[h] < N) {
+        const size_t idx = (size_t)b.split * N + rows[h];
+        part_m[idx] = m[h];
+        part_s[idx] = s[h];
+        part_ll[idx] = ll[h];
+        if (SMOOTH) part_zs[idx] = zs[h];
+      }
     }
   }
 }
@@ -238,55 +238,48 @@ __global__ void ce_fwd_merge_kernel(const float* __restrict__ part_m,
   if (zsum != nullptr) zsum[n] = (float)zs;
 }
 
-template <int KS, bool SMOOTH>
-cudaError_t launch_partial(dim3 grid, cudaStream_t st, const float* x, const float* W,
-                           const int* labels, int N, int E, int V, int chunks_per_split,
-                           float* part_m, float* part_s, float* part_ll, double* part_zs) {
-  ce_fwd_partial_kernel<KS, SMOOTH><<<grid, THREADS, 0, st>>>(
-      x, W, labels, N, E, V, chunks_per_split, part_m, part_s, part_ll, part_zs);
-  return cudaGetLastError();
-}
-
 template <bool SMOOTH>
-cudaError_t launch_partial_e(dim3 grid, cudaStream_t st, const float* x, const float* W,
-                             const int* labels, int N, int E, int V, int chunks_per_split,
-                             float* part_m, float* part_s, float* part_ll, double* part_zs) {
-  // E is rounded up to 16, 32, 64, 128 or 256 (zero padded)
-#define T4R_CE_FWD_KS(KS_)                                                               \
-  return launch_partial<KS_, SMOOTH>(grid, st, x, W, labels, N, E, V, chunks_per_split, \
-                                     part_m, part_s, part_ll, part_zs)
-  if (E <= 16) T4R_CE_FWD_KS(1);
-  if (E <= 32) T4R_CE_FWD_KS(2);
-  if (E <= 64) T4R_CE_FWD_KS(4);
-  if (E <= 128) T4R_CE_FWD_KS(8);
-  T4R_CE_FWD_KS(16);
-#undef T4R_CE_FWD_KS
+cudaError_t launch_partial(int ek, dim3 grid, cudaStream_t st, const uint8_t* ximg,
+                           const uint8_t* wimg, const int* labels, int N, int V,
+                           int chunks_per_split, float* part_m, float* part_s, float* part_ll,
+                           double* part_zs) {
+#define T4R_CE_FWD_KA(KA_)                                                                 \
+  return launch(ce_fwd_kernel<KA_, SMOOTH>, grid, Ring<KA_>::BYTES, st, ximg, wimg, labels, N, \
+                V, chunks_per_split, part_m, part_s, part_ll, part_zs)
+  switch (ek) {
+    case 64: T4R_CE_FWD_KA(1);
+    case 128: T4R_CE_FWD_KA(2);
+    case 256: T4R_CE_FWD_KA(4);
+    default: return cudaErrorInvalidValue;
+  }
+#undef T4R_CE_FWD_KA
 }
 
 }  // namespace
 
 extern "C" {
 
-int t4r_ce_fwd_block_rows() { return t4r::BN; }
-int t4r_ce_fwd_chunk_cols() { return t4r::BV; }
-
-// Launches the partial and the merge kernel on `stream`. The caller checks
-// shapes (E a multiple of 4, at most 256), dtypes, contiguity and alignment,
-// and allocates every buffer: part_* are (splits, N); part_zs and zsum may
-// be unused when smooth == 0. V may be 0 (splits = 1): every lse is then
-// -1e30. Returns the first CUDA error (0 when both launches were accepted).
-int t4r_ce_fwd(const float* x, const float* W, const int* labels, int N, int E, int V,
-               int Vp, int splits, int chunks_per_split, float* part_m, float* part_s,
-               float* part_ll, double* part_zs, float* lse, float* ll, float* zsum,
-               int smooth, void* stream) {
-  if (E < 4 || E > 256 || E % 4 != 0) return (int)cudaErrorInvalidValue;
+// Launches the partial and the merge kernel on `stream`, on the images of x
+// and of W's first V rows (t4r_image: ximg row_tiles x 128 rows, wimg a tile
+// for each of the vocab's chunks, ek = 64, 128 or 256 columns). The caller
+// takes ek, row_tiles, splits and chunks_per_split from one launch plan,
+// checks shapes, dtypes, contiguity and alignment, and allocates every
+// buffer: part_* (splits, N); part_zs and zsum may be unused when smooth ==
+// 0. V may be 0 (splits = 1): every lse is then -1e30. Returns the first CUDA
+// error (0 when every launch was accepted).
+int t4r_ce_fwd(const void* ximg, const void* wimg, const int* labels, int N, int V, int Vp,
+               int ek, int row_tiles, int splits, int chunks_per_split, float* part_m,
+               float* part_s, float* part_ll, double* part_zs, float* lse, float* ll,
+               float* zsum, int smooth, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + t4r::BN - 1) / t4r::BN, splits);  // row tiles fastest: they share a slice of W
+  const uint8_t* xi = static_cast<const uint8_t*>(ximg);
+  const uint8_t* wi = static_cast<const uint8_t*>(wimg);
+  dim3 grid(row_tiles, splits);  // row tiles fastest: they share a slice of W
   cudaError_t err =
-      smooth ? launch_partial_e<true>(grid, st, x, W, labels, N, E, V, chunks_per_split,
-                                      part_m, part_s, part_ll, part_zs)
-             : launch_partial_e<false>(grid, st, x, W, labels, N, E, V, chunks_per_split,
-                                       part_m, part_s, part_ll, part_zs);
+      smooth ? launch_partial<true>(ek, grid, st, xi, wi, labels, N, V, chunks_per_split, part_m,
+                                    part_s, part_ll, part_zs)
+             : launch_partial<false>(ek, grid, st, xi, wi, labels, N, V, chunks_per_split,
+                                     part_m, part_s, part_ll, part_zs);
   if (err != cudaSuccess) return (int)err;
   const int merge_threads = 128;
   ce_fwd_merge_kernel<<<(N + merge_threads - 1) / merge_threads, merge_threads, 0, st>>>(

@@ -1,8 +1,9 @@
-// Pieces shared by the port's vocabulary kernels (ce_rank.cu, ce_fwd.cu,
-// ce_bwd.cu): the tile sizes, the bf16 tensor-core product and the base-2
-// exponential. Every kernel scores a tile of BN rows of x against a chunk of
-// BV rows of the item table with mma.sync.m16n8k16 (bf16 in, f32
-// accumulation): 8 warps of 16 rows each, 8 n-tiles of 8 columns.
+// Pieces shared by the port's vocabulary kernels: the base-2 exponential,
+// bf16 packing and the constants for all of them; for ce_rank.cu and rank.cu
+// also the tile sizes and the bf16 tensor-core product, with which they score
+// a tile of BN rows of x against a chunk of BV rows of the item table by
+// mma.sync.m16n8k16 (bf16 in, f32 accumulation): 8 warps of 16 rows each, 8
+// n-tiles of 8 columns. ce_fwd.cu and ce_bwd.cu use wgmma (hopper.cuh).
 
 #pragma once
 

@@ -40,6 +40,7 @@ NaN for them, as the reference's, so their loss is NaN and their rank 0.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -202,8 +203,8 @@ def _check_cuda_inputs(op: str, x, W, vocab_size: int, max_e: int,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "ce_rank": [_P] * 4 + [_I] * 5 + [_P] * 7 + [_I, _P],
-    "ce_fwd": [_P] * 3 + [_I] * 6 + [_P] * 7 + [_I, _P],
-    "ce_bwd": [_P] * 5 + [_I] * 4 + [_F] * 2 + [_I] * 2 + [_P] * 4,
+    "ce_fwd": [_P] * 3 + [_I] * 7 + [_P] * 7 + [_I, _P],
+    "ce_bwd": [_P] * 6 + [_I] * 7 + [_F] * 2 + [_I] * 2 + [_P] * 5,
     "rank": [_P] * 4 + [_I] * 5 + [_P] * 3,
 }
 
@@ -216,21 +217,120 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
     if not getattr(lib, "_t4r_typed", False):
         entry = getattr(lib, f"t4r_{name}")
         entry.argtypes, entry.restype = _ARGTYPES[name], _I
-        for fn in (getattr(lib, f"t4r_{name}_block_rows"), getattr(lib, f"t4r_{name}_chunk_cols")):
-            fn.argtypes, fn.restype = [], _I
+        if name in ("ce_fwd", "ce_bwd"):
+            lib.t4r_image.argtypes, lib.t4r_image.restype = [_P] + [_I] * 4 + [_P] * 2, _I
+        else:  # K3 and K4: row tiles of CE_TILE too, chunks of their own width
+            for what in ("block_rows", "chunk_cols"):
+                fn = getattr(lib, f"t4r_{name}_{what}")
+                fn.argtypes, fn.restype = [], _I
+                setattr(lib, f"t4r_{what}", fn)
+            if lib.t4r_block_rows() != CE_TILE:
+                raise RuntimeError(f"{name}: row tiles of {lib.t4r_block_rows()}, "
+                                   f"the launch plan cuts {CE_TILE}")
         lib._t4r_typed = True
     return lib
 
 
-def _vocab_splits(lib: ctypes.CDLL, name: str, N: int, vocab_size: int, dev) -> Tuple[int, int]:
-    """Split the vocab's chunks across blocks so that about two blocks land
-    on every SM: ``(splits, chunks per split)``; one empty split for an
-    empty vocab."""
-    row_tiles = -(-N // getattr(lib, f"t4r_{name}_block_rows")())
-    nchunks = max(1, -(-vocab_size // getattr(lib, f"t4r_{name}_chunk_cols")()))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_split = -(-nchunks // max(1, (2 * sms) // row_tiles))
-    return -(-nchunks // per_split), per_split
+# --------------------------------------------------- the vocab kernels' launch plan
+CE_TILE = 128  # rows of x or of W in a tile of their bf16 images (csrc/hopper.cuh)
+CE_SLAB = 64   # bf16 values in one 128-byte swizzled row of a tile
+
+
+@dataclass(frozen=True)
+class CEPlan:
+    """How a vocab kernel cuts one call into blocks, and the scratch it needs.
+
+    Every kernel runs a block per (``tile_rows``-row tile of x, vocab split),
+    each split a run of ``chunks_per_split`` consecutive chunks of
+    ``chunk_cols`` vocab columns. K1 and K2 (128-row tiles and chunks) first
+    round x and the table to bf16 into images of ``CE_TILE``-row tiles, each
+    row padded with zeros to ``ek`` values; K2's dW pass runs a block per tile
+    of the table (``table_tiles``). K3 and K4 take only the split."""
+
+    n: int
+    e: int
+    ek: int
+    row_tiles: int
+    chunks: int
+    table_tiles: int
+    splits: int
+    chunks_per_split: int
+    backward: bool
+
+    def scratch(self, device, smooth: bool = False) -> Dict[str, torch.Tensor]:
+        """K1's or K2's scratch, uninitialised (the kernels write every
+        element): the images of x and of the table, and K2's row table
+        (lse, coef, label per row) and per-split dx partials, or K1's (max,
+        sum, label logit) f32 and zsum f64 per split and row."""
+        out = {"ximg": torch.empty((self.row_tiles * CE_TILE, self.ek), dtype=torch.bfloat16,
+                                   device=device),
+               "wimg": torch.empty((self.table_tiles * CE_TILE, self.ek), dtype=torch.bfloat16,
+                                   device=device)}
+        if self.backward:
+            out["info"] = torch.empty((self.row_tiles * CE_TILE, 4), dtype=torch.float32,
+                                      device=device)
+            out["part_dx"] = torch.empty((self.splits, self.n, self.e), dtype=torch.float32,
+                                         device=device)
+        else:
+            out["part"] = torch.empty((3, self.splits, self.n), dtype=torch.float32,
+                                      device=device)
+            out["part_zs"] = torch.empty((self.splits, self.n) if smooth else (1,),
+                                         dtype=torch.float64, device=device)
+        return out
+
+
+def ce_plan(n: int, e: int, vocab_size: int, table_rows: int, sms: int, backward: bool,
+            chunk_cols: int = CE_TILE) -> CEPlan:
+    """The launch plan of a vocab kernel for ``n`` rows of width ``e``
+    against a table of ``table_rows`` rows whose first ``vocab_size`` are the
+    vocab, on a card with ``sms`` SMs: K1 (``backward=False``), K2, or with
+    their ``chunk_cols`` K3 and K4.
+
+    The vocab is split until about two blocks per SM exist: every row tile
+    walks a split of the chunks, and the splits' partials stay within
+    ``2 * sms * CE_TILE`` rows (or ``n`` rows, with one split). An empty vocab
+    gets one empty split. ``ek`` is the width of a ``wgmma`` operand that
+    holds ``e``: 64, 128 or 256 (one, two or four 64-value slabs). K1's
+    table image needs only the vocab's chunks; K2's dW pass covers every row
+    of the table."""
+    ek = 64 if e <= 64 else 128 if e <= 128 else 256
+    row_tiles = -(-n // CE_TILE)
+    chunks = -(-vocab_size // chunk_cols)
+    per_split = -(-max(1, chunks) // max(1, (2 * sms) // row_tiles))
+    table_tiles = -(-table_rows // CE_TILE) if backward else chunks
+    return CEPlan(n=n, e=e, ek=ek, row_tiles=row_tiles, chunks=chunks, table_tiles=table_tiles,
+                  splits=-(-max(1, chunks) // per_split), chunks_per_split=per_split,
+                  backward=backward)
+
+
+def swizzled_image_index(rows: int, ek: int) -> torch.Tensor:
+    """Where element (r, e) of a (rows, ek) matrix lands in its bf16 image,
+    as an index of bf16 values: ``image_offset`` of ``csrc/hopper.cuh``
+    divided by 2. Rows are padded to whole tiles, so the result is
+    (row tiles x ``CE_TILE``, ek) int64. Within a tile, slab ``e // 64``
+    holds the tile's rows as 64 values (128 bytes) each, and the 16-byte
+    piece ``j`` of row ``r`` sits at place ``j ^ (r % 8)``: the layout of
+    TMA's 128-byte swizzle."""
+    padded = -(-rows // CE_TILE) * CE_TILE
+    r = torch.arange(padded)[:, None]
+    col = torch.arange(ek)[None, :]
+    rr, c64 = r % CE_TILE, col % CE_SLAB
+    return ((r // CE_TILE) * CE_TILE * ek + (col // CE_SLAB) * CE_TILE * CE_SLAB
+            + rr * CE_SLAB + ((c64 // 8) ^ (rr % 8)) * 8 + c64 % 8)
+
+
+def _plan_for(x, W, vocab_size: int, backward: bool, chunk_cols: int = CE_TILE) -> CEPlan:
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return ce_plan(x.shape[0], x.shape[1], vocab_size, W.shape[0], sms, backward, chunk_cols)
+
+
+def _write_image(lib: ctypes.CDLL, src: torch.Tensor, rows: int, img: torch.Tensor,
+                 stream: int) -> None:
+    """Rounds the first ``rows`` rows of ``src`` (f32) into ``img``, its bf16
+    image (``to_image_kernel`` of ``csrc/hopper.cuh``)."""
+    err = lib.t4r_image(src.data_ptr(), rows, img.shape[0], src.shape[1], img.shape[1],
+                        img.data_ptr(), stream)
+    raise_on_error(lib, err, "image")
 
 
 def _ce_rank_cuda(x, W, labels, ll, vocab_size, smooth):
@@ -239,7 +339,8 @@ def _ce_rank_cuda(x, W, labels, ll, vocab_size, smooth):
     lib = _kernel_lib("ce_rank")
     N, E = x.shape
     dev = x.device
-    splits, per_split = _vocab_splits(lib, "ce_rank", N, vocab_size, dev)
+    plan = _plan_for(x, W, vocab_size, False, lib.t4r_chunk_cols())
+    splits, per_split = plan.splits, plan.chunks_per_split
     part_m = torch.empty((splits, N), dtype=torch.float32, device=dev)
     part_s = torch.empty((splits, N), dtype=torch.float32, device=dev)
     part_cnt = torch.empty((splits, N), dtype=torch.int32, device=dev)
@@ -263,21 +364,24 @@ def _ce_rank_cuda(x, W, labels, ll, vocab_size, smooth):
 def _ce_fwd_cuda(x, W, labels, vocab_size, smooth):
     _check_cuda_inputs("ce_fwd", x, W, vocab_size, _MAX_E, {"labels": (labels, torch.int32)})
     lib = _kernel_lib("ce_fwd")
-    N, E = x.shape
+    N = x.shape[0]
     dev = x.device
-    splits, per_split = _vocab_splits(lib, "ce_fwd", N, vocab_size, dev)
-    part = torch.empty((3, splits, N), dtype=torch.float32, device=dev)  # m, s, ll
-    part_zs = torch.empty((splits, N) if smooth else (1,), dtype=torch.float64, device=dev)
+    plan = _plan_for(x, W, vocab_size, backward=False)
+    buf = plan.scratch(dev, smooth)
+    part = buf["part"]
     lse = torch.empty(N, dtype=torch.float32, device=dev)
     ll = torch.empty(N, dtype=torch.float32, device=dev)
     zsum = torch.empty(N if smooth else 1, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        _write_image(lib, x, N, buf["ximg"], stream)
+        _write_image(lib, W, vocab_size, buf["wimg"], stream)
         err = lib.t4r_ce_fwd(
-            x.data_ptr(), W.data_ptr(), labels.data_ptr(),
-            N, E, vocab_size, W.shape[0], splits, per_split,
-            part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(), part_zs.data_ptr(),
-            lse.data_ptr(), ll.data_ptr(), zsum.data_ptr(), int(smooth), stream,
+            buf["ximg"].data_ptr(), buf["wimg"].data_ptr(), labels.data_ptr(),
+            N, vocab_size, W.shape[0], plan.ek, plan.row_tiles, plan.splits,
+            plan.chunks_per_split, part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
+            buf["part_zs"].data_ptr(), lse.data_ptr(), ll.data_ptr(), zsum.data_ptr(),
+            int(smooth), stream,
         )
     raise_on_error(lib, err, "ce_fwd")
     ce_fwd.launches += 1
@@ -292,17 +396,21 @@ def _ce_bwd_cuda(x, W, labels, lse, coef, vocab_size, eps, eps_over_v):
     N, E = x.shape
     dev = x.device
     eov = (eps / vocab_size if eps_over_v is None else eps_over_v) if eps else 0.0
-    splits, per_split = _vocab_splits(lib, "ce_bwd", N, vocab_size, dev)
-    # every element of the three buffers is written by the kernels
-    part_dx = torch.empty((splits, N, E), dtype=torch.float32, device=dev)
+    plan = _plan_for(x, W, vocab_size, backward=True)
+    buf = plan.scratch(dev)
+    # every element of these buffers is written by the kernels
     dx = torch.empty((N, E), dtype=torch.float32, device=dev)
     dW = torch.empty(W.shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        _write_image(lib, x, N, buf["ximg"], stream)
+        _write_image(lib, W, W.shape[0], buf["wimg"], stream)
         err = lib.t4r_ce_bwd(
-            x.data_ptr(), W.data_ptr(), labels.data_ptr(), lse.data_ptr(), coef.data_ptr(),
-            N, E, vocab_size, W.shape[0], float(eps), float(eov), splits, per_split,
-            part_dx.data_ptr(), dx.data_ptr(), dW.data_ptr(), stream,
+            buf["ximg"].data_ptr(), buf["wimg"].data_ptr(), W.data_ptr(), labels.data_ptr(),
+            lse.data_ptr(), coef.data_ptr(), N, E, vocab_size, W.shape[0], plan.ek,
+            plan.row_tiles, plan.table_tiles, float(eps), float(eov), plan.splits,
+            plan.chunks_per_split, buf["info"].data_ptr(), buf["part_dx"].data_ptr(),
+            dx.data_ptr(), dW.data_ptr(), stream,
         )
     raise_on_error(lib, err, "ce_bwd")
     ce_bwd.launches += 1
@@ -505,7 +613,8 @@ def _rank_cuda(x, W, ll, labels, vocab_size):
     lib = _kernel_lib("rank")
     N, E = x.shape
     dev = x.device
-    splits, per_split = _vocab_splits(lib, "rank", N, vocab_size, dev)
+    plan = _plan_for(x, W, vocab_size, False, lib.t4r_chunk_cols())
+    splits, per_split = plan.splits, plan.chunks_per_split
     part_cnt = torch.empty((splits, N), dtype=torch.int32, device=dev)
     cnt = torch.empty(N, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
