@@ -33,9 +33,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    non-causal), at (4, 2048, 8, 64) causal and at (4, 4096, 16, 12) causal
    with ragged padding, the shape of phase 11 and the only one at which a
    main path launches K6b and K6c, with the same bits on a second call and
-   K6a against K6b + K6c; and K1 and K2 at the long-session training shapes
+   K6a against K6b + K6c; K1 and K2 at the long-session training shapes
    of 8,192 and 16,384 loss rows (every K1 and K2 check also asks each
-   kernel a second time for the same bits);
+   kernel a second time for the same bits); and K1, K2, K3 and K4 on item
+   tables wider than the narrow kernels hold (E = 192, 448, 1,000; label
+   smoothing on and off; the same bits twice), with labels on padding rows
+   and on two shards at E = 448;
 4. evaluate: the REES46 XLNet-MLM model at full width (390,000 items,
    d_model 192, 3 layers, 16 heads, sessions of 20, weights from a seed)
    runs ``Model.evaluate`` over 4 synthetic batches of 128 sessions; K3 must
@@ -63,6 +66,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    launch once per step and the moment is f32; and one step of it is held
    against one step of the plain f32-moment arm from the same weights, mask
    and dropout;
+9b. the paper's tied width: the same XLNet-MLM with a 448-wide item table
+    (``flagship.build_model(item_dim=448)``): ``Model.evaluate`` on one
+    batch and one training step, each against the CPU, then 8 trainer
+    steps (the wide kernels of K1, K2 and K3);
 10. GPT-2-CLM at full width on sessions of up to 256
     (``flagship.build_model(scheme="clm")``): ``Model.evaluate`` over 4
     batches of 32 sessions against the same weights on the CPU (K5 three
@@ -75,9 +82,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     items through the same entry points: K6b and K6c launch once each and K6a
     not at all (its dq partials would pass the cap);
 12. time K3 and K4 at the evaluation shape, K1 and K2 at the three training
-    shapes (915, 8,192 and 16,384 loss rows), K7a and K7b at the item table's
-    shape and K5, K6a, K6b, K6c at the shapes of phases 10 and 11 and at
-    (4, 2048, 8, 64), each beside its plain version and, where there is one,
+    shapes (915, 8,192 and 16,384 loss rows), all four again at E = 448 (K1
+    and K2 at 915 and 8,192 rows), K7a and K7b at the item table's shape
+    and K5, K6a, K6b, K6c at the shapes of phases 10 and 11 and at
+    (4, 2048, 8, 64), K5 and K6a in both their designs (``mma.sync`` and
+    ``wgmma``), each beside its plain version and, where there is one,
     a library yardstick (CUDA events, median after warm-up; at 8,192 rows and
     more the cross-entropy's yardstick runs 1,024 rows at a time), and a
     whole table-optimizer step on each of its arms.
@@ -87,8 +96,9 @@ The XLNet-MLM paths (sessions of 20 and 21) must launch no flash kernel.
 The second-to-last line of standard output is one JSON object with a
 ``kernels`` list: each kernel's error, time and bound at the shape at which a
 main path launches it (K5 and K6a at phase 10's, K6b and K6c at phase 11's),
-and under ``also_at`` its times at the other shapes of the main paths; the
-last is ``{"ok": true, "device": {...}}``.
+and under ``also_at`` its times at other shapes, each marked ``main_path``:
+true where a main path launches it there, false where only this script
+does; the last is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile-train [FILE]`` runs none of the above: it
 trains the flagship model for a few groups of steps under ``torch.profiler``
@@ -98,7 +108,9 @@ also goes to FILE when one is named. ``--profile-train-streamed [FILE]``
 does the same with the streamed table update, ``--profile-train-clm [FILE]``
 with GPT-2-CLM on batches of 32 sessions of up to 256 (the path on which
 K1 and K2 take most of the device's time). ``--time-ce`` checks and times
-K1 and K2 alone at the three training shapes.
+K1 and K2 alone at the three training shapes, ``--time-flash`` K5 and K6a
+alone in both their designs at the CLM shape, at (4, 2048, 8, 64) and where
+the designs meet (head dims 32, 48 and 128).
 """
 
 from __future__ import annotations
@@ -201,7 +213,7 @@ def ce_rank_inputs(n: int, rows: int, vocab_size: int, e: int, beta_lo: float,
 
 
 def check_ce_rank(name: str, n: int, rows: int, vocab_size: int, smooth: bool,
-                  beta_lo: float, beta_hi: float, seeds, device="cuda") -> dict:
+                  beta_lo: float, beta_hi: float, seeds, device="cuda", e: int = 64) -> dict:
     """K3 against ``ce_rank_plain`` on the same inputs, one call per seed.
 
     Criteria: lse within 1e-4 relative; zsum within 1e-4 of
@@ -215,11 +227,15 @@ def check_ce_rank(name: str, n: int, rows: int, vocab_size: int, smooth: bool,
 
     lse_abs, lse_rel, zs_err, diffs, ranks = 0.0, 0.0, 0.0, [], []
     for seed in seeds:
-        x, W, labels = ce_rank_inputs(n, rows, vocab_size, 64, beta_lo, beta_hi, seed, device)
+        x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, beta_lo, beta_hi, seed, device)
         ll = vocab.label_logits(x, W, labels)
         lse, rank, zs = vocab.ce_rank(x, W, labels, ll, vocab_size, smooth=smooth)
         lse_p, rank_p, zs_p = vocab.ce_rank_plain(x, W, labels, ll, vocab_size, smooth)
+        again = vocab.ce_rank(x, W, labels, ll, vocab_size, smooth=smooth)
         sync(device)
+        if not (torch.equal(again[0], lse) and torch.equal(again[1], rank)
+                and (zs is None or torch.equal(again[2], zs))):
+            fail(f"ce_rank {name}: a second call gave other bits")
         if not (torch.isfinite(lse).all() and torch.isfinite(lse_p).all()):
             fail(f"ce_rank {name}: non-finite lse")
         err = (lse - lse_p).abs()
@@ -232,7 +248,7 @@ def check_ce_rank(name: str, n: int, rows: int, vocab_size: int, smooth: bool,
         ranks.append(rank_p.cpu())
     diff = torch.cat(diffs)
     out = {
-        "shape": name, "N": n, "calls": len(diffs), "table_rows": rows,
+        "shape": name, "N": n, "E": e, "calls": len(diffs), "table_rows": rows,
         "vocab_size": vocab_size, "smooth": smooth,
         "lse_max_abs_err": lse_abs, "lse_max_rel_err": lse_rel,
         "rank_exact_share": float((diff == 0).float().mean()),
@@ -254,11 +270,12 @@ def check_ce_rank(name: str, n: int, rows: int, vocab_size: int, smooth: bool,
 
 
 # ------------------------------------------------------------- K1 / K2 check
-def ce_train_inputs(n: int, rows: int, vocab_size: int, seed: int, minus_one: bool, device):
+def ce_train_inputs(n: int, rows: int, vocab_size: int, seed: int, minus_one: bool, device,
+                    e: int = 64):
     """Inputs as ``ce_rank_inputs`` draws them, plus row weights of which
     about 30% are 0 (the loss-row budget's spare rows) and, with
     ``minus_one``, a few labels of -1 among those."""
-    x, W, labels = ce_rank_inputs(n, rows, vocab_size, 64, 0.0, 12.0, seed, device)
+    x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, 0.0, 12.0, seed, device)
     rng = np.random.default_rng(seed + 1000)
     w = (rng.random(n) >= 0.3).astype(np.float32)
     if minus_one:
@@ -288,7 +305,7 @@ def check_grad(what: str, got: torch.Tensor, want: torch.Tensor, rel: float = 1e
 
 
 def check_ce_train(name: str, n: int, rows: int, vocab_size: int, eps: float,
-                   eps_over_v, minus_one: bool, seed: int, device="cuda") -> dict:
+                   eps_over_v, minus_one: bool, seed: int, device="cuda", e: int = 64) -> dict:
     """K1 against ``ce_fwd_plain`` and K2 against ``ce_bwd_plain`` on the same
     inputs. Criteria: lse within 1e-4 relative; the label logit within 1e-4
     of max(|ll|, 1) (it may sit near 0) and exactly 0 for a label of -1; zsum
@@ -296,7 +313,7 @@ def check_ce_train(name: str, n: int, rows: int, vocab_size: int, eps: float,
     vocab exactly 0; the same bits from a second call of each kernel."""
     from transformers4rec_tpu_torch.ops import vocab
 
-    x, W, labels, w = ce_train_inputs(n, rows, vocab_size, seed, minus_one, device)
+    x, W, labels, w = ce_train_inputs(n, rows, vocab_size, seed, minus_one, device, e)
     lse, ll, zs = vocab.ce_fwd(x, W, labels, vocab_size, smooth=eps > 0)
     lse_p, ll_p, zs_p = vocab.ce_fwd_plain(x, W, labels, vocab_size, eps > 0)
     coef = (w / w.sum().clamp_min(1.0)).contiguous()
@@ -306,8 +323,8 @@ def check_ce_train(name: str, n: int, rows: int, vocab_size: int, eps: float,
     if not torch.isfinite(lse).all():
         fail(f"ce_fwd {name}: non-finite lse")
     out = {
-        "shape": name, "N": n, "table_rows": rows, "vocab_size": vocab_size, "eps": eps,
-        "zero_weight_share": float((w == 0).float().mean()),
+        "shape": name, "N": n, "E": e, "table_rows": rows, "vocab_size": vocab_size,
+        "eps": eps, "zero_weight_share": float((w == 0).float().mean()),
         "labels_minus_one": int((labels < 0).sum()),
         "lse_max_abs_err": float((lse - lse_p).abs().max()),
         "lse_max_rel_err": float(((lse - lse_p).abs() / lse_p.abs().clamp_min(1e-30)).max()),
@@ -340,7 +357,7 @@ def check_ce_train(name: str, n: int, rows: int, vocab_size: int, eps: float,
 
 
 def check_padding_row_labels(n: int, rows: int, vocab_size: int, eps: float,
-                             device="cuda") -> dict:
+                             device="cuda", e: int = 64) -> dict:
     """K1, K2 and K3 against their plain versions with four labels on the
     table's padding rows (``vocab_size <= label < rows``), inside and beyond
     the vocab's last chunk. K1's label logit there is exactly -1e30 in both;
@@ -349,7 +366,7 @@ def check_padding_row_labels(n: int, rows: int, vocab_size: int, eps: float,
     the gathered logit: ranks within 1."""
     from transformers4rec_tpu_torch.ops import vocab
 
-    x, W, labels, w = ce_train_inputs(n, rows, vocab_size, 31, False, device)
+    x, W, labels, w = ce_train_inputs(n, rows, vocab_size, 31, False, device, e)
     on_pad = torch.tensor([vocab_size, vocab_size + 1, rows - 2, rows - 1], device=device)
     labels[:4] = on_pad.to(torch.int32)
     w[:4] = 1.0
@@ -366,7 +383,7 @@ def check_padding_row_labels(n: int, rows: int, vocab_size: int, eps: float,
         fail(f"padding-row labels: label logits {ll[:4].tolist()} vs plain {ll_p[:4].tolist()}")
     if float(((lse - lse_p).abs() / lse_p.abs()).max()) > 1e-4:
         fail("padding-row labels: lse differs")
-    out = {"N": n, "table_rows": rows, "vocab_size": vocab_size, "eps": eps,
+    out = {"N": n, "E": e, "table_rows": rows, "vocab_size": vocab_size, "eps": eps,
            "dx": check_grad("padding-row labels dx", dx, dx_p),
            "dx_of_those_rows": check_grad("padding-row labels dx[:4]", dx[:4], dx_p[:4]),
            "dW": check_grad("padding-row labels dW", dW, dW_p),
@@ -387,7 +404,7 @@ def check_padding_row_labels(n: int, rows: int, vocab_size: int, eps: float,
 
 # ------------------------------------------------------------------ K4 check
 def check_rank(name: str, n: int, rows: int, vocab_size: int, shard_bound, beta_lo: float,
-               beta_hi: float, seeds, device="cuda") -> dict:
+               beta_hi: float, seeds, device="cuda", e: int = 64) -> dict:
     """K4 against ``rank_counts_plain`` on the same inputs, one call per seed,
     and ``fused_label_rank`` (K1 + K4) against K3's ranks. With a
     ``shard_bound`` below ``vocab_size`` the counts go over the columns below
@@ -402,7 +419,7 @@ def check_rank(name: str, n: int, rows: int, vocab_size: int, shard_bound, beta_
 
     diffs, k3_diffs, minus_one = [], [], 0
     for seed in seeds:
-        x, W, labels = ce_rank_inputs(n, rows, vocab_size, 64, beta_lo, beta_hi, seed, device)
+        x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, beta_lo, beta_hi, seed, device)
         ll = vocab.label_logits(x, W, labels)
         _, want_k3, _ = vocab.ce_rank(x, W, labels, ll, vocab_size)
         k3_diffs.append((vocab.fused_label_rank(x, W, labels, vocab_size).long()
@@ -418,7 +435,7 @@ def check_rank(name: str, n: int, rows: int, vocab_size: int, shard_bound, beta_
             fail(f"rank {name}: {cnt.dtype}, or a second call gave other counts")
         diffs.append((cnt.long() - cnt_p.long()).abs().cpu())
     diff, k3_diff = torch.cat(diffs), torch.cat(k3_diffs)
-    out = {"shape": name, "N": n, "calls": len(diffs), "table_rows": rows,
+    out = {"shape": name, "N": n, "E": e, "calls": len(diffs), "table_rows": rows,
            "vocab_size": vocab_size, "shard_bound": shard_bound,
            "labels_minus_one": minus_one,
            "count_exact_share": float((diff == 0).float().mean()),
@@ -466,9 +483,12 @@ def check_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: 
     sides round P to bf16 from exponentials that differ in the last bits, so
     single entries land on neighbouring bf16 values); dq, dk, dv as
     ``check_grad`` says; the same bits from a second call of each kernel; and
-    K6a against K6b + K6c: dk and dv within 1e-6 of their peak (the same
-    sums), dq within 1e-5 of its peak (partials added per key tile against
-    one running sum)."""
+    K6a's mma.sync design against K6b + K6c at every shape: dk and dv within
+    1e-6 of their peak (the same sums), dq within 1e-5 of its peak (partials
+    added per key tile against one running sum). Where K6a takes its Hopper
+    design (``uses_wgmma``), whose products sum in another order, that one is
+    held to the plain version as above, and the mma.sync design is run
+    beside it for the same-sums check."""
     from transformers4rec_tpu_torch.ops import attention as fa
 
     q, k, v, d_out, pad, bias = flash_inputs(B, S, H, Dh, seed, device, ragged, wholly_padded,
@@ -509,11 +529,14 @@ def check_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: 
     for tag, got, want in (("fused", fused, want_fused), ("split", split, want_split)):
         res[tag] = {g: check_grad(f"flash_bwd {tag} {name} {g}", a, b)
                     for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+    res["fused_design"] = "wgmma" if q.is_cuda and fa.uses_wgmma(Dh) else "mma.sync"
+    mma = fa._flash_bwd_fused_cuda(*args, wgmma=False) if res["fused_design"] == "wgmma" \
+        else fused
     res["fused_vs_split"] = {g: float((a - b).abs().max() / b.abs().max())
-                             for g, a, b in zip(("dq", "dk", "dv"), fused, split)}
+                             for g, a, b in zip(("dq", "dk", "dv"), mma, split)}
     fs = res["fused_vs_split"]
     if fs["dq"] > 1e-5 or fs["dk"] > 1e-6 or fs["dv"] > 1e-6:
-        fail(f"flash_bwd {name}: fused against split {fs}")
+        fail(f"flash_bwd {name}: fused (mma.sync) against split {fs}")
     print(f"[k5k6] {json.dumps(res)}")
     return res
 
@@ -605,6 +628,19 @@ def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged:
             **bound(6 * 4 * n + 2 * 4 * rows + pad_bytes, 4 * 2 * Dh * pairs, pairs),
         },
     }
+    # both designs of K5 and K6a at this shape, in the same call: the one
+    # the wrappers pick (above) and the other
+    res["flash_fwd"]["designs_ms"] = {
+        design: cuda_ms(lambda: fa._flash_fwd_cuda(q, k, v, None, pad, causal,
+                                                   wgmma=design == "wgmma"), reps=reps)
+        for design in ("mma.sync", "wgmma")}
+    res["flash_fwd"]["design"] = "wgmma" if fa.uses_wgmma(Dh) else "mma.sync"
+    if Dh <= 64:  # K6a's Hopper design takes head dims up to 64
+        res["flash_bwd_fused"]["designs_ms"] = {
+            design: cuda_ms(lambda: fa._flash_bwd_fused_cuda(*args, wgmma=design == "wgmma"),
+                            reps=reps)
+            for design in ("mma.sync", "wgmma")}
+    res["flash_bwd_fused"]["design"] = res["flash_fwd"]["design"]
     for r in res.values():
         r["shape"] = name
         r["pairs"] = pairs
@@ -664,7 +700,8 @@ def check_adafactor(name: str, rows: int, e: int, clip, device="cuda") -> dict:
 
 
 # --------------------------------------------------------- two shards, merged
-def check_two_shards(n: int, rows: int, vocab_size: int, eps: float, device="cuda") -> dict:
+def check_two_shards(n: int, rows: int, vocab_size: int, eps: float, device="cuda",
+                     e: int = 64) -> dict:
     """The table cut into two shards held by this one process: K1, K2 and K4
     run per shard with the shard's own bounds and labels, the partials are
     merged as a process group would merge them, and the results are held
@@ -676,7 +713,7 @@ def check_two_shards(n: int, rows: int, vocab_size: int, eps: float, device="cud
     from transformers4rec_tpu_torch.parallel import (
         shard_table, sharded_ce_and_rank, sharded_softmax_ce)
 
-    x, W, labels, w = ce_train_inputs(n, rows, vocab_size, 51, False, device)
+    x, W, labels, w = ce_train_inputs(n, rows, vocab_size, 51, False, device, e)
     xs = x.clone().requires_grad_()
     shards = [shard_table(W, i, 2).clone().requires_grad_() for i in range(2)]
     loss = sharded_softmax_ce(xs, shards, labels, w, None, vocab_size=vocab_size,
@@ -691,7 +728,7 @@ def check_two_shards(n: int, rows: int, vocab_size: int, eps: float, device="cud
                                                     label_smoothing=eps)
     sync(device)
     diff = (ranks.long() - want_ranks.long()).abs()
-    out = {"N": n, "table_rows": rows, "vocab_size": vocab_size, "eps": eps,
+    out = {"N": n, "E": e, "table_rows": rows, "vocab_size": vocab_size, "eps": eps,
            "loss": float(loss.detach()), "unsharded_loss": float(want.detach()),
            "eval_loss": float(eval_loss), "unsharded_eval_loss": float(want_eval),
            "dx": check_grad("two shards dx", xs.grad, xu.grad),
@@ -705,6 +742,94 @@ def check_two_shards(n: int, rows: int, vocab_size: int, eps: float, device="cud
     if out["rank_exact_share"] < 0.99 or out["rank_max_diff"] > 1:
         fail(f"two shards: ranks {out}")
     return out
+
+
+# ------------------------------------------------- wide item tables (E > 256)
+WIDE_E = (192, 448, 1000)  # K2's wide passes; the paper's width; off every slab
+
+
+def check_wide_tables() -> dict:
+    """K1, K2, K3 and K4 against their plain versions at widths beyond what
+    the narrow kernels hold whole (K2 past 128, the rest past 256), at N and
+    V off every tile size, with label smoothing on and off, by the criteria
+    and the same-bits check of the narrow widths; then labels on padding
+    rows and two shards at the paper's E = 448."""
+    out = {"ce": [], "ce_rank": [], "rank": []}
+    for i, e in enumerate(WIDE_E):
+        for smooth in (False, True):
+            eps = 0.1 if smooth else 0.0
+            out["ce"].append(check_ce_train(f"wide-{e}", 1000, 100_008, 100_003, eps,
+                                            eps / 100_003 if smooth else None, smooth,
+                                            60 + 2 * i + smooth, e=e))
+            out["ce_rank"].append(check_ce_rank(f"wide-{e}", EVAL_ROWS, 100_008, 100_003, smooth,
+                                                0.0, 12.0, [70 + 2 * i + smooth], e=e))
+        out["rank"].append(check_rank(f"wide-{e}", 1000, 100_008, 100_003, 60_003, 0.0, 12.0,
+                                      [80 + i], e=e))
+    e = WIDE_E[1]
+    out["padding_rows"] = [check_padding_row_labels(300, 100_072, 100_003, eps, e=e)
+                           for eps in (0.0, 0.1)]
+    out["two_shards"] = check_two_shards(1000, 100_008, 100_003, 0.1, e=e)
+    return out
+
+
+def run_wide_flagship(flagship, vocab, card: str) -> dict:
+    """The flagship XLNet-MLM at the paper's tied width: an item table of
+    ``flagship.PAPER_ITEM_DIM`` = 448 values a row (390,000 items, d_model
+    192, ``build_model(item_dim=...)``). ``Model.evaluate`` on one batch of
+    128 sessions and one training step, each on the card against the same
+    weights on the CPU with ``check_evaluate``'s and ``check_training_step``'s
+    tolerances, then ``flagship.build_trainer`` for one group of 8 steps. The
+    kernel counts are set to 0 just before each part and read just after."""
+    from transformers4rec_tpu_torch.data import synthetic_data
+
+    e = flagship.PAPER_ITEM_DIM
+    counters = {"ce_fwd": vocab.ce_fwd, "ce_bwd": vocab.ce_bwd, "ce_rank": vocab.ce_rank}
+    launches = dict.fromkeys(counters, 0)
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] += n
+
+    model = flagship.build_model("cuda", seed=0, dropout=0.0, item_dim=e)
+    table = model.heads[0].input_module.item_embedding_table()
+    if table.shape[1] != e:
+        fail(f"build_model(item_dim={e}) gave a table of {tuple(table.shape)}")
+    loader = eval_batches(flagship, flagship.NUM_ITEMS, flagship.SEQ, 1, EVAL_ROWS)
+    gpu_res, got, eval_s = counted(counters, lambda: model.evaluate(loader))
+    expect_launches("the E = 448 evaluation", got, ce_rank=1)
+    add(got)
+    cpu_model = flagship.build_model("cpu", seed=0, dropout=0.0, item_dim=e)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_res = cpu_model.evaluate(loader)
+    print(f"[wide-flagship] evaluate {eval_s:.3f}s cuda {json.dumps(gpu_res)} "
+          f"cpu {json.dumps(cpu_res)}")
+    check_evaluate(gpu_res, cpu_res, EVAL_ROWS)
+    step, got, _ = counted(counters, lambda: check_training_step(model, cpu_model, loader[0]))
+    expect_launches("the E = 448 training step", got, ce_fwd=1, ce_bwd=1)
+    add(got)
+    print(f"[wide-flagship] train-step {json.dumps(step)}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    steps = 8
+    data = synthetic_data(flagship.schema(), num_rows=steps * flagship.BATCH,
+                          max_session_length=flagship.SEQ, seed=600)
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data, item_dim=e)
+    trainer.args.max_steps, trainer.args.logging_steps = steps, steps
+    metrics, got, wall = counted(counters, trainer.train)
+    expect_launches("the E = 448 trainer", got, ce_fwd=steps, ce_bwd=steps)
+    add(got)
+    table = trainer.model.heads[0].input_module.item_embedding_table()
+    if metrics["train_steps"] != steps or not math.isfinite(metrics["train_loss"]) \
+            or not bool(torch.isfinite(table).all()):
+        fail(f"the E = 448 trainer: {metrics}")
+    res = {"E": e, "evaluate": gpu_res, "train_step": step, "train_steps": steps,
+           "train_wall_s": wall, "ms_per_step": 1e3 * wall / steps,
+           "mean_loss": metrics["train_loss"], "launches": launches}
+    print(f"[wide-flagship] trainer on {card}: {json.dumps({k: res[k] for k in ('ms_per_step', 'mean_loss', 'launches')})}")
+    del trainer
+    torch.cuda.empty_cache()
+    return res
 
 
 # ------------------------------------------------------------------ evaluate
@@ -1249,7 +1374,8 @@ def bound(nbytes: int, flops: int, exps: int = 0, f32_flops: int = 0) -> dict:
             "bytes_ms": bytes_ms, "tensor_ms": tensor_ms, "exp_ms": exp_ms, "f32_ms": f32_ms}
 
 
-def time_ce_train(vocab, n: int, rows: int, vocab_size: int, chunk_rows: int = 0) -> dict:
+def time_ce_train(vocab, n: int, rows: int, vocab_size: int, chunk_rows: int = 0,
+                  e: int = 64) -> dict:
     """K1 and K2 at a training shape beside their plain versions and a
     library yardstick that materialises the logits (bf16 products through
     torch.matmul; never used by the port). Without ``chunk_rows`` the
@@ -1258,7 +1384,7 @@ def time_ce_train(vocab, n: int, rows: int, vocab_size: int, chunk_rows: int = 0
     on ``chunk_rows`` rows at a time, dW summed over the chunks in f32, and
     the time goes under ``library_chunked_ms``: no single call fits at that
     size, so ``library_ms`` is None."""
-    x, W, labels, w = ce_train_inputs(n, rows, vocab_size, 1, False, "cuda")
+    x, W, labels, w = ce_train_inputs(n, rows, vocab_size, 1, False, "cuda", e)
     E = x.shape[1]
     coef = (w / w.sum()).contiguous()
     lse, _, _ = vocab.ce_fwd(x, W, labels, vocab_size)
@@ -1315,13 +1441,15 @@ def time_ce_train(vocab, n: int, rows: int, vocab_size: int, chunk_rows: int = 0
         **bound(4 * (n * E + vocab_size * E + 3 * n) + 4 * (n * E + rows * E),
                 3 * 2 * n * E * vocab_size, n * vocab_size),
     }
+    # K2's wide passes form the residual once for every 128 columns of E
+    bwd["recompute"] = vocab.ce_plan(n, E, vocab_size, rows, 1, True).e_splits
     for r in (fwd, bwd):
-        r["N"] = n
+        r["N"], r["E"] = n, E
     return {"ce_fwd": fwd, "ce_bwd": bwd}
 
 
-def time_ce_rank(vocab, n: int, rows: int, vocab_size: int) -> dict:
-    x, W, labels = ce_rank_inputs(n, rows, vocab_size, 64, 4.0, 12.0, 1, "cuda")
+def time_ce_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64) -> dict:
+    x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, 4.0, 12.0, 1, "cuda")
     ll = vocab.label_logits(x, W, labels)
     xb16 = x.to(torch.bfloat16)
     Wb16 = W[:vocab_size].to(torch.bfloat16)  # cast once, outside the timed call
@@ -1338,17 +1466,17 @@ def time_ce_rank(vocab, n: int, rows: int, vocab_size: int) -> dict:
     # write lse and rank once; 2·N·E·V operations of the product and N·V
     # exponentials
     return {
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "N": n, "E": E,
         **bound(4 * (n * E + vocab_size * E + 2 * n) + 4 * 2 * n, 2 * n * E * vocab_size,
                 n * vocab_size),
     }
 
 
-def time_rank(vocab, n: int, rows: int, vocab_size: int) -> dict:
+def time_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64) -> dict:
     """K4 at the evaluation shape beside its plain version and the library
     yardstick: a bf16 ``torch.matmul`` that materialises the (N, V) logits,
     then a ``>`` count."""
-    x, W, labels = ce_rank_inputs(n, rows, vocab_size, 64, 4.0, 12.0, 1, "cuda")
+    x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, 4.0, 12.0, 1, "cuda")
     ll = vocab.label_logits(x, W, labels)
     xb16 = x.to(torch.bfloat16)
     Wb16 = W[:vocab_size].to(torch.bfloat16)  # cast once, outside the timed call
@@ -1360,7 +1488,7 @@ def time_rank(vocab, n: int, rows: int, vocab_size: int) -> dict:
     return {
         "ms": cuda_ms(lambda: vocab.rank_counts(x, W, ll, labels, vocab_size)),
         "plain_ms": cuda_ms(lambda: vocab.rank_counts_plain(x, W, ll, labels, vocab_size)),
-        "library_ms": cuda_ms(library),
+        "library_ms": cuda_ms(library), "N": n, "E": E,
         # read x, the vocab_size used rows of W, labels and ll once, write the
         # counts once; 2·N·E·V operations of the product
         **bound(4 * (n * E + vocab_size * E + 2 * n) + 4 * n, 2 * n * E * vocab_size),
@@ -1500,12 +1628,41 @@ def time_ce_kernels(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def time_flash_kernels(card: str) -> None:
+    """K5 and K6a alone at the CLM path's shape (32, 256, 16, 12) with
+    ragged padding and at (4, 2048, 8, Dh) for Dh = 64 and, where the two
+    designs meet, at (32, 256, 16, Dh) for Dh = 32 and 48 and at
+    (4, 2048, 8, Dh) for Dh = 32, 48 and 128, all causal: each held against its plain
+    version (``check_flash``) and timed in both designs beside
+    ``scaled_dot_product_attention`` (``time_flash``): the quick loop for
+    work on them, and the times that ``ops/attention.py:uses_wgmma`` keeps."""
+    from transformers4rec_tpu_torch.ops import build
+
+    build.build(["flash_fwd", "flash_bwd"])
+    for name, dims, ragged, seed in (("main", (32, 256, 16, 12), True, 21),
+                                     ("long", (4, 2048, 8, 64), False, 23),
+                                     ("main_dh32", (32, 256, 16, 32), True, 28),
+                                     ("main_dh48", (32, 256, 16, 48), True, 29),
+                                     ("long_dh32", (4, 2048, 8, 32), False, 25),
+                                     ("long_dh48", (4, 2048, 8, 48), False, 26),
+                                     ("long_dh128", (4, 2048, 8, 128), False, 27)):
+        check_flash(name, *dims, True, seed, ragged=ragged)
+        timing = time_flash(name, *dims, True, ragged, 30)
+        keep = ("ms", "bound_ms", "library_ms", "design", "designs_ms")
+        print(f"[time-flash] {name} {dims} on {card}: "
+              f"{json.dumps({k: {f: v[f] for f in keep if f in v} for k, v in timing.items()})}",
+              flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs an NVIDIA GPU")
     import_port()
     if sys.argv[1:] == ["--time-ce"]:
         time_ce_kernels(card_line())
+        return
+    if sys.argv[1:] == ["--time-flash"]:
+        time_flash_kernels(card_line())
         return
     if sys.argv[1:2] in (["--profile-train"], ["--profile-train-streamed"],
                          ["--profile-train-clm"]) and len(sys.argv) <= 3:
@@ -1578,6 +1735,11 @@ def main() -> None:
     train_checks.append(check_ce_train("long_step", long_rows, table_rows, vocab_size, 0.0, None,
                                        False, 14))
     torch.cuda.empty_cache()
+    wide_checks = check_wide_tables()
+    train_checks += wide_checks["ce"]
+    checks += wide_checks["ce_rank"]
+    rank_checks += wide_checks["rank"]
+    torch.cuda.empty_cache()
     head_dim = flagship.D_MODEL // flagship.N_HEAD
     # main and long_step are the shapes of main paths 6 and 7; long is a shape
     # that the tensor cores bound, on no main path
@@ -1642,6 +1804,9 @@ def main() -> None:
     print(f"[train-streamed] {json.dumps({k: streamed[k] for k in summary})}")
     check_streamed_step(flagship)
     torch.cuda.empty_cache()
+
+    # ---- main path 5b: XLNet-MLM at the paper's tied width, E = 448
+    wide = run_wide_flagship(flagship, vocab, card)
     # sessions of 20 (21 at inference) stay on the dense attention path
     stray = {name: flash[name].launches
              for name in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")}
@@ -1666,6 +1831,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     clm_timing = time_ce_train(vocab, clm_rows, table_rows, vocab_size, chunk_rows=1024)
     long_timing = time_ce_train(vocab, long_rows, table_rows, vocab_size, chunk_rows=1024)
+    torch.cuda.empty_cache()
+    # the wide kernels at the paper's E = 448: training at the flagship's 915
+    # loss rows and at 8,192, evaluation at 128 rows
+    wide_e = flagship.PAPER_ITEM_DIM
+    wide_timing = {
+        "train": time_ce_train(vocab, train_rows, table_rows, vocab_size, e=wide_e),
+        "clm": time_ce_train(vocab, clm_rows, table_rows, vocab_size, chunk_rows=1024, e=wide_e),
+        "ce_rank": time_ce_rank(vocab, EVAL_ROWS, table_rows, vocab_size, e=wide_e),
+        "rank": time_rank(vocab, EVAL_ROWS, table_rows, vocab_size, e=wide_e)}
+    print(f"[timing] the wide kernels at E={wide_e}, V={vocab_size} on {card}: "
+          f"{json.dumps(wide_timing)}; recompute is how often K2 forms each residual")
     print(f"[timing] ce_fwd and ce_bwd at N={clm_rows} and N={long_rows}, E=64, V={vocab_size} "
           f"on {card}: {json.dumps([clm_timing, long_timing])}; library_chunked_ms is the "
           "N=915 yardstick run on 1,024 rows at a time (the whole logits would not fit)")
@@ -1684,10 +1860,24 @@ def main() -> None:
     # at S = 4,096
     timing.update({name: flash_timing["main" if name in ("flash_fwd", "flash_bwd_fused")
                                       else "long_step"][name] for name in flash_timing["main"]})
-    # the other shapes at which a main path launches a kernel
-    also = {"ce_fwd": [clm_timing["ce_fwd"], long_timing["ce_fwd"]],
-            "ce_bwd": [clm_timing["ce_bwd"], long_timing["ce_bwd"]],
-            "flash_fwd": [flash_timing["long_step"]["flash_fwd"]]}
+    # the kernel at other shapes: those at which a main path launches it
+    # ("main_path": true) and those that no main path gives it (false): K1
+    # and K2 at E = 448 with 8,192 rows, K4 at E = 448, K5 and K6a at
+    # (4, 2048, 8, 64)
+    def on(t, main_path):
+        return {**t, "main_path": main_path}
+
+    also = {"ce_fwd": [on(clm_timing["ce_fwd"], True), on(long_timing["ce_fwd"], True),
+                       on(wide_timing["train"]["ce_fwd"], True),
+                       on(wide_timing["clm"]["ce_fwd"], False)],
+            "ce_bwd": [on(clm_timing["ce_bwd"], True), on(long_timing["ce_bwd"], True),
+                       on(wide_timing["train"]["ce_bwd"], True),
+                       on(wide_timing["clm"]["ce_bwd"], False)],
+            "ce_rank": [on(wide_timing["ce_rank"], True)],
+            "rank": [on(wide_timing["rank"], False)],
+            "flash_fwd": [on(flash_timing["long_step"]["flash_fwd"], True),
+                          on(flash_timing["long"]["flash_fwd"], False)],
+            "flash_bwd_fused": [on(flash_timing["long"]["flash_bwd_fused"], False)]}
     clm_step_ms = clm["one_batch_repeated"]["ms_per_step"]
     attn_ms = flagship.N_LAYER * (flash_timing["main"]["flash_fwd"]["ms"]
                                   + flash_timing["main"]["flash_bwd_fused"]["ms"])
@@ -1724,10 +1914,10 @@ def main() -> None:
                "flash_bwd_dq": ("flash_bwd.cu", f"{attention_py}:158"),
                "flash_bwd_dkv": ("flash_bwd.cu", f"{attention_py}:217")}
     launches = {"ce_rank": eval_launches["ce_rank"] + serve["launches"]["ce_rank"]
-                + parallel["launches"]["ce_rank"]}
+                + parallel["launches"]["ce_rank"] + wide["launches"]["ce_rank"]}
     for name in ("ce_fwd", "ce_bwd", "adafactor_a", "adafactor_b"):
         launches[name] = (train["launches"][name] + streamed["launches"][name]
-                          + parallel["launches"].get(name, 0))
+                          + parallel["launches"].get(name, 0) + wide["launches"].get(name, 0))
     launches["rank"] = parallel["launches"]["rank"]
     # paths 6 and 7: every kernel of the CLM paths
     for name in flash:
@@ -1752,8 +1942,11 @@ def main() -> None:
         "replaces": replaces,
         "launches": launches[name],
         "max_abs_err": errors[name],
-        **{k: timing[name][k] for k in TIMING_KEYS + ("N", "shape") if k in timing[name]},
-        "also_at": [{k: t[k] for k in t if k in TIMING_KEYS + ("N", "shape", "library_chunked_ms")}
+        **{k: timing[name][k] for k in TIMING_KEYS + ("N", "E", "shape", "design", "designs_ms")
+           if k in timing[name]},
+        "also_at": [{k: t[k] for k in t
+                     if k in TIMING_KEYS + ("N", "E", "shape", "library_chunked_ms", "recompute",
+                                            "design", "designs_ms", "main_path")}
                     for t in also.get(name, [])],
     } for name, (source, replaces) in sources.items()]
     if any(k["launches"] < 1 for k in kernels):

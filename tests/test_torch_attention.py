@@ -195,6 +195,17 @@ def test_backward_routes_by_the_size_of_the_dq_partials(monkeypatch):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("head_dim,wgmma", [
+    (12, False),   # the CLM path: the mma.sync kernels are faster there
+    (32, False),   # and at (32, 256, 16, 32)
+    (33, True),
+    (64, True),    # the Hopper designs: about 2x faster at (4, 2048, 8, 64)
+    (128, False),  # K6a's Hopper consumers would not hold dk and dv of 128 values
+])
+def test_each_head_dim_takes_the_design_its_times_chose(head_dim, wgmma):
+    assert attn.uses_wgmma(head_dim) == wgmma
+
+
 def test_cuda_tensors_never_take_the_plain_versions(monkeypatch):
     """A CPU tensor is the only way to the plain versions: anything else goes
     to the kernel launchers (which raise without a card)."""

@@ -258,8 +258,9 @@ def test_fused_softmax_ce_on_the_card_matches_the_cpu(dev):
 
 
 def test_ce_bwd_kernel_rejects_what_it_does_not_take(dev):
-    x, W, labels, w = _ce_inputs(8, 256, 512, 500, 7, dev)
-    lse, _, _ = vocab.ce_fwd(x, W, labels, 500)  # the forward takes E = 256
+    x, W, labels, w = _ce_inputs(8, 64, 512, 500, 7, dev)
+    lse, _, _ = vocab.ce_fwd(x, W, labels, 500)
+    x, W = x[:, :62].contiguous(), W[:, :62].contiguous()
     with pytest.raises(ValueError, match="E a multiple of 4"):
         vocab.ce_bwd(x, W, labels, lse, w, 500)
     with pytest.raises(TypeError):
@@ -267,12 +268,13 @@ def test_ce_bwd_kernel_rejects_what_it_does_not_take(dev):
 
 
 # ------------------------------------------------- labels on padding rows
+@pytest.mark.parametrize("e", [64, 448])  # the narrow kernels, and the wide ones
 @pytest.mark.parametrize("eps", [0.0, 0.1])
-def test_a_label_on_a_padding_row_matches_plain_in_k1_k2_k3(dev, eps):
+def test_a_label_on_a_padding_row_matches_plain_in_k1_k2_k3(dev, eps, e):
     """``vocab_size <= label < rows``: the masked label logit -1e30 in K1, the
     one-hot in K2's dx and on that row of dW; K3 takes the gathered logit."""
     n, rows, vocab_size = 300, 5000, 4930  # padding rows inside and beyond the last chunk
-    x, W, labels, w = _ce_inputs(n, 64, rows, vocab_size, 21, dev)
+    x, W, labels, w = _ce_inputs(n, e, rows, vocab_size, 21, dev)
     labels[:4] = torch.tensor([4930, 4931, 4990, 4999], dtype=torch.int32, device=dev)
     w[:4] = 1.0
     lse, ll, zs = vocab.ce_fwd(x, W, labels, vocab_size, smooth=eps > 0)
@@ -435,7 +437,18 @@ FLASH_SHAPES = {
     # 64 tiles a side with the head dim padded from 12 to 16: the step at
     # S = 4,096, where the backward takes K6b and K6c
     "dh12_64_tiles": (1, 4096, 4, 12, True, True, 0, None),
+    # each head dim of the two designs, causal with ragged padding and a
+    # (1, H, S, S) bias, and plain
+    "dh12_causal_ragged_bias_1_H": (3, 300, 4, 12, True, True, 1, (1, 4)),
+    "dh12": (2, 256, 4, 12, False, False, 0, None),
+    "dh64_causal_ragged_bias_1_H": (2, 333, 3, 64, True, True, 1, (1, 3)),
+    "dh64": (2, 256, 2, 64, False, True, 0, None),
+    "dh128_causal_ragged_bias_1_H": (2, 200, 2, 128, True, True, 0, (1, 2)),
+    "dh128": (1, 384, 2, 128, False, False, 0, None),
 }
+# K5 and K6a in either design (wgmma: the Hopper kernels; the head dim is
+# padded to 64 there, and K6a's takes head dims up to 64)
+DESIGNS = {"mma_sync": False, "wgmma": True}
 
 
 def _flash_inputs(shape, dev):
@@ -459,15 +472,24 @@ def _close_grad(got, want):
     return float(err) <= 2e-2 and float((got - want).norm() / want.norm()) <= 1e-3
 
 
+@pytest.mark.parametrize("design", DESIGNS)
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
-def test_flash_forward_kernel_matches_plain(dev, shape):
+def test_flash_forward_kernel_matches_plain(dev, shape, design):
     q, k, v, _, bias, pad, causal = _flash_inputs(shape, dev)
     before = attn.flash_fwd.launches
-    out, lse = attn.flash_fwd(q, k, v, bias, pad, causal)
-    again = attn.flash_fwd(q, k, v, bias, pad, causal)
+    out, lse = attn._flash_fwd_cuda(q, k, v, bias, pad, causal, wgmma=DESIGNS[design])
+    again = attn._flash_fwd_cuda(q, k, v, bias, pad, causal, wgmma=DESIGNS[design])
     torch.cuda.synchronize()
     assert attn.flash_fwd.launches == before + 2
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    masked = _assert_forward_matches_plain(q, k, v, bias, pad, causal, out, lse)
+    if FLASH_SHAPES[shape][6]:
+        assert int(masked.sum()) >= q.shape[1] * q.shape[2]
+
+
+def _assert_forward_matches_plain(q, k, v, bias, pad, causal, out, lse):
+    """K5's output and lse against the plain version's; returns the mask of
+    the rows with no valid key."""
     out_p, lse_p = attn.flash_forward_plain(q, k, v, bias, pad, causal)
     masked = lse_p == attn.LSE_MASKED
     assert float((out - out_p).abs().max()) <= 5e-3
@@ -476,32 +498,37 @@ def test_flash_forward_kernel_matches_plain(dev, shape):
     assert float((lse - lse_p)[~masked].abs().max()) <= 1e-4
     B, S, H, _ = q.shape
     assert bool((out[masked.reshape(B, H, S).permute(0, 2, 1)] == 0).all())
-    if FLASH_SHAPES[shape][6]:
-        assert int(masked.sum()) >= S * H
+    return masked
 
 
-@pytest.mark.parametrize("shape", FLASH_SHAPES)
-def test_flash_backward_kernels_match_plain(dev, shape):
+@pytest.mark.parametrize("shape,design", [
+    (s, d) for s in FLASH_SHAPES for d in DESIGNS if d == "mma_sync" or FLASH_SHAPES[s][3] <= 64])
+def test_flash_backward_kernels_match_plain(dev, shape, design):
     q, k, v, g, bias, pad, causal = _flash_inputs(shape, dev)
     out, lse = attn.flash_forward_plain(q, k, v, bias, pad, causal)
     delta = attn.row_delta(g, out)
     args = (q, k, v, g, lse, delta, bias, pad, causal)
     counts = (attn.flash_bwd_fused.launches, attn.flash_bwd_dq.launches,
               attn.flash_bwd_dkv.launches)
-    fused = attn.flash_bwd_fused(*args)
+    fused = attn._flash_bwd_fused_cuda(*args, wgmma=DESIGNS[design])
     split = (attn.flash_bwd_dq(*args), *attn.flash_bwd_dkv(*args))
-    again = attn.flash_bwd_fused(*args) + (attn.flash_bwd_dq(*args), *attn.flash_bwd_dkv(*args))
+    again = (attn._flash_bwd_fused_cuda(*args, wgmma=DESIGNS[design])
+             + (attn.flash_bwd_dq(*args), *attn.flash_bwd_dkv(*args)))
+    # K6a's mma.sync design, held below to the same sums as K6b + K6c
+    mma = attn._flash_bwd_fused_cuda(*args, wgmma=False) if DESIGNS[design] else fused
     torch.cuda.synchronize()
     assert (attn.flash_bwd_fused.launches, attn.flash_bwd_dq.launches,
-            attn.flash_bwd_dkv.launches) == tuple(c + 2 for c in counts)
+            attn.flash_bwd_dkv.launches) == (counts[0] + 2 + (mma is not fused), counts[1] + 2,
+                                             counts[2] + 2)
     assert all(torch.equal(a, b) for a, b in zip(fused + split, again))
     want_fused = attn.flash_backward_plain(q, k, v, bias, pad, causal, out, lse, g, True)
     want_split = attn.flash_backward_plain(q, k, v, bias, pad, causal, out, lse, g, False)
     for got, want in zip(fused + split, want_fused + want_split):
         assert torch.isfinite(got).all() and _close_grad(got, want)
-    # K6a against K6b + K6c: the same dk and dv, dq in another order of sums
-    assert float((fused[0] - split[0]).abs().max() / split[0].abs().max()) <= 1e-5
-    for a, b in zip(fused[1:], split[1:]):
+    # K6a (mma.sync) against K6b + K6c: the same dk and dv, dq in another
+    # order of sums
+    assert float((mma[0] - split[0]).abs().max() / split[0].abs().max()) <= 1e-5
+    for a, b in zip(mma[1:], split[1:]):
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-6
 
 
@@ -559,3 +586,79 @@ def test_flash_kernels_reject_what_they_do_not_take(dev, bad):
         else:
             attn.flash_fwd(q, k, v, bias, pad)
             attn.flash_bwd_dq(q, k, v, g, rows, rows, bias, pad)
+
+
+# -------------------------------------------------- wide item tables (E > 256)
+# 192 trains through K2's wide passes and evaluates on the narrow K1, K3 and
+# K4; 448 is the paper's tied width; 512 the widest resident x tile; 1,000 is
+# off every slab and too wide for a resident x tile
+WIDE_E = [192, 448, 512, 1000]
+
+
+@pytest.mark.parametrize("smooth", [False, True])
+@pytest.mark.parametrize("e", WIDE_E)
+def test_wide_tables_k1_k2_k3_k4_match_plain(dev, e, smooth):
+    """K1, K2, K3 and K4 against their plain versions at a width the narrow
+    kernels do not hold whole, with the tolerances of the narrow ones, and the
+    same bits from a second call of each."""
+    n, rows, vocab_size = 300, 3000, 2999
+    eps = 0.1 if smooth else 0.0
+    x, W, labels, w = _ce_inputs(n, e, rows, vocab_size, e + int(smooth), dev)
+    lse, ll, zs = vocab.ce_fwd(x, W, labels, vocab_size, smooth=smooth)
+    lse_p, ll_p, zs_p = vocab.ce_fwd_plain(x, W, labels, vocab_size, smooth)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(ll, ll_p, rtol=1e-5, atol=1e-6)
+    if smooth:
+        scale = zs_p.abs().clamp_min(math.sqrt(vocab_size))
+        assert float(((zs - zs_p).abs() / scale).max()) <= 1e-5
+    coef = (w / w.sum()).contiguous()
+    dx, dW = vocab.ce_bwd(x, W, labels, lse_p, coef, vocab_size, eps)
+    dx_p, dW_p = vocab.ce_bwd_plain(x, W, labels, lse_p, coef, vocab_size, eps)
+    _assert_grad_close(dx, dx_p, "dx")
+    _assert_grad_close(dW, dW_p, "dW")
+    assert bool((dW[vocab_size:] == 0).all()) and bool((dx[w == 0] == 0).all())
+    gathered = vocab.label_logits(x, W, labels)
+    lse3, rank, zs3 = vocab.ce_rank(x, W, labels, gathered, vocab_size, smooth=smooth)
+    lse3_p, rank_p, zs3_p = vocab.ce_rank_plain(x, W, labels, gathered, vocab_size, smooth)
+    torch.testing.assert_close(lse3, lse3_p, rtol=1e-5, atol=0)
+    assert int((rank.long() - rank_p.long()).abs().max()) <= 1
+    if smooth:
+        assert float(((zs3 - zs3_p).abs() / scale).max()) <= 1e-5
+    cnt = vocab.rank_counts(x, W, gathered, labels, vocab_size)
+    cnt_p = vocab.rank_counts_plain(x, W, gathered, labels, vocab_size)
+    assert int((cnt.long() - cnt_p.long()).abs().max()) <= 1
+    again = (*vocab.ce_fwd(x, W, labels, vocab_size, smooth=smooth),
+             *vocab.ce_bwd(x, W, labels, lse_p, coef, vocab_size, eps),
+             *vocab.ce_rank(x, W, labels, gathered, vocab_size, smooth=smooth),
+             vocab.rank_counts(x, W, gathered, labels, vocab_size))
+    first = (lse, ll, zs, dx, dW, lse3, rank, zs3, cnt)
+    for a, b in zip(first, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_wide_table_on_two_shards_matches_the_whole_table(dev):
+    """The paper's width cut into two shards of one process: K1, K2 and K4
+    per shard with ``eps_over_v``, merged, against the unsharded kernels."""
+    from transformers4rec_tpu_torch.parallel import (
+        shard_table, sharded_ce_and_rank, sharded_softmax_ce)
+
+    n, rows, vocab_size, e, eps = 300, 4000, 3993, 448, 0.1
+    x, W, labels, w = _ce_inputs(n, e, rows, vocab_size, 24, dev)
+    labels = torch.where(labels < 0, torch.ones_like(labels), labels)
+    xs = x.clone().requires_grad_()
+    shards = [shard_table(W, i, 2).clone().requires_grad_() for i in range(2)]
+    loss = sharded_softmax_ce(xs, shards, labels, w, None, vocab_size=vocab_size,
+                              label_smoothing=eps)
+    loss.backward()
+    eval_loss, ranks = sharded_ce_and_rank(x, [t.detach() for t in shards], labels, w, None,
+                                           vocab_size=vocab_size, label_smoothing=eps)
+    xu, Wu = x.clone().requires_grad_(), W.clone().requires_grad_()
+    want = vocab.fused_softmax_ce(xu, Wu, labels, w, vocab_size=vocab_size, label_smoothing=eps)
+    want.backward()
+    want_eval, want_ranks = vocab.fused_ce_and_rank(x, W, labels, w, vocab_size=vocab_size,
+                                                    label_smoothing=eps)
+    torch.testing.assert_close(loss.detach(), want.detach(), rtol=1e-5, atol=0)
+    torch.testing.assert_close(eval_loss, want_eval, rtol=1e-5, atol=0)
+    _assert_grad_close(xs.grad, xu.grad, "dx")
+    _assert_grad_close(torch.cat([t.grad for t in shards]), Wu.grad, "dW")
+    assert int((ranks.long() - want_ranks.long()).abs().max()) <= 1

@@ -157,11 +157,12 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     vocab.ce_bwd(meta, meta, meta, meta, meta, 4)
     assert called == ["fwd", "bwd"]
     assert vocab.ce_fwd.launches == 0 and vocab.ce_bwd.launches == 0
-    # wider than the backward kernel takes: refused before anything is launched
-    wide = torch.empty(4, 256, device="meta")
-    with pytest.raises(ValueError, match="E up to 128"):
-        vocab.fused_softmax_ce(wide, wide, meta[:, 0], meta[:, 0])
-    assert called == ["fwd", "bwd"]
+    # a table wider than the narrow kernels hold goes to the launchers too
+    # (their wide kernels), never to the plain versions
+    wide = torch.empty(4, 448, device="meta")
+    vocab.ce_fwd(wide, wide, meta, 4)
+    vocab.ce_bwd(wide, wide, meta, meta, meta, 4)
+    assert called == ["fwd", "bwd", "fwd", "bwd"]
 
 
 # ------------------------------------- the kernels' launch plan and image layout
@@ -216,7 +217,10 @@ def test_ce_plan_pads_e_to_the_swizzle_width(e, ek):
     assert vocab.ce_plan(37, e, 1000, 1008, SMS, False).ek == ek
 
 
-@pytest.mark.parametrize("rows,ek", [(1, 64), (130, 64), (300, 128), (128, 256)])
+@pytest.mark.parametrize("rows,ek", [(1, 64), (130, 64), (300, 128), (128, 256),
+                                     # the wide kernels' widths: E = 448 forward and
+                                     # backward, 1,000 and 2,048
+                                     (129, 448), (5, 512), (200, 1024), (128, 2048)])
 def test_swizzled_image_index_is_a_permutation(rows, ek):
     """The image layout of the kernels (``image_offset`` in csrc/hopper.cuh)
     puts every element of the padded matrix at its own place, keeps each
@@ -232,3 +236,83 @@ def test_swizzled_image_index_is_a_permutation(rows, ek):
     j = torch.arange(ek // 8)[None, :]
     row_start = (r // 128) * 128 * ek + (j // 8) * 128 * 64 + (r % 128) * 64
     assert torch.equal(pieces[..., 0], row_start + ((j % 8) ^ (r % 8)) * 8)
+
+
+# ------------------------------------------------ wide item tables (E > 256)
+MAX_SMEM = 232448  # dynamic shared memory a block may ask for (csrc/hopper.cuh)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4"])
+@pytest.mark.parametrize("e", [192, 448, 1000, 2048])
+@pytest.mark.parametrize("n", [128, 915, 8192])
+def test_ce_plan_takes_every_width(n, e, kernel):
+    """The one launch plan at widths beyond the narrow kernels: K1, K3 and
+    K4 past 256 and K2 past 128 take the wide kernels, whose images are E
+    rounded up to one slab (forward) or two (K2, whose blocks own 128
+    columns each), walked in ceil(E / 64) slabs, over 128-column chunks that
+    the splits cover once; a resident x tile fits with a ring of 6 slots;
+    the scratch stays within the narrow plan's cap."""
+    backward = kernel == "k2"
+    chunk_cols = 64 if kernel in ("k3", "k4") else vocab.CE_TILE  # the narrow K3/K4 chunk
+    vocab_size, table_rows = 390_001, 390_008
+    plan = vocab.ce_plan(n, e, vocab_size, table_rows, SMS, backward, chunk_cols)
+    wide = e > (128 if backward else 256)
+    assert plan.wide == wide
+    assert plan.ek % 64 == 0 and plan.ek >= e and plan.slabs * 64 >= e
+    if not wide:
+        assert plan.ek == 256 and plan.slabs == 4 and plan.e_splits == 1 and plan.resident
+    elif backward:
+        assert plan.ek % 128 == 0 and plan.ek - e < 128 and plan.e_splits == plan.ek // 128
+        assert plan.slabs == -(-e // 64) and not plan.resident
+        # the dW pass writes every column of E once: 128 columns a block
+        assert sorted(c for j in range(plan.e_splits) for c in range(128 * j, 128 * j + 128)
+                      if c < e) == list(range(e))
+    else:
+        assert plan.ek - e < 64 and plan.slabs == plan.ek // 64 and plan.e_splits == 1
+        assert plan.resident == (plan.slabs <= vocab.RESIDENT_SLABS)
+    if wide:  # K1's 128-column chunks, whatever the narrow K3/K4 chunk
+        assert plan.chunks * 128 >= vocab_size > (plan.chunks - 1) * 128
+    cps = plan.chunks_per_split
+    ranges = [(s * cps, min((s + 1) * cps, plan.chunks)) for s in range(plan.splits)]
+    assert [c for b, end in ranges for c in range(b, end)] == list(range(plan.chunks))
+    assert plan.row_tiles * plan.splits <= max(2 * SMS, plan.row_tiles)
+    # a resident tile of RESIDENT_SLABS beside 6 slots of one slab, and 6
+    # slots of K2's two slabs and row table, fit in a block's shared memory
+    slab = 128 * 128
+    assert 1024 + (vocab.RESIDENT_SLABS + 6) * slab + 8 * 13 <= MAX_SMEM
+    assert 1024 + 6 * (2 * slab + 128 * 16) + 8 * 13 <= MAX_SMEM
+    scratch = plan.scratch("meta", smooth=True)
+    tile = vocab.CE_TILE
+    cap_rows = n + tile - 1 + (table_rows if backward else vocab_size) + tile - 1
+    image_bytes = scratch["ximg"].nbytes + scratch["wimg"].nbytes
+    assert image_bytes <= cap_rows * plan.ek * 2
+    per_row = (e * 4 + 16) if backward else 20
+    partial_bytes = sum(t.nbytes for k, t in scratch.items() if k not in ("ximg", "wimg"))
+    assert partial_bytes <= max(2 * SMS * tile, n) * per_row + tile * 16
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_fused_softmax_ce_at_the_papers_width_matches_jax(eps):
+    """E = 448, the paper's tied width: the port's plain K1/K2 (what a CPU
+    tensor takes) against the JAX scan, loss and both gradients."""
+    rng = np.random.default_rng(448)
+    n, rows, vocab_size, e = 61, 1008, 1001, 448
+    x = rng.normal(0.0, 1.0, (n, e)).astype(np.float32)
+    W = rng.normal(0.0, 0.05, (rows, e)).astype(np.float32)
+    labels = rng.integers(0, vocab_size, n).astype(np.int32)
+    weights = (rng.random(n) > 0.3).astype(np.float32)
+
+    def jax_loss(xx, ww):
+        return jax_vocab.fused_softmax_ce(xx, ww, jnp.asarray(labels), jnp.asarray(weights),
+                                          use_pallas=False, vocab_size=vocab_size,
+                                          label_smoothing=eps)
+
+    want, (want_dx, want_dW) = jax.value_and_grad(jax_loss, argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(W))
+    xt, Wt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(W).requires_grad_()
+    got = vocab.fused_softmax_ce(xt, Wt, torch.from_numpy(labels), torch.from_numpy(weights),
+                                 vocab_size=vocab_size, label_smoothing=eps)
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+    assert _rel_fro(xt.grad.numpy(), np.asarray(want_dx)) <= 1e-3
+    assert _rel_fro(Wt.grad.numpy(), np.asarray(want_dW)) <= 1e-3

@@ -68,6 +68,19 @@
 // with its residual needs a second accumulator, which the 168 registers a
 // thread of a 384-thread block gets do not hold. No atomics: the same bits
 // on every call.
+//
+// Wider tables (E > 128). A 128-row dW tile at E = 448 is 224 KB of f32,
+// more than a block's registers, so each block of the wide dW pass owns a
+// (table tile, 128 columns of E) of dW and each block of the wide dx pass a
+// (row tile, split, 128 columns of E) of dx. Each recomputes the full-E
+// logits, slab by slab (logit_slabs, hopper.cuh), from a ring of 34 KB slots
+// that carries both operands' slabs; the last slot of each step carries the
+// two slabs of the other operand that its 128 output columns need (and, for
+// dW, the row table), which the second product reads MN-major. So the
+// residual is formed ceil(E / 128) times (4 at E = 448): the recompute
+// factor. Images are E rounded up to 128 wide; the logits walk only the
+// slabs that hold E. Deterministic, no atomics; the reduce is the narrow
+// pass's.
 
 #include "hopper.cuh"
 
@@ -331,6 +344,176 @@ ce_bwd_dx_kernel(const uint8_t* __restrict__ ximg, const uint8_t* __restrict__ w
   }
 }
 
+// ------------------------------------------------------------- wide tables
+constexpr int WIDE_STAGES = 6;
+constexpr int WIDE_SLOT = 2 * SLAB_BYTES + INFO_BYTES;  // 34 KB, a multiple of 1,024
+
+// The residual's A fragments times the 128 output columns of the step's
+// last slot (two slabs, MN-major) into out.
+__device__ __forceinline__ void second_product(float (&out)[64], const uint32_t (&a)[8][4],
+                                               uint32_t slot) {
+  wgmma_fence();
+  fence_regs(out);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) wgmma_rs<128>(out, a[k], mnmajor_desc(slot, k));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(out);
+}
+
+// One block per (table tile, 128 columns of E): blockIdx.x, blockIdx.y.
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+ce_bwd_dw_wide_kernel(const uint8_t* __restrict__ ximg, const uint8_t* __restrict__ wimg,
+                      const float4* __restrict__ info, int row_tiles, int E, int V, int Vp,
+                      int ek, int slabs, float eov, float one_minus_eps, float* __restrict__ dW) {
+  extern __shared__ uint8_t smem_raw[];
+  const DynRing r(smem_raw, 0, WIDE_STAGES, WIDE_SLOT);
+  const int c = blockIdx.x, js = blockIdx.y;
+  const size_t tile_bytes = (size_t)TILE * ek * 2;
+  const int per = slabs + 1;  // items per x tile
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    const uint8_t* wt = wimg + (size_t)c * tile_bytes;
+    r.produce(nullptr, row_tiles * per, [&](int i, uint8_t* slot, uint64_t* bar) {
+      const int t = i / per, s = i - t * per;
+      const uint8_t* xt = ximg + (size_t)t * tile_bytes;
+      if (s < slabs) {  // [W_c slab s | x_t slab s]
+        mbar_expect_tx(bar, 2 * SLAB_BYTES);
+        bulk_load(slot, wt + (size_t)s * SLAB_BYTES, SLAB_BYTES, bar);
+        bulk_load(slot + SLAB_BYTES, xt + (size_t)s * SLAB_BYTES, SLAB_BYTES, bar);
+      } else {  // [x_t slabs 2 js, 2 js + 1 | the tile's row table]
+        mbar_expect_tx(bar, WIDE_SLOT);
+        bulk_load(slot, xt + (size_t)2 * js * SLAB_BYTES, 2 * SLAB_BYTES, bar);
+        bulk_load(slot + 2 * SLAB_BYTES, info + (size_t)t * TILE, INFO_BYTES, bar);
+      }
+    });
+  } else {
+    consumer_registers();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int c0 = c * TILE + wg * 64;
+    const int cols[2] = {c0 + warp * 16 + g, c0 + warp * 16 + g + 8};
+    const bool whole = c0 + 64 <= V;
+    float acc[64], dw[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = dw[i] = 0.f;
+    uint32_t a[8][4];
+    int item = 0;
+    for (int xt = 0; xt < row_tiles; ++xt) {
+      item = logit_slabs<false>(acc, r, item, slabs, wg * 64 * 128);  // S^T = W_c . x_t^T
+      const int st = item % WIDE_STAGES;
+      mbar_wait(&r.full[st], (item / WIDE_STAGES) & 1);
+      const uint8_t* slot = r.ring + st * WIDE_SLOT;
+      const float4* tinfo = reinterpret_cast<const float4*>(slot + 2 * SLAB_BYTES);
+      bool hit = false;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        hit |= (unsigned)(__float_as_int(tinfo[lane + 32 * u].z) - c0) < 64u;
+      }
+      if (whole && !__any_sync(0xffffffffu, hit)) {
+        dw_residual<false>(acc, tinfo, t, cols, V, eov, one_minus_eps);
+      } else {
+        dw_residual<true>(acc, tinfo, t, cols, V, eov, one_minus_eps);
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc_to_a(acc, k, a[k]);
+      second_product(dw, a, smem_addr(slot));  // dW_c[:, js] += R^T . x_t[:, js]
+      release(r.empty, st);
+      ++item;
+    }
+    // dw[4j + 2h + q]: column cols[h], e = 128 js + 8j + 2t + q
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int e = 128 * js + 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (cols[h] < Vp && e < E) {
+          *reinterpret_cast<float2*>(dW + (size_t)cols[h] * E + e) =
+              make_float2(dw[4 * j + 2 * h], dw[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// One block per (row tile, split, 128 columns of E): blockIdx.x, .y, .z.
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+ce_bwd_dx_wide_kernel(const uint8_t* __restrict__ ximg, const uint8_t* __restrict__ wimg,
+                      const int* __restrict__ labels, const float* __restrict__ lse,
+                      const float* __restrict__ coef, int N, int E, int V, int ek, int slabs,
+                      int chunks_per_split, float eov, float one_minus_eps,
+                      float* __restrict__ part_dx) {
+  extern __shared__ uint8_t smem_raw[];
+  const DynRing r(smem_raw, 0, WIDE_STAGES, WIDE_SLOT);
+  const RowSplit b = row_split(V, chunks_per_split);
+  const int js = blockIdx.z;
+  const size_t tile_bytes = (size_t)TILE * ek * 2;
+  const int per = slabs + 1;  // items per chunk
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    const uint8_t* xt = ximg + (size_t)b.row_tile * tile_bytes;
+    r.produce(nullptr, b.count * per, [&](int i, uint8_t* slot, uint64_t* bar) {
+      const int ci = i / per, s = i - ci * per;
+      const uint8_t* wc = wimg + (size_t)(b.begin + ci) * tile_bytes;
+      if (s < slabs) {  // [x_t slab s | W_c slab s]
+        mbar_expect_tx(bar, 2 * SLAB_BYTES);
+        bulk_load(slot, xt + (size_t)s * SLAB_BYTES, SLAB_BYTES, bar);
+        bulk_load(slot + SLAB_BYTES, wc + (size_t)s * SLAB_BYTES, SLAB_BYTES, bar);
+      } else {  // [W_c slabs 2 js, 2 js + 1]
+        mbar_expect_tx(bar, 2 * SLAB_BYTES);
+        bulk_load(slot, wc + (size_t)2 * js * SLAB_BYTES, 2 * SLAB_BYTES, bar);
+      }
+    });
+  } else {
+    consumer_registers();
+    const int t = threadIdx.x & 3;
+    int rows[2];
+    consumer_rows(b.row_tile, rows);
+    int lab[2];
+    float lse2[2], cf[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lab[h] = rows[h] < N ? labels[rows[h]] : -1;
+      lse2[h] = rows[h] < N ? lse[rows[h]] * LOG2E : 0.f;
+      cf[h] = rows[h] < N ? coef[rows[h]] : 0.f;
+    }
+    float acc[64], dx[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = dx[i] = 0.f;
+    uint32_t a[8][4];
+    int item = 0;
+    for (int ci = 0; ci < b.count; ++ci) {
+      item = logit_slabs<false>(acc, r, item, slabs, wg * 64 * 128);  // S = x_t . W_c^T
+      const int st = item % WIDE_STAGES;
+      mbar_wait(&r.full[st], (item / WIDE_STAGES) & 1);
+      const int c = b.begin + ci;
+      const int col0 = c * TILE + 2 * t;
+      if (unchecked_chunk(c, V, lab)) {
+        dx_residual<false>(acc, col0, V, lab, lse2, cf, eov, one_minus_eps);
+      } else {
+        dx_residual<true>(acc, col0, V, lab, lse2, cf, eov, one_minus_eps);
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc_to_a(acc, k, a[k]);
+      second_product(dx, a, smem_addr(r.ring + st * WIDE_SLOT));  // dx_t[:, js] += R . W_c[:, js]
+      release(r.empty, st);
+      ++item;
+    }
+    // dx[4j + 2h + q]: row rows[h], e = 128 js + 8j + 2t + q
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int e = 128 * js + 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (rows[h] < N && e < E) {
+          *reinterpret_cast<float2*>(part_dx + ((size_t)b.split * N + rows[h]) * E + e) =
+              make_float2(dx[4 * j + 2 * h], dx[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
 // The row table of the dW pass, padded to whole tiles: padded rows have
 // coef 0 and label -1.
 __global__ void row_info_kernel(const float* __restrict__ lse, const float* __restrict__ coef,
@@ -363,6 +546,16 @@ __global__ void ce_bwd_dx_reduce_kernel(const float* __restrict__ part_dx, int s
   dx[i] = s;
 }
 
+cudaError_t launch_reduce(cudaStream_t st, const float* W, const int* labels, const float* coef,
+                          int N, int E, int V, int Vp, float one_minus_eps, int splits,
+                          const float* part_dx, float* dx) {
+  const int count = N * E, reduce_threads = 256;
+  ce_bwd_dx_reduce_kernel<<<(count + reduce_threads - 1) / reduce_threads, reduce_threads, 0,
+                            st>>>(part_dx, splits, count, W, labels, coef, E, V, Vp,
+                                  one_minus_eps, dx);
+  return cudaGetLastError();
+}
+
 template <int KA>
 cudaError_t launch_bwd(cudaStream_t st, const uint8_t* ximg, const uint8_t* wimg,
                        const float4* info, const float* W, const int* labels, const float* lse,
@@ -376,11 +569,24 @@ cudaError_t launch_bwd(cudaStream_t st, const uint8_t* ximg, const uint8_t* wimg
   err = launch(ce_bwd_dx_kernel<KA>, dim3(row_tiles, splits), Ring<KA>::BYTES, st, ximg, wimg,
                labels, lse, coef, N, E, V, chunks_per_split, eov, one_minus_eps, part_dx);
   if (err != cudaSuccess) return err;
-  const int count = N * E, reduce_threads = 256;
-  ce_bwd_dx_reduce_kernel<<<(count + reduce_threads - 1) / reduce_threads, reduce_threads, 0,
-                            st>>>(part_dx, splits, count, W, labels, coef, E, V, Vp,
-                                  one_minus_eps, dx);
-  return cudaGetLastError();
+  return launch_reduce(st, W, labels, coef, N, E, V, Vp, one_minus_eps, splits, part_dx, dx);
+}
+
+cudaError_t launch_bwd_wide(cudaStream_t st, const uint8_t* ximg, const uint8_t* wimg,
+                            const float4* info, const float* W, const int* labels,
+                            const float* lse, const float* coef, int N, int E, int V, int Vp,
+                            int ek, int slabs, int e_splits, int row_tiles, int table_tiles,
+                            float eov, float one_minus_eps, int splits, int chunks_per_split,
+                            float* part_dx, float* dx, float* dW) {
+  const int smem = DynRing::bytes(0, WIDE_STAGES, WIDE_SLOT);
+  cudaError_t err = launch(ce_bwd_dw_wide_kernel, dim3(table_tiles, e_splits), smem, st, ximg,
+                           wimg, info, row_tiles, E, V, Vp, ek, slabs, eov, one_minus_eps, dW);
+  if (err != cudaSuccess) return err;
+  err = launch(ce_bwd_dx_wide_kernel, dim3(row_tiles, splits, e_splits), smem, st, ximg, wimg,
+               labels, lse, coef, N, E, V, ek, slabs, chunks_per_split, eov, one_minus_eps,
+               part_dx);
+  if (err != cudaSuccess) return err;
+  return launch_reduce(st, W, labels, coef, N, E, V, Vp, one_minus_eps, splits, part_dx, dx);
 }
 
 }  // namespace
@@ -389,20 +595,26 @@ extern "C" {
 
 // Writes the row table, then launches the dW, the dx and the dx-reduce
 // kernel on `stream`, on the images of x and of the whole table (t4r_image:
-// ximg row_tiles x 128 rows, wimg table_tiles x 128 rows, ek = 64 or 128
-// columns). The caller takes ek, row_tiles, table_tiles, splits and
-// chunks_per_split from one launch plan, checks shapes (E a multiple of 4,
-// at most 128), dtypes, contiguity and alignment, and allocates every
-// buffer: info (row_tiles x 128, 4) f32, part_dx (splits, N, E), dx (N, E),
-// dW (Vp, E); the last three are written in full. eps is the label smoothing
-// and eps_over_v its share of every valid column. V may be 0 (splits = 1).
-// Returns the first CUDA error (0 when every launch was accepted).
+// ximg row_tiles x 128 rows, wimg table_tiles x 128 rows, ek columns). The
+// caller takes ek, slabs, e_splits, row_tiles, table_tiles, splits and
+// chunks_per_split from one launch plan: ek = 64 or 128 with slabs = ek / 64
+// and e_splits = 1 for the narrow passes; for the wide ones ek a multiple of
+// 128 from 256 on, e_splits = ek / 128 and slabs the 64-value slabs that
+// hold E. The caller checks shapes (E a multiple of 4), dtypes, contiguity
+// and alignment, and allocates every buffer: info (row_tiles x 128, 4) f32,
+// part_dx (splits, N, E), dx (N, E), dW (Vp, E); the last three are written
+// in full. eps is the label smoothing and eps_over_v its share of every
+// valid column. V may be 0 (splits = 1). Returns the first CUDA error (0
+// when every launch was accepted).
 int t4r_ce_bwd(const void* ximg, const void* wimg, const float* W, const int* labels,
                const float* lse, const float* coef, int N, int E, int V, int Vp, int ek,
-               int row_tiles, int table_tiles, float eps, float eps_over_v, int splits,
-               int chunks_per_split, void* info, float* part_dx, float* dx, float* dW,
-               void* stream) {
-  if (ek != 64 && ek != 128) return (int)cudaErrorInvalidValue;
+               int slabs, int e_splits, int row_tiles, int table_tiles, float eps,
+               float eps_over_v, int splits, int chunks_per_split, void* info, float* part_dx,
+               float* dx, float* dW, void* stream) {
+  const bool narrow = (ek == 64 || ek == 128) && slabs == ek / 64 && e_splits == 1;
+  const bool wide = ek >= 256 && ek % 128 == 0 && e_splits == ek / 128 && slabs * 64 >= E &&
+                    slabs <= ek / 64 && slabs > ek / 64 - 2;
+  if (E > ek || !(narrow || wide)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float ome = 1.f - eps;
   const uint8_t* xi = static_cast<const uint8_t*>(ximg);
@@ -413,6 +625,11 @@ int t4r_ce_bwd(const void* ximg, const void* wimg, const float* W, const int* la
       lse, coef, labels, N, row_tiles * TILE, in);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (wide) {
+    return (int)launch_bwd_wide(st, xi, wi, in, W, labels, lse, coef, N, E, V, Vp, ek, slabs,
+                                e_splits, row_tiles, table_tiles, eps_over_v, ome, splits,
+                                chunks_per_split, part_dx, dx, dW);
+  }
   if (ek == 64) {
     return (int)launch_bwd<1>(st, xi, wi, in, W, labels, lse, coef, N, E, V, Vp, row_tiles,
                               table_tiles, eps_over_v, ome, splits, chunks_per_split, part_dx,

@@ -44,8 +44,10 @@
 //     checks. Row tiles are the fast grid axis, so the blocks reading a
 //     split's chunks run together and find them in the L2 cache.
 //   - ce_fwd_merge_kernel merges the per-split partials of every row.
+// A table wider than 256 takes the wide kernel of ce_wide.cuh instead (E in
+// 64-value slabs, the same partials and merge).
 
-#include "hopper.cuh"
+#include "ce_wide.cuh"
 
 namespace {
 
@@ -261,25 +263,38 @@ extern "C" {
 
 // Launches the partial and the merge kernel on `stream`, on the images of x
 // and of W's first V rows (t4r_image: ximg row_tiles x 128 rows, wimg a tile
-// for each of the vocab's chunks, ek = 64, 128 or 256 columns). The caller
-// takes ek, row_tiles, splits and chunks_per_split from one launch plan,
+// for each of the vocab's chunks, ek = 64, 128 or 256 columns for the narrow
+// kernel, a larger multiple of 64 for the wide one, which keeps x resident
+// when `resident`). The caller takes ek, resident, row_tiles, splits and
+// chunks_per_split from one launch plan,
 // checks shapes, dtypes, contiguity and alignment, and allocates every
 // buffer: part_* (splits, N); part_zs and zsum may be unused when smooth ==
 // 0. V may be 0 (splits = 1): every lse is then -1e30. Returns the first CUDA
 // error (0 when every launch was accepted).
 int t4r_ce_fwd(const void* ximg, const void* wimg, const int* labels, int N, int V, int Vp,
-               int ek, int row_tiles, int splits, int chunks_per_split, float* part_m,
-               float* part_s, float* part_ll, double* part_zs, float* lse, float* ll,
-               float* zsum, int smooth, void* stream) {
+               int ek, int resident, int row_tiles, int splits, int chunks_per_split,
+               float* part_m, float* part_s, float* part_ll, double* part_zs, float* lse,
+               float* ll, float* zsum, int smooth, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* xi = static_cast<const uint8_t*>(ximg);
   const uint8_t* wi = static_cast<const uint8_t*>(wimg);
   dim3 grid(row_tiles, splits);  // row tiles fastest: they share a slice of W
-  cudaError_t err =
-      smooth ? launch_partial<true>(ek, grid, st, xi, wi, labels, N, V, chunks_per_split, part_m,
-                                    part_s, part_ll, part_zs)
-             : launch_partial<false>(ek, grid, st, xi, wi, labels, N, V, chunks_per_split,
-                                     part_m, part_s, part_ll, part_zs);
+  cudaError_t err;
+  if (ek <= 256) {
+    if (!resident) return (int)cudaErrorInvalidValue;
+    err = smooth ? launch_partial<true>(ek, grid, st, xi, wi, labels, N, V, chunks_per_split,
+                                        part_m, part_s, part_ll, part_zs)
+                 : launch_partial<false>(ek, grid, st, xi, wi, labels, N, V, chunks_per_split,
+                                         part_m, part_s, part_ll, part_zs);
+  } else {
+    namespace w = t4r::wide;
+    err = smooth ? w::launch<w::CE, true>(grid, st, xi, wi, labels, nullptr, N, V, ek, resident,
+                                          chunks_per_split, part_m, part_s, part_ll, nullptr,
+                                          part_zs)
+                 : w::launch<w::CE, false>(grid, st, xi, wi, labels, nullptr, N, V, ek, resident,
+                                           chunks_per_split, part_m, part_s, part_ll, nullptr,
+                                           part_zs);
+  }
   if (err != cudaSuccess) return (int)err;
   const int merge_threads = 128;
   ce_fwd_merge_kernel<<<(N + merge_threads - 1) / merge_threads, merge_threads, 0, st>>>(

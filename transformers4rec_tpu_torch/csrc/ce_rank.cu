@@ -39,8 +39,12 @@
 // reference's W.astype(bfloat16) without a cast pass over the table on every
 // call. zsum is accumulated in double: it is a sum of ~V terms of both signs.
 // TMA and wgmma are later work.
+//
+// A table wider than 256 takes t4r_ce_rank_wide: K1's wide kernel
+// (ce_wide.cuh: bf16 images, E in 64-value slabs, wgmma) with this kernel's
+// epilogue and partials, then the same merge kernel.
 
-#include "common.cuh"
+#include "ce_wide.cuh"
 
 namespace {
 
@@ -285,7 +289,8 @@ int t4r_ce_rank_block_rows() { return t4r::BN; }
 int t4r_ce_rank_chunk_cols() { return t4r::BV; }
 
 // Launches the partial and the merge kernel on `stream`. The caller checks
-// shapes (E a multiple of 4, at most 256), dtypes, contiguity and
+// shapes (E a multiple of 4, at most 256: wider tables take the wide
+// entry below), dtypes, contiguity and
 // alignment, and allocates every buffer: part_* are (splits, N); part_zs
 // and zsum may be unused when smooth == 0. Returns the first CUDA error (0
 // when both launches were accepted).
@@ -301,6 +306,34 @@ int t4r_ce_rank(const float* x, const float* W, const int* labels, const float* 
                                       part_m, part_s, part_cnt, part_zs)
              : launch_partial_e<false>(grid, st, x, W, labels, ll, N, E, V, chunks_per_split,
                                        part_m, part_s, part_cnt, part_zs);
+  if (err != cudaSuccess) return (int)err;
+  const int merge_threads = 128;
+  ce_rank_merge_kernel<<<(N + merge_threads - 1) / merge_threads, merge_threads, 0, st>>>(
+      part_m, part_s, part_cnt, part_zs, splits, N, lse, rank, smooth ? zsum : nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The same on the images of x and of W's first V rows (t4r_image, ek a
+// multiple of 64 above 256, from the launch plan with resident, row_tiles,
+// splits and chunks_per_split): the wide kernel on grid (row_tiles, splits),
+// then the merge.
+int t4r_ce_rank_wide(const void* ximg, const void* wimg, const int* labels, const float* ll,
+                     int N, int V, int ek, int resident, int row_tiles, int splits,
+                     int chunks_per_split, float* part_m, float* part_s, int* part_cnt,
+                     double* part_zs, float* lse, int* rank, float* zsum, int smooth,
+                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* xi = static_cast<const uint8_t*>(ximg);
+  const uint8_t* wi = static_cast<const uint8_t*>(wimg);
+  dim3 grid(row_tiles, splits);
+  cudaError_t err =
+      smooth ? t4r::wide::launch<t4r::wide::CE_RANK, true>(grid, st, xi, wi, labels, ll, N, V, ek,
+                                                           resident, chunks_per_split, part_m,
+                                                           part_s, nullptr, part_cnt, part_zs)
+             : t4r::wide::launch<t4r::wide::CE_RANK, false>(grid, st, xi, wi, labels, ll, N, V,
+                                                            ek, resident, chunks_per_split,
+                                                            part_m, part_s, nullptr, part_cnt,
+                                                            part_zs);
   if (err != cudaSuccess) return (int)err;
   const int merge_threads = 128;
   ce_rank_merge_kernel<<<(N + merge_threads - 1) / merge_threads, merge_threads, 0, st>>>(

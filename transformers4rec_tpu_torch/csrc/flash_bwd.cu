@@ -44,10 +44,21 @@
 // All bodies take their logits from masked_logit (flash_common.cuh), the
 // forward's function. Tiles are read as f32 from the (B, S, H, Dh) layout and
 // stored row-major and, where a product needs it, transposed: no cast or
-// transpose pass runs before the kernels. TMA, wgmma, a pipelined loop and
-// a split of long loops across blocks are later work.
+// transpose pass runs before the kernels.
+//
+// K6a has a second design for Hopper (flash_bwd_fused_hw_kernel below,
+// flash_hopper.cuh) for head dims of 33 to 64: a producer warpgroup copying
+// f32 rows by cp.async into staging pieces and rounding them into a ring of
+// bf16 tiles in the swizzled layout of hopper.cuh, wgmma for all five
+// products, and dq partials per 64 keys as here. On an NVIDIA H100 80GB HBM3
+// at 700 W it takes 0.336 ms at (4, 2048, 8, 64), causal, against this
+// kernel's 0.69, but 0.127 ms at (32, 256, 16, 12) against 0.104 (PERF.md):
+// head dims up to 32 keep this kernel (ops/attention.py:uses_wgmma).
+// Past 64 its consumers would hold dk and dv of 64 keys x 128 values in
+// registers beside the products, which the 168 registers a thread of a
+// 384-thread block gets do not hold.
 
-#include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
@@ -183,6 +194,259 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<NTD>(dv_acc, 1.f, dv + head_off, row_stride, key0, S, Dh, g, t);
 }
 
+// ------------------------------------------------------------ Hopper design
+// flash_bwd_fused_hw_kernel (K6a for head dims of 33 to 64, padded to DP =
+// 64): a block of 384 threads per (batch * head, 128-key tile). Warpgroup 2
+// stores the k and v tiles and the keys' padding terms once, then for every
+// 64-query step from the causal start the q and dO tiles and the queries'
+// lse and delta into a ring slot (bf16, image layout, through the f32
+// staging pieces of flash_hopper.cuh's Stager);
+// warpgroups 0 and 1 own 64 keys each. Per step, by wgmma: S^T = k . q^T and
+// dP^T = v . dO^T from shared memory (m64n64), then P^T and dS^T in
+// registers, then dv += P^T . dO and dk += dS^T . q with P^T and dS^T as
+// register A fragments and q, dO read MN-major. dS^T also goes, in bf16
+// (the bits dk used), to the warpgroup's own staging tile, from which the
+// warpgroup forms dS . k over its 64 keys (both operands MN-major) and
+// writes it to the dq partial of its 64 keys: the partials are per 64 keys,
+// as the mma.sync kernel's, and flash_dq_reduce_kernel adds them in order.
+// No warpgroup waits for the other, no wgmma sits on a branch, and nothing
+// needs atomics: the same bits on every call.
+constexpr int BWD_STAGES = 4;  // ring slots of q and dO
+constexpr int BWD_NSTG = 4;    // f32 staging pieces
+
+template <bool HAS_BIAS>
+__global__ void __launch_bounds__(hw::HW_THREADS, 1)
+flash_bwd_fused_hw_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ d_out,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const uint8_t* __restrict__ pad, const float* __restrict__ bias,
+                          long long bias_sb, long long bias_sh, float* __restrict__ dq_part,
+                          float* __restrict__ dk, float* __restrict__ dv, int B, int S, int H,
+                          int Dh, int nk, int causal, float scale) {
+  using namespace t4r::flash::hw;
+  constexpr int DP = 64, QR = 64;              // head dim, queries per step
+  constexpr int TB = SLAB_BYTES;               // a 128-row tile of 64 values
+  constexpr int SLOT = TB + 1024;              // q and dO (64 rows each), lse and delta
+  constexpr int STAGES = BWD_STAGES, NSTG = BWD_NSTG;
+  using Stg = Stager<DP, NSTG>;
+  static_assert(Stg::R == QR, "a step's q or dO is one staging piece");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + TB;
+  uint8_t* staging = vs + TB;  // per warpgroup two 64-row tiles of dS^T (keys x queries)
+  float* pad_s = reinterpret_cast<float*>(staging + 2 * TB);
+  uint8_t* ring = staging + 2 * TB + 1024;
+  uint8_t* f32_ring = ring + STAGES * SLOT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(f32_ring + Stg::BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* once = empty + STAGES;
+  init_store_ring(STAGES, full, empty, once);
+
+  // key tiles are the slow grid axis, the longest (the first, under the
+  // causal mask) first, so that the short ones fill the card's tail
+  const int BH = gridDim.x / nk, kt = blockIdx.x / BH, bh = blockIdx.x - kt * BH;
+  const int b = bh / H, h = bh - b * H;
+  const int row_stride = H * Dh;
+  const size_t head_off = ((size_t)b * S * H + h) * Dh;
+  const int nq = (S + QR - 1) / QR;
+  // query steps wholly before this key tile see none of its keys
+  const int qi_begin = causal ? kt * (T / QR) : 0;
+  const int steps = nq - qi_begin;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // k's and v's pieces once, then each step's q piece and dO piece, NSTG - 1
+    // of them in flight ahead of the one being rounded
+    Stg sg(f32_ring, threadIdx.x - 256);
+    const int p = sg.p;
+    constexpr int TP = T / QR;  // pieces of the k or v tile
+    const int pieces = 2 * TP + 2 * steps;
+    auto issue = [&](int n) {
+      if (n >= pieces) return sg.skip();
+      if (n < 2 * TP) {
+        return sg.issue((n < TP ? k : v) + head_off, row_stride, kt * T + (n % TP) * QR, S, Dh);
+      }
+      const int i = (n - 2 * TP) / 2;
+      sg.issue(((n - 2 * TP) % 2 ? d_out : q) + head_off, row_stride, (qi_begin + i) * QR, S, Dh);
+    };
+    for (int n = 0; n < NSTG - 1; ++n) issue(n);
+    const uint8_t* pad_b = pad != nullptr ? pad + (size_t)b * S : nullptr;
+    const float pad_term = pad_term_of(pad_b, kt * T + p, S);
+    const float* lse_bh = lse + (size_t)bh * S;
+    const float* delta_bh = delta + (size_t)bh * S;
+    float row_lse = 0.f, row_delta = 0.f;
+    for (int n = 0; n < pieces; ++n) {
+      issue(n + NSTG - 1);
+      if (n < 2 * TP) {
+        sg.round(n < TP ? ks : vs, (n % TP) * QR);
+        if (n == 2 * TP - 1) {
+          pad_s[p] = pad_term;
+          stored(once);
+        }
+        continue;
+      }
+      const int i = (n - 2 * TP) / 2, st = i % STAGES, q0 = (qi_begin + i) * QR;
+      uint8_t* slot = ring + st * SLOT;
+      if ((n - 2 * TP) % 2 == 0) {
+        if (p < QR) {  // read while q is rounded; rows beyond the sequence get the
+          const bool ok = q0 + p < S;  // masked sentinel: their P is 0
+          row_lse = ok ? lse_bh[q0 + p] : LSE_MASKED;
+          row_delta = ok ? delta_bh[q0 + p] : 0.f;
+        }
+        mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
+        sg.round(slot, 0);
+        continue;
+      }
+      sg.round(slot + TB / 2, 0);
+      float* rows_s = reinterpret_cast<float*>(slot + TB);
+      if (p < QR) {
+        rows_s[p] = row_lse;
+        rows_s[QR + p] = row_delta;
+      }
+      stored(&full[st]);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  const float* bias_bh = HAS_BIAS ? bias + b * bias_sb + h * bias_sh : nullptr;
+  const int warp = (threadIdx.x >> 5) & 3, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int key_row = warp * 16 + g;  // this thread's first key in the warpgroup's 64
+  const int key0 = kt * T + wg * 64;  // the warpgroup's first key
+  const int keys[2] = {key0 + key_row, key0 + key_row + 8};
+  const uint32_t ka = smem_addr(ks) + wg * 64 * 128, va = smem_addr(vs) + wg * 64 * 128;
+  // the warpgroup's 64 keys form dq partial key0 / 64 (none when all lie beyond S)
+  float* part = key0 < S
+                    ? dq_part + ((size_t)(key0 / QR) * B + b) * S * row_stride + (size_t)h * Dh
+                    : nullptr;
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  mbar_wait(once, 0);
+  const float pad_k[2] = {pad_s[wg * 64 + key_row], pad_s[wg * 64 + key_row + 8]};
+  for (int i = 0; i < steps; ++i) {
+    const int st = i % STAGES, q0 = (qi_begin + i) * QR;
+    mbar_wait(&full[st], (i / STAGES) & 1);
+    const uint8_t* slot = ring + st * SLOT;
+    const uint32_t qa = smem_addr(slot), da = qa + TB / 2;
+    const float* lse_s = reinterpret_cast<const float*>(slot + TB);
+    const float* delta_s = lse_s + QR;
+
+    // transposed tiles: row = key (this warpgroup's 64), column = query
+    float p[32], ds[32];
+    fence_regs(p);
+    fence_regs(ds);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wgmma_ss_n64<0, 0>(p, kmajor_desc(ka, kk), kmajor_desc(qa, kk), kk > 0);  // k . q^T
+    }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wgmma_ss_n64<0, 0>(ds, kmajor_desc(va, kk), kmajor_desc(da, kk), kk > 0);  // v . dO^T
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(p);
+    fence_regs(ds);
+    // keys wholly inside the sequence and, under the causal mask, at or
+    // before every query of the step take only the scale and the padding
+    // terms (masked_logit's arithmetic without its tests)
+    const bool inside = !HAS_BIAS && key0 + 64 <= S && (!causal || key0 + 63 <= q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+        for (int qq = 0; qq < 2; ++qq) {
+          const int c = 8 * j + 2 * t + qq;  // query within the step
+          const float raw = p[4 * j + 2 * hh + qq];
+          const float l = inside ? raw * scale + pad_k[hh]
+                                 : masked_logit<HAS_BIAS>(raw, scale, q0 + c, keys[hh], S,
+                                                          causal != 0, pad_k[hh], bias_bh);
+          const float pv = ex2((l - lse_s[c]) * LOG2E);
+          p[4 * j + 2 * hh + qq] = pv;
+          ds[4 * j + 2 * hh + qq] = pv * (ds[4 * j + 2 * hh + qq] - delta_s[c]);
+        }
+      }
+    }
+    uint32_t pa[QR / 16][4], dsa[QR / 16][4];  // P^T and dS^T as A fragments
+#pragma unroll
+    for (int kk = 0; kk < QR / 16; ++kk) {
+      acc_to_a(p, kk, pa[kk]);
+      acc_to_a(ds, kk, dsa[kk]);
+    }
+    // dS^T into this step's staging tile of the warpgroup (rows = its keys)
+    uint8_t* stage = staging + (2 * wg + (i & 1)) * (TB / 2);
+#pragma unroll
+    for (int kk = 0; kk < QR / 16; ++kk) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        // dsa[kk][hh]: row key_row + 8hh, queries 16kk + 2t, +1; [2 + hh]: 16kk + 8 + 2t, +1
+        *reinterpret_cast<uint32_t*>(stage + image_offset(key_row + 8 * hh, 16 * kk + 2 * t, DP)) =
+            dsa[kk][hh];
+        *reinterpret_cast<uint32_t*>(stage + image_offset(key_row + 8 * hh, 16 * kk + 8 + 2 * t,
+                                                          DP)) = dsa[kk][2 + hh];
+      }
+    }
+    fence_proxy_async();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < QR / 16; ++kk) wgmma_rs_n64(dv_acc, pa[kk], mnmajor_desc(da, kk));
+#pragma unroll
+    for (int kk = 0; kk < QR / 16; ++kk) wgmma_rs_n64(dk_acc, dsa[kk], mnmajor_desc(qa, kk));
+    wgmma_commit();
+    named_barrier(1 + wg, 128);  // the warpgroup's dS^T is stored
+    // dq partial (64 queries x DP) = dS . k over the warpgroup's 64 keys
+    float dq[32];
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 64 / 16; ++kk) {
+      wgmma_ss_n64<1, 1>(dq, mnmajor_desc(smem_addr(stage), kk), mnmajor_desc(ka, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    release(empty, st);
+    // dq[4j + 2hh + qq]: query q0 + 16 warp + g + 8hh, d = 8j + 2t + qq
+    if (part != nullptr) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = q0 + warp * 16 + g + 8 * hh;
+        if (row >= S) continue;
+        float* dst = part + (size_t)row * row_stride;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int d = 8 * j + 2 * t;
+          if (d < Dh) {
+            *reinterpret_cast<float2*>(dst + d) = make_float2(dq[4 * j + 2 * hh], dq[4 * j + 2 * hh + 1]);
+          }
+        }
+      }
+    }
+  }
+  // dk_acc, dv_acc[4j + 2hh + qq]: key keys[hh], d = 8j + 2t + qq
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (keys[hh] >= S) continue;
+    float* dkr = dk + head_off + (size_t)keys[hh] * row_stride;
+    float* dvr = dv + head_off + (size_t)keys[hh] * row_stride;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = 8 * j + 2 * t;
+      if (d < Dh) {
+        *reinterpret_cast<float2*>(dkr + d) =
+            make_float2(dk_acc[4 * j + 2 * hh] * scale, dk_acc[4 * j + 2 * hh + 1] * scale);
+        *reinterpret_cast<float2*>(dvr + d) = make_float2(dv_acc[4 * j + 2 * hh], dv_acc[4 * j + 2 * hh + 1]);
+      }
+    }
+  }
+}
+
 // dq = scale * sum over the key tiles, in order, of dq_part[key tile]: the
 // tiles a query row's causal mask leaves out were never written and are not
 // read. One float4 a thread.
@@ -302,6 +566,34 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+// dq from the partials of both K6a designs: ceil(S / 64) of them
+cudaError_t launch_dq_reduce(const Args& a, const float* dq_part, float* dq) {
+  const size_t total4 = (size_t)a.B * a.S * a.H * a.Dh / 4;
+  const int threads = 256;
+  flash_dq_reduce_kernel<<<(unsigned)((total4 + threads - 1) / threads), threads, 0, a.st>>>(
+      reinterpret_cast<const float4*>(dq_part), reinterpret_cast<float4*>(dq), total4, a.S,
+      a.H * a.Dh, (a.S + TK - 1) / TK, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <bool HAS_BIAS>
+cudaError_t launch_fused_hw(const Args& a, float* dq_part, float* dq, float* dk, float* dv) {
+  constexpr int TB = hopper::SLAB_BYTES, STAGES = BWD_STAGES;
+  constexpr int smem = 1024 + 4 * TB + 1024 + STAGES * (TB + 1024) +
+                       hw::Stager<64, BWD_NSTG>::BYTES + 8 * (2 * STAGES + 1);
+  static_assert(smem <= hopper::MAX_SMEM, "K6a's shared memory");
+  auto kernel = flash_bwd_fused_hw_kernel<HAS_BIAS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int nk = (a.S + hw::T - 1) / hw::T;
+  kernel<<<(unsigned)((size_t)a.B * a.H * nk), hw::HW_THREADS, smem, a.st>>>(
+      a.q, a.k, a.v, a.d_out, a.lse, a.delta, a.pad, a.bias, a.bias_sb, a.bias_sh, dq_part, dk,
+      dv, a.B, a.S, a.H, a.Dh, nk, a.causal, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_dq_reduce(a, dq_part, dq);
+}
+
 template <int KS, bool HAS_BIAS, bool FUSED>
 cudaError_t launch_dkv(const Args& a, float* dq_part, float* dq, float* dk, float* dv) {
   constexpr int DP = Tile<KS>::DP, LD = Tile<KS>::LD;
@@ -317,12 +609,7 @@ cudaError_t launch_dkv(const Args& a, float* dq_part, float* dq, float* dk, floa
       dv, a.B, a.S, a.H, a.Dh, nk, a.causal, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || !FUSED) return err;
-  const size_t total4 = (size_t)a.B * a.S * a.H * a.Dh / 4;
-  const int threads = 256;
-  flash_dq_reduce_kernel<<<(unsigned)((total4 + threads - 1) / threads), threads, 0, a.st>>>(
-      reinterpret_cast<const float4*>(dq_part), reinterpret_cast<float4*>(dq), total4, a.S,
-      a.H * a.Dh, nk, a.causal, a.scale);
-  return cudaGetLastError();
+  return launch_dq_reduce(a, dq_part, dq);
 }
 
 template <int KS, bool HAS_BIAS>
@@ -340,7 +627,7 @@ cudaError_t launch_dq(const Args& a, float* dq) {
   return cudaGetLastError();
 }
 
-// mode 0: K6a (fused), 1: K6b (dq), 2: K6c (dk, dv)
+// mode 0: K6a (fused), 1: K6b (dq), 2: K6c (dk, dv), 3: K6a on the Hopper design
 template <int KS, bool HAS_BIAS>
 cudaError_t launch_mode(int mode, const Args& a, float* dq_part, float* dq, float* dk,
                         float* dv) {
@@ -351,6 +638,10 @@ cudaError_t launch_mode(int mode, const Args& a, float* dq_part, float* dq, floa
 
 template <bool HAS_BIAS>
 cudaError_t launch_dh(int mode, const Args& a, float* dq_part, float* dq, float* dk, float* dv) {
+  if (mode == 3) {  // Dh is rounded up to 64
+    if (a.Dh > 64) return cudaErrorInvalidValue;
+    return launch_fused_hw<HAS_BIAS>(a, dq_part, dq, dk, dv);
+  }
   // Dh is rounded up to 16, 32, 64 or 128 (zero padded)
   if (a.Dh <= 16) return launch_mode<1, HAS_BIAS>(mode, a, dq_part, dq, dk, dv);
   if (a.Dh <= 32) return launch_mode<2, HAS_BIAS>(mode, a, dq_part, dq, dk, dv);
@@ -386,15 +677,16 @@ int t4r_flash_tile_rows() { return t4r::flash::TQ; }
 // planes, or null. The caller checks shapes (Dh a multiple of 4 up to 128)
 // and allocates every buffer.
 
-// K6a: dq, dk, dv from one recomputation. dq_part: (key tiles, B, S, H, Dh)
-// float32 scratch, key tiles = ceil(S / 64).
+// K6a: dq, dk, dv from one recomputation, with wgmma on the Hopper design
+// (Dh up to 64). dq_part: (key tiles, B, S, H, Dh) float32 scratch, key
+// tiles = ceil(S / 64) in both designs.
 int t4r_flash_bwd_fused(const float* q, const float* k, const float* v, const float* d_out,
                         const float* lse, const float* delta, const uint8_t* pad,
                         const float* bias, long long bias_sb, long long bias_sh, float* dq_part,
                         float* dq, float* dk, float* dv, int B, int S, int H, int Dh, int causal,
-                        float scale, void* stream) {
-  return launch_checked(0, q, k, v, d_out, lse, delta, pad, bias, bias_sb, bias_sh, dq_part, dq,
-                        dk, dv, B, S, H, Dh, causal, scale, stream);
+                        float scale, int wgmma, void* stream) {
+  return launch_checked(wgmma ? 3 : 0, q, k, v, d_out, lse, delta, pad, bias, bias_sb, bias_sh,
+                        dq_part, dq, dk, dv, B, S, H, Dh, causal, scale, stream);
 }
 
 // K6b: dq alone.

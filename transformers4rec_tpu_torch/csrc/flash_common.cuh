@@ -4,10 +4,11 @@
 // from the (B, S, H, Dh) float32 layout into bf16 shared memory, and the
 // mma.sync.m16n8k16 tile products.
 //
-// Every kernel works on tiles of TQ = 64 queries by TK = 64 keys with 4
-// warps; a warp owns 16 rows of the tile it accumulates (queries in the
+// The mma.sync kernels work on tiles of TQ = 64 queries by TK = 64 keys with
+// 4 warps; a warp owns 16 rows of the tile it accumulates (queries in the
 // forward and the dq body, keys in the dk/dv body). The head dim is padded
-// with zeros to DP = 16 * KS in shared memory.
+// with zeros to DP = 16 * KS in shared memory. (The wgmma kernels' tiles are
+// flash_hopper.cuh's.)
 //
 // Masks are finite numbers, as in the reference (ops/attention.py:
 // _tile_logits): causal REPLACES the logit by NEG where key > query, the

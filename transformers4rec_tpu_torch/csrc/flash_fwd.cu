@@ -31,9 +31,19 @@
 // (the accumulator layout of q . k^T is the A layout of P . v). Key tiles
 // wholly in a query tile's future are skipped under the causal mask. The
 // head dim is padded with zeros to 16, 32, 64 or 128. mma.sync.m16n8k16 does
-// the products; TMA, wgmma and a pipelined key loop are later work.
+// the products.
+//
+// A second design for Hopper (flash_fwd_hw_kernel below, flash_hopper.cuh):
+// a producer warpgroup copies f32 rows by cp.async into staging pieces and
+// rounds them into 128-row tiles in the swizzled bf16 layout of hopper.cuh,
+// through a ring of slots, and two consumer warpgroups take both products on
+// wgmma. On an NVIDIA H100 80GB HBM3 at 700 W it takes 0.132 ms at
+// (4, 2048, 8, 64), causal, against this kernel's 0.27, but 0.078 ms at
+// (32, 256, 16, 12) against 0.039: 1,024 short blocks with the head dim
+// padded from 12 to 64; at (32, 256, 16, 32) this kernel still wins (PERF.md).
+// ops/attention.py:uses_wgmma picks: the Hopper design for head dims 33-64.
 
-#include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
@@ -159,6 +169,226 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<NTD>(o, 1.f, out + head_off, row_stride, row0, S, Dh, g, t);
 }
 
+// ------------------------------------------------------------ Hopper design
+// Shared memory of flash_fwd_hw_kernel: the q tile, STAGES ring slots (k, v
+// and the keys' padding terms), NSTG f32 staging pieces, the barriers.
+template <int DP>
+struct FwdLayout {
+  static constexpr int TILE_BYTES = DP / 64 * hopper::SLAB_BYTES;
+  static constexpr int SLOT = 2 * TILE_BYTES + 1024;
+  static constexpr int STAGES = DP == 64 ? 4 : 2;
+  static constexpr int NSTG = DP == 64 ? 4 : 3;
+  static constexpr int STAGING = hw::Stager<DP, NSTG>::BYTES;
+  static constexpr int BYTES = 1024 + TILE_BYTES + STAGES * SLOT + STAGING + 8 * (2 * STAGES + 1);
+};
+
+// flash_fwd_hw_kernel: a block of 384 threads per (batch * head, 128-query
+// tile). Warpgroup 2 stores the q tile once, then for every key tile up to
+// the causal end the k and v tiles (bf16, image layout, through the f32
+// staging pieces of flash_hopper.cuh's Stager) and the keys' padding terms
+// into a ring slot; warpgroups 0 and 1 own 64
+// queries each: S = q . k^T by wgmma from shared memory (m64n128, DP / 16
+// depth steps), the scale, masks and bias by masked_logit, the online
+// softmax in registers, and o += P . v by wgmma with P as register A
+// fragments and v read MN-major. The producer fills the next slots while the
+// consumers work, and the two consumer warpgroups overlap each other.
+template <int DP, bool HAS_BIAS>
+__global__ void __launch_bounds__(hw::HW_THREADS, 1)
+flash_fwd_hw_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const uint8_t* __restrict__ pad,
+                    const float* __restrict__ bias, long long bias_sb, long long bias_sh,
+                    float* __restrict__ out, float* __restrict__ lse, int S, int H, int Dh,
+                    int nq, int causal, float scale) {
+  using namespace t4r::flash::hw;
+  using L = FwdLayout<DP>;
+  constexpr int TILE_BYTES = L::TILE_BYTES, SLOT = L::SLOT, stages = L::STAGES, NSTG = L::NSTG;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* ring = qs + TILE_BYTES;
+  uint8_t* staging = ring + stages * SLOT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + L::STAGING);
+  uint64_t* empty = full + stages;
+  uint64_t* once = empty + stages;
+  init_store_ring(stages, full, empty, once);
+
+  // query tiles are the slow grid axis, the longest (the last, under the
+  // causal mask) first, so that the short ones fill the card's tail
+  const int BH = gridDim.x / nq, order = blockIdx.x / BH;
+  const int bh = blockIdx.x - order * BH, qi = causal ? nq - 1 - order : order;
+  const int b = bh / H, h = bh - b * H;
+  const int row_stride = H * Dh;
+  const size_t head_off = ((size_t)b * S * H + h) * Dh;
+  const int nk = (S + T - 1) / T;
+  const int kt_end = causal ? min(nk - 1, qi) : nk - 1;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // the q tile's pieces, then each key tile's k pieces and v pieces, NSTG - 1
+    // of them in flight ahead of the one being rounded
+    Stager<DP, NSTG> sg(staging, threadIdx.x - 256);
+    constexpr int R = Stager<DP, NSTG>::R, TP = T / R;  // rows a piece, pieces a tile
+    const int pieces = TP + (kt_end + 1) * 2 * TP;
+    const uint8_t* pad_b = pad != nullptr ? pad + (size_t)b * S : nullptr;
+    auto issue = [&](int n) {
+      if (n >= pieces) return sg.skip();
+      if (n < TP) return sg.issue(q + head_off, row_stride, qi * T + n * R, S, Dh);
+      const int j = (n - TP) % (2 * TP), kt = (n - TP) / (2 * TP);
+      sg.issue((j < TP ? k : v) + head_off, row_stride, kt * T + (j % TP) * R, S, Dh);
+    };
+    for (int n = 0; n < NSTG - 1; ++n) issue(n);
+    float pad_term = 0.f;
+    for (int n = 0; n < pieces; ++n) {
+      issue(n + NSTG - 1);
+      if (n < TP) {
+        sg.round(qs, n * R);
+        if (n == TP - 1) stored(once);
+        continue;
+      }
+      const int j = (n - TP) % (2 * TP), kt = (n - TP) / (2 * TP), st = kt % stages;
+      uint8_t* slot = ring + st * SLOT;
+      if (j == 0) {
+        pad_term = pad_term_of(pad_b, kt * T + sg.p, S);  // read while the tile is rounded
+        mbar_wait(&empty[st], ((kt / stages) & 1) ^ 1);
+      }
+      sg.round(slot + (j < TP ? 0 : TILE_BYTES), (j % TP) * R);
+      if (j == 2 * TP - 1) {
+        reinterpret_cast<float*>(slot + 2 * TILE_BYTES)[sg.p] = pad_term;
+        stored(&full[st]);
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  const float* bias_bh = HAS_BIAS ? bias + b * bias_sb + h * bias_sh : nullptr;
+  const int warp = (threadIdx.x >> 5) & 3, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int row0 = qi * T + wg * 64 + warp * 16;
+  const int rows[2] = {row0 + g, row0 + g + 8};
+  float m[2] = {2.f * FNEG, 2.f * FNEG};
+  float s[2] = {0.f, 0.f};  // this lane's share of the row sums
+  float acc[64], o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  const uint32_t qa = smem_addr(qs) + wg * 64 * 128;
+  mbar_wait(once, 0);
+  for (int kt = 0; kt <= kt_end; ++kt) {
+    const int st = kt % stages;
+    mbar_wait(&full[st], (kt / stages) & 1);
+    const uint8_t* slot = ring + st * SLOT;
+    const float* pad_s = reinterpret_cast<const float*>(slot + 2 * TILE_BYTES);
+    tile_logits<DP>(acc, qa, smem_addr(slot));
+
+    // acc[4j + 2hh + qq]: row rows[hh], key kt * T + 8j + 2t + qq. A tile
+    // wholly inside the sequence and, under the causal mask, at or before
+    // every row of the warpgroup, takes only the scale and the padding terms
+    // (masked_logit's arithmetic without its tests)
+    float mx[2] = {2.f * FNEG, 2.f * FNEG};
+    const bool inside = !HAS_BIAS && (kt + 1) * T <= S &&
+                        (!causal || (kt + 1) * T - 1 <= qi * T + wg * 64);
+    if (inside) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+          for (int qq = 0; qq < 2; ++qq) {
+            const float l = acc[4 * j + 2 * hh + qq] * scale + pad_s[8 * j + 2 * t + qq];
+            acc[4 * j + 2 * hh + qq] = l;
+            mx[hh] = fmaxf(mx[hh], l);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+          for (int qq = 0; qq < 2; ++qq) {
+            const int c = 8 * j + 2 * t + qq;
+            const float l = masked_logit<HAS_BIAS>(acc[4 * j + 2 * hh + qq], scale, rows[hh],
+                                                   kt * T + c, S, causal != 0, pad_s[c], bias_bh);
+            acc[4 * j + 2 * hh + qq] = l;
+            mx[hh] = fmaxf(mx[hh], l);
+          }
+        }
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      corr[hh] = ex2((m[hh] - m_new) * LOG2E);
+      m[hh] = m_new;
+      float add = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int qq = 0; qq < 2; ++qq) {
+          const float pv = ex2((acc[4 * j + 2 * hh + qq] - m_new) * LOG2E);
+          acc[4 * j + 2 * hh + qq] = pv;
+          add += pv;
+        }
+      }
+      s[hh] = s[hh] * corr[hh] + add;
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      o[4 * j + 0] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+    tile_times<DP>(o, acc, smem_addr(slot + TILE_BYTES));  // o += P . v
+    release(empty, st);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    s[hh] += __shfl_xor_sync(0xffffffffu, s[hh], 1);
+    s[hh] += __shfl_xor_sync(0xffffffffu, s[hh], 2);
+    const bool row_ok = m[hh] > 0.5f * FNEG;
+    const float denom = s[hh] > 0.f ? s[hh] : 1.f;
+    inv[hh] = row_ok ? 1.f / denom : 0.f;
+    if (t == 0 && rows[hh] < S) {
+      lse[(size_t)bh * S + rows[hh]] = row_ok ? m[hh] + logf(denom) : LSE_MASKED;
+    }
+  }
+  // o[4j + 2hh + qq]: row rows[hh], d = 8j + 2t + qq
+  float* base = out + head_off;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (rows[hh] >= S) continue;
+    float* dst = base + (size_t)rows[hh] * row_stride;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int d = 8 * j + 2 * t;
+      if (d < Dh) {
+        *reinterpret_cast<float2*>(dst + d) =
+            make_float2(o[4 * j + 2 * hh] * inv[hh], o[4 * j + 2 * hh + 1] * inv[hh]);
+      }
+    }
+  }
+}
+
+template <int DP, bool HAS_BIAS>
+cudaError_t launch_hw(const float* q, const float* k, const float* v, const uint8_t* pad,
+                      const float* bias, long long bias_sb, long long bias_sh, float* out,
+                      float* lse, int B, int S, int H, int Dh, int causal, float scale,
+                      cudaStream_t st) {
+  constexpr int smem = FwdLayout<DP>::BYTES;
+  static_assert(smem <= hopper::MAX_SMEM, "K5's shared memory");
+  auto kernel = flash_fwd_hw_kernel<DP, HAS_BIAS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int nq = (S + hw::T - 1) / hw::T;
+  kernel<<<(unsigned)((size_t)B * H * nq), hw::HW_THREADS, smem, st>>>(
+      q, k, v, pad, bias, bias_sb, bias_sh, out, lse, S, H, Dh, nq, causal, scale);
+  return cudaGetLastError();
+}
+
 template <int KS, bool HAS_BIAS>
 cudaError_t launch(const float* q, const float* k, const float* v, const uint8_t* pad,
                    const float* bias, long long bias_sb, long long bias_sh, float* out,
@@ -182,7 +412,15 @@ template <bool HAS_BIAS>
 cudaError_t launch_dh(const float* q, const float* k, const float* v, const uint8_t* pad,
                       const float* bias, long long bias_sb, long long bias_sh, float* out,
                       float* lse, int B, int S, int H, int Dh, int causal, float scale,
-                      cudaStream_t st) {
+                      int wgmma, cudaStream_t st) {
+  if (wgmma) {  // Dh is rounded up to 64 or 128 (zero padded)
+    if (Dh <= 64) {
+      return launch_hw<64, HAS_BIAS>(q, k, v, pad, bias, bias_sb, bias_sh, out, lse, B, S, H, Dh,
+                                     causal, scale, st);
+    }
+    return launch_hw<128, HAS_BIAS>(q, k, v, pad, bias, bias_sb, bias_sh, out, lse, B, S, H, Dh,
+                                    causal, scale, st);
+  }
   // Dh is rounded up to 16, 32, 64 or 128 (zero padded)
 #define T4R_FLASH_FWD_KS(KS_)                                                              \
   return launch<KS_, HAS_BIAS>(q, k, v, pad, bias, bias_sb, bias_sh, out, lse, B, S, H, Dh, \
@@ -208,7 +446,7 @@ int t4r_flash_tile_rows() { return t4r::flash::TQ; }
 // the CUDA error of the launch (0 when it was accepted).
 int t4r_flash_fwd(const float* q, const float* k, const float* v, const uint8_t* pad,
                   const float* bias, long long bias_sb, long long bias_sh, float* out,
-                  float* lse, int B, int S, int H, int Dh, int causal, float scale,
+                  float* lse, int B, int S, int H, int Dh, int causal, float scale, int wgmma,
                   void* stream) {
   if (Dh < 4 || Dh > 128 || Dh % 4 != 0 || B < 1 || S < 1 || H < 1) {
     return (int)cudaErrorInvalidValue;
@@ -216,9 +454,9 @@ int t4r_flash_fwd(const float* q, const float* k, const float* v, const uint8_t*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = bias != nullptr
                         ? launch_dh<true>(q, k, v, pad, bias, bias_sb, bias_sh, out, lse, B, S,
-                                          H, Dh, causal, scale, st)
+                                          H, Dh, causal, scale, wgmma, st)
                         : launch_dh<false>(q, k, v, pad, bias, bias_sb, bias_sh, out, lse, B, S,
-                                           H, Dh, causal, scale, st);
+                                           H, Dh, causal, scale, wgmma, st);
   return (int)err;
 }
 

@@ -7,8 +7,9 @@
 // row pass's split of the vocab and its rows).
 //
 // The image. A matrix of f32 rows (x (N, E) or the item table (Vp, E)) is
-// rounded to bf16, its rows padded with zeros to EK = 64, 128 or 256 (the
-// least of them that holds E), and
+// rounded to bf16, its rows padded with zeros to EK, a multiple of 64 (for
+// the narrow kernels 64, 128 or 256, the least of them that holds E; for the
+// wide ones E rounded up to one or two slabs), and
 // cut into tiles of TILE = 128 rows (the last one padded with zero rows).
 // A tile is EK / 64 slabs of 128 rows x 64 values; a slab row is 128 bytes,
 // and within every group of 8 rows (1,024 bytes) the 16-byte piece j of row
@@ -36,6 +37,7 @@ namespace hopper {
 constexpr int TILE = 128;                  // rows of an image tile
 constexpr int SLAB_BYTES = TILE * 128;     // 128 rows x 64 bf16
 constexpr int GROUP_BYTES = 8 * 128;       // 8 swizzled rows
+constexpr int MAX_SMEM = 232448;           // dynamic shared memory a block may ask for
 
 // Byte offset of element (r, e) in the image of a matrix padded to ek columns.
 __host__ __device__ __forceinline__ size_t image_offset(int r, int e, int ek) {
@@ -378,6 +380,96 @@ __device__ __forceinline__ RowSplit row_split(int V, int chunks_per_split) {
           max(0, min(begin + chunks_per_split, chunks) - begin)};
 }
 
+// A ring whose sizes are known only at run time, for the wide kernels
+// (ce_wide.cuh, ce_bwd.cu), whose slab counts follow E: a tile of
+// tile_bytes copied once (0: none), `stages` slots of slot_bytes, then the
+// barriers full[], empty[] and once. bytes() is what the launch asks for.
+struct DynRing {
+  uint8_t* tile;
+  uint8_t* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* once;
+  int tile_bytes, stages, slot_bytes;
+
+  __host__ __device__ static int bytes(int tile_bytes, int stages, int slot_bytes) {
+    return 1024 + tile_bytes + stages * slot_bytes + 8 * (2 * stages + 1);
+  }
+
+  // The most slots (up to 8) that fit beside the tile, 0 when fewer than 2 do.
+  __host__ static int most_stages(int tile_bytes, int slot_bytes) {
+    int s = 8;
+    while (s >= 2 && bytes(tile_bytes, s, slot_bytes) > MAX_SMEM) --s;
+    return s >= 2 ? s : 0;
+  }
+
+  // Lays the ring out in the block's dynamic shared memory and initialises
+  // its barriers; every thread of the block constructs it (__syncthreads()).
+  __device__ DynRing(uint8_t* smem, int tile_bytes_, int stages_, int slot_bytes_)
+      : tile(align1024(smem)),
+        ring(tile + tile_bytes_),
+        full(reinterpret_cast<uint64_t*>(ring + stages_ * slot_bytes_)),
+        empty(full + stages_),
+        once(empty + stages_),
+        tile_bytes(tile_bytes_),
+        stages(stages_),
+        slot_bytes(slot_bytes_) {
+    init_ring(stages, CONSUMER_WARPS, full, empty, once);
+  }
+
+  // The producer warpgroup gives registers back; its first thread copies the
+  // tile from src once (when there is one), then fills slot after slot for
+  // `count` steps: load(i, slot, bar) announces the bytes of step i on bar
+  // (mbar_expect_tx) and issues their copies.
+  template <class Load>
+  __device__ __forceinline__ void produce(const uint8_t* src, int count, Load load) const {
+    producer_registers();
+    if (threadIdx.x != 256) return;
+    if (tile_bytes > 0) {
+      mbar_expect_tx(once, tile_bytes);
+      bulk_load(tile, src, tile_bytes, once);
+    }
+    for (int i = 0; i < count; ++i) {
+      const int s = i % stages;
+      mbar_wait(&empty[s], ((i / stages) & 1) ^ 1);
+      load(i, ring + s * slot_bytes, &full[s]);
+    }
+  }
+};
+
+// The logits of one step of a wide kernel: acc = A . B^T over `slabs` items
+// of the ring from item j on (returns the next item). Item s holds B's slab s
+// (128 rows x 64 values) and, unless A is RESident, first A's slab s; a
+// resident A is the ring's tile, slab s at s x SLAB_BYTES. a_rows is the
+// calling warpgroup's place in an A slab (its 64 rows). Each item is let go
+// as soon as its products are done; the next item's products are issued
+// before that wait, so two are in flight.
+template <bool RES>
+__device__ __forceinline__ int logit_slabs(float (&acc)[64], const DynRing& r, int j, int slabs,
+                                           uint32_t a_rows) {
+  const uint32_t tile = smem_addr(r.tile) + a_rows, ring = smem_addr(r.ring);
+  fence_regs(acc);
+  for (int s = 0; s < slabs; ++s, ++j) {
+    const int st = j % r.stages;
+    mbar_wait(&r.full[st], (j / r.stages) & 1);
+    const uint32_t slot = ring + st * r.slot_bytes;
+    const uint32_t a = RES ? tile + s * SLAB_BYTES : slot + a_rows;
+    const uint32_t b = RES ? slot : slot + SLAB_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      wgmma_ss_n128(acc, kmajor_desc(a, k), kmajor_desc(b, k), (s | k) != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous item's products are done
+    if (s > 0) release(r.empty, (j - 1) % r.stages);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (slabs > 0) release(r.empty, (j - 1) % r.stages);
+  return j;
+}
+
 // The row pass's producer: the x tile once, then the split's W tiles.
 template <int KA>
 __device__ __forceinline__ void produce_row_pass(const Ring<KA>& sm, const uint8_t* ximg,
@@ -422,11 +514,11 @@ cudaError_t launch(void (*kernel)(Params...), dim3 grid, int smem, cudaStream_t 
 extern "C" {
 
 // Writes the image of the first `rows` rows of src (f32, E a multiple of 4)
-// into img (padded_rows x ek bf16, ek 64, 128 or 256) on `stream`. Returns
-// the CUDA error of the launch (0 when it was accepted).
+// into img (padded_rows x ek bf16, ek a multiple of 64 that holds E) on
+// `stream`. Returns the CUDA error of the launch (0 when it was accepted).
 int t4r_image(const float* src, int rows, int padded_rows, int E, int ek, void* img,
               void* stream) {
-  if (E < 4 || E % 4 != 0 || E > ek || (ek != 64 && ek != 128 && ek != 256) ||
+  if (E < 4 || E % 4 != 0 || E > ek || ek % 64 != 0 ||
       padded_rows % t4r::hopper::TILE != 0 || rows > padded_rows) {
     return (int)cudaErrorInvalidValue;
   }

@@ -35,8 +35,12 @@
 //   - rank_merge_kernel adds the partials of every row, in order.
 // Integer sums: the result does not depend on the order, and is the same on
 // every call.
+//
+// A table wider than 256 takes t4r_rank_wide: K1's wide kernel
+// (ce_wide.cuh: bf16 images, E in 64-value slabs, wgmma) with this kernel's
+// count, then the same merge kernel.
 
-#include "common.cuh"
+#include "ce_wide.cuh"
 
 namespace {
 
@@ -184,7 +188,8 @@ int t4r_rank_block_rows() { return t4r::BN; }
 int t4r_rank_chunk_cols() { return t4r::BV; }
 
 // Launches the partial and the merge kernel on `stream`. The caller checks
-// shapes (E a multiple of 4, at most 256), dtypes, contiguity and
+// shapes (E a multiple of 4, at most 256: wider tables take the wide entry
+// below), dtypes, contiguity and
 // alignment, and allocates every buffer: part_cnt is (splits, N), cnt (N,).
 // V may be 0 (splits = 1): every count is then 0. Returns the first CUDA
 // error (0 when both launches were accepted).
@@ -204,6 +209,25 @@ int t4r_rank(const float* x, const float* W, const int* labels, const float* ll,
   else if (E <= 128) T4R_RANK_KS(8);
   else T4R_RANK_KS(16);
 #undef T4R_RANK_KS
+  if (err != cudaSuccess) return (int)err;
+  const int merge_threads = 128;
+  rank_merge_kernel<<<(N + merge_threads - 1) / merge_threads, merge_threads, 0, st>>>(
+      part_cnt, splits, N, cnt);
+  return (int)cudaGetLastError();
+}
+
+// The same on the images of x and of W's first V rows (t4r_image, ek a
+// multiple of 64 above 256, from the launch plan with resident, row_tiles,
+// splits and chunks_per_split): the wide kernel on grid (row_tiles, splits),
+// then the merge.
+int t4r_rank_wide(const void* ximg, const void* wimg, const int* labels, const float* ll, int N,
+                  int V, int ek, int resident, int row_tiles, int splits, int chunks_per_split,
+                  int* part_cnt, int* cnt, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = t4r::wide::launch<t4r::wide::RANK, false>(
+      dim3(row_tiles, splits), st, static_cast<const uint8_t*>(ximg),
+      static_cast<const uint8_t*>(wimg), labels, ll, N, V, ek, resident, chunks_per_split,
+      nullptr, nullptr, nullptr, part_cnt, nullptr);
   if (err != cudaSuccess) return (int)err;
   const int merge_threads = 128;
   rank_merge_kernel<<<(N + merge_threads - 1) / merge_threads, merge_threads, 0, st>>>(

@@ -24,6 +24,8 @@ attention runs through the flash kernels (``ops.attention``).
 
 from __future__ import annotations
 
+from typing import Optional
+
 from .config import GPT2Config, XLNetConfig
 from .data.synthetic import synthetic_ecommerce_data_schema
 from .features import TabularSequenceFeatures
@@ -41,6 +43,10 @@ LEARNING_RATE = 6.7e-4
 WEIGHT_DECAY = 1e-4  # optax.adamw's default, which the benchmark leaves in place
 LONG_SEQ = 256
 LONG_BATCH = 32
+# the item table's width in the paper's XLNet-MLM command
+# (examples/paper_repro/README.md: --item_embedding_dim 448, tied through
+# --mf_constrained_embeddings)
+PAPER_ITEM_DIM = 448
 # masking scheme -> (architecture, masking arguments, sessions, batch)
 SCHEMES = {
     "mlm": (XLNetConfig, {"mlm_probability": MLM_PROBABILITY}, SEQ, BATCH),
@@ -63,18 +69,23 @@ def schema(num_items: int = NUM_ITEMS, seq: int = SEQ):
 def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
                 n_layer: int = N_LAYER, n_head: int = N_HEAD, seq=None,
                 seed: int = 0, top_k=None, dropout: float = 0.1,
-                vocab_parallel_group=None, scheme: str = "mlm") -> Model:
+                vocab_parallel_group=None, scheme: str = "mlm",
+                item_dim: Optional[int] = None) -> Model:
     """The flagship model with weights drawn from ``seed``, on ``device``
     (CUDA unless ``"cpu"``): XLNet-MLM on sessions of 20, or with
     ``scheme="clm"`` GPT-2-CLM on sessions of 256 (``seq`` overrides either
     length). With ``vocab_parallel_group`` (a ``torch.distributed`` process
     group) the item table is drawn whole from the seed and this rank keeps
-    its rows; loss, evaluation and top-k go over the group."""
+    its rows; loss, evaluation and top-k go over the group. ``item_dim``
+    sets the item table's width (the column's ``embedding_dims``; 64 by
+    default), to which the output is tied through a d_model→item_dim
+    projection: ``PAPER_ITEM_DIM`` is the paper's XLNet-MLM command's."""
     config, masking_kwargs, default_seq, _ = _scheme(scheme)
     seq = default_seq if seq is None else seq
     input_module = TabularSequenceFeatures.from_schema(
         schema(num_items, seq), d_output=d_model, masking=scheme, aggregation="concat",
         masking_kwargs=dict(masking_kwargs),
+        embedding_dims=None if item_dim is None else {"item_id": item_dim},
     )
     cfg = config.build(d_model=d_model, n_head=n_head, n_layer=n_layer,
                        total_seq_length=seq, dropout=dropout)

@@ -15,7 +15,9 @@ recomputes them tile by tile.
   stay under ``BWD_DQ_PARTIAL_MAX_BYTES`` and K6b + K6c above it.
 
 For CUDA tensors the four wrappers launch the hand-written kernels of
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (and raise when they cannot);
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (and raise when they cannot;
+K5 and K6a in one of two designs, ``mma.sync`` or ``wgmma``, by head dim:
+``uses_wgmma``);
 for CPU tensors they run ``flash_forward_plain``, ``flash_bwd_fused_plain``,
 ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain`` (together:
 ``flash_backward_plain``), plain PyTorch versions of the same arithmetic.
@@ -55,6 +57,8 @@ TILE = 64  # queries and keys per tile, in the kernels and the plain versions
 # two-pass kernels instead of the fused one
 BWD_DQ_PARTIAL_MAX_BYTES = 256 << 20
 _MAX_DH = 128
+# the head dims that take the Hopper (wgmma) kernels on the card
+WGMMA_MIN_DH, WGMMA_MAX_DH = 33, 64
 
 
 def reference_attention(q, k, v, bias=None, pad_mask=None, causal=False):
@@ -241,10 +245,10 @@ def flash_backward_plain(q, k, v, bias, pad_mask, causal, out, lse, d_out, fused
 # --------------------------------------------------------------- the kernels
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
-    # q k v pad bias | bias strides | out lse | B S H Dh causal | scale | stream
-    "flash_fwd": ("flash_fwd", [_P] * 5 + [_L] * 2 + [_P] * 2 + [_I] * 5 + [_F, _P]),
+    # q k v pad bias | bias strides | out lse | B S H Dh causal | scale | wgmma | stream
+    "flash_fwd": ("flash_fwd", [_P] * 5 + [_L] * 2 + [_P] * 2 + [_I] * 5 + [_F, _I, _P]),
     # q k v dO lse delta pad bias | strides | dq_part dq dk dv | ...
-    "flash_bwd_fused": ("flash_bwd", [_P] * 8 + [_L] * 2 + [_P] * 4 + [_I] * 5 + [_F, _P]),
+    "flash_bwd_fused": ("flash_bwd", [_P] * 8 + [_L] * 2 + [_P] * 4 + [_I] * 5 + [_F, _I, _P]),
     "flash_bwd_dq": ("flash_bwd", [_P] * 8 + [_L] * 2 + [_P] * 1 + [_I] * 5 + [_F, _P]),
     "flash_bwd_dkv": ("flash_bwd", [_P] * 8 + [_L] * 2 + [_P] * 2 + [_I] * 5 + [_F, _P]),
 }
@@ -313,24 +317,40 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, q: torch.Tensor, args_before, args_after, causal: bool) -> None:
+def _launch(name: str, q: torch.Tensor, args_before, args_after, causal: bool,
+            extra=()) -> None:
     """Call the C function of ``name`` on q's device and current stream."""
     lib, fn = _entry(name)
     B, S, H, Dh = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*args_before, *args_after, B, S, H, Dh, int(causal), Dh ** -0.5, stream)
+        err = fn(*args_before, *args_after, B, S, H, Dh, int(causal), Dh ** -0.5, *extra, stream)
     raise_on_error(lib, err, name)
 
 
-def _flash_fwd_cuda(q, k, v, bias, pad_mask, causal):
+def uses_wgmma(head_dim: int) -> bool:
+    """Which design of K5 and K6a a head dim takes on the card: the Hopper
+    kernels (``wgmma`` from a ring of 128-row tiles, the head dim padded to
+    64) from ``WGMMA_MIN_DH`` to ``WGMMA_MAX_DH``, the ``mma.sync`` kernels
+    of 64-row tiles (the head dim padded to 16, 32, 64 or 128) elsewhere.
+    Below 33 the ``mma.sync`` kernels are the faster at sessions of 256;
+    above 64 K6a has no Hopper kernel (its consumers would not hold dk and
+    dv of 128 values), and K5 takes the same design as K6a (``PERF.md`` §6
+    has the times of both). Both designs keep dq partials of ``TILE``
+    keys."""
+    return WGMMA_MIN_DH <= head_dim <= WGMMA_MAX_DH
+
+
+def _flash_fwd_cuda(q, k, v, bias, pad_mask, causal, wgmma: Optional[bool] = None):
+    """K5 on the card; ``wgmma`` picks the design (by default ``uses_wgmma``)."""
     strides, pad = _check_cuda_inputs("flash_fwd", {"q": q, "k": k, "v": v}, {}, bias, pad_mask)
-    B, S, H, _ = q.shape
+    B, S, H, Dh = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    wgmma = uses_wgmma(Dh) if wgmma is None else wgmma
     _launch("flash_fwd", q,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad), _ptr(bias), *strides),
-            (out.data_ptr(), lse.data_ptr()), causal)
+            (out.data_ptr(), lse.data_ptr()), causal, (int(wgmma),))
     flash_fwd.launches += 1
     return out, lse
 
@@ -347,13 +367,18 @@ def dq_partial_bytes(q: torch.Tensor) -> int:
     return -(-q.shape[1] // TILE) * q.numel() * 4
 
 
-def _flash_bwd_fused_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal):
+def _flash_bwd_fused_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal,
+                          wgmma: Optional[bool] = None):
+    """K6a on the card; ``wgmma`` picks the design (by default
+    ``uses_wgmma``; the Hopper design takes head dims up to 64)."""
     args = _bwd_cuda_args("flash_bwd_fused", q, k, v, d_out, lse, delta, bias, pad_mask)
+    wgmma = uses_wgmma(q.shape[3]) if wgmma is None else wgmma
     # every element that the reduce reads is written by the kernel before it
     part = torch.empty(dq_partial_bytes(q) // 4, dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     _launch("flash_bwd_fused", q, args,
-            (part.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr()), causal)
+            (part.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr()), causal,
+            (int(wgmma),))
     flash_bwd_fused.launches += 1
     return dq, dk, dv
 

@@ -25,7 +25,9 @@ launch the hand-written kernels ``csrc/ce_fwd.cu``, ``csrc/ce_bwd.cu``,
 CPU tensors they run ``ce_fwd_plain``, ``ce_bwd_plain``, ``ce_rank_plain``
 and ``rank_counts_plain``, the plain PyTorch versions of the same
 arithmetic. All round x and W to bf16 and accumulate in f32, as the
-reference does. Each wrapper counts its launches in ``<wrapper>.launches``.
+reference does, at any width E (a multiple of 4): past what the narrow
+kernels hold whole they take the wide ones (``ce_plan``). Each wrapper counts
+its launches in ``<wrapper>.launches``.
 
 ``vocab_size`` bounds the softmax when the table carries padding rows, and
 may be 0 (a vocab-parallel shard wholly beyond the true vocab): every lse is
@@ -48,8 +50,6 @@ import torch
 from .build import raise_on_error
 
 NEG = -1e30
-_MAX_E = 256
-_MAX_E_BWD = 128
 
 
 def _lse(m: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -171,7 +171,7 @@ def ce_rank_plain(
     return _lse(m, s), cnt, (zs.float() if smooth else None)
 
 
-def _check_cuda_inputs(op: str, x, W, vocab_size: int, max_e: int,
+def _check_cuda_inputs(op: str, x, W, vocab_size: int,
                        rows: Dict[str, Tuple[torch.Tensor, torch.dtype]]) -> None:
     """Raise on what the kernels do not take. ``rows`` are the (N,) tensors
     of the call, each with the type it must have."""
@@ -191,8 +191,8 @@ def _check_cuda_inputs(op: str, x, W, vocab_size: int, max_e: int,
     for name, (t, _) in rows.items():
         if t.shape != (N,):
             raise ValueError(f"{op}: {name} must be (N,), got {tuple(t.shape)}")
-    if N < 1 or E % 4 or not 4 <= E <= max_e:
-        raise ValueError(f"{op}: needs N >= 1 and E a multiple of 4 in [4, {max_e}], "
+    if N < 1 or E % 4 or E < 4:
+        raise ValueError(f"{op}: needs N >= 1 and E a multiple of 4, at least 4, "
                          f"got N={N}, E={E}")
     if not 0 <= vocab_size <= W.shape[0]:
         raise ValueError(f"{op}: vocab_size {vocab_size} outside [0, {W.shape[0]}]")
@@ -203,9 +203,16 @@ def _check_cuda_inputs(op: str, x, W, vocab_size: int, max_e: int,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "ce_rank": [_P] * 4 + [_I] * 5 + [_P] * 7 + [_I, _P],
-    "ce_fwd": [_P] * 3 + [_I] * 7 + [_P] * 7 + [_I, _P],
-    "ce_bwd": [_P] * 6 + [_I] * 7 + [_F] * 2 + [_I] * 2 + [_P] * 5,
+    "ce_fwd": [_P] * 3 + [_I] * 8 + [_P] * 7 + [_I, _P],
+    "ce_bwd": [_P] * 6 + [_I] * 9 + [_F] * 2 + [_I] * 2 + [_P] * 5,
     "rank": [_P] * 4 + [_I] * 5 + [_P] * 3,
+}
+# K3 and K4 on tables wider than 256: K1's wide kernel with their epilogue,
+# on the images (ximg, wimg, labels, ll, N, V, ek, resident, row_tiles,
+# splits, chunks_per_split, partials..., outputs..., [smooth,] stream)
+_WIDE_ARGTYPES = {
+    "ce_rank": [_P] * 4 + [_I] * 7 + [_P] * 7 + [_I, _P],
+    "rank": [_P] * 4 + [_I] * 7 + [_P] * 3,
 }
 
 
@@ -217,9 +224,10 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
     if not getattr(lib, "_t4r_typed", False):
         entry = getattr(lib, f"t4r_{name}")
         entry.argtypes, entry.restype = _ARGTYPES[name], _I
-        if name in ("ce_fwd", "ce_bwd"):
-            lib.t4r_image.argtypes, lib.t4r_image.restype = [_P] + [_I] * 4 + [_P] * 2, _I
-        else:  # K3 and K4: row tiles of CE_TILE too, chunks of their own width
+        lib.t4r_image.argtypes, lib.t4r_image.restype = [_P] + [_I] * 4 + [_P] * 2, _I
+        if name in _WIDE_ARGTYPES:  # K3 and K4: row tiles of CE_TILE too, chunks of their own width
+            wide = getattr(lib, f"t4r_{name}_wide")
+            wide.argtypes, wide.restype = _WIDE_ARGTYPES[name], _I
             for what in ("block_rows", "chunk_cols"):
                 fn = getattr(lib, f"t4r_{name}_{what}")
                 fn.argtypes, fn.restype = [], _I
@@ -234,6 +242,12 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
 # --------------------------------------------------- the vocab kernels' launch plan
 CE_TILE = 128  # rows of x or of W in a tile of their bf16 images (csrc/hopper.cuh)
 CE_SLAB = 64   # bf16 values in one 128-byte swizzled row of a tile
+# the widest E each narrow kernel holds whole: K1, K3 and K4 up to four slabs,
+# K2 up to two (csrc/ce_fwd.cu, ce_rank.cu, rank.cu; ce_bwd.cu)
+NARROW_E, NARROW_E_BWD = 4 * CE_SLAB, 2 * CE_SLAB
+# a wide forward keeps its x tile in shared memory up to 8 slabs (128 KB),
+# beside a ring of at least 6 slots (csrc/ce_wide.cuh)
+RESIDENT_SLABS = 8
 
 
 @dataclass(frozen=True)
@@ -245,7 +259,15 @@ class CEPlan:
     ``chunk_cols`` vocab columns. K1 and K2 (128-row tiles and chunks) first
     round x and the table to bf16 into images of ``CE_TILE``-row tiles, each
     row padded with zeros to ``ek`` values; K2's dW pass runs a block per tile
-    of the table (``table_tiles``). K3 and K4 take only the split."""
+    of the table (``table_tiles``). K3 and K4 take only the split, but for a
+    ``wide`` table, where they run K1's wide kernel on the images too.
+
+    ``wide``: E beyond what the narrow kernel holds whole (``NARROW_E``, or
+    ``NARROW_E_BWD`` for K2). The wide kernels walk E in ``slabs`` slabs of 64
+    per 128-column chunk; a wide forward keeps its x tile ``resident`` in
+    shared memory up to ``RESIDENT_SLABS`` slabs and streams it with the
+    table otherwise; a wide K2 streams both and runs ``e_splits`` blocks per
+    tile, each owning 128 columns of dx or dW and recomputing the logits."""
 
     n: int
     e: int
@@ -256,16 +278,24 @@ class CEPlan:
     splits: int
     chunks_per_split: int
     backward: bool
+    wide: bool
+    slabs: int
+    e_splits: int
+    resident: bool
+
+    def images(self, device) -> Dict[str, torch.Tensor]:
+        """The bf16 images of x and of the table, uninitialised."""
+        return {"ximg": torch.empty((self.row_tiles * CE_TILE, self.ek), dtype=torch.bfloat16,
+                                    device=device),
+                "wimg": torch.empty((self.table_tiles * CE_TILE, self.ek),
+                                    dtype=torch.bfloat16, device=device)}
 
     def scratch(self, device, smooth: bool = False) -> Dict[str, torch.Tensor]:
         """K1's or K2's scratch, uninitialised (the kernels write every
         element): the images of x and of the table, and K2's row table
         (lse, coef, label per row) and per-split dx partials, or K1's (max,
         sum, label logit) f32 and zsum f64 per split and row."""
-        out = {"ximg": torch.empty((self.row_tiles * CE_TILE, self.ek), dtype=torch.bfloat16,
-                                   device=device),
-               "wimg": torch.empty((self.table_tiles * CE_TILE, self.ek), dtype=torch.bfloat16,
-                                   device=device)}
+        out = self.images(device)
         if self.backward:
             out["info"] = torch.empty((self.row_tiles * CE_TILE, 4), dtype=torch.float32,
                                       device=device)
@@ -284,23 +314,36 @@ def ce_plan(n: int, e: int, vocab_size: int, table_rows: int, sms: int, backward
     """The launch plan of a vocab kernel for ``n`` rows of width ``e``
     against a table of ``table_rows`` rows whose first ``vocab_size`` are the
     vocab, on a card with ``sms`` SMs: K1 (``backward=False``), K2, or with
-    their ``chunk_cols`` K3 and K4.
+    their narrow ``chunk_cols`` K3 and K4 (a wide K3 or K4 takes K1's
+    128-column chunks).
 
     The vocab is split until about two blocks per SM exist: every row tile
     walks a split of the chunks, and the splits' partials stay within
     ``2 * sms * CE_TILE`` rows (or ``n`` rows, with one split). An empty vocab
-    gets one empty split. ``ek`` is the width of a ``wgmma`` operand that
-    holds ``e``: 64, 128 or 256 (one, two or four 64-value slabs). K1's
-    table image needs only the vocab's chunks; K2's dW pass covers every row
-    of the table."""
-    ek = 64 if e <= 64 else 128 if e <= 128 else 256
+    gets one empty split. ``ek`` is the width of the images: for the narrow
+    kernels that of a ``wgmma`` operand that holds ``e`` (64, 128 or 256:
+    one, two or four 64-value slabs), for a wide forward ``e`` rounded up to
+    a slab, for a wide K2 to two slabs (its blocks own 128 columns each).
+    K1's table image needs only the vocab's chunks; K2's dW pass covers every
+    row of the table."""
+    wide = e > (NARROW_E_BWD if backward else NARROW_E)
+    if wide:
+        chunk_cols = CE_TILE
+        step = 2 * CE_SLAB if backward else CE_SLAB
+        ek = -(-e // step) * step
+        slabs = -(-e // CE_SLAB)
+    else:
+        ek = 64 if e <= 64 else 128 if e <= 128 else 256
+        slabs = ek // CE_SLAB
     row_tiles = -(-n // CE_TILE)
     chunks = -(-vocab_size // chunk_cols)
     per_split = -(-max(1, chunks) // max(1, (2 * sms) // row_tiles))
-    table_tiles = -(-table_rows // CE_TILE) if backward else chunks
+    table_tiles = -(-(table_rows if backward else vocab_size) // CE_TILE)
     return CEPlan(n=n, e=e, ek=ek, row_tiles=row_tiles, chunks=chunks, table_tiles=table_tiles,
                   splits=-(-max(1, chunks) // per_split), chunks_per_split=per_split,
-                  backward=backward)
+                  backward=backward, wide=wide, slabs=slabs,
+                  e_splits=ek // (2 * CE_SLAB) if wide and backward else 1,
+                  resident=not wide or (not backward and slabs <= RESIDENT_SLABS))
 
 
 def swizzled_image_index(rows: int, ek: int) -> torch.Tensor:
@@ -333,8 +376,15 @@ def _write_image(lib: ctypes.CDLL, src: torch.Tensor, rows: int, img: torch.Tens
     raise_on_error(lib, err, "image")
 
 
+def _write_images(lib: ctypes.CDLL, x, W, table_rows: int, buf, stream) -> None:
+    """The images of x and of the table's first ``table_rows`` rows, at the
+    width of ``buf``'s images."""
+    _write_image(lib, x, x.shape[0], buf["ximg"], stream)
+    _write_image(lib, W, table_rows, buf["wimg"], stream)
+
+
 def _ce_rank_cuda(x, W, labels, ll, vocab_size, smooth):
-    _check_cuda_inputs("ce_rank", x, W, vocab_size, _MAX_E,
+    _check_cuda_inputs("ce_rank", x, W, vocab_size,
                        {"labels": (labels, torch.int32), "ll": (ll, torch.float32)})
     lib = _kernel_lib("ce_rank")
     N, E = x.shape
@@ -348,21 +398,28 @@ def _ce_rank_cuda(x, W, labels, ll, vocab_size, smooth):
     lse = torch.empty(N, dtype=torch.float32, device=dev)
     rank = torch.empty(N, dtype=torch.int32, device=dev)
     zsum = torch.empty(N if smooth else 1, dtype=torch.float32, device=dev)
+    outs = (part_m.data_ptr(), part_s.data_ptr(), part_cnt.data_ptr(), part_zs.data_ptr(),
+            lse.data_ptr(), rank.data_ptr(), zsum.data_ptr(), int(smooth))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.t4r_ce_rank(
-            x.data_ptr(), W.data_ptr(), labels.data_ptr(), ll.data_ptr(),
-            N, E, vocab_size, splits, per_split,
-            part_m.data_ptr(), part_s.data_ptr(), part_cnt.data_ptr(), part_zs.data_ptr(),
-            lse.data_ptr(), rank.data_ptr(), zsum.data_ptr(), int(smooth), stream,
-        )
+        if plan.wide:  # K1's wide kernel with K3's epilogue, on the images
+            buf = plan.images(dev)
+            _write_images(lib, x, W, vocab_size, buf, stream)
+            err = lib.t4r_ce_rank_wide(
+                buf["ximg"].data_ptr(), buf["wimg"].data_ptr(), labels.data_ptr(),
+                ll.data_ptr(), N, vocab_size, plan.ek, int(plan.resident), plan.row_tiles,
+                splits, per_split, *outs, stream)
+        else:
+            err = lib.t4r_ce_rank(
+                x.data_ptr(), W.data_ptr(), labels.data_ptr(), ll.data_ptr(),
+                N, E, vocab_size, splits, per_split, *outs, stream)
     raise_on_error(lib, err, "ce_rank")
     ce_rank.launches += 1
     return lse, rank, (zsum if smooth else None)
 
 
 def _ce_fwd_cuda(x, W, labels, vocab_size, smooth):
-    _check_cuda_inputs("ce_fwd", x, W, vocab_size, _MAX_E, {"labels": (labels, torch.int32)})
+    _check_cuda_inputs("ce_fwd", x, W, vocab_size, {"labels": (labels, torch.int32)})
     lib = _kernel_lib("ce_fwd")
     N = x.shape[0]
     dev = x.device
@@ -374,11 +431,10 @@ def _ce_fwd_cuda(x, W, labels, vocab_size, smooth):
     zsum = torch.empty(N if smooth else 1, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _write_image(lib, x, N, buf["ximg"], stream)
-        _write_image(lib, W, vocab_size, buf["wimg"], stream)
+        _write_images(lib, x, W, vocab_size, buf, stream)
         err = lib.t4r_ce_fwd(
             buf["ximg"].data_ptr(), buf["wimg"].data_ptr(), labels.data_ptr(),
-            N, vocab_size, W.shape[0], plan.ek, plan.row_tiles, plan.splits,
+            N, vocab_size, W.shape[0], plan.ek, int(plan.resident), plan.row_tiles, plan.splits,
             plan.chunks_per_split, part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
             buf["part_zs"].data_ptr(), lse.data_ptr(), ll.data_ptr(), zsum.data_ptr(),
             int(smooth), stream,
@@ -389,7 +445,7 @@ def _ce_fwd_cuda(x, W, labels, vocab_size, smooth):
 
 
 def _ce_bwd_cuda(x, W, labels, lse, coef, vocab_size, eps, eps_over_v):
-    _check_cuda_inputs("ce_bwd", x, W, vocab_size, _MAX_E_BWD,
+    _check_cuda_inputs("ce_bwd", x, W, vocab_size,
                        {"labels": (labels, torch.int32), "lse": (lse, torch.float32),
                         "coef": (coef, torch.float32)})
     lib = _kernel_lib("ce_bwd")
@@ -403,12 +459,11 @@ def _ce_bwd_cuda(x, W, labels, lse, coef, vocab_size, eps, eps_over_v):
     dW = torch.empty(W.shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _write_image(lib, x, N, buf["ximg"], stream)
-        _write_image(lib, W, W.shape[0], buf["wimg"], stream)
+        _write_images(lib, x, W, W.shape[0], buf, stream)
         err = lib.t4r_ce_bwd(
             buf["ximg"].data_ptr(), buf["wimg"].data_ptr(), W.data_ptr(), labels.data_ptr(),
             lse.data_ptr(), coef.data_ptr(), N, E, vocab_size, W.shape[0], plan.ek,
-            plan.row_tiles, plan.table_tiles, float(eps), float(eov), plan.splits,
+            plan.slabs, plan.e_splits, plan.row_tiles, plan.table_tiles, float(eps), float(eov), plan.splits,
             plan.chunks_per_split, buf["info"].data_ptr(), buf["part_dx"].data_ptr(),
             dx.data_ptr(), dW.data_ptr(), stream,
         )
@@ -512,10 +567,6 @@ def fused_softmax_ce(
     zero gradient. ``weights`` and ``labels`` get no gradient: the weights
     are a validity mask."""
     V = W.shape[0] if vocab_size is None else int(vocab_size)
-    if x.device.type != "cpu" and x.shape[-1] > _MAX_E_BWD:
-        # the forward kernel takes E up to 256: refuse here, not in backward()
-        raise ValueError(f"fused_softmax_ce: the backward kernel takes E up to {_MAX_E_BWD}, "
-                         f"got {x.shape[-1]}")
     return _FusedSoftmaxCE.apply(x, W, labels.to(torch.int32).contiguous(),
                                  weights.detach(), V, label_smoothing)
 
@@ -608,7 +659,7 @@ def rank_counts_plain(
 
 
 def _rank_cuda(x, W, ll, labels, vocab_size):
-    _check_cuda_inputs("rank_counts", x, W, vocab_size, _MAX_E,
+    _check_cuda_inputs("rank_counts", x, W, vocab_size,
                        {"labels": (labels, torch.int32), "ll": (ll, torch.float32)})
     lib = _kernel_lib("rank")
     N, E = x.shape
@@ -619,11 +670,19 @@ def _rank_cuda(x, W, ll, labels, vocab_size):
     cnt = torch.empty(N, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.t4r_rank(
-            x.data_ptr(), W.data_ptr(), labels.data_ptr(), ll.data_ptr(),
-            N, E, vocab_size, splits, per_split,
-            part_cnt.data_ptr(), cnt.data_ptr(), stream,
-        )
+        if plan.wide:  # K1's wide kernel with K4's epilogue, on the images
+            buf = plan.images(dev)
+            _write_images(lib, x, W, vocab_size, buf, stream)
+            err = lib.t4r_rank_wide(
+                buf["ximg"].data_ptr(), buf["wimg"].data_ptr(), labels.data_ptr(),
+                ll.data_ptr(), N, vocab_size, plan.ek, int(plan.resident), plan.row_tiles,
+                splits, per_split, part_cnt.data_ptr(), cnt.data_ptr(), stream)
+        else:
+            err = lib.t4r_rank(
+                x.data_ptr(), W.data_ptr(), labels.data_ptr(), ll.data_ptr(),
+                N, E, vocab_size, splits, per_split,
+                part_cnt.data_ptr(), cnt.data_ptr(), stream,
+            )
     raise_on_error(lib, err, "rank")
     rank_counts.launches += 1
     return cnt
