@@ -108,9 +108,12 @@ also goes to FILE when one is named. ``--profile-train-streamed [FILE]``
 does the same with the streamed table update, ``--profile-train-clm [FILE]``
 with GPT-2-CLM on batches of 32 sessions of up to 256 (the path on which
 K1 and K2 take most of the device's time). ``--time-ce`` checks and times
-K1 and K2 alone at the three training shapes, ``--time-flash`` K5 and K6a
-alone in both their designs at the CLM shape, at (4, 2048, 8, 64) and where
-the designs meet (head dims 32, 48 and 128).
+K3 alone at the evaluation shape at E = 64, 128 and 256 (with its ring's
+depth and, from ``torch.profiler``, the device time of each of its two
+kernels) and K1 and K2 alone at the three training shapes, ``--time-flash``
+K5, K6a and K6c alone in both their designs at the CLM shape, at the
+S = 4,096 step's, at (4, 2048, 8, 64) and where the designs meet (head dims
+32, 48 and 128).
 """
 
 from __future__ import annotations
@@ -194,6 +197,28 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def kernel_us(fn, reps: int = 20) -> dict:
+    """Device microseconds per call of ``fn``, by kernel name, from
+    ``torch.profiler`` over ``reps`` calls after a warm-up: which of a
+    wrapper's kernels takes the time (K3's partial kernel against its
+    merge)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        total = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if total:
+            out[ev.key] = total / reps
+    return out
 
 
 # ----------------------------------------------------------------- K3 check
@@ -641,6 +666,12 @@ def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged:
                             reps=reps)
             for design in ("mma.sync", "wgmma")}
     res["flash_bwd_fused"]["design"] = res["flash_fwd"]["design"]
+    if Dh <= fa.DKV_STREAM_MAX_DH:  # K6c's streamed design takes head dims up to 32
+        res["flash_bwd_dkv"]["designs_ms"] = {
+            design: cuda_ms(lambda: fa._flash_bwd_dkv_cuda(*args, streamed=design == "streamed"),
+                            reps=reps)
+            for design in ("mma.sync", "streamed")}
+    res["flash_bwd_dkv"]["design"] = "streamed" if fa.uses_dkv_stream(Dh) else "mma.sync"
     for r in res.values():
         r["shape"] = name
         r["pairs"] = pairs
@@ -1449,6 +1480,10 @@ def time_ce_train(vocab, n: int, rows: int, vocab_size: int, chunk_rows: int = 0
 
 
 def time_ce_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64) -> dict:
+    """K3 beside its plain version and a library yardstick that materialises
+    the (N, V) logits; with the launch plan's ring (``stages`` slots of
+    ``slot_rows`` rows a block, ``blocks_per_sm``; none past E = 256, where
+    the wide kernel runs) and splits."""
     x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, 4.0, 12.0, 1, "cuda")
     ll = vocab.label_logits(x, W, labels)
     xb16 = x.to(torch.bfloat16)
@@ -1465,8 +1500,12 @@ def time_ce_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64) -> dict
     # least work: read x, the vocab_size used rows of W, labels and ll once,
     # write lse and rank once; 2·N·E·V operations of the product and N·V
     # exponentials
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = vocab.ce_plan(n, E, vocab_size, rows, sms, False, vocab.K3_CHUNK, streamed=True)
     return {
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "N": n, "E": E,
+        "stages": plan.stages or None, "slot_rows": None if plan.wide else vocab.k3_slot(E)[0],
+        "blocks_per_sm": None if plan.wide else plan.blocks_per_sm, "splits": plan.splits,
         **bound(4 * (n * E + vocab_size * E + 2 * n) + 4 * 2 * n, 2 * n * E * vocab_size,
                 n * vocab_size),
     }
@@ -1609,16 +1648,27 @@ def profile_train(card: str, out_file: str = "", streamed: bool = False,
 
 
 def time_ce_kernels(card: str) -> None:
-    """K1 and K2 alone at the three training shapes (915, 8,192 and 16,384
-    loss rows against the REES46 table), each held against its plain
-    version (``check_ce_train``) and timed (``time_ce_train``) as the smoke
-    run does: the quick loop for work on these two kernels."""
+    """K3 alone at the evaluation shape (128 rows against the REES46 table)
+    at E = 64, 128 and 256 (the narrow kernel's widths), then K1 and K2 at
+    the three training shapes (915, 8,192 and 16,384 loss rows), each held
+    against its plain version (``check_ce_rank``, ``check_ce_train``) and
+    timed (``time_ce_rank``, ``time_ce_train``) as the smoke run does: the
+    quick loop for work on these kernels."""
     from transformers4rec_tpu_torch import flagship
     from transformers4rec_tpu_torch.ops import build, vocab
 
-    build.build(["ce_fwd", "ce_bwd"])
+    build.build(["ce_rank", "ce_fwd", "ce_bwd"])
     vocab_size = flagship.NUM_ITEMS + 1
     rows = -(-vocab_size // 8) * 8
+    for e in (64, 128, 256):
+        check_ce_rank(f"eval-{e}", EVAL_ROWS, rows, vocab_size, False, 4.0, 12.0, [1], e=e)
+        timing = time_ce_rank(vocab, EVAL_ROWS, rows, vocab_size, e=e)
+        x, W, labels = ce_rank_inputs(EVAL_ROWS, rows, vocab_size, e, 4.0, 12.0, 1, "cuda")
+        ll = vocab.label_logits(x, W, labels)
+        timing["kernel_us"] = kernel_us(lambda: vocab.ce_rank(x, W, labels, ll, vocab_size))
+        print(f"[time-ce] ce_rank on {card}: {json.dumps(timing)}", flush=True)
+        del x, W
+        torch.cuda.empty_cache()
     for name, n, seed in (("train", 915, 11),
                           ("clm", flagship.LONG_BATCH * flagship.LONG_SEQ, 13),
                           ("long_step", LONG_STEP_BATCH * LONG_STEP_SEQ, 14)):
@@ -1629,17 +1679,21 @@ def time_ce_kernels(card: str) -> None:
 
 
 def time_flash_kernels(card: str) -> None:
-    """K5 and K6a alone at the CLM path's shape (32, 256, 16, 12) with
-    ragged padding and at (4, 2048, 8, Dh) for Dh = 64 and, where the two
+    """K5, K6a and K6c alone at the CLM path's shape (32, 256, 16, 12) with
+    ragged padding, at the S = 4,096 step's (4, 4096, 16, 12) with ragged
+    padding and at (4, 2048, 8, Dh) for Dh = 64 and, where the two
     designs meet, at (32, 256, 16, Dh) for Dh = 32 and 48 and at
     (4, 2048, 8, Dh) for Dh = 32, 48 and 128, all causal: each held against its plain
     version (``check_flash``) and timed in both designs beside
     ``scaled_dot_product_attention`` (``time_flash``): the quick loop for
-    work on them, and the times that ``ops/attention.py:uses_wgmma`` keeps."""
+    work on them, and the times that ``ops/attention.py:uses_wgmma`` and
+    ``uses_dkv_stream`` keep."""
     from transformers4rec_tpu_torch.ops import build
 
     build.build(["flash_fwd", "flash_bwd"])
     for name, dims, ragged, seed in (("main", (32, 256, 16, 12), True, 21),
+                                     ("long_step", (LONG_STEP_BATCH, LONG_STEP_SEQ, 16, 12),
+                                      True, 24),
                                      ("long", (4, 2048, 8, 64), False, 23),
                                      ("main_dh32", (32, 256, 16, 32), True, 28),
                                      ("main_dh48", (32, 256, 16, 48), True, 29),
@@ -1649,6 +1703,7 @@ def time_flash_kernels(card: str) -> None:
         check_flash(name, *dims, True, seed, ragged=ragged)
         timing = time_flash(name, *dims, True, ragged, 30)
         keep = ("ms", "bound_ms", "library_ms", "design", "designs_ms")
+        torch.cuda.empty_cache()
         print(f"[time-flash] {name} {dims} on {card}: "
               f"{json.dumps({k: {f: v[f] for f in keep if f in v} for k, v in timing.items()})}",
               flush=True)
@@ -1942,7 +1997,8 @@ def main() -> None:
         "replaces": replaces,
         "launches": launches[name],
         "max_abs_err": errors[name],
-        **{k: timing[name][k] for k in TIMING_KEYS + ("N", "E", "shape", "design", "designs_ms")
+        **{k: timing[name][k] for k in TIMING_KEYS + ("N", "E", "shape", "design", "designs_ms",
+                                                      "stages")
            if k in timing[name]},
         "also_at": [{k: t[k] for k in t
                      if k in TIMING_KEYS + ("N", "E", "shape", "library_chunked_ms", "recompute",

@@ -204,6 +204,21 @@ def test_backward_routes_by_the_size_of_the_dq_partials(monkeypatch):
 ])
 def test_each_head_dim_takes_the_design_its_times_chose(head_dim, wgmma):
     assert attn.uses_wgmma(head_dim) == wgmma
+    # K6c: the streamed design up to 32 (the CLM path's 12 and the S = 4,096
+    # step), the mma.sync body that K6a shares above
+    assert attn.uses_dkv_stream(head_dim) == (head_dim <= 32)
+
+
+@pytest.mark.parametrize("heads,key_tiles", [(1, 1), (3, 5), (64, 32)])
+def test_streamed_dkv_blocks_take_every_key_tile_once_longest_first(heads, key_tiles):
+    """The streamed K6c's launch order is a permutation of the (batch·head,
+    key tile) pairs, and under the causal mask no block has fewer query
+    steps than one launched after it."""
+    order = attn.dkv_block_order(heads, key_tiles)
+    assert sorted(order) == [(bh, kt) for bh in range(heads) for kt in range(key_tiles)]
+    S = key_tiles * attn.DKV_STREAM_KEYS
+    steps = [S // attn.TILE - kt * attn.DKV_STREAM_KEYS // attn.TILE for _, kt in order]
+    assert steps == sorted(steps, reverse=True)
 
 
 def test_cuda_tensors_never_take_the_plain_versions(monkeypatch):

@@ -115,6 +115,60 @@ def test_ce_rank_kernel_rejects_what_it_does_not_take(dev, bad):
         vocab.ce_rank(x, W, labels, ll, vocab_size)
 
 
+@pytest.mark.parametrize("n,e,vocab_size", [
+    (77, 64, 16_955),     # N off a 16-row boundary; V off the chunk and the last split 1 chunk
+    (128, 256, 16_955),   # the widest narrow E: 32-row slots, V off them too
+    (130, 20, 33_001),    # two row tiles, E off every k-step
+])
+def test_streamed_ce_rank_kernel_matches_plain_at_its_edges(dev, n, e, vocab_size):
+    """K3's streamed kernel where its ring meets the shapes' edges: partial
+    slots and splits of uneven length (the last of them one chunk long on a
+    132-SM card), against the plain version, with the same bits twice."""
+    x, W, labels, ll = _inputs(n, e, vocab_size + 3, vocab_size, n + e + 1, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = vocab.ce_plan(n, e, vocab_size, W.shape[0], sms, False, vocab.K3_CHUNK, streamed=True)
+    assert plan.stages >= vocab.K3_MIN_STAGES
+    lib = vocab._kernel_lib("ce_rank")
+    assert lib.t4r_ce_rank_smem(e, plan.stages) == plan.smem
+    got = vocab.ce_rank(x, W, labels, ll, vocab_size, smooth=True)
+    again = vocab.ce_rank(x, W, labels, ll, vocab_size, smooth=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    lse_p, rank_p, zs_p = vocab.ce_rank_plain(x, W, labels, ll, vocab_size, True)
+    torch.testing.assert_close(got[0], lse_p, rtol=1e-5, atol=0)
+    assert int((got[1].long() - rank_p.long()).abs().max()) <= 1
+    scale = zs_p.abs().clamp_min(math.sqrt(vocab_size))
+    assert float(((got[2] - zs_p).abs() / scale).max()) <= 1e-5
+
+
+def test_streamed_ce_rank_kernel_gives_the_same_bits_twice_at_the_evaluation_shape(dev):
+    x, W, labels, ll = _inputs(128, 64, 390_008, 390_001, 3, dev)
+    first = vocab.ce_rank(x, W, labels, ll, 390_001)
+    second = vocab.ce_rank(x, W, labels, ll, 390_001)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    lse_p, rank_p, _ = vocab.ce_rank_plain(x, W, labels, ll, 390_001, False)
+    torch.testing.assert_close(first[0], lse_p, rtol=1e-5, atol=0)
+    assert int((first[1].long() - rank_p.long()).abs().max()) <= 1
+
+
+def test_ce_rank_kernel_refuses_a_ring_the_plan_would_not_give(dev):
+    x, W, labels, ll = _inputs(8, 64, 512, 500, 7, dev)
+    lib = vocab._kernel_lib("ce_rank")
+    out = [torch.empty(8, device=dev) for _ in range(2)] + [
+        torch.empty(8, dtype=torch.int32, device=dev), torch.empty(8, dtype=torch.float64,
+                                                                     device=dev),
+        torch.empty(8, device=dev), torch.empty(8, dtype=torch.int32, device=dev),
+        torch.empty(8, device=dev)]
+    ptrs = [t.data_ptr() for t in out]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for stages, smem in ((2, lib.t4r_ce_rank_smem(64, 2)), (4, lib.t4r_ce_rank_smem(64, 4) + 16),
+                         (40, lib.t4r_ce_rank_smem(64, 40))):
+        err = lib.t4r_ce_rank(x.data_ptr(), W.data_ptr(), labels.data_ptr(), ll.data_ptr(), 8,
+                              64, 500, 1, 8, stages, smem, *ptrs, 0, stream)
+        assert err != 0
+
+
 # ------------------------------------------------------------------ K1 / K2
 CE_SHAPES = [
     (1, 64, 1008, 1001, 0.0),        # one row, a vocab bound inside a chunk
@@ -530,6 +584,18 @@ def test_flash_backward_kernels_match_plain(dev, shape, design):
     assert float((mma[0] - split[0]).abs().max() / split[0].abs().max()) <= 1e-5
     for a, b in zip(mma[1:], split[1:]):
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-6
+    if attn.uses_dkv_stream(q.shape[3]):
+        # K6c's mma.sync body, which the streamed design replaces here: the same sums
+        old = attn._flash_bwd_dkv_cuda(*args, streamed=False)
+        for a, b in zip(old, split[1:]):
+            assert float((a - b).abs().max() / b.abs().max()) <= 1e-6
+
+
+def test_streamed_dkv_refuses_head_dims_above_32(dev):
+    q = torch.zeros(1, 128, 2, 36, device=dev)
+    rows = torch.zeros(2, 128, device=dev)
+    with pytest.raises(RuntimeError):
+        attn._flash_bwd_dkv_cuda(q, q, q, q, rows, rows, None, None, True, streamed=True)
 
 
 def test_flash_attention_on_the_card_matches_the_cpu(dev):

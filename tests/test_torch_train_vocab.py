@@ -207,6 +207,25 @@ def test_ce_plan_covers_every_tile_and_chunk_once(n, vocab_size, backward):
     per_row = (e * 4 + 16) if backward else 20
     partial_bytes = sum(t.nbytes for k, t in scratch.items() if k not in ("ximg", "wimg"))
     assert partial_bytes <= max(2 * SMS * tile, n) * per_row + tile * 16
+    if backward:
+        return
+    # K3's narrow kernel: its 64-row chunks, each met once by every row tile,
+    # about one or two blocks per SM, and a ring of at least 4 slots whose
+    # blocks fit the card's shared memory side by side
+    for e3 in (16, 64, 128, 256):
+        k3 = vocab.ce_plan(n, e3, vocab_size, table_rows, SMS, False, vocab.K3_CHUNK,
+                           streamed=True)
+        assert k3.chunks * vocab.K3_CHUNK >= vocab_size > (k3.chunks - 1) * vocab.K3_CHUNK
+        cps = k3.chunks_per_split
+        ranges = [(s * cps, min((s + 1) * cps, k3.chunks)) for s in range(k3.splits)]
+        assert [c for b, end in ranges for c in range(b, end)] == list(range(k3.chunks))
+        assert all(end > b for b, end in ranges) or ranges == [(0, 0)]
+        assert k3.row_tiles * k3.splits <= max(k3.blocks_per_sm * SMS, k3.row_tiles)
+        rows, slot = vocab.k3_slot(e3)
+        assert vocab.K3_CHUNK % rows == 0 and rows % 8 == 0 and slot >= rows * e3 * 4
+        assert k3.stages >= vocab.K3_MIN_STAGES and k3.smem == k3.stages * (slot + 16)
+        assert k3.blocks_per_sm * k3.smem <= vocab.MAX_SMEM
+        assert k3.blocks_per_sm * k3.smem >= vocab.K3_IN_FLIGHT  # slots in flight on an SM
 
 
 @pytest.mark.parametrize("e,ek", [(4, 64), (20, 64), (64, 64), (100, 128), (132, 256),
@@ -289,6 +308,25 @@ def test_ce_plan_takes_every_width(n, e, kernel):
     per_row = (e * 4 + 16) if backward else 20
     partial_bytes = sum(t.nbytes for k, t in scratch.items() if k not in ("ximg", "wimg"))
     assert partial_bytes <= max(2 * SMS * tile, n) * per_row + tile * 16
+    if backward:
+        return
+    # K3's narrow kernel: its 64-row chunks, each met once by every row tile,
+    # about one or two blocks per SM, and a ring of at least 4 slots whose
+    # blocks fit the card's shared memory side by side
+    for e3 in (16, 64, 128, 256):
+        k3 = vocab.ce_plan(n, e3, vocab_size, table_rows, SMS, False, vocab.K3_CHUNK,
+                           streamed=True)
+        assert k3.chunks * vocab.K3_CHUNK >= vocab_size > (k3.chunks - 1) * vocab.K3_CHUNK
+        cps = k3.chunks_per_split
+        ranges = [(s * cps, min((s + 1) * cps, k3.chunks)) for s in range(k3.splits)]
+        assert [c for b, end in ranges for c in range(b, end)] == list(range(k3.chunks))
+        assert all(end > b for b, end in ranges) or ranges == [(0, 0)]
+        assert k3.row_tiles * k3.splits <= max(k3.blocks_per_sm * SMS, k3.row_tiles)
+        rows, slot = vocab.k3_slot(e3)
+        assert vocab.K3_CHUNK % rows == 0 and rows % 8 == 0 and slot >= rows * e3 * 4
+        assert k3.stages >= vocab.K3_MIN_STAGES and k3.smem == k3.stages * (slot + 16)
+        assert k3.blocks_per_sm * k3.smem <= vocab.MAX_SMEM
+        assert k3.blocks_per_sm * k3.smem >= vocab.K3_IN_FLIGHT  # slots in flight on an SM
 
 
 @pytest.mark.parametrize("eps", [0.0, 0.1])

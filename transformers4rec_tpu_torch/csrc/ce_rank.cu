@@ -20,29 +20,32 @@
 // running (max, sum, count) of every row in VMEM across grid steps. Hopper
 // blocks run in no order and share nothing, and at N=128 there is a single
 // row tile, so the vocab is split across blocks instead:
-//   - ce_rank_partial_kernel: block (split, row tile) holds 128 rows of x as
-//     bf16 mma.sync A fragments in registers (8 warps x 16 rows) and loops
-//     over its own slice of 64-column chunks of W. Each chunk is read from
-//     device memory as f32 (the table's stored type), rounded to bf16 into
-//     shared memory, and scored with mma.sync.m16n8k16 (bf16 in, f32
-//     accumulation); the next chunk's loads are issued into registers before
-//     the current chunk is scored, so the table stream does not stall on the
-//     products. Each thread keeps (max, sum, count, zsum) for its two rows
-//     (exponentials on the special-function unit, in base 2); only the
-//     chunk that holds a row's label and the vocab's last, partial chunk
-//     pay for the column checks. At the end the thread merges its rows with
-//     the three other lanes of each row and writes one partial per
-//     (split, row) to a workspace;
-//   - ce_rank_merge_kernel: merges the partials per row: (m, s) pairs by
-//     rescaled sums, counts and sums by plain addition.
-// Reading W as f32 and rounding on load gives the numerics of the
-// reference's W.astype(bfloat16) without a cast pass over the table on every
-// call. zsum is accumulated in double: it is a sum of ~V terms of both signs.
-// TMA and wgmma are later work.
+//   - ce_rank_stream_kernel (E <= 256): block (split, row tile) holds
+//     128 rows of x as bf16 mma.sync A fragments in registers (8 warps x 16
+//     rows) while a producer warp streams its slice of W, as f32, by 1-D bulk
+//     copies (TMA) into a ring of slots in shared memory; the consumers round
+//     each slot's rows to bf16 as they build the B fragments and score them
+//     with mma.sync.m16n8k16 (bf16 in, f32 accumulation). Each thread keeps
+//     (max, sum, count, zsum) for its two rows (exponentials on the
+//     special-function unit, in base 2); only the slot that holds a row's
+//     label and the vocab's last, partial slot pay for the column checks. At
+//     the end the thread merges its rows with the three other lanes of each
+//     row and writes one partial per (split, row) to a workspace. The launch
+//     plan (ops/vocab.py:ce_plan) gives the splits, the slots and the shared
+//     memory, about 128 KB of the table in flight on each SM;
+//   - ce_rank_merge_kernel: merges the partials per row, a block per 32 rows:
+//     (m, s) pairs by rescaled sums, counts and sums by plain addition.
+// Reading W as f32 and rounding on the way to the tensor cores gives the
+// numerics of the reference's W.astype(bfloat16) without a cast pass over
+// the table on every call. zsum is accumulated in double: it is a sum of ~V
+// terms of both signs.
+
 //
 // A table wider than 256 takes t4r_ce_rank_wide: K1's wide kernel
 // (ce_wide.cuh: bf16 images, E in 64-value slabs, wgmma) with this kernel's
 // epilogue and partials, then the same merge kernel.
+
+#include <type_traits>
 
 #include "ce_wide.cuh"
 
@@ -51,12 +54,12 @@ namespace {
 using namespace t4r;
 
 // One chunk's logits of the thread's two rows (acc[j][2h + q]: row h,
-// column col0 + 8j + q) into their running (max, sum, count, zsum). CHECKED
+// column col(j, q)) into their running (max, sum, count, zsum). CHECKED
 // bounds the columns by V and leaves each label's own column out of the
 // count. Each reduction runs as two chains per row (q = 0, 1), four in all,
 // so the warp has independent work while the SFU and the adds are busy.
-template <bool CHECKED, bool SMOOTH>
-__device__ __forceinline__ void update_rows(const float (&acc)[NT][4], int col0, int V,
+template <bool CHECKED, bool SMOOTH, int NT_, class Col>
+__device__ __forceinline__ void update_rows(const float (&acc)[NT_][4], Col col_of, int V,
                                             const int (&lab)[2], const float (&llr)[2],
                                             float (&m)[2], float (&s)[2], int (&cnt)[2],
                                             double (&zs)[2]) {
@@ -64,13 +67,13 @@ __device__ __forceinline__ void update_rows(const float (&acc)[NT][4], int col0,
   int gr[2][2] = {{0, 0}, {0, 0}};
   double z[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+  for (int j = 0; j < NT_; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const float l = acc[j][2 * h + q];
-        const int col = col0 + 8 * j + q;
+        const int col = col_of(j, q);
         const bool valid = !CHECKED || col < V;
         if (valid) {
           mx[h][q] = fmaxf(mx[h][q], l);
@@ -90,13 +93,13 @@ __device__ __forceinline__ void update_rows(const float (&acc)[NT][4], int col0,
   }
   float add[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+  for (int j = 0; j < NT_; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const float p = ex2(fmaf(acc[j][2 * h + q], LOG2E, -mn2[h]));
-        add[h][q] += (!CHECKED || col0 + 8 * j + q < V) ? p : 0.f;
+        add[h][q] += (!CHECKED || col_of(j, q) < V) ? p : 0.f;
       }
     }
   }
@@ -108,34 +111,125 @@ __device__ __forceinline__ void update_rows(const float (&acc)[NT][4], int col0,
   }
 }
 
-// KS: k-steps of 16, E rounded up to 16 * KS with zeros.
+// ------------------------------------------------------- the streamed design
+// ce_rank_stream_kernel: block (split, row tile) of SC_WARPS consumer warps
+// (16 rows of x each, as bf16 mma.sync A fragments in registers) and one
+// producer warp. The producer copies the split's rows of W, as f32 and only
+// those below V, by 1-D bulk copies (TMA without a tensor map) into a ring
+// of `stages` slots, each guarded by a full and an empty mbarrier. A slot
+// holds Slot::ROWS rows as groups of 8 consecutive rows, one bulk copy a
+// group; the groups are padded apart so that the 16-byte reads of a quarter
+// warp (two rows from neighbouring groups, four pieces each) fall on 32
+// distinct banks. The consumers round a slot's rows to bf16 as they build
+// the B fragments (one 16-byte read a fragment pair: within each k-step of
+// 16, thread t takes columns 4t .. 4t + 3, in x's fragments as in W's),
+// score with mma.sync.m16n8k16, let the slot go, and fold the logits into
+// the running (max, sum, count, zsum) by update_rows. The table is read
+// from device memory once, as f32, with `stages` slots in flight: no image
+// pass.
+constexpr int SC_WARPS = 8;
+constexpr int SC_THREADS = 32 * (SC_WARPS + 1);
+constexpr int SC_MIN_STAGES = 4;
+
+// A ring slot for E padded to EK = 16 KS: GROUPS groups of 8 rows of E f32,
+// group_words(E) apart (the rows, then zeros: at least EK - E of them, for
+// the last row's k-steps past E, and 16 words more than a multiple of 32);
+// 64 rows, or 32 at the widest EK so that 4 slots fit. Lane g of n-tile j
+// takes row (g % GROUPS) * 8 + j * (8 / GROUPS) + g / GROUPS of the slot.
+template <int KS>
+struct Slot {
+  static constexpr int EK = 16 * KS;
+  static constexpr int GROUPS = KS <= 8 ? 8 : 4;
+  static constexpr int ROWS = 8 * GROUPS;
+  static constexpr int NTS = ROWS / 8;
+  __host__ __device__ static constexpr int group_words(int E) {
+    return 8 * E + (EK - E + 31) / 32 * 32 + 16;
+  }
+  __host__ __device__ static constexpr int bytes(int E) { return GROUPS * group_words(E) * 4; }
+  // the slot row of lane g of n-tile j
+  __device__ static constexpr int row(int j, int g) {
+    return (g % GROUPS) * 8 + j * (8 / GROUPS) + g / GROUPS;
+  }
+};
+
+// The shared memory of a block with `stages` slots at width E: the ring,
+// then a full and an empty barrier per slot.
+template <int KS>
+__host__ __device__ constexpr int stream_smem(int E, int stages) {
+  return stages * (Slot<KS>::bytes(E) + 16);
+}
+
 template <int KS, bool SMOOTH>
-__global__ void __launch_bounds__(THREADS)
-ce_rank_partial_kernel(const float* __restrict__ x, const float* __restrict__ W,
-                       const int* __restrict__ labels, const float* __restrict__ ll,
-                       int N, int E, int V, int chunks_per_split,
-                       float* __restrict__ part_m, float* __restrict__ part_s,
-                       int* __restrict__ part_cnt, double* __restrict__ part_zs) {
-  constexpr int EK = 16 * KS;
-  constexpr int WS = EK + 8;  // bf16 per shared row: the B-fragment loads are conflict-free
-  constexpr int LOADS = BV * EK / 4 / THREADS;  // most float4 loads of W a thread makes
-  __shared__ __align__(16) __nv_bfloat16 ws[BV * WS];
+__global__ void __launch_bounds__(SC_THREADS)
+ce_rank_stream_kernel(const float* __restrict__ x, const float* __restrict__ W,
+                      const int* __restrict__ labels, const float* __restrict__ ll, int N,
+                      int E, int V, int chunks_per_split, int stages,
+                      float* __restrict__ part_m, float* __restrict__ part_s,
+                      int* __restrict__ part_cnt, double* __restrict__ part_zs) {
+  using L = Slot<KS>;
+  using namespace t4r::hopper;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int gw = L::group_words(E), slot_words = L::GROUPS * gw;
+  float* ring = reinterpret_cast<float*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)stages * slot_words * 4);
+  uint64_t* empty = full + stages;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int e4n = E / 4;
-  const int nchunks = (V + BV - 1) / BV;
-  const int c_begin = blockIdx.x * chunks_per_split;
-  const int c_end = min(c_begin + chunks_per_split, nchunks);
+  // the split's rows of W: [row_begin, row_end), in `slots` slots
+  const int row_begin = blockIdx.x * chunks_per_split * BV;
+  const int row_end = min(row_begin + chunks_per_split * BV, V);
+  const int slots = row_end > row_begin ? (row_end - row_begin + L::ROWS - 1) / L::ROWS : 0;
 
-  // columns E..EK-1 stay zero: the loads below never write them
-  for (int i = tid; i < BV * WS; i += THREADS) ws[i] = __float2bfloat16(0.f);
+  // the zeros between groups stay (the copies write 8 E values a group), and
+  // rows past V hold zeros or an earlier slot's rows: finite
+  for (int i = tid; i < stages * slot_words / 4; i += SC_THREADS) {
+    reinterpret_cast<float4*>(ring)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], SC_WARPS);
+    }
+    fence_barrier_init();
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the zeros, before the copies
+  __syncthreads();
 
-  // this warp's 16 rows of x as A fragments: rows g and g + 8, k pairs 2t
+  if (warp == SC_WARPS) {  // the producer: lane r copies group r of each slot
+    for (int i = 0; i < slots; ++i) {
+      const int st = i % stages, r0 = row_begin + i * L::ROWS;
+      const int rows = min(L::ROWS, row_end - r0);
+      mbar_wait(&empty[st], ((i / stages) & 1) ^ 1);
+      if (lane == 0) mbar_expect_tx(&full[st], (uint32_t)(rows * E * 4));
+      __syncwarp();
+      const int n = min(8, rows - 8 * lane);
+      if (lane < L::GROUPS && n > 0) {
+        bulk_load(ring + (size_t)st * slot_words + lane * gw, W + (size_t)(r0 + 8 * lane) * E,
+                  (uint32_t)(n * E * 4), &full[st]);
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
   const int row_lo = (int)blockIdx.y * BN + warp * 16 + g;
   const int rows[2] = {row_lo, row_lo + 8};
+  // x as A fragments: a[ks][h] holds row rows[h], columns 16 ks + 4t, +1;
+  // a[ks][2 + h] columns 16 ks + 4t + 2, +3 (zero at and beyond N and E)
   uint32_t a[KS][4];
-  load_x_fragments<KS>(x, N, E, row_lo, t, a);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = 16 * ks + 4 * t;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (rows[h] < N && col < E) {
+        v = __ldg(reinterpret_cast<const float4*>(x + (size_t)rows[h] * E + col));
+      }
+      a[ks][h] = pack_bf16(v.x, v.y);
+      a[ks][2 + h] = pack_bf16(v.z, v.w);
+    }
+  }
 
   float m[2], s[2], llr[2];
   double zs[2];
@@ -150,62 +244,41 @@ ce_rank_partial_kernel(const float* __restrict__ x, const float* __restrict__ W,
     llr[h] = rows[h] < N ? ll[rows[h]] : 0.f;
   }
 
-  // W chunk c, row-major f32, into registers: consecutive threads read
-  // consecutive 16-byte pieces of a row
-  float4 pre[LOADS];
+  for (int i = 0; i < slots; ++i) {
+    const int st = i % stages;
+    mbar_wait(&full[st], (i / stages) & 1);
+    const float* slot = ring + (size_t)st * slot_words;
+    float acc[L::NTS][4];
 #pragma unroll
-  for (int i = 0; i < LOADS; ++i) {
-    const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
-    const int col = c_begin * BV + r;
-    pre[i] = (r < BV && col < V && c_begin < c_end)
-                 ? __ldg(reinterpret_cast<const float4*>(W + (size_t)col * E) + q)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  const uint32_t* ws32 = reinterpret_cast<const uint32_t*>(ws);
-  for (int c = c_begin; c < c_end; ++c) {
-    __syncthreads();  // the previous chunk is consumed (and the zero fill is done)
+    for (int j = 0; j < L::NTS; ++j) {
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      const int r = L::row(j, g);
+      const float* wr = slot + (r / 8) * gw + (r % 8) * E + 4 * t;
 #pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
-      if (r < BV) {
-        uint2 v;
-        v.x = pack_bf16(pre[i].x, pre[i].y);
-        v.y = pack_bf16(pre[i].z, pre[i].w);
-        *reinterpret_cast<uint2*>(ws + r * WS + 4 * q) = v;
+      for (int ks = 0; ks < KS; ++ks) {
+        const float4 w = *reinterpret_cast<const float4*>(wr + 16 * ks);
+        mma_bf16(acc[j], a[ks], pack_bf16(w.x, w.y), pack_bf16(w.z, w.w));
       }
     }
-    __syncthreads();
-    if (c + 1 < c_end) {  // the next chunk's loads fly while this one is scored
-#pragma unroll
-      for (int i = 0; i < LOADS; ++i) {
-        const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
-        const int col = (c + 1) * BV + r;
-        pre[i] = (r < BV && col < V)
-                     ? __ldg(reinterpret_cast<const float4*>(W + (size_t)col * E) + q)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
+    release(empty, st);
 
-    float acc[NT][4];
-    score_chunk<KS, WS>(a, ws32, g, t, acc);
-
-    // the label's own column is excluded from the count: ll comes from
-    // another sum order and may differ from its logit in the last ulp. Only
-    // a chunk that holds one of the thread's labels, and the vocab's last,
-    // partial chunk, take the checked path.
-    const int col0 = c * BV + 2 * t;
-    const bool full = (c + 1) * BV <= V;
-    const bool has_label = (unsigned)(lab[0] - c * BV) < (unsigned)BV ||
-                           (unsigned)(lab[1] - c * BV) < (unsigned)BV;
-    if (full && !has_label) {
-      update_rows<false, SMOOTH>(acc, col0, V, lab, llr, m, s, cnt, zs);
+    // acc[j][2h + q]: row rows[h], column c0 + Slot::row(j, 2t + q). The
+    // label's own column is excluded from the count: ll comes from another
+    // sum order and may differ from its logit in the last ulp. Only a slot
+    // that holds one of the thread's labels, and the vocab's last, partial
+    // slot, take the checked path.
+    const int c0 = row_begin + i * L::ROWS;
+    const auto col_of = [=](int j, int q) { return c0 + L::row(j, 2 * t + q); };
+    const bool whole = c0 + L::ROWS <= V;
+    const bool has_label = (unsigned)(lab[0] - c0) < (unsigned)L::ROWS ||
+                           (unsigned)(lab[1] - c0) < (unsigned)L::ROWS;
+    if (whole && !has_label) {
+      update_rows<false, SMOOTH, L::NTS>(acc, col_of, V, lab, llr, m, s, cnt, zs);
     } else {
-      update_rows<true, SMOOTH>(acc, col0, V, lab, llr, m, s, cnt, zs);
+      update_rows<true, SMOOTH, L::NTS>(acc, col_of, V, lab, llr, m, s, cnt, zs);
     }
   }
-
-  // merge the 4 lanes (t) that share each row
+  // merge the 4 lanes (t) that share each row; one partial per (split, row)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
 #pragma unroll
@@ -229,24 +302,52 @@ ce_rank_partial_kernel(const float* __restrict__ x, const float* __restrict__ W,
   }
 }
 
-__global__ void ce_rank_merge_kernel(const float* __restrict__ part_m,
-                                     const float* __restrict__ part_s,
-                                     const int* __restrict__ part_cnt,
-                                     const double* __restrict__ part_zs, int splits, int N,
-                                     float* __restrict__ lse, int* __restrict__ rank,
-                                     float* __restrict__ zsum) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  float m = NEG;
-  for (int k = 0; k < splits; ++k) m = fmaxf(m, part_m[(size_t)k * N + n]);
-  float s = 0.f;
+// Merges the partials of every row: a block per 32 rows, lane = row (a
+// warp's loads are one 128-byte line each), warp w folding splits w, w + 32,
+// ... into a running (m, s) pair, a count and a sum; then warp 0 folds the
+// 32 warps' results of its row in warp order (the same bits on every call).
+// One thread per row looping over some 250 splits twice, each load waited
+// on in turn, took about as long as the partial kernel itself (PERF.md).
+constexpr int MERGE_WARPS = 32;
+
+__device__ __forceinline__ void merge_pair(float& m, float& s, float m2, float s2) {
+  const float mn = fmaxf(m, m2);
+  s = s * expf(m - mn) + s2 * expf(m2 - mn);
+  m = mn;
+}
+
+__global__ void __launch_bounds__(32 * MERGE_WARPS)
+ce_rank_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_s,
+                     const int* __restrict__ part_cnt, const double* __restrict__ part_zs,
+                     int splits, int N, float* __restrict__ lse, int* __restrict__ rank,
+                     float* __restrict__ zsum) {
+  __shared__ float sm[MERGE_WARPS][32], ss[MERGE_WARPS][32];
+  __shared__ int sc[MERGE_WARPS][32];
+  __shared__ double sz[MERGE_WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = blockIdx.x * 32 + lane;
+  float m = NEG, s = 0.f;
   int cnt = 0;
   double zs = 0.0;
-  for (int k = 0; k < splits; ++k) {
-    const size_t idx = (size_t)k * N + n;
-    s += part_s[idx] * expf(part_m[idx] - m);
-    cnt += part_cnt[idx];
-    if (zsum != nullptr) zs += part_zs[idx];
+  if (n < N) {
+#pragma unroll 4
+    for (int k = warp; k < splits; k += MERGE_WARPS) {
+      const size_t idx = (size_t)k * N + n;
+      merge_pair(m, s, part_m[idx], part_s[idx]);
+      cnt += part_cnt[idx];
+      if (zsum != nullptr) zs += part_zs[idx];
+    }
+  }
+  sm[warp][lane] = m;
+  ss[warp][lane] = s;
+  sc[warp][lane] = cnt;
+  sz[warp][lane] = zs;
+  __syncthreads();
+  if (warp != 0 || n >= N) return;
+  for (int w = 1; w < MERGE_WARPS; ++w) {
+    merge_pair(m, s, sm[w][lane], ss[w][lane]);
+    cnt += sc[w][lane];
+    zs += sz[w][lane];
   }
   // no valid column at all (V == 0): the reference's masked logits give -1e30
   lse[n] = s > 0.f ? m + logf(s) : NEG;
@@ -254,31 +355,43 @@ __global__ void ce_rank_merge_kernel(const float* __restrict__ part_m,
   if (zsum != nullptr) zsum[n] = (float)zs;
 }
 
-template <int KS, bool SMOOTH>
-cudaError_t launch_partial(dim3 grid, cudaStream_t st, const float* x, const float* W,
-                           const int* labels, const float* ll, int N, int E, int V,
-                           int chunks_per_split, float* part_m, float* part_s, int* part_cnt,
-                           double* part_zs) {
-  ce_rank_partial_kernel<KS, SMOOTH><<<grid, THREADS, 0, st>>>(
-      x, W, labels, ll, N, E, V, chunks_per_split, part_m, part_s, part_cnt, part_zs);
+cudaError_t launch_merge(cudaStream_t st, const float* part_m, const float* part_s,
+                         const int* part_cnt, const double* part_zs, int splits, int N,
+                         float* lse, int* rank, float* zsum) {
+  ce_rank_merge_kernel<<<(N + 31) / 32, 32 * MERGE_WARPS, 0, st>>>(part_m, part_s, part_cnt,
+                                                                  part_zs, splits, N, lse, rank,
+                                                                  zsum);
   return cudaGetLastError();
 }
 
-template <bool SMOOTH>
-cudaError_t launch_partial_e(dim3 grid, cudaStream_t st, const float* x, const float* W,
-                             const int* labels, const float* ll, int N, int E, int V,
-                             int chunks_per_split, float* part_m, float* part_s, int* part_cnt,
-                             double* part_zs) {
-  // E is rounded up to 16, 32, 64, 128 or 256 (zero padded)
-#define T4R_CE_RANK_KS(KS_)                                                                  \
-  return launch_partial<KS_, SMOOTH>(grid, st, x, W, labels, ll, N, E, V, chunks_per_split, \
-                                     part_m, part_s, part_cnt, part_zs)
-  if (E <= 16) T4R_CE_RANK_KS(1);
-  if (E <= 32) T4R_CE_RANK_KS(2);
-  if (E <= 64) T4R_CE_RANK_KS(4);
-  if (E <= 128) T4R_CE_RANK_KS(8);
-  T4R_CE_RANK_KS(16);
-#undef T4R_CE_RANK_KS
+// The streamed kernel with `stages` ring slots and `smem` bytes of shared
+// memory, which must be what the launch plan (ops/vocab.py:ce_plan) gives:
+// at least SC_MIN_STAGES slots and stream_smem(E, stages) bytes within the
+// card's limit.
+template <int KS, bool SMOOTH>
+cudaError_t launch_partial(dim3 grid, cudaStream_t st, const float* x, const float* W,
+                           const int* labels, const float* ll, int N, int E, int V,
+                           int chunks_per_split, int stages, int smem, float* part_m,
+                           float* part_s, int* part_cnt, double* part_zs) {
+  if (stages < SC_MIN_STAGES || smem != stream_smem<KS>(E, stages) || smem > hopper::MAX_SMEM) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = ce_rank_stream_kernel<KS, SMOOTH>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, SC_THREADS, smem, st>>>(x, W, labels, ll, N, E, V, chunks_per_split, stages,
+                                         part_m, part_s, part_cnt, part_zs);
+  return cudaGetLastError();
+}
+
+// E rounded up to 16, 32, 64, 128 or 256 (zero padded) as KS k-steps of 16
+template <class F>
+cudaError_t with_ks(int E, F f) {
+  if (E <= 16) return f(std::integral_constant<int, 1>());
+  if (E <= 32) return f(std::integral_constant<int, 2>());
+  if (E <= 64) return f(std::integral_constant<int, 4>());
+  if (E <= 128) return f(std::integral_constant<int, 8>());
+  return f(std::integral_constant<int, 16>());
 }
 
 }  // namespace
@@ -288,29 +401,43 @@ extern "C" {
 int t4r_ce_rank_block_rows() { return t4r::BN; }
 int t4r_ce_rank_chunk_cols() { return t4r::BV; }
 
-// Launches the partial and the merge kernel on `stream`. The caller checks
-// shapes (E a multiple of 4, at most 256: wider tables take the wide
-// entry below), dtypes, contiguity and
-// alignment, and allocates every buffer: part_* are (splits, N); part_zs
-// and zsum may be unused when smooth == 0. Returns the first CUDA error (0
-// when both launches were accepted).
+// Launches the partial and the merge kernel on `stream`, with the splits,
+// ring slots (`stages`) and shared memory of the launch plan. The caller
+// checks shapes (E a multiple of 4, at most 256: wider tables take the wide
+// entry below), dtypes, contiguity and alignment, and allocates every
+// buffer: part_* are (splits, N); part_zs and zsum may be unused when
+// smooth == 0. Returns the first CUDA error (0 when both launches were
+// accepted).
 int t4r_ce_rank(const float* x, const float* W, const int* labels, const float* ll,
-                int N, int E, int V, int splits, int chunks_per_split,
+                int N, int E, int V, int splits, int chunks_per_split, int stages, int smem,
                 float* part_m, float* part_s, int* part_cnt, double* part_zs,
                 float* lse, int* rank, float* zsum, int smooth, void* stream) {
   if (E < 4 || E > 256 || E % 4 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid(splits, (N + t4r::BN - 1) / t4r::BN);
-  cudaError_t err =
-      smooth ? launch_partial_e<true>(grid, st, x, W, labels, ll, N, E, V, chunks_per_split,
-                                      part_m, part_s, part_cnt, part_zs)
-             : launch_partial_e<false>(grid, st, x, W, labels, ll, N, E, V, chunks_per_split,
-                                       part_m, part_s, part_cnt, part_zs);
+  cudaError_t err = with_ks(E, [&](auto ks) {
+    constexpr int KS = decltype(ks)::value;
+    return smooth ? launch_partial<KS, true>(grid, st, x, W, labels, ll, N, E, V,
+                                             chunks_per_split, stages, smem, part_m, part_s,
+                                             part_cnt, part_zs)
+                  : launch_partial<KS, false>(grid, st, x, W, labels, ll, N, E, V,
+                                              chunks_per_split, stages, smem, part_m, part_s,
+                                              part_cnt, part_zs);
+  });
   if (err != cudaSuccess) return (int)err;
-  const int merge_threads = 128;
-  ce_rank_merge_kernel<<<(N + merge_threads - 1) / merge_threads, merge_threads, 0, st>>>(
-      part_m, part_s, part_cnt, part_zs, splits, N, lse, rank, smooth ? zsum : nullptr);
-  return (int)cudaGetLastError();
+  return (int)launch_merge(st, part_m, part_s, part_cnt, part_zs, splits, N, lse, rank,
+                           smooth ? zsum : nullptr);
+}
+
+// The shared memory of the streamed kernel with `stages` slots at width E
+// (what ops/vocab.py:ce_plan computes for it).
+int t4r_ce_rank_smem(int E, int stages) {
+  int bytes = 0;
+  with_ks(E, [&](auto ks) {
+    bytes = stream_smem<decltype(ks)::value>(E, stages);
+    return cudaSuccess;
+  });
+  return bytes;
 }
 
 // The same on the images of x and of W's first V rows (t4r_image, ek a
@@ -335,10 +462,8 @@ int t4r_ce_rank_wide(const void* ximg, const void* wimg, const int* labels, cons
                                                             part_m, part_s, nullptr, part_cnt,
                                                             part_zs);
   if (err != cudaSuccess) return (int)err;
-  const int merge_threads = 128;
-  ce_rank_merge_kernel<<<(N + merge_threads - 1) / merge_threads, merge_threads, 0, st>>>(
-      part_m, part_s, part_cnt, part_zs, splits, N, lse, rank, smooth ? zsum : nullptr);
-  return (int)cudaGetLastError();
+  return (int)launch_merge(st, part_m, part_s, part_cnt, part_zs, splits, N, lse, rank,
+                           smooth ? zsum : nullptr);
 }
 
 const char* t4r_cuda_error_string(int err) {

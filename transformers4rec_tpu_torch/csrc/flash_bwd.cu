@@ -40,7 +40,12 @@
 //     cap and K6b + K6c above it;
 //   - flash_bwd_dq_kernel (K6b): a block owns a (batch * head, 64-query
 //     tile), loops over the key tiles up to the causal end and keeps dq in
-//     registers.
+//     registers;
+//   - flash_bwd_dkv_stream_kernel (K6c for head dims up to 32,
+//     ops/attention.py:uses_dkv_stream): the dk/dv body's loop with 128 keys
+//     a block and each step's loads in flight during the step before; at
+//     the S = 4,096 step's (4, 4096, 16, 12) it takes 0.39 ms against the
+//     body's 0.96 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
 // All bodies take their logits from masked_logit (flash_common.cuh), the
 // forward's function. Tiles are read as f32 from the (B, S, H, Dh) layout and
 // stored row-major and, where a product needs it, transposed: no cast or
@@ -189,6 +194,285 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float* part = dq_part + ((size_t)kt * B + b) * S * row_stride + (size_t)h * Dh;
       store_rows<NTD>(dq_acc, 1.f, part, row_stride, qi * TQ + warp * 16, S, Dh, g, t);
     }
+  }
+  store_rows<NTD>(dk_acc, scale, dk + head_off, row_stride, key0, S, Dh, g, t);
+  store_rows<NTD>(dv_acc, 1.f, dv + head_off, row_stride, key0, S, Dh, g, t);
+}
+
+// ------------------------------------------ K6c's streamed design (Dh <= 32)
+// flash_bwd_dkv_stream_kernel: a block of DKV_WARPS warps per (batch * head,
+// DKV_KEYS-key tile), each warp owning 16 keys as in the body above, and the
+// same loop over 64-query steps from the causal start. What differs:
+//   - the k and v A fragments are read once from device memory into
+//     registers; q and dO of a step are kept once, row-major in bf16, and
+//     the transposed operands of dv += P^T . dO and dk += dS^T . q come from
+//     ldmatrix.trans (no second, transposed copy by scattered stores);
+//   - step i + 1's q, dO, lse and delta are loaded into registers while
+//     step i's products and exponentials run, and stored into the second of
+//     two buffers after them: one barrier per step;
+//   - a warp whose keys all lie after the step's queries (causal) or are all
+//     padding skips the step, and a block whose keys are all padding writes
+//     zeros and leaves (with a bias, only keys beyond S are skipped); a warp
+//     whose keys lie wholly inside the sequence and, under the causal mask,
+//     at or before every query of the step takes masked_logit's arithmetic
+//     without its tests, in a loop of its own;
+//   - key tiles are the slow grid axis, the longest (the first, under the
+//     causal mask) first, so that the short ones fill the card's tail
+//     (dkv_block_order in ops/attention.py is the Python twin).
+// The logits come from the same mma.sync products of the same bf16 q and k
+// in the same order as K6a's mma.sync body, so P and dS keep their bits, a
+// skipped pair is one whose P is exactly 0 there, and dk and dv are summed
+// in K6a's order: the two give the same bits (PERF.md). No atomics: the
+// same bits on every call.
+//
+// Measured variants (PERF.md): cp.async into f32 staging instead of
+// the register loads, as fast; 64 keys a block, 17% slower; the shortcut
+// past masked_logit's tests as a select in the one loop, 7% slower than
+// none, and as a loop of its own (shipped), 13% faster than none.
+constexpr int DKV_WARPS = 8;
+constexpr int DKV_KEYS = 16 * DKV_WARPS;
+constexpr int DKV_THREADS = 32 * DKV_WARPS;
+constexpr int DKV_STREAM_MAX_DH = 32;
+
+// Four 8 x 8 bf16 matrices of shared memory whose rows the lanes address
+// (lane l: row l % 8 of matrix l / 8): r[m] is the lane's pair (row l / 4,
+// columns 2 (l % 4), +1) of matrix m, or with TRANS of its transpose
+// (rows 2 (l % 4), +1 of column l / 4).
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* row) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  if (TRANS) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a)
+                 : "memory");
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a)
+                 : "memory");
+  }
+}
+
+// bf16 pair (columns col, col + 1) of row `row` of one (batch, head) of a
+// (B, S, H, Dh) float32 tensor; 0 at and beyond S and Dh.
+__device__ __forceinline__ uint32_t pair_at(const float* __restrict__ base, int row_stride,
+                                            int row, int col, int S, int Dh) {
+  if (row >= S || col >= Dh) return 0u;
+  const float2 x = __ldg(reinterpret_cast<const float2*>(base + (size_t)row * row_stride + col));
+  return pack_bf16(x.x, x.y);
+}
+
+// P^T and dS^T of 16 keys (keys[], two a thread) against the 32 queries of a
+// half step from query c_half of the tile on, in place of the logits k . q^T
+// in p and of v . dO^T in ds (acc[j][2hh + qq]: key keys[hh], query c_half +
+// 8j + 2t + qq). INSIDE: every key lies inside the sequence and, under the
+// causal mask, at or before every query: masked_logit's arithmetic without
+// its tests (the scale and the padding term).
+template <bool INSIDE, bool HAS_BIAS>
+__device__ __forceinline__ void probabilities(float (&p)[4][4], float (&ds)[4][4],
+                                              const float* __restrict__ lse_s,
+                                              const float* __restrict__ delta_s, int c_half, int t,
+                                              int q0, const int (&keys)[2], const float (&pad_k)[2],
+                                              int S, int causal, float scale,
+                                              const float* __restrict__ bias_bh) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c0 = c_half + 8 * j + 2 * t;  // the pair's first query in the step
+    const float2 lse2 = *reinterpret_cast<const float2*>(lse_s + c0);
+    const float2 delta2 = *reinterpret_cast<const float2*>(delta_s + c0);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int qq = 0; qq < 2; ++qq) {
+        const float l = INSIDE ? p[j][2 * hh + qq] * scale + pad_k[hh]
+                               : masked_logit<HAS_BIAS>(p[j][2 * hh + qq], scale, q0 + c0 + qq,
+                                                        keys[hh], S, causal != 0, pad_k[hh],
+                                                        bias_bh);
+        const float pv = ex2((l - (qq ? lse2.y : lse2.x)) * LOG2E);
+        p[j][2 * hh + qq] = pv;
+        ds[j][2 * hh + qq] = pv * (ds[j][2 * hh + qq] - (qq ? delta2.y : delta2.x));
+      }
+    }
+  }
+}
+
+template <int KS, bool HAS_BIAS>
+__global__ void __launch_bounds__(DKV_THREADS, 2)
+flash_bwd_dkv_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ d_out,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            const uint8_t* __restrict__ pad, const float* __restrict__ bias,
+                            long long bias_sb, long long bias_sh, float* __restrict__ dk,
+                            float* __restrict__ dv, int S, int H, int Dh, int nk, int causal,
+                            float scale) {
+  constexpr int LD = Tile<KS>::LD, NTD = Tile<KS>::NTD;
+  constexpr int C4 = Tile<KS>::DP / 4;         // 16-byte pieces of a padded row
+  constexpr int PIECES = 2 * TQ * C4;          // of q and dO in a step
+  constexpr int PER = PIECES / DKV_THREADS;    // a thread's
+  static_assert(PIECES % DKV_THREADS == 0 && 2 * TQ <= DKV_THREADS, "a step's loads");
+  __shared__ __align__(16) __nv_bfloat16 tiles[2][2][TQ * LD];  // [buffer][q, dO][row][LD]
+  __shared__ float rows_s[2][2][TQ];                             // [buffer][lse, delta]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int BH = gridDim.x / nk, kt = blockIdx.x / BH, bh = blockIdx.x - kt * BH;
+  const int b = bh / H, h = bh - b * H;
+  const int row_stride = H * Dh;
+  const size_t head_off = ((size_t)b * S * H + h) * Dh;
+  const float* bias_bh = HAS_BIAS ? bias + b * bias_sb + h * bias_sh : nullptr;
+  const float* lse_bh = lse + (size_t)bh * S;
+  const float* delta_bh = delta + (size_t)bh * S;
+  const uint8_t* pad_b = pad != nullptr ? pad + (size_t)b * S : nullptr;
+
+  const int key0 = kt * DKV_KEYS + warp * 16;  // the warp's first key
+  const int keys[2] = {key0 + g, key0 + g + 8};
+  float pad_k[2];
+  bool dead = true;  // both of the thread's keys have P = 0 for every query
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    pad_k[hh] = hw::pad_term_of(pad_b, keys[hh], S);
+    dead = dead && (keys[hh] >= S || (!HAS_BIAS && pad_k[hh] != 0.f));
+  }
+  const bool warp_dead = __all_sync(0xffffffffu, dead);
+  float dk_acc[NTD][4], dv_acc[NTD][4];
+  zero_acc<NTD>(dk_acc);
+  zero_acc<NTD>(dv_acc);
+  if (__syncthreads_and(warp_dead)) {  // keys wholly of padding: dk = dv = 0
+    store_rows<NTD>(dk_acc, 1.f, dk + head_off, row_stride, key0, S, Dh, g, t);
+    store_rows<NTD>(dv_acc, 1.f, dv + head_off, row_stride, key0, S, Dh, g, t);
+    return;
+  }
+
+  uint32_t ka[KS][4], va[KS][4];  // this warp's 16 keys of k and v as A fragments
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = keys[i & 1], col = 16 * ks + 8 * (i >> 1) + 2 * t;
+      ka[ks][i] = pair_at(k + head_off, row_stride, key, col, S, Dh);
+      va[ks][i] = pair_at(v + head_off, row_stride, key, col, S, Dh);
+    }
+  }
+  // the head dim's padding columns stay zero: the stores below never write them
+  for (int i = tid; i < 2 * 2 * TQ * LD / 2; i += DKV_THREADS) {
+    reinterpret_cast<uint32_t*>(&tiles[0][0][0])[i] = 0u;
+  }
+
+  // A step's piece i: tile i / (TQ C4) (q, dO), row (i / C4) % TQ, 16 bytes
+  // (i % C4) of it; consecutive threads read consecutive pieces of a row.
+  // Rows beyond S are stored as zeros, with the masked lse and delta 0.
+  const int d4n = Dh / 4;
+  float4 pre[PER];
+  float pre_row = 0.f;
+  auto load = [&](int qi) {
+    const int q0 = qi * TQ;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = tid + j * DKV_THREADS, c = i % C4, r = (i / C4) % TQ;
+      pre[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < S && c < d4n) {
+        const float* src = (i < TQ * C4 ? q : d_out) + head_off;
+        pre[j] = __ldg(reinterpret_cast<const float4*>(src + (size_t)(q0 + r) * row_stride) + c);
+      }
+    }
+    if (tid < 2 * TQ) {
+      const int r = tid % TQ;
+      const bool ok = q0 + r < S;
+      pre_row = tid < TQ ? (ok ? lse_bh[q0 + r] : LSE_MASKED) : (ok ? delta_bh[q0 + r] : 0.f);
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = tid + j * DKV_THREADS, c = i % C4, r = (i / C4) % TQ;
+      if (c < d4n) {
+        *reinterpret_cast<uint2*>(&tiles[buf][i / (TQ * C4)][r * LD + 4 * c]) =
+            make_uint2(pack_bf16(pre[j].x, pre[j].y), pack_bf16(pre[j].z, pre[j].w));
+      }
+    }
+    if (tid < 2 * TQ) rows_s[buf][tid / TQ][tid % TQ] = pre_row;
+  };
+
+  const int nq = (S + TQ - 1) / TQ;
+  // query steps wholly before this key tile see none of its keys
+  const int qi_begin = causal ? kt * DKV_KEYS / TQ : 0;
+  load(qi_begin);
+  __syncthreads();  // the zero fill is done
+  store(0);
+  if (qi_begin + 1 < nq) load(qi_begin + 1);
+  __syncthreads();
+
+  for (int qi = qi_begin; qi < nq; ++qi) {
+    const int buf = (qi - qi_begin) & 1, q0 = qi * TQ;
+    if (!warp_dead && (!causal || key0 <= q0 + TQ - 1)) {
+      const __nv_bfloat16* qs = tiles[buf][0];
+      const __nv_bfloat16* dos = tiles[buf][1];
+      const float* lse_s = rows_s[buf][0];
+      const float* delta_s = rows_s[buf][1];
+      const bool inside = !HAS_BIAS && key0 + 16 <= S && (!causal || key0 + 15 <= q0);
+      // two halves of 32 queries: transposed logits, row = key, column =
+      // query; each half is k-steps 2 half and 2 half + 1 of dv's and dk's
+      // products, so every accumulator sums its k-steps in K6a's order
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float p[4][4], ds[4][4];
+        zero_acc<4>(p);
+        zero_acc<4>(ds);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {  // n-tiles 2 jp and 2 jp + 1 of the half
+            const int row = 32 * half + 16 * jp + ((lane >> 4) << 3) + (lane & 7);
+            const int col = 16 * ks + (((lane >> 3) & 1) << 3);
+            uint32_t bq[4], bo[4];
+            ldmatrix_x4<false>(bq, qs + row * LD + col);
+            ldmatrix_x4<false>(bo, dos + row * LD + col);
+            mma_bf16(p[2 * jp], ka[ks], bq[0], bq[1]);      // k . q^T
+            mma_bf16(p[2 * jp + 1], ka[ks], bq[2], bq[3]);
+            mma_bf16(ds[2 * jp], va[ks], bo[0], bo[1]);     // v . dO^T
+            mma_bf16(ds[2 * jp + 1], va[ks], bo[2], bo[3]);
+          }
+        }
+        if (inside) {
+          probabilities<true, HAS_BIAS>(p, ds, lse_s, delta_s, 32 * half, t, q0, keys, pad_k, S,
+                                        causal, scale, bias_bh);
+        } else {
+          probabilities<false, HAS_BIAS>(p, ds, lse_s, delta_s, 32 * half, t, q0, keys, pad_k, S,
+                                         causal, scale, bias_bh);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          // P^T and dS^T of queries 16 K .. 16 K + 15 as A fragments
+          const int K = 2 * half + kk;
+          const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                                  pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                                  pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                                  pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+          const uint32_t da[4] = {pack_bf16(ds[2 * kk][0], ds[2 * kk][1]),
+                                  pack_bf16(ds[2 * kk][2], ds[2 * kk][3]),
+                                  pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]),
+                                  pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3])};
+#pragma unroll
+          for (int jd = 0; jd < NTD / 2; ++jd) {  // n-tiles 2 jd and 2 jd + 1 of the head dim
+            const int row = 16 * K + (((lane >> 3) & 1) << 3) + (lane & 7);
+            const int col = 16 * jd + ((lane >> 4) << 3);
+            uint32_t bo[4], bq[4];
+            ldmatrix_x4<true>(bo, dos + row * LD + col);
+            ldmatrix_x4<true>(bq, qs + row * LD + col);
+            mma_bf16(dv_acc[2 * jd], pa, bo[0], bo[1]);      // dv += P^T . dO
+            mma_bf16(dv_acc[2 * jd + 1], pa, bo[2], bo[3]);
+            mma_bf16(dk_acc[2 * jd], da, bq[0], bq[1]);      // dk += dS^T . q
+            mma_bf16(dk_acc[2 * jd + 1], da, bq[2], bq[3]);
+          }
+        }
+      }
+    }
+    if (qi + 1 < nq) {
+      store(buf ^ 1);  // read in step i - 1, which every warp has left
+      if (qi + 2 < nq) load(qi + 2);
+    }
+    __syncthreads();
   }
   store_rows<NTD>(dk_acc, scale, dk + head_off, row_stride, key0, S, Dh, g, t);
   store_rows<NTD>(dv_acc, 1.f, dv + head_off, row_stride, key0, S, Dh, g, t);
@@ -627,7 +911,18 @@ cudaError_t launch_dq(const Args& a, float* dq) {
   return cudaGetLastError();
 }
 
-// mode 0: K6a (fused), 1: K6b (dq), 2: K6c (dk, dv), 3: K6a on the Hopper design
+template <int KS, bool HAS_BIAS>
+cudaError_t launch_dkv_stream(const Args& a, float* dk, float* dv) {
+  const int nk = (a.S + DKV_KEYS - 1) / DKV_KEYS;
+  flash_bwd_dkv_stream_kernel<KS, HAS_BIAS><<<(unsigned)((size_t)a.B * a.H * nk), DKV_THREADS, 0,
+                                              a.st>>>(
+      a.q, a.k, a.v, a.d_out, a.lse, a.delta, a.pad, a.bias, a.bias_sb, a.bias_sh, dk, dv, a.S,
+      a.H, a.Dh, nk, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+// mode 0: K6a (fused), 1: K6b (dq), 2: K6c (dk, dv), 3: K6a on the Hopper
+// design, 4: K6c on the streamed design
 template <int KS, bool HAS_BIAS>
 cudaError_t launch_mode(int mode, const Args& a, float* dq_part, float* dq, float* dk,
                         float* dv) {
@@ -641,6 +936,11 @@ cudaError_t launch_dh(int mode, const Args& a, float* dq_part, float* dq, float*
   if (mode == 3) {  // Dh is rounded up to 64
     if (a.Dh > 64) return cudaErrorInvalidValue;
     return launch_fused_hw<HAS_BIAS>(a, dq_part, dq, dk, dv);
+  }
+  if (mode == 4) {  // Dh is rounded up to 16 or 32
+    if (a.Dh > DKV_STREAM_MAX_DH) return cudaErrorInvalidValue;
+    return a.Dh <= 16 ? launch_dkv_stream<1, HAS_BIAS>(a, dk, dv)
+                      : launch_dkv_stream<2, HAS_BIAS>(a, dk, dv);
   }
   // Dh is rounded up to 16, 32, 64 or 128 (zero padded)
   if (a.Dh <= 16) return launch_mode<1, HAS_BIAS>(mode, a, dq_part, dq, dk, dv);
@@ -698,15 +998,19 @@ int t4r_flash_bwd_dq(const float* q, const float* k, const float* v, const float
                         nullptr, nullptr, B, S, H, Dh, causal, scale, stream);
 }
 
-// K6c: dk and dv alone.
+// K6c: dk and dv alone, on the streamed design (`streamed`, head dims up to
+// 32; refused above) or the mma.sync body above.
 int t4r_flash_bwd_dkv(const float* q, const float* k, const float* v, const float* d_out,
                       const float* lse, const float* delta, const uint8_t* pad,
                       const float* bias, long long bias_sb, long long bias_sh, float* dk,
                       float* dv, int B, int S, int H, int Dh, int causal, float scale,
-                      void* stream) {
-  return launch_checked(2, q, k, v, d_out, lse, delta, pad, bias, bias_sb, bias_sh, nullptr,
-                        nullptr, dk, dv, B, S, H, Dh, causal, scale, stream);
+                      int streamed, void* stream) {
+  return launch_checked(streamed ? 4 : 2, q, k, v, d_out, lse, delta, pad, bias, bias_sb, bias_sh,
+                        nullptr, nullptr, dk, dv, B, S, H, Dh, causal, scale, stream);
 }
+
+// The widest head dim K6c's streamed design takes.
+int t4r_flash_dkv_stream_max_dh() { return DKV_STREAM_MAX_DH; }
 
 const char* t4r_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

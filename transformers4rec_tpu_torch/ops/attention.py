@@ -17,7 +17,7 @@ recomputes them tile by tile.
 For CUDA tensors the four wrappers launch the hand-written kernels of
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (and raise when they cannot;
 K5 and K6a in one of two designs, ``mma.sync`` or ``wgmma``, by head dim:
-``uses_wgmma``);
+``uses_wgmma``; K6c in one of two, streamed or ``mma.sync``: ``uses_dkv_stream``);
 for CPU tensors they run ``flash_forward_plain``, ``flash_bwd_fused_plain``,
 ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain`` (together:
 ``flash_backward_plain``), plain PyTorch versions of the same arithmetic.
@@ -59,6 +59,8 @@ BWD_DQ_PARTIAL_MAX_BYTES = 256 << 20
 _MAX_DH = 128
 # the head dims that take the Hopper (wgmma) kernels on the card
 WGMMA_MIN_DH, WGMMA_MAX_DH = 33, 64
+# the head dims that take K6c's streamed design, and the keys of its blocks
+DKV_STREAM_MAX_DH, DKV_STREAM_KEYS = 32, 128
 
 
 def reference_attention(q, k, v, bias=None, pad_mask=None, causal=False):
@@ -250,7 +252,7 @@ _ARGTYPES = {
     # q k v dO lse delta pad bias | strides | dq_part dq dk dv | ...
     "flash_bwd_fused": ("flash_bwd", [_P] * 8 + [_L] * 2 + [_P] * 4 + [_I] * 5 + [_F, _I, _P]),
     "flash_bwd_dq": ("flash_bwd", [_P] * 8 + [_L] * 2 + [_P] * 1 + [_I] * 5 + [_F, _P]),
-    "flash_bwd_dkv": ("flash_bwd", [_P] * 8 + [_L] * 2 + [_P] * 2 + [_I] * 5 + [_F, _P]),
+    "flash_bwd_dkv": ("flash_bwd", [_P] * 8 + [_L] * 2 + [_P] * 2 + [_I] * 5 + [_F, _I, _P]),
 }
 
 
@@ -265,6 +267,9 @@ def _entry(name: str):
         fn.argtypes, fn.restype = argtypes, _I
         if lib.t4r_flash_tile_rows() != TILE:
             raise RuntimeError(f"{source}: the kernels' tile is not {TILE} rows")
+        if name == "flash_bwd_dkv" and lib.t4r_flash_dkv_stream_max_dh() != DKV_STREAM_MAX_DH:
+            raise RuntimeError(f"{source}: K6c's streamed design is not for head dims up to "
+                               f"{DKV_STREAM_MAX_DH}")
     return lib, fn
 
 
@@ -341,6 +346,23 @@ def uses_wgmma(head_dim: int) -> bool:
     return WGMMA_MIN_DH <= head_dim <= WGMMA_MAX_DH
 
 
+def uses_dkv_stream(head_dim: int) -> bool:
+    """Which design of K6c a head dim takes on the card: the streamed kernel
+    (blocks of ``DKV_STREAM_KEYS`` keys, a step's loads in flight during the
+    step before, one row-major bf16 copy of q and dO read transposed by
+    ``ldmatrix.trans``) up to ``DKV_STREAM_MAX_DH``, the ``mma.sync`` body
+    that K6a shares above it (``PERF.md`` §6 has the times of both)."""
+    return head_dim <= DKV_STREAM_MAX_DH
+
+
+def dkv_block_order(heads: int, key_tiles: int) -> list:
+    """``(batch·head, key tile)`` of each block of the streamed K6c in launch
+    order (``flash_bwd_dkv_stream_kernel``'s mapping of ``blockIdx.x``): key
+    tiles are the slow axis, the first (the longest under the causal mask)
+    first, so that the short blocks fill the card's tail."""
+    return [(block % heads, block // heads) for block in range(heads * key_tiles)]
+
+
 def _flash_fwd_cuda(q, k, v, bias, pad_mask, causal, wgmma: Optional[bool] = None):
     """K5 on the card; ``wgmma`` picks the design (by default ``uses_wgmma``)."""
     strides, pad = _check_cuda_inputs("flash_fwd", {"q": q, "k": k, "v": v}, {}, bias, pad_mask)
@@ -391,10 +413,14 @@ def _flash_bwd_dq_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal):
     return dq
 
 
-def _flash_bwd_dkv_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal):
+def _flash_bwd_dkv_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal,
+                        streamed: Optional[bool] = None):
+    """K6c on the card; ``streamed`` picks the design (by default
+    ``uses_dkv_stream``; the streamed design takes head dims up to 32)."""
     args = _bwd_cuda_args("flash_bwd_dkv", q, k, v, d_out, lse, delta, bias, pad_mask)
+    streamed = uses_dkv_stream(q.shape[3]) if streamed is None else streamed
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    _launch("flash_bwd_dkv", q, args, (dk.data_ptr(), dv.data_ptr()), causal)
+    _launch("flash_bwd_dkv", q, args, (dk.data_ptr(), dv.data_ptr()), causal, (int(streamed),))
     flash_bwd_dkv.launches += 1
     return dk, dv
 

@@ -202,7 +202,7 @@ def _check_cuda_inputs(op: str, x, W, vocab_size: int,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "ce_rank": [_P] * 4 + [_I] * 5 + [_P] * 7 + [_I, _P],
+    "ce_rank": [_P] * 4 + [_I] * 7 + [_P] * 7 + [_I, _P],
     "ce_fwd": [_P] * 3 + [_I] * 8 + [_P] * 7 + [_I, _P],
     "ce_bwd": [_P] * 6 + [_I] * 9 + [_F] * 2 + [_I] * 2 + [_P] * 5,
     "rank": [_P] * 4 + [_I] * 5 + [_P] * 3,
@@ -248,6 +248,12 @@ NARROW_E, NARROW_E_BWD = 4 * CE_SLAB, 2 * CE_SLAB
 # a wide forward keeps its x tile in shared memory up to 8 slabs (128 KB),
 # beside a ring of at least 6 slots (csrc/ce_wide.cuh)
 RESIDENT_SLABS = 8
+# K3's narrow kernel streams the table into a ring of at least 4 slots a
+# block, about 128 KB in flight on each SM, within the shared memory a block
+# may ask for (csrc/ce_rank.cu: Slot, stream_smem; csrc/hopper.cuh: MAX_SMEM)
+K3_CHUNK = 64
+K3_MIN_STAGES, K3_IN_FLIGHT = 4, 128 << 10
+MAX_SMEM = 232_448
 
 
 @dataclass(frozen=True)
@@ -267,7 +273,12 @@ class CEPlan:
     per 128-column chunk; a wide forward keeps its x tile ``resident`` in
     shared memory up to ``RESIDENT_SLABS`` slabs and streams it with the
     table otherwise; a wide K2 streams both and runs ``e_splits`` blocks per
-    tile, each owning 128 columns of dx or dW and recomputing the logits."""
+    tile, each owning 128 columns of dx or dW and recomputing the logits.
+
+    ``stages`` and ``smem``: the ring slots and shared memory of a block of
+    K3's narrow kernel (``streamed``), which streams the table as f32 into
+    its ring; ``blocks_per_sm`` of them share an SM. 0 for every other
+    kernel."""
 
     n: int
     e: int
@@ -282,6 +293,9 @@ class CEPlan:
     slabs: int
     e_splits: int
     resident: bool
+    stages: int = 0
+    smem: int = 0
+    blocks_per_sm: int = 2
 
     def images(self, device) -> Dict[str, torch.Tensor]:
         """The bf16 images of x and of the table, uninitialised."""
@@ -309,8 +323,22 @@ class CEPlan:
         return out
 
 
+def k3_slot(e: int) -> Tuple[int, int]:
+    """``(rows, bytes)`` of a ring slot of K3's narrow kernel at width ``e``
+    (``Slot`` in ``csrc/ce_rank.cu``): groups of 8 rows of f32, one bulk copy
+    each, 8 groups (4 where e pads to 256, so that 4 slots fit); a group is
+    followed by zeros, at least as many as e lacks of its padding to 16 · KS
+    values (16, 32, 64, 128 or 256), and 16 words more than a multiple of 32,
+    so that the consumers' 16-byte reads of two rows of neighbouring groups
+    hit distinct banks."""
+    ek = 16 if e <= 16 else 32 if e <= 32 else 64 if e <= 64 else 128 if e <= 128 else 256
+    groups = 8 if ek <= 128 else 4
+    group_words = 8 * e + -(-(ek - e) // 32) * 32 + 16
+    return 8 * groups, groups * group_words * 4
+
+
 def ce_plan(n: int, e: int, vocab_size: int, table_rows: int, sms: int, backward: bool,
-            chunk_cols: int = CE_TILE) -> CEPlan:
+            chunk_cols: int = CE_TILE, streamed: bool = False) -> CEPlan:
     """The launch plan of a vocab kernel for ``n`` rows of width ``e``
     against a table of ``table_rows`` rows whose first ``vocab_size`` are the
     vocab, on a card with ``sms`` SMs: K1 (``backward=False``), K2, or with
@@ -325,7 +353,13 @@ def ce_plan(n: int, e: int, vocab_size: int, table_rows: int, sms: int, backward
     one, two or four 64-value slabs), for a wide forward ``e`` rounded up to
     a slab, for a wide K2 to two slabs (its blocks own 128 columns each).
     K1's table image needs only the vocab's chunks; K2's dW pass covers every
-    row of the table."""
+    row of the table.
+
+    ``streamed`` (K3's narrow kernel): each block also gets a ring of
+    ``stages`` slots (``k3_slot``) and its ``smem`` bytes; two blocks share an
+    SM where a ring of ``K3_MIN_STAGES`` slots fits twice, else one, and the
+    vocab is split for that many blocks per SM, the slots chosen so that
+    about ``K3_IN_FLIGHT`` bytes of the table are in flight on each SM."""
     wide = e > (NARROW_E_BWD if backward else NARROW_E)
     if wide:
         chunk_cols = CE_TILE
@@ -335,15 +369,24 @@ def ce_plan(n: int, e: int, vocab_size: int, table_rows: int, sms: int, backward
     else:
         ek = 64 if e <= 64 else 128 if e <= 128 else 256
         slabs = ek // CE_SLAB
+    stages = smem = 0
+    blocks_per_sm = 2
+    if streamed and not wide:
+        slot = k3_slot(e)[1] + 16  # a slot and its two barriers
+        blocks_per_sm = 2 if 2 * K3_MIN_STAGES * slot <= MAX_SMEM else 1
+        stages = max(K3_MIN_STAGES, -(-K3_IN_FLIGHT // (blocks_per_sm * slot)))
+        stages = min(stages, MAX_SMEM // blocks_per_sm // slot)
+        smem = stages * slot
     row_tiles = -(-n // CE_TILE)
     chunks = -(-vocab_size // chunk_cols)
-    per_split = -(-max(1, chunks) // max(1, (2 * sms) // row_tiles))
+    per_split = -(-max(1, chunks) // max(1, (blocks_per_sm * sms) // row_tiles))
     table_tiles = -(-(table_rows if backward else vocab_size) // CE_TILE)
     return CEPlan(n=n, e=e, ek=ek, row_tiles=row_tiles, chunks=chunks, table_tiles=table_tiles,
                   splits=-(-max(1, chunks) // per_split), chunks_per_split=per_split,
                   backward=backward, wide=wide, slabs=slabs,
                   e_splits=ek // (2 * CE_SLAB) if wide and backward else 1,
-                  resident=not wide or (not backward and slabs <= RESIDENT_SLABS))
+                  resident=not wide or (not backward and slabs <= RESIDENT_SLABS),
+                  stages=stages, smem=smem, blocks_per_sm=blocks_per_sm)
 
 
 def swizzled_image_index(rows: int, ek: int) -> torch.Tensor:
@@ -362,9 +405,11 @@ def swizzled_image_index(rows: int, ek: int) -> torch.Tensor:
             + rr * CE_SLAB + ((c64 // 8) ^ (rr % 8)) * 8 + c64 % 8)
 
 
-def _plan_for(x, W, vocab_size: int, backward: bool, chunk_cols: int = CE_TILE) -> CEPlan:
+def _plan_for(x, W, vocab_size: int, backward: bool, chunk_cols: int = CE_TILE,
+              streamed: bool = False) -> CEPlan:
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return ce_plan(x.shape[0], x.shape[1], vocab_size, W.shape[0], sms, backward, chunk_cols)
+    return ce_plan(x.shape[0], x.shape[1], vocab_size, W.shape[0], sms, backward, chunk_cols,
+                   streamed)
 
 
 def _write_image(lib: ctypes.CDLL, src: torch.Tensor, rows: int, img: torch.Tensor,
@@ -389,7 +434,7 @@ def _ce_rank_cuda(x, W, labels, ll, vocab_size, smooth):
     lib = _kernel_lib("ce_rank")
     N, E = x.shape
     dev = x.device
-    plan = _plan_for(x, W, vocab_size, False, lib.t4r_chunk_cols())
+    plan = _plan_for(x, W, vocab_size, False, lib.t4r_chunk_cols(), streamed=True)
     splits, per_split = plan.splits, plan.chunks_per_split
     part_m = torch.empty((splits, N), dtype=torch.float32, device=dev)
     part_s = torch.empty((splits, N), dtype=torch.float32, device=dev)
@@ -412,7 +457,7 @@ def _ce_rank_cuda(x, W, labels, ll, vocab_size, smooth):
         else:
             err = lib.t4r_ce_rank(
                 x.data_ptr(), W.data_ptr(), labels.data_ptr(), ll.data_ptr(),
-                N, E, vocab_size, splits, per_split, *outs, stream)
+                N, E, vocab_size, splits, per_split, plan.stages, plan.smem, *outs, stream)
     raise_on_error(lib, err, "ce_rank")
     ce_rank.launches += 1
     return lse, rank, (zsum if smooth else None)
@@ -664,7 +709,7 @@ def _rank_cuda(x, W, ll, labels, vocab_size):
     lib = _kernel_lib("rank")
     N, E = x.shape
     dev = x.device
-    plan = _plan_for(x, W, vocab_size, False, lib.t4r_chunk_cols())
+    plan = _plan_for(x, W, vocab_size, False, lib.t4r_chunk_cols(), streamed=True)
     splits, per_split = plan.splits, plan.chunks_per_split
     part_cnt = torch.empty((splits, N), dtype=torch.int32, device=dev)
     cnt = torch.empty(N, dtype=torch.int32, device=dev)
