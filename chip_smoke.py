@@ -32,10 +32,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (S = 333, Dh = 32, a (1, H, S, S) bias, a session wholly padded,
    non-causal), at (4, 2048, 8, 64) causal and at (4, 4096, 16, 12) causal
    with ragged padding, the shape of phase 11 and the only one at which a
-   main path launches K6b and K6c, with the same bits on a second call and
-   K6a against K6b + K6c; K1 and K2 at the long-session training shapes
-   of 8,192 and 16,384 loss rows (every K1 and K2 check also asks each
-   kernel a second time for the same bits); and K1, K2, K3 and K4 on item
+   main path launches K6b and K6c, with the same bits on a second call,
+   K6a against K6b + K6c and, at head dims up to 32, the streamed K6b
+   against the mma.sync body it replaces (the same bits); K1 and K2 at the
+   long-session training shapes of 8,192 and 16,384 loss rows (every K1
+   and K2 check also asks each kernel a second time for the same bits);
+   and K1, K2, K3 and K4 on item
    tables wider than the narrow kernels hold (E = 192, 448, 1,000; label
    smoothing on and off; the same bits twice), with labels on padding rows
    and on two shards at E = 448;
@@ -78,16 +80,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     at batch 4, and ``flagship.build_trainer(scheme="clm")`` for 8 + 16
     steps at batch 32 with dropout 0.1 (K5 and K6a three times a step, K1
     and K2 once; finite losses, the repeated batch's loss falling);
-11. one training step of the one-layer model on 4 sessions of up to 4,096
-    items through the same entry points: K6b and K6c launch once each and K6a
-    not at all (its dq partials would pass the cap);
+11. one cold training step of the one-layer model on 4 sessions of up to
+    4,096 items through the same entry points, then 8 steady ones, timed:
+    K6b and K6c launch once a step and K6a not at all (its dq partials would
+    pass the cap);
 12. time K3 and K4 at the evaluation shape, K1 and K2 at the three training
     shapes (915, 8,192 and 16,384 loss rows), all four again at E = 448 (K1
     and K2 at 915 and 8,192 rows), K7a and K7b at the item table's shape
     and K5, K6a, K6b, K6c at the shapes of phases 10 and 11 and at
     (4, 2048, 8, 64), K5 and K6a in both their designs (``mma.sync`` and
-    ``wgmma``), each beside its plain version and, where there is one,
-    a library yardstick (CUDA events, median after warm-up; at 8,192 rows and
+    ``wgmma``), K6b and K6c in both theirs (``mma.sync`` and streamed) and
+    the split route K6b + K6c beside K6a, each beside its plain version and,
+    where there is one, a library yardstick (CUDA events, median after warm-up; at 8,192 rows and
     more the cross-entropy's yardstick runs 1,024 rows at a time), and a
     whole table-optimizer step on each of its arms.
 
@@ -111,13 +115,16 @@ K1 and K2 take most of the device's time). ``--time-ce`` checks and times
 K3 alone at the evaluation shape at E = 64, 128 and 256 (with its ring's
 depth and, from ``torch.profiler``, the device time of each of its two
 kernels) and K1 and K2 alone at the three training shapes, ``--time-flash``
-K5, K6a and K6c alone in both their designs at the CLM shape, at the
-S = 4,096 step's, at (4, 2048, 8, 64) and where the designs meet (head dims
-32, 48 and 128).
+K5, K6a, K6b and K6c alone in both their designs, and the split route
+K6b + K6c beside K6a, at the CLM shape, at the S = 4,096 step's, at
+(4, 2048, 8, 64) and where the designs meet (head dims 32, 48 and 128).
+``--time-long-step`` times the steady S = 4,096 step with K6b in each of
+its designs in turns and profiles it (device time by kernel).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -146,6 +153,7 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 EVAL_BATCHES, EVAL_ROWS = 4, 128
 TOP_K = 20
 LONG_STEP_BATCH, LONG_STEP_SEQ = 4, 4096  # main path 7
+LONG_STEP_STEADY = 8  # its steady steps after the cold one
 TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 TRAIN_STEPS, REPEAT_STEPS = 16, 32
 
@@ -562,6 +570,12 @@ def check_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: 
     fs = res["fused_vs_split"]
     if fs["dq"] > 1e-5 or fs["dk"] > 1e-6 or fs["dv"] > 1e-6:
         fail(f"flash_bwd {name}: fused (mma.sync) against split {fs}")
+    if q.is_cuda and fa.uses_split_stream(Dh):
+        # the streamed K6b against the mma.sync body it replaces: the same bits
+        res["dq_streamed_equals_mma_sync"] = torch.equal(
+            split[0], fa._flash_bwd_dq_cuda(*args, streamed=False))
+        if not res["dq_streamed_equals_mma_sync"]:
+            fail(f"flash_bwd_dq {name}: the streamed design and the mma.sync body differ")
     print(f"[k5k6] {json.dumps(res)}")
     return res
 
@@ -666,12 +680,17 @@ def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged:
                             reps=reps)
             for design in ("mma.sync", "wgmma")}
     res["flash_bwd_fused"]["design"] = res["flash_fwd"]["design"]
-    if Dh <= fa.DKV_STREAM_MAX_DH:  # K6c's streamed design takes head dims up to 32
-        res["flash_bwd_dkv"]["designs_ms"] = {
-            design: cuda_ms(lambda: fa._flash_bwd_dkv_cuda(*args, streamed=design == "streamed"),
-                            reps=reps)
-            for design in ("mma.sync", "streamed")}
-    res["flash_bwd_dkv"]["design"] = "streamed" if fa.uses_dkv_stream(Dh) else "mma.sync"
+    split = "streamed" if fa.uses_split_stream(Dh) else "mma.sync"
+    if split == "streamed":  # the streamed K6b and K6c take head dims up to 32
+        for kernel, launch in (("flash_bwd_dq", fa._flash_bwd_dq_cuda),
+                               ("flash_bwd_dkv", fa._flash_bwd_dkv_cuda)):
+            res[kernel]["designs_ms"] = {
+                design: cuda_ms(lambda: launch(*args, streamed=design == "streamed"), reps=reps)
+                for design in ("mma.sync", "streamed")}
+    res["flash_bwd_dq"]["design"] = res["flash_bwd_dkv"]["design"] = split
+    # the split route (K6b, then K6c) against K6a's time above, at this shape
+    res["flash_bwd_fused"]["split_route_ms"] = cuda_ms(
+        lambda: (fa.flash_bwd_dq(*args), fa.flash_bwd_dkv(*args)), reps=reps)
     for r in res.values():
         r["shape"] = name
         r["pairs"] = pairs
@@ -1109,34 +1128,49 @@ def run_clm(flagship, vocab, fa, card: str, vocab_size: int) -> dict:
     return out
 
 
-def run_long_step(flagship, vocab, fa, card: str) -> dict:
-    """One training step of the one-layer GPT-2-CLM model on 4 sessions of up
-    to 4,096 items, through ``flagship.build_trainer``: K6a's dq partials
-    would pass the cap there, so the backward takes K6b and K6c."""
+def long_step_trainer(flagship) -> tuple:
+    """``(trainer, data)``: the one-layer GPT-2-CLM trainer on 4 synthetic
+    sessions of up to 4,096 items, a batch of 4."""
     from transformers4rec_tpu_torch.data import synthetic_data
 
     seq, rows = LONG_STEP_SEQ, LONG_STEP_BATCH
     data = synthetic_data(flagship.schema(flagship.NUM_ITEMS, seq), num_rows=rows,
                           max_session_length=seq, seed=500)
-    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data, scheme="clm",
-                                     seq=seq, batch=rows, n_layer=1)
-    trainer.args.max_steps = 1
+    return flagship.build_trainer("cuda", seed=0, train_dataset=data, scheme="clm", seq=seq,
+                                  batch=rows, n_layer=1), data
+
+
+def run_long_step(flagship, vocab, fa, card: str, steady: int = LONG_STEP_STEADY) -> dict:
+    """Training steps of the one-layer GPT-2-CLM model on 4 sessions of up
+    to 4,096 items, through ``flagship.build_trainer``: one cold step, then
+    ``steady`` more, timed together (ms per step). K6a's dq partials would
+    pass the cap there, so the backward takes K6b and K6c, once a step."""
+    seq, rows = LONG_STEP_SEQ, LONG_STEP_BATCH
+    trainer, data = long_step_trainer(flagship)
     counters = flash_counters(vocab, fa)
     torch.cuda.reset_peak_memory_stats()
-    metrics, got, wall = counted(counters, trainer.train)
-    expect_launches("the S = 4,096 step", got, flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1,
-                    ce_fwd=1, ce_bwd=1)
-    attn = trainer.model.heads[0].body.blocks[1].encoder.layers[0].attn
-    grads = {n: float(getattr(attn, n).weight.grad.abs().max()) for n in ("q", "k", "v")}
-    res = {"loss": metrics["train_loss"], "wall_s": wall, "launches": got,
-           "positions": rows * seq, "real_items": int((data["item_id"] != 0).sum()),
-           "grad_max_abs": grads,
-           "dq_partials_would_take_bytes": rows * seq * flagship.D_MODEL * 4 * (seq // 64),
-           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    launches = dict.fromkeys(counters, 0)
+    res = {"positions": rows * seq, "real_items": int((data["item_id"] != 0).sum()),
+           "dq_partials_would_take_bytes": rows * seq * flagship.D_MODEL * 4 * (seq // 64)}
+    for phase, n in (("cold", 1), ("steady", steady)):
+        trainer.args.max_steps = n
+        metrics, got, wall = counted(counters, trainer.train)
+        expect_launches(f"the S = 4,096 steps ({phase})", got, flash_fwd=n, flash_bwd_dq=n,
+                        flash_bwd_dkv=n, ce_fwd=n, ce_bwd=n)
+        for k, c in got.items():
+            launches[k] += c
+        res[phase] = {"steps": n, "loss": metrics["train_loss"], "wall_s": wall,
+                      "ms_per_step": 1e3 * wall / n}
+        if phase == "cold":
+            attn = trainer.model.heads[0].body.blocks[1].encoder.layers[0].attn
+            res["grad_max_abs"] = {g: float(getattr(attn, g).weight.grad.abs().max())
+                                   for g in ("q", "k", "v")}
+    res["launches"] = launches
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     print(f"[long-step] on {card}: {json.dumps(res)}")
-    if not math.isfinite(res["loss"]) or not all(math.isfinite(g) and g > 0
-                                                 for g in grads.values()):
-        fail(f"the S = 4,096 step: {res}")
+    if not all(math.isfinite(res[p]["loss"]) for p in ("cold", "steady")) \
+            or not all(math.isfinite(g) and g > 0 for g in res["grad_max_abs"].values()):
+        fail(f"the S = 4,096 steps: {res}")
     return res
 
 
@@ -1679,7 +1713,7 @@ def time_ce_kernels(card: str) -> None:
 
 
 def time_flash_kernels(card: str) -> None:
-    """K5, K6a and K6c alone at the CLM path's shape (32, 256, 16, 12) with
+    """K5, K6a, K6b and K6c alone at the CLM path's shape (32, 256, 16, 12) with
     ragged padding, at the S = 4,096 step's (4, 4096, 16, 12) with ragged
     padding and at (4, 2048, 8, Dh) for Dh = 64 and, where the two
     designs meet, at (32, 256, 16, Dh) for Dh = 32 and 48 and at
@@ -1687,7 +1721,7 @@ def time_flash_kernels(card: str) -> None:
     version (``check_flash``) and timed in both designs beside
     ``scaled_dot_product_attention`` (``time_flash``): the quick loop for
     work on them, and the times that ``ops/attention.py:uses_wgmma`` and
-    ``uses_dkv_stream`` keep."""
+    ``uses_split_stream`` keep."""
     from transformers4rec_tpu_torch.ops import build
 
     build.build(["flash_fwd", "flash_bwd"])
@@ -1702,11 +1736,52 @@ def time_flash_kernels(card: str) -> None:
                                      ("long_dh128", (4, 2048, 8, 128), False, 27)):
         check_flash(name, *dims, True, seed, ragged=ragged)
         timing = time_flash(name, *dims, True, ragged, 30)
-        keep = ("ms", "bound_ms", "library_ms", "design", "designs_ms")
+        keep = ("ms", "bound_ms", "library_ms", "design", "designs_ms", "split_route_ms")
         torch.cuda.empty_cache()
         print(f"[time-flash] {name} {dims} on {card}: "
               f"{json.dumps({k: {f: v[f] for f in keep if f in v} for k, v in timing.items()})}",
               flush=True)
+
+
+def time_long_step(card: str, steady: int = 32) -> None:
+    """The steady S = 4,096 step (``run_long_step``, ``steady`` steps a
+    reading) with K6b forced into each of its designs in turns (streamed,
+    mma.sync, mma.sync, streamed, streamed, mma.sync), then a
+    ``torch.profiler`` window of 12 steady steps on the designs the wrappers
+    pick: device time by kernel and the device's busy share."""
+    from transformers4rec_tpu_torch import flagship
+    from transformers4rec_tpu_torch.ops import attention, build, vocab
+
+    build.build()
+    launch = attention._flash_bwd_dq_cuda
+    ms = {"streamed": [], "mma.sync": []}
+    try:
+        for design in ("streamed", "mma.sync", "mma.sync", "streamed", "streamed", "mma.sync"):
+            attention._flash_bwd_dq_cuda = functools.partial(launch,
+                                                             streamed=design == "streamed")
+            ms[design].append(run_long_step(flagship, vocab, attention, card,
+                                            steady)["steady"]["ms_per_step"])
+            torch.cuda.empty_cache()
+    finally:
+        attention._flash_bwd_dq_cuda = launch
+    print(f"[time-long-step] ms per steady step by K6b's design on {card}: {json.dumps(ms)}")
+
+    steps = 4
+    trainer, _ = long_step_trainer(flagship)
+    trainer.args.max_steps = steps
+    trainer.train()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        trainer.train()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / (3 * steps)
+    per_step = {k: v / steps / 1e3 for k, v in kernel_us(trainer.train, reps=3).items()}
+    device_ms = sum(per_step.values())
+    top = sorted(per_step.items(), key=lambda kv: -kv[1])[:16]
+    print(f"[time-long-step] profile on {card}: " + json.dumps({
+        "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms / wall_ms, "top_kernels_ms": top}))
 
 
 def main() -> None:
@@ -1718,6 +1793,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--time-flash"]:
         time_flash_kernels(card_line())
+        return
+    if sys.argv[1:] == ["--time-long-step"]:
+        time_long_step(card_line())
         return
     if sys.argv[1:2] in (["--profile-train"], ["--profile-train-streamed"],
                          ["--profile-train-clm"]) and len(sys.argv) <= 3:
@@ -1918,7 +1996,7 @@ def main() -> None:
     # the kernel at other shapes: those at which a main path launches it
     # ("main_path": true) and those that no main path gives it (false): K1
     # and K2 at E = 448 with 8,192 rows, K4 at E = 448, K5 and K6a at
-    # (4, 2048, 8, 64)
+    # (4, 2048, 8, 64), K6b and K6c at the CLM path's shape
     def on(t, main_path):
         return {**t, "main_path": main_path}
 
@@ -1932,7 +2010,9 @@ def main() -> None:
             "rank": [on(wide_timing["rank"], False)],
             "flash_fwd": [on(flash_timing["long_step"]["flash_fwd"], True),
                           on(flash_timing["long"]["flash_fwd"], False)],
-            "flash_bwd_fused": [on(flash_timing["long"]["flash_bwd_fused"], False)]}
+            "flash_bwd_fused": [on(flash_timing["long"]["flash_bwd_fused"], False)],
+            "flash_bwd_dq": [on(flash_timing["main"]["flash_bwd_dq"], False)],
+            "flash_bwd_dkv": [on(flash_timing["main"]["flash_bwd_dkv"], False)]}
     clm_step_ms = clm["one_batch_repeated"]["ms_per_step"]
     attn_ms = flagship.N_LAYER * (flash_timing["main"]["flash_fwd"]["ms"]
                                   + flash_timing["main"]["flash_bwd_fused"]["ms"])

@@ -173,6 +173,46 @@ def test_fused_and_split_backward_arithmetic_agree(name):
     assert torch.equal(fused[1], split[1]) and torch.equal(fused[2], split[2])
 
 
+def _spy(monkeypatch, module, names, calls):
+    """Record in ``calls`` the name of each function of ``names`` in
+    ``module`` as it is called, and call it."""
+    for name in names:
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name,
+                            lambda *a, _n=name, _r=real, **kw: calls.append(_n) or _r(*a, **kw))
+
+
+@pytest.mark.parametrize("name", ["dh12", "causal_ragged_pad", "bias_B_H"])
+def test_split_backward_matches_the_jax_split_kernels(name, monkeypatch):
+    """The port's split route (K6b + K6c, taken above the dq-partials cap)
+    against the JAX package's own split kernels (``_make_bwd_dq_kernel`` and
+    ``_make_bwd_dkv_kernel`` in interpret mode). At these sizes JAX takes its
+    fused kernel unless its dq scratch cap is lowered, which this test does
+    for itself; the caches are cleared first, so that no earlier trace of the
+    fused route is reused, and both sides are watched taking the split route."""
+    q, k, v, g, bias, pad, causal = _case(name)
+    made = []
+    _spy(monkeypatch, jax_attn,
+         ("_make_bwd_fused_kernel", "_make_bwd_dq_kernel", "_make_bwd_dkv_kernel"), made)
+    monkeypatch.setattr(jax_attn, "_BWD_DQ_SCRATCH_MAX_BYTES", 0)
+    jax.clear_caches()
+
+    def loss(q_, k_, v_):
+        return (_jax_flash(q_, k_, v_, bias, pad, causal) * jnp.asarray(g)).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    assert made == ["_make_bwd_dq_kernel", "_make_bwd_dkv_kernel"]
+
+    taken = []
+    _spy(monkeypatch, attn, ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"), taken)
+    monkeypatch.setattr(attn, "BWD_DQ_PARTIAL_MAX_BYTES", 0)
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    attn.flash_attention(*leaves, _t(bias), _t(pad), causal).backward(_t(g))
+    assert taken == ["flash_bwd_dq", "flash_bwd_dkv"]
+    for name_, got, w in zip("qkv", leaves, want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w), err_msg=name_, **TOL)
+
+
 def test_backward_routes_by_the_size_of_the_dq_partials(monkeypatch):
     q, k, v, g = (_t(a) for a in _inputs(128, 16))
     # the main path's partials fit under the cap, the 4,096-item step's do not
@@ -181,10 +221,7 @@ def test_backward_routes_by_the_size_of_the_dq_partials(monkeypatch):
     assert attn.dq_partial_bytes(main) <= attn.BWD_DQ_PARTIAL_MAX_BYTES
     assert attn.dq_partial_bytes(long) > attn.BWD_DQ_PARTIAL_MAX_BYTES
     calls = []
-    for name in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
-        real = getattr(attn, name)
-        monkeypatch.setattr(attn, name,
-                            lambda *a, _n=name, _r=real, **kw: calls.append(_n) or _r(*a, **kw))
+    _spy(monkeypatch, attn, ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"), calls)
     out, lse = attn.flash_fwd(q, k, v, None, None, True)
     assert attn.dq_partial_bytes(q) == 2 * q.numel() * 4
     want = attn.flash_backward(q, k, v, None, None, True, out, lse, g)
@@ -204,9 +241,10 @@ def test_backward_routes_by_the_size_of_the_dq_partials(monkeypatch):
 ])
 def test_each_head_dim_takes_the_design_its_times_chose(head_dim, wgmma):
     assert attn.uses_wgmma(head_dim) == wgmma
-    # K6c: the streamed design up to 32 (the CLM path's 12 and the S = 4,096
-    # step), the mma.sync body that K6a shares above
-    assert attn.uses_dkv_stream(head_dim) == (head_dim <= 32)
+    # K6b and K6c, the two halves of the split backward: the streamed designs
+    # up to 32 (the CLM path's 12 and the S = 4,096 step), the mma.sync
+    # bodies above (K6c's is the one K6a shares)
+    assert attn.uses_split_stream(head_dim) == (head_dim <= attn.SPLIT_STREAM_MAX_DH == 32)
 
 
 @pytest.mark.parametrize("heads,key_tiles", [(1, 1), (3, 5), (64, 32)])
@@ -218,6 +256,18 @@ def test_streamed_dkv_blocks_take_every_key_tile_once_longest_first(heads, key_t
     assert sorted(order) == [(bh, kt) for bh in range(heads) for kt in range(key_tiles)]
     S = key_tiles * attn.DKV_STREAM_KEYS
     steps = [S // attn.TILE - kt * attn.DKV_STREAM_KEYS // attn.TILE for _, kt in order]
+    assert steps == sorted(steps, reverse=True)
+
+
+@pytest.mark.parametrize("heads,query_tiles", [(1, 1), (3, 5), (64, 32)])
+def test_streamed_dq_blocks_take_every_query_tile_once_longest_first(heads, query_tiles):
+    """The streamed K6b's launch order is a permutation of the (batch·head,
+    query tile) pairs, the last query tile first, and under the causal mask
+    no block has fewer key steps than one launched after it."""
+    order = attn.dq_block_order(heads, query_tiles)
+    assert sorted(order) == [(bh, qt) for bh in range(heads) for qt in range(query_tiles)]
+    assert order[0] == (0, query_tiles - 1)
+    steps = [(qt + 1) * attn.DQ_STREAM_QUERIES // attn.TILE for _, qt in order]
     assert steps == sorted(steps, reverse=True)
 
 

@@ -584,11 +584,30 @@ def test_flash_backward_kernels_match_plain(dev, shape, design):
     assert float((mma[0] - split[0]).abs().max() / split[0].abs().max()) <= 1e-5
     for a, b in zip(mma[1:], split[1:]):
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-6
-    if attn.uses_dkv_stream(q.shape[3]):
+    if attn.uses_split_stream(q.shape[3]):
         # K6c's mma.sync body, which the streamed design replaces here: the same sums
         old = attn._flash_bwd_dkv_cuda(*args, streamed=False)
         for a, b in zip(old, split[1:]):
             assert float((a - b).abs().max() / b.abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", [s for s in FLASH_SHAPES
+                                   if FLASH_SHAPES[s][3] <= attn.SPLIT_STREAM_MAX_DH])
+def test_streamed_dq_gives_the_bits_of_the_mma_sync_body(dev, shape):
+    """The streamed K6b against the mma.sync body it replaces at head dims
+    up to 32: the same products, expressions and order of sums, so the same
+    bits; skipped pairs are those whose P is exactly 0. Sessions wholly
+    padded give dq = 0 exactly."""
+    q, k, v, g, bias, pad, causal = _flash_inputs(shape, dev)
+    out, lse = attn.flash_forward_plain(q, k, v, bias, pad, causal)
+    args = (q, k, v, g, lse, attn.row_delta(g, out), bias, pad, causal)
+    streamed = attn._flash_bwd_dq_cuda(*args, streamed=True)
+    old = attn._flash_bwd_dq_cuda(*args, streamed=False)
+    torch.cuda.synchronize()
+    assert torch.equal(streamed, old)
+    padded = FLASH_SHAPES[shape][6]
+    if padded:
+        assert bool((streamed[:padded] == 0).all())
 
 
 def test_streamed_dkv_refuses_head_dims_above_32(dev):
@@ -596,6 +615,13 @@ def test_streamed_dkv_refuses_head_dims_above_32(dev):
     rows = torch.zeros(2, 128, device=dev)
     with pytest.raises(RuntimeError):
         attn._flash_bwd_dkv_cuda(q, q, q, q, rows, rows, None, None, True, streamed=True)
+
+
+def test_streamed_dq_refuses_head_dims_above_32(dev):
+    q = torch.zeros(1, 128, 2, 36, device=dev)
+    rows = torch.zeros(2, 128, device=dev)
+    with pytest.raises(RuntimeError):
+        attn._flash_bwd_dq_cuda(q, q, q, q, rows, rows, None, None, True, streamed=True)
 
 
 def test_flash_attention_on_the_card_matches_the_cpu(dev):

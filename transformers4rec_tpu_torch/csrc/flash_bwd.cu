@@ -41,11 +41,14 @@
 //   - flash_bwd_dq_kernel (K6b): a block owns a (batch * head, 64-query
 //     tile), loops over the key tiles up to the causal end and keeps dq in
 //     registers;
-//   - flash_bwd_dkv_stream_kernel (K6c for head dims up to 32,
-//     ops/attention.py:uses_dkv_stream): the dk/dv body's loop with 128 keys
-//     a block and each step's loads in flight during the step before; at
-//     the S = 4,096 step's (4, 4096, 16, 12) it takes 0.39 ms against the
-//     body's 0.96 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
+//   - flash_bwd_dkv_stream_kernel (K6c) and flash_bwd_dq_stream_kernel (K6b)
+//     for head dims up to 32 (ops/attention.py:uses_split_stream): the two
+//     loops above with 128 keys (K6c) or 128 queries (K6b) a block, one
+//     row-major bf16 copy of each streamed tile, each step's loads in flight
+//     during the step before, and steps whose P is 0 skipped; at the S =
+//     4,096 step's (4, 4096, 16, 12) K6c takes 0.39 ms against the body's
+//     0.96 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), and each gives the
+//     bits of the body it replaces.
 // All bodies take their logits from masked_logit (flash_common.cuh), the
 // forward's function. Tiles are read as f32 from the (B, S, H, Dh) layout and
 // stored row-major and, where a product needs it, transposed: no cast or
@@ -232,7 +235,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 constexpr int DKV_WARPS = 8;
 constexpr int DKV_KEYS = 16 * DKV_WARPS;
 constexpr int DKV_THREADS = 32 * DKV_WARPS;
-constexpr int DKV_STREAM_MAX_DH = 32;
+// the widest head dim that the streamed K6b and K6c take
+constexpr int STREAM_MAX_DH = 32;
 
 // Four 8 x 8 bf16 matrices of shared memory whose rows the lanes address
 // (lane l: row l % 8 of matrix l / 8): r[m] is the lane's pair (row l / 4,
@@ -476,6 +480,251 @@ flash_bwd_dkv_stream_kernel(const float* __restrict__ q, const float* __restrict
   }
   store_rows<NTD>(dk_acc, scale, dk + head_off, row_stride, key0, S, Dh, g, t);
   store_rows<NTD>(dv_acc, 1.f, dv + head_off, row_stride, key0, S, Dh, g, t);
+}
+
+// ------------------------------------------ K6b's streamed design (Dh <= 32)
+// flash_bwd_dq_stream_kernel: K6c's streamed design with the roles of queries
+// and keys swapped. A block of DQ_WARPS warps per (batch * head,
+// DQ_QUERIES-query tile), each warp owning 16 queries, loops over 64-key
+// steps up to the causal end:
+//   - the q and dO A fragments of the warp's queries are read once from
+//     device memory into registers, and so are their lse and delta; k and v
+//     of a step are kept once, row-major in bf16: q . k^T and dO . v^T read
+//     them by ldmatrix, dS . k reads k by ldmatrix.trans (no second,
+//     transposed copy of k);
+//   - step i + 1's k, v and padding terms are loaded into registers while
+//     step i's products and exponentials run, and stored into the second of
+//     two buffers after them: one barrier per step;
+//   - the block's last step is the one that holds the session's last real key
+//     (a block-wide scan of the pad bytes; with a bias, the last key of the
+//     sequence), so steps wholly of padding at the end are never loaded, and
+//     a block with no real key writes zeros and leaves; a warp skips each half
+//     step whose keys all lie after its queries (causal), and every step when
+//     its queries lie beyond S; a half step whose keys lie wholly inside
+//     the sequence and, under the causal mask, at or before every query of
+//     the warp takes masked_logit's arithmetic without its tests;
+//   - query tiles are the slow grid axis, the longest (the last, under the
+//     causal mask) first (dq_block_order in ops/attention.py is the Python
+//     twin).
+// The logits come from the same mma.sync products of the same bf16 q and k
+// in the same order as the mma.sync K6b body below, P and dS from the same
+// expressions, dS is packed as pack_a_fragments packs it and dq sums the
+// four 16-key k-steps of a step in order (a step's two halves of 32 keys are
+// k-steps 0-1 and 2-3), step after step: the two give the same bits, and a
+// skipped pair is one whose P is exactly 0 there. No atomics.
+constexpr int DQ_WARPS = 8;
+constexpr int DQ_QUERIES = 16 * DQ_WARPS;
+constexpr int DQ_THREADS = 32 * DQ_WARPS;
+
+// dS of a warp's 16 queries (rows[], two a thread) against the 32 keys of a
+// half step from key c_half of the step on, in place of the logits q . k^T
+// in p and of dO . v^T in ds (acc[j][2hh + qq]: query rows[hh], key c_half +
+// 8j + 2t + qq of the step). INSIDE as in probabilities() above.
+template <bool INSIDE, bool HAS_BIAS>
+__device__ __forceinline__ void dq_probabilities(float (&p)[4][4], float (&ds)[4][4],
+                                                 const float* __restrict__ pad_s, int c_half,
+                                                 int t, int k0, const int (&rows)[2],
+                                                 const float (&lse_r)[2],
+                                                 const float (&delta_r)[2], int S, int causal,
+                                                 float scale, const float* __restrict__ bias_bh) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c0 = c_half + 8 * j + 2 * t;  // the pair's first key in the step
+    const float2 pad2 = *reinterpret_cast<const float2*>(pad_s + c0);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int qq = 0; qq < 2; ++qq) {
+        const float pad_add = qq ? pad2.y : pad2.x;
+        const float l = INSIDE ? p[j][2 * hh + qq] * scale + pad_add
+                               : masked_logit<HAS_BIAS>(p[j][2 * hh + qq], scale, rows[hh],
+                                                        k0 + c0 + qq, S, causal != 0, pad_add,
+                                                        bias_bh);
+        const float pv = ex2((l - lse_r[hh]) * LOG2E);
+        ds[j][2 * hh + qq] = pv * (ds[j][2 * hh + qq] - delta_r[hh]);
+      }
+    }
+  }
+}
+
+template <int KS, bool HAS_BIAS>
+__global__ void __launch_bounds__(DQ_THREADS, 2)
+flash_bwd_dq_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ d_out,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           const uint8_t* __restrict__ pad, const float* __restrict__ bias,
+                           long long bias_sb, long long bias_sh, float* __restrict__ dq, int S,
+                           int H, int Dh, int nq, int causal, float scale) {
+  constexpr int LD = Tile<KS>::LD, NTD = Tile<KS>::NTD;
+  constexpr int C4 = Tile<KS>::DP / 4;         // 16-byte pieces of a padded row
+  constexpr int PIECES = 2 * TK * C4;          // of k and v in a step
+  constexpr int PER = PIECES / DQ_THREADS;     // a thread's
+  static_assert(PIECES % DQ_THREADS == 0 && TK <= DQ_THREADS, "a step's loads");
+  __shared__ __align__(16) __nv_bfloat16 tiles[2][2][TK * LD];  // [buffer][k, v][key][LD]
+  __shared__ __align__(16) float pad_s[2][TK];                   // [buffer][key]
+  __shared__ int last_s[DQ_WARPS];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int BH = gridDim.x / nq, qt = nq - 1 - blockIdx.x / BH, bh = blockIdx.x % BH;
+  const int b = bh / H, h = bh - b * H;
+  const int row_stride = H * Dh;
+  const size_t head_off = ((size_t)b * S * H + h) * Dh;
+  const float* bias_bh = HAS_BIAS ? bias + b * bias_sb + h * bias_sh : nullptr;
+  const uint8_t* pad_b = pad != nullptr ? pad + (size_t)b * S : nullptr;
+  const bool scan = !HAS_BIAS && pad_b != nullptr;
+
+  const int q0 = qt * DQ_QUERIES, row0 = q0 + warp * 16;  // the block's and the warp's first query
+  // keys from kcap on lie after every query of the block (causal) or beyond S
+  const int kcap = causal ? min(q0 + DQ_QUERIES, S) : S;
+  // the last real key before kcap: P is 0 for every key after it
+  if (scan) {
+    int mine = -1;
+    for (int i = tid; i < kcap; i += DQ_THREADS) {
+      if (pad_b[i]) mine = i;
+    }
+    mine = __reduce_max_sync(0xffffffffu, mine);
+    if (lane == 0) last_s[warp] = mine;
+  }
+  const int rows[2] = {row0 + g, row0 + g + 8};
+  uint32_t qa[KS][4], oa[KS][4];  // this warp's 16 queries of q and dO as A fragments
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = rows[i & 1], col = 16 * ks + 8 * (i >> 1) + 2 * t;
+      qa[ks][i] = pair_at(q + head_off, row_stride, row, col, S, Dh);
+      oa[ks][i] = pair_at(d_out + head_off, row_stride, row, col, S, Dh);
+    }
+  }
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const bool ok = rows[hh] < S;
+    lse_r[hh] = ok ? lse[(size_t)bh * S + rows[hh]] : LSE_MASKED;
+    delta_r[hh] = ok ? delta[(size_t)bh * S + rows[hh]] : 0.f;
+  }
+  float dq_acc[NTD][4];
+  zero_acc<NTD>(dq_acc);
+  // the head dim's padding columns stay zero: the stores below never write them
+  for (int i = tid; i < 2 * 2 * TK * LD / 2; i += DQ_THREADS) {
+    reinterpret_cast<uint32_t*>(&tiles[0][0][0])[i] = 0u;
+  }
+
+  // A step's piece i: tile i / (TK C4) (k, v), row (i / C4) % TK, 16 bytes
+  // (i % C4) of it; consecutive threads read consecutive pieces of a row.
+  // Keys beyond S are stored as zeros.
+  const int d4n = Dh / 4;
+  float4 pre[PER];
+  float pre_pad = 0.f;
+  auto load = [&](int ki) {
+    const int k0 = ki * TK;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = tid + j * DQ_THREADS, c = i % C4, r = (i / C4) % TK;
+      pre[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + r < S && c < d4n) {
+        const float* src = (i < TK * C4 ? k : v) + head_off;
+        pre[j] = __ldg(reinterpret_cast<const float4*>(src + (size_t)(k0 + r) * row_stride) + c);
+      }
+    }
+    if (tid < TK) pre_pad = hw::pad_term_of(pad_b, k0 + tid, S);
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = tid + j * DQ_THREADS, c = i % C4, r = (i / C4) % TK;
+      if (c < d4n) {
+        *reinterpret_cast<uint2*>(&tiles[buf][i / (TK * C4)][r * LD + 4 * c]) =
+            make_uint2(pack_bf16(pre[j].x, pre[j].y), pack_bf16(pre[j].z, pre[j].w));
+      }
+    }
+    if (tid < TK) pad_s[buf][tid] = pre_pad;
+  };
+
+  load(0);
+  __syncthreads();  // the zero fill and the scan are done
+  int kend = kcap;  // keys from kend on have P = 0 for every query of the block
+  if (scan) {
+    kend = 0;
+#pragma unroll
+    for (int w = 0; w < DQ_WARPS; ++w) kend = max(kend, last_s[w] + 1);
+  }
+  const int nk = (kend + TK - 1) / TK;
+  if (nk == 0) {  // no real key: dq = 0
+    store_rows<NTD>(dq_acc, 1.f, dq + head_off, row_stride, row0, S, Dh, g, t);
+    return;
+  }
+  store(0);
+  if (1 < nk) load(1);
+  __syncthreads();
+
+  const int row_last = row0 + 15;  // the warp's last query
+  for (int ki = 0; ki < nk; ++ki) {
+    const int buf = ki & 1, k0 = ki * TK;
+    if (row0 < S && (!causal || k0 <= row_last)) {
+      const __nv_bfloat16* ks_ = tiles[buf][0];
+      const __nv_bfloat16* vs = tiles[buf][1];
+      const float* pads = pad_s[buf];
+      // two halves of 32 keys: logits row = query, column = key; each half is
+      // k-steps 2 half and 2 half + 1 of dS . k, so dq sums its k-steps in
+      // the mma.sync body's order
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int kh0 = k0 + 32 * half;  // the half's first key
+        if (causal && kh0 > row_last) continue;
+        float p[4][4], ds[4][4];
+        zero_acc<4>(p);
+        zero_acc<4>(ds);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {  // n-tiles 2 jp and 2 jp + 1 of the half
+            const int row = 32 * half + 16 * jp + ((lane >> 4) << 3) + (lane & 7);
+            const int col = 16 * ks + (((lane >> 3) & 1) << 3);
+            uint32_t bk[4], bv[4];
+            ldmatrix_x4<false>(bk, ks_ + row * LD + col);
+            ldmatrix_x4<false>(bv, vs + row * LD + col);
+            mma_bf16(p[2 * jp], qa[ks], bk[0], bk[1]);      // q . k^T
+            mma_bf16(p[2 * jp + 1], qa[ks], bk[2], bk[3]);
+            mma_bf16(ds[2 * jp], oa[ks], bv[0], bv[1]);     // dO . v^T
+            mma_bf16(ds[2 * jp + 1], oa[ks], bv[2], bv[3]);
+          }
+        }
+        if (!HAS_BIAS && kh0 + 32 <= S && (!causal || kh0 + 31 <= row0)) {
+          dq_probabilities<true, HAS_BIAS>(p, ds, pads, 32 * half, t, k0, rows, lse_r, delta_r,
+                                           S, causal, scale, bias_bh);
+        } else {
+          dq_probabilities<false, HAS_BIAS>(p, ds, pads, 32 * half, t, k0, rows, lse_r, delta_r,
+                                            S, causal, scale, bias_bh);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          // dS of keys 16 K .. 16 K + 15 as an A fragment (pack_a_fragments)
+          const int K = 2 * half + kk;
+          const uint32_t da[4] = {pack_bf16(ds[2 * kk][0], ds[2 * kk][1]),
+                                  pack_bf16(ds[2 * kk][2], ds[2 * kk][3]),
+                                  pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]),
+                                  pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3])};
+#pragma unroll
+          for (int jd = 0; jd < NTD / 2; ++jd) {  // n-tiles 2 jd and 2 jd + 1 of the head dim
+            const int row = 16 * K + (((lane >> 3) & 1) << 3) + (lane & 7);
+            const int col = 16 * jd + ((lane >> 4) << 3);
+            uint32_t bk[4];
+            ldmatrix_x4<true>(bk, ks_ + row * LD + col);
+            mma_bf16(dq_acc[2 * jd], da, bk[0], bk[1]);      // dq += dS . k
+            mma_bf16(dq_acc[2 * jd + 1], da, bk[2], bk[3]);
+          }
+        }
+      }
+    }
+    if (ki + 1 < nk) {
+      store(buf ^ 1);  // read in step i - 1, which every warp has left
+      if (ki + 2 < nk) load(ki + 2);
+    }
+    __syncthreads();
+  }
+  store_rows<NTD>(dq_acc, scale, dq + head_off, row_stride, row0, S, Dh, g, t);
 }
 
 // ------------------------------------------------------------ Hopper design
@@ -921,8 +1170,18 @@ cudaError_t launch_dkv_stream(const Args& a, float* dk, float* dv) {
   return cudaGetLastError();
 }
 
+template <int KS, bool HAS_BIAS>
+cudaError_t launch_dq_stream(const Args& a, float* dq) {
+  const int nq = (a.S + DQ_QUERIES - 1) / DQ_QUERIES;
+  flash_bwd_dq_stream_kernel<KS, HAS_BIAS><<<(unsigned)((size_t)a.B * a.H * nq), DQ_THREADS, 0,
+                                             a.st>>>(
+      a.q, a.k, a.v, a.d_out, a.lse, a.delta, a.pad, a.bias, a.bias_sb, a.bias_sh, dq, a.S, a.H,
+      a.Dh, nq, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
 // mode 0: K6a (fused), 1: K6b (dq), 2: K6c (dk, dv), 3: K6a on the Hopper
-// design, 4: K6c on the streamed design
+// design, 4: K6c on the streamed design, 5: K6b on the streamed design
 template <int KS, bool HAS_BIAS>
 cudaError_t launch_mode(int mode, const Args& a, float* dq_part, float* dq, float* dk,
                         float* dv) {
@@ -937,8 +1196,11 @@ cudaError_t launch_dh(int mode, const Args& a, float* dq_part, float* dq, float*
     if (a.Dh > 64) return cudaErrorInvalidValue;
     return launch_fused_hw<HAS_BIAS>(a, dq_part, dq, dk, dv);
   }
-  if (mode == 4) {  // Dh is rounded up to 16 or 32
-    if (a.Dh > DKV_STREAM_MAX_DH) return cudaErrorInvalidValue;
+  if (mode == 4 || mode == 5) {  // Dh is rounded up to 16 or 32
+    if (a.Dh > STREAM_MAX_DH) return cudaErrorInvalidValue;
+    if (mode == 5) {
+      return a.Dh <= 16 ? launch_dq_stream<1, HAS_BIAS>(a, dq) : launch_dq_stream<2, HAS_BIAS>(a, dq);
+    }
     return a.Dh <= 16 ? launch_dkv_stream<1, HAS_BIAS>(a, dk, dv)
                       : launch_dkv_stream<2, HAS_BIAS>(a, dk, dv);
   }
@@ -989,13 +1251,14 @@ int t4r_flash_bwd_fused(const float* q, const float* k, const float* v, const fl
                         dq_part, dq, dk, dv, B, S, H, Dh, causal, scale, stream);
 }
 
-// K6b: dq alone.
+// K6b: dq alone, on the streamed design (`streamed`, head dims up to 32;
+// refused above) or the mma.sync body above.
 int t4r_flash_bwd_dq(const float* q, const float* k, const float* v, const float* d_out,
                      const float* lse, const float* delta, const uint8_t* pad, const float* bias,
                      long long bias_sb, long long bias_sh, float* dq, int B, int S, int H, int Dh,
-                     int causal, float scale, void* stream) {
-  return launch_checked(1, q, k, v, d_out, lse, delta, pad, bias, bias_sb, bias_sh, nullptr, dq,
-                        nullptr, nullptr, B, S, H, Dh, causal, scale, stream);
+                     int causal, float scale, int streamed, void* stream) {
+  return launch_checked(streamed ? 5 : 1, q, k, v, d_out, lse, delta, pad, bias, bias_sb, bias_sh,
+                        nullptr, dq, nullptr, nullptr, B, S, H, Dh, causal, scale, stream);
 }
 
 // K6c: dk and dv alone, on the streamed design (`streamed`, head dims up to
@@ -1009,8 +1272,8 @@ int t4r_flash_bwd_dkv(const float* q, const float* k, const float* v, const floa
                         nullptr, nullptr, dk, dv, B, S, H, Dh, causal, scale, stream);
 }
 
-// The widest head dim K6c's streamed design takes.
-int t4r_flash_dkv_stream_max_dh() { return DKV_STREAM_MAX_DH; }
+// The widest head dim the streamed designs of K6b and K6c take.
+int t4r_flash_stream_max_dh() { return STREAM_MAX_DH; }
 
 const char* t4r_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

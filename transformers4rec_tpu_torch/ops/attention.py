@@ -17,7 +17,8 @@ recomputes them tile by tile.
 For CUDA tensors the four wrappers launch the hand-written kernels of
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (and raise when they cannot;
 K5 and K6a in one of two designs, ``mma.sync`` or ``wgmma``, by head dim:
-``uses_wgmma``; K6c in one of two, streamed or ``mma.sync``: ``uses_dkv_stream``);
+``uses_wgmma``; K6b and K6c in one of two, streamed or ``mma.sync``:
+``uses_split_stream``);
 for CPU tensors they run ``flash_forward_plain``, ``flash_bwd_fused_plain``,
 ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain`` (together:
 ``flash_backward_plain``), plain PyTorch versions of the same arithmetic.
@@ -59,8 +60,9 @@ BWD_DQ_PARTIAL_MAX_BYTES = 256 << 20
 _MAX_DH = 128
 # the head dims that take the Hopper (wgmma) kernels on the card
 WGMMA_MIN_DH, WGMMA_MAX_DH = 33, 64
-# the head dims that take K6c's streamed design, and the keys of its blocks
-DKV_STREAM_MAX_DH, DKV_STREAM_KEYS = 32, 128
+# the head dims that take the streamed designs of K6b and K6c, and the queries
+# of K6b's blocks and the keys of K6c's
+SPLIT_STREAM_MAX_DH, DQ_STREAM_QUERIES, DKV_STREAM_KEYS = 32, 128, 128
 
 
 def reference_attention(q, k, v, bias=None, pad_mask=None, causal=False):
@@ -251,7 +253,7 @@ _ARGTYPES = {
     "flash_fwd": ("flash_fwd", [_P] * 5 + [_L] * 2 + [_P] * 2 + [_I] * 5 + [_F, _I, _P]),
     # q k v dO lse delta pad bias | strides | dq_part dq dk dv | ...
     "flash_bwd_fused": ("flash_bwd", [_P] * 8 + [_L] * 2 + [_P] * 4 + [_I] * 5 + [_F, _I, _P]),
-    "flash_bwd_dq": ("flash_bwd", [_P] * 8 + [_L] * 2 + [_P] * 1 + [_I] * 5 + [_F, _P]),
+    "flash_bwd_dq": ("flash_bwd", [_P] * 8 + [_L] * 2 + [_P] * 1 + [_I] * 5 + [_F, _I, _P]),
     "flash_bwd_dkv": ("flash_bwd", [_P] * 8 + [_L] * 2 + [_P] * 2 + [_I] * 5 + [_F, _I, _P]),
 }
 
@@ -267,9 +269,10 @@ def _entry(name: str):
         fn.argtypes, fn.restype = argtypes, _I
         if lib.t4r_flash_tile_rows() != TILE:
             raise RuntimeError(f"{source}: the kernels' tile is not {TILE} rows")
-        if name == "flash_bwd_dkv" and lib.t4r_flash_dkv_stream_max_dh() != DKV_STREAM_MAX_DH:
-            raise RuntimeError(f"{source}: K6c's streamed design is not for head dims up to "
-                               f"{DKV_STREAM_MAX_DH}")
+        if name in ("flash_bwd_dq", "flash_bwd_dkv") \
+                and lib.t4r_flash_stream_max_dh() != SPLIT_STREAM_MAX_DH:
+            raise RuntimeError(f"{source}: the streamed K6b and K6c are not for head dims up to "
+                               f"{SPLIT_STREAM_MAX_DH}")
     return lib, fn
 
 
@@ -346,13 +349,15 @@ def uses_wgmma(head_dim: int) -> bool:
     return WGMMA_MIN_DH <= head_dim <= WGMMA_MAX_DH
 
 
-def uses_dkv_stream(head_dim: int) -> bool:
-    """Which design of K6c a head dim takes on the card: the streamed kernel
-    (blocks of ``DKV_STREAM_KEYS`` keys, a step's loads in flight during the
-    step before, one row-major bf16 copy of q and dO read transposed by
-    ``ldmatrix.trans``) up to ``DKV_STREAM_MAX_DH``, the ``mma.sync`` body
-    that K6a shares above it (``PERF.md`` §6 has the times of both)."""
-    return head_dim <= DKV_STREAM_MAX_DH
+def uses_split_stream(head_dim: int) -> bool:
+    """Which design both halves of the split backward, K6b and K6c, take on
+    the card for a head dim: the streamed kernels (blocks of
+    ``DQ_STREAM_QUERIES`` queries or ``DKV_STREAM_KEYS`` keys, a step's loads
+    in flight during the step before, one row-major bf16 copy of each
+    streamed tile, its transpose read by ``ldmatrix.trans``) up to
+    ``SPLIT_STREAM_MAX_DH``, the ``mma.sync`` bodies above it (K6c's is the
+    one K6a shares; ``PERF.md`` §6 has the times of both)."""
+    return head_dim <= SPLIT_STREAM_MAX_DH
 
 
 def dkv_block_order(heads: int, key_tiles: int) -> list:
@@ -361,6 +366,15 @@ def dkv_block_order(heads: int, key_tiles: int) -> list:
     tiles are the slow axis, the first (the longest under the causal mask)
     first, so that the short blocks fill the card's tail."""
     return [(block % heads, block // heads) for block in range(heads * key_tiles)]
+
+
+def dq_block_order(heads: int, query_tiles: int) -> list:
+    """``(batch·head, query tile)`` of each block of the streamed K6b in
+    launch order (``flash_bwd_dq_stream_kernel``'s mapping of
+    ``blockIdx.x``): query tiles are the slow axis, the last (the longest
+    under the causal mask) first."""
+    return [(block % heads, query_tiles - 1 - block // heads)
+            for block in range(heads * query_tiles)]
 
 
 def _flash_fwd_cuda(q, k, v, bias, pad_mask, causal, wgmma: Optional[bool] = None):
@@ -405,10 +419,14 @@ def _flash_bwd_fused_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal,
     return dq, dk, dv
 
 
-def _flash_bwd_dq_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal):
+def _flash_bwd_dq_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal,
+                       streamed: Optional[bool] = None):
+    """K6b on the card; ``streamed`` picks the design (by default
+    ``uses_split_stream``; the streamed design takes head dims up to 32)."""
     args = _bwd_cuda_args("flash_bwd_dq", q, k, v, d_out, lse, delta, bias, pad_mask)
+    streamed = uses_split_stream(q.shape[3]) if streamed is None else streamed
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", q, args, (dq.data_ptr(),), causal)
+    _launch("flash_bwd_dq", q, args, (dq.data_ptr(),), causal, (int(streamed),))
     flash_bwd_dq.launches += 1
     return dq
 
@@ -416,9 +434,9 @@ def _flash_bwd_dq_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal):
 def _flash_bwd_dkv_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal,
                         streamed: Optional[bool] = None):
     """K6c on the card; ``streamed`` picks the design (by default
-    ``uses_dkv_stream``; the streamed design takes head dims up to 32)."""
+    ``uses_split_stream``; the streamed design takes head dims up to 32)."""
     args = _bwd_cuda_args("flash_bwd_dkv", q, k, v, d_out, lse, delta, bias, pad_mask)
-    streamed = uses_dkv_stream(q.shape[3]) if streamed is None else streamed
+    streamed = uses_split_stream(q.shape[3]) if streamed is None else streamed
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     _launch("flash_bwd_dkv", q, args, (dk.data_ptr(), dv.data_ptr()), causal, (int(streamed),))
     flash_bwd_dkv.launches += 1
