@@ -11,7 +11,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 2. build every kernel (one ``nvcc`` per source, all started together);
 3. hold K3 (``ce_rank``, the fused CE-and-rank pass) against its plain
    PyTorch version at the evaluation shape of the flagship model (four
-   draws, one per evaluation batch) and at an edge shape; hold K1
+   draws, one per evaluation batch), at an edge shape and at the
+   every-position evaluation's 2,560 and 8,192 rows; hold K1
    (``ce_fwd``) and K2 (``ce_bwd``), the training cross-entropy's forward and
    backward, against theirs at the training shape (915 loss rows, about 30%
    of them with weight 0) and at an edge shape (label smoothing, labels of
@@ -32,7 +33,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (S = 333, Dh = 32, a (1, H, S, S) bias, a session wholly padded,
    non-causal), at (4, 2048, 8, 64) causal and at (4, 4096, 16, 12) causal
    with ragged padding, the shape of phase 11 and the only one at which a
-   main path launches K6b and K6c, with the same bits on a second call,
+   main path launches K6b and K6c, and at (32, 256, 16, 12) with the (B, H,
+   S, S) bias of XLNet-PLM's query stream (perm mask plus relative bias,
+   rows and key tiles blocked by the bias alone), with the same bits on a
+   second call,
    K6a against K6b + K6c and, at head dims up to 32, the streamed K6b
    against the mma.sync body it replaces (the same bits); K1 and K2 at the
    long-session training shapes of 8,192 and 16,384 loss rows (every K1
@@ -72,6 +76,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     (``flagship.build_model(item_dim=448)``): ``Model.evaluate`` on one
     batch and one training step, each against the CPU, then 8 trainer
     steps (the wide kernels of K1, K2 and K3);
+9c. P1, XLNet-PLM at full width (``flagship.build_model(scheme="plm")``:
+    permutation language modelling, two-stream attention, sessions of 20):
+    ``Model.evaluate`` over the 4 batches on the last item (K3 at 128 rows)
+    and on every position (K3 at 2,560 rows), each against the CPU; one
+    every-position batch with dense logits (``use_fused_ops=False``)
+    against the fused pass; the top-k of 8 ragged sessions through the
+    exported artifact against the CPU's; one training step card against CPU
+    with the same perm mask (K1, K2 at 2,560 rows); and
+    ``flagship.build_trainer(scheme="plm")`` for 8 + 16 steps;
 10. GPT-2-CLM at full width on sessions of up to 256
     (``flagship.build_model(scheme="clm")``): ``Model.evaluate`` over 4
     batches of 32 sessions against the same weights on the CPU (K5 three
@@ -80,6 +93,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     at batch 4, and ``flagship.build_trainer(scheme="clm")`` for 8 + 16
     steps at batch 32 with dropout 0.1 (K5 and K6a three times a step, K1
     and K2 once; finite losses, the repeated batch's loss falling);
+10b. P2, XLNet-PLM on sessions of up to 256: one every-position
+    evaluation batch of 32 sessions (K5 twice a layer with a (B, H, S, S)
+    bias, K3 at 8,192 rows) and one training step at batch 4, each against
+    the CPU, then 8 trainer steps at batch 32 (K1 and K2 at 8,192 rows; the
+    attention's backward is the dense one that yields the relative bias's
+    gradient);
 11. one cold training step of the one-layer model on 4 sessions of up to
     4,096 items through the same entry points, then 8 steady ones, timed:
     K6b and K6c launch once a step and K6a not at all (its dq partials would
@@ -93,9 +112,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     the split route K6b + K6c beside K6a, each beside its plain version and,
     where there is one, a library yardstick (CUDA events, median after warm-up; at 8,192 rows and
     more the cross-entropy's yardstick runs 1,024 rows at a time), and a
-    whole table-optimizer step on each of its arms.
+    whole table-optimizer step on each of its arms; K3 at 2,560 and 8,192
+    rows and K5 with XLNet-PLM's bias.
 
-The XLNet-MLM paths (sessions of 20 and 21) must launch no flash kernel.
+The XLNet-MLM and -PLM paths (sessions of 20 and 21) must launch no flash
+kernel.
 
 The second-to-last line of standard output is one JSON object with a
 ``kernels`` list: each kernel's error, time and bound at the shape at which a
@@ -111,7 +132,8 @@ device's busy share of the wall time, the first step's cost); the table
 also goes to FILE when one is named. ``--profile-train-streamed [FILE]``
 does the same with the streamed table update, ``--profile-train-clm [FILE]``
 with GPT-2-CLM on batches of 32 sessions of up to 256 (the path on which
-K1 and K2 take most of the device's time). ``--time-ce`` checks and times
+K1 and K2 take most of the device's time), ``--profile-train-plm [FILE]``
+with XLNet-PLM on the same batches. ``--time-ce`` checks and times
 K3 alone at the evaluation shape at E = 64, 128 and 256 (with its ring's
 depth and, from ``torch.profiler``, the device time of each of its two
 kernels) and K1 and K2 alone at the three training shapes, ``--time-flash``
@@ -151,6 +173,9 @@ F32_FLOPS = 67e12  # float32 outside the tensor cores
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 EVAL_BATCHES, EVAL_ROWS = 4, 128
+# K3's rows in every-position evaluation of XLNet-PLM: 128 sessions of 20
+# (main path P1) and 32 of 256 (P2)
+PLM_EVAL_ROWS, PLM_LONG_EVAL_ROWS = 128 * 20, 32 * 256
 TOP_K = 20
 LONG_STEP_BATCH, LONG_STEP_SEQ = 4, 4096  # main path 7
 LONG_STEP_STEADY = 8  # its steady steps after the cold one
@@ -484,12 +509,35 @@ def check_rank(name: str, n: int, rows: int, vocab_size: int, shard_bound, beta_
 
 
 # ---------------------------------------------------------- K5 / K6 checks
+def plm_attention_bias(S: int, H: int, seed: int, pad) -> torch.Tensor:
+    """The (B, H, S, S) bias that XLNet-PLM's query stream hands K5 on the
+    flash path, for the sessions of ``pad``: the perm mask of the port's PLM
+    sampler (a random factorisation order) on the first half of them and the
+    causal one of every-position evaluation on the second, which leaves
+    query rows without a visible key (position 0) and key tiles wholly
+    blocked inside a session, plus a relative bias drawn per head (normal,
+    std 0.5) over it, as the encoder sums them."""
+    from transformers4rec_tpu_torch.blocks.transformer import make_extra_bias
+    from transformers4rec_tpu_torch.masking import PermutationLanguageModeling
+
+    g = torch.Generator(device=pad.device).manual_seed(seed)
+    plm = PermutationLanguageModeling(hidden_size=1, plm_probability=0.25, max_span_length=5,
+                                      eval_on_last_item_seq_only=False)
+    ids = pad.long()  # an item id of 1 at each real position
+    half = pad.shape[0] // 2
+    perm = torch.cat([
+        plm.compute_masked_targets(ids[:half], training=True, generator=g).perm_mask,
+        plm.compute_masked_targets(ids[half:], testing=True).perm_mask])
+    rel = torch.randn((1, H, S, S), generator=g, device=pad.device) * 0.5
+    return (make_extra_bias(S, perm, None, query_stream=True) + rel).contiguous()
+
+
 def flash_inputs(B: int, S: int, H: int, Dh: int, seed: int, device, ragged: bool = False,
-                 wholly_padded: int = 0, bias_shape=None):
+                 wholly_padded: int = 0, bias_shape=None, plm: bool = False):
     """q, k, v and dO (B, S, H, Dh) from a seed (standard normal), a (B, S)
     pad mask whose sessions have 2..S real items (the first ``wholly_padded``
-    sessions none) or None, and a bias (normal, std 0.5) of ``bias_shape`` or
-    None."""
+    sessions none) or None, and a bias (normal, std 0.5) of ``bias_shape``,
+    with ``plm`` the query stream's (``plm_attention_bias``), or None."""
     rng = np.random.default_rng(seed)
     q, k, v, d_out = (torch.from_numpy(rng.normal(0.0, 1.0, (B, S, H, Dh)).astype(np.float32))
                       .to(device) for _ in range(4))
@@ -501,12 +549,14 @@ def flash_inputs(B: int, S: int, H: int, Dh: int, seed: int, device, ragged: boo
     bias = None
     if bias_shape is not None:
         bias = torch.from_numpy(rng.normal(0.0, 0.5, bias_shape).astype(np.float32)).to(device)
+    if plm:
+        bias = plm_attention_bias(S, H, seed, pad)
     return q, k, v, d_out, pad, bias
 
 
 def check_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: int,
                 ragged: bool = False, wholly_padded: int = 0, bias_shape=None,
-                device="cuda") -> dict:
+                device="cuda", plm: bool = False) -> dict:
     """K5 against ``flash_forward_plain``, and K6a and K6b + K6c against the
     two arithmetics of ``flash_backward_plain``, on the same inputs (the
     backward kernels and the plain versions all take the plain forward's out
@@ -521,11 +571,13 @@ def check_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: 
     added per key tile against one running sum). Where K6a takes its Hopper
     design (``uses_wgmma``), whose products sum in another order, that one is
     held to the plain version as above, and the mma.sync design is run
-    beside it for the same-sums check."""
+    beside it for the same-sums check. With ``plm`` the bias is XLNet-PLM's
+    (``plm_attention_bias``): rows blocked by the bias alone must give 0 and
+    the sentinel lse too, and some must."""
     from transformers4rec_tpu_torch.ops import attention as fa
 
     q, k, v, d_out, pad, bias = flash_inputs(B, S, H, Dh, seed, device, ragged, wholly_padded,
-                                             bias_shape)
+                                             bias_shape, plm)
     out, lse = fa.flash_fwd(q, k, v, bias, pad, causal)
     out2, lse2 = fa.flash_fwd(q, k, v, bias, pad, causal)
     out_p, lse_p = fa.flash_forward_plain(q, k, v, bias, pad, causal)
@@ -536,7 +588,7 @@ def check_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: 
         fail(f"flash_fwd {name}: non-finite values")
     masked = lse_p == fa.LSE_MASKED
     res = {"shape": name, "B": B, "S": S, "H": H, "Dh": Dh, "causal": causal,
-           "ragged": ragged, "bias": list(bias_shape) if bias_shape else None,
+           "ragged": ragged, "bias": None if bias is None else list(bias.shape),
            "rows_without_a_key": int(masked.sum()),
            "out": grad_errors(out, out_p),
            "lse_max_abs_err": float((lse - lse_p)[~masked].abs().max())}
@@ -548,6 +600,12 @@ def check_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: 
         fail(f"flash_fwd {name}: rows without a valid key are not 0 with the sentinel lse")
     if wholly_padded and not res["rows_without_a_key"] >= wholly_padded * S * H:
         fail(f"flash_fwd {name}: expected {wholly_padded} sessions without a valid key")
+    if plm:
+        # query rows whose keys the perm mask blocks, inside the session
+        blocked = ((bias <= fa.NEG / 2) | ~pad[:, None, None, :]).all(-1) & pad[:, None, :]
+        res["rows_blocked_by_the_bias"] = int(blocked.sum())
+        if not res["rows_blocked_by_the_bias"]:
+            fail(f"flash_fwd {name}: the PLM bias blocked no row of a session")
 
     delta = fa.row_delta(d_out, out_p)
     args = (q, k, v, d_out, lse_p, delta, bias, pad, causal)
@@ -694,6 +752,36 @@ def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged:
     for r in res.values():
         r["shape"] = name
         r["pairs"] = pairs
+    return res
+
+
+def time_flash_plm(name: str, B: int, S: int, H: int, Dh: int, reps: int) -> dict:
+    """K5 with XLNet-PLM's (B, H, S, S) query-stream bias (``plm_attention_bias``,
+    not causal, ragged padding) beside its plain version and
+    ``F.scaled_dot_product_attention`` with the same bias and padding as a
+    bf16 additive mask (it gives rows without a visible key the mean of v,
+    not 0). The bound reads the bias once and counts the pairs that the
+    bias and the padding leave."""
+    import torch.nn.functional as F
+
+    from transformers4rec_tpu_torch.ops import attention as fa
+
+    q, k, v, _, pad, bias = flash_inputs(B, S, H, Dh, 70, "cuda", True, plm=True)
+    pairs = int(((bias > fa.NEG / 2) & pad[:, None, None, :]).sum())
+    lq, lk, lv = (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+    mask = (bias + torch.where(pad, 0.0, fa.NEG)[:, None, None, :]).to(torch.bfloat16)
+    n = q.numel()
+    res = {"ms": cuda_ms(lambda: fa.flash_fwd(q, k, v, bias, pad, False), reps=reps),
+           "plain_ms": cuda_ms(lambda: fa.flash_forward_plain(q, k, v, bias, pad, False),
+                               reps=max(3, reps // 3)),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv,
+                                                                        attn_mask=mask),
+                                 reps=reps),
+           # read q, k, v, the bias and the pad mask once, write out and lse once;
+           # two products and one exponential a pair
+           **bound(4 * 4 * n + 4 * bias.numel() + 4 * B * H * S + pad.numel(),
+                   2 * 2 * Dh * pairs, pairs),
+           "shape": name, "bias_shape": list(bias.shape), "pairs": pairs}
     return res
 
 
@@ -1027,6 +1115,35 @@ def expect_launches(what: str, got: dict, **want) -> None:
         fail(f"{what} launched {got}, expected {full}")
 
 
+def trainer_phases(trainer, counters, launches: dict, tag: str, card: str, rows: int, seq: int,
+                   phases, per_step: dict) -> dict:
+    """``trainer.train`` for each ``(name, steps, batches)`` of ``phases``
+    (``batches``: None for the trainer's own data, else one batch repeated),
+    the counts set to 0 just before each and read just after; each kernel
+    of ``per_step`` must launch that many times a step, every other not at
+    all, and every loss read must be finite."""
+    a, out = trainer.args, {}
+    for name, n, batch in phases:
+        a.max_steps = n
+        if batch is not None:
+            trainer._train_dataloader = [batch] * n
+        a.logging_steps = 1 if batch is not None else n
+        metrics, got, wall = counted(counters, trainer.train)
+        expect_launches(f"{tag} ({name})", got, **{k: c * n for k, c in per_step.items()})
+        for k, c in got.items():
+            launches[k] += c
+        reads = [h["loss"] for h in trainer.state.log_history
+                 if "loss" in h and h["step"] > trainer.state.global_step - n]
+        if metrics["train_steps"] != n or not reads \
+                or not all(math.isfinite(v) for v in reads + [metrics["train_loss"]]):
+            fail(f"{tag} ({name}): {metrics}, loss reads {reads}")
+        out[name] = {"steps": n, "wall_s": wall, "ms_per_step": 1e3 * wall / n,
+                     "sessions_per_s": n * rows / wall, "positions_per_step": rows * seq,
+                     "mean_loss": metrics["train_loss"], "loss_reads": reads}
+        print(f"[{tag}] {name} on {card}: {json.dumps(out[name])}")
+    return out
+
+
 def run_clm(flagship, vocab, fa, card: str, vocab_size: int) -> dict:
     """GPT-2-CLM at full width on sessions of up to 256: evaluation and top-k
     on the card against the same weights on the CPU (which takes the plain
@@ -1097,29 +1214,12 @@ def run_clm(flagship, vocab, fa, card: str, vocab_size: int) -> dict:
         fail(f"build_trainer(scheme='clm'): batch {a.per_device_train_batch_size}, "
              f"sessions of {a.max_sequence_length}")
     out = {"evaluate": gpu_res, "train_step": step}
-
-    def phase(name: str, n: int) -> list:
-        a.max_steps = n
-        metrics, got, wall = counted(counters, trainer.train)
-        expect_launches(f"clm train ({name})", got, flash_fwd=layers * n,
-                        flash_bwd_fused=layers * n, ce_fwd=n, ce_bwd=n)
-        add(got)
-        reads = [h["loss"] for h in trainer.state.log_history
-                 if "loss" in h and h["step"] > trainer.state.global_step - n]
-        if metrics["train_steps"] != n or not reads \
-                or not all(math.isfinite(v) for v in reads + [metrics["train_loss"]]):
-            fail(f"clm train ({name}): {metrics}, loss reads {reads}")
-        out[name] = {"steps": n, "wall_s": wall, "ms_per_step": 1e3 * wall / n,
-                     "sessions_per_s": n * rows / wall, "positions_per_step": rows * seq,
-                     "mean_loss": metrics["train_loss"], "loss_reads": reads}
-        print(f"[clm-train] {name} on {card}: {json.dumps(out[name])}")
-        return reads
-
-    a.logging_steps = 8
-    phase("eight_batches", steps)
-    trainer._train_dataloader = [{k: v[:rows] for k, v in data.items()}] * repeat
-    a.logging_steps = 1
-    reads = phase("one_batch_repeated", repeat)
+    out.update(trainer_phases(
+        trainer, counters, launches, "clm-train", card, rows, seq,
+        (("eight_batches", steps, None),
+         ("one_batch_repeated", repeat, {k: v[:rows] for k, v in data.items()})),
+        {"flash_fwd": layers, "flash_bwd_fused": layers, "ce_fwd": 1, "ce_bwd": 1}))
+    reads = out["one_batch_repeated"]["loss_reads"]
     # dropout differs from step to step: the mean of the last 4 steps must
     # lie below the first loss
     if not float(np.mean(reads[-4:])) < reads[0]:
@@ -1172,6 +1272,187 @@ def run_long_step(flagship, vocab, fa, card: str, steady: int = LONG_STEP_STEADY
             or not all(math.isfinite(g) and g > 0 for g in res["grad_max_abs"].values()):
         fail(f"the S = 4,096 steps: {res}")
     return res
+
+
+# ------------------------------------------------- XLNet-PLM (two streams)
+PLM_EXTRA = ("heads.0.body.blocks.1.encoder.query_stream_init",
+             "heads.0.body.blocks.1.encoder.rel_pos.rel_bias")
+
+
+def target_rows(loader) -> int:
+    """Positions that carry a target in every-position evaluation: all but
+    each session's last item."""
+    return sum(int(((np.asarray(b["item_id"]) != 0).sum(1) - 1).clip(0).sum()) for b in loader)
+
+
+def run_plm(flagship, vocab, fa, card: str, vocab_size: int) -> dict:
+    """Main path P1: XLNet-PLM at full width (``flagship.build_model(scheme=
+    "plm")``: two-stream attention, sessions of 20, every one of a batch's
+    2,560 positions a CE row). ``Model.evaluate`` over 4 batches of 128
+    sessions on the last item (K3 at 128 rows) and on every position (K3 at
+    2,560 rows), each against the same weights on the CPU; one
+    every-position batch with ``use_fused_ops=False`` (dense logits) against
+    the fused result on the card; the top-k of 8 ragged sessions through the
+    exported artifact against the CPU's; one training step card against CPU
+    (``check_training_step``, the perm mask given to both); then
+    ``flagship.build_trainer(scheme="plm")`` for 8 steps over 8 batches and
+    16 on one repeated batch. No flash kernel runs at S = 20."""
+    from transformers4rec_tpu_torch.data import synthetic_data
+    from transformers4rec_tpu_torch.serving import InferenceRunner, export_model
+
+    counters = flash_counters(vocab, fa)
+    launches = dict.fromkeys(counters, 0)
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] += n
+
+    def pair(last: bool):
+        gpu = flagship.build_model("cuda", scheme="plm", seed=0, dropout=0.0,
+                                   eval_on_last_item_seq_only=last)
+        cpu = flagship.build_model("cpu", scheme="plm", seed=0, dropout=0.0,
+                                   eval_on_last_item_seq_only=last)
+        return gpu, cpu
+
+    model, cpu_model = pair(True)
+    every, cpu_every = pair(False)
+    state = model.state_dict()
+    every.load_state_dict(state)
+    for m in (cpu_model, cpu_every):
+        m.load_state_dict({k: v.cpu() for k, v in state.items()})
+    loader = eval_batches(flagship, flagship.NUM_ITEMS, flagship.SEQ, EVAL_BATCHES, EVAL_ROWS)
+    out = {"target_rows": target_rows(loader)}
+    for tag, gpu, cpu, rows in (("last_item", model, cpu_model, EVAL_BATCHES * EVAL_ROWS),
+                                ("every_position", every, cpu_every, out["target_rows"])):
+        res, got, wall = counted(counters, lambda: gpu.evaluate(loader))
+        expect_launches(f"plm evaluate ({tag})", got, ce_rank=EVAL_BATCHES)
+        add(got)
+        cpu_res = cpu.evaluate(loader)
+        print(f"[plm-evaluate] {tag} {wall:.3f}s cuda {json.dumps(res)} cpu {json.dumps(cpu_res)}")
+        check_evaluate(res, cpu_res, rows)
+        out[tag] = {"evaluate": res, "wall_s": wall, "batches": EVAL_BATCHES}
+    del cpu_every
+
+    # ---- one every-position batch with dense logits, against the fused pass
+    one = loader[:1]
+    fused, got, _ = counted(counters, lambda: every.evaluate(one))
+    expect_launches("plm evaluate (every position, one batch)", got, ce_rank=1)
+    add(got)
+    # K3's launches at 2,560 rows: the 4 batches and this one
+    out["k3_launches_at_every_position"] = EVAL_BATCHES + 1
+    every.heads[0].tasks[0].use_fused_ops = False
+    dense, got, wall = counted(counters, lambda: every.evaluate(one))
+    expect_launches("plm evaluate (every position, not fused)", got)
+    every.heads[0].tasks[0].use_fused_ops = True
+    check_evaluate(dense, fused, target_rows(one))
+    out["every_position_dense"] = {"evaluate": dense, "wall_s": wall}
+    print(f"[plm-evaluate] every position, dense logits {wall:.3f}s {json.dumps(dense)}")
+    del every
+    torch.cuda.empty_cache()
+
+    # ---- top-k of 8 ragged sessions through the exported artifact
+    requests = serve_requests(flagship, flagship.NUM_ITEMS, flagship.SEQ, 8)
+    sessions = {c: sum((r[c] for r in requests), [])[:8] for c in requests[0]}
+    with tempfile.TemporaryDirectory() as path:
+        export_model(model, loader[0], path, top_k=TOP_K)
+        runner = InferenceRunner(path, flagship.build_plm_model, device="cuda")
+        cpu_runner = InferenceRunner(path, flagship.build_plm_model, device="cpu")
+        (got_s, got_i), got, _ = counted(counters, lambda: runner.predict(sessions))
+        want_s, want_i = cpu_runner.predict(sessions)
+    expect_launches("plm predict", got)
+    # f32 throughout on both devices: scores within 1e-4
+    check_topk(got_s, got_i, want_s, want_i, vocab_size, "plm top-k against the CPU", atol=1e-4)
+    print(f"[plm-predict] {len(got_i)} sessions, top-{TOP_K} ids agree with the CPU")
+    del runner, cpu_runner
+
+    # ---- one training step, the card against the CPU
+    step, got, _ = counted(counters, lambda: check_training_step(model, cpu_model, loader[0],
+                                                                 extra=PLM_EXTRA))
+    expect_launches("plm training step", got, ce_fwd=1, ce_bwd=1)
+    add(got)
+    print(f"[plm-train-step] {json.dumps(step)}")
+    out["train_step"] = step
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    # ---- the trainer
+    rows, steps, repeat = flagship.BATCH, 8, 16
+    data = synthetic_data(flagship.schema(), num_rows=steps * rows,
+                          max_session_length=flagship.SEQ, seed=700)
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data, scheme="plm")
+    a = trainer.args
+    if a.per_device_train_batch_size != rows or a.max_sequence_length != flagship.SEQ:
+        fail(f"build_trainer(scheme='plm'): batch {a.per_device_train_batch_size}, "
+             f"sessions of {a.max_sequence_length}")
+    out.update(trainer_phases(
+        trainer, counters, launches, "plm-train", card, rows, flagship.SEQ,
+        (("eight_batches", steps, None),
+         ("one_batch_repeated", repeat, {k: v[:rows] for k, v in data.items()})),
+        {"ce_fwd": 1, "ce_bwd": 1}))
+    reads = out["one_batch_repeated"]["loss_reads"]
+    # masks differ from step to step: the mean of the last 4 steps must lie
+    # below the first loss
+    if not float(np.mean(reads[-4:])) < reads[0]:
+        fail(f"plm train: the repeated batch's loss did not fall: {reads}")
+    del trainer
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def run_plm_long(flagship, vocab, fa, card: str) -> dict:
+    """Main path P2: XLNet-PLM on sessions of up to 256 at batch 32, where
+    both streams of each layer take K5 with a (B, H, S, S) bias (the perm
+    mask and the learned relative bias) and the dense backward that yields
+    the bias gradient. One every-position evaluation batch (K3 at 8,192
+    rows) and one training step at batch 4, each card against CPU, then 8
+    trainer steps at batch 32 (K1 and K2 at 8,192 rows)."""
+    from transformers4rec_tpu_torch.data import synthetic_data
+
+    seq, rows, layers = flagship.LONG_SEQ, flagship.LONG_BATCH, flagship.N_LAYER
+    counters = flash_counters(vocab, fa)
+    launches = dict.fromkeys(counters, 0)
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] += n
+
+    model = flagship.build_model("cuda", scheme="plm", seq=seq, seed=0, dropout=0.0,
+                                 eval_on_last_item_seq_only=False)
+    cpu_model = flagship.build_model("cpu", scheme="plm", seq=seq, seed=0, dropout=0.0,
+                                     eval_on_last_item_seq_only=False)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loader = eval_batches(flagship, flagship.NUM_ITEMS, seq, 1, rows)
+    res, got, wall = counted(counters, lambda: model.evaluate(loader))
+    expect_launches("plm-long evaluate", got, flash_fwd=2 * layers, ce_rank=1)
+    add(got)
+    cpu_res = cpu_model.evaluate(loader)
+    print(f"[plm-long-evaluate] {wall:.3f}s cuda {json.dumps(res)} cpu {json.dumps(cpu_res)}")
+    check_evaluate(res, cpu_res, target_rows(loader))
+    out = {"evaluate": res, "eval_wall_s": wall, "k3_rows": rows * seq}
+
+    four = {k: v[:4] for k, v in loader[0].items()}
+    step, got, _ = counted(counters, lambda: check_training_step(model, cpu_model, four,
+                                                                 extra=PLM_EXTRA))
+    expect_launches("plm-long training step", got, flash_fwd=2 * layers, ce_fwd=1, ce_bwd=1)
+    add(got)
+    print(f"[plm-long-train-step] {json.dumps(step)}")
+    out["train_step"] = step
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    steps = 8
+    data = synthetic_data(flagship.schema(flagship.NUM_ITEMS, seq), num_rows=steps * rows,
+                          max_session_length=seq, seed=800)
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data, scheme="plm", seq=seq,
+                                     batch=rows)
+    out.update(trainer_phases(trainer, counters, launches, "plm-long-train", card, rows, seq,
+                              (("eight_batches", steps, None),),
+                              {"flash_fwd": 2 * layers, "ce_fwd": 1, "ce_bwd": 1}))
+    del trainer
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
 
 
 # ------------------------------------------------------- vocab-parallel head
@@ -1267,9 +1548,11 @@ def check_training_step(model, cpu_model, batch, extra=()) -> dict:
     info = masking.compute_masked_targets(cb["item_id"].long(), training=True,
                                           generator=torch.Generator().manual_seed(5))
     grads, losses = {}, {}
+    # every field of the mask goes to the device (PLM's perm_mask too)
+    fields = [f for f in ("targets", "mask", "input_schema", "pad_mask", "perm_mask")
+              if getattr(info, f) is not None]
     for name, m, b in (("cpu", cpu_model, cb), ("cuda", model, model._as_dense(batch))):
-        dev_info = info.replace(**{f: getattr(info, f).to(m.device)
-                                   for f in ("targets", "mask", "input_schema", "pad_mask")})
+        dev_info = info.replace(**{f: getattr(info, f).to(m.device) for f in fields})
         m.zero_grad(set_to_none=True)
         loss, _ = m(b, targets=b, training=True, masking_info=dev_info)
         loss.backward()
@@ -1513,23 +1796,33 @@ def time_ce_train(vocab, n: int, rows: int, vocab_size: int, chunk_rows: int = 0
     return {"ce_fwd": fwd, "ce_bwd": bwd}
 
 
-def time_ce_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64) -> dict:
+def time_ce_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64,
+                 chunk_rows: int = 0) -> dict:
     """K3 beside its plain version and a library yardstick that materialises
     the (N, V) logits; with the launch plan's ring (``stages`` slots of
     ``slot_rows`` rows a block, ``blocks_per_sm``; none past E = 256, where
-    the wide kernel runs) and splits."""
+    the wide kernel runs) and splits. With ``chunk_rows`` the yardstick runs
+    on that many rows at a time (``library_chunked_ms``; ``library_ms`` is
+    None), as ``time_ce_train``'s."""
     x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, 4.0, 12.0, 1, "cuda")
     ll = vocab.label_logits(x, W, labels)
     xb16 = x.to(torch.bfloat16)
     Wb16 = W[:vocab_size].to(torch.bfloat16)  # cast once, outside the timed call
 
-    def library():
-        logits = torch.matmul(xb16, Wb16.T).float()  # materialises (N, V)
-        return torch.logsumexp(logits, -1), (logits > ll[:, None]).sum(-1)
+    def library(rows_=slice(None)):
+        logits = torch.matmul(xb16[rows_], Wb16.T).float()  # materialises (N, V)
+        return torch.logsumexp(logits, -1), (logits > ll[rows_, None]).sum(-1)
 
     ms = cuda_ms(lambda: vocab.ce_rank(x, W, labels, ll, vocab_size))
-    plain_ms = cuda_ms(lambda: vocab.ce_rank_plain(x, W, labels, ll, vocab_size, False))
-    library_ms = cuda_ms(library)
+    plain_ms = cuda_ms(lambda: vocab.ce_rank_plain(x, W, labels, ll, vocab_size, False),
+                       reps=10 if chunk_rows else 30)
+    if chunk_rows:
+        chunks = [slice(r0, min(r0 + chunk_rows, n)) for r0 in range(0, n, chunk_rows)]
+        yardstick = {"library_ms": None, "library_chunk_rows": chunk_rows,
+                     "library_chunked_ms": cuda_ms(lambda: [library(c) for c in chunks],
+                                                   reps=5)}
+    else:
+        yardstick = {"library_ms": cuda_ms(library)}
     E = x.shape[1]
     # least work: read x, the vocab_size used rows of W, labels and ll once,
     # write lse and rank once; 2·N·E·V operations of the product and N·V
@@ -1537,7 +1830,7 @@ def time_ce_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64) -> dict
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = vocab.ce_plan(n, E, vocab_size, rows, sms, False, vocab.K3_CHUNK, streamed=True)
     return {
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "N": n, "E": E,
+        "ms": ms, "plain_ms": plain_ms, **yardstick, "N": n, "E": E,
         "stages": plan.stages or None, "slot_rows": None if plan.wide else vocab.k3_slot(E)[0],
         "blocks_per_sm": None if plan.wide else plan.blocks_per_sm, "splits": plan.splits,
         **bound(4 * (n * E + vocab_size * E + 2 * n) + 4 * 2 * n, 2 * n * E * vocab_size,
@@ -1621,7 +1914,8 @@ def profile_train(card: str, out_file: str = "", streamed: bool = False,
     (device time by kernel; busy share = device time over wall time). With
     ``streamed`` the tables take the streamed update with an f32 moment;
     ``scheme="clm"`` trains GPT-2-CLM on batches of 32 sessions of up to 256
-    instead of the flagship."""
+    instead of the flagship, ``scheme="plm"`` XLNet-PLM on the same batches
+    (main path P2)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1632,15 +1926,16 @@ def profile_train(card: str, out_file: str = "", streamed: bool = False,
     t0 = time.perf_counter()
     build.build()  # so that the first step below does not wait for nvcc
     print(f"[profile] kernels built in {time.perf_counter() - t0:.1f}s")
-    clm = scheme == "clm"
-    rows = flagship.LONG_BATCH if clm else flagship.BATCH
-    seq = flagship.LONG_SEQ if clm else flagship.SEQ
+    long = scheme in ("clm", "plm")
+    rows = flagship.LONG_BATCH if long else flagship.BATCH
+    seq = flagship.LONG_SEQ if long else flagship.SEQ
     window = 16
     data = synthetic_data(flagship.schema(flagship.NUM_ITEMS, seq), num_rows=8 * rows,
                           max_session_length=seq, seed=200)
     t0 = time.perf_counter()
     trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data,
-                                     streamed_table_update=streamed, scheme=scheme)
+                                     streamed_table_update=streamed, scheme=scheme, seq=seq,
+                                     batch=rows)
     sync("cuda")
     print(f"[profile] build_trainer(streamed_table_update={streamed}, scheme={scheme!r}) "
           f"{time.perf_counter() - t0:.3f}s")
@@ -1797,11 +2092,12 @@ def main() -> None:
     if sys.argv[1:] == ["--time-long-step"]:
         time_long_step(card_line())
         return
-    if sys.argv[1:2] in (["--profile-train"], ["--profile-train-streamed"],
-                         ["--profile-train-clm"]) and len(sys.argv) <= 3:
+    profiles = {"--profile-train": "mlm", "--profile-train-streamed": "mlm",
+                "--profile-train-clm": "clm", "--profile-train-plm": "plm"}
+    if sys.argv[1:2] and sys.argv[1] in profiles and len(sys.argv) <= 3:
         profile_train(card_line(), *sys.argv[2:3],
                       streamed=sys.argv[1] == "--profile-train-streamed",
-                      scheme="clm" if sys.argv[1] == "--profile-train-clm" else "mlm")
+                      scheme=profiles[sys.argv[1]])
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")
@@ -1828,6 +2124,12 @@ def main() -> None:
                       range(1, EVAL_BATCHES + 1)),
         # N and V off every tile size, label smoothing on
         check_ce_rank("edge", 1000, 100_008, 100_003, True, 0.0, 12.0, [EVAL_BATCHES + 1]),
+        # every-position evaluation: XLNet-PLM's 128 x 20 rows (P1) and its
+        # 32 x 256 (P2)
+        check_ce_rank("every_position", PLM_EVAL_ROWS, table_rows, vocab_size, False, 4.0,
+                      12.0, [90]),
+        check_ce_rank("every_position_long", PLM_LONG_EVAL_ROWS, table_rows, vocab_size, False,
+                      4.0, 12.0, [91]),
     ]
     # the training shape: the flagship's loss-row budget of its 128 x 20 positions
     train_rows = flagship.build_model("cpu", num_items=50, d_model=16, n_layer=1, n_head=2,
@@ -1889,6 +2191,9 @@ def main() -> None:
         # the one shape at which a main path launches K6b and K6c: 64 tiles a
         # side, the head dim padded from 12 to 16
         check_flash("long_step", *flash_shapes["long_step"], True, 24, ragged=True),
+        # the query stream's bias of XLNet-PLM on sessions of 256 (P2): the
+        # perm mask and the relative bias over batch and head, not causal
+        check_flash("plm", *flash_shapes["main"], False, 25, ragged=True, plm=True),
     ]
     torch.cuda.empty_cache()
     flash = flash_counters(vocab, attention)
@@ -1946,10 +2251,18 @@ def main() -> None:
     if any(stray.values()):
         fail(f"the XLNet-MLM paths at S = {flagship.SEQ} launched flash kernels: {stray}")
 
+    # ---- main path P1: XLNet-PLM at full width, two streams, every position
+    plm = run_plm(flagship, vocab, attention, card, vocab_size)
+    print(f"[plm] {json.dumps(plm['launches'])}")
+
     # ---- main path 6: GPT-2-CLM on sessions of up to 256
     clm = run_clm(flagship, vocab, attention, card, vocab_size)
     print(f"[clm] {json.dumps(clm['launches'])}")
     torch.cuda.empty_cache()
+
+    # ---- main path P2: XLNet-PLM on sessions of up to 256
+    plm_long = run_plm_long(flagship, vocab, attention, card)
+    print(f"[plm-long] {json.dumps(plm_long['launches'])}")
 
     # ---- main path 7: one training step at S = 4,096
     long_step = run_long_step(flagship, vocab, attention, card)
@@ -1988,6 +2301,25 @@ def main() -> None:
           f"{json.dumps(flash_timing)}; library_ms is F.scaled_dot_product_attention on "
           "bf16 inputs with the same mask (forward; its backward for dq, dk, dv; for dq "
           "alone; for dk and dv alone)")
+    # every-position evaluation (P1, P2) and K5 with XLNet-PLM's bias (P2)
+    plm_timing = {
+        "ce_rank": time_ce_rank(vocab, PLM_EVAL_ROWS, table_rows, vocab_size),
+        "ce_rank_long": time_ce_rank(vocab, PLM_LONG_EVAL_ROWS, table_rows, vocab_size,
+                                     chunk_rows=1024),
+        "flash_fwd": time_flash_plm("plm", *flash_shapes["main"], 30)}
+    plm_timing["ce_rank"]["launches"] = plm["k3_launches_at_every_position"]
+    plm_timing["ce_rank_long"]["launches"] = plm_long["launches"]["ce_rank"]
+    plm_timing["flash_fwd"]["launches"] = plm_long["launches"]["flash_fwd"]
+    print(f"[timing] every-position evaluation and XLNet-PLM's attention on {card}: ce_rank at "
+          f"N={PLM_EVAL_ROWS} and N={PLM_LONG_EVAL_ROWS}, E=64, V={vocab_size}; flash_fwd at "
+          f"{flash_shapes['main']} with the query stream's (B, H, S, S) bias: "
+          f"{json.dumps(plm_timing)}; the flash library_ms is F.scaled_dot_product_attention "
+          "with the same bias as a bf16 additive mask")
+    print(f"[share] on {card}: an XLNet-PLM training step takes "
+          f"{plm['one_batch_repeated']['ms_per_step']:.3f} ms of wall time at batch 128 of 20 "
+          f"and {plm_long['eight_batches']['ms_per_step']:.3f} ms at batch 32 of up to 256; "
+          f"4 evaluation batches take {plm['last_item']['wall_s']:.3f} s on the last item and "
+          f"{plm['every_position']['wall_s']:.3f} s on every position")
     # each kernel's entry at the shape its main path gives it: K5 and K6a run
     # three times a CLM step at the main shape, K6b and K6c only in the step
     # at S = 4,096
@@ -2006,10 +2338,12 @@ def main() -> None:
             "ce_bwd": [on(clm_timing["ce_bwd"], True), on(long_timing["ce_bwd"], True),
                        on(wide_timing["train"]["ce_bwd"], True),
                        on(wide_timing["clm"]["ce_bwd"], False)],
-            "ce_rank": [on(wide_timing["ce_rank"], True)],
+            "ce_rank": [on(wide_timing["ce_rank"], True), on(plm_timing["ce_rank"], True),
+                        on(plm_timing["ce_rank_long"], True)],
             "rank": [on(wide_timing["rank"], False)],
             "flash_fwd": [on(flash_timing["long_step"]["flash_fwd"], True),
-                          on(flash_timing["long"]["flash_fwd"], False)],
+                          on(flash_timing["long"]["flash_fwd"], False),
+                          on(plm_timing["flash_fwd"], True)],
             "flash_bwd_fused": [on(flash_timing["long"]["flash_bwd_fused"], False)],
             "flash_bwd_dq": [on(flash_timing["main"]["flash_bwd_dq"], False)],
             "flash_bwd_dkv": [on(flash_timing["main"]["flash_bwd_dkv"], False)]}
@@ -2054,10 +2388,11 @@ def main() -> None:
         launches[name] = (train["launches"][name] + streamed["launches"][name]
                           + parallel["launches"].get(name, 0) + wide["launches"].get(name, 0))
     launches["rank"] = parallel["launches"]["rank"]
-    # paths 6 and 7: every kernel of the CLM paths
+    # paths 6 and 7, P1 and P2: every kernel of the CLM and PLM paths
     for name in flash:
         launches[name] = (launches.get(name, 0) + clm["launches"][name]
-                          + long_step["launches"][name])
+                          + long_step["launches"][name] + plm["launches"][name]
+                          + plm_long["launches"][name])
     errors = {"ce_rank": max(c["lse_max_abs_err"] for c in checks),
               "ce_fwd": max(c["lse_max_abs_err"] for c in train_checks),
               "ce_bwd": max(c[g]["max_abs_err"] for c in train_checks for g in ("dx", "dW")),
@@ -2082,7 +2417,8 @@ def main() -> None:
            if k in timing[name]},
         "also_at": [{k: t[k] for k in t
                      if k in TIMING_KEYS + ("N", "E", "shape", "library_chunked_ms", "recompute",
-                                            "design", "designs_ms", "main_path")}
+                                            "design", "designs_ms", "main_path", "launches",
+                                            "bias_shape")}
                     for t in also.get(name, [])],
     } for name, (source, replaces) in sources.items()]
     if any(k["launches"] < 1 for k in kernels):

@@ -371,7 +371,7 @@ def test_flagship_clm_trains_two_steps_with_a_falling_loss():
     assert len(reads) == 2 and np.isfinite(reads).all() and reads[1] < reads[0]
     assert attn.flash_fwd.launches == before  # CPU tensors launch nothing
     with pytest.raises(ValueError, match="scheme must be one of"):
-        flagship.build_model("cpu", scheme="plm")
+        flagship.build_model("cpu", scheme="rtd")
     model = flagship.build_clm_model("cpu", num_items=V, d_model=D, n_layer=1, n_head=H, seq=8)
     assert isinstance(model.heads[0].input_module.masking, CausalLanguageModeling)
 

@@ -52,14 +52,15 @@ def check_masking_compat(arch: str, masking_name: Optional[str]) -> None:
 class TransformerBlock(nn.Module):
     """Adapter from the tabular-sequence pipeline into the unified encoder.
     Accepts a ``T4RecConfig`` or a prebuilt ``TransformerEncoder``;
-    ``masking`` names the input module's scheme for the compat check."""
+    ``masking`` names the input module's scheme, for the compat check and
+    for the encoder (PLM turns on XLNet's two streams)."""
 
     def __init__(self, transformer: Union[T4RecConfig, nn.Module],
                  masking: Optional[str] = None):
         super().__init__()
         if isinstance(transformer, T4RecConfig):
             check_masking_compat(transformer.arch, masking or transformer.masking)
-            transformer = transformer.to_encoder()
+            transformer = transformer.to_encoder(masking)
         self._d_model = transformer.d_model
         self.encoder = transformer
 

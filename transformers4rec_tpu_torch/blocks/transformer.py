@@ -16,8 +16,15 @@ on it takes ``ops.attention.flash_attention`` (kernels K5 and K6), which
 applies the causal mask and the padding inside the kernel and reads only
 the local window and the relative bias as a tensor. With a learned relative
 bias the fused forward runs and the backward goes through the dense f32
-function, which yields the bias gradient. Not ported yet: two-stream
-attention (``perm_mask``), session packing (``segment_ids``), the post-LN
+function, which yields the bias gradient. XLNet's two-stream attention
+(PLM): given a ``perm_mask``, an encoder built with ``two_stream`` runs a
+second, query stream beside the content stream. It starts from a learned
+vector (``query_stream_init``), attends the content stream's keys and values
+through the same attention and feed-forward weights under its own bias,
+which also hides each position from itself, and is what the encoder
+returns. The perm mask is one more additive bias on either path; on the
+flash path the kernels read it, with the relative bias, as one (B, H, S, S)
+tensor. Not ported yet: session packing (``segment_ids``), the post-LN
 BERT family (embedding LayerNorm, erf GELU), axial positions, segment
 memory, shared layers, per-layer attention patterns and LSH attention;
 ``T4RecConfig.to_encoder`` raises ``NotImplementedError`` for them.
@@ -56,14 +63,19 @@ def make_attention_bias(
     pad_mask: Optional[torch.Tensor],
     seq_len: int,
     causal: bool = False,
+    perm_mask: Optional[torch.Tensor] = None,
     local_window: Optional[int] = None,
     dtype: torch.dtype = torch.float32,
+    query_stream: bool = False,
     device=None,
 ) -> torch.Tensor:
     """Compose the masking variants into one additive (B|1, 1, S, S) bias.
 
     pad_mask: (B, S) bool — True at valid (non-pad) positions.
+    perm_mask: (B, S, S) — 1 where query i must NOT attend key j.
     local_window: each query attends keys within ±window.
+    query_stream: the two-stream attention's query stream, which also may not
+        attend its own position.
     """
     if pad_mask is not None:
         device = pad_mask.device
@@ -74,9 +86,9 @@ def make_attention_bias(
     if pad_mask is not None:
         key_bias = torch.where(pad_mask, 0.0, NEG_INF).to(dtype)
         bias = bias + key_bias[:, None, None, :]
-    if local_window is not None:
-        far = (pos[None, :] - pos[:, None]).abs() > local_window
-        bias = bias + torch.where(far, NEG_INF, 0.0).to(dtype)
+    extra = make_extra_bias(seq_len, perm_mask, local_window, query_stream, dtype, device)
+    if extra is not None:
+        bias = bias + extra
     return bias
 
 
@@ -84,20 +96,29 @@ def make_extra_bias(
     seq_len: int,
     perm_mask: Optional[torch.Tensor] = None,
     local_window: Optional[int] = None,
+    query_stream: bool = False,
     dtype: torch.dtype = torch.float32,
     device=None,
 ) -> Optional[torch.Tensor]:
-    """The additive components that are neither causal nor padding (here the
-    local window), or None: (1, 1, S, S). Kept apart so that the flash kernel
-    can apply causal and padding itself and read a bias only when one
-    exists."""
+    """The additive components that are neither causal nor padding (the
+    perm mask and the local window), or None: (B|1, 1, S, S). Kept apart so
+    that the flash kernel can apply causal and padding itself and read a
+    bias only when one exists. The content stream may always see its own
+    position, the query stream never."""
     if perm_mask is not None:
-        raise NotImplementedError("two-stream attention (perm_mask) is not ported yet")
-    if local_window is None:
-        return None
-    pos = torch.arange(seq_len, device=device)
-    far = (pos[None, :] - pos[:, None]).abs() > local_window
-    return torch.where(far, NEG_INF, 0.0).to(dtype)[None, None]
+        device = perm_mask.device
+    extra = None
+    if local_window is not None:
+        pos = torch.arange(seq_len, device=device)
+        far = (pos[None, :] - pos[:, None]).abs() > local_window
+        extra = torch.where(far, NEG_INF, 0.0).to(dtype)[None, None]
+    if perm_mask is not None:
+        eye = torch.eye(seq_len, dtype=torch.bool, device=device)[None]
+        block = perm_mask.bool()
+        block = block | eye if query_stream else block & ~eye
+        perm_bias = torch.where(block, NEG_INF, 0.0).to(dtype)[:, None]
+        extra = perm_bias if extra is None else extra + perm_bias
+    return extra
 
 
 class RelativePositionBias(nn.Module):
@@ -148,7 +169,9 @@ class RelativePositionBias(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Standard multi-head attention with an additive bias. ``causal`` lets
-    the flash kernel apply the causal mask itself."""
+    the flash kernel apply the causal mask itself. Returns ``(out, (k, v))``:
+    the two-stream query stream attends the content stream's k and v
+    (``shared_kv``)."""
 
     def __init__(self, d_model: int, n_head: int, dropout: float = 0.0, causal: bool = False):
         super().__init__()
@@ -166,7 +189,7 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, query_in: torch.Tensor, kv_in: torch.Tensor,
                 bias: Optional[torch.Tensor], training: bool = False, generator=None,
-                flash_ctx: Optional[tuple] = None) -> torch.Tensor:
+                flash_ctx: Optional[tuple] = None, shared_kv: Optional[tuple] = None):
         """``bias`` is the composed additive bias of the dense path (not
         needed when the flash path is taken); ``flash_ctx`` is ``(extra_bias,
         pad_mask, bias_grad)`` and selects the flash path, None the dense
@@ -175,18 +198,21 @@ class MultiHeadAttention(nn.Module):
         Sk = kv_in.shape[1]
         H, Dh = self.n_head, self.d_model // self.n_head
         q = self.q(query_in).view(B, Sq, H, Dh)
-        k = self.k(kv_in).view(B, Sk, H, Dh)
-        v = self.v(kv_in).view(B, Sk, H, Dh)
+        if shared_kv is not None:
+            k, v = shared_kv
+        else:
+            k = self.k(kv_in).view(B, Sk, H, Dh)
+            v = self.v(kv_in).view(B, Sk, H, Dh)
         if flash_ctx is not None:
             # the fused kernels for long sequences: causal and padding are
-            # applied inside, only the local window and the relative bias are
-            # read as a tensor. bias_grad is set when the bias carries the
+            # applied inside, only the perm mask, the local window and the
+            # relative bias are read as a tensor. bias_grad is set when the bias carries the
             # learned relative positions: the backward then takes the dense
             # route that yields the bias gradient
             extra_bias, pad_mask, bias_grad = flash_ctx
             ctx = flash_attention(q, k, v, bias=extra_bias, pad_mask=pad_mask,
                                   causal=self.causal, bias_grad=bias_grad)
-            return self.out(ctx.reshape(B, Sq, H * Dh))
+            return self.out(ctx.reshape(B, Sq, H * Dh)), (k, v)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * Dh ** -0.5 + bias
         probs = torch.softmax(logits, dim=-1)
         # fully blocked query rows (every key masked) output 0, not the
@@ -195,13 +221,15 @@ class MultiHeadAttention(nn.Module):
         probs = probs * row_ok.to(probs.dtype)
         probs = dropout(probs, self.dropout, training, generator)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.out(ctx.reshape(B, Sq, H * Dh))
+        return self.out(ctx.reshape(B, Sq, H * Dh)), (k, v)
 
 
 class TransformerLayer(nn.Module):
     """One pre-LN transformer layer (the XLNet/GPT-2 form): attention and a
     feed-forward block with the tanh GELU (flax's default ``nn.gelu``), each
-    on a LayerNorm of its input and added back to it."""
+    on a LayerNorm of its input and added back to it. Given a query stream,
+    the same attention and feed-forward weights run it after the content
+    stream, on the content stream's keys and values."""
 
     def __init__(self, d_model: int, n_head: int, d_ff: int, layer_norm_eps: float = 1e-12,
                  dropout: float = 0.0, attn_dropout: float = 0.0, causal: bool = False):
@@ -220,18 +248,34 @@ class TransformerLayer(nn.Module):
 
     def forward(self, hidden: torch.Tensor, bias: Optional[torch.Tensor],
                 training: bool = False, generator=None,
-                flash_ctx: Optional[tuple] = None) -> torch.Tensor:
+                flash_ctx: Optional[tuple] = None,
+                query_hidden: Optional[torch.Tensor] = None,
+                query_bias: Optional[torch.Tensor] = None,
+                query_flash_ctx: Optional[tuple] = None):
+        """``(hidden, query_hidden)``; the second is None without a query
+        stream. Dropout draws: the content stream's, then the query
+        stream's."""
         def drop(t):
             return dropout(t, self.dropout, training, generator)
 
+        def ffn(t):
+            h = drop(F.gelu(self.ffn_in(self.ln2(t)), approximate="tanh"))
+            return t + drop(self.ffn_out(h))
+
         x = self.ln1(hidden)
-        hidden = hidden + drop(self.attn(x, x, bias, training, generator, flash_ctx))
-        h = drop(F.gelu(self.ffn_in(self.ln2(hidden)), approximate="tanh"))
-        return hidden + drop(self.ffn_out(h))
+        ctx, kv = self.attn(x, x, bias, training, generator, flash_ctx)
+        hidden = ffn(hidden + drop(ctx))
+        if query_hidden is not None:
+            q_ctx, _ = self.attn(self.ln1(query_hidden), x, query_bias, training, generator,
+                                 query_flash_ctx, shared_kv=kv)
+            query_hidden = ffn(query_hidden + drop(q_ctx))
+        return hidden, query_hidden
 
 
 class TransformerEncoder(nn.Module):
-    """The unified body: ``forward(inputs_embeds, pad_mask) → (B, S, d_model)``."""
+    """The unified body: ``forward(inputs_embeds, pad_mask, perm_mask) → (B, S,
+    d_model)``, the query stream's states when two streams run (``two_stream``
+    and a ``perm_mask``)."""
 
     def __init__(
         self,
@@ -246,6 +290,7 @@ class TransformerEncoder(nn.Module):
         dropout: float = 0.1,
         attn_dropout: float = 0.0,
         max_position: int = 512,
+        two_stream: bool = False,
     ):
         super().__init__()
         if pos_encoding not in ("relative_bias", "learned_absolute", "none"):
@@ -270,10 +315,16 @@ class TransformerEncoder(nn.Module):
             if pos_encoding == "relative_bias" else None
         )
         self.ln_f = nn.LayerNorm(d_model, eps=layer_norm_eps)
+        self.two_stream = two_stream
+        if two_stream:
+            # the query stream's state before the first layer, at every position
+            self.query_stream_init = nn.Parameter(torch.empty(d_model))
 
     def _init_weights(self, generator: torch.Generator) -> None:
         if self.pos_encoding == "learned_absolute":
             nn.init.normal_(self.position_embedding, 0.0, 0.02, generator=generator)
+        if self.two_stream:
+            nn.init.normal_(self.query_stream_init, 0.0, 0.02, generator=generator)
 
     def forward(
         self,
@@ -284,38 +335,53 @@ class TransformerEncoder(nn.Module):
         training: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        if perm_mask is not None:
-            raise NotImplementedError("two-stream attention (perm_mask) is not ported yet")
         if segment_ids is not None:
             raise NotImplementedError("session packing (segment_ids) is not ported yet")
-        S = inputs_embeds.shape[1]
+        B, S = inputs_embeds.shape[:2]
         hidden = inputs_embeds.float()
+        abs_pos = None
         if self.pos_encoding == "learned_absolute":
             # loud guard: a longer batch would otherwise run off the table
             if S > self.max_position:
                 raise ValueError(
                     f"sequence length {S} exceeds max_position={self.max_position}"
                 )
-            hidden = hidden + self.position_embedding[:S][None]
+            abs_pos = self.position_embedding[:S][None]
+            hidden = hidden + abs_pos
         rel_bias = self.rel_pos(S) if self.rel_pos is not None else None
-        if use_flash(S, self.attn_dropout, training):
-            # the flash context, built once and handed to every layer: only
-            # the local window and the relative bias are a tensor; the kernel
-            # applies causal and padding itself
-            bias = None
-            extra = make_extra_bias(S, None, self.local_window, device=hidden.device)
-            if rel_bias is not None:
-                extra = rel_bias if extra is None else extra + rel_bias
-            flash_ctx = (extra, pad_mask, rel_bias is not None)
-        else:
-            flash_ctx = None
+        two_stream = self.two_stream and perm_mask is not None
+        flash = use_flash(S, self.attn_dropout, training)
+
+        def biases(query_stream: bool):
+            """``(bias, flash_ctx)`` of one stream: the composed bias of the
+            dense path, or the flash context, built once and handed to every
+            layer. There only the perm mask, the local window and the
+            relative bias are a tensor; the kernel applies causal and
+            padding itself."""
+            if flash:
+                extra = make_extra_bias(S, perm_mask, self.local_window, query_stream,
+                                        device=hidden.device)
+                if rel_bias is not None:
+                    extra = rel_bias if extra is None else extra + rel_bias
+                return None, (extra, pad_mask, rel_bias is not None)
             bias = make_attention_bias(
-                pad_mask, S, causal=self.causal, local_window=self.local_window,
+                pad_mask, S, causal=self.causal, perm_mask=perm_mask,
+                local_window=self.local_window, query_stream=query_stream,
                 device=hidden.device,
             )
-            if rel_bias is not None:
-                bias = bias + rel_bias
+            return (bias if rel_bias is None else bias + rel_bias), None
+
+        bias, flash_ctx = biases(False)
+        query_hidden = query_bias = query_flash_ctx = None
+        if two_stream:
+            query_hidden = self.query_stream_init.expand(B, S, self.d_model)
+            if abs_pos is not None:
+                query_hidden = query_hidden + abs_pos
+            query_bias, query_flash_ctx = biases(True)
         hidden = dropout(hidden, self.dropout, training, generator)
+        if query_hidden is not None:
+            query_hidden = dropout(query_hidden, self.dropout, training, generator)
         for layer in self.layers:
-            hidden = layer(hidden, bias, training, generator, flash_ctx)
-        return self.ln_f(hidden)
+            hidden, query_hidden = layer(hidden, bias, training, generator, flash_ctx,
+                                         query_hidden, query_bias, query_flash_ctx)
+        return self.ln_f(query_hidden if query_hidden is not None else hidden)

@@ -10,8 +10,10 @@ Ported: ``T4RecConfig``, ``_register``, ``XLNetConfig`` and ``GPT2Config``
 (causal, learned absolute positions over ``max(total_seq_length, 8)`` rows,
 paired with CLM). The other seven archs are not ported yet, and
 ``to_encoder`` raises ``NotImplementedError`` for a capability flag the
-encoder does not carry yet. ``two_stream`` stays inert without a
-``perm_mask`` (MLM and CLM give none), as in the JAX package.
+encoder does not carry yet. ``two_stream`` takes effect for the scheme
+that gives a ``perm_mask`` (PLM): ``to_encoder(masking="plm")`` builds the
+encoder with its query stream (and the stream's learned start vector), as
+the JAX package creates that parameter only when a ``perm_mask`` arrives.
 """
 
 from __future__ import annotations
@@ -67,7 +69,9 @@ class T4RecConfig:
             total_seq_length=total_seq_length, **kwargs,
         )
 
-    def to_encoder(self):
+    def to_encoder(self, masking: Optional[str] = None):
+        """The unified encoder; ``masking`` names the scheme it is built
+        for, whose ``perm_mask`` (PLM) turns ``two_stream`` on."""
         from ..blocks.transformer import TransformerEncoder
 
         unported = {
@@ -93,6 +97,7 @@ class T4RecConfig:
             pos_encoding=self.pos_encoding, local_window=self.local_window,
             dropout=self.dropout, attn_dropout=self.attn_dropout,
             max_position=max(self.total_seq_length, 8),
+            two_stream=self.two_stream and masking in ("plm", "permutation"),
         )
 
     def to_model(self, input_module, *tasks, device=None, seed: int = 0, **kwargs):

@@ -11,8 +11,10 @@ for the port's counterpart module (a whole ``Model``, or a lone
 - LayerNorm ``scale`` is ``weight``;
 - the relative-bias table stays (buckets, H), the learned absolute positions
   keep their name and shape (``position_embedding`` (max_position, D), the
-  port's ``encoder.position_embedding``), and embedding tables keep their
-  padded row count.
+  port's ``encoder.position_embedding``), so does the two-stream query
+  stream's start vector (``query_stream_init`` (D,), the port's
+  ``encoder.query_stream_init``), and embedding tables keep their padded
+  row count.
 
 The XLNet and the GPT-2 trees are carried.
 
@@ -24,9 +26,10 @@ Load the result with ``module.load_state_dict(sd)`` (strict, so a missing
 or extra weight is an error). Training adds no weights, so the same rules
 serve it.
 
-``masking_info_from_jax(targets, mask, pad_mask, input_schema=None)`` turns
-the arrays of the JAX package's ``MaskingInfo`` (numpy) into the port's, to
-give both packages the same mask (``Model(..., masking_info=...)``).
+``masking_info_from_jax(targets, mask, pad_mask, input_schema=None,
+perm_mask=None)`` turns the arrays of the JAX package's ``MaskingInfo``
+(numpy) into the port's, to give both packages the same mask
+(``Model(..., masking_info=...)``).
 """
 
 from __future__ import annotations
@@ -101,12 +104,13 @@ def params_from_jax(tree: Mapping, shard: Optional[Tuple[int, int]] = None,
 
 
 def masking_info_from_jax(targets, mask, pad_mask=None, device=None,
-                          input_schema=None) -> MaskingInfo:
+                          input_schema=None, perm_mask=None) -> MaskingInfo:
     """numpy ``(targets, mask, pad_mask)`` of a JAX ``MaskingInfo`` → the
     port's ``MaskingInfo`` on ``device``. ``input_schema`` defaults to the
-    mask: under MLM the positions replaced by the [MASK] embedding are the
-    target positions. CLM's last-item branches keep the whole non-pad mask
-    there, so their caller passes it."""
+    mask: under MLM and PLM the positions replaced by the [MASK] embedding
+    are the target positions. CLM's last-item branches keep the whole
+    non-pad mask there, so their caller passes it. PLM's caller passes its
+    ``perm_mask`` (B, S, S)."""
     def as_bool(a):
         return torch.from_numpy(np.asarray(a).astype(bool)).to(device)
 
@@ -115,4 +119,6 @@ def masking_info_from_jax(targets, mask, pad_mask=None, device=None,
         targets=torch.from_numpy(np.asarray(targets).astype(np.int64)).to(device),
         mask=m, input_schema=m if input_schema is None else as_bool(input_schema),
         pad_mask=None if pad_mask is None else as_bool(pad_mask),
+        perm_mask=None if perm_mask is None else torch.from_numpy(
+            np.array(perm_mask, dtype=np.float32)).to(device),
     )

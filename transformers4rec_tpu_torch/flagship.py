@@ -20,6 +20,14 @@ absolute positions) with next-item labels at every position, sessions of up
 to ``LONG_SEQ`` = 256 in batches of ``LONG_BATCH`` = 32. CLM has no loss-row
 budget, so the cross-entropy runs on all 8,192 positions of a batch, and
 attention runs through the flash kernels (``ops.attention``).
+
+``scheme="plm"`` gives XLNet's own training scheme on the flagship's widths
+and sessions: permutation language modelling with two-stream attention,
+with the JAX ``examples/paper_repro/transf_exp_main.py`` defaults
+(``plm_probability`` 0.25, spans of up to 5 items, ``permute_all`` off).
+PLM has no loss-row budget, so the cross-entropy takes all 2,560 positions
+of a batch. ``eval_on_last_item_seq_only=False`` evaluates on every
+position instead of the last item (also under MLM and CLM).
 """
 
 from __future__ import annotations
@@ -47,10 +55,13 @@ LONG_BATCH = 32
 # (examples/paper_repro/README.md: --item_embedding_dim 448, tied through
 # --mf_constrained_embeddings)
 PAPER_ITEM_DIM = 448
+PLM_PROBABILITY, PLM_MAX_SPAN_LENGTH = 0.25, 5
 # masking scheme -> (architecture, masking arguments, sessions, batch)
 SCHEMES = {
     "mlm": (XLNetConfig, {"mlm_probability": MLM_PROBABILITY}, SEQ, BATCH),
     "clm": (GPT2Config, {}, LONG_SEQ, LONG_BATCH),
+    "plm": (XLNetConfig, {"plm_probability": PLM_PROBABILITY,
+                          "max_span_length": PLM_MAX_SPAN_LENGTH}, SEQ, BATCH),
 }
 
 
@@ -70,11 +81,12 @@ def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
                 n_layer: int = N_LAYER, n_head: int = N_HEAD, seq=None,
                 seed: int = 0, top_k=None, dropout: float = 0.1,
                 vocab_parallel_group=None, scheme: str = "mlm",
-                item_dim: Optional[int] = None) -> Model:
+                item_dim: Optional[int] = None,
+                eval_on_last_item_seq_only: bool = True) -> Model:
     """The flagship model with weights drawn from ``seed``, on ``device``
-    (CUDA unless ``"cpu"``): XLNet-MLM on sessions of 20, or with
-    ``scheme="clm"`` GPT-2-CLM on sessions of 256 (``seq`` overrides either
-    length). With ``vocab_parallel_group`` (a ``torch.distributed`` process
+    (CUDA unless ``"cpu"``): XLNet-MLM on sessions of 20, with
+    ``scheme="clm"`` GPT-2-CLM on sessions of 256, with ``scheme="plm"``
+    XLNet-PLM on sessions of 20 (``seq`` overrides each length). With ``vocab_parallel_group`` (a ``torch.distributed`` process
     group) the item table is drawn whole from the seed and this rank keeps
     its rows; loss, evaluation and top-k go over the group. ``item_dim``
     sets the item table's width (the column's ``embedding_dims``; 64 by
@@ -84,7 +96,8 @@ def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
     seq = default_seq if seq is None else seq
     input_module = TabularSequenceFeatures.from_schema(
         schema(num_items, seq), d_output=d_model, masking=scheme, aggregation="concat",
-        masking_kwargs=dict(masking_kwargs),
+        masking_kwargs=dict(masking_kwargs,
+                            eval_on_last_item_seq_only=eval_on_last_item_seq_only),
         embedding_dims=None if item_dim is None else {"item_id": item_dim},
     )
     cfg = config.build(d_model=d_model, n_head=n_head, n_layer=n_layer,
@@ -103,6 +116,15 @@ def build_clm_model(device=None, **kwargs) -> Model:
     GPT-2-CLM configuration (``--model-builder
     transformers4rec_tpu_torch.flagship:build_clm_model``)."""
     return build_model(device, scheme="clm", **kwargs)
+
+
+def build_plm_model(device=None, **kwargs) -> Model:
+    """``build_model(scheme="plm")``: what a server is given to rebuild the
+    XLNet-PLM configuration (``--model-builder
+    transformers4rec_tpu_torch.flagship:build_plm_model``).
+    Inference under PLM hides the last item from every query and scores at
+    the last position through the query stream, as the JAX package does."""
+    return build_model(device, scheme="plm", **kwargs)
 
 
 def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=None,

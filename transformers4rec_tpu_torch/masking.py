@@ -1,4 +1,5 @@
-"""Masking / label generation: causal (CLM) and masked (MLM) language modeling.
+"""Masking / label generation: causal (CLM), masked (MLM) and permutation
+(PLM) language modeling.
 
 Counterpart of ``transformers4rec_tpu/masking.py``. Masking is pure label
 generation: ``(embeds, item_ids, flags) → (masked_embeds, MaskingInfo)``;
@@ -6,17 +7,21 @@ nothing is stored on the module but the trainable [MASK] embedding.
 
 Ported: ``MaskingInfo``, ``MaskSequence``, ``CausalLanguageModeling`` in
 its three branches (training: shift-by-one labels, optionally only the last
-one; testing: the label at the last target position; inference: identity
-targets) and ``MaskedLanguageModeling`` in its inference branch (one [MASK]
-position appended at index ``len``), its testing branch (the label at the
-last item) and its training branch (Bernoulli masking with the ≥1-masked /
-≥1-unmasked guarantee). Random draws
-come from an explicit ``torch.Generator`` on the tensors' device; a caller
-may instead hand ``MaskSequence.forward`` a ready ``MaskingInfo``
+one; testing: the label at the last target position or at every position;
+inference: identity targets), ``MaskedLanguageModeling`` in its inference
+branch (one [MASK] position appended at index ``len``), its testing branch
+(the label at the last item, or shift-by-one labels at every position) and
+its training branch (Bernoulli masking with the ≥1-masked / ≥1-unmasked
+guarantee), and ``PermutationLanguageModeling`` (XLNet's scheme: spans of
+masked items, a random factorisation order as ``perm_mask`` for the
+two-stream encoder; in evaluation and inference the causal ``perm_mask``,
+with the last item hidden from every query, or on every position). Random
+draws come from an explicit ``torch.Generator`` on the tensors' device; a
+caller may instead hand ``MaskSequence.forward`` a ready ``MaskingInfo``
 (``masking_info=``), which skips the draw: that is how two devices, or two
 packages, are given the same mask. Not ported yet (raise
-``NotImplementedError``): session packing (``segment_ids``) and the PLM and
-RTD schemes.
+``NotImplementedError``): session packing (``segment_ids``) and the RTD
+scheme.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ class MaskingInfo:
     targets: (B, S') long — label item ids (padding_idx where no target).
     mask:    (B, S') bool — True at positions that carry a target.
     input_schema: (B, S') bool — positions replaced by the [MASK] embedding.
+    perm_mask: (B, S, S) float, PLM only — 1 where query i must NOT attend
+        key j.
     pad_mask: (B, S') bool — True at real (non-pad) positions of the
         post-masking sequence; S' = S+1 under the MLM inference extension.
     item_ids / item_table: the raw item-id sequence and the tied item table,
@@ -217,12 +224,10 @@ class MaskedLanguageModeling(MaskSequence):
             mask = labels != self.padding_idx
             ext_pad = torch.arange(S + 1, device=item_ids.device)[None, :] < (last_len + 1)[:, None]
             return MaskingInfo(targets=labels, mask=mask, input_schema=mask, pad_mask=ext_pad)
-        if not self.eval_on_last_item_seq_only:
-            raise NotImplementedError(
-                "MLM testing on every position (eval_on_last_item_seq_only=False) "
-                "is not ported yet"
-            )
-        labels, mask = _label_at_last(item_ids, non_pad, self.padding_idx)
+        if self.eval_on_last_item_seq_only:
+            labels, mask = _label_at_last(item_ids, non_pad, self.padding_idx)
+        else:
+            labels, mask = _predict_all(item_ids, self.padding_idx)
         return MaskingInfo(targets=labels, mask=mask, input_schema=mask, pad_mask=non_pad)
 
     def apply_mask_to_inputs(self, inputs, info: MaskingInfo, training=False, testing=False):
@@ -232,3 +237,76 @@ class MaskedLanguageModeling(MaskSequence):
             # [MASK] embedding at the target position
             inputs = torch.cat([inputs, inputs[:, -1:, :]], dim=1)
         return torch.where(info.input_schema[..., None], mask_emb, inputs)
+
+
+@masking_registry.register("plm", "permutation")
+class PermutationLanguageModeling(MaskSequence):
+    """XLNet-style permutation LM. ``perm_mask[b, i, j] = 1``: position i
+    may not attend position j. The query stream predicts every position
+    itself (the reference's ``target_mapping`` is the identity), so no
+    gather is needed."""
+
+    def __init__(self, hidden_size: int = 0, padding_idx: int = 0,
+                 eval_on_last_item_seq_only: bool = True, plm_probability: float = 1 / 6,
+                 max_span_length: int = 5, permute_all: bool = False):
+        super().__init__(hidden_size, padding_idx, eval_on_last_item_seq_only)
+        self.plm_probability = plm_probability
+        self.max_span_length = max_span_length
+        self.permute_all = permute_all
+
+    def _sample_spans(self, non_pad: torch.Tensor, generator) -> torch.Tensor:
+        """A fixed number of segments per row, each of ``context`` positions
+        (a span of 1..``max_span_length`` masked items at a random offset
+        inside it, ``context = span / plm_probability``), walked from the
+        row's start while it lies inside the session."""
+        B, S = non_pad.shape
+        dev = non_pad.device
+        max_len = non_pad.sum(dim=1)
+        min_context = max(int(1 / self.plm_probability), 1)
+        segments = -(-S // min_context) + 1  # an upper bound on the segments a row needs
+        span = torch.randint(1, self.max_span_length + 1, (segments, B), generator=generator,
+                             device=dev)
+        context = (span / self.plm_probability).to(torch.int32).long()
+        offsets = torch.rand((segments, B), generator=generator, device=dev)
+        cur = context.cumsum(0) - context  # where each segment starts
+        width = (context - span + 1).clamp_min(1)
+        start = cur + (offsets * width).long().clamp_max(width - 1)
+        pos = torch.arange(S, device=dev)
+        in_span = (pos >= start[..., None]) & (pos < (start + span)[..., None])
+        valid = (start < max_len) & (cur < max_len)
+        mask = (in_span & valid[..., None]).any(dim=0)
+        return mask & non_pad
+
+    def compute_masked_targets(self, item_ids, training=False, testing=False,
+                               generator=None) -> MaskingInfo:
+        non_pad = item_ids != self.padding_idx
+        B, S = item_ids.shape
+        dev = item_ids.device
+        if training:
+            # the draws in one order: spans, the ≥1 guarantee, the permutation
+            mask_labels = non_pad if self.permute_all else self._sample_spans(non_pad, generator)
+            labels = torch.where(mask_labels, item_ids,
+                                 torch.full_like(item_ids, self.padding_idx))
+            labels, mask_labels = _ensure_min_masking(
+                labels, mask_labels, item_ids, non_pad, self.padding_idx, generator
+            )
+            # a random factorisation order; positions not masked get -1: every
+            # query sees them, and they see no masked position
+            order = torch.argsort(torch.rand((B, S), generator=generator, device=dev), dim=-1)
+            order = torch.where(mask_labels, order, -1)
+            # i may not attend j iff j is masked and not before i in the order
+            perm_mask = ((order[:, :, None] <= order[:, None, :])
+                         & mask_labels[:, None, :]).float()
+            return MaskingInfo(targets=labels, mask=mask_labels, input_schema=mask_labels,
+                               perm_mask=perm_mask, pad_mask=non_pad)
+        # evaluation and inference: the causal order
+        causal = torch.ones((S, S), device=dev).triu(1)[None]
+        if self.eval_on_last_item_seq_only:
+            labels, mask = _label_at_last(item_ids, non_pad, self.padding_idx)
+            # no query sees the last item
+            perm_mask = (causal + mask[:, None, :].float()).clamp(0, 1)
+        else:
+            labels, mask = _predict_all(item_ids, self.padding_idx)
+            perm_mask = causal.expand(B, S, S)
+        return MaskingInfo(targets=labels, mask=mask, input_schema=mask, perm_mask=perm_mask,
+                           pad_mask=non_pad)

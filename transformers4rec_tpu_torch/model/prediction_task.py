@@ -11,9 +11,15 @@ Call modes:
   (``ops.vocab.fused_softmax_ce``, kernels K1 and K2) gives the loss without
   (M, V) logits; with ``use_fused_ops=False`` the dense logits go through
   ``losses.cross_entropy_with_logits``;
-- testing (evaluation): one target per session, the last item; its hidden
-  state is gathered and the fused CE-and-rank pass (ops/vocab.py, kernel
-  K3) gives the loss and the ranking metrics without (N, V) logits;
+- testing (evaluation): one target per session, the last item
+  (``eval_single_target``): its hidden state is gathered and the fused
+  CE-and-rank pass (ops/vocab.py, kernel K3) gives the loss and the ranking
+  metrics without (N, V) logits; or every position of the batch a row (the
+  masking's ``eval_on_last_item_seq_only=False``), through the same pass
+  over the B*S rows, the positions without a target weighted 0. Without
+  metrics the fused cross-entropy (K1) gives the loss alone. With
+  ``use_fused_ops=False`` both take dense f32 logits, the dense
+  cross-entropy and ``ranking_metric.compute_batch_metrics``;
 - inference: the hidden state at the [MASK] position appended by MLM (the
   last item for other schemes) is scored against every item with one dense
   f32 product, then ``torch.topk``; above N·V = 1e9 the streamed
@@ -27,10 +33,9 @@ functions of ``parallel/sharded_embedding.py``: the kernels per shard and
 O(N) numbers merged over the group. Top-k always takes ``sharded_topk``
 there, in f32 at or below N·V = 1e9 and in bf16 above.
 
-Not ported yet (raise ``NotImplementedError``): sampled softmax, evaluation
-on every position, the non-fused evaluation path, an untied output layer,
-task blocks, and with a group the dense (non-fused) loss and inference
-without ``top_k``.
+Not ported yet (raise ``NotImplementedError``): sampled softmax, an untied
+output layer, task blocks, and with a group the dense (non-fused) loss and
+inference without ``top_k``.
 """
 
 from __future__ import annotations
@@ -52,7 +57,12 @@ from ..parallel.sharded_embedding import (
     sharded_topk,
 )
 from .losses import cross_entropy_with_logits
-from .ranking_metric import DEFAULT_METRICS, RankingMetric, metrics_from_ranks
+from .ranking_metric import (
+    DEFAULT_METRICS,
+    RankingMetric,
+    compute_batch_metrics,
+    metrics_from_ranks,
+)
 
 _STREAMED_TOPK_MIN = 1_000_000_000  # N·V above which the reference streams top-k
 
@@ -199,48 +209,73 @@ class NextItemPredictionTask(nn.Module):
         vsz = self.target_dim if (self.target_dim and self.target_dim != table_rows) else None
         rows = torch.arange(x.shape[0], device=x.device)
 
-        if training:
+        if (training or testing) and not self.use_fused_ops and group is not None:
+            raise NotImplementedError("a vocab-parallel group needs use_fused_ops")
+
+        def dense_logits(h):
+            logits = (h @ W.float().T) / temp
+            return logits if vsz is None else logits[..., :vsz]
+
+        if testing and self.eval_single_target:
+            # one target per session: gather that position
+            idx = torch.argmax(info.mask.to(torch.int32), dim=1)
+            row_valid = info.mask.any(dim=1).float()
+            xg = x[rows, idx]
+            labels = info.targets[rows, idx]
+            metrics = None
+            if not self.use_fused_ops:
+                logits = dense_logits(xg)
+                loss = cross_entropy_with_logits(logits, labels, weights=row_valid,
+                                                 label_smoothing=self.label_smoothing)
+                if compute_metrics:
+                    metrics = compute_batch_metrics(logits, labels, self.metrics,
+                                                    weights=row_valid)
+                return TaskOutput(loss=loss, labels=labels, predictions=logits,
+                                  weights=row_valid, metrics=metrics,
+                                  loss_weight=row_valid.sum())
+            if compute_metrics:
+                loss, rank = self._vocab_ce_rank(xg / temp, W, labels, row_valid, vsz)
+                metrics = metrics_from_ranks(rank, self.metrics, weights=row_valid)
+            else:
+                loss = self._vocab_ce(xg / temp, W, labels.to(torch.int32), row_valid, vsz)
+            return TaskOutput(loss=loss, labels=labels, weights=row_valid,
+                              metrics=metrics, loss_weight=row_valid.sum())
+
+        if training or testing:
             # full-position path over the B*S rows
             targets = info.targets
             N = targets.shape[0] * targets.shape[1]
+            flat_labels = targets.reshape(N)
             flat_mask = info.mask.reshape(N).float()
+            metrics = None
             if not self.use_fused_ops:
-                if group is not None:
-                    raise NotImplementedError("a vocab-parallel group needs use_fused_ops")
-                logits = (x @ W.float().T) / temp
-                if vsz is not None:
-                    logits = logits[..., :vsz]
+                logits = dense_logits(x)
                 loss = cross_entropy_with_logits(logits, targets, weights=info.mask.float(),
                                                  label_smoothing=self.label_smoothing)
-                return TaskOutput(loss=loss, labels=targets.reshape(N), weights=flat_mask,
+                flat_logits = logits.reshape(N, -1)
+                if compute_metrics and testing:
+                    metrics = compute_batch_metrics(flat_logits, flat_labels, self.metrics,
+                                                    weights=flat_mask)
+                return TaskOutput(loss=loss, labels=flat_labels,
+                                  predictions=flat_logits if testing else None,
+                                  weights=flat_mask, metrics=metrics,
                                   loss_weight=flat_mask.sum())
             x2d = x.reshape(N, -1) / temp
-            flat_labels = targets.reshape(N)
-            M = self._budget_rows(N)
+            M = self._budget_rows(N) if training else None
             if M is not None:
                 # a stable argsort puts the target positions first; overflow
                 # beyond M (a ≥6σ margin) would drop a few targets
                 order = torch.argsort(flat_mask <= 0, stable=True)[:M]
                 x2d, flat_labels, flat_mask = x2d[order], flat_labels[order], flat_mask[order]
             labels = flat_labels.to(torch.int32)
-            loss = self._vocab_ce(x2d, W, labels, flat_mask, vsz)
-            return TaskOutput(loss=loss, labels=labels, weights=flat_mask,
+            if compute_metrics and testing:
+                # every position: one streamed pass for the loss and the ranks
+                loss, rank = self._vocab_ce_rank(x2d, W, labels, flat_mask, vsz)
+                metrics = metrics_from_ranks(rank, self.metrics, weights=flat_mask)
+            else:
+                loss = self._vocab_ce(x2d, W, labels, flat_mask, vsz)
+            return TaskOutput(loss=loss, labels=labels, weights=flat_mask, metrics=metrics,
                               loss_weight=flat_mask.sum())
-        if testing:
-            if not (self.eval_single_target and info.segment_ids is None
-                    and self.use_fused_ops and compute_metrics):
-                raise NotImplementedError(
-                    "only the fused single-target evaluation path is ported"
-                )
-            # one target per session: gather that position
-            idx = torch.argmax(info.mask.to(torch.int32), dim=1)
-            row_valid = info.mask.any(dim=1).float()
-            xg = x[rows, idx]
-            labels = info.targets[rows, idx]
-            loss, rank = self._vocab_ce_rank(xg / temp, W, labels, row_valid, vsz)
-            metrics = metrics_from_ranks(rank, self.metrics, weights=row_valid)
-            return TaskOutput(loss=loss, labels=labels, weights=row_valid,
-                              metrics=metrics, loss_weight=row_valid.sum())
 
         # inference: score the next item of every session
         item_ids = info.item_ids

@@ -2,8 +2,9 @@
 
 Counterpart of ``transformers4rec_tpu/model/ranking_metric.py``. Metrics
 are computed from the RANK of each label (0-based count of items scored
-above it, from the fused eval pass) and stream as ``(sum, count)`` pairs
-that merge by addition. Every metric is weight-aware: rows with weight 0
+above it, from the fused eval pass; from dense scores, its place in their
+top max(k): ``label_ranks``) and stream as ``(sum, count)`` pairs that
+merge by addition. Every metric is weight-aware: rows with weight 0
 count for nothing.
 """
 
@@ -94,6 +95,27 @@ DEFAULT_METRICS: Tuple[RankingMetric, ...] = (
     AvgPrecisionAt(top_ks=(10, 20)),
     RecallAt(top_ks=(10, 20)),
 )
+
+
+def label_ranks(scores: torch.Tensor, labels: torch.Tensor, max_k: int) -> torch.Tensor:
+    """0-based rank of each label in the top ``max_k`` of ``scores`` (N, V);
+    ``max_k`` where it is not among them. (N,) int32."""
+    top_ids = torch.topk(scores, max_k, dim=-1).indices
+    hit = top_ids == labels.long()[:, None]
+    rank = hit.to(torch.int32).argmax(dim=-1)
+    return torch.where(hit.any(dim=-1), rank, max_k).to(torch.int32)
+
+
+def compute_batch_metrics(
+    scores: torch.Tensor,
+    labels: torch.Tensor,
+    metrics: Sequence[RankingMetric] = DEFAULT_METRICS,
+    weights: Optional[torch.Tensor] = None,
+) -> MetricState:
+    """Per-batch (weighted sum, weight count) for every metric × cutoff, from
+    dense scores (N, V)."""
+    max_k = max(k for m in metrics for k in m.top_ks)
+    return metrics_from_ranks(label_ranks(scores, labels, max_k), metrics, weights)
 
 
 def metrics_from_ranks(
