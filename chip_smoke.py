@@ -72,6 +72,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    launch once per step and the moment is f32; and one step of it is held
    against one step of the plain f32-moment arm from the same weights, mask
    and dropout;
+9a. Q, the README's entry path from Parquet files at full width: the
+    port's ETL writes three daily windows of sessions (ids up to 390,000);
+    ``flagship.build_trainer`` with ``data_loader_engine="parquet"`` trains
+    8 steps from window 1's ``train.parquet`` (twice), and the same rows as
+    an in-memory dict give the same losses; ``evaluate``, ``predict`` and
+    ``log_predictions`` on window 2's ``valid.parquet`` (a tail of fewer
+    than 128 sessions) against the CPU; an evaluation and a save every 4
+    steps with ``save_total_limit=1`` and ``load_best_model_at_end`` keep
+    the expected checkpoints, and a run resumed from ``checkpoint-4`` gives
+    the unbroken run's last 4 losses; 8 steps under ``"parquet_streaming"``;
+    ``fit_and_evaluate`` over windows 1 and 2; 3 steps of ``Model.fit``.
+    K1 and K2 must launch once a step, K3 once an evaluation batch; the
+    loaders' host time per batch is printed with the step times;
 9b. the paper's tied width: the same XLNet-MLM with a 448-wide item table
     (``flagship.build_model(item_dim=448)``): ``Model.evaluate`` on one
     batch and one training step, each against the CPU, then 8 trainer
@@ -142,6 +155,10 @@ K6b + K6c beside K6a, at the CLM shape, at the S = 4,096 step's, at
 (4, 2048, 8, 64) and where the designs meet (head dims 32, 48 and 128).
 ``--time-long-step`` times the steady S = 4,096 step with K6b in each of
 its designs in turns and profiles it (device time by kernel).
+``--time-parquet`` times the flagship's training step from a Parquet file
+against the same rows in memory, in turns, with the host time of the
+file's decode, the loader's yield and the batch's copy, and profiles each
+arm (device time per step and busy share).
 """
 
 from __future__ import annotations
@@ -1705,6 +1722,294 @@ def check_streamed_step(flagship) -> dict:
     return out
 
 
+# ------------------------------------------ Q: from Parquet files, on the card
+PARQUET_TRAIN_STEPS = 8
+PARQUET_SESSIONS_PER_DAY = 1_500
+PARQUET_VAL_SIZE = 0.12
+# loss sequences of two runs on the card that should be one trajectory (the
+# Parquet and the in-memory loader; a resumed and an unbroken run): the
+# kernels are deterministic, PyTorch's embedding and index backward on CUDA
+# accumulate with atomics, so the runs may part in the last bits of the
+# table's gradient, which eight Adafactor steps carry into the loss
+PARQUET_LOSS_RTOL = 1e-3
+
+
+def parquet_windows(flagship, root: str, seed: int = 300) -> tuple:
+    """Raw interactions of three days, drawn from ``seed``: sessions of 2 to
+    20 items, item ids in 1..390,000 with log-normal popularity, a category
+    derived from the item, the two continuous columns, increasing
+    timestamps; the port's ETL (``etl_interactions_to_time_splits``,
+    without ``categorify``: the ids stay below the table's rows) writes them
+    into ``root/{1,2,3}/{train,valid,test}.parquet``. Returns ``root`` and
+    the sessions of each file."""
+    import pandas as pd
+
+    from transformers4rec_tpu_torch.utils import data_utils
+
+    rng = np.random.default_rng(seed)
+    n_sessions = 3 * PARQUET_SESSIONS_PER_DAY
+    lengths = rng.integers(2, flagship.SEQ + 1, n_sessions)
+    sid = np.repeat(np.arange(1, n_sessions + 1), lengths)
+    day = np.repeat(np.arange(n_sessions) // PARQUET_SESSIONS_PER_DAY + 1, lengths)
+    n = len(sid)
+    raw = rng.lognormal(3.0, 1.0, n)
+    item = np.clip(1 + (raw / raw.max()) * (flagship.NUM_ITEMS - 1), 1,
+                   flagship.NUM_ITEMS).astype(np.int64)
+    frame = pd.DataFrame({
+        "session_id": sid, "item_id": item,
+        "category": 1 + item % (flagship.NUM_CATEGORIES - 1),
+        "item_recency": rng.random(n).astype(np.float32),
+        "weekday_sin": np.sin(rng.random(n) * 2 * np.pi),
+        "timestamp": day * 86_400 + np.sort(rng.integers(0, 86_000, n)), "day": day})
+    data_utils.etl_interactions_to_time_splits(
+        frame, flagship.schema(), root, day_col="day", maximum_length=flagship.SEQ,
+        val_size=PARQUET_VAL_SIZE, test_size=0.0)
+    sizes = {f"{w}/{f}": len(pd.read_parquet(os.path.join(root, str(w), f"{f}.parquet")))
+             for w in (1, 2, 3) for f in ("train", "valid")}
+    return root, sizes
+
+
+def dense_columns(flagship, path: str) -> dict:
+    """The sessions of a Parquet file as a dict of (rows, 20) numpy columns,
+    padded here with pandas and numpy, not by the port's loader."""
+    import pandas as pd
+
+    frame = pd.read_parquet(path)
+    out = {}
+    for col in flagship.schema():
+        lists = frame[col.name].to_list()
+        dtype = np.int64 if col.is_categorical else np.float32
+        dense = np.zeros((len(lists), flagship.SEQ), dtype)
+        for r, row in enumerate(lists):
+            dense[r, :len(row)] = row[:flagship.SEQ]
+        out[col.name] = dense
+    return out
+
+
+def loss_reads(trainer, steps: int) -> list:
+    return [h["loss"] for h in trainer.state.log_history
+            if "loss" in h and h["step"] > trainer.state.global_step - steps]
+
+
+def same_trajectory(what: str, got: list, want: list) -> float:
+    """Fail unless two loss sequences agree within ``PARQUET_LOSS_RTOL``;
+    returns their largest relative difference."""
+    if len(got) != len(want) or not all(math.isfinite(v) for v in got):
+        fail(f"{what}: losses {got} against {want}")
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    if rel > PARQUET_LOSS_RTOL:
+        fail(f"{what}: losses {got} against {want} (relative {rel})")
+    return rel
+
+
+def loader_ms(make, reps: int = 3) -> float:
+    """Host milliseconds per batch to yield one epoch from a loader."""
+    best = math.inf
+    for _ in range(reps):
+        loader = make()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        best = min(best, 1e3 * (time.perf_counter() - t0) / n)
+    return best
+
+
+def run_parquet_path(flagship, vocab, card: str) -> dict:
+    """Main path Q: the README's entry path from Parquet files at full width.
+    The port's ETL writes three daily windows; ``flagship.build_trainer``
+    reads window 1's ``train.parquet`` (``data_loader_engine="parquet"``) for
+    8 steps and window 2's ``valid.parquet`` for ``evaluate``, ``predict``
+    and ``log_predictions``, each on the card and on the CPU; the same rows
+    as an in-memory dict give the same losses; 8 steps with an evaluation
+    and a save every 4 rotate to the expected checkpoints, and a run resumed
+    from ``checkpoint-4`` gives the unbroken run's last 4 losses; 8 steps
+    under ``"parquet_streaming"``; ``fit_and_evaluate`` over windows 1 and
+    2; 3 steps of ``Model.fit``. The kernel counts are set to 0 just before
+    each call and read just after: K1 and K2 once a step, K3 once an
+    evaluation batch."""
+    try:
+        import pandas as pd
+        import pyarrow
+    except ImportError as e:
+        fail(f"the Parquet path needs pyarrow and pandas: {e}")
+    from transformers4rec_tpu_torch.data import ParquetDataLoader, StreamingParquetDataLoader
+    from transformers4rec_tpu_torch.trainer import Trainer
+    from transformers4rec_tpu_torch.utils.examples_utils import fit_and_evaluate
+
+    print(f"[parquet] pyarrow {pyarrow.__version__}, pandas {pd.__version__}")
+    t_phase = time.perf_counter()
+    counters = {"ce_fwd": vocab.ce_fwd, "ce_bwd": vocab.ce_bwd, "ce_rank": vocab.ce_rank}
+    launches = dict.fromkeys(counters, 0)
+    steps, rows = PARQUET_TRAIN_STEPS, flagship.BATCH
+    vocab_size = flagship.NUM_ITEMS + 1
+    out = {}
+
+    def run(what: str, fn, **want):
+        result, got, wall = counted(counters, fn)
+        expect_launches(f"parquet path ({what})", got, **want)
+        for k, c in got.items():
+            launches[k] += c
+        return result, wall
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        windows, sizes = parquet_windows(flagship, os.path.join(root, "windows"))
+        out["etl_s"] = time.perf_counter() - t0
+        out["sessions"] = sizes
+        train_file = os.path.join(windows, "1", "train.parquet")
+        eval_file = os.path.join(windows, "2", "valid.parquet")
+        n_eval = sizes["2/valid"]
+        eval_batches = -(-n_eval // rows)
+        if sizes["1/train"] < steps * rows or eval_batches != 2 or n_eval % rows == 0:
+            fail(f"parquet path: the ETL wrote {sizes}")
+        print(f"[parquet] ETL of 3 windows in {out['etl_s']:.3f}s: {json.dumps(sizes)}")
+
+        def trainer(out_dir: str, dataset=train_file, **args):
+            t = flagship.build_trainer("cuda", seed=0, train_dataset=dataset,
+                                       eval_dataset=eval_file,
+                                       output_dir=os.path.join(root, out_dir))
+            t.args.max_steps, t.args.logging_steps = steps, 1
+            for k, v in args.items():
+                setattr(t.args, k, v)
+            return t
+
+        # 1. train from the file, twice 8 steps; then the same rows as a dict
+        walls = {}
+        for name, dataset in (("parquet", train_file),
+                              ("in_memory", dense_columns(flagship, train_file))):
+            t = trainer(name, dataset)
+            walls[name] = []
+            for _ in range(2):
+                _, wall = run(f"{name} train", t.train, ce_fwd=steps, ce_bwd=steps)
+                walls[name].append(wall)
+            reads = loss_reads(t, 2 * steps)[:steps]
+            out[f"{name}_losses"] = reads
+            if name == "parquet":
+                parquet = t
+            else:
+                in_memory = t
+        out["in_memory_vs_parquet_rel"] = same_trajectory(
+            "in-memory against Parquet", out["in_memory_losses"], out["parquet_losses"])
+        out["step_ms"] = {name: [1e3 * w / steps for w in ws] for name, ws in walls.items()}
+        print(f"[parquet] train, {steps} steps twice at batch {rows} of {flagship.SEQ} on "
+              f"{card}: ms per step (wall, each train() call) {json.dumps(out['step_ms'])}; "
+              f"losses within {out['in_memory_vs_parquet_rel']:.3g} relative")
+
+        # 2-4. evaluate, predict and log_predictions on the card and on the CPU
+        gpu_res, out["evaluate_s"] = run("evaluate", parquet.evaluate, ce_rank=eval_batches)
+        cpu_model = flagship.build_model("cpu", seed=0)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in parquet.model.state_dict().items()})
+        cpu = Trainer(cpu_model, parquet.args, schema=parquet.schema, eval_dataset=eval_file,
+                      device="cpu")
+        cpu_res = cpu.evaluate()
+
+        def metrics(r):
+            return {k: v for k, v in r.items() if "_runtime" not in k and "_per_second" not in k}
+
+        check_evaluate(metrics(gpu_res), metrics(cpu_res), n_eval)
+        (scores, ids), out["predict_s"] = run("predict", lambda: parquet.predict(eval_file,
+                                                                                 top_k=TOP_K))
+        if scores.shape != (n_eval, TOP_K):
+            fail(f"parquet predict: {scores.shape} for {n_eval} sessions")
+        cpu_s, cpu_i = cpu.predict(eval_file, top_k=TOP_K)
+        check_topk(scores, ids, cpu_s, cpu_i, vocab_size, "parquet predict")
+        parquet.args.predict_top_k = TOP_K
+        logged = pd.read_parquet(parquet.log_predictions(eval_file))
+        if len(logged) != n_eval or list(logged.columns) != ["pred_item_ids",
+                                                             "pred_item_scores"]:
+            fail(f"log_predictions wrote {logged.shape}, columns {list(logged.columns)}")
+        out["evaluate"] = metrics(gpu_res)
+        print(f"[parquet] evaluate ({eval_batches} batches, {n_eval} sessions) "
+              f"{out['evaluate_s']:.3f}s and predict {out['predict_s']:.3f}s on the card, "
+              f"both equal to the CPU's: {json.dumps(out['evaluate'])}")
+        del cpu, cpu_model, parquet
+
+        # 5. checkpoints: an evaluation and a save every 4 steps, one kept
+        # beside the best; then a run resumed from the middle of the epoch
+        t = trainer("ckpt", save_steps=4, eval_steps=4, save_total_limit=1,
+                    load_best_model_at_end=True, metric_for_best_model="recall_at_20",
+                    log_json=True)
+        run("checkpointed train", t.train, ce_fwd=steps, ce_bwd=steps,
+            ce_rank=2 * eval_batches)
+        kept = sorted(d for d in os.listdir(t.args.output_dir) if d.startswith("checkpoint-"))
+        want_kept = sorted({f"checkpoint-{steps}", os.path.basename(t._best_checkpoint or "")})
+        with open(os.path.join(t.args.output_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        if kept != want_kept or len(records) != 3:
+            fail(f"checkpoints {kept} (expected {want_kept}), {len(records)} metrics records")
+        unbroken = loss_reads(t, steps)
+        out["checkpointed_vs_parquet_rel"] = same_trajectory(
+            "checkpointed against plain run", unbroken, out["parquet_losses"])
+        first = trainer("resume", max_steps=steps // 2, save_steps=steps // 2)
+        run("train to the checkpoint", first.train, ce_fwd=steps // 2, ce_bwd=steps // 2)
+        resumed = trainer("resume")
+        path = os.path.join(resumed.args.output_dir, f"checkpoint-{steps // 2}")
+        run("resumed train", lambda: resumed.train(resume_from_checkpoint=path),
+            ce_fwd=steps // 2, ce_bwd=steps // 2)
+        if resumed.state.batches_in_epoch != steps or resumed.state.global_step != steps:
+            fail(f"resumed run ended at {resumed.state}")
+        out["resume_rel"] = same_trajectory("resumed against unbroken run",
+                                            loss_reads(resumed, steps // 2),
+                                            unbroken[steps // 2:])
+        out["checkpoints_kept"] = kept
+        print(f"[parquet] checkpoints kept {kept}; the resumed run's last {steps // 2} losses "
+              f"within {out['resume_rel']:.3g} relative of the unbroken run's")
+        del t, first, resumed
+
+        # 6. the streaming engine with a shuffle buffer
+        t = trainer("stream", data_loader_engine="parquet_streaming", shuffle_buffer_size=512)
+        metrics_s, wall = run("streaming train", t.train, ce_fwd=steps, ce_bwd=steps)
+        reads = loss_reads(t, steps)
+        if len(reads) != steps or not all(math.isfinite(v) for v in reads):
+            fail(f"streaming train: {metrics_s}, losses {reads}")
+        out["streaming_step_ms"] = 1e3 * wall / steps
+        del t
+
+        # 7. the paper's protocol over windows 1 and 2
+        eval_w3 = -(-sizes["3/valid"] // rows)
+        by_time, out["fit_and_evaluate_s"] = run(
+            "fit_and_evaluate", lambda: fit_and_evaluate(in_memory, 1, 2, windows),
+            ce_fwd=2 * steps, ce_bwd=2 * steps, ce_rank=eval_batches + eval_w3)
+        if "indexed_by_time_eval_/next-item/recall@20" not in by_time or any(
+                len(v) != 2 or not all(math.isfinite(x) for x in v) for v in by_time.values()):
+            fail(f"fit_and_evaluate returned {by_time}")
+        out["fit_and_evaluate"] = by_time
+        print(f"[parquet] fit_and_evaluate over windows 1, 2 in "
+              f"{out['fit_and_evaluate_s']:.3f}s: {json.dumps(by_time)}")
+        model = in_memory.model
+        del in_memory
+
+        # 8. Model.fit without a Trainer, from the file
+        loader = ParquetDataLoader.from_schema(flagship.schema(), train_file, batch_size=rows)
+        fit_losses, _ = run("Model.fit", lambda: model.fit(loader, max_steps=3),
+                            ce_fwd=3, ce_bwd=3)
+        if len(fit_losses) != 3 or not all(math.isfinite(v) for v in fit_losses):
+            fail(f"Model.fit: {fit_losses}")
+        del model
+
+        # the loaders alone: host ms to yield a batch (decoding excluded), with
+        # the background thread and without; the streaming loader decodes as
+        # it goes
+        schema = flagship.schema()
+        t0 = time.perf_counter()
+        ParquetDataLoader.from_schema(schema, train_file, batch_size=rows)
+        out["decode_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["loader_ms_per_batch"] = {
+            f"{name}_prefetch_{p}": loader_ms(lambda: make(schema, train_file, batch_size=rows,
+                                                           prefetch=p))
+            for name, make in (("parquet", ParquetDataLoader.from_schema),
+                               ("streaming", StreamingParquetDataLoader.from_schema))
+            for p in (0, 2)}
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[parquet] loaders on the host of {card}: decode {out['decode_ms']:.3f} ms for "
+          f"{sizes['1/train']} sessions, ms per batch of {rows} "
+          f"{json.dumps(out['loader_ms_per_batch'])}; streaming train "
+          f"{out['streaming_step_ms']:.3f} ms per step; phase Q {out['phase_s']:.1f}s, "
+          f"launches {json.dumps(launches)}")
+    return out
+
+
 # -------------------------------------------------------------------- timing
 def bound(nbytes: int, flops: int, exps: int = 0, f32_flops: int = 0) -> dict:
     """The least time the card could take: the larger of the bytes over the
@@ -2079,6 +2384,74 @@ def time_long_step(card: str, steady: int = 32) -> None:
         "device_busy_share": device_ms / wall_ms, "top_kernels_ms": top}))
 
 
+def time_parquet(card: str, calls: int = 8, steps: int = 16) -> None:
+    """The flagship's training step from Parquet against the same rows held
+    in memory (phase Q's two arms), ``calls`` ``train()`` calls of
+    ``steps`` steps each, in turns (Parquet, memory, memory, Parquet, ...)
+    after one warm-up call per arm; then the host time of what the Parquet
+    arm adds or changes: the file's decode in each call, the loader's yield
+    per batch and the batch's copy to the card (``Model._as_dense``, whose
+    float64 columns are narrowed on the host), and a ``torch.profiler``
+    window of each arm: device time per step and the device's busy share."""
+    from transformers4rec_tpu_torch import flagship
+    from transformers4rec_tpu_torch.data import ParquetDataLoader
+    from transformers4rec_tpu_torch.ops import build
+
+    build.build(["ce_fwd", "ce_bwd"])
+    with tempfile.TemporaryDirectory() as root:
+        windows, _ = parquet_windows(flagship, os.path.join(root, "windows"))
+        train_file = os.path.join(windows, "1", "train.parquet")
+        arms = {"parquet": train_file, "in_memory": dense_columns(flagship, train_file)}
+        trainers = {}
+        for name, dataset in arms.items():
+            t = flagship.build_trainer("cuda", seed=0, train_dataset=dataset,
+                                       output_dir=os.path.join(root, name))
+            t.args.max_steps, t.args.logging_steps = steps, steps
+            t.train()
+            trainers[name] = t
+        ms = {name: [] for name in arms}
+        for name in ("parquet", "in_memory", "in_memory", "parquet") * (calls // 2):
+            _, _, wall = counted({}, trainers[name].train)
+            ms[name].append(1e3 * wall / steps)
+        print(f"[time-parquet] ms per step (wall, {steps} steps a train() call) in turns on "
+              f"{card}: {json.dumps(ms)}; medians {json.dumps({k: float(np.median(v)) for k, v in ms.items()})}")
+
+        schema = flagship.schema()
+        decode = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            loader = ParquetDataLoader.from_schema(schema, train_file, batch_size=flagship.BATCH)
+            decode.append(1e3 * (time.perf_counter() - t0))
+        model = trainers["parquet"].model
+        pieces = {"decode_ms_per_call": float(np.median(decode)),
+                  "yield_ms_per_batch": loader_ms(lambda: ParquetDataLoader.from_schema(
+                      schema, train_file, batch_size=flagship.BATCH))}
+        for name, dataset in (("parquet", train_file), ("in_memory", arms["in_memory"])):
+            batch = next(iter(trainers[name]._make_loader(dataset, flagship.BATCH, shuffle=True,
+                                                          is_train=True)))
+            copies = []
+            for _ in range(20):
+                sync("cuda")
+                t0 = time.perf_counter()
+                model._as_dense(batch, flagship.SEQ, non_blocking=True)
+                sync("cuda")
+                copies.append(1e3 * (time.perf_counter() - t0))
+            pieces[f"copy_ms_per_batch_{name}"] = float(np.median(copies))
+            pieces[f"dtypes_{name}"] = sorted({str(v.dtype) for v in batch.values()})
+        print(f"[time-parquet] host pieces on {card}: {json.dumps(pieces)}")
+
+        for name, t in trainers.items():
+            _, _, wall = counted({}, t.train)
+            per_call = kernel_us(t.train, reps=2)
+            device_ms = sum(per_call.values()) / 1e3 / steps
+            wall_ms = 1e3 * wall / steps
+            top = sorted(((k, v / 1e3 / steps) for k, v in per_call.items()),
+                         key=lambda kv: -kv[1])[:8]
+            print(f"[time-parquet] profile of the {name} arm on {card}: " + json.dumps({
+                "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+                "device_busy_share": device_ms / wall_ms, "top_kernels_ms": top}))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs an NVIDIA GPU")
@@ -2091,6 +2464,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--time-long-step"]:
         time_long_step(card_line())
+        return
+    if sys.argv[1:] == ["--time-parquet"]:
+        time_parquet(card_line())
         return
     profiles = {"--profile-train": "mlm", "--profile-train-streamed": "mlm",
                 "--profile-train-clm": "clm", "--profile-train-plm": "plm"}
@@ -2243,6 +2619,9 @@ def main() -> None:
     check_streamed_step(flagship)
     torch.cuda.empty_cache()
 
+    # ---- main path Q: the README's entry path from Parquet files
+    parquet = run_parquet_path(flagship, vocab, card)
+
     # ---- main path 5b: XLNet-MLM at the paper's tied width, E = 448
     wide = run_wide_flagship(flagship, vocab, card)
     # sessions of 20 (21 at inference) stay on the dense attention path
@@ -2383,10 +2762,12 @@ def main() -> None:
                "flash_bwd_dq": ("flash_bwd.cu", f"{attention_py}:158"),
                "flash_bwd_dkv": ("flash_bwd.cu", f"{attention_py}:217")}
     launches = {"ce_rank": eval_launches["ce_rank"] + serve["launches"]["ce_rank"]
-                + parallel["launches"]["ce_rank"] + wide["launches"]["ce_rank"]}
+                + parallel["launches"]["ce_rank"] + wide["launches"]["ce_rank"]
+                + parquet["launches"]["ce_rank"]}
     for name in ("ce_fwd", "ce_bwd", "adafactor_a", "adafactor_b"):
         launches[name] = (train["launches"][name] + streamed["launches"][name]
-                          + parallel["launches"].get(name, 0) + wide["launches"].get(name, 0))
+                          + parallel["launches"].get(name, 0) + wide["launches"].get(name, 0)
+                          + parquet["launches"].get(name, 0))
     launches["rank"] = parallel["launches"]["rank"]
     # paths 6 and 7, P1 and P2: every kernel of the CLM and PLM paths
     for name in flash:

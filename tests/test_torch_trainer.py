@@ -270,18 +270,21 @@ def test_trainer_evaluates_through_the_model_and_resets_its_schedule(tmp_path):
     trainer.args.lr_scheduler_type, trainer.args.warmup_steps = "linear", 1
     trainer.train()
     got = trainer.evaluate()
+    # the trainer adds the evaluation's runtime to the model's metrics
+    assert got.pop("eval_runtime") >= 0 and got.pop("eval_samples_per_second") > 0
     assert got == trainer.model.evaluate(trainer.get_eval_dataloader())
     assert trainer.state.log_history[-1]["step"] == 2 and "eval_/next-item/ndcg_at_10" in got
     assert trainer._opt_step == 2
     trainer.reset_lr_scheduler()
     assert trainer._opt_step == 0 and not trainer.optimizers["table"].state
-    with pytest.raises(NotImplementedError):
-        trainer.predict()
+    scores, ids = trainer.predict(data, top_k=5)
+    assert scores.shape == ids.shape == (2 * ROWS, 5)
     with pytest.raises(NotImplementedError):
         ttr.Trainer(trainer.model, trainer.args, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
-        ttr.Trainer(trainer.model, trainer.args, train_dataset="sessions.parquet",
-                    device="cpu").get_train_dataloader()
+    # a path goes to the Parquet loader, which reads the file
+    with pytest.raises(FileNotFoundError):
+        ttr.Trainer(trainer.model, trainer.args, schema=trainer.schema,
+                    train_dataset="sessions.parquet", device="cpu").get_train_dataloader()
 
 
 def test_head_from_body_configures_copies_and_sets_the_budget():

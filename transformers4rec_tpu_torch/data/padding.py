@@ -7,7 +7,7 @@ truncation keeps the FIRST ``max_len`` items of each session.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -71,3 +71,19 @@ def pad_inputs(inputs: NDArrayDict, max_sequence_length: Optional[int] = None) -
         elif not key.endswith("__offsets"):
             lengths[key] = max_sequence_length
     return pad_batch(inputs, lengths)
+
+
+def ragged_lengths(offsets: np.ndarray) -> np.ndarray:
+    return (offsets[1:] - offsets[:-1]).astype(np.int64)
+
+
+def dense_to_ragged(dense: np.ndarray, lengths: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Inverse of ``pad_ragged``: ``(values, offsets)`` of the first
+    ``lengths`` items of each row."""
+    num_rows, max_len = dense.shape
+    lengths = np.minimum(lengths, max_len)
+    offsets = np.zeros(num_rows + 1, dtype=np.int32)
+    np.cumsum(lengths, out=offsets[1:])
+    values = (np.concatenate([dense[i, : lengths[i]] for i in range(num_rows)]) if num_rows
+              else dense.reshape(0))
+    return values, offsets

@@ -140,3 +140,58 @@ def synthetic_data(
             out[col.name] = dense
 
     return out
+
+
+def generate_item_interactions(num_interactions: int, schema: Schema, seed: int = 0):
+    """One row per interaction as a pandas DataFrame: ``session_id``,
+    ``timestamp``, the item id (log-normal popularity) and a column for each
+    other schema feature (categorical ones derived from the item id, so an
+    item always carries the same side features)."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    data: Dict[str, np.ndarray] = {}
+    data["session_id"] = np.sort(rng.integers(1, max(2, num_interactions // 8), num_interactions))
+    data["timestamp"] = np.sort(rng.integers(1_600_000_000, 1_610_000_000, num_interactions))
+
+    item_col = schema.item_id_column
+    item_card = item_col.cardinality or 1000
+    raw = rng.lognormal(3.0, 1.0, size=num_interactions)
+    item_ids = (1 + (raw / raw.max()) * (item_card - 2)).astype(np.int64)
+    data[item_col.name] = np.clip(item_ids, 1, item_card - 1)
+
+    for col in schema:
+        if col.name in data:
+            continue
+        if col.is_categorical:
+            card = col.cardinality or 2
+            data[col.name] = 1 + (data[item_col.name] * 2654435761 % max(1, card - 1))
+        elif col.type == 2:
+            lo = col.int_domain.min if col.int_domain else 0
+            hi = max(lo + 1, col.int_domain.max if col.int_domain else 1)
+            data[col.name] = rng.integers(lo, hi + 1, num_interactions)
+        else:
+            lo = col.float_domain.min if col.float_domain else 0.0
+            hi = col.float_domain.max if col.float_domain else 1.0
+            data[col.name] = rng.uniform(lo, hi, num_interactions).astype(np.float32)
+    return pd.DataFrame(data)
+
+
+def interactions_to_sessions(df, schema: Schema, max_session_length: int = 20,
+                             min_session_length: int = 2):
+    """Group interactions by ``session_id`` into one row per session with a
+    list cell per schema column, in time order, cut to
+    ``max_session_length`` and keeping sessions of at least
+    ``min_session_length``."""
+    import pandas as pd
+
+    list_cols = [c.name for c in schema if c.name in df.columns]
+    rows = {c: [] for c in list_cols}
+    session_ids = []
+    for sid, g in df.sort_values("timestamp").groupby("session_id"):
+        if len(g) < min_session_length:
+            continue
+        session_ids.append(sid)
+        for c in list_cols:
+            rows[c].append(list(g[c].to_numpy()[:max_session_length]))
+    return pd.DataFrame({"session_id": session_ids, **rows})

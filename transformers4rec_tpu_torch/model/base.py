@@ -7,17 +7,20 @@ is built and placed on its device (CUDA unless ``device="cpu"``).
 returns ``{"eval_loss": ..., "eval_/next-item/ndcg_at_10": ..., ...}``.
 Training is ``loss, outputs = model(batch, training=True, generator=g)``:
 the explicit flag selects the masking's training branch and dropout, whose
-draws come from ``g`` (``trainer.Trainer`` runs the loop).
+draws come from ``g``. ``trainer.Trainer`` runs the loop, and ``Model.fit``
+is the loop without a Trainer. ``Model.save`` / ``Model.load`` write and
+read the state dict and the input schema (the layout of
+``serving.export``'s artifact).
 
-Not ported yet: ``fit`` (the loop without a Trainer), multi-task heads with binary or
-regression tasks, ``Head.from_schema``, extra blocks between the input
-module and the transformer, and ``save``/``load`` (serving/export.py
-writes the state dict).
+Not ported yet: multi-task heads with binary or regression tasks,
+``Head.from_schema`` and extra blocks between the input module and the
+transformer.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -236,7 +239,12 @@ class Model(nn.Module):
         dev = self.device
         out = {}
         for k, v in batch.items():
-            t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+            if not torch.is_tensor(v):
+                v = np.asarray(v)
+                # the model reads continuous features in float32: Parquet's
+                # float64 columns are narrowed before the copy
+                v = v.astype(np.float32) if v.dtype == np.float64 else v
+            t = torch.as_tensor(v)
             if non_blocking and dev.type == "cuda" and t.device.type == "cpu":
                 t = t.pin_memory()
             out[k] = t.to(dev, non_blocking=non_blocking)
@@ -253,10 +261,12 @@ class Model(nn.Module):
         return out
 
     def evaluate(self, dataloader, mode: str = "eval", max_steps: Optional[int] = None,
-                 max_sequence_length: Optional[int] = None) -> Dict[str, float]:
+                 max_sequence_length: Optional[int] = None,
+                 compute_metrics_each_n_steps: int = 1) -> Dict[str, float]:
         """Stream batches, accumulate (sum, count) metric states on the
         device, return flattened ``{mode_/task/metric_at_k: value}`` plus
-        ``{mode}_loss``."""
+        ``{mode}_loss``. The metrics are updated on every
+        ``compute_metrics_each_n_steps``-th batch, the loss on all."""
         from .ranking_metric import finalize_metrics, update_metric_state
 
         metric_state: Dict[str, Any] = {}
@@ -268,13 +278,16 @@ class Model(nn.Module):
                 if max_sequence_length is None:
                     max_sequence_length = self._ragged_max_len(batch)
                 batch = self._as_dense(batch, max_sequence_length)
-                _, outs = self(batch, targets=batch, testing=True, compute_metrics=True)
+                with_metrics = i % compute_metrics_each_n_steps == 0
+                _, outs = self(batch, targets=batch, testing=True, compute_metrics=with_metrics)
+                loss_state = merge_loss_state(loss_state, task_loss_state(outs))
+                if not with_metrics:
+                    continue
                 metrics = {
                     f"{task_name}/{k}": v
                     for task_name, out in outs.items() if out.metrics
                     for k, v in out.metrics.items()
                 }
-                loss_state = merge_loss_state(loss_state, task_loss_state(outs))
                 metric_state = (update_metric_state(metric_state, metrics)
                                 if metric_state else metrics)
         task_means = {name: float(s) / max(float(w), 1.0) for name, (s, w) in loss_state.items()}
@@ -282,6 +295,61 @@ class Model(nn.Module):
         for name, val in finalize_metrics(metric_state).items():
             results[f"{mode}_/{name}"] = float(val)
         return results
+
+    # ------------------------------------------------------- the loop alone
+    def fit(self, dataloader, optimizer: Optional[torch.optim.Optimizer] = None,
+            num_epochs: int = 1, max_steps: Optional[int] = None,
+            max_sequence_length: Optional[int] = None,
+            generator: Optional[torch.Generator] = None,
+            verbose: bool = False) -> List[float]:
+        """Train on ``dataloader`` without a ``Trainer``: ``num_epochs``
+        passes, or ``max_steps`` steps. The model's own parameters are
+        updated in place (the JAX package's ``fit`` returns new parameters
+        instead). ``optimizer`` defaults to ``torch.optim.Adam(lr=1e-3)``
+        over every parameter, the reference's default; the mask and dropout
+        are drawn from ``generator`` (seeded with 0 when not given, as the
+        JAX ``fit``'s default key). Returns the loss of every step."""
+        optimizer = optimizer or torch.optim.Adam(self.parameters(), lr=1e-3)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        losses: List[torch.Tensor] = []
+        for epoch in range(num_epochs):
+            for batch in dataloader:
+                if max_sequence_length is None:
+                    max_sequence_length = self._ragged_max_len(batch)
+                b = self._as_dense(batch, max_sequence_length)
+                optimizer.zero_grad(set_to_none=True)
+                loss, _ = self(b, targets=b, training=True, compute_metrics=False,
+                               generator=generator)
+                loss.backward()
+                optimizer.step()
+                losses.append(loss.detach())
+                if max_steps is not None and len(losses) >= max_steps:
+                    break
+            if verbose and losses:
+                print(f"[epoch {epoch}] loss {float(losses[-1]):.5f}")
+            if max_steps is not None and len(losses) >= max_steps:
+                break
+        # one read of the losses at the end: no synchronisation per step
+        return torch.stack(losses).tolist() if losses else []
+
+    # ----------------------------------------------------------- persistence
+    def save(self, path: str) -> None:
+        """Write the state dict (``model.pt``, CPU tensors) and
+        ``input_schema.json`` to the directory ``path``; the architecture
+        is rebuilt by the caller."""
+        os.makedirs(path, exist_ok=True)
+        state = {k: v.detach().cpu() for k, v in self.state_dict().items()}
+        torch.save(state, os.path.join(path, "model.pt"))
+        self.input_schema.to_json_file(os.path.join(path, "input_schema.json"))
+
+    def load(self, path: str) -> "Model":
+        """Restore the weights ``save`` wrote into this model, on its
+        device."""
+        state = torch.load(os.path.join(path, "model.pt"), map_location=self.device,
+                           weights_only=True)
+        self.load_state_dict(state)
+        return self
 
     # ------------------------------------------------------------ serving I/O
     @property

@@ -1,10 +1,13 @@
 """Training arguments.
 
-Counterpart of ``transformers4rec_tpu/trainer/arguments.py``: the fields the
-dense single-device training path reads, under the same names and with the
-same defaults. Options whose code is not ported yet raise
-``NotImplementedError`` when the arguments are built: the sparse and lazy
-table optimizers, bf16-stored tables and gradient accumulation.
+Counterpart of ``transformers4rec_tpu/trainer/arguments.py``: the same field
+names with the same defaults. Options whose code is not ported yet raise
+``NotImplementedError`` when set away from their defaults: the sparse and
+lazy table optimizers, bf16-stored tables, gradient accumulation, the
+msgpack and orbax checkpoint formats and asynchronous saves, session
+packing, a device mesh and its vocab-parallel wiring, gradient
+checkpointing and the profiler window. The checkpoint is one ``torch.save``
+file (``checkpoint_format="torch"``).
 """
 
 from __future__ import annotations
@@ -20,7 +23,22 @@ class T4RecTrainingArguments:
     output_dir: str = "./t4rec_output"
 
     max_sequence_length: Optional[int] = None
+    # "parquet" (and its alias "merlin"), "parquet_streaming" or "synthetic"
+    data_loader_engine: str = "parquet"
+    # batches of evaluate(on_train_set=True)
+    eval_steps_on_train_set: int = 20
+    predict_top_k: int = 100
+    # evaluate() also writes its top-k predictions (log_predictions())
+    log_predictions: bool = False
+    # update the ranking metrics on every n-th evaluation batch (the loss on all)
+    compute_metrics_each_n_steps: int = 1
     learning_rate_num_cosine_cycles_by_epoch: float = 1.25
+    # fit_and_evaluate scores {t}/test.parquet instead of valid.parquet
+    eval_on_test_set: bool = False
+    # shuffle-buffer rows of the streaming engine (0: its default)
+    shuffle_buffer_size: int = 0
+    # label written into each metrics.jsonl record
+    experiments_group: str = "default"
     # applies to the TRAIN loader only; False keeps a final zero-filled batch
     # whose fill rows carry no loss or metric weight
     dataloader_drop_last: bool = False
@@ -47,18 +65,41 @@ class T4RecTrainingArguments:
     # loss (no synchronisation inside a group); the trajectory equals K = 1
     # bit for bit
     steps_per_execution: int = 8
+    pack_sessions: bool = False
+    pack_eval_sessions: bool = False
     seed: int = 42
+    gradient_checkpointing: bool = False
 
     # logging / eval / checkpointing
+    checkpoint_format: str = "torch"
+    save_async: bool = False
     logging_steps: int = 100
     eval_steps: Optional[int] = None
     save_steps: Optional[int] = None
+    # older checkpoints are removed beyond this many; the best one stays
+    save_total_limit: Optional[int] = None
+    # train() ends by restoring the weights of the checkpoint whose
+    # evaluation scored best on metric_for_best_model ("eval_" is added when
+    # absent; a bare name such as "recall_at_10" resolves to the one task key
+    # that ends in it); greater_is_better None means False for a loss
+    load_best_model_at_end: bool = False
+    metric_for_best_model: Optional[str] = None
+    greater_is_better: Optional[bool] = None
+    # "tensorboard" writes scalars under {output_dir}/runs
+    report_to: str = "none"
+    disable_tqdm: bool = True
+    profile_steps: Optional[str] = None
+    profile_dir: Optional[str] = None
+    # append train and evaluation metrics to {output_dir}/metrics.jsonl
+    log_json: bool = False
 
+    mesh_model_axis: int = 1
     # storage dtype of the table optimizer's second moment ("adafactor" only):
     # "bf16" (default) halves the optimizer state; None / "f32" keeps float32
     embedding_moment_dtype: Optional[str] = "bf16"
     # storage dtype of the tables themselves; only float32 is ported
     embedding_table_dtype: Optional[str] = None
+    auto_vocab_parallel: bool = True
 
     def __post_init__(self):
         if self.embedding_moment_dtype not in (None, "f32", "bf16"):
@@ -78,6 +119,18 @@ class T4RecTrainingArguments:
             raise NotImplementedError("bf16-stored tables are not ported yet")
         if self.gradient_accumulation_steps > 1:
             raise NotImplementedError("gradient accumulation is not ported yet")
+        if self.data_loader_engine not in ("parquet", "merlin", "parquet_streaming",
+                                           "synthetic"):
+            raise ValueError(f"unknown data_loader_engine {self.data_loader_engine!r}")
+        defaults = {f.name: f.default for f in dataclasses.fields(self)}
+        for name in ("checkpoint_format", "save_async", "pack_sessions", "pack_eval_sessions",
+                     "mesh_model_axis", "auto_vocab_parallel", "gradient_checkpointing",
+                     "profile_steps", "profile_dir"):
+            if getattr(self, name) != defaults[name]:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r} is not ported yet "
+                    f"(the port supports {defaults[name]!r})"
+                )
 
     @property
     def train_batch_size(self) -> int:
@@ -86,4 +139,3 @@ class T4RecTrainingArguments:
     @property
     def eval_batch_size(self) -> int:
         return self.per_device_eval_batch_size
-
