@@ -89,6 +89,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     (``flagship.build_model(item_dim=448)``): ``Model.evaluate`` on one
     batch and one training step, each against the CPU, then 8 trainer
     steps (the wide kernels of K1, K2 and K3);
+9b'. R, the paper's command line through the port's experiment script
+    (``paper_repro.transf_exp_main``): R1 runs the README's headline
+    XLNet-MLM command verbatim but for its paths (390,000 items, d_model
+    192, a tied 448-wide item table, 3 layers, 16 heads, batches of 128 of
+    20, swap noise and the per-feature LayerNorm, 5 epochs of windows 1 and
+    2 of synthetic REES46 sessions read from Parquet, evaluation on the
+    next window, the top 10 of window 3); R1b holds one training step of
+    the trained model (the same mask and swap-noise draw on both) and one
+    evaluation batch against the CPU; R2 trains the side-feature model
+    (d_model 448, 2 layers, 8 heads, three categorical and seven
+    continuous columns) for 8 steps once per numeric encoding (soft one-hot,
+    projection) and holds its evaluation against the CPU. K1 and K2 launch
+    once a step, K3 once an evaluation batch; ``[paper]`` lines give the
+    step times;
 9c. P1, XLNet-PLM at full width (``flagship.build_model(scheme="plm")``:
     permutation language modelling, two-stream attention, sessions of 20):
     ``Model.evaluate`` over the 4 batches on the last item (K3 at 128 rows)
@@ -1560,9 +1574,9 @@ def check_training_step(model, cpu_model, batch, extra=()) -> dict:
     ``check_grad`` says; those of the parameters named in ``extra``, which
     lie below every layer's bf16 roundings of q, k, v, P and dS on two
     devices, within 5e-3 in relative Frobenius norm."""
-    masking = cpu_model.heads[0].input_module.masking
+    im = cpu_model.heads[0].input_module
     cb = cpu_model._as_dense(batch)
-    info = masking.compute_masked_targets(cb["item_id"].long(), training=True,
+    info = im.masking.compute_masked_targets(cb[im.item_id].long(), training=True,
                                           generator=torch.Generator().manual_seed(5))
     grads, losses = {}, {}
     # every field of the mask goes to the device (PLM's perm_mask too)
@@ -2007,6 +2021,251 @@ def run_parquet_path(flagship, vocab, card: str) -> dict:
           f"{json.dumps(out['loader_ms_per_batch'])}; streaming train "
           f"{out['streaming_step_ms']:.3f} ms per step; phase Q {out['phase_s']:.1f}s, "
           f"launches {json.dumps(launches)}")
+    return out
+
+
+# ------------------------------------------------------- the paper's experiment script
+PAPER_SESSIONS = {"train": 2_048, "valid": 256, "test": 256}  # a window's files
+# the JAX experiment script's results.json keys (tests/test_torch_paper_driver.py holds
+# the port's experiment script to the JAX one on the CPU)
+PAPER_RESULT_KEYS = sorted(f"indexed_by_time_eval_/next-item/{m}@{k}"
+                           for m in ("avg_precision", "ndcg", "recall") for k in (10, 20))
+# R2: REES46 with side features at the widths of the paper's side-feature
+# XLNet-MLM (BASELINE.md), once per numeric encoding
+PAPER_SIDE_WIDTHS = ["--d_model", "448", "--n_layer", "2", "--n_head", "8"]
+PAPER_ENCODINGS = {
+    "soft_one_hot": ["--numeric_features_soft_one_hot_encoding_num_embeddings", "10"],
+    "projection": ["--numeric_features_project_to_embedding_dim", "64"],
+}
+PAPER_SIDE_STEPS = 8
+
+
+def paper_readme_argv(data_path: str, schema_path: str) -> list:
+    """The headline XLNet-MLM command line of ``examples/paper_repro/README.md``,
+    verbatim but for ``$DATA_PATH`` and ``$SCHEMA``."""
+    path = os.path.join(HERE, "examples", "paper_repro", "README.md")
+    with open(path) as f:
+        text = f.read()
+    head = "python examples/paper_repro/transf_exp_main.py "
+    start = text.index(head + "--output_dir ./tmp/") + len(head)
+    block = text[start:text.index("```", start)]
+    return [a.replace("$DATA_PATH", data_path).replace("$SCHEMA", schema_path)
+            for a in block.replace("\\\n", " ").split()]
+
+
+def paper_windows(schema, root: str, seed: int = 400) -> dict:
+    """Windows ``root/{0001,0002,0003}/{train,valid,test}.parquet`` of
+    sessions at ``schema`` (the REES46 columns), drawn from ``seed``:
+    sessions of 2 to 20 items, ids in 1..390,000 with log-normal
+    popularity, each categorical side column derived from the item, the
+    continuous columns uniform in [-1, 1], increasing event times. Returns
+    the sessions of each file."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    item_col = schema.item_id_column_name
+    n_items = schema.categorical_cardinalities()[item_col] - 1
+    sizes = {}
+    for w in (1, 2, 3):
+        d = os.path.join(root, str(w).zfill(4))
+        os.makedirs(d)
+        for split, n in PAPER_SESSIONS.items():
+            lengths = rng.integers(2, 21, n)
+            cuts = np.cumsum(lengths)[:-1]
+            total = int(lengths.sum())
+            raw = rng.lognormal(3.0, 1.0, total)
+            item = np.clip(1 + (raw / raw.max()) * (n_items - 1), 1, n_items).astype(np.int64)
+            cols = {}
+            for col in schema:
+                if col.name == item_col:
+                    flat = item
+                elif col.is_categorical:
+                    flat = 1 + item * 2654435761 % (col.cardinality - 1)
+                elif col.name == "sess_etime_seq":
+                    flat = np.sort(rng.uniform(0, 1e6, total)) + w * 1e6
+                else:
+                    flat = rng.uniform(-1.0, 1.0, total).astype(np.float32)
+                cols[col.name] = [list(x) for x in np.split(flat, cuts)]
+            pd.DataFrame(cols).to_parquet(os.path.join(d, f"{split}.parquet"))
+            sizes[f"{w}/{split}"] = n
+    return sizes
+
+
+def same_swap_draw(model, cpu_model, batch, seed: int) -> int:
+    """One swap-noise draw of ``batch``, made once on the CPU from ``seed``
+    and set as ``draws`` on both models' ``StochasticSwapNoise`` (moved to
+    the card for the card's model): both then apply the same noise. Returns
+    the number of item ids it swaps."""
+    im = cpu_model.heads[0].input_module
+    cb = cpu_model._as_dense(batch)
+    draws = im.StochasticSwapNoise_0.draw(cb, cb[im.item_id].long() != im.padding_idx,
+                                          torch.Generator().manual_seed(seed))
+    im.StochasticSwapNoise_0.draws = draws
+    model.heads[0].input_module.StochasticSwapNoise_0.draws = {
+        k: (src.to(model.device), swap.to(model.device)) for k, (src, swap) in draws.items()}
+    return int(draws[im.item_id][1].sum())
+
+
+def run_paper_command(vocab, fa, card: str) -> dict:
+    """Main path R: the paper's command line through the port's experiment script
+    (``paper_repro.transf_exp_main``) at full width on the card.
+
+    R1: the README's headline XLNet-MLM command, verbatim but for its paths,
+    on the port's REES46 schema (``paper_repro.datasets_configs``, written as
+    ``schema.pbtxt``) and three windows of synthetic sessions: 390,000
+    items, d_model 192, a tied 448-wide item table, 3 layers, 16 heads,
+    batches of 128 of 20, swap noise and the per-feature LayerNorm, 5
+    epochs of each of windows 1 and 2, evaluation on the next window's
+    ``test.parquet``, the top 10 of window 3's ``valid.parquet``. K1 and K2
+    launch once a step, K3 once an evaluation batch; every logged loss is
+    finite; ``results.json`` has the JAX experiment script's keys.
+    R1b: one training step of the trained model on the card against the
+    same weights on the CPU, with one MLM mask and one swap-noise draw given
+    to both (``same_swap_draw``), dropout off (the command's): the loss, the
+    item table's, the output projection's and the LayerNorm's gradients;
+    then one evaluation batch.
+    R2: REES46 with its side features (three categorical, seven continuous
+    columns) at d_model 448, 2 layers, 8 heads, once per numeric encoding:
+    8 steps on window 1 and the evaluation of window 2 through the script,
+    then that evaluation on the card against the CPU."""
+    from transformers4rec_tpu_torch.data import ParquetDataLoader
+    from transformers4rec_tpu_torch.paper_repro import datasets_configs, transf_exp_main
+    from transformers4rec_tpu_torch.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    counters = flash_counters(vocab, fa)
+    launches = dict.fromkeys(counters, 0)
+    out = {"card": card}
+
+    def run(what: str, fn, **want):
+        result, got, wall = counted(counters, fn)
+        expect_launches(f"paper experiment script ({what})", got, **want)
+        for k, c in got.items():
+            launches[k] += c
+        return result, wall
+
+    def metrics(r):
+        return {k: v for k, v in r.items() if "_runtime" not in k and "_per_second" not in k}
+
+    schema = datasets_configs.make_schema("rees46")
+    vocab_size = schema.categorical_cardinalities()[schema.item_id_column_name]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        schema_path = os.path.join(root, "schema.pbtxt")
+        schema.to_proto_text_file(schema_path)
+        t0 = time.perf_counter()
+        sizes = paper_windows(schema, os.path.join(root, "data"))
+        out["windows_s"] = time.perf_counter() - t0
+        argv = paper_readme_argv(os.path.join(root, "data"), schema_path)
+        print(f"[paper] R1: transf_exp_main {' '.join(argv)}")
+        # the command's --output_dir ./tmp/ lands in the temporary directory
+        os.chdir(root)
+        try:
+            args = transf_exp_main.build_parser().parse_args(argv)
+            rows = args.per_device_eval_batch_size
+            eval_batches = sum(-(-sizes[f"{w}/test"] // rows) for w in (2, 3))
+            # 2 windows of num_train_epochs, the tail dropped
+            window_steps = int(args.num_train_epochs) * (
+                PAPER_SESSIONS["train"] // args.per_device_train_batch_size)
+            steps = 2 * window_steps
+            r1, wall = run("R1, the README's command", lambda: transf_exp_main.run(argv),
+                           ce_fwd=steps, ce_bwd=steps, ce_rank=eval_batches)
+            with open(os.path.join(root, "tmp", "results.json")) as f:
+                keys = sorted(json.load(f))
+        finally:
+            os.chdir(cwd)
+        trainer = r1.trainer
+        if trainer.state.global_step != steps or keys != PAPER_RESULT_KEYS \
+                or sorted(r1.results) != PAPER_RESULT_KEYS:
+            fail(f"R1: {trainer.state.global_step} steps, results.json keys {keys}")
+        losses = [h["loss"] for h in trainer.state.log_history if "loss" in h]
+        if len(losses) != 2 * -(-window_steps // args.logging_steps) \
+                or not all(math.isfinite(v) for v in losses):
+            fail(f"R1: logged losses {losses}")
+        if any(len(v) != 2 or not all(math.isfinite(x) for x in v) for v in r1.results.values()):
+            fail(f"R1: results {r1.results}")
+        ids = r1.top_ids
+        if ids.shape != (sizes["3/valid"], 10) or int(ids.min()) < 0 \
+                or int(ids.max()) >= vocab_size:
+            fail(f"R1: predict gave ids of shape {ids.shape} in [{ids.min()}, {ids.max()}]")
+        runs = [h for h in trainer.state.log_history if "train_runtime" in h]
+        out["R1"] = {"wall_s": wall, "steps": steps, "eval_batches": eval_batches,
+                     "ms_per_step_by_window": [1e3 * h["train_runtime"] / h["train_steps"]
+                                               for h in runs],
+                     "losses": losses, "results": r1.results}
+        print(f"[paper] R1 on {card}: {steps} steps and {eval_batches} evaluation batches in "
+              f"{wall:.3f}s; ms per step (wall, window 1 then 2) "
+              f"{json.dumps(out['R1']['ms_per_step_by_window'])}; logged losses "
+              f"{json.dumps(losses)}")
+
+        # R1b: one training step and one evaluation batch, card against CPU
+        model = trainer.model
+        item_only = schema.select_by_name([schema.item_id_column_name])
+        cpu_model = transf_exp_main.get_model(args, item_only, device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        test_file = os.path.join(root, "data", "0003", "test.parquet")
+        batch = next(iter(ParquetDataLoader.from_schema(
+            item_only, test_file, batch_size=128, max_sequence_length=20, shuffle=False)))
+        swapped = same_swap_draw(model, cpu_model, batch, seed=7)
+        if swapped <= 0:
+            fail("R1b: the swap-noise draw swapped no item id")
+        ln = [f"heads.0.body.blocks.0.TabularLayerNorm_0.ln_{item_only.item_id_column_name}.{w}"
+              for w in ("weight", "bias")]
+        step, _ = run("R1b, one training step", lambda: check_training_step(
+            model, cpu_model, batch, extra=ln), ce_fwd=1, ce_bwd=1)
+        for m in (model, cpu_model):
+            m.heads[0].input_module.StochasticSwapNoise_0.draws = None
+        gpu_res, _ = run("R1b, one evaluation batch", lambda: model.evaluate([batch]), ce_rank=1)
+        cpu_res = cpu_model.evaluate([batch])
+        check_evaluate(gpu_res, cpu_res, 128)
+        out["R1b"] = {"train_step": step, "swapped_ids": swapped, "evaluate": gpu_res}
+        print(f"[paper] R1b card against CPU on {card}: {swapped} item ids swapped; "
+              f"training step {json.dumps(step)}; evaluation {json.dumps(gpu_res)} against "
+              f"{json.dumps(cpu_res)}")
+        del trainer, model, cpu_model, r1
+        torch.cuda.empty_cache()
+
+        # R2: side features, once per numeric encoding
+        out["R2"] = {}
+        for name, encoding in PAPER_ENCODINGS.items():
+            side = argv + PAPER_SIDE_WIDTHS + encoding + [
+                "--use_side_information_features", "--start_time_window_index", "1",
+                "--final_time_window_index", "1", "--max_steps", str(PAPER_SIDE_STEPS),
+                "--logging_steps", "1", "--output_dir", os.path.join(root, f"side_{name}")]
+            eval_file = os.path.join(root, "data", "0002", "test.parquet")
+            n_eval = sizes["2/test"]
+            r2, wall = run(f"R2, {name}", lambda: transf_exp_main.run(side),
+                           ce_fwd=PAPER_SIDE_STEPS, ce_bwd=PAPER_SIDE_STEPS,
+                           ce_rank=-(-n_eval // rows))
+            t = r2.trainer
+            reads = [h["loss"] for h in t.state.log_history if "loss" in h]
+            if t.state.global_step != PAPER_SIDE_STEPS or not all(math.isfinite(v) for v in reads):
+                fail(f"R2 {name}: {t.state.global_step} steps, losses {reads}")
+            features = sorted(t.model.heads[0].input_module.feature_sizes())
+            if "sess_etime_seq" in features or len(features) != 4 + (
+                    7 if name == "soft_one_hot" else 1):
+                fail(f"R2 {name}: features {features}")
+            gpu_res, _ = run(f"R2, {name}, evaluation", lambda: t.evaluate(eval_file),
+                             ce_rank=-(-n_eval // rows))
+            sargs = transf_exp_main.build_parser().parse_args(side)
+            cpu_model = transf_exp_main.get_model(sargs, schema, device="cpu")
+            cpu_model.load_state_dict({k: v.cpu() for k, v in t.model.state_dict().items()})
+            cpu_res = Trainer(cpu_model, t.args, schema=schema, device="cpu").evaluate(eval_file)
+            check_evaluate(metrics(gpu_res), metrics(cpu_res), n_eval)
+            run_ms = [1e3 * h["train_runtime"] / h["train_steps"]
+                      for h in t.state.log_history if "train_runtime" in h]
+            out["R2"][name] = {"wall_s": wall, "ms_per_step": run_ms, "losses": reads,
+                               "features": features, "evaluate": metrics(gpu_res)}
+            print(f"[paper] R2 {name} on {card}: {PAPER_SIDE_STEPS} steps at {run_ms[0]:.3f} ms "
+                  f"per step (wall, the first included), losses {json.dumps(reads)}; "
+                  f"evaluation of {n_eval} sessions card {json.dumps(metrics(gpu_res))} "
+                  f"against CPU {json.dumps(metrics(cpu_res))}")
+            del r2, t, cpu_model
+            torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[paper] phase R on {card}: {out['phase_s']:.1f}s (windows written in "
+          f"{out['windows_s']:.1f}s), launches {json.dumps(launches)}")
     return out
 
 
@@ -2630,6 +2889,9 @@ def main() -> None:
     if any(stray.values()):
         fail(f"the XLNet-MLM paths at S = {flagship.SEQ} launched flash kernels: {stray}")
 
+    # ---- main path R: the paper's command line through the port's experiment script
+    paper = run_paper_command(vocab, attention, card)
+
     # ---- main path P1: XLNet-PLM at full width, two streams, every position
     plm = run_plm(flagship, vocab, attention, card, vocab_size)
     print(f"[plm] {json.dumps(plm['launches'])}")
@@ -2763,11 +3025,11 @@ def main() -> None:
                "flash_bwd_dkv": ("flash_bwd.cu", f"{attention_py}:217")}
     launches = {"ce_rank": eval_launches["ce_rank"] + serve["launches"]["ce_rank"]
                 + parallel["launches"]["ce_rank"] + wide["launches"]["ce_rank"]
-                + parquet["launches"]["ce_rank"]}
+                + parquet["launches"]["ce_rank"] + paper["launches"]["ce_rank"]}
     for name in ("ce_fwd", "ce_bwd", "adafactor_a", "adafactor_b"):
         launches[name] = (train["launches"][name] + streamed["launches"][name]
                           + parallel["launches"].get(name, 0) + wide["launches"].get(name, 0)
-                          + parquet["launches"].get(name, 0))
+                          + parquet["launches"].get(name, 0) + paper["launches"].get(name, 0))
     launches["rank"] = parallel["launches"]["rank"]
     # paths 6 and 7, P1 and P2: every kernel of the CLM and PLM paths
     for name in flash:

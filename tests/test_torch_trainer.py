@@ -351,3 +351,76 @@ def test_synthetic_loader_batches_match_jax(shuffle, drop_last):
     first_epoch = list(SyntheticDataLoader.from_schema(flagship.schema(V, S), **kw))
     assert len(resumed) == len(first_epoch) - 2
     np.testing.assert_array_equal(resumed[0]["item_id"], first_epoch[2]["item_id"])
+
+
+def _trainer_pair(params, tmp_path, engine, **datasets):
+    jschema = jax_schema_fn(num_items=V, num_categories=flagship.NUM_CATEGORIES,
+                            max_session_length=S)
+    kw = dict(data_loader_engine=engine, max_sequence_length=S, max_steps=2, eval_steps=1,
+              logging_steps=1)
+    # the JAX batch sizes are per device of its mesh, the port's global
+    per_device = ROWS // jax.device_count()
+    jt = jtr.Trainer(model=_jax_model(), schema=jschema, **datasets,
+                     args=jtr.T4RecTrainingArguments(
+                         output_dir=str(tmp_path / "jax"), per_device_train_batch_size=per_device,
+                         per_device_eval_batch_size=per_device, **kw))
+    tt = ttr.Trainer(_torch_model(params), schema=flagship.schema(V, S), device="cpu", **datasets,
+                     args=ttr.T4RecTrainingArguments(
+                         output_dir=str(tmp_path / "port"), per_device_train_batch_size=ROWS,
+                         per_device_eval_batch_size=ROWS, **kw))
+    return jt, tt
+
+
+@pytest.mark.parametrize("entry", ["train", "evaluate", "predict"])
+def test_without_data_both_trainers_raise_the_same_error_under_parquet(entry, pair, tmp_path):
+    """No silent synthetic sessions: under a file engine, training,
+    evaluation and prediction without their dataset raise the JAX
+    ``Trainer``'s errors, from the entry point and from the loader getter."""
+    jt, tt = _trainer_pair(pair[1], tmp_path, "parquet")
+    getter = {"train": "get_train_dataloader", "evaluate": "get_eval_dataloader",
+              "predict": "get_test_dataloader"}[entry]
+    messages = []
+    for t in (jt, tt):
+        for call in (getattr(t, entry), getattr(t, getter)):
+            with pytest.raises(ValueError) as err:
+                call()
+            messages.append(str(err.value))
+    assert len(set(messages)) == 1 and entry.replace("evaluate", "evaluation") \
+        .replace("train", "training").replace("predict", "prediction") in messages[0]
+
+
+def test_periodic_evaluation_needs_evaluation_data_as_in_jax(pair, tmp_path):
+    """With training data and no evaluation data, ``eval_steps`` runs no
+    evaluation under a file engine; under ``"synthetic"`` both trainers
+    evaluate on sessions of the schema, and their loaders agree batch for
+    batch."""
+    data = _batch(40, rows=2 * ROWS)
+    jt, tt = _trainer_pair(pair[1], tmp_path, "parquet", train_dataset=data)
+    assert jt._has_eval_data() is tt._has_eval_data() is False
+    tt.train()
+    assert tt.state.global_step == 2
+    assert not any("eval_loss" in h for h in tt.state.log_history)
+
+    jt, tt = _trainer_pair(pair[1], tmp_path, "synthetic")
+    assert jt._has_eval_data() is tt._has_eval_data() is True
+    for getter in ("get_train_dataloader", "get_eval_dataloader", "get_test_dataloader"):
+        want, got = next(iter(getattr(jt, getter)())), next(iter(getattr(tt, getter)()))
+        assert want.keys() == got.keys()
+        for k in want:
+            np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=k)
+    tt.train()
+    assert sum("eval_loss" in h for h in tt.state.log_history) == 2
+
+
+def test_build_trainer_without_data_trains_on_synthetic_sessions(tmp_path):
+    trainer = flagship.build_trainer("cpu", output_dir=str(tmp_path), **SMALL)
+    assert trainer.args.data_loader_engine == "synthetic"
+    trainer.args.max_steps, trainer.args.per_device_train_batch_size = 2, ROWS
+    assert trainer.train()["train_steps"] == 2
+    assert "eval_/next-item/recall_at_10" in trainer.evaluate(max_steps=1)
+    # with a training set and no evaluation set, evaluation raises
+    given = flagship.build_trainer("cpu", output_dir=str(tmp_path), train_dataset=_batch(41),
+                                   **SMALL)
+    assert given.args.data_loader_engine == "parquet"
+    with pytest.raises(ValueError, match="evaluation requires an eval_dataset"):
+        given.evaluate()

@@ -11,7 +11,10 @@ vocabulary is a hand-written CUDA kernel (``ops/vocab.py``): the training
 cross-entropy forward and backward (``csrc/ce_fwd.cu``, ``csrc/ce_bwd.cu``)
 and the evaluation's loss-and-rank pass (``csrc/ce_rank.cu``). From sessions
 of 128 on, attention runs through the flash kernels of ``ops/attention.py``
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``).
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). The input options of the
+paper's command line (swap noise, per-feature LayerNorm, side features,
+``MLPBlock``) and its experiment script (``paper_repro.transf_exp_main``)
+are ported too.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -22,18 +25,21 @@ from . import (
     blocks, config, convert, data, features, masking, model, ops, schema, serving, tabular,
     trainer, utils,
 )
-from .blocks import SequentialBlock, TransformerBlock, TransformerEncoder
+from .blocks import MLPBlock, SequentialBlock, TransformerBlock, TransformerEncoder
 from .config import GPT2Config, T4RecConfig, XLNetConfig, transformer_registry
 from .features import (
     ContinuousFeatures,
     EmbeddingFeatures,
+    PretrainedEmbeddingFeatures,
     SequenceEmbeddingFeatures,
+    SoftEmbeddingFeatures,
     TabularFeatures,
     TabularSequenceFeatures,
 )
 from .masking import MaskingInfo, masking_registry
 from .model import Head, Model, NextItemPredictionTask, ranking_metric
 from .schema import ColumnSchema, Schema, Tags
+from .tabular import MergeTabular, StochasticSwapNoise, TabularDropout, TabularLayerNorm
 from .trainer import T4RecTrainingArguments, Trainer
 
 __all__ = [
@@ -42,15 +48,22 @@ __all__ = [
     "EmbeddingFeatures",
     "GPT2Config",
     "Head",
+    "MLPBlock",
     "MaskingInfo",
+    "MergeTabular",
     "Model",
     "NextItemPredictionTask",
+    "PretrainedEmbeddingFeatures",
     "Schema",
     "SequenceEmbeddingFeatures",
     "SequentialBlock",
+    "SoftEmbeddingFeatures",
+    "StochasticSwapNoise",
     "T4RecConfig",
     "T4RecTrainingArguments",
+    "TabularDropout",
     "TabularFeatures",
+    "TabularLayerNorm",
     "TabularSequenceFeatures",
     "Tags",
     "Trainer",

@@ -1,4 +1,4 @@
-from .base import SequentialBlock, TransformerBlock, check_masking_compat
+from .base import MLPBlock, SequentialBlock, TransformerBlock, check_masking_compat
 from .transformer import (
     MultiHeadAttention,
     RelativePositionBias,
@@ -9,6 +9,7 @@ from .transformer import (
 )
 
 __all__ = [
+    "MLPBlock",
     "MultiHeadAttention",
     "RelativePositionBias",
     "SequentialBlock",

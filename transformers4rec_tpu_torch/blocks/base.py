@@ -7,7 +7,12 @@ analytic through ``output_size()``; the sequential pipeline threads
 ``check_masking_compat`` holds the arch against the masking scheme where
 ``TransformerBlock`` resolves a config, as in the JAX package.
 
-Not ported yet: ``Block``, ``MLPBlock`` and ``RNNBlock``.
+``MLPBlock`` is Dense → activation → LayerNorm (flax's, eps 1e-6, with
+``use_norm``) → dropout per layer, its weights ``dense_{i}`` and
+``norm_{i}`` as in the JAX package; ``Head.from_body(extra_blocks=...)``
+puts it between the input module and the transformer.
+
+Not ported yet: ``Block`` and ``RNNBlock``.
 """
 
 from __future__ import annotations
@@ -15,10 +20,12 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config.transformer import T4RecConfig
 from ..masking import MaskingInfo
+from .transformer import dropout, init_dense_
 
 # which masking schemes each architecture supports
 _DEFAULT_MASKING = ("clm", "mlm", "rtd", "plm")
@@ -47,6 +54,71 @@ def check_masking_compat(arch: str, masking_name: Optional[str]) -> None:
             f"{arch} is not supported with masking scheme {masking_name!r}; "
             f"allowed: {allowed}"
         )
+
+
+# flax.linen's activations by name (``nn.gelu`` is the tanh approximation)
+_ACTIVATIONS = {
+    "relu": F.relu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "silu": F.silu,
+    "swish": F.silu,
+    "elu": F.elu,
+    "leaky_relu": F.leaky_relu,
+    "softplus": F.softplus,
+}
+
+
+class MLPBlock(nn.Module):
+    """Stacked Dense (+ activation, + LayerNorm, + dropout) over the last
+    axis; dropout draws from the forward's generator."""
+
+    def __init__(self, dimensions: Sequence[int], activation: str = "relu",
+                 use_norm: bool = False, dropout: float = 0.0, input_dim: Optional[int] = None):
+        super().__init__()
+        if activation not in _ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}; known: {sorted(_ACTIVATIONS)}")
+        self.dimensions = tuple(dimensions)
+        self.activation = activation
+        self.use_norm = use_norm
+        self.dropout = dropout
+        self.input_dim: Optional[int] = None
+        if input_dim is not None:
+            self.build(input_dim)
+
+    def build(self, input_dim: int) -> None:
+        """Create the layers for inputs ``input_dim`` wide (``Head.from_body``
+        calls it with the width of the block before)."""
+        if self.input_dim is not None:
+            if self.input_dim != input_dim:
+                raise ValueError(f"MLPBlock built for {self.input_dim} inputs, given {input_dim}")
+            return
+        self.input_dim = input_dim
+        for i, dim in enumerate(self.dimensions):
+            self.add_module(f"dense_{i}", nn.Linear(input_dim, dim))
+            if self.use_norm:
+                self.add_module(f"norm_{i}", nn.LayerNorm(dim, eps=1e-6))
+            input_dim = dim
+
+    def output_size(self) -> int:
+        return self.dimensions[-1]
+
+    def _init_weights(self, generator: torch.Generator) -> None:
+        for i in range(len(self.dimensions)):
+            init_dense_(getattr(self, f"dense_{i}"), generator)
+
+    def forward(self, x: torch.Tensor, training: bool = False, testing: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.input_dim is None:
+            raise ValueError("MLPBlock has no layers yet: build(input_dim) it first")
+        act = _ACTIVATIONS[self.activation]
+        for i in range(len(self.dimensions)):
+            x = act(getattr(self, f"dense_{i}")(x))
+            if self.use_norm:
+                x = getattr(self, f"norm_{i}")(x)
+            x = dropout(x, self.dropout, training, generator)
+        return x
 
 
 class TransformerBlock(nn.Module):
@@ -124,7 +196,7 @@ class SequentialBlock(nn.Module):
                 x = block(x, training=training, testing=testing, generator=generator,
                           masking_info=masking_info)
             else:
-                x = block(x, training=training, testing=testing)
+                x = block(x, training=training, testing=testing, generator=generator)
             if isinstance(x, tuple):
                 x, maybe_info = x
                 if maybe_info is not None:

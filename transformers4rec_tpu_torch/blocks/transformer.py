@@ -49,6 +49,13 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
     nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
+def init_dense_(lin: nn.Linear, generator: torch.Generator) -> None:
+    """A Linear as flax initialises a Dense: lecun-normal kernel, zero bias."""
+    _lecun_normal_(lin.weight, lin.in_features, generator)
+    if lin.bias is not None:
+        nn.init.zeros_(lin.bias)
+
+
 def dropout(x: torch.Tensor, p: float, training: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout with the draw taken from ``generator`` (on x's

@@ -16,7 +16,16 @@ for the port's counterpart module (a whole ``Model``, or a lone
   ``encoder.query_stream_init``), and embedding tables keep their padded
   row count.
 
-The XLNet and the GPT-2 trees are carried.
+The XLNet and the GPT-2 trees are carried, with the input options of the
+paper's command line. Their weights keep their flax names in the port's
+modules, so they need no rule of their own: the per-feature LayerNorms
+(``TabularLayerNorm_{i}/ln_{feature}``), the continuous projection
+(``continuous_projection_{i}``), soft embeddings
+(``soft_{column}/projection`` and ``soft_{column}/embedding_table``),
+pretrained tables and their projections (``{column}_pretrained``,
+``{column}_proj``) and an ``MLPBlock``'s ``dense_{i}`` and ``norm_{i}``.
+The sequence projection ``projection_{i}`` becomes ``projections.{i}`` and a
+``MergeTabular``'s ``to_merge_{i}`` becomes ``to_merge.{i}``.
 
 ``params_from_jax(tree, shard=(rank, world), sharded_tables=("item_id",))``
 keeps rows ``[rank·V_l, (rank+1)·V_l)`` of the named tables, for a module
@@ -24,7 +33,9 @@ that holds them as shards (a vocab-parallel model shards its item table).
 
 Load the result with ``module.load_state_dict(sd)`` (strict, so a missing
 or extra weight is an error). Training adds no weights, so the same rules
-serve it.
+serve it. ``params_to_jax(state_dict, template)`` goes the other way: the
+port's weights into a tree shaped like a flax ``template`` (numpy leaves),
+every leaf found and every weight used.
 
 ``masking_info_from_jax(targets, mask, pad_mask, input_schema=None,
 perm_mask=None)`` turns the arrays of the JAX package's ``MaskingInfo``
@@ -43,11 +54,11 @@ import torch
 from .masking import MaskingInfo
 
 _INDEXED = {"heads": "heads", "blocks": "blocks", "tasks": "tasks",
-            "projection": "projections", "layer": "layers"}
+            "projection": "projections", "layer": "layers", "to_merge": "to_merge"}
 
 
 def _segment(seg: str, parent: str) -> str:
-    m = re.fullmatch(r"(heads|blocks|tasks|projection|layer)_(\d+)", seg)
+    m = re.fullmatch(r"(heads|blocks|tasks|projection|layer|to_merge)_(\d+)", seg)
     if m:
         return f"{_INDEXED[m.group(1)]}.{m.group(2)}"
     if seg == "TransformerEncoder_0":
@@ -55,10 +66,16 @@ def _segment(seg: str, parent: str) -> str:
     return seg
 
 
+def _leaf_name(name: str, parent: str) -> str:
+    if parent == "categorical_module" and name.endswith("_table"):
+        return "tables." + name[: -len("_table")]
+    if name in ("kernel", "scale"):
+        return "weight"
+    return name
+
+
 def _leaf(name: str, parent: str, value: np.ndarray):
     v = np.asarray(value)
-    if parent == "categorical_module" and name.endswith("_table"):
-        return "tables." + name[: -len("_table")], v
     if name == "kernel":
         if v.ndim == 3 and parent == "out":  # (H, Dh, D)
             v = v.reshape(-1, v.shape[-1]).T
@@ -66,12 +83,9 @@ def _leaf(name: str, parent: str, value: np.ndarray):
             v = v.reshape(v.shape[0], -1).T
         else:
             v = v.T
-        return "weight", v
-    if name == "bias" and v.ndim == 2:  # (H, Dh)
-        return "bias", v.reshape(-1)
-    if name == "scale":
-        return "weight", v
-    return name, v
+    elif name == "bias" and v.ndim == 2:  # (H, Dh)
+        v = v.reshape(-1)
+    return _leaf_name(name, parent), v
 
 
 def params_from_jax(tree: Mapping, shard: Optional[Tuple[int, int]] = None,
@@ -82,25 +96,70 @@ def params_from_jax(tree: Mapping, shard: Optional[Tuple[int, int]] = None,
     if set(tree) == {"params"}:
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
+    for path, (name, key, parent) in _port_names(tree).items():
+        leaf, arr = _leaf(key, parent, _get(tree, path))
+        if shard is not None and leaf.startswith("tables.") \
+                and leaf[len("tables."):] in sharded_tables:
+            rank, world = shard
+            if arr.shape[0] % world:
+                raise ValueError(f"table {name}: {arr.shape[0]} rows do not divide by {world}")
+            rows = arr.shape[0] // world
+            arr = arr[rank * rows:(rank + 1) * rows]
+        out[name] = torch.from_numpy(np.ascontiguousarray(arr).copy())
+    return out
 
-    def walk(node: Mapping, prefix: str, parent: str):
+
+def _port_names(tree: Mapping) -> Dict[Tuple[str, ...], Tuple[str, str, str]]:
+    """{flax leaf path: (port name, leaf key, parent key)}."""
+    out: Dict[Tuple[str, ...], Tuple[str, str, str]] = {}
+
+    def walk(node: Mapping, path: Tuple[str, ...], prefix: str, parent: str):
         for key, val in node.items():
             if isinstance(val, Mapping):
-                walk(val, prefix + _segment(key, parent) + ".", key)
+                walk(val, path + (key,), prefix + _segment(key, parent) + ".", key)
             else:
-                name, arr = _leaf(key, parent, val)
-                if shard is not None and name.startswith("tables.") \
-                        and name[len("tables."):] in sharded_tables:
-                    rank, world = shard
-                    if arr.shape[0] % world:
-                        raise ValueError(f"table {name}: {arr.shape[0]} rows do not divide "
-                                         f"by {world}")
-                    rows = arr.shape[0] // world
-                    arr = arr[rank * rows:(rank + 1) * rows]
-                out[prefix + name] = torch.from_numpy(np.ascontiguousarray(arr).copy())
+                out[path + (key,)] = (prefix + _leaf_name(key, parent), key, parent)
 
-    walk(tree, "", "")
+    walk(tree, (), "", "")
     return out
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor], template: Mapping) -> Dict:
+    """The port's ``state_dict`` → a flax parameter tree (numpy leaves)
+    shaped like ``template`` (e.g. the JAX model's ``init``), undoing the
+    layout rules of ``params_from_jax``. Raises unless every template leaf
+    has its weight, of its shape, and every weight is used."""
+    wrapped = set(template) == {"params"}
+    tree = template["params"] if wrapped else template
+    names = _port_names(tree)
+    used = set()
+    out: Dict = {}
+    for path, (name, key, parent) in names.items():
+        if name not in state_dict:
+            raise KeyError(f"no weight {name} for {'/'.join(path)}")
+        shape = np.shape(_get(tree, path))
+        v = state_dict[name].detach().cpu().numpy()
+        if key == "kernel":
+            v = v.T.reshape(shape)
+        elif key == "bias" and len(shape) == 2:
+            v = v.reshape(shape)
+        if v.shape != shape:
+            raise ValueError(f"{name}: shape {v.shape}, the template's {shape}")
+        node = out
+        for seg in path[:-1]:
+            node = node.setdefault(seg, {})
+        node[path[-1]] = np.ascontiguousarray(v)
+        used.add(name)
+    extra = sorted(set(state_dict) - used)
+    if extra:
+        raise KeyError(f"weights without a place in the template: {extra}")
+    return {"params": out} if wrapped else out
+
+
+def _get(tree: Mapping, path: Tuple[str, ...]):
+    for seg in path:
+        tree = tree[seg]
+    return tree
 
 
 def masking_info_from_jax(targets, mask, pad_mask=None, device=None,

@@ -2,7 +2,11 @@ from .continuous import ContinuousFeatures
 from .embedding import (
     EmbeddingFeatures,
     FeatureConfig,
+    PretrainedEmbeddingFeatures,
+    PretrainedEmbeddingsInitializer,
     SequenceEmbeddingFeatures,
+    SoftEmbedding,
+    SoftEmbeddingFeatures,
     TableConfig,
 )
 from .sequence import TabularSequenceFeatures
@@ -12,7 +16,11 @@ __all__ = [
     "ContinuousFeatures",
     "EmbeddingFeatures",
     "FeatureConfig",
+    "PretrainedEmbeddingFeatures",
+    "PretrainedEmbeddingsInitializer",
     "SequenceEmbeddingFeatures",
+    "SoftEmbedding",
+    "SoftEmbeddingFeatures",
     "TableConfig",
     "TabularFeatures",
     "TabularSequenceFeatures",

@@ -24,7 +24,8 @@ class ContinuousFeatures(TabularBlock):
         selected = schema.select_by_tag(list(tags))
         return cls(features=tuple(selected.column_names), schema=selected, **kwargs)
 
-    def compute(self, inputs: TabularData) -> TabularData:
+    def compute(self, inputs: TabularData, training: bool = False, pad_mask=None,
+                generator=None) -> TabularData:
         return {
             name: inputs[name].float()[..., None]
             for name in self.features

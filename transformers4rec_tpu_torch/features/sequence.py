@@ -4,26 +4,27 @@ Counterpart of ``transformers4rec_tpu/features/sequence.py``:
 ``TabularSequenceFeatures`` routes columns by tag, aggregates them (concat is
 forced when masking or a projection is set), projects to ``d_output`` and
 applies the masking scheme. ``forward`` returns ``(hidden, MaskingInfo | None)``.
+
+The item ids (the masking's labels and the pad mask) are read before
+``pre`` runs: swap noise changes what the embeddings see, never the
+labels. ``pre`` and ``post`` get the pad mask of those ids. The
+``projection`` MLP (``projection_{i}``) has a ReLU between its layers and
+none after the last.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..masking import MaskingInfo, MaskSequence, masking_registry
 from ..schema import Schema, Tags
+from ..blocks.transformer import init_dense_
 from ..tabular.base import TabularBlock, TabularData, parse_aggregation
 from .embedding import SequenceEmbeddingFeatures
 from .tabular import TabularFeatures
-
-
-def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
-    """flax's default Dense kernel init: truncated normal, variance 1/fan_in."""
-    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 class TabularSequenceFeatures(TabularFeatures):
@@ -36,13 +37,18 @@ class TabularSequenceFeatures(TabularFeatures):
         self,
         continuous_module: Optional[TabularBlock] = None,
         categorical_module: Optional[TabularBlock] = None,
+        pretrained_module: Optional[TabularBlock] = None,
+        continuous_projection: Optional[Sequence[int]] = None,
+        pre=None,
+        post=None,
         aggregation=None,
         schema: Optional[Schema] = None,
         projection_dims: Optional[Sequence[int]] = None,
         masking: Optional[MaskSequence] = None,
         d_output: Optional[int] = None,
     ):
-        super().__init__(continuous_module, categorical_module,
+        super().__init__(continuous_module, categorical_module, pretrained_module,
+                         continuous_projection, pre=pre, post=post,
                          aggregation=aggregation, schema=schema)
         self.projection_dims = tuple(projection_dims) if projection_dims else None
         self.masking = masking
@@ -61,8 +67,12 @@ class TabularSequenceFeatures(TabularFeatures):
         continuous_tags=(Tags.CONTINUOUS,),
         categorical_tags=(Tags.CATEGORICAL,),
         aggregation: Optional[str] = None,
+        # accepted as the JAX package does, and inert there too: shapes come
+        # from the loader's max_sequence_length
+        max_sequence_length: Optional[int] = None,
         continuous_projection: Optional[Union[int, Sequence[int]]] = None,
         continuous_soft_embeddings: bool = False,
+        projection: Optional[Union[int, Sequence[int]]] = None,
         d_output: Optional[int] = None,
         masking: Optional[Union[str, MaskSequence]] = None,
         masking_kwargs: Optional[dict] = None,
@@ -72,26 +82,29 @@ class TabularSequenceFeatures(TabularFeatures):
         # masking scheme's (both default 0)
         if (masking_kwargs or {}).get("padding_idx") is not None:
             kwargs.setdefault("padding_idx", masking_kwargs["padding_idx"])
-        continuous, categorical = cls._build_modules(
-            schema, continuous_tags, categorical_tags, continuous_projection,
-            continuous_soft_embeddings, **kwargs,
-        )
+        modules = cls._build_modules(schema, continuous_tags, categorical_tags,
+                                     continuous_soft_embeddings, **kwargs)
+        cont_projection = cls._projection_dims(continuous_projection)
         agg = aggregation
-        if (masking is not None or d_output is not None) and not agg:
+        if (masking is not None or d_output is not None or projection is not None) and not agg:
             # masking and projection need one tensor: force concat
             agg = "concat"
 
-        projection_dims = (d_output,) if d_output is not None else None
-        hidden = d_output
+        projection_dims: Optional[Tuple[int, ...]] = None
+        if projection is not None:
+            projection_dims = (projection,) if isinstance(projection, int) else tuple(projection)
+            if d_output is not None and (not projection_dims or projection_dims[-1] != d_output):
+                projection_dims += (d_output,)
+        elif d_output is not None:
+            projection_dims = (d_output,)
+
+        hidden = (projection_dims[-1] if projection_dims else None) or d_output
         mask_module: Optional[MaskSequence] = None
         if masking is not None:
             if isinstance(masking, str):
                 if hidden is None:
-                    sizes = {}
-                    for m in (continuous, categorical):
-                        if m is not None:
-                            sizes.update(m.feature_sizes())
-                    hidden = parse_aggregation(agg, schema).output_size(sizes)
+                    hidden = TabularFeatures(*modules, continuous_projection=cont_projection,
+                                             aggregation=agg, schema=schema).output_size()
                 mask_module = masking_registry.parse(masking)(
                     hidden_size=hidden, **(masking_kwargs or {})
                 )
@@ -99,15 +112,16 @@ class TabularSequenceFeatures(TabularFeatures):
                 mask_module = masking
 
         return cls(
-            continuous, categorical, aggregation=agg, schema=schema,
+            *modules, continuous_projection=cont_projection, pre=kwargs.get("pre"),
+            post=kwargs.get("post"), aggregation=agg, schema=schema,
             projection_dims=projection_dims, masking=mask_module,
             d_output=d_output or hidden,
         )
 
     def _init_weights(self, generator: torch.Generator) -> None:
+        super()._init_weights(generator)
         for lin in self.projections:
-            _lecun_normal_(lin.weight, lin.in_features, generator)
-            nn.init.zeros_(lin.bias)
+            init_dense_(lin, generator)
 
     def output_size(self) -> int:
         if self.projection_dims:
@@ -126,8 +140,11 @@ class TabularSequenceFeatures(TabularFeatures):
         item_ids = None
         if self.item_id is not None and self.item_id in inputs:
             item_ids = inputs[self.item_id].long()
+        pad_mask = item_ids != self.padding_idx if item_ids is not None else None
 
+        inputs = self._transform(self._pre_names, inputs, training, pad_mask, generator)
         outputs = self.compute(inputs)
+        outputs = self._transform(self._post_names, outputs, training, pad_mask, generator)
         agg = parse_aggregation(self.aggregation, self.schema)
         if agg is None:
             return outputs, None

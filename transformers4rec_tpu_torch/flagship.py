@@ -131,8 +131,9 @@ def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=N
                   output_dir: str = "./t4rec_output", streamed_table_update: bool = False,
                   scheme: str = "mlm", batch=None, **model_kwargs) -> Trainer:
     """A ``Trainer`` over the flagship model with the benchmark's optimizer
-    settings, on ``device`` (CUDA unless ``"cpu"``). Without a dataset it
-    trains on synthetic sessions drawn from the schema.
+    settings, on ``device`` (CUDA unless ``"cpu"``). Without a
+    ``train_dataset`` it trains, evaluates and predicts on synthetic
+    sessions drawn from the schema (``data_loader_engine="synthetic"``).
     ``streamed_table_update`` gives the tables an f32 moment and the item
     table the two-pass streamed update. ``scheme`` picks the configuration
     (and its batch size, which ``batch`` overrides). ``model_kwargs``
@@ -149,6 +150,7 @@ def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=N
         embedding_moment_dtype="f32" if streamed_table_update else "bf16",
         per_device_train_batch_size=batch, per_device_eval_batch_size=batch,
         steps_per_execution=8, max_sequence_length=seq, seed=seed,
+        data_loader_engine="synthetic" if train_dataset is None else "parquet",
     )
     data_schema = schema(model_kwargs.get("num_items", NUM_ITEMS), seq)
     table_optimizer = None

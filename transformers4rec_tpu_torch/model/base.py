@@ -12,9 +12,12 @@ is the loop without a Trainer. ``Model.save`` / ``Model.load`` write and
 read the state dict and the input schema (the layout of
 ``serving.export``'s artifact).
 
-Not ported yet: multi-task heads with binary or regression tasks,
-``Head.from_schema`` and extra blocks between the input module and the
-transformer.
+``Head.from_body(extra_blocks=...)`` puts blocks (``MLPBlock``) between
+the input module and the transformer; each one without layers yet is
+built for the width of the block before it.
+
+Not ported yet: multi-task heads with binary or regression tasks and
+``Head.from_schema``.
 """
 
 from __future__ import annotations
@@ -88,9 +91,11 @@ class Head(nn.Module):
         """Wire the input module + transformer into a body and configure a
         copy of each NextItemPredictionTask from the masking scheme and the
         schema (the task objects given stay as they were)."""
-        if extra_blocks:
-            raise NotImplementedError("extra blocks (MLPBlock) are not ported yet")
         blocks: List[Any] = [input_module]
+        for block in extra_blocks:
+            if getattr(block, "input_dim", 0) is None:
+                block.build(blocks[-1].output_size())
+            blocks.append(block)
         masking = getattr(input_module, "masking", None)
         # the scheme's registry name, for the arch compat check
         masking_name = next((key for key in ("clm", "mlm", "plm", "rtd")

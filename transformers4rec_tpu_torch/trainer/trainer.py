@@ -27,7 +27,10 @@ Data: a path (a Parquet file, a directory of them, a list, a
 ``ParquetDataset``) is read by the loader ``args.data_loader_engine`` names
 (``data.loader.dataloader_registry``: ``"parquet"``, its alias ``"merlin"``,
 ``"parquet_streaming"``, ``"synthetic"``); a dict of numpy columns is held in
-memory; without a dataset the sessions are synthesized from the schema.
+memory. Under ``"synthetic"`` the sessions are synthesized from the schema;
+under any other engine, training, evaluation and prediction without their
+dataset raise, and periodic evaluation runs only with evaluation data, as
+in the JAX package.
 ``dataloader_drop_last`` applies to the training loader only: evaluation
 and prediction keep the zero-filled tail, so every session counts once and
 ``predict`` returns one row per session.
@@ -169,17 +172,17 @@ class Trainer:
 
     # ------------------------------------------------------------ dataloaders
     def _make_loader(self, dataset, batch_size: int, shuffle: bool, is_train: bool = False):
-        """A dict of numpy columns is held in memory; without a dataset the
-        sessions are synthesized from the schema; anything else (a path, a
-        list of paths, a ``ParquetDataset``) goes to the loader that
-        ``args.data_loader_engine`` names. Only the training loader drops
-        the tail, and only under ``dataloader_drop_last``."""
+        """A dict of numpy columns is held in memory; anything else (a path,
+        a list of paths, a ``ParquetDataset``, or nothing under
+        ``"synthetic"``) goes to the loader that ``args.data_loader_engine``
+        names. Only the training loader drops the tail, and only under
+        ``dataloader_drop_last``."""
         a = self.args
         drop_last = a.dataloader_drop_last if is_train else False
         if isinstance(dataset, dict):
             return InMemoryDataLoader(dataset, batch_size=batch_size, shuffle=shuffle,
                                       drop_last=drop_last, seed=a.seed)
-        engine = "synthetic" if dataset is None else a.data_loader_engine
+        engine = a.data_loader_engine
         if self.schema is None:
             raise ValueError("Trainer: needs a schema to read or synthesize sessions")
         kwargs = {}
@@ -193,6 +196,8 @@ class Trainer:
     def get_train_dataloader(self):
         if self._train_dataloader is not None:
             return self._train_dataloader
+        if self.train_dataset is None and self.args.data_loader_engine != "synthetic":
+            raise ValueError("Trainer: training requires a train_dataset")
         return self._make_loader(self.train_dataset, self.args.train_batch_size, shuffle=True,
                                  is_train=True)
 
@@ -208,6 +213,8 @@ class Trainer:
             cached = self._eval_loader_key
             if cached is None or (cached[0] == cfg and cached[1] is ds):
                 return self._eval_dataloader
+        if ds is None and a.data_loader_engine != "synthetic":
+            raise ValueError("Trainer: evaluation requires an eval_dataset")
         loader = self._make_loader(ds, a.eval_batch_size, shuffle=False)
         if eval_dataset is None:
             self._eval_dataloader, self._eval_loader_key = loader, (cfg, ds)
@@ -215,6 +222,8 @@ class Trainer:
 
     def get_test_dataloader(self, test_dataset=None):
         ds = test_dataset if test_dataset is not None else self.test_dataset
+        if ds is None and self.args.data_loader_engine != "synthetic":
+            raise ValueError("Trainer: prediction requires a test_dataset")
         return self._make_loader(ds, self.args.eval_batch_size, shuffle=False)
 
     # ------------------------------------------------------------- optimizer
@@ -452,7 +461,7 @@ class Trainer:
     # --------------------------------------------------------------- evaluate
     def _has_eval_data(self) -> bool:
         return (self._eval_dataloader is not None or self.eval_dataset is not None
-                or self.schema is not None)
+                or self.args.data_loader_engine == "synthetic")
 
     def evaluate(self, eval_dataset=None, metric_key_prefix: str = "eval",
                  on_train_set: bool = False, max_steps: Optional[int] = None) -> Dict[str, float]:
