@@ -35,7 +35,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    with ragged padding, the shape of phase 11 and the only one at which a
    main path launches K6b and K6c, and at (32, 256, 16, 12) with the (B, H,
    S, S) bias of XLNet-PLM's query stream (perm mask plus relative bias,
-   rows and key tiles blocked by the bias alone), with the same bits on a
+   rows and key tiles blocked by the bias alone), and at (32, 256, 16, 12)
+   with Longformer's local-window bias (non-causal) and TransfoXL's
+   (1, H, S, S) relative bias (causal), with the same bits on a
    second call,
    K6a against K6b + K6c and, at head dims up to 32, the streamed K6b
    against the mma.sync body it replaces (the same bits); K1 and K2 at the
@@ -103,6 +105,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     projection) and holds its evaluation against the CPU. K1 and K2 launch
     once a step, K3 once an evaluation batch; ``[paper]`` lines give the
     step times;
+9b''. S, the BERT family, ELECTRA's RTD scheme and TransfoXL at the same
+    width through the same script (``run_paper_archs``): S1 the headline
+    command as ALBERT-MLM (``--model_type albert --mlm_probability 0.6``,
+    two windows), S2 as TransfoXL-CLM (without ``--attn_type bi --mlm``,
+    one window), S3 as ELECTRA-RTD (``--rtd``, 8 steps); after each, one
+    training step of the trained model against the CPU (the loss within
+    1e-5, ALBERT's shared layer against the sum of its three uses); S4
+    Longformer-MLM and TransfoXL-CLM at batch 32 of up to 256
+    (``flagship.build_trainer(scheme=, arch=)``: K5 and K6a with the local
+    window's bias, K5 with the relative bias), 8 steps and one evaluation
+    batch each;
 9c. P1, XLNet-PLM at full width (``flagship.build_model(scheme="plm")``:
     permutation language modelling, two-stream attention, sessions of 20):
     ``Model.evaluate`` over the 4 batches on the last item (K3 at 128 rows)
@@ -140,7 +153,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     where there is one, a library yardstick (CUDA events, median after warm-up; at 8,192 rows and
     more the cross-entropy's yardstick runs 1,024 rows at a time), and a
     whole table-optimizer step on each of its arms; K3 at 2,560 and 8,192
-    rows and K5 with XLNet-PLM's bias.
+    rows, K5 with XLNet-PLM's bias, K5 and K6a with Longformer's.
 
 The XLNet-MLM and -PLM paths (sessions of 20 and 21) must launch no flash
 kernel.
@@ -160,7 +173,10 @@ also goes to FILE when one is named. ``--profile-train-streamed [FILE]``
 does the same with the streamed table update, ``--profile-train-clm [FILE]``
 with GPT-2-CLM on batches of 32 sessions of up to 256 (the path on which
 K1 and K2 take most of the device's time), ``--profile-train-plm [FILE]``
-with XLNet-PLM on the same batches. ``--time-ce`` checks and times
+with XLNet-PLM on the same batches; ``--profile-train-arch NAME [FILE]``
+does it for phase S's command line of ``albert`` (S1), ``transfoxl`` (S2)
+or ``electra`` (S3), built by the experiment script and trained from a
+Parquet window. ``--time-ce`` checks and times
 K3 alone at the evaluation shape at E = 64, 128 and 256 (with its ring's
 depth and, from ``torch.profiler``, the device time of each of its two
 kernels) and K1 and K2 alone at the three training shapes, ``--time-flash``
@@ -177,6 +193,7 @@ arm (device time per step and busy share).
 
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import math
@@ -564,11 +581,13 @@ def plm_attention_bias(S: int, H: int, seed: int, pad) -> torch.Tensor:
 
 
 def flash_inputs(B: int, S: int, H: int, Dh: int, seed: int, device, ragged: bool = False,
-                 wholly_padded: int = 0, bias_shape=None, plm: bool = False):
+                 wholly_padded: int = 0, bias_shape=None, plm: bool = False, window=None):
     """q, k, v and dO (B, S, H, Dh) from a seed (standard normal), a (B, S)
     pad mask whose sessions have 2..S real items (the first ``wholly_padded``
     sessions none) or None, and a bias (normal, std 0.5) of ``bias_shape``,
-    with ``plm`` the query stream's (``plm_attention_bias``), or None."""
+    with ``plm`` the query stream's (``plm_attention_bias``), with ``window``
+    Longformer's local window as the encoder builds it (1, 1, S, S), or
+    None."""
     rng = np.random.default_rng(seed)
     q, k, v, d_out = (torch.from_numpy(rng.normal(0.0, 1.0, (B, S, H, Dh)).astype(np.float32))
                       .to(device) for _ in range(4))
@@ -582,12 +601,16 @@ def flash_inputs(B: int, S: int, H: int, Dh: int, seed: int, device, ragged: boo
         bias = torch.from_numpy(rng.normal(0.0, 0.5, bias_shape).astype(np.float32)).to(device)
     if plm:
         bias = plm_attention_bias(S, H, seed, pad)
+    if window is not None:
+        from transformers4rec_tpu_torch.blocks.transformer import make_extra_bias
+
+        bias = make_extra_bias(S, local_window=window, device=device)
     return q, k, v, d_out, pad, bias
 
 
 def check_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: int,
                 ragged: bool = False, wholly_padded: int = 0, bias_shape=None,
-                device="cuda", plm: bool = False) -> dict:
+                device="cuda", plm: bool = False, window=None) -> dict:
     """K5 against ``flash_forward_plain``, and K6a and K6b + K6c against the
     two arithmetics of ``flash_backward_plain``, on the same inputs (the
     backward kernels and the plain versions all take the plain forward's out
@@ -604,11 +627,12 @@ def check_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: 
     held to the plain version as above, and the mma.sync design is run
     beside it for the same-sums check. With ``plm`` the bias is XLNet-PLM's
     (``plm_attention_bias``): rows blocked by the bias alone must give 0 and
-    the sentinel lse too, and some must."""
+    the sentinel lse too, and some must. With ``window`` the bias is
+    Longformer's local window (``flash_inputs``)."""
     from transformers4rec_tpu_torch.ops import attention as fa
 
     q, k, v, d_out, pad, bias = flash_inputs(B, S, H, Dh, seed, device, ragged, wholly_padded,
-                                             bias_shape, plm)
+                                             bias_shape, plm, window)
     out, lse = fa.flash_fwd(q, k, v, bias, pad, causal)
     out2, lse2 = fa.flash_fwd(q, k, v, bias, pad, causal)
     out_p, lse_p = fa.flash_forward_plain(q, k, v, bias, pad, causal)
@@ -813,6 +837,52 @@ def time_flash_plm(name: str, B: int, S: int, H: int, Dh: int, reps: int) -> dic
            **bound(4 * 4 * n + 4 * bias.numel() + 4 * B * H * S + pad.numel(),
                    2 * 2 * Dh * pairs, pairs),
            "shape": name, "bias_shape": list(bias.shape), "pairs": pairs}
+    return res
+
+
+def time_flash_window(name: str, B: int, S: int, H: int, Dh: int, window: int,
+                      reps: int) -> dict:
+    """K5 and K6a with Longformer's (1, 1, S, S) local-window bias (not
+    causal, ragged padding: main path S4's attention) beside their plain
+    versions and ``F.scaled_dot_product_attention`` with the same bias and
+    padding as a bf16 additive mask (forward; its backward for dq, dk, dv).
+    The bounds read the bias once and count the pairs that the window and
+    the padding leave."""
+    import torch.nn.functional as F
+
+    from transformers4rec_tpu_torch.ops import attention as fa
+
+    q, k, v, d_out, pad, bias = flash_inputs(B, S, H, Dh, 71, "cuda", True, window=window)
+    out, lse = fa.flash_fwd(q, k, v, bias, pad, False)
+    args = (q, k, v, d_out, lse, fa.row_delta(d_out, out), bias, pad, False)
+    pairs = int(((bias > fa.NEG / 2) & pad[:, None, None, :]).sum()) * H
+    n, rows, extra = q.numel(), B * H * S, 4 * bias.numel() + pad.numel()
+    lq, lk, lv = (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    mask = (bias + torch.where(pad, 0.0, fa.NEG)[:, None, None, :]).to(torch.bfloat16)
+    lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+    lg = d_out.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous()
+    with torch.no_grad():
+        fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask),
+                          reps=reps)
+    res = {
+        "flash_fwd": {
+            "ms": cuda_ms(lambda: fa.flash_fwd(q, k, v, bias, pad, False), reps=reps),
+            "plain_ms": cuda_ms(lambda: fa.flash_forward_plain(q, k, v, bias, pad, False),
+                                reps=max(3, reps // 3)),
+            "library_ms": fwd_lib,
+            **bound(4 * 4 * n + 4 * rows + extra, 2 * 2 * Dh * pairs, pairs)},
+        "flash_bwd_fused": {
+            "ms": cuda_ms(lambda: fa.flash_bwd_fused(*args), reps=reps),
+            "plain_ms": cuda_ms(lambda: fa.flash_backward_plain(
+                q, k, v, bias, pad, False, out, lse, d_out, True), reps=max(3, reps // 3)),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), lg,
+                                                              retain_graph=True), reps=reps),
+            **bound(7 * 4 * n + 2 * 4 * rows + extra, 5 * 2 * Dh * pairs, pairs)},
+    }
+    for r in res.values():
+        r.update(shape=name, bias_shape=list(bias.shape), pairs=pairs,
+                 design="wgmma" if fa.uses_wgmma(Dh) else "mma.sync")
     return res
 
 
@@ -1565,15 +1635,19 @@ def run_vocab_parallel(flagship, vocab, model, loader, gpu_res: dict, vocab_size
 
 
 # --------------------------------------------------------------------- train
-def check_training_step(model, cpu_model, batch, extra=()) -> dict:
+def check_training_step(model, cpu_model, batch, extra=(), loss_rtol: float = 1e-4,
+                        extra_rel: float = 5e-3, cpu_sums=None) -> dict:
     """One training forward and backward of the same weights on the card and
     on the CPU (which takes the plain versions), with one mask, drawn once
     and given to both, and dropout off (both models are built with dropout
-    0). The loss must agree within 1e-4 relative; the gradients of the item
-    table (the lookup's plus the CE's dW) and of the output projection as
-    ``check_grad`` says; those of the parameters named in ``extra``, which
-    lie below every layer's bf16 roundings of q, k, v, P and dS on two
-    devices, within 5e-3 in relative Frobenius norm."""
+    0). The loss must agree within ``loss_rtol`` relative; the gradients of
+    the item table (the lookup's plus the CE's dW) and of the output
+    projection as ``check_grad`` says; those of the parameters named in
+    ``extra`` within ``extra_rel`` in relative Frobenius norm (5e-3: they lie
+    below every layer's bf16 roundings of q, k, v, P and dS on two devices
+    where attention takes the flash path). ``cpu_sums`` maps a name of
+    ``extra`` to the CPU model's parameters whose gradients add up to it (a
+    shared layer against its unshared copies)."""
     im = cpu_model.heads[0].input_module
     cb = cpu_model._as_dense(batch)
     info = im.masking.compute_masked_targets(cb[im.item_id].long(), training=True,
@@ -1591,21 +1665,24 @@ def check_training_step(model, cpu_model, batch, extra=()) -> dict:
         losses[name] = float(loss.detach())
         task = m.heads[0].tasks[0]
         named = dict(m.named_parameters())
+        sums = (cpu_sums or {}) if name == "cpu" else {}
         grads[name] = (m.heads[0].input_module.item_embedding_table().grad.cpu(),
                        task.tying_projection.weight.grad.cpu(),
-                       *(named[n].grad.cpu() for n in extra))
+                       *(sum(named[c].grad.cpu() for c in sums.get(n, (n,))) for n in extra))
         m.zero_grad(set_to_none=True)
     rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    if not math.isfinite(losses["cuda"]) or rel > 1e-4:
+    if not math.isfinite(losses["cuda"]) or rel > loss_rtol:
         fail(f"training step: loss on the card {losses['cuda']} vs CPU {losses['cpu']}")
     return {"loss": losses, "targets": int(info.mask.sum()),
             "item_table_grad": check_grad("training step, item table gradient",
                                           grads["cuda"][0], grads["cpu"][0]),
             "projection_grad": check_grad("training step, projection gradient",
                                           grads["cuda"][1], grads["cpu"][1]),
-            **{n.rsplit(".", 1)[-1] + "_grad": check_grad(
+            "loss_rel_diff": rel,
+            # a shared layer's parameters by their names in the layer
+            **{n.rsplit("layer_shared." if "layer_shared." in n else ".", 1)[-1] + "_grad": check_grad(
                 f"training step, {n} gradient", grads["cuda"][2 + i], grads["cpu"][2 + i],
-                rel=5e-3)
+                rel=extra_rel)
                for i, n in enumerate(extra)}}
 
 
@@ -2269,6 +2346,209 @@ def run_paper_command(vocab, fa, card: str) -> dict:
     return out
 
 
+# ------------------------------------ the BERT family and TransfoXL (phase S)
+# each of phase S's command lines: the README's headline command with these
+# flags dropped and set (``with_flags``), and its windows
+PAPER_ARCH_LINES = {
+    "S1": ("albert", (), {"model_type": "albert", "mlm_probability": "0.6"}, 2),
+    "S2": ("transfoxl", ("--attn_type", "--mlm"),
+           {"model_type": "transfoxl", "final_time_window_index": "1"}, 1),
+    # --mlm dropped: the script takes the first of --mlm, --plm, --rtd it finds
+    "S3": ("electra", ("--mlm",),
+           {"model_type": "electra", "rtd": None, "final_time_window_index": "1",
+            "max_steps": "8"}, 1),
+}
+ENCODER = "heads.0.body.blocks.1.encoder."
+PAPER_WINDOW = 8  # Longformer's local window in the registry (S4)
+
+
+def with_flags(argv: list, drop=(), flags=None) -> list:
+    """``argv`` without the flags of ``drop`` and those of ``flags`` (each
+    with its value, where it has one), then ``flags`` appended (a value of
+    None: a switch)."""
+    flags = flags or {}
+    out, i = [], 0
+    while i < len(argv):
+        takes = i + 1 < len(argv) and not argv[i + 1].startswith("--")
+        if argv[i] in drop or argv[i][2:] in flags:
+            i += 2 if takes else 1
+            continue
+        out.append(argv[i])
+        i += 1
+    for k, v in flags.items():
+        out += [f"--{k}"] + ([] if v is None else [v])
+    return out
+
+
+def paper_arch_argv(line: str, data_path: str, schema_path: str) -> list:
+    _, drop, flags, _ = PAPER_ARCH_LINES[line]
+    return with_flags(paper_readme_argv(data_path, schema_path), drop, flags)
+
+
+def unshared(model):
+    """``model`` with its encoder's shared layer replaced by ``n_layer``
+    copies of it: the same function, with one gradient per use."""
+    enc = model.heads[0].body.blocks[1].encoder
+    enc.layers = torch.nn.ModuleList(copy.deepcopy(enc.layer_shared)
+                                     for _ in range(enc.n_layer))
+    del enc.layer_shared
+    enc.share_layers = False
+    return model
+
+
+def run_paper_archs(flagship, vocab, fa, card: str) -> dict:
+    """Main path S: the BERT family, ELECTRA's RTD scheme and TransfoXL at
+    the paper's width (390,000 items, d_model 192, 3 layers, 16 heads, the
+    tied 448-wide item table, batches of 128 of 20) through the port's
+    experiment script on Parquet windows, as phase R runs the README's
+    command (``PAPER_ARCH_LINES``): S1 ALBERT-MLM (the command with
+    ``--model_type albert --mlm_probability 0.6``, two windows), S2
+    TransfoXL-CLM (without ``--attn_type bi --mlm``: causal, the relative
+    bias, a label at every position; one window), S3 ELECTRA-RTD (``--rtd``,
+    one window of 8 steps). K1 and K2 launch once a step, K3 once an
+    evaluation batch, no flash kernel at S = 20. After each, one training
+    step of the trained model on the card against the CPU with one mask and
+    one swap draw: the loss within 1e-5 relative, the item table's
+    gradient within 1e-3; S1's shared layer's gradient against the sum of
+    its three uses' on the CPU (an unshared copy), S2's relative bias's and
+    S3's embedding LayerNorm's, each within 1e-3.
+    S4: at batch 32 of up to 256, through ``flagship.build_trainer(scheme=,
+    arch=)``: Longformer-MLM (K5 and K6a 3 times a step, with the local
+    window's (1, 1, S, S) bias) and TransfoXL-CLM (K5 3 times a step with
+    the relative bias, the dense backward), 8 steps each, then one
+    evaluation batch each (K3)."""
+    from transformers4rec_tpu_torch.data import ParquetDataLoader, synthetic_data
+    from transformers4rec_tpu_torch.paper_repro import datasets_configs, transf_exp_main
+
+    t_phase = time.perf_counter()
+    counters = flash_counters(vocab, fa)
+    launches = dict.fromkeys(counters, 0)
+    out = {"card": card}
+
+    def run(what: str, fn, **want):
+        result, got, wall = counted(counters, fn)
+        expect_launches(f"phase S ({what})", got, **want)
+        for k, c in got.items():
+            launches[k] += c
+        return result, wall
+
+    schema = datasets_configs.make_schema("rees46")
+    item_only = schema.select_by_name([schema.item_id_column_name])
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        schema_path = os.path.join(root, "schema.pbtxt")
+        schema.to_proto_text_file(schema_path)
+        data = os.path.join(root, "data")
+        sizes = paper_windows(schema, data, seed=401)
+        batch = next(iter(ParquetDataLoader.from_schema(
+            item_only, os.path.join(data, "0003", "test.parquet"), batch_size=128,
+            max_sequence_length=20, shuffle=False)))
+        for line, (arch, _, _, windows) in PAPER_ARCH_LINES.items():
+            argv = paper_arch_argv(line, data, schema_path)
+            print(f"[paper-archs] {line}: transf_exp_main {' '.join(argv)}")
+            args = transf_exp_main.build_parser().parse_args(argv)
+            rows = args.per_device_eval_batch_size
+            first = args.start_time_window_index
+            n_eval = sum(-(-sizes[f"{w + 1}/test"] // rows)
+                               for w in range(first, first + windows))
+            epoch_steps = PAPER_SESSIONS["train"] // args.per_device_train_batch_size
+            window_steps = args.max_steps if args.max_steps > 0 \
+                else int(args.num_train_epochs) * epoch_steps
+            steps = windows * window_steps
+            # the command's --output_dir ./tmp/ lands in the temporary directory
+            os.chdir(root)
+            try:
+                r, wall = run(line, lambda: transf_exp_main.run(argv), ce_fwd=steps,
+                              ce_bwd=steps, ce_rank=n_eval)
+            finally:
+                os.chdir(cwd)
+            trainer = r.trainer
+            losses = [h["loss"] for h in trainer.state.log_history if "loss" in h]
+            if trainer.state.global_step != steps or sorted(r.results) != PAPER_RESULT_KEYS \
+                    or not losses or not all(math.isfinite(v) for v in losses) \
+                    or any(len(v) != windows or not all(math.isfinite(x) for x in v)
+                           for v in r.results.values()):
+                fail(f"{line}: {trainer.state.global_step} steps, losses {losses}, "
+                     f"results {r.results}")
+            enc = trainer.model.heads[0].body.blocks[1].encoder
+            runs = [h for h in trainer.state.log_history if "train_runtime" in h]
+            res = {"arch": arch, "masking": type(trainer.model.heads[0].input_module.masking)
+                   .__name__, "wall_s": wall, "steps": steps, "eval_batches": n_eval,
+                   "ms_per_step_by_window": [1e3 * h["train_runtime"] / h["train_steps"]
+                                             for h in runs],
+                   "losses": losses, "results": r.results,
+                   "post_ln": not enc.norm_first, "shared_layer": enc.share_layers,
+                   "causal": enc.causal}
+
+            # one training step, the card against the CPU
+            model = trainer.model
+            cpu_model = transf_exp_main.get_model(args, item_only, device="cpu")
+            cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+            extra, sums = (), None
+            if arch == "albert":
+                unshared(cpu_model)
+                layer = [n for n, _ in enc.layer_shared.named_parameters()
+                         if n != "attn.k.bias"]  # its true gradient is 0
+                extra = tuple(f"{ENCODER}layer_shared.{n}" for n in layer)
+                sums = {f"{ENCODER}layer_shared.{n}": tuple(
+                    f"{ENCODER}layers.{i}.{n}" for i in range(enc.n_layer)) for n in layer}
+            elif arch == "transfoxl":
+                extra = (f"{ENCODER}rel_pos.rel_bias",)
+            else:
+                extra = (f"{ENCODER}ln_emb.weight", f"{ENCODER}ln_emb.bias")
+            res["swapped_ids"] = same_swap_draw(model, cpu_model, batch, seed=7)
+            step, _ = run(f"{line}, one training step", lambda: check_training_step(
+                model, cpu_model, batch, extra=extra, loss_rtol=1e-5, extra_rel=1e-3,
+                cpu_sums=sums), ce_fwd=1, ce_bwd=1)
+            res["train_step"] = step
+            out[line] = res
+            print(f"[paper-archs] {line} {arch} on {card}: {steps} steps and {n_eval} "
+                  f"evaluation batches in {wall:.3f}s; ms per step (wall, by window) "
+                  f"{json.dumps(res['ms_per_step_by_window'])}; logged losses "
+                  f"{json.dumps(losses)}; card against CPU {json.dumps(step)}")
+            del r, trainer, model, cpu_model
+            torch.cuda.empty_cache()
+
+    # S4: Longformer-MLM and TransfoXL-CLM on sessions of up to 256
+    seq, rows, layers = flagship.LONG_SEQ, flagship.LONG_BATCH, flagship.N_LAYER
+    steps = 8
+    out["S4"] = {}
+    for arch, scheme, seed in (("longformer", "mlm", 410), ("transfoxl", "clm", 411)):
+        data = synthetic_data(flagship.schema(flagship.NUM_ITEMS, seq), num_rows=steps * rows,
+                              max_session_length=seq, seed=seed)
+        trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data, scheme=scheme,
+                                         arch=arch, seq=seq, batch=rows)
+        enc = trainer.model.heads[0].body.blocks[1].encoder
+        per_step = {"flash_fwd": layers, "ce_fwd": 1, "ce_bwd": 1}
+        if arch == "longformer":
+            # a constant bias: the fused backward; TransfoXL's learned one
+            # takes the dense backward that yields its gradient
+            per_step["flash_bwd_fused"] = layers
+        own = dict.fromkeys(counters, 0)  # this arch's launches
+        res = trainer_phases(trainer, counters, own, f"paper-archs S4 {arch}", card, rows,
+                             seq, (("eight_batches", steps, None),), per_step)
+        loader = eval_batches(flagship, flagship.NUM_ITEMS, seq, 1, rows)
+        ev, got, wall = counted(counters, lambda: trainer.model.evaluate(loader))
+        expect_launches(f"phase S (S4 {arch}, one evaluation batch)", got, flash_fwd=layers,
+                        ce_rank=1)
+        if not all(math.isfinite(v) for v in ev.values()):
+            fail(f"S4 {arch}: evaluation {ev}")
+        for k in launches:
+            own[k] += got[k]
+            launches[k] += own[k]
+        res.update(evaluate=ev, eval_wall_s=wall, local_window=enc.local_window,
+                   causal=enc.causal, launches=own)
+        out["S4"][arch] = res
+        print(f"[paper-archs] S4 {arch} on {card}: evaluation {json.dumps(ev)} in {wall:.3f}s")
+        del trainer
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[paper-archs] phase S on {card}: {out['phase_s']:.1f}s, launches "
+          f"{json.dumps(launches)}")
+    return out
+
+
 # -------------------------------------------------------------------- timing
 def bound(nbytes: int, flops: int, exps: int = 0, f32_flops: int = 0) -> dict:
     """The least time the card could take: the larger of the bytes over the
@@ -2480,9 +2760,6 @@ def profile_train(card: str, out_file: str = "", streamed: bool = False,
     ``scheme="clm"`` trains GPT-2-CLM on batches of 32 sessions of up to 256
     instead of the flagship, ``scheme="plm"`` XLNet-PLM on the same batches
     (main path P2)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from transformers4rec_tpu_torch import flagship
     from transformers4rec_tpu_torch.data import synthetic_data
     from transformers4rec_tpu_torch.ops import build
@@ -2493,7 +2770,6 @@ def profile_train(card: str, out_file: str = "", streamed: bool = False,
     long = scheme in ("clm", "plm")
     rows = flagship.LONG_BATCH if long else flagship.BATCH
     seq = flagship.LONG_SEQ if long else flagship.SEQ
-    window = 16
     data = synthetic_data(flagship.schema(flagship.NUM_ITEMS, seq), num_rows=8 * rows,
                           max_session_length=seq, seed=200)
     t0 = time.perf_counter()
@@ -2503,6 +2779,51 @@ def profile_train(card: str, out_file: str = "", streamed: bool = False,
     sync("cuda")
     print(f"[profile] build_trainer(streamed_table_update={streamed}, scheme={scheme!r}) "
           f"{time.perf_counter() - t0:.3f}s")
+    profile_steps(trainer, {"card": card, "scheme": scheme, "batch": rows, "seq": seq,
+                            "streamed_table_update": streamed}, out_file)
+
+
+def profile_paper_arch(card: str, arch: str, out_file: str = "") -> None:
+    """``profile_steps`` for the trainer of phase S's command line for
+    ``arch`` (``albert``: S1, ALBERT-MLM; ``transfoxl``: S2, TransfoXL-CLM;
+    ``electra``: S3), built by the experiment script
+    (``transf_exp_main.setup``) at the paper's width and trained from
+    window 1's ``train.parquet`` of synthetic REES46 sessions."""
+    from transformers4rec_tpu_torch.ops import build
+    from transformers4rec_tpu_torch.paper_repro import datasets_configs, transf_exp_main
+
+    lines = {a: line for line, (a, *_) in PAPER_ARCH_LINES.items()}
+    if arch not in lines:
+        fail(f"--profile-train-arch takes one of {sorted(lines)}, not {arch!r}")
+    out_file = os.path.abspath(out_file) if out_file else ""  # the run changes directory
+    build.build()  # so that the first step below does not wait for nvcc
+    schema = datasets_configs.make_schema("rees46")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        schema_path = os.path.join(root, "schema.pbtxt")
+        schema.to_proto_text_file(schema_path)
+        data = os.path.join(root, "data")
+        paper_windows(schema, data, seed=401)
+        argv = paper_arch_argv(lines[arch], data, schema_path)
+        os.chdir(root)
+        try:
+            args, _, trainer = transf_exp_main.setup(argv)
+            trainer.train_dataset = [os.path.join(data, "0001", "train.parquet")]
+            profile_steps(trainer, {"card": card, "arch": arch, "line": lines[arch],
+                                    "masking": args.masking,
+                                    "batch": args.per_device_train_batch_size,
+                                    "seq": args.session_seq_length_max}, out_file)
+        finally:
+            os.chdir(cwd)
+
+
+def profile_steps(trainer, summary: dict, out_file: str = "", window: int = 16) -> None:
+    """The first step alone, a steady window by the host's clock, and the
+    same window under ``torch.profiler``: device time by kernel and the busy
+    share (device time over untraced wall time), printed with ``summary``
+    and written to ``out_file`` when one is named."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     def run(steps: int) -> float:
         trainer.args.max_steps = steps
@@ -2522,10 +2843,9 @@ def profile_train(card: str, out_file: str = "", streamed: bool = False,
     device_us = sum(e.device_time_total for e in prof.events()
                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40,
-                           max_name_column_width=70)
+                                      max_name_column_width=70)
     summary = {
-        "card": card, "scheme": scheme, "batch": rows, "seq": seq, "steps": window,
-        "streamed_table_update": streamed,
+        **summary, "steps": window,
         "ms_per_step": plain_s / window * 1e3,
         "ms_per_step_traced": traced_s / window * 1e3,
         "device_ms_per_step": device_us / window / 1e3,
@@ -2734,6 +3054,9 @@ def main() -> None:
                       streamed=sys.argv[1] == "--profile-train-streamed",
                       scheme=profiles[sys.argv[1]])
         return
+    if sys.argv[1:2] == ["--profile-train-arch"] and len(sys.argv) in (3, 4):
+        profile_paper_arch(card_line(), *sys.argv[2:4])
+        return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")
     from transformers4rec_tpu_torch import flagship
@@ -2829,6 +3152,13 @@ def main() -> None:
         # the query stream's bias of XLNet-PLM on sessions of 256 (P2): the
         # perm mask and the relative bias over batch and head, not causal
         check_flash("plm", *flash_shapes["main"], False, 25, ragged=True, plm=True),
+        # phase S4's attention: Longformer's local window of 8 as a (1, 1, S,
+        # S) bias, not causal (K5 and K6a), and TransfoXL's relative bias
+        # over the heads, causal (K5; its backward is the dense one)
+        check_flash("longformer", *flash_shapes["main"], False, 26, ragged=True,
+                    window=PAPER_WINDOW),
+        check_flash("transfoxl", *flash_shapes["main"], True, 27, ragged=True,
+                    bias_shape=(1, flagship.N_HEAD, flagship.LONG_SEQ, flagship.LONG_SEQ)),
     ]
     torch.cuda.empty_cache()
     flash = flash_counters(vocab, attention)
@@ -2892,6 +3222,9 @@ def main() -> None:
     # ---- main path R: the paper's command line through the port's experiment script
     paper = run_paper_command(vocab, attention, card)
 
+    # ---- main path S: the BERT family, ELECTRA-RTD and TransfoXL
+    archs = run_paper_archs(flagship, vocab, attention, card)
+
     # ---- main path P1: XLNet-PLM at full width, two streams, every position
     plm = run_plm(flagship, vocab, attention, card, vocab_size)
     print(f"[plm] {json.dumps(plm['launches'])}")
@@ -2951,6 +3284,15 @@ def main() -> None:
     plm_timing["ce_rank"]["launches"] = plm["k3_launches_at_every_position"]
     plm_timing["ce_rank_long"]["launches"] = plm_long["launches"]["ce_rank"]
     plm_timing["flash_fwd"]["launches"] = plm_long["launches"]["flash_fwd"]
+    # K5 and K6a with Longformer's local-window bias (S4)
+    window_timing = time_flash_window("longformer", *flash_shapes["main"], PAPER_WINDOW, 30)
+    s4 = archs["S4"]["longformer"]["launches"]
+    for name in window_timing:
+        window_timing[name]["launches"] = s4[name]
+    print(f"[timing] K5 and K6a with Longformer's (1, 1, S, S) local-window bias at "
+          f"{flash_shapes['main']} on {card}: {json.dumps(window_timing)}; library_ms is "
+          "F.scaled_dot_product_attention with the same bias and padding as a bf16 additive "
+          "mask (forward; its backward)")
     print(f"[timing] every-position evaluation and XLNet-PLM's attention on {card}: ce_rank at "
           f"N={PLM_EVAL_ROWS} and N={PLM_LONG_EVAL_ROWS}, E=64, V={vocab_size}; flash_fwd at "
           f"{flash_shapes['main']} with the query stream's (B, H, S, S) bias: "
@@ -2984,8 +3326,10 @@ def main() -> None:
             "rank": [on(wide_timing["rank"], False)],
             "flash_fwd": [on(flash_timing["long_step"]["flash_fwd"], True),
                           on(flash_timing["long"]["flash_fwd"], False),
-                          on(plm_timing["flash_fwd"], True)],
-            "flash_bwd_fused": [on(flash_timing["long"]["flash_bwd_fused"], False)],
+                          on(plm_timing["flash_fwd"], True),
+                          on(window_timing["flash_fwd"], True)],
+            "flash_bwd_fused": [on(flash_timing["long"]["flash_bwd_fused"], False),
+                                on(window_timing["flash_bwd_fused"], True)],
             "flash_bwd_dq": [on(flash_timing["main"]["flash_bwd_dq"], False)],
             "flash_bwd_dkv": [on(flash_timing["main"]["flash_bwd_dkv"], False)]}
     clm_step_ms = clm["one_batch_repeated"]["ms_per_step"]
@@ -3031,11 +3375,11 @@ def main() -> None:
                           + parallel["launches"].get(name, 0) + wide["launches"].get(name, 0)
                           + parquet["launches"].get(name, 0) + paper["launches"].get(name, 0))
     launches["rank"] = parallel["launches"]["rank"]
-    # paths 6 and 7, P1 and P2: every kernel of the CLM and PLM paths
+    # paths 6 and 7, P1, P2 and S: every kernel of the CLM, PLM and phase S paths
     for name in flash:
         launches[name] = (launches.get(name, 0) + clm["launches"][name]
                           + long_step["launches"][name] + plm["launches"][name]
-                          + plm_long["launches"][name])
+                          + plm_long["launches"][name] + archs["launches"][name])
     errors = {"ce_rank": max(c["lse_max_abs_err"] for c in checks),
               "ce_fwd": max(c["lse_max_abs_err"] for c in train_checks),
               "ce_bwd": max(c[g]["max_abs_err"] for c in train_checks for g in ("dx", "dW")),

@@ -287,7 +287,10 @@ def test_the_readme_line_runs_through_the_ports_script(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--model_type", "xlnet", "--mlm"],
                                    ["--model_type", "gpt2", "--masking", "clm"],
-                                   ["--model_type", "xlnet", "--plm"]])
+                                   ["--model_type", "xlnet", "--plm"],
+                                   ["--model_type", "albert", "--mlm", "--mlm_probability", "0.6"],
+                                   ["--model_type", "electra", "--rtd"],
+                                   ["--model_type", "transfoxl"]])
 def test_each_scheme_runs_on_synthetic_windows_with_the_jax_scripts_keys(flags, tmp_path):
     results = transf_exp_main.main(flags + [
         "--use_synthetic", "--d_model", "16", "--n_layer", "1", "--n_head", "2",
@@ -298,3 +301,35 @@ def test_each_scheme_runs_on_synthetic_windows_with_the_jax_scripts_keys(flags, 
     assert all(len(v) == 2 and all(np.isfinite(v)) for v in results.values())
     with open(tmp_path / "results.json") as f:
         assert sorted(json.load(f)) == RESULT_KEYS
+
+
+def test_every_model_type_builds_as_the_jax_script_builds_it():
+    """The BERT family, ELECTRA with RTD (and its in-batch sampling flag),
+    TransfoXL and ``--pre_ln``: each command line's encoder and masking as
+    the JAX script's; Reformer says what is not ported."""
+    from transformers4rec_tpu_torch.masking import ReplacementLanguageModeling
+
+    schema = _item_only()
+    cli = _jax_cli()
+    jschema = JaxSchema.from_json(schema.to_json())
+    for flags in (["--model_type", "albert", "--mlm"], ["--model_type", "bert", "--pre_ln"],
+                  ["--model_type", "electra", "--rtd", "--rtd_sample_from_batch"],
+                  ["--model_type", "longformer"], ["--model_type", "transfoxl"],
+                  ["--model_type", "roberta", "--hidden_act", "gelu_exact"]):
+        argv = flags + SMALL
+        jargs = cli.build_parser().parse_args(argv)
+        jmodel = cli.get_model(jargs, jschema)
+        model = transf_exp_main.get_model(transf_exp_main.build_parser().parse_args(argv), schema)
+        jcfg = jmodel.heads[0].body.blocks[1].transformer.encoder_kwargs()
+        enc = model.heads[0].body.blocks[1].encoder
+        assert (enc.norm_first, enc.embed_layer_norm, enc.share_layers, enc.causal,
+                enc.local_window, enc.stack()[0].activation) == (
+            jcfg["norm_first"], jcfg["embed_layer_norm"], jcfg["share_layers"], jcfg["causal"],
+            jcfg["local_window"], jcfg["activation"]), flags
+        masking = model.heads[0].input_module.masking
+        assert type(masking).__name__ == type(jmodel.heads[0].body.blocks[0].masking).__name__
+        if "--rtd" in flags:
+            assert isinstance(masking, ReplacementLanguageModeling) and masking.sample_from_batch
+    with pytest.raises(NotImplementedError, match="reformer: not ported yet"):
+        transf_exp_main.get_model(transf_exp_main.build_parser().parse_args(
+            ["--model_type", "reformer"] + SMALL), schema)

@@ -1,9 +1,11 @@
 """transformers4rec_tpu_torch — the PyTorch / CUDA port of transformers4rec_tpu.
 
 A second package beside the JAX one, which stays the reference. It carries
-the training, evaluation and inference paths of the REES46 XLNet-MLM model
-and of GPT-2 with causal language modelling on long sessions:
-schema-driven input modules, MLM and CLM masking, the unified transformer encoder,
+the training, evaluation and inference paths of the REES46 XLNet-MLM model,
+of GPT-2 with causal language modelling on long sessions, of XLNet-PLM and
+of the BERT family (BERT, RoBERTa, ELECTRA with RTD masking, ALBERT,
+Longformer) and TransfoXL: schema-driven input modules, MLM, CLM, PLM and
+RTD masking, the unified transformer encoder,
 next-item prediction over a tied item table, the ``Trainer`` with AdamW on
 the dense weights and Adafactor on the embedding tables, streaming ranking
 metrics and the dynamic-batching HTTP server. Every pass over the whole
@@ -26,7 +28,19 @@ from . import (
     trainer, utils,
 )
 from .blocks import MLPBlock, SequentialBlock, TransformerBlock, TransformerEncoder
-from .config import GPT2Config, T4RecConfig, XLNetConfig, transformer_registry
+from .config import (
+    AlbertConfig,
+    BertConfig,
+    ElectraConfig,
+    GPT2Config,
+    LongformerConfig,
+    ReformerConfig,
+    RobertaConfig,
+    T4RecConfig,
+    TransfoXLConfig,
+    XLNetConfig,
+    transformer_registry,
+)
 from .features import (
     ContinuousFeatures,
     EmbeddingFeatures,
@@ -43,17 +57,23 @@ from .tabular import MergeTabular, StochasticSwapNoise, TabularDropout, TabularL
 from .trainer import T4RecTrainingArguments, Trainer
 
 __all__ = [
+    "AlbertConfig",
+    "BertConfig",
     "ColumnSchema",
     "ContinuousFeatures",
+    "ElectraConfig",
     "EmbeddingFeatures",
     "GPT2Config",
     "Head",
+    "LongformerConfig",
     "MLPBlock",
     "MaskingInfo",
     "MergeTabular",
     "Model",
     "NextItemPredictionTask",
     "PretrainedEmbeddingFeatures",
+    "ReformerConfig",
+    "RobertaConfig",
     "Schema",
     "SequenceEmbeddingFeatures",
     "SequentialBlock",
@@ -66,6 +86,7 @@ __all__ = [
     "TabularLayerNorm",
     "TabularSequenceFeatures",
     "Tags",
+    "TransfoXLConfig",
     "Trainer",
     "TransformerBlock",
     "TransformerEncoder",

@@ -20,11 +20,11 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..config.transformer import T4RecConfig
 from ..masking import MaskingInfo
+from .transformer import ACTIVATIONS
 from .transformer import dropout, init_dense_
 
 # which masking schemes each architecture supports
@@ -56,20 +56,6 @@ def check_masking_compat(arch: str, masking_name: Optional[str]) -> None:
         )
 
 
-# flax.linen's activations by name (``nn.gelu`` is the tanh approximation)
-_ACTIVATIONS = {
-    "relu": F.relu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
-    "tanh": torch.tanh,
-    "sigmoid": torch.sigmoid,
-    "silu": F.silu,
-    "swish": F.silu,
-    "elu": F.elu,
-    "leaky_relu": F.leaky_relu,
-    "softplus": F.softplus,
-}
-
-
 class MLPBlock(nn.Module):
     """Stacked Dense (+ activation, + LayerNorm, + dropout) over the last
     axis; dropout draws from the forward's generator."""
@@ -77,8 +63,8 @@ class MLPBlock(nn.Module):
     def __init__(self, dimensions: Sequence[int], activation: str = "relu",
                  use_norm: bool = False, dropout: float = 0.0, input_dim: Optional[int] = None):
         super().__init__()
-        if activation not in _ACTIVATIONS:
-            raise ValueError(f"unknown activation {activation!r}; known: {sorted(_ACTIVATIONS)}")
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}; known: {sorted(ACTIVATIONS)}")
         self.dimensions = tuple(dimensions)
         self.activation = activation
         self.use_norm = use_norm
@@ -112,7 +98,7 @@ class MLPBlock(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.input_dim is None:
             raise ValueError("MLPBlock has no layers yet: build(input_dim) it first")
-        act = _ACTIVATIONS[self.activation]
+        act = ACTIVATIONS[self.activation]
         for i in range(len(self.dimensions)):
             x = act(getattr(self, f"dense_{i}")(x))
             if self.use_norm:

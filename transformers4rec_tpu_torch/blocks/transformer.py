@@ -1,33 +1,42 @@
-"""The unified transformer body, on the path the XLNet config takes.
+"""The unified transformer body and its per-arch flags.
 
 Counterpart of ``transformers4rec_tpu/blocks/transformer.py``: one encoder
 whose per-arch differences are config flags. All masking folds into ONE
 additive attention bias computed once per forward and shared by the layers.
 
 Ported: bidirectional or causal attention, the T5-style relative position
-bias, learned absolute positions, an optional local window, pre-LN layers
-with the tanh GELU and a final LayerNorm, in float32, and dropout in
-training (on the embeddings, the attention probabilities, the
-feed-forward's hidden layer and both residual branches, where the JAX
-package applies it), drawn from an explicit ``torch.Generator``. Below
-S = 128, and whenever attention dropout is drawn, ``MultiHeadAttention``
-takes the dense path over the composed (B|1, 1|H, S, S) bias; from S = 128
-on it takes ``ops.attention.flash_attention`` (kernels K5 and K6), which
-applies the causal mask and the padding inside the kernel and reads only
-the local window and the relative bias as a tensor. With a learned relative
-bias the fused forward runs and the backward goes through the dense f32
-function, which yields the bias gradient. XLNet's two-stream attention
-(PLM): given a ``perm_mask``, an encoder built with ``two_stream`` runs a
-second, query stream beside the content stream. It starts from a learned
-vector (``query_stream_init``), attends the content stream's keys and values
-through the same attention and feed-forward weights under its own bias,
-which also hides each position from itself, and is what the encoder
-returns. The perm mask is one more additive bias on either path; on the
-flash path the kernels read it, with the relative bias, as one (B, H, S, S)
-tensor. Not ported yet: session packing (``segment_ids``), the post-LN
-BERT family (embedding LayerNorm, erf GELU), axial positions, segment
-memory, shared layers, per-layer attention patterns and LSH attention;
-``T4RecConfig.to_encoder`` raises ``NotImplementedError`` for them.
+bias, learned absolute positions, an optional local window, in float32,
+and dropout in training (on the embeddings, the attention probabilities,
+the feed-forward's hidden layer and both residual branches, where the JAX
+package applies it), drawn from an explicit ``torch.Generator``. Layers are
+pre-LN with a final LayerNorm (``norm_first=True``: XLNet, GPT-2,
+TransfoXL) or post-LN without one (the BERT family: residual, then
+LayerNorm), optionally with a LayerNorm on the embeddings after the
+position add (``embed_layer_norm``); the feed-forward's activation is taken
+by flax's name (``gelu`` is the tanh form) or ``gelu_exact`` (the erf form
+of HF's BERT). ``share_layers`` (ALBERT) runs one layer, ``layer_shared``,
+``n_layer`` times. Segment memory (TransfoXL/XLNet ``mem_len``): given
+``mems`` (``init_mems``), each layer's keys and values take the cached,
+detached inputs of that layer at positions −M..−1, valid where
+``mems["pad"]`` is true; ``return_mems=True`` also returns the next
+segment's memory.
+
+Below S = 128, whenever attention dropout is drawn, and whenever memory is
+given, ``MultiHeadAttention`` takes the dense path over the composed
+(B|1, 1|H, S, M+S) bias; otherwise it takes ``ops.attention.flash_attention``
+(kernels K5 and K6), which applies the causal mask and the padding inside
+the kernel and reads only the local window, the perm mask and the relative
+bias as a tensor. With a learned relative bias the fused forward runs and
+the backward goes through the dense f32 function, which yields the bias
+gradient. XLNet's two-stream attention (PLM): given a ``perm_mask``, an
+encoder built with ``two_stream`` runs a second, query stream beside the
+content stream. It starts from a learned vector (``query_stream_init``),
+attends the content stream's keys and values through the same attention
+and feed-forward weights under its own bias, which also hides each
+position from itself, and is what the encoder returns. Not ported yet:
+session packing (``segment_ids``), axial positions, per-layer attention
+patterns and LSH attention; ``T4RecConfig.to_encoder`` raises
+``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -75,25 +84,41 @@ def make_attention_bias(
     dtype: torch.dtype = torch.float32,
     query_stream: bool = False,
     device=None,
+    mem_len: int = 0,
+    mem_pad: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Compose the masking variants into one additive (B|1, 1, S, S) bias.
+    """Compose the masking variants into one additive (B|1, 1, S, M+S) bias.
 
     pad_mask: (B, S) bool — True at valid (non-pad) positions.
     perm_mask: (B, S, S) — 1 where query i must NOT attend key j.
     local_window: each query attends keys within ±window.
     query_stream: the two-stream attention's query stream, which also may not
         attend its own position.
+    mem_len / mem_pad: segment memory, M cached keys at positions −M..−1,
+        valid where ``mem_pad`` (B, M) is True (all valid when not given).
     """
     if pad_mask is not None:
         device = pad_mask.device
-    bias = torch.zeros((1, 1, seq_len, seq_len), dtype=dtype, device=device)
-    pos = torch.arange(seq_len, device=device)
+    elif mem_pad is not None:
+        device = mem_pad.device
+    bias = torch.zeros((1, 1, seq_len, mem_len + seq_len), dtype=dtype, device=device)
+    q_pos = torch.arange(seq_len, device=device)
+    k_pos = torch.arange(-mem_len, seq_len, device=device)
     if causal:
-        bias = bias.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
-    if pad_mask is not None:
-        key_bias = torch.where(pad_mask, 0.0, NEG_INF).to(dtype)
+        bias = bias.masked_fill(k_pos[None, :] > q_pos[:, None], NEG_INF)
+    keys_ok = pad_mask
+    if mem_len and (pad_mask is not None or mem_pad is not None):
+        B = (pad_mask if pad_mask is not None else mem_pad).shape[0]
+        mp = mem_pad if mem_pad is not None else torch.ones(
+            (B, mem_len), dtype=torch.bool, device=device)
+        cur = pad_mask if pad_mask is not None else torch.ones(
+            (B, seq_len), dtype=torch.bool, device=device)
+        keys_ok = torch.cat([mp, cur], dim=1)
+    if keys_ok is not None:
+        key_bias = torch.where(keys_ok, 0.0, NEG_INF).to(dtype)
         bias = bias + key_bias[:, None, None, :]
-    extra = make_extra_bias(seq_len, perm_mask, local_window, query_stream, dtype, device)
+    extra = make_extra_bias(seq_len, perm_mask, local_window, query_stream, dtype, device,
+                            mem_len=mem_len)
     if extra is not None:
         bias = bias + extra
     return bias
@@ -106,23 +131,28 @@ def make_extra_bias(
     query_stream: bool = False,
     dtype: torch.dtype = torch.float32,
     device=None,
+    mem_len: int = 0,
 ) -> Optional[torch.Tensor]:
     """The additive components that are neither causal nor padding (the
-    perm mask and the local window), or None: (B|1, 1, S, S). Kept apart so
+    perm mask and the local window), or None: (B|1, 1, S, M+S). Kept apart so
     that the flash kernel can apply causal and padding itself and read a
     bias only when one exists. The content stream may always see its own
-    position, the query stream never."""
+    position, the query stream never; the perm mask restricts the current
+    segment only, so both streams see every memory key."""
     if perm_mask is not None:
         device = perm_mask.device
     extra = None
     if local_window is not None:
-        pos = torch.arange(seq_len, device=device)
-        far = (pos[None, :] - pos[:, None]).abs() > local_window
+        q_pos = torch.arange(seq_len, device=device)
+        k_pos = torch.arange(-mem_len, seq_len, device=device)
+        far = (k_pos[None, :] - q_pos[:, None]).abs() > local_window
         extra = torch.where(far, NEG_INF, 0.0).to(dtype)[None, None]
     if perm_mask is not None:
         eye = torch.eye(seq_len, dtype=torch.bool, device=device)[None]
         block = perm_mask.bool()
         block = block | eye if query_stream else block & ~eye
+        if mem_len:
+            block = torch.cat([block.new_zeros((*block.shape[:2], mem_len)), block], dim=2)
         perm_bias = torch.where(block, NEG_INF, 0.0).to(dtype)[:, None]
         extra = perm_bias if extra is None else extra + perm_bias
     return extra
@@ -139,7 +169,8 @@ class RelativePositionBias(nn.Module):
         self.num_buckets = num_buckets
         self.max_distance = max_distance
         self.bidirectional = bidirectional
-        self.rel_bias = nn.Parameter(torch.empty(num_buckets, num_heads))
+        # zeros until ``_init_weights`` draws it: a lone encoder is finite
+        self.rel_bias = nn.Parameter(torch.zeros(num_buckets, num_heads))
 
     def _init_weights(self, generator: torch.Generator) -> None:
         nn.init.normal_(self.rel_bias, 0.0, 0.02, generator=generator)
@@ -166,12 +197,14 @@ class RelativePositionBias(nn.Module):
         val_large = val_large.clamp_max(num_buckets - 1)
         return ret + torch.where(is_small, n, val_large)
 
-    def forward(self, seq_len: int) -> torch.Tensor:
-        pos = torch.arange(seq_len, device=self.rel_bias.device)
-        rel = pos[None, :] - pos[:, None]  # key - query
+    def forward(self, seq_len: int, mem_len: int = 0) -> torch.Tensor:
+        dev = self.rel_bias.device
+        q_pos = torch.arange(seq_len, device=dev)
+        k_pos = torch.arange(-mem_len, seq_len, device=dev)  # memory keys sit in the past
+        rel = k_pos[None, :] - q_pos[:, None]  # key - query
         buckets = self._bucket(rel, self.bidirectional, self.num_buckets, self.max_distance)
-        bias = self.rel_bias[buckets]  # (S, S, H)
-        return bias.permute(2, 0, 1)[None]  # (1, H, S, S)
+        bias = self.rel_bias[buckets]  # (S, M+S, H)
+        return bias.permute(2, 0, 1)[None]  # (1, H, S, M+S)
 
 
 class MultiHeadAttention(nn.Module):
@@ -231,17 +264,41 @@ class MultiHeadAttention(nn.Module):
         return self.out(ctx.reshape(B, Sq, H * Dh)), (k, v)
 
 
+# flax.linen's activations by name (``nn.gelu`` is the tanh approximation)
+ACTIVATIONS = {
+    "relu": F.relu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "silu": F.silu,
+    "swish": F.silu,
+    "elu": F.elu,
+    "leaky_relu": F.leaky_relu,
+    "softplus": F.softplus,
+}
+# the layer's activations: flax's, and the erf GELU of HF's BERT family
+LAYER_ACTIVATIONS = {**ACTIVATIONS, "gelu_exact": F.gelu}
+
+
 class TransformerLayer(nn.Module):
-    """One pre-LN transformer layer (the XLNet/GPT-2 form): attention and a
-    feed-forward block with the tanh GELU (flax's default ``nn.gelu``), each
-    on a LayerNorm of its input and added back to it. Given a query stream,
-    the same attention and feed-forward weights run it after the content
-    stream, on the content stream's keys and values."""
+    """One transformer layer: attention and a feed-forward block. Pre-LN
+    (``norm_first``, the XLNet/GPT-2 form: each block on a LayerNorm of its
+    input, added back to it) or post-LN (the BERT form: ``ln1(h + attn)``,
+    then ``ln2(h + ffn(h))``). Given a query stream, the same attention and
+    feed-forward weights run it after the content stream, on the content
+    stream's keys and values. Given ``mem`` (B, M, D), the cached inputs of
+    this layer, the keys and values also cover them (dense path)."""
 
     def __init__(self, d_model: int, n_head: int, d_ff: int, layer_norm_eps: float = 1e-12,
-                 dropout: float = 0.0, attn_dropout: float = 0.0, causal: bool = False):
+                 dropout: float = 0.0, attn_dropout: float = 0.0, causal: bool = False,
+                 activation: str = "gelu", norm_first: bool = True):
         super().__init__()
+        if activation not in LAYER_ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}; "
+                             f"known: {sorted(LAYER_ACTIVATIONS)}")
         self.dropout = dropout
+        self.activation = activation
+        self.norm_first = norm_first
         self.attn = MultiHeadAttention(d_model, n_head, attn_dropout, causal)
         self.ln1 = nn.LayerNorm(d_model, eps=layer_norm_eps)
         self.ln2 = nn.LayerNorm(d_model, eps=layer_norm_eps)
@@ -258,31 +315,47 @@ class TransformerLayer(nn.Module):
                 flash_ctx: Optional[tuple] = None,
                 query_hidden: Optional[torch.Tensor] = None,
                 query_bias: Optional[torch.Tensor] = None,
-                query_flash_ctx: Optional[tuple] = None):
+                query_flash_ctx: Optional[tuple] = None,
+                mem: Optional[torch.Tensor] = None):
         """``(hidden, query_hidden)``; the second is None without a query
         stream. Dropout draws: the content stream's, then the query
         stream's."""
+        act = LAYER_ACTIVATIONS[self.activation]
+
         def drop(t):
             return dropout(t, self.dropout, training, generator)
 
         def ffn(t):
-            h = drop(F.gelu(self.ffn_in(self.ln2(t)), approximate="tanh"))
-            return t + drop(self.ffn_out(h))
+            return self.ffn_out(drop(act(self.ffn_in(t))))
 
-        x = self.ln1(hidden)
-        ctx, kv = self.attn(x, x, bias, training, generator, flash_ctx)
-        hidden = ffn(hidden + drop(ctx))
+        def blocks(t, ctx):
+            if self.norm_first:
+                t = t + drop(ctx)
+                return t + drop(ffn(self.ln2(t)))
+            t = self.ln1(t + drop(ctx))
+            return self.ln2(t + drop(ffn(t)))
+
+        x = self.ln1(hidden) if self.norm_first else hidden
+        kv_x = x
+        if mem is not None:
+            # LayerNorm is positionwise: ln1 of the memory rows is the rows'
+            # ln1. The memory path is dense.
+            kv_x = torch.cat([self.ln1(mem) if self.norm_first else mem, x], dim=1)
+            flash_ctx = query_flash_ctx = None
+        ctx, kv = self.attn(x, kv_x, bias, training, generator, flash_ctx)
+        hidden = blocks(hidden, ctx)
         if query_hidden is not None:
-            q_ctx, _ = self.attn(self.ln1(query_hidden), x, query_bias, training, generator,
-                                 query_flash_ctx, shared_kv=kv)
-            query_hidden = ffn(query_hidden + drop(q_ctx))
+            qx = self.ln1(query_hidden) if self.norm_first else query_hidden
+            q_ctx, _ = self.attn(qx, kv_x, query_bias, training, generator, query_flash_ctx,
+                                 shared_kv=kv)
+            query_hidden = blocks(query_hidden, q_ctx)
         return hidden, query_hidden
 
 
 class TransformerEncoder(nn.Module):
     """The unified body: ``forward(inputs_embeds, pad_mask, perm_mask) → (B, S,
     d_model)``, the query stream's states when two streams run (``two_stream``
-    and a ``perm_mask``)."""
+    and a ``perm_mask``); with ``return_mems`` the pair ``(states, mems)``."""
 
     def __init__(
         self,
@@ -298,6 +371,11 @@ class TransformerEncoder(nn.Module):
         attn_dropout: float = 0.0,
         max_position: int = 512,
         two_stream: bool = False,
+        activation: str = "gelu",
+        norm_first: bool = True,
+        embed_layer_norm: bool = False,
+        share_layers: bool = False,
+        mem_len: int = 0,
     ):
         super().__init__()
         if pos_encoding not in ("relative_bias", "learned_absolute", "none"):
@@ -309,29 +387,57 @@ class TransformerEncoder(nn.Module):
         self.local_window = local_window
         self.dropout = dropout
         self.attn_dropout = attn_dropout
+        self.norm_first = norm_first
+        self.share_layers = share_layers
+        self.mem_len = mem_len
         d_ff = d_ff or 4 * d_model
-        self.layers = nn.ModuleList(
-            TransformerLayer(d_model, n_head, d_ff, layer_norm_eps, dropout, attn_dropout,
-                             causal)
-            for _ in range(n_layer)
-        )
+
+        def layer():
+            return TransformerLayer(d_model, n_head, d_ff, layer_norm_eps, dropout, attn_dropout,
+                                    causal, activation, norm_first)
+
+        if share_layers:
+            # ALBERT: one layer run n_layer times, under flax's name
+            self.layer_shared = layer()
+        else:
+            self.layers = nn.ModuleList(layer() for _ in range(n_layer))
         if pos_encoding == "learned_absolute":
-            self.position_embedding = nn.Parameter(torch.empty(max_position, d_model))
+            # zeros until ``_init_weights`` draws them (``Model`` does)
+            self.position_embedding = nn.Parameter(torch.zeros(max_position, d_model))
         self.rel_pos = (
             RelativePositionBias(n_head, bidirectional=not causal)
             if pos_encoding == "relative_bias" else None
         )
-        self.ln_f = nn.LayerNorm(d_model, eps=layer_norm_eps)
+        if embed_layer_norm:
+            self.ln_emb = nn.LayerNorm(d_model, eps=layer_norm_eps)
+        self.embed_layer_norm = embed_layer_norm
+        if norm_first:
+            # pre-LN ends with a LayerNorm; post-LN normalised inside every layer
+            self.ln_f = nn.LayerNorm(d_model, eps=layer_norm_eps)
         self.two_stream = two_stream
         if two_stream:
             # the query stream's state before the first layer, at every position
-            self.query_stream_init = nn.Parameter(torch.empty(d_model))
+            self.query_stream_init = nn.Parameter(torch.zeros(d_model))
 
     def _init_weights(self, generator: torch.Generator) -> None:
         if self.pos_encoding == "learned_absolute":
             nn.init.normal_(self.position_embedding, 0.0, 0.02, generator=generator)
         if self.two_stream:
             nn.init.normal_(self.query_stream_init, 0.0, 0.02, generator=generator)
+
+    def stack(self) -> list:
+        """The layers in the order they run (the shared one n_layer times)."""
+        return [self.layer_shared] * self.n_layer if self.share_layers else list(self.layers)
+
+    def init_mems(self, batch_size: int, device=None) -> dict:
+        """Empty segment memory: (L, B, M, D) cached layer inputs and a (B, M)
+        validity mask, all False, so that the first segment runs as one
+        without memory. Thread the returned dict through successive
+        ``forward(..., mems=..., return_mems=True)`` calls."""
+        device = device if device is not None else next(self.parameters()).device
+        return {"states": torch.zeros((self.n_layer, batch_size, self.mem_len, self.d_model),
+                                      device=device),
+                "pad": torch.zeros((batch_size, self.mem_len), dtype=torch.bool, device=device)}
 
     def forward(
         self,
@@ -341,10 +447,18 @@ class TransformerEncoder(nn.Module):
         segment_ids: Optional[torch.Tensor] = None,
         training: bool = False,
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+        mems: Optional[dict] = None,
+        return_mems: bool = False,
+    ):
         if segment_ids is not None:
+            if mems is not None:
+                raise NotImplementedError(
+                    "segment_ids (session packing) cannot be combined with mem_len segment "
+                    "recurrence")
             raise NotImplementedError("session packing (segment_ids) is not ported yet")
         B, S = inputs_embeds.shape[:2]
+        M = mems["states"].shape[2] if mems is not None else 0
+        mem_pad = mems["pad"] if mems is not None else None
         hidden = inputs_embeds.float()
         abs_pos = None
         if self.pos_encoding == "learned_absolute":
@@ -355,9 +469,10 @@ class TransformerEncoder(nn.Module):
                 )
             abs_pos = self.position_embedding[:S][None]
             hidden = hidden + abs_pos
-        rel_bias = self.rel_pos(S) if self.rel_pos is not None else None
+        rel_bias = self.rel_pos(S, M) if self.rel_pos is not None else None
         two_stream = self.two_stream and perm_mask is not None
-        flash = use_flash(S, self.attn_dropout, training)
+        # the memory path is dense
+        flash = use_flash(S, self.attn_dropout, training) and mems is None
 
         def biases(query_stream: bool):
             """``(bias, flash_ctx)`` of one stream: the composed bias of the
@@ -374,7 +489,7 @@ class TransformerEncoder(nn.Module):
             bias = make_attention_bias(
                 pad_mask, S, causal=self.causal, perm_mask=perm_mask,
                 local_window=self.local_window, query_stream=query_stream,
-                device=hidden.device,
+                device=hidden.device, mem_len=M, mem_pad=mem_pad,
             )
             return (bias if rel_bias is None else bias + rel_bias), None
 
@@ -385,10 +500,36 @@ class TransformerEncoder(nn.Module):
             if abs_pos is not None:
                 query_hidden = query_hidden + abs_pos
             query_bias, query_flash_ctx = biases(True)
+        if self.embed_layer_norm:
+            hidden = self.ln_emb(hidden)
+            if query_hidden is not None:
+                query_hidden = self.ln_emb(query_hidden)
         hidden = dropout(hidden, self.dropout, training, generator)
         if query_hidden is not None:
             query_hidden = dropout(query_hidden, self.dropout, training, generator)
-        for layer in self.layers:
+        collect = return_mems and self.mem_len > 0
+        new_states = []
+        for i, layer in enumerate(self.stack()):
+            mem = mems["states"][i] if mems is not None else None
+            if collect:
+                ext = hidden if mem is None else torch.cat([mem, hidden], dim=1)
+                new_states.append(self._last(ext).detach())
             hidden, query_hidden = layer(hidden, bias, training, generator, flash_ctx,
-                                         query_hidden, query_bias, query_flash_ctx)
-        return self.ln_f(query_hidden if query_hidden is not None else hidden)
+                                         query_hidden, query_bias, query_flash_ctx, mem)
+        out = query_hidden if query_hidden is not None else hidden
+        if self.norm_first:
+            out = self.ln_f(out)
+        if not collect:
+            return out
+        cur_ok = pad_mask if pad_mask is not None else torch.ones(
+            (B, S), dtype=torch.bool, device=out.device)
+        ext_ok = cur_ok if mem_pad is None else torch.cat([mem_pad, cur_ok], dim=1)
+        return out, {"states": torch.stack(new_states), "pad": self._last(ext_ok)}
+
+    def _last(self, t: torch.Tensor) -> torch.Tensor:
+        """The last ``mem_len`` positions of (B, T, ...) ``t``, left-padded
+        with zeros (False) when T is shorter."""
+        if t.shape[1] >= self.mem_len:
+            return t[:, t.shape[1] - self.mem_len:]
+        pad = t.new_zeros((t.shape[0], self.mem_len - t.shape[1], *t.shape[2:]))
+        return torch.cat([pad, t], dim=1)

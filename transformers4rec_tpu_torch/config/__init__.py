@@ -1,3 +1,27 @@
-from .transformer import GPT2Config, T4RecConfig, XLNetConfig, transformer_registry
+from .transformer import (
+    AlbertConfig,
+    BertConfig,
+    ElectraConfig,
+    GPT2Config,
+    LongformerConfig,
+    ReformerConfig,
+    RobertaConfig,
+    T4RecConfig,
+    TransfoXLConfig,
+    XLNetConfig,
+    transformer_registry,
+)
 
-__all__ = ["GPT2Config", "T4RecConfig", "XLNetConfig", "transformer_registry"]
+__all__ = [
+    "AlbertConfig",
+    "BertConfig",
+    "ElectraConfig",
+    "GPT2Config",
+    "LongformerConfig",
+    "ReformerConfig",
+    "RobertaConfig",
+    "T4RecConfig",
+    "TransfoXLConfig",
+    "XLNetConfig",
+    "transformer_registry",
+]

@@ -16,9 +16,12 @@ for the port's counterpart module (a whole ``Model``, or a lone
   ``encoder.query_stream_init``), and embedding tables keep their padded
   row count.
 
-The XLNet and the GPT-2 trees are carried, with the input options of the
-paper's command line. Their weights keep their flax names in the port's
-modules, so they need no rule of their own: the per-feature LayerNorms
+Every registered arch but Reformer is carried (XLNet, GPT-2, the BERT
+family, TransfoXL), with the input options of the paper's command line.
+These weights keep their flax names in the port's modules, so they need
+no rule of their own: ALBERT's one shared layer (``layer_shared``, the
+port's ``encoder.layer_shared``), the BERT family's embedding LayerNorm
+(``ln_emb``), the per-feature LayerNorms
 (``TabularLayerNorm_{i}/ln_{feature}``), the continuous projection
 (``continuous_projection_{i}``), soft embeddings
 (``soft_{column}/projection`` and ``soft_{column}/embedding_table``),

@@ -28,13 +28,21 @@ with the JAX ``examples/paper_repro/transf_exp_main.py`` defaults
 PLM has no loss-row budget, so the cross-entropy takes all 2,560 positions
 of a batch. ``eval_on_last_item_seq_only=False`` evaluates on every
 position instead of the last item (also under MLM and CLM).
+
+``arch=`` replaces a scheme's default architecture by a registry name
+(``transformer_registry``: ``"albert"``, ``"longformer"``, ``"transfoxl"``,
+...), as the experiment script's ``--model_type`` does: the same widths,
+tables, sessions and optimizer under that arch's encoder (for example
+``build_trainer(scheme="mlm", arch="longformer", seq=LONG_SEQ,
+batch=LONG_BATCH)``: Longformer-MLM on sessions of 256, its local window
+of 8 a (1, 1, S, S) bias of the flash kernels).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from .config import GPT2Config, XLNetConfig
+from .config import GPT2Config, XLNetConfig, transformer_registry
 from .data.synthetic import synthetic_ecommerce_data_schema
 from .features import TabularSequenceFeatures
 from .model import Model, NextItemPredictionTask
@@ -82,7 +90,7 @@ def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
                 seed: int = 0, top_k=None, dropout: float = 0.1,
                 vocab_parallel_group=None, scheme: str = "mlm",
                 item_dim: Optional[int] = None,
-                eval_on_last_item_seq_only: bool = True) -> Model:
+                eval_on_last_item_seq_only: bool = True, arch: Optional[str] = None) -> Model:
     """The flagship model with weights drawn from ``seed``, on ``device``
     (CUDA unless ``"cpu"``): XLNet-MLM on sessions of 20, with
     ``scheme="clm"`` GPT-2-CLM on sessions of 256, with ``scheme="plm"``
@@ -91,8 +99,11 @@ def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
     its rows; loss, evaluation and top-k go over the group. ``item_dim``
     sets the item table's width (the column's ``embedding_dims``; 64 by
     default), to which the output is tied through a d_model→item_dim
-    projection: ``PAPER_ITEM_DIM`` is the paper's XLNet-MLM command's."""
+    projection: ``PAPER_ITEM_DIM`` is the paper's XLNet-MLM command's.
+    ``arch`` names a registered architecture in place of the scheme's."""
     config, masking_kwargs, default_seq, _ = _scheme(scheme)
+    if arch is not None:
+        config = transformer_registry.parse(arch)
     seq = default_seq if seq is None else seq
     input_module = TabularSequenceFeatures.from_schema(
         schema(num_items, seq), d_output=d_model, masking=scheme, aggregation="concat",
@@ -137,7 +148,7 @@ def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=N
     ``streamed_table_update`` gives the tables an f32 moment and the item
     table the two-pass streamed update. ``scheme`` picks the configuration
     (and its batch size, which ``batch`` overrides). ``model_kwargs``
-    (``num_items``, ``d_model``, ``seq``, ...) go to ``build_model``."""
+    (``num_items``, ``d_model``, ``seq``, ``arch``, ...) go to ``build_model``."""
     _, _, default_seq, default_batch = _scheme(scheme)
     seq = model_kwargs.get("seq") or default_seq
     batch = default_batch if batch is None else batch

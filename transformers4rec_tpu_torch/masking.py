@@ -15,13 +15,16 @@ its training branch (Bernoulli masking with the ≥1-masked / ≥1-unmasked
 guarantee), and ``PermutationLanguageModeling`` (XLNet's scheme: spans of
 masked items, a random factorisation order as ``perm_mask`` for the
 two-stream encoder; in evaluation and inference the causal ``perm_mask``,
-with the last item hidden from every query, or on every position). Random
+with the last item hidden from every query, or on every position) and
+``ReplacementLanguageModeling`` (ELECTRA's RTD: MLM's masking, and the
+helpers that build a discriminator's corrupted inputs and labels from a
+generator's logits or from the batch's own ids). Random
 draws come from an explicit ``torch.Generator`` on the tensors' device; a
 caller may instead hand ``MaskSequence.forward`` a ready ``MaskingInfo``
 (``masking_info=``), which skips the draw: that is how two devices, or two
-packages, are given the same mask. Not ported yet (raise
-``NotImplementedError``): session packing (``segment_ids``) and the RTD
-scheme.
+packages, are given the same mask. The RTD helpers take a generator, or
+the draw itself, the same way. Not ported yet (raises
+``NotImplementedError``): session packing (``segment_ids``).
 """
 
 from __future__ import annotations
@@ -310,3 +313,65 @@ class PermutationLanguageModeling(MaskSequence):
             perm_mask = causal.expand(B, S, S)
         return MaskingInfo(targets=labels, mask=mask, input_schema=mask, perm_mask=perm_mask,
                            pad_mask=non_pad)
+
+
+@masking_registry.register("rtd", "replacement")
+class ReplacementLanguageModeling(MaskedLanguageModeling):
+    """ELECTRA's replacement-token detection: MLM's masking for the
+    generator, and helpers that build the discriminator's corrupted inputs
+    and labels. Each helper draws from ``generator`` (on the ids' device) or
+    takes its draw handed in, so that two devices, or two packages, can be
+    given the same noise."""
+
+    def __init__(self, hidden_size: int = 0, padding_idx: int = 0,
+                 eval_on_last_item_seq_only: bool = True, mlm_probability: float = 0.15,
+                 sample_from_batch: bool = False):
+        super().__init__(hidden_size, padding_idx, eval_on_last_item_seq_only, mlm_probability)
+        self.sample_from_batch = sample_from_batch
+
+    @staticmethod
+    def sample_from_softmax(logits: torch.Tensor, generator=None,
+                            uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One id per row of ``logits`` (..., V) by the Gumbel-max trick;
+        ``uniform`` (the shape of ``logits``, in [0, 1)) replaces the draw."""
+        if uniform is None:
+            uniform = torch.rand(logits.shape, generator=generator, device=logits.device,
+                                 dtype=logits.dtype)
+        gumbel = -torch.log(-torch.log(uniform + 1e-9) + 1e-9)
+        return torch.argmax(logits + gumbel, dim=-1)
+
+    def get_fake_tokens(self, item_ids: torch.Tensor, targets: torch.Tensor,
+                        logits: Optional[torch.Tensor] = None, generator=None,
+                        draw: Optional[torch.Tensor] = None):
+        """``(corrupted (B, S), discriminator labels (B, S) bool, samples)``.
+        Every position is sampled, only the masked ones (targets not padding)
+        are replaced: from the generator's ``logits`` (B, S, V), or, with
+        ``sample_from_batch`` or no logits, from the batch's own non-pad ids.
+        A label is True where the id changed. ``draw`` is the helper's draw:
+        the uniforms of ``sample_from_softmax`` or the ranks of
+        ``sample_from_batch_ids``."""
+        mask = targets != self.padding_idx
+        if self.sample_from_batch or logits is None:
+            samples = self.sample_from_batch_ids(item_ids, generator, draw)
+        else:
+            samples = self.sample_from_softmax(logits, generator, draw)
+        corrupted = torch.where(mask, samples.to(item_ids.dtype), item_ids)
+        # a sample equal to the true id stays "real"
+        return corrupted, (corrupted != item_ids) & mask, samples
+
+    def sample_from_batch_ids(self, item_ids: torch.Tensor, generator=None,
+                              draws: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, S) ids drawn uniformly from the batch's non-pad ids: a draw k
+        in 1..n (n the non-pad count) picks the k-th non-pad id, found by
+        ``searchsorted`` over the running count. ``draws`` (B·S,) replaces
+        the draw."""
+        B, S = item_ids.shape
+        flat = item_ids.reshape(-1)
+        cum = torch.cumsum((flat != self.padding_idx).to(torch.int64), 0)
+        total = cum[-1].clamp_min(1)
+        if draws is None:
+            u = torch.rand(B * S, generator=generator, device=item_ids.device,
+                           dtype=torch.float64)
+            draws = torch.minimum((u * total).long() + 1, total)
+        idx = torch.searchsorted(cum, draws.to(cum.dtype), side="left").clamp(0, B * S - 1)
+        return flat[idx].reshape(B, S)

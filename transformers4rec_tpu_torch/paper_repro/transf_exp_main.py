@@ -21,6 +21,13 @@ As in the JAX experiment script, some flags are accepted and read nowhere:
 the reference's unused ones (``--loss_type``, ``--summary_type``, ...).
 ``--stochastic_shared_embeddings_replacement_prob`` only switches swap
 noise on: its probability is the transformation's default, 0.1.
+
+Every ``--model_type`` of the JAX script builds: ``xlnet``, ``gpt2``,
+``bert``, ``roberta``, ``electra``, ``albert``, ``longformer`` and
+``transfoxl``, with ``--pre_ln`` turning the BERT family's post-LN layers
+and embedding LayerNorm into the pre-LN form, and ``--rtd`` (with
+``--rtd_sample_from_batch``) ELECTRA's RTD masking. ``reformer`` raises
+``NotImplementedError`` naming what is not ported.
 """
 
 from __future__ import annotations
@@ -303,14 +310,13 @@ class Run(NamedTuple):
     top_ids: np.ndarray
 
 
-def run(argv=None) -> Run:
-    """Parse ``argv``, load or make the data, build the model and trainer,
-    walk the time windows, predict the top 10 of the last evaluation
-    window's ``valid.parquet`` and write ``results.json``."""
+def setup(argv=None):
+    """Parse ``argv``, load or make the data and build the model and its
+    trainer: ``(args, data_path, trainer)``, what ``run`` then walks the
+    time windows with."""
     from ..data.synthetic import synthetic_ecommerce_data_schema
     from ..schema import Schema
     from ..trainer import T4RecTrainingArguments, Trainer
-    from ..utils.examples_utils import fit_and_evaluate
 
     args = build_parser().parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
@@ -379,8 +385,16 @@ def run(argv=None) -> Run:
         report_to=args.report_to,
     )
     model = get_model(args, schema, device=device)
-    trainer = Trainer(model=model, args=targs, schema=schema, device=device)
+    return args, data_path, Trainer(model=model, args=targs, schema=schema, device=device)
 
+
+def run(argv=None) -> Run:
+    """``setup(argv)``, then walk the time windows, predict the top 10 of
+    the last evaluation window's ``valid.parquet`` and write
+    ``results.json``."""
+    from ..utils.examples_utils import fit_and_evaluate
+
+    args, data_path, trainer = setup(argv)
     results = fit_and_evaluate(
         trainer, args.start_time_window_index, args.final_time_window_index, data_path,
         no_incremental_training=args.no_incremental_training,

@@ -37,3 +37,7 @@ class Registry:
                 )
             return self._items[key]
         return name_or_obj
+
+    def keys(self):
+        """The registered names."""
+        return self._items.keys()
