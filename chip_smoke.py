@@ -116,6 +116,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     (``flagship.build_trainer(scheme=, arch=)``: K5 and K6a with the local
     window's bias, K5 with the relative bias), 8 steps and one evaluation
     batch each;
+9b'''. T, the JAX benchmark's configurations 4 and 5 at full width: T1
+    ``flagship.build_large_vocab_trainer`` (XLNet-MLM over 4,000,000 items,
+    sampled softmax over 8,192 log-uniform negatives) takes a cold step,
+    8 timed steps and a window under ``torch.profiler`` (the device's busy
+    share, the memory peak), then one training step card against CPU with
+    one mask and one draw of negatives, ``Model.evaluate`` over 2 batches
+    (K3 at V = 4,000,001, held against its plain version and timed at that
+    shape) and the top-k of 24 sessions, each against the CPU; T2
+    ``flagship.build_multitask_trainer`` (ELECTRA-RTD with next-item,
+    ``click`` and ``play_percentage`` tasks) trains 1 + 8 steps from
+    Parquet files of the music-streaming fixture (K1 and K2 once a step),
+    ``Trainer.evaluate`` (K3 once a batch) and one training step against
+    the CPU, and the HTTP server's top-k of the next-item task;
 9c. P1, XLNet-PLM at full width (``flagship.build_model(scheme="plm")``:
     permutation language modelling, two-stream attention, sessions of 20):
     ``Model.evaluate`` over the 4 batches on the last item (K3 at 128 rows)
@@ -318,20 +331,47 @@ def ce_rank_inputs(n: int, rows: int, vocab_size: int, e: int, beta_lo: float,
             torch.from_numpy(labels).to(device))
 
 
+def near_ties(x, W, labels, ll, vocab_size: int, rows: torch.Tensor) -> torch.Tensor:
+    """For each of ``rows``, the logits other than the label's own that two
+    summation orders may put on either side of the label logit: a float32
+    sum of E products of the bf16-rounded operands (as K3 and its plain
+    version take them) is within E·2⁻²⁴·Σ|x_e·w_e| of the exact sum in any
+    order, so the two devices can disagree only where the plain logit lies
+    within three such bounds of ``ll`` (both sums' errors and the plain
+    one's own)."""
+    xb = x[rows].to(torch.bfloat16).float()
+    gamma = 3.0 * x.shape[1] * 2.0 ** -24
+    count = torch.zeros(len(rows), dtype=torch.int64, device=x.device)
+    for c0 in range(0, vocab_size, 1 << 20):
+        c1 = min(c0 + (1 << 20), vocab_size)
+        wb = W[c0:c1].to(torch.bfloat16).float()
+        tol = gamma * (xb.abs() @ wb.abs().T)
+        col = torch.arange(c0, c1, device=x.device)
+        near = ((xb @ wb.T - ll[rows, None]).abs() <= tol) \
+            & (col[None, :] != labels[rows, None].long())
+        count += near.sum(-1)
+    return count
+
+
 def check_ce_rank(name: str, n: int, rows: int, vocab_size: int, smooth: bool,
-                  beta_lo: float, beta_hi: float, seeds, device="cuda", e: int = 64) -> dict:
+                  beta_lo: float, beta_hi: float, seeds, device="cuda", e: int = 64,
+                  min_exact: float = 0.99) -> dict:
     """K3 against ``ce_rank_plain`` on the same inputs, one call per seed.
 
     Criteria: lse within 1e-4 relative; zsum within 1e-4 of
     max(|zsum|, sqrt(V)), since it is a sum of V logits of both signs whose
-    rounding grows with sqrt(V), not with |zsum|; ranks exact on >= 99% of
-    the rows of all calls and within 2 on every row. The kernel's tensor
-    cores sum each logit in another order than the plain version's matrix
-    product, so a logit within an ulp of the label logit may land on the
-    other side of it."""
+    rounding grows with sqrt(V), not with |zsum|; ranks exact on at least
+    ``min_exact`` (99%) of the rows of all calls and within 2 on every row,
+    and every rank that differs differs by no more than the row's near ties
+    (``near_ties``). The kernel's tensor cores sum each logit in another
+    order than the plain version's matrix product, so a logit within an ulp
+    of the label logit may land on the other side of it; the more columns,
+    the more such logits (at 4,000,001 columns about 4% of the rows hold
+    one, against under 1% at 390,001)."""
     from transformers4rec_tpu_torch.ops import vocab
 
     lse_abs, lse_rel, zs_err, diffs, ranks = 0.0, 0.0, 0.0, [], []
+    unexplained = 0
     for seed in seeds:
         x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, beta_lo, beta_hi, seed, device)
         ll = vocab.label_logits(x, W, labels)
@@ -350,7 +390,12 @@ def check_ce_rank(name: str, n: int, rows: int, vocab_size: int, smooth: bool,
         if smooth:
             scale = zs_p.abs().clamp_min(math.sqrt(vocab_size))
             zs_err = max(zs_err, float(((zs - zs_p).abs() / scale).max()))
-        diffs.append((rank.long() - rank_p.long()).abs().cpu())
+        row_diff = (rank.long() - rank_p.long()).abs()
+        differ = torch.nonzero(row_diff).flatten()
+        if len(differ):
+            ties = near_ties(x, W, labels, ll, vocab_size, differ)
+            unexplained += int((row_diff[differ] > ties).sum())
+        diffs.append(row_diff.cpu())
         ranks.append(rank_p.cpu())
     diff = torch.cat(diffs)
     out = {
@@ -360,6 +405,7 @@ def check_ce_rank(name: str, n: int, rows: int, vocab_size: int, smooth: bool,
         "rank_exact_share": float((diff == 0).float().mean()),
         "rank_max_diff": int(diff.max()),
         "rank_median": float(torch.cat(ranks).float().median()),
+        "rank_diffs_beyond_near_ties": unexplained,
     }
     if smooth:
         out["zsum_max_scaled_err"] = zs_err
@@ -368,9 +414,9 @@ def check_ce_rank(name: str, n: int, rows: int, vocab_size: int, smooth: bool,
         fail(f"ce_rank {name}: lse relative error {lse_rel:.3g} > 1e-4")
     if zs_err > 1e-4:
         fail(f"ce_rank {name}: zsum error {zs_err:.3g} > 1e-4")
-    if out["rank_exact_share"] < 0.99 or out["rank_max_diff"] > 2:
+    if out["rank_exact_share"] < min_exact or out["rank_max_diff"] > 2 or unexplained:
         fail(f"ce_rank {name}: ranks exact on {out['rank_exact_share']:.4f} of rows, "
-             f"max diff {out['rank_max_diff']}")
+             f"max diff {out['rank_max_diff']}, {unexplained} beyond their near ties")
     return out
 
 
@@ -1110,14 +1156,16 @@ def check_evaluate(gpu: dict, cpu: dict, rows_total: int) -> None:
 
 
 # --------------------------------------------------------------------- serve
-def serve_requests(flagship, num_items: int, seq: int, count: int) -> list:
-    """``count`` requests of 1-3 ragged sessions each, all four columns."""
+def serve_requests(flagship, num_items: int, seq: int, count: int, schema=None) -> list:
+    """``count`` requests of 1-3 ragged sessions each, every list column of
+    ``schema`` (the flagship's four by default)."""
     from transformers4rec_tpu_torch.data import synthetic_data
 
     rng = np.random.default_rng(7)
     sizes = rng.integers(1, 4, count)
-    data = synthetic_data(flagship.schema(num_items, seq), num_rows=int(sizes.sum()),
-                          max_session_length=seq, ragged=True, seed=8)
+    schema = schema if schema is not None else flagship.schema(num_items, seq)
+    data = synthetic_data(schema, num_rows=int(sizes.sum()), max_session_length=seq,
+                          ragged=True, seed=8)
     cols = [k[: -len("__values")] for k in data if k.endswith("__values")]
     sessions = {c: [data[f"{c}__values"][a:b].tolist() for a, b in
                     zip(data[f"{c}__offsets"][:-1], data[f"{c}__offsets"][1:])] for c in cols}
@@ -1136,11 +1184,12 @@ def post(url: str, payload: dict) -> dict:
 
 
 def check_topk(got_s, got_i, want_s, want_i, vocab_size: int, what: str,
-               atol: float = 1e-5) -> None:
+               atol: float = 1e-5, lowest_id: int = 1) -> None:
     """Top-k scores within ``atol`` and ids equal wherever neighbouring
-    scores are more than ``atol`` apart."""
+    scores are more than ``atol`` apart; ids in ``[lowest_id, vocab_size)``
+    (``lowest_id`` 0 where the padding row may rank, as in the reference)."""
     got_s, got_i = np.asarray(got_s), np.asarray(got_i)
-    if got_i.shape != want_i.shape or got_i.min() < 1 or got_i.max() >= vocab_size:
+    if got_i.shape != want_i.shape or got_i.min() < lowest_id or got_i.max() >= vocab_size:
         fail(f"{what}: ids shape {got_i.shape} range [{got_i.min()}, {got_i.max()}]")
     if not np.allclose(got_s, want_s, atol=atol, rtol=0):
         fail(f"{what}: scores differ by {np.abs(got_s - want_s).max()}")
@@ -1153,7 +1202,8 @@ def check_topk(got_s, got_i, want_s, want_i, vocab_size: int, what: str,
         fail(f"{what}: top-{want_i.shape[1]} ids differ where scores do not tie")
 
 
-def run_serve(builder, model, example, vocab_size: int, requests: list, device) -> dict:
+def run_serve(builder, model, example, vocab_size: int, requests: list, device,
+              lowest_id: int = 1) -> dict:
     """Export ``model``, serve it over HTTP and hold every answer against an
     in-process ``InferenceRunner`` over the same artifact; the kernel counts
     are set to 0 just before the server starts and read just after it stops."""
@@ -1182,7 +1232,7 @@ def run_serve(builder, model, example, vocab_size: int, requests: list, device) 
         for i, (req, ans) in enumerate(zip(requests, answers)):
             want_s, want_i = runner.predict(req)
             check_topk(ans["item_id_scores"], ans["item_ids"], want_s, want_i, vocab_size,
-                       f"request {i}")
+                       f"request {i}", lowest_id=lowest_id)
     if stats["requests"] != len(requests) or not stats["batches"] < stats["requests"]:
         fail(f"serve: stats {stats} show no coalescing of {len(requests)} requests")
     return {"stats": stats, "wall_s": wall, "launches": launches}
@@ -1636,54 +1686,73 @@ def run_vocab_parallel(flagship, vocab, model, loader, gpu_res: dict, vocab_size
 
 # --------------------------------------------------------------------- train
 def check_training_step(model, cpu_model, batch, extra=(), loss_rtol: float = 1e-4,
-                        extra_rel: float = 5e-3, cpu_sums=None) -> dict:
+                        extra_rel: float = 5e-3, cpu_sums=None, neg_ids=None,
+                        grad_rel: float = 1e-3) -> dict:
     """One training forward and backward of the same weights on the card and
     on the CPU (which takes the plain versions), with one mask, drawn once
     and given to both, and dropout off (both models are built with dropout
-    0). The loss must agree within ``loss_rtol`` relative; the gradients of
-    the item table (the lookup's plus the CE's dW) and of the output
-    projection as ``check_grad`` says; those of the parameters named in
-    ``extra`` within ``extra_rel`` in relative Frobenius norm (5e-3: they lie
-    below every layer's bf16 roundings of q, k, v, P and dS on two devices
-    where attention takes the flash path). ``cpu_sums`` maps a name of
-    ``extra`` to the CPU model's parameters whose gradients add up to it (a
-    shared layer against its unshared copies)."""
+    0). The loss, and each task's, must agree within ``loss_rtol``
+    relative; the gradients of the item table (the lookup's plus the CE's
+    dW) and of the output projection as ``check_grad`` says, within
+    ``grad_rel`` (1e-3) in relative Frobenius norm; those of the parameters
+    named in ``extra`` within ``extra_rel`` in relative Frobenius norm (5e-3:
+    they lie below every layer's bf16 roundings of q, k, v, P and dS on two
+    devices where attention takes the flash path). ``cpu_sums`` maps a name
+    of ``extra`` to the CPU model's parameters whose gradients add up to it
+    (a shared layer against its unshared copies). ``neg_ids`` gives sampled
+    softmax its negatives on both."""
     im = cpu_model.heads[0].input_module
     cb = cpu_model._as_dense(batch)
     info = im.masking.compute_masked_targets(cb[im.item_id].long(), training=True,
                                           generator=torch.Generator().manual_seed(5))
-    grads, losses = {}, {}
+    if neg_ids is not None:
+        info = info.replace(neg_ids=neg_ids)
+    grads, losses, task_losses = {}, {}, {}
     # every field of the mask goes to the device (PLM's perm_mask too)
-    fields = [f for f in ("targets", "mask", "input_schema", "pad_mask", "perm_mask")
+    fields = [f for f in ("targets", "mask", "input_schema", "pad_mask", "perm_mask", "neg_ids")
               if getattr(info, f) is not None]
     for name, m, b in (("cpu", cpu_model, cb), ("cuda", model, model._as_dense(batch))):
         dev_info = info.replace(**{f: getattr(info, f).to(m.device) for f in fields})
         m.zero_grad(set_to_none=True)
-        loss, _ = m(b, targets=b, training=True, masking_info=dev_info)
+        loss, outs = m(b, targets=b, training=True, masking_info=dev_info)
         loss.backward()
         sync(m.device)
         losses[name] = float(loss.detach())
-        task = m.heads[0].tasks[0]
+        task_losses[name] = {t: float(o.loss.detach()) for t, o in outs.items()}
+        projection = m.heads[0].tasks[0].tying_projection
         named = dict(m.named_parameters())
         sums = (cpu_sums or {}) if name == "cpu" else {}
-        grads[name] = (m.heads[0].input_module.item_embedding_table().grad.cpu(),
-                       task.tying_projection.weight.grad.cpu(),
-                       *(sum(named[c].grad.cpu() for c in sums.get(n, (n,))) for n in extra))
+        grads[name] = {"item_table": m.heads[0].input_module.item_embedding_table().grad.cpu(),
+                       **{n: sum(named[c].grad.cpu() for c in sums.get(n, (n,)))
+                          for n in extra}}
+        if projection is not None:  # none where d_model is the table's width
+            grads[name]["projection"] = projection.weight.grad.cpu()
         m.zero_grad(set_to_none=True)
     rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
     if not math.isfinite(losses["cuda"]) or rel > loss_rtol:
         fail(f"training step: loss on the card {losses['cuda']} vs CPU {losses['cpu']}")
-    return {"loss": losses, "targets": int(info.mask.sum()),
-            "item_table_grad": check_grad("training step, item table gradient",
-                                          grads["cuda"][0], grads["cpu"][0]),
-            "projection_grad": check_grad("training step, projection gradient",
-                                          grads["cuda"][1], grads["cpu"][1]),
-            "loss_rel_diff": rel,
-            # a shared layer's parameters by their names in the layer
-            **{n.rsplit("layer_shared." if "layer_shared." in n else ".", 1)[-1] + "_grad": check_grad(
-                f"training step, {n} gradient", grads["cuda"][2 + i], grads["cpu"][2 + i],
-                rel=extra_rel)
-               for i, n in enumerate(extra)}}
+    for t, want in task_losses["cpu"].items():
+        got = task_losses["cuda"][t]
+        if not math.isfinite(got) or abs(got - want) > loss_rtol * abs(want):
+            fail(f"training step: task {t}'s loss on the card {got} vs CPU {want}")
+
+    def short(n: str) -> str:
+        # a shared layer's parameters by their names in the layer, a task's
+        # by its place in the head, others by their last name
+        if "layer_shared." in n:
+            return n.rsplit("layer_shared.", 1)[-1]
+        return n[len("heads.0."):] if n.startswith("heads.0.tasks.") else n.rsplit(".", 1)[-1]
+
+    out = {"loss": losses, "targets": int(info.mask.sum()), "loss_rel_diff": rel,
+           **{f"{g}_grad": check_grad(f"training step, {g} gradient", grads["cuda"][g],
+                                      grads["cpu"][g], rel=grad_rel)
+              for g in ("item_table", "projection") if g in grads["cpu"]},
+           **{short(n) + "_grad": check_grad(f"training step, {n} gradient",
+                                             grads["cuda"][n], grads["cpu"][n], rel=extra_rel)
+              for n in extra}}
+    if len(task_losses["cpu"]) > 1:
+        out["task_losses"] = task_losses
+    return out
 
 
 def run_train(flagship, vocab, card: str, streamed: bool = False) -> dict:
@@ -2549,6 +2618,283 @@ def run_paper_archs(flagship, vocab, fa, card: str) -> dict:
     return out
 
 
+# ------------------------------- T: the JAX benchmark's configurations 4 and 5
+T1_STEADY = 8  # timed steady steps after the cold one
+T1_WINDOW = 8  # the profiled window's steps
+T1_EVAL_BATCHES = 2
+T1_SESSIONS_SERVED = 24
+T2_STEADY = 8
+T2_VALID_SESSIONS = 300  # a tail of 44 in the last batch of 128
+# sampled softmax is float32 from end to end on both devices (the gathers,
+# the products with TF32 off, the softmax over 1 + 8,192 columns): only the
+# order of the sums differs, and the item table's gradient adds the rows of
+# duplicate ids by atomics on the card
+T1_LOSS_RTOL, T1_GRAD_REL = 1e-5, 1e-4
+# the dense tasks' output layers see no bf16 rounding either
+T2_DENSE_GRAD_REL = 1e-4
+T2_MSE_RTOL = 1e-4
+
+
+def large_vocab_negatives(sampler, seed: int) -> np.ndarray:
+    """One draw of ``sampler``'s negatives, made with numpy as the JAX sampler
+    makes it: ``floor(exp(u·log(range + 1))) - 1`` in float32, truncated,
+    clipped, offset by ``min_id``."""
+    u = np.random.default_rng(seed).random(sampler.max_n_samples, dtype=np.float32)
+    ids = np.exp(u * np.log(np.float32(sampler.range + 1))).astype(np.int32) - 1
+    return np.clip(ids, 0, sampler.range - 1).astype(np.int64) + sampler.min_id
+
+
+def run_large_vocab(flagship, vocab, fa, card: str) -> dict:
+    """Main path T1: the JAX benchmark's configuration 4 at full width
+    (``flagship.build_large_vocab_trainer``: XLNet-MLM over 4,000,000 items,
+    a tied 64-wide table, d_model 192, 3 layers, 16 heads, batches of 128 of
+    20, sampled softmax over 8,192 log-uniform negatives). ``Trainer.train``
+    takes a cold step and ``T1_STEADY`` timed steps, then a window under
+    ``torch.profiler`` (the device's busy share); no kernel launches in
+    training (the loss is a dense softmax over 1 + 8,192 columns, the
+    table's Adafactor the plain chain). One training step of the trained
+    weights with dropout off, card against CPU, with one MLM mask and one
+    draw of negatives (numpy) given to both: the loss within
+    ``T1_LOSS_RTOL``, the item table's and the projection's gradients within
+    ``T1_GRAD_REL`` in relative Frobenius norm. ``Model.evaluate`` over
+    ``T1_EVAL_BATCHES`` batches of 128 (K3 once a batch, at V = 4,000,001
+    over 4,000,008 table rows) against the CPU's plain pass; the top-k of
+    ``T1_SESSIONS_SERVED`` sessions (f32 ``torch.matmul`` and ``torch.topk``
+    over 4M columns) against the CPU's. K3 is held against its plain version
+    and timed at that table's shape."""
+    from transformers4rec_tpu_torch.data import synthetic_data
+
+    t_phase = time.perf_counter()
+    counters = flash_counters(vocab, fa)
+    launches = dict.fromkeys(counters, 0)
+    items, rows, seq = flagship.LARGE_VOCAB_ITEMS, flagship.BATCH, flagship.SEQ
+    vocab_size = items + 1
+    table_rows = -(-vocab_size // 8) * 8
+    schema = flagship.schema(items, seq)
+    out = {"card": card, "num_items": items, "table_rows": table_rows}
+
+    # K3 at this table's shape, before any model holds the card's memory
+    # ten times the columns of the flagship's table: ten times the logits
+    # within an ulp of the label logit, so fewer rows' ranks are exact
+    # (about 96% at 128 rows), each difference held to the row's near ties
+    out["k3_check"] = check_ce_rank("large_vocab", EVAL_ROWS, table_rows, vocab_size, False,
+                                    4.0, 12.0, [95], min_exact=0.9)
+    out["k3_timing"] = time_ce_rank(vocab, EVAL_ROWS, table_rows, vocab_size)
+    torch.cuda.empty_cache()
+
+    data = synthetic_data(schema, num_rows=16 * rows, max_session_length=seq, seed=600)
+    t0 = time.perf_counter()
+    trainer = flagship.build_large_vocab_trainer("cuda", seed=0, train_dataset=data)
+    sync("cuda")
+    out["build_s"] = time.perf_counter() - t0
+    table = trainer.model.heads[0].input_module.item_embedding_table()
+    task = trainer.model.heads[0].tasks[0]
+    if tuple(table.shape) != (table_rows, flagship.LARGE_VOCAB_ITEM_DIM) \
+            or not task.sampled_softmax or task.max_n_samples != flagship.LARGE_VOCAB_NEGATIVES:
+        fail(f"large vocab: table {tuple(table.shape)}, task {task.sampled_softmax} "
+             f"{task.max_n_samples}")
+    table_before = table.detach().clone()
+    trainer.create_optimizer_and_scheduler(1 + T1_STEADY + 2 * T1_WINDOW)
+    torch.cuda.reset_peak_memory_stats()
+    out["train"] = trainer_phases(
+        trainer, counters, launches, "large-vocab", card, rows, seq,
+        (("cold_step", 1, None), ("steady", T1_STEADY, None)), per_step={})
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    (window, prof_table), got, _ = counted(counters, lambda: traced_window(
+        trainer, T1_WINDOW, rows=25))
+    expect_launches("large vocab (profiled window)", got)
+    out["profile"] = window
+    print(prof_table)
+    moved = float((table.detach() - table_before).abs().max())
+    if not moved > 0 or not torch.isfinite(table).all():
+        fail(f"large vocab: the item table moved by {moved}")
+    out["table_max_move"] = moved
+
+    # the trained weights with dropout off, on the card and on the CPU
+    model = flagship.build_large_vocab_model("cuda", dropout=0.0)
+    model.load_state_dict(trainer.model.state_dict())
+    del trainer, table, table_before
+    torch.cuda.empty_cache()
+    cpu_model = flagship.build_large_vocab_model("cpu", dropout=0.0)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    sampler = model.heads[0].tasks[0].make_sampler(table_rows)
+    neg = torch.from_numpy(large_vocab_negatives(sampler, seed=7))
+    batch = {k: v[:rows] for k, v in data.items()}
+    step, got, _ = counted(counters, lambda: check_training_step(
+        model, cpu_model, batch, loss_rtol=T1_LOSS_RTOL, neg_ids=neg, grad_rel=T1_GRAD_REL))
+    expect_launches("large vocab (one training step)", got)
+    labels = cpu_model._as_dense(batch)["item_id"]
+    step["accidental_hits"] = int(np.isin(neg.numpy(), labels.numpy()).sum())
+    out["train_step"] = step
+
+    loader = eval_batches(flagship, items, seq, T1_EVAL_BATCHES, EVAL_ROWS)
+    gpu_res, got, wall = counted(counters, lambda: model.evaluate(loader))
+    expect_launches("large vocab (evaluate)", got, ce_rank=T1_EVAL_BATCHES)
+    for k, c in got.items():
+        launches[k] += c
+    t0 = time.perf_counter()
+    cpu_res = cpu_model.evaluate(loader)
+    check_evaluate(gpu_res, cpu_res, T1_EVAL_BATCHES * EVAL_ROWS)
+    out["evaluate"] = {"cuda": gpu_res, "cpu": cpu_res, "wall_s": wall,
+                       "cpu_s": time.perf_counter() - t0}
+
+    served = synthetic_data(schema, num_rows=T1_SESSIONS_SERVED, max_session_length=seq,
+                            seed=601)
+    def top_k(m):
+        with torch.inference_mode():
+            return m(m._as_dense(served), top_k=TOP_K)
+
+    (gs, gi), got, wall = counted(counters, lambda: top_k(model))
+    expect_launches("large vocab (top-k)", got)
+    ws, wi = top_k(cpu_model)
+    check_topk(gs.cpu().numpy(), gi.cpu().numpy(), ws.numpy(), wi.numpy(), vocab_size,
+               "large vocab top-k")
+    out["topk"] = {"sessions": T1_SESSIONS_SERVED, "wall_s": wall}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    k3 = out["k3_timing"]
+    print(f"[large-vocab] on {card}: {json.dumps({k: out[k] for k in ('train_step', 'evaluate', 'topk', 'peak_memory_gb', 'table_max_move', 'launches')})}")
+    print(f"[large-vocab] on {card}: a steady step {out['train']['steady']['ms_per_step']:.3f} "
+          f"ms of wall time ({window['ms_per_step']:.3f} in the profiled window's untraced "
+          f"run, {window['device_ms_per_step']:.3f} ms of device time, busy "
+          f"{window['device_busy_share']:.3f}); K3 at N={EVAL_ROWS}, V={vocab_size} "
+          f"{k3['ms']:.4f} ms against a bound of {k3['bound_ms']:.4f} ({k3['bound_by']}), "
+          f"splits {k3['splits']}; peak memory {out['peak_memory_gb']:.2f} GB; phase T1 "
+          f"{out['phase_s']:.1f}s")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_multitask(flagship, vocab, fa, card: str) -> dict:
+    """Main path T2: the JAX benchmark's configuration 5 at full width
+    (``flagship.build_multitask_trainer``: ELECTRA-RTD, d_model 64, 4 heads,
+    2 layers, sessions of 20, next-item, ``click`` and ``play_percentage``,
+    batches of 128) from Parquet files of the music-streaming fixture
+    (``data.testing.TestingDataset``, written into a temporary directory):
+    ``Trainer.train`` takes a cold step and ``T2_STEADY`` steps (K1 and K2
+    once a step), then a window under ``torch.profiler`` (the device's busy
+    share); ``Trainer.evaluate`` (K3 once a batch) against the same
+    weights' ``Model.evaluate`` on the CPU: the loss within 1e-4, the
+    ranking and ``click`` metrics within 1e-6 (within one row's worth where
+    a CPU prediction lies within 1e-5 of the 0.5 threshold), the mse within
+    ``T2_MSE_RTOL``; one training step card against CPU with one RTD mask:
+    the loss and each task's within 1e-4, the item table's and projection's
+    gradients as ``check_grad`` says, the dense tasks' output layers within
+    ``T2_DENSE_GRAD_REL``; the HTTP server's top-k of the next-item task."""
+    import pathlib
+
+    from transformers4rec_tpu_torch.data import testing
+    from transformers4rec_tpu_torch.schema import Tags
+
+    t_phase = time.perf_counter()
+    counters = flash_counters(vocab, fa)
+    launches = dict.fromkeys(counters, 0)
+    rows, seq = flagship.BATCH, flagship.SEQ
+    ms = testing.music_streaming_testing_data
+    vocab_size = ms.schema.categorical_cardinalities()["item_id"]
+    out = {"card": card}
+    cache = testing._CACHE
+    with tempfile.TemporaryDirectory() as root:
+        # the fixture writes its files here, not under the user's cache
+        testing._CACHE = pathlib.Path(root)
+        try:
+            train_path = testing.TestingDataset("music_streaming_train", ms.schema,
+                                                num_rows=(1 + T2_STEADY) * rows, seed=501).path
+            valid_path = testing.TestingDataset("music_streaming_valid", ms.schema,
+                                                num_rows=T2_VALID_SESSIONS, seed=502).path
+        finally:
+            testing._CACHE = cache
+        trainer = flagship.build_multitask_trainer(
+            "cuda", seed=0, train_dataset=train_path, eval_dataset=valid_path,
+            output_dir=os.path.join(root, "out"))
+        names = [t.task_name for t in trainer.model.heads[0].tasks]
+        if names != ["next-item", "click", "play_percentage"]:
+            fail(f"multi-task: tasks {names}")
+        trainer.create_optimizer_and_scheduler(1 + 3 * T2_STEADY)
+        out["train"] = trainer_phases(
+            trainer, counters, launches, "multi-task", card, rows, seq,
+            (("cold_step", 1, None), ("steady", T2_STEADY, None)),
+            per_step={"ce_fwd": 1, "ce_bwd": 1})
+        (window, prof_table), got, _ = counted(counters, lambda: traced_window(
+            trainer, T2_STEADY, rows=15))
+        expect_launches("multi-task (profiled window)", got, ce_fwd=2 * T2_STEADY,
+                        ce_bwd=2 * T2_STEADY)
+        for k, c in got.items():
+            launches[k] += c
+        out["profile"] = window
+        print(prof_table)
+
+        n_eval = -(-T2_VALID_SESSIONS // rows)
+        gpu_res, got, wall = counted(counters, trainer.evaluate)
+        expect_launches("multi-task (evaluate)", got, ce_rank=n_eval)
+        for k, c in got.items():
+            launches[k] += c
+        keys = ["eval_/next-item/ndcg_at_10", "eval_/click/accuracy", "eval_/click/precision",
+                "eval_/click/recall", "eval_/play_percentage/mse"]
+        if any(k not in gpu_res for k in keys):
+            fail(f"multi-task evaluate returned {sorted(gpu_res)}")
+        cpu_model = flagship.build_multitask_model("cpu", dropout=0.0)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
+        eval_loader = trainer.get_eval_dataloader()
+        cpu_res = cpu_model.evaluate(eval_loader, max_sequence_length=seq)
+        # the CPU's click predictions nearest the threshold
+        margin = math.inf
+        with torch.inference_mode():
+            for b in eval_loader:
+                d = cpu_model._as_dense(b, seq)
+                _, outs = cpu_model(d, targets=d, testing=True)
+                margin = min(margin, float((outs["click"].predictions - 0.5).abs().min()))
+        rows_total = T2_VALID_SESSIONS
+        click_tol = 1e-6 if margin > 1e-5 else 1.0 / rows_total + 1e-6
+        for k in gpu_res:
+            if not k.startswith("eval_") or k.endswith(("runtime", "per_second")):
+                continue
+            g, c = gpu_res[k], cpu_res[k]
+            if k == "eval_loss":
+                bad = abs(g - c) > 1e-4 * abs(c)
+            elif k.endswith("/mse"):
+                bad = abs(g - c) > T2_MSE_RTOL * abs(c)
+            elif k.startswith("eval_/click/"):
+                bad = abs(g - c) > click_tol
+            else:  # a rank flipping across a cutoff moves a metric by 1/rows
+                bad = abs(g - c) > 2.0 / rows_total
+            if not math.isfinite(g) or bad:
+                fail(f"multi-task evaluate: {k} on the card {g}, CPU {c}")
+        out["evaluate"] = {"cuda": {k: gpu_res[k] for k in ["eval_loss"] + keys},
+                           "cpu": {k: cpu_res[k] for k in ["eval_loss"] + keys},
+                           "wall_s": wall, "click_margin": margin}
+
+        # one training step of the trained weights, dropout off
+        model = flagship.build_multitask_model("cuda", dropout=0.0)
+        model.load_state_dict(trainer.model.state_dict())
+        batch = next(iter(eval_loader))
+        step, got, _ = counted(counters, lambda: check_training_step(
+            model, cpu_model, batch, extra=("heads.0.tasks.1.output.weight",
+                                            "heads.0.tasks.2.output.weight"),
+            extra_rel=T2_DENSE_GRAD_REL))
+        expect_launches("multi-task (one training step)", got, ce_fwd=1, ce_bwd=1)
+        out["train_step"] = step
+
+        # the next-item task's top-k through the HTTP server
+        features = ms.schema.remove_by_tag(Tags.TARGET)
+        requests = serve_requests(flagship, 0, seq, 8, schema=features)
+        example = {k: v for k, v in batch.items() if k in features.column_names}
+        serve = run_serve(flagship.build_multitask_model, trainer.model, example, vocab_size,
+                          requests, "cuda", lowest_id=0)
+        out["serve"] = serve
+        del trainer, model, cpu_model
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[multi-task] on {card}: {json.dumps({k: out[k] for k in ('evaluate', 'train_step', 'serve', 'launches')})}")
+    print(f"[multi-task] on {card}: a steady step {out['train']['steady']['ms_per_step']:.3f} "
+          f"ms of wall time ({window['ms_per_step']:.3f} in the profiled window's untraced "
+          f"run, {window['device_ms_per_step']:.3f} ms of device time, busy "
+          f"{window['device_busy_share']:.3f}); phase T2 {out['phase_s']:.1f}s")
+    return out
+
+
 # -------------------------------------------------------------------- timing
 def bound(nbytes: int, flops: int, exps: int = 0, f32_flops: int = 0) -> dict:
     """The least time the card could take: the larger of the bytes over the
@@ -2817,41 +3163,51 @@ def profile_paper_arch(card: str, arch: str, out_file: str = "") -> None:
             os.chdir(cwd)
 
 
+def timed_train(trainer, steps: int) -> float:
+    """Seconds of ``steps`` steps of ``trainer.train()``, the card synchronised
+    before and after."""
+    trainer.args.max_steps = steps
+    sync("cuda")
+    t0 = time.perf_counter()
+    trainer.train()
+    sync("cuda")
+    return time.perf_counter() - t0
+
+
+def traced_window(trainer, window: int, rows: int = 40) -> tuple:
+    """A steady window of ``window`` steps by the host's clock, then the same
+    window under ``torch.profiler``: ``(summary, table)``, the table the
+    device time by kernel and the summary the busy share (device time over
+    untraced wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    plain_s = timed_train(trainer, window)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced_s = timed_train(trainer, window)
+    # the device's own events (kernels, copies, fills): the rows of the table
+    # also list each operator with the time of the kernels it launched
+    device_us = sum(e.device_time_total for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=rows,
+                                      max_name_column_width=70)
+    return {"steps": window, "ms_per_step": plain_s / window * 1e3,
+            "ms_per_step_traced": traced_s / window * 1e3,
+            "device_ms_per_step": device_us / window / 1e3,
+            # against the untraced wall time: tracing slows the host, not the device
+            "device_busy_share": device_us / 1e6 / plain_s}, table
+
+
 def profile_steps(trainer, summary: dict, out_file: str = "", window: int = 16) -> None:
     """The first step alone, a steady window by the host's clock, and the
     same window under ``torch.profiler``: device time by kernel and the busy
     share (device time over untraced wall time), printed with ``summary``
     and written to ``out_file`` when one is named."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def run(steps: int) -> float:
-        trainer.args.max_steps = steps
-        sync("cuda")
-        t0 = time.perf_counter()
-        trainer.train()
-        sync("cuda")
-        return time.perf_counter() - t0
-
-    print(f"[profile] first step {run(1):.3f}s, second step {run(1):.3f}s, "
-          f"next 8 steps {run(8) / 8 * 1e3:.3f} ms/step")
-    plain_s = run(window)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        traced_s = run(window)
-    # the device's own events (kernels, copies, fills): the rows of the table
-    # below also list each operator with the time of the kernels it launched
-    device_us = sum(e.device_time_total for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40,
-                                      max_name_column_width=70)
-    summary = {
-        **summary, "steps": window,
-        "ms_per_step": plain_s / window * 1e3,
-        "ms_per_step_traced": traced_s / window * 1e3,
-        "device_ms_per_step": device_us / window / 1e3,
-        # against the untraced wall time: tracing slows the host, not the device
-        "device_busy_share": device_us / 1e6 / plain_s,
-    }
+    first, second = timed_train(trainer, 1), timed_train(trainer, 1)
+    print(f"[profile] first step {first:.3f}s, second step {second:.3f}s, "
+          f"next 8 steps {timed_train(trainer, 8) / 8 * 1e3:.3f} ms/step")
+    window_summary, table = traced_window(trainer, window)
+    summary = {**summary, **window_summary}
     print(table)
     print(f"[profile] {json.dumps(summary)}")
     if out_file:
@@ -3225,6 +3581,11 @@ def main() -> None:
     # ---- main path S: the BERT family, ELECTRA-RTD and TransfoXL
     archs = run_paper_archs(flagship, vocab, attention, card)
 
+    # ---- main path T: the JAX benchmark's configurations 4 and 5
+    large = run_large_vocab(flagship, vocab, attention, card)
+    checks.append(large["k3_check"])
+    multi = run_multitask(flagship, vocab, attention, card)
+
     # ---- main path P1: XLNet-PLM at full width, two streams, every position
     plm = run_plm(flagship, vocab, attention, card, vocab_size)
     print(f"[plm] {json.dumps(plm['launches'])}")
@@ -3322,7 +3683,9 @@ def main() -> None:
                        on(wide_timing["train"]["ce_bwd"], True),
                        on(wide_timing["clm"]["ce_bwd"], False)],
             "ce_rank": [on(wide_timing["ce_rank"], True), on(plm_timing["ce_rank"], True),
-                        on(plm_timing["ce_rank_long"], True)],
+                        on(plm_timing["ce_rank_long"], True),
+                        on({**large["k3_timing"], "launches": large["launches"]["ce_rank"],
+                            "V": large["table_rows"]}, True)],
             "rank": [on(wide_timing["rank"], False)],
             "flash_fwd": [on(flash_timing["long_step"]["flash_fwd"], True),
                           on(flash_timing["long"]["flash_fwd"], False),
@@ -3375,11 +3738,13 @@ def main() -> None:
                           + parallel["launches"].get(name, 0) + wide["launches"].get(name, 0)
                           + parquet["launches"].get(name, 0) + paper["launches"].get(name, 0))
     launches["rank"] = parallel["launches"]["rank"]
-    # paths 6 and 7, P1, P2 and S: every kernel of the CLM, PLM and phase S paths
+    # paths 6 and 7, P1, P2, S and T: every kernel of the CLM, PLM and phase S
+    # and T paths
     for name in flash:
         launches[name] = (launches.get(name, 0) + clm["launches"][name]
                           + long_step["launches"][name] + plm["launches"][name]
-                          + plm_long["launches"][name] + archs["launches"][name])
+                          + plm_long["launches"][name] + archs["launches"][name]
+                          + large["launches"][name] + multi["launches"][name])
     errors = {"ce_rank": max(c["lse_max_abs_err"] for c in checks),
               "ce_fwd": max(c["lse_max_abs_err"] for c in train_checks),
               "ce_bwd": max(c[g]["max_abs_err"] for c in train_checks for g in ("dx", "dW")),
@@ -3403,9 +3768,9 @@ def main() -> None:
                                                       "stages")
            if k in timing[name]},
         "also_at": [{k: t[k] for k in t
-                     if k in TIMING_KEYS + ("N", "E", "shape", "library_chunked_ms", "recompute",
-                                            "design", "designs_ms", "main_path", "launches",
-                                            "bias_shape")}
+                     if k in TIMING_KEYS + ("N", "E", "V", "shape", "library_chunked_ms",
+                                            "recompute", "design", "designs_ms", "main_path",
+                                            "launches", "bias_shape")}
                     for t in also.get(name, [])],
     } for name, (source, replaces) in sources.items()]
     if any(k["launches"] < 1 for k in kernels):

@@ -716,6 +716,34 @@ def test_ce_rank_kernel_at_the_every_position_rows(dev, n):
     assert float((diff == 0).float().mean()) >= 0.99 and int(diff.max()) <= 2
 
 
+@pytest.mark.parametrize("n,smooth", [(4, True), (128, False)])
+def test_ce_rank_kernel_at_the_large_vocab_table(dev, n, smooth):
+    """K3 over the 4,000,001-item table of the JAX benchmark's configuration
+    4 (4,000,008 rows: about 264 vocab splits, row offsets up to 2.6e8
+    values): lse within 1e-5 relative, ranks within 1 (2 with 128 rows, as
+    at the every-position rows), zsum as above, the same bits twice."""
+    vocab_size = 4_000_001
+    rng = np.random.default_rng(n)
+    W = torch.randn(4_000_008, 64, generator=torch.Generator().manual_seed(n)).mul_(0.05)
+    labels = rng.integers(1, vocab_size, n).astype(np.int64)
+    labels[0] = vocab_size - 1  # the last row of the vocab
+    beta = torch.from_numpy(rng.uniform(0.0, 12.0, (n, 1)).astype(np.float32))
+    x = beta * W[labels] + torch.from_numpy(rng.normal(0.0, 1.0, (n, 64)).astype(np.float32))
+    x, W = x.to(dev), W.to(dev)
+    labels = torch.from_numpy(labels.astype(np.int32)).to(dev)
+    ll = vocab.label_logits(x, W, labels)
+    lse, rank, zs = vocab.ce_rank(x, W, labels, ll, vocab_size, smooth=smooth)
+    again = vocab.ce_rank(x, W, labels, ll, vocab_size, smooth=smooth)
+    torch.cuda.synchronize()
+    assert torch.equal(lse, again[0]) and torch.equal(rank, again[1])
+    lse_p, rank_p, zs_p = vocab.ce_rank_plain(x, W, labels, ll, vocab_size, smooth)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=0)
+    assert int((rank.long() - rank_p.long()).abs().max()) <= (1 if n < 100 else 2)
+    if smooth:
+        scale = zs_p.abs().clamp_min(math.sqrt(vocab_size))
+        assert float(((zs - zs_p).abs() / scale).max()) <= 1e-5
+
+
 @pytest.mark.parametrize("bad", ["dh_not_mult4", "dh_too_wide", "q_dtype", "strided_k",
                                  "bias_shape", "pad_dtype", "cpu_v", "lse_shape"])
 def test_flash_kernels_reject_what_they_do_not_take(dev, bad):

@@ -310,8 +310,11 @@ def test_head_from_body_configures_copies_and_sets_the_budget():
     # an explicit budget wins, and a budget of 1 keeps every row
     assert NextItemPredictionTask(weight_tying=True, loss_budget=0.5)._budget_rows(100) == 50
     assert NextItemPredictionTask(weight_tying=True, loss_budget=1.0)._budget_rows(100) is None
+    # sampled softmax builds; over a vocab-parallel group it is not ported
+    assert NextItemPredictionTask(weight_tying=True, sampled_softmax=True).sampled_softmax
     with pytest.raises(NotImplementedError):
-        NextItemPredictionTask(weight_tying=True, sampled_softmax=True)
+        NextItemPredictionTask(weight_tying=True, sampled_softmax=True,
+                               vocab_parallel_group=object())
 
 
 def test_budgeted_rows_keep_every_target_first():

@@ -6,7 +6,9 @@ of GPT-2 with causal language modelling on long sessions, of XLNet-PLM and
 of the BERT family (BERT, RoBERTa, ELECTRA with RTD masking, ALBERT,
 Longformer) and TransfoXL: schema-driven input modules, MLM, CLM, PLM and
 RTD masking, the unified transformer encoder,
-next-item prediction over a tied item table, the ``Trainer`` with AdamW on
+next-item prediction over a tied item table or an untied output layer,
+with full or log-uniform sampled softmax, binary and regression tasks in
+multi-task heads, the ``Trainer`` with AdamW on
 the dense weights and Adafactor on the embedding tables, streaming ranking
 metrics and the dynamic-batching HTTP server. Every pass over the whole
 vocabulary is a hand-written CUDA kernel (``ops/vocab.py``): the training
@@ -51,7 +53,15 @@ from .features import (
     TabularSequenceFeatures,
 )
 from .masking import MaskingInfo, masking_registry
-from .model import Head, Model, NextItemPredictionTask, ranking_metric
+from .model import (
+    BinaryClassificationTask,
+    Head,
+    Model,
+    NextItemPredictionTask,
+    PredictionTask,
+    RegressionTask,
+    ranking_metric,
+)
 from .schema import ColumnSchema, Schema, Tags
 from .tabular import MergeTabular, StochasticSwapNoise, TabularDropout, TabularLayerNorm
 from .trainer import T4RecTrainingArguments, Trainer
@@ -59,6 +69,7 @@ from .trainer import T4RecTrainingArguments, Trainer
 __all__ = [
     "AlbertConfig",
     "BertConfig",
+    "BinaryClassificationTask",
     "ColumnSchema",
     "ContinuousFeatures",
     "ElectraConfig",
@@ -71,8 +82,10 @@ __all__ = [
     "MergeTabular",
     "Model",
     "NextItemPredictionTask",
+    "PredictionTask",
     "PretrainedEmbeddingFeatures",
     "ReformerConfig",
+    "RegressionTask",
     "RobertaConfig",
     "Schema",
     "SequenceEmbeddingFeatures",

@@ -26,7 +26,10 @@ port's ``encoder.layer_shared``), the BERT family's embedding LayerNorm
 (``continuous_projection_{i}``), soft embeddings
 (``soft_{column}/projection`` and ``soft_{column}/embedding_table``),
 pretrained tables and their projections (``{column}_pretrained``,
-``{column}_proj``) and an ``MLPBlock``'s ``dense_{i}`` and ``norm_{i}``.
+``{column}_proj``), an ``MLPBlock``'s ``dense_{i}`` and ``norm_{i}``, and
+the prediction tasks' ``task_block_{i}``, the dense tasks' ``output``
+layer and the untied ``output_layer`` (target_dim, d_model), a bare param
+that keeps its layout (a Head's ``tasks_{i}`` becomes ``tasks.{i}``).
 The sequence projection ``projection_{i}`` becomes ``projections.{i}`` and a
 ``MergeTabular``'s ``to_merge_{i}`` becomes ``to_merge.{i}``.
 
@@ -41,7 +44,7 @@ port's weights into a tree shaped like a flax ``template`` (numpy leaves),
 every leaf found and every weight used.
 
 ``masking_info_from_jax(targets, mask, pad_mask, input_schema=None,
-perm_mask=None)`` turns the arrays of the JAX package's ``MaskingInfo``
+perm_mask=None, neg_ids=None)`` turns the arrays of the JAX package's ``MaskingInfo``
 (numpy) into the port's, to give both packages the same mask
 (``Model(..., masking_info=...)``).
 """
@@ -166,13 +169,14 @@ def _get(tree: Mapping, path: Tuple[str, ...]):
 
 
 def masking_info_from_jax(targets, mask, pad_mask=None, device=None,
-                          input_schema=None, perm_mask=None) -> MaskingInfo:
+                          input_schema=None, perm_mask=None, neg_ids=None) -> MaskingInfo:
     """numpy ``(targets, mask, pad_mask)`` of a JAX ``MaskingInfo`` → the
     port's ``MaskingInfo`` on ``device``. ``input_schema`` defaults to the
     mask: under MLM and PLM the positions replaced by the [MASK] embedding
     are the target positions. CLM's last-item branches keep the whole
     non-pad mask there, so their caller passes it. PLM's caller passes its
-    ``perm_mask`` (B, S, S)."""
+    ``perm_mask`` (B, S, S), sampled softmax's its negatives ``neg_ids``
+    (n,)."""
     def as_bool(a):
         return torch.from_numpy(np.asarray(a).astype(bool)).to(device)
 
@@ -183,4 +187,6 @@ def masking_info_from_jax(targets, mask, pad_mask=None, device=None,
         pad_mask=None if pad_mask is None else as_bool(pad_mask),
         perm_mask=None if perm_mask is None else torch.from_numpy(
             np.array(perm_mask, dtype=np.float32)).to(device),
+        neg_ids=None if neg_ids is None else torch.from_numpy(
+            np.asarray(neg_ids).astype(np.int64)).to(device),
     )

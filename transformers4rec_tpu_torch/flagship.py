@@ -29,6 +29,24 @@ PLM has no loss-row budget, so the cross-entropy takes all 2,560 positions
 of a batch. ``eval_on_last_item_seq_only=False`` evaluates on every
 position instead of the last item (also under MLM and CLM).
 
+``build_large_vocab_model`` / ``build_large_vocab_trainer`` give the JAX
+package's baseline configuration 4, "large-vocab stress"
+(``benchmarks/run_all.py:config_large_vocab``, its ``adafactor`` arm):
+XLNet-MLM over ``LARGE_VOCAB_ITEMS`` = 4,000,000 items (table rows padded
+to a multiple of 8), a tied 64-wide item table, d_model 192, 3 layers, 16
+heads, sessions of 20 in batches of 128, MLM p = 0.3, sampled softmax over
+8,192 log-uniform negatives a step, a learning rate of 1e-3 and the
+arguments' other defaults (a linear schedule, the clip at 1, Adafactor
+with a bf16 moment on the tables). Evaluation and top-k stay
+full-catalogue. ``build_multitask_model`` / ``build_multitask_trainer``
+give configuration 5, "multi-task stretch" (``config_multitask``):
+ELECTRA-RTD (d_model 64, 4 heads, 2 layers, sessions of 20) on the
+music-streaming schema (``data.music_streaming_testing_data``) without
+its targets as features, with three tasks: next-item over the tied table,
+``click`` (binary) and ``play_percentage`` (regression), batches of 128.
+The benchmark's ``sparse_adam`` arm of configuration 4 is not ported
+(``embedding_optimizer="sparse_adam"`` raises).
+
 ``arch=`` replaces a scheme's default architecture by a registry name
 (``transformer_registry``: ``"albert"``, ``"longformer"``, ``"transfoxl"``,
 ...), as the experiment script's ``--model_type`` does: the same widths,
@@ -42,10 +60,18 @@ from __future__ import annotations
 
 from typing import Optional
 
-from .config import GPT2Config, XLNetConfig, transformer_registry
+from .config import ElectraConfig, GPT2Config, XLNetConfig, transformer_registry
 from .data.synthetic import synthetic_ecommerce_data_schema
+from .data.testing import music_streaming_testing_data
 from .features import TabularSequenceFeatures
-from .model import Model, NextItemPredictionTask
+from .model import (
+    BinaryClassificationTask,
+    Head,
+    Model,
+    NextItemPredictionTask,
+    RegressionTask,
+)
+from .schema import Tags
 from .ops.fused_adafactor import FusedAdafactor
 from .trainer import T4RecTrainingArguments, Trainer
 
@@ -64,6 +90,12 @@ LONG_BATCH = 32
 # --mf_constrained_embeddings)
 PAPER_ITEM_DIM = 448
 PLM_PROBABILITY, PLM_MAX_SPAN_LENGTH = 0.25, 5
+# the JAX benchmark's configurations 4 and 5 (benchmarks/run_all.py)
+LARGE_VOCAB_ITEMS = 4_000_000
+LARGE_VOCAB_ITEM_DIM = 64
+LARGE_VOCAB_NEGATIVES = 8192
+BENCH_LEARNING_RATE = 1e-3
+MULTITASK_D_MODEL, MULTITASK_N_HEAD, MULTITASK_N_LAYER = 64, 4, 2
 # masking scheme -> (architecture, masking arguments, sessions, batch)
 SCHEMES = {
     "mlm": (XLNetConfig, {"mlm_probability": MLM_PROBABILITY}, SEQ, BATCH),
@@ -170,3 +202,83 @@ def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=N
             return FusedAdafactor(tables, lr=schedule, use_pallas=True, moment_dtype=None)
     return Trainer(model, args, schema=data_schema, train_dataset=train_dataset,
                    eval_dataset=eval_dataset, device=device, table_optimizer=table_optimizer)
+
+
+def build_large_vocab_model(device=None, num_items: int = LARGE_VOCAB_ITEMS,
+                            d_model: int = D_MODEL, n_layer: int = N_LAYER,
+                            n_head: int = N_HEAD, seed: int = 0, top_k=None,
+                            dropout: float = 0.1,
+                            max_n_samples: int = LARGE_VOCAB_NEGATIVES) -> Model:
+    """Configuration 4's model: XLNet-MLM with sampled softmax over a tied
+    ``LARGE_VOCAB_ITEM_DIM``-wide table of ``num_items`` items."""
+    input_module = TabularSequenceFeatures.from_schema(
+        schema(num_items, SEQ), d_output=d_model, masking="mlm", aggregation="concat",
+        masking_kwargs={"mlm_probability": MLM_PROBABILITY},
+        embedding_dims={"item_id": LARGE_VOCAB_ITEM_DIM},
+    )
+    cfg = XLNetConfig.build(d_model=d_model, n_head=n_head, n_layer=n_layer,
+                            total_seq_length=SEQ, dropout=dropout)
+    model = cfg.to_model(
+        input_module,
+        NextItemPredictionTask(weight_tying=True, sampled_softmax=True,
+                               max_n_samples=max_n_samples),
+        device=device, seed=seed,
+    )
+    model.top_k = top_k
+    return model
+
+
+def build_multitask_model(device=None, d_model: int = MULTITASK_D_MODEL,
+                          n_layer: int = MULTITASK_N_LAYER, n_head: int = MULTITASK_N_HEAD,
+                          seed: int = 0, top_k=None, dropout: float = 0.1) -> Model:
+    """Configuration 5's model: ELECTRA-RTD with next-item, ``click`` and
+    ``play_percentage`` tasks on the music-streaming schema."""
+    features = music_streaming_testing_data.schema.remove_by_tag(Tags.TARGET)
+    input_module = TabularSequenceFeatures.from_schema(
+        features, d_output=d_model, masking="rtd", aggregation="concat")
+    cfg = ElectraConfig.build(d_model=d_model, n_head=n_head, n_layer=n_layer,
+                              total_seq_length=SEQ, dropout=dropout)
+    head = Head.from_body(
+        input_module=input_module, transformer=cfg,
+        tasks=[NextItemPredictionTask(weight_tying=True),
+               BinaryClassificationTask(task_name="click", target_name="click"),
+               RegressionTask(task_name="play_percentage", target_name="play_percentage")])
+    model = Model(heads=(head,), device=device, seed=seed)
+    model.top_k = top_k
+    return model
+
+
+def _bench_trainer(model: Model, data_schema, device, seed: int, train_dataset,
+                   eval_dataset, output_dir: str, batch: int) -> Trainer:
+    """A ``Trainer`` as the JAX benchmark's ``_make_trainer`` sets one up: a
+    learning rate of 1e-3, batches of ``batch``, sessions of 20, the
+    arguments' other defaults; on synthetic sessions without a dataset."""
+    args = T4RecTrainingArguments(
+        output_dir=output_dir, learning_rate=BENCH_LEARNING_RATE,
+        per_device_train_batch_size=batch, per_device_eval_batch_size=batch,
+        max_sequence_length=SEQ, seed=seed,
+        data_loader_engine="synthetic" if train_dataset is None else "parquet",
+    )
+    return Trainer(model, args, schema=data_schema, train_dataset=train_dataset,
+                   eval_dataset=eval_dataset, device=device)
+
+
+def build_large_vocab_trainer(device=None, seed: int = 0, train_dataset=None,
+                              eval_dataset=None, output_dir: str = "./t4rec_output",
+                              batch: int = BATCH, **model_kwargs) -> Trainer:
+    """Configuration 4's ``adafactor`` arm; ``model_kwargs`` go to
+    ``build_large_vocab_model``."""
+    model = build_large_vocab_model(device, seed=seed, **model_kwargs)
+    data_schema = schema(model_kwargs.get("num_items", LARGE_VOCAB_ITEMS), SEQ)
+    return _bench_trainer(model, data_schema, device, seed, train_dataset, eval_dataset,
+                          output_dir, batch)
+
+
+def build_multitask_trainer(device=None, seed: int = 0, train_dataset=None,
+                            eval_dataset=None, output_dir: str = "./t4rec_output",
+                            batch: int = BATCH, **model_kwargs) -> Trainer:
+    """Configuration 5; the loaders read the whole music-streaming schema,
+    targets included. ``model_kwargs`` go to ``build_multitask_model``."""
+    model = build_multitask_model(device, seed=seed, **model_kwargs)
+    return _bench_trainer(model, music_streaming_testing_data.schema, device, seed,
+                          train_dataset, eval_dataset, output_dir, batch)

@@ -53,6 +53,8 @@ class MaskingInfo:
         post-masking sequence; S' = S+1 under the MLM inference extension.
     item_ids / item_table: the raw item-id sequence and the tied item table,
         filled by TabularSequenceFeatures for the prediction head.
+    neg_ids: (n,) long, optional — sampled-softmax negatives drawn outside
+        the model; the task scores against them instead of its own draw.
     """
 
     targets: torch.Tensor
@@ -63,6 +65,7 @@ class MaskingInfo:
     item_ids: Optional[torch.Tensor] = None
     item_table: Optional[torch.Tensor] = None
     segment_ids: Optional[torch.Tensor] = None
+    neg_ids: Optional[torch.Tensor] = None
 
     def replace(self, **kwargs) -> "MaskingInfo":
         return dataclasses.replace(self, **kwargs)

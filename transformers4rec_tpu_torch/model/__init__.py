@@ -1,5 +1,16 @@
 from . import ranking_metric
 from .base import Head, Model
-from .prediction_task import NextItemPredictionTask, TaskOutput
+from .losses import binary_cross_entropy_with_logits, cross_entropy_with_logits, mse_loss
+from .prediction_task import (
+    BinaryClassificationTask,
+    LogUniformSampler,
+    NextItemPredictionTask,
+    PredictionTask,
+    RegressionTask,
+    TaskOutput,
+)
 
-__all__ = ["Head", "Model", "NextItemPredictionTask", "TaskOutput", "ranking_metric"]
+__all__ = ["BinaryClassificationTask", "Head", "LogUniformSampler", "Model",
+           "NextItemPredictionTask", "PredictionTask", "RegressionTask", "TaskOutput",
+           "binary_cross_entropy_with_logits", "cross_entropy_with_logits", "mse_loss",
+           "ranking_metric"]

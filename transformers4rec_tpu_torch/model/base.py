@@ -16,8 +16,15 @@ read the state dict and the input schema (the layout of
 the input module and the transformer; each one without layers yet is
 built for the width of the block before it.
 
-Not ported yet: multi-task heads with binary or regression tasks and
-``Head.from_schema``.
+A head holds any mix of tasks: ``NextItemPredictionTask`` and the dense
+``BinaryClassificationTask`` and ``RegressionTask``, weighted by
+``task_weights`` (``Head.from_schema`` builds one dense task for each
+target column a schema tags). A dense task reads its targets from
+``targets[target_name]`` (a dict, as the trainer passes the batch) or
+``inputs[target_name]``; a model of several heads weighs them by
+``head_weights``, in training as in ``Model.evaluate``. Inference returns
+the next-item task's scores or top-k, or ``{task_name: predictions}`` for a
+head without one.
 """
 
 from __future__ import annotations
@@ -33,9 +40,14 @@ from torch import nn
 from ..blocks.base import SequentialBlock, TransformerBlock
 from ..config.transformer import T4RecConfig
 from ..masking import MaskedLanguageModeling, MaskingInfo, masking_registry
-from ..schema import ColumnSchema, Schema, ValueCount
+from ..schema import ColumnSchema, Schema, Tags, ValueCount
 from ..utils.device import disable_tf32, module_device, resolve_device
-from .prediction_task import NextItemPredictionTask, TaskOutput
+from .prediction_task import (
+    BinaryClassificationTask,
+    NextItemPredictionTask,
+    RegressionTask,
+    TaskOutput,
+)
 
 
 def task_loss_state(outs: Dict[str, TaskOutput]) -> Dict[str, tuple]:
@@ -89,8 +101,9 @@ class Head(nn.Module):
         extra_blocks: Sequence[Any] = (),
     ) -> "Head":
         """Wire the input module + transformer into a body and configure a
-        copy of each NextItemPredictionTask from the masking scheme and the
-        schema (the task objects given stay as they were)."""
+        copy of each task (the task objects given stay as they were): a
+        NextItemPredictionTask from the masking scheme and the schema, every
+        task built for the body's width."""
         blocks: List[Any] = [input_module]
         for block in extra_blocks:
             if getattr(block, "input_dim", 0) is None:
@@ -107,9 +120,11 @@ class Head(nn.Module):
 
         configured = []
         for t in tasks or [NextItemPredictionTask(weight_tying=True)]:
-            if not isinstance(t, NextItemPredictionTask):
-                raise NotImplementedError(f"{type(t).__name__} is not ported yet")
             t = copy.deepcopy(t)
+            if not isinstance(t, NextItemPredictionTask):
+                t.build(body.output_size())
+                configured.append(t)
+                continue
             if t.target_dim is None:
                 # true item vocab (tables may carry padding rows)
                 schema_ = getattr(input_module, "schema", None)
@@ -124,9 +139,31 @@ class Head(nn.Module):
                     t.budget_target_prob = float(masking.mlm_probability)
                 t.eval_single_target = bool(getattr(masking, "eval_on_last_item_seq_only", True))
                 t.padding_idx = getattr(masking, "padding_idx", 0)
-            t.build(body.output_size(), input_module.item_embedding_table().shape[-1])
+            item_dim = input_module.item_embedding_table().shape[-1] if t.weight_tying else None
+            t.build(body.output_size(), item_dim)
             configured.append(t)
         return cls(body=body, tasks=configured, task_weights=task_weights)
+
+    @classmethod
+    def from_schema(cls, schema: Schema, body: SequentialBlock,
+                    task_weights: Optional[Sequence[float]] = None) -> "Head":
+        """A binary task for each column tagged binary classification (a
+        target that is not continuous), a regression task for each column
+        tagged regression, each named after its column and built for the
+        body's width."""
+        tasks: List[nn.Module] = []
+        for col in schema.select_by_tag([Tags.BINARY_CLASSIFICATION, Tags.TARGET]):
+            if col.has_tag(Tags.REGRESSION) or (
+                    col.is_continuous and not col.has_tag(Tags.BINARY_CLASSIFICATION)):
+                continue
+            tasks.append(BinaryClassificationTask(target_name=col.name, task_name=col.name))
+        for col in schema.select_by_tag([Tags.REGRESSION]):
+            tasks.append(RegressionTask(target_name=col.name, task_name=col.name))
+        if not tasks:
+            raise ValueError("No target columns found in schema")
+        for t in tasks:
+            t.build(body.output_size())
+        return cls(body=body, tasks=tasks, task_weights=task_weights)
 
     @property
     def input_module(self):
@@ -149,15 +186,26 @@ class Head(nn.Module):
         total_loss = torch.zeros((), device=hidden.device)
         inference_out = None
         for w, task in zip(weights, self.tasks):
-            out = task(hidden, info, training=training, testing=testing, top_k=top_k,
-                       compute_metrics=compute_metrics)
+            if isinstance(task, NextItemPredictionTask):
+                out = task(hidden, info, training=training, testing=testing, top_k=top_k,
+                           compute_metrics=compute_metrics, generator=generator)
+            else:
+                t = targets
+                if isinstance(targets, dict):
+                    t = targets.get(task.target_name or task.task_name)
+                elif task.target_name and task.target_name in inputs:
+                    t = inputs[task.target_name]
+                out = task(hidden, targets=t, pad_mask=pad_mask, training=training,
+                           testing=testing)
             if isinstance(out, TaskOutput):
                 outputs[task.task_name] = out
                 total_loss = total_loss + w * out.loss
             else:
                 inference_out = out  # scores, or (scores, ids) with top_k
         if not (training or testing):
-            return inference_out
+            if inference_out is not None:
+                return inference_out
+            return {name: o.predictions for name, o in outputs.items()}
         return total_loss / sum(weights), outputs
 
 
@@ -373,7 +421,11 @@ class Model(nn.Module):
         return Schema(cols)
 
     def output_schema_for(self, top_k: Optional[int]) -> Schema:
-        """Scores (+ ids when ``top_k`` is set)."""
+        """Scores (+ ids when ``top_k`` is set) of the first head's first
+        task; a dense task's predictions under its name."""
+        task = self.heads[0].tasks[0]
+        if not isinstance(task, NextItemPredictionTask):
+            return Schema([ColumnSchema(task.task_name, type=3)])
         if top_k is not None:
             return Schema([
                 ColumnSchema("item_id_scores", type=3,

@@ -1,13 +1,12 @@
-"""Losses: masked / label-smoothed cross-entropy over dense logits.
+"""Losses: masked / label-smoothed cross-entropy over dense logits, the
+binary cross-entropy and the squared error of the dense tasks.
 
-Counterpart of ``transformers4rec_tpu/model/losses.py:cross_entropy_with_logits``.
-Every loss is a weighted mean over static-shape inputs, ``sum(w·ce) / sum(w)``
-with w = 0 at non-target positions. This dense form serves training with
-``use_fused_ops=False`` and is the independent check of
-``ops.vocab.fused_softmax_ce`` in the tests.
-
-Not ported yet: the binary cross-entropy and the squared error of the binary
-and regression tasks.
+Counterpart of ``transformers4rec_tpu/model/losses.py``. Every loss is a
+weighted mean over static-shape inputs, ``sum(w·loss) / sum(w)`` with w = 0
+at non-target positions (or rows that are all padding). The dense
+cross-entropy serves training with ``use_fused_ops=False`` and sampled
+softmax, and is the independent check of ``ops.vocab.fused_softmax_ce`` in
+the tests.
 """
 
 from __future__ import annotations
@@ -30,7 +29,28 @@ def cross_entropy_with_logits(
         # (1-eps)*nll + eps*mean(-log_probs): torch.nn.CrossEntropyLoss semantics
         smooth = -log_probs.mean(dim=-1)
         nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    return _weighted_mean(nll, weights)
+
+
+def _weighted_mean(per: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
     if weights is None:
-        return nll.mean()
+        return per.mean()
     w = weights.float()
-    return (nll * w).sum() / w.sum().clamp_min(1.0)
+    return (per * w).sum() / w.sum().clamp_min(1.0)
+
+
+def binary_cross_entropy_with_logits(
+    logits: torch.Tensor, labels: torch.Tensor, weights: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Weighted-mean BCE on logits, in the reference's stable form
+    ``max(z, 0) - z·y + log1p(exp(-|z|))``."""
+    logits, labels = logits.float(), labels.float()
+    per = logits.clamp_min(0.0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    return _weighted_mean(per, weights)
+
+
+def mse_loss(
+    preds: torch.Tensor, targets: torch.Tensor, weights: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Weighted-mean squared error."""
+    return _weighted_mean((preds.float() - targets.float()) ** 2, weights)

@@ -26,8 +26,10 @@ Every ``--model_type`` of the JAX script builds: ``xlnet``, ``gpt2``,
 ``bert``, ``roberta``, ``electra``, ``albert``, ``longformer`` and
 ``transfoxl``, with ``--pre_ln`` turning the BERT family's post-LN layers
 and embedding LayerNorm into the pre-LN form, and ``--rtd`` (with
-``--rtd_sample_from_batch``) ELECTRA's RTD masking. ``reformer`` raises
-``NotImplementedError`` naming what is not ported.
+``--rtd_sample_from_batch``) ELECTRA's RTD ``--rtd_sample_from_batch``) ELECTRA's RTD masking. ``reformer`` raises
+``NotImplementedError`` naming what is not ported. ``--sampled_softmax``
+trains with ``--sampled_softmax_max_n_samples`` log-uniform negatives a
+step (evaluation stays full-catalogue).
 """
 
 from __future__ import annotations
@@ -277,6 +279,7 @@ def get_model(args, schema, device=None):
     cfg = transformer_registry.parse(args.model_type).build(**build_kwargs)
     task = NextItemPredictionTask(
         weight_tying=args.mf_constrained_embeddings, sampled_softmax=args.sampled_softmax,
+        max_n_samples=args.sampled_softmax_max_n_samples,
         label_smoothing=args.label_smoothing, softmax_temperature=args.softmax_temperature,
     )
     if device is None:
