@@ -129,6 +129,34 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     Parquet files of the music-streaming fixture (K1 and K2 once a step),
     ``Trainer.evaluate`` (K3 once a batch) and one training step against
     the CPU, and the HTTP server's top-k of the next-item task;
+9b''''. U, session packing at full width (``run_packing``): U1 the flagship
+    XLNet-MLM from Parquet files of the port's ETL through
+    ``flagship.build_trainer(pack_sessions=True, pack_eval_sessions=True)``:
+    the fill and sessions a row (``packing_stats``), the loader's host ms
+    per batch packed and unpacked, a cold step and 8 timed steps of each
+    arm (ms a step, sessions/s, a profiled window's busy share), one packed
+    step against the CPU, packed ``Trainer.evaluate`` (K3 at 1,280 rows a
+    batch) against the unpacked evaluation of the same weights and the
+    CPU's; U2 GPT-2-CLM at batch 32 of rows of 256 packed from sessions of
+    2 to 20 items (K5 and K6a with the (32, 1, 256, 256) block-diagonal
+    bias, 3 times a step): a cold and 8 timed steps, one step at batch 4
+    against the CPU (GPT-2's positions restart per segment), packed
+    evaluation of one batch (K3 at 4,096 rows) against the CPU and against
+    the same sessions unpacked;
+9b'''''. V, Reformer and a recurrent body (``run_reformer_rnn``): V1 the
+    headline command through the experiment script with ``--model_type
+    reformer`` (local, LSH, local layers, axial positions; S = 20, the LSH
+    layer's dense form), a cold and 8 timed steps, the protocol over one
+    window and one step against the CPU; V2 Reformer-MLM at batch 32 of up
+    to 256 (``build_trainer(arch="reformer", seq=256)``: the sorted LSH
+    path, chunks of 64, 10 buckets, 2 hashes; K5 and K6a with the window's
+    bias in the local layers): a cold and 8 timed steps, one step at batch
+    4 against the CPU with the same weights and rotation buffers (the LSH
+    layer's bucket flips between the devices counted, each a near tie),
+    one evaluation batch against the CPU; V3 the GRU body
+    (``build_gru_model``: ``MLPBlock`` → ``RNNBlock(192, "gru", 2)`` → the
+    tied task, CLM, batch 128 of 20): a cold and 8 timed steps, one step,
+    ``Model.evaluate`` and the served top-k, each against the CPU;
 9c. P1, XLNet-PLM at full width (``flagship.build_model(scheme="plm")``:
     permutation language modelling, two-stream attention, sessions of 20):
     ``Model.evaluate`` over the 4 batches on the last item (K3 at 128 rows)
@@ -166,7 +194,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     where there is one, a library yardstick (CUDA events, median after warm-up; at 8,192 rows and
     more the cross-entropy's yardstick runs 1,024 rows at a time), and a
     whole table-optimizer step on each of its arms; K3 at 2,560 and 8,192
-    rows, K5 with XLNet-PLM's bias, K5 and K6a with Longformer's.
+    rows, K5 with XLNet-PLM's bias, K5 and K6a with Longformer's, K5 and
+    K6a with packed rows' block-diagonal bias, K3 at packed evaluation's
+    1,280 and 4,096 rows.
 
 The XLNet-MLM and -PLM paths (sessions of 20 and 21) must launch no flash
 kernel.
@@ -237,6 +267,9 @@ EVAL_BATCHES, EVAL_ROWS = 4, 128
 # K3's rows in every-position evaluation of XLNet-PLM: 128 sessions of 20
 # (main path P1) and 32 of 256 (P2)
 PLM_EVAL_ROWS, PLM_LONG_EVAL_ROWS = 128 * 20, 32 * 256
+# K3's rows in packed evaluation: at most S // 2 targets in each packed row,
+# 128 rows of 20 (main path U1) and 32 of 256 (U2)
+PACKED_EVAL_ROWS, PACKED_LONG_EVAL_ROWS = 128 * (20 // 2), 32 * (256 // 2)
 TOP_K = 20
 LONG_STEP_BATCH, LONG_STEP_SEQ = 4, 4096  # main path 7
 LONG_STEP_STEADY = 8  # its steady steps after the cold one
@@ -626,14 +659,30 @@ def plm_attention_bias(S: int, H: int, seed: int, pad) -> torch.Tensor:
     return (make_extra_bias(S, perm, None, query_stream=True) + rel).contiguous()
 
 
+def packed_segments(B: int, S: int, seed: int, device) -> torch.Tensor:
+    """(B, S) segment ids of rows of ``S`` packed (``data.pack_sessions``)
+    from sessions of 2 to 20 items, as phase U2's loader packs them."""
+    from transformers4rec_tpu_torch.data import pack_sessions
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(2, 21, B * S // 8)
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    packed = pack_sessions({"item_id__values": np.ones(offsets[-1], np.int64),
+                            "item_id__offsets": offsets}, max_len=S, item_id_col="item_id",
+                           num_rows=B)
+    return torch.from_numpy(packed["segment_ids"]).long().to(device)
+
+
 def flash_inputs(B: int, S: int, H: int, Dh: int, seed: int, device, ragged: bool = False,
-                 wholly_padded: int = 0, bias_shape=None, plm: bool = False, window=None):
+                 wholly_padded: int = 0, bias_shape=None, plm: bool = False, window=None,
+                 segments: bool = False):
     """q, k, v and dO (B, S, H, Dh) from a seed (standard normal), a (B, S)
     pad mask whose sessions have 2..S real items (the first ``wholly_padded``
     sessions none) or None, and a bias (normal, std 0.5) of ``bias_shape``,
     with ``plm`` the query stream's (``plm_attention_bias``), with ``window``
-    Longformer's local window as the encoder builds it (1, 1, S, S), or
-    None."""
+    Longformer's local window as the encoder builds it (1, 1, S, S), with
+    ``segments`` the (B, 1, S, S) block-diagonal bias of packed rows
+    (``packed_segments``; the pad mask is then theirs), or None."""
     rng = np.random.default_rng(seed)
     q, k, v, d_out = (torch.from_numpy(rng.normal(0.0, 1.0, (B, S, H, Dh)).astype(np.float32))
                       .to(device) for _ in range(4))
@@ -651,12 +700,18 @@ def flash_inputs(B: int, S: int, H: int, Dh: int, seed: int, device, ragged: boo
         from transformers4rec_tpu_torch.blocks.transformer import make_extra_bias
 
         bias = make_extra_bias(S, local_window=window, device=device)
+    if segments:
+        from transformers4rec_tpu_torch.blocks.transformer import make_extra_bias
+
+        seg = packed_segments(B, S, seed, device)
+        pad = seg > 0
+        bias = make_extra_bias(S, (seg[:, :, None] != seg[:, None, :]).float(), device=device)
     return q, k, v, d_out, pad, bias
 
 
 def check_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: int,
                 ragged: bool = False, wholly_padded: int = 0, bias_shape=None,
-                device="cuda", plm: bool = False, window=None) -> dict:
+                device="cuda", plm: bool = False, window=None, segments: bool = False) -> dict:
     """K5 against ``flash_forward_plain``, and K6a and K6b + K6c against the
     two arithmetics of ``flash_backward_plain``, on the same inputs (the
     backward kernels and the plain versions all take the plain forward's out
@@ -674,11 +729,12 @@ def check_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: 
     beside it for the same-sums check. With ``plm`` the bias is XLNet-PLM's
     (``plm_attention_bias``): rows blocked by the bias alone must give 0 and
     the sentinel lse too, and some must. With ``window`` the bias is
-    Longformer's local window (``flash_inputs``)."""
+    Longformer's local window, with ``segments`` packed rows' block-diagonal
+    bias (``flash_inputs``)."""
     from transformers4rec_tpu_torch.ops import attention as fa
 
     q, k, v, d_out, pad, bias = flash_inputs(B, S, H, Dh, seed, device, ragged, wholly_padded,
-                                             bias_shape, plm, window)
+                                             bias_shape, plm, window, segments)
     out, lse = fa.flash_fwd(q, k, v, bias, pad, causal)
     out2, lse2 = fa.flash_fwd(q, k, v, bias, pad, causal)
     out_p, lse_p = fa.flash_forward_plain(q, k, v, bias, pad, causal)
@@ -886,26 +942,35 @@ def time_flash_plm(name: str, B: int, S: int, H: int, Dh: int, reps: int) -> dic
     return res
 
 
-def time_flash_window(name: str, B: int, S: int, H: int, Dh: int, window: int,
-                      reps: int) -> dict:
-    """K5 and K6a with Longformer's (1, 1, S, S) local-window bias (not
-    causal, ragged padding: main path S4's attention) beside their plain
-    versions and ``F.scaled_dot_product_attention`` with the same bias and
-    padding as a bf16 additive mask (forward; its backward for dq, dk, dv).
-    The bounds read the bias once and count the pairs that the window and
-    the padding leave."""
+def time_flash_bias(name: str, B: int, S: int, H: int, Dh: int, reps: int, causal: bool = False,
+                    window=None, segments: bool = False) -> dict:
+    """K5 and K6a with a constant bias over the heads: Longformer's (1, 1, S,
+    S) local window (``window``; not causal, ragged padding: main paths S4
+    and V2's local layers) or packed rows' (B, 1, S, S) block-diagonal one
+    (``segments``; causal: main path U2), beside their plain versions and
+    ``F.scaled_dot_product_attention`` with the same bias, padding and
+    causal mask as a bf16 additive mask (forward; its backward for dq, dk,
+    dv). The bounds read the bias once and count the pairs that the bias,
+    the causal mask and the padding leave."""
     import torch.nn.functional as F
 
     from transformers4rec_tpu_torch.ops import attention as fa
 
-    q, k, v, d_out, pad, bias = flash_inputs(B, S, H, Dh, 71, "cuda", True, window=window)
-    out, lse = fa.flash_fwd(q, k, v, bias, pad, False)
-    args = (q, k, v, d_out, lse, fa.row_delta(d_out, out), bias, pad, False)
-    pairs = int(((bias > fa.NEG / 2) & pad[:, None, None, :]).sum()) * H
+    q, k, v, d_out, pad, bias = flash_inputs(B, S, H, Dh, 71, "cuda", True, window=window,
+                                             segments=segments)
+    out, lse = fa.flash_fwd(q, k, v, bias, pad, causal)
+    args = (q, k, v, d_out, lse, fa.row_delta(d_out, out), bias, pad, causal)
+    allowed = (bias > fa.NEG / 2) & pad[:, None, None, :]
+    if causal:
+        allowed = allowed & torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    pairs = int(allowed.sum()) * (H // bias.shape[1])
     n, rows, extra = q.numel(), B * H * S, 4 * bias.numel() + pad.numel()
     lq, lk, lv = (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous().requires_grad_()
                   for t in (q, k, v))
-    mask = (bias + torch.where(pad, 0.0, fa.NEG)[:, None, None, :]).to(torch.bfloat16)
+    additive = bias + torch.where(pad, 0.0, fa.NEG)[:, None, None, :]
+    if causal:
+        additive = additive + torch.ones(S, S, device="cuda").triu(1) * fa.NEG
+    mask = additive.to(torch.bfloat16)
     lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
     lg = d_out.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous()
     with torch.no_grad():
@@ -913,21 +978,21 @@ def time_flash_window(name: str, B: int, S: int, H: int, Dh: int, window: int,
                           reps=reps)
     res = {
         "flash_fwd": {
-            "ms": cuda_ms(lambda: fa.flash_fwd(q, k, v, bias, pad, False), reps=reps),
-            "plain_ms": cuda_ms(lambda: fa.flash_forward_plain(q, k, v, bias, pad, False),
+            "ms": cuda_ms(lambda: fa.flash_fwd(q, k, v, bias, pad, causal), reps=reps),
+            "plain_ms": cuda_ms(lambda: fa.flash_forward_plain(q, k, v, bias, pad, causal),
                                 reps=max(3, reps // 3)),
             "library_ms": fwd_lib,
             **bound(4 * 4 * n + 4 * rows + extra, 2 * 2 * Dh * pairs, pairs)},
         "flash_bwd_fused": {
             "ms": cuda_ms(lambda: fa.flash_bwd_fused(*args), reps=reps),
             "plain_ms": cuda_ms(lambda: fa.flash_backward_plain(
-                q, k, v, bias, pad, False, out, lse, d_out, True), reps=max(3, reps // 3)),
+                q, k, v, bias, pad, causal, out, lse, d_out, True), reps=max(3, reps // 3)),
             "library_ms": cuda_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), lg,
                                                               retain_graph=True), reps=reps),
             **bound(7 * 4 * n + 2 * 4 * rows + extra, 5 * 2 * Dh * pairs, pairs)},
     }
     for r in res.values():
-        r.update(shape=name, bias_shape=list(bias.shape), pairs=pairs,
+        r.update(shape=name, bias_shape=list(bias.shape), pairs=pairs, causal=causal,
                  design="wgmma" if fa.uses_wgmma(Dh) else "mma.sync")
     return res
 
@@ -1697,14 +1762,17 @@ def check_training_step(model, cpu_model, batch, extra=(), loss_rtol: float = 1e
     ``grad_rel`` (1e-3) in relative Frobenius norm; those of the parameters
     named in ``extra`` within ``extra_rel`` in relative Frobenius norm (5e-3:
     they lie below every layer's bf16 roundings of q, k, v, P and dS on two
-    devices where attention takes the flash path). ``cpu_sums`` maps a name
+    devices where attention takes the flash path). A batch with
+    ``segment_ids`` (packed rows) draws its mask per segment. ``cpu_sums`` maps a name
     of ``extra`` to the CPU model's parameters whose gradients add up to it
     (a shared layer against its unshared copies). ``neg_ids`` gives sampled
     softmax its negatives on both."""
     im = cpu_model.heads[0].input_module
     cb = cpu_model._as_dense(batch)
+    # packed rows: the draw keeps its guarantees per segment
     info = im.masking.compute_masked_targets(cb[im.item_id].long(), training=True,
-                                          generator=torch.Generator().manual_seed(5))
+                                          generator=torch.Generator().manual_seed(5),
+                                          segment_ids=cb.get("segment_ids"))
     if neg_ids is not None:
         info = info.replace(neg_ids=neg_ids)
     grads, losses, task_losses = {}, {}, {}
@@ -1894,11 +1962,12 @@ PARQUET_VAL_SIZE = 0.12
 PARQUET_LOSS_RTOL = 1e-3
 
 
-def parquet_windows(flagship, root: str, seed: int = 300) -> tuple:
-    """Raw interactions of three days, drawn from ``seed``: sessions of 2 to
-    20 items, item ids in 1..390,000 with log-normal popularity, a category
-    derived from the item, the two continuous columns, increasing
-    timestamps; the port's ETL (``etl_interactions_to_time_splits``,
+def parquet_windows(flagship, root: str, seed: int = 300,
+                    sessions_per_day: int = PARQUET_SESSIONS_PER_DAY) -> tuple:
+    """Raw interactions of three days of ``sessions_per_day`` sessions,
+    drawn from ``seed``: sessions of 2 to 20 items, item ids in 1..390,000
+    with log-normal popularity, a category derived from the item, the two
+    continuous columns, increasing timestamps; the port's ETL (``etl_interactions_to_time_splits``,
     without ``categorify``: the ids stay below the table's rows) writes them
     into ``root/{1,2,3}/{train,valid,test}.parquet``. Returns ``root`` and
     the sessions of each file."""
@@ -1907,10 +1976,10 @@ def parquet_windows(flagship, root: str, seed: int = 300) -> tuple:
     from transformers4rec_tpu_torch.utils import data_utils
 
     rng = np.random.default_rng(seed)
-    n_sessions = 3 * PARQUET_SESSIONS_PER_DAY
+    n_sessions = 3 * sessions_per_day
     lengths = rng.integers(2, flagship.SEQ + 1, n_sessions)
     sid = np.repeat(np.arange(1, n_sessions + 1), lengths)
-    day = np.repeat(np.arange(n_sessions) // PARQUET_SESSIONS_PER_DAY + 1, lengths)
+    day = np.repeat(np.arange(n_sessions) // sessions_per_day + 1, lengths)
     n = len(sid)
     raw = rng.lognormal(3.0, 1.0, n)
     item = np.clip(1 + (raw / raw.max()) * (flagship.NUM_ITEMS - 1), 1,
@@ -2895,6 +2964,485 @@ def run_multitask(flagship, vocab, fa, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------- U: session packing
+PACK_SESSIONS_PER_DAY = 4_000  # U1's windows: about 20 packed batches of 128
+PACK_TIMED_STEPS = 8  # U1, U2, V1-V3: timed steps after the cold one
+U2_SESSIONS = 7_000  # sessions of 2 to 20 items: 8 to 9 packed batches of 32 rows of 256
+POSITIONS = ENCODER + "position_embedding"
+
+
+def eval_metrics(results: dict) -> dict:
+    """A Trainer evaluation's metrics without its runtime keys."""
+    return {k: v for k, v in results.items() if "_runtime" not in k and "_per_second" not in k}
+
+
+def unpack_rows(batch: dict, seq: int) -> dict:
+    """The sessions of packed rows, one to a row of ``seq``."""
+    seg = batch["segment_ids"]
+    cols = [k for k in batch if k != "segment_ids"]
+    out = {c: [] for c in cols}
+    for r in range(seg.shape[0]):
+        for s_id in np.unique(seg[r][seg[r] > 0]):
+            at = seg[r] == s_id
+            for c in cols:
+                row = np.zeros(seq, batch[c].dtype)
+                row[:int(at.sum())] = batch[c][r][at]
+                out[c].append(row)
+    return {c: np.stack(v) for c, v in out.items()}
+
+
+def run_packing(flagship, vocab, fa, card: str) -> dict:
+    """Main path U, session packing at full width. U1: the flagship
+    XLNet-MLM (batch 128 of 20) from Parquet files of the port's ETL
+    (three windows of ``PACK_SESSIONS_PER_DAY`` sessions of 2 to 20 items)
+    through ``flagship.build_trainer(pack_sessions=True,
+    pack_eval_sessions=True)``: the fill (``packing_stats``), the loader's
+    host ms per batch packed and unpacked, a cold step and
+    ``PACK_TIMED_STEPS`` timed steps of each arm (ms a step, sessions/s,
+    the device's busy share of a profiled window); one packed step against
+    the CPU on the same weights and mask; packed ``Trainer.evaluate`` (K3 at
+    1,280 rows a batch: 128 rows of 20 hold at most 10 targets each) against
+    the unpacked evaluation of the same weights and against the CPU's packed
+    one, metric by metric. U2: GPT-2-CLM at batch 32 of rows of 256 packed
+    from ``U2_SESSIONS`` sessions of 2 to 20 items (an in-memory dict
+    through ``build_trainer(scheme="clm", pack_sessions=True)``): K5 and K6a
+    with the (32, 1, 256, 256) block-diagonal bias, 3 times a step; a cold
+    and ``PACK_TIMED_STEPS`` timed steps and a profiled window; one step at
+    batch 4 against the CPU (GPT-2's positions restart per segment); packed evaluation of one
+    batch (K3 at 4,096 rows) against the CPU and against the same sessions
+    unpacked at S = 20."""
+    from transformers4rec_tpu_torch.data import (
+        ParquetDataLoader,
+        pack_sessions,
+        packing_stats,
+        synthetic_data,
+    )
+    from transformers4rec_tpu_torch.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    counters = flash_counters(vocab, fa)
+    launches = dict.fromkeys(counters, 0)
+    out = {"card": card}
+
+    def run(what: str, fn, **want):
+        result, got, wall = counted(counters, fn)
+        expect_launches(f"phase U ({what})", got, **want)
+        for k, c in got.items():
+            launches[k] += c
+        return result, wall
+
+    rows, seq, layers = flagship.BATCH, flagship.SEQ, flagship.N_LAYER
+    schema = flagship.schema()
+    timed = (("cold", 1, None), ("timed", PACK_TIMED_STEPS, None))
+    with tempfile.TemporaryDirectory() as root:
+        windows, sizes = parquet_windows(flagship, os.path.join(root, "windows"), seed=500,
+                                         sessions_per_day=PACK_SESSIONS_PER_DAY)
+        train_file = os.path.join(windows, "1", "train.parquet")
+        eval_file = os.path.join(windows, "2", "valid.parquet")
+        times, loaded = {}, {}
+        for arm, pack in (("unpacked", False), ("packed", True)):
+            t0 = time.perf_counter()
+            loaded[arm] = ParquetDataLoader.from_schema(schema, train_file, batch_size=rows,
+                                                        pack=pack, shuffle=False).data
+            times[arm] = 1e3 * (time.perf_counter() - t0)
+        stats = packing_stats(loaded["packed"], "item_id")
+        per_row = stats["sessions"] / stats["rows"]
+        # packing keeps every session of two items or more
+        kept = int(((loaded["unpacked"]["item_id"] != 0).sum(1) >= 2).sum())
+        if stats["sessions"] != kept or not per_row > 1.2:
+            fail(f"U1: packing_stats {stats} of {kept} sessions")
+        out["u1_packing"] = {**stats, "sessions_per_row": per_row, "from_schema_ms": times,
+                             "loader_ms": {
+                                 arm: loader_ms(lambda: ParquetDataLoader.from_schema(
+                                     schema, train_file, batch_size=rows, pack=pack,
+                                     prefetch=0))
+                                 for arm, pack in (("unpacked", False), ("packed", True))}}
+        print(f"[pack] U1 on {card}: {sizes['1/train']} sessions of window 1 packed into "
+              f"{stats['rows']} rows of {seq} ({per_row:.3f} sessions a row, fill "
+              f"{stats['fill']}); {json.dumps(out['u1_packing'])}")
+
+        arms = {}
+        for arm, pack in (("unpacked", False), ("packed", True)):
+            t = flagship.build_trainer("cuda", seed=0, train_dataset=train_file,
+                                       eval_dataset=eval_file,
+                                       output_dir=os.path.join(root, arm), pack_sessions=pack,
+                                       pack_eval_sessions=pack)
+            # the loader (decode and packing) is made once, outside the timing
+            t._train_dataloader = t.get_train_dataloader()
+            first = next(iter(t._train_dataloader))
+            if pack != ("segment_ids" in first):
+                fail(f"U1 {arm}: a training batch with keys {sorted(first)}")
+            res = trainer_phases(t, counters, launches, f"pack U1 {arm}", card, rows, seq,
+                                 timed, {"ce_fwd": 1, "ce_bwd": 1})
+            rate = res["timed"]["sessions_per_s"] * (per_row if pack else 1.0)
+            window, _ = traced_window(t, PACK_TIMED_STEPS)
+            arms[arm] = {"cold_ms": res["cold"]["ms_per_step"],
+                         "ms_per_step": res["timed"]["ms_per_step"], "rows_per_s":
+                         res["timed"]["sessions_per_s"], "sessions_per_s": rate,
+                         "profiled": window}
+            if pack:
+                packed_trainer = t
+            else:
+                del t
+        out["u1_train"] = arms
+        print(f"[pack] U1 training on {card}: {json.dumps(arms)}")
+
+        # one packed step, the card against the CPU, on the same weights and mask
+        model = flagship.build_model("cuda", seed=0, dropout=0.0)
+        cpu_model = flagship.build_model("cpu", seed=0, dropout=0.0)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        batch = {k: v[:rows] for k, v in loaded["packed"].items()}
+        out["u1_train_step"], _ = run("U1 packed training step", lambda: check_training_step(
+            model, cpu_model, batch), ce_fwd=1, ce_bwd=1)
+        print(f"[pack] U1 packed training step, card against CPU: "
+              f"{json.dumps(out['u1_train_step'])}")
+        del model, cpu_model
+
+        # packed evaluation against unpacked, and against the CPU
+        n_eval = sizes["2/valid"]
+        packed_rows = len(ParquetDataLoader.from_schema(schema, eval_file, batch_size=rows,
+                                                        pack=True).data["item_id"])
+        t = packed_trainer
+        packed_res, packed_s = run("U1 packed evaluate", t.evaluate,
+                                   ce_rank=-(-packed_rows // rows))
+        t.args.pack_eval_sessions = False
+        unpacked_res, unpacked_s = run("U1 unpacked evaluate", t.evaluate,
+                                       ce_rank=-(-n_eval // rows))
+        t.args.pack_eval_sessions = True
+        cpu_model = flagship.build_model("cpu", seed=0)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in t.model.state_dict().items()})
+        cpu_res = Trainer(cpu_model, t.args, schema=t.schema, eval_dataset=eval_file,
+                          device="cpu").evaluate()
+        check_evaluate(eval_metrics(packed_res), eval_metrics(unpacked_res), n_eval)
+        check_evaluate(eval_metrics(packed_res), eval_metrics(cpu_res), n_eval)
+        out["u1_evaluate"] = {
+            "sessions": n_eval, "packed_rows": packed_rows, "packed_s": packed_s,
+            "unpacked_s": unpacked_s, "packed": eval_metrics(packed_res),
+            "max_abs_diff_to_unpacked": max(abs(packed_res[k] - unpacked_res[k])
+                                            for k in eval_metrics(packed_res)),
+            "max_abs_diff_to_cpu": max(abs(packed_res[k] - cpu_res[k])
+                                       for k in eval_metrics(packed_res))}
+        print(f"[pack] U1 evaluation of {n_eval} sessions in {packed_rows} packed rows on "
+              f"{card}: {json.dumps(out['u1_evaluate'])}")
+        del t, packed_trainer, cpu_model, loaded
+        torch.cuda.empty_cache()
+
+    # U2: GPT-2-CLM on rows of 256 packed from short sessions
+    seq2, rows2 = flagship.LONG_SEQ, flagship.LONG_BATCH
+    short = synthetic_data(flagship.schema(flagship.NUM_ITEMS, seq), num_rows=U2_SESSIONS,
+                           max_session_length=seq, seed=510)
+    packed2 = pack_sessions(short, max_len=seq2, item_id_col="item_id")
+    stats2 = packing_stats(packed2, "item_id")
+    per_row2 = stats2["sessions"] / stats2["rows"]
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=short, scheme="clm",
+                                     pack_sessions=True)
+    trainer._train_dataloader = trainer.get_train_dataloader()
+    first = next(iter(trainer._train_dataloader))
+    if first["segment_ids"].shape != (rows2, seq2) or int(first["segment_ids"].max()) < 5:
+        fail(f"U2: packed batch {first['segment_ids'].shape}, "
+             f"{int(first['segment_ids'].max())} sessions in a row")
+    per_step = {"flash_fwd": layers, "flash_bwd_fused": layers, "ce_fwd": 1, "ce_bwd": 1}
+    res = trainer_phases(trainer, counters, launches, "pack U2", card, rows2, seq2, timed,
+                         per_step)
+    window, _ = traced_window(trainer, PACK_TIMED_STEPS)
+    out["u2_train"] = {"packing": {**stats2, "sessions_per_row": per_row2},
+                       "cold_ms": res["cold"]["ms_per_step"],
+                       "ms_per_step": res["timed"]["ms_per_step"],
+                       "sessions_per_s": res["timed"]["sessions_per_s"] * per_row2,
+                       "profiled": window}
+    print(f"[pack] U2 GPT-2-CLM on {card}: {json.dumps(out['u2_train'])}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    model = flagship.build_model("cuda", scheme="clm", seed=0, dropout=0.0)
+    cpu_model = flagship.build_model("cpu", scheme="clm", seed=0, dropout=0.0)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    four = {k: v[:4] for k, v in packed2.items()}
+    # the positions' gradient restarts at every segment: rows of 256 hold
+    # positions 0..19 only
+    out["u2_train_step"], _ = run("U2 packed training step", lambda: check_training_step(
+        model, cpu_model, four, extra=(POSITIONS,)), **per_step)
+    print(f"[pack] U2 packed training step at batch 4, card against CPU: "
+          f"{json.dumps(out['u2_train_step'])}")
+    batch = {k: v[:rows2] for k, v in packed2.items()}
+    sessions = unpack_rows(batch, seq)
+    n = len(sessions["item_id"])
+    gpu_res, packed_s = run("U2 packed evaluate", lambda: model.evaluate([batch]),
+                            flash_fwd=layers, ce_rank=1)
+    alone = [{k: v[i:i + EVAL_ROWS] for k, v in sessions.items()}
+             for i in range(0, n, EVAL_ROWS)]
+    unpacked_res, _ = run("U2 the same sessions unpacked", lambda: model.evaluate(alone),
+                          ce_rank=len(alone))
+    cpu_res = cpu_model.evaluate([batch])
+    check_evaluate(gpu_res, cpu_res, n)
+    check_evaluate(gpu_res, unpacked_res, n)
+    out["u2_evaluate"] = {"sessions": n, "packed_s": packed_s, "packed": gpu_res,
+                          "max_abs_diff_to_unpacked": max(abs(gpu_res[k] - unpacked_res[k])
+                                                          for k in gpu_res),
+                          "max_abs_diff_to_cpu": max(abs(gpu_res[k] - cpu_res[k])
+                                                     for k in gpu_res)}
+    print(f"[pack] U2 evaluation of {n} sessions in one packed batch on {card}: "
+          f"{json.dumps(out['u2_evaluate'])}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[pack] phase U on {card}: {out['phase_s']:.1f}s, launches {json.dumps(launches)}")
+    return out
+
+
+# --------------------------------------------- V: Reformer and recurrent bodies
+LSH_TIE_MARGIN = 1e-3  # V2: the card's and the CPU's hidden states differ by bf16 roundings
+
+
+def build_gru_model(device=None, seed: int = 0, dropout: float = 0.0):
+    """V3's GRU4Rec-style model from the public API, at the flagship's item
+    table and width: ``TabularSequenceFeatures`` (CLM) → ``MLPBlock(192)`` →
+    ``RNNBlock(192, "gru", num_layers=2)`` → the tied next-item task. Also
+    the serving builder (``builder(device)``)."""
+    from transformers4rec_tpu_torch import (
+        Head,
+        MLPBlock,
+        Model,
+        NextItemPredictionTask,
+        RNNBlock,
+        TabularSequenceFeatures,
+        flagship,
+    )
+
+    im = TabularSequenceFeatures.from_schema(flagship.schema(), d_output=flagship.D_MODEL,
+                                             masking="clm", aggregation="concat")
+    head = Head.from_body(im, tasks=[NextItemPredictionTask(weight_tying=True)],
+                          extra_blocks=[MLPBlock((flagship.D_MODEL,)),
+                                        RNNBlock(units=flagship.D_MODEL, cell_type="gru",
+                                                 num_layers=2, dropout=dropout)])
+    return Model(heads=(head,), device=device, seed=seed)
+
+
+def lsh_flips(model, cpu_model, batch, layer: int) -> dict:
+    """The buckets of LSH layer ``layer`` on the card and on the CPU for one
+    forward of ``batch`` (dropout off): how many differ, and the CPU's gap
+    between the top two of ``[xR, -xR]`` at each that does, which must be
+    within ``LSH_TIE_MARGIN``."""
+    from transformers4rec_tpu_torch.ops import lsh_attention as lsh
+
+    seen = {}
+    for name, m in (("cuda", model), ("cpu", cpu_model)):
+        attn = m.heads[0].body.blocks[1].encoder.stack()[layer].attn
+
+        def hook(mod, args, name=name):
+            x = args[0]
+            B, S, _ = x.shape
+            k = lsh._normalize_keys(mod.qk(x).view(B, S, mod.n_head, -1))
+            proj = torch.einsum("bshd,drn->bshrn", k.float(), mod.rotations.float())
+            seen[name] = (lsh.hash_buckets(k, mod.rotations).cpu(),
+                          torch.cat([proj, -proj], -1).cpu())
+
+        handle = attn.register_forward_pre_hook(hook)
+        with torch.no_grad():
+            b = m._as_dense(batch)
+            m(b, targets=b, testing=True)
+        handle.remove()
+    diff = seen["cuda"][0] != seen["cpu"][0]
+    top2 = seen["cpu"][1].double().topk(2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1])[diff]
+    if len(gaps) and float(gaps.max()) > LSH_TIE_MARGIN:
+        fail(f"LSH layer {layer}: buckets differ between the card and the CPU where the top "
+             f"two are {float(gaps.max())} apart")
+    return {"decisions": diff.numel(), "flips": int(diff.sum()),
+            "max_gap_of_a_flip": float(gaps.max()) if len(gaps) else None}
+
+
+def run_reformer_rnn(flagship, vocab, fa, card: str) -> dict:
+    """Main path V, Reformer and a recurrent body at full width. V1: the
+    headline command through the port's experiment script with
+    ``--model_type reformer`` (local, LSH, local layers; axial positions; at
+    S = 20 the LSH layer takes ``lsh_reference``): a cold step and
+    ``PACK_TIMED_STEPS`` timed steps from window 1, then the whole protocol
+    over one window (K1, K2 once a step, K3 once an evaluation batch), then
+    one training step of the trained model against the CPU. V2:
+    Reformer-MLM at batch 32 of up to 256 (``build_trainer(arch="reformer",
+    seq=LONG_SEQ)``: chunks of 64, 10 buckets, 2 hashes, the sorted path;
+    the local layers' K5 and K6a with the window's (1, 1, S, S) bias, twice
+    a step): a cold and timed steps; one step at batch 4 against the CPU with
+    the same weights and rotation buffers, the LSH layer's buckets on both
+    (``lsh_flips``); one evaluation batch against the CPU. V3: the GRU body
+    (``build_gru_model``, CLM, batch 128 of 20) through a ``Trainer`` with
+    the flagship's optimizer settings: a cold and timed steps; one step
+    against the CPU; ``Model.evaluate`` over 4 batches against the CPU; the
+    server's top-k over HTTP and the CPU's on the same artifact."""
+    from transformers4rec_tpu_torch.data import ParquetDataLoader, synthetic_data
+    from transformers4rec_tpu_torch.paper_repro import datasets_configs, transf_exp_main
+    from transformers4rec_tpu_torch.serving import InferenceRunner, export_model
+    from transformers4rec_tpu_torch.trainer import T4RecTrainingArguments, Trainer
+
+    t_phase = time.perf_counter()
+    counters = flash_counters(vocab, fa)
+    launches = dict.fromkeys(counters, 0)
+    out = {"card": card}
+
+    def run(what: str, fn, **want):
+        result, got, wall = counted(counters, fn)
+        expect_launches(f"phase V ({what})", got, **want)
+        for k, c in got.items():
+            launches[k] += c
+        return result, wall
+
+    timed = (("cold", 1, None), ("timed", PACK_TIMED_STEPS, None))
+    step_kernels = {"ce_fwd": 1, "ce_bwd": 1}
+    reformer_extra = (ENCODER + "axial_pos_0", ENCODER + "axial_pos_1",
+                      ENCODER + "layers.1.attn.qk.weight")
+
+    # V1: the headline command as Reformer-MLM through the experiment script
+    schema = datasets_configs.make_schema("rees46")
+    item_only = schema.select_by_name([schema.item_id_column_name])
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        schema_path = os.path.join(root, "schema.pbtxt")
+        schema.to_proto_text_file(schema_path)
+        data = os.path.join(root, "data")
+        sizes = paper_windows(schema, data, seed=402)
+        argv = with_flags(paper_readme_argv(data, schema_path), (),
+                          {"model_type": "reformer", "final_time_window_index": "1"})
+        print(f"[reformer] V1: transf_exp_main {' '.join(argv)}")
+        os.chdir(root)  # the command's --output_dir ./tmp/
+        try:
+            args, data_path, trainer = transf_exp_main.setup(argv)
+            enc = trainer.model.heads[0].body.blocks[1].encoder
+            if enc.attn_layers != ("local", "lsh", "local") or enc.pos_encoding != "axial":
+                fail(f"V1: encoder {enc.attn_layers}, {enc.pos_encoding}")
+            first = str(args.start_time_window_index).zfill(args.time_window_folder_pad_digits
+                                                            or 1)
+            trainer.train_dataset = os.path.join(data_path, first, "train.parquet")
+            rows = args.per_device_train_batch_size
+            res = trainer_phases(trainer, counters, launches, "reformer V1", card, rows,
+                                 args.session_seq_length_max, timed, step_kernels)
+            out["v1_train"] = {"cold_ms": res["cold"]["ms_per_step"],
+                               "ms_per_step": res["timed"]["ms_per_step"],
+                               "sessions_per_s": res["timed"]["sessions_per_s"]}
+            del trainer
+            steps = int(args.num_train_epochs) * (PAPER_SESSIONS["train"] // rows)
+            n_eval = -(-sizes[f"{args.start_time_window_index + 1}/test"]
+                       // args.per_device_eval_batch_size)
+            r, wall = run("V1 the experiment script", lambda: transf_exp_main.run(argv),
+                          ce_fwd=steps, ce_bwd=steps, ce_rank=n_eval)
+        finally:
+            os.chdir(cwd)
+        losses = [h["loss"] for h in r.trainer.state.log_history if "loss" in h]
+        if r.trainer.state.global_step != steps or sorted(r.results) != PAPER_RESULT_KEYS \
+                or not all(math.isfinite(v) for v in losses) \
+                or not all(math.isfinite(x) for v in r.results.values() for x in v):
+            fail(f"V1: {r.trainer.state.global_step} steps, losses {losses}, {r.results}")
+        batch = next(iter(ParquetDataLoader.from_schema(
+            item_only, os.path.join(data, "0003", "test.parquet"), batch_size=128,
+            max_sequence_length=20, shuffle=False)))
+        model = r.trainer.model
+        cpu_model = transf_exp_main.get_model(args, item_only, device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        swapped = same_swap_draw(model, cpu_model, batch, seed=7)
+        step, _ = run("V1 training step", lambda: check_training_step(
+            model, cpu_model, batch, extra=reformer_extra, loss_rtol=1e-5, extra_rel=1e-3),
+            **step_kernels)
+        out["v1"] = {"steps": steps, "eval_batches": n_eval, "wall_s": wall, "losses": losses,
+                     "results": r.results, "swapped_ids": swapped, "train_step": step}
+        print(f"[reformer] V1 on {card}: {json.dumps(out['v1_train'])}; the script's run "
+              f"{json.dumps(out['v1'])}")
+        del r, model, cpu_model
+        torch.cuda.empty_cache()
+
+    # V2: Reformer-MLM on sessions of up to 256, the sorted LSH path
+    seq, rows, layers = flagship.LONG_SEQ, flagship.LONG_BATCH, flagship.N_LAYER
+    data = synthetic_data(flagship.schema(flagship.NUM_ITEMS, seq), num_rows=8 * rows,
+                          max_session_length=seq, seed=520)
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data, arch="reformer",
+                                     seq=seq, batch=rows)
+    enc = trainer.model.heads[0].body.blocks[1].encoder
+    lsh_attn = enc.stack()[1].attn
+    plan = {"attn_layers": enc.attn_layers, "local_window": enc.local_window,
+            "chunk": lsh_attn.chunk_size, "rotations": list(lsh_attn.rotations.shape)}
+    if plan != {"attn_layers": ("local", "lsh", "local"), "local_window": PAPER_WINDOW,
+                "chunk": 64, "rotations": [flagship.D_MODEL // flagship.N_HEAD, 2, 5]}:
+        fail(f"V2: {plan}")
+    local = layers - 1
+    per_step = {"flash_fwd": local, "flash_bwd_fused": local, **step_kernels}
+    res = trainer_phases(trainer, counters, launches, "reformer V2", card, rows, seq, timed,
+                         per_step)
+    out["v2_train"] = {"plan": plan, "cold_ms": res["cold"]["ms_per_step"],
+                       "ms_per_step": res["timed"]["ms_per_step"],
+                       "sessions_per_s": res["timed"]["sessions_per_s"]}
+    del trainer
+    torch.cuda.empty_cache()
+    model = flagship.build_model("cuda", seed=0, dropout=0.0, arch="reformer", seq=seq)
+    cpu_model = flagship.build_model("cpu", seed=0, dropout=0.0, arch="reformer", seq=seq)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    four = {k: v[:4] for k, v in data.items()}
+    flips = lsh_flips(model, cpu_model, four, 1)
+    step, _ = run("V2 training step", lambda: check_training_step(
+        model, cpu_model, four, extra=reformer_extra), **per_step)
+    loader = eval_batches(flagship, flagship.NUM_ITEMS, seq, 1, rows)
+    gpu_res, eval_s = run("V2 evaluate", lambda: model.evaluate(loader), flash_fwd=local,
+                          ce_rank=1)
+    check_evaluate(gpu_res, cpu_model.evaluate(loader), rows)
+    out["v2"] = {"lsh_buckets": flips, "train_step": step, "evaluate": gpu_res,
+                 "evaluate_s": eval_s}
+    print(f"[reformer] V2 on {card}: {json.dumps(out['v2_train'])}; card against CPU "
+          f"{json.dumps(out['v2'])}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    # V3: the GRU body at the flagship's width
+    seq, rows = flagship.SEQ, flagship.BATCH
+    data = synthetic_data(flagship.schema(), num_rows=16 * rows, max_session_length=seq,
+                          seed=530)
+    with tempfile.TemporaryDirectory() as root:
+        args = T4RecTrainingArguments(
+            output_dir=root, learning_rate=flagship.LEARNING_RATE,
+            lr_scheduler_type="constant", weight_decay=flagship.WEIGHT_DECAY, max_grad_norm=0.0,
+            embedding_optimizer="adafactor", embedding_moment_dtype="bf16",
+            per_device_train_batch_size=rows, per_device_eval_batch_size=rows,
+            steps_per_execution=8, max_sequence_length=seq, seed=0)
+        trainer = Trainer(build_gru_model("cuda", dropout=0.1), args, schema=flagship.schema(),
+                          train_dataset=data, device="cuda")
+        res = trainer_phases(trainer, counters, launches, "gru V3", card, rows, seq, timed,
+                             step_kernels)
+    out["v3_train"] = {"cold_ms": res["cold"]["ms_per_step"],
+                       "ms_per_step": res["timed"]["ms_per_step"],
+                       "sessions_per_s": res["timed"]["sessions_per_s"]}
+    del trainer
+    model, cpu_model = build_gru_model("cuda"), build_gru_model("cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    body = "heads.0.body.blocks.2."
+    step, _ = run("V3 training step", lambda: check_training_step(
+        model, cpu_model, {k: v[:rows] for k, v in data.items()},
+        extra=(body + "gru_0.weight_ih_l0", body + "gru_0.weight_hh_l0",
+               body + "gru_1.bias_hh_l0"), loss_rtol=1e-5, extra_rel=1e-3), **step_kernels)
+    loader = eval_batches(flagship, flagship.NUM_ITEMS, seq, EVAL_BATCHES, rows)
+    gpu_res, eval_s = run("V3 evaluate", lambda: model.evaluate(loader),
+                          ce_rank=EVAL_BATCHES)
+    check_evaluate(gpu_res, cpu_model.evaluate(loader), EVAL_BATCHES * rows)
+    vocab_size = flagship.NUM_ITEMS + 1
+    requests = serve_requests(flagship, flagship.NUM_ITEMS, seq, 8)
+    serve = run_serve(build_gru_model, model, loader[0], vocab_size, requests, "cuda")
+    sessions = {c: sum((r[c] for r in requests), [])[:8] for c in requests[0]}
+    with tempfile.TemporaryDirectory() as path:
+        export_model(model, loader[0], path, top_k=TOP_K)
+        got_s, got_i = InferenceRunner(path, build_gru_model, device="cuda").predict(sessions)
+        want_s, want_i = InferenceRunner(path, build_gru_model, device="cpu").predict(sessions)
+    check_topk(got_s, got_i, want_s, want_i, vocab_size, "GRU top-k against the CPU")
+    launches["ce_rank"] += serve["launches"]["ce_rank"]
+    out["v3"] = {"train_step": step, "evaluate": gpu_res, "evaluate_s": eval_s,
+                 "serve": serve["stats"], "serve_wall_s": serve["wall_s"]}
+    print(f"[gru] V3 on {card}: {json.dumps(out['v3_train'])}; card against CPU "
+          f"{json.dumps(out['v3'])}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[reformer-gru] phase V on {card}: {out['phase_s']:.1f}s, launches "
+          f"{json.dumps(launches)}")
+    return out
+
+
 # -------------------------------------------------------------------- timing
 def bound(nbytes: int, flops: int, exps: int = 0, f32_flops: int = 0) -> dict:
     """The least time the card could take: the larger of the bytes over the
@@ -3444,6 +3992,12 @@ def main() -> None:
                       12.0, [90]),
         check_ce_rank("every_position_long", PLM_LONG_EVAL_ROWS, table_rows, vocab_size, False,
                       4.0, 12.0, [91]),
+        # packed evaluation's rows: 128 packed rows of 20 (U1) and 32 of 256
+        # (U2), at most S // 2 targets a row
+        check_ce_rank("packed_eval", PACKED_EVAL_ROWS, table_rows, vocab_size, False, 4.0,
+                      12.0, [92]),
+        check_ce_rank("packed_eval_long", PACKED_LONG_EVAL_ROWS, table_rows, vocab_size, False,
+                      4.0, 12.0, [93]),
     ]
     # the training shape: the flagship's loss-row budget of its 128 x 20 positions
     train_rows = flagship.build_model("cpu", num_items=50, d_model=16, n_layer=1, n_head=2,
@@ -3515,6 +4069,9 @@ def main() -> None:
                     window=PAPER_WINDOW),
         check_flash("transfoxl", *flash_shapes["main"], True, 27, ragged=True,
                     bias_shape=(1, flagship.N_HEAD, flagship.LONG_SEQ, flagship.LONG_SEQ)),
+        # phase U2's attention: rows of 256 packed from sessions of 2 to 20,
+        # the (B, 1, S, S) block-diagonal bias, causal (K5 and K6a)
+        check_flash("segments", *flash_shapes["main"], True, 28, segments=True),
     ]
     torch.cuda.empty_cache()
     flash = flash_counters(vocab, attention)
@@ -3585,6 +4142,13 @@ def main() -> None:
     large = run_large_vocab(flagship, vocab, attention, card)
     checks.append(large["k3_check"])
     multi = run_multitask(flagship, vocab, attention, card)
+    torch.cuda.empty_cache()
+
+    # ---- main path U: session packing (XLNet-MLM from Parquet, GPT-2-CLM on rows of 256)
+    packing = run_packing(flagship, vocab, attention, card)
+
+    # ---- main path V: Reformer (the script, and on sessions of 256) and a GRU body
+    reformer_rnn = run_reformer_rnn(flagship, vocab, attention, card)
 
     # ---- main path P1: XLNet-PLM at full width, two streams, every position
     plm = run_plm(flagship, vocab, attention, card, vocab_size)
@@ -3646,10 +4210,26 @@ def main() -> None:
     plm_timing["ce_rank_long"]["launches"] = plm_long["launches"]["ce_rank"]
     plm_timing["flash_fwd"]["launches"] = plm_long["launches"]["flash_fwd"]
     # K5 and K6a with Longformer's local-window bias (S4)
-    window_timing = time_flash_window("longformer", *flash_shapes["main"], PAPER_WINDOW, 30)
+    window_timing = time_flash_bias("longformer", *flash_shapes["main"], 30, window=PAPER_WINDOW)
     s4 = archs["S4"]["longformer"]["launches"]
     for name in window_timing:
-        window_timing[name]["launches"] = s4[name]
+        # phase S4's Longformer and phase V2's local layers: one shape
+        window_timing[name]["launches"] = s4[name] + reformer_rnn["launches"][name]
+    # K5 and K6a with packed rows' block-diagonal bias (U2) and K3 at packed
+    # evaluation's rows (U1, U2)
+    packed_timing = time_flash_bias("segments", *flash_shapes["main"], 30, causal=True,
+                                    segments=True)
+    for name in packed_timing:
+        packed_timing[name]["launches"] = packing["launches"][name]
+    packed_timing["ce_rank"] = time_ce_rank(vocab, PACKED_EVAL_ROWS, table_rows, vocab_size)
+    packed_timing["ce_rank_long"] = time_ce_rank(vocab, PACKED_LONG_EVAL_ROWS, table_rows,
+                                                 vocab_size)
+    print(f"[timing] packed rows on {card}: K5 and K6a with the (B, 1, S, S) block-diagonal "
+          f"bias, causal, at {flash_shapes['main']}; ce_rank at N={PACKED_EVAL_ROWS} and "
+          f"N={PACKED_LONG_EVAL_ROWS}, E=64, V={vocab_size}: {json.dumps(packed_timing)}; "
+          "library_ms is F.scaled_dot_product_attention with the same bias, padding and "
+          "causal mask as a bf16 additive mask (forward; its backward), and "
+          "torch.matmul(bf16) with logsumexp + count for ce_rank")
     print(f"[timing] K5 and K6a with Longformer's (1, 1, S, S) local-window bias at "
           f"{flash_shapes['main']} on {card}: {json.dumps(window_timing)}; library_ms is "
           "F.scaled_dot_product_attention with the same bias and padding as a bf16 additive "
@@ -3684,15 +4264,19 @@ def main() -> None:
                        on(wide_timing["clm"]["ce_bwd"], False)],
             "ce_rank": [on(wide_timing["ce_rank"], True), on(plm_timing["ce_rank"], True),
                         on(plm_timing["ce_rank_long"], True),
+                        on(packed_timing["ce_rank"], True),
+                        on(packed_timing["ce_rank_long"], True),
                         on({**large["k3_timing"], "launches": large["launches"]["ce_rank"],
                             "V": large["table_rows"]}, True)],
             "rank": [on(wide_timing["rank"], False)],
             "flash_fwd": [on(flash_timing["long_step"]["flash_fwd"], True),
                           on(flash_timing["long"]["flash_fwd"], False),
                           on(plm_timing["flash_fwd"], True),
-                          on(window_timing["flash_fwd"], True)],
+                          on(window_timing["flash_fwd"], True),
+                          on(packed_timing["flash_fwd"], True)],
             "flash_bwd_fused": [on(flash_timing["long"]["flash_bwd_fused"], False),
-                                on(window_timing["flash_bwd_fused"], True)],
+                                on(window_timing["flash_bwd_fused"], True),
+                                on(packed_timing["flash_bwd_fused"], True)],
             "flash_bwd_dq": [on(flash_timing["main"]["flash_bwd_dq"], False)],
             "flash_bwd_dkv": [on(flash_timing["main"]["flash_bwd_dkv"], False)]}
     clm_step_ms = clm["one_batch_repeated"]["ms_per_step"]
@@ -3744,7 +4328,8 @@ def main() -> None:
         launches[name] = (launches.get(name, 0) + clm["launches"][name]
                           + long_step["launches"][name] + plm["launches"][name]
                           + plm_long["launches"][name] + archs["launches"][name]
-                          + large["launches"][name] + multi["launches"][name])
+                          + large["launches"][name] + multi["launches"][name]
+                          + packing["launches"][name] + reformer_rnn["launches"][name])
     errors = {"ce_rank": max(c["lse_max_abs_err"] for c in checks),
               "ce_fwd": max(c["lse_max_abs_err"] for c in train_checks),
               "ce_bwd": max(c[g]["max_abs_err"] for c in train_checks for g in ("dx", "dW")),

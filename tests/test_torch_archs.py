@@ -169,8 +169,10 @@ def test_the_registry_holds_the_jax_names_and_reformer_says_what_is_missing():
     rcfg = transformer_registry.parse("reformer").build(32, 2, 4, 20)
     assert rcfg.attn_layers == jtr.transformer_registry.parse("reformer").build(
         32, 2, 4, 20).attn_layers
-    with pytest.raises(NotImplementedError, match="attn_layers.*axial_pos_shape"):
-        rcfg.to_encoder()
+    # Reformer's encoder builds: local and LSH layers in turn, axial positions
+    renc = rcfg.to_encoder()
+    assert [layer.attn_type for layer in renc.stack()] == ["dense", "lsh", "dense", "lsh"]
+    assert renc.pos_encoding == "axial" and renc.local_window == rcfg.local_window
 
 
 # ------------------------------------------------------------------ encoders
@@ -245,10 +247,6 @@ def test_albert_shares_one_layer_and_its_gradient_sums_its_uses():
 def test_every_registered_arch_runs_forward(arch):
     cfg = transformer_registry.parse(arch).build(d_model=32, n_head=2, n_layer=1,
                                                  total_seq_length=10)
-    if arch == "reformer":
-        with pytest.raises(NotImplementedError, match="reformer: not ported yet"):
-            cfg.to_encoder()
-        return
     # a lone encoder, its weights not drawn by a Model: finite all the same
     out = cfg.to_encoder()(torch.ones(2, 10, 32), pad_mask=torch.ones(2, 10, dtype=torch.bool))
     assert out.shape == (2, 10, 32) and torch.isfinite(out).all()

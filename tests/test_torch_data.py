@@ -188,10 +188,13 @@ def test_a_producer_error_reaches_the_consumer():
 
 
 def test_packing_is_refused(files):
-    _, tschema = _schemas()
-    for cls_name in ("ParquetDataLoader", "StreamingParquetDataLoader", "SyntheticDataLoader"):
-        with pytest.raises(NotImplementedError, match="packing"):
-            getattr(tloader, cls_name).from_schema(tschema, files[0], batch_size=8, pack=True)
+    """Packing is ported (tests/test_torch_packing.py); the streaming loader
+    refuses it over more than one process, as the JAX one does."""
+    jschema, tschema = _schemas()
+    for mod, schema in ((jloader, jschema), (tloader, tschema)):
+        with pytest.raises(ValueError, match="pack=True"):
+            mod.StreamingParquetDataLoader.from_schema(schema, files[0], batch_size=8, pack=True,
+                                                       global_rank=1, global_size=2)
 
 
 def test_registry_and_exports_match_jax():

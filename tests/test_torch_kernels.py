@@ -716,6 +716,66 @@ def test_ce_rank_kernel_at_the_every_position_rows(dev, n):
     assert float((diff == 0).float().mean()) >= 0.99 and int(diff.max()) <= 2
 
 
+@pytest.mark.parametrize("n", [1280, 4096])  # packed evaluation: 128 x (20 // 2), 32 x (256 // 2)
+def test_ce_rank_kernel_at_the_packed_evaluation_rows(dev, n):
+    """K3 at the rows that packed evaluation ranks (at most S // 2 targets
+    in a packed row), held as at the every-position rows."""
+    x, W, labels, ll = _inputs(n, 64, 390_008, 390_001, n + 1, dev)
+    lse, rank, _ = vocab.ce_rank(x, W, labels, ll, 390_001)
+    again = vocab.ce_rank(x, W, labels, ll, 390_001)
+    torch.cuda.synchronize()
+    assert torch.equal(lse, again[0]) and torch.equal(rank, again[1])
+    lse_p, rank_p, _ = vocab.ce_rank_plain(x, W, labels, ll, 390_001, False)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=0)
+    diff = (rank.long() - rank_p.long()).abs()
+    assert float((diff == 0).float().mean()) >= 0.99 and int(diff.max()) <= 2
+
+
+def _segment_bias(B, S, seed, dev):
+    """Rows of ``S`` packed from sessions of 2 to 20 items: the pad mask and
+    the (B, 1, S, S) block-diagonal bias the encoder builds from their
+    segment ids."""
+    from transformers4rec_tpu_torch.blocks.transformer import make_extra_bias
+    from transformers4rec_tpu_torch.data import pack_sessions
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(2, 21, B * S // 8)
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    seg = torch.from_numpy(pack_sessions(
+        {"item_id__values": np.ones(offsets[-1], np.int64), "item_id__offsets": offsets},
+        max_len=S, item_id_col="item_id", num_rows=B)["segment_ids"]).long().to(dev)
+    return seg > 0, make_extra_bias(S, (seg[:, :, None] != seg[:, None, :]).float())
+
+
+@pytest.mark.parametrize("design", DESIGNS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Dh", [(4, 256, 16, 12), (2, 384, 4, 64)])
+def test_flash_kernels_with_the_packed_segment_bias_match_plain(dev, B, S, H, Dh, causal,
+                                                                  design):
+    """K5 and K6a with packed rows' (B, 1, S, S) block-diagonal bias (key
+    tiles wholly outside a query tile's segments add nothing), against their
+    plain versions, with the same bits on a second call."""
+    rng = np.random.default_rng(B * S + Dh + causal)
+    q, k, v, g = (torch.from_numpy(rng.normal(0, 1, (B, S, H, Dh)).astype(np.float32)).to(dev)
+                  for _ in range(4))
+    pad, bias = _segment_bias(B, S, S + Dh, dev)
+    assert bias.shape == (B, 1, S, S) and int((bias == 0).sum()) < B * S * S // 4
+    wgmma = DESIGNS[design]
+    out, lse = attn._flash_fwd_cuda(q, k, v, bias, pad, causal, wgmma=wgmma)
+    again = attn._flash_fwd_cuda(q, k, v, bias, pad, causal, wgmma=wgmma)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    _assert_forward_matches_plain(q, k, v, bias, pad, causal, out, lse)
+    out_p, lse_p = attn.flash_forward_plain(q, k, v, bias, pad, causal)
+    args = (q, k, v, g, lse_p, attn.row_delta(g, out_p), bias, pad, causal)
+    fused = attn._flash_bwd_fused_cuda(*args, wgmma=wgmma)
+    assert all(torch.equal(a, b)
+               for a, b in zip(fused, attn._flash_bwd_fused_cuda(*args, wgmma=wgmma)))
+    want = attn.flash_backward_plain(q, k, v, bias, pad, causal, out_p, lse_p, g, True)
+    for got, w in zip(fused, want):
+        assert torch.isfinite(got).all() and _close_grad(got, w)
+
+
 @pytest.mark.parametrize("n,smooth", [(4, True), (128, False)])
 def test_ce_rank_kernel_at_the_large_vocab_table(dev, n, smooth):
     """K3 over the 4,000,001-item table of the JAX benchmark's configuration

@@ -306,7 +306,7 @@ def test_each_scheme_runs_on_synthetic_windows_with_the_jax_scripts_keys(flags, 
 def test_every_model_type_builds_as_the_jax_script_builds_it():
     """The BERT family, ELECTRA with RTD (and its in-batch sampling flag),
     TransfoXL and ``--pre_ln``: each command line's encoder and masking as
-    the JAX script's; Reformer says what is not ported."""
+    the JAX script's; Reformer's local and LSH layers and axial positions."""
     from transformers4rec_tpu_torch.masking import ReplacementLanguageModeling
 
     schema = _item_only()
@@ -330,6 +330,11 @@ def test_every_model_type_builds_as_the_jax_script_builds_it():
         assert type(masking).__name__ == type(jmodel.heads[0].body.blocks[0].masking).__name__
         if "--rtd" in flags:
             assert isinstance(masking, ReplacementLanguageModeling) and masking.sample_from_batch
-    with pytest.raises(NotImplementedError, match="reformer: not ported yet"):
-        transf_exp_main.get_model(transf_exp_main.build_parser().parse_args(
-            ["--model_type", "reformer"] + SMALL), schema)
+    argv = ["--model_type", "reformer"] + SMALL
+    jcfg = cli.get_model(cli.build_parser().parse_args(argv), jschema).heads[0].body.blocks[
+        1].transformer.encoder_kwargs()
+    enc = transf_exp_main.get_model(transf_exp_main.build_parser().parse_args(argv),
+                                    schema).heads[0].body.blocks[1].encoder
+    assert (enc.attn_layers, enc.pos_encoding, enc.axial_pos_shape, enc.local_window) == (
+        jcfg["attn_layers"], jcfg["pos_encoding"], jcfg["axial_pos_shape"],
+        jcfg["local_window"])

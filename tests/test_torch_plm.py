@@ -90,8 +90,10 @@ def test_plm_is_registered_under_both_names_and_rejects_segment_ids():
     assert masking_registry.parse("plm") is masking_registry.parse("permutation")
     assert masking_registry.parse("plm") is PermutationLanguageModeling
     tm = PermutationLanguageModeling(hidden_size=4)
-    with pytest.raises(NotImplementedError):
-        tm(torch.zeros(1, 3, 4), torch.ones(1, 3, dtype=torch.long), training=True,
+    # packed rows train and evaluate (tests/test_torch_packing.py); serving
+    # refuses them, as the JAX package does
+    with pytest.raises(NotImplementedError, match="unpacked"):
+        tm(torch.zeros(1, 3, 4), torch.ones(1, 3, dtype=torch.long),
            segment_ids=torch.ones(1, 3, dtype=torch.long))
 
 

@@ -362,8 +362,7 @@ def test_arguments_keep_the_jax_defaults_and_refuse_what_is_not_ported():
               "gradient_checkpointing", "profile_steps", "profile_dir"):
         assert getattr(got, f) == getattr(want, f), f
     for field, value in (("checkpoint_format", "msgpack"), ("checkpoint_format", "orbax"),
-                         ("save_async", True), ("pack_sessions", True),
-                         ("pack_eval_sessions", True), ("mesh_model_axis", 2),
+                         ("save_async", True), ("mesh_model_axis", 2),
                          ("auto_vocab_parallel", False), ("gradient_checkpointing", True),
                          ("profile_steps", "1,2"), ("profile_dir", "p")):
         with pytest.raises(NotImplementedError, match=field):

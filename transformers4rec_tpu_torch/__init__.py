@@ -4,7 +4,9 @@ A second package beside the JAX one, which stays the reference. It carries
 the training, evaluation and inference paths of the REES46 XLNet-MLM model,
 of GPT-2 with causal language modelling on long sessions, of XLNet-PLM and
 of the BERT family (BERT, RoBERTa, ELECTRA with RTD masking, ALBERT,
-Longformer) and TransfoXL: schema-driven input modules, MLM, CLM, PLM and
+Longformer), TransfoXL, Reformer (local and LSH attention layers, axial
+positions) and recurrent GRU/LSTM bodies (``RNNBlock``), with session
+packing in training and evaluation: schema-driven input modules, MLM, CLM, PLM and
 RTD masking, the unified transformer encoder,
 next-item prediction over a tied item table or an untied output layer,
 with full or log-uniform sampled softmax, binary and regression tasks in
@@ -29,7 +31,14 @@ from . import (
     blocks, config, convert, data, features, masking, model, ops, schema, serving, tabular,
     trainer, utils,
 )
-from .blocks import MLPBlock, SequentialBlock, TransformerBlock, TransformerEncoder
+from .blocks import (
+    Block,
+    MLPBlock,
+    RNNBlock,
+    SequentialBlock,
+    TransformerBlock,
+    TransformerEncoder,
+)
 from .config import (
     AlbertConfig,
     BertConfig,
@@ -70,6 +79,7 @@ __all__ = [
     "AlbertConfig",
     "BertConfig",
     "BinaryClassificationTask",
+    "Block",
     "ColumnSchema",
     "ContinuousFeatures",
     "ElectraConfig",
@@ -84,6 +94,7 @@ __all__ = [
     "NextItemPredictionTask",
     "PredictionTask",
     "PretrainedEmbeddingFeatures",
+    "RNNBlock",
     "ReformerConfig",
     "RegressionTask",
     "RobertaConfig",

@@ -1,5 +1,13 @@
-from .base import MLPBlock, SequentialBlock, TransformerBlock, check_masking_compat
+from .base import (
+    Block,
+    MLPBlock,
+    RNNBlock,
+    SequentialBlock,
+    TransformerBlock,
+    check_masking_compat,
+)
 from .transformer import (
+    LSHSelfAttention,
     MultiHeadAttention,
     RelativePositionBias,
     TransformerEncoder,
@@ -9,8 +17,11 @@ from .transformer import (
 )
 
 __all__ = [
+    "Block",
+    "LSHSelfAttention",
     "MLPBlock",
     "MultiHeadAttention",
+    "RNNBlock",
     "RelativePositionBias",
     "SequentialBlock",
     "TransformerBlock",

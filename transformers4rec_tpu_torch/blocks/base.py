@@ -1,4 +1,5 @@
-"""Block composition: SequentialBlock and TransformerBlock.
+"""Block composition: SequentialBlock, TransformerBlock, MLPBlock, RNNBlock
+and Block.
 
 Counterpart of ``transformers4rec_tpu/blocks/base.py``. Shape propagation is
 analytic through ``output_size()``; the sequential pipeline threads
@@ -12,11 +13,23 @@ analytic through ``output_size()``; the sequential pipeline threads
 ``norm_{i}`` as in the JAX package; ``Head.from_body(extra_blocks=...)``
 puts it between the input module and the transformer.
 
-Not ported yet: ``Block`` and ``RNNBlock``.
+``RNNBlock`` is the GRU4Rec-style recurrent body: ``num_layers`` GRU or LSTM
+layers of ``units``, each one single-layer ``nn.GRU``/``nn.LSTM``
+(``batch_first``) named as flax names it (``gru_{i}``, ``lstm_{i}``),
+dropout between layers drawn from the forward's generator. Flax's cells
+carry fewer biases than torch's: the GRU has no bias on the recurrent
+reset and update gates (``b_hr = b_hz = 0``; ``b_hn`` stays inside
+``r * (...)``, as in torch), the LSTM none on the input side
+(``b_ih = 0``). Those parts of torch's biases start at zero and a gradient
+hook keeps them there, so every layer computes flax's cell. A
+``SequentialBlock`` refuses packed rows before an ``RNNBlock``: the
+recurrence would carry state from one packed session into the next.
+``Block`` wraps any module with a declared output size.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -25,7 +38,7 @@ from torch import nn
 from ..config.transformer import T4RecConfig
 from ..masking import MaskingInfo
 from .transformer import ACTIVATIONS
-from .transformer import dropout, init_dense_
+from .transformer import _lecun_normal_, dropout, init_dense_
 
 # which masking schemes each architecture supports
 _DEFAULT_MASKING = ("clm", "mlm", "rtd", "plm")
@@ -107,6 +120,108 @@ class MLPBlock(nn.Module):
         return x
 
 
+class Block(nn.Module):
+    """Any module with a declared output size; the train/eval flag reaches
+    it when its ``forward`` takes ``training``."""
+
+    def __init__(self, module: nn.Module, output_dim: int):
+        super().__init__()
+        self.module = module
+        self.output_dim = output_dim
+        params = inspect.signature(module.forward).parameters
+        self._takes_training = "training" in params or any(
+            p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
+
+    def output_size(self) -> int:
+        return self.output_dim
+
+    def forward(self, inputs, training: bool = False, testing: bool = False, generator=None):
+        if self._takes_training:
+            return self.module(inputs, training=training)
+        return self.module(inputs)
+
+
+class _KeepZero:
+    """A gradient hook that zeroes the first ``n`` entries of a bias's
+    gradient: the part flax's cell does not have stays at its zero."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __call__(self, grad: torch.Tensor) -> torch.Tensor:
+        out = grad.clone()
+        out[:self.n] = 0
+        return out
+
+
+class RNNBlock(nn.Module):
+    """Recurrent body: ``num_layers`` GRU or LSTM layers, (B, S, D) →
+    (B, S, units), left to right (causal by construction: CLM is its
+    scheme). ``input_dim`` is the width of the block before;
+    ``Head.from_body(extra_blocks=...)`` builds it when not given."""
+
+    def __init__(self, units: int = 64, cell_type: str = "gru", num_layers: int = 1,
+                 dropout: float = 0.0, input_dim: Optional[int] = None):
+        super().__init__()
+        if cell_type not in ("gru", "lstm"):
+            raise ValueError(f"unknown cell_type {cell_type!r}")
+        self.units = units
+        self.cell_type = cell_type
+        self.num_layers = num_layers
+        self.dropout = dropout
+        self.input_dim: Optional[int] = None
+        if input_dim is not None:
+            self.build(input_dim)
+
+    def build(self, input_dim: int) -> None:
+        """Create the layers for inputs ``input_dim`` wide."""
+        if self.input_dim is not None:
+            if self.input_dim != input_dim:
+                raise ValueError(f"RNNBlock built for {self.input_dim} inputs, given {input_dim}")
+            return
+        self.input_dim = input_dim
+        cls = nn.GRU if self.cell_type == "gru" else nn.LSTM
+        for i in range(self.num_layers):
+            rnn = cls(input_dim if i == 0 else self.units, self.units, batch_first=True)
+            # GRU: no recurrent bias on r and z; LSTM: no input-side bias
+            zero, n = ((rnn.bias_hh_l0, 2 * self.units) if self.cell_type == "gru"
+                       else (rnn.bias_ih_l0, 4 * self.units))
+            with torch.no_grad():
+                zero[:n] = 0
+            zero.register_hook(_KeepZero(n))
+            self.add_module(f"{self.cell_type}_{i}", rnn)
+
+    def layers(self) -> list:
+        return [getattr(self, f"{self.cell_type}_{i}") for i in range(self.num_layers)]
+
+    def output_size(self) -> int:
+        return self.units
+
+    def _init_weights(self, generator: torch.Generator) -> None:
+        """flax's cells: lecun-normal input kernels, orthogonal recurrent
+        kernels (each gate's its own), zero biases."""
+        for rnn in self.layers():
+            _lecun_normal_(rnn.weight_ih_l0, rnn.input_size, generator)
+            for gate in rnn.weight_hh_l0.split(self.units):
+                nn.init.orthogonal_(gate, generator=generator)
+            nn.init.zeros_(rnn.bias_ih_l0)
+            nn.init.zeros_(rnn.bias_hh_l0)
+
+    def forward(self, x: torch.Tensor, training: bool = False, testing: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.input_dim is None:
+            raise ValueError("RNNBlock has no layers yet: build(input_dim) it first")
+        for i, rnn in enumerate(self.layers()):
+            # cuDNN keeps what its backward needs only in training mode; a
+            # single-layer GRU or LSTM has no dropout, so the flag changes
+            # nothing else
+            rnn.training = torch.is_grad_enabled()
+            x, _ = rnn(x)
+            if i < self.num_layers - 1:
+                x = dropout(x, self.dropout, training, generator)
+        return x
+
+
 class TransformerBlock(nn.Module):
     """Adapter from the tabular-sequence pipeline into the unified encoder.
     Accepts a ``T4RecConfig`` or a prebuilt ``TransformerEncoder``;
@@ -182,6 +297,12 @@ class SequentialBlock(nn.Module):
                 x = block(x, training=training, testing=testing, generator=generator,
                           masking_info=masking_info)
             else:
+                if isinstance(block, RNNBlock) and info is not None \
+                        and info.segment_ids is not None:
+                    raise ValueError(
+                        "RNNBlock does not support packed sessions (segment_ids present): "
+                        "left-to-right recurrence would leak state across session "
+                        "boundaries. Train RNN bodies with pack_sessions=False.")
                 x = block(x, training=training, testing=testing, generator=generator)
             if isinstance(x, tuple):
                 x, maybe_info = x

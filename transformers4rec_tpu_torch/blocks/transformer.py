@@ -33,10 +33,24 @@ encoder built with ``two_stream`` runs a second, query stream beside the
 content stream. It starts from a learned vector (``query_stream_init``),
 attends the content stream's keys and values through the same attention
 and feed-forward weights under its own bias, which also hides each
-position from itself, and is what the encoder returns. Not ported yet:
-session packing (``segment_ids``), axial positions, per-layer attention
-patterns and LSH attention; ``T4RecConfig.to_encoder`` raises
-``NotImplementedError`` for them.
+position from itself, and is what the encoder returns.
+
+Session packing: given ``segment_ids`` (B, S) (0 at padding, 1..n for the
+sessions packed into a row), a block-diagonal restriction joins the perm
+mask's channel of the bias (a (B, 1, S, S) bias of the flash kernels), and
+learned or axial positions restart at each segment's start, so a packed
+session sees the positions it would see alone. XLNet's two streams still
+key on the scheme's own perm mask, not the merged one.
+
+Reformer: axial positions (``pos_encoding="axial"``: position p embeds as
+``axial_pos_0[p // d2] ++ axial_pos_1[p % d2]`` for ``axial_pos_shape``
+(d1, d2)) and a per-layer attention pattern (``attn_layers``, each entry
+``"dense"``, ``"local"`` (the local window) or ``"lsh"``). An LSH layer
+(``LSHSelfAttention``: a shared query/key projection, ``ops.lsh_attention``)
+builds no (S, S) bias; the windowed and dense layers share one bias, or one
+flash context, per window. LSH layers refuse what bucket-sorted chunks
+cannot carry, as the JAX package does: a perm mask or two streams,
+``segment_ids``, segment memory and the relative bias.
 """
 
 from __future__ import annotations
@@ -48,6 +62,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_attention, use_flash
+from ..ops.lsh_attention import draw_rotations, lsh_attention
 
 NEG_INF = -1e9
 
@@ -264,6 +279,42 @@ class MultiHeadAttention(nn.Module):
         return self.out(ctx.reshape(B, Sq, H * Dh)), (k, v)
 
 
+class LSHSelfAttention(nn.Module):
+    """Reformer's LSH attention: one projection for queries and keys (the
+    hash compares them in one space), values and an output projection as
+    usual, and dropout on the context (the probabilities live in the
+    sorted chunks). The rotations of the hash are an untrained buffer,
+    drawn from ``seed`` (``ops.lsh_attention.draw_rotations``); they live
+    in the ``state_dict``, so a saved model keeps its buckets."""
+
+    def __init__(self, d_model: int, n_head: int, dropout: float = 0.0, causal: bool = False,
+                 num_buckets: int = 8, num_hashes: int = 2, chunk_size: int = 8, seed: int = 0):
+        super().__init__()
+        self.d_model, self.n_head, self.dropout = d_model, n_head, dropout
+        self.causal = causal
+        self.chunk_size = chunk_size
+        self.qk = nn.Linear(d_model, d_model)
+        self.v = nn.Linear(d_model, d_model)
+        self.out = nn.Linear(d_model, d_model)
+        self.register_buffer(
+            "rotations", draw_rotations(d_model // n_head, num_hashes, num_buckets, seed))
+
+    def _init_weights(self, generator: torch.Generator) -> None:
+        for lin in (self.qk, self.v, self.out):
+            nn.init.xavier_uniform_(lin.weight, generator=generator)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor], training: bool = False,
+                generator=None) -> torch.Tensor:
+        B, S, _ = x.shape
+        H, Dh = self.n_head, self.d_model // self.n_head
+        ctx = lsh_attention(self.qk(x).view(B, S, H, Dh), self.v(x).view(B, S, H, Dh),
+                            self.rotations, pad_mask=pad_mask, causal=self.causal,
+                            chunk_size=self.chunk_size)
+        ctx = dropout(ctx, self.dropout, training, generator)
+        return self.out(ctx.reshape(B, S, H * Dh))
+
+
 # flax.linen's activations by name (``nn.gelu`` is the tanh approximation)
 ACTIVATIONS = {
     "relu": F.relu,
@@ -287,11 +338,15 @@ class TransformerLayer(nn.Module):
     then ``ln2(h + ffn(h))``). Given a query stream, the same attention and
     feed-forward weights run it after the content stream, on the content
     stream's keys and values. Given ``mem`` (B, M, D), the cached inputs of
-    this layer, the keys and values also cover them (dense path)."""
+    this layer, the keys and values also cover them (dense path).
+    ``attn_type="lsh"`` runs ``LSHSelfAttention`` in place of the dense
+    attention: it takes the padding mask and no bias."""
 
     def __init__(self, d_model: int, n_head: int, d_ff: int, layer_norm_eps: float = 1e-12,
                  dropout: float = 0.0, attn_dropout: float = 0.0, causal: bool = False,
-                 activation: str = "gelu", norm_first: bool = True):
+                 activation: str = "gelu", norm_first: bool = True, attn_type: str = "dense",
+                 lsh_num_buckets: int = 8, lsh_num_hashes: int = 2, lsh_chunk_size: int = 8,
+                 lsh_seed: int = 0):
         super().__init__()
         if activation not in LAYER_ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}; "
@@ -299,7 +354,13 @@ class TransformerLayer(nn.Module):
         self.dropout = dropout
         self.activation = activation
         self.norm_first = norm_first
-        self.attn = MultiHeadAttention(d_model, n_head, attn_dropout, causal)
+        self.attn_type = attn_type
+        if attn_type == "lsh":
+            self.attn = LSHSelfAttention(d_model, n_head, attn_dropout, causal,
+                                         lsh_num_buckets, lsh_num_hashes, lsh_chunk_size,
+                                         lsh_seed)
+        else:
+            self.attn = MultiHeadAttention(d_model, n_head, attn_dropout, causal)
         self.ln1 = nn.LayerNorm(d_model, eps=layer_norm_eps)
         self.ln2 = nn.LayerNorm(d_model, eps=layer_norm_eps)
         self.ffn_in = nn.Linear(d_model, d_ff)
@@ -316,10 +377,11 @@ class TransformerLayer(nn.Module):
                 query_hidden: Optional[torch.Tensor] = None,
                 query_bias: Optional[torch.Tensor] = None,
                 query_flash_ctx: Optional[tuple] = None,
-                mem: Optional[torch.Tensor] = None):
+                mem: Optional[torch.Tensor] = None,
+                pad_mask: Optional[torch.Tensor] = None):
         """``(hidden, query_hidden)``; the second is None without a query
         stream. Dropout draws: the content stream's, then the query
-        stream's."""
+        stream's. ``pad_mask`` is read by an LSH layer only."""
         act = LAYER_ACTIVATIONS[self.activation]
 
         def drop(t):
@@ -336,6 +398,10 @@ class TransformerLayer(nn.Module):
             return self.ln2(t + drop(ffn(t)))
 
         x = self.ln1(hidden) if self.norm_first else hidden
+        if self.attn_type == "lsh":
+            if mem is not None or query_hidden is not None:
+                raise NotImplementedError("LSH layers do not support mem_len or two-stream")
+            return blocks(hidden, self.attn(x, pad_mask, training, generator)), None
         kv_x = x
         if mem is not None:
             # LayerNorm is positionwise: ln1 of the memory rows is the rows'
@@ -376,10 +442,16 @@ class TransformerEncoder(nn.Module):
         embed_layer_norm: bool = False,
         share_layers: bool = False,
         mem_len: int = 0,
+        axial_pos_shape: Optional[tuple] = None,
+        axial_pos_embds_dim: Optional[tuple] = None,
+        attn_layers: Optional[tuple] = None,
+        lsh_num_buckets: int = 8,
+        lsh_num_hashes: int = 2,
+        lsh_chunk_size: int = 8,
     ):
         super().__init__()
-        if pos_encoding not in ("relative_bias", "learned_absolute", "none"):
-            raise NotImplementedError(f"pos_encoding={pos_encoding!r} is not ported yet")
+        if pos_encoding not in ("relative_bias", "learned_absolute", "axial", "none"):
+            raise ValueError(f"unknown pos_encoding {pos_encoding!r}")
         self.d_model, self.n_head, self.n_layer = d_model, n_head, n_layer
         self.causal = causal
         self.pos_encoding = pos_encoding
@@ -391,19 +463,56 @@ class TransformerEncoder(nn.Module):
         self.share_layers = share_layers
         self.mem_len = mem_len
         d_ff = d_ff or 4 * d_model
+        if attn_layers is not None:
+            attn_layers = tuple(attn_layers)
+            if len(attn_layers) != n_layer:
+                raise ValueError(f"attn_layers has {len(attn_layers)} entries for "
+                                 f"n_layer={n_layer}")
+            bad = set(attn_layers) - {"dense", "local", "lsh"}
+            if bad:
+                raise ValueError(f"unknown attn_layers entries: {sorted(bad)}")
+            if share_layers and len(set(attn_layers)) > 1:
+                raise ValueError("share_layers requires a uniform attn_layers pattern")
+        self.attn_layers = attn_layers
+        # the attention of each layer: ("lsh", None) or ("win", its window)
+        if attn_layers is None:
+            self.plan = [("win", local_window)] * n_layer
+        else:
+            self.plan = [("lsh", None) if t == "lsh"
+                         else ("win", local_window if t == "local" else None)
+                         for t in attn_layers]
 
-        def layer():
+        def layer(attn_type="dense", seed=0):
             return TransformerLayer(d_model, n_head, d_ff, layer_norm_eps, dropout, attn_dropout,
-                                    causal, activation, norm_first)
+                                    causal, activation, norm_first, attn_type, lsh_num_buckets,
+                                    lsh_num_hashes, lsh_chunk_size, seed)
 
         if share_layers:
             # ALBERT: one layer run n_layer times, under flax's name
-            self.layer_shared = layer()
+            self.layer_shared = layer("lsh" if self.plan[0][0] == "lsh" else "dense")
         else:
-            self.layers = nn.ModuleList(layer() for _ in range(n_layer))
+            # an LSH layer's rotations are drawn from its index
+            self.layers = nn.ModuleList(
+                layer("lsh" if kind == "lsh" else "dense", seed=i)
+                for i, (kind, _) in enumerate(self.plan))
         if pos_encoding == "learned_absolute":
             # zeros until ``_init_weights`` draws them (``Model`` does)
             self.position_embedding = nn.Parameter(torch.zeros(max_position, d_model))
+        self.axial_pos_shape = axial_pos_shape
+        if pos_encoding == "axial":
+            if axial_pos_shape is None or axial_pos_embds_dim is None:
+                raise ValueError("pos_encoding='axial' requires axial_pos_shape and "
+                                 "axial_pos_embds_dim")
+            d1, d2 = axial_pos_shape
+            e1, e2 = axial_pos_embds_dim
+            if d1 * d2 < max_position:
+                raise ValueError(f"axial_pos_shape {tuple(axial_pos_shape)} covers {d1 * d2} "
+                                 f"positions < max_position={max_position}")
+            if e1 + e2 != d_model:
+                raise ValueError(f"axial_pos_embds_dim {tuple(axial_pos_embds_dim)} must "
+                                 f"sum to d_model={d_model}")
+            self.axial_pos_0 = nn.Parameter(torch.zeros(d1, e1))
+            self.axial_pos_1 = nn.Parameter(torch.zeros(d2, e2))
         self.rel_pos = (
             RelativePositionBias(n_head, bidirectional=not causal)
             if pos_encoding == "relative_bias" else None
@@ -422,6 +531,9 @@ class TransformerEncoder(nn.Module):
     def _init_weights(self, generator: torch.Generator) -> None:
         if self.pos_encoding == "learned_absolute":
             nn.init.normal_(self.position_embedding, 0.0, 0.02, generator=generator)
+        if self.pos_encoding == "axial":
+            nn.init.normal_(self.axial_pos_0, 0.0, 0.02, generator=generator)
+            nn.init.normal_(self.axial_pos_1, 0.0, 0.02, generator=generator)
         if self.two_stream:
             nn.init.normal_(self.query_stream_init, 0.0, 0.02, generator=generator)
 
@@ -439,6 +551,32 @@ class TransformerEncoder(nn.Module):
                                       device=device),
                 "pad": torch.zeros((batch_size, self.mem_len), dtype=torch.bool, device=device)}
 
+    def _positions(self, p: torch.Tensor) -> torch.Tensor:
+        """The absolute position embeddings of the positions ``p``."""
+        if self.pos_encoding == "axial":
+            d2 = self.axial_pos_shape[1]
+            return torch.cat([self.axial_pos_0[p // d2], self.axial_pos_1[p % d2]], dim=-1)
+        return self.position_embedding[p]
+
+    def _check_lsh(self, perm_mask, segment_ids, mems) -> None:
+        """The JAX package's refusals for LSH layers: what bucket-sorted
+        chunks cannot carry."""
+        if perm_mask is not None or self.two_stream:
+            raise NotImplementedError(
+                "LSH attention layers do not support perm_mask / two-stream (PLM) — "
+                "Reformer runs MLM")
+        if segment_ids is not None:
+            raise NotImplementedError(
+                "session packing (segment_ids) is not supported with LSH attention layers: "
+                "the block-diagonal restriction does not survive bucket-sorted chunking")
+        if mems is not None or self.mem_len:
+            raise NotImplementedError(
+                "mem_len segment recurrence is not supported with LSH attention layers")
+        if self.pos_encoding == "relative_bias":
+            raise NotImplementedError(
+                "relative_bias positions are not supported with LSH layers (per-pair "
+                "biases do not survive chunking); Reformer uses axial absolute positions")
+
     def forward(
         self,
         inputs_embeds: torch.Tensor,
@@ -450,56 +588,75 @@ class TransformerEncoder(nn.Module):
         mems: Optional[dict] = None,
         return_mems: bool = False,
     ):
+        if any(kind == "lsh" for kind, _ in self.plan):
+            self._check_lsh(perm_mask, segment_ids, mems)
+        B, S = inputs_embeds.shape[:2]
+        # two streams key on the scheme's perm mask, not the merged one below
+        scheme_perm = perm_mask
         if segment_ids is not None:
             if mems is not None:
                 raise NotImplementedError(
                     "segment_ids (session packing) cannot be combined with mem_len segment "
                     "recurrence")
-            raise NotImplementedError("session packing (segment_ids) is not ported yet")
-        B, S = inputs_embeds.shape[:2]
+            # session packing: no attention across segments, through the
+            # perm mask's channel ("query i may not attend key j")
+            seg_block = (segment_ids[:, :, None] != segment_ids[:, None, :]).float()
+            perm_mask = seg_block if perm_mask is None else torch.maximum(perm_mask, seg_block)
         M = mems["states"].shape[2] if mems is not None else 0
         mem_pad = mems["pad"] if mems is not None else None
         hidden = inputs_embeds.float()
         abs_pos = None
-        if self.pos_encoding == "learned_absolute":
+        if self.pos_encoding in ("learned_absolute", "axial"):
             # loud guard: a longer batch would otherwise run off the table
             if S > self.max_position:
                 raise ValueError(
                     f"sequence length {S} exceeds max_position={self.max_position}"
                 )
-            abs_pos = self.position_embedding[:S][None]
+            pos = torch.arange(S, device=hidden.device)
+            if segment_ids is not None:
+                # positions restart at each packed session's start
+                is_start = torch.ones_like(segment_ids, dtype=torch.bool)
+                is_start[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+                start = torch.where(is_start, pos, 0).cummax(dim=1).values
+                abs_pos = self._positions(pos - start)
+            else:
+                abs_pos = self._positions(pos)[None]
             hidden = hidden + abs_pos
         rel_bias = self.rel_pos(S, M) if self.rel_pos is not None else None
-        two_stream = self.two_stream and perm_mask is not None
+        two_stream = self.two_stream and scheme_perm is not None
+        if two_stream and self.attn_layers is not None:
+            raise NotImplementedError(
+                "two-stream (PLM) does not compose with per-layer attn_layers patterns")
         # the memory path is dense
         flash = use_flash(S, self.attn_dropout, training) and mems is None
 
-        def biases(query_stream: bool):
-            """``(bias, flash_ctx)`` of one stream: the composed bias of the
-            dense path, or the flash context, built once and handed to every
-            layer. There only the perm mask, the local window and the
-            relative bias are a tensor; the kernel applies causal and
-            padding itself."""
+        def biases(query_stream: bool, window: Optional[int]):
+            """``(bias, flash_ctx)`` of one stream and window: the composed
+            bias of the dense path, or the flash context, built once and
+            handed to every layer of that window. There only the perm mask,
+            the local window and the relative bias are a tensor; the kernel
+            applies causal and padding itself."""
             if flash:
-                extra = make_extra_bias(S, perm_mask, self.local_window, query_stream,
+                extra = make_extra_bias(S, perm_mask, window, query_stream,
                                         device=hidden.device)
                 if rel_bias is not None:
                     extra = rel_bias if extra is None else extra + rel_bias
                 return None, (extra, pad_mask, rel_bias is not None)
             bias = make_attention_bias(
                 pad_mask, S, causal=self.causal, perm_mask=perm_mask,
-                local_window=self.local_window, query_stream=query_stream,
+                local_window=window, query_stream=query_stream,
                 device=hidden.device, mem_len=M, mem_pad=mem_pad,
             )
             return (bias if rel_bias is None else bias + rel_bias), None
 
-        bias, flash_ctx = biases(False)
+        # LSH layers build no (S, S) bias; the others share one per window
+        per_window = {w: biases(False, w) for kind, w in self.plan if kind == "win"}
         query_hidden = query_bias = query_flash_ctx = None
         if two_stream:
             query_hidden = self.query_stream_init.expand(B, S, self.d_model)
             if abs_pos is not None:
                 query_hidden = query_hidden + abs_pos
-            query_bias, query_flash_ctx = biases(True)
+            query_bias, query_flash_ctx = biases(True, self.local_window)
         if self.embed_layer_norm:
             hidden = self.ln_emb(hidden)
             if query_hidden is not None:
@@ -510,12 +667,15 @@ class TransformerEncoder(nn.Module):
         collect = return_mems and self.mem_len > 0
         new_states = []
         for i, layer in enumerate(self.stack()):
+            kind, window = self.plan[i]
+            bias, flash_ctx = per_window[window] if kind == "win" else (None, None)
             mem = mems["states"][i] if mems is not None else None
             if collect:
                 ext = hidden if mem is None else torch.cat([mem, hidden], dim=1)
                 new_states.append(self._last(ext).detach())
             hidden, query_hidden = layer(hidden, bias, training, generator, flash_ctx,
-                                         query_hidden, query_bias, query_flash_ctx, mem)
+                                         query_hidden, query_bias, query_flash_ctx, mem,
+                                         pad_mask)
         out = query_hidden if query_hidden is not None else hidden
         if self.norm_first:
             out = self.ln_f(out)

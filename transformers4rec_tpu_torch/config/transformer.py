@@ -11,10 +11,9 @@ The registry holds the JAX registry's nine names with its defaults: XLNet
 positions), the BERT family (BERT, RoBERTa, ELECTRA, ALBERT with shared
 layers, Longformer with a local window of 8: post-LN with an embedding
 LayerNorm and the erf GELU), TransfoXL (causal with the relative bias) and
-Reformer. ``to_encoder`` raises ``NotImplementedError`` for a capability
-the encoder does not carry yet: Reformer's axial positions, per-layer
-attention patterns and LSH attention, ``remat`` and another compute
-``dtype``. ``two_stream`` takes effect for the scheme that gives a
+Reformer (alternating local and LSH layers, axial positions).
+``to_encoder`` raises ``NotImplementedError`` for what the encoder does not
+carry yet: ``remat`` and another compute ``dtype``. ``two_stream`` takes effect for the scheme that gives a
 ``perm_mask`` (PLM): ``to_encoder(masking="plm")`` builds the encoder with
 its query stream (and the stream's learned start vector), as the JAX
 package creates that parameter only when a ``perm_mask`` arrives.
@@ -78,14 +77,7 @@ class T4RecConfig:
         for, whose ``perm_mask`` (PLM) turns ``two_stream`` on."""
         from ..blocks.transformer import TransformerEncoder
 
-        unported = {
-            "pos_encoding": self.pos_encoding not in ("relative_bias", "learned_absolute",
-                                                      "none"),
-            "attn_layers": self.attn_layers is not None,
-            "axial_pos_shape": self.axial_pos_shape is not None,
-            "remat": self.remat,
-            "dtype": self.dtype is not None,
-        }
+        unported = {"remat": self.remat, "dtype": self.dtype is not None}
         if any(unported.values()):
             raise NotImplementedError(
                 f"{self.arch}: not ported yet: {[k for k, v in unported.items() if v]}"
@@ -100,6 +92,13 @@ class T4RecConfig:
             activation=self.hidden_act, norm_first=self.norm_first,
             embed_layer_norm=self.embed_layer_norm, share_layers=self.share_layers,
             mem_len=self.mem_len,
+            axial_pos_shape=(tuple(self.axial_pos_shape)
+                             if self.axial_pos_shape is not None else None),
+            axial_pos_embds_dim=(tuple(self.axial_pos_embds_dim)
+                                 if self.axial_pos_embds_dim is not None else None),
+            attn_layers=tuple(self.attn_layers) if self.attn_layers is not None else None,
+            lsh_num_buckets=self.lsh_num_buckets, lsh_num_hashes=self.lsh_num_hashes,
+            lsh_chunk_size=self.lsh_chunk_size,
         )
 
     def to_model(self, input_module, *tasks, device=None, seed: int = 0, **kwargs):
@@ -172,8 +171,7 @@ class ReformerConfig(T4RecConfig):
     ``attn_layers=["local", "lsh"] * (n_layer // 2)`` when n_layer > 2, else
     ``["local"]``; ``axial_pos_shape=[first_dim, total / first_dim]`` with
     half/half embedding widths; the LSH chunk and bucket count scaled with
-    the sequence). ``to_encoder`` raises: axial positions, per-layer
-    attention patterns and LSH attention are not ported yet."""
+    the sequence)."""
 
     arch: str = "reformer"
 

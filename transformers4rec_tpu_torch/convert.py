@@ -16,8 +16,21 @@ for the port's counterpart module (a whole ``Model``, or a lone
   ``encoder.query_stream_init``), and embedding tables keep their padded
   row count.
 
-Every registered arch but Reformer is carried (XLNet, GPT-2, the BERT
-family, TransfoXL), with the input options of the paper's command line.
+Every registered arch is carried (XLNet, GPT-2, the BERT family,
+TransfoXL, Reformer), with the input options of the paper's command line.
+Reformer's LSH layers (``attn/qk``, ``attn/v``, ``attn/out``) take the
+q/k/v rules and its axial positions keep their names (``axial_pos_0``,
+``axial_pos_1``). An LSH layer's rotations are a constant of the JAX
+layer's seed, not in the flax tree: ``params_from_jax(...,
+lsh_rotations={"layer_1": R})`` gives each LSH layer of that flax name its
+(Dh, rounds, buckets / 2) buffer ``attn.rotations``; ``params_to_jax``
+leaves the buffers out. An ``RNNBlock``'s flax cells (``GRUCell_{i}``,
+``OptimizedLSTMCell_{i}``, one per layer, their gates' kernels (in, out))
+become the port's ``gru_{i}``/``lstm_{i}`` (one ``nn.GRU``/``nn.LSTM``
+each: ``weight_ih_l0``, ``weight_hh_l0``, ``bias_ih_l0``, ``bias_hh_l0``),
+the gates stacked in torch's order (GRU r, z, n from ``ir``/``hr``,
+``iz``/``hz``, ``in``/``hn``; LSTM i, f, g, o), the biases flax has not at
+zero.
 These weights keep their flax names in the port's modules, so they need
 no rule of their own: ALBERT's one shared layer (``layer_shared``, the
 port's ``encoder.layer_shared``), the BERT family's embedding LayerNorm
@@ -52,7 +65,7 @@ perm_mask=None, neg_ids=None)`` turns the arrays of the JAX package's ``MaskingI
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,15 +107,86 @@ def _leaf(name: str, parent: str, value: np.ndarray):
     return _leaf_name(name, parent), v
 
 
+# torch's gate order per cell, each gate's flax (input, recurrent) names
+_RNN_GATES = {"gru": (("ir", "hr"), ("iz", "hz"), ("in", "hn")),
+              "lstm": (("ii", "hi"), ("if", "hf"), ("ig", "hg"), ("io", "ho"))}
+_RNN_CELL = {"GRUCell": "gru", "OptimizedLSTMCell": "lstm"}
+
+
+def _rnn_cells(tree: Mapping, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], str]]:
+    """(path of each flax RNN cell, ``"gru"`` or ``"lstm"``)."""
+    for key, val in tree.items():
+        if not isinstance(val, Mapping):
+            continue
+        m = re.fullmatch(r"(GRUCell|OptimizedLSTMCell)_\d+", key)
+        if m and set(val) == {g for pair in _RNN_GATES[_RNN_CELL[m.group(1)]] for g in pair}:
+            yield path + (key,), _RNN_CELL[m.group(1)]
+        else:
+            yield from _rnn_cells(val, path + (key,))
+
+
+def _rnn_prefix(path: Tuple[str, ...], kind: str) -> str:
+    """The port's name of a cell's layer: ``GRUCell_1`` → ``gru_1``."""
+    index = path[-1].rsplit("_", 1)[1]
+    return "".join(_segment(seg, "") + "." for seg in path[:-1]) + f"{kind}_{index}."
+
+
+def _rnn_from_jax(cell: Mapping, kind: str) -> Dict[str, np.ndarray]:
+    """A flax cell's gates → one torch layer's four tensors."""
+    gates = _RNN_GATES[kind]
+    w_ih = np.concatenate([np.asarray(cell[i]["kernel"]).T for i, _ in gates])
+    w_hh = np.concatenate([np.asarray(cell[h]["kernel"]).T for _, h in gates])
+    zeros = [np.zeros(w_hh.shape[1], w_hh.dtype)] * len(gates)
+    b_ih = [np.asarray(cell[i]["bias"]) if "bias" in cell[i] else z
+            for (i, _), z in zip(gates, zeros)]
+    b_hh = [np.asarray(cell[h]["bias"]) if "bias" in cell[h] else z
+            for (_, h), z in zip(gates, zeros)]
+    return {"weight_ih_l0": w_ih, "weight_hh_l0": w_hh,
+            "bias_ih_l0": np.concatenate(b_ih), "bias_hh_l0": np.concatenate(b_hh)}
+
+
+def _rnn_to_jax(state_dict: Mapping[str, torch.Tensor], prefix: str, template: Mapping,
+                kind: str) -> Tuple[Dict, set]:
+    """One torch layer's tensors → a flax cell shaped like ``template``;
+    also the names it used."""
+    gates = _RNN_GATES[kind]
+    names = {k: prefix + k for k in ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0")}
+    t = {k: state_dict[n].detach().cpu().numpy() for k, n in names.items()}
+    n = len(gates)
+    cell: Dict = {}
+    for g, (i, h) in enumerate(gates):
+        for flax_name, w, b in ((i, "weight_ih_l0", "bias_ih_l0"),
+                                (h, "weight_hh_l0", "bias_hh_l0")):
+            leaf = {"kernel": np.ascontiguousarray(np.split(t[w], n)[g].T)}
+            if "bias" in template[flax_name]:
+                leaf["bias"] = np.ascontiguousarray(np.split(t[b], n)[g])
+            cell[flax_name] = leaf
+    return cell, set(names.values())
+
+
 def params_from_jax(tree: Mapping, shard: Optional[Tuple[int, int]] = None,
-                    sharded_tables: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
+                    sharded_tables: Sequence[str] = (),
+                    lsh_rotations: Optional[Mapping[str, np.ndarray]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """flax params (numpy leaves) → the port's ``state_dict``. With
     ``shard=(rank, world)``, the tables named in ``sharded_tables`` keep this
-    rank's rows only (their rows must divide by ``world``)."""
+    rank's rows only (their rows must divide by ``world``).
+    ``lsh_rotations`` maps a flax layer name (``"layer_1"``) to the
+    rotations of the LSH layers of that name."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
+    rnn = dict(_rnn_cells(tree))
+    for path, kind in rnn.items():
+        for key, arr in _rnn_from_jax(_get(tree, path), kind).items():
+            out[_rnn_prefix(path, kind) + key] = torch.from_numpy(np.ascontiguousarray(arr).copy())
     for path, (name, key, parent) in _port_names(tree).items():
+        if any(path[:len(p)] == p for p in rnn):
+            continue
+        if path[-3:] == ("attn", "qk", "kernel") and lsh_rotations \
+                and path[-4] in lsh_rotations:
+            out[name[:-len("qk.weight")] + "rotations"] = torch.from_numpy(
+                np.array(lsh_rotations[path[-4]], dtype=np.float32))
         leaf, arr = _leaf(key, parent, _get(tree, path))
         if shard is not None and leaf.startswith("tables.") \
                 and leaf[len("tables."):] in sharded_tables:
@@ -140,7 +224,17 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], template: Mapping) -> 
     names = _port_names(tree)
     used = set()
     out: Dict = {}
+    rnn = dict(_rnn_cells(tree))
+    for path, kind in rnn.items():
+        node = out
+        for seg in path[:-1]:
+            node = node.setdefault(seg, {})
+        node[path[-1]], names_used = _rnn_to_jax(state_dict, _rnn_prefix(path, kind),
+                                                 _get(tree, path), kind)
+        used |= names_used
     for path, (name, key, parent) in names.items():
+        if any(path[:len(p)] == p for p in rnn):
+            continue
         if name not in state_dict:
             raise KeyError(f"no weight {name} for {'/'.join(path)}")
         shape = np.shape(_get(tree, path))
@@ -156,7 +250,8 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], template: Mapping) -> 
             node = node.setdefault(seg, {})
         node[path[-1]] = np.ascontiguousarray(v)
         used.add(name)
-    extra = sorted(set(state_dict) - used)
+    # an LSH layer's rotations are constants, not flax params
+    extra = sorted(n for n in set(state_dict) - used if not n.endswith("attn.rotations"))
     if extra:
         raise KeyError(f"weights without a place in the template: {extra}")
     return {"params": out} if wrapped else out

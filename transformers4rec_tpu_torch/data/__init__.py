@@ -7,6 +7,7 @@ from .loader import (
     T4RecDataLoader,
     dataloader_registry,
 )
+from .packing import pack_sessions, packing_stats
 from .padding import dense_to_ragged, pad_batch, pad_inputs, pad_ragged
 from .synthetic import (
     generate_item_interactions,
@@ -33,6 +34,8 @@ __all__ = [
     "T4RecDataLoader",
     "dataloader_registry",
     "dense_to_ragged",
+    "pack_sessions",
+    "packing_stats",
     "pad_batch",
     "pad_inputs",
     "pad_ragged",

@@ -23,8 +23,14 @@ loaders, value for value:
 - ``prefetch > 0`` assembles batches on a background thread, which stops
   when the consumer abandons the iterator.
 
-Not ported: session packing (``pack=True`` raises) and the C++ row gather
-(numpy fancy indexing gives the same rows).
+- ``pack=True`` packs sessions several to a row (``data/packing.py``): the
+  batches gain ``segment_ids``. ``ParquetDataLoader`` packs every file's
+  sessions at once, before striping; ``StreamingParquetDataLoader`` packs
+  each shuffle buffer on its own, estimates ``__len__`` from the first
+  buffer's sessions per row until one epoch has run, and refuses
+  ``global_size > 1`` (its processes would yield different batch counts).
+
+Not ported: the C++ row gather (numpy fancy indexing gives the same rows).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import numpy as np
 
 from ..schema import Schema
 from ..utils.registry import Registry
+from .packing import pack_sessions
 from .padding import pad_ragged
 from .synthetic import synthetic_data
 
@@ -47,11 +54,6 @@ NDArrayDict = Dict[str, np.ndarray]
 dataloader_registry: Registry = Registry("dataloader")
 
 PREFETCH_THREAD_NAME = "t4r-prefetch"
-
-
-def _no_packing(pack: bool) -> None:
-    if pack:
-        raise NotImplementedError("session packing (pack=True) is not ported yet")
 
 
 class T4RecDataLoader:
@@ -93,9 +95,12 @@ def _writable(arr: np.ndarray) -> np.ndarray:
     return arr if arr.flags.writeable else arr.copy()
 
 
-def _table_to_columns(table, schema: Schema, max_sequence_length: int) -> NDArrayDict:
+def _table_to_columns(table, schema: Schema, max_sequence_length: int,
+                      ragged: bool = False) -> NDArrayDict:
     """Arrow table → dict of dense numpy arrays; list columns are padded (or
-    cut, keeping the first items) to ``max_sequence_length``."""
+    cut, keeping the first items) to ``max_sequence_length``, or with
+    ``ragged`` kept as ``name__values``/``name__offsets`` pairs (what
+    packing takes)."""
     import pyarrow as pa
 
     out: NDArrayDict = {}
@@ -112,7 +117,11 @@ def _table_to_columns(table, schema: Schema, max_sequence_length: int) -> NDArra
             # the values but .offsets does not
             if len(offsets) and offsets[0] != 0:
                 offsets = offsets - offsets[0]
-            out[col.name] = pad_ragged(flat, offsets, max_sequence_length)
+            if ragged:
+                out[f"{col.name}__values"] = flat
+                out[f"{col.name}__offsets"] = offsets
+            else:
+                out[col.name] = pad_ragged(flat, offsets, max_sequence_length)
         else:
             out[col.name] = _writable(np.asarray(chunked.to_numpy(zero_copy_only=False)))
     return out
@@ -201,13 +210,15 @@ class ParquetDataLoader(T4RecDataLoader):
                     **kwargs) -> "ParquetDataLoader":
         import pyarrow.parquet as pq
 
-        _no_packing(pack)
         max_len = max_sequence_length or schema.sequence_length(default=20)
-        parts = [_table_to_columns(pq.read_table(path), schema, max_len)
+        parts = [_table_to_columns(pq.read_table(path), schema, max_len, ragged=pack)
                  for path in _resolve_paths(paths_or_dataset)]
         if not parts:
             raise ValueError(f"No parquet files found in {paths_or_dataset!r}")
-        data = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        data = _merge_parts(parts, pack)
+        if pack:
+            # every file's sessions packed at once, before the rows stripe
+            data = pack_sessions(data, max_len=max_len, item_id_col=schema.item_id_column_name)
         return cls(data, batch_size=batch_size, shuffle=shuffle, drop_last=drop_last,
                    seed=seed, global_rank=global_rank, global_size=global_size,
                    prefetch=kwargs.get("prefetch", 2))
@@ -276,7 +287,10 @@ class StreamingParquetDataLoader(T4RecDataLoader):
       ``global_size`` of them, else rows stripe within the shared groups;
       ``__len__`` is sized to the largest stripe, and a shorter one pads
       with all-zero batches;
-    - the remainder below one batch is zero-filled unless ``drop_last``.
+    - the remainder below one batch is zero-filled unless ``drop_last``;
+    - ``pack=True`` packs each buffer on its own; ``__len__`` is then an
+      estimate from the first packed buffer's sessions per row until one
+      whole epoch has been counted.
     """
 
     def __init__(self, paths: List[str], schema: Schema, batch_size: int,
@@ -285,7 +299,15 @@ class StreamingParquetDataLoader(T4RecDataLoader):
                  buffer_rows: int = 65536, prefetch: int = 2, drop_last: bool = True):
         import pyarrow.parquet as pq
 
-        _no_packing(pack)
+        if pack and global_size > 1:
+            raise ValueError(
+                "StreamingParquetDataLoader(pack=True) does not support "
+                "multi-process training: per-host packing produces "
+                "nondeterministic per-host batch counts, which would "
+                "desynchronize the cross-process batch collective. Use the "
+                "in-memory ParquetDataLoader(pack=True) (packs globally "
+                "before striping) or stream unpacked."
+            )
         self.drop_last = drop_last
         self.paths = list(paths)
         self.schema = schema
@@ -295,10 +317,13 @@ class StreamingParquetDataLoader(T4RecDataLoader):
         self.seed = seed
         self.global_rank = global_rank
         self.global_size = global_size
+        self.pack = pack
         self.buffer_rows = max(buffer_rows, batch_size)
         self.prefetch = prefetch
         self._epoch = 0
         self._skip_batches = 0
+        self._exact_len: Optional[int] = None  # a packed epoch's batches, once counted
+        self._pack_ratio: Optional[float] = None  # sessions per packed row so far
         # (path, row group, rows) from the footers alone: nothing is decoded here
         self._groups: List[tuple] = []
         for path in self.paths:
@@ -333,9 +358,18 @@ class StreamingParquetDataLoader(T4RecDataLoader):
                    prefetch=kwargs.get("prefetch", 2))
 
     def __len__(self) -> int:
-        if not self.drop_last:
-            return -(-self._max_local_rows // self.batch_size)
-        return max(self._max_local_rows // self.batch_size, 1)
+        if not self.pack:
+            if not self.drop_last:
+                return -(-self._max_local_rows // self.batch_size)
+            return max(self._max_local_rows // self.batch_size, 1)
+        if self._exact_len is not None:
+            return self._exact_len
+        if self._pack_ratio is None:
+            # the first buffer's sessions per packed row
+            for _ in self._iter_batches(peek_ratio_only=True):
+                break
+        packed = int(self.num_rows / max(self._pack_ratio, 1e-9))
+        return max(packed // self.batch_size, 1)
 
     def set_state(self, epoch: int, batches_consumed: int) -> None:
         """Mid-epoch resume, as ``ParquetDataLoader.set_state``: the skipped
@@ -347,34 +381,49 @@ class StreamingParquetDataLoader(T4RecDataLoader):
         import pyarrow.parquet as pq
 
         cols = _table_to_columns(pq.ParquetFile(path).read_row_group(group), self.schema,
-                                 self.max_len)
+                                 self.max_len, ragged=self.pack)
         if not self._stripe_groups and self.global_size > 1:
             cols = {k: v[self.global_rank::self.global_size] for k, v in cols.items()}
         return cols
 
-    def _iter_batches(self) -> Iterator[NDArrayDict]:
+    def _iter_batches(self, peek_ratio_only: bool = False) -> Iterator[NDArrayDict]:
+        """One epoch's batches; ``peek_ratio_only`` packs the first buffer,
+        records its sessions per row and yields nothing, touching neither
+        the epoch nor a pending resume."""
         epoch = self._epoch
-        self._epoch += 1
-        skip, self._skip_batches = self._skip_batches, 0
+        skip = 0
+        if not peek_ratio_only:
+            self._epoch += 1
+            skip, self._skip_batches = self._skip_batches, 0
         rng = np.random.default_rng(self.seed + epoch)
         order = (rng.permutation(len(self._my_groups)) if self.shuffle
                  else np.arange(len(self._my_groups)))
         carry: Optional[NDArrayDict] = None  # rows short of a batch
         batches_out = 0
+        sessions_in = rows_packed = 0
         pending: List[NDArrayDict] = []
         pending_rows = 0
-        # exactly len(self) batches, the same count on every process
-        target = len(self)
+        # unpacked: exactly len(self) batches, the same count on every
+        # process; packed: as many as the buffers give
+        target = None if self.pack else len(self)
         template: Optional[NDArrayDict] = None
         for pos, gi in enumerate(order):
             path, group, _ = self._my_groups[gi]
             cols = self._read_group(path, group)
             pending.append(cols)
-            pending_rows += _n_rows(cols)
+            pending_rows += _n_rows(cols, self.pack)
             if pending_rows < self.buffer_rows and pos != len(order) - 1:
                 continue
-            rows = _merge_parts(pending)
+            rows = _merge_parts(pending, self.pack)
             pending, pending_rows = [], 0
+            if self.pack:
+                sessions_in += _n_rows(rows, ragged=True)
+                rows = pack_sessions(rows, max_len=self.max_len,
+                                     item_id_col=self.schema.item_id_column_name)
+                rows_packed += _n_rows(rows)
+                self._pack_ratio = sessions_in / max(rows_packed, 1)
+                if peek_ratio_only:
+                    return
             if carry is not None:
                 rows = {k: np.concatenate([carry[k], rows[k]]) for k in rows}
                 carry = None
@@ -384,7 +433,7 @@ class StreamingParquetDataLoader(T4RecDataLoader):
             full = (n // self.batch_size) * self.batch_size
             for start in range(0, full, self.batch_size):
                 sel = perm[start:start + self.batch_size]
-                if batches_out >= target:
+                if target is not None and batches_out >= target:
                     warnings.warn(
                         f"StreamingParquetDataLoader: dropping {n - start} surplus local "
                         f"rows to keep the global batch count ({target}) the same on "
@@ -397,7 +446,7 @@ class StreamingParquetDataLoader(T4RecDataLoader):
             if n > full:
                 carry = {k: v[perm[full:]] for k, v in rows.items()}
         if (carry is not None and (not self.drop_last or batches_out == 0)
-                and batches_out < target):
+                and (target is None or batches_out < target)):
             pad = self.batch_size - _n_rows(carry)
             batch = {k: np.concatenate([v, np.zeros((pad, *v.shape[1:]), dtype=v.dtype)])
                      for k, v in carry.items()}
@@ -406,12 +455,14 @@ class StreamingParquetDataLoader(T4RecDataLoader):
                 yield batch
         # a stripe with fewer rows than its peers still owes the other
         # processes its batches: all-zero, weightless ones
-        while batches_out < target and template is not None:
+        while target is not None and batches_out < target and template is not None:
             batch = {k: np.zeros((self.batch_size, *v.shape[1:]), dtype=v.dtype)
                      for k, v in template.items()}
             batches_out += 1
             if batches_out > skip:
                 yield batch
+        if self.pack and skip == 0:
+            self._exact_len = batches_out
 
     def __iter__(self) -> Iterator[NDArrayDict]:
         if self.prefetch <= 0:
@@ -420,14 +471,30 @@ class StreamingParquetDataLoader(T4RecDataLoader):
         yield from _prefetched(self._iter_batches, self.prefetch)
 
 
-def _n_rows(cols: NDArrayDict) -> int:
+def _n_rows(cols: NDArrayDict, ragged: bool = False) -> int:
+    """Rows of a batch; sessions of a ragged one (``__offsets`` pairs)."""
+    if ragged:
+        k = next(k for k in cols if k.endswith("__offsets"))
+        return len(cols[k]) - 1
     return len(next(iter(cols.values())))
 
 
-def _merge_parts(parts: List[NDArrayDict]) -> NDArrayDict:
+def _merge_parts(parts: List[NDArrayDict], ragged: bool = False) -> NDArrayDict:
+    """Concatenate parts' rows; a ragged part's offsets are rebased onto
+    the values before it."""
     if len(parts) == 1:
         return parts[0]
-    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    merged: NDArrayDict = {}
+    for k in parts[0]:
+        if ragged and k.endswith("__offsets"):
+            pieces, base = [parts[0][k]], int(parts[0][k][-1])
+            for p in parts[1:]:
+                pieces.append(p[k][1:] + base)
+                base += int(p[k][-1])
+            merged[k] = np.concatenate(pieces)
+        else:
+            merged[k] = np.concatenate([p[k] for p in parts])
+    return merged
 
 
 @dataloader_registry.register("synthetic")
@@ -440,9 +507,11 @@ class SyntheticDataLoader(ParquetDataLoader):
                     shuffle: bool = True, drop_last: bool = True, seed: int = 0,
                     global_rank: int = 0, global_size: int = 1, pack: bool = False,
                     **kwargs) -> "SyntheticDataLoader":
-        _no_packing(pack)
         max_len = max_sequence_length or schema.sequence_length(default=20)
-        data = synthetic_data(schema, num_rows=num_rows, max_session_length=max_len, seed=seed)
+        data = synthetic_data(schema, num_rows=num_rows, max_session_length=max_len,
+                              ragged=pack, seed=seed)
+        if pack:
+            data = pack_sessions(data, max_len=max_len, item_id_col=schema.item_id_column_name)
         return cls(data, batch_size=batch_size, shuffle=shuffle, drop_last=drop_last,
                    seed=seed, global_rank=global_rank, global_size=global_size,
                    prefetch=kwargs.get("prefetch", 2))

@@ -135,8 +135,6 @@ class TabularSequenceFeatures(TabularFeatures):
     def forward(self, inputs: TabularData, training: bool = False, testing: bool = False,
                 generator: Optional[torch.Generator] = None,
                 masking_info: Optional[MaskingInfo] = None):
-        if "segment_ids" in inputs:
-            raise NotImplementedError("session packing (segment_ids) is not ported yet")
         item_ids = None
         if self.item_id is not None and self.item_id in inputs:
             item_ids = inputs[self.item_id].long()
@@ -159,7 +157,10 @@ class TabularSequenceFeatures(TabularFeatures):
         if self.masking is not None:
             if item_ids is None:
                 raise ValueError("Masking requires an item_id column in the schema/inputs")
+            # session packing: the batch's (B, S) ``segment_ids`` (not a schema
+            # feature) rides through the masking's info to the encoder
             hidden, info = self.masking(hidden, item_ids, training=training, testing=testing,
+                                        segment_ids=inputs.get("segment_ids"),
                                         generator=generator, masking_info=masking_info)
             # thread item ids + the (tied) item table to the prediction head
             table = self.item_embedding_table() if self.item_id is not None else None

@@ -53,7 +53,15 @@ The benchmark's ``sparse_adam`` arm of configuration 4 is not ported
 tables, sessions and optimizer under that arch's encoder (for example
 ``build_trainer(scheme="mlm", arch="longformer", seq=LONG_SEQ,
 batch=LONG_BATCH)``: Longformer-MLM on sessions of 256, its local window
-of 8 a (1, 1, S, S) bias of the flash kernels).
+of 8 a (1, 1, S, S) bias of the flash kernels). ``arch="reformer"`` gives
+Reformer-MLM: local and LSH layers in turn, axial positions; at
+``seq=LONG_SEQ`` its LSH layers take the sorted-chunk path (chunks of 64,
+10 buckets, 2 hashes) and its local layers the flash kernels with the
+window's bias.
+
+``build_trainer(pack_sessions=True, pack_eval_sessions=True)`` packs the
+training and evaluation loaders' sessions several to a row
+(``data.packing``).
 """
 
 from __future__ import annotations
@@ -172,14 +180,16 @@ def build_plm_model(device=None, **kwargs) -> Model:
 
 def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=None,
                   output_dir: str = "./t4rec_output", streamed_table_update: bool = False,
-                  scheme: str = "mlm", batch=None, **model_kwargs) -> Trainer:
+                  scheme: str = "mlm", batch=None, pack_sessions: bool = False,
+                  pack_eval_sessions: bool = False, **model_kwargs) -> Trainer:
     """A ``Trainer`` over the flagship model with the benchmark's optimizer
     settings, on ``device`` (CUDA unless ``"cpu"``). Without a
     ``train_dataset`` it trains, evaluates and predicts on synthetic
     sessions drawn from the schema (``data_loader_engine="synthetic"``).
     ``streamed_table_update`` gives the tables an f32 moment and the item
     table the two-pass streamed update. ``scheme`` picks the configuration
-    (and its batch size, which ``batch`` overrides). ``model_kwargs``
+    (and its batch size, which ``batch`` overrides). ``pack_sessions`` and
+    ``pack_eval_sessions`` pack the loaders' sessions. ``model_kwargs``
     (``num_items``, ``d_model``, ``seq``, ``arch``, ...) go to ``build_model``."""
     _, _, default_seq, default_batch = _scheme(scheme)
     seq = model_kwargs.get("seq") or default_seq
@@ -194,6 +204,7 @@ def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=N
         per_device_train_batch_size=batch, per_device_eval_batch_size=batch,
         steps_per_execution=8, max_sequence_length=seq, seed=seed,
         data_loader_engine="synthetic" if train_dataset is None else "parquet",
+        pack_sessions=pack_sessions, pack_eval_sessions=pack_eval_sessions,
     )
     data_schema = schema(model_kwargs.get("num_items", NUM_ITEMS), seq)
     table_optimizer = None

@@ -23,8 +23,17 @@ draws come from an explicit ``torch.Generator`` on the tensors' device; a
 caller may instead hand ``MaskSequence.forward`` a ready ``MaskingInfo``
 (``masking_info=``), which skips the draw: that is how two devices, or two
 packages, are given the same mask. The RTD helpers take a generator, or
-the draw itself, the same way. Not ported yet (raises
-``NotImplementedError``): session packing (``segment_ids``).
+the draw itself, the same way.
+
+Session packing (``segment_ids`` (B, S): 0 at padding, 1..n for the
+sessions packed into a row) in training and evaluation: no CLM label
+crosses a segment boundary; MLM, RTD and PLM keep the ≥1-masked /
+≥1-unmasked guarantee per segment (``_ensure_min_masking_segments``); PLM's
+spans are clipped at the segment their start lands in; evaluation on the
+last item labels each segment's last item that has an in-segment
+predecessor (``targets_per_segment_bounded``: at most S // 2 targets a
+row), on every position the shifted labels inside each segment. A packed
+batch at inference raises: serving is one session a row.
 """
 
 from __future__ import annotations
@@ -53,8 +62,13 @@ class MaskingInfo:
         post-masking sequence; S' = S+1 under the MLM inference extension.
     item_ids / item_table: the raw item-id sequence and the tied item table,
         filled by TabularSequenceFeatures for the prediction head.
+    segment_ids: (B, S) long, optional — packed sessions (0 at padding,
+        1..n per session of a row); the encoder blocks attention across them.
     neg_ids: (n,) long, optional — sampled-softmax negatives drawn outside
         the model; the task scores against them instead of its own draw.
+    targets_per_segment_bounded: set by packed last-item evaluation, whose
+        targets are at most one per segment of two or more items, so at
+        most S // 2 a row: the prediction task then ranks B·(S//2) rows.
     """
 
     targets: torch.Tensor
@@ -66,6 +80,7 @@ class MaskingInfo:
     item_table: Optional[torch.Tensor] = None
     segment_ids: Optional[torch.Tensor] = None
     neg_ids: Optional[torch.Tensor] = None
+    targets_per_segment_bounded: bool = False
 
     def replace(self, **kwargs) -> "MaskingInfo":
         return dataclasses.replace(self, **kwargs)
@@ -110,6 +125,49 @@ def _ensure_min_masking(labels, mask_labels, item_ids, non_pad, padding_idx: int
     return labels, labels != padding_idx
 
 
+def _ensure_min_masking_segments(mask_labels, non_pad, segment_ids, generator):
+    """≥1 masked and ≥1 unmasked position in every packed segment. A random
+    representative per segment comes from a random permutation of integer
+    ranks (tie-free, so one representative each): it is masked where its
+    segment has no label, unmasked where every position of its segment of
+    two or more is one."""
+    B, S = segment_ids.shape
+    dev = segment_ids.device
+    n_seg = B * (S + 1)
+    key = (torch.arange(B, device=dev)[:, None] * (S + 1) + segment_ids).reshape(-1)
+    flat_mask = mask_labels.reshape(-1)
+    flat_valid = (non_pad & (segment_ids > 0)).reshape(-1)
+    seg_len = torch.zeros(n_seg, dtype=torch.long, device=dev).index_add_(
+        0, key, flat_valid.long())
+    seg_masked = torch.zeros(n_seg, dtype=torch.long, device=dev).index_add_(
+        0, key, flat_mask.long())
+    ranks = torch.randperm(B * S, generator=generator, device=dev)
+    ranks = torch.where(flat_valid, ranks, -1)
+    seg_best = torch.full((n_seg,), -1, dtype=ranks.dtype, device=dev).scatter_reduce(
+        0, key, ranks, reduce="amax")
+    is_rep = flat_valid & (ranks == seg_best[key])
+    needs_mask = (seg_len > 0) & (seg_masked == 0)
+    flat_mask = flat_mask | (is_rep & needs_mask[key])
+    fully = (seg_len > 1) & (seg_masked == seg_len)
+    flat_mask = flat_mask & ~(is_rep & fully[key])
+    return flat_mask.reshape(B, S)
+
+
+def _same_next(segment_ids: torch.Tensor) -> torch.Tensor:
+    """(B, S) bool: position i + 1 lies in position i's segment."""
+    same = segment_ids[:, 1:] == segment_ids[:, :-1]
+    return torch.cat([same, torch.zeros_like(same[:, :1])], dim=1)
+
+
+def _segment_last(non_pad: torch.Tensor, segment_ids: torch.Tensor) -> torch.Tensor:
+    """(B, S) bool: each segment's last item that follows another item of
+    its segment (a segment of one item has no context to predict from)."""
+    same_next = _same_next(segment_ids)
+    next_valid = torch.cat([non_pad[:, 1:], torch.zeros_like(non_pad[:, :1])], dim=1)
+    same_prev = torch.cat([torch.zeros_like(same_next[:, :1]), same_next[:, :-1]], dim=1)
+    return non_pad & ~(next_valid & same_next) & same_prev
+
+
 class MaskSequence(nn.Module):
     """Base: holds the trainable [MASK] embedding; subclasses implement
     ``compute_masked_targets`` and ``apply_mask_to_inputs``."""
@@ -126,7 +184,7 @@ class MaskSequence(nn.Module):
         nn.init.normal_(self.masked_item_embedding, 0.0, 0.001, generator=generator)
 
     def compute_masked_targets(self, item_ids, training=False, testing=False,
-                               generator=None) -> MaskingInfo:
+                               generator=None, segment_ids=None) -> MaskingInfo:
         raise NotImplementedError
 
     def apply_mask_to_inputs(self, inputs, info: MaskingInfo, training=False, testing=False):
@@ -136,20 +194,34 @@ class MaskSequence(nn.Module):
         mask_emb = self.masked_item_embedding.to(inputs.dtype)
         return torch.where(info.input_schema[..., None], mask_emb, inputs)
 
+    @staticmethod
+    def _check_segments(segment_ids, training: bool, testing: bool) -> None:
+        """Packed rows train and evaluate; inference serves one session a
+        row (the MLM [MASK] extension and the top-k are per row)."""
+        if segment_ids is not None and not training and not testing:
+            raise NotImplementedError(
+                "segment_ids (session packing) is supported for training and "
+                "evaluation — serve inference on unpacked batches"
+            )
+
     def forward(self, inputs, item_ids, training: bool = False, testing: bool = False,
                 segment_ids=None, generator: Optional[torch.Generator] = None,
                 masking_info: Optional[MaskingInfo] = None):
         """``generator`` feeds the training draw; a ready ``masking_info``
-        (targets, mask, input_schema, pad_mask) replaces it."""
+        (targets, mask, input_schema, pad_mask) replaces it. ``segment_ids``
+        (B, S) marks packed sessions; it rides on the returned info."""
         if item_ids.dim() != 2:
             raise ValueError("`item_ids` must have 2 dimensions (batch, seq)")
-        if segment_ids is not None:
-            raise NotImplementedError("session packing (segment_ids) is not ported yet")
+        self._check_segments(segment_ids, training, testing)
         if masking_info is not None:
             info = masking_info
         else:
+            # an override written for unpacked rows need not take segment_ids
+            packed = {} if segment_ids is None else {"segment_ids": segment_ids}
             info = self.compute_masked_targets(item_ids, training=training, testing=testing,
-                                               generator=generator)
+                                               generator=generator, **packed)
+        if segment_ids is not None:
+            info = info.replace(segment_ids=segment_ids.long())
         masked = self.apply_mask_to_inputs(inputs, info, training=training, testing=testing)
         return masked, info
 
@@ -165,13 +237,33 @@ class CausalLanguageModeling(MaskSequence):
         self.train_on_last_item_seq_only = train_on_last_item_seq_only
 
     def compute_masked_targets(self, item_ids, training=False, testing=False,
-                               generator=None) -> MaskingInfo:
+                               generator=None, segment_ids=None) -> MaskingInfo:
         non_pad = item_ids != self.padding_idx
         if not training and not testing:
             # inference: identity targets, mask = non-pad
             return MaskingInfo(targets=item_ids, mask=non_pad, input_schema=non_pad,
                                pad_mask=non_pad)
         labels, mask = _predict_all(item_ids, self.padding_idx)
+        if segment_ids is not None:
+            if self.train_on_last_item_seq_only:
+                raise NotImplementedError(
+                    "train_on_last_item_seq_only is not supported with "
+                    "session packing (segment_ids)"
+                )
+            # no next-item label across a boundary: position i's label is
+            # item i + 1 only where both lie in one segment
+            same_next = _same_next(segment_ids)
+            mask = mask & same_next
+            if testing and self.eval_on_last_item_seq_only:
+                # each segment's last label: none follows it in its segment
+                next_also = torch.cat([mask[:, 1:] & same_next[:, :-1],
+                                       torch.zeros_like(mask[:, :1])], dim=1)
+                mask = mask & ~next_also
+                labels = torch.where(mask, labels, torch.full_like(labels, self.padding_idx))
+                return MaskingInfo(targets=labels, mask=mask, input_schema=non_pad,
+                                   pad_mask=non_pad, targets_per_segment_bounded=True)
+            labels = torch.where(mask, labels, torch.full_like(labels, self.padding_idx))
+            return MaskingInfo(targets=labels, mask=mask, input_schema=mask, pad_mask=non_pad)
         if (self.eval_on_last_item_seq_only and not training) or (
             self.train_on_last_item_seq_only and training
         ):
@@ -205,13 +297,21 @@ class MaskedLanguageModeling(MaskSequence):
         self.mlm_probability = mlm_probability
 
     def compute_masked_targets(self, item_ids, training=False, testing=False,
-                               generator=None) -> MaskingInfo:
+                               generator=None, segment_ids=None) -> MaskingInfo:
         non_pad = item_ids != self.padding_idx
         B, S = item_ids.shape
         if training:
             bern = torch.rand(item_ids.shape, generator=generator,
                               device=item_ids.device) < self.mlm_probability
             mask_labels = bern & non_pad
+            if segment_ids is not None:
+                # the guarantee per packed session
+                mask_labels = _ensure_min_masking_segments(mask_labels, non_pad, segment_ids,
+                                                           generator)
+                labels = torch.where(mask_labels, item_ids,
+                                     torch.full_like(item_ids, self.padding_idx))
+                return MaskingInfo(targets=labels, mask=mask_labels, input_schema=mask_labels,
+                                   pad_mask=non_pad)
             labels = torch.where(mask_labels, item_ids,
                                  torch.full_like(item_ids, self.padding_idx))
             labels, mask_labels = _ensure_min_masking(
@@ -230,10 +330,19 @@ class MaskedLanguageModeling(MaskSequence):
             mask = labels != self.padding_idx
             ext_pad = torch.arange(S + 1, device=item_ids.device)[None, :] < (last_len + 1)[:, None]
             return MaskingInfo(targets=labels, mask=mask, input_schema=mask, pad_mask=ext_pad)
+        if segment_ids is not None and self.eval_on_last_item_seq_only:
+            # each segment's last item is the target, under the [MASK] embedding
+            mask = _segment_last(non_pad, segment_ids)
+            labels = torch.where(mask, item_ids, torch.full_like(item_ids, self.padding_idx))
+            return MaskingInfo(targets=labels, mask=mask, input_schema=mask, pad_mask=non_pad,
+                               targets_per_segment_bounded=True)
         if self.eval_on_last_item_seq_only:
             labels, mask = _label_at_last(item_ids, non_pad, self.padding_idx)
         else:
             labels, mask = _predict_all(item_ids, self.padding_idx)
+            if segment_ids is not None:
+                mask = mask & _same_next(segment_ids)
+                labels = torch.where(mask, labels, torch.full_like(labels, self.padding_idx))
         return MaskingInfo(targets=labels, mask=mask, input_schema=mask, pad_mask=non_pad)
 
     def apply_mask_to_inputs(self, inputs, info: MaskingInfo, training=False, testing=False):
@@ -260,11 +369,13 @@ class PermutationLanguageModeling(MaskSequence):
         self.max_span_length = max_span_length
         self.permute_all = permute_all
 
-    def _sample_spans(self, non_pad: torch.Tensor, generator) -> torch.Tensor:
+    def _sample_spans(self, non_pad: torch.Tensor, generator,
+                      segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """A fixed number of segments per row, each of ``context`` positions
         (a span of 1..``max_span_length`` masked items at a random offset
         inside it, ``context = span / plm_probability``), walked from the
-        row's start while it lies inside the session."""
+        row's start while it lies inside the session. With ``segment_ids``
+        each span is clipped to the packed session its start lands in."""
         B, S = non_pad.shape
         dev = non_pad.device
         max_len = non_pad.sum(dim=1)
@@ -279,23 +390,35 @@ class PermutationLanguageModeling(MaskSequence):
         start = cur + (offsets * width).long().clamp_max(width - 1)
         pos = torch.arange(S, device=dev)
         in_span = (pos >= start[..., None]) & (pos < (start + span)[..., None])
+        if segment_ids is not None:
+            at_start = segment_ids.gather(1, start.clamp(0, S - 1).T).T  # (segments, B)
+            in_span = in_span & (segment_ids[None] == at_start[..., None])
         valid = (start < max_len) & (cur < max_len)
         mask = (in_span & valid[..., None]).any(dim=0)
         return mask & non_pad
 
     def compute_masked_targets(self, item_ids, training=False, testing=False,
-                               generator=None) -> MaskingInfo:
+                               generator=None, segment_ids=None) -> MaskingInfo:
         non_pad = item_ids != self.padding_idx
         B, S = item_ids.shape
         dev = item_ids.device
         if training:
             # the draws in one order: spans, the ≥1 guarantee, the permutation
-            mask_labels = non_pad if self.permute_all else self._sample_spans(non_pad, generator)
-            labels = torch.where(mask_labels, item_ids,
-                                 torch.full_like(item_ids, self.padding_idx))
-            labels, mask_labels = _ensure_min_masking(
-                labels, mask_labels, item_ids, non_pad, self.padding_idx, generator
-            )
+            mask_labels = (non_pad if self.permute_all
+                           else self._sample_spans(non_pad, generator, segment_ids))
+            if segment_ids is not None:
+                # the guarantee per packed session; the factorisation order
+                # needs no segments: the encoder blocks attention across them
+                mask_labels = _ensure_min_masking_segments(mask_labels, non_pad, segment_ids,
+                                                           generator)
+                labels = torch.where(mask_labels, item_ids,
+                                     torch.full_like(item_ids, self.padding_idx))
+            else:
+                labels = torch.where(mask_labels, item_ids,
+                                     torch.full_like(item_ids, self.padding_idx))
+                labels, mask_labels = _ensure_min_masking(
+                    labels, mask_labels, item_ids, non_pad, self.padding_idx, generator
+                )
             # a random factorisation order; positions not masked get -1: every
             # query sees them, and they see no masked position
             order = torch.argsort(torch.rand((B, S), generator=generator, device=dev), dim=-1)
@@ -307,12 +430,23 @@ class PermutationLanguageModeling(MaskSequence):
                                perm_mask=perm_mask, pad_mask=non_pad)
         # evaluation and inference: the causal order
         causal = torch.ones((S, S), device=dev).triu(1)[None]
+        if segment_ids is not None and self.eval_on_last_item_seq_only:
+            # each segment's last item, hidden from every query
+            mask = _segment_last(non_pad, segment_ids)
+            labels = torch.where(mask, item_ids, torch.full_like(item_ids, self.padding_idx))
+            perm_mask = (causal + mask[:, None, :].float()).clamp(0, 1)
+            return MaskingInfo(targets=labels, mask=mask, input_schema=mask,
+                               perm_mask=perm_mask, pad_mask=non_pad,
+                               targets_per_segment_bounded=True)
         if self.eval_on_last_item_seq_only:
             labels, mask = _label_at_last(item_ids, non_pad, self.padding_idx)
             # no query sees the last item
             perm_mask = (causal + mask[:, None, :].float()).clamp(0, 1)
         else:
             labels, mask = _predict_all(item_ids, self.padding_idx)
+            if segment_ids is not None:
+                mask = mask & _same_next(segment_ids)
+                labels = torch.where(mask, labels, torch.full_like(labels, self.padding_idx))
             perm_mask = causal.expand(B, S, S)
         return MaskingInfo(targets=labels, mask=mask, input_schema=mask, perm_mask=perm_mask,
                            pad_mask=non_pad)

@@ -475,8 +475,9 @@ class NextItemPredictionTask(nn.Module):
                 label_smoothing=self.label_smoothing)
             return TaskOutput(loss=loss, labels=labels, weights=w, loss_weight=w.sum())
 
-        if testing and self.eval_single_target:
-            # one target per session: gather that position
+        if testing and self.eval_single_target and info.segment_ids is None:
+            # one target per session: gather that position (packed rows carry
+            # one per segment and take the full-position path below)
             idx = torch.argmax(info.mask.to(torch.int32), dim=1)
             row_valid = info.mask.any(dim=1).float()
             xg = x[rows, idx]
@@ -521,9 +522,16 @@ class NextItemPredictionTask(nn.Module):
                                   loss_weight=flat_mask.sum())
             x2d = x.reshape(N, -1) / temp
             M = self._budget_rows(N) if training else None
+            if not training and info.targets_per_segment_bounded:
+                # packed evaluation: at most one target per segment of two or
+                # more items, so at most S // 2 a row: B·(S//2) rows hold
+                # every target, exactly
+                B_, S_ = targets.shape
+                M = min(N, max(B_ * (S_ // 2), 1))
             if M is not None:
-                # a stable argsort puts the target positions first; overflow
-                # beyond M (a ≥6σ margin) would drop a few targets
+                # a stable argsort puts the target positions first; in
+                # training, overflow beyond M (a ≥6σ margin) would drop a few
+                # targets
                 order = torch.argsort(flat_mask <= 0, stable=True)[:M]
                 x2d, flat_labels, flat_mask = x2d[order], flat_labels[order], flat_mask[order]
             labels = flat_labels.to(torch.int32)

@@ -23,11 +23,12 @@ the reference's unused ones (``--loss_type``, ``--summary_type``, ...).
 noise on: its probability is the transformation's default, 0.1.
 
 Every ``--model_type`` of the JAX script builds: ``xlnet``, ``gpt2``,
-``bert``, ``roberta``, ``electra``, ``albert``, ``longformer`` and
-``transfoxl``, with ``--pre_ln`` turning the BERT family's post-LN layers
-and embedding LayerNorm into the pre-LN form, and ``--rtd`` (with
-``--rtd_sample_from_batch``) ELECTRA's RTD ``--rtd_sample_from_batch``) ELECTRA's RTD masking. ``reformer`` raises
-``NotImplementedError`` naming what is not ported. ``--sampled_softmax``
+``bert``, ``roberta``, ``electra``, ``albert``, ``longformer``,
+``reformer`` and ``transfoxl``, with ``--pre_ln`` turning the BERT family's
+post-LN layers and embedding LayerNorm into the pre-LN form, and ``--rtd``
+(with ``--rtd_sample_from_batch``) giving ELECTRA's RTD masking.
+``--pack_sessions`` and ``--pack_eval_sessions`` pack the training and
+evaluation loaders' sessions several to a row. ``--sampled_softmax``
 trains with ``--sampled_softmax_max_n_samples`` log-uniform negatives a
 step (evaluation stays full-catalogue).
 """

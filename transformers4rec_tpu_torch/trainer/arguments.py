@@ -4,8 +4,7 @@ Counterpart of ``transformers4rec_tpu/trainer/arguments.py``: the same field
 names with the same defaults. Options whose code is not ported yet raise
 ``NotImplementedError`` when set away from their defaults: the sparse and
 lazy table optimizers, bf16-stored tables, gradient accumulation, the
-msgpack and orbax checkpoint formats and asynchronous saves, session
-packing, a device mesh and its vocab-parallel wiring, gradient
+msgpack and orbax checkpoint formats and asynchronous saves, a device mesh and its vocab-parallel wiring, gradient
 checkpointing and the profiler window. The checkpoint is one ``torch.save``
 file (``checkpoint_format="torch"``).
 """
@@ -65,7 +64,12 @@ class T4RecTrainingArguments:
     # loss (no synchronisation inside a group); the trajectory equals K = 1
     # bit for bit
     steps_per_execution: int = 8
+    # session packing (data/packing.py): the training loader packs several
+    # short sessions a row, with a block-diagonal attention restriction
     pack_sessions: bool = False
+    # pack the evaluation loader too: one target per segment (its last
+    # item), so the metrics equal unpacked evaluation's; predict() and
+    # log_predictions stay unpacked
     pack_eval_sessions: bool = False
     seed: int = 42
     gradient_checkpointing: bool = False
@@ -123,8 +127,7 @@ class T4RecTrainingArguments:
                                            "synthetic"):
             raise ValueError(f"unknown data_loader_engine {self.data_loader_engine!r}")
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for name in ("checkpoint_format", "save_async", "pack_sessions", "pack_eval_sessions",
-                     "mesh_model_axis", "auto_vocab_parallel", "gradient_checkpointing",
+        for name in ("checkpoint_format", "save_async", "mesh_model_axis", "auto_vocab_parallel", "gradient_checkpointing",
                      "profile_steps", "profile_dir"):
             if getattr(self, name) != defaults[name]:
                 raise NotImplementedError(

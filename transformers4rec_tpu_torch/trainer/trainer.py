@@ -33,7 +33,10 @@ dataset raise, and periodic evaluation runs only with evaluation data, as
 in the JAX package.
 ``dataloader_drop_last`` applies to the training loader only: evaluation
 and prediction keep the zero-filled tail, so every session counts once and
-``predict`` returns one row per session.
+``predict`` returns one row per session. ``pack_sessions`` packs the
+training loader's sessions several to a row (``data.packing``),
+``pack_eval_sessions`` the evaluation loader's; ``predict`` and
+``log_predictions`` stay unpacked.
 
 ``save`` / ``load`` write one ``torch.save`` file with the model, both
 optimizers, the generator and the loader position; ``train(resume_from_
@@ -66,6 +69,7 @@ import torch
 import torch.distributed
 
 from ..data.loader import InMemoryDataLoader, dataloader_registry
+from ..data.packing import pack_sessions
 from ..model.base import Model
 from ..ops.fused_adafactor import FusedAdafactor
 from ..ops.sparse_update import label_embedding_params
@@ -171,15 +175,23 @@ class Trainer:
         self._resume_position: Optional[tuple] = None
 
     # ------------------------------------------------------------ dataloaders
-    def _make_loader(self, dataset, batch_size: int, shuffle: bool, is_train: bool = False):
+    def _make_loader(self, dataset, batch_size: int, shuffle: bool, is_train: bool = False,
+                     pack: bool = False):
         """A dict of numpy columns is held in memory; anything else (a path,
         a list of paths, a ``ParquetDataset``, or nothing under
         ``"synthetic"``) goes to the loader that ``args.data_loader_engine``
         names. Only the training loader drops the tail, and only under
-        ``dataloader_drop_last``."""
+        ``dataloader_drop_last``. ``pack`` packs the sessions several to a
+        row."""
         a = self.args
         drop_last = a.dataloader_drop_last if is_train else False
         if isinstance(dataset, dict):
+            if pack:
+                if self.schema is None:
+                    raise ValueError("Trainer: packing needs a schema to find the item ids")
+                dataset = pack_sessions(
+                    dataset, max_len=a.max_sequence_length or self.schema.sequence_length(20),
+                    item_id_col=self.schema.item_id_column_name)
             return InMemoryDataLoader(dataset, batch_size=batch_size, shuffle=shuffle,
                                       drop_last=drop_last, seed=a.seed)
         engine = a.data_loader_engine
@@ -191,7 +203,7 @@ class Trainer:
         cls = dataloader_registry.parse("parquet" if engine == "merlin" else engine)
         return cls.from_schema(self.schema, dataset, batch_size=batch_size,
                                max_sequence_length=a.max_sequence_length, shuffle=shuffle,
-                               drop_last=drop_last, seed=a.seed, **kwargs)
+                               drop_last=drop_last, seed=a.seed, pack=pack, **kwargs)
 
     def get_train_dataloader(self):
         if self._train_dataloader is not None:
@@ -199,7 +211,7 @@ class Trainer:
         if self.train_dataset is None and self.args.data_loader_engine != "synthetic":
             raise ValueError("Trainer: training requires a train_dataset")
         return self._make_loader(self.train_dataset, self.args.train_batch_size, shuffle=True,
-                                 is_train=True)
+                                 is_train=True, pack=self.args.pack_sessions)
 
     def get_eval_dataloader(self, eval_dataset=None):
         """The loader of ``eval_dataset``, else of ``self.eval_dataset``. The
@@ -208,14 +220,16 @@ class Trainer:
         window)."""
         a = self.args
         ds = eval_dataset if eval_dataset is not None else self.eval_dataset
-        cfg = (a.eval_batch_size, a.max_sequence_length, a.data_loader_engine, a.seed)
+        cfg = (a.eval_batch_size, a.max_sequence_length, a.data_loader_engine, a.seed,
+               a.pack_eval_sessions)
         if eval_dataset is None and self._eval_dataloader is not None:
             cached = self._eval_loader_key
             if cached is None or (cached[0] == cfg and cached[1] is ds):
                 return self._eval_dataloader
         if ds is None and a.data_loader_engine != "synthetic":
             raise ValueError("Trainer: evaluation requires an eval_dataset")
-        loader = self._make_loader(ds, a.eval_batch_size, shuffle=False)
+        loader = self._make_loader(ds, a.eval_batch_size, shuffle=False,
+                                   pack=a.pack_eval_sessions)
         if eval_dataset is None:
             self._eval_dataloader, self._eval_loader_key = loader, (cfg, ds)
         return loader
