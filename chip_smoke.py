@@ -129,6 +129,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     Parquet files of the music-streaming fixture (K1 and K2 once a step),
     ``Trainer.evaluate`` (K3 once a batch) and one training step against
     the CPU, and the HTTP server's top-k of the next-item task;
+9b'''w. W, the sparse table step and gradient accumulation at full width:
+    W1 configuration 4's ``sparse_adam`` arm
+    (``flagship.build_large_vocab_trainer(embedding_optimizer="sparse_adam")``:
+    the item table's touched rows gathered outside autograd, lazy Adam on
+    them with bf16 moments) takes a cold step, 8 timed steps and a profiled
+    window (ms a step beside T1's ``adafactor`` arm, the busy share, the
+    memory peak and each step's growth, below one (V, 64) float32 tensor),
+    the item table never holding a gradient; one step of the trained
+    weights and rows' state and 3 steps of ``sparse_adafactor``, card
+    against CPU with one mask and one draw of negatives each (losses, the
+    touched rows, their moments and the dense weights; untouched rows bit
+    for bit); ``gradient_accumulation_steps=2`` against one update from
+    the mean gradient written out; ``Model.evaluate`` (K3 at V =
+    4,000,001) against the CPU. W2 the flagship XLNet-MLM at K = 2
+    (``build_trainer(gradient_accumulation_steps=2)``): 2 + 8 micro-steps
+    (K1 and K2 twice an update), one update against the mean gradient's,
+    and 3 steps of ``lazy_adam`` leaving every row with a zero gradient
+    bit for bit as it was;
 9b''''. U, session packing at full width (``run_packing``): U1 the flagship
     XLNet-MLM from Parquet files of the port's ETL through
     ``flagship.build_trainer(pack_sessions=True, pack_eval_sessions=True)``:
@@ -237,6 +255,7 @@ arm (device time per step and busy share).
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import json
 import math
@@ -2964,6 +2983,431 @@ def run_multitask(flagship, vocab, fa, card: str) -> dict:
     return out
 
 
+# ------------------------- W: the sparse table step and gradient accumulation
+W1_STEADY = 8  # timed steady steps after the cold one
+W1_WINDOW = 8  # the profiled window's steps
+W1_EVAL_BATCHES = 2
+W_ADAFACTOR_STEPS = 3  # sparse_adafactor steps, card against CPU
+W2_MICRO_STEPS = 8  # four updates at K = 2
+W2_LAZY_STEPS = 3
+# sampled softmax is float32 from end to end on both devices (T1_LOSS_RTOL);
+# an update's movement differs by the order of the rows' sums (index_add_
+# adds by atomics on the card) carried through Adam's g / (|g| + eps), which
+# turns last-bit differences of a gradient near eps into a visible share of
+# its step: the movement is held in relative Frobenius norm, over the
+# touched rows, the dense weights and the moments (bf16-stored moments may
+# land one bf16 ulp, 2^-8, apart)
+W_LOSS_RTOL = 1e-5
+W_MOVE_REL = 1e-3
+W_MOMENT_REL = 4e-3
+
+
+def mlm_info(cpu_model, batch, seed: int, neg_ids=None):
+    """One MLM draw on the CPU for ``batch`` (numpy columns), with the
+    negatives ``neg_ids`` (numpy) when given: a ``MaskingInfo`` on the CPU."""
+    im = cpu_model.heads[0].input_module
+    ids = torch.as_tensor(np.asarray(batch[im.item_id])).long()
+    info = im.masking.compute_masked_targets(ids, training=True,
+                                             generator=torch.Generator().manual_seed(seed))
+    return info if neg_ids is None else info.replace(neg_ids=torch.from_numpy(neg_ids))
+
+
+def info_on(info, device):
+    fields = [f for f in ("targets", "mask", "input_schema", "pad_mask", "perm_mask", "neg_ids")
+              if getattr(info, f) is not None]
+    return info.replace(**{f: getattr(info, f).to(device) for f in fields})
+
+
+def movement_rel(got_after, want_after, before) -> float:
+    """``|Δgot − Δwant| / |Δwant|`` in Frobenius norm, Δ the movement from
+    ``before`` (float64 on the CPU)."""
+    d_got = got_after.double() - before.double()
+    d_want = want_after.double() - before.double()
+    return float((d_got - d_want).norm() / d_want.norm().clamp_min(1e-300))
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as integers: -0.0 and +0.0 differ."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def sparse_pair_steps(flagship, models: dict, weights: dict, opt: str, batches: list,
+                      infos: list, counters: dict, state_doc=None) -> dict:
+    """Steps of the ``opt`` sparse arm from ``weights`` (and the rows' state
+    ``state_doc``) on the card and on the CPU (``models``: device → model),
+    each step given one mask and one draw of negatives (``infos``). The
+    losses within ``W_LOSS_RTOL``; the movement of the touched rows and of
+    the dense weights within ``W_MOVE_REL``; the touched rows' moments
+    within ``W_MOMENT_REL``; untouched rows of the table and its moments,
+    bit for bit, as they were; the item table never holds a gradient; no
+    kernel launches (the sampled softmax is plain float32)."""
+    touched = np.unique(np.concatenate(
+        [np.asarray(b["item_id"]).reshape(-1) for b in batches]
+        + [i.neg_ids.numpy() for i in infos]))
+    res = {}
+    for dev, m in models.items():
+        m.load_state_dict(weights)
+        tr = flagship._bench_trainer(m, None, dev, 0, None, None, tempfile.gettempdir(),
+                                     flagship.BATCH, embedding_optimizer=opt)
+        tr.create_optimizer_and_scheduler(len(batches))
+        if state_doc is not None:
+            tr._sparse.load_state_dict(state_doc)
+        step = tr._sparse
+        moments = {k: v for k, v in vars(step.state).items() if k != "count"}
+        before = {"table": step.table.detach().clone(),
+                  **{k: v.clone() for k, v in moments.items()}}
+        dense_before = {n: p.detach().cpu().clone() for n, p in m.named_parameters()
+                        if p is not step.table}
+
+        def run():
+            return [tr._train_step(m._as_dense(b), masking_info=info_on(i, dev))
+                    for b, i in zip(batches, infos)]
+
+        losses, got, _ = counted(counters, run, device=dev)
+        expect_launches(f"{opt} steps on {dev}", got)
+        if step.table.grad is not None:
+            fail(f"{opt} on {dev}: the item table holds a gradient")
+        after = {"table": step.table.detach(),
+                 **{k: v for k, v in vars(step.state).items() if k != "count"}}
+        untouched = torch.ones(step.table.shape[0], dtype=torch.bool, device=step.table.device)
+        untouched[torch.from_numpy(touched).to(untouched.device)] = False
+        for k in after:
+            changed = (bits(after[k]) != bits(before[k])).any(dim=1) & untouched
+            if bool(changed.any()):
+                fail(f"{opt} on {dev}: {int(changed.sum())} untouched rows of {k} changed")
+        idx = torch.from_numpy(touched).to(step.table.device)
+        res[dev] = {"losses": [float(x) for x in losses], "count": int(step.state.count),
+                    "rows": {k: v.index_select(0, idx).float().cpu() for k, v in after.items()},
+                    "rows_before": before["table"].index_select(0, idx).cpu(),
+                    "dense": {n: p.detach().cpu() for n, p in m.named_parameters()
+                              if p is not step.table},
+                    "dense_before": dense_before,
+                    "untouched_rows": int(untouched.sum())}
+        del tr, step, before, after, moments
+    g, c = res["cuda"], res["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], c["losses"]))
+    if not all(math.isfinite(x) for x in g["losses"]) or loss_rel > W_LOSS_RTOL \
+            or g["count"] != c["count"]:
+        fail(f"{opt}: losses {g['losses']} vs CPU {c['losses']}, counts {g['count']} "
+             f"{c['count']}")
+    out = {"steps": len(batches), "losses": g["losses"], "loss_rel_diff": loss_rel,
+           "touched_rows": len(touched), "untouched_rows": g["untouched_rows"],
+           "table_move_rel": movement_rel(g["rows"]["table"], c["rows"]["table"],
+                                          c["rows_before"]),
+           "dense_move_rel": movement_rel(
+               torch.cat([v.reshape(-1) for v in g["dense"].values()]),
+               torch.cat([v.reshape(-1) for v in c["dense"].values()]),
+               torch.cat([v.reshape(-1) for v in c["dense_before"].values()]))}
+    out["moments_rel"] = {k: float((g["rows"][k] - c["rows"][k]).norm() / c["rows"][k].norm())
+                          for k in g["rows"] if k != "table"}
+    if out["table_move_rel"] > W_MOVE_REL or out["dense_move_rel"] > W_MOVE_REL \
+            or max(out["moments_rel"].values()) > W_MOMENT_REL:
+        fail(f"{opt}, card against CPU: {out}")
+    return out
+
+
+def mean_update_reference(model, batches: list, infos: list, args, lr: float) -> None:
+    """One update of the ``sparse_adam`` arm from the mean of the
+    micro-batches' gradients, written out on ``model``'s device: the rows
+    gathered, the dense gradients summed, the row gradients divided by K,
+    one dedupe, one joint clip at ``args.max_grad_norm``, then fresh AdamW
+    on the dense weights, fresh Adafactor (bf16 moment) on the other
+    tables and lazy Adam (bf16 moments) on the item table's touched rows."""
+    from transformers4rec_tpu_torch.ops.fused_adafactor import FusedAdafactor
+    from transformers4rec_tpu_torch.ops.sparse_update import (
+        dedupe_row_grads,
+        sparse_rows_adam_init,
+        sparse_rows_adam_update,
+    )
+    from transformers4rec_tpu_torch.trainer.sparse_embedding_step import gather_rows
+
+    k = len(batches)
+    table = model.heads[0].input_module.item_embedding_table()
+    named = {n: p for n, p in model.named_parameters() if p is not table}
+    sums = {n: torch.zeros_like(p) for n, p in named.items()}
+    seen = set()  # a weight no micro-step gave a gradient keeps None, as in the trainer
+    ids_all, rows_all = [], []
+    dev = table.device
+    for batch, info in zip(batches, infos):
+        b = model._as_dense(batch)
+        model.zero_grad(set_to_none=True)
+        rows, ids = gather_rows(table, b["item_id"], info.neg_ids.to(dev), "mlm")
+        loss, _ = model(b, targets=b, training=True, masking_info=info_on(info, dev),
+                        sparse_rows=rows)
+        loss.backward()
+        for n, p in named.items():
+            if p.grad is not None:
+                sums[n] += p.grad
+                seen.add(n)
+        ids_all.append(ids)
+        rows_all.append(rows.rows.grad / k)
+    uids, g_sum = dedupe_row_grads(torch.cat(ids_all), torch.cat(rows_all), table.shape[0])
+    mean = {n: sums[n] / k for n in seen}
+    norm = torch.sqrt(sum((g ** 2).sum() for g in list(mean.values()) + [g_sum]))
+    scale = torch.clamp(args.max_grad_norm / torch.clamp_min(norm, 1e-12), max=1.0)
+    for n, p in named.items():
+        p.grad = mean[n] * scale if n in seen else None
+    torch.optim.AdamW([p for n, p in named.items() if "tables." not in n], lr=lr,
+                      betas=(args.adam_beta1, args.adam_beta2), eps=args.adam_epsilon,
+                      weight_decay=args.weight_decay).step()
+    FusedAdafactor([p for n, p in named.items() if "tables." in n], lr=lr,
+                   moment_dtype=torch.bfloat16).step()
+    sparse_rows_adam_update(table.data, sparse_rows_adam_init(table.detach(), torch.bfloat16),
+                            uids, g_sum * scale, lr, b1=args.adam_beta1, b2=args.adam_beta2,
+                            eps=args.adam_epsilon, deduped=True)
+    model.zero_grad(set_to_none=True)
+
+
+def params_flat(model) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1).cpu() for p in model.parameters()])
+
+
+def run_sparse_large_vocab(flagship, vocab, fa, card: str) -> dict:
+    """Main path W1: configuration 4's ``sparse_adam`` arm at full width
+    (``flagship.build_large_vocab_trainer(embedding_optimizer="sparse_adam")``:
+    XLNet-MLM over 4,000,000 items, a tied 64-wide table, d_model 192, 3
+    layers, 16 heads, batches of 128 of 20, 8,192 negatives, bf16 moments,
+    the clip at 1). ``Trainer.train`` takes a cold step and ``W1_STEADY``
+    timed steps, then a window under ``torch.profiler``; the item table
+    never holds a gradient and each step's memory peak grows by less than
+    one (V, 64) float32 tensor. One step of the trained weights and rows'
+    state, card against CPU, with one mask and one draw of negatives;
+    ``W_ADAFACTOR_STEPS`` steps of the ``sparse_adafactor`` arm the same
+    way; ``gradient_accumulation_steps=2`` on the card against one update
+    from the mean gradient (``mean_update_reference``); ``Model.evaluate``
+    of the trained weights over ``W1_EVAL_BATCHES`` batches (K3 at V =
+    4,000,001) against the CPU's plain pass."""
+    from transformers4rec_tpu_torch.data import synthetic_data
+
+    t_phase = time.perf_counter()
+    counters = flash_counters(vocab, fa)
+    launches = dict.fromkeys(counters, 0)
+    items, rows, seq = flagship.LARGE_VOCAB_ITEMS, flagship.BATCH, flagship.SEQ
+    vocab_size = items + 1
+    table_rows = -(-vocab_size // 8) * 8
+    schema = flagship.schema(items, seq)
+    dense_grad_bytes = table_rows * flagship.LARGE_VOCAB_ITEM_DIM * 4
+    out = {"card": card, "num_items": items, "table_rows": table_rows}
+
+    data = synthetic_data(schema, num_rows=16 * rows, max_session_length=seq, seed=600)
+    t0 = time.perf_counter()
+    trainer = flagship.build_large_vocab_trainer("cuda", seed=0, train_dataset=data,
+                                                 embedding_optimizer="sparse_adam")
+    sync("cuda")
+    out["build_s"] = time.perf_counter() - t0
+    table = trainer.model.heads[0].input_module.item_embedding_table()
+    trainer.create_optimizer_and_scheduler(1 + W1_STEADY + 2 * W1_WINDOW)
+    step = trainer._sparse
+    if step is None or step.rule != "adam" or step.state.mu.dtype != torch.bfloat16 \
+            or tuple(table.shape) != (table_rows, flagship.LARGE_VOCAB_ITEM_DIM):
+        fail(f"sparse large vocab: the arm is {step and step.rule}, table {tuple(table.shape)}")
+    table_before = table.detach().clone()
+    out["train"], growth = {}, {}
+    for name, n in (("cold_step", 1), ("steady", W1_STEADY)):
+        sync("cuda")
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out["train"].update(trainer_phases(trainer, counters, launches, "sparse-large-vocab",
+                                           card, rows, seq, ((name, n, None),), per_step={}))
+        growth[name] = torch.cuda.max_memory_allocated() - base
+    out["peak_growth_gb"] = {k: v / 1e9 for k, v in growth.items()}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if table.grad is not None or max(growth.values()) >= dense_grad_bytes:
+        fail(f"sparse large vocab: table gradient {table.grad is not None}, peak growth "
+             f"{growth} against one (V, 64) f32 tensor of {dense_grad_bytes} bytes")
+    (window, prof_table), got, _ = counted(counters, lambda: traced_window(
+        trainer, W1_WINDOW, rows=25))
+    expect_launches("sparse large vocab (profiled window)", got)
+    out["profile"] = window
+    print(prof_table)
+    moved = (table.detach() != table_before).any(dim=1)
+    out["rows_moved"] = int(moved.sum())
+    if not 0 < out["rows_moved"] < table_rows or not torch.isfinite(table).all():
+        fail(f"sparse large vocab: {out['rows_moved']} rows of the item table moved")
+    weights = {k: v.detach().to("cpu", copy=True) for k, v in trainer.model.state_dict().items()}
+    state_doc = {"state": {k: v.cpu() for k, v in vars(step.state).items()},
+                 "accum": {"ids": [], "grads": []}}
+    args = trainer.args
+    del trainer, step, table, table_before, moved
+    torch.cuda.empty_cache()
+
+    # the trained weights with dropout off, on the card and on the CPU
+    models = {"cuda": flagship.build_large_vocab_model("cuda", dropout=0.0),
+              "cpu": flagship.build_large_vocab_model("cpu", dropout=0.0)}
+    cpu_model = models["cpu"]
+    sampler = cpu_model.heads[0].tasks[0].make_sampler(table_rows)
+    batches = [{k: v[i * rows:(i + 1) * rows] for k, v in data.items()} for i in range(3)]
+    infos = [mlm_info(cpu_model, b, seed=30 + i,
+                      neg_ids=large_vocab_negatives(sampler, seed=40 + i))
+             for i, b in enumerate(batches)]
+    out["adam_step"] = sparse_pair_steps(flagship, models, weights, "sparse_adam", batches[:1],
+                                         infos[:1], counters, state_doc=state_doc)
+    out["adafactor_steps"] = sparse_pair_steps(flagship, models, weights, "sparse_adafactor",
+                                               batches[:W_ADAFACTOR_STEPS],
+                                               infos[:W_ADAFACTOR_STEPS], counters)
+    print(f"[sparse-large-vocab] card against CPU on {card}: "
+          f"{json.dumps({k: out[k] for k in ('adam_step', 'adafactor_steps')})}")
+
+    # accumulation: two micro-steps on the card against one update from the mean
+    model = models["cuda"]
+    model.load_state_dict(weights)
+    acc = flagship._bench_trainer(model, None, "cuda", 0, None, None, tempfile.gettempdir(),
+                                  rows, embedding_optimizer="sparse_adam",
+                                  gradient_accumulation_steps=2)
+    acc.create_optimizer_and_scheduler(2)
+    before = params_flat(model)
+    acc._train_step(model._as_dense(batches[0]), masking_info=info_on(infos[0], "cuda"))
+    mid = params_flat(model)
+    acc._train_step(model._as_dense(batches[1]), masking_info=info_on(infos[1], "cuda"))
+    got_after = params_flat(model)
+    if not torch.equal(mid, before) or acc._opt_step != 1 \
+            or int(acc._sparse.state.count) != 1:
+        fail("sparse accumulation: the first micro-step moved the weights, or no update")
+    lr = acc._schedule(0)
+    del acc
+    model.load_state_dict(weights)
+    mean_update_reference(model, batches[:2], infos[:2], args, lr)
+    out["accumulation"] = {"micro_steps": 2, "updates": 1,
+                           "move_rel": movement_rel(got_after, params_flat(model), before)}
+    if out["accumulation"]["move_rel"] > W_MOVE_REL:
+        fail(f"sparse accumulation against the mean update: {out['accumulation']}")
+    del before, mid, got_after
+
+    # evaluation of the trained weights: K3 at V = 4,000,001
+    model.load_state_dict(weights)
+    cpu_model.load_state_dict(weights)
+    loader = eval_batches(flagship, items, seq, W1_EVAL_BATCHES, EVAL_ROWS)
+    gpu_res, got, wall = counted(counters, lambda: model.evaluate(loader))
+    expect_launches("sparse large vocab (evaluate)", got, ce_rank=W1_EVAL_BATCHES)
+    for k, c in got.items():
+        launches[k] += c
+    cpu_res = cpu_model.evaluate(loader)
+    check_evaluate(gpu_res, cpu_res, W1_EVAL_BATCHES * EVAL_ROWS)
+    out["evaluate"] = {"cuda": gpu_res, "cpu": cpu_res, "wall_s": wall}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[sparse-large-vocab] on {card}: a steady step "
+          f"{out['train']['steady']['ms_per_step']:.3f} ms of wall time "
+          f"({window['ms_per_step']:.3f} in the profiled window's untraced run, "
+          f"{window['device_ms_per_step']:.3f} ms of device time, busy "
+          f"{window['device_busy_share']:.3f}); peak growth {json.dumps(out['peak_growth_gb'])} "
+          f"GB, peak {out['peak_memory_gb']:.2f} GB; {out['rows_moved']} rows moved; "
+          f"accumulation {json.dumps(out['accumulation'])}; phase W1 {out['phase_s']:.1f}s")
+    del model, cpu_model, models
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_accumulation(flagship, vocab, fa, card: str) -> dict:
+    """Main path W2: the flagship XLNet-MLM (390,000 items, full softmax
+    through K1 and K2, the dense ``adafactor`` arm, dropout 0) with
+    ``build_trainer(gradient_accumulation_steps=2)``: 2 + ``W2_MICRO_STEPS``
+    micro-steps through ``Trainer.train`` (K1 and K2 once a micro-step, twice
+    an update); one update from two micro-batches with given masks against
+    the same update written out from the mean of their gradients; then
+    ``W2_LAZY_STEPS`` steps of ``embedding_optimizer="lazy_adam"``, after
+    each of which every table row whose gradient was zero is bit for bit
+    as it was."""
+    from transformers4rec_tpu_torch.data import synthetic_data
+    from transformers4rec_tpu_torch.ops.fused_adafactor import FusedAdafactor
+
+    t_phase = time.perf_counter()
+    counters = flash_counters(vocab, fa)
+    launches = dict.fromkeys(counters, 0)
+    rows, seq = flagship.BATCH, flagship.SEQ
+    data = synthetic_data(flagship.schema(), num_rows=8 * rows, max_session_length=seq,
+                          seed=700)
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data,
+                                     gradient_accumulation_steps=2, dropout=0.0)
+    model = trainer.model
+    trainer.create_optimizer_and_scheduler(2 + W2_MICRO_STEPS)
+    out = {"card": card, "train": trainer_phases(
+        trainer, counters, launches, "accumulation", card, rows, seq,
+        (("cold_steps", 2, None), ("steady", W2_MICRO_STEPS, None)),
+        per_step={"ce_fwd": 1, "ce_bwd": 1})}
+    if trainer._opt_step != (2 + W2_MICRO_STEPS) // 2:
+        fail(f"accumulation: {trainer._opt_step} updates in {2 + W2_MICRO_STEPS} micro-steps")
+    out["updates"] = trainer._opt_step
+    out["ms_per_update"] = 2 * out["train"]["steady"]["ms_per_step"]
+
+    # one update from two micro-batches, against the mean gradient's update
+    weights = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    cpu_model = flagship.build_model("cpu", dropout=0.0, seed=0)
+    batches = [{k: v[i * rows:(i + 1) * rows] for k, v in data.items()} for i in range(2)]
+    infos = [mlm_info(cpu_model, b, seed=50 + i) for i, b in enumerate(batches)]
+    del cpu_model
+    trainer.create_optimizer_and_scheduler(2)
+    before = params_flat(model)
+
+    def two_micro_steps():
+        for b, i in zip(batches, infos):
+            trainer._train_step(model._as_dense(b), masking_info=info_on(i, "cuda"))
+
+    _, got, _ = counted(counters, two_micro_steps)
+    expect_launches("accumulation (one update)", got, ce_fwd=2, ce_bwd=2)
+    for k, c in got.items():
+        launches[k] += c
+    got_after = params_flat(model)
+    a, lr = trainer.args, trainer._schedule(0)
+    model.load_state_dict(weights)
+    sums = {}
+    for b, i in zip(batches, infos):
+        model.zero_grad(set_to_none=True)
+        bd = model._as_dense(b)
+        loss, _ = model(bd, targets=bd, training=True, masking_info=info_on(i, "cuda"))
+        loss.backward()
+        for n, p in model.named_parameters():
+            if p.grad is not None:
+                sums[n] = sums[n] + p.grad if n in sums else p.grad.clone()
+    named = dict(model.named_parameters())
+    for n, p in named.items():
+        p.grad = sums[n] / 2 if n in sums else None
+    torch.optim.AdamW([p for n, p in named.items() if "tables." not in n], lr=lr,
+                      betas=(a.adam_beta1, a.adam_beta2), eps=a.adam_epsilon,
+                      weight_decay=a.weight_decay).step()
+    FusedAdafactor([p for n, p in named.items() if "tables." in n], lr=lr,
+                   moment_dtype=torch.bfloat16).step()
+    out["mean_update_move_rel"] = movement_rel(got_after, params_flat(model), before)
+    if out["mean_update_move_rel"] > W_MOVE_REL:
+        fail(f"accumulation against the mean update: {out['mean_update_move_rel']}")
+    del before, got_after, sums
+
+    # lazy Adam: rows whose gradient is zero stay as they were
+    model.load_state_dict(weights)
+    trainer.args = dataclasses.replace(a, embedding_optimizer="lazy_adam",
+                                       embedding_moment_dtype="f32",
+                                       gradient_accumulation_steps=1)
+    trainer.create_optimizer_and_scheduler(W2_LAZY_STEPS)
+    tables = {n: p for n, p in model.named_parameters() if "tables." in n}
+    untouched = {n: 0 for n in tables}
+    for s in range(W2_LAZY_STEPS):
+        before = {n: p.detach().clone() for n, p in tables.items()}
+        _, got, _ = counted(counters, lambda: trainer._train_step(
+            model._as_dense(batches[s % 2])))
+        expect_launches("lazy_adam step", got, ce_fwd=1, ce_bwd=1)
+        for k, c in got.items():
+            launches[k] += c
+        for n, p in tables.items():
+            zero = (p.grad == 0).all(dim=1)
+            changed = (bits(p.detach()) != bits(before[n])).any(dim=1)
+            if bool((changed & zero).any()) or not bool(changed[~zero].any()):
+                fail(f"lazy_adam step {s}: {n}: {int((changed & zero).sum())} rows with a zero "
+                     f"gradient moved, {int(changed[~zero].sum())} others moved")
+            untouched[n] += int(zero.sum())
+    out["lazy_adam_untouched_rows"] = untouched
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[accumulation] on {card}: K = 2, a micro-step "
+          f"{out['train']['steady']['ms_per_step']:.3f} ms, an update {out['ms_per_update']:.3f} "
+          f"ms of wall time; the mean update's movement within "
+          f"{out['mean_update_move_rel']:.3g}; lazy_adam rows with a zero gradient, all "
+          f"unchanged: {json.dumps(untouched)}; launches {json.dumps(launches)}; phase W2 "
+          f"{out['phase_s']:.1f}s")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------- U: session packing
 PACK_SESSIONS_PER_DAY = 4_000  # U1's windows: about 20 packed batches of 128
 PACK_TIMED_STEPS = 8  # U1, U2, V1-V3: timed steps after the cold one
@@ -4144,6 +4588,18 @@ def main() -> None:
     multi = run_multitask(flagship, vocab, attention, card)
     torch.cuda.empty_cache()
 
+    # ---- main path W: configuration 4's sparse_adam arm, gradient accumulation
+    sparse = run_sparse_large_vocab(flagship, vocab, attention, card)
+    accumulation = run_accumulation(flagship, vocab, attention, card)
+    w1, t1 = sparse["profile"], large["profile"]
+    print(f"[sparse-large-vocab] against T1's adafactor arm on {card}: a steady step "
+          f"{sparse['train']['steady']['ms_per_step']:.3f} ms of wall time against "
+          f"{large['train']['steady']['ms_per_step']:.3f}; the profiled windows "
+          f"{w1['ms_per_step']:.3f} against {t1['ms_per_step']:.3f} ms, device "
+          f"{w1['device_ms_per_step']:.3f} against {t1['device_ms_per_step']:.3f} ms, busy "
+          f"{w1['device_busy_share']:.3f} against {t1['device_busy_share']:.3f}; peak memory "
+          f"{sparse['peak_memory_gb']:.2f} against {large['peak_memory_gb']:.2f} GB")
+
     # ---- main path U: session packing (XLNet-MLM from Parquet, GPT-2-CLM on rows of 256)
     packing = run_packing(flagship, vocab, attention, card)
 
@@ -4266,8 +4722,9 @@ def main() -> None:
                         on(plm_timing["ce_rank_long"], True),
                         on(packed_timing["ce_rank"], True),
                         on(packed_timing["ce_rank_long"], True),
-                        on({**large["k3_timing"], "launches": large["launches"]["ce_rank"],
-                            "V": large["table_rows"]}, True)],
+                        on({**large["k3_timing"], "V": large["table_rows"],
+                            "launches": large["launches"]["ce_rank"]
+                            + sparse["launches"]["ce_rank"]}, True)],
             "rank": [on(wide_timing["rank"], False)],
             "flash_fwd": [on(flash_timing["long_step"]["flash_fwd"], True),
                           on(flash_timing["long"]["flash_fwd"], False),
@@ -4322,14 +4779,15 @@ def main() -> None:
                           + parallel["launches"].get(name, 0) + wide["launches"].get(name, 0)
                           + parquet["launches"].get(name, 0) + paper["launches"].get(name, 0))
     launches["rank"] = parallel["launches"]["rank"]
-    # paths 6 and 7, P1, P2, S and T: every kernel of the CLM, PLM and phase S
-    # and T paths
+    # paths 6 and 7, P1, P2, S, T, U, V and W: every kernel of the CLM, PLM
+    # and phase S to W paths
     for name in flash:
         launches[name] = (launches.get(name, 0) + clm["launches"][name]
                           + long_step["launches"][name] + plm["launches"][name]
                           + plm_long["launches"][name] + archs["launches"][name]
                           + large["launches"][name] + multi["launches"][name]
-                          + packing["launches"][name] + reformer_rnn["launches"][name])
+                          + packing["launches"][name] + reformer_rnn["launches"][name]
+                          + sparse["launches"][name] + accumulation["launches"][name])
     errors = {"ce_rank": max(c["lse_max_abs_err"] for c in checks),
               "ce_fwd": max(c["lse_max_abs_err"] for c in train_checks),
               "ce_bwd": max(c[g]["max_abs_err"] for c in train_checks for g in ("dx", "dW")),

@@ -167,14 +167,41 @@ def test_every_embedding_table_is_labelled_table():
         "a.item_id_table": "table", "b.kernel": "dense"}
 
 
-@pytest.mark.parametrize("field,value", [
-    ("embedding_optimizer", "sparse_adam"), ("embedding_optimizer", "sparse_adafactor"),
-    ("embedding_optimizer", "lazy_adam"), ("embedding_table_dtype", "bf16"),
-    ("gradient_accumulation_steps", 2),
-])
+@pytest.mark.parametrize("field,value", [("embedding_table_dtype", "bf16")])
 def test_arguments_refuse_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError):
         T4RecTrainingArguments(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("embedding_optimizer", "sparse_adam"), ("embedding_optimizer", "sparse_adafactor"),
+    ("embedding_optimizer", "lazy_adam"), ("gradient_accumulation_steps", 2),
+])
+def test_arguments_accept_the_table_arms_and_accumulation(field, value, recwarn):
+    """Each builds a trainer over a sampled-softmax model that selects its
+    arm: the sparse step with its rule (the item table in neither torch
+    optimizer), ``LazyAdam`` on the tables, or the accumulation count."""
+    from transformers4rec_tpu_torch.ops.sparse_update import LazyAdam
+    from transformers4rec_tpu_torch.trainer import Trainer
+
+    args = T4RecTrainingArguments(output_dir="unused", data_loader_engine="synthetic",
+                                  embedding_moment_dtype="f32", **{field: value})
+    model = flagship.build_large_vocab_model("cpu", num_items=50, d_model=16, n_layer=1,
+                                             n_head=2, max_n_samples=8)
+    trainer = Trainer(model, args, schema=flagship.schema(50, 20), device="cpu")
+    trainer.create_optimizer_and_scheduler(1)
+    table = model.heads[0].input_module.item_embedding_table()
+    in_optimizers = {id(p) for o in trainer.optimizers.values()
+                     for g in o.param_groups for p in g["params"]}
+    if value in ("sparse_adam", "sparse_adafactor"):
+        assert trainer._sparse.rule == value.split("_")[1]
+        assert id(table) not in in_optimizers
+    else:
+        assert trainer._sparse is None and id(table) in in_optimizers
+        want = LazyAdam if value == "lazy_adam" else FusedAdafactor
+        assert type(trainer.optimizers["table"]) is want
+        assert trainer.args.gradient_accumulation_steps == (value if field != "embedding_optimizer"
+                                                            else 1)
 
 
 def test_arguments_keep_the_reference_defaults():

@@ -11,7 +11,10 @@ RTD masking, the unified transformer encoder,
 next-item prediction over a tied item table or an untied output layer,
 with full or log-uniform sampled softmax, binary and regression tasks in
 multi-task heads, the ``Trainer`` with AdamW on
-the dense weights and Adafactor on the embedding tables, streaming ranking
+the dense weights and Adafactor (or lazy Adam) on the embedding tables, the
+O(N·E) sparse step for million-item tables (``sparse_adam``,
+``sparse_adafactor``: only the rows a step touches move) and gradient
+accumulation, streaming ranking
 metrics and the dynamic-batching HTTP server. Every pass over the whole
 vocabulary is a hand-written CUDA kernel (``ops/vocab.py``): the training
 cross-entropy forward and backward (``csrc/ce_fwd.cu``, ``csrc/ce_bwd.cu``)
@@ -62,6 +65,15 @@ from .features import (
     TabularSequenceFeatures,
 )
 from .masking import MaskingInfo, masking_registry
+from .ops.sparse_update import (
+    LazyAdam,
+    dedupe_row_grads,
+    sharded_rows_adam_update,
+    sparse_rows_adafactor_init,
+    sparse_rows_adafactor_update,
+    sparse_rows_adam_init,
+    sparse_rows_adam_update,
+)
 from .model import (
     BinaryClassificationTask,
     Head,
@@ -73,7 +85,7 @@ from .model import (
 )
 from .schema import ColumnSchema, Schema, Tags
 from .tabular import MergeTabular, StochasticSwapNoise, TabularDropout, TabularLayerNorm
-from .trainer import T4RecTrainingArguments, Trainer
+from .trainer import SPARSE_OPTIMIZERS, T4RecTrainingArguments, Trainer
 
 __all__ = [
     "AlbertConfig",
@@ -83,6 +95,7 @@ __all__ = [
     "ColumnSchema",
     "ContinuousFeatures",
     "ElectraConfig",
+    "LazyAdam",
     "EmbeddingFeatures",
     "GPT2Config",
     "Head",
@@ -98,6 +111,7 @@ __all__ = [
     "ReformerConfig",
     "RegressionTask",
     "RobertaConfig",
+    "SPARSE_OPTIMIZERS",
     "Schema",
     "SequenceEmbeddingFeatures",
     "SequentialBlock",
@@ -119,6 +133,7 @@ __all__ = [
     "config",
     "convert",
     "data",
+    "dedupe_row_grads",
     "features",
     "masking",
     "masking_registry",
@@ -127,6 +142,11 @@ __all__ = [
     "ranking_metric",
     "schema",
     "serving",
+    "sharded_rows_adam_update",
+    "sparse_rows_adafactor_init",
+    "sparse_rows_adafactor_update",
+    "sparse_rows_adam_init",
+    "sparse_rows_adam_update",
     "tabular",
     "trainer",
     "transformer_registry",

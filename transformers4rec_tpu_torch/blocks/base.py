@@ -283,10 +283,12 @@ class SequentialBlock(nn.Module):
     def forward(self, inputs, training: bool = False, testing: bool = False,
                 pad_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                masking_info: Optional[MaskingInfo] = None):
+                masking_info: Optional[MaskingInfo] = None,
+                sparse_rows=None):
         """``generator`` feeds every random draw of a training forward (the
         mask, then dropout); ``masking_info`` hands the input module a ready
-        mask instead of a drawn one."""
+        mask instead of a drawn one, ``sparse_rows`` the sparse step's
+        pre-gathered table rows (``ops.sparse_update.GatheredRows``)."""
         x = inputs
         info: Optional[MaskingInfo] = None
         for i, block in enumerate(self.blocks):
@@ -295,7 +297,7 @@ class SequentialBlock(nn.Module):
                           generator=generator)
             elif i == 0:
                 x = block(x, training=training, testing=testing, generator=generator,
-                          masking_info=masking_info)
+                          masking_info=masking_info, sparse_rows=sparse_rows)
             else:
                 if isinstance(block, RNNBlock) and info is not None \
                         and info.segment_ids is not None:

@@ -60,6 +60,11 @@ every leaf found and every weight used.
 perm_mask=None, neg_ids=None)`` turns the arrays of the JAX package's ``MaskingInfo``
 (numpy) into the port's, to give both packages the same mask
 (``Model(..., masking_info=...)``).
+
+``sparse_state_from_jax(state)`` turns a JAX ``SparseRowsAdamState`` or
+``SparseRowsAdafactorState`` (its fields as numpy arrays; bf16 moments as
+``ml_dtypes.bfloat16``) into the port's, so that an update can start from
+the same nonzero state in both packages.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ import numpy as np
 import torch
 
 from .masking import MaskingInfo
+from .ops.sparse_update import SparseRowsAdafactorState, SparseRowsAdamState
 
 _INDEXED = {"heads": "heads", "blocks": "blocks", "tasks": "tasks",
             "projection": "projections", "layer": "layers", "to_merge": "to_merge"}
@@ -285,3 +291,21 @@ def masking_info_from_jax(targets, mask, pad_mask=None, device=None,
         neg_ids=None if neg_ids is None else torch.from_numpy(
             np.asarray(neg_ids).astype(np.int64)).to(device),
     )
+
+
+def _moment(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carried as float32, exact
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def sparse_state_from_jax(state, device=None):
+    """A JAX sparse-rows state (a ``NamedTuple`` with numpy fields: ``count``
+    and ``mu``, ``nu``, or ``v``) → the port's ``SparseRowsAdamState`` or
+    ``SparseRowsAdafactorState`` on ``device``, moments in their dtype."""
+    count = torch.tensor(int(np.asarray(state.count)), dtype=torch.int32, device=device)
+    if hasattr(state, "v"):
+        return SparseRowsAdafactorState(count=count, v=_moment(state.v, device))
+    return SparseRowsAdamState(count=count, mu=_moment(state.mu, device),
+                               nu=_moment(state.nu, device))

@@ -14,6 +14,10 @@ looked-up row is multiplied by ``ids != padding_idx``), and table rows are
 rounded up to ``vocab_padding_multiple`` with the true vocab kept by the
 prediction head, exactly as in the JAX package.
 
+The sparse embedding step hands the item column's lookup rows it gathered
+itself (``item_rows``, an ``ops.sparse_update.GatheredRows``): the table is
+then not read, and takes no gradient.
+
 A table may be held as a shard: after ``shard_table(name, group)`` the
 module keeps rows ``[rank·V_l, (rank+1)·V_l)`` of that table and looks ids up
 through ``parallel.sharded_embedding_lookup`` (a masked local gather and one
@@ -218,10 +222,14 @@ class EmbeddingFeatures(TabularBlock):
             raise ValueError("No item_id feature in this embedding module")
         return self.tables[self.item_id]
 
-    def lookup(self, name: str, ids: torch.Tensor) -> torch.Tensor:
+    def lookup(self, name: str, ids: torch.Tensor, item_rows=None) -> torch.Tensor:
+        """``item_rows`` (``ops.sparse_update.GatheredRows``, item column
+        only): the rows were gathered already, the table is not read."""
         # F.embedding gathers the same rows as tables[name][ids]; its backward
         # is the embedding's own dense scatter-add, not a generic index_put
-        if name in self.table_groups:
+        if item_rows is not None and name == self.item_id:
+            emb = item_rows.lookup(ids)
+        elif name in self.table_groups:
             emb = sharded_embedding_lookup(self.tables[name], ids, self.table_groups[name])
         else:
             emb = F.embedding(ids, self.tables[name])
@@ -229,8 +237,8 @@ class EmbeddingFeatures(TabularBlock):
             emb = emb * (ids != self.padding_idx)[..., None].to(emb.dtype)
         return emb
 
-    def compute_feature(self, name: str, ids: torch.Tensor) -> torch.Tensor:
-        emb = self.lookup(name, ids)
+    def compute_feature(self, name: str, ids: torch.Tensor, item_rows=None) -> torch.Tensor:
+        emb = self.lookup(name, ids, item_rows)
         if ids.dim() == 2:  # (B, S) → combine to (B, dim)
             if self.feature_configs[name].table.combiner == "sum":
                 return emb.sum(dim=1)
@@ -241,11 +249,11 @@ class EmbeddingFeatures(TabularBlock):
         return emb
 
     def compute(self, inputs: TabularData, training: bool = False, pad_mask=None,
-                generator=None) -> TabularData:
+                generator=None, item_rows=None) -> TabularData:
         out: TabularData = {}
         for name in self.feature_configs:
             if name in inputs:
-                out[name] = self.compute_feature(name, inputs[name].long())
+                out[name] = self.compute_feature(name, inputs[name].long(), item_rows)
         return out
 
     def feature_sizes(self) -> Dict[str, int]:
@@ -255,8 +263,8 @@ class EmbeddingFeatures(TabularBlock):
 class SequenceEmbeddingFeatures(EmbeddingFeatures):
     """3-D sequence lookups: (B, S) ids → (B, S, dim); pad positions zeroed."""
 
-    def compute_feature(self, name: str, ids: torch.Tensor) -> torch.Tensor:
-        return self.lookup(name, ids)
+    def compute_feature(self, name: str, ids: torch.Tensor, item_rows=None) -> torch.Tensor:
+        return self.lookup(name, ids, item_rows)
 
 
 class SoftEmbedding(nn.Module):

@@ -7,9 +7,10 @@ applies the masking scheme. ``forward`` returns ``(hidden, MaskingInfo | None)``
 
 The item ids (the masking's labels and the pad mask) are read before
 ``pre`` runs: swap noise changes what the embeddings see, never the
-labels. ``pre`` and ``post`` get the pad mask of those ids. The
-``projection`` MLP (``projection_{i}``) has a ReLU between its layers and
-none after the last.
+labels. ``pre`` and ``post`` get the pad mask of those ids. The batch key
+``__neg_ids__`` (sampled-softmax negatives drawn by the trainer) goes to
+``MaskingInfo.neg_ids``. The ``projection`` MLP (``projection_{i}``) has a
+ReLU between its layers and none after the last.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from torch import nn
 
 from ..masking import MaskingInfo, MaskSequence, masking_registry
+from ..ops.sparse_update import GatheredRows
 from ..schema import Schema, Tags
 from ..blocks.transformer import init_dense_
 from ..tabular.base import TabularBlock, TabularData, parse_aggregation
@@ -134,14 +136,21 @@ class TabularSequenceFeatures(TabularFeatures):
 
     def forward(self, inputs: TabularData, training: bool = False, testing: bool = False,
                 generator: Optional[torch.Generator] = None,
-                masking_info: Optional[MaskingInfo] = None):
+                masking_info: Optional[MaskingInfo] = None,
+                sparse_rows: Optional[GatheredRows] = None):
+        """``sparse_rows`` (the sparse step's pre-gathered table rows): the
+        item column's lookup reads them instead of the table, and the swap
+        noise they carry (``aug_inputs``) replaces the ``pre`` draw."""
         item_ids = None
         if self.item_id is not None and self.item_id in inputs:
             item_ids = inputs[self.item_id].long()
         pad_mask = item_ids != self.padding_idx if item_ids is not None else None
 
-        inputs = self._transform(self._pre_names, inputs, training, pad_mask, generator)
-        outputs = self.compute(inputs)
+        if sparse_rows is not None and sparse_rows.aug_inputs is not None:
+            inputs = {k: sparse_rows.aug_inputs.get(k, v) for k, v in inputs.items()}
+        else:
+            inputs = self._transform(self._pre_names, inputs, training, pad_mask, generator)
+        outputs = self.compute(inputs, item_rows=sparse_rows)
         outputs = self._transform(self._post_names, outputs, training, pad_mask, generator)
         agg = parse_aggregation(self.aggregation, self.schema)
         if agg is None:
@@ -165,4 +174,8 @@ class TabularSequenceFeatures(TabularFeatures):
             # thread item ids + the (tied) item table to the prediction head
             table = self.item_embedding_table() if self.item_id is not None else None
             info = info.replace(item_ids=item_ids, item_table=table)
+            if "__neg_ids__" in inputs:
+                # the reserved batch key (never a schema feature): negatives
+                # the trainer drew for the sampled softmax
+                info = info.replace(neg_ids=inputs["__neg_ids__"].long())
         return hidden, info

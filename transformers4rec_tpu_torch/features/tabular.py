@@ -195,7 +195,9 @@ class TabularFeatures(TabularBlock):
         return {"continuous_projection": x}
 
     def compute(self, inputs: TabularData, training: bool = False, pad_mask=None,
-                generator=None) -> TabularData:
+                generator=None, item_rows=None) -> TabularData:
+        """``item_rows`` (``ops.sparse_update.GatheredRows``) replaces the
+        item table in the item column's lookup."""
         out: TabularData = {}
         if self.continuous_module is not None:
             cont = self.continuous_module(inputs)
@@ -203,7 +205,10 @@ class TabularFeatures(TabularBlock):
                 cont = self._project_continuous(cont)
             out.update(cont)
         if self.categorical_module is not None:
-            out.update(self.categorical_module(inputs))
+            if item_rows is None:
+                out.update(self.categorical_module(inputs))
+            else:
+                out.update(self.categorical_module.compute(inputs, item_rows=item_rows))
         if self.pretrained_module is not None:
             out.update(self.pretrained_module(inputs))
         return out

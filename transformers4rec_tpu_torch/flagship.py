@@ -31,21 +31,24 @@ position instead of the last item (also under MLM and CLM).
 
 ``build_large_vocab_model`` / ``build_large_vocab_trainer`` give the JAX
 package's baseline configuration 4, "large-vocab stress"
-(``benchmarks/run_all.py:config_large_vocab``, its ``adafactor`` arm):
+(``benchmarks/run_all.py:config_large_vocab``; its ``adafactor`` arm by
+default, ``embedding_optimizer="sparse_adam"`` its other arm):
 XLNet-MLM over ``LARGE_VOCAB_ITEMS`` = 4,000,000 items (table rows padded
 to a multiple of 8), a tied 64-wide item table, d_model 192, 3 layers, 16
 heads, sessions of 20 in batches of 128, MLM p = 0.3, sampled softmax over
 8,192 log-uniform negatives a step, a learning rate of 1e-3 and the
 arguments' other defaults (a linear schedule, the clip at 1, Adafactor
-with a bf16 moment on the tables). Evaluation and top-k stay
+with a bf16 moment on the tables; on the ``sparse_adam`` arm lazy Adam
+with bf16 moments on the item table's touched rows only, the clip over
+the dense gradients and those rows jointly). Evaluation and top-k stay
 full-catalogue. ``build_multitask_model`` / ``build_multitask_trainer``
 give configuration 5, "multi-task stretch" (``config_multitask``):
 ELECTRA-RTD (d_model 64, 4 heads, 2 layers, sessions of 20) on the
 music-streaming schema (``data.music_streaming_testing_data``) without
 its targets as features, with three tasks: next-item over the tied table,
 ``click`` (binary) and ``play_percentage`` (regression), batches of 128.
-The benchmark's ``sparse_adam`` arm of configuration 4 is not ported
-(``embedding_optimizer="sparse_adam"`` raises).
+``build_trainer(gradient_accumulation_steps=K)`` makes one update of K
+batches' mean gradient (each of the K micro-steps a ``global_step``).
 
 ``arch=`` replaces a scheme's default architecture by a registry name
 (``transformer_registry``: ``"albert"``, ``"longformer"``, ``"transfoxl"``,
@@ -181,7 +184,8 @@ def build_plm_model(device=None, **kwargs) -> Model:
 def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=None,
                   output_dir: str = "./t4rec_output", streamed_table_update: bool = False,
                   scheme: str = "mlm", batch=None, pack_sessions: bool = False,
-                  pack_eval_sessions: bool = False, **model_kwargs) -> Trainer:
+                  pack_eval_sessions: bool = False, gradient_accumulation_steps: int = 1,
+                  **model_kwargs) -> Trainer:
     """A ``Trainer`` over the flagship model with the benchmark's optimizer
     settings, on ``device`` (CUDA unless ``"cpu"``). Without a
     ``train_dataset`` it trains, evaluates and predicts on synthetic
@@ -189,7 +193,9 @@ def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=N
     ``streamed_table_update`` gives the tables an f32 moment and the item
     table the two-pass streamed update. ``scheme`` picks the configuration
     (and its batch size, which ``batch`` overrides). ``pack_sessions`` and
-    ``pack_eval_sessions`` pack the loaders' sessions. ``model_kwargs``
+    ``pack_eval_sessions`` pack the loaders' sessions;
+    ``gradient_accumulation_steps`` averages that many batches' gradients
+    into one update. ``model_kwargs``
     (``num_items``, ``d_model``, ``seq``, ``arch``, ...) go to ``build_model``."""
     _, _, default_seq, default_batch = _scheme(scheme)
     seq = model_kwargs.get("seq") or default_seq
@@ -205,6 +211,7 @@ def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=N
         steps_per_execution=8, max_sequence_length=seq, seed=seed,
         data_loader_engine="synthetic" if train_dataset is None else "parquet",
         pack_sessions=pack_sessions, pack_eval_sessions=pack_eval_sessions,
+        gradient_accumulation_steps=gradient_accumulation_steps,
     )
     data_schema = schema(model_kwargs.get("num_items", NUM_ITEMS), seq)
     table_optimizer = None
@@ -260,15 +267,17 @@ def build_multitask_model(device=None, d_model: int = MULTITASK_D_MODEL,
 
 
 def _bench_trainer(model: Model, data_schema, device, seed: int, train_dataset,
-                   eval_dataset, output_dir: str, batch: int) -> Trainer:
+                   eval_dataset, output_dir: str, batch: int, **arg_kwargs) -> Trainer:
     """A ``Trainer`` as the JAX benchmark's ``_make_trainer`` sets one up: a
     learning rate of 1e-3, batches of ``batch``, sessions of 20, the
-    arguments' other defaults; on synthetic sessions without a dataset."""
+    arguments' other defaults (``arg_kwargs`` set others, as the benchmark's
+    ``**kw``); on synthetic sessions without a dataset."""
     args = T4RecTrainingArguments(
         output_dir=output_dir, learning_rate=BENCH_LEARNING_RATE,
         per_device_train_batch_size=batch, per_device_eval_batch_size=batch,
         max_sequence_length=SEQ, seed=seed,
         data_loader_engine="synthetic" if train_dataset is None else "parquet",
+        **arg_kwargs,
     )
     return Trainer(model, args, schema=data_schema, train_dataset=train_dataset,
                    eval_dataset=eval_dataset, device=device)
@@ -276,13 +285,15 @@ def _bench_trainer(model: Model, data_schema, device, seed: int, train_dataset,
 
 def build_large_vocab_trainer(device=None, seed: int = 0, train_dataset=None,
                               eval_dataset=None, output_dir: str = "./t4rec_output",
-                              batch: int = BATCH, **model_kwargs) -> Trainer:
-    """Configuration 4's ``adafactor`` arm; ``model_kwargs`` go to
-    ``build_large_vocab_model``."""
+                              batch: int = BATCH, embedding_optimizer: str = "adafactor",
+                              **model_kwargs) -> Trainer:
+    """Configuration 4: its ``adafactor`` arm, or with
+    ``embedding_optimizer="sparse_adam"`` its other (``"sparse_adafactor"``
+    too). ``model_kwargs`` go to ``build_large_vocab_model``."""
     model = build_large_vocab_model(device, seed=seed, **model_kwargs)
     data_schema = schema(model_kwargs.get("num_items", LARGE_VOCAB_ITEMS), SEQ)
     return _bench_trainer(model, data_schema, device, seed, train_dataset, eval_dataset,
-                          output_dir, batch)
+                          output_dir, batch, embedding_optimizer=embedding_optimizer)
 
 
 def build_multitask_trainer(device=None, seed: int = 0, train_dataset=None,

@@ -7,7 +7,10 @@ is built and placed on its device (CUDA unless ``device="cpu"``).
 returns ``{"eval_loss": ..., "eval_/next-item/ndcg_at_10": ..., ...}``.
 Training is ``loss, outputs = model(batch, training=True, generator=g)``:
 the explicit flag selects the masking's training branch and dropout, whose
-draws come from ``g``. ``trainer.Trainer`` runs the loop, and ``Model.fit``
+draws come from ``g``. ``masking_info=`` gives a ready mask, and
+``sparse_rows=`` (``ops.sparse_update.GatheredRows``, from the sparse
+embedding step) the tied table's rows gathered outside autograd: the item
+lookup and the sampled softmax read them, the table takes no gradient. ``trainer.Trainer`` runs the loop, and ``Model.fit``
 is the loop without a Trainer. ``Model.save`` / ``Model.load`` write and
 read the state dict and the input schema (the layout of
 ``serving.export``'s artifact).
@@ -40,6 +43,7 @@ from torch import nn
 from ..blocks.base import SequentialBlock, TransformerBlock
 from ..config.transformer import T4RecConfig
 from ..masking import MaskedLanguageModeling, MaskingInfo, masking_registry
+from ..ops.sparse_update import GatheredRows
 from ..schema import ColumnSchema, Schema, Tags, ValueCount
 from ..utils.device import disable_tf32, module_device, resolve_device
 from .prediction_task import (
@@ -173,13 +177,15 @@ class Head(nn.Module):
                 testing: bool = False, top_k: Optional[int] = None,
                 compute_metrics: bool = True,
                 generator: Optional[torch.Generator] = None,
-                masking_info: Optional[MaskingInfo] = None):
+                masking_info: Optional[MaskingInfo] = None,
+                sparse_rows: Optional[GatheredRows] = None):
         pad_mask = None
         item_id = getattr(self.input_module, "item_id", None)
         if item_id is not None and item_id in inputs:
             pad_mask = inputs[item_id] != getattr(self.input_module, "padding_idx", 0)
         hidden, info = self.body(inputs, training=training, testing=testing, pad_mask=pad_mask,
-                                 generator=generator, masking_info=masking_info)
+                                 generator=generator, masking_info=masking_info,
+                                 sparse_rows=sparse_rows)
 
         weights = list(self.task_weights or [1.0] * len(self.tasks))
         outputs: Dict[str, TaskOutput] = {}
@@ -188,7 +194,8 @@ class Head(nn.Module):
         for w, task in zip(weights, self.tasks):
             if isinstance(task, NextItemPredictionTask):
                 out = task(hidden, info, training=training, testing=testing, top_k=top_k,
-                           compute_metrics=compute_metrics, generator=generator)
+                           compute_metrics=compute_metrics, generator=generator,
+                           sparse_rows=sparse_rows)
             else:
                 t = targets
                 if isinstance(targets, dict):
@@ -260,7 +267,8 @@ class Model(nn.Module):
                 testing: bool = False, top_k: Optional[int] = None,
                 compute_metrics: bool = True,
                 generator: Optional[torch.Generator] = None,
-                masking_info: Optional[MaskingInfo] = None):
+                masking_info: Optional[MaskingInfo] = None,
+                sparse_rows: Optional[GatheredRows] = None):
         top_k = top_k if top_k is not None else self.top_k
         if not (training or testing):
             if len(self.heads) == 1:
@@ -272,7 +280,7 @@ class Model(nn.Module):
         for w, head in zip(weights, self.heads):
             loss, outs = head(inputs, targets=targets, training=training, testing=testing,
                               compute_metrics=compute_metrics, generator=generator,
-                              masking_info=masking_info)
+                              masking_info=masking_info, sparse_rows=sparse_rows)
             total = total + w * loss
             all_outputs.update(outs)
         return total / sum(weights), all_outputs

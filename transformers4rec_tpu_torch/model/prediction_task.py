@@ -18,7 +18,9 @@ Call modes of ``NextItemPredictionTask``:
   negatives, all B·S rows and no budget: ``LogUniformSampler`` draws the
   negatives from the step's generator (or ``MaskingInfo.neg_ids`` gives
   them), the scores are corrected by the log of each id's expected
-  probability (logQ) and accidental hits masked;
+  probability (logQ) and accidental hits masked. Under the sparse
+  embedding step (``sparse_rows``) the label and negative rows come
+  pre-gathered and the table is not read (``_sampled_scores``);
 - testing (evaluation): one target per session, the last item
   (``eval_single_target``): its hidden state is gathered and the fused
   CE-and-rank pass (ops/vocab.py, kernel K3) gives the loss and the ranking
@@ -68,6 +70,7 @@ from torch import nn
 
 from ..blocks.transformer import init_dense_
 from ..masking import MaskingInfo
+from ..ops.sparse_update import GatheredRows
 from ..ops.vocab import fused_ce_and_rank, fused_softmax_ce, fused_topk
 from ..parallel.sharded_embedding import (
     sharded_ce_and_rank,
@@ -106,8 +109,10 @@ class LogUniformSampler:
         self.range = max_id - min_id
 
     def _log_range(self, device) -> torch.Tensor:
-        # log(range + 1) taken in float32, as the reference takes it
-        return torch.log(torch.tensor(self.range + 1.0, dtype=torch.float32, device=device))
+        # log(range + 1) taken in float32, as the reference takes it; a fill
+        # on the device, where a tensor of a host value would be a copy that
+        # waits for the device's queue
+        return torch.log(torch.full((), self.range + 1.0, dtype=torch.float32, device=device))
 
     def probs(self, ids: torch.Tensor) -> torch.Tensor:
         """The pmf at ``ids``. ``log(r + 2) - log(r + 1)`` is written
@@ -379,16 +384,21 @@ class NextItemPredictionTask(nn.Module):
     def _sampled_logits(self, x2d, labels, W, generator, neg_ids=None):
         """(N, 1 + n) logits, the positive first, for labels of 0: the rows
         of x2d scored against their label's row of W and the n negatives'.
-        ``neg_ids`` replaces the draw from ``generator``. The temperature
-        divides the raw scores only, before the logQ correction (dividing
-        the corrected logits would scale the correction too)."""
+        ``neg_ids`` replaces the draw from ``generator``."""
         sampler = self.make_sampler(W.shape[0])
         if neg_ids is None:
             neg_ids = sampler.sample(generator, device=x2d.device)
         neg_ids = neg_ids.to(x2d.device).long()
+        return self._sampled_scores(x2d, labels, W[labels], W[neg_ids], neg_ids, sampler)
+
+    def _sampled_scores(self, x2d, labels, pos_w, neg_w, neg_ids, sampler):
+        """The logits of ``_sampled_logits`` from the rows already gathered:
+        ``pos_w`` (N, E) the labels', ``neg_w`` (n, E) the negatives'. The
+        temperature divides the raw scores only, before the logQ correction
+        (dividing the corrected logits would scale the correction too)."""
         temp = self.softmax_temperature or 1.0
-        pos = (x2d * W[labels]).sum(-1, keepdim=True) / temp
-        neg = (x2d @ W[neg_ids].T) / temp
+        pos = (x2d * pos_w).sum(-1, keepdim=True) / temp
+        neg = (x2d @ neg_w.T) / temp
         eps = 1e-16
         pos = pos - torch.log(sampler.expected_probs(labels) + eps)[:, None]
         neg = neg - torch.log(sampler.expected_probs(neg_ids) + eps)[None, :]
@@ -434,9 +444,12 @@ class NextItemPredictionTask(nn.Module):
         top_k: Optional[int] = None,
         compute_metrics: bool = True,
         generator: Optional[torch.Generator] = None,
+        sparse_rows: Optional[GatheredRows] = None,
     ):
         """``generator`` feeds the negative draw of sampled softmax in
-        training."""
+        training. ``sparse_rows`` (the sparse step's pre-gathered rows of the
+        tied table) gives the sampled softmax its label and negative rows:
+        the table itself is then not read."""
         if info is None:
             raise ValueError("NextItemPredictionTask requires a masking-enabled input module")
         if self.output_layer is not None:
@@ -468,8 +481,14 @@ class NextItemPredictionTask(nn.Module):
             N = info.targets.shape[0] * info.targets.shape[1]
             labels = info.targets.reshape(N).long()
             w = info.mask.reshape(N).float()
-            logits = self._sampled_logits(x.reshape(N, -1), labels, W, generator,
-                                          neg_ids=info.neg_ids)
+            if sparse_rows is not None:
+                r = sparse_rows
+                logits = self._sampled_scores(x.reshape(N, -1), labels, r.rows[r.pos_map],
+                                              r.rows[r.neg_base:], r.neg_ids,
+                                              self.make_sampler(W.shape[0]))
+            else:
+                logits = self._sampled_logits(x.reshape(N, -1), labels, W, generator,
+                                              neg_ids=info.neg_ids)
             loss = cross_entropy_with_logits(
                 logits, torch.zeros_like(labels), weights=w,
                 label_smoothing=self.label_smoothing)

@@ -2,18 +2,27 @@
 
 Counterpart of ``transformers4rec_tpu/trainer/arguments.py``: the same field
 names with the same defaults. Options whose code is not ported yet raise
-``NotImplementedError`` when set away from their defaults: the sparse and
-lazy table optimizers, bf16-stored tables, gradient accumulation, the
-msgpack and orbax checkpoint formats and asynchronous saves, a device mesh and its vocab-parallel wiring, gradient
-checkpointing and the profiler window. The checkpoint is one ``torch.save``
-file (``checkpoint_format="torch"``).
+``NotImplementedError`` when set away from their defaults: bf16-stored
+tables (on the arms that would store them), the msgpack and orbax
+checkpoint formats and asynchronous saves, a device mesh and its
+vocab-parallel wiring, gradient checkpointing and the profiler window. The
+checkpoint is one ``torch.save`` file (``checkpoint_format="torch"``).
+
+``embedding_optimizer`` takes the reference's five arms: ``"adafactor"``,
+``"dense"``, ``"lazy_adam"`` (``ops.sparse_update.LazyAdam`` on every
+table) and the sparse arms ``"sparse_adam"`` and ``"sparse_adafactor"``
+(``trainer.sparse_embedding_step``). As in the reference, bf16 moments or
+tables on ``"dense"`` or ``"lazy_adam"`` warn and stay float32.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
+# embedding_optimizer values that route the item table through the sparse
+# step (trainer/sparse_embedding_step.py)
 SPARSE_OPTIMIZERS = ("sparse_adam", "sparse_adafactor")
 
 
@@ -51,7 +60,9 @@ class T4RecTrainingArguments:
     max_grad_norm: float = 1.0
     # table optimizer: "adafactor" routes every embedding table through the
     # unfactored FusedAdafactor (ops/fused_adafactor.py); "dense" is AdamW
-    # everywhere
+    # everywhere; "lazy_adam" moves only the rows with a gradient;
+    # "sparse_adam" / "sparse_adafactor" update the item table's touched rows
+    # in O(N·E) (trainer/sparse_embedding_step.py)
     embedding_optimizer: str = "adafactor"
     lr_scheduler_type: str = "linear"
     warmup_steps: int = 0
@@ -98,8 +109,9 @@ class T4RecTrainingArguments:
     log_json: bool = False
 
     mesh_model_axis: int = 1
-    # storage dtype of the table optimizer's second moment ("adafactor" only):
-    # "bf16" (default) halves the optimizer state; None / "f32" keeps float32
+    # storage dtype of the table optimizer's moments ("adafactor" and the
+    # sparse arms): "bf16" (default) halves the optimizer state; None / "f32"
+    # keeps float32
     embedding_moment_dtype: Optional[str] = "bf16"
     # storage dtype of the tables themselves; only float32 is ported
     embedding_table_dtype: Optional[str] = None
@@ -113,16 +125,20 @@ class T4RecTrainingArguments:
         if self.embedding_table_dtype not in (None, "f32", "bf16"):
             raise ValueError("embedding_table_dtype must be None, 'f32', or 'bf16' "
                              f"(got {self.embedding_table_dtype!r})")
-        if self.embedding_optimizer in SPARSE_OPTIMIZERS + ("lazy_adam",):
-            raise NotImplementedError(
-                f"embedding_optimizer={self.embedding_optimizer!r} is not ported yet"
-            )
-        if self.embedding_optimizer not in ("adafactor", "dense"):
+        if self.embedding_optimizer not in ("adafactor", "dense", "lazy_adam") + SPARSE_OPTIMIZERS:
             raise ValueError(f"unknown embedding_optimizer {self.embedding_optimizer!r}")
+        dense_arm = self.embedding_optimizer in ("dense", "lazy_adam")
+        if self.embedding_table_dtype == "bf16" and dense_arm:
+            warnings.warn(
+                "embedding_table_dtype='bf16' is validated for the adafactor/sparse table "
+                f"arms; embedding_optimizer={self.embedding_optimizer!r} keeps f32 tables")
+            self.embedding_table_dtype = None
         if self.embedding_table_dtype == "bf16":
             raise NotImplementedError("bf16-stored tables are not ported yet")
-        if self.gradient_accumulation_steps > 1:
-            raise NotImplementedError("gradient accumulation is not ported yet")
+        if self.embedding_moment_dtype == "bf16" and dense_arm:
+            warnings.warn(
+                "embedding_moment_dtype='bf16' applies to the adafactor table arm only; "
+                f"embedding_optimizer={self.embedding_optimizer!r} keeps f32 moments")
         if self.data_loader_engine not in ("parquet", "merlin", "parquet_streaming",
                                            "synthetic"):
             raise ValueError(f"unknown data_loader_engine {self.data_loader_engine!r}")

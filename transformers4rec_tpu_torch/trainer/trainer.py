@@ -10,9 +10,21 @@ single-device path. The optimizers reproduce the reference's optax chain:
   decay: ``optax.adamw``), with ``weight_decay`` passed explicitly;
 - embedding tables (``ops.sparse_update.label_embedding_params``):
   ``FusedAdafactor`` with the same schedule, AdamW too with
-  ``embedding_optimizer="dense"``, or what ``table_optimizer(tables,
-  schedule)`` returns when the caller gives one (``flagship.build_trainer``
-  hands in the streamed table update that way).
+  ``embedding_optimizer="dense"``, ``LazyAdam`` with ``"lazy_adam"``, or
+  what ``table_optimizer(tables, schedule)`` returns when the caller gives
+  one (``flagship.build_trainer`` hands in the streamed table update that
+  way);
+- ``"sparse_adam"`` / ``"sparse_adafactor"``: the item table leaves both
+  optimizers for ``sparse_embedding_step.SparseEmbeddingStep``, which
+  gathers its touched rows outside autograd and updates only those (the
+  clip then covers the dense gradients and the rows' jointly); the other
+  tables keep ``FusedAdafactor``.
+
+``gradient_accumulation_steps = K`` (``optax.MultiSteps`` semantics): the
+gradients of K micro-steps sum in ``.grad`` (the sparse arm also keeps each
+micro-step's rows), and the K-th divides them by K, clips that mean and
+makes one update; in between no parameter moves. ``global_step`` and
+``max_steps`` count micro-steps, the schedule counts updates.
 
 ``steps_per_execution = K``: K optimizer steps are enqueued on the device
 between host reads of the loss, and the K batches are copied to the device
@@ -48,8 +60,8 @@ weights. ``log_json`` appends metrics to ``metrics.jsonl``, ``report_to=
 ``log_predictions`` give the top-k; ``reset_model``, ``reset_lr_scheduler``
 and ``wipe_memory`` serve ``utils.examples_utils.fit_and_evaluate``, the
 time-window protocol. Not ported yet (raise where reached): a device mesh,
-training over a process group of more than one rank, the sparse embedding
-step, asynchronous and sharded checkpoints.
+training over a process group of more than one rank, asynchronous and
+sharded checkpoints.
 """
 
 from __future__ import annotations
@@ -70,15 +82,19 @@ import torch.distributed
 
 from ..data.loader import InMemoryDataLoader, dataloader_registry
 from ..data.packing import pack_sessions
+from ..masking import MaskingInfo
 from ..model.base import Model
 from ..ops.fused_adafactor import FusedAdafactor
-from ..ops.sparse_update import label_embedding_params
+from ..ops.sparse_update import LazyAdam, label_embedding_params
 from ..schema import Schema
 from ..utils.device import resolve_device
-from .arguments import T4RecTrainingArguments
+from .arguments import SPARSE_OPTIMIZERS, T4RecTrainingArguments
 from .schedulers import get_scheduler, num_cosine_cycles
+from .sparse_embedding_step import SparseEmbeddingStep, validate_sparse_config
 
 CHECKPOINT_FILE = "trainer.pt"
+# tied item tables from this many rows on hear of the sparse arms once
+SPARSE_HINT_MIN_ROWS = 1_000_000
 
 
 @dataclasses.dataclass
@@ -169,6 +185,9 @@ class Trainer:
         self._table_optimizer = table_optimizer
         self._schedule = None
         self._opt_step = 0  # optimizer steps since the schedule last started
+        self._mini_step = 0  # micro-steps since the last update, below K
+        self._sparse: Optional[SparseEmbeddingStep] = None
+        self._sparse_hint_emitted = False
         self._last_num_steps: Optional[int] = None
         self._generator = torch.Generator(device=self.device).manual_seed(args.seed + 17)
         # (loader_epoch, batches_in_epoch) staged by load() for the next train()
@@ -255,7 +274,14 @@ class Trainer:
                                            a.learning_rate_num_cosine_cycles_by_epoch)
         self._schedule = get_scheduler(a.lr_scheduler_type, a.learning_rate, a.warmup_steps,
                                        num_training_steps, num_cycles=num_cycles)
-        named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
+        self._sparse = None
+        if a.embedding_optimizer in SPARSE_OPTIMIZERS:
+            self._sparse = SparseEmbeddingStep(
+                self.model, a,
+                rule="adafactor" if a.embedding_optimizer == "sparse_adafactor" else "adam")
+        self._reset_accumulation()
+        named = [(n, p) for n, p in self.model.named_parameters()
+                 if p.requires_grad and (self._sparse is None or p is not self._sparse.table)]
         labels = label_embedding_params(named)
         tables = [p for n, p in named if labels[n] == "table"]
         dense = [p for n, p in named if labels[n] == "dense"]
@@ -269,6 +295,10 @@ class Trainer:
         }
         if tables and self._table_optimizer is not None:
             self.optimizers["table"] = self._table_optimizer(tables, self._schedule)
+        elif tables and a.embedding_optimizer == "lazy_adam":
+            self.optimizers["table"] = LazyAdam(tables, lr=self._schedule,
+                                                betas=(a.adam_beta1, a.adam_beta2),
+                                                eps=a.adam_epsilon)
         elif tables:
             self.optimizers["table"] = FusedAdafactor(
                 tables, lr=self._schedule,
@@ -276,9 +306,15 @@ class Trainer:
             )
         return self.optimizers
 
+    def _reset_accumulation(self) -> None:
+        """No micro-step pending: the summed gradients go."""
+        self._mini_step = 0
+        self.model.zero_grad(set_to_none=True)
+
     def reset_lr_scheduler(self) -> None:
         """Restart the schedule for a new incremental time window: fresh
-        optimizer state, the parameters stay."""
+        optimizer state (the sparse rows' too) and no pending accumulation;
+        the parameters stay."""
         if not self.optimizers:
             return
         self.create_optimizer_and_scheduler(self._last_num_steps)
@@ -292,28 +328,74 @@ class Trainer:
         if self._initial_state is not None:
             self.model.load_state_dict(self._initial_state)
         self.optimizers = {}
+        self._sparse = None
+        self._reset_accumulation()
         self._opt_step = 0
 
-    # ------------------------------------------------------------------ steps
-    def _train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """One optimizer step on a batch that is already on the device.
-        Returns the loss as a device scalar; nothing is read back."""
+    def _maybe_hint_sparse_adam(self) -> None:
+        """Once per trainer: a model that qualifies for the sparse step, with
+        a tied item table of at least ``SPARSE_HINT_MIN_ROWS`` rows, trained
+        on a dense table arm hears of ``sparse_adam``."""
         a = self.args
-        self.model.zero_grad(set_to_none=True)
-        loss, _ = self.model(batch, targets=batch, training=True, compute_metrics=False,
-                             generator=self._generator)
-        loss.backward()
-        if a.max_grad_norm and a.max_grad_norm > 0:
-            clip_by_global_norm_(
-                (p.grad for p in self.model.parameters() if p.grad is not None),
-                a.max_grad_norm,
-            )
+        if self._sparse_hint_emitted or a.embedding_optimizer in SPARSE_OPTIMIZERS:
+            return
+        heads = list(self.model.heads)
+        if len(heads) != 1 or heads[0].input_module.item_id is None:
+            return
+        rows = heads[0].input_module.item_embedding_table().shape[0]
+        if rows < SPARSE_HINT_MIN_ROWS:
+            return
+        try:
+            validate_sparse_config(self.model)
+        except (NotImplementedError, ValueError):
+            return
+        self._sparse_hint_emitted = True
+        warnings.warn(
+            f"the tied item table has {rows:,} rows and this model qualifies for "
+            "embedding_optimizer='sparse_adam' (O(N·E) row updates — no dense (V, E) "
+            "gradient or full optimizer-state walk): consider it over "
+            f"{a.embedding_optimizer!r} at this scale")
+
+    # ------------------------------------------------------------------ steps
+    def _train_step(self, batch: Dict[str, torch.Tensor],
+                    masking_info: Optional[MaskingInfo] = None) -> torch.Tensor:
+        """One micro-step on a batch that is already on the device, and the
+        optimizer update when it completes ``gradient_accumulation_steps``
+        of them. Returns the loss as a device scalar; nothing is read back.
+        ``masking_info`` (the mask, and the negatives in its ``neg_ids``)
+        replaces the step's own draw: a card and a CPU given one draw take
+        the same step."""
+        a = self.args
+        k = max(a.gradient_accumulation_steps, 1)
+        if self._mini_step == 0:
+            self.model.zero_grad(set_to_none=True)
+        if self._sparse is not None:
+            loss = self._sparse.forward_backward(batch, self._generator, masking_info)
+        else:
+            loss, _ = self.model(batch, targets=batch, training=True, compute_metrics=False,
+                                 generator=self._generator, masking_info=masking_info)
+            loss.backward()
+            loss = loss.detach()
+        self._mini_step += 1
+        if self._mini_step < k:
+            return loss
+        self._mini_step = 0
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        if k > 1:
+            for g in grads:
+                g.div_(k)
+        lr = self._schedule(self._opt_step)
+        if self._sparse is not None:
+            # the clip there covers the dense gradients and the rows' jointly
+            self._sparse.apply(grads, lr, k)
+        elif a.max_grad_norm and a.max_grad_norm > 0:
+            clip_by_global_norm_(grads, a.max_grad_norm)
         for group in self.optimizers["dense"].param_groups:
-            group["lr"] = self._schedule(self._opt_step)
+            group["lr"] = lr
         for opt in self.optimizers.values():
             opt.step()
         self._opt_step += 1
-        return loss.detach()
+        return loss
 
     # ------------------------------------------------------------------ train
     def train(self, resume_from_checkpoint=None) -> Dict[str, float]:
@@ -329,6 +411,7 @@ class Trainer:
                                    for k, v in self.model.state_dict().items()}
         if not self.optimizers:
             self.create_optimizer_and_scheduler(num_steps)
+        self._maybe_hint_sparse_adam()
         if resume_from_checkpoint:
             path = (resume_from_checkpoint if isinstance(resume_from_checkpoint, str)
                     else self._latest_checkpoint())
@@ -619,9 +702,11 @@ class Trainer:
                 shutil.rmtree(os.path.join(root, d), ignore_errors=True)
 
     def save(self, path: str) -> None:
-        """Write the model, the optimizers, the trainer state, the generator
-        and the loader position to ``path/trainer.pt`` (written under another
-        name first, so a complete file is the completion marker)."""
+        """Write the model, the optimizers (the sparse rows' state too), the
+        trainer state, the generator, the loader position and a pending
+        accumulation (its micro-step, the summed gradients, the sparse arm's
+        buffered rows) to ``path/trainer.pt`` (written under another name
+        first, so a complete file is the completion marker)."""
         os.makedirs(path, exist_ok=True)
         doc = {
             "model": self.model.state_dict(),
@@ -630,6 +715,11 @@ class Trainer:
             "opt_step": self._opt_step,
             "num_training_steps": self._last_num_steps,
             "generator": self._generator.get_state(),
+            # a resume part-way through an accumulation continues it exactly
+            "mini_step": self._mini_step,
+            "grads": {n: p.grad for n, p in self.model.named_parameters()
+                      if p.grad is not None} if self._mini_step else {},
+            "sparse": self._sparse.state_dict() if self._sparse is not None else None,
         }
         tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
         torch.save(doc, tmp)
@@ -649,7 +739,13 @@ class Trainer:
             self.create_optimizer_and_scheduler(doc["num_training_steps"])
             for k, sd in doc["optimizers"].items():
                 self.optimizers[k].load_state_dict(sd)
+            if doc.get("sparse") is not None:
+                self._sparse.load_state_dict(doc["sparse"])
         self._opt_step = doc["opt_step"]
+        self._mini_step = doc.get("mini_step", 0)
+        params = dict(self.model.named_parameters())
+        for n, g in doc.get("grads", {}).items():
+            params[n].grad = g.to(params[n].device)
         self.state = TrainerState(**doc["trainer_state"])
         self._generator.set_state(doc["generator"].cpu())
         self._resume_position = (self.state.loader_epoch, self.state.batches_in_epoch)
