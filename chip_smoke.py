@@ -147,6 +147,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     (K1 and K2 twice an update), one update against the mean gradient's,
     and 3 steps of ``lazy_adam`` leaving every row with a zero gradient
     bit for bit as it was;
+9b'''x. X, the tables stored as bf16 (``embedding_table_dtype="bf16"``,
+    ``run_bf16_tables``): first every kernel's bf16 form against its plain
+    version (K1-K4 also against the f32 kernels on the same values, whose
+    bits they must give, dW that sum rounded once to bf16) at the phase's
+    shapes and at edge shapes (labels on padding rows, ``vocab_size`` 0, a
+    ragged V, E = 64, 132, 192 and 448, K3 at 4,000,001 items; K7a and K7b
+    over three steps); X1 the flagship through ``build_trainer`` with f32
+    and with bf16 tables in turns (a warm group, 16 timed steps and a
+    profiled window each: wall and device time, busy share, peak memory,
+    side by side), then on the bf16 tables ``Model.evaluate`` and one
+    optimizer step against the CPU (the loss, the dense weights' and the
+    tables' steps, the moments), a save and a load into a trainer made
+    without the field (bf16, the same bits), an export and 8 served
+    requests; X2 the streamed update (K7a/K7b in bf16), X3 the paper's tied
+    E = 448 (K1, K2 and K3 wide on bf16 images) with one evaluation batch
+    against the CPU, X4 configuration 4's ``sparse_adam`` arm at 4,000,001
+    items with one evaluation batch against the CPU, X5 the vocab-parallel
+    head on a bf16 shard of a one-rank group (K1, K2, K4). The ``kernels``
+    line lists each form as its own entry (``ce_fwd_bf16``, ...);
 9b''''. U, session packing at full width (``run_packing``): U1 the flagship
     XLNet-MLM from Parquet files of the port's ETL through
     ``flagship.build_trainer(pack_sessions=True, pack_eval_sessions=True)``:
@@ -244,6 +263,9 @@ kernels) and K1 and K2 alone at the three training shapes, ``--time-flash``
 K5, K6a, K6b and K6c alone in both their designs, and the split route
 K6b + K6c beside K6a, at the CLM shape, at the S = 4,096 step's, at
 (4, 2048, 8, 64) and where the designs meet (head dims 32, 48 and 128).
+``--time-bf16`` times each vocabulary kernel and K7a/K7b in its form for a
+bf16-stored table beside its f32 form, in turns, at the shapes of the
+kernel table in ``PERF.md``.
 ``--time-long-step`` times the steady S = 4,096 step with K6b in each of
 its designs in turns and profiles it (device time by kernel).
 ``--time-parquet`` times the flagship's training step from a Parquet file
@@ -257,6 +279,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -369,17 +392,18 @@ def kernel_us(fn, reps: int = 20) -> dict:
 
 # ----------------------------------------------------------------- K3 check
 def ce_rank_inputs(n: int, rows: int, vocab_size: int, e: int, beta_lo: float,
-                   beta_hi: float, seed: int, device):
+                   beta_hi: float, seed: int, device, table_dtype=torch.float32):
     """x (n, e), a (rows, e) table drawn like the model's (normal, std 0.05),
-    labels in [1, vocab_size) and their label logits. Row i of x is
-    ``beta_i * W[label_i] + N(0, 1)``: with beta_i up to 12 the label logit
-    sits in the upper tail of its row, as a trained model's does."""
+    stored as ``table_dtype`` (f32, or bf16 as a bf16-stored table), and
+    labels in [1, vocab_size). Row i of x is ``beta_i * W[label_i] + N(0,
+    1)``: with beta_i up to 12 the label logit sits in the upper tail of its
+    row, as a trained model's does."""
     rng = np.random.default_rng(seed)
     W = rng.normal(0.0, 0.05, (rows, e)).astype(np.float32)
     labels = rng.integers(1, vocab_size, n).astype(np.int32)
     beta = rng.uniform(beta_lo, beta_hi, (n, 1)).astype(np.float32)
     x = (beta * W[labels] + rng.normal(0.0, 1.0, (n, e))).astype(np.float32)
-    return (torch.from_numpy(x).to(device), torch.from_numpy(W).to(device),
+    return (torch.from_numpy(x).to(device), torch.from_numpy(W).to(device).to(table_dtype),
             torch.from_numpy(labels).to(device))
 
 
@@ -407,7 +431,7 @@ def near_ties(x, W, labels, ll, vocab_size: int, rows: torch.Tensor) -> torch.Te
 
 def check_ce_rank(name: str, n: int, rows: int, vocab_size: int, smooth: bool,
                   beta_lo: float, beta_hi: float, seeds, device="cuda", e: int = 64,
-                  min_exact: float = 0.99) -> dict:
+                  min_exact: float = 0.99, table_dtype=torch.float32) -> dict:
     """K3 against ``ce_rank_plain`` on the same inputs, one call per seed.
 
     Criteria: lse within 1e-4 relative; zsum within 1e-4 of
@@ -419,13 +443,15 @@ def check_ce_rank(name: str, n: int, rows: int, vocab_size: int, smooth: bool,
     order than the plain version's matrix product, so a logit within an ulp
     of the label logit may land on the other side of it; the more columns,
     the more such logits (at 4,000,001 columns about 4% of the rows hold
-    one, against under 1% at 390,001)."""
+    one, against under 1% at 390,001). ``table_dtype`` bf16 checks K3's
+    form for a bf16-stored table."""
     from transformers4rec_tpu_torch.ops import vocab
 
     lse_abs, lse_rel, zs_err, diffs, ranks = 0.0, 0.0, 0.0, [], []
     unexplained = 0
     for seed in seeds:
-        x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, beta_lo, beta_hi, seed, device)
+        x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, beta_lo, beta_hi, seed, device,
+                                      table_dtype)
         ll = vocab.label_logits(x, W, labels)
         lse, rank, zs = vocab.ce_rank(x, W, labels, ll, vocab_size, smooth=smooth)
         lse_p, rank_p, zs_p = vocab.ce_rank_plain(x, W, labels, ll, vocab_size, smooth)
@@ -452,7 +478,7 @@ def check_ce_rank(name: str, n: int, rows: int, vocab_size: int, smooth: bool,
     diff = torch.cat(diffs)
     out = {
         "shape": name, "N": n, "E": e, "calls": len(diffs), "table_rows": rows,
-        "vocab_size": vocab_size, "smooth": smooth,
+        "vocab_size": vocab_size, "smooth": smooth, "table_dtype": str(table_dtype)[6:],
         "lse_max_abs_err": lse_abs, "lse_max_rel_err": lse_rel,
         "rank_exact_share": float((diff == 0).float().mean()),
         "rank_max_diff": int(diff.max()),
@@ -475,11 +501,11 @@ def check_ce_rank(name: str, n: int, rows: int, vocab_size: int, smooth: bool,
 
 # ------------------------------------------------------------- K1 / K2 check
 def ce_train_inputs(n: int, rows: int, vocab_size: int, seed: int, minus_one: bool, device,
-                    e: int = 64):
+                    e: int = 64, table_dtype=torch.float32):
     """Inputs as ``ce_rank_inputs`` draws them, plus row weights of which
     about 30% are 0 (the loss-row budget's spare rows) and, with
     ``minus_one``, a few labels of -1 among those."""
-    x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, 0.0, 12.0, seed, device)
+    x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, 0.0, 12.0, seed, device, table_dtype)
     rng = np.random.default_rng(seed + 1000)
     w = (rng.random(n) >= 0.3).astype(np.float32)
     if minus_one:
@@ -489,6 +515,7 @@ def ce_train_inputs(n: int, rows: int, vocab_size: int, seed: int, minus_one: bo
 
 
 def grad_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    got, want = got.float(), want.float()
     return {"max_abs_err": float((got - want).abs().max()),
             "max_err_over_peak": float((got - want).abs().max() / want.abs().max()),
             "rel_frobenius": float((got - want).norm() / want.norm())}
@@ -500,7 +527,7 @@ def check_grad(what: str, got: torch.Tensor, want: torch.Tensor, rel: float = 1e
     sides round the CE's residual (the attention's P and dS) to bf16, from
     exponentials that differ in the last bits, so single entries may land on
     neighbouring bf16 values."""
-    if not torch.isfinite(got).all():
+    if not torch.isfinite(got.float()).all():
         fail(f"{what}: non-finite values")
     err = grad_errors(got, want)
     if err["max_err_over_peak"] > 2e-2 or err["rel_frobenius"] > rel:
@@ -608,7 +635,8 @@ def check_padding_row_labels(n: int, rows: int, vocab_size: int, eps: float,
 
 # ------------------------------------------------------------------ K4 check
 def check_rank(name: str, n: int, rows: int, vocab_size: int, shard_bound, beta_lo: float,
-               beta_hi: float, seeds, device="cuda", e: int = 64) -> dict:
+               beta_hi: float, seeds, device="cuda", e: int = 64,
+               table_dtype=torch.float32) -> dict:
     """K4 against ``rank_counts_plain`` on the same inputs, one call per seed,
     and ``fused_label_rank`` (K1 + K4) against K3's ranks. With a
     ``shard_bound`` below ``vocab_size`` the counts go over the columns below
@@ -623,7 +651,8 @@ def check_rank(name: str, n: int, rows: int, vocab_size: int, shard_bound, beta_
 
     diffs, k3_diffs, minus_one = [], [], 0
     for seed in seeds:
-        x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, beta_lo, beta_hi, seed, device)
+        x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, beta_lo, beta_hi, seed, device,
+                                      table_dtype)
         ll = vocab.label_logits(x, W, labels)
         _, want_k3, _ = vocab.ce_rank(x, W, labels, ll, vocab_size)
         k3_diffs.append((vocab.fused_label_rank(x, W, labels, vocab_size).long()
@@ -641,6 +670,7 @@ def check_rank(name: str, n: int, rows: int, vocab_size: int, shard_bound, beta_
     diff, k3_diff = torch.cat(diffs), torch.cat(k3_diffs)
     out = {"shape": name, "N": n, "E": e, "calls": len(diffs), "table_rows": rows,
            "vocab_size": vocab_size, "shard_bound": shard_bound,
+           "table_dtype": str(table_dtype)[6:],
            "labels_minus_one": minus_one,
            "count_exact_share": float((diff == 0).float().mean()),
            "count_max_diff": int(diff.max()),
@@ -1699,13 +1729,17 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_vocab_parallel(flagship, vocab, model, loader, gpu_res: dict, vocab_size: int) -> dict:
+def run_vocab_parallel(flagship, vocab, model, loader, gpu_res: dict, vocab_size: int,
+                       table_dtype=None) -> dict:
     """The vocab-parallel head through the entry points, at full width, over
     a process group of one rank on the model's device (NCCL on the card):
     the group's collectives run, the table is one shard. ``model`` is the
     unsharded model with the same weights and ``gpu_res`` its evaluation of
-    ``loader``. The kernel counts are set to 0 just before each call and read
+    ``loader``; ``table_dtype`` bf16 stores the shard as bf16, as the model's
+    tables are. The kernel counts are set to 0 just before each call and read
     just after."""
+    from transformers4rec_tpu_torch.trainer import cast_tables_
+
     import torch.distributed as dist
 
     device = model.device
@@ -1714,6 +1748,8 @@ def run_vocab_parallel(flagship, vocab, model, loader, gpu_res: dict, vocab_size
     try:
         group = dist.group.WORLD
         sharded = flagship.build_model(device, seed=0, dropout=0.0, vocab_parallel_group=group)
+        if table_dtype is not None:
+            cast_tables_(sharded, table_dtype)
         sharded.load_state_dict(model.state_dict())
         counters = {"ce_fwd": vocab.ce_fwd, "ce_bwd": vocab.ce_bwd, "rank": vocab.rank_counts,
                     "ce_rank": vocab.ce_rank}
@@ -3888,6 +3924,554 @@ def run_reformer_rnn(flagship, vocab, fa, card: str) -> dict:
 
 
 # -------------------------------------------------------------------- timing
+# ------------------------------------------- X: bf16-stored tables on the card
+X_STEPS = 8  # a trainer's group of steps (steps_per_execution)
+X1_TIMED = 16  # X1's timed steps of each table type, after a warm group
+X_EVAL_BATCHES = 2  # X1's evaluation batches, card against CPU
+# one optimizer step of the bf16-table flagship, card against CPU, in two
+# parts. The gradients from the same weights and mask: the loss within 1e-4
+# relative, each dense gradient within ``X_GRAD_REL`` in relative Frobenius
+# norm (the CE rounds its residual to bf16 on both devices from
+# exponentials of their own: 1e-3, as ``check_grad`` holds it, and a
+# rounding of 2^-8 more where the two devices' sums fall on either side of
+# one). A bf16 table's gradient is bf16 (the CE's dW and the lookup's, each
+# rounded, summed in bf16), and the lookup's sums a row's repeated ids: the
+# CPU's embedding backward adds them one by one in bf16, rounding each time
+# (as the JAX package's CPU scatter-add does), the card's sums them in f32
+# and rounds once; k additions drift by about 2^-9·sqrt(k) in norm (1.1e-2
+# measured on the category table, some 17 positions a row): within
+# ``X_TABLE_GRAD_REL``. A key's bias takes rounding noise only (the softmax
+# ignores it) and is left out. The update: the CPU's optimizers given the card's gradients
+# from the same weights, so that a gradient whose sign the two devices'
+# roundings flip (Adam's and Adafactor's first steps, g / (|g| + eps) and
+# g / sqrt(g² + eps), make its step full size either way) tests the
+# gradient and not the update: a dense weight's movement within
+# ``X_MOVE_REL`` in relative Frobenius norm (p + step rounds at 2^-24 of p,
+# some 1e-5 of a step), a bf16 table's values within one bf16 spacing of
+# the CPU's and one of their step (the update and the sum each round to
+# bf16 once, from f32 values whose last bits the devices' rsqrt may move),
+# the bf16 moments within one bf16 spacing.
+X_GRAD_REL = 1e-3 + 2.0 ** -8
+X_TABLE_GRAD_REL = 3e-2
+X_MOVE_REL = 1e-4
+X_NOISE_ONLY = "attn.k.bias"
+X_PAIR_DEVICES = ("cuda", "cpu")  # the card, then the reference's device
+
+
+def bf16_counters(vocab, fa) -> dict:
+    return {"ce_fwd": vocab.ce_fwd, "ce_bwd": vocab.ce_bwd, "ce_rank": vocab.ce_rank,
+            "rank": vocab.rank_counts, "adafactor_a": fa.adafactor_pass_a,
+            "adafactor_b": fa.adafactor_pass_b}
+
+
+def table_dtypes(model) -> set:
+    """The types of ``model``'s tables (``trainer.table_param_names``)."""
+    from transformers4rec_tpu_torch.trainer import table_param_names
+
+    params = dict(model.named_parameters())
+    return {params[n].dtype for n in table_param_names(model)}
+
+
+def check_bf16_ce(name: str, n: int, rows: int, vocab_size: int, eps: float, e: int,
+                  seed: int, minus_one: bool = False, pad_labels: bool = False,
+                  device="cuda") -> dict:
+    """K1, K2, K3 and K4 on a bf16-stored table against the f32 kernels on the
+    same values held as f32 (``W.float()``): the images are the same bytes
+    and K3's ring and K4's loads give the tensor cores the same bf16 pairs,
+    so K1's outputs, K2's dx, K3's ranks and K4's counts must be those
+    kernels' bits, and K2's dW their f32 sum rounded once to bf16 (nearest
+    even, as ``Tensor.to``). Against the plain versions: lse within 1e-4
+    relative, the label logit within 1e-4 of max(|ll|, 1), dx and the f32
+    kernel's dW as ``check_grad`` says, the bf16 dW within 1e-3 + 2^-8 (one
+    more rounding) of the plain bf16 dW in relative Frobenius norm.
+    ``pad_labels`` puts two labels on the table's padding rows."""
+    from transformers4rec_tpu_torch.ops import vocab
+
+    x, W, labels, w = ce_train_inputs(n, rows, vocab_size, seed, minus_one, device, e,
+                                      torch.bfloat16)
+    if pad_labels:
+        labels[:2] = torch.tensor([vocab_size, rows - 1], dtype=torch.int32, device=device)
+        w[:2] = 1.0
+    Wf, smooth = W.float(), eps > 0
+    fwd = vocab.ce_fwd(x, W, labels, vocab_size, smooth=smooth)
+    fwd_f = vocab.ce_fwd(x, Wf, labels, vocab_size, smooth=smooth)
+    lse_p, ll_p, _ = vocab.ce_fwd_plain(x, W, labels, vocab_size, smooth)
+    coef = (w / w.sum().clamp_min(1.0)).contiguous()
+    dx, dW = vocab.ce_bwd(x, W, labels, fwd[0], coef, vocab_size, eps)
+    dx_f, dW_f = vocab.ce_bwd(x, Wf, labels, fwd[0], coef, vocab_size, eps)
+    dx_p, dW_p = vocab.ce_bwd_plain(x, Wf, labels, fwd[0], coef, vocab_size, eps)
+    gathered = vocab.label_logits(x, W, labels)
+    _, rank, _ = vocab.ce_rank(x, W, labels, gathered, vocab_size, smooth=smooth)
+    _, rank_f, _ = vocab.ce_rank(x, Wf, labels, gathered, vocab_size, smooth=smooth)
+    cnt = vocab.rank_counts(x, W, gathered, labels, vocab_size)
+    cnt_f = vocab.rank_counts(x, Wf, gathered, labels, vocab_size)
+    sync(device)
+    if not all((a is None and b is None) or torch.equal(a, b) for a, b in zip(fwd, fwd_f)):
+        fail(f"bf16 table {name}: ce_fwd differs from the f32 kernel on the same values")
+    if dW.dtype != torch.bfloat16 or not torch.equal(dx, dx_f) \
+            or not torch.equal(dW, dW_f.to(torch.bfloat16)):
+        fail(f"bf16 table {name}: ce_bwd is not the f32 kernel's dx and rounded dW")
+    if not (torch.equal(rank, rank_f) and torch.equal(cnt, cnt_f)):
+        fail(f"bf16 table {name}: ce_rank's ranks or rank's counts differ from the f32 "
+             "kernels'")
+    keep = torch.ones(n, dtype=torch.bool, device=device)
+    keep[:2] = not pad_labels
+    out = {"shape": name, "N": n, "E": e, "table_rows": rows, "vocab_size": vocab_size,
+           "eps": eps, "f32_kernels_bits": True,
+           "lse_max_abs_err": float((fwd[0] - lse_p).abs().max()),
+           "lse_max_rel_err": float(((fwd[0] - lse_p).abs() / lse_p.abs()).max()),
+           "ll_max_scaled_err": float(((fwd[1] - ll_p).abs()[keep]
+                                       / ll_p.abs()[keep].clamp_min(1.0)).max()),
+           "dx": check_grad(f"bf16 table {name} dx", dx, dx_p),
+           "dW_f32": check_grad(f"bf16 table {name} dW before its rounding", dW_f, dW_p),
+           "dW_rel_frobenius": float((dW.float() - dW_p.to(torch.bfloat16).float()).norm()
+                                     / dW_p.norm())}
+    if pad_labels and not bool((fwd[1][:2] == -1e30).all()):
+        fail(f"bf16 table {name}: a label on a padding row has the logit {fwd[1][:2]}")
+    if out["lse_max_rel_err"] > 1e-4 or out["ll_max_scaled_err"] > 1e-4 \
+            or out["dW_rel_frobenius"] > 1e-3 + 2.0 ** -8:
+        fail(f"bf16 table {name}: {out}")
+    print(f"[bf16-k1k2k3k4] {json.dumps(out)}")
+    return out
+
+
+def check_adafactor_bf16(name: str, rows: int, e: int, clip, device="cuda") -> dict:
+    """K7a and K7b on bf16 g, v and p against the plain passes over three
+    steps (scales 1e-2, 1 and 30: the clip engages on the last), each step
+    from the same moment and coefficient: the coefficient within 1e-5
+    relative (the clip's sum in another order, an approximate rsqrt), the
+    moment and the table within one bf16 spacing (of the value, and for the
+    table of its step as well), the same bits twice."""
+    from transformers4rec_tpu_torch.ops import fused_adafactor as fa
+
+    def spacing(t):
+        return torch.ldexp(torch.ones_like(t, dtype=torch.float32),
+                           torch.frexp(t.float().abs().clamp_min(2.0 ** -126)).exponent - 8)
+
+    p, _ = table_and_grad(rows, e, 1.0, 40, device)
+    p = p.to(torch.bfloat16)
+    v = torch.zeros_like(p)
+    worst = {"coef_rel": 0.0, "moment_over_spacing": 0.0, "table_over_spacing": 0.0}
+    for step, scale in enumerate((1e-2, 1.0, 30.0)):
+        _, g = table_and_grad(rows, e, scale, 41 + step, device)
+        g = g.to(torch.bfloat16)
+        decay = 1.0 - torch.full((), float(step + 1), device=device) ** -0.8
+        v_k, v_p, p_k, p_p = v.clone(), v.clone(), p.clone(), p.clone()
+        coef = fa.adafactor_pass_a(g, v_k, decay, 6.7e-4, clip, 1e-30)
+        again = v.clone()
+        coef2 = fa.adafactor_pass_a(g, again, decay, 6.7e-4, clip, 1e-30)
+        coef_p = fa.adafactor_pass_a_plain(g, v_p, decay, 6.7e-4, clip, 1e-30)
+        fa.adafactor_pass_b(p_k, g, v_p, coef_p)
+        p2 = p.clone()
+        fa.adafactor_pass_b(p2, g, v_p, coef_p)
+        fa.adafactor_pass_b_plain(p_p, g, v_p, coef_p)
+        sync(device)
+        if not (torch.equal(v_k, again) and torch.equal(coef, coef2) and torch.equal(p_k, p2)):
+            fail(f"adafactor bf16 {name}: a second call gave other bits at step {step}")
+        if v_k.dtype != torch.bfloat16 or p_k.dtype != torch.bfloat16:
+            fail(f"adafactor bf16 {name}: {v_k.dtype}, {p_k.dtype}")
+        worst["coef_rel"] = max(worst["coef_rel"], float((coef - coef_p).abs() / coef_p.abs()))
+        worst["moment_over_spacing"] = max(worst["moment_over_spacing"], float(
+            ((v_k.float() - v_p.float()).abs() / spacing(v_p)).max()))
+        allowed = spacing(p_p) + spacing(p_p.float() - p.float())
+        worst["table_over_spacing"] = max(worst["table_over_spacing"], float(
+            ((p_k.float() - p_p.float()).abs() / allowed).max()))
+        worst.setdefault("moment_max_abs_err", 0.0)
+        worst["moment_max_abs_err"] = max(worst["moment_max_abs_err"],
+                                          float((v_k.float() - v_p.float()).abs().max()))
+        worst["table_max_abs_err"] = max(worst.get("table_max_abs_err", 0.0),
+                                         float((p_k.float() - p_p.float()).abs().max()))
+        v, p = v_p, p_p
+    out = {"shape": name, "rows": rows, "E": e, "clip": clip, "steps": 3, **worst}
+    print(f"[k7-bf16] {json.dumps(out)}")
+    if worst["coef_rel"] > 1e-5 or worst["moment_over_spacing"] > 1.0 \
+            or worst["table_over_spacing"] > 1.0:
+        fail(f"adafactor bf16 {name}: {out}")
+    return out
+
+
+def check_bf16_kernels(table_rows: int, vocab_size: int, large_rows: int,
+                       large_vocab: int) -> dict:
+    """Every kernel's bf16 form against its plain version (and K1–K4 against
+    the f32 kernels) at the phase's shapes and at edge shapes: a label on a
+    padding row, ``vocab_size`` 0, a ragged V, E = 64, 132 (off 8: K3's ring
+    copies the vocab's last 8 bytes itself), 192 and 448. Returns each
+    kernel's largest error, as the ``kernels`` line takes it."""
+    from transformers4rec_tpu_torch.ops import vocab
+
+    ce = [check_bf16_ce("train", 915, table_rows, vocab_size, 0.0, 64, 11, pad_labels=True),
+          check_bf16_ce("edge", 1000, 100_008, 100_003, 0.1, 64, 12, minus_one=True),
+          check_bf16_ce("e132-odd-tail", 300, 10_008, 10_001, 0.0, 132, 13, pad_labels=True),
+          check_bf16_ce("e192", 1000, 100_008, 100_003, 0.1, 192, 14),
+          check_bf16_ce("e448", 915, table_rows, vocab_size, 0.0, 448, 15, pad_labels=True)]
+    x, W, _, _ = ce_train_inputs(70, 512, 500, 16, False, "cuda", 64, torch.bfloat16)
+    minus_one = torch.full((70,), -1, dtype=torch.int32, device="cuda")
+    zeros = torch.zeros(70, device="cuda")
+    lse, ll, _ = vocab.ce_fwd(x, W, minus_one, 0)
+    lse3, rank, _ = vocab.ce_rank(x, W, minus_one, zeros, 0)
+    dx, dW = vocab.ce_bwd(x, W, minus_one, zeros, torch.full((70,), 1 / 70, device="cuda"), 0)
+    if not (bool((lse == -1e30).all()) and bool((lse3 == -1e30).all()) and not ll.any()
+            and not rank.any() and not dx.any() and not dW.any() and dW.dtype == W.dtype
+            and not vocab.rank_counts(x, W, zeros, minus_one, 0).any()):
+        fail("bf16 table: vocab_size 0")
+    k3 = [check_ce_rank("bf16-eval", EVAL_ROWS, table_rows, vocab_size, False, 4.0, 12.0,
+                        [101, 102], table_dtype=torch.bfloat16),
+          check_ce_rank("bf16-edge", 1000, 100_008, 100_003, True, 0.0, 12.0, [103],
+                        table_dtype=torch.bfloat16),
+          check_ce_rank("bf16-e448", EVAL_ROWS, 100_008, 100_003, True, 0.0, 12.0, [104],
+                        e=448, table_dtype=torch.bfloat16),
+          check_ce_rank("bf16-large-vocab", EVAL_ROWS, large_rows, large_vocab, False, 4.0,
+                        12.0, [105], min_exact=0.9, table_dtype=torch.bfloat16)]
+    k4 = [check_rank("bf16-eval", EVAL_ROWS, table_rows, vocab_size, None, 4.0, 12.0, [106],
+                     table_dtype=torch.bfloat16),
+          check_rank("bf16-edge", 1000, 100_008, 100_003, 60_003, 0.0, 12.0, [107],
+                     table_dtype=torch.bfloat16),
+          check_rank("bf16-e448", 1000, 100_008, 100_003, 60_003, 0.0, 12.0, [108], e=448,
+                     table_dtype=torch.bfloat16)]
+    k7 = [check_adafactor_bf16("item table", table_rows, 64, 1.0),
+          check_adafactor_bf16("edge", 2051, 13, 1.0),
+          check_adafactor_bf16("edge, no clip", 2051, 13, None)]
+    torch.cuda.empty_cache()
+    return {"ce_fwd": max(c["lse_max_abs_err"] for c in ce),
+            "ce_bwd": max(c[g]["max_abs_err"] for c in ce for g in ("dx", "dW_f32")),
+            "ce_rank": max(c["lse_max_abs_err"] for c in k3),
+            "rank": max(c["count_max_diff"] for c in k4),
+            "adafactor_a": max(c["moment_max_abs_err"] for c in k7),
+            "adafactor_b": max(c["table_max_abs_err"] for c in k7)}
+
+
+def bf16_spacing(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |t| (8 significant bits)."""
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32),
+                       torch.frexp(t.float().abs().clamp_min(2.0 ** -126)).exponent - 8)
+
+
+def update_check(what: str, got: dict, want: dict, before: dict, tables) -> dict:
+    """The card's update of each tensor against the CPU's on the same
+    gradients: a dense weight's movement within ``X_MOVE_REL`` in relative
+    Frobenius norm, a bf16 table's values (``tables``) within one bf16
+    spacing of the CPU's and one of their step, with the share of them that
+    are equal."""
+    out = {}
+    for n in got:
+        if n in tables:
+            diff = (got[n] - want[n]).abs()
+            allowed = bf16_spacing(want[n]) + bf16_spacing(want[n] - before[n])
+            res = {"equal_share": float((diff == 0).float().mean()),
+                   "over_allowed": float((diff / allowed).max())}
+            ok = res["over_allowed"] <= 1.0
+        else:
+            d_got = got[n].double() - before[n].double()
+            d_want = want[n].double() - before[n].double()
+            res = {"rel": float((d_got - d_want).norm() / d_want.norm().clamp_min(1e-300))}
+            ok = res["rel"] <= X_MOVE_REL
+        out[n] = res
+        if not ok:
+            fail(f"{what}: {n} stepped apart from the CPU's: {res}")
+    return out
+
+
+def bf16_pair_step(flagship, weights: dict, batch: dict, counters: dict) -> dict:
+    """One optimizer step of the bf16-table flagship (AdamW on the dense
+    weights, Adafactor with a bf16 moment on the bf16 tables) from the same
+    weights on the card and on the CPU, one mask drawn on the CPU for both,
+    dropout off, held as the ``X_GRAD_REL`` note says: the gradients of the
+    two devices, then the CPU's update from the card's gradients against the
+    card's update."""
+    from transformers4rec_tpu_torch.trainer import table_param_names
+
+    info = None
+    res = {}
+    for dev in X_PAIR_DEVICES:
+        tr = flagship.build_trainer(dev, seed=0, embedding_table_dtype="bf16", dropout=0.0,
+                                    output_dir=tempfile.gettempdir())
+        tr.model.load_state_dict({k: v.to(dev) for k, v in weights.items()})
+        if info is None:
+            info = mlm_info(tr.model, {k: np.asarray(v) for k, v in batch.items()}, 9)
+        tr.create_optimizer_and_scheduler(1)
+        params = dict(tr.model.named_parameters())
+        tables = table_param_names(tr.model)
+        b = tr.model._as_dense(batch)
+        if dev == X_PAIR_DEVICES[0]:  # the card: the trainer's own step
+            loss, got, _ = counted(
+                counters, lambda: tr._train_step(b, masking_info=info_on(info, dev)), device=dev)
+            expect_launches("the bf16 flagship's step on the card", got, ce_fwd=1, ce_bwd=1)
+            grads = {n: p.grad.detach().cpu() for n, p in params.items()}
+            card_grads = grads
+        else:  # the CPU: its own gradients, then its optimizers on the card's
+            tr.model.zero_grad(set_to_none=True)
+            loss, _ = tr.model(b, targets=b, training=True, masking_info=info_on(info, dev))
+            loss.backward()
+            grads = {n: p.grad.detach().clone() for n, p in params.items()}
+            for n, p in params.items():
+                p.grad = card_grads[n].to(p.dtype)
+            # as ``Trainer._train_step`` closes an update (the flagship clips nothing)
+            lr = tr._schedule(tr._opt_step)
+            for group in tr.optimizers["dense"].param_groups:
+                group["lr"] = lr
+            for opt in tr.optimizers.values():
+                opt.step()
+            got = {}
+        state = tr.optimizers["table"].state
+        res[dev] = {"loss": float(loss.detach()), "launches": got, "grads": grads,
+                    "after": {n: p.detach().float().cpu() for n, p in params.items()},
+                    "moments": {n: state[params[n]]["v"].float().cpu() for n in tables},
+                    "dtypes": {str(state[params[n]]["v"].dtype) for n in tables}
+                    | {str(params[n].dtype) for n in tables}}
+        del tr
+    g, c = (res[d] for d in X_PAIR_DEVICES)
+    rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    if not math.isfinite(g["loss"]) or rel > 1e-4:
+        fail(f"bf16 flagship step: loss {g['loss']} on the card, {c['loss']} on the CPU")
+    if g["dtypes"] != {"torch.bfloat16"} or c["dtypes"] != {"torch.bfloat16"}:
+        fail(f"bf16 flagship step: tables and moments {g['dtypes']} {c['dtypes']}")
+    tables = set(c["moments"])
+    grads_rel = {n: float((w.float() - c["grads"][n].float()).norm()
+                          / c["grads"][n].float().norm().clamp_min(1e-30))
+                 for n, w in g["grads"].items() if not n.endswith(X_NOISE_ONLY)}
+    worst = max((n for n in grads_rel if n not in tables), key=grads_rel.get)
+    for n, limit in [(worst, X_GRAD_REL)] + [(n, X_TABLE_GRAD_REL) for n in tables]:
+        if grads_rel[n] > limit:
+            fail(f"bf16 flagship step: the gradient of {n} differs by {grads_rel[n]:.3g}: "
+                 f"{json.dumps(grads_rel)}")
+    before = {n: v.float().cpu() for n, v in weights.items() if n in c["after"]}
+    moments = {n: float(((g["moments"][n] - m).abs() / bf16_spacing(m)).max())
+               for n, m in c["moments"].items()}
+    out = {"loss": {"cuda": g["loss"], "cpu": c["loss"]}, "loss_rel_diff": rel,
+           "launches": g["launches"],
+           "grads_rel": {k: grads_rel[k] for k in sorted(grads_rel) if k in tables}
+           | {"worst": [worst, grads_rel[worst]]},
+           "update": update_check("bf16 flagship step", g["after"], c["after"], before, tables),
+           "moments_over_spacing": moments}
+    if max(moments.values()) > 1.0:
+        fail(f"bf16 flagship step: moments {moments}")
+    print(f"[bf16-flagship] one step, card against CPU: "
+          f"{json.dumps({k: v for k, v in out.items() if k != 'launches'})}")
+    return out
+
+
+def run_bf16_tables(flagship, vocab, fa, card: str) -> dict:
+    """Main path X: the tables stored as bf16 (``embedding_table_dtype=
+    "bf16"``) at full width, each part counted from 0, after every kernel's
+    bf16 form is held against its plain version (``check_bf16_kernels``).
+
+    X1 the flagship (REES46 XLNet-MLM, 390,000 items, tied E = 64):
+    ``build_trainer`` with f32 and with bf16 tables in turns, a warm group,
+    ``X1_TIMED`` timed steps and a profiled window each (wall, device time,
+    busy share, peak memory, reported side by side); then on the bf16
+    trainer ``Model.evaluate`` (K3 on the bf16 table) against the CPU, one
+    optimizer step against the CPU (``bf16_pair_step``), a save and a load
+    into a trainer made without the field (tables bf16 and the same bits),
+    an export and 8 served requests. X2 the streamed update on the bf16
+    table (K7a/K7b bf16), X3 the paper's tied E = 448 (the wide kernels on
+    bf16 images) with one evaluation batch against the CPU, X4
+    configuration 4's ``sparse_adam`` arm at 4,000,001 items with one
+    evaluation batch (K3 at V = 4,000,001) against the CPU, X5 the
+    vocab-parallel head on a bf16 shard (K1, K2, K4)."""
+    from transformers4rec_tpu_torch.data import synthetic_data
+    from transformers4rec_tpu_torch.trainer import cast_tables_
+
+    t_phase = time.perf_counter()
+    counters = bf16_counters(vocab, fa)
+    vocab_size = flagship.NUM_ITEMS + 1
+    large_vocab = flagship.LARGE_VOCAB_ITEMS + 1
+    errors = check_bf16_kernels(-(-vocab_size // 8) * 8, vocab_size, -(-large_vocab // 8) * 8,
+                                large_vocab)
+    launches = dict.fromkeys(counters, 0)  # the bf16 forms'
+    f32_launches = dict.fromkeys(counters, 0)
+    rows, seq = flagship.BATCH, flagship.SEQ
+    bf16 = {torch.bfloat16}
+    out = {}
+
+    def add(got, into=launches):
+        for k, n in got.items():
+            into[k] += n
+
+    # ---- X1: the flagship, f32 and bf16 tables side by side
+    data = synthetic_data(flagship.schema(), num_rows=16 * rows, max_session_length=seq,
+                          seed=700)
+    side = {}
+    for dtype in ("f32", "bf16"):
+        gc.collect()  # earlier phases' garbage goes first: the peak is this arm's
+        held = torch.cuda.memory_allocated()  # what is held before this arm's trainer
+        trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data,
+                                         embedding_table_dtype=None if dtype == "f32" else dtype)
+        if table_dtypes(trainer.model) != ({torch.float32} if dtype == "f32" else bf16):
+            fail(f"X1 ({dtype}): tables {table_dtypes(trainer.model)}")
+        weights_gb = (torch.cuda.memory_allocated() - held) / 1e9  # the model, before a step
+        torch.cuda.reset_peak_memory_stats()
+        into = f32_launches if dtype == "f32" else launches
+        phases = trainer_phases(trainer, counters, into, f"bf16-tables X1 {dtype}", card, rows,
+                                seq, (("warm", X_STEPS, None), ("timed", X1_TIMED, None)),
+                                per_step={"ce_fwd": 1, "ce_bwd": 1})
+        (window, prof), got, _ = counted(counters, lambda: traced_window(trainer, X_STEPS,
+                                                                         rows=12))
+        expect_launches(f"X1 {dtype} (profiled window)", got, ce_fwd=2 * X_STEPS,
+                        ce_bwd=2 * X_STEPS)
+        add(got, into)
+        side[dtype] = {"ms_per_step": phases["timed"]["ms_per_step"],
+                       "mean_loss": phases["timed"]["mean_loss"], "window": window,
+                       "peak_memory_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+                       "weights_gb": weights_gb}
+        print(prof)
+        if dtype == "f32":
+            del trainer
+            gc.collect()  # the trainer's reference cycles: its memory goes before bf16's run
+            torch.cuda.empty_cache()
+    out["side_by_side"] = side
+    print(f"[bf16-tables] X1 on {card}: the flagship's steady step with f32 against bf16 "
+          f"tables: {side['f32']['ms_per_step']:.3f} against {side['bf16']['ms_per_step']:.3f} "
+          f"ms of wall time, {side['f32']['window']['device_ms_per_step']:.3f} against "
+          f"{side['bf16']['window']['device_ms_per_step']:.3f} ms of device time (busy "
+          f"{side['f32']['window']['device_busy_share']:.3f} against "
+          f"{side['bf16']['window']['device_busy_share']:.3f}), peak memory "
+          f"{side['f32']['peak_memory_gb']:.3f} against {side['bf16']['peak_memory_gb']:.3f} GB "
+          f"(the weights {side['f32']['weights_gb']:.3f} against "
+          f"{side['bf16']['weights_gb']:.3f} GB)")
+    table = trainer.model.heads[0].input_module.item_embedding_table()
+    if table_dtypes(trainer.model) != bf16 or not bool(torch.isfinite(table.float()).all()):
+        fail("X1: after training the tables are not bf16 and finite")
+
+    # Model.evaluate on the bf16 table (K3), card against CPU
+    loader = eval_batches(flagship, flagship.NUM_ITEMS, seq, X_EVAL_BATCHES, EVAL_ROWS)
+    model = trainer.model
+    gpu_res, got, wall = counted(counters, lambda: model.evaluate(loader))
+    expect_launches("X1 evaluate", got, ce_rank=X_EVAL_BATCHES)
+    add(got)
+    cpu_model = flagship.build_model("cpu", seed=0, dropout=0.0)
+    cast_tables_(cpu_model, torch.bfloat16)
+    weights = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    cpu_model.load_state_dict(weights)
+    check_evaluate(gpu_res, cpu_model.evaluate(loader), X_EVAL_BATCHES * EVAL_ROWS)
+    out["evaluate"] = {"cuda": gpu_res, "wall_s": wall}
+    del cpu_model
+
+    # one optimizer step, card against CPU
+    out["pair_step"] = bf16_pair_step(flagship, weights, loader[0], counters)
+    add(out["pair_step"].pop("launches"))
+
+    # a save, and a load into a trainer made without the field
+    with tempfile.TemporaryDirectory() as path:
+        trainer.save(path)
+        fresh = flagship.build_trainer("cuda", seed=1, output_dir=path)
+        if table_dtypes(fresh.model) != {torch.float32}:
+            fail("X1: a trainer made without the field holds bf16 tables")
+        fresh.load(path)
+        same = all(torch.equal(p.detach(), model.state_dict()[n])
+                   for n, p in fresh.model.named_parameters())
+        if table_dtypes(fresh.model) != bf16 or not same:
+            fail(f"X1: the reloaded tables are {table_dtypes(fresh.model)}, same bits {same}")
+        del fresh
+
+    # export and serve (the runner and the server load the bf16 tables as bf16)
+    from transformers4rec_tpu_torch.serving import InferenceRunner, export_model
+
+    requests = serve_requests(flagship, flagship.NUM_ITEMS, seq, 8)
+    with tempfile.TemporaryDirectory() as path:
+        export_model(model, loader[0], path, top_k=TOP_K)
+        runner = InferenceRunner(path, flagship.build_model, device="cuda")
+        if table_dtypes(runner.model) != bf16:
+            fail(f"X1: the runner serves {table_dtypes(runner.model)} tables")
+        with torch.inference_mode():
+            want_s, want_i = model(model._as_dense({k: v[:8] for k, v in loader[0].items()}),
+                                   top_k=TOP_K)
+        got_s, got_i = runner.predict({k: v[:8] for k, v in loader[0].items()})
+        check_topk(got_s, got_i, want_s.cpu().numpy(), want_i.cpu().numpy(), vocab_size,
+                   "X1 runner top-k")
+        del runner
+    serve = run_serve(flagship.build_model, model, loader[0], vocab_size, requests, "cuda")
+    add(serve["launches"])
+    out["serve"] = serve["stats"]
+    del trainer, model, table
+    torch.cuda.empty_cache()
+
+    # ---- X2: the streamed update on the bf16 table (K7a and K7b in bf16)
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data,
+                                     streamed_table_update=True, embedding_table_dtype="bf16")
+    table = trainer.model.heads[0].input_module.item_embedding_table()
+    before = table.detach().clone()
+    out["streamed"] = trainer_phases(
+        trainer, counters, launches, "bf16-tables X2", card, rows, seq,
+        (("steps", X_STEPS, None),), per_step={"ce_fwd": 1, "ce_bwd": 1, "adafactor_a": 1,
+                                               "adafactor_b": 1})
+    moment = trainer.optimizers["table"].state[table]["v"]
+    if table.dtype != torch.bfloat16 or moment.dtype != torch.bfloat16 \
+            or torch.equal(table.detach(), before) \
+            or not bool(torch.isfinite(moment.float()).all()):
+        fail(f"X2: table {table.dtype}, moment {moment.dtype}, or nothing moved")
+    del trainer, table, before, moment
+    torch.cuda.empty_cache()
+
+    # ---- X3: the paper's tied E = 448 on a bf16 table (the wide kernels)
+    e = flagship.PAPER_ITEM_DIM
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data, item_dim=e,
+                                     embedding_table_dtype="bf16")
+    out["wide"] = trainer_phases(trainer, counters, launches, "bf16-tables X3", card, rows, seq,
+                                 (("steps", X_STEPS, None),),
+                                 per_step={"ce_fwd": 1, "ce_bwd": 1})
+    model = trainer.model
+    gpu_res, got, _ = counted(counters, lambda: model.evaluate(loader[:1]))
+    expect_launches("X3 evaluate", got, ce_rank=1)
+    add(got)
+    cpu_model = flagship.build_model("cpu", seed=0, dropout=0.0, item_dim=e)
+    cast_tables_(cpu_model, torch.bfloat16)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    check_evaluate(gpu_res, cpu_model.evaluate(loader[:1]), EVAL_ROWS)
+    out["wide"]["evaluate"] = gpu_res
+    del trainer, model, cpu_model
+    torch.cuda.empty_cache()
+
+    # ---- X4: configuration 4's sparse_adam arm on a 4,000,001-item bf16 table
+    items = flagship.LARGE_VOCAB_ITEMS
+    large_data = synthetic_data(flagship.schema(items, seq), num_rows=X_STEPS * rows,
+                                max_session_length=seq, seed=701)
+    trainer = flagship.build_large_vocab_trainer("cuda", seed=0, train_dataset=large_data,
+                                                 embedding_optimizer="sparse_adam",
+                                                 embedding_table_dtype="bf16")
+    table = trainer.model.heads[0].input_module.item_embedding_table()
+    before = table.detach().clone()
+    out["sparse"] = trainer_phases(trainer, counters, launches, "bf16-tables X4", card, rows,
+                                   seq, (("steps", X_STEPS, None),), per_step={})
+    state = trainer._sparse.state
+    if table.dtype != torch.bfloat16 or state.mu.dtype != torch.bfloat16 \
+            or table.grad is not None or torch.equal(table.detach(), before):
+        fail(f"X4: table {table.dtype}, moments {state.mu.dtype}, or nothing moved")
+    model = trainer.model
+    large_loader = eval_batches(flagship, items, seq, 1, EVAL_ROWS)
+    gpu_res, got, _ = counted(counters, lambda: model.evaluate(large_loader))
+    expect_launches("X4 evaluate", got, ce_rank=1)
+    add(got)
+    del trainer, before, state
+    torch.cuda.empty_cache()
+    cpu_model = flagship.build_large_vocab_model("cpu", dropout=0.0)
+    cast_tables_(cpu_model, torch.bfloat16)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    check_evaluate(gpu_res, cpu_model.evaluate(large_loader), EVAL_ROWS)
+    out["sparse"]["evaluate"] = gpu_res
+    del model, cpu_model, table
+    torch.cuda.empty_cache()
+
+    # ---- X5: the vocab-parallel head over a one-rank group on a bf16 shard
+    model = flagship.build_model("cuda", seed=0, dropout=0.0)
+    cast_tables_(model, torch.bfloat16)
+    gpu_res, got, _ = counted(counters, lambda: model.evaluate(loader))
+    add(got)
+    parallel = run_vocab_parallel(flagship, vocab, model, loader, gpu_res, vocab_size,
+                                  table_dtype=torch.bfloat16)
+    add(parallel["launches"])
+    out["vocab_parallel"] = {k: parallel[k] for k in ("losses", "item_table_grad")}
+    del model
+    torch.cuda.empty_cache()
+
+    if any(n < 1 for n in launches.values()):
+        fail(f"phase X: a kernel's bf16 form was never launched: {launches}")
+    out["launches"], out["f32_launches"], out["errors"] = launches, f32_launches, errors
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[bf16-tables] on {card}: launches of the bf16 forms {json.dumps(launches)}; "
+          f"phase X {out['phase_s']:.1f}s")
+    return out
+
+
 def bound(nbytes: int, flops: int, exps: int = 0, f32_flops: int = 0) -> dict:
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over their units' peak rates (the bf16
@@ -3905,7 +4489,7 @@ def bound(nbytes: int, flops: int, exps: int = 0, f32_flops: int = 0) -> dict:
 
 
 def time_ce_train(vocab, n: int, rows: int, vocab_size: int, chunk_rows: int = 0,
-                  e: int = 64) -> dict:
+                  e: int = 64, table_dtype=torch.float32) -> dict:
     """K1 and K2 at a training shape beside their plain versions and a
     library yardstick that materialises the logits (bf16 products through
     torch.matmul; never used by the port). Without ``chunk_rows`` the
@@ -3913,9 +4497,10 @@ def time_ce_train(vocab, n: int, rows: int, vocab_size: int, chunk_rows: int = 0
     With it (at 8,192 rows the logits would take 12.8 GB) the same calls run
     on ``chunk_rows`` rows at a time, dW summed over the chunks in f32, and
     the time goes under ``library_chunked_ms``: no single call fits at that
-    size, so ``library_ms`` is None."""
-    x, W, labels, w = ce_train_inputs(n, rows, vocab_size, 1, False, "cuda", e)
-    E = x.shape[1]
+    size, so ``library_ms`` is None. ``table_dtype`` bf16 times the kernels'
+    forms for a bf16-stored table (its bytes, and dW's, count 2 a value)."""
+    x, W, labels, w = ce_train_inputs(n, rows, vocab_size, 1, False, "cuda", e, table_dtype)
+    E, wb = x.shape[1], W.element_size()
     coef = (w / w.sum()).contiguous()
     lse, _, _ = vocab.ce_fwd(x, W, labels, vocab_size)
     xb16 = x.to(torch.bfloat16)
@@ -3958,7 +4543,7 @@ def time_ce_train(vocab, n: int, rows: int, vocab_size: int, chunk_rows: int = 0
         "plain_ms": cuda_ms(lambda: vocab.ce_fwd_plain(x, W, labels, vocab_size, False), reps=10),
         **yardstick(library_fwd, chunked_fwd),
         # read x, the used rows of W and the labels once, write lse and ll once
-        **bound(4 * (n * E + vocab_size * E + n) + 4 * 2 * n, 2 * n * E * vocab_size,
+        **bound(4 * (n * E + n) + wb * vocab_size * E + 4 * 2 * n, 2 * n * E * vocab_size,
                 n * vocab_size),
     }
     bwd = {
@@ -3967,26 +4552,27 @@ def time_ce_train(vocab, n: int, rows: int, vocab_size: int, chunk_rows: int = 0
                             reps=10),
         **yardstick(library_bwd, chunked_bwd),
         # read x, the used rows of W, labels, lse and coef once; write dx and
-        # the whole of dW once; three products and one set of exponentials
-        **bound(4 * (n * E + vocab_size * E + 3 * n) + 4 * (n * E + rows * E),
+        # the whole of dW (in W's type) once; three products and one set of
+        # exponentials
+        **bound(4 * (n * E + 3 * n) + wb * vocab_size * E + 4 * n * E + wb * rows * E,
                 3 * 2 * n * E * vocab_size, n * vocab_size),
     }
     # K2's wide passes form the residual once for every 128 columns of E
     bwd["recompute"] = vocab.ce_plan(n, E, vocab_size, rows, 1, True).e_splits
     for r in (fwd, bwd):
-        r["N"], r["E"] = n, E
+        r["N"], r["E"], r["table_dtype"] = n, E, str(W.dtype)[6:]
     return {"ce_fwd": fwd, "ce_bwd": bwd}
 
 
 def time_ce_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64,
-                 chunk_rows: int = 0) -> dict:
+                 chunk_rows: int = 0, table_dtype=torch.float32) -> dict:
     """K3 beside its plain version and a library yardstick that materialises
     the (N, V) logits; with the launch plan's ring (``stages`` slots of
     ``slot_rows`` rows a block, ``blocks_per_sm``; none past E = 256, where
     the wide kernel runs) and splits. With ``chunk_rows`` the yardstick runs
     on that many rows at a time (``library_chunked_ms``; ``library_ms`` is
-    None), as ``time_ce_train``'s."""
-    x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, 4.0, 12.0, 1, "cuda")
+    None), as ``time_ce_train``'s; ``table_dtype`` as there."""
+    x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, 4.0, 12.0, 1, "cuda", table_dtype)
     ll = vocab.label_logits(x, W, labels)
     xb16 = x.to(torch.bfloat16)
     Wb16 = W[:vocab_size].to(torch.bfloat16)  # cast once, outside the timed call
@@ -4005,30 +4591,33 @@ def time_ce_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64,
                                                    reps=5)}
     else:
         yardstick = {"library_ms": cuda_ms(library)}
-    E = x.shape[1]
+    E, wb, bf16 = x.shape[1], W.element_size(), W.dtype == torch.bfloat16
     # least work: read x, the vocab_size used rows of W, labels and ll once,
     # write lse and rank once; 2·N·E·V operations of the product and N·V
     # exponentials
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = vocab.ce_plan(n, E, vocab_size, rows, sms, False, vocab.K3_CHUNK, streamed=True)
+    plan = vocab.ce_plan(n, E, vocab_size, rows, sms, False, vocab.K3_CHUNK, streamed=True,
+                         table_bf16=bf16)
     return {
         "ms": ms, "plain_ms": plain_ms, **yardstick, "N": n, "E": E,
-        "stages": plan.stages or None, "slot_rows": None if plan.wide else vocab.k3_slot(E)[0],
+        "table_dtype": str(W.dtype)[6:], "stages": plan.stages or None,
+        "slot_rows": None if plan.wide else vocab.k3_slot(E, bf16)[0],
         "blocks_per_sm": None if plan.wide else plan.blocks_per_sm, "splits": plan.splits,
-        **bound(4 * (n * E + vocab_size * E + 2 * n) + 4 * 2 * n, 2 * n * E * vocab_size,
+        **bound(4 * (n * E + 2 * n) + wb * vocab_size * E + 4 * 2 * n, 2 * n * E * vocab_size,
                 n * vocab_size),
     }
 
 
-def time_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64) -> dict:
+def time_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64,
+              table_dtype=torch.float32) -> dict:
     """K4 at the evaluation shape beside its plain version and the library
     yardstick: a bf16 ``torch.matmul`` that materialises the (N, V) logits,
-    then a ``>`` count."""
-    x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, 4.0, 12.0, 1, "cuda")
+    then a ``>`` count; ``table_dtype`` as ``time_ce_train``'s."""
+    x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, 4.0, 12.0, 1, "cuda", table_dtype)
     ll = vocab.label_logits(x, W, labels)
     xb16 = x.to(torch.bfloat16)
     Wb16 = W[:vocab_size].to(torch.bfloat16)  # cast once, outside the timed call
-    E = x.shape[1]
+    E, wb = x.shape[1], W.element_size()
 
     def library():
         return (torch.matmul(xb16, Wb16.T).float() > ll[:, None]).sum(-1)
@@ -4036,26 +4625,29 @@ def time_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64) -> dict:
     return {
         "ms": cuda_ms(lambda: vocab.rank_counts(x, W, ll, labels, vocab_size)),
         "plain_ms": cuda_ms(lambda: vocab.rank_counts_plain(x, W, ll, labels, vocab_size)),
-        "library_ms": cuda_ms(library), "N": n, "E": E,
+        "library_ms": cuda_ms(library), "N": n, "E": E, "table_dtype": str(W.dtype)[6:],
         # read x, the vocab_size used rows of W, labels and ll once, write the
         # counts once; 2·N·E·V operations of the product
-        **bound(4 * (n * E + vocab_size * E + 2 * n) + 4 * n, 2 * n * E * vocab_size),
+        **bound(4 * (n * E + 2 * n) + wb * vocab_size * E + 4 * n, 2 * n * E * vocab_size),
     }
 
 
-def time_adafactor(rows: int, e: int) -> dict:
+def time_adafactor(rows: int, e: int, table_dtype=torch.float32) -> dict:
     """K7a and K7b at the item table's shape beside their plain versions, and
     a whole ``FusedAdafactor.step`` of that table on each arm (the streamed
     kernels; the plain chain with an f32 and with a bf16 moment). No single
     PyTorch call computes a pass, so there is no library yardstick. The
-    table (100 MB) is twice the L2 cache, so every call reads device memory."""
+    table (100 MB) is twice the L2 cache, so every call reads device memory.
+    ``table_dtype`` bf16 times the forms for a bf16-stored table (g, v and p
+    bf16; the arms the streamed one and the plain chain, each moment bf16)."""
     from transformers4rec_tpu_torch.ops import fused_adafactor as fa
 
     p, g = table_and_grad(rows, e, 1.0, 60, "cuda")
     v = torch.rand_like(p) + 0.1
+    p, g, v = p.to(table_dtype), g.to(table_dtype), v.to(table_dtype)
     decay = torch.full((), 0.4, device="cuda")
     coef = torch.full((1,), -1e-9, device="cuda")  # p barely moves over the timed calls
-    n = p.numel()
+    n, eb = p.numel(), p.element_size()
     out = {
         "adafactor_a": {
             "ms": cuda_ms(lambda: fa.adafactor_pass_a(g, v, decay, 6.7e-4, 1.0, 1e-30)),
@@ -4064,22 +4656,27 @@ def time_adafactor(rows: int, e: int) -> dict:
             "library_ms": None,
             # read g and v, write v in place; about 10 float32 operations and
             # one reciprocal root an element
-            **bound(3 * 4 * n, 0, n, 10 * n),
+            **bound(3 * eb * n, 0, n, 10 * n),
         },
         "adafactor_b": {
             "ms": cuda_ms(lambda: fa.adafactor_pass_b(p, g, v, coef)),
             "plain_ms": cuda_ms(lambda: fa.adafactor_pass_b_plain(p, g, v, coef), reps=10),
             "library_ms": None,
             # read g, v and p, write p in place
-            **bound(4 * 4 * n, 0, n, 4 * n),
+            **bound(4 * eb * n, 0, n, 4 * n),
         },
     }
+    for r in (out["adafactor_a"], out["adafactor_b"]):
+        r["shape"], r["table_dtype"] = [rows, e], str(table_dtype)[6:]
     if not (torch.isfinite(v).all() and torch.isfinite(p).all()):
         fail("time_adafactor: non-finite values after the timed calls")
     steps = {}
-    for arm, kwargs in (("streamed_f32", {"use_pallas": True}),
-                        ("plain_f32", {}),
-                        ("plain_bf16", {"moment_dtype": torch.bfloat16})):
+    arms = ((("streamed_f32", {"use_pallas": True}), ("plain_f32", {}),
+             ("plain_bf16", {"moment_dtype": torch.bfloat16}))
+            if table_dtype == torch.float32 else
+            (("streamed_bf16", {"use_pallas": True}),
+             ("plain_bf16", {"moment_dtype": torch.bfloat16})))
+    for arm, kwargs in arms:
         param = torch.nn.Parameter(p.clone())
         param.grad = g
         opt = fa.FusedAdafactor([param], lr=6.7e-4, **kwargs)
@@ -4239,6 +4836,61 @@ def time_ce_kernels(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def time_bf16_kernels(card: str) -> None:
+    """``--time-bf16``: each vocab kernel and K7a/K7b in its form for a
+    bf16-stored table beside its f32 form at the shapes of the kernel table
+    in PERF.md, the two forms in turns in one call: K1 and K2 at 915, 8,192
+    and 16,384 rows and at E = 448 with 915 and 8,192; K3 at 128 rows (E =
+    64 and 448), at every position's 2,560 and 8,192 rows, at packed
+    evaluation's 1,280 and 4,096 and at 4,000,001 items; K4 at 128 rows (E
+    = 64 and 448); K7a and K7b at the item table's shape. One line a
+    measurement (``[bf16-timing]``), then one JSON object of them all."""
+    from transformers4rec_tpu_torch import flagship
+    from transformers4rec_tpu_torch.ops import build, vocab
+
+    build.build(["ce_fwd", "ce_bwd", "ce_rank", "rank", "adafactor"])
+    vocab_size = flagship.NUM_ITEMS + 1
+    rows = -(-vocab_size // 8) * 8
+    large = flagship.LARGE_VOCAB_ITEMS + 1
+    e = flagship.PAPER_ITEM_DIM
+    plan = [
+        ("ce_train", 915, {}), ("ce_train", 8192, {"chunk_rows": 1024}),
+        ("ce_train", 16384, {"chunk_rows": 1024}), ("ce_train", 915, {"e": e}),
+        ("ce_train", 8192, {"chunk_rows": 1024, "e": e}),
+        ("ce_rank", EVAL_ROWS, {}), ("ce_rank", EVAL_ROWS, {"e": e}),
+        ("ce_rank", PLM_EVAL_ROWS, {}), ("ce_rank", PLM_LONG_EVAL_ROWS, {"chunk_rows": 1024}),
+        ("ce_rank", PACKED_EVAL_ROWS, {}), ("ce_rank", PACKED_LONG_EVAL_ROWS, {}),
+        ("ce_rank_large", EVAL_ROWS, {}), ("rank", EVAL_ROWS, {}), ("rank", EVAL_ROWS, {"e": e}),
+        ("adafactor", rows, {})]
+    results = []
+    for what, n, kw in plan:
+        for dtype in (torch.float32, torch.bfloat16):
+            if what == "ce_train":
+                got = time_ce_train(vocab, n, rows, vocab_size, table_dtype=dtype, **kw)
+            elif what == "ce_rank":
+                got = {"ce_rank": time_ce_rank(vocab, n, rows, vocab_size, table_dtype=dtype,
+                                               **kw)}
+            elif what == "ce_rank_large":
+                got = {"ce_rank": {**time_ce_rank(vocab, n, -(-large // 8) * 8, large,
+                                                  table_dtype=dtype), "V": large}}
+            elif what == "rank":
+                got = {"rank": time_rank(vocab, n, rows, vocab_size, table_dtype=dtype, **kw)}
+            else:
+                got = time_adafactor(n, 64, table_dtype=dtype)
+            for name, t in got.items():
+                line = {"kernel": name, "table_dtype": str(dtype)[6:], **{
+                    k: t[k] for k in TIMING_KEYS + ("N", "E", "V", "shape", "stages",
+                                                     "library_chunked_ms") if k in t}} \
+                    if name != "table_optimizer_step_ms" else {
+                        "kernel": "FusedAdafactor.step", "table_dtype": str(dtype)[6:],
+                        "ms": t}
+                print(f"[bf16-timing] on {card}: {json.dumps(line)}")
+                results.append(line)
+            torch.cuda.empty_cache()
+    print(card)
+    print(json.dumps({"bf16_timing": results}))
+
+
 def time_flash_kernels(card: str) -> None:
     """K5, K6a, K6b and K6c alone at the CLM path's shape (32, 256, 16, 12) with
     ragged padding, at the S = 4,096 step's (4, 4096, 16, 12) with ragged
@@ -4385,6 +5037,9 @@ def main() -> None:
     import_port()
     if sys.argv[1:] == ["--time-ce"]:
         time_ce_kernels(card_line())
+        return
+    if sys.argv[1:] == ["--time-bf16"]:
+        time_bf16_kernels(card_line())
         return
     if sys.argv[1:] == ["--time-flash"]:
         time_flash_kernels(card_line())
@@ -4600,6 +5255,9 @@ def main() -> None:
           f"{w1['device_busy_share']:.3f} against {t1['device_busy_share']:.3f}; peak memory "
           f"{sparse['peak_memory_gb']:.2f} against {large['peak_memory_gb']:.2f} GB")
 
+    # ---- main path X: the tables stored as bf16 (every path's kernels on bf16 tables)
+    bf16_tables = run_bf16_tables(flagship, vocab, fa, card)
+
     # ---- main path U: session packing (XLNet-MLM from Parquet, GPT-2-CLM on rows of 256)
     packing = run_packing(flagship, vocab, attention, card)
 
@@ -4630,12 +5288,33 @@ def main() -> None:
               **time_adafactor(table_rows, 64)}
     optimizer_ms = timing.pop("table_optimizer_step_ms")
     torch.cuda.empty_cache()
+    # the bf16 forms at the shapes at which phase X launches them: K1, K2 and
+    # K3 at E = 64 (X1) and 448 (X3), K3 at 4,000,001 items (X4), K4 (X5),
+    # K7a and K7b (X2)
+    bf16, wide_e = torch.bfloat16, flagship.PAPER_ITEM_DIM
+    large_vocab = flagship.LARGE_VOCAB_ITEMS + 1
+    bf16_timing = {"ce_rank": time_ce_rank(vocab, EVAL_ROWS, table_rows, vocab_size,
+                                           table_dtype=bf16),
+                   **time_ce_train(vocab, train_rows, table_rows, vocab_size, table_dtype=bf16),
+                   "rank": time_rank(vocab, EVAL_ROWS, table_rows, vocab_size, table_dtype=bf16),
+                   **time_adafactor(table_rows, 64, table_dtype=bf16)}
+    bf16_optimizer_ms = bf16_timing.pop("table_optimizer_step_ms")
+    bf16_wide = time_ce_train(vocab, train_rows, table_rows, vocab_size, e=wide_e,
+                              table_dtype=bf16)
+    bf16_also = {"ce_fwd": [bf16_wide["ce_fwd"]], "ce_bwd": [bf16_wide["ce_bwd"]],
+                 "ce_rank": [time_ce_rank(vocab, EVAL_ROWS, table_rows, vocab_size, e=wide_e,
+                                          table_dtype=bf16),
+                             {**time_ce_rank(vocab, EVAL_ROWS, -(-large_vocab // 8) * 8,
+                                             large_vocab, table_dtype=bf16), "V": large_vocab}]}
+    print(f"[timing] the bf16 forms on {card}: {json.dumps(bf16_timing)}; at E={wide_e} and "
+          f"V={large_vocab}: {json.dumps(bf16_also)}; one FusedAdafactor.step of the bf16 item "
+          f"table {json.dumps(bf16_optimizer_ms)} ms")
+    torch.cuda.empty_cache()
     clm_timing = time_ce_train(vocab, clm_rows, table_rows, vocab_size, chunk_rows=1024)
     long_timing = time_ce_train(vocab, long_rows, table_rows, vocab_size, chunk_rows=1024)
     torch.cuda.empty_cache()
     # the wide kernels at the paper's E = 448: training at the flagship's 915
     # loss rows and at 8,192, evaluation at 128 rows
-    wide_e = flagship.PAPER_ITEM_DIM
     wide_timing = {
         "train": time_ce_train(vocab, train_rows, table_rows, vocab_size, e=wide_e),
         "clm": time_ce_train(vocab, clm_rows, table_rows, vocab_size, chunk_rows=1024, e=wide_e),
@@ -4777,7 +5456,8 @@ def main() -> None:
     for name in ("ce_fwd", "ce_bwd", "adafactor_a", "adafactor_b"):
         launches[name] = (train["launches"][name] + streamed["launches"][name]
                           + parallel["launches"].get(name, 0) + wide["launches"].get(name, 0)
-                          + parquet["launches"].get(name, 0) + paper["launches"].get(name, 0))
+                          + parquet["launches"].get(name, 0) + paper["launches"].get(name, 0)
+                          + bf16_tables["f32_launches"][name])
     launches["rank"] = parallel["launches"]["rank"]
     # paths 6 and 7, P1, P2, S, T, U, V and W: every kernel of the CLM, PLM
     # and phase S to W paths
@@ -4816,6 +5496,21 @@ def main() -> None:
                                             "launches", "bias_shape")}
                     for t in also.get(name, [])],
     } for name, (source, replaces) in sources.items()]
+    # each kernel's form for a bf16-stored table: launched by phase X, held
+    # against its plain version there, timed at X's shapes
+    kernels += [{
+        "name": f"{name}_bf16",
+        "route": "cuda",
+        "source": f"transformers4rec_tpu_torch/csrc/{sources[name][0]}",
+        "replaces": sources[name][1],
+        "launches": bf16_tables["launches"][name],
+        "max_abs_err": bf16_tables["errors"][name],
+        **{k: bf16_timing[name][k] for k in TIMING_KEYS + ("N", "E", "shape", "stages",
+                                                           "table_dtype")
+           if k in bf16_timing[name]},
+        "also_at": [{**{k: t[k] for k in t if k in TIMING_KEYS + ("N", "E", "V", "table_dtype")},
+                     "main_path": True} for t in bf16_also.get(name, [])],
+    } for name in ("ce_fwd", "ce_bwd", "ce_rank", "rank", "adafactor_a", "adafactor_b")]
     if any(k["launches"] < 1 for k in kernels):
         fail(f"a kernel of the main path was never launched: {launches}")
     print(card)

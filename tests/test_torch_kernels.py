@@ -907,3 +907,249 @@ def test_wide_table_on_two_shards_matches_the_whole_table(dev):
     _assert_grad_close(xs.grad, xu.grad, "dx")
     _assert_grad_close(torch.cat([t.grad for t in shards]), Wu.grad, "dW")
     assert int((ranks.long() - want_ranks.long()).abs().max()) <= 1
+
+
+# ------------------------------------------------------- bf16-stored tables
+# A bf16 table is copied into K1's and K2's images as it is and read as it
+# is by K3's ring and K4's loads: every product sees the bits the f32
+# kernels see on the same values held as f32 (``W.float()``), so K1, K2's
+# dx and K4 give those kernels' bits, K2's dW is their f32 sum rounded once
+# to bf16 (nearest even, as ``Tensor.to``), and K3 its ranks exactly (its
+# ring and so its splits may differ: lse and zsum within 1e-6). Against the
+# plain versions the f32 tolerances hold, plus one bf16 rounding of dW.
+BF16_SHAPES = [
+    (915, 64, 40_008, 40_001, 0.0),  # the training shape, a narrower vocab
+    (37, 4, 1003, 999, 0.1),         # E = 4: 8 bytes a row, an odd vocab (K3's tail copy)
+    (193, 20, 3000, 2990, 0.0),      # E off the k-step of 16 and off 8
+    (130, 132, 3000, 2999, 0.1),     # E = 132: K2 wide, K3's narrow ring with a tail copy
+    (200, 192, 3000, 2999, 0.0),     # the flagship's d_model as the table width
+    (300, 448, 3000, 2999, 0.1),     # the paper's width: every kernel wide
+]
+
+
+def _bf16_ulp(t):
+    """The spacing of bf16 values at |t| (8 significant bits)."""
+    e = torch.frexp(t.float().abs().clamp_min(2.0 ** -126)).exponent
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("n,e,rows,vocab_size,eps", BF16_SHAPES)
+def test_bf16_tables_give_the_bits_of_the_f32_kernels_and_match_plain(dev, n, e, rows,
+                                                                       vocab_size, eps):
+    x, W, labels, w = _ce_inputs(n, e, rows, vocab_size, n + e + 3, dev)
+    labels[:3] = torch.tensor([vocab_size, rows - 1, 1], dtype=torch.int32, device=dev)
+    w[:3] = 1.0  # two labels on padding rows, weighted
+    Wb = W.to(torch.bfloat16)
+    Wf = Wb.float()
+    smooth = eps > 0
+    launches = (vocab.ce_fwd.launches, vocab.ce_bwd.launches, vocab.ce_rank.launches,
+                vocab.rank_counts.launches)
+    fwd = vocab.ce_fwd(x, Wb, labels, vocab_size, smooth=smooth)
+    fwd_f = vocab.ce_fwd(x, Wf, labels, vocab_size, smooth=smooth)
+    for a, b in zip(fwd, fwd_f):
+        assert (a is None and b is None) or torch.equal(a, b)
+    lse_p, ll_p, zs_p = vocab.ce_fwd_plain(x, Wb, labels, vocab_size, smooth)
+    torch.testing.assert_close(fwd[0], lse_p, rtol=1e-5, atol=0)
+    assert bool((fwd[1][:2] == -1e30).all())
+    torch.testing.assert_close(fwd[1][2:], ll_p[2:], rtol=1e-5, atol=1e-6)
+    coef = (w / w.sum()).contiguous()
+    dx, dW = vocab.ce_bwd(x, Wb, labels, lse_p, coef, vocab_size, eps)
+    dx_f, dW_f = vocab.ce_bwd(x, Wf, labels, lse_p, coef, vocab_size, eps)
+    assert dW.dtype == torch.bfloat16 and dW.shape == Wb.shape
+    assert torch.equal(dx, dx_f) and torch.equal(dW, dW_f.to(torch.bfloat16))
+    dx_p, dW_p = vocab.ce_bwd_plain(x, Wb, labels, lse_p, coef, vocab_size, eps)
+    dx_pf, dW_pf = vocab.ce_bwd_plain(x, Wf, labels, lse_p, coef, vocab_size, eps)
+    assert dW_p.dtype == torch.bfloat16 and torch.equal(dW_p, dW_pf.to(torch.bfloat16))
+    assert torch.equal(dx_p, dx_pf)
+    _assert_grad_close(dx, dx_p, "dx")
+    _assert_grad_close(dW_f, dW_pf, "dW before its rounding")
+    assert float((dW.float() - dW_p.float()).norm() / dW_p.float().norm()) <= 1e-3 + 2.0 ** -8
+    gathered = vocab.label_logits(x, Wb, labels)
+    torch.testing.assert_close(gathered, vocab.label_logits(x, Wf, labels), rtol=0, atol=0)
+    lse3, rank, zs3 = vocab.ce_rank(x, Wb, labels, gathered, vocab_size, smooth=smooth)
+    lse3_f, rank_f, zs3_f = vocab.ce_rank(x, Wf, labels, gathered, vocab_size, smooth=smooth)
+    assert torch.equal(rank, rank_f)
+    torch.testing.assert_close(lse3, lse3_f, rtol=1e-6, atol=0)
+    lse3_p, rank_p, zs3_p = vocab.ce_rank_plain(x, Wb, labels, gathered, vocab_size, smooth)
+    torch.testing.assert_close(lse3, lse3_p, rtol=1e-5, atol=0)
+    assert int((rank.long() - rank_p.long()).abs().max()) <= 1
+    if smooth:
+        scale = zs3_p.abs().clamp_min(math.sqrt(vocab_size))
+        assert float(((zs3 - zs3_p).abs() / scale).max()) <= 1e-5
+        assert float(((zs3 - zs3_f).abs() / scale).max()) <= 1e-6
+    cnt = vocab.rank_counts(x, Wb, gathered, labels, vocab_size)
+    assert torch.equal(cnt, vocab.rank_counts(x, Wf, gathered, labels, vocab_size))
+    cnt_p = vocab.rank_counts_plain(x, Wb, gathered, labels, vocab_size)
+    assert int((cnt.long() - cnt_p.long()).abs().max()) <= 1
+    torch.cuda.synchronize()
+    after = (vocab.ce_fwd.launches, vocab.ce_bwd.launches, vocab.ce_rank.launches,
+             vocab.rank_counts.launches)
+    assert after == tuple(c + 2 for c in launches)
+
+
+@pytest.mark.parametrize("e", [4, 20, 64, 132, 256])
+def test_the_bf16_ring_is_what_the_plan_gives(dev, e):
+    """K3's ring on a bf16 table: the C formula of its shared memory is the
+    plan's, about twice the f32 ring's slots fit (at least as many)."""
+    lib = vocab._kernel_lib("ce_rank")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = vocab.ce_plan(128, e, 390_001, 390_008, sms, False, vocab.K3_CHUNK, streamed=True,
+                         table_bf16=True)
+    f32 = vocab.ce_plan(128, e, 390_001, 390_008, sms, False, vocab.K3_CHUNK, streamed=True)
+    assert lib.t4r_ce_rank_smem_bf16(e, plan.stages) == plan.smem <= vocab.MAX_SMEM
+    assert plan.stages >= f32.stages and plan.stages * plan.blocks_per_sm >= vocab.K3_MIN_STAGES
+
+
+def test_an_empty_vocab_on_a_bf16_table(dev):
+    x, W, _, _ = _inputs(70, 64, 512, 500, 22, dev)
+    Wb = W.to(torch.bfloat16)
+    minus_one = torch.full((70,), -1, dtype=torch.int32, device=dev)
+    zeros = torch.zeros(70, device=dev)
+    lse, ll, _ = vocab.ce_fwd(x, Wb, minus_one, 0)
+    assert bool((lse == -1e30).all()) and not bool(ll.any())
+    lse3, rank, _ = vocab.ce_rank(x, Wb, minus_one, zeros, 0)
+    assert bool((lse3 == -1e30).all()) and not bool(rank.any())
+    assert not bool(vocab.rank_counts(x, Wb, zeros, minus_one, 0).any())
+    dx, dW = vocab.ce_bwd(x, Wb, minus_one, zeros, torch.full((70,), 1 / 70, device=dev), 0)
+    assert dW.dtype == torch.bfloat16 and not bool(dx.any()) and not bool(dW.any())
+
+
+def test_kernels_on_a_bf16_table_allocate_no_f32_copy_of_it(dev):
+    """K1, K3, K4 and K7 on the flagship's bf16 table: the call's peak
+    memory grows by less than one f32 copy of the table (Vp·E·4 bytes)."""
+    rows, e, V = 390_008, 64, 390_001
+    x, W, labels, ll = _inputs(128, e, rows, V, 31, dev)
+    Wb = W.to(torch.bfloat16)
+    del W
+    g = (torch.randn(rows, e, device=dev) * 1e-3).to(torch.bfloat16)
+    v = torch.zeros_like(Wb)
+    decay = torch.full((), 0.5, device=dev)
+    f32_copy = rows * e * 4
+    calls = {
+        "ce_fwd": lambda: vocab.ce_fwd(x, Wb, labels, V),
+        "ce_rank": lambda: vocab.ce_rank(x, Wb, labels, ll, V),
+        "rank_counts": lambda: vocab.rank_counts(x, Wb, ll, labels, V),
+        "adafactor": lambda: fa.adafactor_update(Wb, g, v, decay, 1e-3),
+    }
+    for name, call in calls.items():
+        call()  # built and warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = call()
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated(dev) - base
+        del out
+        assert grown < f32_copy, (name, grown)
+
+
+def _bf16_close(got, want, what, slack=None):
+    """Within one bf16 spacing of ``want`` (plus ``slack`` per element)."""
+    tol = _bf16_ulp(want) + (0.0 if slack is None else slack)
+    assert bool(((got.float() - want.float()).abs() <= tol).all()), what
+
+
+@pytest.mark.parametrize("rows,e,clip", [(4096, 64, 1.0), (2051, 13, 1.0), (40_008, 64, None)])
+def test_adafactor_kernels_on_bf16_match_plain_over_three_steps(dev, rows, e, clip):
+    """K7a and K7b on bf16 g, v and p against the plain passes on the same
+    bf16 tensors. The kernels' rsqrt is approximate (2 f32 ulps) and their
+    clip sum in another order: the moment within one bf16 spacing, the
+    parameter within one spacing of itself and of its update."""
+    rng = np.random.default_rng(rows + e)
+    p0 = torch.from_numpy(rng.normal(0, 0.05, (rows, e)).astype(np.float32)).to(dev)
+    p, v = p0.to(torch.bfloat16), torch.zeros(rows, e, dtype=torch.bfloat16, device=dev)
+    p_p, v_p = p.clone(), v.clone()
+    for step, scale in enumerate((1e-2, 1.0, 30.0)):
+        g = torch.from_numpy((rng.normal(0, 1, (rows, e)) * scale).astype(np.float32))
+        g = g.to(dev).to(torch.bfloat16)
+        decay = 1.0 - torch.full((), float(step + 1), device=dev) ** -0.8
+        before = p_p.clone()
+        coef = fa.adafactor_pass_a(g, v, decay, 6.7e-4, clip, 1e-30)
+        coef_p = fa.adafactor_pass_a_plain(g, v_p, decay, 6.7e-4, clip, 1e-30)
+        torch.testing.assert_close(coef, coef_p, rtol=1e-5, atol=0)
+        _bf16_close(v, v_p, "v")
+        fa.adafactor_pass_b(p, g, v_p, coef_p)  # the same moment and coefficient
+        fa.adafactor_pass_b_plain(p_p, g, v_p, coef_p)
+        torch.cuda.synchronize()
+        assert p.dtype == torch.bfloat16 and v.dtype == torch.bfloat16
+        _bf16_close(p, p_p, "p", slack=_bf16_ulp(p_p - before))
+        v.copy_(v_p)
+    assert float((p_p.float() - p0.to(torch.bfloat16).float()).abs().max()) > 0
+
+
+def test_streamed_optimizer_step_on_a_bf16_table_on_the_card_matches_the_cpu(dev):
+    """``FusedAdafactor(use_pallas=True)`` on a bf16 parameter: K7a/K7b on
+    the card against the plain passes on the CPU, two steps."""
+    rng = np.random.default_rng(16)
+    p0 = torch.from_numpy(rng.normal(0, 0.05, (2304, 64)).astype(np.float32)).to(torch.bfloat16)
+    grads = [torch.from_numpy((rng.normal(0, 1, (2304, 64)) * s).astype(np.float32))
+             .to(torch.bfloat16) for s in (1.0, 20.0)]
+    results = []
+    for device in (dev, torch.device("cpu")):
+        p = torch.nn.Parameter(p0.clone().to(device))
+        opt = fa.FusedAdafactor([p], lr=6.7e-4, use_pallas=True)
+        a = fa.adafactor_pass_a.launches
+        for g in grads:
+            p.grad = g.to(device)
+            opt.step()
+        assert opt.state[p]["v"].dtype == torch.bfloat16
+        if device.type == "cuda":
+            assert fa.adafactor_pass_a.launches == a + 2
+        results.append((p.detach().cpu(), opt.state[p]["v"].cpu()))
+    (p_k, v_k), (p_c, v_c) = results
+    assert p_k.dtype == torch.bfloat16
+    _bf16_close(v_k, v_c, "v")
+    move = (p_c.float() - p0.float()).abs()
+    _bf16_close(p_k, p_c, "p", slack=2 * _bf16_ulp(move))
+
+
+def test_kernels_refuse_a_table_of_another_type(dev):
+    x, W, labels, ll = _inputs(8, 64, 512, 500, 7, dev)
+    for bad in (W.half(), W.double()):
+        with pytest.raises(TypeError):
+            vocab.ce_fwd(x, bad, labels, 500)
+        with pytest.raises(TypeError):
+            vocab.ce_rank(x, bad, labels, ll, 500)
+        with pytest.raises(TypeError):
+            vocab.rank_counts(x, bad, ll, labels, 500)
+    pb = torch.zeros(2048, 8, dtype=torch.bfloat16, device=dev)
+    decay = torch.full((), 0.5, device=dev)
+    with pytest.raises(TypeError):  # a bf16 table with an f32 gradient
+        fa.adafactor_update(pb, pb.float(), pb.clone(), decay, 1e-3)
+    with pytest.raises(TypeError):
+        fa.adafactor_update(pb.half(), pb.half(), pb.half(), decay, 1e-3)
+
+
+def test_the_sparse_rows_update_of_a_bf16_table_on_the_card_matches_the_cpu(dev):
+    """``index_add_`` on a bf16 table with the padding slots' ``-0.0`` on row
+    V − 1: untouched rows keep their bits, touched rows within one bf16
+    spacing of the CPU's and one of their movement (the f32 step's last bits
+    may differ: the card's ``pow``, ``sqrt`` and atomic sums against the
+    CPU's)."""
+    from transformers4rec_tpu_torch.ops.sparse_update import (
+        sparse_rows_adafactor_init, sparse_rows_adafactor_update, sparse_rows_adam_init,
+        sparse_rows_adam_update)
+
+    rng = np.random.default_rng(17)
+    V, E = 5000, 64
+    table0 = torch.from_numpy(rng.normal(0, 0.05, (V, E)).astype(np.float32)).to(torch.bfloat16)
+    ids = torch.from_numpy(rng.integers(1, V - 1, 700)).long()
+    ids[:50] = ids[50:100]  # repeated ids
+    # f32 row gradients, as the sparse step's buffer holds them: their sums over
+    # repeated ids may differ in the last f32 bits (the card's atomics)
+    grads = torch.from_numpy(rng.normal(0, 1e-2, (700, E)).astype(np.float32))
+    for init, update in ((sparse_rows_adam_init, sparse_rows_adam_update),
+                         (sparse_rows_adafactor_init, sparse_rows_adafactor_update)):
+        out = []
+        for device in (dev, torch.device("cpu")):
+            table = table0.clone().to(device)
+            state = init(table, moment_dtype=torch.bfloat16)
+            for _ in range(2):
+                update(table, state, ids.to(device), grads.to(device), 1e-2)
+            out.append(table.cpu())
+        touched = torch.zeros(V, dtype=torch.bool)
+        touched[ids] = True
+        assert out[0].dtype == torch.bfloat16
+        assert torch.equal(out[0][~touched], table0[~touched])  # row V - 1 included
+        _bf16_close(out[0][touched], out[1][touched], update.__name__,
+                    slack=_bf16_ulp(out[1][touched].float() - table0[touched].float()))

@@ -167,7 +167,8 @@ def test_every_embedding_table_is_labelled_table():
         "a.item_id_table": "table", "b.kernel": "dense"}
 
 
-@pytest.mark.parametrize("field,value", [("embedding_table_dtype", "bf16")])
+@pytest.mark.parametrize("field,value", [("gradient_checkpointing", True),
+                                         ("save_async", True)])
 def test_arguments_refuse_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError):
         T4RecTrainingArguments(**{field: value})
@@ -176,11 +177,13 @@ def test_arguments_refuse_what_is_not_ported(field, value):
 @pytest.mark.parametrize("field,value", [
     ("embedding_optimizer", "sparse_adam"), ("embedding_optimizer", "sparse_adafactor"),
     ("embedding_optimizer", "lazy_adam"), ("gradient_accumulation_steps", 2),
+    ("embedding_table_dtype", "bf16"),
 ])
 def test_arguments_accept_the_table_arms_and_accumulation(field, value, recwarn):
     """Each builds a trainer over a sampled-softmax model that selects its
     arm: the sparse step with its rule (the item table in neither torch
-    optimizer), ``LazyAdam`` on the tables, or the accumulation count."""
+    optimizer), ``LazyAdam`` on the tables, the accumulation count, or
+    bf16-stored tables under ``FusedAdafactor``."""
     from transformers4rec_tpu_torch.ops.sparse_update import LazyAdam
     from transformers4rec_tpu_torch.trainer import Trainer
 
@@ -200,8 +203,10 @@ def test_arguments_accept_the_table_arms_and_accumulation(field, value, recwarn)
         assert trainer._sparse is None and id(table) in in_optimizers
         want = LazyAdam if value == "lazy_adam" else FusedAdafactor
         assert type(trainer.optimizers["table"]) is want
-        assert trainer.args.gradient_accumulation_steps == (value if field != "embedding_optimizer"
-                                                            else 1)
+        assert trainer.args.gradient_accumulation_steps == (
+            value if field == "gradient_accumulation_steps" else 1)
+        assert table.dtype == (torch.bfloat16 if field == "embedding_table_dtype"
+                               else torch.float32)
 
 
 def test_arguments_keep_the_reference_defaults():

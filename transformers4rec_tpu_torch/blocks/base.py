@@ -38,7 +38,7 @@ from torch import nn
 from ..config.transformer import T4RecConfig
 from ..masking import MaskingInfo
 from .transformer import ACTIVATIONS
-from .transformer import _lecun_normal_, dropout, init_dense_
+from .transformer import _lecun_normal_, dropout, init_dense_, promote
 
 # which masking schemes each architecture supports
 _DEFAULT_MASKING = ("clm", "mlm", "rtd", "plm")
@@ -113,7 +113,8 @@ class MLPBlock(nn.Module):
             raise ValueError("MLPBlock has no layers yet: build(input_dim) it first")
         act = ACTIVATIONS[self.activation]
         for i in range(len(self.dimensions)):
-            x = act(getattr(self, f"dense_{i}")(x))
+            dense = getattr(self, f"dense_{i}")
+            x = act(dense(promote(x, dense.weight)))
             if self.use_norm:
                 x = getattr(self, f"norm_{i}")(x)
             x = dropout(x, self.dropout, training, generator)
@@ -216,7 +217,7 @@ class RNNBlock(nn.Module):
             # single-layer GRU or LSTM has no dropout, so the flag changes
             # nothing else
             rnn.training = torch.is_grad_enabled()
-            x, _ = rnn(x)
+            x, _ = rnn(promote(x, rnn.weight_ih_l0))
             if i < self.num_layers - 1:
                 x = dropout(x, self.dropout, training, generator)
         return x

@@ -73,6 +73,13 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
     nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
+def promote(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``x`` in the type a flax module computes in: the promotion of its
+    input's type and its parameters' (a bf16 table's lookup meets f32
+    weights as f32, an exact upcast; an f32 input is returned as it is)."""
+    return x.to(torch.promote_types(x.dtype, weight.dtype))
+
+
 def init_dense_(lin: nn.Linear, generator: torch.Generator) -> None:
     """A Linear as flax initialises a Dense: lecun-normal kernel, zero bias."""
     _lecun_normal_(lin.weight, lin.in_features, generator)

@@ -50,6 +50,12 @@ The sequence projection ``projection_{i}`` becomes ``projections.{i}`` and a
 keeps rows ``[rank·V_l, (rank+1)·V_l)`` of the named tables, for a module
 that holds them as shards (a vocab-parallel model shards its item table).
 
+A bf16 leaf (``ml_dtypes.bfloat16`` numpy: a JAX trainer's tables under
+``embedding_table_dtype="bf16"``) becomes a ``torch.bfloat16`` tensor of the
+same bits, and ``params_to_jax`` gives a bf16 weight back as an
+``ml_dtypes.bfloat16`` leaf. A module loads a bf16 table into a bf16
+parameter (``trainer.cast_tables_`` makes its tables so first).
+
 Load the result with ``module.load_state_dict(sd)`` (strict, so a missing
 or extra weight is an error). Training adds no weights, so the same rules
 serve it. ``params_to_jax(state_dict, template)`` goes the other way: the
@@ -185,7 +191,7 @@ def params_from_jax(tree: Mapping, shard: Optional[Tuple[int, int]] = None,
     rnn = dict(_rnn_cells(tree))
     for path, kind in rnn.items():
         for key, arr in _rnn_from_jax(_get(tree, path), kind).items():
-            out[_rnn_prefix(path, kind) + key] = torch.from_numpy(np.ascontiguousarray(arr).copy())
+            out[_rnn_prefix(path, kind) + key] = _tensor(arr)
     for path, (name, key, parent) in _port_names(tree).items():
         if any(path[:len(p)] == p for p in rnn):
             continue
@@ -201,7 +207,7 @@ def params_from_jax(tree: Mapping, shard: Optional[Tuple[int, int]] = None,
                 raise ValueError(f"table {name}: {arr.shape[0]} rows do not divide by {world}")
             rows = arr.shape[0] // world
             arr = arr[rank * rows:(rank + 1) * rows]
-        out[name] = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        out[name] = _tensor(arr)
     return out
 
 
@@ -244,7 +250,7 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], template: Mapping) -> 
         if name not in state_dict:
             raise KeyError(f"no weight {name} for {'/'.join(path)}")
         shape = np.shape(_get(tree, path))
-        v = state_dict[name].detach().cpu().numpy()
+        v = _array(state_dict[name])
         if key == "kernel":
             v = v.T.reshape(shape)
         elif key == "bias" and len(shape) == 2:
@@ -293,11 +299,25 @@ def masking_info_from_jax(targets, mask, pad_mask=None, device=None,
     )
 
 
-def _moment(a, device) -> torch.Tensor:
+def _tensor(a, device=None) -> torch.Tensor:
+    """A numpy array as a tensor of its own (a copy) on ``device``. torch
+    takes no ``ml_dtypes`` bfloat16 array: one is carried through float32,
+    exactly, to ``torch.bfloat16``."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carried as float32, exact
+    if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).to(device)
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 as an ``ml_dtypes`` bfloat16 array of the same
+    bits (numpy has no bfloat16 of its own; ``ml_dtypes`` comes with JAX)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.float().numpy().astype(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def sparse_state_from_jax(state, device=None):
@@ -306,6 +326,6 @@ def sparse_state_from_jax(state, device=None):
     ``SparseRowsAdafactorState`` on ``device``, moments in their dtype."""
     count = torch.tensor(int(np.asarray(state.count)), dtype=torch.int32, device=device)
     if hasattr(state, "v"):
-        return SparseRowsAdafactorState(count=count, v=_moment(state.v, device))
-    return SparseRowsAdamState(count=count, mu=_moment(state.mu, device),
-                               nu=_moment(state.nu, device))
+        return SparseRowsAdafactorState(count=count, v=_tensor(state.v, device))
+    return SparseRowsAdamState(count=count, mu=_tensor(state.mu, device),
+                               nu=_tensor(state.nu, device))

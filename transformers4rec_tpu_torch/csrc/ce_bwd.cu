@@ -7,6 +7,9 @@
 //   P[n, c] = exp(bf16(x[n]) . bf16(W[c]) - lse[n])         (0 for c >= V)
 //   R[n, c] = bf16((P[n, c] - eps_over_v - (1 - eps) [c == label[n]]) * coef[n])
 //   dx = R . bf16(W)   (N, E) f32          dW = R^T . bf16(x)   (Vp, E) f32
+// W may be stored as f32 or as bf16 (a bf16-stored table); dW is written in
+// W's type, the f32 sum rounded once to nearest even for a bf16 table, as
+// the reference's dW.astype(W.dtype) gives.
 // Neither the logits nor R reach device memory. The one-hot term stands at
 // every column of the table, as in the reference: a label on a padding row
 // (V <= label < Vp) puts -(1 - eps) coef[n] bf16(x[n]) into that row of dW and
@@ -91,6 +94,16 @@ using namespace t4r::hopper;
 
 constexpr int INFO_BYTES = TILE * 16;  // (lse log2(e), coef, label, 0) per row
 
+// Stores the pair (a, b) at element i of dW: f32, or bf16 rounded to nearest
+// even when bf16 (a bf16-stored table's gradient). i is even.
+__device__ __forceinline__ void store_dw_pair(void* dW, bool bf16, size_t i, float a, float b) {
+  if (bf16) {
+    *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(dW) + i) = pack_bf16(a, b);
+  } else {
+    *reinterpret_cast<float2*>(static_cast<float*>(dW) + i) = make_float2(a, b);
+  }
+}
+
 // the dW pass's ring: a slot holds an x tile and its rows' entries of the row table
 template <int KA>
 using DwRing = Ring<KA, KA * SLAB_BYTES + INFO_BYTES>;
@@ -154,7 +167,7 @@ template <int KA>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 ce_bwd_dw_kernel(const uint8_t* __restrict__ ximg, const uint8_t* __restrict__ wimg,
                  const float4* __restrict__ info, int row_tiles, int E, int V, int Vp,
-                 float eov, float one_minus_eps, float* __restrict__ dW) {
+                 float eov, float one_minus_eps, void* __restrict__ dW, int dw_bf16) {
   constexpr int EK = 64 * KA;
   using R = DwRing<KA>;
   constexpr int TILE_BYTES = R::TILE_BYTES, SLOT_BYTES = TILE_BYTES + INFO_BYTES;
@@ -227,8 +240,8 @@ ce_bwd_dw_kernel(const uint8_t* __restrict__ ximg, const uint8_t* __restrict__ w
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (cols[h] < Vp && e < E) {
-          *reinterpret_cast<float2*>(dW + (size_t)cols[h] * E + e) =
-              make_float2(dw[4 * j + 2 * h], dw[4 * j + 2 * h + 1]);
+          store_dw_pair(dW, dw_bf16, (size_t)cols[h] * E + e, dw[4 * j + 2 * h],
+                        dw[4 * j + 2 * h + 1]);
         }
       }
     }
@@ -365,7 +378,8 @@ __device__ __forceinline__ void second_product(float (&out)[64], const uint32_t 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 ce_bwd_dw_wide_kernel(const uint8_t* __restrict__ ximg, const uint8_t* __restrict__ wimg,
                       const float4* __restrict__ info, int row_tiles, int E, int V, int Vp,
-                      int ek, int slabs, float eov, float one_minus_eps, float* __restrict__ dW) {
+                      int ek, int slabs, float eov, float one_minus_eps, void* __restrict__ dW,
+                      int dw_bf16) {
   extern __shared__ uint8_t smem_raw[];
   const DynRing r(smem_raw, 0, WIDE_STAGES, WIDE_SLOT);
   const int c = blockIdx.x, js = blockIdx.y;
@@ -428,8 +442,8 @@ ce_bwd_dw_wide_kernel(const uint8_t* __restrict__ ximg, const uint8_t* __restric
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (cols[h] < Vp && e < E) {
-          *reinterpret_cast<float2*>(dW + (size_t)cols[h] * E + e) =
-              make_float2(dw[4 * j + 2 * h], dw[4 * j + 2 * h + 1]);
+          store_dw_pair(dW, dw_bf16, (size_t)cols[h] * E + e, dw[4 * j + 2 * h],
+                        dw[4 * j + 2 * h + 1]);
         }
       }
     }
@@ -528,9 +542,9 @@ __global__ void row_info_kernel(const float* __restrict__ lse, const float* __re
 // Sums the per-split partials of dx in order. The dx kernel leaves the
 // columns at and beyond V out, so the one-hot term of a label on a padding
 // row is added here: R = bf16(-(1 - eps) coef[n]) times bf16(W[label]), both
-// exact in f32.
+// exact in f32. W is f32, or bf16 when w_bf16.
 __global__ void ce_bwd_dx_reduce_kernel(const float* __restrict__ part_dx, int splits,
-                                        int count, const float* __restrict__ W,
+                                        int count, const void* __restrict__ W, int w_bf16,
                                         const int* __restrict__ labels,
                                         const float* __restrict__ coef, int E, int V, int Vp,
                                         float one_minus_eps, float* __restrict__ dx) {
@@ -541,52 +555,58 @@ __global__ void ce_bwd_dx_reduce_kernel(const float* __restrict__ part_dx, int s
   const int n = i / E, lab = labels[n];
   if (lab >= V && lab < Vp) {
     const float r = __bfloat162float(__float2bfloat16(-one_minus_eps * coef[n]));
-    s += r * __bfloat162float(__float2bfloat16(W[(size_t)lab * E + (i - n * E)]));
+    const size_t at = (size_t)lab * E + (i - n * E);
+    const __nv_bfloat16 w = w_bf16 ? static_cast<const __nv_bfloat16*>(W)[at]
+                                   : __float2bfloat16(static_cast<const float*>(W)[at]);
+    s += r * __bfloat162float(w);
   }
   dx[i] = s;
 }
 
-cudaError_t launch_reduce(cudaStream_t st, const float* W, const int* labels, const float* coef,
-                          int N, int E, int V, int Vp, float one_minus_eps, int splits,
-                          const float* part_dx, float* dx) {
+cudaError_t launch_reduce(cudaStream_t st, const void* W, int w_bf16, const int* labels,
+                          const float* coef, int N, int E, int V, int Vp, float one_minus_eps,
+                          int splits, const float* part_dx, float* dx) {
   const int count = N * E, reduce_threads = 256;
   ce_bwd_dx_reduce_kernel<<<(count + reduce_threads - 1) / reduce_threads, reduce_threads, 0,
-                            st>>>(part_dx, splits, count, W, labels, coef, E, V, Vp,
+                            st>>>(part_dx, splits, count, W, w_bf16, labels, coef, E, V, Vp,
                                   one_minus_eps, dx);
   return cudaGetLastError();
 }
 
 template <int KA>
 cudaError_t launch_bwd(cudaStream_t st, const uint8_t* ximg, const uint8_t* wimg,
-                       const float4* info, const float* W, const int* labels, const float* lse,
-                       const float* coef, int N, int E, int V, int Vp, int row_tiles,
-                       int table_tiles, float eov, float one_minus_eps, int splits,
-                       int chunks_per_split, float* part_dx, float* dx, float* dW) {
+                       const float4* info, const void* W, int w_bf16, const int* labels,
+                       const float* lse, const float* coef, int N, int E, int V, int Vp,
+                       int row_tiles, int table_tiles, float eov, float one_minus_eps,
+                       int splits, int chunks_per_split, float* part_dx, float* dx, void* dW) {
   cudaError_t err = launch(ce_bwd_dw_kernel<KA>, dim3(table_tiles), DwRing<KA>::BYTES, st, ximg,
-                           wimg, info, row_tiles, E, V, Vp, eov, one_minus_eps, dW);
+                           wimg, info, row_tiles, E, V, Vp, eov, one_minus_eps, dW, w_bf16);
   if (err != cudaSuccess) return err;
   // row tiles fastest: they share a slice of W
   err = launch(ce_bwd_dx_kernel<KA>, dim3(row_tiles, splits), Ring<KA>::BYTES, st, ximg, wimg,
                labels, lse, coef, N, E, V, chunks_per_split, eov, one_minus_eps, part_dx);
   if (err != cudaSuccess) return err;
-  return launch_reduce(st, W, labels, coef, N, E, V, Vp, one_minus_eps, splits, part_dx, dx);
+  return launch_reduce(st, W, w_bf16, labels, coef, N, E, V, Vp, one_minus_eps, splits,
+                       part_dx, dx);
 }
 
 cudaError_t launch_bwd_wide(cudaStream_t st, const uint8_t* ximg, const uint8_t* wimg,
-                            const float4* info, const float* W, const int* labels,
+                            const float4* info, const void* W, int w_bf16, const int* labels,
                             const float* lse, const float* coef, int N, int E, int V, int Vp,
                             int ek, int slabs, int e_splits, int row_tiles, int table_tiles,
                             float eov, float one_minus_eps, int splits, int chunks_per_split,
-                            float* part_dx, float* dx, float* dW) {
+                            float* part_dx, float* dx, void* dW) {
   const int smem = DynRing::bytes(0, WIDE_STAGES, WIDE_SLOT);
   cudaError_t err = launch(ce_bwd_dw_wide_kernel, dim3(table_tiles, e_splits), smem, st, ximg,
-                           wimg, info, row_tiles, E, V, Vp, ek, slabs, eov, one_minus_eps, dW);
+                           wimg, info, row_tiles, E, V, Vp, ek, slabs, eov, one_minus_eps, dW,
+                           w_bf16);
   if (err != cudaSuccess) return err;
   err = launch(ce_bwd_dx_wide_kernel, dim3(row_tiles, splits, e_splits), smem, st, ximg, wimg,
                labels, lse, coef, N, E, V, ek, slabs, chunks_per_split, eov, one_minus_eps,
                part_dx);
   if (err != cudaSuccess) return err;
-  return launch_reduce(st, W, labels, coef, N, E, V, Vp, one_minus_eps, splits, part_dx, dx);
+  return launch_reduce(st, W, w_bf16, labels, coef, N, E, V, Vp, one_minus_eps, splits,
+                       part_dx, dx);
 }
 
 }  // namespace
@@ -603,14 +623,16 @@ extern "C" {
 // hold E. The caller checks shapes (E a multiple of 4), dtypes, contiguity
 // and alignment, and allocates every buffer: info (row_tiles x 128, 4) f32,
 // part_dx (splits, N, E), dx (N, E), dW (Vp, E); the last three are written
-// in full. eps is the label smoothing and eps_over_v its share of every
-// valid column. V may be 0 (splits = 1). Returns the first CUDA error (0
-// when every launch was accepted).
-int t4r_ce_bwd(const void* ximg, const void* wimg, const float* W, const int* labels,
+// in full. W and dW are f32, or both bf16 when w_bf16 is 1 (a bf16-stored
+// table: dW is the f32 sum rounded to nearest even). eps is the label
+// smoothing and eps_over_v its share of every valid column. V may be 0
+// (splits = 1). Returns the first CUDA error (0 when every launch was
+// accepted).
+int t4r_ce_bwd(const void* ximg, const void* wimg, const void* W, int w_bf16, const int* labels,
                const float* lse, const float* coef, int N, int E, int V, int Vp, int ek,
                int slabs, int e_splits, int row_tiles, int table_tiles, float eps,
                float eps_over_v, int splits, int chunks_per_split, void* info, float* part_dx,
-               float* dx, float* dW, void* stream) {
+               float* dx, void* dW, void* stream) {
   const bool narrow = (ek == 64 || ek == 128) && slabs == ek / 64 && e_splits == 1;
   const bool wide = ek >= 256 && ek % 128 == 0 && e_splits == ek / 128 && slabs * 64 >= E &&
                     slabs <= ek / 64 && slabs > ek / 64 - 2;
@@ -626,16 +648,16 @@ int t4r_ce_bwd(const void* ximg, const void* wimg, const float* W, const int* la
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (wide) {
-    return (int)launch_bwd_wide(st, xi, wi, in, W, labels, lse, coef, N, E, V, Vp, ek, slabs,
-                                e_splits, row_tiles, table_tiles, eps_over_v, ome, splits,
+    return (int)launch_bwd_wide(st, xi, wi, in, W, w_bf16, labels, lse, coef, N, E, V, Vp, ek,
+                                slabs, e_splits, row_tiles, table_tiles, eps_over_v, ome, splits,
                                 chunks_per_split, part_dx, dx, dW);
   }
   if (ek == 64) {
-    return (int)launch_bwd<1>(st, xi, wi, in, W, labels, lse, coef, N, E, V, Vp, row_tiles,
+    return (int)launch_bwd<1>(st, xi, wi, in, W, w_bf16, labels, lse, coef, N, E, V, Vp, row_tiles,
                               table_tiles, eps_over_v, ome, splits, chunks_per_split, part_dx,
                               dx, dW);
   }
-  return (int)launch_bwd<2>(st, xi, wi, in, W, labels, lse, coef, N, E, V, Vp, row_tiles,
+  return (int)launch_bwd<2>(st, xi, wi, in, W, w_bf16, labels, lse, coef, N, E, V, Vp, row_tiles,
                             table_tiles, eps_over_v, ome, splits, chunks_per_split, part_dx, dx,
                             dW);
 }

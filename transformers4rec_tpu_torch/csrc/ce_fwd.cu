@@ -26,7 +26,8 @@
 // keep every row's running (max, sum, label logit) in VMEM; here the vocab is
 // split across blocks and a merge kernel combines the splits.
 //   - to_image_kernel (hopper.cuh) writes bf16 images of x and of the used
-//     rows of W once per call: every f32 -> bf16 rounding happens there, and
+//     rows of W once per call: every f32 -> bf16 rounding happens there (a
+//     bf16-stored table is copied into its image as it is), and
 //     a 128-row tile is one contiguous block in the layout of TMA's 128-byte
 //     swizzle, which one bulk copy moves as it stands.
 //   - ce_fwd_kernel: block (128-row tile of x, vocab split), 384 threads. A

@@ -37,7 +37,11 @@
 //     (m, s) pairs by rescaled sums, counts and sums by plain addition.
 // Reading W as f32 and rounding on the way to the tensor cores gives the
 // numerics of the reference's W.astype(bfloat16) without a cast pass over
-// the table on every call. zsum is accumulated in double: it is a sum of ~V
+// the table on every call. A bf16-stored table (t4r_ce_rank_bf16) streams
+// its bf16 rows through the same ring: a slot's bytes halve, the launch
+// plan gives twice the slots (the same bytes in flight), and each pair of
+// values is already a B fragment's word. At the evaluation shape that
+// halves the bound: 49.9 MB, 14.9 us. zsum is accumulated in double: it is a sum of ~V
 // terms of both signs.
 
 //
@@ -114,63 +118,86 @@ __device__ __forceinline__ void update_rows(const float (&acc)[NT_][4], Col col_
 // ------------------------------------------------------- the streamed design
 // ce_rank_stream_kernel: block (split, row tile) of SC_WARPS consumer warps
 // (16 rows of x each, as bf16 mma.sync A fragments in registers) and one
-// producer warp. The producer copies the split's rows of W, as f32 and only
-// those below V, by 1-D bulk copies (TMA without a tensor map) into a ring
+// producer warp. The producer copies the split's rows of W, as stored (f32
+// or bf16) and only those below V, by 1-D bulk copies (TMA without a tensor
+// map) into a ring
 // of `stages` slots, each guarded by a full and an empty mbarrier. A slot
 // holds Slot::ROWS rows as groups of 8 consecutive rows, one bulk copy a
 // group; the groups are padded apart so that the 16-byte reads of a quarter
 // warp (two rows from neighbouring groups, four pieces each) fall on 32
 // distinct banks. The consumers round a slot's rows to bf16 as they build
-// the B fragments (one 16-byte read a fragment pair: within each k-step of
-// 16, thread t takes columns 4t .. 4t + 3, in x's fragments as in W's),
+// the B fragments (one 16-byte read a fragment pair, 8 bytes from a bf16
+// table: within each k-step of 16, thread t takes columns 4t .. 4t + 3, in
+// x's fragments as in W's),
 // score with mma.sync.m16n8k16, let the slot go, and fold the logits into
 // the running (max, sum, count, zsum) by update_rows. The table is read
-// from device memory once, as f32, with `stages` slots in flight: no image
-// pass.
+// from device memory once, as stored, with `stages` slots in flight: no
+// image pass.
 constexpr int SC_WARPS = 8;
 constexpr int SC_THREADS = 32 * (SC_WARPS + 1);
 constexpr int SC_MIN_STAGES = 4;
 
-// A ring slot for E padded to EK = 16 KS: GROUPS groups of 8 rows of E f32,
-// group_words(E) apart (the rows, then zeros: at least EK - E of them, for
-// the last row's k-steps past E, and 16 words more than a multiple of 32);
-// 64 rows, or 32 at the widest EK so that 4 slots fit. Lane g of n-tile j
-// takes row (g % GROUPS) * 8 + j * (8 / GROUPS) + g / GROUPS of the slot.
-template <int KS>
+// A ring slot for E padded to EK = 16 KS, of table values T (f32 or bf16):
+// GROUPS groups of 8 rows of E values, group_words(E) 32-bit words apart
+// (the rows, then zeros: at least EK - E values of them, for the last row's
+// k-steps past E). A group starts 16 words more than a multiple of 32 after
+// the previous one for f32 (a quarter warp's 16-byte reads of two rows from
+// neighbouring groups fall on 32 distinct banks), 8 more for bf16 (a half
+// warp's 8-byte reads of four groups' rows do). 64 rows, or 32 at the widest
+// EK so that 4 f32 slots fit. Lane g of n-tile j takes row
+// (g % GROUPS) * 8 + j * (8 / GROUPS) + g / GROUPS of the slot.
+template <int KS, class T>
 struct Slot {
   static constexpr int EK = 16 * KS;
   static constexpr int GROUPS = KS <= 8 ? 8 : 4;
   static constexpr int ROWS = 8 * GROUPS;
   static constexpr int NTS = ROWS / 8;
+  static constexpr bool BF16 = sizeof(T) == 2;
+  // 32-bit words of one row of E values
+  __host__ __device__ static constexpr int row_words(int E) { return BF16 ? E / 2 : E; }
   __host__ __device__ static constexpr int group_words(int E) {
-    return 8 * E + (EK - E + 31) / 32 * 32 + 16;
+    return BF16 ? (4 * E + (EK - E) / 2 + 23) / 32 * 32 + 8
+                : 8 * E + (EK - E + 31) / 32 * 32 + 16;
   }
   __host__ __device__ static constexpr int bytes(int E) { return GROUPS * group_words(E) * 4; }
   // the slot row of lane g of n-tile j
   __device__ static constexpr int row(int j, int g) {
     return (g % GROUPS) * 8 + j * (8 / GROUPS) + g / GROUPS;
   }
+  // The B fragment pair of k-step ks from the 32-bit word wr of a row's
+  // columns 4t ..: f32 rounded to bf16 pairs, bf16 pairs as they are.
+  __device__ static void fragments(const uint32_t* wr, int ks, uint32_t& b0, uint32_t& b1) {
+    if constexpr (BF16) {
+      const uint2 w = *reinterpret_cast<const uint2*>(wr + 8 * ks);
+      b0 = w.x;
+      b1 = w.y;
+    } else {
+      const float4 w = *reinterpret_cast<const float4*>(wr + 16 * ks);
+      b0 = pack_bf16(w.x, w.y);
+      b1 = pack_bf16(w.z, w.w);
+    }
+  }
 };
 
 // The shared memory of a block with `stages` slots at width E: the ring,
 // then a full and an empty barrier per slot.
-template <int KS>
+template <int KS, class T>
 __host__ __device__ constexpr int stream_smem(int E, int stages) {
-  return stages * (Slot<KS>::bytes(E) + 16);
+  return stages * (Slot<KS, T>::bytes(E) + 16);
 }
 
-template <int KS, bool SMOOTH>
+template <int KS, bool SMOOTH, class T>
 __global__ void __launch_bounds__(SC_THREADS)
-ce_rank_stream_kernel(const float* __restrict__ x, const float* __restrict__ W,
+ce_rank_stream_kernel(const float* __restrict__ x, const T* __restrict__ W,
                       const int* __restrict__ labels, const float* __restrict__ ll, int N,
                       int E, int V, int chunks_per_split, int stages,
                       float* __restrict__ part_m, float* __restrict__ part_s,
                       int* __restrict__ part_cnt, double* __restrict__ part_zs) {
-  using L = Slot<KS>;
+  using L = Slot<KS, T>;
   using namespace t4r::hopper;
   extern __shared__ __align__(16) uint8_t smem[];
-  const int gw = L::group_words(E), slot_words = L::GROUPS * gw;
-  float* ring = reinterpret_cast<float*>(smem);
+  const int gw = L::group_words(E), slot_words = L::GROUPS * gw, rw = L::row_words(E);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)stages * slot_words * 4);
   uint64_t* empty = full + stages;
 
@@ -183,7 +210,7 @@ ce_rank_stream_kernel(const float* __restrict__ x, const float* __restrict__ W,
   // the zeros between groups stay (the copies write 8 E values a group), and
   // rows past V hold zeros or an earlier slot's rows: finite
   for (int i = tid; i < stages * slot_words / 4; i += SC_THREADS) {
-    reinterpret_cast<float4*>(ring)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    reinterpret_cast<uint4*>(ring)[i] = make_uint4(0u, 0u, 0u, 0u);
   }
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -200,13 +227,24 @@ ce_rank_stream_kernel(const float* __restrict__ x, const float* __restrict__ W,
       const int st = i % stages, r0 = row_begin + i * L::ROWS;
       const int rows = min(L::ROWS, row_end - r0);
       mbar_wait(&empty[st], ((i / stages) & 1) ^ 1);
-      if (lane == 0) mbar_expect_tx(&full[st], (uint32_t)(rows * E * 4));
-      __syncwarp();
       const int n = min(8, rows - 8 * lane);
-      if (lane < L::GROUPS && n > 0) {
-        bulk_load(ring + (size_t)st * slot_words + lane * gw, W + (size_t)(r0 + 8 * lane) * E,
-                  (uint32_t)(n * E * 4), &full[st]);
+      uint32_t* dst = ring + (size_t)st * slot_words + lane * gw;
+      const T* src = W + (size_t)(r0 + 8 * lane) * E;
+      // A bulk copy moves whole 16-byte pieces. Every group of 8 rows is
+      // whole pieces; the vocab's last group of bf16 rows may end in 8 bytes
+      // more (an odd count of rows when E is not a multiple of 8), which the
+      // lane copies itself before the slot is announced.
+      const uint32_t bytes = lane < L::GROUPS && n > 0 ? (uint32_t)(n * E * sizeof(T)) : 0u;
+      if constexpr (L::BF16) {
+        if (bytes % 16) {
+          reinterpret_cast<uint2*>(dst)[bytes / 8 - 1] =
+              __ldg(reinterpret_cast<const uint2*>(src) + bytes / 8 - 1);
+        }
       }
+      __syncwarp();
+      if (lane == 0) mbar_expect_tx(&full[st], (uint32_t)(rows * E * sizeof(T)) & ~15u);
+      __syncwarp();
+      if (bytes >= 16) bulk_load(dst, src, bytes & ~15u, &full[st]);
     }
     return;
   }
@@ -247,17 +285,19 @@ ce_rank_stream_kernel(const float* __restrict__ x, const float* __restrict__ W,
   for (int i = 0; i < slots; ++i) {
     const int st = i % stages;
     mbar_wait(&full[st], (i / stages) & 1);
-    const float* slot = ring + (size_t)st * slot_words;
+    const uint32_t* slot = ring + (size_t)st * slot_words;
     float acc[L::NTS][4];
 #pragma unroll
     for (int j = 0; j < L::NTS; ++j) {
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
       const int r = L::row(j, g);
-      const float* wr = slot + (r / 8) * gw + (r % 8) * E + 4 * t;
+      // the word of columns 4t, 4t + 1 of the row
+      const uint32_t* wr = slot + (r / 8) * gw + (r % 8) * rw + (L::BF16 ? 2 : 4) * t;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        const float4 w = *reinterpret_cast<const float4*>(wr + 16 * ks);
-        mma_bf16(acc[j], a[ks], pack_bf16(w.x, w.y), pack_bf16(w.z, w.w));
+        uint32_t b0, b1;
+        L::fragments(wr, ks, b0, b1);
+        mma_bf16(acc[j], a[ks], b0, b1);
       }
     }
     release(empty, st);
@@ -368,15 +408,16 @@ cudaError_t launch_merge(cudaStream_t st, const float* part_m, const float* part
 // memory, which must be what the launch plan (ops/vocab.py:ce_plan) gives:
 // at least SC_MIN_STAGES slots and stream_smem(E, stages) bytes within the
 // card's limit.
-template <int KS, bool SMOOTH>
-cudaError_t launch_partial(dim3 grid, cudaStream_t st, const float* x, const float* W,
+template <int KS, bool SMOOTH, class T>
+cudaError_t launch_partial(dim3 grid, cudaStream_t st, const float* x, const T* W,
                            const int* labels, const float* ll, int N, int E, int V,
                            int chunks_per_split, int stages, int smem, float* part_m,
                            float* part_s, int* part_cnt, double* part_zs) {
-  if (stages < SC_MIN_STAGES || smem != stream_smem<KS>(E, stages) || smem > hopper::MAX_SMEM) {
+  if (stages < SC_MIN_STAGES || smem != stream_smem<KS, T>(E, stages) ||
+      smem > hopper::MAX_SMEM) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = ce_rank_stream_kernel<KS, SMOOTH>;
+  auto kernel = ce_rank_stream_kernel<KS, SMOOTH, T>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, SC_THREADS, smem, st>>>(x, W, labels, ll, N, E, V, chunks_per_split, stages,
@@ -401,6 +442,46 @@ extern "C" {
 int t4r_ce_rank_block_rows() { return t4r::BN; }
 int t4r_ce_rank_chunk_cols() { return t4r::BV; }
 
+}  // extern "C"
+
+namespace {
+
+template <class T>
+int ce_rank_entry(const float* x, const T* W, const int* labels, const float* ll, int N, int E,
+                  int V, int splits, int chunks_per_split, int stages, int smem, float* part_m,
+                  float* part_s, int* part_cnt, double* part_zs, float* lse, int* rank,
+                  float* zsum, int smooth, void* stream) {
+  if (E < 4 || E > 256 || E % 4 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(splits, (N + t4r::BN - 1) / t4r::BN);
+  cudaError_t err = with_ks(E, [&](auto ks) {
+    constexpr int KS = decltype(ks)::value;
+    return smooth ? launch_partial<KS, true, T>(grid, st, x, W, labels, ll, N, E, V,
+                                                chunks_per_split, stages, smem, part_m, part_s,
+                                                part_cnt, part_zs)
+                  : launch_partial<KS, false, T>(grid, st, x, W, labels, ll, N, E, V,
+                                                 chunks_per_split, stages, smem, part_m, part_s,
+                                                 part_cnt, part_zs);
+  });
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_merge(st, part_m, part_s, part_cnt, part_zs, splits, N, lse, rank,
+                           smooth ? zsum : nullptr);
+}
+
+template <class T>
+int smem_of(int E, int stages) {
+  int bytes = 0;
+  with_ks(E, [&](auto ks) {
+    bytes = stream_smem<decltype(ks)::value, T>(E, stages);
+    return cudaSuccess;
+  });
+  return bytes;
+}
+
+}  // namespace
+
+extern "C" {
+
 // Launches the partial and the merge kernel on `stream`, with the splits,
 // ring slots (`stages`) and shared memory of the launch plan. The caller
 // checks shapes (E a multiple of 4, at most 256: wider tables take the wide
@@ -412,33 +493,24 @@ int t4r_ce_rank(const float* x, const float* W, const int* labels, const float* 
                 int N, int E, int V, int splits, int chunks_per_split, int stages, int smem,
                 float* part_m, float* part_s, int* part_cnt, double* part_zs,
                 float* lse, int* rank, float* zsum, int smooth, void* stream) {
-  if (E < 4 || E > 256 || E % 4 != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(splits, (N + t4r::BN - 1) / t4r::BN);
-  cudaError_t err = with_ks(E, [&](auto ks) {
-    constexpr int KS = decltype(ks)::value;
-    return smooth ? launch_partial<KS, true>(grid, st, x, W, labels, ll, N, E, V,
-                                             chunks_per_split, stages, smem, part_m, part_s,
-                                             part_cnt, part_zs)
-                  : launch_partial<KS, false>(grid, st, x, W, labels, ll, N, E, V,
-                                              chunks_per_split, stages, smem, part_m, part_s,
-                                              part_cnt, part_zs);
-  });
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_merge(st, part_m, part_s, part_cnt, part_zs, splits, N, lse, rank,
-                           smooth ? zsum : nullptr);
+  return ce_rank_entry(x, W, labels, ll, N, E, V, splits, chunks_per_split, stages, smem,
+                       part_m, part_s, part_cnt, part_zs, lse, rank, zsum, smooth, stream);
+}
+
+// The same on a bf16-stored table W, with the ring of t4r_ce_rank_smem_bf16.
+int t4r_ce_rank_bf16(const float* x, const void* W, const int* labels, const float* ll,
+                     int N, int E, int V, int splits, int chunks_per_split, int stages, int smem,
+                     float* part_m, float* part_s, int* part_cnt, double* part_zs,
+                     float* lse, int* rank, float* zsum, int smooth, void* stream) {
+  return ce_rank_entry(x, static_cast<const __nv_bfloat16*>(W), labels, ll, N, E, V, splits,
+                       chunks_per_split, stages, smem, part_m, part_s, part_cnt, part_zs, lse,
+                       rank, zsum, smooth, stream);
 }
 
 // The shared memory of the streamed kernel with `stages` slots at width E
-// (what ops/vocab.py:ce_plan computes for it).
-int t4r_ce_rank_smem(int E, int stages) {
-  int bytes = 0;
-  with_ks(E, [&](auto ks) {
-    bytes = stream_smem<decltype(ks)::value>(E, stages);
-    return cudaSuccess;
-  });
-  return bytes;
-}
+// (what ops/vocab.py:ce_plan computes for it), for an f32 or a bf16 table.
+int t4r_ce_rank_smem(int E, int stages) { return smem_of<float>(E, stages); }
+int t4r_ce_rank_smem_bf16(int E, int stages) { return smem_of<__nv_bfloat16>(E, stages); }
 
 // The same on the images of x and of W's first V rows (t4r_image, ek a
 // multiple of 64 above 256, from the launch plan with resident, row_tiles,

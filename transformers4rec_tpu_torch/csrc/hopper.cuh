@@ -6,8 +6,9 @@
 // passes of K2 share (the ring's shared-memory layout and its producer, the
 // row pass's split of the vocab and its rows).
 //
-// The image. A matrix of f32 rows (x (N, E) or the item table (Vp, E)) is
-// rounded to bf16, its rows padded with zeros to EK, a multiple of 64 (for
+// The image. A matrix of f32 or bf16 rows (x (N, E) or the item table
+// (Vp, E), which may be stored as bf16) is rounded to bf16 (a bf16 table is
+// copied as it is), its rows padded with zeros to EK, a multiple of 64 (for
 // the narrow kernels 64, 128 or 256, the least of them that holds E; for the
 // wide ones E rounded up to one or two slabs), and
 // cut into tiles of TILE = 128 rows (the last one padded with zero rows).
@@ -46,33 +47,43 @@ __host__ __device__ __forceinline__ size_t image_offset(int r, int e, int ek) {
          ((((col >> 3) ^ (rr & 7))) << 4) + (col & 7) * 2;
 }
 
-// One thread per 16-byte piece (8 values) of the image of src (rows x E f32,
-// E a multiple of 4): rows at and beyond `rows` and columns at and beyond E
-// are zero. pieces = padded rows x ek / 8.
-__global__ void to_image_kernel(const float* __restrict__ src, int rows, int E, int ek,
+// Four values of row r of src, from column e0 on (e0 + 4 <= E), as two bf16
+// pairs: f32 rounded to nearest even, bf16 copied as it is.
+__device__ __forceinline__ uint2 four_bf16(const float* __restrict__ src, size_t at) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(src + at));
+  return make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+__device__ __forceinline__ uint2 four_bf16(const __nv_bfloat16* __restrict__ src, size_t at) {
+  return __ldg(reinterpret_cast<const uint2*>(src + at));
+}
+
+// One thread per 16-byte piece (8 values) of the image of src (rows x E,
+// f32 or bf16, E a multiple of 4): rows at and beyond `rows` and columns at
+// and beyond E are zero. pieces = padded rows x ek / 8.
+template <class T>
+__global__ void to_image_kernel(const T* __restrict__ src, int rows, int E, int ek,
                                 long long pieces, uint8_t* __restrict__ img) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= pieces) return;
   const int per_row = ek / 8;
   const int r = (int)(i / per_row), e0 = (int)(i - (long long)r * per_row) * 8;
-  float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+  uint2 lo = make_uint2(0u, 0u), hi = lo;
   if (r < rows) {
-    const float* p = src + (size_t)r * E + e0;
-    if (e0 + 4 <= E) lo = __ldg(reinterpret_cast<const float4*>(p));
-    if (e0 + 8 <= E) hi = __ldg(reinterpret_cast<const float4*>(p + 4));
+    const size_t at = (size_t)r * E + e0;
+    if (e0 + 4 <= E) lo = four_bf16(src, at);
+    if (e0 + 8 <= E) hi = four_bf16(src, at + 4);
   }
-  const uint4 v = make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w), pack_bf16(hi.x, hi.y),
-                             pack_bf16(hi.z, hi.w));
-  *reinterpret_cast<uint4*>(img + image_offset(r, e0, ek)) = v;
+  *reinterpret_cast<uint4*>(img + image_offset(r, e0, ek)) = make_uint4(lo.x, lo.y, hi.x, hi.y);
 }
 
 // Writes the image of the first `rows` rows of src, padded to padded_rows.
-inline cudaError_t to_image(cudaStream_t st, const float* src, int rows, int padded_rows, int E,
+template <class T>
+inline cudaError_t to_image(cudaStream_t st, const T* src, int rows, int padded_rows, int E,
                             int ek, uint8_t* img) {
   const long long pieces = (long long)padded_rows * (ek / 8);
   if (pieces == 0) return cudaSuccess;
   const int threads = 256;
-  to_image_kernel<<<(unsigned)((pieces + threads - 1) / threads), threads, 0, st>>>(
+  to_image_kernel<T><<<(unsigned)((pieces + threads - 1) / threads), threads, 0, st>>>(
       src, rows, E, ek, pieces, img);
   return cudaGetLastError();
 }
@@ -513,17 +524,24 @@ cudaError_t launch(void (*kernel)(Params...), dim3 grid, int smem, cudaStream_t 
 
 extern "C" {
 
-// Writes the image of the first `rows` rows of src (f32, E a multiple of 4)
-// into img (padded_rows x ek bf16, ek a multiple of 64 that holds E) on
-// `stream`. Returns the CUDA error of the launch (0 when it was accepted).
-int t4r_image(const float* src, int rows, int padded_rows, int E, int ek, void* img,
-              void* stream) {
+// Writes the image of the first `rows` rows of src (f32, or bf16 when
+// src_bf16 is 1; E a multiple of 4) into img (padded_rows x ek bf16, ek a
+// multiple of 64 that holds E) on `stream`: f32 rounds to nearest even, bf16
+// is copied. Returns the CUDA error of the launch (0 when it was accepted).
+int t4r_image(const void* src, int rows, int padded_rows, int E, int ek, void* img,
+              int src_bf16, void* stream) {
   if (E < 4 || E % 4 != 0 || E > ek || ek % 64 != 0 ||
       padded_rows % t4r::hopper::TILE != 0 || rows > padded_rows) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)t4r::hopper::to_image(static_cast<cudaStream_t>(stream), src, rows, padded_rows,
-                                    E, ek, static_cast<uint8_t*>(img));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  uint8_t* out = static_cast<uint8_t*>(img);
+  if (src_bf16) {
+    return (int)t4r::hopper::to_image(st, static_cast<const __nv_bfloat16*>(src), rows,
+                                      padded_rows, E, ek, out);
+  }
+  return (int)t4r::hopper::to_image(st, static_cast<const float*>(src), rows, padded_rows, E,
+                                    ek, out);
 }
 
 }  // extern "C"

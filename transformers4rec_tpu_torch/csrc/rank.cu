@@ -28,10 +28,12 @@
 //   - rank_partial_kernel: block (split, row tile) holds 128 rows of x as
 //     bf16 mma.sync A fragments in registers and loops over its slice of
 //     64-column chunks of W: f32 from device memory, rounded to bf16 into
-//     shared memory, scored with mma.sync.m16n8k16, the next chunk's loads in
-//     flight meanwhile. Each thread counts for its two rows; only a chunk
-//     that holds one of the thread's labels, and the vocab's last, partial
-//     chunk, pay for the column checks. One int32 partial per (split, row);
+//     shared memory (a bf16-stored table's values are stored as they come,
+//     half the bytes: 49.9 MB, 14.9 us at the evaluation shape), scored
+//     with mma.sync.m16n8k16, the next chunk's loads in flight meanwhile.
+//     Each thread counts for its two rows; only a chunk that holds one of
+//     the thread's labels, and the vocab's last, partial chunk, pay for the
+//     column checks. One int32 partial per (split, row);
 //   - rank_merge_kernel adds the partials of every row, in order.
 // Integer sums: the result does not depend on the order, and is the same on
 // every call.
@@ -67,15 +69,43 @@ __device__ __forceinline__ void count_rows(const float (&acc)[NT][4], int col0, 
   }
 }
 
-// KS: k-steps of 16, E rounded up to 16 * KS with zeros.
-template <int KS>
+// Four consecutive values of a table row, as they are read (f32: a float4,
+// bf16: two packed pairs) and as they are stored into shared memory (two
+// bf16 pairs, f32 rounded to nearest even).
+template <class T>
+struct Four;
+template <>
+struct Four<float> {
+  using Reg = float4;
+  __device__ static Reg zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ static Reg load(const float* W, size_t at) {
+    return __ldg(reinterpret_cast<const float4*>(W + at));
+  }
+  __device__ static uint2 bf16(const Reg& v) {
+    return make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  }
+};
+template <>
+struct Four<__nv_bfloat16> {
+  using Reg = uint2;
+  __device__ static Reg zero() { return make_uint2(0u, 0u); }
+  __device__ static Reg load(const __nv_bfloat16* W, size_t at) {
+    return __ldg(reinterpret_cast<const uint2*>(W + at));
+  }
+  __device__ static uint2 bf16(const Reg& v) { return v; }
+};
+
+// KS: k-steps of 16, E rounded up to 16 * KS with zeros. T: the table's
+// values (f32, or bf16 for a bf16-stored table).
+template <int KS, class T>
 __global__ void __launch_bounds__(THREADS)
-rank_partial_kernel(const float* __restrict__ x, const float* __restrict__ W,
+rank_partial_kernel(const float* __restrict__ x, const T* __restrict__ W,
                     const int* __restrict__ labels, const float* __restrict__ ll, int N,
                     int E, int V, int chunks_per_split, int* __restrict__ part_cnt) {
   constexpr int EK = 16 * KS;
   constexpr int WS = EK + 8;  // bf16 per shared row: the B-fragment loads are conflict-free
-  constexpr int LOADS = BV * EK / 4 / THREADS;  // most float4 loads of W a thread makes
+  constexpr int LOADS = BV * EK / 4 / THREADS;  // most 4-value loads of W a thread makes
+  using F = Four<T>;
   __shared__ __align__(16) __nv_bfloat16 ws[BV * WS];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -102,16 +132,15 @@ rank_partial_kernel(const float* __restrict__ x, const float* __restrict__ W,
     llr[h] = rows[h] < N ? ll[rows[h]] : 0.f;
   }
 
-  // W chunk c, row-major f32, into registers: consecutive threads read
-  // consecutive 16-byte pieces of a row
-  float4 pre[LOADS];
+  // W chunk c, row-major, into registers: consecutive threads read
+  // consecutive 4-value pieces of a row
+  typename F::Reg pre[LOADS];
 #pragma unroll
   for (int i = 0; i < LOADS; ++i) {
     const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
     const int col = c_begin * BV + r;
-    pre[i] = (r < BV && col < V && c_begin < c_end)
-                 ? __ldg(reinterpret_cast<const float4*>(W + (size_t)col * E) + q)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    pre[i] = (r < BV && col < V && c_begin < c_end) ? F::load(W, (size_t)col * E + 4 * q)
+                                                    : F::zero();
   }
 
   const uint32_t* ws32 = reinterpret_cast<const uint32_t*>(ws);
@@ -120,12 +149,7 @@ rank_partial_kernel(const float* __restrict__ x, const float* __restrict__ W,
 #pragma unroll
     for (int i = 0; i < LOADS; ++i) {
       const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
-      if (r < BV) {
-        uint2 v;
-        v.x = pack_bf16(pre[i].x, pre[i].y);
-        v.y = pack_bf16(pre[i].z, pre[i].w);
-        *reinterpret_cast<uint2*>(ws + r * WS + 4 * q) = v;
-      }
+      if (r < BV) *reinterpret_cast<uint2*>(ws + r * WS + 4 * q) = F::bf16(pre[i]);
     }
     __syncthreads();
     if (c + 1 < c_end) {  // the next chunk's loads fly while this one is scored
@@ -133,9 +157,7 @@ rank_partial_kernel(const float* __restrict__ x, const float* __restrict__ W,
       for (int i = 0; i < LOADS; ++i) {
         const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
         const int col = (c + 1) * BV + r;
-        pre[i] = (r < BV && col < V)
-                     ? __ldg(reinterpret_cast<const float4*>(W + (size_t)col * E) + q)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        pre[i] = (r < BV && col < V) ? F::load(W, (size_t)col * E + 4 * q) : F::zero();
       }
     }
 
@@ -171,13 +193,36 @@ __global__ void rank_merge_kernel(const int* __restrict__ part_cnt, int splits, 
   cnt[n] = c;
 }
 
-template <int KS>
-cudaError_t launch_partial(dim3 grid, cudaStream_t st, const float* x, const float* W,
+template <int KS, class T>
+cudaError_t launch_partial(dim3 grid, cudaStream_t st, const float* x, const T* W,
                            const int* labels, const float* ll, int N, int E, int V,
                            int chunks_per_split, int* part_cnt) {
-  rank_partial_kernel<KS><<<grid, THREADS, 0, st>>>(x, W, labels, ll, N, E, V,
-                                                    chunks_per_split, part_cnt);
+  rank_partial_kernel<KS, T><<<grid, THREADS, 0, st>>>(x, W, labels, ll, N, E, V,
+                                                       chunks_per_split, part_cnt);
   return cudaGetLastError();
+}
+
+template <class T>
+int rank_entry(const float* x, const T* W, const int* labels, const float* ll, int N, int E,
+               int V, int splits, int chunks_per_split, int* part_cnt, int* cnt, void* stream) {
+  if (E < 4 || E > 256 || E % 4 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(splits, (N + BN - 1) / BN);
+  cudaError_t err;
+  // E is rounded up to 16, 32, 64, 128 or 256 (zero padded)
+#define T4R_RANK_KS(KS_) \
+  err = launch_partial<KS_, T>(grid, st, x, W, labels, ll, N, E, V, chunks_per_split, part_cnt)
+  if (E <= 16) T4R_RANK_KS(1);
+  else if (E <= 32) T4R_RANK_KS(2);
+  else if (E <= 64) T4R_RANK_KS(4);
+  else if (E <= 128) T4R_RANK_KS(8);
+  else T4R_RANK_KS(16);
+#undef T4R_RANK_KS
+  if (err != cudaSuccess) return (int)err;
+  const int merge_threads = 128;
+  rank_merge_kernel<<<(N + merge_threads - 1) / merge_threads, merge_threads, 0, st>>>(
+      part_cnt, splits, N, cnt);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -196,24 +241,15 @@ int t4r_rank_chunk_cols() { return t4r::BV; }
 int t4r_rank(const float* x, const float* W, const int* labels, const float* ll, int N,
              int E, int V, int splits, int chunks_per_split, int* part_cnt, int* cnt,
              void* stream) {
-  if (E < 4 || E > 256 || E % 4 != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(splits, (N + t4r::BN - 1) / t4r::BN);
-  cudaError_t err;
-  // E is rounded up to 16, 32, 64, 128 or 256 (zero padded)
-#define T4R_RANK_KS(KS_) \
-  err = launch_partial<KS_>(grid, st, x, W, labels, ll, N, E, V, chunks_per_split, part_cnt)
-  if (E <= 16) T4R_RANK_KS(1);
-  else if (E <= 32) T4R_RANK_KS(2);
-  else if (E <= 64) T4R_RANK_KS(4);
-  else if (E <= 128) T4R_RANK_KS(8);
-  else T4R_RANK_KS(16);
-#undef T4R_RANK_KS
-  if (err != cudaSuccess) return (int)err;
-  const int merge_threads = 128;
-  rank_merge_kernel<<<(N + merge_threads - 1) / merge_threads, merge_threads, 0, st>>>(
-      part_cnt, splits, N, cnt);
-  return (int)cudaGetLastError();
+  return rank_entry(x, W, labels, ll, N, E, V, splits, chunks_per_split, part_cnt, cnt, stream);
+}
+
+// The same on a bf16-stored table W.
+int t4r_rank_bf16(const float* x, const void* W, const int* labels, const float* ll, int N,
+                  int E, int V, int splits, int chunks_per_split, int* part_cnt, int* cnt,
+                  void* stream) {
+  return rank_entry(x, static_cast<const __nv_bfloat16*>(W), labels, ll, N, E, V, splits,
+                    chunks_per_split, part_cnt, cnt, stream);
 }
 
 // The same on the images of x and of W's first V rows (t4r_image, ek a

@@ -38,7 +38,7 @@ from torch import nn
 
 from ..parallel.sharded_embedding import shard_table, sharded_embedding_lookup
 from ..schema import Schema, Tags, get_embedding_size_from_cardinality
-from ..blocks.transformer import init_dense_
+from ..blocks.transformer import init_dense_, promote
 from ..tabular.base import TabularBlock, TabularData
 
 
@@ -284,7 +284,8 @@ class SoftEmbedding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weights = torch.softmax(self.projection(x.float()[..., None]), dim=-1)
-        return weights @ self.embedding_table
+        # a bf16-stored table meets the f32 weights in f32, as flax promotes
+        return weights @ promote(self.embedding_table, weights)
 
 
 class SoftEmbeddingFeatures(TabularBlock):

@@ -23,7 +23,7 @@ from torch import nn
 from ..masking import MaskingInfo, MaskSequence, masking_registry
 from ..ops.sparse_update import GatheredRows
 from ..schema import Schema, Tags
-from ..blocks.transformer import init_dense_
+from ..blocks.transformer import init_dense_, promote
 from ..tabular.base import TabularBlock, TabularData, parse_aggregation
 from .embedding import SequenceEmbeddingFeatures
 from .tabular import TabularFeatures
@@ -158,7 +158,7 @@ class TabularSequenceFeatures(TabularFeatures):
         hidden = agg(outputs)
 
         for i, lin in enumerate(self.projections):
-            hidden = lin(hidden)
+            hidden = lin(promote(hidden, lin.weight))
             if i + 1 < len(self.projections):
                 hidden = torch.relu(hidden)
 

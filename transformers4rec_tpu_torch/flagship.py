@@ -64,7 +64,9 @@ window's bias.
 
 ``build_trainer(pack_sessions=True, pack_eval_sessions=True)`` packs the
 training and evaluation loaders' sessions several to a row
-(``data.packing``).
+(``data.packing``). ``build_trainer(embedding_table_dtype="bf16")`` and
+``build_large_vocab_trainer(embedding_table_dtype="bf16")`` store the
+tables as bf16 (the training arguments' field, as the JAX trainer's).
 """
 
 from __future__ import annotations
@@ -185,7 +187,7 @@ def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=N
                   output_dir: str = "./t4rec_output", streamed_table_update: bool = False,
                   scheme: str = "mlm", batch=None, pack_sessions: bool = False,
                   pack_eval_sessions: bool = False, gradient_accumulation_steps: int = 1,
-                  **model_kwargs) -> Trainer:
+                  embedding_table_dtype: Optional[str] = None, **model_kwargs) -> Trainer:
     """A ``Trainer`` over the flagship model with the benchmark's optimizer
     settings, on ``device`` (CUDA unless ``"cpu"``). Without a
     ``train_dataset`` it trains, evaluates and predicts on synthetic
@@ -195,7 +197,8 @@ def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=N
     (and its batch size, which ``batch`` overrides). ``pack_sessions`` and
     ``pack_eval_sessions`` pack the loaders' sessions;
     ``gradient_accumulation_steps`` averages that many batches' gradients
-    into one update. ``model_kwargs``
+    into one update; ``embedding_table_dtype="bf16"`` stores the tables as
+    bf16. ``model_kwargs``
     (``num_items``, ``d_model``, ``seq``, ``arch``, ...) go to ``build_model``."""
     _, _, default_seq, default_batch = _scheme(scheme)
     seq = model_kwargs.get("seq") or default_seq
@@ -212,6 +215,7 @@ def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=N
         data_loader_engine="synthetic" if train_dataset is None else "parquet",
         pack_sessions=pack_sessions, pack_eval_sessions=pack_eval_sessions,
         gradient_accumulation_steps=gradient_accumulation_steps,
+        embedding_table_dtype=embedding_table_dtype,
     )
     data_schema = schema(model_kwargs.get("num_items", NUM_ITEMS), seq)
     table_optimizer = None
@@ -286,14 +290,17 @@ def _bench_trainer(model: Model, data_schema, device, seed: int, train_dataset,
 def build_large_vocab_trainer(device=None, seed: int = 0, train_dataset=None,
                               eval_dataset=None, output_dir: str = "./t4rec_output",
                               batch: int = BATCH, embedding_optimizer: str = "adafactor",
+                              embedding_table_dtype: Optional[str] = None,
                               **model_kwargs) -> Trainer:
     """Configuration 4: its ``adafactor`` arm, or with
     ``embedding_optimizer="sparse_adam"`` its other (``"sparse_adafactor"``
-    too). ``model_kwargs`` go to ``build_large_vocab_model``."""
+    too); ``embedding_table_dtype="bf16"`` stores the tables as bf16.
+    ``model_kwargs`` go to ``build_large_vocab_model``."""
     model = build_large_vocab_model(device, seed=seed, **model_kwargs)
     data_schema = schema(model_kwargs.get("num_items", LARGE_VOCAB_ITEMS), SEQ)
     return _bench_trainer(model, data_schema, device, seed, train_dataset, eval_dataset,
-                          output_dir, batch, embedding_optimizer=embedding_optimizer)
+                          output_dir, batch, embedding_optimizer=embedding_optimizer,
+                          embedding_table_dtype=embedding_table_dtype)
 
 
 def build_multitask_trainer(device=None, seed: int = 0, train_dataset=None,

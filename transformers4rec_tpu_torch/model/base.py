@@ -54,6 +54,18 @@ from .prediction_task import (
 )
 
 
+def load_weights(module: nn.Module, state: Dict[str, torch.Tensor]) -> None:
+    """``module.load_state_dict(state)`` (strict), each parameter first given
+    the floating type its entry in ``state`` has: a bf16-stored table comes
+    back bf16 (never copied into an f32 parameter), an f32 one f32."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            t = state.get(name)
+            if t is not None and t.is_floating_point() and t.dtype != p.dtype:
+                p.data = p.data.to(t.dtype)
+    module.load_state_dict(state)
+
+
 def task_loss_state(outs: Dict[str, TaskOutput]) -> Dict[str, tuple]:
     """Per-task (weighted-loss-sum, weight-sum): the sufficient statistics of
     a dataset-level weighted-mean loss."""
@@ -406,10 +418,10 @@ class Model(nn.Module):
 
     def load(self, path: str) -> "Model":
         """Restore the weights ``save`` wrote into this model, on its
-        device."""
+        device, each in the type it was saved in (``load_weights``)."""
         state = torch.load(os.path.join(path, "model.pt"), map_location=self.device,
                            weights_only=True)
-        self.load_state_dict(state)
+        load_weights(self, state)
         return self
 
     # ------------------------------------------------------------ serving I/O

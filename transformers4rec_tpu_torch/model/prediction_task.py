@@ -68,7 +68,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..blocks.transformer import init_dense_
+from ..blocks.transformer import init_dense_, promote
 from ..masking import MaskingInfo
 from ..ops.sparse_update import GatheredRows
 from ..ops.vocab import fused_ce_and_rank, fused_softmax_ce, fused_topk
@@ -397,8 +397,10 @@ class NextItemPredictionTask(nn.Module):
         temperature divides the raw scores only, before the logQ correction
         (dividing the corrected logits would scale the correction too)."""
         temp = self.softmax_temperature or 1.0
+        # rows of a bf16-stored table are scored in f32, as the reference
+        # promotes them
         pos = (x2d * pos_w).sum(-1, keepdim=True) / temp
-        neg = (x2d @ neg_w.T) / temp
+        neg = (x2d @ promote(neg_w, x2d).T) / temp
         eps = 1e-16
         pos = pos - torch.log(sampler.expected_probs(labels) + eps)[:, None]
         neg = neg - torch.log(sampler.expected_probs(neg_ids) + eps)[None, :]

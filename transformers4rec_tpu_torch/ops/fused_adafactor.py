@@ -21,9 +21,14 @@ reference's option): a 2-D parameter with at least ``4 * 512`` rows takes
 the same update in two passes over the table, ``adafactor_update`` (kernels
 K7a and K7b, ``csrc/adafactor.cu``): pass A writes the new moment over the
 old one and sums ``(g·rsqrt(v))²``; pass B adds ``g·coef·rsqrt(v)`` to the
-parameter. The moment is f32 and pass B reads it unrounded, so
-``use_pallas`` with a ``moment_dtype`` raises, as in the reference. Smaller
-and 1-D parameters take the plain chain. For CUDA tensors
+parameter. The moment is stored in the parameter's type (``use_pallas``
+with a ``moment_dtype`` raises, as in the reference). For an f32 table pass
+B reads the moment unrounded. For a bf16-stored table g, v and p are all
+bf16: pass A sums the clip's terms from the unrounded f32 moment and stores
+it rounded, pass B reads the rounded moment, rounds the update to bf16 and
+adds it with one more rounding, as the reference's update cast to
+``p.dtype`` and optax's ``apply_updates`` give. Smaller and 1-D parameters
+take the plain chain. For CUDA tensors
 ``adafactor_update`` launches the kernels (and raises when it cannot); for
 CPU tensors it runs their plain versions (``adafactor_update_plain`` is the
 two together). The launches are counted in
@@ -57,21 +62,26 @@ def adafactor_pass_a_plain(
     clipping_threshold: Optional[float],
     eps: float,
 ) -> torch.Tensor:
-    """Plain PyTorch K7a: the new moment over ``v`` in place, and the step's
-    coefficient ``-lr / max(1, rms / clip)`` as a (1,) f32 tensor (``-lr``
-    without a clip); ``rms`` is the root of the mean of ``(g·rsqrt(v))²``."""
-    v.mul_(decay).add_((1.0 - decay) * (g * g + eps))
+    """Plain PyTorch K7a: the new moment over ``v`` in place (rounded to
+    ``v``'s type), and the step's coefficient ``-lr / max(1, rms / clip)`` as
+    a (1,) f32 tensor (``-lr`` without a clip); ``rms`` is the root of the
+    mean of ``(g·rsqrt(nv))²`` over the unrounded f32 moment ``nv``."""
+    g = g.float()
+    nv = decay * v.float() + (1.0 - decay) * (g * g + eps)
+    v.copy_(nv)
     scale = torch.ones(1, dtype=torch.float32, device=v.device)
     if clipping_threshold is not None:
-        rms = torch.sqrt(((g * torch.rsqrt(v)) ** 2).sum() / v.numel())
+        rms = torch.sqrt(((g * torch.rsqrt(nv)) ** 2).sum() / v.numel())
         scale = scale / torch.clamp_min(rms / clipping_threshold, 1.0)
     return (-lr * scale).to(torch.float32)
 
 
 def adafactor_pass_b_plain(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
                            coef: torch.Tensor) -> None:
-    """Plain PyTorch K7b: ``p += g·coef·rsqrt(v)`` in place."""
-    p.add_(g * (coef * torch.rsqrt(v)))
+    """Plain PyTorch K7b: ``p += g·coef·rsqrt(v)`` in place, the update
+    rounded to ``p``'s type before the sum (a no-op for f32)."""
+    upd = g.float() * (coef * torch.rsqrt(v.float()))
+    p.copy_(p.float() + upd.to(p.dtype).float())
 
 
 def adafactor_update_plain(
@@ -83,8 +93,8 @@ def adafactor_update_plain(
     clipping_threshold: Optional[float],
     eps: float,
 ) -> None:
-    """The two passes in plain PyTorch, in place on ``v`` and ``p`` (all f32;
-    ``decay`` an f32 scalar tensor)."""
+    """The two passes in plain PyTorch, in place on ``v`` and ``p`` (all f32,
+    or all bf16; ``decay`` an f32 scalar tensor)."""
     adafactor_pass_b_plain(p, g, v, adafactor_pass_a_plain(g, v, decay, lr,
                                                            clipping_threshold, eps))
 
@@ -98,27 +108,33 @@ def _adafactor_lib() -> ctypes.CDLL:
 
     lib = load("adafactor")
     if not getattr(lib, "_t4r_typed", False):
-        lib.t4r_adafactor_a.argtypes = [_P, _P, _P, _F, _L, _I, _F, _F, _I, _P, _P, _P]
-        lib.t4r_adafactor_b.argtypes = [_P, _P, _P, _L, _I, _P, _P]
-        lib.t4r_adafactor_a.restype = lib.t4r_adafactor_b.restype = _I
+        for suffix in ("", "_bf16"):
+            a = getattr(lib, "t4r_adafactor_a" + suffix)
+            b = getattr(lib, "t4r_adafactor_b" + suffix)
+            a.argtypes = [_P, _P, _P, _F, _L, _I, _F, _F, _I, _P, _P, _P]
+            b.argtypes = [_P, _P, _P, _L, _I, _P, _P]
+            a.restype = b.restype = _I
         lib.t4r_adafactor_threads.argtypes, lib.t4r_adafactor_threads.restype = [], _I
         lib._t4r_typed = True
     return lib
 
 
 def _check_cuda_tensors(op: str, like: torch.Tensor, scalars: Tuple[str, ...], **tensors) -> None:
-    """Raise on what the kernels do not take: everything f32, contiguous,
-    16-byte aligned and on one CUDA device; ``scalars`` hold one value, the
-    others have the shape of ``like``."""
+    """Raise on what the kernels do not take: contiguous, 16-byte aligned and
+    on one CUDA device; ``scalars`` hold one f32 value, the others have the
+    shape of ``like`` and its type, f32 or bf16."""
+    if like.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{op}: {like.dtype} tensors, expected torch.float32 or torch.bfloat16")
     for name, t in tensors.items():
         if t.device != like.device or t.device.type != "cuda":
             raise ValueError(f"{op}: {name} is on {t.device}, expected {like.device} (CUDA)")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{op}: {name} is {t.dtype}, expected torch.float32")
+        want = torch.float32 if name in scalars else like.dtype
+        if t.dtype != want:
+            raise TypeError(f"{op}: {name} is {t.dtype}, expected {want}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"{op}: {name} must be 16-byte aligned (float4 loads)")
+            raise ValueError(f"{op}: {name} must be 16-byte aligned (vector loads)")
         if (t.numel() != 1) if name in scalars else (t.shape != like.shape):
             raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}")
     if like.numel() < 1:
@@ -141,7 +157,8 @@ def adafactor_pass_a(
 ) -> torch.Tensor:
     """K7a: writes the new moment over ``v`` and returns the step's
     coefficient as a (1,) f32 tensor on the device (see
-    ``adafactor_pass_a_plain``). CUDA tensors launch the CUDA kernels
+    ``adafactor_pass_a_plain``); g and v both f32 or both bf16. CUDA
+    tensors launch the CUDA kernels
     (``adafactor_pass_a.launches`` counts the launches); CPU tensors run the
     plain version."""
     if v.device.type == "cpu":
@@ -153,8 +170,9 @@ def adafactor_pass_a(
     part = torch.empty(blocks, dtype=torch.float32, device=dev)
     coef = torch.empty(1, dtype=torch.float32, device=dev)
     clip = clipping_threshold
+    entry = lib.t4r_adafactor_a_bf16 if v.dtype == torch.bfloat16 else lib.t4r_adafactor_a
     with torch.cuda.device(dev):
-        err = lib.t4r_adafactor_a(g.data_ptr(), v.data_ptr(), decay.data_ptr(), float(eps), n,
+        err = entry(g.data_ptr(), v.data_ptr(), decay.data_ptr(), float(eps), n,
                                   blocks, float(lr), float(clip or 1.0), int(clip is not None),
                                   part.data_ptr(), coef.data_ptr(),
                                   torch.cuda.current_stream(dev).cuda_stream)
@@ -169,7 +187,8 @@ adafactor_pass_a.launches = 0
 def adafactor_pass_b(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
                      coef: torch.Tensor) -> None:
     """K7b: ``p += g·coef·rsqrt(v)`` in place, with ``coef`` a (1,) f32
-    tensor on the device. CUDA tensors launch the CUDA kernel
+    tensor on the device; p, g and v all f32 or all bf16 (the update then
+    rounded to bf16 before the sum). CUDA tensors launch the CUDA kernel
     (``adafactor_pass_b.launches`` counts the launches); CPU tensors run the
     plain version."""
     if p.device.type == "cpu":
@@ -177,8 +196,9 @@ def adafactor_pass_b(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
     _check_cuda_tensors("adafactor_pass_b", p, ("coef",), p=p, g=g, v=v, coef=coef)
     lib = _adafactor_lib()
     dev, n = p.device, p.numel()
+    entry = lib.t4r_adafactor_b_bf16 if p.dtype == torch.bfloat16 else lib.t4r_adafactor_b
     with torch.cuda.device(dev):
-        err = lib.t4r_adafactor_b(g.data_ptr(), v.data_ptr(), coef.data_ptr(), n,
+        err = entry(g.data_ptr(), v.data_ptr(), coef.data_ptr(), n,
                                   _blocks(lib, n, dev), p.data_ptr(),
                                   torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(lib, err, "adafactor_b")
@@ -198,8 +218,8 @@ def adafactor_update(
     eps: float = 1e-30,
 ) -> None:
     """K7a then K7b: one Adafactor step of the table ``p`` with gradient
-    ``g`` and unfactored f32 moment ``v``, in two passes, in place on ``v``
-    and ``p``. ``decay`` is an f32 scalar tensor on the same device. The mean
+    ``g`` and unfactored moment ``v`` (all f32, or all bf16), in two passes,
+    in place on ``v`` and ``p``. ``decay`` is an f32 scalar tensor on the same device. The mean
     of the clip's rms goes over every element of ``p``. On CUDA tensors both
     passes are CUDA kernels; on CPU tensors their plain versions run."""
     adafactor_pass_b(p, g, v, adafactor_pass_a(g, v, decay, lr, clipping_threshold, eps))
@@ -307,16 +327,18 @@ class FusedAdafactor(torch.optim.Optimizer):
                         state["v"] = torch.zeros_like(p, dtype=mdt)
                 step = state["step"]
                 group["lr"] = lr = self._lr_at(step)
-                g = p.grad.float()
                 # float32 scalars on the device, as the reference computes them
                 decay = 1.0 - torch.full((), float(step + 1), dtype=torch.float32,
                                          device=p.device) ** -group["decay_rate"]
                 if dims is not None:
-                    self._factored_step(p, g, state, dims, decay, lr, clip, eps)
+                    self._factored_step(p, p.grad.float(), state, dims, decay, lr, clip, eps)
                 elif (group["use_pallas"] and p.dim() == 2
                         and p.shape[0] >= STREAMED_MIN_ROWS):
-                    adafactor_update(p, g.contiguous(), state["v"], decay, lr, clip, eps)
+                    # the gradient as it is stored (f32, or a bf16 table's
+                    # bf16): the kernels read it without a copy
+                    adafactor_update(p, p.grad.contiguous(), state["v"], decay, lr, clip, eps)
                 else:
+                    g = p.grad.float()
                     new_v = (decay * state["v"].float() + (1.0 - decay) * (g * g + eps))
                     state["v"] = new_v.to(state["v"].dtype)
                     inv = torch.rsqrt(state["v"].float())

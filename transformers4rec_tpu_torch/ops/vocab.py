@@ -29,6 +29,13 @@ reference does, at any width E (a multiple of 4): past what the narrow
 kernels hold whole they take the wide ones (``ce_plan``). Each wrapper counts
 its launches in ``<wrapper>.launches``.
 
+W may be stored as f32 or as bf16 (a bf16-stored table,
+``embedding_table_dtype="bf16"``): the logits are the same, since both
+round W to bf16, and the kernels read the bf16 table itself (no f32 copy
+of it is made). ``ce_bwd`` returns dW in W's type: for a bf16 table the
+f32 sum rounded once to bf16 (nearest even), as the reference's
+``dW.astype(W.dtype)``. A CUDA W of any other type raises.
+
 ``vocab_size`` bounds the softmax when the table carries padding rows, and
 may be 0 (a vocab-parallel shard wholly beyond the true vocab): every lse is
 then -1e30 and every count 0. A label on a padding row (``vocab_size <=
@@ -108,9 +115,10 @@ def ce_bwd_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K2: per vocab chunk, recompute ``P = exp(logits − lse)``,
     form the residual ``(P − ε/V − (1−ε)·onehot)·coef``, round it to bf16 and
-    take both products in f32. Returns ``(dx (N, E), dW (Vp, E))`` f32. Rows
-    of ``dW`` at and beyond ``vocab_size`` are zero, but for the one-hot of
-    a label that stands on such a padding row."""
+    take both products in f32. Returns ``(dx (N, E) f32, dW (Vp, E))``, dW
+    in W's type (the f32 sum rounded once). Rows of ``dW`` at and beyond
+    ``vocab_size`` are zero, but for the one-hot of a label that stands on
+    such a padding row."""
     dev = x.device
     eov = (eps / vocab_size if eps_over_v is None else eps_over_v) if eps else 0.0
     xb = x.to(torch.bfloat16).float()
@@ -132,7 +140,7 @@ def ce_bwd_plain(
     rows = torch.where(on_pad, labels, 0)
     dW.index_add_(0, rows, r * xb)
     dx += r * W[rows].to(torch.bfloat16).float()
-    return dx, dW
+    return dx, dW.to(W.dtype)
 
 
 def ce_rank_plain(
@@ -171,11 +179,16 @@ def ce_rank_plain(
     return _lse(m, s), cnt, (zs.float() if smooth else None)
 
 
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check_cuda_inputs(op: str, x, W, vocab_size: int,
                        rows: Dict[str, Tuple[torch.Tensor, torch.dtype]]) -> None:
     """Raise on what the kernels do not take. ``rows`` are the (N,) tensors
-    of the call, each with the type it must have."""
-    tensors = {"x": (x, torch.float32), "W": (W, torch.float32), **rows}
+    of the call, each with the type it must have. W is f32 or bf16."""
+    if W.dtype not in TABLE_DTYPES:
+        raise TypeError(f"{op}: W is {W.dtype}, expected torch.float32 or torch.bfloat16")
+    tensors = {"x": (x, torch.float32), "W": (W, W.dtype), **rows}
     for name, (t, dtype) in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{op}: {name} is on {t.device}, expected a CUDA tensor")
@@ -204,7 +217,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "ce_rank": [_P] * 4 + [_I] * 7 + [_P] * 7 + [_I, _P],
     "ce_fwd": [_P] * 3 + [_I] * 8 + [_P] * 7 + [_I, _P],
-    "ce_bwd": [_P] * 6 + [_I] * 9 + [_F] * 2 + [_I] * 2 + [_P] * 5,
+    "ce_bwd": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 9 + [_F] * 2 + [_I] * 2 + [_P] * 5,
     "rank": [_P] * 4 + [_I] * 5 + [_P] * 3,
 }
 # K3 and K4 on tables wider than 256: K1's wide kernel with their epilogue,
@@ -224,7 +237,11 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
     if not getattr(lib, "_t4r_typed", False):
         entry = getattr(lib, f"t4r_{name}")
         entry.argtypes, entry.restype = _ARGTYPES[name], _I
-        lib.t4r_image.argtypes, lib.t4r_image.restype = [_P] + [_I] * 4 + [_P] * 2, _I
+        if name in ("ce_rank", "rank"):  # the narrow kernel on a bf16-stored table
+            bf16 = getattr(lib, f"t4r_{name}_bf16")
+            bf16.argtypes, bf16.restype = _ARGTYPES[name], _I
+        lib.t4r_image.argtypes = [_P] + [_I] * 4 + [_P, _I, _P]
+        lib.t4r_image.restype = _I
         if name in _WIDE_ARGTYPES:  # K3 and K4: row tiles of CE_TILE too, chunks of their own width
             wide = getattr(lib, f"t4r_{name}_wide")
             wide.argtypes, wide.restype = _WIDE_ARGTYPES[name], _I
@@ -249,8 +266,9 @@ NARROW_E, NARROW_E_BWD = 4 * CE_SLAB, 2 * CE_SLAB
 # beside a ring of at least 6 slots (csrc/ce_wide.cuh)
 RESIDENT_SLABS = 8
 # K3's narrow kernel streams the table into a ring of at least 4 slots a
-# block, about 128 KB in flight on each SM, within the shared memory a block
-# may ask for (csrc/ce_rank.cu: Slot, stream_smem; csrc/hopper.cuh: MAX_SMEM)
+# block, about 128 KB in flight on each SM (twice the slots of a bf16 table,
+# whose slots are half the bytes), within the shared memory a block may ask
+# for (csrc/ce_rank.cu: Slot, stream_smem; csrc/hopper.cuh: MAX_SMEM)
 K3_CHUNK = 64
 K3_MIN_STAGES, K3_IN_FLIGHT = 4, 128 << 10
 MAX_SMEM = 232_448
@@ -276,9 +294,9 @@ class CEPlan:
     tile, each owning 128 columns of dx or dW and recomputing the logits.
 
     ``stages`` and ``smem``: the ring slots and shared memory of a block of
-    K3's narrow kernel (``streamed``), which streams the table as f32 into
-    its ring; ``blocks_per_sm`` of them share an SM. 0 for every other
-    kernel."""
+    K3's narrow kernel (``streamed``), which streams the table as it is
+    stored (f32 or bf16) into its ring; ``blocks_per_sm`` of them share an
+    SM. 0 for every other kernel."""
 
     n: int
     e: int
@@ -323,22 +341,27 @@ class CEPlan:
         return out
 
 
-def k3_slot(e: int) -> Tuple[int, int]:
+def k3_slot(e: int, bf16: bool = False) -> Tuple[int, int]:
     """``(rows, bytes)`` of a ring slot of K3's narrow kernel at width ``e``
-    (``Slot`` in ``csrc/ce_rank.cu``): groups of 8 rows of f32, one bulk copy
-    each, 8 groups (4 where e pads to 256, so that 4 slots fit); a group is
-    followed by zeros, at least as many as e lacks of its padding to 16 · KS
-    values (16, 32, 64, 128 or 256), and 16 words more than a multiple of 32,
-    so that the consumers' 16-byte reads of two rows of neighbouring groups
-    hit distinct banks."""
+    (``Slot`` in ``csrc/ce_rank.cu``): groups of 8 table rows, one bulk copy
+    each, 8 groups (4 where e pads to 256); a group is followed by zeros, at
+    least as many values as e lacks of its padding to 16 · KS values (16,
+    32, 64, 128 or 256). Of f32 rows (``bf16`` False) a group then starts 16
+    words more than a multiple of 32 after the last, so that the consumers'
+    16-byte reads of two rows of neighbouring groups hit distinct banks; of
+    bf16 rows 8 words more, for their 8-byte reads of four groups' rows."""
     ek = 16 if e <= 16 else 32 if e <= 32 else 64 if e <= 64 else 128 if e <= 128 else 256
     groups = 8 if ek <= 128 else 4
-    group_words = 8 * e + -(-(ek - e) // 32) * 32 + 16
+    if bf16:
+        group_words = (4 * e + (ek - e) // 2 + 23) // 32 * 32 + 8
+    else:
+        group_words = 8 * e + -(-(ek - e) // 32) * 32 + 16
     return 8 * groups, groups * group_words * 4
 
 
 def ce_plan(n: int, e: int, vocab_size: int, table_rows: int, sms: int, backward: bool,
-            chunk_cols: int = CE_TILE, streamed: bool = False) -> CEPlan:
+            chunk_cols: int = CE_TILE, streamed: bool = False,
+            table_bf16: bool = False) -> CEPlan:
     """The launch plan of a vocab kernel for ``n`` rows of width ``e``
     against a table of ``table_rows`` rows whose first ``vocab_size`` are the
     vocab, on a card with ``sms`` SMs: K1 (``backward=False``), K2, or with
@@ -359,7 +382,9 @@ def ce_plan(n: int, e: int, vocab_size: int, table_rows: int, sms: int, backward
     ``stages`` slots (``k3_slot``) and its ``smem`` bytes; two blocks share an
     SM where a ring of ``K3_MIN_STAGES`` slots fits twice, else one, and the
     vocab is split for that many blocks per SM, the slots chosen so that
-    about ``K3_IN_FLIGHT`` bytes of the table are in flight on each SM."""
+    about ``K3_IN_FLIGHT`` bytes of the table are in flight on each SM; a
+    bf16-stored table (``table_bf16``) has slots of half the bytes, so about
+    twice as many."""
     wide = e > (NARROW_E_BWD if backward else NARROW_E)
     if wide:
         chunk_cols = CE_TILE
@@ -372,7 +397,7 @@ def ce_plan(n: int, e: int, vocab_size: int, table_rows: int, sms: int, backward
     stages = smem = 0
     blocks_per_sm = 2
     if streamed and not wide:
-        slot = k3_slot(e)[1] + 16  # a slot and its two barriers
+        slot = k3_slot(e, table_bf16)[1] + 16  # a slot and its two barriers
         blocks_per_sm = 2 if 2 * K3_MIN_STAGES * slot <= MAX_SMEM else 1
         stages = max(K3_MIN_STAGES, -(-K3_IN_FLIGHT // (blocks_per_sm * slot)))
         stages = min(stages, MAX_SMEM // blocks_per_sm // slot)
@@ -409,15 +434,15 @@ def _plan_for(x, W, vocab_size: int, backward: bool, chunk_cols: int = CE_TILE,
               streamed: bool = False) -> CEPlan:
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     return ce_plan(x.shape[0], x.shape[1], vocab_size, W.shape[0], sms, backward, chunk_cols,
-                   streamed)
+                   streamed, table_bf16=W.dtype == torch.bfloat16)
 
 
 def _write_image(lib: ctypes.CDLL, src: torch.Tensor, rows: int, img: torch.Tensor,
                  stream: int) -> None:
-    """Rounds the first ``rows`` rows of ``src`` (f32) into ``img``, its bf16
-    image (``to_image_kernel`` of ``csrc/hopper.cuh``)."""
+    """Rounds the first ``rows`` rows of ``src`` (f32, or bf16: copied) into
+    ``img``, its bf16 image (``to_image_kernel`` of ``csrc/hopper.cuh``)."""
     err = lib.t4r_image(src.data_ptr(), rows, img.shape[0], src.shape[1], img.shape[1],
-                        img.data_ptr(), stream)
+                        img.data_ptr(), int(src.dtype == torch.bfloat16), stream)
     raise_on_error(lib, err, "image")
 
 
@@ -455,7 +480,8 @@ def _ce_rank_cuda(x, W, labels, ll, vocab_size, smooth):
                 ll.data_ptr(), N, vocab_size, plan.ek, int(plan.resident), plan.row_tiles,
                 splits, per_split, *outs, stream)
         else:
-            err = lib.t4r_ce_rank(
+            entry = lib.t4r_ce_rank_bf16 if W.dtype == torch.bfloat16 else lib.t4r_ce_rank
+            err = entry(
                 x.data_ptr(), W.data_ptr(), labels.data_ptr(), ll.data_ptr(),
                 N, E, vocab_size, splits, per_split, plan.stages, plan.smem, *outs, stream)
     raise_on_error(lib, err, "ce_rank")
@@ -499,14 +525,15 @@ def _ce_bwd_cuda(x, W, labels, lse, coef, vocab_size, eps, eps_over_v):
     eov = (eps / vocab_size if eps_over_v is None else eps_over_v) if eps else 0.0
     plan = _plan_for(x, W, vocab_size, backward=True)
     buf = plan.scratch(dev)
-    # every element of these buffers is written by the kernels
+    # every element of these buffers is written by the kernels; dW in W's type
     dx = torch.empty((N, E), dtype=torch.float32, device=dev)
-    dW = torch.empty(W.shape, dtype=torch.float32, device=dev)
+    dW = torch.empty(W.shape, dtype=W.dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _write_images(lib, x, W, W.shape[0], buf, stream)
         err = lib.t4r_ce_bwd(
-            buf["ximg"].data_ptr(), buf["wimg"].data_ptr(), W.data_ptr(), labels.data_ptr(),
+            buf["ximg"].data_ptr(), buf["wimg"].data_ptr(), W.data_ptr(),
+            int(W.dtype == torch.bfloat16), labels.data_ptr(),
             lse.data_ptr(), coef.data_ptr(), N, E, vocab_size, W.shape[0], plan.ek,
             plan.slabs, plan.e_splits, plan.row_tiles, plan.table_tiles, float(eps), float(eov), plan.splits,
             plan.chunks_per_split, buf["info"].data_ptr(), buf["part_dx"].data_ptr(),
@@ -526,9 +553,9 @@ def ce_fwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """K1: ``(lse, ll, zsum | None)`` of ``bf16(x) @ bf16(W[:vocab_size]).T``.
 
-    x (N, E) f32, W (Vp, E) f32, labels (N,) int32. CUDA tensors launch the
-    CUDA kernel (``ce_fwd.launches`` counts the launches); CPU tensors run
-    ``ce_fwd_plain``.
+    x (N, E) f32, W (Vp, E) f32 or bf16, labels (N,) int32. CUDA tensors
+    launch the CUDA kernel (``ce_fwd.launches`` counts the launches); CPU
+    tensors run ``ce_fwd_plain``.
     """
     if x.device.type == "cpu":
         return ce_fwd_plain(x, W, labels, vocab_size, smooth)
@@ -548,8 +575,8 @@ def ce_bwd(
     eps: float = 0.0,
     eps_over_v: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: ``(dx (N, E), dW (Vp, E))`` of the cross-entropy whose forward
-    gave ``lse``; ``coef`` (N,) f32 scales each row's residual. ``eps`` is
+    """K2: ``(dx (N, E) f32, dW (Vp, E) in W's type)`` of the cross-entropy
+    whose forward gave ``lse``; ``coef`` (N,) f32 scales each row's residual. ``eps`` is
     the label smoothing; ``eps_over_v`` overrides its per-column share
     ``eps / vocab_size`` (a vocab-parallel caller passes the global one).
     CUDA tensors launch the CUDA kernels (``ce_bwd.launches`` counts the
@@ -594,7 +621,7 @@ class _FusedSoftmaxCE(torch.autograd.Function):
         x, W, labels, w, wsum, lse = ctx.saved_tensors
         coef = (g * w / wsum).contiguous()  # (N,)
         dx, dW = ce_bwd(x, W, labels, lse, coef, ctx.vocab_size, ctx.eps)
-        return dx.to(ctx.x_dtype), dW.to(W.dtype), None, None, None, None
+        return dx.to(ctx.x_dtype), dW, None, None, None, None
 
 
 def fused_softmax_ce(
@@ -606,7 +633,8 @@ def fused_softmax_ce(
     label_smoothing: float = 0.0,
 ) -> torch.Tensor:
     """Weighted-mean CE of ``x @ W.T`` against ``labels`` without
-    materialising the logits. x (N, E); W (Vp, E) f32; labels (N,) int;
+    materialising the logits. x (N, E); W (Vp, E) f32 or bf16 (its gradient
+    comes in its type); labels (N,) int;
     weights (N,) float. ``vocab_size`` bounds the true vocab when W carries
     padded rows: rows at and beyond it are left out of the softmax and get a
     zero gradient. ``weights`` and ``labels`` get no gradient: the weights
@@ -626,7 +654,8 @@ def ce_rank(
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """K3: ``(lse, rank, zsum | None)`` of ``bf16(x) @ bf16(W[:vocab_size]).T``.
 
-    x (N, E) f32, W (Vp, E) f32, labels (N,) int32, ll (N,) f32 label logits.
+    x (N, E) f32, W (Vp, E) f32 or bf16, labels (N,) int32, ll (N,) f32
+    label logits.
     CUDA tensors launch the CUDA kernel (``ce_rank.launches`` counts the
     launches); CPU tensors run ``ce_rank_plain``.
     """
@@ -723,7 +752,8 @@ def _rank_cuda(x, W, ll, labels, vocab_size):
                 ll.data_ptr(), N, vocab_size, plan.ek, int(plan.resident), plan.row_tiles,
                 splits, per_split, part_cnt.data_ptr(), cnt.data_ptr(), stream)
         else:
-            err = lib.t4r_rank(
+            entry = lib.t4r_rank_bf16 if W.dtype == torch.bfloat16 else lib.t4r_rank
+            err = entry(
                 x.data_ptr(), W.data_ptr(), labels.data_ptr(), ll.data_ptr(),
                 N, E, vocab_size, splits, per_split,
                 part_cnt.data_ptr(), cnt.data_ptr(), stream,

@@ -25,6 +25,10 @@ partials are stacked). Both take the same merge.
 Labels outside a shard's valid rows become -1 there: a raw offset could
 land on one of the shard's padding rows and pick up its masked logit.
 
+A shard may be stored as bf16 (a bf16-stored table): the kernels take it as
+it is, its gradient comes back bf16, and the lookup's sum over the group
+adds one shard's bf16 rows to the others' zeros, exactly.
+
 The reference's ``'data'`` mesh axis (the sums of the loss's numerator and
 denominator over data-parallel replicas) is data parallelism and is not
 part of this module: every rank of the group sees the whole batch.

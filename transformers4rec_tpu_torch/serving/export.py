@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..data.padding import pad_ragged
-from ..model.base import Model
+from ..model.base import Model, load_weights
 from ..schema import Schema
 from ..utils.device import resolve_device
 
@@ -88,7 +88,8 @@ class InferenceRunner:
         model = model_builder(self.device)
         state = torch.load(os.path.join(path, "model.pt"), map_location=self.device,
                            weights_only=True)
-        model.load_state_dict(state)
+        # a bf16-stored table is served bf16, as it was exported
+        load_weights(model, state)
         self.model = model.to(self.device).eval()
 
     def predict(self, batch: Dict[str, object]):

@@ -19,7 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..blocks.transformer import dropout
+from ..blocks.transformer import dropout, promote
 from .base import TabularData, TabularTransformation, tabular_transformation_registry
 
 
@@ -129,7 +129,9 @@ class TabularLayerNorm(TabularTransformation):
         out = {}
         for key, val in inputs.items():
             if key in self.keys and val.is_floating_point():
-                out[key] = getattr(self, f"ln_{key}")(val)
+                # a bf16 lookup is normalised in f32, as flax promotes it
+                ln = getattr(self, f"ln_{key}")
+                out[key] = ln(promote(val, ln.weight))
             else:
                 out[key] = val
         return out

@@ -6,7 +6,13 @@ from .sparse_embedding_step import (
     sparse_accum_init,
     validate_sparse_config,
 )
-from .trainer import Trainer, TrainerState, clip_by_global_norm_
+from .trainer import (
+    Trainer,
+    TrainerState,
+    cast_tables_,
+    clip_by_global_norm_,
+    table_param_names,
+)
 
 __all__ = [
     "SPARSE_OPTIMIZERS",
@@ -15,9 +21,11 @@ __all__ = [
     "T4RecTrainingArguments",
     "Trainer",
     "TrainerState",
+    "cast_tables_",
     "clip_by_global_norm_",
     "get_scheduler",
     "num_cosine_cycles",
     "sparse_accum_init",
+    "table_param_names",
     "validate_sparse_config",
 ]

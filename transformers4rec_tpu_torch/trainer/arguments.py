@@ -113,7 +113,10 @@ class T4RecTrainingArguments:
     # sparse arms): "bf16" (default) halves the optimizer state; None / "f32"
     # keeps float32
     embedding_moment_dtype: Optional[str] = "bf16"
-    # storage dtype of the tables themselves; only float32 is ported
+    # storage dtype of the tables themselves: "bf16" stores every 2-D table
+    # (``trainer.table_param_names``) as bfloat16 on the adafactor and sparse
+    # arms (products accumulate in f32, optimizer arithmetic is f32, each
+    # update rounds to bf16 on store); None / "f32" keeps float32
     embedding_table_dtype: Optional[str] = None
     auto_vocab_parallel: bool = True
 
@@ -133,8 +136,6 @@ class T4RecTrainingArguments:
                 "embedding_table_dtype='bf16' is validated for the adafactor/sparse table "
                 f"arms; embedding_optimizer={self.embedding_optimizer!r} keeps f32 tables")
             self.embedding_table_dtype = None
-        if self.embedding_table_dtype == "bf16":
-            raise NotImplementedError("bf16-stored tables are not ported yet")
         if self.embedding_moment_dtype == "bf16" and dense_arm:
             warnings.warn(
                 "embedding_moment_dtype='bf16' applies to the adafactor table arm only; "

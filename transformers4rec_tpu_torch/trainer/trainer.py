@@ -50,6 +50,15 @@ training loader's sessions several to a row (``data.packing``),
 ``pack_eval_sessions`` the evaluation loader's; ``predict`` and
 ``log_predictions`` stay unpacked.
 
+``embedding_table_dtype="bf16"`` casts every 2-D table
+(``table_param_names``: the categorical tables ``...tables.<feature>`` and a
+soft embedding's ``embedding_table``, the parameters whose flax names end in
+``_table``) to bfloat16 when the trainer is made, before any optimizer
+state exists, as the JAX trainer casts after its init. The kernels then
+read the bf16 table, the table optimizers keep their arithmetic in f32 and
+round each update to bf16 on store, and checkpoints keep the tables bf16
+(``load`` gives each parameter the type the checkpoint stored it in).
+
 ``save`` / ``load`` write one ``torch.save`` file with the model, both
 optimizers, the generator and the loader position; ``train(resume_from_
 checkpoint=path)`` finishes an interrupted ``max_steps`` run exactly, from
@@ -83,7 +92,7 @@ import torch.distributed
 from ..data.loader import InMemoryDataLoader, dataloader_registry
 from ..data.packing import pack_sessions
 from ..masking import MaskingInfo
-from ..model.base import Model
+from ..model.base import Model, load_weights
 from ..ops.fused_adafactor import FusedAdafactor
 from ..ops.sparse_update import LazyAdam, label_embedding_params
 from ..schema import Schema
@@ -109,6 +118,30 @@ class TrainerState:
     log_history: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
     loader_epoch: int = 0
     batches_in_epoch: int = 0
+
+
+def table_param_names(model: torch.nn.Module) -> List[str]:
+    """The parameters ``embedding_table_dtype="bf16"`` stores as bfloat16:
+    every 2-D one whose flax name ends in ``_table`` (the JAX trainer's rule),
+    which in the port are the categorical tables (``...tables.<feature>``)
+    and a soft embedding's ``embedding_table``. An untied ``output_layer``,
+    positions and the masked embedding stay f32."""
+    names = []
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if p.dim() == 2 and (parts[-1].endswith("_table")
+                             or (len(parts) > 1 and parts[-2] == "tables")):
+            names.append(name)
+    return names
+
+
+def cast_tables_(model: torch.nn.Module, dtype: torch.dtype) -> None:
+    """Store the parameters of ``table_param_names`` as ``dtype``, in place
+    (the same ``Parameter`` objects: ties to them hold)."""
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name in table_param_names(model):
+            params[name].data = params[name].data.to(dtype)
 
 
 def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
@@ -164,6 +197,8 @@ class Trainer:
                                  "save lands on an eval boundary")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        if args.embedding_table_dtype == "bf16":
+            cast_tables_(self.model, torch.bfloat16)
         self.args = args
         self.schema = schema
         self.train_dataset = train_dataset
@@ -326,7 +361,7 @@ class Trainer:
         no_incremental_training=True)`` trains from the initial weights.
         ``global_step`` stays monotonic."""
         if self._initial_state is not None:
-            self.model.load_state_dict(self._initial_state)
+            load_weights(self.model, self._initial_state)
         self.optimizers = {}
         self._sparse = None
         self._reset_accumulation()
@@ -729,12 +764,12 @@ class Trainer:
         """The weights of a checkpoint; optimizers, generator and state stay."""
         doc = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=self.device,
                          weights_only=False)
-        self.model.load_state_dict(doc["model"])
+        load_weights(self.model, doc["model"])
 
     def load(self, path: str) -> None:
         doc = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=self.device,
                          weights_only=False)
-        self.model.load_state_dict(doc["model"])
+        load_weights(self.model, doc["model"])
         if doc["optimizers"]:
             self.create_optimizer_and_scheduler(doc["num_training_steps"])
             for k, sd in doc["optimizers"].items():
