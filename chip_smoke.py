@@ -40,7 +40,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (1, H, S, S) relative bias (causal), with the same bits on a
    second call,
    K6a against K6b + K6c and, at head dims up to 32, the streamed K6b
-   against the mma.sync body it replaces (the same bits); K1 and K2 at the
+   against the mma.sync body it replaces (the same bits); the bf16 forms of
+   K5, K6a, K6b and K6c (bf16 q, k, v, dO; bf16 out, dq, dk, dv) at each of
+   those shapes and at (32, 256, 8, 36) (a head's bf16 row of 72 bytes:
+   8-byte aligned, not 16), each against its plain version on the bf16
+   inputs and, in every design the head dim takes, against the bits of its
+   f32 form on the same values rounded once (``check_flash_bf16``); K1 and K2 at the
    long-session training shapes of 8,192 and 16,384 loss rows (every K1
    and K2 check also asks each kernel a second time for the same bits);
    and K1, K2, K3 and K4 on item
@@ -221,13 +226,31 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     4,096 items through the same entry points, then 8 steady ones, timed:
     K6b and K6c launch once a step and K6a not at all (its dq partials would
     pass the cap);
+11b. Y, the encoder's bf16 compute type and per-layer remat
+    (``run_compute_dtype``; every flash launch the bf16 form's, counted
+    under ``<kernel>_bf16``): Y1 GPT-2-CLM in bf16
+    (``build_model(scheme="clm", dtype=torch.bfloat16)``): one training step
+    at batch 4, ``Model.evaluate`` over 4 batches and the top-k of 8 ragged
+    sessions through the exported artifact, each against the CPU, then
+    8 + 16 trainer steps with dropout 0.1 (K5 and K6a bf16 three times a
+    step); Y2 the same with and without ``remat`` from one generator seed:
+    the same loss, gradients and generator state bit for bit, K5 six times a
+    step, the peak memory of each, 8 trainer steps with remat; Y3 XLNet-MLM
+    in bf16 with remat (the dense attention): a step and an evaluation
+    against the CPU, 8 + 16 trainer steps, no flash launch; Y4 XLNet-PLM on
+    32 sessions of up to 256 in bf16: one step against the CPU (K5 bf16 for
+    both streams, the learned bias's backward through
+    ``reference_attention`` on bf16 probabilities); Y5 the one-layer step at
+    S = 4,096 in bf16 without and with remat (K6b and K6c bf16 once a step;
+    step time and peak memory);
 12. time K3 and K4 at the evaluation shape, K1 and K2 at the three training
     shapes (915, 8,192 and 16,384 loss rows), all four again at E = 448 (K1
     and K2 at 915 and 8,192 rows), K7a and K7b at the item table's shape
     and K5, K6a, K6b, K6c at the shapes of phases 10 and 11 and at
     (4, 2048, 8, 64), K5 and K6a in both their designs (``mma.sync`` and
     ``wgmma``), K6b and K6c in both theirs (``mma.sync`` and streamed) and
-    the split route K6b + K6c beside K6a, each beside its plain version and,
+    the split route K6b + K6c beside K6a, and their bf16 forms at the same
+    shapes and at (32, 256, 8, 36), each beside its f32 form, each beside its plain version and,
     where there is one, a library yardstick (CUDA events, median after warm-up; at 8,192 rows and
     more the cross-entropy's yardstick runs 1,024 rows at a time), and a
     whole table-optimizer step on each of its arms; K3 at 2,560 and 8,192
@@ -240,7 +263,8 @@ kernel.
 
 The second-to-last line of standard output is one JSON object with a
 ``kernels`` list: each kernel's error, time and bound at the shape at which a
-main path launches it (K5 and K6a at phase 10's, K6b and K6c at phase 11's),
+main path launches it (K5 and K6a at phase 10's, K6b and K6c at phase 11's;
+the bf16 forms, ``<kernel>_bf16``, at phase Y's, with ``f32_form_ms``),
 and under ``also_at`` its times at other shapes, each marked ``main_path``:
 true where a main path launches it there, false where only this script
 does; the last is ``{"ok": true, "device": {...}}``.
@@ -265,7 +289,12 @@ K6b + K6c beside K6a, at the CLM shape, at the S = 4,096 step's, at
 (4, 2048, 8, 64) and where the designs meet (head dims 32, 48 and 128).
 ``--time-bf16`` times each vocabulary kernel and K7a/K7b in its form for a
 bf16-stored table beside its f32 form, in turns, at the shapes of the
-kernel table in ``PERF.md``.
+kernel table in ``PERF.md``; ``--time-flash`` also checks and times the
+bf16 forms of K5, K6a, K6b and K6c at each of its shapes and at head dim 36.
+``--profile-compute-dtype`` profiles phase Y's steps (GPT-2-CLM, XLNet-MLM,
+the S = 4,096 step) in f32, bf16 and bf16 with remat, in turns: wall and
+device time a step, the GEMM kernels' and the flash kernels' share, peak
+memory.
 ``--time-long-step`` times the steady S = 4,096 step with K6b in each of
 its designs in turns and profiles it (device time by kernel).
 ``--time-parquet`` times the flagship's training step from a Parquet file
@@ -521,16 +550,18 @@ def grad_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
             "rel_frobenius": float((got - want).norm() / want.norm())}
 
 
-def check_grad(what: str, got: torch.Tensor, want: torch.Tensor, rel: float = 1e-3) -> dict:
-    """A gradient against its reference: within 2e-2 of the reference's
-    largest magnitude and ``rel`` (1e-3) in relative Frobenius norm. Both
+def check_grad(what: str, got: torch.Tensor, want: torch.Tensor, rel: float = 1e-3,
+               peak: float = 2e-2) -> dict:
+    """A gradient against its reference: within ``peak`` (2e-2) of the
+    reference's largest magnitude and ``rel`` (1e-3) in relative Frobenius
+    norm. Both
     sides round the CE's residual (the attention's P and dS) to bf16, from
     exponentials that differ in the last bits, so single entries may land on
     neighbouring bf16 values."""
     if not torch.isfinite(got.float()).all():
         fail(f"{what}: non-finite values")
     err = grad_errors(got, want)
-    if err["max_err_over_peak"] > 2e-2 or err["rel_frobenius"] > rel:
+    if err["max_err_over_peak"] > peak or err["rel_frobenius"] > rel:
         fail(f"{what}: {err}")
     return err
 
@@ -844,6 +875,97 @@ def check_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: 
     return res
 
 
+def bf16_spacing_of(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |t| (2^-7 of the power of two below)."""
+    return torch.exp2(torch.floor(torch.log2(t.float().abs().clamp_min(2.0 ** -120))) - 7)
+
+
+def check_bf16_against_plain(what: str, got: torch.Tensor, want: torch.Tensor,
+                             atol: float) -> dict:
+    """A bf16 result against its plain version's bf16 result: within
+    ``atol`` plus one bf16 spacing of each value, and 1e-3 plus bf16's own
+    rounding (2^-8) in relative Frobenius norm (the two round to bf16 results
+    that differ by the f32 forms' noise)."""
+    if got.dtype != torch.bfloat16 or not torch.isfinite(got.float()).all():
+        fail(f"{what}: {got.dtype}, finite {bool(torch.isfinite(got.float()).all())}")
+    err = grad_errors(got, want)
+    if not bool(((got.float() - want.float()).abs()
+                 <= atol + bf16_spacing_of(want)).all()) \
+            or err["rel_frobenius"] > 1e-3 + 2.0 ** -8:
+        fail(f"{what}: {err}")
+    return err
+
+
+def check_flash_bf16(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: int,
+                     **kw) -> dict:
+    """The bf16 forms of K5, K6a, K6b and K6c at one shape (``flash_inputs``'
+    q, k, v and dO rounded to bf16, the same mask and bias): each must give
+    the bits of its f32 form on the same values (``x.float()``), rounded
+    once to bf16 (lse and the f32 forms' inputs are the same), in every
+    design that takes the head dim (K5: ``mma.sync`` and ``wgmma``; K6a:
+    ``mma.sync`` and, up to 64, ``wgmma``; K6b and K6c: ``mma.sync`` and,
+    up to 32, streamed), the same
+    bits on a second call, and agree with its plain version on the bf16
+    inputs as ``check_bf16_against_plain`` says (out within 5e-3, gradients
+    within 2e-2 of their peak, as ``check_flash`` holds the f32 forms)."""
+    from transformers4rec_tpu_torch.ops import attention as fa
+
+    f32 = flash_inputs(B, S, H, Dh, seed, "cuda", **kw)
+    pad, bias = f32[4], f32[5]
+    qb, kb, vb, gb = (t.to(torch.bfloat16) for t in f32[:4])
+    q32, k32, v32, g32 = (t.float() for t in (qb, kb, vb, gb))
+    res = {"shape": name, "B": B, "S": S, "H": H, "Dh": Dh, "causal": causal,
+           "bias": None if bias is None else list(bias.shape)}
+    for wgmma in (False, True):
+        out, lse = fa._flash_fwd_cuda(qb, kb, vb, bias, pad, causal, wgmma=wgmma)
+        again = fa._flash_fwd_cuda(qb, kb, vb, bias, pad, causal, wgmma=wgmma)
+        out32, lse32 = fa._flash_fwd_cuda(q32, k32, v32, bias, pad, causal, wgmma=wgmma)
+        sync("cuda")
+        design = "wgmma" if wgmma else "mma.sync"
+        if out.dtype != torch.bfloat16 or not (torch.equal(out, again[0])
+                                               and torch.equal(lse, again[1])):
+            fail(f"flash_fwd bf16 {name} ({design}): {out.dtype}, or other bits on a second call")
+        if not (torch.equal(out, out32.to(torch.bfloat16)) and torch.equal(lse, lse32)):
+            fail(f"flash_fwd bf16 {name} ({design}): not the f32 form's bits rounded once")
+    out, lse = fa.flash_fwd(qb, kb, vb, bias, pad, causal)
+    out_p, lse_p = fa.flash_forward_plain(qb, kb, vb, bias, pad, causal)
+    masked = lse_p == fa.LSE_MASKED
+    res["out"] = check_bf16_against_plain(f"flash_fwd bf16 {name}", out, out_p, 5e-3)
+    res["lse_max_abs_err"] = float((lse - lse_p)[~masked].abs().max()) if (~masked).any() else 0.0
+    if res["lse_max_abs_err"] > 1e-4 or not torch.equal(lse[masked], lse_p[masked]):
+        fail(f"flash_fwd bf16 {name}: lse {res['lse_max_abs_err']}")
+
+    delta = fa.row_delta(gb, out_p)
+    args = (qb, kb, vb, gb, lse_p, delta, bias, pad, causal)
+    args32 = (q32, k32, v32, g32, *args[4:])
+    runs = {}
+    for wgmma in (False, True) if Dh <= fa.WGMMA_MAX_DH else (False,):
+        runs[f"fused_{'wgmma' if wgmma else 'mma.sync'}"] = (
+            lambda a, w=wgmma: fa._flash_bwd_fused_cuda(*a, wgmma=w))
+    for streamed in (False, True) if Dh <= fa.SPLIT_STREAM_MAX_DH else (False,):
+        tag = "streamed" if streamed else "mma.sync"
+        runs[f"dq_{tag}"] = lambda a, st=streamed: (fa._flash_bwd_dq_cuda(*a, streamed=st),)
+        runs[f"dkv_{tag}"] = lambda a, st=streamed: fa._flash_bwd_dkv_cuda(*a, streamed=st)
+    for design, run in runs.items():
+        got, again, want = run(args), run(args), run(args32)
+        sync("cuda")
+        if not all(a.dtype == torch.bfloat16 and torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash_bwd bf16 {name} ({design}): not bf16, or other bits on a second call")
+        if not all(torch.equal(a, b.to(torch.bfloat16)) for a, b in zip(got, want)):
+            fail(f"flash_bwd bf16 {name} ({design}): not the f32 form's bits rounded once")
+    res["designs_with_the_f32_bits"] = [f"fwd_{d}" for d in ("mma.sync", "wgmma")] + list(runs)
+    fused = fa.flash_bwd_fused(*args)
+    split = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    want_fused = fa.flash_backward_plain(qb, kb, vb, bias, pad, causal, out_p, lse_p, gb, True)
+    want_split = fa.flash_backward_plain(qb, kb, vb, bias, pad, causal, out_p, lse_p, gb, False)
+    for tag, got, want in (("fused", fused, want_fused), ("split", split, want_split)):
+        res[tag] = {g: check_bf16_against_plain(f"flash_bwd bf16 {tag} {name} {g}", a, b,
+                                                2e-2 * float(b.float().abs().max()))
+                    for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+    print(f"[k5k6-bf16] {json.dumps(res)}")
+    return res
+
+
 def attention_pairs(S: int, causal: bool, pad, B: int) -> int:
     """(query, key) pairs per head that the attention must score: keys that
     are real and, under the causal mask, not after the query."""
@@ -857,21 +979,24 @@ def attention_pairs(S: int, causal: bool, pad, B: int) -> int:
 
 
 def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged: bool,
-               reps: int) -> dict:
-    """K5, K6a, K6b and K6c at one shape beside their plain versions and
+               reps: int, dtype=torch.float32) -> dict:
+    """K5, K6a, K6b and K6c at one shape, in their form for ``dtype`` (q, k,
+    v and dO of that type), beside their plain versions and
     ``F.scaled_dot_product_attention`` (bf16 inputs cast outside the timed
     call, the same causal and padding mask; its backward alone for K6a, for
     dq alone and for dk and dv alone; never used by the port). The bounds
-    count the pairs that the masks leave."""
+    count the pairs that the masks leave and the bytes of the form's
+    type (half of them in bf16)."""
     import torch.nn.functional as F
 
     from transformers4rec_tpu_torch.ops import attention as fa
 
-    q, k, v, d_out, pad, _ = flash_inputs(B, S, H, Dh, 70, "cuda", ragged)
+    q, k, v, d_out, pad, _ = (t if t is None or t.dtype == torch.bool else t.to(dtype)
+                              for t in flash_inputs(B, S, H, Dh, 70, "cuda", ragged))
     out, lse = fa.flash_fwd(q, k, v, None, pad, causal)
     delta = fa.row_delta(d_out, out)
     args = (q, k, v, d_out, lse, delta, None, pad, causal)
-    n = q.numel()
+    n, es = q.numel(), q.element_size()
     pairs = attention_pairs(S, causal, pad, B) * H
     rows = B * H * S
 
@@ -904,7 +1029,7 @@ def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged:
             "library_ms": fwd_lib,
             # read q, k, v and the pad mask once, write out and lse once; two
             # products and one exponential a pair
-            **bound(4 * 4 * n + 4 * rows + pad_bytes, 2 * 2 * Dh * pairs, pairs),
+            **bound(4 * es * n + 4 * rows + pad_bytes, 2 * 2 * Dh * pairs, pairs),
         },
         "flash_bwd_fused": {
             "ms": cuda_ms(lambda: fa.flash_bwd_fused(*args), reps=reps),
@@ -913,14 +1038,14 @@ def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged:
             "library_ms": cuda_ms(library_bwd((lq, lk, lv)), reps=reps),
             # read q, k, v, dO, lse and delta once, write dq, dk, dv once; five
             # products a pair
-            **bound(7 * 4 * n + 2 * 4 * rows + pad_bytes, 5 * 2 * Dh * pairs, pairs),
+            **bound(7 * es * n + 2 * 4 * rows + pad_bytes, 5 * 2 * Dh * pairs, pairs),
         },
         "flash_bwd_dq": {
             "ms": cuda_ms(lambda: fa.flash_bwd_dq(*args), reps=reps),
             "plain_ms": cuda_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, d_out, lse, delta, None,
                                                               pad, causal), reps=max(3, reps // 3)),
             "library_ms": cuda_ms(library_bwd((lq,)), reps=reps),
-            **bound(5 * 4 * n + 2 * 4 * rows + pad_bytes, 3 * 2 * Dh * pairs, pairs),
+            **bound(5 * es * n + 2 * 4 * rows + pad_bytes, 3 * 2 * Dh * pairs, pairs),
         },
         "flash_bwd_dkv": {
             "ms": cuda_ms(lambda: fa.flash_bwd_dkv(*args), reps=reps),
@@ -928,7 +1053,7 @@ def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged:
                                                                pad, causal),
                                 reps=max(3, reps // 3)),
             "library_ms": cuda_ms(library_bwd((lk, lv)), reps=reps),
-            **bound(6 * 4 * n + 2 * 4 * rows + pad_bytes, 4 * 2 * Dh * pairs, pairs),
+            **bound(6 * es * n + 2 * 4 * rows + pad_bytes, 4 * 2 * Dh * pairs, pairs),
         },
     }
     # both designs of K5 and K6a at this shape, in the same call: the one
@@ -958,21 +1083,25 @@ def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged:
     for r in res.values():
         r["shape"] = name
         r["pairs"] = pairs
+        r["dtype"] = str(dtype)[len("torch."):]
     return res
 
 
-def time_flash_plm(name: str, B: int, S: int, H: int, Dh: int, reps: int) -> dict:
+def time_flash_plm(name: str, B: int, S: int, H: int, Dh: int, reps: int,
+                   dtype=torch.float32) -> dict:
     """K5 with XLNet-PLM's (B, H, S, S) query-stream bias (``plm_attention_bias``,
     not causal, ragged padding) beside its plain version and
     ``F.scaled_dot_product_attention`` with the same bias and padding as a
     bf16 additive mask (it gives rows without a visible key the mean of v,
     not 0). The bound reads the bias once and counts the pairs that the
-    bias and the padding leave."""
+    bias and the padding leave. ``dtype``: the form's type of q, k, v and
+    out."""
     import torch.nn.functional as F
 
     from transformers4rec_tpu_torch.ops import attention as fa
 
     q, k, v, _, pad, bias = flash_inputs(B, S, H, Dh, 70, "cuda", True, plm=True)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
     pairs = int(((bias > fa.NEG / 2) & pad[:, None, None, :]).sum())
     lq, lk, lv = (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
     mask = (bias + torch.where(pad, 0.0, fa.NEG)[:, None, None, :]).to(torch.bfloat16)
@@ -985,14 +1114,15 @@ def time_flash_plm(name: str, B: int, S: int, H: int, Dh: int, reps: int) -> dic
                                  reps=reps),
            # read q, k, v, the bias and the pad mask once, write out and lse once;
            # two products and one exponential a pair
-           **bound(4 * 4 * n + 4 * bias.numel() + 4 * B * H * S + pad.numel(),
+           **bound(4 * q.element_size() * n + 4 * bias.numel() + 4 * B * H * S + pad.numel(),
                    2 * 2 * Dh * pairs, pairs),
-           "shape": name, "bias_shape": list(bias.shape), "pairs": pairs}
+           "shape": name, "bias_shape": list(bias.shape), "pairs": pairs,
+           "dtype": str(dtype)[len("torch."):]}
     return res
 
 
 def time_flash_bias(name: str, B: int, S: int, H: int, Dh: int, reps: int, causal: bool = False,
-                    window=None, segments: bool = False) -> dict:
+                    window=None, segments: bool = False, dtype=torch.float32) -> dict:
     """K5 and K6a with a constant bias over the heads: Longformer's (1, 1, S,
     S) local window (``window``; not causal, ragged padding: main paths S4
     and V2's local layers) or packed rows' (B, 1, S, S) block-diagonal one
@@ -1000,13 +1130,15 @@ def time_flash_bias(name: str, B: int, S: int, H: int, Dh: int, reps: int, causa
     ``F.scaled_dot_product_attention`` with the same bias, padding and
     causal mask as a bf16 additive mask (forward; its backward for dq, dk,
     dv). The bounds read the bias once and count the pairs that the bias,
-    the causal mask and the padding leave."""
+    the causal mask and the padding leave. ``dtype``: the form's type of
+    q, k, v, dO and the outputs."""
     import torch.nn.functional as F
 
     from transformers4rec_tpu_torch.ops import attention as fa
 
     q, k, v, d_out, pad, bias = flash_inputs(B, S, H, Dh, 71, "cuda", True, window=window,
                                              segments=segments)
+    q, k, v, d_out = (t.to(dtype) for t in (q, k, v, d_out))
     out, lse = fa.flash_fwd(q, k, v, bias, pad, causal)
     args = (q, k, v, d_out, lse, fa.row_delta(d_out, out), bias, pad, causal)
     allowed = (bias > fa.NEG / 2) & pad[:, None, None, :]
@@ -1014,6 +1146,7 @@ def time_flash_bias(name: str, B: int, S: int, H: int, Dh: int, reps: int, causa
         allowed = allowed & torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
     pairs = int(allowed.sum()) * (H // bias.shape[1])
     n, rows, extra = q.numel(), B * H * S, 4 * bias.numel() + pad.numel()
+    es = q.element_size()
     lq, lk, lv = (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous().requires_grad_()
                   for t in (q, k, v))
     additive = bias + torch.where(pad, 0.0, fa.NEG)[:, None, None, :]
@@ -1031,18 +1164,19 @@ def time_flash_bias(name: str, B: int, S: int, H: int, Dh: int, reps: int, causa
             "plain_ms": cuda_ms(lambda: fa.flash_forward_plain(q, k, v, bias, pad, causal),
                                 reps=max(3, reps // 3)),
             "library_ms": fwd_lib,
-            **bound(4 * 4 * n + 4 * rows + extra, 2 * 2 * Dh * pairs, pairs)},
+            **bound(4 * es * n + 4 * rows + extra, 2 * 2 * Dh * pairs, pairs)},
         "flash_bwd_fused": {
             "ms": cuda_ms(lambda: fa.flash_bwd_fused(*args), reps=reps),
             "plain_ms": cuda_ms(lambda: fa.flash_backward_plain(
                 q, k, v, bias, pad, causal, out, lse, d_out, True), reps=max(3, reps // 3)),
             "library_ms": cuda_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), lg,
                                                               retain_graph=True), reps=reps),
-            **bound(7 * 4 * n + 2 * 4 * rows + extra, 5 * 2 * Dh * pairs, pairs)},
+            **bound(7 * es * n + 2 * 4 * rows + extra, 5 * 2 * Dh * pairs, pairs)},
     }
     for r in res.values():
         r.update(shape=name, bias_shape=list(bias.shape), pairs=pairs, causal=causal,
-                 design="wgmma" if fa.uses_wgmma(Dh) else "mma.sync")
+                 design="wgmma" if fa.uses_wgmma(Dh) else "mma.sync",
+                 dtype=str(dtype)[len("torch."):])
     return res
 
 
@@ -1251,7 +1385,8 @@ def run_evaluate(model, loader, vocab) -> tuple:
     return results, {"ce_rank": vocab.ce_rank.launches}, time.perf_counter() - t0
 
 
-def check_evaluate(gpu: dict, cpu: dict, rows_total: int) -> None:
+def check_evaluate(gpu: dict, cpu: dict, rows_total: int, loss_rtol: float = 1e-4,
+                   flips: int = 2) -> None:
     if set(gpu) != set(cpu) or "eval_/next-item/ndcg_at_10" not in gpu:
         fail(f"evaluate returned keys {sorted(gpu)}")
     for k, v in gpu.items():
@@ -1260,12 +1395,12 @@ def check_evaluate(gpu: dict, cpu: dict, rows_total: int) -> None:
         if k != "eval_loss" and not 0.0 <= v <= 1.0:
             fail(f"evaluate: {k} = {v} outside [0, 1]")
     rel = abs(gpu["eval_loss"] - cpu["eval_loss"]) / abs(cpu["eval_loss"])
-    if rel > 1e-4:
+    if rel > loss_rtol:
         fail(f"evaluate: GPU loss {gpu['eval_loss']} vs CPU {cpu['eval_loss']}")
     # a label whose rank flips across a cutoff moves that metric by at most
-    # 1/rows (the two devices sum logits in different orders)
+    # 1/rows (the two devices sum logits in different orders): ``flips`` of them
     for k in gpu:
-        if k != "eval_loss" and abs(gpu[k] - cpu[k]) > 2.0 / rows_total:
+        if k != "eval_loss" and abs(gpu[k] - cpu[k]) > flips / rows_total:
             fail(f"evaluate: {k} GPU {gpu[k]} vs CPU {cpu[k]}")
 
 
@@ -1807,14 +1942,15 @@ def run_vocab_parallel(flagship, vocab, model, loader, gpu_res: dict, vocab_size
 # --------------------------------------------------------------------- train
 def check_training_step(model, cpu_model, batch, extra=(), loss_rtol: float = 1e-4,
                         extra_rel: float = 5e-3, cpu_sums=None, neg_ids=None,
-                        grad_rel: float = 1e-3) -> dict:
+                        grad_rel: float = 1e-3, peak: float = 2e-2) -> dict:
     """One training forward and backward of the same weights on the card and
     on the CPU (which takes the plain versions), with one mask, drawn once
     and given to both, and dropout off (both models are built with dropout
     0). The loss, and each task's, must agree within ``loss_rtol``
     relative; the gradients of the item table (the lookup's plus the CE's
     dW) and of the output projection as ``check_grad`` says, within
-    ``grad_rel`` (1e-3) in relative Frobenius norm; those of the parameters
+    ``grad_rel`` (1e-3) in relative Frobenius norm and ``peak`` of their
+    peak; those of the parameters
     named in ``extra`` within ``extra_rel`` in relative Frobenius norm (5e-3:
     they lie below every layer's bf16 roundings of q, k, v, P and dS on two
     devices where attention takes the flash path). A batch with
@@ -1868,10 +2004,11 @@ def check_training_step(model, cpu_model, batch, extra=(), loss_rtol: float = 1e
 
     out = {"loss": losses, "targets": int(info.mask.sum()), "loss_rel_diff": rel,
            **{f"{g}_grad": check_grad(f"training step, {g} gradient", grads["cuda"][g],
-                                      grads["cpu"][g], rel=grad_rel)
+                                      grads["cpu"][g], rel=grad_rel, peak=peak)
               for g in ("item_table", "projection") if g in grads["cpu"]},
            **{short(n) + "_grad": check_grad(f"training step, {n} gradient",
-                                             grads["cuda"][n], grads["cpu"][n], rel=extra_rel)
+                                             grads["cuda"][n], grads["cpu"][n], rel=extra_rel,
+                                             peak=peak)
               for n in extra}}
     if len(task_losses["cpu"]) > 1:
         out["task_losses"] = task_losses
@@ -3924,6 +4061,330 @@ def run_reformer_rnn(flagship, vocab, fa, card: str) -> dict:
 
 
 # -------------------------------------------------------------------- timing
+# ------------------------ Y: the encoder's bf16 compute type and per-layer remat
+# a head dim whose bf16 rows are 8-byte aligned and not 16 (72 bytes), in the
+# wgmma design: checked and timed beside the main paths' shapes
+Y_DH36 = (32, 256, 8, 36)
+# One step of a bf16 encoder on the card against the same weights on the CPU,
+# dropout off, one mask: both round at the same places, but their products
+# sum in other orders (cuBLAS against the CPU's), so a value here and there
+# lands on the other side of a bf16 rounding and moves what follows, as the
+# port against the JAX package on the CPU (tests/test_torch_compute_dtype.py:
+# gradients within 5e-2, the loss within 1e-3): the loss within
+# ``Y_LOSS_RTOL``, the item table's and the projection's gradients within
+# ``Y_GRAD_REL`` in relative Frobenius norm and ``Y_PEAK`` of their peak,
+# named encoder weights within ``Y_EXTRA_REL``; an evaluation's loss within
+# ``Y_LOSS_RTOL`` and each metric within ``Y_FLIPS`` rank flips of its rows;
+# top-k scores within ``Y_TOPK_ATOL``.
+Y_LOSS_RTOL = 2e-3
+Y_GRAD_REL, Y_PEAK, Y_EXTRA_REL = 3e-2, 1e-1, 1e-1
+Y_FLIPS = 8
+Y_TOPK_ATOL = 5e-2
+Y_STEPS, Y_REPEAT = 8, 16  # trainer steps over 8 batches, then on one repeated batch
+
+
+class Bf16Form:
+    """A flash wrapper's count of its bf16 form's launches
+    (``<wrapper>.bf16_launches``), set and read as ``launches`` by
+    ``counted``."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+
+    @property
+    def launches(self) -> int:
+        return self.wrapper.bf16_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.wrapper.bf16_launches = n
+
+
+def flash_bf16_counters(vocab, fa) -> dict:
+    """``flash_counters`` and each flash wrapper's bf16 form as
+    ``<name>_bf16``: a launch of the bf16 form counts under both names, one
+    of the f32 form under the first only."""
+    counters = flash_counters(vocab, fa)
+    for name in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
+        counters[f"{name}_bf16"] = Bf16Form(counters[name])
+    return counters
+
+
+def both_forms(**per_kernel) -> dict:
+    """Expected launches where every flash launch is the bf16 form's."""
+    out = dict(per_kernel)
+    for name, n in per_kernel.items():
+        if name.startswith("flash_"):
+            out[f"{name}_bf16"] = n
+    return out
+
+
+def check_bf16_model(model, what: str) -> None:
+    encoder = model.heads[0].body.blocks[1].encoder
+    if encoder.compute_dtype != torch.bfloat16:
+        fail(f"{what}: the encoder computes in {encoder.compute_dtype}")
+    kinds = {p.dtype for p in model.parameters()}
+    if kinds != {torch.float32}:
+        fail(f"{what}: parameters of {kinds}: they stay float32")
+
+
+def remat_pair_step(flagship, counters: dict, batch: dict, seed: int, **model_kwargs) -> dict:
+    """One training forward and backward of the same weights without
+    ``remat``, again without it, and with it, on the card, dropout 0.1, each
+    from a generator seeded with ``seed``: the loss, the generator's final
+    state and every gradient that the two runs without remat give with the
+    same bits must come with those bits from the run with remat (the
+    encoder's, every one); a gradient whose bits the two runs without remat
+    do not repeat (a lookup's backward that sums with atomics, outside the
+    encoder) must lie within 1e-5 of theirs in relative Frobenius norm.
+    Returns each arm's launches, seconds and peak memory above what was held
+    before it."""
+    out, runs, weights = {}, {}, None
+    for arm, remat in (("plain", False), ("plain_again", False), ("remat", True)):
+        model = flagship.build_model("cuda", seed=0, remat=remat, **model_kwargs)
+        if weights is None:
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        b = model._as_dense(batch)
+        gen = torch.Generator(device=model.device).manual_seed(seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def step():
+            loss, _ = model(b, targets=b, training=True, generator=gen)
+            loss.backward()
+            return loss.detach()
+
+        loss, got, wall = counted(counters, step)
+        runs[arm] = ({n: p.grad for n, p in model.named_parameters() if p.grad is not None},
+                     loss, gen.get_state())
+        out[arm] = {"launches": got, "wall_s": wall, "loss": float(loss),
+                    "peak_memory_gb": (torch.cuda.max_memory_allocated() - held) / 1e9}
+        del model
+    (ga, la, sa), (g2, _, _), (gb, lb, sb) = runs["plain"], runs["plain_again"], runs["remat"]
+    repeat = {n for n in ga if torch.equal(ga[n], g2[n])}
+    same = {"loss": torch.equal(la, lb), "generator": torch.equal(sa, sb),
+            "gradients": ga.keys() == gb.keys() and all(torch.equal(ga[n], gb[n]) for n in repeat),
+            "encoder_repeats": all(n in repeat for n in ga if ".encoder." in n)}
+    out["same_bits"] = same
+    out["not_repeated"] = {n: float((gb[n] - ga[n]).norm() / ga[n].norm())
+                           for n in sorted(set(ga) - repeat)}
+    if not all(same.values()) or any(v > 1e-5 for v in out["not_repeated"].values()):
+        diff = {n: float((ga[n] - gb[n]).abs().max()) for n in repeat
+                if not torch.equal(ga[n], gb[n])}
+        fail(f"remat against no remat: {same}; gradients that differ {diff}; gradients the "
+             f"runs without remat do not repeat {out['not_repeated']}")
+    return out
+
+
+def run_compute_dtype(flagship, vocab, fa, card: str) -> dict:
+    """Main path Y: the encoder's bf16 compute type (``dtype=torch.bfloat16``)
+    and per-layer rematerialisation (``remat=True``) at full width, each
+    part counted from 0. Every flash launch must be the bf16 form's.
+
+    Y1 GPT-2-CLM (390,000 items, d_model 192, 3 layers, 16 heads, sessions of
+    up to 256) in bf16: one training step at batch 4, ``Model.evaluate``
+    over 4 batches of 32 and the top-k of 8 ragged sessions through the
+    exported artifact (``InferenceRunner`` rebuilding the bf16 model), each
+    against the same weights on the CPU; then ``build_trainer(scheme="clm",
+    dtype=bf16)`` for 8 + 16 steps with dropout 0.1 (K5 and K6a bf16 three
+    times a step). Y2 the same model with and without ``remat`` at batch 32,
+    dropout 0.1, from one generator seed: the same loss, gradients and
+    generator state bit for bit, K5 six times a step with remat and three
+    without, the peak memory of each; and 8 trainer steps with remat. Y3
+    XLNet-MLM (sessions of 20, batch 128, the dense attention) in bf16 with
+    remat: a step, ``Model.evaluate`` against the CPU and 8 + 16 trainer
+    steps, no flash launch. Y4 XLNet-PLM on 32 sessions of up to 256 in
+    bf16: one step at batch 4 against the CPU (K5 bf16 for both streams, the
+    learned bias's backward through ``reference_attention`` on bf16
+    probabilities). Y5 the one-layer step at S = 4,096 in bf16 without and
+    with remat: K6b and K6c bf16 once a step, each arm's step time and peak
+    memory."""
+    from transformers4rec_tpu_torch.data import synthetic_data
+    from transformers4rec_tpu_torch.serving import InferenceRunner, export_model
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    seq, rows, layers = flagship.LONG_SEQ, flagship.LONG_BATCH, flagship.N_LAYER
+    vocab_size = flagship.NUM_ITEMS + 1
+    counters = flash_bf16_counters(vocab, fa)
+    launches = dict.fromkeys(counters, 0)
+    out = {}
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] += n
+
+    def tolerant_step(model, cpu_model, batch, extra=()):
+        return check_training_step(model, cpu_model, batch, extra=extra, loss_rtol=Y_LOSS_RTOL,
+                                   grad_rel=Y_GRAD_REL, extra_rel=Y_EXTRA_REL, peak=Y_PEAK)
+
+    # ---- Y1: GPT-2-CLM in bf16
+    model = flagship.build_model("cuda", scheme="clm", seed=0, dropout=0.0, dtype=bf16)
+    cpu_model = flagship.build_model("cpu", scheme="clm", seed=0, dropout=0.0, dtype=bf16)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    check_bf16_model(model, "Y1")
+    loader = eval_batches(flagship, flagship.NUM_ITEMS, seq, EVAL_BATCHES, rows)
+    four = {k: v[:4] for k, v in loader[0].items()}
+    step, got, _ = counted(counters, lambda: tolerant_step(
+        model, cpu_model, four, extra=("heads.0.body.blocks.1.encoder.position_embedding",
+                                       "heads.0.body.blocks.1.encoder.layers.0.attn.q.weight")))
+    expect_launches("Y1 training step", got, **both_forms(
+        flash_fwd=layers, flash_bwd_fused=layers, ce_fwd=1, ce_bwd=1))
+    add(got)
+    print(f"[Y1-train-step] on {card}: {json.dumps(step)}")
+    gpu_res, got, eval_s = counted(counters, lambda: model.evaluate(loader))
+    expect_launches("Y1 evaluate", got, **both_forms(flash_fwd=layers * EVAL_BATCHES,
+                                                     ce_rank=EVAL_BATCHES))
+    add(got)
+    cpu_res = cpu_model.evaluate(loader)
+    print(f"[Y1-evaluate] {eval_s:.3f}s on {card}: cuda {json.dumps(gpu_res)} "
+          f"cpu {json.dumps(cpu_res)}")
+    check_evaluate(gpu_res, cpu_res, EVAL_BATCHES * rows, loss_rtol=Y_LOSS_RTOL, flips=Y_FLIPS)
+    requests = serve_requests(flagship, flagship.NUM_ITEMS, seq, 8)
+    sessions = {c: sum((r[c] for r in requests), [])[:8] for c in requests[0]}
+    builder = functools.partial(flagship.build_clm_model, dtype=bf16)
+    with tempfile.TemporaryDirectory() as path:
+        export_model(model, loader[0], path, top_k=TOP_K)
+        runner = InferenceRunner(path, builder, device="cuda")
+        cpu_runner = InferenceRunner(path, builder, device="cpu")
+        check_bf16_model(runner.model, "Y1 InferenceRunner")
+        (got_s, got_i), got, _ = counted(counters, lambda: runner.predict(sessions))
+        want_s, want_i = cpu_runner.predict(sessions)
+    expect_launches("Y1 predict", got, **both_forms(flash_fwd=layers))
+    add(got)
+    check_topk(got_s, got_i, want_s, want_i, vocab_size, "Y1 top-k against the CPU",
+               atol=Y_TOPK_ATOL)
+    out["Y1"] = {"train_step": step, "evaluate": gpu_res,
+                 "topk_max_abs_diff": float(np.abs(np.asarray(got_s) - want_s).max())}
+    print(f"[Y1-predict] on {card}: top-{TOP_K} scores within "
+          f"{out['Y1']['topk_max_abs_diff']:.3g} of the CPU's")
+    del model, cpu_model, runner, cpu_runner
+    torch.cuda.empty_cache()
+    data = synthetic_data(flagship.schema(flagship.NUM_ITEMS, seq), num_rows=Y_STEPS * rows,
+                          max_session_length=seq, seed=900)
+    repeated = {k: v[:rows] for k, v in data.items()}
+    per_step = both_forms(flash_fwd=layers, flash_bwd_fused=layers, ce_fwd=1, ce_bwd=1)
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data, scheme="clm",
+                                     dtype=bf16)
+    check_bf16_model(trainer.model, "Y1 trainer")
+    out["Y1"].update(trainer_phases(trainer, counters, launches, "Y1-train", card, rows, seq,
+                                    (("eight_batches", Y_STEPS, None),
+                                     ("one_batch_repeated", Y_REPEAT, repeated)), per_step))
+    reads = out["Y1"]["one_batch_repeated"]["loss_reads"]
+    if not float(np.mean(reads[-4:])) < reads[0]:
+        fail(f"Y1 train: the repeated batch's loss did not fall: {reads}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ---- Y2: remat against no remat, bit for bit, and the trainer with remat
+    pair = remat_pair_step(flagship, counters, repeated, 11, scheme="clm", dtype=bf16)
+    for arm, fwd in (("plain", layers), ("plain_again", layers), ("remat", 2 * layers)):
+        expect_launches(f"Y2 step ({arm})", pair[arm]["launches"], **both_forms(
+            flash_fwd=fwd, flash_bwd_fused=layers, ce_fwd=1, ce_bwd=1))
+        add(pair[arm]["launches"])
+    print(f"[Y2-remat] on {card}: {json.dumps(pair)}")
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data, scheme="clm",
+                                     dtype=bf16, remat=True)
+    pair["train"] = trainer_phases(
+        trainer, counters, launches, "Y2-train-remat", card, rows, seq,
+        (("eight_batches", Y_STEPS, None),),
+        both_forms(flash_fwd=2 * layers, flash_bwd_fused=layers, ce_fwd=1, ce_bwd=1))
+    out["Y2"] = pair
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ---- Y3: XLNet-MLM in bf16 with remat, the dense attention
+    mrows, mseq = flagship.BATCH, flagship.SEQ
+    model = flagship.build_model("cuda", seed=0, dropout=0.0, dtype=bf16, remat=True)
+    cpu_model = flagship.build_model("cpu", seed=0, dropout=0.0, dtype=bf16, remat=True)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    check_bf16_model(model, "Y3")
+    mloader = eval_batches(flagship, flagship.NUM_ITEMS, mseq, EVAL_BATCHES, mrows)
+    step, got, _ = counted(counters, lambda: tolerant_step(
+        model, cpu_model, mloader[0],
+        extra=("heads.0.body.blocks.1.encoder.layers.0.attn.q.weight",)))
+    expect_launches("Y3 training step", got, ce_fwd=1, ce_bwd=1)
+    add(got)
+    gpu_res, got, eval_s = counted(counters, lambda: model.evaluate(mloader))
+    expect_launches("Y3 evaluate", got, ce_rank=EVAL_BATCHES)
+    add(got)
+    cpu_res = cpu_model.evaluate(mloader)
+    check_evaluate(gpu_res, cpu_res, EVAL_BATCHES * mrows, loss_rtol=Y_LOSS_RTOL, flips=Y_FLIPS)
+    print(f"[Y3] on {card}: step {json.dumps(step)}; evaluate {eval_s:.3f}s cuda "
+          f"{json.dumps(gpu_res)} cpu {json.dumps(cpu_res)}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    mdata = synthetic_data(flagship.schema(), num_rows=Y_STEPS * mrows, max_session_length=mseq,
+                           seed=901)
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=mdata, dtype=bf16, remat=True)
+    out["Y3"] = {"train_step": step, "evaluate": gpu_res, **trainer_phases(
+        trainer, counters, launches, "Y3-train", card, mrows, mseq,
+        (("eight_batches", Y_STEPS, None),
+         ("one_batch_repeated", Y_REPEAT, {k: v[:mrows] for k, v in mdata.items()})),
+        {"ce_fwd": 1, "ce_bwd": 1})}
+    reads = out["Y3"]["one_batch_repeated"]["loss_reads"]
+    if not float(np.mean(reads[-4:])) < reads[0]:
+        fail(f"Y3 train: the repeated batch's loss did not fall: {reads}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ---- Y4: XLNet-PLM on sessions of up to 256 in bf16, one step against the CPU
+    model = flagship.build_model("cuda", scheme="plm", seq=seq, seed=0, dropout=0.0, dtype=bf16)
+    cpu_model = flagship.build_model("cpu", scheme="plm", seq=seq, seed=0, dropout=0.0,
+                                     dtype=bf16)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    check_bf16_model(model, "Y4")
+    step, got, _ = counted(counters, lambda: tolerant_step(model, cpu_model, four,
+                                                           extra=PLM_EXTRA))
+    # both streams of each layer take K5; the learned relative bias's
+    # backward is reference_attention's (no K6)
+    expect_launches("Y4 training step", got, **both_forms(flash_fwd=2 * layers, ce_fwd=1,
+                                                          ce_bwd=1))
+    add(got)
+    out["Y4"] = {"train_step": step}
+    print(f"[Y4-train-step] on {card}: {json.dumps(step)}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    # ---- Y5: the one-layer step at S = 4,096 in bf16, without and with remat
+    lrows, lseq = LONG_STEP_BATCH, LONG_STEP_SEQ
+    ldata = synthetic_data(flagship.schema(flagship.NUM_ITEMS, lseq), num_rows=lrows,
+                           max_session_length=lseq, seed=500)
+    out["Y5"] = {}
+    for remat in (False, True):
+        arm = "remat" if remat else "plain"
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        trainer = flagship.build_trainer("cuda", seed=0, train_dataset=ldata, scheme="clm",
+                                         seq=lseq, batch=lrows, n_layer=1, dtype=bf16,
+                                         remat=remat)
+        res = {}
+        for name, n in (("cold", 1), ("steady", LONG_STEP_STEADY)):
+            trainer.args.max_steps = n
+            torch.cuda.reset_peak_memory_stats()
+            metrics, got, wall = counted(counters, trainer.train)
+            expect_launches(f"Y5 {arm} ({name})", got, **both_forms(
+                flash_fwd=n * (2 if remat else 1), flash_bwd_dq=n, flash_bwd_dkv=n,
+                ce_fwd=n, ce_bwd=n))
+            add(got)
+            if not math.isfinite(metrics["train_loss"]):
+                fail(f"Y5 {arm}: {metrics}")
+            res[name] = {"steps": n, "loss": metrics["train_loss"], "wall_s": wall,
+                         "ms_per_step": 1e3 * wall / n,
+                         "peak_memory_gb": (torch.cuda.max_memory_allocated() - held) / 1e9}
+        out["Y5"][arm] = res
+        print(f"[Y5-long-step] {arm} on {card}: {json.dumps(res)}")
+        del trainer
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[Y] launches {json.dumps(launches)}; {out['phase_s']:.1f} s on {card}")
+    return out
+
+
 # ------------------------------------------- X: bf16-stored tables on the card
 X_STEPS = 8  # a trainer's group of steps (steps_per_execution)
 X1_TIMED = 16  # X1's timed steps of each table type, after a warm group
@@ -4805,6 +5266,78 @@ def profile_steps(trainer, summary: dict, out_file: str = "", window: int = 16) 
             f.write(json.dumps(summary) + "\n" + table + "\n")
 
 
+def is_gemm(kernel: str) -> bool:
+    """A matrix product's kernel by its name: cuBLAS's (``gemm``, ``xmma``,
+    and its Hopper ``nvjet`` kernels) and CUTLASS's."""
+    name = kernel.lower()
+    return any(tag in name for tag in ("gemm", "xmma", "nvjet", "cutlass"))
+
+
+def profile_compute_dtype(card: str, window: int = 8) -> None:
+    """``--profile-compute-dtype``: the steps of phase Y's configurations in
+    f32, in bf16 and in bf16 with remat, in turns: GPT-2-CLM at batch 32 of
+    up to 256, XLNet-MLM at batch 128 of 20 and the one-layer GPT-2-CLM step
+    at S = 4,096 (batch 4), each through ``flagship.build_trainer`` with
+    dropout 0.1. For each arm: the steady wall time a step (16 steps after 8
+    warm ones), the device time a step from ``torch.profiler`` over
+    ``window`` steps and, of it, the GEMM kernels' (``is_gemm``: the
+    encoder's Linear layers and dense attention products and the head's
+    projection), the flash kernels' and the rest, the device's launches a
+    step and its top kernels, and the peak memory of the steady steps above
+    what was held before the trainer."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from transformers4rec_tpu_torch import flagship
+    from transformers4rec_tpu_torch.data import synthetic_data
+    from transformers4rec_tpu_torch.ops import build
+
+    build.build()
+    configs = {"clm": dict(scheme="clm", seq=flagship.LONG_SEQ, batch=flagship.LONG_BATCH),
+               "mlm": dict(scheme="mlm", seq=flagship.SEQ, batch=flagship.BATCH),
+               "long_step": dict(scheme="clm", seq=LONG_STEP_SEQ, batch=LONG_STEP_BATCH,
+                                 n_layer=1)}
+    arms = {"f32": {}, "bf16": {"dtype": torch.bfloat16},
+            "bf16_remat": {"dtype": torch.bfloat16, "remat": True}}
+    results = {}
+    for config, kw in configs.items():
+        data = synthetic_data(flagship.schema(flagship.NUM_ITEMS, kw["seq"]),
+                              num_rows=8 * kw["batch"], max_session_length=kw["seq"], seed=950)
+        for arm in ("f32", "bf16", "bf16_remat", "bf16_remat", "bf16", "f32"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data, **kw,
+                                             **arms[arm])
+            timed_train(trainer, 8)
+            torch.cuda.reset_peak_memory_stats()
+            wall = timed_train(trainer, 16) / 16
+            peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                timed_train(trainer, window)
+            kernels = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+                    kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total
+            device = sum(kernels.values()) / window / 1e3
+            gemm = sum(t for k, t in kernels.items() if is_gemm(k)) / window / 1e3
+            flash = sum(t for k, t in kernels.items() if "flash" in k) / window / 1e3
+            top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+            results.setdefault(config, {}).setdefault(arm, []).append({
+                "wall_ms_per_step": 1e3 * wall, "device_ms_per_step": device,
+                "gemm_ms_per_step": gemm, "flash_ms_per_step": flash,
+                "other_ms_per_step": device - gemm - flash,
+                "device_busy_share": device / (1e3 * wall), "peak_memory_gb": peak,
+                "launches_per_step": sum(1 for e in prof.events()
+                                         if e.device_type == DeviceType.CUDA) / window,
+                "top_kernels_ms": [(k[:90], t / window / 1e3) for k, t in top]})
+            print(f"[profile-compute-dtype] {config} {arm} on {card}: "
+                  f"{json.dumps(results[config][arm][-1])}", flush=True)
+            del trainer
+    print(card)
+    print(json.dumps({"profile_compute_dtype": results}))
+
+
 def time_ce_kernels(card: str) -> None:
     """K3 alone at the evaluation shape (128 rows against the REES46 table)
     at E = 64, 128 and 256 (the narrow kernel's widths), then K1 and K2 at
@@ -4896,14 +5429,15 @@ def time_flash_kernels(card: str) -> None:
     ragged padding, at the S = 4,096 step's (4, 4096, 16, 12) with ragged
     padding and at (4, 2048, 8, Dh) for Dh = 64 and, where the two
     designs meet, at (32, 256, 16, Dh) for Dh = 32 and 48 and at
-    (4, 2048, 8, Dh) for Dh = 32, 48 and 128, all causal: each held against its plain
-    version (``check_flash``) and timed in both designs beside
+    (4, 2048, 8, Dh) for Dh = 32, 48 and 128, and at phase Y's (32, 256, 8,
+    36), all causal, in their f32 and bf16 forms: each held against its plain
+    version (``check_flash``, ``check_flash_bf16``) and timed in both designs beside
     ``scaled_dot_product_attention`` (``time_flash``): the quick loop for
     work on them, and the times that ``ops/attention.py:uses_wgmma`` and
     ``uses_split_stream`` keep."""
     from transformers4rec_tpu_torch.ops import build
 
-    build.build(["flash_fwd", "flash_bwd"])
+    build.build(["flash_fwd", "flash_bwd", "flash_fwd_bf16", "flash_bwd_bf16"])
     for name, dims, ragged, seed in (("main", (32, 256, 16, 12), True, 21),
                                      ("long_step", (LONG_STEP_BATCH, LONG_STEP_SEQ, 16, 12),
                                       True, 24),
@@ -4912,14 +5446,17 @@ def time_flash_kernels(card: str) -> None:
                                      ("main_dh48", (32, 256, 16, 48), True, 29),
                                      ("long_dh32", (4, 2048, 8, 32), False, 25),
                                      ("long_dh48", (4, 2048, 8, 48), False, 26),
-                                     ("long_dh128", (4, 2048, 8, 128), False, 27)):
+                                     ("long_dh128", (4, 2048, 8, 128), False, 27),
+                                     ("dh36", Y_DH36, True, 30)):
         check_flash(name, *dims, True, seed, ragged=ragged)
-        timing = time_flash(name, *dims, True, ragged, 30)
+        check_flash_bf16(name, *dims, True, seed, ragged=ragged)
         keep = ("ms", "bound_ms", "library_ms", "design", "designs_ms", "split_route_ms")
-        torch.cuda.empty_cache()
-        print(f"[time-flash] {name} {dims} on {card}: "
-              f"{json.dumps({k: {f: v[f] for f in keep if f in v} for k, v in timing.items()})}",
-              flush=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            timing = time_flash(name, *dims, True, ragged, 30, dtype=dtype)
+            torch.cuda.empty_cache()
+            print(f"[time-flash] {name} {dims} {str(dtype)[6:]} on {card}: "
+                  f"{json.dumps({k: {f: v[f] for f in keep if f in v} for k, v in timing.items()})}",
+                  flush=True)
 
 
 def time_long_step(card: str, steady: int = 32) -> None:
@@ -5050,6 +5587,9 @@ def main() -> None:
     if sys.argv[1:] == ["--time-parquet"]:
         time_parquet(card_line())
         return
+    if sys.argv[1:] == ["--profile-compute-dtype"]:
+        profile_compute_dtype(card_line())
+        return
     profiles = {"--profile-train": "mlm", "--profile-train-streamed": "mlm",
                 "--profile-train-clm": "clm", "--profile-train-plm": "plm"}
     if sys.argv[1:2] and sys.argv[1] in profiles and len(sys.argv) <= 3:
@@ -5068,6 +5608,12 @@ def main() -> None:
 
     card = card_line()
     print(f"[card] {card}")
+    t_start = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        """Where the run's time goes: the seconds since the start at each phase."""
+        print(f"[phase] {phase} starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
@@ -5076,6 +5622,7 @@ def main() -> None:
     for name, log in logs.items():
         print(f"[build] {name}:\n{log.strip()}")
     print(f"[build] {len(logs)} source(s) compiled in {time.perf_counter() - t0:.1f}s")
+    mark("kernel checks")
 
     vocab_size = flagship.NUM_ITEMS + 1  # item ids 1..NUM_ITEMS, 0 pads
     table_rows = -(-vocab_size // 8) * 8
@@ -5173,11 +5720,30 @@ def main() -> None:
         check_flash("segments", *flash_shapes["main"], True, 28, segments=True),
     ]
     torch.cuda.empty_cache()
+    # the bf16 forms (phase Y) at every shape above, and at head dim 36 (a
+    # head's bf16 row of 72 bytes: 8-byte aligned, not 16; the wgmma design)
+    flash_bf16_checks = [
+        check_flash_bf16("main", *flash_shapes["main"], True, 21, ragged=True),
+        check_flash_bf16("edge", 3, 333, 4, 32, False, 22, ragged=True, wholly_padded=1,
+                         bias_shape=(1, 4, 333, 333)),
+        check_flash_bf16("long", *flash_shapes["long"], True, 23),
+        check_flash_bf16("long_step", *flash_shapes["long_step"], True, 24, ragged=True),
+        check_flash_bf16("plm", *flash_shapes["main"], False, 25, ragged=True, plm=True),
+        check_flash_bf16("longformer", *flash_shapes["main"], False, 26, ragged=True,
+                         window=PAPER_WINDOW),
+        check_flash_bf16("transfoxl", *flash_shapes["main"], True, 27, ragged=True,
+                         bias_shape=(1, flagship.N_HEAD, flagship.LONG_SEQ, flagship.LONG_SEQ)),
+        check_flash_bf16("segments", *flash_shapes["main"], True, 28, segments=True),
+        check_flash_bf16("dh36", *Y_DH36, True, 29, ragged=True, wholly_padded=1,
+                         bias_shape=(1, Y_DH36[2], Y_DH36[1], Y_DH36[1])),
+    ]
+    torch.cuda.empty_cache()
     flash = flash_counters(vocab, attention)
     for name in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         flash[name].launches = 0
 
     # ---- main path 1: evaluate at full width, on the card and on the CPU
+    mark("main path 1")
     # dropout 0: it plays no part in evaluation or serving, and the training
     # step below compares the card with the CPU without it
     model = flagship.build_model("cuda", seed=0, dropout=0.0)
@@ -5194,6 +5760,7 @@ def main() -> None:
     check_evaluate(gpu_res, cpu_res, EVAL_BATCHES * EVAL_ROWS)
 
     # ---- main path 2: serve ragged sessions over HTTP
+    mark("main path 2")
     requests = serve_requests(flagship, flagship.NUM_ITEMS, flagship.SEQ, 8)
     serve = run_serve(flagship.build_model, model, loader[0], vocab_size, requests, "cuda")
     print(f"[serve] {json.dumps(serve)}")
@@ -5204,26 +5771,31 @@ def main() -> None:
     del cpu_model
 
     # ---- main path 3: the vocab-parallel head over a process group on the card
+    mark("main path 3")
     parallel = run_vocab_parallel(flagship, vocab, model, loader, gpu_res, vocab_size)
     print(f"[vocab-parallel] {json.dumps({k: parallel[k] for k in ('losses', 'item_table_grad', 'launches')})}")
     del model
     torch.cuda.empty_cache()
 
     # ---- main path 4: train at full width
+    mark("main path 4")
     summary = ("launches", "global_step", "table_max_move", "moment_nonzero_share")
     train = run_train(flagship, vocab, card)
     print(f"[train] {json.dumps({k: train[k] for k in summary})}")
 
     # ---- main path 5: train with the streamed table update
+    mark("main path 5")
     streamed = run_train(flagship, vocab, card, streamed=True)
     print(f"[train-streamed] {json.dumps({k: streamed[k] for k in summary})}")
     check_streamed_step(flagship)
     torch.cuda.empty_cache()
 
     # ---- main path Q: the README's entry path from Parquet files
+    mark("main path Q")
     parquet = run_parquet_path(flagship, vocab, card)
 
     # ---- main path 5b: XLNet-MLM at the paper's tied width, E = 448
+    mark("main path 5b")
     wide = run_wide_flagship(flagship, vocab, card)
     # sessions of 20 (21 at inference) stay on the dense attention path
     stray = {name: flash[name].launches
@@ -5232,18 +5804,22 @@ def main() -> None:
         fail(f"the XLNet-MLM paths at S = {flagship.SEQ} launched flash kernels: {stray}")
 
     # ---- main path R: the paper's command line through the port's experiment script
+    mark("main path R")
     paper = run_paper_command(vocab, attention, card)
 
     # ---- main path S: the BERT family, ELECTRA-RTD and TransfoXL
+    mark("main path S")
     archs = run_paper_archs(flagship, vocab, attention, card)
 
     # ---- main path T: the JAX benchmark's configurations 4 and 5
+    mark("main path T")
     large = run_large_vocab(flagship, vocab, attention, card)
     checks.append(large["k3_check"])
     multi = run_multitask(flagship, vocab, attention, card)
     torch.cuda.empty_cache()
 
     # ---- main path W: configuration 4's sparse_adam arm, gradient accumulation
+    mark("main path W")
     sparse = run_sparse_large_vocab(flagship, vocab, attention, card)
     accumulation = run_accumulation(flagship, vocab, attention, card)
     w1, t1 = sparse["profile"], large["profile"]
@@ -5256,32 +5832,45 @@ def main() -> None:
           f"{sparse['peak_memory_gb']:.2f} against {large['peak_memory_gb']:.2f} GB")
 
     # ---- main path X: the tables stored as bf16 (every path's kernels on bf16 tables)
+    mark("main path X")
     bf16_tables = run_bf16_tables(flagship, vocab, fa, card)
 
     # ---- main path U: session packing (XLNet-MLM from Parquet, GPT-2-CLM on rows of 256)
+    mark("main path U")
     packing = run_packing(flagship, vocab, attention, card)
 
     # ---- main path V: Reformer (the script, and on sessions of 256) and a GRU body
+    mark("main path V")
     reformer_rnn = run_reformer_rnn(flagship, vocab, attention, card)
 
     # ---- main path P1: XLNet-PLM at full width, two streams, every position
+    mark("main path P1")
     plm = run_plm(flagship, vocab, attention, card, vocab_size)
     print(f"[plm] {json.dumps(plm['launches'])}")
 
     # ---- main path 6: GPT-2-CLM on sessions of up to 256
+    mark("main path 6")
     clm = run_clm(flagship, vocab, attention, card, vocab_size)
     print(f"[clm] {json.dumps(clm['launches'])}")
     torch.cuda.empty_cache()
 
     # ---- main path P2: XLNet-PLM on sessions of up to 256
+    mark("main path P2")
     plm_long = run_plm_long(flagship, vocab, attention, card)
     print(f"[plm-long] {json.dumps(plm_long['launches'])}")
 
     # ---- main path 7: one training step at S = 4,096
+    mark("main path 7")
     long_step = run_long_step(flagship, vocab, attention, card)
     torch.cuda.empty_cache()
 
+    # ---- main path Y: the encoder's bf16 compute type and per-layer remat
+    mark("main path Y")
+    compute_dtype = run_compute_dtype(flagship, vocab, attention, card)
+    torch.cuda.empty_cache()
+
     # ---- timing at the evaluation, the training and the table's shape
+    mark("timing at the evaluation, the training and the table's shape")
     timing = {"ce_rank": time_ce_rank(vocab, EVAL_ROWS, table_rows, vocab_size),
               **time_ce_train(vocab, train_rows, table_rows, vocab_size),
               "rank": time_rank(vocab, EVAL_ROWS, table_rows, vocab_size),
@@ -5335,6 +5924,39 @@ def main() -> None:
           f"{json.dumps(flash_timing)}; library_ms is F.scaled_dot_product_attention on "
           "bf16 inputs with the same mask (forward; its backward for dq, dk, dv; for dq "
           "alone; for dk and dv alone)")
+    torch.cuda.empty_cache()
+    # the bf16 forms at the same shapes and at head dim 36, each beside its
+    # f32 form (timed above; at head dim 36 here)
+    bf16_flash_shapes = {**flash_shapes, "dh36": Y_DH36}
+    flash_timing_bf16 = {shape: time_flash(shape, *dims, True, shape != "long",
+                                           30 if shape in ("main", "dh36") else 10,
+                                           dtype=torch.bfloat16)
+                         for shape, dims in bf16_flash_shapes.items()}
+    flash_timing["dh36"] = time_flash("dh36", *Y_DH36, True, True, 30)
+    # and with the biases of the main paths: XLNet-PLM's query stream (Y4
+    # launches it in bf16), Longformer's window and packed rows' segments
+    bias_timing_bf16 = {
+        "plm": {"flash_fwd": time_flash_plm("plm", *flash_shapes["main"], 30,
+                                            dtype=torch.bfloat16)},
+        "longformer": time_flash_bias("longformer", *flash_shapes["main"], 30,
+                                      window=PAPER_WINDOW, dtype=torch.bfloat16),
+        "segments": time_flash_bias("segments", *flash_shapes["main"], 30, causal=True,
+                                    segments=True, dtype=torch.bfloat16)}
+    print(f"[timing] the bf16 forms of K5 and K6a with the main paths' biases at "
+          f"{flash_shapes['main']} on {card}: " + json.dumps({
+              shape: {name: {k: t[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
+                                                 "library_ms", "bias_shape")}
+                      for name, t in timing_.items()}
+              for shape, timing_ in bias_timing_bf16.items()}))
+    print(f"[timing] the bf16 forms of K5, K6a, K6b, K6c on {card}: " + json.dumps({
+        shape: {name: {"bf16_ms": t["ms"], "f32_ms": flash_timing[shape][name]["ms"],
+                       "bf16_bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                       "library_ms": t["library_ms"], "plain_ms": t["plain_ms"],
+                       **({"designs_ms": t["designs_ms"]} if "designs_ms" in t else {})}
+                for name, t in timing_.items()}
+        for shape, timing_ in flash_timing_bf16.items()}) + "; library_ms is "
+          "F.scaled_dot_product_attention on the same bf16 inputs and mask")
+    torch.cuda.empty_cache()
     # every-position evaluation (P1, P2) and K5 with XLNet-PLM's bias (P2)
     plm_timing = {
         "ce_rank": time_ce_rank(vocab, PLM_EVAL_ROWS, table_rows, vocab_size),
@@ -5436,6 +6058,7 @@ def main() -> None:
           f"{step_ms:.3f} ms of wall time on the bf16 arm and "
           f"{streamed['one_batch_repeated']['ms_per_step']:.3f} ms on the streamed arm")
 
+    mark("the kernels line")
     vocab_py, adafactor_py, attention_py = ("transformers4rec_tpu/ops/vocab.py",
                                             "transformers4rec_tpu/ops/fused_adafactor.py",
                                             "transformers4rec_tpu/ops/attention.py")
@@ -5511,6 +6134,47 @@ def main() -> None:
         "also_at": [{**{k: t[k] for k in t if k in TIMING_KEYS + ("N", "E", "V", "table_dtype")},
                      "main_path": True} for t in bf16_also.get(name, [])],
     } for name in ("ce_fwd", "ce_bwd", "ce_rank", "rank", "adafactor_a", "adafactor_b")]
+    # each attention kernel's bf16 form: launched by phase Y, held against its
+    # plain version and its f32 form's bits in phase 3 (``check_flash_bf16``),
+    # timed at the shape phase Y gives it (K5 and K6a at the CLM path's, K6b
+    # and K6c at the S = 4,096 step's)
+    bf16_errors = {
+        "flash_fwd": max(c["out"]["max_abs_err"] for c in flash_bf16_checks),
+        "flash_bwd_fused": max(c["fused"][g]["max_abs_err"] for c in flash_bf16_checks
+                               for g in ("dq", "dk", "dv")),
+        "flash_bwd_dq": max(c["split"]["dq"]["max_abs_err"] for c in flash_bf16_checks),
+        "flash_bwd_dkv": max(c["split"][g]["max_abs_err"] for c in flash_bf16_checks
+                             for g in ("dk", "dv"))}
+    bf16_main = {name: "main" if name in ("flash_fwd", "flash_bwd_fused") else "long_step"
+                 for name in bf16_errors}
+    kernels += [{
+        "name": f"{name}_bf16",
+        "route": "cuda",
+        "source": f"transformers4rec_tpu_torch/csrc/{sources[name][0]}",
+        "replaces": sources[name][1],
+        "launches": compute_dtype["launches"][f"{name}_bf16"],
+        "max_abs_err": bf16_errors[name],
+        **{k: flash_timing_bf16[bf16_main[name]][name][k]
+           for k in TIMING_KEYS + ("shape", "design", "designs_ms", "dtype")
+           if k in flash_timing_bf16[bf16_main[name]][name]},
+        "f32_form_ms": flash_timing[bf16_main[name]][name]["ms"],
+        "also_at": [{**{k: flash_timing_bf16[shape][name][k]
+                        for k in TIMING_KEYS + ("shape", "design", "dtype")
+                        if k in flash_timing_bf16[shape][name]},
+                     "f32_form_ms": flash_timing[shape][name]["ms"],
+                     # Y5 launches K5 at the S = 4,096 step's shape
+                     "main_path": shape == "long_step" and name == "flash_fwd"}
+                    for shape in bf16_flash_shapes if shape != bf16_main[name]]
+        + [{**{k: t[name][k] for k in TIMING_KEYS + ("shape", "design", "dtype", "bias_shape")
+               if k in t[name]},
+            "f32_form_ms": f32[name]["ms"],
+            # Y4 launches K5 with XLNet-PLM's bias in bf16
+            "main_path": shape == "plm"}
+           for shape, t, f32 in (("plm", bias_timing_bf16["plm"], plm_timing),
+                                 ("longformer", bias_timing_bf16["longformer"], window_timing),
+                                 ("segments", bias_timing_bf16["segments"], packed_timing))
+           if name in t],
+    } for name in bf16_errors]
     if any(k["launches"] < 1 for k in kernels):
         fail(f"a kernel of the main path was never launched: {launches}")
     print(card)

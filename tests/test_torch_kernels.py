@@ -23,7 +23,11 @@ parameter within 1e-5 of the largest update plus its own float32 spacing.
 The attention kernels round P and dS to bf16 as their plain versions do, from
 exponentials of their own: the output within 5e-3 and 1e-3 in relative
 Frobenius norm, lse within 1e-4, gradients within 2e-2 of the peak and 1e-3
-in relative Frobenius norm, and the same bits on a second call.
+in relative Frobenius norm, and the same bits on a second call. Their bf16
+forms (bf16 q, k, v, dO; bf16 out, dq, dk, dv) give the f32 forms' bits on
+the same values, rounded once, in every design; against the plain versions
+on bf16 inputs they are held as the f32 forms are, plus one bf16 spacing of
+the value (the two sides round results that differ by the f32 noise above).
 """
 
 import math
@@ -501,6 +505,8 @@ FLASH_SHAPES = {
     "dh64": (2, 256, 2, 64, False, True, 0, None),
     "dh128_causal_ragged_bias_1_H": (2, 200, 2, 128, True, True, 0, (1, 2)),
     "dh128": (1, 384, 2, 128, False, False, 0, None),
+    # a head's row of 72 bytes in bf16: 8-byte aligned, not 16 (wgmma design)
+    "dh36_causal_ragged_bias_1_H": (2, 300, 3, 36, True, True, 1, (1, 3)),
 }
 # K5 and K6a in either design (wgmma: the Hopper kernels; the head dim is
 # padded to 64 there, and K6a's takes head dims up to 64)
@@ -831,6 +837,164 @@ def test_flash_kernels_reject_what_they_do_not_take(dev, bad):
         else:
             attn.flash_fwd(q, k, v, bias, pad)
             attn.flash_bwd_dq(q, k, v, g, rows, rows, bias, pad)
+
+
+# ------------------------------------------------ the bf16 forms of K5 and K6
+def _bf16_spacing(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (2^-7 of the power of two below)."""
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -120))) - 7)
+
+
+def _close_bf16(got, want, atol, fro=1e-3):
+    """bf16 ``got`` against the plain version's bf16 ``want``: within
+    ``atol`` (a number, or ``"grad"``: 2e-2 of the peak) plus one bf16
+    spacing of each value, and ``fro`` plus bf16's own rounding (2^-8) in
+    relative Frobenius norm."""
+    got, want = got.float(), want.float()
+    if atol == "grad":
+        atol = 2e-2 * float(want.abs().max())
+    assert bool(((got - want).abs() <= atol + _bf16_spacing(want)).all())
+    assert float((got - want).norm() / want.norm()) <= fro + 2.0 ** -8
+
+
+def _bwd_designs(args, Dh):
+    """Every design of K6a, K6b and K6c that takes head dim ``Dh``, run on
+    ``args``: ``{name: (gradients)}``."""
+    runs = {}
+    for name, wgmma in DESIGNS.items():
+        if not wgmma or Dh <= attn.WGMMA_MAX_DH:
+            runs[f"fused_{name}"] = attn._flash_bwd_fused_cuda(*args, wgmma=wgmma)
+    for streamed in (False, True) if Dh <= attn.SPLIT_STREAM_MAX_DH else (False,):
+        runs[f"dq_streamed={streamed}"] = (attn._flash_bwd_dq_cuda(*args, streamed=streamed),)
+        runs[f"dkv_streamed={streamed}"] = attn._flash_bwd_dkv_cuda(*args, streamed=streamed)
+    return runs
+
+
+@pytest.mark.parametrize("design", DESIGNS)
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_forward_bf16_form_gives_the_f32_forms_bits(dev, shape, design):
+    q, k, v, _, bias, pad, causal = _flash_inputs(shape, dev)
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    before = attn.flash_fwd.launches
+    out, lse = attn._flash_fwd_cuda(qb, kb, vb, bias, pad, causal, wgmma=DESIGNS[design])
+    again = attn._flash_fwd_cuda(qb, kb, vb, bias, pad, causal, wgmma=DESIGNS[design])
+    out32, lse32 = attn._flash_fwd_cuda(qb.float(), kb.float(), vb.float(), bias, pad, causal,
+                                        wgmma=DESIGNS[design])
+    torch.cuda.synchronize()
+    assert attn.flash_fwd.launches == before + 3
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert torch.equal(out, out32.bfloat16()) and torch.equal(lse, lse32)
+    out_p, lse_p = attn.flash_forward_plain(qb, kb, vb, bias, pad, causal)
+    assert out_p.dtype == torch.bfloat16
+    _close_bf16(out, out_p, 5e-3)
+    masked = lse_p == attn.LSE_MASKED
+    assert torch.equal(lse[masked], lse_p[masked])
+    assert float((lse - lse_p)[~masked].abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_backward_bf16_forms_give_the_f32_forms_bits(dev, shape):
+    q, k, v, g, bias, pad, causal = _flash_inputs(shape, dev)
+    qb, kb, vb, gb = (t.bfloat16() for t in (q, k, v, g))
+    out_p, lse = attn.flash_forward_plain(qb, kb, vb, bias, pad, causal)
+    delta = attn.row_delta(gb, out_p)
+    args = (qb, kb, vb, gb, lse, delta, bias, pad, causal)
+    Dh = q.shape[3]
+    got = _bwd_designs(args, Dh)
+    f32 = _bwd_designs((qb.float(), kb.float(), vb.float(), gb.float(), *args[4:]), Dh)
+    torch.cuda.synchronize()
+    want_fused = attn.flash_bwd_fused_plain(*args)
+    want = {"fused": want_fused, "dq": want_fused[:1],
+            "dkv": attn.flash_bwd_dkv_plain(*args)}
+    for name, grads in got.items():
+        assert all(t.dtype == torch.bfloat16 for t in grads), name
+        assert all(torch.equal(a, b.bfloat16()) for a, b in zip(grads, f32[name])), name
+        for a, b in zip(grads, want[name.split("_")[0]]):
+            assert torch.isfinite(a.float()).all()
+            _close_bf16(a, b, "grad")
+
+
+def test_flash_bf16_forms_at_an_8_byte_aligned_start(dev):
+    """bf16 tensors that start 8 bytes past a 16-byte boundary (a view into
+    a larger buffer), at head dim 36 (a head's row is 72 bytes): each form
+    gives what it gives on an aligned copy."""
+    B, S, H, Dh = 2, 200, 3, 36
+    n = B * S * H * Dh
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bufs = [torch.randn(n + 4, generator=gen, device=dev).bfloat16() for _ in range(4)]
+    q, k, v, g = (b[4:].view(B, S, H, Dh) for b in bufs)
+    assert q.data_ptr() % 16 == 8
+    pad = torch.ones(B, S, dtype=torch.bool, device=dev)
+    pad[1, 150:] = False
+    for wgmma in (False, True):
+        out, lse = attn._flash_fwd_cuda(q, k, v, None, pad, True, wgmma=wgmma)
+        want = attn._flash_fwd_cuda(*(t.clone() for t in (q, k, v)), None, pad, True,
+                                    wgmma=wgmma)
+        assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+        args = (q, k, v, g, lse, attn.row_delta(g, out), None, pad, True)
+        copies = (*(t.clone() for t in (q, k, v, g)), *args[4:])
+        for a, b in zip(attn._flash_bwd_fused_cuda(*args, wgmma=wgmma),
+                        attn._flash_bwd_fused_cuda(*copies, wgmma=wgmma)):
+            assert torch.equal(a, b)
+    for a, b in zip((attn._flash_bwd_dq_cuda(*args), *attn._flash_bwd_dkv_cuda(*args)),
+                    (attn._flash_bwd_dq_cuda(*copies), *attn._flash_bwd_dkv_cuda(*copies))):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_bf16_on_the_card_matches_the_cpu(dev):
+    """bf16 q, k, v through the autograd function: output and gradients in
+    bf16, the kernels against the plain versions on the CPU, on both backward
+    routes and on the learned-bias route (reference_attention with the
+    probabilities rounded to bf16)."""
+    q, k, v, g, bias, pad, causal = _flash_inputs("bias_B_1_causal", dev)
+    q, k, v, g = (t.bfloat16() for t in (q, k, v, g))
+
+    def run(device, bias_grad):
+        leaves = [t.to(device).clone().requires_grad_() for t in (q, k, v, bias)]
+        out = attn.flash_attention(*leaves, pad.to(device), causal, bias_grad=bias_grad)
+        out.backward(g.to(device))
+        return [out.detach().cpu()] + [None if t.grad is None else t.grad.cpu() for t in leaves]
+
+    want = run("cpu", False)
+    for cap in (attn.BWD_DQ_PARTIAL_MAX_BYTES, 1):
+        old, attn.BWD_DQ_PARTIAL_MAX_BYTES = attn.BWD_DQ_PARTIAL_MAX_BYTES, cap
+        try:
+            got = run(dev, False)
+        finally:
+            attn.BWD_DQ_PARTIAL_MAX_BYTES = old
+        assert all(t.dtype == torch.bfloat16 for t in got[:4])
+        _close_bf16(got[0], want[0], 5e-3)
+        for a, b in zip(got[1:4], want[1:4]):
+            _close_bf16(a, b, "grad")
+        assert got[4] is None and want[4] is None
+    got, want = run(dev, True), run("cpu", True)
+    assert got[1].dtype == torch.bfloat16 and got[4].dtype == torch.float32
+    for a, b in zip(got[1:], want[1:]):
+        _close_bf16(a, b, "grad")
+
+
+@pytest.mark.parametrize("bad", ["mixed_k", "f16", "bias_bf16", "lse_bf16"])
+def test_flash_kernels_take_no_other_type(dev, bad):
+    """A tensor of a type the kernels do not take raises on the card: it is
+    not converted."""
+    q = torch.zeros(2, 128, 2, 16, device=dev, dtype=torch.bfloat16)
+    k, v, g = q.clone(), q.clone(), q.clone()
+    rows = torch.zeros(4, 128, device=dev)
+    bias = None
+    if bad == "mixed_k":
+        k = k.float()
+    elif bad == "f16":
+        q, k, v, g = (t.half() for t in (q, k, v, g))
+    elif bad == "bias_bf16":
+        bias = torch.zeros(1, 1, 128, 128, device=dev, dtype=torch.bfloat16)
+    elif bad == "lse_bf16":
+        rows = rows.bfloat16()
+    with pytest.raises(TypeError):
+        if bad == "lse_bf16":
+            attn.flash_bwd_fused(q, k, v, g, rows, rows)
+        else:
+            attn.flash_fwd(q, k, v, bias)
 
 
 # -------------------------------------------------- wide item tables (E > 256)

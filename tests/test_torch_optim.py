@@ -167,7 +167,7 @@ def test_every_embedding_table_is_labelled_table():
         "a.item_id_table": "table", "b.kernel": "dense"}
 
 
-@pytest.mark.parametrize("field,value", [("gradient_checkpointing", True),
+@pytest.mark.parametrize("field,value", [("profile_steps", "1,2"),
                                          ("save_async", True)])
 def test_arguments_refuse_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError):

@@ -363,10 +363,12 @@ def test_arguments_keep_the_jax_defaults_and_refuse_what_is_not_ported():
         assert getattr(got, f) == getattr(want, f), f
     for field, value in (("checkpoint_format", "msgpack"), ("checkpoint_format", "orbax"),
                          ("save_async", True), ("mesh_model_axis", 2),
-                         ("auto_vocab_parallel", False), ("gradient_checkpointing", True),
+                         ("auto_vocab_parallel", False),
                          ("profile_steps", "1,2"), ("profile_dir", "p")):
         with pytest.raises(NotImplementedError, match=field):
             T4RecTrainingArguments(**{field: value})
+    # read by no module in either package: rematerialisation is the encoder's
+    assert T4RecTrainingArguments(gradient_checkpointing=True).gradient_checkpointing
     with pytest.raises(ValueError, match="data_loader_engine"):
         T4RecTrainingArguments(data_loader_engine="csv")
 

@@ -5,8 +5,7 @@ whose per-arch differences are config flags. All masking folds into ONE
 additive attention bias computed once per forward and shared by the layers.
 
 Ported: bidirectional or causal attention, the T5-style relative position
-bias, learned absolute positions, an optional local window, in float32,
-and dropout in training (on the embeddings, the attention probabilities,
+bias, learned absolute positions, an optional local window, and dropout in training (on the embeddings, the attention probabilities,
 the feed-forward's hidden layer and both residual branches, where the JAX
 package applies it), drawn from an explicit ``torch.Generator``. Layers are
 pre-LN with a final LayerNorm (``norm_first=True``: XLNet, GPT-2,
@@ -20,6 +19,25 @@ of HF's BERT). ``share_layers`` (ALBERT) runs one layer, ``layer_shared``,
 detached inputs of that layer at positions −M..−1, valid where
 ``mems["pad"]`` is true; ``return_mems=True`` also returns the next
 segment's memory.
+
+Compute type (``dtype``, float32 or bfloat16, as the JAX encoder's
+``dtype``): the encoder casts its input, the position term and the query
+stream's start to it and keeps the residual stream in it; every ``Linear``
+casts its input, weight and bias to it at the call (the parameters stay
+float32), every ``LayerNorm`` computes in float32 and rounds its output once
+to it, and the encoder returns float32. The dense attention forms float32
+logits from the ``dtype`` q and k, rounds the probabilities to ``dtype``
+before the product with v and the context once after it; the flash kernels
+take q, k, v in ``dtype`` and return the context in it. Biases stay float32,
+and so does segment memory's validity; its states are kept in ``dtype``.
+
+Rematerialisation (``remat``, JAX's ``nn.remat`` of every layer): in
+training each layer's forward is run again in the backward
+(``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+activations. The recompute replays the layer's dropout draws from the
+explicit generator's state at the layer's entry and then puts the generator
+back, so a step with ``remat`` draws the same masks, gives the same
+gradients and leaves the generator where a step without it does.
 
 Below S = 128, whenever attention dropout is drawn, and whenever memory is
 given, ``MultiHeadAttention`` takes the dense path over the composed
@@ -55,12 +73,15 @@ cannot carry, as the JAX package does: a perm mask or two streams,
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..config.transformer import compute_dtype
 from ..ops.attention import flash_attention, use_flash
 from ..ops.lsh_attention import draw_rotations, lsh_attention
 
@@ -78,6 +99,46 @@ def promote(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     input's type and its parameters' (a bf16 table's lookup meets f32
     weights as f32, an exact upcast; an f32 input is returned as it is)."""
     return x.to(torch.promote_types(x.dtype, weight.dtype))
+
+
+def _reduced(dtype: Optional[torch.dtype]) -> bool:
+    return dtype is not None and dtype != torch.float32
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in ``compute_dtype`` as flax's Dense with
+    ``dtype=`` does: input, weight and bias cast to it at the call, the
+    parameters kept float32; the product (f32 sums) is rounded to it, then
+    the bias is added in it, as flax's ``dot_general`` and add do. ``None``
+    or float32: the float32 product."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if not _reduced(dt):
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that rounds its output to ``compute_dtype`` as
+    flax's LayerNorm with ``dtype=`` does: statistics and normalisation in
+    float32, the output rounded once."""
+
+    def __init__(self, d: int, eps: float, compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(d, eps=eps)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if not _reduced(dt):
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(dt)
 
 
 def init_dense_(lin: nn.Linear, generator: torch.Generator) -> None:
@@ -233,16 +294,17 @@ class MultiHeadAttention(nn.Module):
     """Standard multi-head attention with an additive bias. ``causal`` lets
     the flash kernel apply the causal mask itself. Returns ``(out, (k, v))``:
     the two-stream query stream attends the content stream's k and v
-    (``shared_kv``)."""
+    (``shared_kv``). The projections compute in ``compute_dtype``."""
 
-    def __init__(self, d_model: int, n_head: int, dropout: float = 0.0, causal: bool = False):
+    def __init__(self, d_model: int, n_head: int, dropout: float = 0.0, causal: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.d_model, self.n_head, self.dropout = d_model, n_head, dropout
         self.causal = causal
-        self.q = nn.Linear(d_model, d_model)
-        self.k = nn.Linear(d_model, d_model)
-        self.v = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
+        self.q = Linear(d_model, d_model, compute_dtype)
+        self.k = Linear(d_model, d_model, compute_dtype)
+        self.v = Linear(d_model, d_model, compute_dtype)
+        self.out = Linear(d_model, d_model, compute_dtype)
 
     def _init_weights(self, generator: torch.Generator) -> None:
         for lin in (self.q, self.k, self.v, self.out):
@@ -275,14 +337,19 @@ class MultiHeadAttention(nn.Module):
             ctx = flash_attention(q, k, v, bias=extra_bias, pad_mask=pad_mask,
                                   causal=self.causal, bias_grad=bias_grad)
             return self.out(ctx.reshape(B, Sq, H * Dh)), (k, v)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * Dh ** -0.5 + bias
-        probs = torch.softmax(logits, dim=-1)
+        # float32 logits from q and k of the compute type (the products of
+        # bf16 values accumulate exactly in f32), the probabilities rounded
+        # to it, the context accumulated in f32 and rounded once
+        dt = q.dtype
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * Dh ** -0.5 \
+            + bias.float()
+        probs = torch.softmax(logits, dim=-1).to(dt)
         # fully blocked query rows (every key masked) output 0, not the
         # uniform-softmax average
         row_ok = (bias > NEG_INF / 2).any(dim=-1, keepdim=True)
-        probs = probs * row_ok.to(probs.dtype)
+        probs = probs * row_ok.to(dt)
         probs = dropout(probs, self.dropout, training, generator)
-        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(dt)
         return self.out(ctx.reshape(B, Sq, H * Dh)), (k, v)
 
 
@@ -295,14 +362,15 @@ class LSHSelfAttention(nn.Module):
     in the ``state_dict``, so a saved model keeps its buckets."""
 
     def __init__(self, d_model: int, n_head: int, dropout: float = 0.0, causal: bool = False,
-                 num_buckets: int = 8, num_hashes: int = 2, chunk_size: int = 8, seed: int = 0):
+                 num_buckets: int = 8, num_hashes: int = 2, chunk_size: int = 8, seed: int = 0,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.d_model, self.n_head, self.dropout = d_model, n_head, dropout
         self.causal = causal
         self.chunk_size = chunk_size
-        self.qk = nn.Linear(d_model, d_model)
-        self.v = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
+        self.qk = Linear(d_model, d_model, compute_dtype)
+        self.v = Linear(d_model, d_model, compute_dtype)
+        self.out = Linear(d_model, d_model, compute_dtype)
         self.register_buffer(
             "rotations", draw_rotations(d_model // n_head, num_hashes, num_buckets, seed))
 
@@ -322,10 +390,21 @@ class LSHSelfAttention(nn.Module):
         return self.out(ctx.reshape(B, S, H * Dh))
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.gelu``, the tanh form. Below float32 it takes
+    ``jax.nn.gelu``'s steps in x's type, each rounded, as the JAX program
+    does: ``x · ½(1 + tanh(c·(x + 0.044715·x³)))`` with c = √(2/π) in that
+    type."""
+    if x.dtype in (torch.float32, torch.float64):
+        return F.gelu(x, approximate="tanh")
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3))))
+
+
 # flax.linen's activations by name (``nn.gelu`` is the tanh approximation)
 ACTIVATIONS = {
     "relu": F.relu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu": gelu_tanh,
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
     "silu": F.silu,
@@ -334,8 +413,19 @@ ACTIVATIONS = {
     "leaky_relu": F.leaky_relu,
     "softplus": F.softplus,
 }
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """The erf GELU of HF's BERT family (flax's ``nn.gelu(approximate=False)``).
+    Below float32 it takes ``jax.nn.gelu``'s steps in x's type, each
+    rounded: ``½x · erfc(−x·√½)`` with √½ in that type."""
+    if x.dtype in (torch.float32, torch.float64):
+        return F.gelu(x)
+    return 0.5 * x * torch.special.erfc(-x * torch.tensor(math.sqrt(0.5), dtype=x.dtype))
+
+
 # the layer's activations: flax's, and the erf GELU of HF's BERT family
-LAYER_ACTIVATIONS = {**ACTIVATIONS, "gelu_exact": F.gelu}
+LAYER_ACTIVATIONS = {**ACTIVATIONS, "gelu_exact": gelu_exact}
 
 
 class TransformerLayer(nn.Module):
@@ -347,13 +437,14 @@ class TransformerLayer(nn.Module):
     stream's keys and values. Given ``mem`` (B, M, D), the cached inputs of
     this layer, the keys and values also cover them (dense path).
     ``attn_type="lsh"`` runs ``LSHSelfAttention`` in place of the dense
-    attention: it takes the padding mask and no bias."""
+    attention: it takes the padding mask and no bias. Its Linear and
+    LayerNorm layers compute in ``compute_dtype``."""
 
     def __init__(self, d_model: int, n_head: int, d_ff: int, layer_norm_eps: float = 1e-12,
                  dropout: float = 0.0, attn_dropout: float = 0.0, causal: bool = False,
                  activation: str = "gelu", norm_first: bool = True, attn_type: str = "dense",
                  lsh_num_buckets: int = 8, lsh_num_hashes: int = 2, lsh_chunk_size: int = 8,
-                 lsh_seed: int = 0):
+                 lsh_seed: int = 0, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if activation not in LAYER_ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}; "
@@ -365,13 +456,13 @@ class TransformerLayer(nn.Module):
         if attn_type == "lsh":
             self.attn = LSHSelfAttention(d_model, n_head, attn_dropout, causal,
                                          lsh_num_buckets, lsh_num_hashes, lsh_chunk_size,
-                                         lsh_seed)
+                                         lsh_seed, compute_dtype)
         else:
-            self.attn = MultiHeadAttention(d_model, n_head, attn_dropout, causal)
-        self.ln1 = nn.LayerNorm(d_model, eps=layer_norm_eps)
-        self.ln2 = nn.LayerNorm(d_model, eps=layer_norm_eps)
-        self.ffn_in = nn.Linear(d_model, d_ff)
-        self.ffn_out = nn.Linear(d_ff, d_model)
+            self.attn = MultiHeadAttention(d_model, n_head, attn_dropout, causal, compute_dtype)
+        self.ln1 = LayerNorm(d_model, layer_norm_eps, compute_dtype)
+        self.ln2 = LayerNorm(d_model, layer_norm_eps, compute_dtype)
+        self.ffn_in = Linear(d_model, d_ff, compute_dtype)
+        self.ffn_out = Linear(d_ff, d_model, compute_dtype)
 
     def _init_weights(self, generator: torch.Generator) -> None:
         for lin in (self.ffn_in, self.ffn_out):
@@ -413,6 +504,7 @@ class TransformerLayer(nn.Module):
         if mem is not None:
             # LayerNorm is positionwise: ln1 of the memory rows is the rows'
             # ln1. The memory path is dense.
+            mem = mem.to(hidden.dtype)
             kv_x = torch.cat([self.ln1(mem) if self.norm_first else mem, x], dim=1)
             flash_ctx = query_flash_ctx = None
         ctx, kv = self.attn(x, kv_x, bias, training, generator, flash_ctx)
@@ -425,10 +517,40 @@ class TransformerLayer(nn.Module):
         return hidden, query_hidden
 
 
+def rematerialised(layer: nn.Module, generator: Optional[torch.Generator], *args):
+    """``layer(*args)`` with its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant), as ``nn.remat`` does in the
+    JAX encoder. ``preserve_rng_state`` covers only the default generators,
+    and the layer draws its dropout from ``generator``: so the recompute
+    sets ``generator`` back to its state at the layer's entry, replaying the
+    forward's draws, and afterwards to where it found it, so that the step
+    leaves it where a step without remat does."""
+    if generator is None:  # draws from the default generators, which checkpoint restores
+        return checkpoint(layer, *args, use_reentrant=False)
+    entry = generator.get_state()
+    calls = 0
+
+    def run(*a):
+        nonlocal calls
+        calls += 1
+        if calls == 1:  # the forward
+            return layer(*a)
+        now = generator.get_state()
+        generator.set_state(entry)
+        try:
+            return layer(*a)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 class TransformerEncoder(nn.Module):
     """The unified body: ``forward(inputs_embeds, pad_mask, perm_mask) → (B, S,
-    d_model)``, the query stream's states when two streams run (``two_stream``
-    and a ``perm_mask``); with ``return_mems`` the pair ``(states, mems)``."""
+    d_model)`` float32, the query stream's states when two streams run
+    (``two_stream`` and a ``perm_mask``); with ``return_mems`` the pair
+    ``(states, mems)``. ``dtype`` is the compute type (float32 when None),
+    ``remat`` recomputes every layer in the backward."""
 
     def __init__(
         self,
@@ -455,8 +577,12 @@ class TransformerEncoder(nn.Module):
         lsh_num_buckets: int = 8,
         lsh_num_hashes: int = 2,
         lsh_chunk_size: int = 8,
+        remat: bool = False,
+        dtype=None,
     ):
         super().__init__()
+        self.compute_dtype = compute_dtype(dtype)
+        self.remat = remat
         if pos_encoding not in ("relative_bias", "learned_absolute", "axial", "none"):
             raise ValueError(f"unknown pos_encoding {pos_encoding!r}")
         self.d_model, self.n_head, self.n_layer = d_model, n_head, n_layer
@@ -492,7 +618,7 @@ class TransformerEncoder(nn.Module):
         def layer(attn_type="dense", seed=0):
             return TransformerLayer(d_model, n_head, d_ff, layer_norm_eps, dropout, attn_dropout,
                                     causal, activation, norm_first, attn_type, lsh_num_buckets,
-                                    lsh_num_hashes, lsh_chunk_size, seed)
+                                    lsh_num_hashes, lsh_chunk_size, seed, self.compute_dtype)
 
         if share_layers:
             # ALBERT: one layer run n_layer times, under flax's name
@@ -525,11 +651,11 @@ class TransformerEncoder(nn.Module):
             if pos_encoding == "relative_bias" else None
         )
         if embed_layer_norm:
-            self.ln_emb = nn.LayerNorm(d_model, eps=layer_norm_eps)
+            self.ln_emb = LayerNorm(d_model, layer_norm_eps, self.compute_dtype)
         self.embed_layer_norm = embed_layer_norm
         if norm_first:
             # pre-LN ends with a LayerNorm; post-LN normalised inside every layer
-            self.ln_f = nn.LayerNorm(d_model, eps=layer_norm_eps)
+            self.ln_f = LayerNorm(d_model, layer_norm_eps, self.compute_dtype)
         self.two_stream = two_stream
         if two_stream:
             # the query stream's state before the first layer, at every position
@@ -549,13 +675,13 @@ class TransformerEncoder(nn.Module):
         return [self.layer_shared] * self.n_layer if self.share_layers else list(self.layers)
 
     def init_mems(self, batch_size: int, device=None) -> dict:
-        """Empty segment memory: (L, B, M, D) cached layer inputs and a (B, M)
-        validity mask, all False, so that the first segment runs as one
-        without memory. Thread the returned dict through successive
-        ``forward(..., mems=..., return_mems=True)`` calls."""
+        """Empty segment memory: (L, B, M, D) cached layer inputs in the
+        compute type and a (B, M) validity mask, all False, so that the first
+        segment runs as one without memory. Thread the returned dict through
+        successive ``forward(..., mems=..., return_mems=True)`` calls."""
         device = device if device is not None else next(self.parameters()).device
         return {"states": torch.zeros((self.n_layer, batch_size, self.mem_len, self.d_model),
-                                      device=device),
+                                      dtype=self.compute_dtype, device=device),
                 "pad": torch.zeros((batch_size, self.mem_len), dtype=torch.bool, device=device)}
 
     def _positions(self, p: torch.Tensor) -> torch.Tensor:
@@ -611,7 +737,8 @@ class TransformerEncoder(nn.Module):
             perm_mask = seg_block if perm_mask is None else torch.maximum(perm_mask, seg_block)
         M = mems["states"].shape[2] if mems is not None else 0
         mem_pad = mems["pad"] if mems is not None else None
-        hidden = inputs_embeds.float()
+        dt = self.compute_dtype
+        hidden = inputs_embeds.to(dt)
         abs_pos = None
         if self.pos_encoding in ("learned_absolute", "axial"):
             # loud guard: a longer batch would otherwise run off the table
@@ -625,9 +752,9 @@ class TransformerEncoder(nn.Module):
                 is_start = torch.ones_like(segment_ids, dtype=torch.bool)
                 is_start[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
                 start = torch.where(is_start, pos, 0).cummax(dim=1).values
-                abs_pos = self._positions(pos - start)
+                abs_pos = self._positions(pos - start).to(dt)
             else:
-                abs_pos = self._positions(pos)[None]
+                abs_pos = self._positions(pos)[None].to(dt)
             hidden = hidden + abs_pos
         rel_bias = self.rel_pos(S, M) if self.rel_pos is not None else None
         two_stream = self.two_stream and scheme_perm is not None
@@ -660,7 +787,7 @@ class TransformerEncoder(nn.Module):
         per_window = {w: biases(False, w) for kind, w in self.plan if kind == "win"}
         query_hidden = query_bias = query_flash_ctx = None
         if two_stream:
-            query_hidden = self.query_stream_init.expand(B, S, self.d_model)
+            query_hidden = self.query_stream_init.to(dt).expand(B, S, self.d_model)
             if abs_pos is not None:
                 query_hidden = query_hidden + abs_pos
             query_bias, query_flash_ctx = biases(True, self.local_window)
@@ -680,12 +807,16 @@ class TransformerEncoder(nn.Module):
             if collect:
                 ext = hidden if mem is None else torch.cat([mem, hidden], dim=1)
                 new_states.append(self._last(ext).detach())
-            hidden, query_hidden = layer(hidden, bias, training, generator, flash_ctx,
-                                         query_hidden, query_bias, query_flash_ctx, mem,
-                                         pad_mask)
+            args = (hidden, bias, training, generator, flash_ctx, query_hidden, query_bias,
+                    query_flash_ctx, mem, pad_mask)
+            if self.remat and torch.is_grad_enabled():
+                hidden, query_hidden = rematerialised(layer, generator, *args)
+            else:
+                hidden, query_hidden = layer(*args)
         out = query_hidden if query_hidden is not None else hidden
         if self.norm_first:
             out = self.ln_f(out)
+        out = out.float()
         if not collect:
             return out
         cur_ok = pad_mask if pad_mask is not None else torch.ones(

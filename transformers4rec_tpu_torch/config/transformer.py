@@ -12,8 +12,11 @@ positions), the BERT family (BERT, RoBERTa, ELECTRA, ALBERT with shared
 layers, Longformer with a local window of 8: post-LN with an embedding
 LayerNorm and the erf GELU), TransfoXL (causal with the relative bias) and
 Reformer (alternating local and LSH layers, axial positions).
-``to_encoder`` raises ``NotImplementedError`` for what the encoder does not
-carry yet: ``remat`` and another compute ``dtype``. ``two_stream`` takes effect for the scheme that gives a
+``dtype`` is the encoder's compute type (``None`` or float32, or bfloat16;
+the strings ``"float32"`` and ``"bfloat16"`` name them too; float16 and
+anything else raise ``NotImplementedError``): the parameters stay float32
+and the encoder returns float32. ``remat`` recomputes each layer's forward in
+the backward. ``two_stream`` takes effect for the scheme that gives a
 ``perm_mask`` (PLM): ``to_encoder(masking="plm")`` builds the encoder with
 its query stream (and the stream's learned start vector), as the JAX
 package creates that parameter only when a ``perm_mask`` arrives.
@@ -24,9 +27,27 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import torch
+
 from ..utils.registry import Registry
 
 transformer_registry: Registry = Registry("transformer")
+
+_COMPUTE_DTYPES = {None: torch.float32, torch.float32: torch.float32, "float32": torch.float32,
+                   torch.bfloat16: torch.bfloat16, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """The encoder's compute type for a config's ``dtype``: float32 for
+    ``None``, float32 and ``"float32"``, bfloat16 for bfloat16 and
+    ``"bfloat16"``. Any other type (float16 among them) raises
+    ``NotImplementedError``: the flash kernels have no other form."""
+    try:
+        return _COMPUTE_DTYPES[dtype]
+    except (KeyError, TypeError):
+        raise NotImplementedError(
+            f"compute dtype {dtype!r} is not ported: the encoder computes in float32 or "
+            "bfloat16") from None
 
 
 @dataclasses.dataclass
@@ -61,9 +82,12 @@ class T4RecConfig:
     remat: bool = False
     mem_len: int = 0
     masking: Optional[str] = None
-    dtype: Any = None  # float32 when None, the only type ported
+    dtype: Any = None  # the encoder's compute type; float32 when None
 
     arch: str = "generic"
+
+    def __post_init__(self):
+        compute_dtype(self.dtype)  # float16 and the rest raise here
 
     @classmethod
     def build(cls, d_model, n_head, n_layer, total_seq_length, **kwargs):
@@ -77,11 +101,6 @@ class T4RecConfig:
         for, whose ``perm_mask`` (PLM) turns ``two_stream`` on."""
         from ..blocks.transformer import TransformerEncoder
 
-        unported = {"remat": self.remat, "dtype": self.dtype is not None}
-        if any(unported.values()):
-            raise NotImplementedError(
-                f"{self.arch}: not ported yet: {[k for k, v in unported.items() if v]}"
-            )
         return TransformerEncoder(
             d_model=self.d_model, n_head=self.n_head, n_layer=self.n_layer,
             d_ff=self.d_ff, layer_norm_eps=self.layer_norm_eps, causal=self.causal,
@@ -99,6 +118,7 @@ class T4RecConfig:
             attn_layers=tuple(self.attn_layers) if self.attn_layers is not None else None,
             lsh_num_buckets=self.lsh_num_buckets, lsh_num_hashes=self.lsh_num_hashes,
             lsh_chunk_size=self.lsh_chunk_size,
+            remat=self.remat, dtype=self.dtype,
         )
 
     def to_model(self, input_module, *tasks, device=None, seed: int = 0, **kwargs):

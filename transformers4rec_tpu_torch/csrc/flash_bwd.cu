@@ -1,11 +1,14 @@
 // Flash attention backward (kernels K6a, K6b and K6c of the port).
 //
 // From q, k, v, dO (all (B, S, H, Dh) float32, rounded to bf16 on the way to
-// shared memory), the forward's lse and delta = rowsum(dO * O), each body
+// shared memory, or all bf16 in the form built with -DT4R_FLASH_BF16, read as
+// stored: flash_common.cuh), the forward's lse and delta = rowsum(dO * O)
+// (f32), each body
 // recomputes P = exp(logits - lse) tile by tile and forms
 //   dS = P * (dO . v^T - delta)        (rounded to bf16 before its products)
 //   dv = P^T . dO      dk = dS^T . q * Dh^-1/2      dq = dS . k * Dh^-1/2
-// with f32 sums and the scale applied in f32 after the products.
+// with f32 sums and the scale applied in f32 after the products; dq, dk and
+// dv are written in q's type (rounded once in the bf16 form).
 //   K6a flash_bwd_fused: dq, dk, dv from ONE recomputation (5 tile products);
 //   K6b flash_bwd_dq:    dq alone (3 tile products);
 //   K6c flash_bwd_dkv:   dk, dv alone (4 tile products).
@@ -18,8 +21,9 @@
 // causal): q, k, v, dO read and dq, dk, dv written are 7 x 6.3 MB = 44 MB,
 // 13 us at 3.35 TB/s; five products at the mma's depth of 16 are 5.4 GFLOP
 // dense, half of it under the causal mask, 3-5 us on the tensor cores; 17 M
-// exponentials are 4 us. The bytes bound it. At (4, 2048, 8, 64) the five
-// products are 86 GFLOP dense and the tensor cores bound it.
+// exponentials are 4 us. The bytes bound it (half of them in the bf16 form:
+// 6.6 us). At (4, 2048, 8, 64) the five products are 86 GFLOP dense and the
+// tensor cores bound it.
 //
 // Design. dk and dv sum over queries, dq sums over keys. The TPU kernel runs
 // its grid in order on one core and keeps dq for the whole sequence in a
@@ -50,8 +54,8 @@
 //     0.96 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), and each gives the
 //     bits of the body it replaces.
 // All bodies take their logits from masked_logit (flash_common.cuh), the
-// forward's function. Tiles are read as f32 from the (B, S, H, Dh) layout and
-// stored row-major and, where a product needs it, transposed: no cast or
+// forward's function. Tiles are read from the (B, S, H, Dh) layout and stored
+// in bf16 row-major and, where a product needs it, transposed: no cast or
 // transpose pass runs before the kernels.
 //
 // K6a has a second design for Hopper (flash_bwd_fused_hw_kernel below,
@@ -86,15 +90,14 @@ __device__ __forceinline__ void load_row_terms(const float* __restrict__ lse_bh,
   }
 }
 
-template <int KS, bool HAS_BIAS, bool FUSED>
+template <typename E, int KS, bool HAS_BIAS, bool FUSED>
 __global__ void __launch_bounds__(FTHREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ d_out,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     const uint8_t* __restrict__ pad, const float* __restrict__ bias,
-                     long long bias_sb, long long bias_sh, float* __restrict__ dq_part,
-                     float* __restrict__ dk, float* __restrict__ dv, int B, int S, int H, int Dh,
-                     int nk, int causal, float scale) {
+flash_bwd_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+                     const E* __restrict__ d_out, const float* __restrict__ lse,
+                     const float* __restrict__ delta, const uint8_t* __restrict__ pad,
+                     const float* __restrict__ bias, long long bias_sb, long long bias_sh,
+                     float* __restrict__ dq_part, E* __restrict__ dk, E* __restrict__ dv, int B,
+                     int S, int H, int Dh, int nk, int causal, float scale) {
   constexpr int DP = Tile<KS>::DP, LD = Tile<KS>::LD, NTD = Tile<KS>::NTD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks_ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
@@ -259,12 +262,12 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat1
 }
 
 // bf16 pair (columns col, col + 1) of row `row` of one (batch, head) of a
-// (B, S, H, Dh) float32 tensor; 0 at and beyond S and Dh.
-__device__ __forceinline__ uint32_t pair_at(const float* __restrict__ base, int row_stride,
-                                            int row, int col, int S, int Dh) {
+// (B, S, H, Dh) tensor of E; 0 at and beyond S and Dh.
+template <typename E>
+__device__ __forceinline__ uint32_t pair_at(const E* __restrict__ base, int row_stride, int row,
+                                            int col, int S, int Dh) {
   if (row >= S || col >= Dh) return 0u;
-  const float2 x = __ldg(reinterpret_cast<const float2*>(base + (size_t)row * row_stride + col));
-  return pack_bf16(x.x, x.y);
+  return load2_bf16(base + (size_t)row * row_stride + col);
 }
 
 // P^T and dS^T of 16 keys (keys[], two a thread) against the 32 queries of a
@@ -301,17 +304,17 @@ __device__ __forceinline__ void probabilities(float (&p)[4][4], float (&ds)[4][4
   }
 }
 
-template <int KS, bool HAS_BIAS>
+template <typename E, int KS, bool HAS_BIAS>
 __global__ void __launch_bounds__(DKV_THREADS, 2)
-flash_bwd_dkv_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ d_out,
+flash_bwd_dkv_stream_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                            const E* __restrict__ v, const E* __restrict__ d_out,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             const uint8_t* __restrict__ pad, const float* __restrict__ bias,
-                            long long bias_sb, long long bias_sh, float* __restrict__ dk,
-                            float* __restrict__ dv, int S, int H, int Dh, int nk, int causal,
+                            long long bias_sb, long long bias_sh, E* __restrict__ dk,
+                            E* __restrict__ dv, int S, int H, int Dh, int nk, int causal,
                             float scale) {
   constexpr int LD = Tile<KS>::LD, NTD = Tile<KS>::NTD;
-  constexpr int C4 = Tile<KS>::DP / 4;         // 16-byte pieces of a padded row
+  constexpr int C4 = Tile<KS>::DP / 4;         // pieces of 4 values of a padded row
   constexpr int PIECES = 2 * TQ * C4;          // of q and dO in a step
   constexpr int PER = PIECES / DKV_THREADS;    // a thread's
   static_assert(PIECES % DKV_THREADS == 0 && 2 * TQ <= DKV_THREADS, "a step's loads");
@@ -363,21 +366,22 @@ flash_bwd_dkv_stream_kernel(const float* __restrict__ q, const float* __restrict
     reinterpret_cast<uint32_t*>(&tiles[0][0][0])[i] = 0u;
   }
 
-  // A step's piece i: tile i / (TQ C4) (q, dO), row (i / C4) % TQ, 16 bytes
+  // A step's piece i: tile i / (TQ C4) (q, dO), row (i / C4) % TQ, 4 values
   // (i % C4) of it; consecutive threads read consecutive pieces of a row.
-  // Rows beyond S are stored as zeros, with the masked lse and delta 0.
+  // Rows beyond S are stored as zeros, with the masked lse and delta 0. The
+  // pieces wait in registers as loaded and are rounded as they are stored.
   const int d4n = Dh / 4;
-  float4 pre[PER];
+  typename Raw<E>::type pre[PER];
   float pre_row = 0.f;
   auto load = [&](int qi) {
     const int q0 = qi * TQ;
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int i = tid + j * DKV_THREADS, c = i % C4, r = (i / C4) % TQ;
-      pre[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      pre[j] = {};
       if (q0 + r < S && c < d4n) {
-        const float* src = (i < TQ * C4 ? q : d_out) + head_off;
-        pre[j] = __ldg(reinterpret_cast<const float4*>(src + (size_t)(q0 + r) * row_stride) + c);
+        const E* src = (i < TQ * C4 ? q : d_out) + head_off;
+        pre[j] = load4(src + (size_t)(q0 + r) * row_stride + 4 * c);
       }
     }
     if (tid < 2 * TQ) {
@@ -391,8 +395,7 @@ flash_bwd_dkv_stream_kernel(const float* __restrict__ q, const float* __restrict
     for (int j = 0; j < PER; ++j) {
       const int i = tid + j * DKV_THREADS, c = i % C4, r = (i / C4) % TQ;
       if (c < d4n) {
-        *reinterpret_cast<uint2*>(&tiles[buf][i / (TQ * C4)][r * LD + 4 * c]) =
-            make_uint2(pack_bf16(pre[j].x, pre[j].y), pack_bf16(pre[j].z, pre[j].w));
+        *reinterpret_cast<uint2*>(&tiles[buf][i / (TQ * C4)][r * LD + 4 * c]) = to_bf16x4(pre[j]);
       }
     }
     if (tid < 2 * TQ) rows_s[buf][tid / TQ][tid % TQ] = pre_row;
@@ -547,16 +550,16 @@ __device__ __forceinline__ void dq_probabilities(float (&p)[4][4], float (&ds)[4
   }
 }
 
-template <int KS, bool HAS_BIAS>
+template <typename E, int KS, bool HAS_BIAS>
 __global__ void __launch_bounds__(DQ_THREADS, 2)
-flash_bwd_dq_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const float* __restrict__ d_out,
+flash_bwd_dq_stream_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                           const E* __restrict__ v, const E* __restrict__ d_out,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            const uint8_t* __restrict__ pad, const float* __restrict__ bias,
-                           long long bias_sb, long long bias_sh, float* __restrict__ dq, int S,
+                           long long bias_sb, long long bias_sh, E* __restrict__ dq, int S,
                            int H, int Dh, int nq, int causal, float scale) {
   constexpr int LD = Tile<KS>::LD, NTD = Tile<KS>::NTD;
-  constexpr int C4 = Tile<KS>::DP / 4;         // 16-byte pieces of a padded row
+  constexpr int C4 = Tile<KS>::DP / 4;         // pieces of 4 values of a padded row
   constexpr int PIECES = 2 * TK * C4;          // of k and v in a step
   constexpr int PER = PIECES / DQ_THREADS;     // a thread's
   static_assert(PIECES % DQ_THREADS == 0 && TK <= DQ_THREADS, "a step's loads");
@@ -611,21 +614,22 @@ flash_bwd_dq_stream_kernel(const float* __restrict__ q, const float* __restrict_
     reinterpret_cast<uint32_t*>(&tiles[0][0][0])[i] = 0u;
   }
 
-  // A step's piece i: tile i / (TK C4) (k, v), row (i / C4) % TK, 16 bytes
+  // A step's piece i: tile i / (TK C4) (k, v), row (i / C4) % TK, 4 values
   // (i % C4) of it; consecutive threads read consecutive pieces of a row.
-  // Keys beyond S are stored as zeros.
+  // Keys beyond S are stored as zeros. The pieces wait in registers as
+  // loaded and are rounded as they are stored.
   const int d4n = Dh / 4;
-  float4 pre[PER];
+  typename Raw<E>::type pre[PER];
   float pre_pad = 0.f;
   auto load = [&](int ki) {
     const int k0 = ki * TK;
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int i = tid + j * DQ_THREADS, c = i % C4, r = (i / C4) % TK;
-      pre[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      pre[j] = {};
       if (k0 + r < S && c < d4n) {
-        const float* src = (i < TK * C4 ? k : v) + head_off;
-        pre[j] = __ldg(reinterpret_cast<const float4*>(src + (size_t)(k0 + r) * row_stride) + c);
+        const E* src = (i < TK * C4 ? k : v) + head_off;
+        pre[j] = load4(src + (size_t)(k0 + r) * row_stride + 4 * c);
       }
     }
     if (tid < TK) pre_pad = hw::pad_term_of(pad_b, k0 + tid, S);
@@ -635,8 +639,7 @@ flash_bwd_dq_stream_kernel(const float* __restrict__ q, const float* __restrict_
     for (int j = 0; j < PER; ++j) {
       const int i = tid + j * DQ_THREADS, c = i % C4, r = (i / C4) % TK;
       if (c < d4n) {
-        *reinterpret_cast<uint2*>(&tiles[buf][i / (TK * C4)][r * LD + 4 * c]) =
-            make_uint2(pack_bf16(pre[j].x, pre[j].y), pack_bf16(pre[j].z, pre[j].w));
+        *reinterpret_cast<uint2*>(&tiles[buf][i / (TK * C4)][r * LD + 4 * c]) = to_bf16x4(pre[j]);
       }
     }
     if (tid < TK) pad_s[buf][tid] = pre_pad;
@@ -732,8 +735,8 @@ flash_bwd_dq_stream_kernel(const float* __restrict__ q, const float* __restrict_
 // 64): a block of 384 threads per (batch * head, 128-key tile). Warpgroup 2
 // stores the k and v tiles and the keys' padding terms once, then for every
 // 64-query step from the causal start the q and dO tiles and the queries'
-// lse and delta into a ring slot (bf16, image layout, through the f32
-// staging pieces of flash_hopper.cuh's Stager);
+// lse and delta into a ring slot (bf16, image layout, through the staging
+// pieces of flash_hopper.cuh's Stager);
 // warpgroups 0 and 1 own 64 keys each. Per step, by wgmma: S^T = k . q^T and
 // dP^T = v . dO^T from shared memory (m64n64), then P^T and dS^T in
 // registers, then dv += P^T . dO and dk += dS^T . q with P^T and dS^T as
@@ -745,23 +748,23 @@ flash_bwd_dq_stream_kernel(const float* __restrict__ q, const float* __restrict_
 // No warpgroup waits for the other, no wgmma sits on a branch, and nothing
 // needs atomics: the same bits on every call.
 constexpr int BWD_STAGES = 4;  // ring slots of q and dO
-constexpr int BWD_NSTG = 4;    // f32 staging pieces
+constexpr int BWD_NSTG = 4;    // staging pieces
 
-template <bool HAS_BIAS>
+template <typename E, bool HAS_BIAS>
 __global__ void __launch_bounds__(hw::HW_THREADS, 1)
-flash_bwd_fused_hw_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ d_out,
+flash_bwd_fused_hw_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                          const E* __restrict__ v, const E* __restrict__ d_out,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           const uint8_t* __restrict__ pad, const float* __restrict__ bias,
                           long long bias_sb, long long bias_sh, float* __restrict__ dq_part,
-                          float* __restrict__ dk, float* __restrict__ dv, int B, int S, int H,
-                          int Dh, int nk, int causal, float scale) {
+                          E* __restrict__ dk, E* __restrict__ dv, int B, int S, int H, int Dh,
+                          int nk, int causal, float scale) {
   using namespace t4r::flash::hw;
   constexpr int DP = 64, QR = 64;              // head dim, queries per step
   constexpr int TB = SLAB_BYTES;               // a 128-row tile of 64 values
   constexpr int SLOT = TB + 1024;              // q and dO (64 rows each), lse and delta
   constexpr int STAGES = BWD_STAGES, NSTG = BWD_NSTG;
-  using Stg = Stager<DP, NSTG>;
+  using Stg = Stager<DP, NSTG, E>;
   static_assert(Stg::R == QR, "a step's q or dO is one staging piece");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ks = align1024(smem_raw);
@@ -769,8 +772,8 @@ flash_bwd_fused_hw_kernel(const float* __restrict__ q, const float* __restrict__
   uint8_t* staging = vs + TB;  // per warpgroup two 64-row tiles of dS^T (keys x queries)
   float* pad_s = reinterpret_cast<float*>(staging + 2 * TB);
   uint8_t* ring = staging + 2 * TB + 1024;
-  uint8_t* f32_ring = ring + STAGES * SLOT;
-  uint64_t* full = reinterpret_cast<uint64_t*>(f32_ring + Stg::BYTES);
+  uint8_t* stage_ring = ring + STAGES * SLOT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage_ring + Stg::BYTES);
   uint64_t* empty = full + STAGES;
   uint64_t* once = empty + STAGES;
   init_store_ring(STAGES, full, empty, once);
@@ -789,7 +792,7 @@ flash_bwd_fused_hw_kernel(const float* __restrict__ q, const float* __restrict__
   if (wg == 2) {
     // k's and v's pieces once, then each step's q piece and dO piece, NSTG - 1
     // of them in flight ahead of the one being rounded
-    Stg sg(f32_ring, threadIdx.x - 256);
+    Stg sg(stage_ring, threadIdx.x - 256);
     const int p = sg.p;
     constexpr int TP = T / QR;  // pieces of the k or v tile
     const int pieces = 2 * TP + 2 * steps;
@@ -966,24 +969,24 @@ flash_bwd_fused_hw_kernel(const float* __restrict__ q, const float* __restrict__
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     if (keys[hh] >= S) continue;
-    float* dkr = dk + head_off + (size_t)keys[hh] * row_stride;
-    float* dvr = dv + head_off + (size_t)keys[hh] * row_stride;
+    E* dkr = dk + head_off + (size_t)keys[hh] * row_stride;
+    E* dvr = dv + head_off + (size_t)keys[hh] * row_stride;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int d = 8 * j + 2 * t;
       if (d < Dh) {
-        *reinterpret_cast<float2*>(dkr + d) =
-            make_float2(dk_acc[4 * j + 2 * hh] * scale, dk_acc[4 * j + 2 * hh + 1] * scale);
-        *reinterpret_cast<float2*>(dvr + d) = make_float2(dv_acc[4 * j + 2 * hh], dv_acc[4 * j + 2 * hh + 1]);
+        store2(dkr + d, dk_acc[4 * j + 2 * hh] * scale, dk_acc[4 * j + 2 * hh + 1] * scale);
+        store2(dvr + d, dv_acc[4 * j + 2 * hh], dv_acc[4 * j + 2 * hh + 1]);
       }
     }
   }
 }
 
-// dq = scale * sum over the key tiles, in order, of dq_part[key tile]: the
-// tiles a query row's causal mask leaves out were never written and are not
-// read. One float4 a thread.
-__global__ void flash_dq_reduce_kernel(const float4* __restrict__ part, float4* __restrict__ dq,
+// dq = scale * sum over the key tiles, in order, of dq_part[key tile], in
+// q's type (rounded once): the tiles a query row's causal mask leaves out
+// were never written and are not read. Four values a thread.
+template <typename E>
+__global__ void flash_dq_reduce_kernel(const float4* __restrict__ part, E* __restrict__ dq,
                                        size_t total4, int S, int row_stride, int nk, int causal,
                                        float scale) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -998,17 +1001,16 @@ __global__ void flash_dq_reduce_kernel(const float4* __restrict__ part, float4* 
     acc.z += x.z;
     acc.w += x.w;
   }
-  dq[i] = make_float4(acc.x * scale, acc.y * scale, acc.z * scale, acc.w * scale);
+  store4(dq + 4 * i, make_float4(acc.x * scale, acc.y * scale, acc.z * scale, acc.w * scale));
 }
 
-template <int KS, bool HAS_BIAS>
+template <typename E, int KS, bool HAS_BIAS>
 __global__ void __launch_bounds__(FTHREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ d_out,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    const uint8_t* __restrict__ pad, const float* __restrict__ bias,
-                    long long bias_sb, long long bias_sh, float* __restrict__ dq, int S, int H,
-                    int Dh, int nq, int causal, float scale) {
+flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+                    const E* __restrict__ d_out, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const uint8_t* __restrict__ pad,
+                    const float* __restrict__ bias, long long bias_sb, long long bias_sh,
+                    E* __restrict__ dq, int S, int H, int Dh, int nq, int causal, float scale) {
   constexpr int DP = Tile<KS>::DP, LD = Tile<KS>::LD, NTD = Tile<KS>::NTD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
@@ -1084,7 +1086,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 struct Args {
-  const float *q, *k, *v, *d_out, *lse, *delta;
+  const Elem *q, *k, *v, *d_out;
+  const float *lse, *delta;
   const uint8_t* pad;
   const float* bias;
   long long bias_sb, bias_sh;
@@ -1100,22 +1103,22 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
 }
 
 // dq from the partials of both K6a designs: ceil(S / 64) of them
-cudaError_t launch_dq_reduce(const Args& a, const float* dq_part, float* dq) {
+cudaError_t launch_dq_reduce(const Args& a, const float* dq_part, Elem* dq) {
   const size_t total4 = (size_t)a.B * a.S * a.H * a.Dh / 4;
   const int threads = 256;
-  flash_dq_reduce_kernel<<<(unsigned)((total4 + threads - 1) / threads), threads, 0, a.st>>>(
-      reinterpret_cast<const float4*>(dq_part), reinterpret_cast<float4*>(dq), total4, a.S,
+  flash_dq_reduce_kernel<Elem><<<(unsigned)((total4 + threads - 1) / threads), threads, 0, a.st>>>(
+      reinterpret_cast<const float4*>(dq_part), dq, total4, a.S,
       a.H * a.Dh, (a.S + TK - 1) / TK, a.causal, a.scale);
   return cudaGetLastError();
 }
 
 template <bool HAS_BIAS>
-cudaError_t launch_fused_hw(const Args& a, float* dq_part, float* dq, float* dk, float* dv) {
+cudaError_t launch_fused_hw(const Args& a, float* dq_part, Elem* dq, Elem* dk, Elem* dv) {
   constexpr int TB = hopper::SLAB_BYTES, STAGES = BWD_STAGES;
   constexpr int smem = 1024 + 4 * TB + 1024 + STAGES * (TB + 1024) +
-                       hw::Stager<64, BWD_NSTG>::BYTES + 8 * (2 * STAGES + 1);
+                       hw::Stager<64, BWD_NSTG, Elem>::BYTES + 8 * (2 * STAGES + 1);
   static_assert(smem <= hopper::MAX_SMEM, "K6a's shared memory");
-  auto kernel = flash_bwd_fused_hw_kernel<HAS_BIAS>;
+  auto kernel = flash_bwd_fused_hw_kernel<Elem, HAS_BIAS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int nk = (a.S + hw::T - 1) / hw::T;
@@ -1128,12 +1131,12 @@ cudaError_t launch_fused_hw(const Args& a, float* dq_part, float* dq, float* dk,
 }
 
 template <int KS, bool HAS_BIAS, bool FUSED>
-cudaError_t launch_dkv(const Args& a, float* dq_part, float* dq, float* dk, float* dv) {
+cudaError_t launch_dkv(const Args& a, float* dq_part, Elem* dq, Elem* dk, Elem* dv) {
   constexpr int DP = Tile<KS>::DP, LD = Tile<KS>::LD;
   const int smem = (4 * 64 * LD + (FUSED ? 3 : 2) * DP * LDT + (FUSED ? TQ * LDT : 0)) *
                        (int)sizeof(__nv_bfloat16) +
                    (2 * TQ + TK) * (int)sizeof(float);
-  auto kernel = flash_bwd_dkv_kernel<KS, HAS_BIAS, FUSED>;
+  auto kernel = flash_bwd_dkv_kernel<Elem, KS, HAS_BIAS, FUSED>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int nk = (a.S + TK - 1) / TK;
@@ -1146,11 +1149,11 @@ cudaError_t launch_dkv(const Args& a, float* dq_part, float* dq, float* dk, floa
 }
 
 template <int KS, bool HAS_BIAS>
-cudaError_t launch_dq(const Args& a, float* dq) {
+cudaError_t launch_dq(const Args& a, Elem* dq) {
   constexpr int DP = Tile<KS>::DP, LD = Tile<KS>::LD;
   const int smem =
       (4 * 64 * LD + DP * LDT) * (int)sizeof(__nv_bfloat16) + TK * (int)sizeof(float);
-  auto kernel = flash_bwd_dq_kernel<KS, HAS_BIAS>;
+  auto kernel = flash_bwd_dq_kernel<Elem, KS, HAS_BIAS>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int nq = (a.S + TQ - 1) / TQ;
@@ -1161,20 +1164,20 @@ cudaError_t launch_dq(const Args& a, float* dq) {
 }
 
 template <int KS, bool HAS_BIAS>
-cudaError_t launch_dkv_stream(const Args& a, float* dk, float* dv) {
+cudaError_t launch_dkv_stream(const Args& a, Elem* dk, Elem* dv) {
   const int nk = (a.S + DKV_KEYS - 1) / DKV_KEYS;
-  flash_bwd_dkv_stream_kernel<KS, HAS_BIAS><<<(unsigned)((size_t)a.B * a.H * nk), DKV_THREADS, 0,
-                                              a.st>>>(
+  flash_bwd_dkv_stream_kernel<Elem, KS, HAS_BIAS>
+      <<<(unsigned)((size_t)a.B * a.H * nk), DKV_THREADS, 0, a.st>>>(
       a.q, a.k, a.v, a.d_out, a.lse, a.delta, a.pad, a.bias, a.bias_sb, a.bias_sh, dk, dv, a.S,
       a.H, a.Dh, nk, a.causal, a.scale);
   return cudaGetLastError();
 }
 
 template <int KS, bool HAS_BIAS>
-cudaError_t launch_dq_stream(const Args& a, float* dq) {
+cudaError_t launch_dq_stream(const Args& a, Elem* dq) {
   const int nq = (a.S + DQ_QUERIES - 1) / DQ_QUERIES;
-  flash_bwd_dq_stream_kernel<KS, HAS_BIAS><<<(unsigned)((size_t)a.B * a.H * nq), DQ_THREADS, 0,
-                                             a.st>>>(
+  flash_bwd_dq_stream_kernel<Elem, KS, HAS_BIAS>
+      <<<(unsigned)((size_t)a.B * a.H * nq), DQ_THREADS, 0, a.st>>>(
       a.q, a.k, a.v, a.d_out, a.lse, a.delta, a.pad, a.bias, a.bias_sb, a.bias_sh, dq, a.S, a.H,
       a.Dh, nq, a.causal, a.scale);
   return cudaGetLastError();
@@ -1183,15 +1186,15 @@ cudaError_t launch_dq_stream(const Args& a, float* dq) {
 // mode 0: K6a (fused), 1: K6b (dq), 2: K6c (dk, dv), 3: K6a on the Hopper
 // design, 4: K6c on the streamed design, 5: K6b on the streamed design
 template <int KS, bool HAS_BIAS>
-cudaError_t launch_mode(int mode, const Args& a, float* dq_part, float* dq, float* dk,
-                        float* dv) {
+cudaError_t launch_mode(int mode, const Args& a, float* dq_part, Elem* dq, Elem* dk,
+                        Elem* dv) {
   if (mode == 0) return launch_dkv<KS, HAS_BIAS, true>(a, dq_part, dq, dk, dv);
   if (mode == 1) return launch_dq<KS, HAS_BIAS>(a, dq);
   return launch_dkv<KS, HAS_BIAS, false>(a, nullptr, nullptr, dk, dv);
 }
 
 template <bool HAS_BIAS>
-cudaError_t launch_dh(int mode, const Args& a, float* dq_part, float* dq, float* dk, float* dv) {
+cudaError_t launch_dh(int mode, const Args& a, float* dq_part, Elem* dq, Elem* dk, Elem* dv) {
   if (mode == 3) {  // Dh is rounded up to 64
     if (a.Dh > 64) return cudaErrorInvalidValue;
     return launch_fused_hw<HAS_BIAS>(a, dq_part, dq, dk, dv);
@@ -1211,10 +1214,10 @@ cudaError_t launch_dh(int mode, const Args& a, float* dq_part, float* dq, float*
   return launch_mode<8, HAS_BIAS>(mode, a, dq_part, dq, dk, dv);
 }
 
-int launch_checked(int mode, const float* q, const float* k, const float* v, const float* d_out,
+int launch_checked(int mode, const Elem* q, const Elem* k, const Elem* v, const Elem* d_out,
                    const float* lse, const float* delta, const uint8_t* pad, const float* bias,
-                   long long bias_sb, long long bias_sh, float* dq_part, float* dq, float* dk,
-                   float* dv, int B, int S, int H, int Dh, int causal, float scale,
+                   long long bias_sb, long long bias_sh, float* dq_part, Elem* dq, Elem* dk,
+                   Elem* dv, int B, int S, int H, int Dh, int causal, float scale,
                    void* stream) {
   if (Dh < 4 || Dh > 128 || Dh % 4 != 0 || B < 1 || S < 1 || H < 1) {
     return (int)cudaErrorInvalidValue;
@@ -1227,13 +1230,19 @@ int launch_checked(int mode, const float* q, const float* k, const float* v, con
 
 }  // namespace
 
+using t4r::flash::Elem;
+
 extern "C" {
 
 int t4r_flash_tile_rows() { return t4r::flash::TQ; }
 
+// The bytes of a stored value of q, k, v, dO, dq, dk and dv in this library:
+// 4 (f32) or 2 (the bf16 form, built with -DT4R_FLASH_BF16).
+int t4r_flash_elem_bytes() { return (int)sizeof(Elem); }
+
 // All three launch on `stream` and return the first CUDA error (0 when every
-// launch was accepted). q, k, v, d_out, dq, dk, dv: (B, S, H, Dh) float32,
-// contiguous and 16-byte aligned; lse, delta: (B * H, S) float32; pad:
+// launch was accepted). q, k, v, d_out, dq, dk, dv: (B, S, H, Dh) of Elem,
+// contiguous and aligned to 4 values; lse, delta: (B * H, S) float32; pad:
 // (B, S) bytes (non-zero = a real key) or null; bias: float32 with strides
 // bias_sb / bias_sh (elements; 0 on a broadcast axis) between its (S, S)
 // planes, or null. The caller checks shapes (Dh a multiple of 4 up to 128)
@@ -1242,10 +1251,10 @@ int t4r_flash_tile_rows() { return t4r::flash::TQ; }
 // K6a: dq, dk, dv from one recomputation, with wgmma on the Hopper design
 // (Dh up to 64). dq_part: (key tiles, B, S, H, Dh) float32 scratch, key
 // tiles = ceil(S / 64) in both designs.
-int t4r_flash_bwd_fused(const float* q, const float* k, const float* v, const float* d_out,
+int t4r_flash_bwd_fused(const Elem* q, const Elem* k, const Elem* v, const Elem* d_out,
                         const float* lse, const float* delta, const uint8_t* pad,
                         const float* bias, long long bias_sb, long long bias_sh, float* dq_part,
-                        float* dq, float* dk, float* dv, int B, int S, int H, int Dh, int causal,
+                        Elem* dq, Elem* dk, Elem* dv, int B, int S, int H, int Dh, int causal,
                         float scale, int wgmma, void* stream) {
   return launch_checked(wgmma ? 3 : 0, q, k, v, d_out, lse, delta, pad, bias, bias_sb, bias_sh,
                         dq_part, dq, dk, dv, B, S, H, Dh, causal, scale, stream);
@@ -1253,9 +1262,9 @@ int t4r_flash_bwd_fused(const float* q, const float* k, const float* v, const fl
 
 // K6b: dq alone, on the streamed design (`streamed`, head dims up to 32;
 // refused above) or the mma.sync body above.
-int t4r_flash_bwd_dq(const float* q, const float* k, const float* v, const float* d_out,
+int t4r_flash_bwd_dq(const Elem* q, const Elem* k, const Elem* v, const Elem* d_out,
                      const float* lse, const float* delta, const uint8_t* pad, const float* bias,
-                     long long bias_sb, long long bias_sh, float* dq, int B, int S, int H, int Dh,
+                     long long bias_sb, long long bias_sh, Elem* dq, int B, int S, int H, int Dh,
                      int causal, float scale, int streamed, void* stream) {
   return launch_checked(streamed ? 5 : 1, q, k, v, d_out, lse, delta, pad, bias, bias_sb, bias_sh,
                         nullptr, dq, nullptr, nullptr, B, S, H, Dh, causal, scale, stream);
@@ -1263,10 +1272,10 @@ int t4r_flash_bwd_dq(const float* q, const float* k, const float* v, const float
 
 // K6c: dk and dv alone, on the streamed design (`streamed`, head dims up to
 // 32; refused above) or the mma.sync body above.
-int t4r_flash_bwd_dkv(const float* q, const float* k, const float* v, const float* d_out,
+int t4r_flash_bwd_dkv(const Elem* q, const Elem* k, const Elem* v, const Elem* d_out,
                       const float* lse, const float* delta, const uint8_t* pad,
-                      const float* bias, long long bias_sb, long long bias_sh, float* dk,
-                      float* dv, int B, int S, int H, int Dh, int causal, float scale,
+                      const float* bias, long long bias_sb, long long bias_sh, Elem* dk,
+                      Elem* dv, int B, int S, int H, int Dh, int causal, float scale,
                       int streamed, void* stream) {
   return launch_checked(streamed ? 4 : 2, q, k, v, d_out, lse, delta, pad, bias, bias_sb, bias_sh,
                         nullptr, nullptr, dk, dv, B, S, H, Dh, causal, scale, stream);

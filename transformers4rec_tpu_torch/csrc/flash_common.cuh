@@ -1,8 +1,20 @@
 // Pieces shared by the port's attention kernels (flash_fwd.cu, flash_bwd.cu):
 // the tile sizes, the one function that scales and masks a logit (so the
-// forward and the three backward bodies cannot drift apart), the tile loads
-// from the (B, S, H, Dh) float32 layout into bf16 shared memory, and the
-// mma.sync.m16n8k16 tile products.
+// forward and the three backward bodies cannot drift apart), the stored
+// type's loads and stores, the tile loads from the (B, S, H, Dh) layout into
+// bf16 shared memory, and the mma.sync.m16n8k16 tile products.
+//
+// The stored type. q, k, v, dO and the outputs (out, dq, dk, dv) are of one
+// type E, float or __nv_bfloat16; every kernel is a template on it, and a
+// library instantiates one: float by default, bf16 when built with
+// -DT4R_FLASH_BF16 (ops/build.py's VARIANTS), as the type Elem below. The
+// products take bf16 either way: f32 values are rounded to nearest even as
+// they are loaded, bf16 ones are copied as they are, so on the same values
+// both forms compute the same bits; an f32 accumulator is written as it is
+// or rounded once to nearest even. lse, delta, the bias and dq partials are
+// f32 in both. Loads move 4 values (16 bytes of f32, 8 of bf16: Dh is a
+// multiple of 4, so a head's row starts 8-byte aligned in bf16 at any head
+// dim, where a 16-byte piece would not, e.g. Dh = 12 or 36).
 //
 // The mma.sync kernels work on tiles of TQ = 64 queries by TK = 64 keys with
 // 4 warps; a warp owns 16 rows of the tile it accumulates (queries in the
@@ -23,6 +35,66 @@
 
 namespace t4r {
 namespace flash {
+
+#ifdef T4R_FLASH_BF16
+using Elem = __nv_bfloat16;
+#else
+using Elem = float;
+#endif
+
+// Four values of E as loaded, before any conversion: a load into registers
+// that runs ahead of its use does not wait for its data (to_bf16x4 does).
+template <typename E>
+struct Raw;
+template <>
+struct Raw<float> {
+  using type = float4;
+};
+template <>
+struct Raw<__nv_bfloat16> {
+  using type = uint2;
+};
+
+__device__ __forceinline__ float4 load4(const float* __restrict__ p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ uint2 load4(const __nv_bfloat16* __restrict__ p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
+
+// Four loaded values as two bf16 pairs (the low half holds the first value).
+__device__ __forceinline__ uint2 to_bf16x4(const float4& x) {
+  return make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+}
+__device__ __forceinline__ uint2 to_bf16x4(const uint2& x) { return x; }
+
+// Two values from p as one bf16 pair.
+__device__ __forceinline__ uint32_t load2_bf16(const float* __restrict__ p) {
+  const float2 x = __ldg(reinterpret_cast<const float2*>(p));
+  return pack_bf16(x.x, x.y);
+}
+__device__ __forceinline__ uint32_t load2_bf16(const __nv_bfloat16* __restrict__ p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+// Two f32 accumulators to p[0], p[1]: as they are, or rounded once to bf16.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+// Four f32 values to p[0..3]: as they are, or rounded once to bf16.
+__device__ __forceinline__ void store4(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  *reinterpret_cast<uint2*>(p) = to_bf16x4(x);
+}
+
+// bf16 half h (0: low, 1: high) of a packed pair.
+__device__ __forceinline__ __nv_bfloat16 bf16_half(uint32_t w, int h) {
+  return __ushort_as_bfloat16(static_cast<unsigned short>(h ? w >> 16 : w & 0xffffu));
+}
 
 constexpr int TQ = 64;             // queries per tile
 constexpr int TK = 64;             // keys per tile
@@ -69,35 +141,28 @@ __device__ __forceinline__ void load_pad_terms(const uint8_t* __restrict__ pad_b
   }
 }
 
-// Rows [s0, s0 + 64) of one (batch, head) of a (B, S, H, Dh) float32 tensor,
-// rounded to bf16, into shared memory: row-major into `rm` ([row][LD]) when
+// Rows [s0, s0 + 64) of one (batch, head) of a (B, S, H, Dh) tensor of E,
+// as bf16, into shared memory: row-major into `rm` ([row][LD]) when
 // ROWMAJOR, transposed into `tr` ([d][LDT]) when TRANSPOSED. `base` points at
 // (batch, 0, head, 0) and `row_stride` is H * Dh. Rows at and beyond S and
 // columns Dh..DP-1 are zero.
-template <int KS, bool ROWMAJOR, bool TRANSPOSED>
-__device__ __forceinline__ void load_tile(const float* __restrict__ base, int row_stride, int s0,
+template <int KS, bool ROWMAJOR, bool TRANSPOSED, typename E>
+__device__ __forceinline__ void load_tile(const E* __restrict__ base, int row_stride, int s0,
                                           int S, int Dh, __nv_bfloat16* __restrict__ rm,
                                           __nv_bfloat16* __restrict__ tr, int tid) {
   constexpr int DP = Tile<KS>::DP, LD = Tile<KS>::LD;
-  constexpr int C4 = DP / 4;  // float4 pieces per padded row
+  constexpr int C4 = DP / 4;  // pieces of 4 values per padded row
   const int d4n = Dh / 4;
   for (int idx = tid; idx < 64 * C4; idx += FTHREADS) {
     const int r = idx / C4, c = idx - r * C4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (s0 + r < S && c < d4n) {
-      x = __ldg(reinterpret_cast<const float4*>(base + (size_t)(s0 + r) * row_stride) + c);
-    }
-    if (ROWMAJOR) {
-      uint2 w;
-      w.x = pack_bf16(x.x, x.y);
-      w.y = pack_bf16(x.z, x.w);
-      *reinterpret_cast<uint2*>(rm + r * LD + 4 * c) = w;
-    }
+    uint2 w = make_uint2(0u, 0u);
+    if (s0 + r < S && c < d4n) w = to_bf16x4(load4(base + (size_t)(s0 + r) * row_stride + 4 * c));
+    if (ROWMAJOR) *reinterpret_cast<uint2*>(rm + r * LD + 4 * c) = w;
     if (TRANSPOSED) {
-      tr[(4 * c + 0) * LDT + r] = __float2bfloat16(x.x);
-      tr[(4 * c + 1) * LDT + r] = __float2bfloat16(x.y);
-      tr[(4 * c + 2) * LDT + r] = __float2bfloat16(x.z);
-      tr[(4 * c + 3) * LDT + r] = __float2bfloat16(x.w);
+      tr[(4 * c + 0) * LDT + r] = bf16_half(w.x, 0);
+      tr[(4 * c + 1) * LDT + r] = bf16_half(w.x, 1);
+      tr[(4 * c + 2) * LDT + r] = bf16_half(w.y, 0);
+      tr[(4 * c + 3) * LDT + r] = bf16_half(w.y, 1);
     }
   }
 }
@@ -178,24 +243,21 @@ __device__ __forceinline__ void pack_a_fragments(const float (&c)[8][4], uint32_
 }
 
 // A warp's 16 x DP accumulators, times `scale`, to rows row0 + g (+ 8) of one
-// (batch, head) of a (B, S, H, Dh) float32 tensor; rows >= S and columns >=
-// Dh are left out.
-template <int NTD>
+// (batch, head) of a (B, S, H, Dh) tensor of float or bf16 (rounded once);
+// rows >= S and columns >= Dh are left out.
+template <int NTD, typename O>
 __device__ __forceinline__ void store_rows(const float (&acc)[NTD][4], float scale,
-                                           float* __restrict__ base, int row_stride, int row0,
+                                           O* __restrict__ base, int row_stride, int row0,
                                            int S, int Dh, int g, int t) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + g + 8 * h;
     if (row >= S) continue;
-    float* dst = base + (size_t)row * row_stride;
+    O* dst = base + (size_t)row * row_stride;
 #pragma unroll
     for (int j = 0; j < NTD; ++j) {
       const int col = 8 * j + 2 * t;
-      if (col < Dh) {
-        *reinterpret_cast<float2*>(dst + col) =
-            make_float2(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
-      }
+      if (col < Dh) store2(dst + col, acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
     }
   }
 }

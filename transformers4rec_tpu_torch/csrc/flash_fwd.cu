@@ -3,9 +3,11 @@
 //   out = softmax(q . k^T * Dh^-1/2 + masks + bias) . v
 // by an online softmax over key tiles: the (S, S) probabilities never reach
 // device memory. q, k, v are (B, S, H, Dh) float32, rounded to bf16 on the
-// way to shared memory; products accumulate in f32; the scale is applied in
-// f32 after the product; P is rounded to bf16 before P . v. A row with no
-// valid key gives 0. lse (B * H, S) is kept for the backward, with the
+// way to shared memory, or bf16 (the form built with -DT4R_FLASH_BF16, read
+// as stored; flash_common.cuh); products accumulate in f32; the scale is
+// applied in f32 after the product; P is rounded to bf16 before P . v; out
+// is written in q's type (rounded once in the bf16 form). A row with no
+// valid key gives 0. lse (B * H, S) f32 is kept for the backward, with the
 // sentinel +2e9 on such rows.
 //
 // Replaces: transformers4rec_tpu/ops/attention.py:_make_kernel (launched by
@@ -16,7 +18,7 @@
 // two products are 2 x 2 x 512 x 256 x 256 x 16 (Dh padded to the mma's
 // depth) = 2.1 GFLOP dense, half of it under the causal mask, 1-2 us at the
 // 989 TFLOP/s bf16 rate; 17 M exponentials are 4 us on the special-function
-// units. The bytes bound it. At (4, 2048, 8, 64) the products are 34 GFLOP
+// units. The bytes bound it (half of them in the bf16 form: 3.8 us). At (4, 2048, 8, 64) the products are 34 GFLOP
 // dense and the tensor cores bound it.
 //
 // Design. The TPU kernel walks the key tiles as a sequential grid axis and
@@ -50,13 +52,12 @@ namespace {
 using namespace t4r;
 using namespace t4r::flash;
 
-template <int KS, bool HAS_BIAS>
+template <typename E, int KS, bool HAS_BIAS>
 __global__ void __launch_bounds__(FTHREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const uint8_t* __restrict__ pad,
-                 const float* __restrict__ bias, long long bias_sb, long long bias_sh,
-                 float* __restrict__ out, float* __restrict__ lse, int S, int H, int Dh, int nq,
-                 int causal, float scale) {
+flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+                 const uint8_t* __restrict__ pad, const float* __restrict__ bias,
+                 long long bias_sb, long long bias_sh, E* __restrict__ out,
+                 float* __restrict__ lse, int S, int H, int Dh, int nq, int causal, float scale) {
   constexpr int DP = Tile<KS>::DP, LD = Tile<KS>::LD, NTD = Tile<KS>::NTD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
@@ -171,14 +172,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------------------ Hopper design
 // Shared memory of flash_fwd_hw_kernel: the q tile, STAGES ring slots (k, v
-// and the keys' padding terms), NSTG f32 staging pieces, the barriers.
-template <int DP>
+// and the keys' padding terms), NSTG staging pieces of E, the barriers.
+template <int DP, typename E>
 struct FwdLayout {
   static constexpr int TILE_BYTES = DP / 64 * hopper::SLAB_BYTES;
   static constexpr int SLOT = 2 * TILE_BYTES + 1024;
   static constexpr int STAGES = DP == 64 ? 4 : 2;
   static constexpr int NSTG = DP == 64 ? 4 : 3;
-  static constexpr int STAGING = hw::Stager<DP, NSTG>::BYTES;
+  static constexpr int STAGING = hw::Stager<DP, NSTG, E>::BYTES;
   static constexpr int BYTES = 1024 + TILE_BYTES + STAGES * SLOT + STAGING + 8 * (2 * STAGES + 1);
 };
 
@@ -192,15 +193,15 @@ struct FwdLayout {
 // softmax in registers, and o += P . v by wgmma with P as register A
 // fragments and v read MN-major. The producer fills the next slots while the
 // consumers work, and the two consumer warpgroups overlap each other.
-template <int DP, bool HAS_BIAS>
+template <typename E, int DP, bool HAS_BIAS>
 __global__ void __launch_bounds__(hw::HW_THREADS, 1)
-flash_fwd_hw_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const uint8_t* __restrict__ pad,
-                    const float* __restrict__ bias, long long bias_sb, long long bias_sh,
-                    float* __restrict__ out, float* __restrict__ lse, int S, int H, int Dh,
-                    int nq, int causal, float scale) {
+flash_fwd_hw_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+                    const uint8_t* __restrict__ pad, const float* __restrict__ bias,
+                    long long bias_sb, long long bias_sh, E* __restrict__ out,
+                    float* __restrict__ lse, int S, int H, int Dh, int nq, int causal,
+                    float scale) {
   using namespace t4r::flash::hw;
-  using L = FwdLayout<DP>;
+  using L = FwdLayout<DP, E>;
   constexpr int TILE_BYTES = L::TILE_BYTES, SLOT = L::SLOT, stages = L::STAGES, NSTG = L::NSTG;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = align1024(smem_raw);
@@ -224,8 +225,8 @@ flash_fwd_hw_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (wg == 2) {
     // the q tile's pieces, then each key tile's k pieces and v pieces, NSTG - 1
     // of them in flight ahead of the one being rounded
-    Stager<DP, NSTG> sg(staging, threadIdx.x - 256);
-    constexpr int R = Stager<DP, NSTG>::R, TP = T / R;  // rows a piece, pieces a tile
+    Stager<DP, NSTG, E> sg(staging, threadIdx.x - 256);
+    constexpr int R = Stager<DP, NSTG, E>::R, TP = T / R;  // rows a piece, pieces a tile
     const int pieces = TP + (kt_end + 1) * 2 * TP;
     const uint8_t* pad_b = pad != nullptr ? pad + (size_t)b * S : nullptr;
     auto issue = [&](int n) {
@@ -357,30 +358,27 @@ flash_fwd_hw_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   // o[4j + 2hh + qq]: row rows[hh], d = 8j + 2t + qq
-  float* base = out + head_off;
+  E* base = out + head_off;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     if (rows[hh] >= S) continue;
-    float* dst = base + (size_t)rows[hh] * row_stride;
+    E* dst = base + (size_t)rows[hh] * row_stride;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       const int d = 8 * j + 2 * t;
-      if (d < Dh) {
-        *reinterpret_cast<float2*>(dst + d) =
-            make_float2(o[4 * j + 2 * hh] * inv[hh], o[4 * j + 2 * hh + 1] * inv[hh]);
-      }
+      if (d < Dh) store2(dst + d, o[4 * j + 2 * hh] * inv[hh], o[4 * j + 2 * hh + 1] * inv[hh]);
     }
   }
 }
 
 template <int DP, bool HAS_BIAS>
-cudaError_t launch_hw(const float* q, const float* k, const float* v, const uint8_t* pad,
-                      const float* bias, long long bias_sb, long long bias_sh, float* out,
+cudaError_t launch_hw(const Elem* q, const Elem* k, const Elem* v, const uint8_t* pad,
+                      const float* bias, long long bias_sb, long long bias_sh, Elem* out,
                       float* lse, int B, int S, int H, int Dh, int causal, float scale,
                       cudaStream_t st) {
-  constexpr int smem = FwdLayout<DP>::BYTES;
+  constexpr int smem = FwdLayout<DP, Elem>::BYTES;
   static_assert(smem <= hopper::MAX_SMEM, "K5's shared memory");
-  auto kernel = flash_fwd_hw_kernel<DP, HAS_BIAS>;
+  auto kernel = flash_fwd_hw_kernel<Elem, DP, HAS_BIAS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int nq = (S + hw::T - 1) / hw::T;
@@ -390,13 +388,13 @@ cudaError_t launch_hw(const float* q, const float* k, const float* v, const uint
 }
 
 template <int KS, bool HAS_BIAS>
-cudaError_t launch(const float* q, const float* k, const float* v, const uint8_t* pad,
-                   const float* bias, long long bias_sb, long long bias_sh, float* out,
+cudaError_t launch(const Elem* q, const Elem* k, const Elem* v, const uint8_t* pad,
+                   const float* bias, long long bias_sb, long long bias_sh, Elem* out,
                    float* lse, int B, int S, int H, int Dh, int causal, float scale,
                    cudaStream_t st) {
   constexpr int DP = Tile<KS>::DP, LD = Tile<KS>::LD;
   const int smem = (2 * 64 * LD + DP * LDT) * (int)sizeof(__nv_bfloat16) + TK * (int)sizeof(float);
-  auto kernel = flash_fwd_kernel<KS, HAS_BIAS>;
+  auto kernel = flash_fwd_kernel<Elem, KS, HAS_BIAS>;
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -409,8 +407,8 @@ cudaError_t launch(const float* q, const float* k, const float* v, const uint8_t
 }
 
 template <bool HAS_BIAS>
-cudaError_t launch_dh(const float* q, const float* k, const float* v, const uint8_t* pad,
-                      const float* bias, long long bias_sb, long long bias_sh, float* out,
+cudaError_t launch_dh(const Elem* q, const Elem* k, const Elem* v, const uint8_t* pad,
+                      const float* bias, long long bias_sb, long long bias_sh, Elem* out,
                       float* lse, int B, int S, int H, int Dh, int causal, float scale,
                       int wgmma, cudaStream_t st) {
   if (wgmma) {  // Dh is rounded up to 64 or 128 (zero padded)
@@ -434,18 +432,24 @@ cudaError_t launch_dh(const float* q, const float* k, const float* v, const uint
 
 }  // namespace
 
+using t4r::flash::Elem;
+
 extern "C" {
 
 int t4r_flash_tile_rows() { return t4r::flash::TQ; }
 
-// Launches the forward on `stream`. q, k, v, out: (B, S, H, Dh) float32,
-// contiguous and 16-byte aligned; pad: (B, S) bytes (non-zero = a real key)
+// The bytes of a stored value of q, k, v and out in this library: 4 (f32)
+// or 2 (the bf16 form, built with -DT4R_FLASH_BF16).
+int t4r_flash_elem_bytes() { return (int)sizeof(Elem); }
+
+// Launches the forward on `stream`. q, k, v, out: (B, S, H, Dh) of Elem,
+// contiguous and aligned to 4 values; pad: (B, S) bytes (non-zero = a real key)
 // or null; bias: float32 with strides bias_sb / bias_sh (elements; 0 on a
 // broadcast axis) between its (S, S) planes, or null; lse: (B * H, S). The
 // caller checks shapes (Dh a multiple of 4 up to 128) and allocates. Returns
 // the CUDA error of the launch (0 when it was accepted).
-int t4r_flash_fwd(const float* q, const float* k, const float* v, const uint8_t* pad,
-                  const float* bias, long long bias_sb, long long bias_sh, float* out,
+int t4r_flash_fwd(const Elem* q, const Elem* k, const Elem* v, const uint8_t* pad,
+                  const float* bias, long long bias_sb, long long bias_sh, Elem* out,
                   float* lse, int B, int S, int H, int Dh, int causal, float scale, int wgmma,
                   void* stream) {
   if (Dh < 4 || Dh > 128 || Dh % 4 != 0 || B < 1 || S < 1 || H < 1) {

@@ -8,15 +8,18 @@
 // the depth).
 //
 // Why tiles are rounded in shared memory and not by an image pass. q, k, v
-// and dO arrive as f32 in the (B, S, H, Dh) layout, where one row of a head
-// is Dh x 4 bytes (48 at Dh = 12) at a stride of H x Dh x 4: no 1-D bulk
-// copy moves a tile, and an image pass that wrote bf16 tiles first would
-// read every byte once more and write half as many again, which at the
-// long-session shape (B, S, H, Dh) = (32, 256, 16, 12) is as much traffic
-// as the kernel's own. So a producer warpgroup copies the f32 rows with
-// cp.async (16 bytes a copy, zero-filled beyond S and Dh) into a ring of
-// f32 staging pieces of 16 KB (Stager), several pieces in flight, then
-// rounds each landed piece to bf16 into a ring slot in the swizzled layout;
+// and dO arrive as f32 or bf16 (flash_common.cuh's E) in the (B, S, H, Dh)
+// layout, where one row of a head is Dh x 4 bytes (48 at Dh = 12; Dh x 2 in
+// bf16) at a stride of H x Dh values: no 1-D bulk copy moves a tile, and an
+// image pass that wrote bf16 tiles first would read every byte once more
+// and write half as many again, which at the long-session shape (B, S, H,
+// Dh) = (32, 256, 16, 12) is as much traffic as the kernel's own. So a
+// producer warpgroup copies the rows with cp.async (4 values a copy: 16
+// bytes of f32, 8 of bf16, since a bf16 row need not start 16-byte aligned;
+// zero-filled beyond S and Dh) into a ring of staging pieces (16 KB of f32,
+// 8 of bf16: Stager), several pieces in flight, then rounds each landed
+// piece to bf16 (a bf16 piece is copied as it is) into a ring slot in the
+// swizzled layout;
 // the next tiles' copies and this tile's rounding overlap the consumers'
 // products and softmax. The slots' barriers count the producer's 128
 // threads (full) and the 8 consumer warps (empty). A generic-proxy store is
@@ -73,6 +76,22 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
                : "memory");
 }
 
+// cp.async of 8 bytes (through L1: .cg takes 16 only); the bytes past
+// `bytes` (0 or 8) are zero-filled.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// 4 values of E (16 or 8 bytes), zero-filled when !ok.
+__device__ __forceinline__ void cp_async4v(void* dst, const float* src, bool ok) {
+  cp_async16(dst, src, ok ? 16 : 0);
+}
+__device__ __forceinline__ void cp_async4v(void* dst, const __nv_bfloat16* src, bool ok) {
+  cp_async8(dst, src, ok ? 8 : 0);
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -82,39 +101,40 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The producer thread p's share of a ring of NSTG f32 staging pieces, each
-// R = 4096 / DP rows of DP values (16 KB): issue() copies rows [r0, r0 + R)
-// of one (batch, head) of a (B, S, H, Dh) float32 tensor (`base` at
-// (batch, 0, head, 0), `row_stride` = H x Dh) into the next piece as one
-// cp.async group, zero beyond S and Dh; round() waits until the oldest piece
-// in flight has landed (NSTG - 1 newer ones may still fly) and stores it in
-// bf16 as rows [row_off, row_off + R) of an image tile of DP values. A
-// thread's units are 16 bytes (4 values) p + 128 m of the piece, so that the
-// 32 copies of a warp read 512 contiguous bytes (whole 32-byte sectors: the
-// copies bypass L1), and each thread reads back and rounds only the bytes it
-// copied itself, so the producer's threads need no barrier among them.
-// Pieces are issued and rounded in one order, and every issue() or skip() is
-// one group, so that wait_group counts right to the end of the stream.
-template <int DP, int NSTG>
+// The producer thread p's share of a ring of NSTG staging pieces of E, each
+// R = 4096 / DP rows of DP values (16 KB of f32, 8 of bf16): issue() copies
+// rows [r0, r0 + R) of one (batch, head) of a (B, S, H, Dh) tensor of E
+// (`base` at (batch, 0, head, 0), `row_stride` = H x Dh) into the next piece
+// as one cp.async group, zero beyond S and Dh; round() waits until the
+// oldest piece in flight has landed (NSTG - 1 newer ones may still fly) and
+// stores it in bf16 as rows [row_off, row_off + R) of an image tile of DP
+// values. A thread's units are 4 values p + 128 m of the piece, so that the
+// 32 copies of a warp read 512 (f32) or 256 (bf16) contiguous bytes, and
+// each thread reads back and rounds only the bytes it copied itself, so the
+// producer's threads need no barrier among them. Pieces are issued and
+// rounded in one order, and every issue() or skip() is one group, so that
+// wait_group counts right to the end of the stream.
+template <int DP, int NSTG, typename E>
 struct Stager {
   static constexpr int R = 4096 / DP;                              // rows of a piece
-  static constexpr int PER_ROW = DP / 4;                           // 16-byte units of a row
+  static constexpr int PER_ROW = DP / 4;                           // 4-value units of a row
   static constexpr int UNITS = R * PER_ROW / PRODUCER_THREADS;     // a thread's units a piece
-  static constexpr int PIECE_BYTES = R * DP * 4;
+  static constexpr int UNIT_BYTES = 4 * (int)sizeof(E);
+  static constexpr int PIECE_BYTES = R * DP * (int)sizeof(E);
   static constexpr int BYTES = NSTG * PIECE_BYTES;
   uint8_t* buf;
   int p, issued = 0, rounded = 0;
 
   __device__ __forceinline__ Stager(uint8_t* buf_, int p_) : buf(buf_), p(p_) {}
 
-  __device__ __forceinline__ void issue(const float* __restrict__ base, int row_stride, int r0,
-                                        int S, int Dh) {
+  __device__ __forceinline__ void issue(const E* __restrict__ base, int row_stride, int r0, int S,
+                                        int Dh) {
     uint8_t* stg = buf + (issued % NSTG) * PIECE_BYTES;
 #pragma unroll
     for (int m = 0; m < UNITS; ++m) {
       const int i = p + m * PRODUCER_THREADS, r = i / PER_ROW, d0 = (i - r * PER_ROW) * 4;
       const bool ok = r0 + r < S && d0 < Dh;
-      cp_async16(stg + i * 16, ok ? base + (size_t)(r0 + r) * row_stride + d0 : base, ok ? 16 : 0);
+      cp_async4v(stg + i * UNIT_BYTES, ok ? base + (size_t)(r0 + r) * row_stride + d0 : base, ok);
     }
     cp_async_commit();
     ++issued;
@@ -132,9 +152,9 @@ struct Stager {
 #pragma unroll
     for (int m = 0; m < UNITS; ++m) {
       const int i = p + m * PRODUCER_THREADS, r = i / PER_ROW, d0 = (i - r * PER_ROW) * 4;
-      const float4 x = *reinterpret_cast<const float4*>(stg + i * 16);
-      *reinterpret_cast<uint2*>(dst + image_offset(row_off + r, d0, DP)) =
-          make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+      const typename Raw<E>::type x =
+          *reinterpret_cast<const typename Raw<E>::type*>(stg + i * UNIT_BYTES);
+      *reinterpret_cast<uint2*>(dst + image_offset(row_off + r, d0, DP)) = to_bf16x4(x);
     }
     ++rounded;
   }

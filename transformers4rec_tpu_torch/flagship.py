@@ -135,7 +135,8 @@ def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
                 seed: int = 0, top_k=None, dropout: float = 0.1,
                 vocab_parallel_group=None, scheme: str = "mlm",
                 item_dim: Optional[int] = None,
-                eval_on_last_item_seq_only: bool = True, arch: Optional[str] = None) -> Model:
+                eval_on_last_item_seq_only: bool = True, arch: Optional[str] = None,
+                dtype=None, remat: bool = False) -> Model:
     """The flagship model with weights drawn from ``seed``, on ``device``
     (CUDA unless ``"cpu"``): XLNet-MLM on sessions of 20, with
     ``scheme="clm"`` GPT-2-CLM on sessions of 256, with ``scheme="plm"``
@@ -145,7 +146,9 @@ def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
     sets the item table's width (the column's ``embedding_dims``; 64 by
     default), to which the output is tied through a d_model→item_dim
     projection: ``PAPER_ITEM_DIM`` is the paper's XLNet-MLM command's.
-    ``arch`` names a registered architecture in place of the scheme's."""
+    ``arch`` names a registered architecture in place of the scheme's.
+    ``dtype`` (``torch.bfloat16``) and ``remat`` go to the encoder's config:
+    its compute type and per-layer rematerialisation."""
     config, masking_kwargs, default_seq, _ = _scheme(scheme)
     if arch is not None:
         config = transformer_registry.parse(arch)
@@ -157,7 +160,7 @@ def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
         embedding_dims=None if item_dim is None else {"item_id": item_dim},
     )
     cfg = config.build(d_model=d_model, n_head=n_head, n_layer=n_layer,
-                       total_seq_length=seq, dropout=dropout)
+                       total_seq_length=seq, dropout=dropout, dtype=dtype, remat=remat)
     model = cfg.to_model(
         input_module,
         NextItemPredictionTask(weight_tying=True, vocab_parallel_group=vocab_parallel_group),
@@ -199,7 +202,8 @@ def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=N
     ``gradient_accumulation_steps`` averages that many batches' gradients
     into one update; ``embedding_table_dtype="bf16"`` stores the tables as
     bf16. ``model_kwargs``
-    (``num_items``, ``d_model``, ``seq``, ``arch``, ...) go to ``build_model``."""
+    (``num_items``, ``d_model``, ``seq``, ``arch``, ``dtype``, ``remat``, ...)
+    go to ``build_model``."""
     _, _, default_seq, default_batch = _scheme(scheme)
     seq = model_kwargs.get("seq") or default_seq
     batch = default_batch if batch is None else batch

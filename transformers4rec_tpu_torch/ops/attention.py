@@ -22,10 +22,21 @@ K5 and K6a in one of two designs, ``mma.sync`` or ``wgmma``, by head dim:
 for CPU tensors they run ``flash_forward_plain``, ``flash_bwd_fused_plain``,
 ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain`` (together:
 ``flash_backward_plain``), plain PyTorch versions of the same arithmetic.
-Each wrapper counts its launches in ``<wrapper>.launches``.
+Each wrapper counts its launches in ``<wrapper>.launches``, and those of
+its bf16 form also in ``<wrapper>.bf16_launches``.
 
-The arithmetic, as the reference's: q, k, v and dO are rounded to bf16, every
-product accumulates in f32, the scale is applied in f32 after the product, P
+q, k, v and dO are float32 or bfloat16, all four of one type (the encoder's
+compute type), and the outputs out, dq, dk and dv are of that type; lse,
+delta, the bias and K6a's dq partials are float32 in both. On the card each
+type has its own form of every kernel (``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu`` built as they are and, with ``-DT4R_FLASH_BF16``, as
+the libraries ``flash_fwd_bf16`` and ``flash_bwd_bf16``): the bf16 form reads
+bf16 as it is stored where the f32 form rounds its f32 loads, and rounds its
+f32 accumulators once to bf16 as it writes them. A type that the kernels do
+not take raises; nothing is converted before a launch.
+
+The arithmetic, as the reference's: q, k, v and dO are rounded to bf16 (the
+identity on bf16 inputs), every product accumulates in f32, the scale is applied in f32 after the product, P
 is rounded to bf16 before P·v and Pᵀ·dO and dS before dS·k and dSᵀ·q. Masks
 are finite: causal *replaces* a logit by ``NEG`` where key > query, padding
 *adds* ``NEG``, the bias is *added*. A row whose running maximum never rose
@@ -35,8 +46,8 @@ a query tile's future are skipped.
 
 With ``bias_grad=True`` (a learned bias, e.g. the relative-position table)
 the forward is K5 and the whole backward is autograd through
-``reference_attention`` recomputed in f32, which yields the bias gradient;
-the kernels give the bias none.
+``reference_attention`` recomputed with f32 logits, which yields the bias
+gradient; the kernels give the bias none.
 
 ``use_flash`` is the dispatch policy of ``MultiHeadAttention``: S ≥ 128 and
 no attention dropout in training.
@@ -66,9 +77,12 @@ SPLIT_STREAM_MAX_DH, DQ_STREAM_QUERIES, DKV_STREAM_KEYS = 32, 128, 128
 
 
 def reference_attention(q, k, v, bias=None, pad_mask=None, causal=False):
-    """Dense float32 attention: ``softmax(q·kᵀ·scale + composed bias)·v`` with
-    the rows that have no valid key set to zero (what ``MultiHeadAttention``
-    computes on its dense path). Differentiable in q, k, v and bias."""
+    """Dense attention with float32 logits and softmax: ``softmax(q·kᵀ·scale
+    + composed bias)·v`` with the rows that have no valid key set to zero
+    (what ``MultiHeadAttention`` computes on its dense path). When q is not
+    float32 the probabilities are rounded to q's type before the product with
+    v, whose sum is float32; the context is returned in q's type.
+    Differentiable in q, k, v and bias."""
     B, S, H, Dh = q.shape
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (Dh ** -0.5)
     total_bias = torch.zeros((1, 1, S, S), dtype=torch.float32, device=q.device)
@@ -82,7 +96,9 @@ def reference_attention(q, k, v, bias=None, pad_mask=None, causal=False):
     probs = torch.softmax(logits + total_bias, dim=-1)
     row_ok = (total_bias > NEG / 2).any(dim=-1, keepdim=True)
     probs = probs * row_ok.to(probs.dtype)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    if q.dtype != torch.float32:
+        probs = probs.to(q.dtype)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
     return ctx.to(q.dtype)
 
 
@@ -122,9 +138,9 @@ def flash_forward_plain(q, k, v, bias=None, pad_mask=None, causal=False
     """Plain PyTorch K5: the online softmax over key tiles of ``TILE``.
 
     q, k, v (B, S, H, Dh); bias f32 (1|B, 1|H, S, S) or None; pad_mask (B, S)
-    bool or None. Returns ``(out (B, S, H, Dh) f32, lse (B·H, S) f32)``. The
-    kernel's key columns beyond S hold 2·NEG and add exact zeros; here they
-    do not exist."""
+    bool or None. Returns ``(out (B, S, H, Dh) in q's type, lse (B·H, S)
+    f32)``. The kernel's key columns beyond S hold 2·NEG and add exact zeros;
+    here they do not exist."""
     B, S, H, Dh = q.shape
     scale = Dh ** -0.5
     qh, kh, vh = _heads_first(q), _heads_first(k), _heads_first(v)
@@ -148,7 +164,7 @@ def flash_forward_plain(q, k, v, bias=None, pad_mask=None, causal=False
     denom = torch.where(s > 0, s, 1.0)
     out = torch.where(row_ok[..., None], acc / denom[..., None], 0.0)
     lse = torch.where(row_ok, m + torch.log(denom), LSE_MASKED)
-    return out.permute(0, 2, 1, 3).contiguous(), lse.reshape(B * H, S)
+    return out.permute(0, 2, 1, 3).to(q.dtype).contiguous(), lse.reshape(B * H, S)
 
 
 def _bwd_tile(qh, kh, vh, doh, lse, delta, r0, r1, k0, k1, scale, causal, pad_add, bias):
@@ -168,8 +184,9 @@ def _bwd_plain_inputs(q, k, v, d_out, lse, delta, bias, pad_mask):
             None if bias is None else bias.float())
 
 
-def _from_heads_first(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 1, 3).contiguous()
+def _from_heads_first(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, S, Dh) f32 → (B, S, H, Dh) in ``dtype``, rounded once."""
+    return x.permute(0, 2, 1, 3).to(dtype).contiguous()
 
 
 def _bwd_plain_key_major(q, k, v, d_out, lse, delta, bias, pad_mask, causal, with_dq: bool):
@@ -191,9 +208,9 @@ def _bwd_plain_key_major(q, k, v, d_out, lse, delta, bias, pad_mask, causal, wit
         dk[:, :, k0:k1] = (ds.transpose(-1, -2) @ qh[:, :, r0:]) * scale
         if with_dq:
             dq[:, :, r0:] += ds @ kh[:, :, k0:k1]
-    dk, dv = _from_heads_first(dk), _from_heads_first(dv)
+    dk, dv = _from_heads_first(dk, q.dtype), _from_heads_first(dv, q.dtype)
     if with_dq:
-        return _from_heads_first(dq * scale), dk, dv
+        return _from_heads_first(dq * scale, q.dtype), dk, dv
     return dk, dv
 
 
@@ -223,20 +240,20 @@ def flash_bwd_dq_plain(q, k, v, d_out, lse, delta, bias=None, pad_mask=None, cau
             _, ds = _bwd_tile(qh, kh, vh, doh, lse, delta, r0, r1, k0, k1, scale, causal,
                               pad_add, bias)
             dq[:, :, r0:r1] += ds @ kh[:, :, k0:k1]
-    return _from_heads_first(dq * scale)
+    return _from_heads_first(dq * scale, q.dtype)
 
 
 def row_delta(d_out: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """delta = rowsum(dO ∘ O) from the f32 dO and the forward's O, laid out
-    as the lse: (B·H, S)."""
+    """delta = rowsum(dO ∘ O) in f32 from dO and the forward's O (either
+    upcast), laid out as the lse: (B·H, S)."""
     B, S, H, _ = out.shape
     return (d_out.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(B * H, S).contiguous()
 
 
 def flash_backward_plain(q, k, v, bias, pad_mask, causal, out, lse, d_out, fused: bool = True
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch backward → ``(dq, dk, dv)``, each (B, S, H, Dh) f32:
-    the arithmetic of K6a with ``fused`` and of K6b + K6c without. The two
+    """Plain PyTorch backward → ``(dq, dk, dv)``, each (B, S, H, Dh) in q's
+    type: the arithmetic of K6a with ``fused`` and of K6b + K6c without. The two
     differ in the order of dq's sum only."""
     delta = row_delta(d_out, out)
     if fused:
@@ -258,17 +275,25 @@ _ARGTYPES = {
 }
 
 
-def _entry(name: str):
-    """``(library, C function)`` of a kernel, the function typed."""
+# the library suffix of each stored type's form of the kernels
+_FORMS = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def _entry(name: str, dtype: torch.dtype):
+    """``(library, C function)`` of a kernel's form for ``dtype``, the
+    function typed."""
     from .build import load
 
     source, argtypes = _ARGTYPES[name]
+    source += _FORMS[dtype]
     lib = load(source)
     fn = getattr(lib, f"t4r_{name}")
     if fn.argtypes is None:
         fn.argtypes, fn.restype = argtypes, _I
         if lib.t4r_flash_tile_rows() != TILE:
             raise RuntimeError(f"{source}: the kernels' tile is not {TILE} rows")
+        if lib.t4r_flash_elem_bytes() != dtype.itemsize:
+            raise RuntimeError(f"{source}: not the form for {dtype}")
         if name in ("flash_bwd_dq", "flash_bwd_dkv") \
                 and lib.t4r_flash_stream_max_dh() != SPLIT_STREAM_MAX_DH:
             raise RuntimeError(f"{source}: the streamed K6b and K6c are not for head dims up to "
@@ -278,9 +303,11 @@ def _entry(name: str):
 
 def _check_cuda_inputs(op: str, tensors: dict, rows: dict, bias, pad_mask):
     """Raise on what the kernels do not take; returns ``(bias strides in
-    elements, pad mask as bytes | None)``. ``tensors`` are (B, S, H, Dh) f32,
-    ``rows`` (B·H, S) f32."""
+    elements, pad mask as bytes | None)``. ``tensors`` are (B, S, H, Dh), all
+    f32 or all bf16; ``rows`` (B·H, S) and the bias f32."""
     q = tensors["q"]
+    if q.dtype not in _FORMS:
+        raise TypeError(f"{op}: q is {q.dtype}; the kernels take float32 or bfloat16")
     if q.dim() != 4:
         raise ValueError(f"{op}: q must be (B, S, H, Dh), got {tuple(q.shape)}")
     B, S, H, Dh = q.shape
@@ -298,14 +325,17 @@ def _check_cuda_inputs(op: str, tensors: dict, rows: dict, bias, pad_mask):
                              "CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be contiguous")
-        want = torch.bool if name == "pad_mask" else torch.float32
+        want = (torch.bool if name == "pad_mask" else q.dtype if name in tensors
+                else torch.float32)
         if t.dtype != want:
             raise TypeError(f"{op}: {name} is {t.dtype}, expected {want}")
+    # four values a load: float4 (16 bytes) or four bf16 (8 bytes)
+    align = 4 * q.element_size()
     for name, t in tensors.items():
         if t.shape != q.shape:
             raise ValueError(f"{op}: {name} is {tuple(t.shape)}, q {tuple(q.shape)}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{op}: {name} must be 16-byte aligned (float4 loads)")
+        if t.data_ptr() % align:
+            raise ValueError(f"{op}: {name} must be {align}-byte aligned (loads of 4 values)")
     for name, t in rows.items():
         if t.shape != (B * H, S):
             raise ValueError(f"{op}: {name} must be (B*H, S), got {tuple(t.shape)}")
@@ -327,13 +357,21 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _launch(name: str, q: torch.Tensor, args_before, args_after, causal: bool,
             extra=()) -> None:
-    """Call the C function of ``name`` on q's device and current stream."""
-    lib, fn = _entry(name)
+    """Call the C function of ``name``'s form for q's type on q's device and
+    current stream."""
+    lib, fn = _entry(name, q.dtype)
     B, S, H, Dh = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*args_before, *args_after, B, S, H, Dh, int(causal), Dh ** -0.5, *extra, stream)
     raise_on_error(lib, err, name)
+
+
+def _count(wrapper, q: torch.Tensor) -> None:
+    """One launch of ``wrapper``'s kernel, in the form for q's type."""
+    wrapper.launches += 1
+    if q.dtype == torch.bfloat16:
+        wrapper.bf16_launches += 1
 
 
 def uses_wgmma(head_dim: int) -> bool:
@@ -387,7 +425,7 @@ def _flash_fwd_cuda(q, k, v, bias, pad_mask, causal, wgmma: Optional[bool] = Non
     _launch("flash_fwd", q,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad), _ptr(bias), *strides),
             (out.data_ptr(), lse.data_ptr()), causal, (int(wgmma),))
-    flash_fwd.launches += 1
+    _count(flash_fwd, q)
     return out, lse
 
 
@@ -415,7 +453,7 @@ def _flash_bwd_fused_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal,
     _launch("flash_bwd_fused", q, args,
             (part.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr()), causal,
             (int(wgmma),))
-    flash_bwd_fused.launches += 1
+    _count(flash_bwd_fused, q)
     return dq, dk, dv
 
 
@@ -427,7 +465,7 @@ def _flash_bwd_dq_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal,
     streamed = uses_split_stream(q.shape[3]) if streamed is None else streamed
     dq = torch.empty_like(q)
     _launch("flash_bwd_dq", q, args, (dq.data_ptr(),), causal, (int(streamed),))
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, q)
     return dq
 
 
@@ -439,13 +477,13 @@ def _flash_bwd_dkv_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal,
     streamed = uses_split_stream(q.shape[3]) if streamed is None else streamed
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     _launch("flash_bwd_dkv", q, args, (dk.data_ptr(), dv.data_ptr()), causal, (int(streamed),))
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, q)
     return dk, dv
 
 
 def flash_fwd(q, k, v, bias=None, pad_mask=None, causal=False):
-    """K5: ``(out (B, S, H, Dh), lse (B·H, S))``, f32. q, k, v (B, S, H, Dh)
-    f32 contiguous; bias f32 (1|B, 1|H, S, S) or None; pad_mask (B, S) bool
+    """K5: ``(out (B, S, H, Dh) in q's type, lse (B·H, S) f32)``. q, k, v
+    (B, S, H, Dh) contiguous, all f32 or all bf16; bias f32 (1|B, 1|H, S, S) or None; pad_mask (B, S) bool
     (True = a real key) or None. CUDA tensors launch the CUDA kernel
     (``flash_fwd.launches`` counts the launches); CPU tensors run
     ``flash_forward_plain``."""
@@ -454,7 +492,7 @@ def flash_fwd(q, k, v, bias=None, pad_mask=None, causal=False):
     return _flash_fwd_cuda(q, k, v, bias, pad_mask, causal)
 
 
-flash_fwd.launches = 0
+flash_fwd.launches = flash_fwd.bf16_launches = 0
 
 
 def flash_bwd_fused(q, k, v, d_out, lse, delta, bias=None, pad_mask=None, causal=False):
@@ -467,7 +505,7 @@ def flash_bwd_fused(q, k, v, d_out, lse, delta, bias=None, pad_mask=None, causal
     return _flash_bwd_fused_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal)
 
 
-flash_bwd_fused.launches = 0
+flash_bwd_fused.launches = flash_bwd_fused.bf16_launches = 0
 
 
 def flash_bwd_dq(q, k, v, d_out, lse, delta, bias=None, pad_mask=None, causal=False):
@@ -478,7 +516,7 @@ def flash_bwd_dq(q, k, v, d_out, lse, delta, bias=None, pad_mask=None, causal=Fa
     return _flash_bwd_dq_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal)
 
 
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.bf16_launches = 0
 
 
 def flash_bwd_dkv(q, k, v, d_out, lse, delta, bias=None, pad_mask=None, causal=False):
@@ -489,13 +527,14 @@ def flash_bwd_dkv(q, k, v, d_out, lse, delta, bias=None, pad_mask=None, causal=F
     return _flash_bwd_dkv_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal)
 
 
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.bf16_launches = 0
 
 
 def flash_backward(q, k, v, bias, pad_mask, causal, out, lse, d_out):
     """``(dq, dk, dv)`` of the attention whose forward gave ``out`` and
-    ``lse``: K6a while its dq partials fit under the cap, else K6b + K6c."""
-    d_out = d_out.float().contiguous()
+    ``lse``: K6a while its dq partials fit under the cap, else K6b + K6c.
+    ``d_out`` keeps its type (q's, for the kernels)."""
+    d_out = d_out.contiguous()
     delta = row_delta(d_out, out)
     if dq_partial_bytes(q) <= BWD_DQ_PARTIAL_MAX_BYTES:
         return flash_bwd_fused(q, k, v, d_out, lse, delta, bias, pad_mask, causal)
@@ -521,7 +560,7 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, bias, pad_mask, out, lse = ctx.saved_tensors
         if bias is not None and ctx.bias_grad:
             # a learned bias: the kernels emit no bias gradient, so all four
-            # gradients come from the dense f32 function (O(S²) memory, paid
+            # gradients come from the dense function (O(S²) memory, paid
             # only when the bias carries parameters)
             with torch.enable_grad():
                 leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
@@ -541,22 +580,23 @@ def flash_attention(
     causal: bool = False,
     bias_grad: bool = False,
 ) -> torch.Tensor:
-    """Fused attention. q, k, v: (B, S, H, Dh); ``bias`` (1|B, 1|H, S, S)
-    additive (local window, relative positions); ``pad_mask`` (B, S) bool,
-    True at valid keys; ``causal`` applied inside the kernel.
+    """Fused attention. q, k, v: (B, S, H, Dh), of one type (on the card
+    float32 or bfloat16), passed to the kernels as they are; the output is in
+    that type. ``bias`` (1|B, 1|H, S, S) additive (local window, relative
+    positions); ``pad_mask`` (B, S) bool, True at valid keys; ``causal``
+    applied inside the kernel.
 
     ``bias_grad``: True when ``bias`` carries learned parameters; the backward
-    then recomputes the dense f32 attention and returns the bias gradient.
+    then recomputes the dense attention and returns the bias gradient.
     With False the fused backward runs and the bias gets no gradient, which
     is right only for a constant bias. The encoder sets the flag from its
     relative-bias configuration."""
-    qf, kf, vf = (t.float().contiguous() for t in (q, k, v))
+    q, k, v = (t.contiguous() for t in (q, k, v))
     if bias is not None:
         bias = bias.float().contiguous()
     if pad_mask is not None:
         pad_mask = pad_mask.bool().contiguous()
-    out = FlashAttention.apply(qf, kf, vf, bias, pad_mask, bool(causal), bool(bias_grad))
-    return out.to(q.dtype)
+    return FlashAttention.apply(q, k, v, bias, pad_mask, bool(causal), bool(bias_grad))
 
 
 def use_flash(seq_len: int, attn_dropout: float, training: bool) -> bool:

@@ -6,7 +6,10 @@ with ``ctypes``. Libraries land in ``transformers4rec_tpu_torch/_build/``
 (listed in ``.gitignore``), named by a hash of the source, the shared
 headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
 unchanged one is reused. Nothing is downloaded; the sources include only
-those headers and the CUDA toolkit's.
+those headers and the CUDA toolkit's. A source may also be built a second
+time with extra flags into a library of another name (``VARIANTS``): the
+attention kernels' bf16 forms are ``flash_fwd.cu`` and ``flash_bwd.cu``
+instantiated for bf16, and compile beside the f32 forms.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -27,6 +30,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+# libraries built from a source with extra flags: {name: (source stem, flags)}
+VARIANTS = {
+    "flash_fwd_bf16": ("flash_fwd", ("-DT4R_FLASH_BF16",)),
+    "flash_bwd_bf16": ("flash_bwd", ("-DT4R_FLASH_BF16",)),
+}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}  # dlopen is process-wide: so is this cache
@@ -51,22 +59,31 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC_DIR.glob("*.cu"))}
 
 
+def libraries() -> Dict[str, Tuple[Path, tuple]]:
+    """Every library: ``{name: (source, extra nvcc flags)}``, each source
+    under its own name and the ``VARIANTS``."""
+    srcs = sources()
+    libs = {name: (path, ()) for name, path in srcs.items()}
+    libs.update({name: (srcs[stem], flags) for name, (stem, flags) in VARIANTS.items()})
+    return libs
+
+
 def library_path(name: str) -> Path:
-    src = sources()[name]
+    src, flags = libraries()[name]
     headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS + flags).encode()
     ).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None, ptxas_verbose: bool = False) -> Dict[str, str]:
-    """Compile the named sources (all by default) that have no library yet,
-    one ``nvcc`` per source, all started together. Returns ``{name: compiler
-    output}`` for the sources compiled in this call; raises ``RuntimeError``
-    with the compiler's output when one fails."""
-    srcs = sources()
-    names = list(srcs) if names is None else list(names)
+    """Compile the named libraries (all by default) that are not built yet,
+    one ``nvcc`` per library, all started together. Returns ``{name:
+    compiler output}`` for the libraries compiled in this call; raises
+    ``RuntimeError`` with the compiler's output when one fails."""
+    libs = libraries()
+    names = list(libs) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
@@ -76,8 +93,9 @@ def build(names: Optional[Iterable[str]] = None, ptxas_verbose: bool = False) ->
             continue
         nvcc = nvcc or nvcc_path()
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
-               "-o", str(tmp), str(srcs[name])]
+        src, flags = libs[name]
+        cmd = [nvcc, *NVCC_FLAGS, *flags, *(["-Xptxas", "-v"] if ptxas_verbose else []),
+               "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
     logs, failed = {}, []
@@ -97,7 +115,8 @@ def build(names: Optional[Iterable[str]] = None, ptxas_verbose: bool = False) ->
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu``, built first when missing."""
+    """The library ``name`` (``csrc/<name>.cu`` or a variant), built first
+    when missing."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

@@ -19,6 +19,11 @@ PyTorch (the JAX package writes it in plain ``jnp``; no TPU kernel).
 Below ``LSH_MIN_SEQ`` positions the exact dense form of the same
 semantics (``lsh_reference``) runs instead: every bucket decision is moot
 when a query may attend everything.
+
+Types, as the JAX functions': the keys are normalised in ``qk``'s type by a
+float32 norm, the hash projects in float32, both products accumulate in
+float32 (the logits and the softmax are float32), and the output is
+rounded once to ``v``'s type.
 """
 
 from __future__ import annotations
@@ -64,14 +69,14 @@ def lsh_reference(qk: torch.Tensor, v: torch.Tensor, pad_mask: Optional[torch.Te
     ``LSH_MIN_SEQ``. Padded queries give zeros."""
     B, S, H, Dh = qk.shape
     k = _normalize_keys(qk)
-    logits = torch.einsum("bqhd,bkhd->bhqk", qk, k) * (Dh ** -0.5)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qk.float(), k.float()) * (Dh ** -0.5)
     idx = torch.arange(S, device=qk.device)
     logits = logits + torch.where(idx[None, :] == idx[:, None], SELF_PENALTY, 0.0)
     if causal:
         logits = logits + torch.where(idx[None, :] > idx[:, None], NEG, 0.0)
     if pad_mask is not None:
         logits = logits + torch.where(pad_mask[:, None, None, :], 0.0, NEG)
-    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), v)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), v.float())
     if pad_mask is not None:
         out = out * pad_mask[:, :, None, None].to(out.dtype)
     return out.to(v.dtype)
@@ -126,7 +131,7 @@ def lsh_attention(qk: torch.Tensor, v: torch.Tensor, rotations: torch.Tensor,
     kvalid = torch.cat([valid_c, valid_c.roll(1, dims=-2)], dim=-1)[..., None, :]
     qpos = pos_c[..., :, None]
 
-    logits = torch.einsum("bhrcmd,bhrcnd->bhrcmn", qs, k_ext) * (Dh ** -0.5)
+    logits = torch.einsum("bhrcmd,bhrcnd->bhrcmn", qs.float(), k_ext.float()) * (Dh ** -0.5)
     logits = logits + torch.where(qpos == kpos, SELF_PENALTY, 0.0)
     if causal:
         logits = logits + torch.where(kpos > qpos, NEG, 0.0)
@@ -134,7 +139,7 @@ def lsh_attention(qk: torch.Tensor, v: torch.Tensor, rotations: torch.Tensor,
     lse = torch.logsumexp(logits, dim=-1)  # (B, H, R, C, m)
     # a max-subtracted softmax, not exp(logits - lse): rows at the self
     # penalty's scale would lose probability mass to the subtraction
-    o = torch.einsum("bhrcmn,bhrcnd->bhrcmd", torch.softmax(logits, dim=-1), v_ext)
+    o = torch.einsum("bhrcmn,bhrcnd->bhrcmd", torch.softmax(logits, dim=-1), v_ext.float())
 
     # back to the original positions
     inv = torch.argsort(sidx, dim=-1)

@@ -83,6 +83,9 @@ class T4RecTrainingArguments:
     # log_predictions stay unpacked
     pack_eval_sessions: bool = False
     seed: int = 42
+    # read by no module, as in the JAX arguments: rematerialisation is the
+    # encoder's, TransformerConfig's remat=True (e.g. XLNetConfig.build(...,
+    # remat=True))
     gradient_checkpointing: bool = False
 
     # logging / eval / checkpointing
@@ -144,7 +147,7 @@ class T4RecTrainingArguments:
                                            "synthetic"):
             raise ValueError(f"unknown data_loader_engine {self.data_loader_engine!r}")
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for name in ("checkpoint_format", "save_async", "mesh_model_axis", "auto_vocab_parallel", "gradient_checkpointing",
+        for name in ("checkpoint_format", "save_async", "mesh_model_axis", "auto_vocab_parallel",
                      "profile_steps", "profile_dir"):
             if getattr(self, name) != defaults[name]:
                 raise NotImplementedError(
