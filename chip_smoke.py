@@ -243,6 +243,32 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     ``reference_attention`` on bf16 probabilities); Y5 the one-layer step at
     S = 4,096 in bf16 without and with remat (K6b and K6c bf16 once a step;
     step time and peak memory);
+11c. Z, training, evaluation and serving over a ('data', 'model') layout
+    of ranks (``run_mesh``): the kernels are built before any rank starts;
+    ranks are subprocesses of this script (``--mesh-rank``), each with a
+    time limit and a limit on every collective; with 4 cards or more
+    (data 2, model 2) over NCCL, with 2 or 3 (1, 2) and (2, 1) over NCCL,
+    with one the same two layouts, the two ranks sharing the card over
+    Gloo. This process runs each arm on one rank on the global batch
+    first, from the same weights, masks that are a function of each
+    batch's content and one draw of negatives (``z_patch_draws``). Z1 the
+    flagship at full width (390,001 items, 128 sessions a rank, K = 8,
+    dropout 0), once with Adafactor's plain chain and once with the
+    streamed update (K7a/K7b on the shard): three groups with a save after
+    the second, ``evaluate`` and ``predict``, a fresh trainer resumed from
+    the save; held: every step's loss, the weights after two and three
+    groups (relative Frobenius of the movements), the resumed group
+    against the unbroken one, the evaluation and top-k against one rank
+    that loads the ranks' checkpoint, the table's and its state's bytes a
+    rank (1/M of one rank's), each kernel's launches a rank (K1, K2 once a
+    step; K1 + K4 or K3 once an evaluation batch; K7a, K7b once a step of
+    the streamed arm); the ms a step of the second group beside one
+    rank's. Z2 configuration 4 at 4,000,001 items on a model axis of 2,
+    both arms (sampled softmax through the sharded row gather;
+    ``sparse_adam`` on the shards), two groups: losses, the weights at
+    probe rows and every other weight, the bytes. Z3 the trained flagship's
+    artifact through ``ShardedInferenceRunner(model_axis=2)`` and the
+    server started with ``--model-axis 2`` against ``InferenceRunner``;
 12. time K3 and K4 at the evaluation shape, K1 and K2 at the three training
     shapes (915, 8,192 and 16,384 loss rows), all four again at E = 448 (K1
     and K2 at 915 and 8,192 rows), K7a and K7b at the item table's shape
@@ -312,6 +338,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -5568,7 +5595,542 @@ def time_parquet(card: str, calls: int = 8, steps: int = 16) -> None:
                 "device_busy_share": device_ms / wall_ms, "top_kernels_ms": top}))
 
 
+# ------------------------------------------------------------------ phase Z
+# training, evaluation and serving over a ('data', 'model') layout of ranks
+Z_K = 8  # the flagship trainer's steps_per_execution: a group
+Z_GROUPS = 3  # two groups, a save, then one more: the unbroken run
+Z_ROWS = 128  # sessions a rank takes a step (the global batch: times the ranks)
+Z_EVAL_ROWS = 250  # evaluation and top-k sessions: the two stripes differ in length
+Z2_GROUPS = 2  # configuration 4: a warm-up group and a timed one
+Z_ARMS = ("chain", "streamed")  # Z1: Adafactor's plain chain, the streamed K7a/K7b
+Z2_ARMS = ("adafactor", "sparse_adam")  # Z2: sampled softmax's sharded gather, the sparse step
+Z_RANK_TIMEOUT_S = 600  # a rank's whole run
+Z_COLLECTIVE_S = 300  # any one collective
+Z_SERVER_TIMEOUT_S = 120
+# the ranks against one rank on the global batch: the same masks and
+# negatives, the sums of the all-reduces and of the sharded CE's merge in
+# another order; Adam's and Adafactor's g / sqrt(v) map a gradient near zero
+# to an update of either sign, so the movements are held as
+# tests/test_torch_trainer.py holds a trajectory
+Z_LOSS_RTOL = 1e-4
+Z_MOVE_REL = 2e-2
+Z_NOISE_ONLY = "attn.k.bias"  # a key bias: its gradient is rounding noise
+
+
+def z_config(flagship, device: str = "cuda", **model) -> dict:
+    """Phase Z's sizes: the flagship's at full width by default (``model``:
+    smaller widths, ``num_items``, ``large_items``, ``rows``, ``eval_rows``
+    and a serving ``builder`` spec, for a rehearsal on the CPU)."""
+    return {"device": device, "num_items": model.pop("num_items", flagship.NUM_ITEMS),
+            "builder": model.pop("builder", "transformers4rec_tpu_torch.flagship:build_model"),
+            "large_items": model.pop("large_items", flagship.LARGE_VOCAB_ITEMS),
+            "rows": model.pop("rows", Z_ROWS), "eval_rows": model.pop("eval_rows", Z_EVAL_ROWS),
+            "model": model}
+
+
+def z_layouts(cards: int) -> tuple:
+    """``(backend, ranks, Z1's layouts)``: with 4 cards or more (data 2,
+    model 2) over NCCL; with 2 or 3, (1, 2) and (2, 1) over NCCL; with one,
+    the same two layouts, the two ranks sharing the card over Gloo."""
+    if cards >= 4:
+        return "nccl", 4, [(2, 2)]
+    return ("nccl" if cards >= 2 else "gloo"), 2, [(1, 2), (2, 1)]
+
+
+def z_counters(vocab, fa) -> dict:
+    return {"ce_fwd": vocab.ce_fwd, "ce_bwd": vocab.ce_bwd, "ce_rank": vocab.ce_rank,
+            "rank": vocab.rank_counts, "adafactor_a": fa.adafactor_pass_a,
+            "adafactor_b": fa.adafactor_pass_b}
+
+
+def z_negatives(flagship, num_items: int) -> torch.Tensor:
+    """One draw of configuration 4's negatives, made on the CPU from a seed:
+    every process, ranks and reference, takes the same."""
+    from transformers4rec_tpu_torch.model.prediction_task import LogUniformSampler
+
+    sampler = LogUniformSampler(flagship.LARGE_VOCAB_NEGATIVES, num_items + 1, 1)
+    return sampler.sample(torch.Generator().manual_seed(11))
+
+
+def z_patch_draws(negatives: torch.Tensor):
+    """Training masks that are a function of each batch's content (a data
+    row's half of a batch masked as the whole batch is) and the one draw of
+    negatives: the ranks and the one-rank run then take the same steps.
+    Returns the function that undoes the patch."""
+    from transformers4rec_tpu_torch.masking import MaskedLanguageModeling, MaskingInfo
+    from transformers4rec_tpu_torch.model.prediction_task import LogUniformSampler
+
+    saved = (MaskedLanguageModeling.compute_masked_targets, LogUniformSampler.sample)
+    original = saved[0]
+
+    def mlm(self, item_ids, training=False, testing=False, generator=None, segment_ids=None):
+        if not training:
+            return original(self, item_ids, training, testing, generator, segment_ids)
+        pos = torch.arange(item_ids.shape[1], device=item_ids.device)[None, :]
+        non_pad = item_ids != self.padding_idx
+        mask = ((item_ids * 7 + pos * 3) % 10 < 3) & non_pad
+        targets = torch.where(mask, item_ids, torch.full_like(item_ids, self.padding_idx))
+        return MaskingInfo(targets=targets, mask=mask, input_schema=mask, pad_mask=non_pad)
+
+    MaskedLanguageModeling.compute_masked_targets = mlm
+    LogUniformSampler.sample = lambda self, generator=None, device=None: negatives.to(
+        generator.device if generator is not None else device)
+
+    def restore():
+        MaskedLanguageModeling.compute_masked_targets, LogUniformSampler.sample = saved
+
+    return restore
+
+
+def z_batches(flagship, num_items: int, rows: int, count: int, seed: int) -> list:
+    from transformers4rec_tpu_torch.data import synthetic_data
+
+    schema = flagship.schema(num_items, flagship.SEQ)
+    return [synthetic_data(schema, num_rows=rows, max_session_length=flagship.SEQ, seed=seed + t)
+            for t in range(count)]
+
+
+def z_rows(batch: dict, index: int, parts: int) -> dict:
+    """A data row's rows ``[index·n/parts, (index+1)·n/parts)`` of a batch."""
+    n = len(next(iter(batch.values())))
+    return {k: v[index * n // parts:(index + 1) * n // parts] for k, v in batch.items()}
+
+
+def z_train_groups(trainer, batches: list, groups: int, device, save=None) -> tuple:
+    """``groups`` calls of ``train()`` of one group each; ``save(g, trainer)``
+    after group g. Returns ``(loss reads, ms a step of the second group)``."""
+    a = trainer.args
+    a.logging_steps, a.max_steps = 1, Z_K
+    ms = float("nan")
+    for g in range(groups):
+        trainer._train_dataloader = batches[g * Z_K:(g + 1) * Z_K]
+        sync(device)
+        t0 = time.perf_counter()
+        trainer.train()
+        sync(device)
+        if g == 1:
+            ms = 1e3 * (time.perf_counter() - t0) / Z_K
+        if save is not None:
+            save(g, trainer)
+    return [h["loss"] for h in trainer.state.log_history if "loss" in h], ms
+
+
+def z_bytes(trainer) -> dict:
+    """This rank's bytes of the item table and of its optimizer state."""
+    table = trainer.model.heads[0].input_module.item_embedding_table()
+    if trainer._sparse is not None:
+        state = [v for v in vars(trainer._sparse.state).values() if torch.is_tensor(v) and v.dim()]
+    else:
+        state = [v for v in trainer.optimizers["table"].state[table].values()
+                 if torch.is_tensor(v) and v.dim()]
+    return {"table_rows": table.shape[0], "table_bytes": table.numel() * table.element_size(),
+            "state_bytes": sum(v.numel() * v.element_size() for v in state)}
+
+
+def z1_trainer(flagship, cfg: dict, arm: str, mesh, out_dir: str, eval_data, rows: int):
+    return flagship.build_trainer(cfg["device"], seed=0, dropout=0.0, batch=rows,
+                                  streamed_table_update=arm == "streamed", output_dir=out_dir,
+                                  eval_dataset=eval_data, mesh=mesh,
+                                  num_items=cfg["num_items"], **cfg["model"])
+
+
+def z1_rank(flagship, counters: dict, cfg: dict, arm: str, mesh, batches: list, eval_data,
+            out_dir: str) -> dict:
+    """Z1 on this rank: three groups with a save after the second (the
+    unbroken run), ``evaluate`` and ``predict``, then a fresh trainer loads
+    that save and takes the third group again. The counts are set to 0
+    just before and read just after."""
+    mine = [z_rows(b, mesh.data_index, mesh.data) for b in batches]
+    for c in counters.values():
+        c.launches = 0
+    trainer = z1_trainer(flagship, cfg, arm, mesh, out_dir, eval_data, cfg["rows"])
+
+    def save(g, t):
+        if g >= 1:
+            t.save(os.path.join(out_dir, f"checkpoint-{(g + 1) * Z_K}"))
+
+    losses, ms = z_train_groups(trainer, mine, Z_GROUPS, cfg["device"], save)
+    results = trainer.evaluate()
+    scores, ids = trainer.predict(eval_data, top_k=TOP_K)
+    again = z1_trainer(flagship, cfg, arm, mesh, out_dir, eval_data, cfg["rows"])
+    again.load(os.path.join(out_dir, f"checkpoint-{2 * Z_K}"))
+    again.args.max_steps = Z_K
+    again._train_dataloader = mine[2 * Z_K:]
+    again.train()
+    again.save(os.path.join(out_dir, "resumed"))
+    sync(cfg["device"])
+    return {"losses": losses, "ms_per_step": ms, "eval": eval_metrics(results),
+            "scores": scores.tolist(), "ids": ids.tolist(),
+            "launches": {k: c.launches for k, c in counters.items()}, **z_bytes(trainer),
+            "data_index": mesh.data_index, "model_index": mesh.model_index}
+
+
+def z2_trainer(flagship, cfg: dict, arm: str, mesh, rows: int):
+    return flagship.build_large_vocab_trainer(cfg["device"], seed=0, dropout=0.0, batch=rows,
+                                              embedding_optimizer=arm, mesh=mesh,
+                                              num_items=cfg["large_items"], **cfg["model"])
+
+
+def z2_probe(trainer, probe: torch.Tensor, lo: int = 0) -> dict:
+    """The item table's rows at the ``probe`` ids this rank holds (their
+    global ids), and the other weights when ``lo`` is 0."""
+    table = trainer.model.heads[0].input_module.item_embedding_table().detach()
+    rel = probe - lo
+    own = (rel >= 0) & (rel < table.shape[0])
+    out = {"ids": probe[own].cpu(), "rows": table[rel[own].to(table.device)].float().cpu()}
+    if lo == 0:
+        # copies: on the CPU .cpu() would alias the live weights
+        out["dense"] = {k: v.detach().to("cpu", torch.float32, copy=True)
+                        for k, v in trainer.model.state_dict().items()
+                        if not k.endswith("tables.item_id")}
+    return out
+
+
+def z2_rank(flagship, cfg: dict, arm: str, mesh, batches: list, probe, out_file: str) -> dict:
+    """Z2 on this rank: configuration 4's arm over the model axis, two
+    groups; this rank's rows at the probe ids go to ``out_file``."""
+    trainer = z2_trainer(flagship, cfg, arm, mesh, cfg["rows"])
+    mine = [z_rows(b, mesh.data_index, mesh.data) for b in batches]
+    losses, ms = z_train_groups(trainer, mine, Z2_GROUPS, cfg["device"])
+    lo = mesh.model_index * trainer.model.heads[0].input_module.item_embedding_table().shape[0]
+    if mesh.data_index == 0:
+        torch.save(z2_probe(trainer, probe, lo), out_file)
+    return {"losses": losses, "ms_per_step": ms, **z_bytes(trainer)}
+
+
+def z_data(flagship, cfg: dict, world: int) -> dict:
+    """Every global batch of phase Z, made alike in every process."""
+    rows = cfg["rows"] * world
+    z1 = z_batches(flagship, cfg["num_items"], rows, Z_GROUPS * Z_K, 700)
+    z2 = z_batches(flagship, cfg["large_items"], rows, Z2_GROUPS * Z_K, 900)
+    ids = np.unique(np.concatenate([z2[0]["item_id"].reshape(-1),
+                                    np.random.default_rng(12).integers(1, cfg["large_items"],
+                                                                       2048)]))
+    return {"z1": z1, "z2": z2, "probe": torch.from_numpy(ids[ids > 0]),
+            "eval": z_batches(flagship, cfg["num_items"], cfg["eval_rows"], 1, 800)[0]}
+
+
+def mesh_rank(argv: list) -> None:
+    """One rank of phase Z: ``chip_smoke.py --mesh-rank RANK WORLD PORT
+    BACKEND OUT_DIR CONFIG_JSON``. Every collective has a time limit; a rank
+    that fails ends with a non-zero code and its traceback."""
+    import datetime
+
+    import torch.distributed as dist
+
+    rank, world, port = (int(a) for a in argv[:3])
+    backend, out_dir, cfg = argv[3], argv[4], json.loads(argv[5])
+    import_port()
+    from transformers4rec_tpu_torch import flagship
+    from transformers4rec_tpu_torch.ops import fused_adafactor as fa
+    from transformers4rec_tpu_torch.ops import vocab
+    from transformers4rec_tpu_torch.parallel import make_mesh
+
+    if cfg["device"] == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=Z_COLLECTIVE_S))
+    try:
+        cards = torch.cuda.device_count() if cfg["device"] == "cuda" else 1
+        layouts = z_layouts(cards)[2]
+        z_patch_draws(z_negatives(flagship, cfg["large_items"]))
+        data = z_data(flagship, cfg, world)
+        counters = z_counters(vocab, fa)
+        records = {}
+        for layout in layouts:
+            mesh = make_mesh(*layout)
+            for arm in Z_ARMS:
+                name = f"z1_{layout[0]}x{layout[1]}_{arm}"
+                records[name] = z1_rank(flagship, counters, cfg, arm, mesh, data["z1"],
+                                        data["eval"], os.path.join(out_dir, name))
+        mesh = make_mesh(world // 2, 2)
+        for arm in Z2_ARMS:
+            name = f"z2_{mesh.data}x{mesh.model}_{arm}"
+            records[name] = z2_rank(flagship, cfg, arm, mesh, data["z2"], data["probe"],
+                                    os.path.join(out_dir, f"{name}_rank{rank}.pt"))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(records, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def z_env() -> dict:
+    """The environment of phase Z's processes: this checkout first on the
+    path."""
+    path = os.environ.get("PYTHONPATH")
+    return {**os.environ, "PYTHONPATH": HERE + (os.pathsep + path if path else "")}
+
+
+def z_start_ranks(world: int, backend: str, out_dir: str, cfg: dict) -> list:
+    port = free_port()
+    env = z_env()
+    return [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--mesh-rank", str(r), str(world),
+         str(port), backend, out_dir, json.dumps(cfg)],
+        cwd=HERE, env=env, stdout=open(os.path.join(out_dir, f"rank{r}.log"), "w"),
+        stderr=subprocess.STDOUT) for r in range(world)]
+
+
+def z_wait(procs: list, out_dir: str) -> None:
+    """Every rank within its time limit with code 0, else the phase fails
+    with the ranks' output; no rank outlives the call."""
+    deadline = time.perf_counter() + Z_RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * len(procs):
+        logs = "".join(f"\n--- rank {r} (exit {c}):\n" + open(
+            os.path.join(out_dir, f"rank{r}.log")).read()[-4000:] for r, c in enumerate(codes))
+        fail(f"phase Z: the ranks ended with {codes}{logs}")
+
+
+def z_state(path: str) -> dict:
+    doc = torch.load(os.path.join(path, "trainer.pt"), map_location="cpu", weights_only=False)
+    return doc["model"]
+
+
+def z_check_moved(what: str, got: dict, want: dict, before: dict, rel: float) -> list:
+    """``[largest movement difference over the parameters (movement_rel),
+    its parameter]``; the difference must stay within ``rel``."""
+    worst, where = 0.0, None
+    for k, b in before.items():
+        if Z_NOISE_ONLY in k or not b.is_floating_point():
+            continue
+        if torch.equal(want[k].float(), b.float()):
+            if not torch.equal(got[k].float(), b.float()):
+                fail(f"{what}: {k} moved where the one-rank run's did not")
+            continue
+        err = movement_rel(got[k].float(), want[k].float(), b.float())
+        if err > worst:
+            worst, where = err, k
+    if worst > rel:
+        fail(f"{what}: the weights' movements differ by {worst} (relative, {where}), "
+             f"above {rel}")
+    return [worst, where]
+
+
+def z_check_losses(what: str, got: list, want: list) -> float:
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{what}: losses {got} against {want}")
+    err = float(np.max(np.abs(got - want) / np.abs(want)))
+    if err > Z_LOSS_RTOL:
+        fail(f"{what}: losses differ by {err} (relative), above {Z_LOSS_RTOL}")
+    return err
+
+
+def run_mesh(flagship, vocab, fa, card: str, cfg=None) -> dict:
+    """Phase Z: the trainer, the sparse step and the server over a layout of
+    ranks, each multi-rank run against the same run on one rank (this
+    process) on the global batch, from the same weights with the same masks
+    and negatives (``z_patch_draws``). Z1 the flagship at full width, Z2
+    configuration 4 at 4,000,001 items on a model axis of 2, Z3 the
+    flagship's artifact split over two shards in one process and behind the
+    server's ``--model-axis 2``. Returns the ranks' launches and the
+    timings."""
+    from transformers4rec_tpu_torch.serving import InferenceRunner, ShardedInferenceRunner
+    from transformers4rec_tpu_torch.serving import export_model
+    from transformers4rec_tpu_torch.serving.server import load_builder
+
+    cfg = cfg or z_config(flagship)
+    dev = cfg["device"]
+    cards = torch.cuda.device_count() if dev == "cuda" else 1
+    backend, world, layouts = z_layouts(cards)
+    print(f"[mesh] backend {backend}, {world} ranks on {cards} card(s), "
+          f"{world / min(cards, world):g} rank(s) a card; {card}", flush=True)
+    data = z_data(flagship, cfg, world)
+    out = {"launches": {k: 0 for k in z_counters(vocab, fa)}, "z1": {}, "z2": {}}
+    tmp = tempfile.mkdtemp(prefix="t4r_mesh_")
+    try:
+        # ---- the one-rank runs on the global batch
+        restore = z_patch_draws(z_negatives(flagship, cfg["large_items"]))
+        ref = {}
+        try:
+            for arm in Z_ARMS:
+                t = z1_trainer(flagship, cfg, arm, None, tmp, data["eval"], cfg["rows"] * world)
+                states = {"init": {k: v.detach().to("cpu", copy=True)
+                                   for k, v in t.model.state_dict().items()}}
+
+                def keep(g, trainer):
+                    states[g] = {k: v.detach().to("cpu", copy=True)
+                                 for k, v in trainer.model.state_dict().items()}
+
+                losses, ms = z_train_groups(t, data["z1"], Z_GROUPS, dev, keep)
+                ref[arm] = {"losses": losses, "ms_per_step": ms, "states": states, **z_bytes(t)}
+                del t
+            for arm in Z2_ARMS:
+                t = z2_trainer(flagship, cfg, arm, None, cfg["rows"] * world)
+                init = z2_probe(t, data["probe"])
+                losses, ms = z_train_groups(t, data["z2"], Z2_GROUPS, dev)
+                ref[arm] = {"losses": losses, "ms_per_step": ms, "init": init,
+                            "after": z2_probe(t, data["probe"]), **z_bytes(t)}
+                del t
+        finally:
+            restore()
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+        # ---- the ranks
+        t0 = time.perf_counter()
+        procs = z_start_ranks(world, backend, tmp, cfg)
+        z_wait(procs, tmp)
+        print(f"[mesh] {world} ranks ran Z1 and Z2 in {time.perf_counter() - t0:.1f} s")
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(world)]
+        for r in ranks:
+            for rec in r.values():
+                for k, c in rec.get("launches", {}).items():
+                    out["launches"][k] += c
+
+        # ---- Z1: each layout and arm against the one-rank run
+        one = None
+        for layout in layouts:
+            M = layout[1]
+            for arm in Z_ARMS:
+                name = f"z1_{layout[0]}x{layout[1]}_{arm}"
+                recs = [r[name] for r in ranks]
+                want = ref[arm]
+                loss_err = max(z_check_losses(f"{name} rank {i}", rec["losses"], want["losses"])
+                               for i, rec in enumerate(recs))
+                d = os.path.join(tmp, name)
+                move = {g: z_check_moved(f"{name} after {g} groups", z_state(
+                    os.path.join(d, f"checkpoint-{g * Z_K}")), want["states"][g - 1],
+                    want["states"]["init"], Z_MOVE_REL) for g in (2, 3)}
+                unbroken, before = z_state(os.path.join(d, f"checkpoint-{3 * Z_K}")), z_state(
+                    os.path.join(d, f"checkpoint-{2 * Z_K}"))
+                move["resumed"] = z_check_moved(f"{name} resumed", z_state(
+                    os.path.join(d, "resumed")), unbroken, before, Z_MOVE_REL)
+                # the same checkpoint on one rank: evaluation and top-k of the same weights
+                one = z1_trainer(flagship, cfg, arm, None, tmp, data["eval"], cfg["rows"] * world)
+                one.load(os.path.join(d, f"checkpoint-{3 * Z_K}"))
+                one_eval = eval_metrics(one.evaluate())
+                one_s, one_i = one.predict(data["eval"], top_k=TOP_K)
+                for i, rec in enumerate(recs):
+                    check_evaluate(rec["eval"], one_eval, cfg["eval_rows"], loss_rtol=1e-5)
+                    check_topk(rec["scores"], rec["ids"], one_s, one_i, cfg["num_items"] + 1,
+                               f"{name} rank {i} top-k")
+                    if rec["table_bytes"] * M != want["table_bytes"] \
+                            or rec["state_bytes"] * M != want["state_bytes"]:
+                        fail(f"{name} rank {i}: the table and its state take "
+                             f"{rec['table_bytes']} and {rec['state_bytes']} bytes, not 1/{M} "
+                             f"of {want['table_bytes']} and {want['state_bytes']}")
+                    if dev == "cuda":
+                        evals = {"ce_fwd": M > 1, "rank": M > 1, "ce_rank": M == 1}
+                        steps = (Z_GROUPS + 1) * Z_K
+                        expect_launches(f"{name} rank {i}", rec["launches"],
+                                        ce_fwd=steps + evals["ce_fwd"], ce_bwd=steps,
+                                        rank=int(evals["rank"]), ce_rank=int(evals["ce_rank"]),
+                                        **({"adafactor_a": steps, "adafactor_b": steps}
+                                           if arm == "streamed" else {}))
+                del one
+                out["z1"][name] = {
+                    "ms_per_step": [rec["ms_per_step"] for rec in recs],
+                    "one_rank_ms_per_step": want["ms_per_step"],
+                    "table_bytes_per_rank": recs[0]["table_bytes"],
+                    "state_bytes_per_rank": recs[0]["state_bytes"],
+                    "one_rank_table_bytes": want["table_bytes"],
+                    "one_rank_state_bytes": want["state_bytes"],
+                    "launches_per_rank": [rec["launches"] for rec in recs],
+                    "loss_max_rel_err": loss_err, "movement_max_rel_err": move}
+                print(f"[mesh-z1] {name} on {card}: {json.dumps(out['z1'][name])}", flush=True)
+
+        # ---- Z2: configuration 4 over the model axis
+        m2 = world // 2
+        for arm in Z2_ARMS:
+            name = f"z2_{m2}x2_{arm}"
+            recs, want = [r[name] for r in ranks], ref[arm]
+            loss_err = max(z_check_losses(f"{name} rank {i}", rec["losses"], want["losses"])
+                           for i, rec in enumerate(recs))
+            parts = [torch.load(os.path.join(tmp, f"{name}_rank{r}.pt"), weights_only=False)
+                     for r in range(2)]
+            got = {"rows": torch.cat([p["rows"] for p in parts]), **parts[0]["dense"]}
+            order = torch.argsort(torch.cat([p["ids"] for p in parts]))
+            got["rows"] = got["rows"][order]
+            before = {"rows": want["init"]["rows"], **want["init"]["dense"]}
+            after = {"rows": want["after"]["rows"], **want["after"]["dense"]}
+            move = z_check_moved(name, got, after, before, Z_MOVE_REL)
+            for i, rec in enumerate(recs):
+                if rec["table_bytes"] * 2 != want["table_bytes"] \
+                        or rec["state_bytes"] * 2 != want["state_bytes"]:
+                    fail(f"{name} rank {i}: {rec} against one rank's {want['table_bytes']} "
+                         f"and {want['state_bytes']} bytes")
+            out["z2"][name] = {"ms_per_step": [rec["ms_per_step"] for rec in recs],
+                               "one_rank_ms_per_step": want["ms_per_step"],
+                               "table_bytes_per_rank": recs[0]["table_bytes"],
+                               "state_bytes_per_rank": recs[0]["state_bytes"],
+                               "one_rank_table_bytes": want["table_bytes"],
+                               "one_rank_state_bytes": want["state_bytes"],
+                               "loss_max_rel_err": loss_err, "movement_max_rel_err": move}
+            print(f"[mesh-z2] {name} on {card}: {json.dumps(out['z2'][name])}", flush=True)
+
+        # ---- Z3: the flagship's artifact split over two shards in one process
+        builder = load_builder(cfg["builder"])
+        model = builder(dev)
+        model.load_state_dict(ref["chain"]["states"][Z_GROUPS - 1])
+        example = z_rows(data["eval"], 0, cfg["eval_rows"])
+        art = export_model(model, example, os.path.join(tmp, "artifact"), top_k=TOP_K)
+        del model
+        whole = InferenceRunner(art, builder, device=dev)
+        split = ShardedInferenceRunner(art, builder, model_axis=2, device=dev)
+        if not split.sharded:
+            fail("Z3: ShardedInferenceRunner(model_axis=2) kept the item table whole")
+        want_s, want_i = whole.predict(data["eval"])
+        got_s, got_i = split.predict(data["eval"])
+        check_topk(got_s, got_i, want_s, want_i, cfg["num_items"] + 1, "Z3 sharded runner")
+        requests = serve_requests(flagship, cfg["num_items"], flagship.SEQ, 4)
+        port = free_port()
+        server = subprocess.Popen(
+            [sys.executable, "-m", "transformers4rec_tpu_torch.serving.server", "--artifact", art,
+             "--model-builder", cfg["builder"],
+             "--model-axis", "2", "--device", dev, "--port", str(port), "--host", "127.0.0.1"],
+            cwd=HERE, env=z_env(), stdout=open(os.path.join(tmp, "server.log"), "w"),
+            stderr=subprocess.STDOUT)
+        try:
+            deadline = time.perf_counter() + Z_SERVER_TIMEOUT_S
+            while True:
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/v2/health",
+                                                timeout=5) as r:
+                        r.read()
+                    break
+                except OSError:
+                    if server.poll() is not None or time.perf_counter() > deadline:
+                        fail("Z3: the server with --model-axis 2 did not come up:\n"
+                             + open(os.path.join(tmp, "server.log")).read()[-3000:])
+                    time.sleep(0.5)
+            for n, req in enumerate(requests):
+                ans = post(f"http://127.0.0.1:{port}/v2/predict", {"inputs": req})
+                s, i = whole.predict(req)
+                check_topk(ans["item_id_scores"], ans["item_ids"], s, i, cfg["num_items"] + 1,
+                           f"Z3 server request {n}")
+        finally:
+            server.terminate()
+            try:
+                server.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server.wait()
+        print(f"[mesh-z3] ShardedInferenceRunner(model_axis=2) and the server with "
+              f"--model-axis 2 gave InferenceRunner's top-{TOP_K} on {cfg['eval_rows']} "
+              f"sessions and {len(requests)} requests", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(sys.argv[2:])
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs an NVIDIA GPU")
     import_port()
@@ -5869,6 +6431,11 @@ def main() -> None:
     compute_dtype = run_compute_dtype(flagship, vocab, attention, card)
     torch.cuda.empty_cache()
 
+    # ---- main path Z: training, evaluation and serving over a layout of ranks
+    mark("main path Z")
+    mesh = run_mesh(flagship, vocab, fa, card)
+    torch.cuda.empty_cache()
+
     # ---- timing at the evaluation, the training and the table's shape
     mark("timing at the evaluation, the training and the table's shape")
     timing = {"ce_rank": time_ce_rank(vocab, EVAL_ROWS, table_rows, vocab_size),
@@ -6091,6 +6658,9 @@ def main() -> None:
                           + large["launches"][name] + multi["launches"][name]
                           + packing["launches"][name] + reformer_rnn["launches"][name]
                           + sparse["launches"][name] + accumulation["launches"][name])
+    # phase Z: every rank's launches on its main path
+    for name, n in mesh["launches"].items():
+        launches[name] += n
     errors = {"ce_rank": max(c["lse_max_abs_err"] for c in checks),
               "ce_fwd": max(c["lse_max_abs_err"] for c in train_checks),
               "ce_bwd": max(c[g]["max_abs_err"] for c in train_checks for g in ("dx", "dW")),

@@ -292,9 +292,13 @@ def test_the_negatives_come_from_the_step_generator():
 
 
 def test_sampled_softmax_over_a_group_says_it_is_not_ported():
-    with pytest.raises(NotImplementedError, match="sampled softmax over a vocab-parallel"):
-        NextItemPredictionTask(weight_tying=True, sampled_softmax=True,
-                               vocab_parallel_group=object())
+    """Sampled softmax over a vocab-parallel group is ported (its rows come
+    from ``sharded_embedding_lookup``; the multi-rank runs are in
+    ``test_torch_data_parallel.py``): the task takes a group; an untied
+    output still needs the tied table."""
+    task = NextItemPredictionTask(weight_tying=True, sampled_softmax=True,
+                                  vocab_parallel_group=object())
+    assert task.sampled_softmax and task.vocab_parallel_group is not None
     with pytest.raises(NotImplementedError, match="needs the tied item table"):
         NextItemPredictionTask(weight_tying=False, vocab_parallel_group=object())
 

@@ -529,8 +529,9 @@ def test_a_group_of_one_rank_in_this_process_shards_nothing_away(tmp_path):
         with torch.inference_mode():
             want_s, want_i = plain(tb, top_k=TOP_K)
             got_s, got_i = sharded(tb, top_k=TOP_K)
-            with pytest.raises(NotImplementedError, match="top-k only"):
-                sharded(tb)
+            # without a top-k: the full scores, gathered in the shards' order
+            np.testing.assert_allclose(sharded(tb, top_k=None).numpy(),
+                                       plain(tb, top_k=None).numpy(), rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(got_s.numpy(), want_s.numpy(), rtol=1e-5, atol=1e-6)
         np.testing.assert_array_equal(got_i.numpy(), want_i.numpy())
     finally:

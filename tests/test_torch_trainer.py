@@ -279,8 +279,14 @@ def test_trainer_evaluates_through_the_model_and_resets_its_schedule(tmp_path):
     assert trainer._opt_step == 0 and not trainer.optimizers["table"].state
     scores, ids = trainer.predict(data, top_k=5)
     assert scores.shape == ids.shape == (2 * ROWS, 5)
-    with pytest.raises(NotImplementedError):
-        ttr.Trainer(trainer.model, trainer.args, device="cpu", mesh=object())
+    # a layout of one rank is what the trainer makes without a world; a model
+    # axis needs a world of that many ranks (test_torch_data_parallel.py)
+    from transformers4rec_tpu_torch.parallel import make_mesh
+
+    one = ttr.Trainer(trainer.model, trainer.args, device="cpu", mesh=make_mesh())
+    assert one.mesh.shape == {"data": 1, "model": 1} and one.is_main
+    with pytest.raises(ValueError, match="mesh 0x2 != 1 ranks"):
+        make_mesh(model=2)
     # a path goes to the Parquet loader, which reads the file
     with pytest.raises(FileNotFoundError):
         ttr.Trainer(trainer.model, trainer.args, schema=trainer.schema,
@@ -310,11 +316,10 @@ def test_head_from_body_configures_copies_and_sets_the_budget():
     # an explicit budget wins, and a budget of 1 keeps every row
     assert NextItemPredictionTask(weight_tying=True, loss_budget=0.5)._budget_rows(100) == 50
     assert NextItemPredictionTask(weight_tying=True, loss_budget=1.0)._budget_rows(100) is None
-    # sampled softmax builds; over a vocab-parallel group it is not ported
+    # sampled softmax builds, over a vocab-parallel group too
     assert NextItemPredictionTask(weight_tying=True, sampled_softmax=True).sampled_softmax
-    with pytest.raises(NotImplementedError):
-        NextItemPredictionTask(weight_tying=True, sampled_softmax=True,
-                               vocab_parallel_group=object())
+    assert NextItemPredictionTask(weight_tying=True, sampled_softmax=True,
+                                  vocab_parallel_group=object()).sampled_softmax
 
 
 def test_budgeted_rows_keep_every_target_first():

@@ -362,11 +362,13 @@ def test_arguments_keep_the_jax_defaults_and_refuse_what_is_not_ported():
               "gradient_checkpointing", "profile_steps", "profile_dir"):
         assert getattr(got, f) == getattr(want, f), f
     for field, value in (("checkpoint_format", "msgpack"), ("checkpoint_format", "orbax"),
-                         ("save_async", True), ("mesh_model_axis", 2),
-                         ("auto_vocab_parallel", False),
+                         ("save_async", True),
                          ("profile_steps", "1,2"), ("profile_dir", "p")):
         with pytest.raises(NotImplementedError, match=field):
             T4RecTrainingArguments(**{field: value})
+    # the mesh's fields are ported (parallel.mesh, the trainer's layout)
+    assert T4RecTrainingArguments(mesh_model_axis=2).mesh_model_axis == 2
+    assert not T4RecTrainingArguments(auto_vocab_parallel=False).auto_vocab_parallel
     # read by no module in either package: rematerialisation is the encoder's
     assert T4RecTrainingArguments(gradient_checkpointing=True).gradient_checkpointing
     with pytest.raises(ValueError, match="data_loader_engine"):

@@ -22,13 +22,16 @@ A table may be held as a shard: after ``shard_table(name, group)`` the
 module keeps rows ``[rank·V_l, (rank+1)·V_l)`` of that table and looks ids up
 through ``parallel.sharded_embedding_lookup`` (a masked local gather and one
 sum over the process group). The JAX package leaves that to its compiler's
-partitioner; here it is explicit.
+partitioner; here it is explicit. After ``split_table(name, devices)`` a
+process holds all the shards of a table itself, one a device, for serving:
+the table leaves the parameters, ``item_embedding_table()`` returns the
+list of shards and lookups sum their masked gathers without a group.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -157,6 +160,8 @@ class EmbeddingFeatures(TabularBlock):
             )
         # name -> process group, for the tables of which this module holds a shard
         self.table_groups: Dict[str, object] = {}
+        # name -> every shard of a table split inside this process (serving)
+        self.table_shards: Dict[str, List[torch.Tensor]] = {}
 
     @classmethod
     def from_schema(
@@ -199,8 +204,22 @@ class EmbeddingFeatures(TabularBlock):
         self.tables[name] = nn.Parameter(local.clone())
         self.table_groups[name] = group
 
+    def split_table(self, name: str, devices: Sequence) -> None:
+        """Hold table ``name`` as ``len(devices)`` row shards in this
+        process, shard i on ``devices[i]``; the table leaves the module's
+        parameters. The rows must divide by the number of shards."""
+        if name in self.table_groups or name in self.table_shards:
+            raise ValueError(f"table {name!r} is sharded already")
+        table = self.tables[name].detach()
+        n = len(devices)
+        self.table_shards[name] = [shard_table(table, i, n).to(dev, copy=True)
+                                   for i, dev in enumerate(devices)]
+        del self.tables[name]
+
     def _init_weights(self, generator: torch.Generator) -> None:
         for name, fc in self.feature_configs.items():
+            if name in self.table_shards:
+                continue
             init = fc.table.initializer or _default_initializer()
             table = self.tables[name]
             with torch.no_grad():
@@ -216,10 +235,14 @@ class EmbeddingFeatures(TabularBlock):
                 else:
                     init(table, generator)
 
-    def item_embedding_table(self) -> torch.Tensor:
-        """The item-id table — read by NextItemPredictionTask for weight tying."""
+    def item_embedding_table(self):
+        """The item-id table — read by NextItemPredictionTask for weight
+        tying: this rank's shard of a table sharded over a group, the list
+        of shards of one split inside this process."""
         if self.item_id is None:
             raise ValueError("No item_id feature in this embedding module")
+        if self.item_id in self.table_shards:
+            return self.table_shards[self.item_id]
         return self.tables[self.item_id]
 
     def lookup(self, name: str, ids: torch.Tensor, item_rows=None) -> torch.Tensor:
@@ -231,6 +254,8 @@ class EmbeddingFeatures(TabularBlock):
             emb = item_rows.lookup(ids)
         elif name in self.table_groups:
             emb = sharded_embedding_lookup(self.tables[name], ids, self.table_groups[name])
+        elif name in self.table_shards:
+            emb = sharded_embedding_lookup(self.table_shards[name], ids, None)
         else:
             emb = F.embedding(ids, self.tables[name])
         if self.mask_padding:

@@ -64,7 +64,9 @@ window's bias.
 
 ``build_trainer(pack_sessions=True, pack_eval_sessions=True)`` packs the
 training and evaluation loaders' sessions several to a row
-(``data.packing``). ``build_trainer(embedding_table_dtype="bf16")`` and
+(``data.packing``). Every trainer builder takes ``mesh=`` (a
+``parallel.mesh.make_mesh`` layout of ranks); ``batch`` is then per rank.
+``build_trainer(embedding_table_dtype="bf16")`` and
 ``build_large_vocab_trainer(embedding_table_dtype="bf16")`` store the
 tables as bf16 (the training arguments' field, as the JAX trainer's).
 """
@@ -190,7 +192,8 @@ def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=N
                   output_dir: str = "./t4rec_output", streamed_table_update: bool = False,
                   scheme: str = "mlm", batch=None, pack_sessions: bool = False,
                   pack_eval_sessions: bool = False, gradient_accumulation_steps: int = 1,
-                  embedding_table_dtype: Optional[str] = None, **model_kwargs) -> Trainer:
+                  embedding_table_dtype: Optional[str] = None, mesh=None,
+                  **model_kwargs) -> Trainer:
     """A ``Trainer`` over the flagship model with the benchmark's optimizer
     settings, on ``device`` (CUDA unless ``"cpu"``). Without a
     ``train_dataset`` it trains, evaluates and predicts on synthetic
@@ -227,7 +230,8 @@ def build_trainer(device=None, seed: int = 0, train_dataset=None, eval_dataset=N
         def table_optimizer(tables, schedule):
             return FusedAdafactor(tables, lr=schedule, use_pallas=True, moment_dtype=None)
     return Trainer(model, args, schema=data_schema, train_dataset=train_dataset,
-                   eval_dataset=eval_dataset, device=device, table_optimizer=table_optimizer)
+                   eval_dataset=eval_dataset, device=device, table_optimizer=table_optimizer,
+                   mesh=mesh)
 
 
 def build_large_vocab_model(device=None, num_items: int = LARGE_VOCAB_ITEMS,
@@ -275,7 +279,8 @@ def build_multitask_model(device=None, d_model: int = MULTITASK_D_MODEL,
 
 
 def _bench_trainer(model: Model, data_schema, device, seed: int, train_dataset,
-                   eval_dataset, output_dir: str, batch: int, **arg_kwargs) -> Trainer:
+                   eval_dataset, output_dir: str, batch: int, mesh=None,
+                   **arg_kwargs) -> Trainer:
     """A ``Trainer`` as the JAX benchmark's ``_make_trainer`` sets one up: a
     learning rate of 1e-3, batches of ``batch``, sessions of 20, the
     arguments' other defaults (``arg_kwargs`` set others, as the benchmark's
@@ -288,13 +293,13 @@ def _bench_trainer(model: Model, data_schema, device, seed: int, train_dataset,
         **arg_kwargs,
     )
     return Trainer(model, args, schema=data_schema, train_dataset=train_dataset,
-                   eval_dataset=eval_dataset, device=device)
+                   eval_dataset=eval_dataset, device=device, mesh=mesh)
 
 
 def build_large_vocab_trainer(device=None, seed: int = 0, train_dataset=None,
                               eval_dataset=None, output_dir: str = "./t4rec_output",
                               batch: int = BATCH, embedding_optimizer: str = "adafactor",
-                              embedding_table_dtype: Optional[str] = None,
+                              embedding_table_dtype: Optional[str] = None, mesh=None,
                               **model_kwargs) -> Trainer:
     """Configuration 4: its ``adafactor`` arm, or with
     ``embedding_optimizer="sparse_adam"`` its other (``"sparse_adafactor"``
@@ -303,15 +308,16 @@ def build_large_vocab_trainer(device=None, seed: int = 0, train_dataset=None,
     model = build_large_vocab_model(device, seed=seed, **model_kwargs)
     data_schema = schema(model_kwargs.get("num_items", LARGE_VOCAB_ITEMS), SEQ)
     return _bench_trainer(model, data_schema, device, seed, train_dataset, eval_dataset,
-                          output_dir, batch, embedding_optimizer=embedding_optimizer,
+                          output_dir, batch, mesh=mesh,
+                          embedding_optimizer=embedding_optimizer,
                           embedding_table_dtype=embedding_table_dtype)
 
 
 def build_multitask_trainer(device=None, seed: int = 0, train_dataset=None,
                             eval_dataset=None, output_dir: str = "./t4rec_output",
-                            batch: int = BATCH, **model_kwargs) -> Trainer:
+                            batch: int = BATCH, mesh=None, **model_kwargs) -> Trainer:
     """Configuration 5; the loaders read the whole music-streaming schema,
     targets included. ``model_kwargs`` go to ``build_multitask_model``."""
     model = build_multitask_model(device, seed=seed, **model_kwargs)
     return _bench_trainer(model, music_streaming_testing_data.schema, device, seed,
-                          train_dataset, eval_dataset, output_dir, batch)
+                          train_dataset, eval_dataset, output_dir, batch, mesh=mesh)

@@ -83,18 +83,42 @@ def merge_loss_state(state: Dict[str, tuple], new: Dict[str, tuple]):
     return {name: (state[name][0] + s, state[name][1] + w) for name, (s, w) in new.items()}
 
 
-def combine_task_losses(model, task_means: Dict[str, float]) -> float:
-    """Recombine per-task dataset-level mean losses with the head and task
-    weights ``Model.forward`` applies per batch."""
+def task_loss_coefficients(model) -> Dict[str, float]:
+    """Each task's weight in the loss ``Model.forward`` returns: its head's
+    weight over the heads' sum times its own over its head's tasks' sum."""
     heads = list(model.heads)
     hw = list(model.head_weights or [1.0] * len(heads))
-    total = 0.0
+    coefs = {}
     for w_h, head in zip(hw, heads):
         tasks = list(head.tasks)
         tw = list(head.task_weights or [1.0] * len(tasks))
-        h = sum(w_t * task_means.get(t.task_name, 0.0) for w_t, t in zip(tw, tasks))
-        total += w_h * h / max(sum(tw), 1e-9)
-    return float(total) / max(sum(hw), 1e-9)
+        for w_t, t in zip(tw, tasks):
+            coefs[t.task_name] = w_h / max(sum(hw), 1e-9) * w_t / max(sum(tw), 1e-9)
+    return coefs
+
+
+def combine_task_losses(model, task_means: Dict[str, float]) -> float:
+    """Recombine per-task dataset-level mean losses with the head and task
+    weights ``Model.forward`` applies per batch."""
+    return float(sum(c * task_means.get(name, 0.0)
+                     for name, c in task_loss_coefficients(model).items()))
+
+
+def _all_reduce_states(states: List[Dict[str, tuple]], group) -> List[Dict[str, tuple]]:
+    """Every (sum, count) tensor of ``states`` summed over ``group``, in one
+    collective."""
+    flat = [(i, name, j, t) for i, state in enumerate(states)
+            for name, pair in state.items() for j, t in enumerate(pair)]
+    if not flat:
+        return states
+    buf = torch.cat([t.detach().float().reshape(-1) for *_, t in flat])
+    torch.distributed.all_reduce(buf, group=group)
+    out = [{name: list(pair) for name, pair in state.items()} for state in states]
+    offset = 0
+    for i, name, j, t in flat:
+        out[i][name][j] = buf[offset:offset + t.numel()].view(t.shape)
+        offset += t.numel()
+    return [{name: tuple(pair) for name, pair in state.items()} for state in out]
 
 
 class Head(nn.Module):
@@ -335,11 +359,15 @@ class Model(nn.Module):
 
     def evaluate(self, dataloader, mode: str = "eval", max_steps: Optional[int] = None,
                  max_sequence_length: Optional[int] = None,
-                 compute_metrics_each_n_steps: int = 1) -> Dict[str, float]:
+                 compute_metrics_each_n_steps: int = 1,
+                 data_group=None) -> Dict[str, float]:
         """Stream batches, accumulate (sum, count) metric states on the
         device, return flattened ``{mode_/task/metric_at_k: value}`` plus
         ``{mode}_loss``. The metrics are updated on every
-        ``compute_metrics_each_n_steps``-th batch, the loss on all."""
+        ``compute_metrics_each_n_steps``-th batch, the loss on all. With a
+        ``data_group`` (data parallelism: each rank evaluates its stripe of
+        the data) the states are summed over the group once, before the
+        division."""
         from .ranking_metric import finalize_metrics, update_metric_state
 
         metric_state: Dict[str, Any] = {}
@@ -363,6 +391,9 @@ class Model(nn.Module):
                 }
                 metric_state = (update_metric_state(metric_state, metrics)
                                 if metric_state else metrics)
+        if data_group is not None:
+            loss_state, metric_state = _all_reduce_states([loss_state, metric_state],
+                                                          data_group)
         task_means = {name: float(s) / max(float(w), 1.0) for name, (s, w) in loss_state.items()}
         results = {f"{mode}_loss": combine_task_losses(self, task_means)}
         for name, val in finalize_metrics(metric_state).items():

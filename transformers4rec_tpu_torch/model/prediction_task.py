@@ -47,14 +47,21 @@ exact streaming (sum, count) pairs: ``accuracy``, ``precision`` and
 ``vocab_parallel_group`` (the counterpart of the reference's
 ``vocab_parallel_mesh``) is a ``torch.distributed`` process group over which
 the tied table's rows are split (``Model`` shards the table when it is
-built). The training loss, the evaluation and the top-k then run the
-functions of ``parallel/sharded_embedding.py``: the kernels per shard and
-O(N) numbers merged over the group. Top-k always takes ``sharded_topk``
-there, in f32 at or below N·V = 1e9 and in bf16 above.
+built, the ``Trainer`` when its mesh has a model axis). The training loss,
+the evaluation and the top-k then run the functions of
+``parallel/sharded_embedding.py``: the kernels per shard and O(N) numbers
+merged over the group. Top-k always takes ``sharded_topk`` there, in f32 at
+or below N·V = 1e9 and in bf16 above; inference without ``top_k`` returns
+the full scores, gathered over the group in the shards' order
+(``sharded_scores``). Sampled softmax gathers its label and negative rows
+through ``sharded_embedding_lookup``, its negatives drawn alike on every rank of
+the group (one generator a data row). A table split into shards inside one
+process (``serving.sharded``) comes as the list of its shards in
+``MaskingInfo.item_table`` and serves inference the same way, without a
+group.
 
-Not ported yet (raise ``NotImplementedError``): a vocab-parallel group with
-sampled softmax or with an untied output layer, and with a group the dense
-(non-fused) loss and inference without ``top_k``.
+With a group, an untied output layer and the dense (non-fused) loss and
+evaluation raise ``ValueError`` and ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -74,6 +81,8 @@ from ..ops.sparse_update import GatheredRows
 from ..ops.vocab import fused_ce_and_rank, fused_softmax_ce, fused_topk
 from ..parallel.sharded_embedding import (
     sharded_ce_and_rank,
+    sharded_embedding_lookup,
+    sharded_scores,
     sharded_softmax_ce,
     sharded_topk,
 )
@@ -300,10 +309,6 @@ class NextItemPredictionTask(nn.Module):
         vocab_parallel_group: Optional[Any] = None,
     ):
         super().__init__()
-        if vocab_parallel_group is not None and sampled_softmax:
-            raise NotImplementedError(
-                "sampled softmax over a vocab-parallel group (the sharded row gather) "
-                "is not ported yet")
         if vocab_parallel_group is not None and not weight_tying:
             raise NotImplementedError("a vocab-parallel group needs the tied item table")
         self.task_name = task_name
@@ -381,15 +386,23 @@ class NextItemPredictionTask(nn.Module):
         """The task's negative sampler: ids ``[min_id, target_dim)``."""
         return LogUniformSampler(self.max_n_samples, self.target_dim or vocab_rows, self.min_id)
 
-    def _sampled_logits(self, x2d, labels, W, generator, neg_ids=None):
+    def _sampled_logits(self, x2d, labels, W, generator, neg_ids=None, table_rows=None):
         """(N, 1 + n) logits, the positive first, for labels of 0: the rows
         of x2d scored against their label's row of W and the n negatives'.
-        ``neg_ids`` replaces the draw from ``generator``."""
-        sampler = self.make_sampler(W.shape[0])
+        ``neg_ids`` replaces the draw from ``generator``. With a group, W is
+        this rank's shard of ``table_rows`` rows and the rows come from
+        one sharded gather."""
+        sampler = self.make_sampler(table_rows or W.shape[0])
         if neg_ids is None:
             neg_ids = sampler.sample(generator, device=x2d.device)
         neg_ids = neg_ids.to(x2d.device).long()
-        return self._sampled_scores(x2d, labels, W[labels], W[neg_ids], neg_ids, sampler)
+        group = self.vocab_parallel_group
+        if group is None:
+            pos_w, neg_w = W[labels], W[neg_ids]
+        else:
+            rows = sharded_embedding_lookup(W, torch.cat([labels, neg_ids]), group)
+            pos_w, neg_w = rows[:labels.shape[0]], rows[labels.shape[0]:]
+        return self._sampled_scores(x2d, labels, pos_w, neg_w, neg_ids, sampler)
 
     def _sampled_scores(self, x2d, labels, pos_w, neg_w, neg_ids, sampler):
         """The logits of ``_sampled_logits`` from the rows already gathered:
@@ -463,14 +476,20 @@ class NextItemPredictionTask(nn.Module):
         x = self._project(hidden.float())
         temp = self.softmax_temperature or 1.0
         group = self.vocab_parallel_group
-        table_rows = W.shape[0]  # of the whole table: W is one shard of a group's
+        # the shards of a table split inside this process (serving)
+        in_process = isinstance(W, (list, tuple))
+        if in_process and (training or testing):
+            raise ValueError("a table split inside one process serves inference only")
+        # of the whole table: W is one shard of a group's
+        table_rows = sum(w.shape[0] for w in W) if in_process else W.shape[0]
         if group is not None:
             table_rows *= dist.get_world_size(group)
         # true vocab when the table carries padding rows
         vsz = self.target_dim if (self.target_dim and self.target_dim != table_rows) else None
         rows = torch.arange(x.shape[0], device=x.device)
 
-        if (training or testing) and not self.use_fused_ops and group is not None:
+        if ((training and not self.sampled_softmax) or testing) and not self.use_fused_ops \
+                and group is not None:
             raise NotImplementedError("a vocab-parallel group needs use_fused_ops")
 
         def dense_logits(h):
@@ -487,10 +506,10 @@ class NextItemPredictionTask(nn.Module):
                 r = sparse_rows
                 logits = self._sampled_scores(x.reshape(N, -1), labels, r.rows[r.pos_map],
                                               r.rows[r.neg_base:], r.neg_ids,
-                                              self.make_sampler(W.shape[0]))
+                                              self.make_sampler(table_rows))
             else:
                 logits = self._sampled_logits(x.reshape(N, -1), labels, W, generator,
-                                              neg_ids=info.neg_ids)
+                                              neg_ids=info.neg_ids, table_rows=table_rows)
             loss = cross_entropy_with_logits(
                 logits, torch.zeros_like(labels), weights=w,
                 label_smoothing=self.label_smoothing)
@@ -573,12 +592,9 @@ class NextItemPredictionTask(nn.Module):
         last_idx = (non_pad if extended else non_pad - 1).clamp(0, x.shape[1] - 1)
         xg = x[rows, last_idx]
         small = xg.shape[0] * table_rows <= _STREAMED_TOPK_MIN
-        if group is not None:
+        if group is not None or in_process:
             if top_k is None:
-                raise NotImplementedError(
-                    "a vocab-parallel group serves top-k only: the scores of a sharded "
-                    "table are not gathered"
-                )
+                return sharded_scores(xg / temp, W, group, vocab_size=vsz)
             # the local top-k per shard and a merge of the candidates; the
             # compute type is the unsharded route's choice at the same size
             return sharded_topk(xg / temp, W, top_k, group, vocab_size=vsz,

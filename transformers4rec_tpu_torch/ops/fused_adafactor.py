@@ -38,20 +38,39 @@ two together). The launches are counted in
 second-largest axis of a parameter), in plain tensor code: row and column
 means of g² feed two vectors, and the update is ``g·(−lr·scale)·rf·cf`` with
 the clip's rms taken from ``g²·rf²·cf²``.
+
+**A row shard** (``row_shards``: parameter → process group, set by the
+trainer for a table row-sharded over a model group): the moment lives on the
+shard's rows, and every sum that the update on the whole table takes over
+its rows is summed over the group: the clip's numerator (its mean over the
+whole table's elements) and, factored, the mean over the rows. The streamed
+update's pass A leaves its per-block sums in its scratch, and the step's
+coefficient is taken again from their sum over the group.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from .build import raise_on_error
 
 NEVER_FACTOR = 1 << 30
 STREAMED_MIN_ROWS = 4 * 512  # the reference's 4 blocks of 512 rows
 _BLOCKS_PER_SM = 8
+
+
+def _coef(total: torch.Tensor, numel: int, lr: float,
+          clipping_threshold: Optional[float]) -> torch.Tensor:
+    """``-lr / max(1, sqrt(total / numel) / clip)`` as a (1,) f32 tensor."""
+    scale = torch.ones(1, dtype=torch.float32, device=total.device)
+    if clipping_threshold is not None:
+        rms = torch.sqrt(total / numel)
+        scale = scale / torch.clamp_min(rms / clipping_threshold, 1.0)
+    return (-lr * scale).to(torch.float32)
 
 
 def adafactor_pass_a_plain(
@@ -61,19 +80,23 @@ def adafactor_pass_a_plain(
     lr: float,
     clipping_threshold: Optional[float],
     eps: float,
+    group=None,
+    numel: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch K7a: the new moment over ``v`` in place (rounded to
     ``v``'s type), and the step's coefficient ``-lr / max(1, rms / clip)`` as
     a (1,) f32 tensor (``-lr`` without a clip); ``rms`` is the root of the
-    mean of ``(g·rsqrt(nv))²`` over the unrounded f32 moment ``nv``."""
+    mean of ``(g·rsqrt(nv))²`` over the unrounded f32 moment ``nv``. For a
+    row shard the sum goes over ``group`` and the mean over ``numel``, the
+    whole table's elements."""
     g = g.float()
     nv = decay * v.float() + (1.0 - decay) * (g * g + eps)
     v.copy_(nv)
-    scale = torch.ones(1, dtype=torch.float32, device=v.device)
-    if clipping_threshold is not None:
-        rms = torch.sqrt(((g * torch.rsqrt(nv)) ** 2).sum() / v.numel())
-        scale = scale / torch.clamp_min(rms / clipping_threshold, 1.0)
-    return (-lr * scale).to(torch.float32)
+    total = ((g * torch.rsqrt(nv)) ** 2).sum() if clipping_threshold is not None \
+        else torch.zeros((), device=v.device)
+    if group is not None and clipping_threshold is not None:
+        dist.all_reduce(total, group=group)
+    return _coef(total, numel or v.numel(), lr, clipping_threshold)
 
 
 def adafactor_pass_b_plain(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
@@ -154,15 +177,19 @@ def adafactor_pass_a(
     lr: float,
     clipping_threshold: Optional[float] = 1.0,
     eps: float = 1e-30,
+    group=None,
+    numel: Optional[int] = None,
 ) -> torch.Tensor:
     """K7a: writes the new moment over ``v`` and returns the step's
     coefficient as a (1,) f32 tensor on the device (see
     ``adafactor_pass_a_plain``); g and v both f32 or both bf16. CUDA
     tensors launch the CUDA kernels
     (``adafactor_pass_a.launches`` counts the launches); CPU tensors run the
-    plain version."""
+    plain version. With ``group`` (a row shard) the kernel's per-block sums
+    are summed over the group and the coefficient taken from the total over
+    ``numel`` elements."""
     if v.device.type == "cpu":
-        return adafactor_pass_a_plain(g, v, decay, lr, clipping_threshold, eps)
+        return adafactor_pass_a_plain(g, v, decay, lr, clipping_threshold, eps, group, numel)
     _check_cuda_tensors("adafactor_pass_a", v, ("decay",), g=g, v=v, decay=decay)
     lib = _adafactor_lib()
     dev, n = v.device, v.numel()
@@ -178,6 +205,10 @@ def adafactor_pass_a(
                                   torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(lib, err, "adafactor_a")
     adafactor_pass_a.launches += 1
+    if group is not None and clip is not None:
+        total = part.sum()
+        dist.all_reduce(total, group=group)
+        coef = _coef(total, numel or n, lr, clip)
     return coef
 
 
@@ -216,13 +247,17 @@ def adafactor_update(
     lr: float,
     clipping_threshold: Optional[float] = 1.0,
     eps: float = 1e-30,
+    group=None,
+    numel: Optional[int] = None,
 ) -> None:
     """K7a then K7b: one Adafactor step of the table ``p`` with gradient
     ``g`` and unfactored moment ``v`` (all f32, or all bf16), in two passes,
     in place on ``v`` and ``p``. ``decay`` is an f32 scalar tensor on the same device. The mean
-    of the clip's rms goes over every element of ``p``. On CUDA tensors both
+    of the clip's rms goes over every element of ``p`` (of the whole table
+    for a row shard: ``group`` and ``numel``). On CUDA tensors both
     passes are CUDA kernels; on CPU tensors their plain versions run."""
-    adafactor_pass_b(p, g, v, adafactor_pass_a(g, v, decay, lr, clipping_threshold, eps))
+    adafactor_pass_b(p, g, v, adafactor_pass_a(g, v, decay, lr, clipping_threshold, eps,
+                                               group, numel))
 
 
 def _factored_dims(shape, min_dim_size_to_factor: int) -> Optional[Tuple[int, int]]:
@@ -263,6 +298,8 @@ class FusedAdafactor(torch.optim.Optimizer):
                         moment_dtype=moment_dtype, use_pallas=use_pallas,
                         min_dim_size_to_factor=min_dim_size_to_factor)
         super().__init__(params, defaults)
+        # parameter -> process group, for the row shards of a table
+        self.row_shards: Dict[torch.Tensor, object] = {}
 
     def _lr_at(self, step: int) -> float:
         lr = self.learning_rate
@@ -280,12 +317,21 @@ class FusedAdafactor(torch.optim.Optimizer):
                             group["moment_dtype"] or p.dtype)
 
     @staticmethod
-    def _factored_step(p, g, state, dims, decay, lr, clip, eps) -> None:
+    def _factored_step(p, g, state, dims, decay, lr, clip, eps, group=None) -> None:
         d1, d0 = dims
         sdtype = state["v_row"].dtype
         g2 = g * g
+        if group is None:
+            row_mean = g2.mean(dim=d0)
+        elif d0 != 0:
+            raise NotImplementedError("a factored row shard needs rows as its largest axis")
+        else:
+            # the mean over the whole table's rows
+            row_mean = g2.sum(dim=0)
+            dist.all_reduce(row_mean, group=group)
+            row_mean = row_mean / (g2.shape[0] * dist.get_world_size(group))
         # mean(g² + eps) == mean(g²) + eps: eps is added after the reduction
-        v_row = (decay * state["v_row"].float() + (1.0 - decay) * (g2.mean(dim=d0) + eps))
+        v_row = (decay * state["v_row"].float() + (1.0 - decay) * (row_mean + eps))
         v_col = (decay * state["v_col"].float() + (1.0 - decay) * (g2.mean(dim=d1) + eps))
         state["v_row"], state["v_col"] = v_row.to(sdtype), v_col.to(sdtype)
         reduced_d1 = d1 - 1 if d1 > d0 else d1
@@ -294,11 +340,20 @@ class FusedAdafactor(torch.optim.Optimizer):
         cf = (vc32 ** -0.5).unsqueeze(d1)
         if clip is not None:
             # the update's rms without the update: mean((g·rf·cf)²)
-            rms = torch.sqrt(torch.mean(g2 * (rf * rf) * (cf * cf)))
+            rms = torch.sqrt(FusedAdafactor._mean(g2 * (rf * rf) * (cf * cf), group))
             scale = 1.0 / torch.clamp_min(rms / clip, 1.0)
         else:
             scale = 1.0
         p.add_((g * ((-lr * scale) * rf) * cf).to(p.dtype))
+
+    @staticmethod
+    def _mean(t: torch.Tensor, group) -> torch.Tensor:
+        """The mean of ``t``, of the whole table's for a row shard."""
+        if group is None:
+            return torch.mean(t)
+        total = t.sum()
+        dist.all_reduce(total, group=group)
+        return total / (t.numel() * dist.get_world_size(group))
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -327,23 +382,28 @@ class FusedAdafactor(torch.optim.Optimizer):
                         state["v"] = torch.zeros_like(p, dtype=mdt)
                 step = state["step"]
                 group["lr"] = lr = self._lr_at(step)
+                shard_group = self.row_shards.get(p)
+                numel = p.numel() * (1 if shard_group is None
+                                     else dist.get_world_size(shard_group))
                 # float32 scalars on the device, as the reference computes them
                 decay = 1.0 - torch.full((), float(step + 1), dtype=torch.float32,
                                          device=p.device) ** -group["decay_rate"]
                 if dims is not None:
-                    self._factored_step(p, p.grad.float(), state, dims, decay, lr, clip, eps)
+                    self._factored_step(p, p.grad.float(), state, dims, decay, lr, clip, eps,
+                                        shard_group)
                 elif (group["use_pallas"] and p.dim() == 2
                         and p.shape[0] >= STREAMED_MIN_ROWS):
                     # the gradient as it is stored (f32, or a bf16 table's
                     # bf16): the kernels read it without a copy
-                    adafactor_update(p, p.grad.contiguous(), state["v"], decay, lr, clip, eps)
+                    adafactor_update(p, p.grad.contiguous(), state["v"], decay, lr, clip, eps,
+                                     shard_group, numel)
                 else:
                     g = p.grad.float()
                     new_v = (decay * state["v"].float() + (1.0 - decay) * (g * g + eps))
                     state["v"] = new_v.to(state["v"].dtype)
                     inv = torch.rsqrt(state["v"].float())
                     if clip is not None:
-                        rms = torch.sqrt(torch.mean((g * inv) ** 2))
+                        rms = torch.sqrt(self._mean((g * inv) ** 2, shard_group))
                         scale = 1.0 / torch.clamp_min(rms / clip, 1.0)
                     else:
                         scale = 1.0

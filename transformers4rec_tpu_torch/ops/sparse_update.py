@@ -14,8 +14,10 @@ Counterpart of ``transformers4rec_tpu/ops/sparse_update.py``:
   exists. ``dedupe_row_grads`` sums the gradients of repeated ids;
   ``sparse_rows_adam_update`` (lazy Adam) and ``sparse_rows_adafactor_update``
   (lazy unfactored Adafactor, its update-RMS clip over the full ``V·E``) move
-  those rows and their moments; ``sharded_rows_adam_update`` does it for one
-  shard of a row-sharded table, the shard given as a row range.
+  those rows and their moments; ``sharded_rows_adam_update`` and
+  ``sharded_rows_adafactor_update`` do it for one shard of a row-sharded
+  table, the shard given as a row range (the Adafactor clip's sum then goes
+  over the model group, its mean over the whole table).
 
 No function here reads a value back to the host, and every shape is static.
 ``dedupe_row_grads`` keeps the length N of its input: the slots past the
@@ -255,12 +257,15 @@ def sparse_rows_adafactor_update(table: torch.Tensor, state: SparseRowsAdafactor
                                  learning_rate: float, decay_rate: float = 0.8,
                                  decay_offset: int = 0,
                                  clipping_threshold: Optional[float] = 1.0, eps: float = 1e-30,
-                                 deduped: bool = False):
+                                 deduped: bool = False, group=None,
+                                 total_rows: Optional[int] = None):
     """Lazy unfactored Adafactor on the rows named by ``ids``, in place:
     the dense op's arithmetic per touched row (decay ``1 − (t + 1)^−0.8`` at
     the count t before the step, eps inside, rsqrt of the unrounded moment)
     and its update-RMS clip over the full ``V·E`` (untouched rows add 0 to
-    its numerator). The count advances after the step."""
+    its numerator). The count advances after the step. For one shard of a
+    row-sharded table, ``group`` sums the clip's numerator over the shards
+    and ``total_rows`` is the whole table's V."""
     V, E = table.shape
     count = state.count
     lr = float(learning_rate)
@@ -273,7 +278,10 @@ def sparse_rows_adafactor_update(table: torch.Tensor, state: SparseRowsAdafactor
     inv = torch.rsqrt(new_v)
     if clipping_threshold is not None:
         # padding slots carry g == 0 and add nothing to the numerator
-        rms = torch.sqrt(torch.sum((g * inv) ** 2) / (V * E))
+        num = torch.sum((g * inv) ** 2)
+        if group is not None:
+            torch.distributed.all_reduce(num, group=group)
+        rms = torch.sqrt(num / ((total_rows or V) * E))
         scale = 1.0 / torch.clamp_min(rms / clipping_threshold, 1.0)
     else:
         scale = 1.0
@@ -283,21 +291,47 @@ def sparse_rows_adafactor_update(table: torch.Tensor, state: SparseRowsAdafactor
     return table, state
 
 
+def _shard_slots(table: torch.Tensor, ids: torch.Tensor, row_grads: torch.Tensor, lo: int,
+                 rows_per_shard: int, deduped: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ids deduplicated (unless ``deduped``) and rebased into the
+    shard's rows ``[lo, lo + rows_per_shard)``; an id outside them becomes a
+    padding slot (``rows_per_shard``) with a zero gradient."""
+    if table.shape[0] != rows_per_shard:
+        raise ValueError(f"the shard holds {table.shape[0]} rows, not {rows_per_shard}")
+    if not deduped:
+        ids, row_grads = dedupe_row_grads(ids, row_grads, lo + rows_per_shard)
+    rel = ids - lo
+    own = (rel >= 0) & (rel < rows_per_shard)
+    rel = torch.where(own, rel, torch.full_like(rel, rows_per_shard))
+    return rel, torch.where(own[:, None], row_grads, torch.zeros_like(row_grads))
+
+
 @torch.no_grad()
 def sharded_rows_adam_update(table: torch.Tensor, state: SparseRowsAdamState, ids: torch.Tensor,
                              row_grads: torch.Tensor, learning_rate: float,
                              lo: int, rows_per_shard: int, b1: float = 0.9, b2: float = 0.999,
-                             eps: float = 1e-8):
+                             eps: float = 1e-8, deduped: bool = False):
     """``sparse_rows_adam_update`` on one shard of a row-sharded table: this
     shard holds rows ``[lo, lo + rows_per_shard)`` of the whole table as
     ``table`` (rows_per_shard, E). Every shard dedupes the same ids (all of
-    them), rebases them into its range and drops those outside it; no id
-    lives on two shards, so no collective is needed."""
-    if table.shape[0] != rows_per_shard:
-        raise ValueError(f"the shard holds {table.shape[0]} rows, not {rows_per_shard}")
-    uids, g = dedupe_row_grads(ids, row_grads, lo + rows_per_shard)
-    rel = uids - lo
-    rel = torch.where((rel >= 0) & (rel < rows_per_shard), rel,
-                      torch.full_like(rel, rows_per_shard))
+    them; ``deduped``: they are ``dedupe_row_grads``'s already), rebases
+    them into its range and drops those outside it; no id lives on two
+    shards, so no collective is needed."""
+    rel, g = _shard_slots(table, ids, row_grads, lo, rows_per_shard, deduped)
     return sparse_rows_adam_update(table, state, rel, g, learning_rate, b1=b1, b2=b2, eps=eps,
                                    deduped=True)
+
+
+@torch.no_grad()
+def sharded_rows_adafactor_update(table: torch.Tensor, state: SparseRowsAdafactorState,
+                                  ids: torch.Tensor, row_grads: torch.Tensor,
+                                  learning_rate: float, lo: int, rows_per_shard: int, group,
+                                  total_rows: int, deduped: bool = False, **kwargs):
+    """``sparse_rows_adafactor_update`` on one shard of a row-sharded table
+    (rows ``[lo, lo + rows_per_shard)`` of ``total_rows``), as
+    ``sharded_rows_adam_update`` moves its rows; the clip's numerator, the
+    sum over the rows each shard owns, is summed over ``group`` and its mean
+    taken over the whole table, as the update on the whole table gives."""
+    rel, g = _shard_slots(table, ids, row_grads, lo, rows_per_shard, deduped)
+    return sparse_rows_adafactor_update(table, state, rel, g, learning_rate, deduped=True,
+                                        group=group, total_rows=total_rows, **kwargs)

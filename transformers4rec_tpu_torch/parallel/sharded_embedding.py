@@ -19,8 +19,14 @@ numbers per shard; the table itself never travels:
 Each function is a local part (one shard's rows in, O(N) partials out) and
 one merge. ``group`` selects where the shards live: a process group (``W``
 is this rank's shard; the partials are gathered over the group), or ``None``
-(``W`` is the sequence of all shards, held by this one process; the
-partials are stacked). Both take the same merge.
+(``W`` is the sequence of all shards, held by this one process, each on
+its own device; the partials come back to the device of ``x`` or ``ids``
+and are stacked). Both take the same merge.
+
+``sharded_embedding_lookup`` is the sharded row gather for any ids (the
+inputs' lookup, sampled softmax's label and negative rows, the sparse
+step's touched rows) and ``sharded_scores`` gives the full (N, V) scores,
+gathered in the shards' order.
 
 Labels outside a shard's valid rows become -1 there: a raw offset could
 land on one of the shard's padding rows and pick up its masked logit.
@@ -29,9 +35,11 @@ A shard may be stored as bf16 (a bf16-stored table): the kernels take it as
 it is, its gradient comes back bf16, and the lookup's sum over the group
 adds one shard's bf16 rows to the others' zeros, exactly.
 
-The reference's ``'data'`` mesh axis (the sums of the loss's numerator and
-denominator over data-parallel replicas) is data parallelism and is not
-part of this module: every rank of the group sees the whole batch.
+Every rank of a model group sees the same rows of the batch; the
+reference's ``'data'`` axis (the loss's numerator and denominator summed
+over the data-parallel replicas before the division) is taken once for
+every task's loss by ``parallel.mesh.data_parallel_loss``, since the
+sampled, binary and regression losses need the same sums.
 """
 
 from __future__ import annotations
@@ -244,9 +252,10 @@ def sharded_topk(
     scores, ids = [], []
     for i, W_l in shards:
         v0, vsz = _local_bounds(V_l, vocab_size, i, world)
-        s, idx = fused_topk(x, W_l, k, chunk=chunk, vocab_size=vsz, compute_dtype=dtype)
-        scores.append(s)
-        ids.append(idx + v0)
+        s, idx = fused_topk(x.to(W_l.device), W_l, k, chunk=chunk, vocab_size=vsz,
+                            compute_dtype=dtype)
+        scores.append(s.to(x.device))
+        ids.append(idx.to(x.device) + v0)
     N = x.shape[0]
     s_all = _gather(scores, group).permute(1, 0, 2).reshape(N, -1)  # (N, shards·k)
     i_all = _gather(ids, group).permute(1, 0, 2).reshape(N, -1)
@@ -256,8 +265,9 @@ def sharded_topk(
 
 class _ShardedLookup(torch.autograd.Function):
     """Forward: the masked gather from the local rows, summed over the
-    shards (each id hits exactly one). Backward: the masked scatter into the
-    local rows only."""
+    shards (each id hits exactly one, so the sum is exact in any type).
+    Backward: the masked scatter into the local rows only: each row's
+    gradient goes to the shard that owns it."""
 
     @staticmethod
     def forward(ctx, ids, group, *shards):
@@ -265,10 +275,10 @@ class _ShardedLookup(torch.autograd.Function):
         V_l = local[0][1].shape[0]
         parts, saved = [], []
         for i, table in local:
-            rel = ids.long() - i * V_l
+            rel = ids.to(table.device).long() - i * V_l
             in_range = (rel >= 0) & (rel < V_l)
             safe = rel.clamp(0, V_l - 1)
-            parts.append(table[safe] * in_range[..., None].to(table.dtype))
+            parts.append((table[safe] * in_range[..., None].to(table.dtype)).to(ids.device))
             saved += [safe, in_range]
         ctx.save_for_backward(*saved)
         ctx.shapes = [t.shape for _, t in local]
@@ -280,8 +290,9 @@ class _ShardedLookup(torch.autograd.Function):
         grads = []
         for n, shape in enumerate(ctx.shapes):
             safe, in_range = saved[2 * n], saved[2 * n + 1]
-            masked = grad * in_range[..., None].to(grad.dtype)
-            g = torch.zeros(shape, dtype=grad.dtype, device=grad.device)
+            g_n = grad.to(safe.device)
+            masked = g_n * in_range[..., None].to(grad.dtype)
+            g = torch.zeros(shape, dtype=grad.dtype, device=safe.device)
             g.index_add_(0, safe.reshape(-1), masked.reshape(-1, shape[-1]))
             grads.append(g)
         return (None, None, *grads)
@@ -290,7 +301,21 @@ class _ShardedLookup(torch.autograd.Function):
 def sharded_embedding_lookup(table: Shards, ids: torch.Tensor, group) -> torch.Tensor:
     """Rows of a row-sharded ``table`` for ``ids`` (any shape, the same on
     every rank): embeddings laid out like ``ids`` plus a trailing dimension,
-    the same on every rank. One sum of ids-shape × dim activations over the
-    group; the table is never gathered. The gradient of ``table`` is that
-    of the local rows."""
+    the same on every rank. Each rank takes the rows it owns and writes
+    zeros elsewhere, and one sum of ids-shape × dim values over the group
+    fills them in (one nonzero term a row, so the sum is exact, in bf16
+    too); the table is never gathered. The gradient of each row goes to the
+    shard that owns it, and only there."""
     return _ShardedLookup.apply(ids, group, *_as_shard_args(table, group))
+
+
+@torch.no_grad()
+def sharded_scores(x: torch.Tensor, W: Shards, group,
+                   vocab_size: Optional[int] = None) -> torch.Tensor:
+    """The full f32 scores ``x @ W.T`` (N, V) of a row-sharded ``W``: each
+    shard's (N, V_l) block, gathered over the group in the shards' order
+    and cut to the true ``vocab_size``. Inference without a top-k."""
+    shards, _ = _local_shards(W, group)
+    parts = [(x.to(W_l.device).float() @ W_l.float().T).to(x.device) for _, W_l in shards]
+    scores = _gather(parts, group).permute(1, 0, 2).reshape(x.shape[0], -1)
+    return scores if vocab_size is None else scores[:, :vocab_size]

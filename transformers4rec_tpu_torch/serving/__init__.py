@@ -1,4 +1,6 @@
 from .export import InferenceRunner, export_model
 from .server import DynamicBatcher, ServingServer
+from .sharded import ShardedInferenceRunner
 
-__all__ = ["DynamicBatcher", "InferenceRunner", "ServingServer", "export_model"]
+__all__ = ["DynamicBatcher", "InferenceRunner", "ServingServer", "ShardedInferenceRunner",
+           "export_model"]

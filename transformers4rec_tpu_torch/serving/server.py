@@ -15,7 +15,9 @@ Endpoints (JSON):
 - ``GET /v2/stats`` — request/batch counters (observed dynamic batching)
 
 CLI: ``python -m transformers4rec_tpu_torch.serving.server --artifact DIR
---model-builder MODULE:FUNC [--device cuda|cpu] --port N``.
+--model-builder MODULE:FUNC [--device cuda|cpu] [--model-axis M] --port N``.
+``--model-axis M`` serves through ``ShardedInferenceRunner``: the item table
+split into M row shards over the machine's cards.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from .export import InferenceRunner
+from .sharded import ShardedInferenceRunner
 
 
 def _next_pow2(n: int) -> int:
@@ -142,11 +145,15 @@ class ServingServer:
         max_delay_ms: float = 5.0,
         runner: Optional[InferenceRunner] = None,
         device=None,
+        model_axis: Optional[int] = None,
     ):
         if runner is None:
             if model_builder is None:
                 raise ValueError("ServingServer needs a model_builder or a runner")
-            runner = InferenceRunner(artifact_path, model_builder, device=device)
+            runner = (InferenceRunner(artifact_path, model_builder, device=device)
+                      if model_axis is None else
+                      ShardedInferenceRunner(artifact_path, model_builder,
+                                             model_axis=model_axis, device=device))
         self.runner = runner
         self.batcher = DynamicBatcher(runner, max_batch_size=max_batch_size,
                                       max_delay_ms=max_delay_ms)
@@ -248,6 +255,9 @@ def main(argv=None):
         "artifact was exported from (model code ships beside the weights)",
     )
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--model-axis", type=int, default=None,
+                    help="split the item table into this many row shards over the cards "
+                    "(ShardedInferenceRunner)")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max-batch-size", type=int, default=64)
@@ -256,7 +266,7 @@ def main(argv=None):
     server = ServingServer(
         args.artifact, load_builder(args.model_builder), host=args.host, port=args.port,
         max_batch_size=args.max_batch_size, max_delay_ms=args.max_delay_ms,
-        device=args.device,
+        device=args.device, model_axis=args.model_axis,
     )
     print(f"serving {args.artifact} on {server.host}:{server.port} "
           f"(max_batch={args.max_batch_size}, delay={args.max_delay_ms}ms)")

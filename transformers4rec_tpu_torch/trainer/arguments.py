@@ -2,11 +2,16 @@
 
 Counterpart of ``transformers4rec_tpu/trainer/arguments.py``: the same field
 names with the same defaults. Options whose code is not ported yet raise
-``NotImplementedError`` when set away from their defaults: bf16-stored
-tables (on the arms that would store them), the msgpack and orbax
-checkpoint formats and asynchronous saves, a device mesh and its
-vocab-parallel wiring, gradient checkpointing and the profiler window. The
-checkpoint is one ``torch.save`` file (``checkpoint_format="torch"``).
+``NotImplementedError`` when set away from their defaults: the msgpack and
+orbax checkpoint formats and asynchronous saves, and the profiler window.
+The checkpoint is one ``torch.save`` file (``checkpoint_format="torch"``).
+
+``mesh_model_axis`` is the model axis of the trainer's ('data', 'model')
+layout of ranks (``parallel.mesh``), and ``auto_vocab_parallel`` row-shards
+the tied item table over it. As in the JAX package the batch sizes are per
+device: ``train_batch_size`` is ``per_device_train_batch_size`` times the
+ranks of the world, and each data row of the layout loads
+``train_batch_size // data`` rows of it.
 
 ``embedding_optimizer`` takes the reference's five arms: ``"adafactor"``,
 ``"dense"``, ``"lazy_adam"`` (``ops.sparse_update.LazyAdam`` on every
@@ -20,6 +25,8 @@ from __future__ import annotations
 import dataclasses
 import warnings
 from typing import Optional
+
+import torch.distributed as dist
 
 # embedding_optimizer values that route the item table through the sparse
 # step (trainer/sparse_embedding_step.py)
@@ -147,8 +154,9 @@ class T4RecTrainingArguments:
                                            "synthetic"):
             raise ValueError(f"unknown data_loader_engine {self.data_loader_engine!r}")
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for name in ("checkpoint_format", "save_async", "mesh_model_axis", "auto_vocab_parallel",
-                     "profile_steps", "profile_dir"):
+        if self.mesh_model_axis < 1:
+            raise ValueError(f"mesh_model_axis must be at least 1 (got {self.mesh_model_axis})")
+        for name in ("checkpoint_format", "save_async", "profile_steps", "profile_dir"):
             if getattr(self, name) != defaults[name]:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported yet "
@@ -157,8 +165,13 @@ class T4RecTrainingArguments:
 
     @property
     def train_batch_size(self) -> int:
-        return self.per_device_train_batch_size
+        """The global batch: per device times the ranks of the world."""
+        return self.per_device_train_batch_size * _world_size()
 
     @property
     def eval_batch_size(self) -> int:
-        return self.per_device_eval_batch_size
+        return self.per_device_eval_batch_size * _world_size()
+
+
+def _world_size() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1

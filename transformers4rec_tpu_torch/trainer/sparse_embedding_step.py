@@ -35,6 +35,15 @@ K) is deduplicated once, clipped jointly with the dense mean, and applied
 once: ``optax.MultiSteps(chain(clip, tx))`` semantics without a (V, E)
 buffer.
 
+Over ranks (the JAX step does the same on global arrays): with the item
+table row-sharded over its task's model group, the rows are gathered
+through ``parallel.sharded_embedding_lookup`` (each rank its own rows, one sum
+over the group), so every rank of the group holds them all and takes the
+same gradients; each rank then moves only the rows it owns
+(``sharded_rows_adam_update``, ``sharded_rows_adafactor_update``). Over a
+data axis the ids and row gradients of every data row are gathered before
+the deduplication, so the sums of repeated ids cover the global batch.
+
 Refused (``validate_sparse_config``): more than one head, or other than one
 ``NextItemPredictionTask``; a full softmax or an untied output (the loss
 would touch every row); a ``pre`` other than ``StochasticSwapNoise``; a
@@ -52,11 +61,15 @@ import torch
 from ..ops.sparse_update import (
     GatheredRows,
     dedupe_row_grads,
+    sharded_rows_adafactor_update,
+    sharded_rows_adam_update,
     sparse_rows_adafactor_init,
     sparse_rows_adafactor_update,
     sparse_rows_adam_init,
     sparse_rows_adam_update,
 )
+from ..parallel.mesh import all_gather_rows, all_reduce_, group_size
+from ..parallel.sharded_embedding import sharded_embedding_lookup
 from .arguments import SPARSE_OPTIMIZERS
 
 __all__ = ["SPARSE_OPTIMIZERS", "SparseAccumState", "SparseEmbeddingStep", "gather_rows",
@@ -137,13 +150,14 @@ def _pos_map(masking_name: str, B: int, S: int, device=None) -> torch.Tensor:
 
 
 def gather_rows(table: torch.Tensor, item_ids: torch.Tensor, neg_ids: torch.Tensor,
-                masking_name: str, aug_inputs=None, item_col: str = "item_id"
-                ) -> Tuple[GatheredRows, torch.Tensor]:
+                masking_name: str, aug_inputs=None, item_col: str = "item_id",
+                group=None) -> Tuple[GatheredRows, torch.Tensor]:
     """The rows of ``table`` a step touches, gathered under
     ``torch.no_grad()`` into a leaf that takes the gradient, and their ids:
     the lookup ids (the swapped ones of ``aug_inputs[item_col]`` under swap
     noise), the label ids (a region of their own under swap noise) and the
-    negatives."""
+    negatives. With ``group``, ``table`` is this rank's shard of a table
+    row-sharded over it."""
     B, S = item_ids.shape
     n_in = B * S
     ids_in = item_ids.reshape(-1).long()
@@ -156,7 +170,8 @@ def gather_rows(table: torch.Tensor, item_ids: torch.Tensor, neg_ids: torch.Tens
         parts, neg_base = [ids_in, neg_ids], n_in
     all_ids = torch.cat(parts)
     with torch.no_grad():
-        rows = table.index_select(0, all_ids)
+        rows = (table.index_select(0, all_ids) if group is None
+                else sharded_embedding_lookup(table, all_ids, group))
     rows.requires_grad_()
     return GatheredRows(rows=rows, n_in=n_in, pos_map=pos_map, neg_base=neg_base,
                         neg_ids=neg_ids, aug_inputs=aug_inputs), all_ids
@@ -170,12 +185,18 @@ class SparseEmbeddingStep:
     (``SparseRowsAdamState`` or ``SparseRowsAdafactorState``), ``accum`` the
     accumulation carry; the trainer checkpoints both."""
 
-    def __init__(self, model, args, rule: str = "adam"):
+    def __init__(self, model, args, rule: str = "adam", data_group=None):
         task, self.item_col, self.masking_name = validate_sparse_config(model)
         self.model, self.args, self.rule = model, args, rule
         im = model.heads[0].input_module
         self.table = im.item_embedding_table()
-        self.sampler = task.make_sampler(self.table.shape[0])
+        # the model group over which the table is row-sharded, and the data group
+        self.group, self.data_group = task.vocab_parallel_group, data_group
+        self.shards = group_size(self.group)
+        self.rows = self.table.shape[0] * self.shards  # of the whole table
+        self.lo = (0 if self.group is None
+                   else torch.distributed.get_rank(self.group) * self.table.shape[0])
+        self.sampler = task.make_sampler(self.rows)
         self.swap_noise = getattr(im, im._pre_names[0]) if im._pre_names else None
         self.padding_idx = im.padding_idx
         mdt = torch.bfloat16 if args.embedding_moment_dtype == "bf16" else None
@@ -198,47 +219,74 @@ class SparseEmbeddingStep:
             aug = self.swap_noise(batch, training=True, pad_mask=item_ids != self.padding_idx,
                                   generator=generator)
         rows, ids = gather_rows(self.table, item_ids, neg, self.masking_name,
-                                aug_inputs=aug, item_col=self.item_col)
+                                aug_inputs=aug, item_col=self.item_col, group=self.group)
         return rows, ids, {**batch, "__neg_ids__": neg}
 
     def forward_backward(self, batch, generator: Optional[torch.Generator],
-                         masking_info=None) -> torch.Tensor:
+                         masking_info=None, backward=None) -> torch.Tensor:
         """One micro-step: the loss (a device scalar) after its backward;
         the dense gradients add to ``.grad``, the rows' are kept. A ready
         ``masking_info`` replaces the mask's draw, and its ``neg_ids`` the
-        negatives' (two devices given one draw)."""
+        negatives' (two devices given one draw). ``backward(loss, outputs)``
+        (the trainer's, which takes the data axis's global mean) replaces
+        ``loss.backward()`` and returns the loss's value."""
         neg = None if masking_info is None else masking_info.neg_ids
         rows, ids, batch2 = self.gather(batch, generator, neg_ids=neg)
-        loss, _ = self.model(batch2, targets=batch2, training=True, compute_metrics=False,
-                             generator=generator, masking_info=masking_info, sparse_rows=rows)
-        loss.backward()
+        loss, outs = self.model(batch2, targets=batch2, training=True, compute_metrics=False,
+                                generator=generator, masking_info=masking_info,
+                                sparse_rows=rows)
+        if backward is None:
+            loss.backward()
+            loss = loss.detach()
+        else:
+            loss = backward(loss, outs)
         self.accum.ids.append(ids)
         self.accum.grads.append(rows.rows.grad.float())
-        return loss.detach()
+        return loss
 
-    def apply(self, dense_grads: Sequence[torch.Tensor], lr: float, k: int = 1) -> None:
+    def apply(self, dense_grads: Sequence[torch.Tensor], lr: float, k: int = 1,
+              sharded: Sequence[torch.Tensor] = (), group=None) -> None:
         """Close an update over the ``k`` buffered micro-steps: the row
-        gradients (each divided by ``k`` when ``k > 1``) deduplicated once,
-        the joint clip at ``args.max_grad_norm`` over them and the dense
-        gradients (already the mean, scaled in place), then the touched
-        rows' update at ``lr``. The buffers empty."""
+        gradients (each divided by ``k`` when ``k > 1``; every data row's,
+        over a data axis) deduplicated once, the joint clip at
+        ``args.max_grad_norm`` over them and the dense gradients (already
+        the mean, scaled in place; ``sharded`` are row shards of other
+        tables over ``group``, their squares summed over it), then the
+        touched rows' update at ``lr``. The buffers empty."""
         ids = torch.cat(self.accum.ids)
         g = torch.cat(self.accum.grads)
         if k > 1:
             g = g / k
         self.accum = sparse_accum_init()
-        uids, g_sum = dedupe_row_grads(ids, g, self.table.shape[0])
+        ids, g = all_gather_rows(ids, self.data_group), all_gather_rows(g, self.data_group)
+        uids, g_sum = dedupe_row_grads(ids, g, self.rows)
         clip = self.args.max_grad_norm
         if clip and clip > 0:
             # the global norm of every tensor's own norm, in a few launches
             # (one a tensor would make the host pace the step)
             grads = list(dense_grads)
-            gn = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads + [g_sum])))
+            norms = torch.stack(torch._foreach_norm(grads + [g_sum]))
+            if sharded:
+                sq = all_reduce_(torch.stack(torch._foreach_norm(list(sharded))).square().sum(),
+                                 group)
+                gn = torch.sqrt(norms.square().sum() + sq)
+                grads = grads + list(sharded)
+            else:
+                gn = torch.linalg.vector_norm(norms)
             scale = torch.clamp(clip / torch.clamp_min(gn, 1e-12), max=1.0)
             torch._foreach_mul_(grads, scale)
             g_sum = g_sum * scale
         a = self.args
-        if self.rule == "adafactor":
+        if self.group is not None:
+            if self.rule == "adafactor":
+                sharded_rows_adafactor_update(self.table.data, self.state, uids, g_sum, lr,
+                                              self.lo, self.table.shape[0], self.group,
+                                              self.rows, deduped=True)
+            else:
+                sharded_rows_adam_update(self.table.data, self.state, uids, g_sum, lr, self.lo,
+                                         self.table.shape[0], b1=a.adam_beta1, b2=a.adam_beta2,
+                                         eps=a.adam_epsilon, deduped=True)
+        elif self.rule == "adafactor":
             sparse_rows_adafactor_update(self.table.data, self.state, uids, g_sum, lr,
                                          deduped=True)
         else:

@@ -68,9 +68,40 @@ weights. ``log_json`` appends metrics to ``metrics.jsonl``, ``report_to=
 "tensorboard"`` writes them under ``runs/``. ``predict`` and
 ``log_predictions`` give the top-k; ``reset_model``, ``reset_lr_scheduler``
 and ``wipe_memory`` serve ``utils.examples_utils.fit_and_evaluate``, the
-time-window protocol. Not ported yet (raise where reached): a device mesh,
-training over a process group of more than one rank, asynchronous and
-sharded checkpoints.
+time-window protocol.
+
+**Ranks** (``parallel.mesh``). The trainer runs over a ('data', 'model')
+layout of ``torch.distributed`` ranks: ``mesh=``, else
+``make_mesh(model=args.mesh_model_axis)`` over the initialised world (one
+rank without a world). Every rank builds the same model and makes its own
+trainer; the replicas then start from rank 0's weights (a row shard from
+its data row 0 peer's), as DDP broadcasts them.
+
+- 'data': each data row's loader loads its stripe of the global batch
+  (``args.train_batch_size // data`` rows), every task's loss is the global
+  weighted mean (``mesh.data_parallel_loss``), and the gradients are summed
+  over the data group once per update, after the K-th micro-step.
+- 'model': with ``auto_vocab_parallel`` a tied item table that the sharding
+  rule takes (``mesh.shards_rows``) is replaced by this rank's rows and its
+  task gets the model group (``_maybe_auto_vocab_parallel``); other
+  categorical tables the rule takes are row-sharded for their lookups. The
+  tables' optimizer state lives on the shards (Adafactor's moment, the
+  sparse arms' and ``lazy_adam``'s per-row moments), and the clip counts
+  each shard once: the shards' squares are summed over the model group.
+- draws: each data row's generator is seeded from ``args.seed`` and its
+  data index (``DATA_SEED_STRIDE``), so the ranks of a row draw the same
+  masks, dropout, swap noise and negatives, and the rows draw apart; data
+  index 0 draws as a trainer without ranks does.
+- ``evaluate`` sums its metric and loss states over the data group once;
+  ``predict`` gathers the data rows' top-k in the dataset's order.
+- a checkpoint gathers the shards to rank 0, which writes the one file of
+  the one-rank format (and every data row's generator); loading shards it
+  again, so a checkpoint loads on any layout. Logging, ``metrics.jsonl``,
+  TensorBoard, progress bars and the checkpoints' rotation are rank 0's.
+
+Not ported (raise where reached): asynchronous and orbax checkpoints, and a
+save part-way through gradient accumulation over a data axis of more than
+one rank (its pending gradients differ between the data rows).
 """
 
 from __future__ import annotations
@@ -92,9 +123,24 @@ import torch.distributed
 from ..data.loader import InMemoryDataLoader, dataloader_registry
 from ..data.packing import pack_sessions
 from ..masking import MaskingInfo
-from ..model.base import Model, load_weights
+from ..model.base import Model, load_weights, task_loss_coefficients
+from ..model.prediction_task import NextItemPredictionTask
 from ..ops.fused_adafactor import FusedAdafactor
 from ..ops.sparse_update import LazyAdam, label_embedding_params
+from ..parallel.mesh import (
+    Mesh,
+    all_gather_rows,
+    all_reduce_,
+    all_reduce_grads_,
+    barrier,
+    broadcast_replicas_,
+    data_parallel_loss,
+    interleave_stripes,
+    make_mesh,
+    process_data_stripe,
+    shards_rows,
+    take_shard,
+)
 from ..schema import Schema
 from ..utils.device import resolve_device
 from .arguments import SPARSE_OPTIMIZERS, T4RecTrainingArguments
@@ -104,6 +150,8 @@ from .sparse_embedding_step import SparseEmbeddingStep, validate_sparse_config
 CHECKPOINT_FILE = "trainer.pt"
 # tied item tables from this many rows on hear of the sparse arms once
 SPARSE_HINT_MIN_ROWS = 1_000_000
+# data row i's generator is seeded args.seed + 17 + DATA_SEED_STRIDE * i
+DATA_SEED_STRIDE = 1_000_003
 
 
 @dataclasses.dataclass
@@ -144,12 +192,19 @@ def cast_tables_(model: torch.nn.Module, dtype: torch.dtype) -> None:
             params[name].data = params[name].data.to(dtype)
 
 
-def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float,
+                         sharded: Iterable[torch.Tensor] = (), group=None) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place, on the device: gradients stay
     as they are when the global norm is below ``max_norm``, else become
-    ``g / norm * max_norm``. Returns the norm."""
-    grads = list(grads)
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    ``g / norm * max_norm``. Returns the norm. ``sharded`` are the gradients
+    of row shards, one part of a table on each rank of ``group``: their
+    squares are summed over the group, the others' counted once."""
+    grads, sharded = list(grads), list(sharded)
+    sq = sum((g.float() ** 2).sum() for g in grads)
+    if sharded:
+        sq = sq + all_reduce_(sum((g.float() ** 2).sum() for g in sharded), group)
+        grads = grads + sharded
+    norm = torch.sqrt(sq)
     trigger = norm < max_norm
     # dividing by 1 and multiplying by 1 leave a gradient bit-identical
     denom = torch.where(trigger, torch.ones_like(norm), norm)
@@ -171,18 +226,9 @@ class Trainer:
         train_dataloader: Optional[Iterable] = None,
         eval_dataloader: Optional[Iterable] = None,
         device=None,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
         table_optimizer=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("a device mesh (sharded training) is not ported yet")
-        for head in model.heads:
-            for task in head.tasks:
-                group = getattr(task, "vocab_parallel_group", None)
-                if group is not None and torch.distributed.get_world_size(group) > 1:
-                    raise NotImplementedError(
-                        "training over a process group of more than one rank is not ported yet"
-                    )
         if args.load_best_model_at_end:
             # a save records the evaluation of the same step: saves must land
             # on evaluation boundaries
@@ -197,9 +243,19 @@ class Trainer:
                                  "save lands on an eval boundary")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        self.args = args
+        self.mesh = mesh if mesh is not None else make_mesh(model=args.mesh_model_axis)
+        self._check_groups()
+        if args.auto_vocab_parallel:
+            self._maybe_auto_vocab_parallel()
+        self._shard_tables()
+        # name -> parameter of every table row-sharded over the model group
+        self._row_shards = self._find_row_shards()
+        self._shard_ids = {id(p) for p in self._row_shards.values()}
+        broadcast_replicas_(self.model, self.mesh, list(self._row_shards.values()))
         if args.embedding_table_dtype == "bf16":
             cast_tables_(self.model, torch.bfloat16)
-        self.args = args
+        self._task_coefs = task_loss_coefficients(self.model)
         self.schema = schema
         self.train_dataset = train_dataset
         self.eval_dataset = eval_dataset
@@ -224,9 +280,97 @@ class Trainer:
         self._sparse: Optional[SparseEmbeddingStep] = None
         self._sparse_hint_emitted = False
         self._last_num_steps: Optional[int] = None
-        self._generator = torch.Generator(device=self.device).manual_seed(args.seed + 17)
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            self._generator_seed(self.mesh.data_index))
         # (loader_epoch, batches_in_epoch) staged by load() for the next train()
         self._resume_position: Optional[tuple] = None
+
+    # ----------------------------------------------------------------- ranks
+    def _generator_seed(self, data_index: int) -> int:
+        return self.args.seed + 17 + DATA_SEED_STRIDE * data_index
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0 of the layout: the one that logs and writes."""
+        return self.mesh.rank == int(self.mesh.ranks[0, 0])
+
+    def _check_groups(self) -> None:
+        """A task's own vocab-parallel group of more than one rank must be
+        the layout's model group (the same ranks)."""
+        row = self.mesh.ranks[self.mesh.data_index].tolist()
+        for head in self.model.heads:
+            for task in head.tasks:
+                group = getattr(task, "vocab_parallel_group", None)
+                if group is not None and torch.distributed.get_world_size(group) > 1 \
+                        and torch.distributed.get_process_group_ranks(group) != row:
+                    raise ValueError(
+                        f"task {task.task_name!r} is vocab-parallel over ranks "
+                        f"{torch.distributed.get_process_group_ranks(group)}, but this rank's "
+                        f"model group in {self.mesh} is {row}")
+
+    @staticmethod
+    def _tied_item(head) -> Optional[str]:
+        """The item column of ``head`` when a task ties its output to it."""
+        tied = any(isinstance(t, NextItemPredictionTask) and t.weight_tying for t in head.tasks)
+        return getattr(head.input_module, "item_id", None) if tied else None
+
+    def _maybe_auto_vocab_parallel(self) -> None:
+        """Vocab-parallel engagement (the JAX trainer's): with a model axis
+        above 1, each tied next-item task whose item table the sharding
+        rule takes gets the model group, and the table is replaced by this
+        rank's rows (the lookup and the head then read the same shard).
+        Sampled-softmax tasks engage too: their evaluation and top-k are
+        full-catalogue. A task that has a group keeps it; one without
+        ``use_fused_ops`` warns and keeps the table whole (the dense logits
+        need every row)."""
+        M = self.mesh.model
+        if M <= 1:
+            return
+        for head in self.model.heads:
+            item = self._tied_item(head)
+            cat = getattr(head.input_module, "categorical_module", None)
+            if item is None or cat is None or item not in cat.tables:
+                continue
+            rows = cat.tables[item].shape[0]
+            for task in head.tasks:
+                if not (isinstance(task, NextItemPredictionTask) and task.weight_tying
+                        and shards_rows(rows, M)) or task.vocab_parallel_group is not None:
+                    continue
+                if not task.use_fused_ops:
+                    warnings.warn(
+                        f"mesh_model_axis={M} would row-shard the tied item table ({rows} rows) "
+                        "but use_fused_ops=False keeps the dense-logits CE path, which needs "
+                        "every row: the table stays whole on every rank; set "
+                        "use_fused_ops=True to engage the vocab-parallel kernels")
+                    continue
+                if item not in cat.table_groups:
+                    cat.shard_table(item, self.mesh.model_group)
+                task.vocab_parallel_group = self.mesh.model_group
+
+    def _shard_tables(self) -> None:
+        """Row-shard every other categorical table the rule takes (JAX
+        ``param_shardings``); a tied item table is sharded only with its
+        task (``_maybe_auto_vocab_parallel``)."""
+        if self.mesh.model <= 1:
+            return
+        for head in self.model.heads:
+            cat = getattr(head.input_module, "categorical_module", None)
+            if cat is None or not hasattr(cat, "table_groups"):
+                continue
+            tied = self._tied_item(head)
+            for name in list(cat.tables):
+                if name == tied or name in cat.table_groups:
+                    continue
+                if shards_rows(cat.tables[name].shape[0], self.mesh.model):
+                    cat.shard_table(name, self.mesh.model_group)
+
+    def _find_row_shards(self) -> Dict[str, torch.nn.Parameter]:
+        shards = {}
+        for module in self.model.modules():
+            for name, group in getattr(module, "table_groups", {}).items():
+                if torch.distributed.get_world_size(group) > 1:
+                    shards[id(module.tables[name])] = module.tables[name]
+        return {n: p for n, p in self.model.named_parameters() if id(p) in shards}
 
     # ------------------------------------------------------------ dataloaders
     def _make_loader(self, dataset, batch_size: int, shuffle: bool, is_train: bool = False,
@@ -239,6 +383,9 @@ class Trainer:
         row."""
         a = self.args
         drop_last = a.dataloader_drop_last if is_train else False
+        # batch_size is global: each data row loads its stripe
+        stripe, stripes = process_data_stripe(self.mesh)
+        batch_size //= stripes
         if isinstance(dataset, dict):
             if pack:
                 if self.schema is None:
@@ -247,7 +394,8 @@ class Trainer:
                     dataset, max_len=a.max_sequence_length or self.schema.sequence_length(20),
                     item_id_col=self.schema.item_id_column_name)
             return InMemoryDataLoader(dataset, batch_size=batch_size, shuffle=shuffle,
-                                      drop_last=drop_last, seed=a.seed)
+                                      drop_last=drop_last, seed=a.seed, global_rank=stripe,
+                                      global_size=stripes)
         engine = a.data_loader_engine
         if self.schema is None:
             raise ValueError("Trainer: needs a schema to read or synthesize sessions")
@@ -257,7 +405,8 @@ class Trainer:
         cls = dataloader_registry.parse("parquet" if engine == "merlin" else engine)
         return cls.from_schema(self.schema, dataset, batch_size=batch_size,
                                max_sequence_length=a.max_sequence_length, shuffle=shuffle,
-                               drop_last=drop_last, seed=a.seed, pack=pack, **kwargs)
+                               drop_last=drop_last, seed=a.seed, pack=pack,
+                               global_rank=stripe, global_size=stripes, **kwargs)
 
     def get_train_dataloader(self):
         if self._train_dataloader is not None:
@@ -313,7 +462,8 @@ class Trainer:
         if a.embedding_optimizer in SPARSE_OPTIMIZERS:
             self._sparse = SparseEmbeddingStep(
                 self.model, a,
-                rule="adafactor" if a.embedding_optimizer == "sparse_adafactor" else "adam")
+                rule="adafactor" if a.embedding_optimizer == "sparse_adafactor" else "adam",
+                data_group=self.mesh.data_group)
         self._reset_accumulation()
         named = [(n, p) for n, p in self.model.named_parameters()
                  if p.requires_grad and (self._sparse is None or p is not self._sparse.table)]
@@ -339,6 +489,10 @@ class Trainer:
                 tables, lr=self._schedule,
                 moment_dtype=torch.bfloat16 if a.embedding_moment_dtype == "bf16" else None,
             )
+        for opt in self.optimizers.values():
+            if isinstance(opt, FusedAdafactor):
+                # its clip and factored means go over the whole table
+                opt.row_shards = {p: self.mesh.model_group for p in self._row_shards.values()}
         return self.optimizers
 
     def _reset_accumulation(self) -> None:
@@ -378,6 +532,8 @@ class Trainer:
         if len(heads) != 1 or heads[0].input_module.item_id is None:
             return
         rows = heads[0].input_module.item_embedding_table().shape[0]
+        if self._row_shards:
+            rows *= self.mesh.model
         if rows < SPARSE_HINT_MIN_ROWS:
             return
         try:
@@ -405,32 +561,47 @@ class Trainer:
         if self._mini_step == 0:
             self.model.zero_grad(set_to_none=True)
         if self._sparse is not None:
-            loss = self._sparse.forward_backward(batch, self._generator, masking_info)
+            loss = self._sparse.forward_backward(batch, self._generator, masking_info,
+                                                 backward=self._backward)
         else:
-            loss, _ = self.model(batch, targets=batch, training=True, compute_metrics=False,
-                                 generator=self._generator, masking_info=masking_info)
-            loss.backward()
-            loss = loss.detach()
+            loss, outs = self.model(batch, targets=batch, training=True, compute_metrics=False,
+                                    generator=self._generator, masking_info=masking_info)
+            loss = self._backward(loss, outs)
         self._mini_step += 1
         if self._mini_step < k:
             return loss
         self._mini_step = 0
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        params = [p for p in self.model.parameters() if p.grad is not None]
+        # the data replicas' gradients, summed once per update
+        all_reduce_grads_(params, self.mesh.data_group)
+        grads = [p.grad for p in params if id(p) not in self._shard_ids]
+        sharded = [p.grad for p in params if id(p) in self._shard_ids]
         if k > 1:
-            for g in grads:
+            for g in grads + sharded:
                 g.div_(k)
         lr = self._schedule(self._opt_step)
         if self._sparse is not None:
             # the clip there covers the dense gradients and the rows' jointly
-            self._sparse.apply(grads, lr, k)
+            self._sparse.apply(grads, lr, k, sharded=sharded, group=self.mesh.model_group)
         elif a.max_grad_norm and a.max_grad_norm > 0:
-            clip_by_global_norm_(grads, a.max_grad_norm)
+            clip_by_global_norm_(grads, a.max_grad_norm, sharded, self.mesh.model_group)
         for group in self.optimizers["dense"].param_groups:
             group["lr"] = lr
         for opt in self.optimizers.values():
             opt.step()
         self._opt_step += 1
         return loss
+
+    def _backward(self, loss: torch.Tensor, outs) -> torch.Tensor:
+        """Backpropagate one micro-step's loss; returns its value as a device
+        scalar. Over a data axis the objective is this rank's share of the
+        global weighted mean, and the value that mean."""
+        if self.mesh.data_group is None:
+            loss.backward()
+            return loss.detach()
+        objective, value = data_parallel_loss(self._task_coefs, outs, self.mesh.data_group)
+        objective.backward()
+        return value
 
     # ------------------------------------------------------------------ train
     def train(self, resume_from_checkpoint=None) -> Dict[str, float]:
@@ -459,7 +630,7 @@ class Trainer:
         K = max(int(a.steps_per_execution), 1)
         self.state.past_global_steps = self.state.global_step
         pbar = None
-        if not a.disable_tqdm:
+        if not a.disable_tqdm and self.is_main:
             try:
                 from tqdm.auto import tqdm
 
@@ -493,7 +664,7 @@ class Trainer:
                 step_in_run += 1
                 self.state.global_step = self.state.past_global_steps + step_in_run
                 self.state.batches_in_epoch += 1
-                n_examples += next(iter(b.values())).shape[0]
+                n_examples += next(iter(b.values())).shape[0] * self.mesh.data
                 if (a.logging_steps and step_in_run % a.logging_steps == 0) \
                         or step_in_run == num_steps:
                     loss = float(step_losses[i])
@@ -565,8 +736,8 @@ class Trainer:
 
     def _report(self, record: Dict[str, Any], step: int) -> None:
         """Numeric scalars to TensorBoard under ``{output_dir}/runs`` when
-        ``args.report_to`` names it."""
-        if "tensorboard" not in str(self.args.report_to):
+        ``args.report_to`` names it (rank 0's)."""
+        if "tensorboard" not in str(self.args.report_to) or not self.is_main:
             return
         if self._tb_writer is None:
             from torch.utils.tensorboard import SummaryWriter
@@ -581,8 +752,8 @@ class Trainer:
 
     def _log_json(self, record: Dict[str, Any]) -> None:
         """Append a metrics record to ``{output_dir}/metrics.jsonl`` when
-        ``args.log_json`` is set."""
-        if not self.args.log_json:
+        ``args.log_json`` is set (rank 0's)."""
+        if not self.args.log_json or not self.is_main:
             return
         os.makedirs(self.args.output_dir, exist_ok=True)
         with open(os.path.join(self.args.output_dir, "metrics.jsonl"), "a") as f:
@@ -614,13 +785,14 @@ class Trainer:
         def counted():
             nonlocal n_examples
             for batch in itertools.islice(loader, max_steps):
-                n_examples += len(next(iter(batch.values())))
+                n_examples += len(next(iter(batch.values()))) * self.mesh.data
                 yield batch
 
         start = time.time()
         out = self.model.evaluate(counted(), mode=metric_key_prefix,
                                   max_sequence_length=a.max_sequence_length,
-                                  compute_metrics_each_n_steps=a.compute_metrics_each_n_steps)
+                                  compute_metrics_each_n_steps=a.compute_metrics_each_n_steps,
+                                  data_group=self.mesh.data_group)
         runtime = time.time() - start
         loss_key = f"{metric_key_prefix}_loss"
         results = {loss_key: out.pop(loss_key),
@@ -642,9 +814,15 @@ class Trainer:
         """Top-k next-item ``(scores, ids)`` as numpy arrays, one row per
         session of ``test_dataset`` (else ``self.test_dataset``): the
         zero-filled tail is cut to the loader's ``num_rows``. ``k`` is
-        ``top_k``, else ``args.predict_top_k``, else ``model.top_k``."""
+        ``top_k``, else ``args.predict_top_k``, else ``model.top_k``. Over a
+        data axis each data row predicts its stripe and the stripes are
+        gathered in the dataset's order, on every rank."""
         a = self.args
         loader = self.get_test_dataloader(test_dataset)
+        group = self.mesh.data_group
+        if group is not None and getattr(loader, "_stripe_groups", False):
+            raise ValueError("predict over a data axis needs rows striped one by one, not "
+                             "row groups: use the 'parquet' engine")
         k = top_k or a.predict_top_k or self.model.top_k
         all_scores, all_ids = [], []
         with torch.inference_mode():
@@ -653,10 +831,14 @@ class Trainer:
                                          top_k=k)
                 all_scores.append(scores)
                 all_ids.append(ids)
-        # one copy to the host at the end
-        scores = torch.cat(all_scores).cpu().numpy()
-        ids = torch.cat(all_ids).cpu().numpy()
+        scores, ids = torch.cat(all_scores), torch.cat(all_ids)
         num_rows = getattr(loader, "num_rows", None)
+        if group is not None:
+            num_rows = loader.total_rows
+            scores, ids = (interleave_stripes(list(all_gather_rows(t[None], group)), num_rows)
+                           for t in (scores, ids))
+        # one copy to the host at the end
+        scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
         if num_rows is not None and len(scores) > num_rows:
             scores, ids = scores[:num_rows], ids[:num_rows]
         return scores, ids
@@ -669,11 +851,14 @@ class Trainer:
         import pandas as pd
 
         scores, ids = self.predict(dataset if dataset is not None else self.eval_dataset)
-        os.makedirs(self.args.output_dir, exist_ok=True)
         path = os.path.join(self.args.output_dir,
                             f"pred_logs_{metric_key_prefix}_{self.state.global_step}.parquet")
-        pd.DataFrame({"pred_item_ids": list(map(list, ids)),
-                      "pred_item_scores": list(map(list, scores.astype(float)))}).to_parquet(path)
+        if self.is_main:
+            os.makedirs(self.args.output_dir, exist_ok=True)
+            pd.DataFrame({"pred_item_ids": list(map(list, ids)),
+                          "pred_item_scores": list(map(list, scores.astype(float)))}
+                         ).to_parquet(path)
+        barrier(self.mesh, self.device)
         return path
 
     # ------------------------------------------------------------ checkpoints
@@ -724,9 +909,10 @@ class Trainer:
             self._best_metric, self._best_checkpoint = value, path
 
     def _rotate_checkpoints(self) -> None:
-        """Keep the newest ``args.save_total_limit`` checkpoints and the best."""
+        """Keep the newest ``args.save_total_limit`` checkpoints and the best
+        (rank 0 removes them)."""
         limit = self.args.save_total_limit
-        if not limit:
+        if not limit or not self.is_main:
             return
         root = self.args.output_dir
         keep = os.path.basename(self._best_checkpoint or "")
@@ -738,51 +924,138 @@ class Trainer:
 
     def save(self, path: str) -> None:
         """Write the model, the optimizers (the sparse rows' state too), the
-        trainer state, the generator, the loader position and a pending
+        trainer state, the generators, the loader position and a pending
         accumulation (its micro-step, the summed gradients, the sparse arm's
         buffered rows) to ``path/trainer.pt`` (written under another name
-        first, so a complete file is the completion marker)."""
-        os.makedirs(path, exist_ok=True)
-        doc = {
-            "model": self.model.state_dict(),
-            "optimizers": {k: opt.state_dict() for k, opt in self.optimizers.items()},
-            "trainer_state": dataclasses.asdict(self.state),
-            "opt_step": self._opt_step,
-            "num_training_steps": self._last_num_steps,
-            "generator": self._generator.get_state(),
-            # a resume part-way through an accumulation continues it exactly
-            "mini_step": self._mini_step,
-            "grads": {n: p.grad for n, p in self.model.named_parameters()
-                      if p.grad is not None} if self._mini_step else {},
-            "sparse": self._sparse.state_dict() if self._sparse is not None else None,
-        }
-        tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
-        torch.save(doc, tmp)
-        os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+        first, so a complete file is the completion marker). Over ranks
+        every rank takes part: the row shards are gathered to rank 0, which
+        writes the one-rank format, with one generator a data row."""
+        if self._mini_step and self.mesh.data_group is not None:
+            raise NotImplementedError(
+                "a save part-way through gradient accumulation over a data axis: make "
+                "save_steps a multiple of gradient_accumulation_steps")
+        # every data row's generator; the model group's gathers run in data row 0
+        states = all_gather_rows(self._generator.get_state().to(self.device)[None], None
+                                 if self.mesh.size == 1 else torch.distributed.group.WORLD)
+        # copies: a generator reads its state from the start of the storage
+        generators = [states[int(r)].cpu().clone() for r in self.mesh.ranks[:, 0]]
+        if self.mesh.data_index == 0:
+            doc = {
+                "model": self._gather_shards(self.model.state_dict()),
+                "optimizers": {k: self._gather_opt(opt) for k, opt in self.optimizers.items()},
+                "trainer_state": dataclasses.asdict(self.state),
+                "opt_step": self._opt_step,
+                "num_training_steps": self._last_num_steps,
+                "generators": generators,
+                # a resume part-way through an accumulation continues it exactly
+                "mini_step": self._mini_step,
+                "grads": self._gather_shards({n: p.grad for n, p in self.model.named_parameters()
+                                              if p.grad is not None}) if self._mini_step else {},
+                "sparse": self._sparse_doc(self._gather_rows_of),
+            }
+            if self.is_main:
+                os.makedirs(path, exist_ok=True)
+                tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
+                torch.save(doc, tmp)
+                os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+        barrier(self.mesh, self.device)
+
+    # a row shard's state over the model group: gathered whole to save,
+    # this rank's rows taken again to load
+    def _gather_shards(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        group = self.mesh.model_group
+        return {k: all_gather_rows(v, group) if k in self._row_shards else v
+                for k, v in state.items()}
+
+    def _local_shards(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        m = self.mesh
+        return {k: take_shard(v, m.model_index, m.model) if k in self._row_shards else v
+                for k, v in state.items()}
+
+    def _gather_rows_of(self, tree, shard: torch.Tensor):
+        """``tree`` (nested dicts and lists) with every tensor of ``shard``'s
+        rows gathered over the model group."""
+        if isinstance(tree, dict):
+            return {k: self._gather_rows_of(v, shard) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [self._gather_rows_of(v, shard) for v in tree]
+        if torch.is_tensor(tree) and tree.dim() and tree.shape[0] == shard.shape[0] \
+                and id(shard) in self._shard_ids:
+            return all_gather_rows(tree, self.mesh.model_group)
+        return tree
+
+    def _local_rows_of(self, tree, shard: torch.Tensor):
+        """The inverse of ``_gather_rows_of``: this rank's rows of every
+        tensor with the whole table's rows."""
+        if isinstance(tree, dict):
+            return {k: self._local_rows_of(v, shard) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [self._local_rows_of(v, shard) for v in tree]
+        m = self.mesh
+        if torch.is_tensor(tree) and tree.dim() and tree.shape[0] == shard.shape[0] * m.model \
+                and id(shard) in self._shard_ids:
+            return take_shard(tree, m.model_index, m.model)
+        return tree
+
+    def _sparse_doc(self, rows_of, doc: Optional[dict] = None) -> Optional[dict]:
+        """The sparse arm's checkpoint entry with its rows' state (not its
+        accumulation buffers, the same on every rank of a model group) passed
+        through ``rows_of``."""
+        if self._sparse is None:
+            return None
+        doc = self._sparse.state_dict() if doc is None else doc
+        return {**doc, "state": rows_of(doc["state"], self._sparse.table)}
+
+    def _opt_params(self, opt) -> List[torch.Tensor]:
+        return [p for group in opt.param_groups for p in group["params"]]
+
+    def _gather_opt(self, opt) -> dict:
+        sd = opt.state_dict()
+        params = self._opt_params(opt)
+        # new dicts: state_dict() shares each parameter's state with the optimizer
+        sd["state"] = {i: self._gather_rows_of(dict(st), params[i])
+                       for i, st in sd["state"].items()}
+        return sd
+
+    def _local_opt(self, opt, sd: dict) -> dict:
+        params = self._opt_params(opt)
+        return {**sd, "state": {i: self._local_rows_of(dict(st), params[i])
+                                for i, st in sd["state"].items()}}
+
+    def _read_checkpoint(self, path: str) -> dict:
+        doc = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=self.device,
+                         weights_only=False)
+        doc["model"] = self._local_shards(doc["model"])
+        return doc
 
     def _load_params_only(self, path: str) -> None:
         """The weights of a checkpoint; optimizers, generator and state stay."""
-        doc = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=self.device,
-                         weights_only=False)
-        load_weights(self.model, doc["model"])
+        load_weights(self.model, self._read_checkpoint(path)["model"])
 
     def load(self, path: str) -> None:
-        doc = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=self.device,
-                         weights_only=False)
+        """Restore a checkpoint ``save`` wrote, on this layout of ranks
+        whatever the layout that wrote it: row shards take this rank's rows.
+        A data row that the writer did not have reseeds its generator."""
+        doc = self._read_checkpoint(path)
         load_weights(self.model, doc["model"])
         if doc["optimizers"]:
             self.create_optimizer_and_scheduler(doc["num_training_steps"])
             for k, sd in doc["optimizers"].items():
-                self.optimizers[k].load_state_dict(sd)
+                self.optimizers[k].load_state_dict(self._local_opt(self.optimizers[k], sd))
             if doc.get("sparse") is not None:
-                self._sparse.load_state_dict(doc["sparse"])
+                self._sparse.load_state_dict(self._sparse_doc(self._local_rows_of,
+                                                              doc["sparse"]))
         self._opt_step = doc["opt_step"]
         self._mini_step = doc.get("mini_step", 0)
         params = dict(self.model.named_parameters())
-        for n, g in doc.get("grads", {}).items():
+        for n, g in self._local_shards(doc.get("grads", {})).items():
             params[n].grad = g.to(params[n].device)
         self.state = TrainerState(**doc["trainer_state"])
-        self._generator.set_state(doc["generator"].cpu())
+        generators = doc["generators"] if "generators" in doc else [doc["generator"]]
+        if self.mesh.data_index < len(generators):
+            self._generator.set_state(generators[self.mesh.data_index].cpu())
+        else:
+            self._generator.manual_seed(self._generator_seed(self.mesh.data_index))
         self._resume_position = (self.state.loader_epoch, self.state.batches_in_epoch)
 
     def wipe_memory(self) -> None:

@@ -1,22 +1,39 @@
 """Device selection for the port's entry points.
 
 Entry points run on the GPU unless the caller asks for the CPU by name: a
-machine without CUDA raises instead of carrying on silently on the CPU.
+machine without CUDA raises instead of carrying on silently on the CPU. In
+a ``torch.distributed`` world each rank's GPU is its local rank's card
+(``LOCAL_RANK``, as ``torchrun`` sets it, else the global rank) modulo the
+cards the machine has: ranks beyond the count share cards.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 DeviceLike = Union[str, torch.device, None]
 
 
+def local_cuda_device() -> torch.device:
+    """``cuda:<local rank mod cards>`` in an initialised world, else
+    ``cuda``."""
+    if dist.is_available() and dist.is_initialized() and torch.cuda.is_available():
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        return torch.device("cuda", local % torch.cuda.device_count())
+    return torch.device("cuda")
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` means ``"cuda"``. A CUDA device on a machine without CUDA
-    raises ``RuntimeError``; ``"cpu"`` is always allowed."""
+    """``None`` and ``"cuda"`` mean ``local_cuda_device()``: card 0 outside
+    a world, the rank's own card inside one. A CUDA device on a machine
+    without CUDA raises ``RuntimeError``; ``"cpu"`` is always allowed."""
     dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        dev = local_cuda_device()
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available on this machine; pass device='cpu' to run "
