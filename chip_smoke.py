@@ -269,6 +269,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     probe rows and every other weight, the bytes. Z3 the trained flagship's
     artifact through ``ShardedInferenceRunner(model_axis=2)`` and the
     server started with ``--model-axis 2`` against ``InferenceRunner``;
+    AA (``run_artifact_phase``): the flagship trained from the port's ETL
+    files (raw item ids, Categorify-encoded) with ``save_async=True`` and
+    the profiler over steps 2-4 (the trace names K1 and K2; a run resumed
+    from the asynchronous checkpoint gives the unbroken run's losses;
+    ``save()`` timed blocking and asynchronous); two ranks save it on
+    (1, 2) in the ``"sharded"`` format, load it on (2, 1), and one rank
+    here loads it, each against the ``"torch"`` format (each rank's rows
+    half of one rank's); the trained flagship exported as a
+    ``torch.export`` program with the ETL's ``categories/``, in f32 and
+    with bf16 weights, served by ``python -m
+    transformers4rec_tpu_torch.serving.server --artifact`` without a model
+    builder (raw ids in and out; top-k equal to the eager model's), p50 and
+    p99 through the program and the builder; GPT-2-CLM's program (K5
+    launches inside its calls; its top-k equal to the eager model's); the
+    loader's native ``pad_ragged`` and gather against numpy;
 12. time K3 and K4 at the evaluation shape, K1 and K2 at the three training
     shapes (915, 8,192 and 16,384 loss rows), all four again at E = 448 (K1
     and K2 at 915 and 8,192 rows), K7a and K7b at the item table's shape
@@ -5832,6 +5847,11 @@ def mesh_rank(argv: list) -> None:
                             world_size=world,
                             timeout=datetime.timedelta(seconds=Z_COLLECTIVE_S))
     try:
+        if cfg.get("task") == "aa":
+            record = aa_rank(flagship, cfg, out_dir, rank, world)
+            with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+                json.dump(record, f)
+            return
         cards = torch.cuda.device_count() if cfg["device"] == "cuda" else 1
         layouts = z_layouts(cards)[2]
         z_patch_draws(z_negatives(flagship, cfg["large_items"]))
@@ -6077,7 +6097,8 @@ def run_mesh(flagship, vocab, fa, card: str, cfg=None) -> dict:
         model = builder(dev)
         model.load_state_dict(ref["chain"]["states"][Z_GROUPS - 1])
         example = z_rows(data["eval"], 0, cfg["eval_rows"])
-        art = export_model(model, example, os.path.join(tmp, "artifact"), top_k=TOP_K)
+        art = export_model(model, example, os.path.join(tmp, "artifact"), top_k=TOP_K,
+                           bundle_params=True)
         del model
         whole = InferenceRunner(art, builder, device=dev)
         split = ShardedInferenceRunner(art, builder, model_axis=2, device=dev)
@@ -6124,6 +6145,530 @@ def run_mesh(flagship, vocab, fa, card: str, cfg=None) -> dict:
               f"sessions and {len(requests)} requests", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ------------------------------ phase AA: the artifact alone, checkpoints
+AA_STEPS = 8  # the flagship trainer's steps from the ETL's Parquet file
+AA_PROFILE = (2, 4)  # the profiler window's steps
+AA_RAW_BASE = 1_000_000_007  # raw item ids: AA_RAW_BASE + 7 · the generated id
+AA_REQUESTS = 30  # requests a runner answers for its latency
+AA_SAVES = 3  # saves timed in each mode
+AA_SERVER_TIMEOUT_S = 120
+
+
+def aa_config(flagship, device: str = "cuda", **model) -> dict:
+    """Phase AA's sizes: the flagship at full width and GPT-2-CLM on sessions
+    of 256 by default (``model``: smaller widths and ``num_items``, ``rows``,
+    ``clm_seq`` for a rehearsal on the CPU)."""
+    return {"device": device, "task": "aa",
+            "num_items": model.pop("num_items", flagship.NUM_ITEMS),
+            "rows": model.pop("rows", flagship.BATCH),
+            "clm_seq": model.pop("clm_seq", flagship.LONG_SEQ),
+            "clm_rows": model.pop("clm_rows", flagship.LONG_BATCH), "model": model}
+
+
+def aa_windows(flagship, root: str, num_items: int) -> tuple:
+    """Phase Q's three daily windows with raw item ids (``AA_RAW_BASE + 7 ·
+    id``), Categorify-encoded by the port's ETL, which writes the mapping to
+    ``root/categories``. Returns ``root`` and the sessions of each file."""
+    import pandas as pd
+
+    from transformers4rec_tpu_torch.utils import data_utils
+
+    rng = np.random.default_rng(301)
+    n_sessions = 3 * PARQUET_SESSIONS_PER_DAY
+    lengths = rng.integers(2, flagship.SEQ + 1, n_sessions)
+    sid = np.repeat(np.arange(1, n_sessions + 1), lengths)
+    day = np.repeat(np.arange(n_sessions) // PARQUET_SESSIONS_PER_DAY + 1, lengths)
+    n = len(sid)
+    raw = rng.lognormal(3.0, 1.0, n)
+    item = np.clip(1 + (raw / raw.max()) * (num_items - 1), 1, num_items).astype(np.int64)
+    frame = pd.DataFrame({
+        "session_id": sid, "item_id": AA_RAW_BASE + 7 * item,
+        "category": 1 + item % (flagship.NUM_CATEGORIES - 1),
+        "item_recency": rng.random(n).astype(np.float32),
+        "weekday_sin": np.sin(rng.random(n) * 2 * np.pi),
+        "timestamp": day * 86_400 + np.sort(rng.integers(0, 86_000, n)), "day": day})
+    data_utils.etl_interactions_to_time_splits(
+        frame, flagship.schema(num_items), root, day_col="day", maximum_length=flagship.SEQ,
+        val_size=PARQUET_VAL_SIZE, test_size=0.0, categorify_columns=["item_id"])
+    sizes = {f"{w}/{f}": len(pd.read_parquet(os.path.join(root, str(w), f"{f}.parquet")))
+             for w in (1, 2, 3) for f in ("train", "valid")}
+    return root, sizes
+
+
+def trainer_differences(a, b) -> list:
+    """What two trainers hold differently: weights, optimizer and sparse-row
+    state, pending gradients, generator, counters (empty when they agree)."""
+    out = []
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    out += [k for k in sa if not torch.equal(sa[k], sb[k])]
+    for k, opt in a.optimizers.items():
+        for i, (x, y) in enumerate(zip(opt.state_dict()["state"].values(),
+                                       b.optimizers[k].state_dict()["state"].values())):
+            out += [f"{k}.{i}.{f}" for f in x
+                    if not torch.equal(torch.as_tensor(x[f]), torch.as_tensor(y[f]))]
+    ga = {n: p.grad for n, p in a.model.named_parameters() if p.grad is not None}
+    gb = {n: p.grad for n, p in b.model.named_parameters() if p.grad is not None}
+    out += [f"grad.{n}" for n in ga if n not in gb or not torch.equal(ga[n], gb[n])]
+    if not torch.equal(a._generator.get_state(), b._generator.get_state()):
+        out.append("generator")
+    if (a._opt_step, a._mini_step, a.state.global_step) != \
+            (b._opt_step, b._mini_step, b.state.global_step):
+        out.append("counters")
+    return out
+
+
+def aa_rank(flagship, cfg: dict, out_dir: str, rank: int, world: int) -> dict:
+    """Phase AA on a rank: the flagship trained for a group on (1, 2), saved
+    in both formats; each loaded on (2, 1) and compared. Returns the record
+    of this rank (its bytes written, the differences)."""
+    from transformers4rec_tpu_torch.parallel import make_mesh
+
+    batches = z_batches(flagship, cfg["num_items"], cfg["rows"], Z_K, 710)
+    eval_data = z_batches(flagship, cfg["num_items"], cfg["rows"], 1, 810)[0]
+    rec = {}
+    mesh = make_mesh(1, 2)
+    trainer = z1_trainer(flagship, cfg, "chain", mesh, out_dir, eval_data, cfg["rows"])
+    z_train_groups(trainer, batches, 1, cfg["device"])
+    for fmt in ("torch", "sharded"):
+        trainer.args.checkpoint_format = fmt
+        sync(cfg["device"])
+        t0 = time.perf_counter()
+        trainer.save(os.path.join(out_dir, fmt))
+        rec[f"{fmt}_save_s"] = time.perf_counter() - t0
+    sharded = os.path.join(out_dir, "sharded")
+    mine = [f for f in os.listdir(sharded) if f.startswith(f"rows-{mesh.model_index}-")]
+    if rank == 0:
+        mine += [f for f in os.listdir(sharded) if f.startswith("replicated-")]
+    rec["files"] = {f: os.path.getsize(os.path.join(sharded, f)) for f in mine}
+    del trainer
+    other = make_mesh(2, 1)
+    loaded = {}
+    for fmt in ("torch", "sharded"):
+        loaded[fmt] = z1_trainer(flagship, cfg, "chain", other, out_dir, eval_data,
+                                 cfg["rows"] // 2)
+        loaded[fmt].load(os.path.join(out_dir, fmt))
+    rec["2x1_differences"] = trainer_differences(loaded["torch"], loaded["sharded"])
+    rec["2x1_table_rows"] = \
+        loaded["sharded"].model.heads[0].input_module.item_embedding_table().shape[0]
+    return rec
+
+
+def aa_tensor_bytes(path: str) -> int:
+    doc = torch.load(path, map_location="cpu", weights_only=False)
+    total = 0
+
+    def walk(t):
+        nonlocal total
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif torch.is_tensor(t):
+            total += t.numel() * t.element_size()
+
+    walk(doc)
+    return total
+
+
+def aa_latency(fn, requests: list, device) -> dict:
+    """p50 and p99 of ``fn(request)`` over the requests, in ms (host clock,
+    each call ending in its numpy answer)."""
+    fn(requests[0])
+    sync(device)
+    ms = []
+    for r in requests:
+        t0 = time.perf_counter()
+        fn(r)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "requests": len(ms)}
+
+
+def aa_raw_requests(sessions: dict, mapping: np.ndarray, count: int) -> list:
+    """``count`` requests of 1-3 sessions of ``sessions`` (encoded columns of
+    lists), the item ids decoded to their raw values."""
+    rng = np.random.default_rng(17)
+    n = len(sessions["item_id"])
+    reqs, at = [], 0
+    for m in rng.integers(1, 4, count):
+        rows = [(at + i) % n for i in range(int(m))]
+        at += int(m)
+        req = {c: [np.asarray(v[r]).tolist() for r in rows] for c, v in sessions.items()}
+        req["item_id"] = [[int(mapping[i - 3]) if i >= 3 else 0 for i in s]
+                          for s in req["item_id"]]
+        reqs.append(req)
+    return reqs
+
+
+def aa_same_topk(got_s, got_i, want_s, want_i, what: str, atol: float = 1e-5) -> bool:
+    """Scores within ``atol`` and ids (raw or not) equal wherever
+    neighbouring scores are more than ``atol`` apart; returns whether the
+    two are the same bits."""
+    got_s, got_i = np.asarray(got_s, np.float32), np.asarray(got_i)
+    want_s, want_i = np.asarray(want_s, np.float32), np.asarray(want_i)
+    if got_i.shape != want_i.shape or not np.allclose(got_s, want_s, atol=atol, rtol=0):
+        fail(f"{what}: top-k {got_i.shape} against {want_i.shape}, scores differ by "
+             f"{np.abs(got_s - want_s).max() if got_s.shape == want_s.shape else 'shape'}")
+    gaps = np.abs(np.diff(want_s, axis=1)) > atol
+    clear = np.ones(want_i.shape, dtype=bool)
+    clear[:, :-1] &= gaps
+    clear[:, 1:] &= gaps
+    if not np.array_equal(got_i[clear], want_i[clear]):
+        fail(f"{what}: top-{want_i.shape[1]} ids differ where scores do not tie")
+    return bool(np.array_equal(got_s, want_s) and np.array_equal(got_i, want_i))
+
+
+def run_artifact_phase(flagship, vocab, attention, card: str, cfg=None) -> dict:
+    """Phase AA: the trainer's remaining options and serving from the
+    artifact alone, at full width.
+
+    AA1 trains the flagship from the port's ETL files (raw item ids,
+    Categorify-encoded) with ``save_async=True``, a save every 4 steps and
+    the profiler over steps 2 to 4: the trace must name K1 and K2, and a run
+    resumed from the asynchronous ``checkpoint-4`` gives the unbroken run's
+    last 4 losses; ``save()`` is timed blocking and asynchronous. AA2 two
+    ranks (phase Z's ``--mesh-rank``) save the flagship on (1, 2) in both
+    formats and load each on (2, 1), and one rank here loads both: the same
+    state; each rank's bytes are half of one rank's. AA3 exports the
+    trained flagship as a program with the ETL's ``categories/`` in f32 and
+    with ``weights_dtype="bfloat16"``, serves the f32 program from
+    ``python -m transformers4rec_tpu_torch.serving.server --artifact`` with
+    no model builder, raw ids in and out, and holds its top-k to the eager
+    model's; p50 and p99 of a runner's requests through the program and
+    through the builder. AA4 exports GPT-2-CLM on sessions of up to 256 and
+    serves the program: K5 launches inside its calls, and its top-k equals
+    the eager model's. AA5 times ``pad_ragged`` and the row gather at a
+    full batch, native against numpy. The counts are set to 0 just before
+    each main-path call and read just after."""
+    import pandas as pd
+
+    from transformers4rec_tpu_torch import native
+    from transformers4rec_tpu_torch.data.padding import pad_ragged
+    from transformers4rec_tpu_torch.serving import (
+        InferenceRunner, ServingServer, export_model)
+    from transformers4rec_tpu_torch.serving.export import cast_weights_, single_device_model
+    from transformers4rec_tpu_torch.trainer.checkpoint import checkpoint_complete
+    from transformers4rec_tpu_torch.utils.data_utils import load_categories
+
+    cfg = cfg or aa_config(flagship)
+    dev = cfg["device"]
+    steps, rows = AA_STEPS, cfg["rows"]
+    counters = {"ce_fwd": vocab.ce_fwd, "ce_bwd": vocab.ce_bwd, "ce_rank": vocab.ce_rank,
+                "flash_fwd": attention.flash_fwd}
+    launches = dict.fromkeys(counters, 0)
+    out = {}
+
+    def run(what: str, fn, **want):
+        result, got, wall = counted(counters, fn, dev)
+        if dev == "cuda":
+            expect_launches(f"phase AA ({what})", got, **want)
+        for k, c in got.items():
+            launches[k] += c
+        return result, wall
+
+    root = tempfile.mkdtemp(prefix="t4r_aa_")
+    try:
+        # ---- AA1: training from the ETL's files, asynchronous checkpoints, the profiler
+        windows, sizes = aa_windows(flagship, os.path.join(root, "windows"), cfg["num_items"])
+        train_file = os.path.join(windows, "1", "train.parquet")
+        eval_file = os.path.join(windows, "2", "valid.parquet")
+        mapping = load_categories(os.path.join(windows, "categories"))["item_id"]
+        if sizes["1/train"] < steps * rows or not len(mapping):
+            fail(f"AA1: the ETL wrote {sizes} and {len(mapping)} raw items")
+
+        def trainer(out_dir: str, **args):
+            t = flagship.build_trainer(dev, seed=0, train_dataset=train_file,
+                                       eval_dataset=eval_file, batch=rows,
+                                       output_dir=os.path.join(root, out_dir),
+                                       num_items=cfg["num_items"], **cfg["model"])
+            t.args.max_steps, t.args.logging_steps = steps, 1
+            for k, v in args.items():
+                setattr(t.args, k, v)
+            return t
+
+        lo, hi = AA_PROFILE
+        unbroken = trainer("unbroken", save_steps=steps // 2, save_async=True,
+                           profile_steps=f"{lo},{hi}")
+        run("async-saving train", unbroken.train, ce_fwd=steps, ce_bwd=steps)
+        trace = os.path.join(unbroken.args.output_dir, "profile",
+                             f"trace-steps-{lo}-{hi}-rank0.json")
+        if not os.path.isfile(trace):
+            fail(f"AA1: no trace at {trace}")
+        with open(trace) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        if dev == "cuda" and not (any("ce_fwd_kernel" in n for n in names)
+                                  and any("ce_bwd_d" in n for n in names)):
+            fail(f"AA1: the trace names no K1 or K2 kernel: {sorted(names)[:40]}")
+        out["trace_bytes"] = os.path.getsize(trace)
+        for s in (steps // 2, steps):
+            if not checkpoint_complete(os.path.join(unbroken.args.output_dir,
+                                                    f"checkpoint-{s}")):
+                fail(f"AA1: checkpoint-{s} is not complete after train()")
+        first = trainer("resume", max_steps=steps // 2, save_steps=steps // 2, save_async=True)
+        run("train to the async checkpoint", first.train, ce_fwd=steps // 2,
+            ce_bwd=steps // 2)
+        resumed = trainer("resume")
+        path = os.path.join(resumed.args.output_dir, f"checkpoint-{steps // 2}")
+        run("resumed train", lambda: resumed.train(resume_from_checkpoint=path),
+            ce_fwd=steps // 2, ce_bwd=steps // 2)
+        out["async_resume_rel"] = same_trajectory(
+            "AA1 resumed from the async checkpoint against the unbroken run",
+            loss_reads(resumed, steps // 2), loss_reads(unbroken, steps)[steps // 2:])
+        del first, resumed
+        # how long save() holds the caller: the whole write, or the snapshot
+        blocks = {}
+        for mode, blocking in (("sync", True), ("async", False)):
+            ms = []
+            for i in range(AA_SAVES):
+                sync(dev)
+                t0 = time.perf_counter()
+                unbroken.save(os.path.join(root, f"save-{mode}-{i}"), blocking=blocking)
+                ms.append(1e3 * (time.perf_counter() - t0))
+                unbroken.wait_for_checkpoints()
+            blocks[mode] = ms
+        out["save_blocks_ms"] = blocks
+        out["checkpoint_bytes"] = os.path.getsize(os.path.join(root, "save-sync-0",
+                                                               "trainer.pt"))
+        print(f"[artifact-aa1] {steps} steps from the ETL's Parquet file on {card}: "
+              f"async checkpoints complete, the resumed run's last {steps // 2} losses within "
+              f"{out['async_resume_rel']:.3g} of the unbroken run's; the trace of steps "
+              f"{lo}-{hi} ({out['trace_bytes']} bytes) names K1 and K2; save() blocks "
+              f"{json.dumps(blocks)} ms (sync: the whole {out['checkpoint_bytes']}-byte "
+              "write; async: the host snapshot)", flush=True)
+
+        # ---- AA2: the sharded format over two ranks, loaded on (2, 1) and on one rank
+        backend = "nccl" if dev == "cuda" and torch.cuda.device_count() >= 2 else "gloo"
+        ckpt_dir = os.path.join(root, "ranks")
+        os.makedirs(ckpt_dir)
+        t0 = time.perf_counter()
+        z_wait(z_start_ranks(2, backend, ckpt_dir, cfg), ckpt_dir)
+        recs = [json.load(open(os.path.join(ckpt_dir, f"rank{r}.json"))) for r in range(2)]
+        out["aa2_ranks_s"] = time.perf_counter() - t0
+        eval_data = z_batches(flagship, cfg["num_items"], cfg["rows"], 1, 810)[0]
+        one = {}
+        for fmt in ("torch", "sharded"):
+            one[fmt] = z1_trainer(flagship, cfg, "chain", None, ckpt_dir, eval_data, rows)
+            one[fmt].load(os.path.join(ckpt_dir, fmt))
+        diffs = trainer_differences(one["torch"], one["sharded"])
+        table = one["torch"].model.heads[0].input_module.item_embedding_table()
+        del one
+        for i, rec in enumerate(recs):
+            if rec["2x1_differences"] or rec["2x1_table_rows"] != table.shape[0]:
+                fail(f"AA2 rank {i}: the sharded checkpoint on (2, 1): {rec}")
+        if diffs:
+            fail(f"AA2: one rank loads the sharded checkpoint otherwise: {diffs}")
+        whole = aa_tensor_bytes(os.path.join(ckpt_dir, "torch", "trainer.pt"))
+        shard_bytes = [aa_tensor_bytes(os.path.join(ckpt_dir, "sharded", f))
+                       for f in sorted(os.listdir(os.path.join(ckpt_dir, "sharded")))
+                       if f.startswith("rows-")]
+        replicated = [f for f in os.listdir(os.path.join(ckpt_dir, "sharded"))
+                      if f.startswith("replicated-")]
+        rep_bytes = aa_tensor_bytes(os.path.join(ckpt_dir, "sharded", replicated[0]))
+        if len(shard_bytes) != 2 or shard_bytes[0] != shard_bytes[1] \
+                or shard_bytes[0] * 2 + rep_bytes != whole:
+            fail(f"AA2: the shard files hold {shard_bytes} and the replicated file {rep_bytes} "
+                 f"tensor bytes against {whole} in the torch checkpoint")
+        out["aa2"] = {"files_per_rank": [rec["files"] for rec in recs],
+                      "row_shard_tensor_bytes": shard_bytes,
+                      "replicated_tensor_bytes": rep_bytes,
+                      "one_rank_tensor_bytes": whole,
+                      "save_s": [{k: v for k, v in rec.items() if k.endswith("save_s")}
+                                 for rec in recs],
+                      "ranks_s": out["aa2_ranks_s"]}
+        print(f"[artifact-aa2] two ranks ({backend}) on {card}: the sharded checkpoint of "
+              f"(1, 2) loads on (2, 1) and on one rank as the torch one does; each rank wrote "
+              f"{shard_bytes} tensor bytes of rows (half of the table and its state, "
+              f"{whole - rep_bytes} in one rank's file): {json.dumps(out['aa2'])}", flush=True)
+
+        # ---- AA3: the flagship's program with the ETL's categories, no builder
+        model = unbroken.model
+        frame = pd.read_parquet(eval_file)
+        sessions = {c.name: frame[c.name].to_list() for c in flagship.schema(cfg["num_items"])}
+        example = {k: v[:4] for k, v in dense_columns(flagship, eval_file).items()}
+        arts = {}
+        t0 = time.perf_counter()
+        for name, wd in (("f32", None), ("bf16", "bfloat16")):
+            arts[name] = export_model(model, example, os.path.join(root, f"flagship_{name}"),
+                                      top_k=TOP_K, weights_dtype=wd,
+                                      categories=os.path.join(windows, "categories"))
+        out["export_s"] = (time.perf_counter() - t0) / 2
+        sizes_b = {k: os.path.getsize(os.path.join(p, "model.pt2")) for k, p in arts.items()}
+        requests = aa_raw_requests(sessions, mapping, 8)
+        program = InferenceRunner(arts["f32"], device=dev)
+        # the program against the eager model on the same encoded sessions
+        enc = {k: program.encode(k, v) for k, v in requests[0].items()}
+        (got_s, got_i), _ = run("flagship program", lambda: program.predict(
+            enc, decode_ids=False, encode_inputs=False))
+        dense = {k: torch.as_tensor(program._densify(k, v, program.metadata["features"][k],
+                                                     program.metadata["dtypes"][k])).to(dev)
+                 for k, v in enc.items()}
+        with torch.inference_mode():
+            want_s, want_i = model(dense, top_k=TOP_K)
+        out["flagship_program_bitwise"] = aa_same_topk(got_s, got_i, want_s.cpu().numpy(),
+                                                       want_i.cpu().numpy(),
+                                                       "AA3 f32 program against the eager model")
+        port = free_port()
+        log = open(os.path.join(root, "server.log"), "w")
+        server = subprocess.Popen(
+            [sys.executable, "-m", "transformers4rec_tpu_torch.serving.server", "--artifact",
+             arts["f32"], "--device", dev, "--port", str(port), "--host", "127.0.0.1",
+             "--max-delay-ms", "20"], cwd=HERE, env=z_env(), stdout=log, stderr=subprocess.STDOUT)
+        try:
+            url = f"http://127.0.0.1:{port}"
+            deadline = time.perf_counter() + AA_SERVER_TIMEOUT_S
+            while True:
+                try:
+                    with urllib.request.urlopen(f"{url}/v2/health", timeout=5) as r:
+                        health = json.loads(r.read())
+                    break
+                except OSError:
+                    if server.poll() is not None or time.perf_counter() > deadline:
+                        fail("AA3: the server did not start:\n"
+                             + open(os.path.join(root, "server.log")).read()[-4000:])
+                    time.sleep(0.5)
+            answers = [post(f"{url}/v2/predict", {"inputs": r}) for r in requests]
+        finally:
+            server.terminate()
+            try:
+                server.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server.wait()
+            log.close()
+        raw_ids = set(mapping.tolist())
+        for i, (req, ans) in enumerate(zip(requests, answers)):
+            ids = np.asarray(ans["item_ids"])
+            if not set(ids.ravel().tolist()) <= raw_ids | {-1}:
+                fail(f"AA3 request {i}: ids outside the raw catalogue")
+            enc = {k: program.encode(k, v) for k, v in req.items()}
+            dense = {k: torch.as_tensor(program._densify(
+                k, v, program.metadata["features"][k], program.metadata["dtypes"][k])).to(dev)
+                for k, v in enc.items()}
+            with torch.inference_mode():
+                want_s, want_i = model(dense, top_k=TOP_K)
+            # the batcher pads to a power of two: another GEMM shape, so the
+            # scores agree to rounding and the raw ids where they do not tie
+            aa_same_topk(ans["item_id_scores"], ids, want_s.cpu().numpy(),
+                         program.decode_item_ids(want_i.cpu().numpy()),
+                         f"AA3 server request {i}")
+        # the bf16 program against the eager model given the same cast weights
+        bf16 = InferenceRunner(arts["bf16"], device=dev)
+        cast = single_device_model(model)
+        cast_weights_(cast, "bfloat16")
+        enc = {k: program.encode(k, v) for k, v in requests[1].items()}
+        dense = {k: torch.as_tensor(program._densify(
+            k, v, program.metadata["features"][k], program.metadata["dtypes"][k])).to(dev)
+            for k, v in enc.items()}
+        sbf, ibf = bf16.predict(enc, decode_ids=False, encode_inputs=False)
+        with torch.inference_mode():
+            want_s, want_i = cast(dense, top_k=TOP_K)
+        if sbf.dtype != np.float32 or not np.isfinite(sbf).all():
+            fail(f"AA3: the bf16 program's scores are {sbf.dtype}")
+        out["bf16_program_bitwise"] = aa_same_topk(sbf, ibf, want_s.cpu().numpy(),
+                                                   want_i.cpu().numpy(),
+                                                   "AA3 bf16 program against the cast model")
+        s32, i32 = program.predict(enc, decode_ids=False, encode_inputs=False)
+        overlap = min(len(set(a.tolist()) & set(b.tolist())) / TOP_K for a, b in zip(i32, ibf))
+        del cast
+        builder = InferenceRunner(arts["f32"], functools.partial(
+            flagship.build_model, num_items=cfg["num_items"], **cfg["model"]), device=dev)
+        lat_requests = aa_raw_requests(sessions, mapping, AA_REQUESTS)
+        latency = {"program": aa_latency(program.predict, lat_requests, dev),
+                   "builder": aa_latency(builder.predict, lat_requests, dev),
+                   "program_bf16": aa_latency(bf16.predict, lat_requests, dev)}
+        out["aa3"] = {"program_bytes": sizes_b, "export_s_each": out["export_s"],
+                      "bitwise_equal_to_eager": out["flagship_program_bitwise"],
+                      "bf16_bitwise_equal_to_cast_eager": out["bf16_program_bitwise"],
+                      "bf16_min_overlap_with_f32": overlap, "latency": latency,
+                      "server_health": health["status"]}
+        del builder, bf16
+        print(f"[artifact-aa3] the flagship's program on {card}: raw ids in and out through "
+              f"the server with no builder, top-k equal to the eager model's; "
+              f"{json.dumps(out['aa3'])}", flush=True)
+
+        # ---- AA4: GPT-2-CLM's program: K5 launches inside its calls
+        seq = cfg["clm_seq"]
+        clm = flagship.build_clm_model(dev, seed=4, num_items=cfg["num_items"], seq=seq,
+                                       **cfg["model"])
+        clm_schema = flagship.schema(cfg["num_items"], seq)
+        from transformers4rec_tpu_torch.data import synthetic_data
+
+        clm_batch = synthetic_data(clm_schema, num_rows=cfg["clm_rows"], max_session_length=seq,
+                                   seed=33)
+        clm_art = export_model(clm, {k: v[:2] for k, v in clm_batch.items()},
+                               os.path.join(root, "clm"), top_k=TOP_K)
+        clm_runner = InferenceRunner(clm_art, device=dev)
+        layers = cfg["model"].get("n_layer", flagship.N_LAYER)
+        (got_s, got_i), _ = run("clm program", lambda: clm_runner.predict(clm_batch),
+                                flash_fwd=layers)
+        with torch.inference_mode():
+            want_s, want_i = clm({k: torch.as_tensor(v).to(dev) for k, v in clm_batch.items()},
+                                 top_k=TOP_K)
+        out["clm_program_bitwise"] = aa_same_topk(got_s, got_i, want_s.cpu().numpy(),
+                                                  want_i.cpu().numpy(),
+                                                  "AA4 CLM program against the eager model")
+        clm_requests = serve_requests(flagship, cfg["num_items"], seq, 6, schema=clm_schema)
+        srv = ServingServer(clm_art, host="127.0.0.1", port=0, max_batch_size=16,
+                            max_delay_ms=20.0, device=dev).start()
+        try:
+            url = f"http://127.0.0.1:{srv.port}/v2/predict"
+            clm_answers, got, _ = counted(counters, lambda: [post(url, {"inputs": r})
+                                                             for r in clm_requests], dev)
+        finally:
+            srv.stop()
+        if dev == "cuda" and got["flash_fwd"] < layers:
+            fail(f"AA4: serving the CLM program launched K5 {got['flash_fwd']} times")
+        for k, c in got.items():
+            launches[k] += c
+        for i, (req, ans) in enumerate(zip(clm_requests, clm_answers)):
+            want_s, want_i = clm_runner.predict(req)
+            check_topk(ans["item_id_scores"], ans["item_ids"], want_s, want_i,
+                       cfg["num_items"] + 1, f"AA4 server request {i}")
+        out["aa4"] = {"k5_launches_in_program": layers, "k5_launches_serving": got["flash_fwd"],
+                      "bitwise_equal_to_eager": out["clm_program_bitwise"],
+                      "program_bytes": os.path.getsize(os.path.join(clm_art, "model.pt2")),
+                      "latency": aa_latency(clm_runner.predict, clm_requests, dev)}
+        del clm, clm_runner
+        print(f"[artifact-aa4] GPT-2-CLM's program on {card}: {json.dumps(out['aa4'])}",
+              flush=True)
+
+        # ---- AA5: the loader's native kernels against numpy at a full batch
+        lists = frame["item_id"].to_list()[:rows]
+        values = np.concatenate([np.asarray(r, np.int64) for r in lists])
+        offsets = np.zeros(len(lists) + 1, np.int64)
+        np.cumsum([len(r) for r in lists], out=offsets[1:])
+        columns = dense_columns(flagship, train_file)
+        sel = np.random.default_rng(5).permutation(len(columns["item_id"]))[:rows]
+
+        def host_us(fn, reps=200):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return 1e6 * (time.perf_counter() - t0) / reps
+
+        if native.pad_ragged(values, offsets, flagship.SEQ).tobytes() != pad_ragged(
+                values, offsets, flagship.SEQ, use_native=False).tobytes():
+            fail("AA5: the native pad_ragged differs from numpy's")
+        out["aa5"] = {
+            "pad_ragged_us": {"native": host_us(lambda: native.pad_ragged(values, offsets,
+                                                                          flagship.SEQ)),
+                              "numpy": host_us(lambda: pad_ragged(values, offsets, flagship.SEQ,
+                                                                  use_native=False))},
+            "gather_us": {"native": host_us(lambda: {k: native.gather_rows(v, sel)
+                                                     for k, v in columns.items()}),
+                          "numpy": host_us(lambda: {k: v[sel] for k, v in columns.items()})},
+            "batch": [rows, flagship.SEQ]}
+        print(f"[artifact-aa5] host time of a batch of {rows} sessions of {flagship.SEQ}, "
+              f"4 columns for the gather: {json.dumps(out['aa5'])}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
     return out
 
 
@@ -6436,6 +6981,12 @@ def main() -> None:
     mesh = run_mesh(flagship, vocab, fa, card)
     torch.cuda.empty_cache()
 
+    # ---- main path AA: the artifact alone, checkpoint formats, the profiler
+    mark("main path AA")
+    artifact = run_artifact_phase(flagship, vocab, attention, card)
+    print(f"[artifact] {json.dumps(artifact['launches'])}")
+    torch.cuda.empty_cache()
+
     # ---- timing at the evaluation, the training and the table's shape
     mark("timing at the evaluation, the training and the table's shape")
     timing = {"ce_rank": time_ce_rank(vocab, EVAL_ROWS, table_rows, vocab_size),
@@ -6660,6 +7211,9 @@ def main() -> None:
                           + sparse["launches"][name] + accumulation["launches"][name])
     # phase Z: every rank's launches on its main path
     for name, n in mesh["launches"].items():
+        launches[name] += n
+    # phase AA: the trainer's steps and the programs' calls (K5 inside them)
+    for name, n in artifact["launches"].items():
         launches[name] += n
     errors = {"ce_rank": max(c["lse_max_abs_err"] for c in checks),
               "ce_fwd": max(c["lse_max_abs_err"] for c in train_checks),

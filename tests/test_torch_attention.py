@@ -273,7 +273,10 @@ def test_streamed_dq_blocks_take_every_query_tile_once_longest_first(heads, quer
 
 def test_cuda_tensors_never_take_the_plain_versions(monkeypatch):
     """A CPU tensor is the only way to the plain versions: anything else goes
-    to the kernel launchers (which raise without a card)."""
+    to the kernel launchers (which raise without a card). K5 is the
+    registered operator ``t4r::flash_fwd``: its CUDA kernel is the
+    launcher, and a tensor without data (``meta``, or a trace's fake) takes
+    its fake, which gives the shapes and launches nothing."""
     called = []
     for name in ("_flash_fwd_cuda", "_flash_bwd_fused_cuda", "_flash_bwd_dq_cuda",
                  "_flash_bwd_dkv_cuda"):
@@ -283,7 +286,10 @@ def test_cuda_tensors_never_take_the_plain_versions(monkeypatch):
         monkeypatch.setattr(attn, name, lambda *a, _n=name: pytest.fail(_n))
     meta = torch.empty(2, 128, 2, 16, device="meta")
     rows = torch.empty(4, 128, device="meta")
-    attn.flash_fwd(meta, meta, meta)
+    out, lse = attn.flash_fwd(meta, meta, meta)
+    assert (out.shape, out.device.type, lse.shape) == (meta.shape, "meta", rows.shape)
+    assert torch._C._dispatch_has_kernel_for_dispatch_key("t4r::flash_fwd", "CUDA")
+    attn._flash_fwd_op_cuda(meta, meta, meta, None, None, False)
     attn.flash_bwd_fused(meta, meta, meta, meta, rows, rows)
     attn.flash_bwd_dq(meta, meta, meta, meta, rows, rows)
     attn.flash_bwd_dkv(meta, meta, meta, meta, rows, rows)

@@ -1317,3 +1317,29 @@ def test_the_sparse_rows_update_of_a_bf16_table_on_the_card_matches_the_cpu(dev)
         assert torch.equal(out[0][~touched], table0[~touched])  # row V - 1 included
         _bf16_close(out[0][touched], out[1][touched], update.__name__,
                     slack=_bf16_ulp(out[1][touched].float() - table0[touched].float()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["dh12_causal_ragged", "off_the_tile_bias_1_H",
+                                   "bias_B_1_causal"])
+def test_the_registered_op_gives_the_direct_kernels_bits(dev, shape, dtype):
+    """``t4r::flash_fwd`` on CUDA tensors launches K5 (one count a call) and
+    gives ``_flash_fwd_cuda``'s bits; its fake gives the output's and lse's
+    shapes and types without a launch."""
+    q, k, v, _, bias, pad, causal = _flash_inputs(shape, dev)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    before = attn.flash_fwd.launches
+    out, lse = torch.ops.t4r.flash_fwd(q, k, v, bias, pad, causal)
+    want_out, want_lse = attn._flash_fwd_cuda(q, k, v, bias, pad, causal)
+    torch.cuda.synchronize()
+    assert attn.flash_fwd.launches == before + 2
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(t) if t is not None else None for t in (q, k, v, bias, pad)]
+        f_out, f_lse = torch.ops.t4r.flash_fwd(*fake, causal)
+    B, S, H, _ = q.shape
+    assert (f_out.shape, f_out.dtype, f_out.device) == (q.shape, dtype, q.device)
+    assert (f_lse.shape, f_lse.dtype) == ((B * H, S), torch.float32)
+    assert attn.flash_fwd.launches == before + 2

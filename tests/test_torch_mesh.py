@@ -184,7 +184,8 @@ def sharded_artifact(tmp_path_factory):
 
     model = build("cpu")
     model.load_state_dict(convert.params_from_jax(jax.tree.map(np.asarray, params)))
-    path = export_model(model, batch, str(tmp_path_factory.mktemp("sharded_art")), top_k=5)
+    path = export_model(model, batch, str(tmp_path_factory.mktemp("sharded_art")), top_k=5,
+                        bundle_params=True)
     return path, build, batch, np.asarray(jax_s), np.asarray(jax_i)
 
 

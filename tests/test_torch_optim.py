@@ -170,8 +170,14 @@ def test_every_embedding_table_is_labelled_table():
 @pytest.mark.parametrize("field,value", [("profile_steps", "1,2"),
                                          ("save_async", True)])
 def test_arguments_refuse_what_is_not_ported(field, value):
-    with pytest.raises(NotImplementedError):
-        T4RecTrainingArguments(**{field: value})
+    """Both options are ported now: the value is kept, and what neither
+    package could run is refused (a profile window that ends before it
+    starts; the JAX package's checkpoint formats, by name)."""
+    assert getattr(T4RecTrainingArguments(**{field: value}), field) == value
+    with pytest.raises(ValueError, match="profile_steps"):
+        T4RecTrainingArguments(**{field: value, "profile_steps": "2,1"})
+    with pytest.raises(ValueError, match="'sharded'"):
+        T4RecTrainingArguments(**{field: value, "checkpoint_format": "orbax"})
 
 
 @pytest.mark.parametrize("field,value", [

@@ -361,11 +361,15 @@ def test_arguments_keep_the_jax_defaults_and_refuse_what_is_not_ported():
               "pack_eval_sessions", "mesh_model_axis", "auto_vocab_parallel",
               "gradient_checkpointing", "profile_steps", "profile_dir"):
         assert getattr(got, f) == getattr(want, f), f
-    for field, value in (("checkpoint_format", "msgpack"), ("checkpoint_format", "orbax"),
-                         ("save_async", True),
-                         ("profile_steps", "1,2"), ("profile_dir", "p")):
-        with pytest.raises(NotImplementedError, match=field):
-            T4RecTrainingArguments(**{field: value})
+    # the JAX checkpoint formats raise, naming the port's counterpart
+    for jax_name, port_name in (("msgpack", "torch"), ("orbax", "sharded")):
+        with pytest.raises(ValueError, match=f"counterpart is '{port_name}'"):
+            T4RecTrainingArguments(checkpoint_format=jax_name)
+        assert T4RecTrainingArguments(checkpoint_format=port_name).checkpoint_format == port_name
+    assert T4RecTrainingArguments().checkpoint_format == "torch"
+    # asynchronous saves and the profiler window are ported
+    for field, value in (("save_async", True), ("profile_steps", "1,2"), ("profile_dir", "p")):
+        assert getattr(T4RecTrainingArguments(**{field: value}), field) == value
     # the mesh's fields are ported (parallel.mesh, the trainer's layout)
     assert T4RecTrainingArguments(mesh_model_axis=2).mesh_model_axis == 2
     assert not T4RecTrainingArguments(auto_vocab_parallel=False).auto_vocab_parallel

@@ -13,6 +13,11 @@ and takes the third step again; evaluates and predicts. Rank 0 writes the
 checkpoints and every rank a JSON record of what the parent test compares
 under OUTPUT_DIR. Imports no JAX.
 
+WORLD 2 also runs the checkpoint formats (``checkpoint_formats``): two
+steps on (1, 2) saved in both formats, each loaded on (2, 1) and on (1, 2)
+and compared; and on (2, 1) with two micro-steps an update, a save part-way
+through the second update, resumed in fresh trainers from both formats.
+
 The training masks are a function of the batch's content
 (``patch_draws``), so that a data row's half of a batch is masked as the
 whole batch is; the negatives are a fixed set. The arm ``draws`` keeps the
@@ -139,6 +144,92 @@ def state_rows(trainer):
     return list(table.shape), rows
 
 
+def differences(a, b) -> list:
+    """The names of what two trainers hold differently: weights, optimizer
+    and sparse-row state, pending gradients, generator, counters."""
+    out = []
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    out += [k for k in sa if not torch.equal(sa[k], sb[k])]
+    for k, opt in a.optimizers.items():
+        for i, (x, y) in enumerate(zip(opt.state_dict()["state"].values(),
+                                       b.optimizers[k].state_dict()["state"].values())):
+            out += [f"{k}.{i}.{f}" for f in x
+                    if not torch.equal(torch.as_tensor(x[f]), torch.as_tensor(y[f]))]
+    if a._sparse is not None:
+        out += [f"sparse.{k}" for k, v in vars(a._sparse.state).items()
+                if torch.is_tensor(v) and not torch.equal(v, getattr(b._sparse.state, k))]
+    ga = {n: p.grad for n, p in a.model.named_parameters() if p.grad is not None}
+    gb = {n: p.grad for n, p in b.model.named_parameters() if p.grad is not None}
+    out += [f"grad.{n}" for n in ga if n not in gb or not torch.equal(ga[n], gb[n])]
+    if not torch.equal(a._generator.get_state(), b._generator.get_state()):
+        out.append("generator")
+    if (a._opt_step, a._mini_step, a.state.global_step) != \
+            (b._opt_step, b._mini_step, b.state.global_step):
+        out.append("counters")
+    return out
+
+
+def max_rel_diff(a, b) -> float:
+    """The largest relative Frobenius difference of two trainers' weights."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return max(float(torch.linalg.norm(sa[k].float() - sb[k].float()))
+               / max(float(torch.linalg.norm(sb[k].float())), 1e-30) for k in sa)
+
+
+def checkpoint_formats(weights, data, out_dir, rank, world):
+    """The sharded format against the torch format over two ranks, and a
+    save part-way through an accumulation over the data axis."""
+    patch_draws()
+    record = {}
+    root = os.path.join(out_dir, "formats")
+    for arm in ("adafactor", "sparse_adam"):
+        d = os.path.join(root, arm)
+        trainer = build_trainer(arm, weights, d, world, make_mesh(1, 2))
+        trainer._train_dataloader = data["train"][:2]
+        trainer.args.max_steps = 2
+        trainer.train()
+        trainer.save(os.path.join(d, "torch-2"))
+        trainer.args.checkpoint_format = "sharded"
+        trainer.save(os.path.join(d, "sharded-2"))
+        rec = record[arm] = {}
+        for layout in ((2, 1), (1, 2)):
+            mesh = make_mesh(*layout)
+            loaded = {}
+            for fmt in ("torch", "sharded"):
+                loaded[fmt] = build_trainer(arm, weights, d, world, mesh)
+                loaded[fmt].load(os.path.join(d, f"{fmt}-2"))
+            rec[f"{layout[0]}x{layout[1]}"] = differences(loaded["torch"], loaded["sharded"])
+            rec[f"{layout[0]}x{layout[1]}_table_rows"] = \
+                loaded["sharded"].model.heads[0].input_module.item_embedding_table().shape[0]
+        # part-way through the second update of two micro-steps each
+        mesh = make_mesh(2, 1)
+        batches = [data_rows(b, mesh.data_index, mesh.data)
+                   for b in data["train"] + data["train"][:1]]
+        unbroken = build_trainer(arm, weights, os.path.join(d, "mid"), world, mesh)
+        unbroken.args.gradient_accumulation_steps = 2
+        unbroken._train_dataloader = batches[:3]
+        unbroken.args.max_steps = 3
+        unbroken.train()
+        for fmt in ("torch", "sharded"):
+            unbroken.args.checkpoint_format = fmt
+            unbroken.save(os.path.join(d, f"mid-{fmt}"))
+        unbroken._train_dataloader = batches[3:]
+        unbroken.args.max_steps = 1
+        unbroken.train()
+        for fmt in ("torch", "sharded"):
+            resumed = build_trainer(arm, weights, os.path.join(d, "mid"), world, mesh)
+            resumed.args.gradient_accumulation_steps = 2
+            resumed.load(os.path.join(d, f"mid-{fmt}"))
+            rec[f"mid_{fmt}_mini_step"] = resumed._mini_step
+            resumed._train_dataloader = batches[3:]
+            resumed.args.max_steps = 1
+            resumed.train()
+            rec[f"mid_{fmt}_rel_diff"] = max_rel_diff(resumed, unbroken)
+            rec[f"mid_{fmt}_opt_steps"] = [resumed._opt_step, unbroken._opt_step]
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
 def main():
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     store_file, in_dir, out_dir = sys.argv[3:6]
@@ -176,6 +267,8 @@ def main():
                 again.save(os.path.join(arm_dir, "resumed"))
                 with open(os.path.join(arm_dir, f"rank{rank}.json"), "w") as f:
                     json.dump(record, f)
+        if world == 2:
+            checkpoint_formats(weights, data, out_dir, rank, world)
     finally:
         dist.destroy_process_group()
 

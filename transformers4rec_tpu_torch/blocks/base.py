@@ -38,7 +38,7 @@ from torch import nn
 from ..config.transformer import T4RecConfig
 from ..masking import MaskingInfo
 from .transformer import ACTIVATIONS
-from .transformer import _lecun_normal_, dropout, init_dense_, promote
+from .transformer import LayerNorm, Linear, _lecun_normal_, dropout, init_dense_, promote
 
 # which masking schemes each architecture supports
 _DEFAULT_MASKING = ("clm", "mlm", "rtd", "plm")
@@ -95,9 +95,9 @@ class MLPBlock(nn.Module):
             return
         self.input_dim = input_dim
         for i, dim in enumerate(self.dimensions):
-            self.add_module(f"dense_{i}", nn.Linear(input_dim, dim))
+            self.add_module(f"dense_{i}", Linear(input_dim, dim))
             if self.use_norm:
-                self.add_module(f"norm_{i}", nn.LayerNorm(dim, eps=1e-6))
+                self.add_module(f"norm_{i}", LayerNorm(dim, 1e-6))
             input_dim = dim
 
     def output_size(self) -> int:
@@ -114,7 +114,7 @@ class MLPBlock(nn.Module):
         act = ACTIVATIONS[self.activation]
         for i in range(len(self.dimensions)):
             dense = getattr(self, f"dense_{i}")
-            x = act(dense(promote(x, dense.weight)))
+            x = act(dense(x))
             if self.use_norm:
                 x = getattr(self, f"norm_{i}")(x)
             x = dropout(x, self.dropout, training, generator)

@@ -106,39 +106,43 @@ def _reduced(dtype: Optional[torch.dtype]) -> bool:
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` that computes in ``compute_dtype`` as flax's Dense with
-    ``dtype=`` does: input, weight and bias cast to it at the call, the
-    parameters kept float32; the product (f32 sums) is rounded to it, then
-    the bias is added in it, as flax's ``dot_general`` and add do. ``None``
-    or float32: the float32 product."""
+    """``nn.Linear`` that computes as flax's Dense does: in ``compute_dtype``
+    when one is given (the encoder's ``dtype=``), else in the promotion of
+    its input's type and its parameters' (``dtype=None``). Input, weight and
+    bias are cast to that type at the call, so that a bf16 weight meeting an
+    f32 activation computes in f32 (``export_model(weights_dtype=...)``). In
+    float32 the product and the bias in one call; in a reduced type the
+    product (f32 sums) is rounded to it, then the bias is added in it, as
+    flax's ``dot_general`` and add do."""
 
     def __init__(self, in_features: int, out_features: int,
-                 compute_dtype: Optional[torch.dtype] = None):
-        super().__init__(in_features, out_features)
+                 compute_dtype: Optional[torch.dtype] = None, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
+        dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
         if not _reduced(dt):
-            return super().forward(x)
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if bias is None else y + bias
 
 
 class LayerNorm(nn.LayerNorm):
-    """``nn.LayerNorm`` that rounds its output to ``compute_dtype`` as
-    flax's LayerNorm with ``dtype=`` does: statistics and normalisation in
-    float32, the output rounded once."""
+    """``nn.LayerNorm`` that computes as flax's LayerNorm does: statistics
+    and normalisation in float32 (a bf16 scale and bias cast up), the output
+    rounded once to ``compute_dtype`` when one is given, else to the
+    promotion of its input's type and its parameters'."""
 
     def __init__(self, d: int, eps: float, compute_dtype: Optional[torch.dtype] = None):
         super().__init__(d, eps=eps)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        if not _reduced(dt):
-            return super().forward(x)
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
-                            self.eps).to(dt)
+        dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(dt)
 
 
 def init_dense_(lin: nn.Linear, generator: torch.Generator) -> None:

@@ -30,7 +30,10 @@ loaders, value for value:
   buffer's sessions per row until one epoch has run, and refuses
   ``global_size > 1`` (its processes would yield different batch counts).
 
-Not ported: the C++ row gather (numpy fancy indexing gives the same rows).
+Ragged columns pad through the C++ kernel (``native.pad_ragged``), and a
+batch of at least ``NATIVE_GATHER_MIN_BYTES`` gathers its rows through
+``native.gather_rows`` (numpy below that, as in the JAX loader); both give
+numpy's bits.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from .. import native
 from ..schema import Schema
 from ..utils.registry import Registry
 from .packing import pack_sessions
@@ -54,6 +58,18 @@ NDArrayDict = Dict[str, np.ndarray]
 dataloader_registry: Registry = Registry("dataloader")
 
 PREFETCH_THREAD_NAME = "t4r-prefetch"
+# a batch's bytes from which its row gathers take the native kernel: below,
+# numpy's fancy indexing is faster than the kernel's thread fan-out (the JAX
+# loader's rule)
+NATIVE_GATHER_MIN_BYTES = 4 << 20
+
+
+def native_gathers(columns: NDArrayDict, batch_size: int) -> bool:
+    """Whether a batch of ``batch_size`` rows of ``columns`` is gathered by
+    ``native.gather_rows`` (at ``NATIVE_GATHER_MIN_BYTES`` and above)."""
+    row_bytes = sum(v.dtype.itemsize * int(np.prod(v.shape[1:], dtype=np.int64))
+                    for v in columns.values())
+    return batch_size * row_bytes >= NATIVE_GATHER_MIN_BYTES
 
 
 class T4RecDataLoader:
@@ -252,6 +268,7 @@ class ParquetDataLoader(T4RecDataLoader):
         self._epoch += 1
         skip = self._skip_batches * self.batch_size
         self._skip_batches = 0
+        use_native = native_gathers(self.data, self.batch_size)
         for start in range(skip, len(order), self.batch_size):
             sel = order[start:start + self.batch_size]
             fill = sel < 0
@@ -260,6 +277,8 @@ class ParquetDataLoader(T4RecDataLoader):
                 for v in out.values():
                     v[fill] = 0
                 yield out
+            elif use_native:
+                yield {k: native.gather_rows(v, sel) for k, v in self.data.items()}
             else:
                 yield {k: v[sel] for k, v in self.data.items()}
 

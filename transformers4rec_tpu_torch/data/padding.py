@@ -1,8 +1,11 @@
-"""Ragged → dense padding on the host (numpy).
+"""Ragged → dense padding on the host.
 
-Counterpart of ``transformers4rec_tpu/data/padding.py`` on its numpy path.
-Every ragged column pads to one static ``(batch, max_len)`` shape;
-truncation keeps the FIRST ``max_len`` items of each session.
+Counterpart of ``transformers4rec_tpu/data/padding.py``. Every ragged column
+pads to one static ``(batch, max_len)`` shape; truncation keeps the FIRST
+``max_len`` items of each session. ``pad_ragged`` dispatches to the C++
+kernel (``native``) for the types it takes, as the JAX package does, and
+runs numpy for the others or when the caller asks (``use_native=False``);
+both give the same bits.
 """
 
 from __future__ import annotations
@@ -11,12 +14,19 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from .. import native
+
 NDArrayDict = Dict[str, np.ndarray]
 
 
-def pad_ragged(values: np.ndarray, offsets: np.ndarray, max_len: int) -> np.ndarray:
-    """Densify one ragged column to ``(num_rows, max_len)``, zero padded."""
+def pad_ragged(values: np.ndarray, offsets: np.ndarray, max_len: int,
+               use_native: bool = True) -> np.ndarray:
+    """Densify one ragged column to ``(num_rows, max_len)``, zero padded:
+    the native kernel for float32, int64 and int32 values unless
+    ``use_native`` is False, else numpy."""
     values = np.asarray(values)
+    if use_native and values.dtype in native.PAD_FNS:
+        return native.pad_ragged(values, offsets, max_len)
     offsets = np.asarray(offsets).astype(np.int64)
     num_rows = len(offsets) - 1
     lengths = np.minimum(offsets[1:] - offsets[:-1], max_len)

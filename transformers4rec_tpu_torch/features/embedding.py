@@ -41,7 +41,7 @@ from torch import nn
 
 from ..parallel.sharded_embedding import shard_table, sharded_embedding_lookup
 from ..schema import Schema, Tags, get_embedding_size_from_cardinality
-from ..blocks.transformer import init_dense_, promote
+from ..blocks.transformer import Linear, init_dense_, promote
 from ..tabular.base import TabularBlock, TabularData
 
 
@@ -301,7 +301,7 @@ class SoftEmbedding(nn.Module):
     def __init__(self, num_embeddings: int, embedding_dim: int):
         super().__init__()
         self.embedding_table = nn.Parameter(torch.empty(num_embeddings, embedding_dim))
-        self.projection = nn.Linear(1, num_embeddings)
+        self.projection = Linear(1, num_embeddings)
 
     def _init_weights(self, generator: torch.Generator) -> None:
         _default_initializer()(self.embedding_table, generator)
@@ -385,7 +385,7 @@ class PretrainedEmbeddingFeatures(TabularBlock):
             self.input_dims[name] = self.precomputed_dims.get(name, 0)
         if projection_dim:
             for name, dim in self.input_dims.items():
-                self.add_module(f"{name}_proj", nn.Linear(dim, projection_dim))
+                self.add_module(f"{name}_proj", Linear(dim, projection_dim))
 
     def _init_weights(self, generator: torch.Generator) -> None:
         if self.projection_dim:

@@ -23,7 +23,7 @@ from torch import nn
 from ..masking import MaskingInfo, MaskSequence, masking_registry
 from ..ops.sparse_update import GatheredRows
 from ..schema import Schema, Tags
-from ..blocks.transformer import init_dense_, promote
+from ..blocks.transformer import Linear, init_dense_
 from ..tabular.base import TabularBlock, TabularData, parse_aggregation
 from .embedding import SequenceEmbeddingFeatures
 from .tabular import TabularFeatures
@@ -59,7 +59,7 @@ class TabularSequenceFeatures(TabularFeatures):
         if self.projection_dims:
             d_in = super().output_size()
             for dim in self.projection_dims:
-                self.projections.append(nn.Linear(d_in, dim))
+                self.projections.append(Linear(d_in, dim))
                 d_in = dim
 
     @classmethod
@@ -158,7 +158,7 @@ class TabularSequenceFeatures(TabularFeatures):
         hidden = agg(outputs)
 
         for i, lin in enumerate(self.projections):
-            hidden = lin(promote(hidden, lin.weight))
+            hidden = lin(hidden)
             if i + 1 < len(self.projections):
                 hidden = torch.relu(hidden)
 

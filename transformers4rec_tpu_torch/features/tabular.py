@@ -16,9 +16,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
-from torch import nn
 
-from ..blocks.transformer import init_dense_
+from ..blocks.transformer import Linear, init_dense_
 from ..schema import Schema, Tags
 from ..tabular.base import TabularBlock, TabularData, parse_aggregation
 from .continuous import ContinuousFeatures
@@ -92,7 +91,7 @@ class TabularFeatures(TabularBlock):
         if self.continuous_projection:
             d_in = sum(continuous_module.feature_sizes().values())
             for i, dim in enumerate(self.continuous_projection):
-                self.add_module(f"continuous_projection_{i}", nn.Linear(d_in, dim))
+                self.add_module(f"continuous_projection_{i}", Linear(d_in, dim))
                 d_in = dim
         self.set_transformations(pre, post)
 

@@ -75,7 +75,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..blocks.transformer import init_dense_, promote
+from ..blocks.transformer import Linear, init_dense_, promote
 from ..masking import MaskingInfo
 from ..ops.sparse_update import GatheredRows
 from ..ops.vocab import fused_ce_and_rank, fused_softmax_ce, fused_topk
@@ -168,7 +168,7 @@ def build_task_blocks(task: nn.Module, d_in: int) -> int:
     """Add the ReLU layers of ``task.task_block_dims`` to ``task`` under
     flax's names (``task_block_{i}``); returns their output width."""
     for i, d in enumerate(task.task_block_dims):
-        task.add_module(f"task_block_{i}", nn.Linear(d_in, d))
+        task.add_module(f"task_block_{i}", Linear(d_in, d))
         d_in = d
     return d_in
 
@@ -196,7 +196,7 @@ class PredictionTask(nn.Module):
     def build(self, d_in: int) -> None:
         """The task blocks and the ``output`` layer for a body of width
         ``d_in``."""
-        self.output = nn.Linear(build_task_blocks(self, d_in), 1)
+        self.output = Linear(build_task_blocks(self, d_in), 1)
 
     def _init_weights(self, generator: torch.Generator) -> None:
         for child in self.children():
@@ -363,7 +363,7 @@ class NextItemPredictionTask(nn.Module):
             out_dim = d_in
         width = build_task_blocks(self, d_in)
         self.tying_projection = (
-            nn.Linear(width, out_dim, bias=False) if width != out_dim else None
+            Linear(width, out_dim, bias=False) if width != out_dim else None
         )
 
     def _init_weights(self, generator: torch.Generator) -> None:
@@ -591,7 +591,11 @@ class NextItemPredictionTask(nn.Module):
         extended = info.pad_mask is not None and info.pad_mask.shape[1] > item_ids.shape[1]
         last_idx = (non_pad if extended else non_pad - 1).clamp(0, x.shape[1] - 1)
         xg = x[rows, last_idx]
-        small = xg.shape[0] * table_rows <= _STREAMED_TOPK_MIN
+        # a symbolic batch (a batch-polymorphic export) takes the dense f32
+        # product, as the JAX package's isinstance check does: comparing it
+        # with the threshold would put a guard on the batch dimension
+        small = (not isinstance(xg.shape[0], int)
+                 or xg.shape[0] * table_rows <= _STREAMED_TOPK_MIN)
         if group is not None or in_process:
             if top_k is None:
                 return sharded_scores(xg / temp, W, group, vocab_size=vsz)

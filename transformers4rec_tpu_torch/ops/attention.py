@@ -14,6 +14,9 @@ recomputes them tile by tile.
   two passes and no partials. ``flash_backward`` takes K6a while the partials
   stay under ``BWD_DQ_PARTIAL_MAX_BYTES`` and K6b + K6c above it.
 
+K5 is the registered operator ``t4r::flash_fwd`` (``flash_fwd_op``), so that
+a ``torch.export`` program of the inference path holds it as a node which
+runs the kernel on the card and the plain version on the CPU.
 For CUDA tensors the four wrappers launch the hand-written kernels of
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (and raise when they cannot;
 K5 and K6a in one of two designs, ``mma.sync`` or ``wgmma``, by head dim:
@@ -481,15 +484,34 @@ def _flash_bwd_dkv_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal,
     return dk, dv
 
 
+@torch.library.custom_op("t4r::flash_fwd", mutates_args=(), device_types="cpu")
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 bias: Optional[torch.Tensor], pad_mask: Optional[torch.Tensor],
+                 causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 as the registered operator ``t4r::flash_fwd``, so that a
+    ``torch.export`` program holds it as one node: on CPU tensors
+    ``flash_forward_plain``, on CUDA tensors the kernel (or a raise)."""
+    return flash_forward_plain(q, k, v, bias, pad_mask, causal)
+
+
+@flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_op_cuda(q, k, v, bias, pad_mask, causal):
+    return _flash_fwd_cuda(q, k, v, bias, pad_mask, causal)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_op_fake(q, k, v, bias, pad_mask, causal):
+    B, S, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B * H, S), dtype=torch.float32)
+
+
 def flash_fwd(q, k, v, bias=None, pad_mask=None, causal=False):
     """K5: ``(out (B, S, H, Dh) in q's type, lse (B·H, S) f32)``. q, k, v
     (B, S, H, Dh) contiguous, all f32 or all bf16; bias f32 (1|B, 1|H, S, S) or None; pad_mask (B, S) bool
-    (True = a real key) or None. CUDA tensors launch the CUDA kernel
-    (``flash_fwd.launches`` counts the launches); CPU tensors run
-    ``flash_forward_plain``."""
-    if q.device.type == "cpu":
-        return flash_forward_plain(q, k, v, bias, pad_mask, causal)
-    return _flash_fwd_cuda(q, k, v, bias, pad_mask, causal)
+    (True = a real key) or None. Goes through ``t4r::flash_fwd``: CUDA
+    tensors launch the CUDA kernel (``flash_fwd.launches`` counts the
+    launches); CPU tensors run ``flash_forward_plain``."""
+    return flash_fwd_op(q, k, v, bias, pad_mask, bool(causal))
 
 
 flash_fwd.launches = flash_fwd.bf16_launches = 0

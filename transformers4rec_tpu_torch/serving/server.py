@@ -15,9 +15,13 @@ Endpoints (JSON):
 - ``GET /v2/stats`` — request/batch counters (observed dynamic batching)
 
 CLI: ``python -m transformers4rec_tpu_torch.serving.server --artifact DIR
---model-builder MODULE:FUNC [--device cuda|cpu] [--model-axis M] --port N``.
-``--model-axis M`` serves through ``ShardedInferenceRunner``: the item table
-split into M row shards over the machine's cards.
+[--device cuda|cpu] --port N`` serves the artifact's program alone (it runs
+on the device type it was traced on). ``--model-builder MODULE:FUNC``
+rebuilds the model from code instead, and with ``--model-axis M`` serves
+through ``ShardedInferenceRunner``: the item table split into M row shards
+over the machine's cards (an artifact exported with ``bundle_params=True``).
+Raw Categorify values are encoded and ragged sessions densified once, in
+the request's handler.
 """
 
 from __future__ import annotations
@@ -112,7 +116,7 @@ class DynamicBatcher:
                     k: np.concatenate([v, np.zeros((bucket - n, *v.shape[1:]), v.dtype)], axis=0)
                     for k, v in batch.items()
                 }
-            out = self.runner.predict(batch)
+            out = self.runner.predict(batch, encode_inputs=False)
             self.stats["requests"] += len(pending)
             self.stats["batches"] += 1
             self.stats["rows"] += n
@@ -148,13 +152,18 @@ class ServingServer:
         model_axis: Optional[int] = None,
     ):
         if runner is None:
-            if model_builder is None:
-                raise ValueError("ServingServer needs a model_builder or a runner")
-            runner = (InferenceRunner(artifact_path, model_builder, device=device)
-                      if model_axis is None else
-                      ShardedInferenceRunner(artifact_path, model_builder,
-                                             model_axis=model_axis, device=device))
+            if model_axis is None:
+                runner = InferenceRunner(artifact_path, model_builder, device=device)
+            elif model_builder is None:
+                raise ValueError("model-parallel serving (model_axis) needs a model_builder")
+            else:
+                runner = ShardedInferenceRunner(artifact_path, model_builder,
+                                                model_axis=model_axis, device=device)
         self.runner = runner
+        if not runner.metadata.get("batch_polymorphic", True):
+            # a program of one batch size takes no larger batch
+            max_batch_size = min(max_batch_size,
+                                 runner.metadata.get("example_batch_size", max_batch_size))
         self.batcher = DynamicBatcher(runner, max_batch_size=max_batch_size,
                                       max_delay_ms=max_delay_ms)
         feats = runner.metadata["features"]
@@ -193,12 +202,13 @@ class ServingServer:
                     for k, spec_shape in feats.items():
                         if k not in payload.get("inputs", {}):
                             raise KeyError(f"missing input column '{k}'")
+                        # encode raw values (a bundled Categorify mapping) and
                         # densify ragged sessions here, once, so the batcher
-                        # coalesces plain fixed-shape arrays
-                        arr = np.asarray(
-                            runner._densify(k, payload["inputs"][k], spec_shape, dtypes[k]),
-                            dtype=dtypes[k],
-                        )
+                        # coalesces plain fixed-shape arrays and the worker
+                        # runs predict(encode_inputs=False)
+                        v = runner.encode(k, payload["inputs"][k])
+                        arr = np.asarray(runner._densify(k, v, spec_shape, dtypes[k]),
+                                         dtype=dtypes[k])
                         if list(arr.shape[1:]) != list(spec_shape):
                             raise ValueError(
                                 f"column '{k}': expected trailing shape {spec_shape}, "
@@ -250,9 +260,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--artifact", required=True, help="export_model output dir")
     ap.add_argument(
-        "--model-builder", required=True, metavar="MODULE:FUNC",
+        "--model-builder", default=None, metavar="MODULE:FUNC",
         help="an importable callable taking a device and returning the Model the "
-        "artifact was exported from (model code ships beside the weights)",
+        "artifact was exported from: serve the rebuilt model instead of the "
+        "artifact's program (needed for --model-axis)",
     )
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--model-axis", type=int, default=None,
@@ -263,13 +274,16 @@ def main(argv=None):
     ap.add_argument("--max-batch-size", type=int, default=64)
     ap.add_argument("--max-delay-ms", type=float, default=5.0)
     args = ap.parse_args(argv)
+    if args.model_axis is not None and args.model_builder is None:
+        ap.error("--model-axis needs --model-builder")
+    builder = load_builder(args.model_builder) if args.model_builder else None
     server = ServingServer(
-        args.artifact, load_builder(args.model_builder), host=args.host, port=args.port,
+        args.artifact, builder, host=args.host, port=args.port,
         max_batch_size=args.max_batch_size, max_delay_ms=args.max_delay_ms,
         device=args.device, model_axis=args.model_axis,
     )
     print(f"serving {args.artifact} on {server.host}:{server.port} "
-          f"(max_batch={args.max_batch_size}, delay={args.max_delay_ms}ms)")
+          f"(max_batch={args.max_batch_size}, delay={args.max_delay_ms}ms)", flush=True)
     server.serve_forever()
 
 

@@ -2,8 +2,8 @@
 item table split over several devices.
 
 Counterpart of ``transformers4rec_tpu/serving/sharded.py``. The artifact
-(``serving.export``) already holds every weight in ``model.pt``, so the
-runner loads it as ``InferenceRunner`` does and then splits the tied item
+must have been exported with ``bundle_params=True``: the runner rebuilds
+the model with its builder, loads ``model.pt`` into it and then splits the tied item
 table into ``model_axis`` row shards, shard i on ``cuda:(i mod cards)``
 (on the CPU with ``device="cpu"``), by the training layout's rule
 (``parallel.mesh.shards_rows``: at least ``MIN_ROWS_TO_SHARD`` rows that
@@ -35,6 +35,11 @@ class ShardedInferenceRunner(InferenceRunner):
 
     def __init__(self, path: str, model_builder: Callable[[torch.device], Model],
                  model_axis: Optional[int] = None, device=None):
+        self._load_artifact_meta(path)
+        if not self.metadata.get("bundled_params"):
+            raise ValueError(
+                "artifact has no bundled params — re-export with "
+                "export_model(..., bundle_params=True) to serve model-parallel")
         super().__init__(path, model_builder, device=device)
         cuda = self.device.type == "cuda"
         cards = torch.cuda.device_count() if cuda else 1

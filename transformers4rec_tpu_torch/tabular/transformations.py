@@ -17,9 +17,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch import nn
 
-from ..blocks.transformer import dropout, promote
+from ..blocks.transformer import LayerNorm, dropout
 from .base import TabularData, TabularTransformation, tabular_transformation_registry
 
 
@@ -122,7 +121,7 @@ class TabularLayerNorm(TabularTransformation):
             if dim > 1:
                 if "." in key:
                     raise ValueError(f"feature name {key!r}: a '.' cannot name a module")
-                self.add_module(f"ln_{key}", nn.LayerNorm(dim, eps=self.eps))
+                self.add_module(f"ln_{key}", LayerNorm(dim, self.eps))
                 self.keys += (key,)
 
     def forward(self, inputs, training=False, pad_mask=None, generator=None):
@@ -131,7 +130,7 @@ class TabularLayerNorm(TabularTransformation):
             if key in self.keys and val.is_floating_point():
                 # a bf16 lookup is normalised in f32, as flax promotes it
                 ln = getattr(self, f"ln_{key}")
-                out[key] = ln(promote(val, ln.weight))
+                out[key] = ln(val)
             else:
                 out[key] = val
         return out

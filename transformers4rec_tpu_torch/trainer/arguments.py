@@ -1,10 +1,13 @@
 """Training arguments.
 
 Counterpart of ``transformers4rec_tpu/trainer/arguments.py``: the same field
-names with the same defaults. Options whose code is not ported yet raise
-``NotImplementedError`` when set away from their defaults: the msgpack and
-orbax checkpoint formats and asynchronous saves, and the profiler window.
-The checkpoint is one ``torch.save`` file (``checkpoint_format="torch"``).
+names, with the same defaults but for ``checkpoint_format``. It takes
+``"torch"`` (the default: one gathered ``torch.save`` file, the JAX
+package's ``"msgpack"``) and ``"sharded"`` (each rank writes the rows it
+holds, the JAX package's ``"orbax"``); the JAX names raise a ``ValueError``
+naming their counterpart. ``save_async`` writes checkpoints on a thread,
+and ``profile_steps="lo,hi"`` traces those steps of ``train()`` into
+``profile_dir`` (default ``output_dir/profile``).
 
 ``mesh_model_axis`` is the model axis of the trainer's ('data', 'model')
 layout of ranks (``parallel.mesh``), and ``auto_vocab_parallel`` row-shards
@@ -153,15 +156,23 @@ class T4RecTrainingArguments:
         if self.data_loader_engine not in ("parquet", "merlin", "parquet_streaming",
                                            "synthetic"):
             raise ValueError(f"unknown data_loader_engine {self.data_loader_engine!r}")
-        defaults = {f.name: f.default for f in dataclasses.fields(self)}
         if self.mesh_model_axis < 1:
             raise ValueError(f"mesh_model_axis must be at least 1 (got {self.mesh_model_axis})")
-        for name in ("checkpoint_format", "save_async", "profile_steps", "profile_dir"):
-            if getattr(self, name) != defaults[name]:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet "
-                    f"(the port supports {defaults[name]!r})"
-                )
+        if self.checkpoint_format in CHECKPOINT_COUNTERPARTS:
+            raise ValueError(
+                f"checkpoint_format={self.checkpoint_format!r} is the JAX package's; the "
+                f"port's counterpart is {CHECKPOINT_COUNTERPARTS[self.checkpoint_format]!r}")
+        if self.checkpoint_format not in CHECKPOINT_FORMATS:
+            raise ValueError(f"unknown checkpoint_format {self.checkpoint_format!r}; "
+                             f"known: {CHECKPOINT_FORMATS}")
+        if self.profile_steps is not None:
+            try:
+                lo, hi = (int(x) for x in self.profile_steps.split(","))
+            except ValueError:
+                raise ValueError(f"profile_steps must be 'start,stop', got "
+                                 f"{self.profile_steps!r}") from None
+            if not 0 <= lo < hi:
+                raise ValueError(f"profile_steps needs 0 <= start < stop, got {lo}, {hi}")
 
     @property
     def train_batch_size(self) -> int:
@@ -171,6 +182,11 @@ class T4RecTrainingArguments:
     @property
     def eval_batch_size(self) -> int:
         return self.per_device_eval_batch_size * _world_size()
+
+
+CHECKPOINT_FORMATS = ("torch", "sharded")
+# the JAX package's formats and the port's counterparts
+CHECKPOINT_COUNTERPARTS = {"msgpack": "torch", "orbax": "sharded"}
 
 
 def _world_size() -> int:

@@ -94,14 +94,20 @@ its data row 0 peer's), as DDP broadcasts them.
   index 0 draws as a trainer without ranks does.
 - ``evaluate`` sums its metric and loss states over the data group once;
   ``predict`` gathers the data rows' top-k in the dataset's order.
-- a checkpoint gathers the shards to rank 0, which writes the one file of
-  the one-rank format (and every data row's generator); loading shards it
-  again, so a checkpoint loads on any layout. Logging, ``metrics.jsonl``,
+- a ``"torch"`` checkpoint gathers the shards to rank 0, which writes the
+  one file of the one-rank format (and every data row's generator); a
+  ``"sharded"`` one is written by every rank of data row 0, each its own
+  rows (``trainer/checkpoint.py``). Loading either takes this rank's rows,
+  so a checkpoint loads on any layout. Logging, ``metrics.jsonl``,
   TensorBoard, progress bars and the checkpoints' rotation are rank 0's.
+- a save part-way through gradient accumulation keeps the pending
+  gradients summed over the data group; on load data row 0 takes them.
 
-Not ported (raise where reached): asynchronous and orbax checkpoints, and a
-save part-way through gradient accumulation over a data axis of more than
-one rank (its pending gradients differ between the data rows).
+``save_async`` writes checkpoints on a thread after a host snapshot, and
+``profile_steps="lo,hi"`` records steps ``lo`` to ``hi`` of ``train()`` with
+``torch.profiler`` (CPU and CUDA activity, one step a group while the window
+is open) into ``profile_dir`` (default ``output_dir/profile``), as a Chrome
+trace per rank.
 """
 
 from __future__ import annotations
@@ -144,10 +150,21 @@ from ..parallel.mesh import (
 from ..schema import Schema
 from ..utils.device import resolve_device
 from .arguments import SPARSE_OPTIMIZERS, T4RecTrainingArguments
+from .checkpoint import (
+    CHECKPOINT_FILE,
+    RowShard,
+    RowShards,
+    ShardReader,
+    checkpoint_complete,
+    replicated_file,
+    rows_file,
+    sharded_shards,
+    snapshot,
+    wait_all_pending,
+    write_files,
+)
 from .schedulers import get_scheduler, num_cosine_cycles
 from .sparse_embedding_step import SparseEmbeddingStep, validate_sparse_config
-
-CHECKPOINT_FILE = "trainer.pt"
 # tied item tables from this many rows on hear of the sparse arms once
 SPARSE_HINT_MIN_ROWS = 1_000_000
 # data row i's generator is seeded args.seed + 17 + DATA_SEED_STRIDE * i
@@ -279,6 +296,7 @@ class Trainer:
         self._mini_step = 0  # micro-steps since the last update, below K
         self._sparse: Optional[SparseEmbeddingStep] = None
         self._sparse_hint_emitted = False
+        self._reader = None  # a sharded checkpoint's shard files while it loads
         self._last_num_steps: Optional[int] = None
         self._generator = torch.Generator(device=self.device).manual_seed(
             self._generator_seed(self.mesh.data_index))
@@ -629,6 +647,9 @@ class Trainer:
                 num_steps = max(a.max_steps - self.state.global_step, 0)
         K = max(int(a.steps_per_execution), 1)
         self.state.past_global_steps = self.state.global_step
+        window = (tuple(int(x) for x in a.profile_steps.split(","))
+                  if a.profile_steps else None)
+        profiler = None
         pbar = None
         if not a.disable_tqdm and self.is_main:
             try:
@@ -687,6 +708,8 @@ class Trainer:
             epoch_batches = 0
             for batch in loader:
                 epoch_batches += 1
+                if window and profiler is None and step_in_run == window[0]:
+                    profiler = self._start_profiler()
                 pending.append(batch)
                 # a group never crosses the run's end, a save or an evaluation
                 # boundary: both must see the state exactly at that step
@@ -694,10 +717,15 @@ class Trainer:
                 for every in (a.save_steps, a.eval_steps):
                     if every:
                         k_target = min(k_target, every - (step_in_run % every))
+                if window is not None:
+                    k_target = 1  # the trace's edges fall on steps
                 if len(pending) < k_target:
                     continue
                 dispatch(pending)
                 pending = []
+                if profiler is not None and step_in_run >= window[1]:
+                    self._stop_profiler(profiler, window)
+                    profiler, window = None, None
                 if done:
                     break
             else:
@@ -711,8 +739,11 @@ class Trainer:
             epoch += 1
             self.state.epoch = epoch
 
+        if profiler is not None:  # the run ended inside the window
+            self._stop_profiler(profiler, window)
         if pbar is not None:
             pbar.close()
+        self.wait_for_checkpoints()
         if a.load_best_model_at_end:
             if self._best_checkpoint and os.path.isdir(self._best_checkpoint):
                 # the best weights only: step, history and optimizers stay
@@ -733,6 +764,27 @@ class Trainer:
         self._report(metrics, self.state.global_step)
         self._log_json(metrics)
         return metrics
+
+    def _start_profiler(self):
+        """A ``torch.profiler`` recording CPU activity, and the card's."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler, window) -> str:
+        """Stop ``profiler`` once the device is done and write its Chrome
+        trace under ``profile_dir`` (default ``output_dir/profile``)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        out = self.args.profile_dir or os.path.join(self.args.output_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"trace-steps-{window[0]}-{window[1]}-rank{self.mesh.rank}.json")
+        profiler.export_chrome_trace(path)
+        return path
 
     def _report(self, record: Dict[str, Any], step: int) -> None:
         """Numeric scalars to TensorBoard under ``{output_dir}/runs`` when
@@ -868,7 +920,7 @@ class Trainer:
             return None
         done = [(int(d.split("-")[1]), d) for d in os.listdir(root)
                 if d.startswith("checkpoint-") and d.split("-")[1].isdigit()
-                and os.path.isfile(os.path.join(root, d, CHECKPOINT_FILE))]
+                and checkpoint_complete(os.path.join(root, d))]
         return os.path.join(root, max(done)[1]) if done else None
 
     def _save_checkpoint(self) -> str:
@@ -914,6 +966,7 @@ class Trainer:
         limit = self.args.save_total_limit
         if not limit or not self.is_main:
             return
+        self.wait_for_checkpoints()
         root = self.args.output_dir
         keep = os.path.basename(self._best_checkpoint or "")
         done = sorted((d for d in os.listdir(root) if d.startswith("checkpoint-")),
@@ -922,80 +975,141 @@ class Trainer:
             if d != keep:
                 shutil.rmtree(os.path.join(root, d), ignore_errors=True)
 
-    def save(self, path: str) -> None:
+    def wait_for_checkpoints(self) -> None:
+        """Block until every asynchronous checkpoint write of this process
+        is on disk (none without ``save_async``)."""
+        wait_all_pending()
+
+    def save(self, path: str, blocking: Optional[bool] = None) -> None:
         """Write the model, the optimizers (the sparse rows' state too), the
         trainer state, the generators, the loader position and a pending
         accumulation (its micro-step, the summed gradients, the sparse arm's
-        buffered rows) to ``path/trainer.pt`` (written under another name
-        first, so a complete file is the completion marker). Over ranks
-        every rank takes part: the row shards are gathered to rank 0, which
-        writes the one-rank format, with one generator a data row."""
-        if self._mini_step and self.mesh.data_group is not None:
-            raise NotImplementedError(
-                "a save part-way through gradient accumulation over a data axis: make "
-                "save_steps a multiple of gradient_accumulation_steps")
+        buffered rows) under ``path``, in ``args.checkpoint_format``
+        (``trainer/checkpoint.py``): ``"torch"``, the row shards gathered to
+        rank 0, which writes the one-rank format to ``trainer.pt``, or
+        ``"sharded"``, each rank of data row 0 its own rows and rank 0 the
+        rest. One generator a data row. Over ranks every rank takes part.
+
+        A snapshot of all of it is taken to host memory on the caller's
+        thread; with ``blocking=False`` (the default under
+        ``args.save_async``) the files are written on a thread, and the live
+        state may move on as soon as this returns. Each file is renamed into
+        place when whole, the completion marker of its part.
+
+        Part-way through gradient accumulation over a data axis, the
+        pending gradients are saved summed over the data group (and the
+        sparse arm's buffered rows gathered over it); ``load`` gives them
+        to data row 0 and zeros to the others, so that the resumed update
+        sums to the unbroken one."""
+        if blocking is None:
+            blocking = not self.args.save_async
+        # one save in flight at a time; the barrier at the end orders every
+        # rank's earlier writes before this save's
+        self.wait_for_checkpoints()
+        m = self.mesh
         # every data row's generator; the model group's gathers run in data row 0
         states = all_gather_rows(self._generator.get_state().to(self.device)[None], None
-                                 if self.mesh.size == 1 else torch.distributed.group.WORLD)
+                                 if m.size == 1 else torch.distributed.group.WORLD)
         # copies: a generator reads its state from the start of the storage
-        generators = [states[int(r)].cpu().clone() for r in self.mesh.ranks[:, 0]]
-        if self.mesh.data_index == 0:
+        generators = [states[int(r)].cpu().clone() for r in m.ranks[:, 0]]
+        grads, sparse_accum = {}, None
+        if self._mini_step:
+            grads = {n: p.grad for n, p in self.model.named_parameters() if p.grad is not None}
+            if m.data_group is not None:
+                grads = self._summed_over_data(grads)
+                if self._sparse is not None:
+                    acc = self._sparse.accum
+                    sparse_accum = {k: [all_gather_rows(t, m.data_group) for t in v]
+                                    for k, v in (("ids", acc.ids), ("grads", acc.grads))}
+        sharded = self.args.checkpoint_format == "sharded"
+        shards = RowShards(m.model if self._row_shards else 0)
+        rows_of = shards if sharded else (lambda t: all_gather_rows(t, m.model_group))
+        files = {}
+        if m.data_index == 0:
+            sparse = self._sparse_doc(lambda tree, shard: self._rows_of(tree, shard, rows_of))
+            if sparse_accum is not None:
+                sparse = {**sparse, "accum": sparse_accum}
             doc = {
-                "model": self._gather_shards(self.model.state_dict()),
-                "optimizers": {k: self._gather_opt(opt) for k, opt in self.optimizers.items()},
+                "model": self._shards_of(self.model.state_dict(), rows_of),
+                "optimizers": {k: self._opt_of(opt, rows_of) for k, opt in self.optimizers.items()},
                 "trainer_state": dataclasses.asdict(self.state),
                 "opt_step": self._opt_step,
                 "num_training_steps": self._last_num_steps,
                 "generators": generators,
                 # a resume part-way through an accumulation continues it exactly
                 "mini_step": self._mini_step,
-                "grads": self._gather_shards({n: p.grad for n, p in self.model.named_parameters()
-                                              if p.grad is not None}) if self._mini_step else {},
-                "sparse": self._sparse_doc(self._gather_rows_of),
+                "grads": self._shards_of(grads, rows_of),
+                "sparse": sparse,
             }
-            if self.is_main:
-                os.makedirs(path, exist_ok=True)
-                tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
-                torch.save(doc, tmp)
-                os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
-        barrier(self.mesh, self.device)
+            if sharded:
+                if shards.local:
+                    files[rows_file(m.model_index, shards.shards)] = shards.local
+                if self.is_main:
+                    files[replicated_file(shards.shards)] = doc
+            elif self.is_main:
+                files[CHECKPOINT_FILE] = doc
+        write_files(path, snapshot(files), blocking)
+        barrier(m, self.device)
 
-    # a row shard's state over the model group: gathered whole to save,
+    def _summed_over_data(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Copies of ``grads`` summed over the data group, in one collective
+        (the live gradients stay this rank's)."""
+        if not grads:
+            return grads
+        flat = all_reduce_(torch.cat([g.reshape(-1).float() for g in grads.values()]),
+                           self.mesh.data_group)
+        out, offset = {}, 0
+        for n, g in grads.items():
+            out[n] = flat[offset:offset + g.numel()].view_as(g).to(g.dtype)
+            offset += g.numel()
+        return out
+
+    # a row shard's state over the model group: gathered whole (``"torch"``)
+    # or filed as this rank's rows (``"sharded"``) by ``rows_of`` to save;
     # this rank's rows taken again to load
-    def _gather_shards(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        group = self.mesh.model_group
-        return {k: all_gather_rows(v, group) if k in self._row_shards else v
-                for k, v in state.items()}
+    def _shards_of(self, state: Dict[str, torch.Tensor], rows_of) -> Dict[str, object]:
+        return {k: rows_of(v) if k in self._row_shards else v for k, v in state.items()}
 
-    def _local_shards(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def _rows_here(self, t, sharded: bool):
+        """This rank's rows of a checkpoint's whole tensor when ``sharded``
+        here, else all of them: ``t`` a tensor, or a ``RowShard`` of a
+        sharded checkpoint, read from its shard files."""
         m = self.mesh
-        return {k: take_shard(v, m.model_index, m.model) if k in self._row_shards else v
-                for k, v in state.items()}
+        if isinstance(t, RowShard):
+            if not sharded:
+                return self._reader.rows(t, 0, t.rows)
+            per = t.rows // m.model
+            return self._reader.rows(t, m.model_index * per, (m.model_index + 1) * per)
+        return take_shard(t, m.model_index, m.model) if sharded else t
 
-    def _gather_rows_of(self, tree, shard: torch.Tensor):
+    def _local_shards(self, state: Dict[str, object]) -> Dict[str, torch.Tensor]:
+        return {k: self._rows_here(v, k in self._row_shards) for k, v in state.items()}
+
+    def _rows_of(self, tree, shard: torch.Tensor, rows_of):
         """``tree`` (nested dicts and lists) with every tensor of ``shard``'s
-        rows gathered over the model group."""
+        rows passed through ``rows_of``."""
         if isinstance(tree, dict):
-            return {k: self._gather_rows_of(v, shard) for k, v in tree.items()}
+            return {k: self._rows_of(v, shard, rows_of) for k, v in tree.items()}
         if isinstance(tree, list):
-            return [self._gather_rows_of(v, shard) for v in tree]
+            return [self._rows_of(v, shard, rows_of) for v in tree]
         if torch.is_tensor(tree) and tree.dim() and tree.shape[0] == shard.shape[0] \
                 and id(shard) in self._shard_ids:
-            return all_gather_rows(tree, self.mesh.model_group)
+            return rows_of(tree)
         return tree
 
     def _local_rows_of(self, tree, shard: torch.Tensor):
-        """The inverse of ``_gather_rows_of``: this rank's rows of every
-        tensor with the whole table's rows."""
+        """The inverse of ``_rows_of``: this rank's rows of every tensor with
+        the whole table's rows."""
         if isinstance(tree, dict):
             return {k: self._local_rows_of(v, shard) for k, v in tree.items()}
         if isinstance(tree, list):
             return [self._local_rows_of(v, shard) for v in tree]
-        m = self.mesh
-        if torch.is_tensor(tree) and tree.dim() and tree.shape[0] == shard.shape[0] * m.model \
-                and id(shard) in self._shard_ids:
-            return take_shard(tree, m.model_index, m.model)
-        return tree
+        rows = tree.rows if isinstance(tree, RowShard) else (
+            tree.shape[0] if torch.is_tensor(tree) and tree.dim() else None)
+        if rows is None:
+            return tree
+        return self._rows_here(tree, rows == shard.shape[0] * self.mesh.model
+                               and id(shard) in self._shard_ids)
 
     def _sparse_doc(self, rows_of, doc: Optional[dict] = None) -> Optional[dict]:
         """The sparse arm's checkpoint entry with its rows' state (not its
@@ -1009,11 +1123,11 @@ class Trainer:
     def _opt_params(self, opt) -> List[torch.Tensor]:
         return [p for group in opt.param_groups for p in group["params"]]
 
-    def _gather_opt(self, opt) -> dict:
+    def _opt_of(self, opt, rows_of) -> dict:
         sd = opt.state_dict()
         params = self._opt_params(opt)
         # new dicts: state_dict() shares each parameter's state with the optimizer
-        sd["state"] = {i: self._gather_rows_of(dict(st), params[i])
+        sd["state"] = {i: self._rows_of(dict(st), params[i], rows_of)
                        for i, st in sd["state"].items()}
         return sd
 
@@ -1023,33 +1137,66 @@ class Trainer:
                                 for i, st in sd["state"].items()}}
 
     def _read_checkpoint(self, path: str) -> dict:
-        doc = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=self.device,
-                         weights_only=False)
+        """The checkpoint at ``path`` in either format (found from its
+        files), its model's row shards already this rank's rows. A sharded
+        checkpoint's other row-sharded tensors stay ``RowShard``
+        references, read by ``_local_rows_of`` (``self._reader``)."""
+        # every rank's writes, this one's and (the barrier) the others'
+        self.wait_for_checkpoints()
+        barrier(self.mesh, self.device)
+        shards = None if os.path.isfile(os.path.join(path, CHECKPOINT_FILE)) \
+            else sharded_shards(path)
+        if shards is None:
+            doc = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=self.device,
+                             weights_only=False)
+            self._reader = None
+        else:
+            doc = torch.load(os.path.join(path, replicated_file(shards)),
+                             map_location=self.device, weights_only=False)
+            self._reader = ShardReader(path)
         doc["model"] = self._local_shards(doc["model"])
         return doc
 
     def _load_params_only(self, path: str) -> None:
         """The weights of a checkpoint; optimizers, generator and state stay."""
-        load_weights(self.model, self._read_checkpoint(path)["model"])
+        load_weights(self.model, self._to_device(self._read_checkpoint(path)["model"]))
+        self._reader = None
+
+    def _to_device(self, tree):
+        """``tree`` on the device: rows read from shard files (host memory)
+        moved there, a ``RowShard`` still in it read whole."""
+        if isinstance(tree, dict):
+            return {k: self._to_device(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [self._to_device(v) for v in tree]
+        if isinstance(tree, RowShard):
+            tree = self._reader.rows(tree, 0, tree.rows)
+        return tree.to(self.device) if torch.is_tensor(tree) else tree
 
     def load(self, path: str) -> None:
         """Restore a checkpoint ``save`` wrote, on this layout of ranks
         whatever the layout that wrote it: row shards take this rank's rows.
         A data row that the writer did not have reseeds its generator."""
         doc = self._read_checkpoint(path)
-        load_weights(self.model, doc["model"])
+        load_weights(self.model, self._to_device(doc["model"]))
+        # data row 0 takes pending gradients summed over the data group
+        first_row = self.mesh.data_index == 0
         if doc["optimizers"]:
             self.create_optimizer_and_scheduler(doc["num_training_steps"])
             for k, sd in doc["optimizers"].items():
-                self.optimizers[k].load_state_dict(self._local_opt(self.optimizers[k], sd))
+                self.optimizers[k].load_state_dict(
+                    self._to_device(self._local_opt(self.optimizers[k], sd)))
             if doc.get("sparse") is not None:
-                self._sparse.load_state_dict(self._sparse_doc(self._local_rows_of,
-                                                              doc["sparse"]))
+                sparse = self._to_device(self._sparse_doc(self._local_rows_of, doc["sparse"]))
+                if not first_row:
+                    acc = sparse["accum"]
+                    sparse["accum"] = {**acc, "grads": [torch.zeros_like(g) for g in acc["grads"]]}
+                self._sparse.load_state_dict(sparse)
         self._opt_step = doc["opt_step"]
         self._mini_step = doc.get("mini_step", 0)
         params = dict(self.model.named_parameters())
-        for n, g in self._local_shards(doc.get("grads", {})).items():
-            params[n].grad = g.to(params[n].device)
+        for n, g in self._to_device(self._local_shards(doc.get("grads", {}))).items():
+            params[n].grad = g.to(params[n].device) if first_row else torch.zeros_like(params[n])
         self.state = TrainerState(**doc["trainer_state"])
         generators = doc["generators"] if "generators" in doc else [doc["generator"]]
         if self.mesh.data_index < len(generators):
@@ -1057,6 +1204,7 @@ class Trainer:
         else:
             self._generator.manual_seed(self._generator_seed(self.mesh.data_index))
         self._resume_position = (self.state.loader_epoch, self.state.batches_in_epoch)
+        self._reader = None
 
     def wipe_memory(self) -> None:
         """Free what a time window leaves behind: a garbage collection, and
