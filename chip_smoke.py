@@ -45,7 +45,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    those shapes and at (32, 256, 8, 36) (a head's bf16 row of 72 bytes:
    8-byte aligned, not 16), each against its plain version on the bf16
    inputs and, in every design the head dim takes, against the bits of its
-   f32 form on the same values rounded once (``check_flash_bf16``); K1 and K2 at the
+   f32 form on the same values rounded once (``check_flash_bf16``), and
+   their f16 forms likewise at the same nine shapes (``check_flash_f16``:
+   the f32 form's bits on ``x.float()`` rounded once to f16); K1 and K2 at the
    long-session training shapes of 8,192 and 16,384 loss rows (every K1
    and K2 check also asks each kernel a second time for the same bits);
    and K1, K2, K3 and K4 on item
@@ -284,6 +286,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     p99 through the program and the builder; GPT-2-CLM's program (K5
     launches inside its calls; its top-k equal to the eager model's); the
     loader's native ``pad_ragged`` and gather against numpy;
+11d. AB, float16 as the encoder's compute type and the last modules
+    (``run_f16_and_modules``; every flash launch the f16 form's, counted
+    under ``<kernel>_f16``): AB1 GPT-2-CLM in f16 (``build_model(scheme=
+    "clm", dtype=torch.float16)``): one training step at batch 4,
+    ``Model.evaluate`` over 4 batches and the top-k of 8 ragged sessions
+    through the exported ``torch.export`` program (K5 f16 inside it), each
+    against the CPU, then 8 + 16 trainer steps (a falling loss) and 8 with
+    ``remat`` (K5 and K6a f16 three times a step, K5 six with remat); AB2
+    the one-layer step at S = 4,096 in f16 (K6b and K6c f16 once a step);
+    AB3 the flagship with ``pre="layer-norm"`` (the raw continuous columns
+    normalised over their 20 positions) and AB4 its body fused with its
+    ``weekday_sin`` column by ``PostContextFusion`` in a ``Head``, one
+    step each against the CPU; AB5 the four examples by ``python -m
+    transformers4rec_tpu_torch.examples.<name>`` with their default flags,
+    started together (``large_vocab_stress`` with two ranks sharing the
+    card over Gloo);
 12. time K3 and K4 at the evaluation shape, K1 and K2 at the three training
     shapes (915, 8,192 and 16,384 loss rows), all four again at E = 448 (K1
     and K2 at 915 and 8,192 rows), K7a and K7b at the item table's shape
@@ -291,7 +309,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     (4, 2048, 8, 64), K5 and K6a in both their designs (``mma.sync`` and
     ``wgmma``), K6b and K6c in both theirs (``mma.sync`` and streamed) and
     the split route K6b + K6c beside K6a, and their bf16 forms at the same
-    shapes and at (32, 256, 8, 36), each beside its f32 form, each beside its plain version and,
+    shapes and at (32, 256, 8, 36), each beside its f32 form, and their
+    f16 forms at the same three shapes beside both, each beside its plain version and,
     where there is one, a library yardstick (CUDA events, median after warm-up; at 8,192 rows and
     more the cross-entropy's yardstick runs 1,024 rows at a time), and a
     whole table-optimizer step on each of its arms; K3 at 2,560 and 8,192
@@ -305,7 +324,9 @@ kernel.
 The second-to-last line of standard output is one JSON object with a
 ``kernels`` list: each kernel's error, time and bound at the shape at which a
 main path launches it (K5 and K6a at phase 10's, K6b and K6c at phase 11's;
-the bf16 forms, ``<kernel>_bf16``, at phase Y's, with ``f32_form_ms``),
+the bf16 forms, ``<kernel>_bf16``, at phase Y's, with ``f32_form_ms``;
+the f16 forms, ``<kernel>_f16``, at phase AB's, with ``f32_form_ms`` and
+``bf16_form_ms``),
 and under ``also_at`` its times at other shapes, each marked ``main_path``:
 true where a main path launches it there, false where only this script
 does; the last is ``{"ok": true, "device": {...}}``.
@@ -917,65 +938,78 @@ def check_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: 
     return res
 
 
-def bf16_spacing_of(t: torch.Tensor) -> torch.Tensor:
-    """The spacing of bf16 values at |t| (2^-7 of the power of two below)."""
-    return torch.exp2(torch.floor(torch.log2(t.float().abs().clamp_min(2.0 ** -120))) - 7)
+# the mantissa bits of each reduced type and the exponent below which its
+# spacing is taken as the same: bf16 7 and -120 (far below any tolerance),
+# f16 10 and -14 (its smallest normal: subnormals are 2^-24 apart)
+MANTISSA = {torch.bfloat16: (7, -120), torch.float16: (10, -14)}
+
+
+def bf16_spacing_of(t: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """The spacing of ``dtype`` values at |t| (2^-7 of the power of two
+    below in bf16, 2^-10 in f16)."""
+    bits, low = MANTISSA[dtype]
+    return torch.exp2(torch.floor(torch.log2(t.float().abs().clamp_min(2.0 ** low))) - bits)
 
 
 def check_bf16_against_plain(what: str, got: torch.Tensor, want: torch.Tensor,
-                             atol: float) -> dict:
-    """A bf16 result against its plain version's bf16 result: within
-    ``atol`` plus one bf16 spacing of each value, and 1e-3 plus bf16's own
-    rounding (2^-8) in relative Frobenius norm (the two round to bf16 results
-    that differ by the f32 forms' noise)."""
-    if got.dtype != torch.bfloat16 or not torch.isfinite(got.float()).all():
+                             atol: float, dtype=torch.bfloat16) -> dict:
+    """A bf16 (or f16, ``dtype``) result against its plain version's result
+    of that type: within ``atol`` plus one spacing of the type at each
+    value, and 1e-3 plus the type's own rounding (2^-8 in bf16, 2^-11 in
+    f16) in relative Frobenius norm (the two round results that differ by
+    the f32 forms' noise)."""
+    if got.dtype != dtype or not torch.isfinite(got.float()).all():
         fail(f"{what}: {got.dtype}, finite {bool(torch.isfinite(got.float()).all())}")
     err = grad_errors(got, want)
     if not bool(((got.float() - want.float()).abs()
-                 <= atol + bf16_spacing_of(want)).all()) \
-            or err["rel_frobenius"] > 1e-3 + 2.0 ** -8:
+                 <= atol + bf16_spacing_of(want, dtype)).all()) \
+            or err["rel_frobenius"] > 1e-3 + 2.0 ** -(MANTISSA[dtype][0] + 1):
         fail(f"{what}: {err}")
     return err
 
 
 def check_flash_bf16(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: int,
-                     **kw) -> dict:
-    """The bf16 forms of K5, K6a, K6b and K6c at one shape (``flash_inputs``'
-    q, k, v and dO rounded to bf16, the same mask and bias): each must give
-    the bits of its f32 form on the same values (``x.float()``), rounded
-    once to bf16 (lse and the f32 forms' inputs are the same), in every
+                     dtype=torch.bfloat16, **kw) -> dict:
+    """The bf16 forms (or, with ``dtype``, the f16 forms) of K5, K6a, K6b and
+    K6c at one shape (``flash_inputs``' q, k, v and dO rounded to the type,
+    the same mask and bias): each must give the bits of its f32 form on the
+    same values (``x.float()``, exact), rounded once to the type (lse and
+    the f32 forms' inputs are the same: an f16 value is rounded to bf16 as
+    its f32 image is), in every
     design that takes the head dim (K5: ``mma.sync`` and ``wgmma``; K6a:
     ``mma.sync`` and, up to 64, ``wgmma``; K6b and K6c: ``mma.sync`` and,
     up to 32, streamed), the same
-    bits on a second call, and agree with its plain version on the bf16
+    bits on a second call, and agree with its plain version on the same
     inputs as ``check_bf16_against_plain`` says (out within 5e-3, gradients
     within 2e-2 of their peak, as ``check_flash`` holds the f32 forms)."""
     from transformers4rec_tpu_torch.ops import attention as fa
 
     f32 = flash_inputs(B, S, H, Dh, seed, "cuda", **kw)
     pad, bias = f32[4], f32[5]
-    qb, kb, vb, gb = (t.to(torch.bfloat16) for t in f32[:4])
+    qb, kb, vb, gb = (t.to(dtype) for t in f32[:4])
     q32, k32, v32, g32 = (t.float() for t in (qb, kb, vb, gb))
+    form = "f16" if dtype == torch.float16 else "bf16"
     res = {"shape": name, "B": B, "S": S, "H": H, "Dh": Dh, "causal": causal,
-           "bias": None if bias is None else list(bias.shape)}
+           "dtype": form, "bias": None if bias is None else list(bias.shape)}
     for wgmma in (False, True):
         out, lse = fa._flash_fwd_cuda(qb, kb, vb, bias, pad, causal, wgmma=wgmma)
         again = fa._flash_fwd_cuda(qb, kb, vb, bias, pad, causal, wgmma=wgmma)
         out32, lse32 = fa._flash_fwd_cuda(q32, k32, v32, bias, pad, causal, wgmma=wgmma)
         sync("cuda")
         design = "wgmma" if wgmma else "mma.sync"
-        if out.dtype != torch.bfloat16 or not (torch.equal(out, again[0])
-                                               and torch.equal(lse, again[1])):
-            fail(f"flash_fwd bf16 {name} ({design}): {out.dtype}, or other bits on a second call")
-        if not (torch.equal(out, out32.to(torch.bfloat16)) and torch.equal(lse, lse32)):
-            fail(f"flash_fwd bf16 {name} ({design}): not the f32 form's bits rounded once")
+        if out.dtype != dtype or not (torch.equal(out, again[0])
+                                      and torch.equal(lse, again[1])):
+            fail(f"flash_fwd {form} {name} ({design}): {out.dtype}, or other bits on a second "
+                 "call")
+        if not (torch.equal(out, out32.to(dtype)) and torch.equal(lse, lse32)):
+            fail(f"flash_fwd {form} {name} ({design}): not the f32 form's bits rounded once")
     out, lse = fa.flash_fwd(qb, kb, vb, bias, pad, causal)
     out_p, lse_p = fa.flash_forward_plain(qb, kb, vb, bias, pad, causal)
     masked = lse_p == fa.LSE_MASKED
-    res["out"] = check_bf16_against_plain(f"flash_fwd bf16 {name}", out, out_p, 5e-3)
+    res["out"] = check_bf16_against_plain(f"flash_fwd {form} {name}", out, out_p, 5e-3, dtype)
     res["lse_max_abs_err"] = float((lse - lse_p)[~masked].abs().max()) if (~masked).any() else 0.0
     if res["lse_max_abs_err"] > 1e-4 or not torch.equal(lse[masked], lse_p[masked]):
-        fail(f"flash_fwd bf16 {name}: lse {res['lse_max_abs_err']}")
+        fail(f"flash_fwd {form} {name}: lse {res['lse_max_abs_err']}")
 
     delta = fa.row_delta(gb, out_p)
     args = (qb, kb, vb, gb, lse_p, delta, bias, pad, causal)
@@ -991,21 +1025,32 @@ def check_flash_bf16(name: str, B: int, S: int, H: int, Dh: int, causal: bool, s
     for design, run in runs.items():
         got, again, want = run(args), run(args), run(args32)
         sync("cuda")
-        if not all(a.dtype == torch.bfloat16 and torch.equal(a, b) for a, b in zip(got, again)):
-            fail(f"flash_bwd bf16 {name} ({design}): not bf16, or other bits on a second call")
-        if not all(torch.equal(a, b.to(torch.bfloat16)) for a, b in zip(got, want)):
-            fail(f"flash_bwd bf16 {name} ({design}): not the f32 form's bits rounded once")
+        if not all(a.dtype == dtype and torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash_bwd {form} {name} ({design}): not {form}, or other bits on a second "
+                 "call")
+        if not all(torch.equal(a, b.to(dtype)) for a, b in zip(got, want)):
+            fail(f"flash_bwd {form} {name} ({design}): not the f32 form's bits rounded once")
     res["designs_with_the_f32_bits"] = [f"fwd_{d}" for d in ("mma.sync", "wgmma")] + list(runs)
     fused = fa.flash_bwd_fused(*args)
     split = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
     want_fused = fa.flash_backward_plain(qb, kb, vb, bias, pad, causal, out_p, lse_p, gb, True)
     want_split = fa.flash_backward_plain(qb, kb, vb, bias, pad, causal, out_p, lse_p, gb, False)
     for tag, got, want in (("fused", fused, want_fused), ("split", split, want_split)):
-        res[tag] = {g: check_bf16_against_plain(f"flash_bwd bf16 {tag} {name} {g}", a, b,
-                                                2e-2 * float(b.float().abs().max()))
+        res[tag] = {g: check_bf16_against_plain(f"flash_bwd {form} {tag} {name} {g}", a, b,
+                                                2e-2 * float(b.float().abs().max()), dtype)
                     for g, a, b in zip(("dq", "dk", "dv"), got, want)}
-    print(f"[k5k6-bf16] {json.dumps(res)}")
+    print(f"[k5k6-{form}] {json.dumps(res)}")
     return res
+
+
+def check_flash_f16(name: str, B: int, S: int, H: int, Dh: int, causal: bool, seed: int,
+                    **kw) -> dict:
+    """The f16 forms of K5, K6a, K6b and K6c at one shape, as
+    ``check_flash_bf16`` holds the bf16 forms: the bits of the f32 form on
+    ``x.float()`` rounded once to f16 in every design, the same bits on a
+    second call, and the plain versions on the f16 inputs within 5e-3 (out)
+    or 2e-2 of the peak (dq, dk, dv) plus one f16 spacing."""
+    return check_flash_bf16(name, B, S, H, Dh, causal, seed, dtype=torch.float16, **kw)
 
 
 def attention_pairs(S: int, causal: bool, pad, B: int) -> int:
@@ -1024,11 +1069,11 @@ def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged:
                reps: int, dtype=torch.float32) -> dict:
     """K5, K6a, K6b and K6c at one shape, in their form for ``dtype`` (q, k,
     v and dO of that type), beside their plain versions and
-    ``F.scaled_dot_product_attention`` (bf16 inputs cast outside the timed
-    call, the same causal and padding mask; its backward alone for K6a, for
-    dq alone and for dk and dv alone; never used by the port). The bounds
-    count the pairs that the masks leave and the bytes of the form's
-    type (half of them in bf16)."""
+    ``F.scaled_dot_product_attention`` (bf16 inputs, f16 ones for the f16
+    form, cast outside the timed call, the same causal and padding mask;
+    its backward alone for K6a, for dq alone and for dk and dv alone; never
+    used by the port). The bounds count the pairs that the masks leave and
+    the bytes of the form's type (half of them in bf16 and f16)."""
     import torch.nn.functional as F
 
     from transformers4rec_tpu_torch.ops import attention as fa
@@ -1042,9 +1087,10 @@ def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged:
     pairs = attention_pairs(S, causal, pad, B) * H
     rows = B * H * S
 
-    lq, lk, lv = (t.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous().requires_grad_()
+    lib_dtype = torch.float16 if dtype == torch.float16 else torch.bfloat16
+    lq, lk, lv = (t.to(lib_dtype).permute(0, 2, 1, 3).contiguous().requires_grad_()
                   for t in (q, k, v))
-    lg = d_out.to(torch.bfloat16).permute(0, 2, 1, 3).contiguous()
+    lg = d_out.to(lib_dtype).permute(0, 2, 1, 3).contiguous()
     mask = None
     if pad is not None:
         mask = pad[:, None, None, :]
@@ -1063,11 +1109,15 @@ def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged:
     pad_bytes = 0 if pad is None else pad.numel()
     with torch.no_grad():
         fwd_lib = cuda_ms(library_fwd, reps=reps)
+    # the plain versions (up to 2 s a call at the S = 4,096 shape) warm up
+    # once, and run once from S = 4,096 on: they launch library kernels that
+    # need no build
+    plain_reps = 1 if S >= LONG_STEP_SEQ else max(3, reps // 3)
     res = {
         "flash_fwd": {
             "ms": cuda_ms(lambda: fa.flash_fwd(q, k, v, None, pad, causal), reps=reps),
             "plain_ms": cuda_ms(lambda: fa.flash_forward_plain(q, k, v, None, pad, causal),
-                                reps=max(3, reps // 3)),
+                                reps=plain_reps, warmup=1),
             "library_ms": fwd_lib,
             # read q, k, v and the pad mask once, write out and lse once; two
             # products and one exponential a pair
@@ -1076,7 +1126,8 @@ def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged:
         "flash_bwd_fused": {
             "ms": cuda_ms(lambda: fa.flash_bwd_fused(*args), reps=reps),
             "plain_ms": cuda_ms(lambda: fa.flash_backward_plain(
-                q, k, v, None, pad, causal, out, lse, d_out, True), reps=max(3, reps // 3)),
+                q, k, v, None, pad, causal, out, lse, d_out, True),
+                reps=plain_reps, warmup=1),
             "library_ms": cuda_ms(library_bwd((lq, lk, lv)), reps=reps),
             # read q, k, v, dO, lse and delta once, write dq, dk, dv once; five
             # products a pair
@@ -1085,7 +1136,8 @@ def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged:
         "flash_bwd_dq": {
             "ms": cuda_ms(lambda: fa.flash_bwd_dq(*args), reps=reps),
             "plain_ms": cuda_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, d_out, lse, delta, None,
-                                                              pad, causal), reps=max(3, reps // 3)),
+                                                              pad, causal),
+                                reps=plain_reps, warmup=1),
             "library_ms": cuda_ms(library_bwd((lq,)), reps=reps),
             **bound(5 * es * n + 2 * 4 * rows + pad_bytes, 3 * 2 * Dh * pairs, pairs),
         },
@@ -1093,7 +1145,7 @@ def time_flash(name: str, B: int, S: int, H: int, Dh: int, causal: bool, ragged:
             "ms": cuda_ms(lambda: fa.flash_bwd_dkv(*args), reps=reps),
             "plain_ms": cuda_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, d_out, lse, delta, None,
                                                                pad, causal),
-                                reps=max(3, reps // 3)),
+                                reps=plain_reps, warmup=1),
             "library_ms": cuda_ms(library_bwd((lk, lv)), reps=reps),
             **bound(6 * es * n + 2 * 4 * rows + pad_bytes, 4 * 2 * Dh * pairs, pairs),
         },
@@ -4125,21 +4177,21 @@ Y_TOPK_ATOL = 5e-2
 Y_STEPS, Y_REPEAT = 8, 16  # trainer steps over 8 batches, then on one repeated batch
 
 
-class Bf16Form:
+class FormCount:
     """A flash wrapper's count of its bf16 form's launches
-    (``<wrapper>.bf16_launches``), set and read as ``launches`` by
-    ``counted``."""
+    (``<wrapper>.bf16_launches``; with ``attr="f16_launches"`` its f16
+    form's), set and read as ``launches`` by ``counted``."""
 
-    def __init__(self, wrapper):
-        self.wrapper = wrapper
+    def __init__(self, wrapper, attr: str = "bf16_launches"):
+        self.wrapper, self.attr = wrapper, attr
 
     @property
     def launches(self) -> int:
-        return self.wrapper.bf16_launches
+        return getattr(self.wrapper, self.attr)
 
     @launches.setter
     def launches(self, n: int) -> None:
-        self.wrapper.bf16_launches = n
+        setattr(self.wrapper, self.attr, n)
 
 
 def flash_bf16_counters(vocab, fa) -> dict:
@@ -4148,16 +4200,17 @@ def flash_bf16_counters(vocab, fa) -> dict:
     of the f32 form under the first only."""
     counters = flash_counters(vocab, fa)
     for name in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
-        counters[f"{name}_bf16"] = Bf16Form(counters[name])
+        counters[f"{name}_bf16"] = FormCount(counters[name])
     return counters
 
 
-def both_forms(**per_kernel) -> dict:
-    """Expected launches where every flash launch is the bf16 form's."""
+def both_forms(suffix: str = "_bf16", **per_kernel) -> dict:
+    """Expected launches where every flash launch is the bf16 form's (or,
+    with ``suffix="_f16"``, the f16 form's)."""
     out = dict(per_kernel)
     for name, n in per_kernel.items():
         if name.startswith("flash_"):
-            out[f"{name}_bf16"] = n
+            out[f"{name}{suffix}"] = n
     return out
 
 
@@ -4424,6 +4477,246 @@ def run_compute_dtype(flagship, vocab, fa, card: str) -> dict:
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[Y] launches {json.dumps(launches)}; {out['phase_s']:.1f} s on {card}")
+    return out
+
+
+# ------------------------------ AB: float16 compute, layer-norm pre, fusion, examples
+AB_EXAMPLE_S = 300  # each example's time limit on the card
+AB_EXAMPLES = (
+    ("getting_started", ()),
+    ("end_to_end", ()),
+    ("serving_export", ()),
+    # two ranks sharing the card (Gloo), as phase Z starts them on one card
+    ("large_vocab_stress", ("--model-axis", "2")),
+)
+AB_DONE = {"getting_started": "predict: top-10 ids", "end_to_end": "END-TO-END OK",
+           "serving_export": "OK", "large_vocab_stress": "OK"}
+
+
+def flash_f16_counters(vocab, fa) -> dict:
+    """``flash_counters`` and each flash wrapper's f16 form as
+    ``<name>_f16``: a launch of the f16 form counts under both names."""
+    counters = flash_counters(vocab, fa)
+    for name in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
+        counters[f"{name}_f16"] = FormCount(counters[name], "f16_launches")
+    return counters
+
+
+def f16_forms(**per_kernel) -> dict:
+    """Expected launches where every flash launch is the f16 form's."""
+    return both_forms("_f16", **per_kernel)
+
+
+def check_f16_model(model, what: str) -> None:
+    encoder = model.heads[0].body.blocks[1].encoder
+    if encoder.compute_dtype != torch.float16:
+        fail(f"{what}: the encoder computes in {encoder.compute_dtype}")
+    kinds = {p.dtype for p in model.parameters()}
+    if kinds != {torch.float32}:
+        fail(f"{what}: parameters of {kinds}: they stay float32")
+
+
+def run_examples(card: str) -> dict:
+    """AB5: the four examples by ``python -m`` with their default flags, on
+    the card, all started together: each must end with 0 and print its last
+    line of success (``AB_DONE``). Returns each one's seconds and last
+    lines."""
+    env = z_env()
+    procs = {name: (subprocess.Popen(
+        [sys.executable, "-m", f"transformers4rec_tpu_torch.examples.{name}", *args],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+        time.perf_counter()) for name, args in AB_EXAMPLES}
+    out = {}
+    for name, (proc, t0) in procs.items():
+        try:
+            text = proc.communicate(timeout=AB_EXAMPLE_S)[0]
+        except subprocess.TimeoutExpired:
+            for other, _ in procs.values():
+                other.kill()
+                other.communicate()
+            fail(f"AB5 example {name}: no end within {AB_EXAMPLE_S} s")
+        lines = text.strip().splitlines()
+        if proc.returncode != 0 or not any(AB_DONE[name] in ln for ln in lines[-3:]):
+            fail(f"AB5 example {name} ended with {proc.returncode}:\n{text[-4000:]}")
+        out[name] = {"seconds": time.perf_counter() - t0, "last_lines": lines[-4:]}
+        print(f"[AB5-{name}] on {card}: ended with 0 in {out[name]['seconds']:.1f} s; "
+              + " | ".join(lines[-4:]))
+    return out
+
+
+def run_f16_and_modules(flagship, vocab, fa, card: str) -> dict:
+    """Main path AB, each part counted from 0. AB1 GPT-2-CLM at full width
+    (390,000 items, d_model 192, 3 layers, 16 heads: head dim 12, the
+    ``mma.sync`` design; sessions of up to 256) with ``dtype=torch.float16``:
+    one training step at batch 4 against the same weights and mask on the
+    CPU (phase Y's tolerances), ``Model.evaluate`` over 4 batches of 32 and
+    the top-k of 8 ragged sessions through the exported ``torch.export``
+    program (K5's f16 form inside it) against the CPU's, then
+    ``build_trainer(scheme="clm", dtype=float16)`` for 8 steps over 8
+    batches and 16 on one repeated batch (a falling loss), and 8 steps of a
+    trainer with ``remat`` (K5 twice a layer); every flash launch must be the
+    f16 form's. AB2 the one-layer step at S = 4,096 in float16: K6b and K6c
+    f16 once a step. AB3 the flagship XLNet-MLM with ``pre="layer-norm"``
+    (each raw continuous column normalised over its 20 positions): one
+    step against the CPU, the norms' gradients among those held. AB4 the
+    flagship's body fused with its ``weekday_sin`` column by
+    ``PostContextFusion("elementwise-mul")`` in a ``Head``: one step against
+    the CPU, the context projection's gradient among those held. AB5 the
+    four examples by ``python -m`` (``run_examples``)."""
+    from transformers4rec_tpu_torch import Head, Model
+    from transformers4rec_tpu_torch.data import synthetic_data
+    from transformers4rec_tpu_torch.experimental import PostContextFusion
+    from transformers4rec_tpu_torch.features import TabularSequenceFeatures
+    from transformers4rec_tpu_torch.serving import InferenceRunner, export_model
+
+    t_phase = time.perf_counter()
+    f16 = torch.float16
+    seq, rows, layers = flagship.LONG_SEQ, flagship.LONG_BATCH, flagship.N_LAYER
+    vocab_size = flagship.NUM_ITEMS + 1
+    counters = flash_f16_counters(vocab, fa)
+    launches = dict.fromkeys(counters, 0)
+    out = {}
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] += n
+
+    def tolerant_step(model, cpu_model, batch, extra=()):
+        return check_training_step(model, cpu_model, batch, extra=extra, loss_rtol=Y_LOSS_RTOL,
+                                   grad_rel=Y_GRAD_REL, extra_rel=Y_EXTRA_REL, peak=Y_PEAK)
+
+    # ---- AB1: GPT-2-CLM in float16
+    model = flagship.build_model("cuda", scheme="clm", seed=0, dropout=0.0, dtype=f16)
+    cpu_model = flagship.build_model("cpu", scheme="clm", seed=0, dropout=0.0, dtype=f16)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    check_f16_model(model, "AB1")
+    loader = eval_batches(flagship, flagship.NUM_ITEMS, seq, EVAL_BATCHES, rows)
+    four = {k: v[:4] for k, v in loader[0].items()}
+    step, got, _ = counted(counters, lambda: tolerant_step(
+        model, cpu_model, four, extra=("heads.0.body.blocks.1.encoder.position_embedding",
+                                       "heads.0.body.blocks.1.encoder.layers.0.attn.q.weight")))
+    expect_launches("AB1 training step", got, **f16_forms(
+        flash_fwd=layers, flash_bwd_fused=layers, ce_fwd=1, ce_bwd=1))
+    add(got)
+    print(f"[AB1-train-step] on {card}: {json.dumps(step)}")
+    gpu_res, got, eval_s = counted(counters, lambda: model.evaluate(loader))
+    expect_launches("AB1 evaluate", got, **f16_forms(flash_fwd=layers * EVAL_BATCHES,
+                                                     ce_rank=EVAL_BATCHES))
+    add(got)
+    cpu_res = cpu_model.evaluate(loader)
+    print(f"[AB1-evaluate] {eval_s:.3f}s on {card}: cuda {json.dumps(gpu_res)} "
+          f"cpu {json.dumps(cpu_res)}")
+    check_evaluate(gpu_res, cpu_res, EVAL_BATCHES * rows, loss_rtol=Y_LOSS_RTOL, flips=Y_FLIPS)
+    requests = serve_requests(flagship, flagship.NUM_ITEMS, seq, 8)
+    sessions = {c: sum((r[c] for r in requests), [])[:8] for c in requests[0]}
+    builder = functools.partial(flagship.build_clm_model, dtype=f16)
+    with tempfile.TemporaryDirectory() as path:
+        export_model(model, loader[0], path, top_k=TOP_K)
+        program = InferenceRunner(path, device="cuda")  # the program alone: K5 f16 inside
+        cpu_runner = InferenceRunner(path, builder, device="cpu")
+        (got_s, got_i), got, _ = counted(counters, lambda: program.predict(sessions))
+        want_s, want_i = cpu_runner.predict(sessions)
+    expect_launches("AB1 predict", got, **f16_forms(flash_fwd=layers))
+    add(got)
+    check_topk(got_s, got_i, want_s, want_i, vocab_size, "AB1 top-k against the CPU",
+               atol=Y_TOPK_ATOL)
+    out["AB1"] = {"train_step": step, "evaluate": gpu_res,
+                  "topk_max_abs_diff": float(np.abs(np.asarray(got_s) - want_s).max())}
+    print(f"[AB1-predict] on {card}: top-{TOP_K} scores of the program within "
+          f"{out['AB1']['topk_max_abs_diff']:.3g} of the CPU's")
+    del model, cpu_model, program, cpu_runner
+    torch.cuda.empty_cache()
+    data = synthetic_data(flagship.schema(flagship.NUM_ITEMS, seq), num_rows=Y_STEPS * rows,
+                          max_session_length=seq, seed=902)
+    repeated = {k: v[:rows] for k, v in data.items()}
+    for remat, phases in ((False, (("eight_batches", Y_STEPS, None),
+                                   ("one_batch_repeated", Y_REPEAT, repeated))),
+                          (True, (("eight_batches", Y_STEPS, None),))):
+        tag = "AB1-train-remat" if remat else "AB1-train"
+        trainer = flagship.build_trainer("cuda", seed=0, train_dataset=data, scheme="clm",
+                                         dtype=f16, remat=remat)
+        check_f16_model(trainer.model, tag)
+        out[tag] = trainer_phases(trainer, counters, launches, tag, card, rows, seq, phases,
+                                  f16_forms(flash_fwd=(2 if remat else 1) * layers,
+                                            flash_bwd_fused=layers, ce_fwd=1, ce_bwd=1))
+        del trainer
+        torch.cuda.empty_cache()
+    reads = out["AB1-train"]["one_batch_repeated"]["loss_reads"]
+    if not float(np.mean(reads[-4:])) < reads[0]:
+        fail(f"AB1 train: the repeated batch's loss did not fall: {reads}")
+
+    # ---- AB2: the one-layer step at S = 4,096 in float16
+    lrows, lseq = LONG_STEP_BATCH, LONG_STEP_SEQ
+    ldata = synthetic_data(flagship.schema(flagship.NUM_ITEMS, lseq), num_rows=lrows,
+                           max_session_length=lseq, seed=501)
+    trainer = flagship.build_trainer("cuda", seed=0, train_dataset=ldata, scheme="clm",
+                                     seq=lseq, batch=lrows, n_layer=1, dtype=f16)
+    out["AB2"] = {}
+    for name, n in (("cold", 1), ("steady", LONG_STEP_STEADY)):
+        trainer.args.max_steps = n
+        metrics, got, wall = counted(counters, trainer.train)
+        expect_launches(f"AB2 ({name})", got, **f16_forms(
+            flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n, ce_fwd=n, ce_bwd=n))
+        add(got)
+        if not math.isfinite(metrics["train_loss"]):
+            fail(f"AB2: {metrics}")
+        out["AB2"][name] = {"steps": n, "loss": metrics["train_loss"], "wall_s": wall,
+                            "ms_per_step": 1e3 * wall / n}
+    print(f"[AB2-long-step] on {card}: {json.dumps(out['AB2'])}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ---- AB3: the flagship with layer-norm as a pre transformation
+    mrows = flagship.BATCH
+    mloader = eval_batches(flagship, flagship.NUM_ITEMS, flagship.SEQ, 1, mrows)
+    model = flagship.build_model("cuda", seed=0, dropout=0.0, pre="layer-norm")
+    cpu_model = flagship.build_model("cpu", seed=0, dropout=0.0, pre="layer-norm")
+    norms = {k: tuple(v.shape) for k, v in model.state_dict().items() if "TabularLayerNorm" in k}
+    want = {f"heads.0.body.blocks.0.TabularLayerNorm_0.ln_{c}.{w}": (flagship.SEQ,)
+            for c in ("item_recency", "weekday_sin") for w in ("weight", "bias")}
+    if norms != want:
+        fail(f"AB3: the pre layer norms are {norms}, expected {want}")
+    with torch.no_grad():  # off (1, 0), so that a mixed-up scale or bias would show
+        gen = torch.Generator().manual_seed(3)
+        for k in want:
+            p = model.get_parameter(k)
+            p.add_(torch.randn(p.shape, generator=gen).to(p.device) * 0.1)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    step, got, _ = counted(counters, lambda: check_training_step(
+        model, cpu_model, mloader[0], extra=tuple(want)))
+    expect_launches("AB3 training step", got, ce_fwd=1, ce_bwd=1)
+    add(got)
+    out["AB3"] = {"train_step": step, "norms": {k: list(v) for k, v in norms.items()}}
+    print(f"[AB3-layer-norm-pre] on {card}: {json.dumps(step)}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    # ---- AB4: the flagship's body fused with a context column
+    def fused_model(device):
+        # drawn on the CPU: the new Model draws its weights there, then moves
+        base = flagship.build_model("cpu", seed=0, dropout=0.0)
+        context = TabularSequenceFeatures.from_schema(
+            flagship.schema().select_by_name(["weekday_sin"]), aggregation="concat")
+        body = PostContextFusion(base.heads[0].body, context, "elementwise-mul")
+        return Model([Head(body, base.heads[0].tasks)], device=device, seed=0)
+
+    model, cpu_model = fused_model("cuda"), fused_model("cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    step, got, _ = counted(counters, lambda: check_training_step(
+        model, cpu_model, mloader[0], extra=("heads.0.body.context_projection.weight",
+                                             "heads.0.body.context_projection.bias")))
+    expect_launches("AB4 training step", got, ce_fwd=1, ce_bwd=1)
+    add(got)
+    out["AB4"] = {"train_step": step}
+    print(f"[AB4-post-context-fusion] on {card}: {json.dumps(step)}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    # ---- AB5: the four examples, each a process of its own
+    out["AB5"] = run_examples(card)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[AB] launches {json.dumps(launches)}; {out['phase_s']:.1f} s on {card}")
     return out
 
 
@@ -5043,7 +5336,8 @@ def time_ce_train(vocab, n: int, rows: int, vocab_size: int, chunk_rows: int = 0
 
     fwd = {
         "ms": cuda_ms(lambda: vocab.ce_fwd(x, W, labels, vocab_size)),
-        "plain_ms": cuda_ms(lambda: vocab.ce_fwd_plain(x, W, labels, vocab_size, False), reps=10),
+        "plain_ms": cuda_ms(lambda: vocab.ce_fwd_plain(x, W, labels, vocab_size, False), reps=5,
+                            warmup=1),
         **yardstick(library_fwd, chunked_fwd),
         # read x, the used rows of W and the labels once, write lse and ll once
         **bound(4 * (n * E + n) + wb * vocab_size * E + 4 * 2 * n, 2 * n * E * vocab_size,
@@ -5052,7 +5346,7 @@ def time_ce_train(vocab, n: int, rows: int, vocab_size: int, chunk_rows: int = 0
     bwd = {
         "ms": cuda_ms(lambda: vocab.ce_bwd(x, W, labels, lse, coef, vocab_size)),
         "plain_ms": cuda_ms(lambda: vocab.ce_bwd_plain(x, W, labels, lse, coef, vocab_size),
-                            reps=10),
+                            reps=5, warmup=1),
         **yardstick(library_bwd, chunked_bwd),
         # read x, the used rows of W, labels, lse and coef once; write dx and
         # the whole of dW (in W's type) once; three products and one set of
@@ -5479,7 +5773,8 @@ def time_flash_kernels(card: str) -> None:
     ``uses_split_stream`` keep."""
     from transformers4rec_tpu_torch.ops import build
 
-    build.build(["flash_fwd", "flash_bwd", "flash_fwd_bf16", "flash_bwd_bf16"])
+    build.build(["flash_fwd", "flash_bwd", "flash_fwd_bf16", "flash_bwd_bf16", "flash_fwd_f16",
+                 "flash_bwd_f16"])
     for name, dims, ragged, seed in (("main", (32, 256, 16, 12), True, 21),
                                      ("long_step", (LONG_STEP_BATCH, LONG_STEP_SEQ, 16, 12),
                                       True, 24),
@@ -6845,6 +7140,24 @@ def main() -> None:
                          bias_shape=(1, Y_DH36[2], Y_DH36[1], Y_DH36[1])),
     ]
     torch.cuda.empty_cache()
+    # the f16 forms (phase AB) at the same shapes, each also against the bits
+    # of its f32 form in both designs
+    flash_f16_checks = [
+        check_flash_f16("main", *flash_shapes["main"], True, 21, ragged=True),
+        check_flash_f16("edge", 3, 333, 4, 32, False, 22, ragged=True, wholly_padded=1,
+                        bias_shape=(1, 4, 333, 333)),
+        check_flash_f16("long", *flash_shapes["long"], True, 23),
+        check_flash_f16("long_step", *flash_shapes["long_step"], True, 24, ragged=True),
+        check_flash_f16("plm", *flash_shapes["main"], False, 25, ragged=True, plm=True),
+        check_flash_f16("longformer", *flash_shapes["main"], False, 26, ragged=True,
+                        window=PAPER_WINDOW),
+        check_flash_f16("transfoxl", *flash_shapes["main"], True, 27, ragged=True,
+                        bias_shape=(1, flagship.N_HEAD, flagship.LONG_SEQ, flagship.LONG_SEQ)),
+        check_flash_f16("segments", *flash_shapes["main"], True, 28, segments=True),
+        check_flash_f16("dh36", *Y_DH36, True, 29, ragged=True, wholly_padded=1,
+                        bias_shape=(1, Y_DH36[2], Y_DH36[1], Y_DH36[1])),
+    ]
+    torch.cuda.empty_cache()
     flash = flash_counters(vocab, attention)
     for name in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"):
         flash[name].launches = 0
@@ -6987,6 +7300,11 @@ def main() -> None:
     print(f"[artifact] {json.dumps(artifact['launches'])}")
     torch.cuda.empty_cache()
 
+    # ---- main path AB: float16 compute, layer-norm as pre, PostContextFusion, the examples
+    mark("main path AB")
+    f16_path = run_f16_and_modules(flagship, vocab, attention, card)
+    torch.cuda.empty_cache()
+
     # ---- timing at the evaluation, the training and the table's shape
     mark("timing at the evaluation, the training and the table's shape")
     timing = {"ce_rank": time_ce_rank(vocab, EVAL_ROWS, table_rows, vocab_size),
@@ -7051,6 +7369,20 @@ def main() -> None:
                                            dtype=torch.bfloat16)
                          for shape, dims in bf16_flash_shapes.items()}
     flash_timing["dh36"] = time_flash("dh36", *Y_DH36, True, True, 30)
+    # the f16 forms at phase 12's shapes, beside their f32 and bf16 forms;
+    # the yardstick on the same f16 inputs
+    flash_timing_f16 = {shape: time_flash(shape, *dims, True, shape != "long",
+                                          30 if shape == "main" else 10, dtype=torch.float16)
+                        for shape, dims in flash_shapes.items()}
+    print(f"[timing] the f16 forms of K5, K6a, K6b, K6c on {card}: " + json.dumps({
+        shape: {name: {"f16_ms": t["ms"], "f32_ms": flash_timing[shape][name]["ms"],
+                       "bf16_ms": flash_timing_bf16[shape][name]["ms"],
+                       "f16_bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                       "library_ms": t["library_ms"], "plain_ms": t["plain_ms"],
+                       **({"designs_ms": t["designs_ms"]} if "designs_ms" in t else {})}
+                for name, t in timing_.items()}
+        for shape, timing_ in flash_timing_f16.items()}) + "; library_ms is "
+          "F.scaled_dot_product_attention on the same f16 inputs and mask")
     # and with the biases of the main paths: XLNet-PLM's query stream (Y4
     # launches it in bf16), Longformer's window and packed rows' segments
     bias_timing_bf16 = {
@@ -7299,6 +7631,38 @@ def main() -> None:
                                  ("segments", bias_timing_bf16["segments"], packed_timing))
            if name in t],
     } for name in bf16_errors]
+    # each attention kernel's f16 form: launched by phase AB (K5 and K6a in
+    # AB1, K6b and K6c in AB2), held against its plain version and its f32
+    # form's bits in phase 3 (``check_flash_f16``), timed at the shape AB
+    # gives it
+    f16_errors = {
+        "flash_fwd": max(c["out"]["max_abs_err"] for c in flash_f16_checks),
+        "flash_bwd_fused": max(c["fused"][g]["max_abs_err"] for c in flash_f16_checks
+                               for g in ("dq", "dk", "dv")),
+        "flash_bwd_dq": max(c["split"]["dq"]["max_abs_err"] for c in flash_f16_checks),
+        "flash_bwd_dkv": max(c["split"][g]["max_abs_err"] for c in flash_f16_checks
+                             for g in ("dk", "dv"))}
+    kernels += [{
+        "name": f"{name}_f16",
+        "route": "cuda",
+        "source": f"transformers4rec_tpu_torch/csrc/{sources[name][0]}",
+        "replaces": sources[name][1],
+        "launches": f16_path["launches"][f"{name}_f16"],
+        "max_abs_err": f16_errors[name],
+        **{k: flash_timing_f16[bf16_main[name]][name][k]
+           for k in TIMING_KEYS + ("shape", "design", "designs_ms", "dtype")
+           if k in flash_timing_f16[bf16_main[name]][name]},
+        "f32_form_ms": flash_timing[bf16_main[name]][name]["ms"],
+        "bf16_form_ms": flash_timing_bf16[bf16_main[name]][name]["ms"],
+        "also_at": [{**{k: flash_timing_f16[shape][name][k]
+                        for k in TIMING_KEYS + ("shape", "design", "dtype")
+                        if k in flash_timing_f16[shape][name]},
+                     "f32_form_ms": flash_timing[shape][name]["ms"],
+                     "bf16_form_ms": flash_timing_bf16[shape][name]["ms"],
+                     # AB2 launches K5 at the S = 4,096 step's shape
+                     "main_path": shape == "long_step" and name == "flash_fwd"}
+                    for shape in flash_timing_f16 if shape != bf16_main[name]],
+    } for name in f16_errors]
     if any(k["launches"] < 1 for k in kernels):
         fail(f"a kernel of the main path was never launched: {launches}")
     print(card)

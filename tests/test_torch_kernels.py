@@ -28,6 +28,10 @@ forms (bf16 q, k, v, dO; bf16 out, dq, dk, dv) give the f32 forms' bits on
 the same values, rounded once, in every design; against the plain versions
 on bf16 inputs they are held as the f32 forms are, plus one bf16 spacing of
 the value (the two sides round results that differ by the f32 noise above).
+Their f16 forms likewise: the f32 forms' bits on the exact f32 images of the
+f16 inputs, rounded once to f16, and within one f16 spacing plus the f32
+tolerances of the plain versions; a CUDA f16 launch counts in
+``f16_launches``.
 """
 
 import math
@@ -942,6 +946,67 @@ def test_flash_bf16_forms_at_an_8_byte_aligned_start(dev):
         assert torch.equal(a, b)
 
 
+def _f16_spacing(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of f16 values at |x| (2^-10 of the power of two below;
+    2^-24 below the smallest normal)."""
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -14))) - 10)
+
+
+def _close_f16(got, want, atol, fro=1e-3):
+    """f16 ``got`` against the plain version's f16 ``want``, as
+    ``_close_bf16`` holds bf16 (f16's own rounding 2^-11)."""
+    got, want = got.float(), want.float()
+    if atol == "grad":
+        atol = 2e-2 * float(want.abs().max())
+    assert bool(((got - want).abs() <= atol + _f16_spacing(want)).all())
+    assert float((got - want).norm() / want.norm()) <= fro + 2.0 ** -11
+
+
+@pytest.mark.parametrize("design", DESIGNS)
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_forward_f16_form_gives_the_f32_forms_bits(dev, shape, design):
+    q, k, v, _, bias, pad, causal = _flash_inputs(shape, dev)
+    qh, kh, vh = (t.half() for t in (q, k, v))
+    before = attn.flash_fwd.f16_launches
+    out, lse = attn._flash_fwd_cuda(qh, kh, vh, bias, pad, causal, wgmma=DESIGNS[design])
+    again = attn._flash_fwd_cuda(qh, kh, vh, bias, pad, causal, wgmma=DESIGNS[design])
+    out32, lse32 = attn._flash_fwd_cuda(qh.float(), kh.float(), vh.float(), bias, pad, causal,
+                                        wgmma=DESIGNS[design])
+    torch.cuda.synchronize()
+    assert attn.flash_fwd.f16_launches == before + 2
+    assert out.dtype == torch.float16 and lse.dtype == torch.float32
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert torch.equal(out, out32.half()) and torch.equal(lse, lse32)
+    out_p, lse_p = attn.flash_forward_plain(qh, kh, vh, bias, pad, causal)
+    assert out_p.dtype == torch.float16
+    _close_f16(out, out_p, 5e-3)
+    masked = lse_p == attn.LSE_MASKED
+    assert torch.equal(lse[masked], lse_p[masked])
+    assert float((lse - lse_p)[~masked].abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_backward_f16_forms_give_the_f32_forms_bits(dev, shape):
+    q, k, v, g, bias, pad, causal = _flash_inputs(shape, dev)
+    qh, kh, vh, gh = (t.half() for t in (q, k, v, g))
+    out_p, lse = attn.flash_forward_plain(qh, kh, vh, bias, pad, causal)
+    delta = attn.row_delta(gh, out_p)
+    args = (qh, kh, vh, gh, lse, delta, bias, pad, causal)
+    Dh = q.shape[3]
+    got = _bwd_designs(args, Dh)
+    f32 = _bwd_designs((qh.float(), kh.float(), vh.float(), gh.float(), *args[4:]), Dh)
+    torch.cuda.synchronize()
+    want_fused = attn.flash_bwd_fused_plain(*args)
+    want = {"fused": want_fused, "dq": want_fused[:1],
+            "dkv": attn.flash_bwd_dkv_plain(*args)}
+    for name, grads in got.items():
+        assert all(t.dtype == torch.float16 for t in grads), name
+        assert all(torch.equal(a, b.half()) for a, b in zip(grads, f32[name])), name
+        for a, b in zip(grads, want[name.split("_")[0]]):
+            assert torch.isfinite(a.float()).all()
+            _close_f16(a, b, "grad")
+
+
 def test_flash_attention_bf16_on_the_card_matches_the_cpu(dev):
     """bf16 q, k, v through the autograd function: output and gradients in
     bf16, the kernels against the plain versions on the CPU, on both backward
@@ -974,10 +1039,12 @@ def test_flash_attention_bf16_on_the_card_matches_the_cpu(dev):
         _close_bf16(a, b, "grad")
 
 
-@pytest.mark.parametrize("bad", ["mixed_k", "f16", "bias_bf16", "lse_bf16"])
+@pytest.mark.parametrize("bad", ["mixed_k", "f16", "f64", "bias_bf16", "lse_bf16"])
 def test_flash_kernels_take_no_other_type(dev, bad):
     """A tensor of a type the kernels do not take raises on the card: it is
-    not converted."""
+    not converted. ``f16``: f16 q with bf16 k and v (the kernels have an
+    f16 form since float16 became a compute type, but one type for all
+    four); ``f64``: a type with no form."""
     q = torch.zeros(2, 128, 2, 16, device=dev, dtype=torch.bfloat16)
     k, v, g = q.clone(), q.clone(), q.clone()
     rows = torch.zeros(4, 128, device=dev)
@@ -985,7 +1052,9 @@ def test_flash_kernels_take_no_other_type(dev, bad):
     if bad == "mixed_k":
         k = k.float()
     elif bad == "f16":
-        q, k, v, g = (t.half() for t in (q, k, v, g))
+        q = q.half()
+    elif bad == "f64":
+        q, k, v, g = (t.double() for t in (q, k, v, g))
     elif bad == "bias_bf16":
         bias = torch.zeros(1, 1, 128, 128, device=dev, dtype=torch.bfloat16)
     elif bad == "lse_bf16":

@@ -261,6 +261,17 @@ def test_the_sparse_step_is_the_dense_path_and_jax_sparse_step(case, monkeypatch
 
 
 # ------------------------------------------------------------------ refusals
+@pytest.mark.parametrize("pre", ["layer-norm", ["stochastic-swap-noise", "layer-norm"]])
+def test_validation_refuses_a_layer_norm_pre(pre):
+    """A model with ``pre="layer-norm"`` (built from the raw columns' widths)
+    is refused, as the JAX package's ``validate_sparse_config`` refuses it:
+    swap noise is the only pre transformation the step composes with."""
+    model = _port_model("mlm", pre=pre)
+    assert hasattr(model.heads[0].input_module, "TabularLayerNorm_0")
+    with pytest.raises(NotImplementedError, match="StochasticSwapNoise"):
+        validate_sparse_config(model)
+
+
 def test_validation_refuses_what_the_step_cannot_gather():
     assert validate_sparse_config(_port_model("mlm"))[1:] == ("item_id", "mlm")
     assert validate_sparse_config(_port_model("mlm", pre="stochastic-swap-noise"))

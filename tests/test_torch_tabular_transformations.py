@@ -9,8 +9,10 @@ JAX package on the CPU.
   identity, the swapped share lies within 3σ of ``p`` over 4,096
   positions), and the MLM labels are the ids before the noise;
 - the per-feature LayerNorm within 1e-5 relative Frobenius norm, with the
-  JAX weights through ``convert.params_from_jax``; dropout by its
-  invariants;
+  JAX weights through ``convert.params_from_jax``, as a ``post``
+  transformation and as a ``pre`` one on the raw columns of the ecommerce
+  schema (scale and bias of shape (S,), outputs and gradients); dropout by
+  its invariants;
 - the ``pre → compute → merge_with → post → aggregation`` pipeline within
   1e-5;
 - each aggregation with its ``output_size``, within 1e-5.
@@ -207,8 +209,60 @@ def test_layer_norm_matches_jax_per_feature():
         assert _rel_fro(got[k].detach().numpy(), want[k]) <= FWD_RTOL, k
     assert np.array_equal(got["c"].numpy(), feats["c"]) and np.array_equal(got["d"].numpy(),
                                                                           feats["d"])
-    with pytest.raises(NotImplementedError):
-        TabularLayerNorm().build(None, "pre")
+    # as a pre transformation: built from the raw columns' widths, which the
+    # block takes from its schema (``test_layer_norm_as_pre_matches_jax``)
+    pre = TabularLayerNorm()
+    pre.build(lambda: {"a": 6, "c": 1}, "pre")
+    assert pre.keys == ("a",) and tuple(pre.ln_a.weight.shape) == (6,)
+
+
+PRE_S = 10  # the ecommerce schema's sessions: a raw continuous column is (B, PRE_S)
+
+
+def test_layer_norm_as_pre_matches_jax():
+    """``pre="layer-norm"`` on the ecommerce schema: the JAX package
+    normalises each raw float column over its last axis, which for a (B, S)
+    continuous column is the sequence axis (padding included), with scale
+    and bias of shape (S,). The port builds those from the schema before
+    any call (``TabularBlock.input_sizes``), loads JAX's weights through
+    ``convert.params_from_jax`` and gives JAX's outputs and gradients
+    (``test_torch_input_options``' tolerances); a batch of another width
+    raises, as flax does on a shape mismatch."""
+    from test_torch_input_options import _check_module
+
+    jschema = jax_schema_fn(num_items=30, num_categories=flagship.NUM_CATEGORIES,
+                            max_session_length=PRE_S)
+    kw = dict(pre="layer-norm", aggregation="concat", d_output=16, embedding_dim_default=4)
+    jm = jtr.TabularSequenceFeatures.from_schema(jschema, **kw)
+    tm = ttr.TabularSequenceFeatures.from_schema(flagship.schema(30, PRE_S), **kw)
+    norms = {k: tuple(v.shape) for k, v in tm.state_dict().items() if "LayerNorm" in k}
+    assert norms == {f"TabularLayerNorm_0.ln_{col}.{w}": (PRE_S,)
+                     for col in ("item_recency", "weekday_sin") for w in ("weight", "bias")}
+    batch = synthetic_data(flagship.schema(30, PRE_S), num_rows=5, max_session_length=PRE_S,
+                           seed=4)
+    assert batch["item_recency"].shape == (5, PRE_S) and (batch["item_id"] == 0).any()
+    _check_module(jm, tm, batch)
+    short = synthetic_data(flagship.schema(30, PRE_S - 2), num_rows=5,
+                           max_session_length=PRE_S - 2, seed=4)
+    with pytest.raises(RuntimeError):
+        tm({k: torch.from_numpy(v) for k, v in short.items()})
+
+
+def test_the_flagship_takes_a_layer_norm_pre():
+    """``flagship.build_model(pre="layer-norm")``: the norms of the raw
+    continuous columns under the input module, (S,) each, and a step."""
+    model = flagship.build_model("cpu", num_items=30, d_model=16, n_layer=1, n_head=2,
+                                 seq=PRE_S, dropout=0.0, pre="layer-norm")
+    norms = {k: tuple(v.shape) for k, v in model.state_dict().items() if "TabularLayerNorm" in k}
+    assert norms == {f"heads.0.body.blocks.0.TabularLayerNorm_0.ln_{col}.{w}": (PRE_S,)
+                     for col in ("item_recency", "weekday_sin") for w in ("weight", "bias")}
+    batch = model._as_dense(synthetic_data(flagship.schema(30, PRE_S), num_rows=4,
+                                           max_session_length=PRE_S, seed=1))
+    loss, _ = model(batch, targets=batch, training=True,
+                    generator=torch.Generator().manual_seed(0))
+    loss.backward()
+    ln = model.heads[0].input_module.TabularLayerNorm_0.ln_item_recency
+    assert torch.isfinite(loss) and ln.weight.grad.abs().sum() > 0
 
 
 def test_dropout_keeps_its_invariants():

@@ -23,7 +23,9 @@ of 128 on, attention runs through the flash kernels of ``ops/attention.py``
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). The input options of the
 paper's command line (swap noise, per-feature LayerNorm, side features,
 ``MLPBlock``) and its experiment script (``paper_repro.transf_exp_main``)
-are ported too.
+are ported too, and so are ``experimental.PostContextFusion`` and the four
+scripts of ``examples/`` (``python -m
+transformers4rec_tpu_torch.examples.<name>``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -31,8 +33,8 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``.
 __version__ = "0.2.0"
 
 from . import (
-    blocks, config, convert, data, features, masking, model, ops, schema, serving, tabular,
-    trainer, utils,
+    blocks, config, convert, data, experimental, features, masking, model, ops, schema,
+    serving, tabular, trainer, utils,
 )
 from .blocks import (
     Block,
@@ -134,6 +136,7 @@ __all__ = [
     "convert",
     "data",
     "dedupe_row_grads",
+    "experimental",
     "features",
     "masking",
     "masking_registry",

@@ -20,7 +20,7 @@ detached inputs of that layer at positions −M..−1, valid where
 ``mems["pad"]`` is true; ``return_mems=True`` also returns the next
 segment's memory.
 
-Compute type (``dtype``, float32 or bfloat16, as the JAX encoder's
+Compute type (``dtype``, float32, bfloat16 or float16, as the JAX encoder's
 ``dtype``): the encoder casts its input, the position term and the query
 stream's start to it and keeps the residual stream in it; every ``Linear``
 casts its input, weight and bias to it at the call (the parameters stay
@@ -30,6 +30,8 @@ logits from the ``dtype`` q and k, rounds the probabilities to ``dtype``
 before the product with v and the context once after it; the flash kernels
 take q, k, v in ``dtype`` and return the context in it. Biases stay float32,
 and so does segment memory's validity; its states are kept in ``dtype``.
+Kept float32, a mask's −1e9 stays finite in float16 too (where it would be
+−inf, and a row with no valid key NaN), as the JAX encoder keeps them.
 
 Rematerialisation (``remat``, JAX's ``nn.remat`` of every layer): in
 training each layer's forward is run again in the backward

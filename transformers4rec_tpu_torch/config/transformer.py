@@ -12,10 +12,10 @@ positions), the BERT family (BERT, RoBERTa, ELECTRA, ALBERT with shared
 layers, Longformer with a local window of 8: post-LN with an embedding
 LayerNorm and the erf GELU), TransfoXL (causal with the relative bias) and
 Reformer (alternating local and LSH layers, axial positions).
-``dtype`` is the encoder's compute type (``None`` or float32, or bfloat16;
-the strings ``"float32"`` and ``"bfloat16"`` name them too; float16 and
-anything else raise ``NotImplementedError``): the parameters stay float32
-and the encoder returns float32. ``remat`` recomputes each layer's forward in
+``dtype`` is the encoder's compute type (``None`` or float32, bfloat16 or
+float16; the strings ``"float32"``, ``"bfloat16"`` and ``"float16"`` name
+them too; anything else raises ``NotImplementedError``): the parameters stay
+float32 and the encoder returns float32. ``remat`` recomputes each layer's forward in
 the backward. ``two_stream`` takes effect for the scheme that gives a
 ``perm_mask`` (PLM): ``to_encoder(masking="plm")`` builds the encoder with
 its query stream (and the stream's learned start vector), as the JAX
@@ -34,20 +34,22 @@ from ..utils.registry import Registry
 transformer_registry: Registry = Registry("transformer")
 
 _COMPUTE_DTYPES = {None: torch.float32, torch.float32: torch.float32, "float32": torch.float32,
-                   torch.bfloat16: torch.bfloat16, "bfloat16": torch.bfloat16}
+                   torch.bfloat16: torch.bfloat16, "bfloat16": torch.bfloat16,
+                   torch.float16: torch.float16, "float16": torch.float16}
 
 
 def compute_dtype(dtype) -> torch.dtype:
     """The encoder's compute type for a config's ``dtype``: float32 for
     ``None``, float32 and ``"float32"``, bfloat16 for bfloat16 and
-    ``"bfloat16"``. Any other type (float16 among them) raises
-    ``NotImplementedError``: the flash kernels have no other form."""
+    ``"bfloat16"``, float16 for float16 and ``"float16"``. Any other type
+    (float64 among them) raises ``NotImplementedError``: the flash kernels
+    have no other form."""
     try:
         return _COMPUTE_DTYPES[dtype]
     except (KeyError, TypeError):
         raise NotImplementedError(
-            f"compute dtype {dtype!r} is not ported: the encoder computes in float32 or "
-            "bfloat16") from None
+            f"compute dtype {dtype!r} is not ported: the encoder computes in float32, "
+            "bfloat16 or float16") from None
 
 
 @dataclasses.dataclass

@@ -2,13 +2,15 @@
 //
 // From q, k, v, dO (all (B, S, H, Dh) float32, rounded to bf16 on the way to
 // shared memory, or all bf16 in the form built with -DT4R_FLASH_BF16, read as
-// stored: flash_common.cuh), the forward's lse and delta = rowsum(dO * O)
+// stored, or all f16 in the form built with -DT4R_FLASH_F16, widened and
+// rounded to bf16 as f32 is: flash_common.cuh), the forward's lse and
+// delta = rowsum(dO * O)
 // (f32), each body
 // recomputes P = exp(logits - lse) tile by tile and forms
 //   dS = P * (dO . v^T - delta)        (rounded to bf16 before its products)
 //   dv = P^T . dO      dk = dS^T . q * Dh^-1/2      dq = dS . k * Dh^-1/2
 // with f32 sums and the scale applied in f32 after the products; dq, dk and
-// dv are written in q's type (rounded once in the bf16 form).
+// dv are written in q's type (rounded once in the bf16 and f16 forms).
 //   K6a flash_bwd_fused: dq, dk, dv from ONE recomputation (5 tile products);
 //   K6b flash_bwd_dq:    dq alone (3 tile products);
 //   K6c flash_bwd_dkv:   dk, dv alone (4 tile products).
@@ -21,7 +23,7 @@
 // causal): q, k, v, dO read and dq, dk, dv written are 7 x 6.3 MB = 44 MB,
 // 13 us at 3.35 TB/s; five products at the mma's depth of 16 are 5.4 GFLOP
 // dense, half of it under the causal mask, 3-5 us on the tensor cores; 17 M
-// exponentials are 4 us. The bytes bound it (half of them in the bf16 form:
+// exponentials are 4 us. The bytes bound it (half of them in the bf16 and f16 forms:
 // 6.6 us). At (4, 2048, 8, 64) the five products are 86 GFLOP dense and the
 // tensor cores bound it.
 //
@@ -1237,8 +1239,11 @@ extern "C" {
 int t4r_flash_tile_rows() { return t4r::flash::TQ; }
 
 // The bytes of a stored value of q, k, v, dO, dq, dk and dv in this library:
-// 4 (f32) or 2 (the bf16 form, built with -DT4R_FLASH_BF16).
+// 4 (f32), or 2 (the bf16 form, built with -DT4R_FLASH_BF16, and the f16
+// form, built with -DT4R_FLASH_F16); and which type it is: 0 f32, 1 bf16,
+// 2 f16.
 int t4r_flash_elem_bytes() { return (int)sizeof(Elem); }
+int t4r_flash_elem_kind() { return t4r::flash::ELEM_KIND; }
 
 // All three launch on `stream` and return the first CUDA error (0 when every
 // launch was accepted). q, k, v, d_out, dq, dk, dv: (B, S, H, Dh) of Elem,

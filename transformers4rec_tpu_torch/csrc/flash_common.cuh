@@ -5,16 +5,18 @@
 // bf16 shared memory, and the mma.sync.m16n8k16 tile products.
 //
 // The stored type. q, k, v, dO and the outputs (out, dq, dk, dv) are of one
-// type E, float or __nv_bfloat16; every kernel is a template on it, and a
-// library instantiates one: float by default, bf16 when built with
-// -DT4R_FLASH_BF16 (ops/build.py's VARIANTS), as the type Elem below. The
-// products take bf16 either way: f32 values are rounded to nearest even as
-// they are loaded, bf16 ones are copied as they are, so on the same values
-// both forms compute the same bits; an f32 accumulator is written as it is
-// or rounded once to nearest even. lse, delta, the bias and dq partials are
-// f32 in both. Loads move 4 values (16 bytes of f32, 8 of bf16: Dh is a
-// multiple of 4, so a head's row starts 8-byte aligned in bf16 at any head
-// dim, where a 16-byte piece would not, e.g. Dh = 12 or 36).
+// type E, float, __nv_bfloat16 or __half; every kernel is a template on it,
+// and a library instantiates one: float by default, bf16 when built with
+// -DT4R_FLASH_BF16, f16 with -DT4R_FLASH_F16 (ops/build.py's VARIANTS), as
+// the type Elem below. The products take bf16 in every form: f32 values are
+// rounded to nearest even as they are loaded, bf16 ones are copied as they
+// are, f16 ones are widened to f32 (exactly) and then rounded to nearest
+// even, so on the same values every form computes the same bits; an f32
+// accumulator is written as it is or rounded once to nearest even (bf16 or
+// f16). lse, delta, the bias and dq partials are f32 in all three. Loads
+// move 4 values (16 bytes of f32, 8 of bf16 or f16: Dh is a multiple of 4,
+// so a head's row starts 8-byte aligned in a 2-byte type at any head dim,
+// where a 16-byte piece would not, e.g. Dh = 12 or 36).
 //
 // The mma.sync kernels work on tiles of TQ = 64 queries by TK = 64 keys with
 // 4 warps; a warp owns 16 rows of the tile it accumulates (queries in the
@@ -31,16 +33,31 @@
 
 #pragma once
 
+#include <cuda_fp16.h>
+
 #include "common.cuh"
 
 namespace t4r {
 namespace flash {
 
-#ifdef T4R_FLASH_BF16
+#if defined(T4R_FLASH_BF16) && defined(T4R_FLASH_F16)
+#error "T4R_FLASH_BF16 and T4R_FLASH_F16 name two stored types"
+#elif defined(T4R_FLASH_BF16)
 using Elem = __nv_bfloat16;
+constexpr int ELEM_KIND = 1;
+#elif defined(T4R_FLASH_F16)
+using Elem = __half;
+constexpr int ELEM_KIND = 2;
 #else
 using Elem = float;
+constexpr int ELEM_KIND = 0;
 #endif
+
+// Four f16 values as loaded. A type of its own and not uint2 (bf16's), so
+// that to_bf16x4 converts them and never passes f16 bits on as bf16.
+struct F16x4 {
+  uint2 w;
+};
 
 // Four values of E as loaded, before any conversion: a load into registers
 // that runs ahead of its use does not wait for its data (to_bf16x4 does).
@@ -54,6 +71,10 @@ template <>
 struct Raw<__nv_bfloat16> {
   using type = uint2;
 };
+template <>
+struct Raw<__half> {
+  using type = F16x4;
+};
 
 __device__ __forceinline__ float4 load4(const float* __restrict__ p) {
   return __ldg(reinterpret_cast<const float4*>(p));
@@ -61,12 +82,33 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ p) {
 __device__ __forceinline__ uint2 load4(const __nv_bfloat16* __restrict__ p) {
   return __ldg(reinterpret_cast<const uint2*>(p));
 }
+__device__ __forceinline__ F16x4 load4(const __half* __restrict__ p) {
+  return F16x4{__ldg(reinterpret_cast<const uint2*>(p))};
+}
+
+// An f16 pair (the low half first) as a bf16 pair: each value widened to
+// f32, which is exact, then rounded to nearest even (XLA's f16 -> bf16
+// convert gives the same value).
+__device__ __forceinline__ uint32_t f16x2_to_bf16x2(uint32_t w) {
+  const float lo = __half2float(__ushort_as_half(static_cast<unsigned short>(w & 0xffffu)));
+  const float hi = __half2float(__ushort_as_half(static_cast<unsigned short>(w >> 16)));
+  return pack_bf16(lo, hi);
+}
+
+// Two f32 values as an f16 pair, each rounded once to nearest even.
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);  // .x (lo) in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // Four loaded values as two bf16 pairs (the low half holds the first value).
 __device__ __forceinline__ uint2 to_bf16x4(const float4& x) {
   return make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
 }
 __device__ __forceinline__ uint2 to_bf16x4(const uint2& x) { return x; }
+__device__ __forceinline__ uint2 to_bf16x4(const F16x4& x) {
+  return make_uint2(f16x2_to_bf16x2(x.w.x), f16x2_to_bf16x2(x.w.y));
+}
 
 // Two values from p as one bf16 pair.
 __device__ __forceinline__ uint32_t load2_bf16(const float* __restrict__ p) {
@@ -76,19 +118,29 @@ __device__ __forceinline__ uint32_t load2_bf16(const float* __restrict__ p) {
 __device__ __forceinline__ uint32_t load2_bf16(const __nv_bfloat16* __restrict__ p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
+__device__ __forceinline__ uint32_t load2_bf16(const __half* __restrict__ p) {
+  return f16x2_to_bf16x2(__ldg(reinterpret_cast<const unsigned int*>(p)));
+}
 
-// Two f32 accumulators to p[0], p[1]: as they are, or rounded once to bf16.
+// Two f32 accumulators to p[0], p[1]: as they are, or rounded once to bf16
+// or f16.
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
 }
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_f16(a, b);
+}
 
-// Four f32 values to p[0..3]: as they are, or rounded once to bf16.
+// Four f32 values to p[0..3]: as they are, or rounded once to bf16 or f16.
 __device__ __forceinline__ void store4(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
 __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
   *reinterpret_cast<uint2*>(p) = to_bf16x4(x);
+}
+__device__ __forceinline__ void store4(__half* p, float4 x) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_f16(x.x, x.y), pack_f16(x.z, x.w));
 }
 
 // bf16 half h (0: low, 1: high) of a packed pair.
@@ -243,7 +295,7 @@ __device__ __forceinline__ void pack_a_fragments(const float (&c)[8][4], uint32_
 }
 
 // A warp's 16 x DP accumulators, times `scale`, to rows row0 + g (+ 8) of one
-// (batch, head) of a (B, S, H, Dh) tensor of float or bf16 (rounded once);
+// (batch, head) of a (B, S, H, Dh) tensor of float, bf16 or f16 (rounded once);
 // rows >= S and columns >= Dh are left out.
 template <int NTD, typename O>
 __device__ __forceinline__ void store_rows(const float (&acc)[NTD][4], float scale,

@@ -4,9 +4,11 @@
 // by an online softmax over key tiles: the (S, S) probabilities never reach
 // device memory. q, k, v are (B, S, H, Dh) float32, rounded to bf16 on the
 // way to shared memory, or bf16 (the form built with -DT4R_FLASH_BF16, read
-// as stored; flash_common.cuh); products accumulate in f32; the scale is
-// applied in f32 after the product; P is rounded to bf16 before P . v; out
-// is written in q's type (rounded once in the bf16 form). A row with no
+// as stored), or f16 (the form built with -DT4R_FLASH_F16, widened and
+// rounded to bf16 as f32 is; flash_common.cuh); products accumulate in f32;
+// the scale is applied in f32 after the product; P is rounded to bf16
+// before P . v; out is written in q's type (rounded once in the bf16 and
+// f16 forms). A row with no
 // valid key gives 0. lse (B * H, S) f32 is kept for the backward, with the
 // sentinel +2e9 on such rows.
 //
@@ -18,7 +20,8 @@
 // two products are 2 x 2 x 512 x 256 x 256 x 16 (Dh padded to the mma's
 // depth) = 2.1 GFLOP dense, half of it under the causal mask, 1-2 us at the
 // 989 TFLOP/s bf16 rate; 17 M exponentials are 4 us on the special-function
-// units. The bytes bound it (half of them in the bf16 form: 3.8 us). At (4, 2048, 8, 64) the products are 34 GFLOP
+// units. The bytes bound it (half of them in the bf16 and f16 forms: 3.8 us).
+// At (4, 2048, 8, 64) the products are 34 GFLOP
 // dense and the tensor cores bound it.
 //
 // Design. The TPU kernel walks the key tiles as a sequential grid axis and
@@ -438,9 +441,12 @@ extern "C" {
 
 int t4r_flash_tile_rows() { return t4r::flash::TQ; }
 
-// The bytes of a stored value of q, k, v and out in this library: 4 (f32)
-// or 2 (the bf16 form, built with -DT4R_FLASH_BF16).
+// The bytes of a stored value of q, k, v and out in this library:
+// 4 (f32), or 2 (the bf16 form, built with -DT4R_FLASH_BF16, and the f16
+// form, built with -DT4R_FLASH_F16); and which type it is: 0 f32, 1 bf16,
+// 2 f16.
 int t4r_flash_elem_bytes() { return (int)sizeof(Elem); }
+int t4r_flash_elem_kind() { return t4r::flash::ELEM_KIND; }
 
 // Launches the forward on `stream`. q, k, v, out: (B, S, H, Dh) of Elem,
 // contiguous and aligned to 4 values; pad: (B, S) bytes (non-zero = a real key)

@@ -8,7 +8,7 @@
 // the depth).
 //
 // Why tiles are rounded in shared memory and not by an image pass. q, k, v
-// and dO arrive as f32 or bf16 (flash_common.cuh's E) in the (B, S, H, Dh)
+// and dO arrive as f32, bf16 or f16 (flash_common.cuh's E) in the (B, S, H, Dh)
 // layout, where one row of a head is Dh x 4 bytes (48 at Dh = 12; Dh x 2 in
 // bf16) at a stride of H x Dh values: no 1-D bulk copy moves a tile, and an
 // image pass that wrote bf16 tiles first would read every byte once more
@@ -17,9 +17,10 @@
 // producer warpgroup copies the rows with cp.async (4 values a copy: 16
 // bytes of f32, 8 of bf16, since a bf16 row need not start 16-byte aligned;
 // zero-filled beyond S and Dh) into a ring of staging pieces (16 KB of f32,
-// 8 of bf16: Stager), several pieces in flight, then rounds each landed
-// piece to bf16 (a bf16 piece is copied as it is) into a ring slot in the
-// swizzled layout;
+// 8 of bf16 or f16: Stager), several pieces in flight, then rounds each
+// landed piece to bf16 (a bf16 piece is copied as it is; an f16 piece, 2
+// bytes a value like bf16, is converted as an f32 one is, through its own
+// raw type F16x4) into a ring slot in the swizzled layout;
 // the next tiles' copies and this tile's rounding overlap the consumers'
 // products and softmax. The slots' barriers count the producer's 128
 // threads (full) and the 8 consumer warps (empty). A generic-proxy store is
@@ -84,11 +85,14 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes)
                : "memory");
 }
 
-// 4 values of E (16 or 8 bytes), zero-filled when !ok.
+// 4 values of E (16 bytes of f32, 8 of bf16 or f16), zero-filled when !ok.
 __device__ __forceinline__ void cp_async4v(void* dst, const float* src, bool ok) {
   cp_async16(dst, src, ok ? 16 : 0);
 }
 __device__ __forceinline__ void cp_async4v(void* dst, const __nv_bfloat16* src, bool ok) {
+  cp_async8(dst, src, ok ? 8 : 0);
+}
+__device__ __forceinline__ void cp_async4v(void* dst, const __half* src, bool ok) {
   cp_async8(dst, src, ok ? 8 : 0);
 }
 
@@ -102,7 +106,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The producer thread p's share of a ring of NSTG staging pieces of E, each
-// R = 4096 / DP rows of DP values (16 KB of f32, 8 of bf16): issue() copies
+// R = 4096 / DP rows of DP values (16 KB of f32, 8 of bf16 or f16): issue() copies
 // rows [r0, r0 + R) of one (batch, head) of a (B, S, H, Dh) tensor of E
 // (`base` at (batch, 0, head, 0), `row_stride` = H x Dh) into the next piece
 // as one cp.async group, zero beyond S and Dh; round() waits until the

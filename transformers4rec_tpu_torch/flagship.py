@@ -138,7 +138,7 @@ def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
                 vocab_parallel_group=None, scheme: str = "mlm",
                 item_dim: Optional[int] = None,
                 eval_on_last_item_seq_only: bool = True, arch: Optional[str] = None,
-                dtype=None, remat: bool = False) -> Model:
+                dtype=None, remat: bool = False, pre=None) -> Model:
     """The flagship model with weights drawn from ``seed``, on ``device``
     (CUDA unless ``"cpu"``): XLNet-MLM on sessions of 20, with
     ``scheme="clm"`` GPT-2-CLM on sessions of 256, with ``scheme="plm"``
@@ -149,8 +149,10 @@ def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
     default), to which the output is tied through a d_model→item_dim
     projection: ``PAPER_ITEM_DIM`` is the paper's XLNet-MLM command's.
     ``arch`` names a registered architecture in place of the scheme's.
-    ``dtype`` (``torch.bfloat16``) and ``remat`` go to the encoder's config:
-    its compute type and per-layer rematerialisation."""
+    ``dtype`` (``torch.bfloat16`` or ``torch.float16``) and ``remat`` go to
+    the encoder's config: its compute type and per-layer rematerialisation.
+    ``pre`` is the input module's pre transformation (``"layer-norm"``
+    normalises each raw continuous column over its positions)."""
     config, masking_kwargs, default_seq, _ = _scheme(scheme)
     if arch is not None:
         config = transformer_registry.parse(arch)
@@ -159,7 +161,7 @@ def build_model(device=None, num_items: int = NUM_ITEMS, d_model: int = D_MODEL,
         schema(num_items, seq), d_output=d_model, masking=scheme, aggregation="concat",
         masking_kwargs=dict(masking_kwargs,
                             eval_on_last_item_seq_only=eval_on_last_item_seq_only),
-        embedding_dims=None if item_dim is None else {"item_id": item_dim},
+        embedding_dims=None if item_dim is None else {"item_id": item_dim}, pre=pre,
     )
     cfg = config.build(d_model=d_model, n_head=n_head, n_layer=n_layer,
                        total_seq_length=seq, dropout=dropout, dtype=dtype, remat=remat)

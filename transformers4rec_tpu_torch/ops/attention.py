@@ -26,20 +26,25 @@ for CPU tensors they run ``flash_forward_plain``, ``flash_bwd_fused_plain``,
 ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain`` (together:
 ``flash_backward_plain``), plain PyTorch versions of the same arithmetic.
 Each wrapper counts its launches in ``<wrapper>.launches``, and those of
-its bf16 form also in ``<wrapper>.bf16_launches``.
+its bf16 form also in ``<wrapper>.bf16_launches``, those of its f16 form in
+``<wrapper>.f16_launches``.
 
-q, k, v and dO are float32 or bfloat16, all four of one type (the encoder's
-compute type), and the outputs out, dq, dk and dv are of that type; lse,
-delta, the bias and K6a's dq partials are float32 in both. On the card each
-type has its own form of every kernel (``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu`` built as they are and, with ``-DT4R_FLASH_BF16``, as
-the libraries ``flash_fwd_bf16`` and ``flash_bwd_bf16``): the bf16 form reads
-bf16 as it is stored where the f32 form rounds its f32 loads, and rounds its
-f32 accumulators once to bf16 as it writes them. A type that the kernels do
-not take raises; nothing is converted before a launch.
+q, k, v and dO are float32, bfloat16 or float16, all four of one type (the
+encoder's compute type), and the outputs out, dq, dk and dv are of that
+type; lse, delta, the bias and K6a's dq partials are float32 in all three.
+On the card each type has its own form of every kernel (``csrc/flash_fwd.cu``
+and ``csrc/flash_bwd.cu`` built as they are, with ``-DT4R_FLASH_BF16`` as
+the libraries ``flash_fwd_bf16`` and ``flash_bwd_bf16``, and with
+``-DT4R_FLASH_F16`` as ``flash_fwd_f16`` and ``flash_bwd_f16``): the bf16
+form reads bf16 as it is stored where the f32 form rounds its f32 loads,
+the f16 form widens its f16 loads to f32 (exactly) and rounds them as the
+f32 form does, and both round their f32 accumulators once to their type as
+they write them. A type that the kernels do not take raises; nothing is
+converted before a launch.
 
 The arithmetic, as the reference's: q, k, v and dO are rounded to bf16 (the
-identity on bf16 inputs), every product accumulates in f32, the scale is applied in f32 after the product, P
+identity on bf16 inputs; f16 goes through its exact f32 value), every
+product accumulates in f32, the scale is applied in f32 after the product, P
 is rounded to bf16 before P·v and Pᵀ·dO and dS before dS·k and dSᵀ·q. Masks
 are finite: causal *replaces* a logit by ``NEG`` where key > query, padding
 *adds* ``NEG``, the bias is *added*. A row whose running maximum never rose
@@ -83,8 +88,9 @@ def reference_attention(q, k, v, bias=None, pad_mask=None, causal=False):
     """Dense attention with float32 logits and softmax: ``softmax(q·kᵀ·scale
     + composed bias)·v`` with the rows that have no valid key set to zero
     (what ``MultiHeadAttention`` computes on its dense path). When q is not
-    float32 the probabilities are rounded to q's type before the product with
-    v, whose sum is float32; the context is returned in q's type.
+    float32 the probabilities are rounded to q's type (bf16 or f16, as the
+    JAX package's ``reference_attention`` rounds them) before the product
+    with v, whose sum is float32; the context is returned in q's type.
     Differentiable in q, k, v and bias."""
     B, S, H, Dh = q.shape
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (Dh ** -0.5)
@@ -107,8 +113,9 @@ def reference_attention(q, k, v, bias=None, pad_mask=None, causal=False):
 
 # ------------------------------------------------------------ plain versions
 def _heads_first(x: torch.Tensor) -> torch.Tensor:
-    """(B, S, H, Dh) → (B, H, S, Dh) float32 of the bf16-rounded values."""
-    return x.to(torch.bfloat16).float().permute(0, 2, 1, 3)
+    """(B, S, H, Dh) → (B, H, S, Dh) float32 of the bf16-rounded values (an
+    f16 value through its exact f32 value, as the kernels round it)."""
+    return x.float().to(torch.bfloat16).float().permute(0, 2, 1, 3)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -278,8 +285,9 @@ _ARGTYPES = {
 }
 
 
-# the library suffix of each stored type's form of the kernels
-_FORMS = {torch.float32: "", torch.bfloat16: "_bf16"}
+# each stored type's form of the kernels: its library's suffix and the
+# type's code there (``t4r_flash_elem_kind``)
+_FORMS = {torch.float32: ("", 0), torch.bfloat16: ("_bf16", 1), torch.float16: ("_f16", 2)}
 
 
 def _entry(name: str, dtype: torch.dtype):
@@ -288,14 +296,15 @@ def _entry(name: str, dtype: torch.dtype):
     from .build import load
 
     source, argtypes = _ARGTYPES[name]
-    source += _FORMS[dtype]
+    suffix, kind = _FORMS[dtype]
+    source += suffix
     lib = load(source)
     fn = getattr(lib, f"t4r_{name}")
     if fn.argtypes is None:
         fn.argtypes, fn.restype = argtypes, _I
         if lib.t4r_flash_tile_rows() != TILE:
             raise RuntimeError(f"{source}: the kernels' tile is not {TILE} rows")
-        if lib.t4r_flash_elem_bytes() != dtype.itemsize:
+        if lib.t4r_flash_elem_bytes() != dtype.itemsize or lib.t4r_flash_elem_kind() != kind:
             raise RuntimeError(f"{source}: not the form for {dtype}")
         if name in ("flash_bwd_dq", "flash_bwd_dkv") \
                 and lib.t4r_flash_stream_max_dh() != SPLIT_STREAM_MAX_DH:
@@ -307,10 +316,11 @@ def _entry(name: str, dtype: torch.dtype):
 def _check_cuda_inputs(op: str, tensors: dict, rows: dict, bias, pad_mask):
     """Raise on what the kernels do not take; returns ``(bias strides in
     elements, pad mask as bytes | None)``. ``tensors`` are (B, S, H, Dh), all
-    f32 or all bf16; ``rows`` (B·H, S) and the bias f32."""
+    f32, all bf16 or all f16; ``rows`` (B·H, S) and the bias f32."""
     q = tensors["q"]
     if q.dtype not in _FORMS:
-        raise TypeError(f"{op}: q is {q.dtype}; the kernels take float32 or bfloat16")
+        raise TypeError(f"{op}: q is {q.dtype}; the kernels take float32, bfloat16 or "
+                        "float16")
     if q.dim() != 4:
         raise ValueError(f"{op}: q must be (B, S, H, Dh), got {tuple(q.shape)}")
     B, S, H, Dh = q.shape
@@ -332,7 +342,7 @@ def _check_cuda_inputs(op: str, tensors: dict, rows: dict, bias, pad_mask):
                 else torch.float32)
         if t.dtype != want:
             raise TypeError(f"{op}: {name} is {t.dtype}, expected {want}")
-    # four values a load: float4 (16 bytes) or four bf16 (8 bytes)
+    # four values a load: float4 (16 bytes) or four bf16 or f16 (8 bytes)
     align = 4 * q.element_size()
     for name, t in tensors.items():
         if t.shape != q.shape:
@@ -375,6 +385,8 @@ def _count(wrapper, q: torch.Tensor) -> None:
     wrapper.launches += 1
     if q.dtype == torch.bfloat16:
         wrapper.bf16_launches += 1
+    elif q.dtype == torch.float16:
+        wrapper.f16_launches += 1
 
 
 def uses_wgmma(head_dim: int) -> bool:
@@ -507,14 +519,15 @@ def _flash_fwd_op_fake(q, k, v, bias, pad_mask, causal):
 
 def flash_fwd(q, k, v, bias=None, pad_mask=None, causal=False):
     """K5: ``(out (B, S, H, Dh) in q's type, lse (B·H, S) f32)``. q, k, v
-    (B, S, H, Dh) contiguous, all f32 or all bf16; bias f32 (1|B, 1|H, S, S) or None; pad_mask (B, S) bool
+    (B, S, H, Dh) contiguous, all f32, all bf16 or all f16; bias f32
+    (1|B, 1|H, S, S) or None; pad_mask (B, S) bool
     (True = a real key) or None. Goes through ``t4r::flash_fwd``: CUDA
     tensors launch the CUDA kernel (``flash_fwd.launches`` counts the
     launches); CPU tensors run ``flash_forward_plain``."""
     return flash_fwd_op(q, k, v, bias, pad_mask, bool(causal))
 
 
-flash_fwd.launches = flash_fwd.bf16_launches = 0
+flash_fwd.launches = flash_fwd.bf16_launches = flash_fwd.f16_launches = 0
 
 
 def flash_bwd_fused(q, k, v, d_out, lse, delta, bias=None, pad_mask=None, causal=False):
@@ -527,7 +540,7 @@ def flash_bwd_fused(q, k, v, d_out, lse, delta, bias=None, pad_mask=None, causal
     return _flash_bwd_fused_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal)
 
 
-flash_bwd_fused.launches = flash_bwd_fused.bf16_launches = 0
+flash_bwd_fused.launches = flash_bwd_fused.bf16_launches = flash_bwd_fused.f16_launches = 0
 
 
 def flash_bwd_dq(q, k, v, d_out, lse, delta, bias=None, pad_mask=None, causal=False):
@@ -538,7 +551,7 @@ def flash_bwd_dq(q, k, v, d_out, lse, delta, bias=None, pad_mask=None, causal=Fa
     return _flash_bwd_dq_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal)
 
 
-flash_bwd_dq.launches = flash_bwd_dq.bf16_launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.bf16_launches = flash_bwd_dq.f16_launches = 0
 
 
 def flash_bwd_dkv(q, k, v, d_out, lse, delta, bias=None, pad_mask=None, causal=False):
@@ -549,7 +562,7 @@ def flash_bwd_dkv(q, k, v, d_out, lse, delta, bias=None, pad_mask=None, causal=F
     return _flash_bwd_dkv_cuda(q, k, v, d_out, lse, delta, bias, pad_mask, causal)
 
 
-flash_bwd_dkv.launches = flash_bwd_dkv.bf16_launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.bf16_launches = flash_bwd_dkv.f16_launches = 0
 
 
 def flash_backward(q, k, v, bias, pad_mask, causal, out, lse, d_out):
@@ -603,7 +616,7 @@ def flash_attention(
     bias_grad: bool = False,
 ) -> torch.Tensor:
     """Fused attention. q, k, v: (B, S, H, Dh), of one type (on the card
-    float32 or bfloat16), passed to the kernels as they are; the output is in
+    float32, bfloat16 or float16), passed to the kernels as they are; the output is in
     that type. ``bias`` (1|B, 1|H, S, S) additive (local window, relative
     positions); ``pad_mask`` (B, S) bool, True at valid keys; ``causal``
     applied inside the kernel.

@@ -8,8 +8,9 @@ headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
 unchanged one is reused. Nothing is downloaded; the sources include only
 those headers and the CUDA toolkit's. A source may also be built a second
 time with extra flags into a library of another name (``VARIANTS``): the
-attention kernels' bf16 forms are ``flash_fwd.cu`` and ``flash_bwd.cu``
-instantiated for bf16, and compile beside the f32 forms.
+attention kernels' bf16 and f16 forms are ``flash_fwd.cu`` and
+``flash_bwd.cu`` instantiated for bf16 and for f16, and compile beside the
+f32 forms.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ NVCC_FLAGS = (
 VARIANTS = {
     "flash_fwd_bf16": ("flash_fwd", ("-DT4R_FLASH_BF16",)),
     "flash_bwd_bf16": ("flash_bwd", ("-DT4R_FLASH_BF16",)),
+    "flash_fwd_f16": ("flash_fwd", ("-DT4R_FLASH_F16",)),
+    "flash_bwd_f16": ("flash_bwd", ("-DT4R_FLASH_F16",)),
 }
 
 _lock = threading.Lock()

@@ -11,8 +11,9 @@ instance, or as a list of either. A block keeps them flat, each registered
 under the name flax gives a module created inside the block's scope:
 ``{ClassName}_{i}``, counted per class, ``pre`` before ``post``. The
 per-feature weights of ``TabularLayerNorm`` are built from the block's
-feature sizes, so ``convert.params_from_jax`` carries them by their JAX
-path (``TabularLayerNorm_0/ln_{feature}``). (flax names a lone instance
+feature sizes (``post``) or from the widths of its schema's raw columns
+(``pre``: ``input_sizes``), so ``convert.params_from_jax`` carries them by
+their JAX path (``TabularLayerNorm_0/ln_{feature}``). (flax names a lone instance
 given as ``pre=`` or ``post=`` after that field instead: such a layer
 norm's JAX weights need their path renamed before loading.)
 """
@@ -24,7 +25,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import torch
 from torch import nn
 
-from ..schema import Schema
+from ..schema import Schema, Tags
+from ..schema.schema import FeatureType
 from ..utils.registry import Registry
 
 TabularData = Dict[str, torch.Tensor]
@@ -70,12 +72,13 @@ def parse_aggregation(agg, schema: Optional[Schema] = None) -> Optional[TabularA
 class TabularTransformation(nn.Module):
     """dict→dict transformation; random draws come from ``generator``.
 
-    ``build(sizes, stage)`` is called once by the owning block: ``sizes``
-    returns the per-feature sizes the transformation will see (``None`` for
-    ``pre``, whose raw input columns have no analytic size); transformations
-    with per-feature weights create them there."""
+    ``build(sizes, stage)`` is called once by the owning block: ``sizes()``
+    returns the last dim of each feature the transformation will see (the
+    block's ``feature_sizes`` for ``post``, the widths of its schema's raw
+    columns, ``input_sizes``, for ``pre``); transformations with
+    per-feature weights call it and create them there."""
 
-    def build(self, sizes: Optional[Callable[[], Dict[str, int]]], stage: str) -> None:
+    def build(self, sizes: Callable[[], Dict[str, int]], stage: str) -> None:
         pass
 
     def forward(self, inputs: TabularData, training: bool = False,
@@ -141,7 +144,8 @@ class TabularBlock(nn.Module):
     -> TabularData`` and ``feature_sizes() -> Dict[str, int]`` (per-feature
     output dims). A subclass with sub-modules passes no ``pre``/``post`` to
     this constructor and calls ``set_transformations(pre, post)`` once they
-    exist (a ``post`` layer norm is built from ``feature_sizes()``)."""
+    exist (a ``post`` layer norm is built from ``feature_sizes()``, a
+    ``pre`` one from ``input_sizes()``)."""
 
     def __init__(self, pre=None, post=None, aggregation=None,
                  schema: Optional[Schema] = None):
@@ -168,7 +172,7 @@ class TabularBlock(nn.Module):
                 cls = type(leaf).__name__
                 name = f"{cls}_{counts.get(cls, 0)}"
                 counts[cls] = counts.get(cls, 0) + 1
-                leaf.build(self.feature_sizes if stage == "post" else None, stage)
+                leaf.build(self.feature_sizes if stage == "post" else self.input_sizes, stage)
                 self.add_module(name, leaf)
                 names.append(name)
 
@@ -185,6 +189,32 @@ class TabularBlock(nn.Module):
 
     def feature_sizes(self) -> Dict[str, int]:
         raise NotImplementedError
+
+    def input_sizes(self) -> Dict[str, int]:
+        """The last dim of each float column of the block's schema as a
+        batch holds it, which is what a ``pre`` transformation sees: a list
+        column (B, S) its ``max_sequence_length`` (the value count's max, or
+        the schema's sequence length), a vector column (``Tags.EMBEDDING``)
+        the last dim of its ``shape``, a scalar column (B,) 1 (it has no last
+        dim to normalise over). Integer columns are left out."""
+        if self.schema is None:
+            raise ValueError(f"{type(self).__name__}: a pre transformation that needs the "
+                             "raw columns' widths needs the block's schema")
+        sizes: Dict[str, int] = {}
+        for col in self.schema:
+            if col.type != FeatureType.FLOAT:
+                continue
+            if col.has_tag(Tags.EMBEDDING):
+                width = col.shape.dims[-1] if col.shape and col.shape.dims else None
+            elif col.is_list:
+                width = col.max_sequence_length or self.schema.sequence_length()
+            else:
+                width = 1
+            if not width:
+                raise ValueError(f"column {col.name!r}: its schema gives no width for a pre "
+                                 "transformation (a value count or a shape)")
+            sizes[col.name] = int(width)
+        return sizes
 
     def output_size(self) -> int:
         """Aggregated feature dim (analytic)."""

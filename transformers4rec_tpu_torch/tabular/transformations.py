@@ -104,8 +104,12 @@ class StochasticSwapNoise(TabularTransformation):
 @tabular_transformation_registry.register("layer-norm")
 class TabularLayerNorm(TabularTransformation):
     """One LayerNorm (``eps`` 1e-6, flax's) per float feature over its last
-    dim; features whose last dim is 1 pass through. The norms are built for
-    the block's feature sizes and named ``ln_{feature}``."""
+    dim; features whose last dim is 1 pass through, and so do integer
+    ones. The norms are named ``ln_{feature}`` and built for the block's
+    feature sizes as a ``post`` transformation, or as a ``pre`` one for the
+    widths of its raw columns (``TabularBlock.input_sizes``): a raw (B, S)
+    list column is normalised over its S positions, padding included, as
+    the JAX package does, and a batch of another width raises."""
 
     def __init__(self, eps: float = 1e-6):
         super().__init__()
@@ -113,10 +117,6 @@ class TabularLayerNorm(TabularTransformation):
         self.keys: Tuple[str, ...] = ()
 
     def build(self, sizes, stage):
-        if sizes is None:
-            raise NotImplementedError(
-                "layer-norm as a pre transformation (on the raw input columns) is not ported"
-            )
         for key, dim in sizes().items():
             if dim > 1:
                 if "." in key:
