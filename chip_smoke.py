@@ -343,9 +343,15 @@ with XLNet-PLM on the same batches; ``--profile-train-arch NAME [FILE]``
 does it for phase S's command line of ``albert`` (S1), ``transfoxl`` (S2)
 or ``electra`` (S3), built by the experiment script and trained from a
 Parquet window. ``--time-ce`` checks and times
-K3 alone at the evaluation shape at E = 64, 128 and 256 (with its ring's
-depth and, from ``torch.profiler``, the device time of each of its two
-kernels) and K1 and K2 alone at the three training shapes, ``--time-flash``
+K3 alone as ``--time-k3`` does: at the evaluation shape at E = 64, 128 and
+256 in both table forms and with label smoothing at E = 64 (with its
+ring's plan, the blocks an SM holds and, from ``torch.profiler``, the
+device time of each of its two kernels); then K1 and K2 alone at the three
+training shapes, then K4 as
+``--time-rank`` does: at its ring's edges, and at 128 and 2,560 rows, E =
+64, 128 and 256, f32 and bf16 tables, checked and timed with its ring's
+plan, the partial kernel's time against the merge's, and the bf16 table
+alternating two copies (the L2 cache holds about one); ``--time-flash``
 K5, K6a, K6b and K6c alone in both their designs, and the split route
 K6b + K6c beside K6a, at the CLM shape, at the S = 4,096 step's, at
 (4, 2048, 8, 64) and where the designs meet (head dims 32, 48 and 128).
@@ -371,6 +377,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import math
 import os
@@ -728,6 +735,48 @@ def check_padding_row_labels(n: int, rows: int, vocab_size: int, eps: float,
 
 
 # ------------------------------------------------------------------ K4 check
+def rank_case(n: int, rows: int, vocab_size: int, shard_bound, beta_lo: float, beta_hi: float,
+              seed: int, device, e: int, table_dtype, name: str) -> tuple:
+    """One call of K4 against ``rank_counts_plain`` and of ``fused_label_rank``
+    (K1 + K4) against K3's ranks: the rows' count differences, the rows'
+    rank differences and the count of labels of -1. Fails when a second call
+    gives other counts."""
+    from transformers4rec_tpu_torch.ops import vocab
+
+    x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, beta_lo, beta_hi, seed, device,
+                                  table_dtype)
+    ll = vocab.label_logits(x, W, labels)
+    _, want_k3, _ = vocab.ce_rank(x, W, labels, ll, vocab_size)
+    k3_diff = (vocab.fused_label_rank(x, W, labels, vocab_size).long()
+               - want_k3.long()).abs().cpu()
+    bound_ = vocab_size if shard_bound is None else shard_bound
+    labels = torch.where(labels < bound_, labels, torch.full_like(labels, -1))
+    cnt = vocab.rank_counts(x, W, ll, labels, bound_)
+    cnt_p = vocab.rank_counts_plain(x, W, ll, labels, bound_)
+    again = vocab.rank_counts(x, W, ll, labels, bound_)
+    sync(device)
+    if cnt.dtype != torch.int32 or not torch.equal(cnt, again):
+        fail(f"rank {name}: {cnt.dtype}, or a second call gave other counts")
+    return (cnt.long() - cnt_p.long()).abs().cpu(), k3_diff, int((labels < 0).sum())
+
+
+def rank_verdict(out: dict, diffs: list, k3_diffs: list, minus_one: int) -> dict:
+    """``check_rank``'s criteria over every call's rows, printed and returned
+    in ``out``."""
+    diff, k3_diff = torch.cat(diffs), torch.cat(k3_diffs)
+    out.update({"calls": len(diffs), "labels_minus_one": minus_one,
+                "count_exact_share": float((diff == 0).float().mean()),
+                "count_max_diff": int(diff.max()),
+                "label_rank_vs_k3_exact_share": float((k3_diff == 0).float().mean()),
+                "label_rank_vs_k3_max_diff": int(k3_diff.max())})
+    print(f"[k4] {json.dumps(out)}")
+    if out["count_exact_share"] < 0.99 or out["count_max_diff"] > 2:
+        fail(f"rank {out['shape']}: {out}")
+    if out["label_rank_vs_k3_exact_share"] < 0.99 or out["label_rank_vs_k3_max_diff"] > 1:
+        fail(f"fused_label_rank {out['shape']}: {out}")
+    return out
+
+
 def check_rank(name: str, n: int, rows: int, vocab_size: int, shard_bound, beta_lo: float,
                beta_hi: float, seeds, device="cuda", e: int = 64,
                table_dtype=torch.float32) -> dict:
@@ -741,41 +790,57 @@ def check_rank(name: str, n: int, rows: int, vocab_size: int, shard_bound, beta_
     another order, so a logit within an ulp of the threshold may land on the
     other side of it); K1 + K4 equal to K3 on >= 99% of the rows and within 1
     elsewhere; the same counts on a second call."""
-    from transformers4rec_tpu_torch.ops import vocab
-
     diffs, k3_diffs, minus_one = [], [], 0
     for seed in seeds:
-        x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, beta_lo, beta_hi, seed, device,
-                                      table_dtype)
-        ll = vocab.label_logits(x, W, labels)
-        _, want_k3, _ = vocab.ce_rank(x, W, labels, ll, vocab_size)
-        k3_diffs.append((vocab.fused_label_rank(x, W, labels, vocab_size).long()
-                         - want_k3.long()).abs().cpu())
-        bound_ = vocab_size if shard_bound is None else shard_bound
-        labels = torch.where(labels < bound_, labels, torch.full_like(labels, -1))
-        minus_one += int((labels < 0).sum())
-        cnt = vocab.rank_counts(x, W, ll, labels, bound_)
-        cnt_p = vocab.rank_counts_plain(x, W, ll, labels, bound_)
-        again = vocab.rank_counts(x, W, ll, labels, bound_)
-        sync(device)
-        if cnt.dtype != torch.int32 or not torch.equal(cnt, again):
-            fail(f"rank {name}: {cnt.dtype}, or a second call gave other counts")
-        diffs.append((cnt.long() - cnt_p.long()).abs().cpu())
-    diff, k3_diff = torch.cat(diffs), torch.cat(k3_diffs)
-    out = {"shape": name, "N": n, "E": e, "calls": len(diffs), "table_rows": rows,
-           "vocab_size": vocab_size, "shard_bound": shard_bound,
-           "table_dtype": str(table_dtype)[6:],
-           "labels_minus_one": minus_one,
-           "count_exact_share": float((diff == 0).float().mean()),
-           "count_max_diff": int(diff.max()),
-           "label_rank_vs_k3_exact_share": float((k3_diff == 0).float().mean()),
-           "label_rank_vs_k3_max_diff": int(k3_diff.max())}
-    print(f"[k4] {json.dumps(out)}")
-    if out["count_exact_share"] < 0.99 or out["count_max_diff"] > 2:
-        fail(f"rank {name}: {out}")
-    if out["label_rank_vs_k3_exact_share"] < 0.99 or out["label_rank_vs_k3_max_diff"] > 1:
-        fail(f"fused_label_rank {name}: {out}")
-    return out
+        d, k3, m = rank_case(n, rows, vocab_size, shard_bound, beta_lo, beta_hi, seed, device,
+                             e, table_dtype, name)
+        diffs.append(d)
+        k3_diffs.append(k3)
+        minus_one += m
+    return rank_verdict({"shape": name, "N": n, "E": e, "table_rows": rows,
+                         "vocab_size": vocab_size, "shard_bound": shard_bound,
+                         "table_dtype": str(table_dtype)[6:]}, diffs, k3_diffs, minus_one)
+
+
+# K4's ring at its edges (n, e, table rows, vocab_size, shard bound): a vocab
+# below one slot; V off the slot's rows with splits of uneven length; E off
+# every k-step (4, 60: bf16 rows of 8 and 120 bytes, so the vocab's last
+# group of an odd count of rows ends in 8 bytes that the producer lane copies
+# itself); E = 128 and 256 (32-row slots); N off the 128-row tile; a shard's
+# bound far below its rows, with labels of -1
+RANK_EDGES = ((37, 64, 64, 50, None),
+              (77, 64, 16_960, 16_955, None),
+              (130, 4, 5_008, 5_001, None),
+              (200, 60, 33_008, 33_001, None),
+              (129, 128, 20_008, 20_001, None),
+              (128, 256, 16_960, 16_955, None),
+              (300, 64, 100_008, 100_003, 60_003))
+
+
+def check_rank_edges(table_dtype=torch.float32, device="cuda") -> dict:
+    """K4 at ``RANK_EDGES`` by ``check_rank``'s criteria over all their rows
+    together (a few hundred rows each: one near tie would take a case alone
+    below 99%), and at ``vocab_size`` 0 (every count 0); ``seconds``: what
+    the check adds to the run."""
+    from transformers4rec_tpu_torch.ops import vocab
+
+    t0 = time.perf_counter()
+    diffs, k3_diffs, minus_one = [], [], 0
+    for i, (n, e, rows, vocab_size, shard_bound) in enumerate(RANK_EDGES):
+        d, k3, m = rank_case(n, rows, vocab_size, shard_bound, 0.0, 12.0, 120 + i, device, e,
+                             table_dtype, f"edge-{n}-{e}-{vocab_size}")
+        diffs.append(d)
+        k3_diffs.append(k3)
+        minus_one += m
+    x, W, _ = ce_rank_inputs(70, 512, 500, 64, 0.0, 12.0, 127, device, table_dtype)
+    minus_one_labels = torch.full((70,), -1, dtype=torch.int32, device=device)
+    cnt = vocab.rank_counts(x, W, torch.zeros(70, device=device), minus_one_labels, 0)
+    if cnt.shape != (70,) or cnt.any():
+        fail(f"rank at vocab_size 0 ({table_dtype}): {cnt.tolist()}")
+    sync(device)
+    return rank_verdict({"shape": "ring-edges", "cases": len(RANK_EDGES), "vocab_size_0": True,
+                         "table_dtype": str(table_dtype)[6:],
+                         "seconds": time.perf_counter() - t0}, diffs, k3_diffs, minus_one)
 
 
 # ---------------------------------------------------------- K5 / K6 checks
@@ -4923,7 +4988,8 @@ def check_bf16_kernels(table_rows: int, vocab_size: int, large_rows: int,
           check_rank("bf16-edge", 1000, 100_008, 100_003, 60_003, 0.0, 12.0, [107],
                      table_dtype=torch.bfloat16),
           check_rank("bf16-e448", 1000, 100_008, 100_003, 60_003, 0.0, 12.0, [108], e=448,
-                     table_dtype=torch.bfloat16)]
+                     table_dtype=torch.bfloat16),
+          check_rank_edges(torch.bfloat16)]
     k7 = [check_adafactor_bf16("item table", table_rows, 64, 1.0),
           check_adafactor_bf16("edge", 2051, 13, 1.0),
           check_adafactor_bf16("edge, no clip", 2051, 13, None)]
@@ -5362,13 +5428,16 @@ def time_ce_train(vocab, n: int, rows: int, vocab_size: int, chunk_rows: int = 0
 
 
 def time_ce_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64,
-                 chunk_rows: int = 0, table_dtype=torch.float32) -> dict:
+                 chunk_rows: int = 0, table_dtype=torch.float32, smooth: bool = False) -> dict:
     """K3 beside its plain version and a library yardstick that materialises
     the (N, V) logits; with the launch plan's ring (``stages`` slots of
-    ``slot_rows`` rows a block, ``blocks_per_sm``; none past E = 256, where
-    the wide kernel runs) and splits. With ``chunk_rows`` the yardstick runs
-    on that many rows at a time (``library_chunked_ms``; ``library_ms`` is
-    None), as ``time_ce_train``'s; ``table_dtype`` as there."""
+    ``slot_rows`` rows a block, ``blocks_per_sm`` and the blocks of the pass
+    an SM holds at its shared memory, ``resident_blocks``; none past E =
+    256, where the wide kernel runs) and splits. With ``chunk_rows`` the
+    yardstick runs on that many rows at a time (``library_chunked_ms``;
+    ``library_ms`` is None), as ``time_ce_train``'s; ``table_dtype`` as
+    there; ``smooth`` times K3 and its plain version with label smoothing's
+    sums."""
     x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, 4.0, 12.0, 1, "cuda", table_dtype)
     ll = vocab.label_logits(x, W, labels)
     xb16 = x.to(torch.bfloat16)
@@ -5378,8 +5447,8 @@ def time_ce_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64,
         logits = torch.matmul(xb16[rows_], Wb16.T).float()  # materialises (N, V)
         return torch.logsumexp(logits, -1), (logits > ll[rows_, None]).sum(-1)
 
-    ms = cuda_ms(lambda: vocab.ce_rank(x, W, labels, ll, vocab_size))
-    plain_ms = cuda_ms(lambda: vocab.ce_rank_plain(x, W, labels, ll, vocab_size, False),
+    ms = cuda_ms(lambda: vocab.ce_rank(x, W, labels, ll, vocab_size, smooth=smooth))
+    plain_ms = cuda_ms(lambda: vocab.ce_rank_plain(x, W, labels, ll, vocab_size, smooth),
                        reps=10 if chunk_rows else 30)
     if chunk_rows:
         chunks = [slice(r0, min(r0 + chunk_rows, n)) for r0 in range(0, n, chunk_rows)]
@@ -5392,24 +5461,33 @@ def time_ce_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64,
     # least work: read x, the vocab_size used rows of W, labels and ll once,
     # write lse and rank once; 2·N·E·V operations of the product and N·V
     # exponentials
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = vocab.ce_plan(n, E, vocab_size, rows, sms, False, vocab.K3_CHUNK, streamed=True,
-                         table_bf16=bf16)
+    lib = vocab._kernel_lib("ce_rank")
+    plan = vocab._stream_plan(lib, x, W, vocab_size)
     return {
         "ms": ms, "plain_ms": plain_ms, **yardstick, "N": n, "E": E,
-        "table_dtype": str(W.dtype)[6:], "stages": plan.stages or None,
+        "table_dtype": str(W.dtype)[6:], "smooth": smooth, "stages": plan.stages or None,
         "slot_rows": None if plan.wide else vocab.k3_slot(E, bf16)[0],
-        "blocks_per_sm": None if plan.wide else plan.blocks_per_sm, "splits": plan.splits,
+        "blocks_per_sm": None if plan.wide else plan.blocks_per_sm,
+        "resident_blocks": None if plan.wide else lib.t4r_blocks_per_sm(E, plan.smem, int(bf16)),
+        "splits": plan.splits,
         **bound(4 * (n * E + 2 * n) + wb * vocab_size * E + 4 * 2 * n, 2 * n * E * vocab_size,
                 n * vocab_size),
     }
 
 
 def time_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64,
-              table_dtype=torch.float32) -> dict:
+              table_dtype=torch.float32, detail: bool = False) -> dict:
     """K4 at the evaluation shape beside its plain version and the library
     yardstick: a bf16 ``torch.matmul`` that materialises the (N, V) logits,
-    then a ``>`` count; ``table_dtype`` as ``time_ce_train``'s."""
+    then a ``>`` count; ``table_dtype`` as ``time_ce_train``'s. With
+    ``detail`` also: K4's launch plan (``stages`` ring slots of ``slot_rows``
+    rows a block, ``blocks_per_sm``, ``splits``, the table's bytes in flight
+    on an SM; none past E = 256, where the wide kernel runs),
+    the device time of each of its kernels (``kernel_us``: the partial
+    kernel against the merge) and ``ms_two_tables``, the call alternating
+    between two copies of the table: a bf16 table at E = 64 (49.9 MB) about
+    fills the card's 50 MB L2 cache, so calls on one table may read it from
+    there, and on two they read device memory."""
     x, W, labels = ce_rank_inputs(n, rows, vocab_size, e, 4.0, 12.0, 1, "cuda", table_dtype)
     ll = vocab.label_logits(x, W, labels)
     xb16 = x.to(torch.bfloat16)
@@ -5419,7 +5497,7 @@ def time_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64,
     def library():
         return (torch.matmul(xb16, Wb16.T).float() > ll[:, None]).sum(-1)
 
-    return {
+    out = {
         "ms": cuda_ms(lambda: vocab.rank_counts(x, W, ll, labels, vocab_size)),
         "plain_ms": cuda_ms(lambda: vocab.rank_counts_plain(x, W, ll, labels, vocab_size)),
         "library_ms": cuda_ms(library), "N": n, "E": E, "table_dtype": str(W.dtype)[6:],
@@ -5427,6 +5505,57 @@ def time_rank(vocab, n: int, rows: int, vocab_size: int, e: int = 64,
         # counts once; 2·N·E·V operations of the product
         **bound(4 * (n * E + 2 * n) + wb * vocab_size * E + 4 * n, 2 * n * E * vocab_size),
     }
+    if not detail:
+        return out
+    del Wb16
+    lib = vocab._kernel_lib("rank")
+    plan = vocab._stream_plan(lib, x, W, vocab_size)
+    slot_rows, slot_bytes = vocab.k3_slot(E, W.dtype == torch.bfloat16)
+    tables, turn = (W, W.clone()), [0]
+
+    def alternate():
+        turn[0] ^= 1
+        return vocab.rank_counts(x, tables[turn[0]], ll, labels, vocab_size)
+
+    out.update({
+        "ms_two_tables": cuda_ms(alternate),
+        "kernel_us": kernel_us(lambda: vocab.rank_counts(x, W, ll, labels, vocab_size)),
+        "stages": plan.stages or None, "slot_rows": None if plan.wide else slot_rows,
+        "blocks_per_sm": None if plan.wide else plan.blocks_per_sm, "splits": plan.splits,
+        "resident_blocks": None if plan.wide
+        else lib.t4r_blocks_per_sm(E, plan.smem, int(W.dtype == torch.bfloat16)),
+        "bytes_in_flight_per_sm": None if plan.wide
+        else plan.stages * plan.blocks_per_sm * slot_bytes,
+    })
+    return out
+
+
+# K4's timed shapes under --time-rank (rows, E): the evaluation's 128 rows and
+# every-position evaluation's 2,560, at the narrow kernel's widths
+RANK_TIMED = tuple((n, e) for n in (EVAL_ROWS, PLM_EVAL_ROWS) for e in (64, 128, 256))
+
+
+def time_rank_kernels(card: str) -> None:
+    """``--time-rank``, also the end of ``--time-ce``: K4 alone, both table
+    forms. Its ring's edges (``check_rank_edges``); then at ``RANK_TIMED``
+    against the REES46 table's vocabulary, checked (``check_rank``) and
+    timed with the detail of ``time_rank``: the launch plan's ring, the
+    partial kernel against the merge, one table against two in turns."""
+    from transformers4rec_tpu_torch import flagship
+    from transformers4rec_tpu_torch.ops import build, vocab
+
+    build.build(["rank", "ce_rank", "ce_fwd"])
+    vocab_size = flagship.NUM_ITEMS + 1
+    rows = -(-vocab_size // 8) * 8
+    for dtype in (torch.float32, torch.bfloat16):
+        check_rank_edges(dtype)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, e in RANK_TIMED:
+            check_rank(f"timed-{n}-{e}", n, rows, vocab_size, None, 4.0, 12.0, [1], e=e,
+                       table_dtype=dtype)
+            timing = time_rank(vocab, n, rows, vocab_size, e=e, table_dtype=dtype, detail=True)
+            print(f"[time-rank] rank on {card}: {json.dumps(timing)}", flush=True)
+            torch.cuda.empty_cache()
 
 
 def time_adafactor(rows: int, e: int, table_dtype=torch.float32) -> dict:
@@ -5674,28 +5803,60 @@ def profile_compute_dtype(card: str, window: int = 8) -> None:
     print(json.dumps({"profile_compute_dtype": results}))
 
 
-def time_ce_kernels(card: str) -> None:
-    """K3 alone at the evaluation shape (128 rows against the REES46 table)
-    at E = 64, 128 and 256 (the narrow kernel's widths), then K1 and K2 at
-    the three training shapes (915, 8,192 and 16,384 loss rows), each held
-    against its plain version (``check_ce_rank``, ``check_ce_train``) and
-    timed (``time_ce_rank``, ``time_ce_train``) as the smoke run does: the
-    quick loop for work on these kernels."""
+# K3's timed forms under --time-k3 (E, table dtype, label smoothing): the
+# narrow pass's widths in both table forms, and the evaluation's width with
+# label smoothing's sums
+K3_TIMED = tuple((e, dtype, False) for dtype in (torch.float32, torch.bfloat16)
+                 for e in (64, 128, 256)) + ((64, torch.float32, True),)
+
+
+def time_k3_kernels(card: str) -> None:
+    """``--time-k3``, also the start of ``--time-ce``: K3 alone at the
+    evaluation shape (128 rows against the REES46 table) in the forms of
+    ``K3_TIMED``, each held against its plain version (``check_ce_rank``)
+    and timed (``time_ce_rank``: the launch plan's ring and the blocks an SM
+    holds), with the device time of its two kernels (``kernel_us``: the
+    pass against the merge) and a digest of its outputs' bits (``bits``:
+    the same digest from two builds means the same lse, ranks and sums)."""
     from transformers4rec_tpu_torch import flagship
     from transformers4rec_tpu_torch.ops import build, vocab
 
-    build.build(["ce_rank", "ce_fwd", "ce_bwd"])
+    build.build(["ce_rank"])
     vocab_size = flagship.NUM_ITEMS + 1
     rows = -(-vocab_size // 8) * 8
-    for e in (64, 128, 256):
-        check_ce_rank(f"eval-{e}", EVAL_ROWS, rows, vocab_size, False, 4.0, 12.0, [1], e=e)
-        timing = time_ce_rank(vocab, EVAL_ROWS, rows, vocab_size, e=e)
-        x, W, labels = ce_rank_inputs(EVAL_ROWS, rows, vocab_size, e, 4.0, 12.0, 1, "cuda")
+    for e, dtype, smooth in K3_TIMED:
+        check_ce_rank(f"eval-{e}", EVAL_ROWS, rows, vocab_size, smooth, 4.0, 12.0, [1], e=e,
+                      table_dtype=dtype)
+        timing = time_ce_rank(vocab, EVAL_ROWS, rows, vocab_size, e=e, table_dtype=dtype,
+                              smooth=smooth)
+        x, W, labels = ce_rank_inputs(EVAL_ROWS, rows, vocab_size, e, 4.0, 12.0, 1, "cuda",
+                                      dtype)
         ll = vocab.label_logits(x, W, labels)
-        timing["kernel_us"] = kernel_us(lambda: vocab.ce_rank(x, W, labels, ll, vocab_size))
+        timing["kernel_us"] = kernel_us(
+            lambda: vocab.ce_rank(x, W, labels, ll, vocab_size, smooth=smooth))
+        outs = [t for t in vocab.ce_rank(x, W, labels, ll, vocab_size, smooth=smooth)
+                if t is not None]
+        timing["bits"] = hashlib.sha1(b"".join(t.cpu().numpy().tobytes()
+                                               for t in outs)).hexdigest()[:16]
         print(f"[time-ce] ce_rank on {card}: {json.dumps(timing)}", flush=True)
         del x, W
         torch.cuda.empty_cache()
+
+
+def time_ce_kernels(card: str) -> None:
+    """K3 as ``--time-k3`` does (``time_k3_kernels``), then K1 and K2 at the
+    three training shapes (915, 8,192 and 16,384 loss rows), each held
+    against its plain version (``check_ce_train``) and timed
+    (``time_ce_train``) as the smoke run does, then K4 as ``--time-rank``
+    does (``time_rank_kernels``): the quick loop for work on these
+    kernels."""
+    from transformers4rec_tpu_torch import flagship
+    from transformers4rec_tpu_torch.ops import build, vocab
+
+    time_k3_kernels(card)
+    build.build(["ce_fwd", "ce_bwd"])
+    vocab_size = flagship.NUM_ITEMS + 1
+    rows = -(-vocab_size // 8) * 8
     for name, n, seed in (("train", 915, 11),
                           ("clm", flagship.LONG_BATCH * flagship.LONG_SEQ, 13),
                           ("long_step", LONG_STEP_BATCH * LONG_STEP_SEQ, 14)):
@@ -5703,6 +5864,7 @@ def time_ce_kernels(card: str) -> None:
         timing = time_ce_train(vocab, n, rows, vocab_size, chunk_rows=1024 if n > 915 else 0)
         print(f"[time-ce] on {card}: {json.dumps(timing)}", flush=True)
         torch.cuda.empty_cache()
+    time_rank_kernels(card)
 
 
 def time_bf16_kernels(card: str) -> None:
@@ -6977,6 +7139,12 @@ def main() -> None:
     if sys.argv[1:] == ["--time-ce"]:
         time_ce_kernels(card_line())
         return
+    if sys.argv[1:] == ["--time-rank"]:
+        time_rank_kernels(card_line())
+        return
+    if sys.argv[1:] == ["--time-k3"]:
+        time_k3_kernels(card_line())
+        return
     if sys.argv[1:] == ["--time-bf16"]:
         time_bf16_kernels(card_line())
         return
@@ -7067,6 +7235,7 @@ def main() -> None:
                    range(1, EVAL_BATCHES + 1)),
         # N off every tile size, a shard's bound far below its rows, labels of -1
         check_rank("edge", 1000, 100_008, 100_003, 60_003, 0.0, 12.0, [EVAL_BATCHES + 1]),
+        check_rank_edges(),
     ]
     adafactor_checks = [
         check_adafactor("item table", table_rows, 64, 1.0),

@@ -135,10 +135,9 @@ def test_streamed_ce_rank_kernel_matches_plain_at_its_edges(dev, n, e, vocab_siz
     slots and splits of uneven length (the last of them one chunk long on a
     132-SM card), against the plain version, with the same bits twice."""
     x, W, labels, ll = _inputs(n, e, vocab_size + 3, vocab_size, n + e + 1, dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = vocab.ce_plan(n, e, vocab_size, W.shape[0], sms, False, vocab.K3_CHUNK, streamed=True)
-    assert plan.stages >= vocab.K3_MIN_STAGES
     lib = vocab._kernel_lib("ce_rank")
+    plan = vocab._stream_plan(lib, x, W, vocab_size)
+    assert plan.stages >= vocab.K3_MIN_STAGES
     assert lib.t4r_ce_rank_smem(e, plan.stages) == plan.smem
     got = vocab.ce_rank(x, W, labels, ll, vocab_size, smooth=True)
     again = vocab.ce_rank(x, W, labels, ll, vocab_size, smooth=True)
@@ -414,6 +413,98 @@ def test_rank_kernel_rejects_what_it_does_not_take(dev):
         vocab.rank_counts(x, W, ll, labels, 513)
     with pytest.raises(ValueError):
         vocab.rank_counts(x, W, ll.cpu(), labels, 500)
+
+
+@pytest.mark.parametrize("table", ["f32", "bf16"])
+@pytest.mark.parametrize("n,e,vocab_size", [
+    (37, 64, 50),         # a vocab below one slot
+    (77, 64, 16_955),     # V off the slot's rows; splits of uneven length
+    (130, 4, 5_001),      # E off every k-step (bf16 rows of 8 bytes), two row tiles
+    (200, 60, 33_001),    # bf16 rows of 120 bytes: the vocab's last 8 bytes by hand
+    (129, 128, 20_001),   # N off the row tile
+    (128, 256, 16_955),   # the widest narrow E: 32-row slots
+])
+def test_streamed_rank_kernel_matches_plain_at_its_edges(dev, n, e, vocab_size, table):
+    """K4 where its streamed pass meets the shapes' edges, in both table
+    forms, against the plain version, the same counts twice, with the
+    plan's ring."""
+    x, W, labels, ll = _inputs(n, e, vocab_size + 3, vocab_size, n + e + 2, dev)
+    labels[::4] = -1
+    if table == "bf16":
+        W = W.to(torch.bfloat16)
+        ll = vocab.label_logits(x, W, labels.clamp_min(0))
+    lib = vocab._kernel_lib("rank")
+    plan = vocab._stream_plan(lib, x, W, vocab_size)
+    smem_of = lib.t4r_rank_smem_bf16 if table == "bf16" else lib.t4r_rank_smem
+    assert plan.stages >= vocab.K3_MIN_STAGES and smem_of(e, plan.stages) == plan.smem
+    assert (plan.splits > 1) == (vocab_size > vocab.K3_CHUNK)
+    before = vocab.rank_counts.launches
+    cnt = vocab.rank_counts(x, W, ll, labels, vocab_size)
+    again = vocab.rank_counts(x, W, ll, labels, vocab_size)
+    torch.cuda.synchronize()
+    assert vocab.rank_counts.launches == before + 2
+    assert cnt.dtype == torch.int32 and torch.equal(cnt, again)
+    cnt_p = vocab.rank_counts_plain(x, W, ll, labels, vocab_size)
+    assert int((cnt.long() - cnt_p.long()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("table", ["f32", "bf16"])
+def test_rank_kernel_gives_the_same_counts_twice_at_the_evaluation_shape(dev, table):
+    x, W, labels, ll = _inputs(128, 64, 390_008, 390_001, 4, dev)
+    if table == "bf16":
+        W = W.to(torch.bfloat16)
+        ll = vocab.label_logits(x, W, labels)
+    first = vocab.rank_counts(x, W, ll, labels, 390_001)
+    second = vocab.rank_counts(x, W, ll, labels, 390_001)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    cnt_p = vocab.rank_counts_plain(x, W, ll, labels, 390_001)
+    assert int((first.long() - cnt_p.long()).abs().max()) <= 1
+    assert float((first == cnt_p).float().mean()) >= 0.99
+
+
+def test_rank_kernel_refuses_a_ring_the_plan_would_not_give(dev):
+    x, W, labels, ll = _inputs(8, 64, 512, 500, 7, dev)
+    lib = vocab._kernel_lib("rank")
+    part, cnt = (torch.empty(8, dtype=torch.int32, device=dev) for _ in range(2))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for stages, smem in ((2, lib.t4r_rank_smem(64, 2)), (4, lib.t4r_rank_smem(64, 4) + 16),
+                         (40, lib.t4r_rank_smem(64, 40))):
+        err = lib.t4r_rank(x.data_ptr(), W.data_ptr(), labels.data_ptr(), ll.data_ptr(), 8, 64,
+                           500, 1, 8, stages, smem, part.data_ptr(), cnt.data_ptr(), stream)
+        assert err != 0
+
+
+@pytest.mark.parametrize("table", ["f32", "bf16"])
+@pytest.mark.parametrize("e", [4, 64, 128, 256])
+def test_the_rank_plan_is_sized_for_the_blocks_an_sm_holds(dev, e, table):
+    """K4's plan at the evaluation shape: an SM holds at least its
+    blocks_per_sm blocks of K4's pass at the plan's shared memory, and
+    those blocks' rings hold the bytes the plan keeps in flight, in either
+    table form."""
+    dtype = torch.bfloat16 if table == "bf16" else torch.float32
+    x = torch.empty(128, e, device=dev)
+    W = torch.empty(1, e, dtype=dtype, device=dev).expand(390_008, e)
+    lib = vocab._kernel_lib("rank")
+    plan = vocab._stream_plan(lib, x, W, 390_001)
+    assert lib.t4r_rank_blocks_per_sm(e, plan.smem, int(table == "bf16")) >= plan.blocks_per_sm
+    assert vocab.K3_IN_FLIGHT <= plan.blocks_per_sm * plan.smem <= vocab.MAX_SMEM
+
+
+@pytest.mark.parametrize("table", ["f32", "bf16"])
+@pytest.mark.parametrize("e", [4, 64, 128, 256])
+def test_the_ce_rank_plan_is_sized_for_the_blocks_an_sm_holds(dev, e, table):
+    """K3's plan at the evaluation shape: an SM holds at least its
+    blocks_per_sm blocks of K3's pass, with and without label smoothing, at
+    the plan's shared memory, and those blocks' rings hold the bytes the
+    plan keeps in flight, in either table form."""
+    dtype = torch.bfloat16 if table == "bf16" else torch.float32
+    x = torch.empty(128, e, device=dev)
+    W = torch.empty(1, e, dtype=dtype, device=dev).expand(390_008, e)
+    lib = vocab._kernel_lib("ce_rank")
+    plan = vocab._stream_plan(lib, x, W, 390_001)
+    assert lib.t4r_ce_rank_blocks_per_sm(e, plan.smem, int(table == "bf16")) >= plan.blocks_per_sm
+    assert vocab.K3_IN_FLIGHT <= plan.blocks_per_sm * plan.smem <= vocab.MAX_SMEM
 
 
 # ----------------------------------------------------------------- K7a / K7b

@@ -14,7 +14,14 @@ CPU.
   top-k against the JAX model with the same weights;
 - a ``SequentialBlock`` refuses packed rows before an ``RNNBlock``, as the
   JAX one does; ``Block`` declares its module's width and passes the
-  train/eval flag on.
+  train/eval flag on;
+- the GRU4Rec-style model of both cells exported with
+  ``weights_dtype="bfloat16"`` by both packages: the served top-k scores
+  within 1e-5 and the ids equal where neighbouring scores are 1e-5 apart.
+  Both programs hold the same bf16-rounded weights and compute in f32, as
+  ``jnp`` promotes an f32 activation meeting a bf16 weight (the port casts
+  the RNN's weights up at the call), so they differ only by the order of
+  f32 sums, as the f32 artifacts of ``test_torch_export_program.py`` do.
 """
 
 import numpy as np
@@ -27,6 +34,8 @@ import jax.numpy as jnp
 
 import transformers4rec_tpu as jtr
 from transformers4rec_tpu.data.synthetic import synthetic_ecommerce_data_schema as jax_schema_fn
+from transformers4rec_tpu.serving import export_model as jax_export_model
+from transformers4rec_tpu.serving import load_runner as jax_load_runner
 
 from transformers4rec_tpu_torch import (
     Block,
@@ -40,6 +49,9 @@ from transformers4rec_tpu_torch import (
     flagship,
 )
 from transformers4rec_tpu_torch.data import pack_sessions, synthetic_data
+from transformers4rec_tpu_torch.serving import InferenceRunner, export_model
+
+from test_torch_export_program import _assert_same_topk
 
 torch.set_num_threads(1)
 
@@ -173,3 +185,30 @@ def test_rnn_refuses_packed_rows_and_block_wraps_a_module():
     assert jb.output_size() == lin.output_size()
     with pytest.raises(ValueError, match="cell_type"):
         RNNBlock(cell_type="rnn")
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_bf16_weights_export_of_an_rnn_body_serves_as_the_jax_artifact(cell, tmp_path):
+    jmodel, tmodel = _gru4rec(cell)
+    batch = synthetic_data(flagship.schema(V, S), num_rows=6, max_session_length=S, seed=4)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    rngs = {"params": jax.random.PRNGKey(0), "masking": jax.random.PRNGKey(1),
+            "dropout": jax.random.PRNGKey(2)}
+    # the JAX tree's shapes without compiling its init; the weights are the
+    # port's, moved off their init
+    template = jax.eval_shape(lambda b: jmodel.init(rngs, b, training=True), jb)
+    tmodel.reset_parameters(3)
+    params = _moved(convert.params_to_jax(tmodel.state_dict(), template), seed=5)
+    tmodel.load_state_dict(convert.params_from_jax(params))  # strict
+    want_path = jax_export_model(jmodel, jax.tree.map(jnp.asarray, params), jb,
+                                 str(tmp_path / "jax"), top_k=10, weights_dtype="bfloat16",
+                                 batch_polymorphic=False)
+    path = export_model(tmodel, batch, str(tmp_path / "port"), top_k=10,
+                        weights_dtype="bfloat16", batch_polymorphic=False)
+    want_s, want_i = jax_load_runner(want_path).predict(batch, decode_ids=False,
+                                                        encode_inputs=False)
+    got_s, got_i = InferenceRunner(path, device="cpu").predict(batch, decode_ids=False,
+                                                               encode_inputs=False)
+    _assert_same_topk(got_s, got_i, want_s, want_i)
+    # the model given to the export keeps its f32 weights
+    assert {p.dtype for p in tmodel.parameters()} == {torch.float32}

@@ -228,6 +228,29 @@ def test_ce_plan_covers_every_tile_and_chunk_once(n, vocab_size, backward):
         assert k3.blocks_per_sm * k3.smem >= vocab.K3_IN_FLIGHT  # slots in flight on an SM
 
 
+@pytest.mark.parametrize("blocks", [None, 1, 2])
+@pytest.mark.parametrize("e", [64, 128, 256])
+def test_both_table_forms_keep_the_same_bytes_in_flight(e, blocks):
+    """The streamed ring that K3 and K4 share, at the evaluation shape: a
+    bf16 table's slots have half an f32 slot's bytes, and the plan keeps
+    about ``K3_IN_FLIGHT`` bytes of the table in flight on an SM in either
+    form (more slots, or more blocks an SM where f32 fits fewer), within one
+    slot of each other; for the blocks the shared memory holds (``None``)
+    and for the blocks K3's and K4's pass may be built for."""
+    flight, slots = {}, {}
+    for bf16 in (False, True):
+        plan = vocab.ce_plan(128, e, 390_001, 390_008, SMS, False, vocab.K3_CHUNK,
+                             streamed=True, table_bf16=bf16, blocks_per_sm=blocks)
+        slots[bf16] = vocab.k3_slot(e, bf16)[1]
+        flight[bf16] = plan.blocks_per_sm * plan.stages * slots[bf16]
+        assert flight[bf16] >= vocab.K3_IN_FLIGHT
+        assert plan.blocks_per_sm * plan.smem <= vocab.MAX_SMEM
+        if blocks is not None:
+            assert plan.blocks_per_sm <= blocks
+    assert 2 * slots[True] == slots[False]
+    assert abs(flight[True] - flight[False]) <= slots[False]
+
+
 @pytest.mark.parametrize("e,ek", [(4, 64), (20, 64), (64, 64), (100, 128), (132, 256),
                                   (192, 256), (256, 256)])
 def test_ce_plan_pads_e_to_the_swizzle_width(e, ek):

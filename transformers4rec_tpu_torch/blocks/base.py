@@ -155,6 +155,21 @@ class _KeepZero:
         return out
 
 
+def _widened(rnn: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """One GRU or LSTM layer on ``x`` with its weights cast up to ``x``'s
+    type at the call, exactly: weights in a narrower type than the input
+    (``export_model(weights_dtype="bfloat16")``) meet an f32 activation, and
+    flax's cells then compute in the promotion of the two, f32. ``nn.GRU``
+    and ``nn.LSTM`` take one type only."""
+    weights = [p.to(x.dtype) for p in (rnn.weight_ih_l0, rnn.weight_hh_l0, rnn.bias_ih_l0,
+                                       rnn.bias_hh_l0)]
+    h = x.new_zeros(1, x.shape[0], rnn.hidden_size)
+    args = (weights, True, 1, 0.0, rnn.training, False, True)
+    if isinstance(rnn, nn.GRU):
+        return torch.gru(x, h, *args)[0]
+    return torch.lstm(x, (h, h), *args)[0]
+
+
 class RNNBlock(nn.Module):
     """Recurrent body: ``num_layers`` GRU or LSTM layers, (B, S, D) →
     (B, S, units), left to right (causal by construction: CLM is its
@@ -217,7 +232,8 @@ class RNNBlock(nn.Module):
             # single-layer GRU or LSTM has no dropout, so the flag changes
             # nothing else
             rnn.training = torch.is_grad_enabled()
-            x, _ = rnn(promote(x, rnn.weight_ih_l0))
+            x = promote(x, rnn.weight_ih_l0)
+            x = rnn(x)[0] if rnn.weight_ih_l0.dtype == x.dtype else _widened(rnn, x)
             if i < self.num_layers - 1:
                 x = dropout(x, self.dropout, training, generator)
         return x

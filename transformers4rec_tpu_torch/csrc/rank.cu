@@ -16,25 +16,32 @@
 // label's column is excluded explicitly, which gives the same count whenever
 // ll is the label's own logit.
 //
-// Bound on an H100 at the evaluation shape (N=128, E=64, V=390,001, W f32):
-// the table read is 390,001 x 64 x 4 B = 99.8 MB, 29.8 us at 3.35 TB/s; the
-// product is 2 x 128 x 64 x 390,001 = 6.39 GFLOP, 6.5 us at the 989 TFLOP/s
-// bf16 tensor-core rate. So the least time is set by the bytes: the design
-// keeps the card reading the table and nothing else.
+// Bound on an H100 at the evaluation shape (N=128, E=64, V=390,001): the
+// table read is 390,001 x 64 x 4 B = 99.8 MB f32, 29.8 us at 3.35 TB/s
+// (49.9 MB, 14.9 us, for a bf16-stored table); the product is
+// 2 x 128 x 64 x 390,001 = 6.39 GFLOP, 6.5 us at the 989 TFLOP/s bf16
+// tensor-core rate. So the least time is set by the bytes.
 //
-// Design. The layout of ce_rank.cu (K3) without the softmax: the TPU kernel
-// streams V as a sequential grid axis with the running count in VMEM; here
-// the vocab is split across blocks.
-//   - rank_partial_kernel: block (split, row tile) holds 128 rows of x as
-//     bf16 mma.sync A fragments in registers and loops over its slice of
-//     64-column chunks of W: f32 from device memory, rounded to bf16 into
-//     shared memory (a bf16-stored table's values are stored as they come,
-//     half the bytes: 49.9 MB, 14.9 us at the evaluation shape), scored
-//     with mma.sync.m16n8k16, the next chunk's loads in flight meanwhile.
-//     Each thread counts for its two rows; only a chunk that holds one of
-//     the thread's labels, and the vocab's last, partial chunk, pay for the
-//     column checks. One int32 partial per (split, row);
-//   - rank_merge_kernel adds the partials of every row, in order.
+// Design. K4 is K3 (ce_rank.cu) without the softmax, so it runs K3's
+// streamed pass (vocab_stream.cuh, E <= 256) with an epilogue of its own,
+// then K3's merge for counts:
+//   - stream::kernel<KS, T, Count<KS>>: a producer warp's bulk copies bring
+//     the split's table rows, as stored (f32, or bf16 at half the bytes),
+//     into a ring of slots sized by the launch plan (about 128 KB of the
+//     table in flight on each SM in either form); eight consumer warps score
+//     them with mma.sync against x's bf16 fragments. Up to E = 128 each warp
+//     holds two 16-row tiles of x and scores half of each slot (K3's warps
+//     hold one and score the whole slot), so a slot is read from shared
+//     memory four times, not eight, and each B fragment feeds two products;
+//     at E <= 64 the pass is built for two blocks an SM (a register bound).
+//     The epilogue (Count) only compares each logit with its row's ll and
+//     adds: no exponential. Only the slot that holds one of the warp's
+//     labels and the vocab's last, partial slot pay for the column checks.
+//     Each row's lanes and warps are summed in shared memory; one int32
+//     partial per (split, row);
+//   - stream::merge_kernel<false>: a block per 32 rows adds each row's
+//     partials, warps over the splits, in a fixed order.
+// A ring the launch plan would not give is refused.
 // Integer sums: the result does not depend on the order, and is the same on
 // every call.
 //
@@ -43,186 +50,108 @@
 // count, then the same merge kernel.
 
 #include "ce_wide.cuh"
+#include "vocab_stream.cuh"
 
 namespace {
 
 using namespace t4r;
 
-// One chunk's logits of the thread's two rows (acc[j][2h + q]: row h,
-// column col0 + 8j + q) into their counts. CHECKED bounds the columns by V
-// and leaves each label's own column out.
-template <bool CHECKED>
-__device__ __forceinline__ void count_rows(const float (&acc)[NT][4], int col0, int V,
-                                           const int (&lab)[2], const float (&llr)[2],
-                                           int (&cnt)[2]) {
+// The 16-row tiles of x a consumer warp of K4's pass holds (Count::MT) at KS
+// k-steps: the slot's rows are read from shared memory by WARPS / MT warps,
+// not by all WARPS, and each B fragment feeds MT products. The warp's x
+// fragments take 4 KS MT registers a thread.
+constexpr int rank_mt(int ks) { return ks <= 8 ? 2 : 1; }
+
+// A block's counts of its BN rows, summed over the warps that share them.
+__shared__ int block_counts[BN];
+
+// K4's epilogue of the streamed pass: a thread's count of logits above ll
+// for each of its 2 MT rows. CHECKED bounds the columns by V and leaves each
+// row's label column out. Each row counts in two chains (q = 0, 1), so the
+// warp has independent adds. At the end each row's four lanes are summed by
+// shuffles and its MT warps in block_counts (integer sums: the same on every
+// call, in any order).
+template <int KS>
+struct Count {
+  static constexpr int MT = rank_mt(KS);
+  static constexpr bool OVERLAP = true;  // the fold of an n-tile beside the next one's products
+  struct Out {
+    int* cnt;
+  };
+  int cnt[2 * MT] = {};
+
+  __device__ static void prepare(int tid) {
+    if (MT > 1) {
+      for (int i = tid; i < BN; i += t4r::stream::THREADS) block_counts[i] = 0;
+    }
+  }
+
+  template <bool CHECKED, int NTW, class Col>
+  __device__ __forceinline__ void update(const float (&acc)[MT][NTW][4], Col col_of, int V,
+                                         const int (&lab)[2 * MT],
+                                         const float (&llr)[2 * MT]) {
+    int gr[2 * MT][2] = {};
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+    for (int m = 0; m < MT; ++m) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+      for (int jj = 0; jj < NTW; ++jj) {
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int col = col0 + 8 * j + q;
-        const bool counted = !CHECKED || (col < V && col != lab[h]);
-        cnt[h] += (counted && acc[j][2 * h + q] > llr[h]) ? 1 : 0;
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int r = 2 * m + h, col = col_of(jj, q);
+            const bool counted = !CHECKED || (col < V && col != lab[r]);
+            gr[r][q] += (counted && acc[m][jj][2 * h + q] > llr[r]) ? 1 : 0;
+          }
+        }
       }
     }
-  }
-}
-
-// Four consecutive values of a table row, as they are read (f32: a float4,
-// bf16: two packed pairs) and as they are stored into shared memory (two
-// bf16 pairs, f32 rounded to nearest even).
-template <class T>
-struct Four;
-template <>
-struct Four<float> {
-  using Reg = float4;
-  __device__ static Reg zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ static Reg load(const float* W, size_t at) {
-    return __ldg(reinterpret_cast<const float4*>(W + at));
-  }
-  __device__ static uint2 bf16(const Reg& v) {
-    return make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-  }
-};
-template <>
-struct Four<__nv_bfloat16> {
-  using Reg = uint2;
-  __device__ static Reg zero() { return make_uint2(0u, 0u); }
-  __device__ static Reg load(const __nv_bfloat16* W, size_t at) {
-    return __ldg(reinterpret_cast<const uint2*>(W + at));
-  }
-  __device__ static uint2 bf16(const Reg& v) { return v; }
-};
-
-// KS: k-steps of 16, E rounded up to 16 * KS with zeros. T: the table's
-// values (f32, or bf16 for a bf16-stored table).
-template <int KS, class T>
-__global__ void __launch_bounds__(THREADS)
-rank_partial_kernel(const float* __restrict__ x, const T* __restrict__ W,
-                    const int* __restrict__ labels, const float* __restrict__ ll, int N,
-                    int E, int V, int chunks_per_split, int* __restrict__ part_cnt) {
-  constexpr int EK = 16 * KS;
-  constexpr int WS = EK + 8;  // bf16 per shared row: the B-fragment loads are conflict-free
-  constexpr int LOADS = BV * EK / 4 / THREADS;  // most 4-value loads of W a thread makes
-  using F = Four<T>;
-  __shared__ __align__(16) __nv_bfloat16 ws[BV * WS];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int e4n = E / 4;
-  const int nchunks = (V + BV - 1) / BV;
-  const int c_begin = blockIdx.x * chunks_per_split;
-  const int c_end = min(c_begin + chunks_per_split, nchunks);
-
-  // columns E..EK-1 stay zero: the loads below never write them
-  for (int i = tid; i < BV * WS; i += THREADS) ws[i] = __float2bfloat16(0.f);
-
-  const int row_lo = (int)blockIdx.y * BN + warp * 16 + g;
-  const int rows[2] = {row_lo, row_lo + 8};
-  uint32_t a[KS][4];
-  load_x_fragments<KS>(x, N, E, row_lo, t, a);
-
-  float llr[2];
-  int cnt[2], lab[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    cnt[h] = 0;
-    lab[h] = rows[h] < N ? labels[rows[h]] : -1;
-    llr[h] = rows[h] < N ? ll[rows[h]] : 0.f;
+    for (int r = 0; r < 2 * MT; ++r) cnt[r] += gr[r][0] + gr[r][1];
   }
 
-  // W chunk c, row-major, into registers: consecutive threads read
-  // consecutive 4-value pieces of a row
-  typename F::Reg pre[LOADS];
+  __device__ __forceinline__ void finish(const int (&rows)[2 * MT], int N, int split,
+                                         const Out& out) {
+    const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int i = 0; i < LOADS; ++i) {
-    const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
-    const int col = c_begin * BV + r;
-    pre[i] = (r < BV && col < V && c_begin < c_end) ? F::load(W, (size_t)col * E + 4 * q)
-                                                    : F::zero();
-  }
-
-  const uint32_t* ws32 = reinterpret_cast<const uint32_t*>(ws);
-  for (int c = c_begin; c < c_end; ++c) {
-    __syncthreads();  // the previous chunk is consumed (and the zero fill is done)
+    for (int r = 0; r < 2 * MT; ++r) {
 #pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
-      if (r < BV) *reinterpret_cast<uint2*>(ws + r * WS + 4 * q) = F::bf16(pre[i]);
-    }
-    __syncthreads();
-    if (c + 1 < c_end) {  // the next chunk's loads fly while this one is scored
-#pragma unroll
-      for (int i = 0; i < LOADS; ++i) {
-        const int idx = tid + i * THREADS, r = idx / e4n, q = idx - r * e4n;
-        const int col = (c + 1) * BV + r;
-        pre[i] = (r < BV && col < V) ? F::load(W, (size_t)col * E + 4 * q) : F::zero();
+      for (int off = 1; off < 4; off <<= 1) cnt[r] += __shfl_xor_sync(0xffffffffu, cnt[r], off);
+      if (MT == 1) {
+        if (t == 0 && rows[r] < N) out.cnt[(size_t)split * N + rows[r]] = cnt[r];
+      } else if (t == 0) {
+        atomicAdd(&block_counts[rows[r] % BN], cnt[r]);
       }
     }
-
-    float acc[NT][4];
-    score_chunk<KS, WS>(a, ws32, g, t, acc);
-
-    const int col0 = c * BV + 2 * t;
-    const bool full = (c + 1) * BV <= V;
-    const bool has_label = (unsigned)(lab[0] - c * BV) < (unsigned)BV ||
-                           (unsigned)(lab[1] - c * BV) < (unsigned)BV;
-    if (full && !has_label) {
-      count_rows<false>(acc, col0, V, lab, llr, cnt);
-    } else {
-      count_rows<true>(acc, col0, V, lab, llr, cnt);
+    if (MT == 1) return;
+    // the consumer warps only: the producer warp has returned
+    asm volatile("bar.sync 1, %0;\n" ::"n"(32 * t4r::stream::WARPS) : "memory");
+    const int row = (int)blockIdx.y * BN + (int)threadIdx.x;
+    if (threadIdx.x < BN && row < N) {
+      out.cnt[(size_t)split * N + row] = block_counts[threadIdx.x];
     }
   }
-
-  // add up the 4 lanes (t) that share each row
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) cnt[h] += __shfl_xor_sync(0xffffffffu, cnt[h], off);
-    if (t == 0 && rows[h] < N) part_cnt[(size_t)blockIdx.x * N + rows[h]] = cnt[h];
-  }
-}
-
-__global__ void rank_merge_kernel(const int* __restrict__ part_cnt, int splits, int N,
-                                  int* __restrict__ cnt) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  int c = 0;
-  for (int k = 0; k < splits; ++k) c += part_cnt[(size_t)k * N + n];
-  cnt[n] = c;
-}
-
-template <int KS, class T>
-cudaError_t launch_partial(dim3 grid, cudaStream_t st, const float* x, const T* W,
-                           const int* labels, const float* ll, int N, int E, int V,
-                           int chunks_per_split, int* part_cnt) {
-  rank_partial_kernel<KS, T><<<grid, THREADS, 0, st>>>(x, W, labels, ll, N, E, V,
-                                                       chunks_per_split, part_cnt);
-  return cudaGetLastError();
-}
+};
 
 template <class T>
 int rank_entry(const float* x, const T* W, const int* labels, const float* ll, int N, int E,
-               int V, int splits, int chunks_per_split, int* part_cnt, int* cnt, void* stream) {
-  if (E < 4 || E > 256 || E % 4 != 0) return (int)cudaErrorInvalidValue;
+               int V, int splits, int chunks_per_split, int stages, int smem, int* part_cnt,
+               int* cnt, void* stream) {
+  namespace ts = t4r::stream;
+  if (E < 4 || E > 256 || E % 4 != 0 || stages < ts::MIN_STAGES ||
+      smem != ts::smem_of<T>(E, stages) || smem > ts::MAX_SMEM) {
+    return (int)cudaErrorInvalidValue;  // not the plan's ring
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid(splits, (N + BN - 1) / BN);
-  cudaError_t err;
-  // E is rounded up to 16, 32, 64, 128 or 256 (zero padded)
-#define T4R_RANK_KS(KS_) \
-  err = launch_partial<KS_, T>(grid, st, x, W, labels, ll, N, E, V, chunks_per_split, part_cnt)
-  if (E <= 16) T4R_RANK_KS(1);
-  else if (E <= 32) T4R_RANK_KS(2);
-  else if (E <= 64) T4R_RANK_KS(4);
-  else if (E <= 128) T4R_RANK_KS(8);
-  else T4R_RANK_KS(16);
-#undef T4R_RANK_KS
+  cudaError_t err = ts::with_ks(E, [&](auto ks) {
+    constexpr int KS = decltype(ks)::value;
+    return ts::launch<KS, T, Count<KS>>(grid, st, x, W, labels, ll, N, E, V, chunks_per_split,
+                                        stages, smem, {part_cnt});
+  });
   if (err != cudaSuccess) return (int)err;
-  const int merge_threads = 128;
-  rank_merge_kernel<<<(N + merge_threads - 1) / merge_threads, merge_threads, 0, st>>>(
-      part_cnt, splits, N, cnt);
-  return (int)cudaGetLastError();
+  return (int)ts::launch_merge<false>(st, nullptr, nullptr, part_cnt, nullptr, splits, N,
+                                      nullptr, cnt, nullptr);
 }
 
 }  // namespace
@@ -232,24 +161,45 @@ extern "C" {
 int t4r_rank_block_rows() { return t4r::BN; }
 int t4r_rank_chunk_cols() { return t4r::BV; }
 
-// Launches the partial and the merge kernel on `stream`. The caller checks
-// shapes (E a multiple of 4, at most 256: wider tables take the wide entry
-// below), dtypes, contiguity and
-// alignment, and allocates every buffer: part_cnt is (splits, N), cnt (N,).
-// V may be 0 (splits = 1): every count is then 0. Returns the first CUDA
-// error (0 when both launches were accepted).
+// Launches the streamed pass and the merge on `stream`, with the splits, ring
+// slots (`stages`) and shared memory of the launch plan (ops/vocab.py:
+// ce_plan(..., streamed=True)); a ring the plan would not give is refused.
+// The caller checks shapes (E a multiple of 4, at most 256: wider tables
+// take the wide entry below), dtypes, contiguity and alignment, and
+// allocates every buffer: part_cnt is (splits, N), cnt (N,). V may be 0
+// (splits = 1): every count is then 0. Returns the first CUDA error (0 when
+// both launches were accepted).
 int t4r_rank(const float* x, const float* W, const int* labels, const float* ll, int N,
-             int E, int V, int splits, int chunks_per_split, int* part_cnt, int* cnt,
-             void* stream) {
-  return rank_entry(x, W, labels, ll, N, E, V, splits, chunks_per_split, part_cnt, cnt, stream);
+             int E, int V, int splits, int chunks_per_split, int stages, int smem,
+             int* part_cnt, int* cnt, void* stream) {
+  return rank_entry(x, W, labels, ll, N, E, V, splits, chunks_per_split, stages, smem,
+                    part_cnt, cnt, stream);
 }
 
-// The same on a bf16-stored table W.
+// The same on a bf16-stored table W, with the ring of t4r_rank_smem_bf16.
 int t4r_rank_bf16(const float* x, const void* W, const int* labels, const float* ll, int N,
-                  int E, int V, int splits, int chunks_per_split, int* part_cnt, int* cnt,
-                  void* stream) {
+                  int E, int V, int splits, int chunks_per_split, int stages, int smem,
+                  int* part_cnt, int* cnt, void* stream) {
   return rank_entry(x, static_cast<const __nv_bfloat16*>(W), labels, ll, N, E, V, splits,
-                    chunks_per_split, part_cnt, cnt, stream);
+                    chunks_per_split, stages, smem, part_cnt, cnt, stream);
+}
+
+// The shared memory of the streamed pass with `stages` slots at width E
+// (what ops/vocab.py:ce_plan computes for it), for an f32 or a bf16 table:
+// K3's ring, so the same bytes as t4r_ce_rank_smem.
+int t4r_rank_smem(int E, int stages) { return t4r::stream::smem_of<float>(E, stages); }
+int t4r_rank_smem_bf16(int E, int stages) {
+  return t4r::stream::smem_of<__nv_bfloat16>(E, stages);
+}
+// The blocks an SM is to hold of K4's pass at width E (its launch bound,
+// stream::min_blocks): the launch plan's blocks_per_sm where the shared
+// memory holds them.
+int t4r_rank_min_blocks(int E) { return t4r::stream::min_blocks_of(E); }
+
+// How many blocks of K4's streamed pass with `smem` bytes of shared memory
+// one SM holds at width E: the launch plan's blocks_per_sm must fit.
+int t4r_rank_blocks_per_sm(int E, int smem, int bf16) {
+  return t4r::stream::resident_blocks_of<Count>(E, smem, bf16 != 0);
 }
 
 // The same on the images of x and of W's first V rows (t4r_image, ek a
@@ -265,10 +215,8 @@ int t4r_rank_wide(const void* ximg, const void* wimg, const int* labels, const f
       static_cast<const uint8_t*>(wimg), labels, ll, N, V, ek, resident, chunks_per_split,
       nullptr, nullptr, nullptr, part_cnt, nullptr);
   if (err != cudaSuccess) return (int)err;
-  const int merge_threads = 128;
-  rank_merge_kernel<<<(N + merge_threads - 1) / merge_threads, merge_threads, 0, st>>>(
-      part_cnt, splits, N, cnt);
-  return (int)cudaGetLastError();
+  return (int)t4r::stream::launch_merge<false>(st, nullptr, nullptr, part_cnt, nullptr, splits,
+                                               N, nullptr, cnt, nullptr);
 }
 
 const char* t4r_cuda_error_string(int err) {

@@ -218,7 +218,7 @@ _ARGTYPES = {
     "ce_rank": [_P] * 4 + [_I] * 7 + [_P] * 7 + [_I, _P],
     "ce_fwd": [_P] * 3 + [_I] * 8 + [_P] * 7 + [_I, _P],
     "ce_bwd": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 9 + [_F] * 2 + [_I] * 2 + [_P] * 5,
-    "rank": [_P] * 4 + [_I] * 5 + [_P] * 3,
+    "rank": [_P] * 4 + [_I] * 7 + [_P] * 3,
 }
 # K3 and K4 on tables wider than 256: K1's wide kernel with their epilogue,
 # on the images (ximg, wimg, labels, ll, N, V, ek, resident, row_tiles,
@@ -227,6 +227,13 @@ _WIDE_ARGTYPES = {
     "ce_rank": [_P] * 4 + [_I] * 7 + [_P] * 7 + [_I, _P],
     "rank": [_P] * 4 + [_I] * 7 + [_P] * 3,
 }
+
+
+# K3's and K4's queries of their kernels' layout: rows of a tile, columns of
+# a chunk, the blocks an SM is to hold of the narrow pass at width E and how
+# many it holds with a given shared memory (E, smem, bf16)
+_QUERY_ARGTYPES = {"block_rows": [], "chunk_cols": [], "min_blocks": [_I],
+                   "blocks_per_sm": [_I] * 3}
 
 
 def _kernel_lib(name: str) -> ctypes.CDLL:
@@ -245,9 +252,9 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
         if name in _WIDE_ARGTYPES:  # K3 and K4: row tiles of CE_TILE too, chunks of their own width
             wide = getattr(lib, f"t4r_{name}_wide")
             wide.argtypes, wide.restype = _WIDE_ARGTYPES[name], _I
-            for what in ("block_rows", "chunk_cols"):
+            for what in ("block_rows", "chunk_cols", "min_blocks", "blocks_per_sm"):
                 fn = getattr(lib, f"t4r_{name}_{what}")
-                fn.argtypes, fn.restype = [], _I
+                fn.argtypes, fn.restype = _QUERY_ARGTYPES[what], _I
                 setattr(lib, f"t4r_{what}", fn)
             if lib.t4r_block_rows() != CE_TILE:
                 raise RuntimeError(f"{name}: row tiles of {lib.t4r_block_rows()}, "
@@ -265,10 +272,11 @@ NARROW_E, NARROW_E_BWD = 4 * CE_SLAB, 2 * CE_SLAB
 # a wide forward keeps its x tile in shared memory up to 8 slabs (128 KB),
 # beside a ring of at least 6 slots (csrc/ce_wide.cuh)
 RESIDENT_SLABS = 8
-# K3's narrow kernel streams the table into a ring of at least 4 slots a
-# block, about 128 KB in flight on each SM (twice the slots of a bf16 table,
-# whose slots are half the bytes), within the shared memory a block may ask
-# for (csrc/ce_rank.cu: Slot, stream_smem; csrc/hopper.cuh: MAX_SMEM)
+# K3's and K4's narrow kernels (one streamed pass, two epilogues) stream the
+# table into a ring of at least 4 slots a block, about 128 KB in flight on
+# each SM (twice the slots of a bf16 table, whose slots are half the bytes),
+# within the shared memory a block may ask for (csrc/vocab_stream.cuh: Slot,
+# smem; csrc/hopper.cuh: MAX_SMEM)
 K3_CHUNK = 64
 K3_MIN_STAGES, K3_IN_FLIGHT = 4, 128 << 10
 MAX_SMEM = 232_448
@@ -294,9 +302,10 @@ class CEPlan:
     tile, each owning 128 columns of dx or dW and recomputing the logits.
 
     ``stages`` and ``smem``: the ring slots and shared memory of a block of
-    K3's narrow kernel (``streamed``), which streams the table as it is
-    stored (f32 or bf16) into its ring; ``blocks_per_sm`` of them share an
-    SM. 0 for every other kernel."""
+    K3's or K4's narrow kernel (``streamed``: the pass of
+    ``csrc/vocab_stream.cuh``), which streams the table as it is stored (f32
+    or bf16) into its ring; ``blocks_per_sm`` of them share an SM. 0 for
+    every other kernel."""
 
     n: int
     e: int
@@ -342,11 +351,11 @@ class CEPlan:
 
 
 def k3_slot(e: int, bf16: bool = False) -> Tuple[int, int]:
-    """``(rows, bytes)`` of a ring slot of K3's narrow kernel at width ``e``
-    (``Slot`` in ``csrc/ce_rank.cu``): groups of 8 table rows, one bulk copy
-    each, 8 groups (4 where e pads to 256); a group is followed by zeros, at
-    least as many values as e lacks of its padding to 16 · KS values (16,
-    32, 64, 128 or 256). Of f32 rows (``bf16`` False) a group then starts 16
+    """``(rows, bytes)`` of a ring slot of K3's and K4's narrow kernel at
+    width ``e`` (``Slot`` in ``csrc/vocab_stream.cuh``): groups of 8 table
+    rows, one bulk copy each, 8 groups (4 where e pads to 256); a group is
+    followed by zeros, at least as many values as e lacks of its padding to
+    16 · KS values (16, 32, 64, 128 or 256). Of f32 rows (``bf16`` False) a group then starts 16
     words more than a multiple of 32 after the last, so that the consumers'
     16-byte reads of two rows of neighbouring groups hit distinct banks; of
     bf16 rows 8 words more, for their 8-byte reads of four groups' rows."""
@@ -361,7 +370,7 @@ def k3_slot(e: int, bf16: bool = False) -> Tuple[int, int]:
 
 def ce_plan(n: int, e: int, vocab_size: int, table_rows: int, sms: int, backward: bool,
             chunk_cols: int = CE_TILE, streamed: bool = False,
-            table_bf16: bool = False) -> CEPlan:
+            table_bf16: bool = False, blocks_per_sm: Optional[int] = None) -> CEPlan:
     """The launch plan of a vocab kernel for ``n`` rows of width ``e``
     against a table of ``table_rows`` rows whose first ``vocab_size`` are the
     vocab, on a card with ``sms`` SMs: K1 (``backward=False``), K2, or with
@@ -378,13 +387,21 @@ def ce_plan(n: int, e: int, vocab_size: int, table_rows: int, sms: int, backward
     K1's table image needs only the vocab's chunks; K2's dW pass covers every
     row of the table.
 
-    ``streamed`` (K3's narrow kernel): each block also gets a ring of
-    ``stages`` slots (``k3_slot``) and its ``smem`` bytes; two blocks share an
-    SM where a ring of ``K3_MIN_STAGES`` slots fits twice, else one, and the
-    vocab is split for that many blocks per SM, the slots chosen so that
-    about ``K3_IN_FLIGHT`` bytes of the table are in flight on each SM; a
-    bf16-stored table (``table_bf16``) has slots of half the bytes, so about
-    twice as many."""
+    ``streamed`` (the narrow K3 and K4: one pass, ``csrc/vocab_stream.cuh``,
+    with K3's softmax-and-count epilogue or K4's count): each block also
+    gets a ring of ``stages`` slots (``k3_slot``) and its ``smem`` bytes;
+    two blocks share an SM where a ring of ``K3_MIN_STAGES`` slots fits
+    twice, else one, and the vocab is split for that many blocks per SM, the
+    slots chosen so that about ``K3_IN_FLIGHT`` bytes of the table are in
+    flight on each SM; a bf16-stored table (``table_bf16``) has slots of half
+    the bytes, so about twice as many, or two blocks an SM where f32 slots
+    fit one: either form keeps about the same bytes in flight. The kernels
+    refuse a ring other than the plan's. ``blocks_per_sm``, where given, is
+    how many blocks of the pass an SM is to hold (the pass's launch bound,
+    ``t4r_ce_rank_min_blocks`` and ``t4r_rank_min_blocks``: two up to E =
+    64, one past it, where its registers keep an SM to one), at most the two
+    the shared memory may hold: the vocab is split for them and the ring
+    sized for them, so about the same bytes stay in flight."""
     wide = e > (NARROW_E_BWD if backward else NARROW_E)
     if wide:
         chunk_cols = CE_TILE
@@ -395,10 +412,12 @@ def ce_plan(n: int, e: int, vocab_size: int, table_rows: int, sms: int, backward
         ek = 64 if e <= 64 else 128 if e <= 128 else 256
         slabs = ek // CE_SLAB
     stages = smem = 0
-    blocks_per_sm = 2
+    wanted, blocks_per_sm = blocks_per_sm, 2
     if streamed and not wide:
         slot = k3_slot(e, table_bf16)[1] + 16  # a slot and its two barriers
         blocks_per_sm = 2 if 2 * K3_MIN_STAGES * slot <= MAX_SMEM else 1
+        if wanted is not None:
+            blocks_per_sm = min(wanted, blocks_per_sm)
         stages = max(K3_MIN_STAGES, -(-K3_IN_FLIGHT // (blocks_per_sm * slot)))
         stages = min(stages, MAX_SMEM // blocks_per_sm // slot)
         smem = stages * slot
@@ -431,10 +450,18 @@ def swizzled_image_index(rows: int, ek: int) -> torch.Tensor:
 
 
 def _plan_for(x, W, vocab_size: int, backward: bool, chunk_cols: int = CE_TILE,
-              streamed: bool = False) -> CEPlan:
+              streamed: bool = False, **kw) -> CEPlan:
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     return ce_plan(x.shape[0], x.shape[1], vocab_size, W.shape[0], sms, backward, chunk_cols,
-                   streamed, table_bf16=W.dtype == torch.bfloat16)
+                   streamed, table_bf16=W.dtype == torch.bfloat16, **kw)
+
+
+def _stream_plan(lib: ctypes.CDLL, x, W, vocab_size: int) -> CEPlan:
+    """The launch plan of K3's or K4's narrow pass (``lib``: ``ce_rank`` or
+    ``rank``): the streamed ring, split and sized for the blocks an SM holds
+    of the pass (``t4r_min_blocks``, its launch bound)."""
+    return _plan_for(x, W, vocab_size, False, lib.t4r_chunk_cols(), streamed=True,
+                     blocks_per_sm=lib.t4r_min_blocks(x.shape[1]))
 
 
 def _write_image(lib: ctypes.CDLL, src: torch.Tensor, rows: int, img: torch.Tensor,
@@ -459,7 +486,7 @@ def _ce_rank_cuda(x, W, labels, ll, vocab_size, smooth):
     lib = _kernel_lib("ce_rank")
     N, E = x.shape
     dev = x.device
-    plan = _plan_for(x, W, vocab_size, False, lib.t4r_chunk_cols(), streamed=True)
+    plan = _stream_plan(lib, x, W, vocab_size)
     splits, per_split = plan.splits, plan.chunks_per_split
     part_m = torch.empty((splits, N), dtype=torch.float32, device=dev)
     part_s = torch.empty((splits, N), dtype=torch.float32, device=dev)
@@ -738,7 +765,7 @@ def _rank_cuda(x, W, ll, labels, vocab_size):
     lib = _kernel_lib("rank")
     N, E = x.shape
     dev = x.device
-    plan = _plan_for(x, W, vocab_size, False, lib.t4r_chunk_cols(), streamed=True)
+    plan = _stream_plan(lib, x, W, vocab_size)
     splits, per_split = plan.splits, plan.chunks_per_split
     part_cnt = torch.empty((splits, N), dtype=torch.int32, device=dev)
     cnt = torch.empty(N, dtype=torch.int32, device=dev)
@@ -755,7 +782,7 @@ def _rank_cuda(x, W, ll, labels, vocab_size):
             entry = lib.t4r_rank_bf16 if W.dtype == torch.bfloat16 else lib.t4r_rank
             err = entry(
                 x.data_ptr(), W.data_ptr(), labels.data_ptr(), ll.data_ptr(),
-                N, E, vocab_size, splits, per_split,
+                N, E, vocab_size, splits, per_split, plan.stages, plan.smem,
                 part_cnt.data_ptr(), cnt.data_ptr(), stream,
             )
     raise_on_error(lib, err, "rank")
